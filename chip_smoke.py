@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path once on one CUDA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own lines, each fatal on failure:
+
+1. card: ``nvidia-smi`` name and power limit;
+2. build: compile ``geniconet_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
+3. kernel vs plain: each of the four kernels against its plain PyTorch
+   version at the shapes the serving path gives it (IcoAE, s=5, widths
+   64/128/256, B=16), in float32 (TF32 off) and bfloat16, with the error
+   against the stated tolerance and the median CUDA-event time of both;
+4. serving slice: ``AppState.load`` on 32 synthetic meshes with seeded
+   random weights (non-trivial BN statistics), then ``handle_api`` requests,
+   in bfloat16 and float32; every mesh must have 10,242 finite vertices,
+   every kernel must have launched, and two float32 decodes must match the
+   same model run through the plain route on the CPU;
+5. timings: p50 single-mesh decode latency and encode+decode meshes/s at B=16;
+6. profile: where the device time goes in both timed workloads (bfloat16),
+   read from a ``torch.profiler`` trace, with the device's idle share; the
+   Chrome traces are kept in ``build/profile/``.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
+with an error before printing any result.
+"""
+
+from __future__ import annotations
+
+import collections
+import copy
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SUBDIVISIONS = 5
+WIDTHS = (64, 128, 256)
+BATCH = 16
+N_MESHES = 32
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # times max|ref|
+TOL_WHY = {
+    torch.float32: "only the order of the float32 sums differs",
+    torch.bfloat16: "float32 sums round to bf16 at different points",
+}
+KERNELS = {
+    "phase_conv_fwd": ("geniconet_tpu_torch/csrc/phase_conv.cu",
+                       "geniconet_tpu/ops/pallas/phase_kernel.py:1272"),
+    "up_dual_conv_fwd": ("geniconet_tpu_torch/csrc/up_conv.cu",
+                         "geniconet_tpu/ops/pallas/phase_kernel.py:1999"),
+    "pair_head_fwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
+                      "geniconet_tpu/ops/pallas/phase_kernel.py:3241"),
+    "ico_conv_s2s_fwd": ("geniconet_tpu_torch/csrc/ico_conv.cu",
+                         "geniconet_tpu/ops/pallas/conv_kernel.py:253"),
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def serving_cases():
+    """(kernel, label, make(dtype, gen) -> (kernel_fn, plain_fn)) at the serving shapes."""
+    from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    B, (w0, w1, w2) = BATCH, WIDTHS
+
+    def rnd(gen, *shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def act(gen, c):
+        return (torch.rand(c, generator=gen, device="cuda") + 0.5, rnd(gen, c, scale=0.3))
+
+    def taps(gen, cin, cout, dt):
+        return rnd(gen, 7, cin, cout, dtype=dt, scale=(7 * cin) ** -0.5), rnd(gen, cout, dtype=dt)
+
+    def phase(h, w, cin, cout, n_sets, out_phases, with_act):
+        def make(dt, gen):
+            ph = [rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+            sets = [taps(gen, cin, cout, dt) for _ in range(n_sets)]
+            a = act(gen, cin) if with_act else None
+            return (lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a),
+                    lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a))
+        return make
+
+    def up(h, w, cin, cout):
+        def make(dt, gen):
+            x = rnd(gen, B, 5, h, w, cin, dtype=dt)
+            sets = [taps(gen, cin, cout, dt) for _ in range(2)]
+            return (lambda: pk.up_dual_conv_fwd(x, sets), lambda: pk.up_dual_conv_fwd_plain(x, sets))
+        return make
+
+    def std(h, w, c):
+        def make(dt, gen):
+            x = rnd(gen, B, 5, h, w, c, dtype=dt)
+            t, b = taps(gen, c, c, dt)
+            a = act(gen, c)
+            return (lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a),
+                    lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a))
+        return make
+
+    def head(h, w, c):
+        def make(dt, gen):
+            b0 = [rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            y10 = [rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            aff = [*act(gen, c), *act(gen, c)]
+            W, bias = rnd(gen, c, 3, dtype=dt, scale=c**-0.5), rnd(gen, 3, dtype=dt)
+            return (lambda: pk.pair_head_fwd(b0, y10, aff, W, bias),
+                    lambda: pk.pair_head_fwd_plain(b0, y10, aff, W, bias))
+        return make
+
+    return [
+        ("phase_conv_fwd", "conv_in (16,32) 3->64", phase(16, 32, 3, w0, 1, (0, 1, 2, 3), False)),
+        ("phase_conv_fwd", "down0 s2 (16,32) 64->2x128", phase(16, 32, w0, w1, 2, (2,), True)),
+        ("phase_conv_fwd", "down1 s2 (8,16) 128->2x256", phase(8, 16, w1, w2, 2, (2,), True)),
+        ("phase_conv_fwd", "down2 s2 (4,8) 256->2x256", phase(4, 8, w2, w2, 2, (2,), True)),
+        ("phase_conv_fwd", "up0 conv01 (4,8) 256->256", phase(4, 8, w2, w2, 1, (0, 1, 2, 3), True)),
+        ("phase_conv_fwd", "up1 conv01 (8,16) 128->128", phase(8, 16, w1, w1, 1, (0, 1, 2, 3), True)),
+        ("phase_conv_fwd", "up2 conv01 (16,32) 64->64", phase(16, 32, w0, w0, 1, (0, 1, 2, 3), True)),
+        ("up_dual_conv_fwd", "up0 (4,8) 256->2x256", up(4, 8, w2, w2)),
+        ("up_dual_conv_fwd", "up1 (8,16) 256->2x128", up(8, 16, w2, w1)),
+        ("up_dual_conv_fwd", "up2 (16,32) 128->2x64", up(16, 32, w1, w0)),
+        ("ico_conv_s2s_fwd", "down0 conv01 (16,32) 128", std(16, 32, w1)),
+        ("ico_conv_s2s_fwd", "down1 conv01 (8,16) 256", std(8, 16, w2)),
+        ("ico_conv_s2s_fwd", "down2 conv01 (4,8) 256", std(4, 8, w2)),
+        ("pair_head_fwd", "head (16,32) 64->3", head(16, 32, w0)),
+    ]
+
+
+def flat(out):
+    """Nested tuples/lists of tensors -> list of tensors."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in flat(o)]
+
+
+def kernel_vs_plain(card: str) -> dict:
+    """Phase 3. Returns per kernel its largest max_abs_err over all its cases,
+    and ms / plain_ms: its bf16 median times summed over its serving shapes."""
+    stats = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, label, make in serving_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            kernel_fn, plain_fn = make(dt, gen)
+            got, ref = flat(kernel_fn()), flat(plain_fn())
+            torch.cuda.synchronize()
+            err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+            scale = max(r.float().abs().max().item() for r in ref)
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            print(f"[kernel] {name} {label} {tag}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+                  f"rel={err / scale:.3e} tol={TOL[dt]:.0e} ({TOL_WHY[dt]}); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
+            if not finite or not err <= TOL[dt] * scale:
+                raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
+                                     f"{TOL[dt]} x {scale} (finite={finite})")
+            s = stats[name]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            if dt == torch.bfloat16:
+                s["ms"] += ms
+                s["plain_ms"] += plain_ms
+    return stats
+
+
+def check_mesh(vertices, n: int, what: str):
+    import numpy as np
+
+    v = np.asarray(vertices, np.float32).reshape(-1, 3)
+    if v.shape[0] != n or not np.isfinite(v).all():
+        raise AssertionError(f"{what}: {v.shape[0]} vertices (want {n}), "
+                             f"finite={bool(np.isfinite(v).all())}")
+
+
+def serve(dtype_name: str, variables, card: str):
+    """Phase 4 for one compute dtype: load + requests. Returns the state."""
+    from geniconet_tpu_torch import Config
+    from geniconet_tpu_torch import geometry as ico
+    from geniconet_tpu_torch.app.server import handle_api
+    from geniconet_tpu_torch.app.state import AppState
+
+    cfg = Config()
+    cfg.model.subdivisions, cfg.model.widths = SUBDIVISIONS, WIDTHS
+    cfg.model.compute_dtype = dtype_name
+    cfg.data.synthetic = N_MESHES
+    V = ico.num_vertices(SUBDIVISIONS)
+    st = AppState(device="cuda")
+    t0 = time.perf_counter()
+    info = st.load(cfg, variables)
+    torch.cuda.synchronize()
+    print(f"[serve {dtype_name}] load: {info['n']} meshes, latent {info['latent_shape']}, "
+          f"{time.perf_counter() - t0:.2f} s (dataset build included)", flush=True)
+    if handle_api(st, "/api/info", {})["n"] != N_MESHES:
+        raise AssertionError("/api/info: wrong mesh count")
+    requests = [
+        ("/api/mesh", {"i": 0, "coloring": "patch"}),
+        ("/api/interpolate", {"i": 0, "j": 1, "t": 0.5, "coloring": "patch"}),
+        ("/api/explore", {"i": 0, "channel": 3, "delta": 1.5, "coloring": "patch"}),
+    ]
+    for path, body in requests:
+        check_mesh(handle_api(st, path, body)["vertices"], V, f"{dtype_name} {path}")
+    out = handle_api(st, "/api/decode", {"indices": list(range(8))})
+    if len(out["vertices"]) != 8:
+        raise AssertionError(f"/api/decode returned {len(out['vertices'])} meshes")
+    for k, v in enumerate(out["vertices"]):
+        check_mesh(v, V, f"{dtype_name} /api/decode mesh {k}")
+    print(f"[serve {dtype_name}] /api/info /api/mesh /api/interpolate /api/explore /api/decode(8): "
+          f"every mesh {V} finite vertices [{card}]", flush=True)
+    return st
+
+
+def plain_route_check(st, card: str):
+    """Two float32 decodes on the card against the same model on the CPU."""
+    from geniconet_tpu_torch.ops.vertices import grid_to_vertices
+
+    z = st.latents[:2]
+    got = st.decode_batch(z)
+    cpu_model = copy.deepcopy(st.model).cpu()
+    with torch.inference_mode():
+        ref = grid_to_vertices(cpu_model.decode(torch.from_numpy(z)), SUBDIVISIONS).numpy()
+    err = float(abs(got - ref).max())
+    scale = float(abs(ref).max())
+    print(f"[serve float32] kernel route vs plain route on CPU, 2 meshes: max_abs_err={err:.3e} "
+          f"max|ref|={scale:.3e} tol=1e-4 x max|ref| [{card}]", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"kernel route differs from the plain route: {err}")
+
+
+def timings(st, dtype_name: str, card: str):
+    """Phase 5: p50 single-mesh decode latency, encode+decode meshes/s at B=16."""
+    lat = []
+    for i in range(40):
+        t0 = time.perf_counter()
+        st.decode_latent(st.latents[i % N_MESHES])
+        lat.append(time.perf_counter() - t0)
+    p50 = statistics.median(lat[5:]) * 1e3
+    x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: st.model.decode(st.model.encode(x)), reps=10)
+    print(f"[timing {dtype_name}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
+          f"latent in -> vertices out); encode+decode B={BATCH}: {ms:.3f} ms = "
+          f"{BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
+
+
+def kernel_group(event: dict) -> str:
+    """The profile's row for one device event of a Chrome trace."""
+    name = event["name"]
+    if event.get("cat") != "kernel":
+        return event.get("cat", "other")  # gpu_memcpy, gpu_memset
+    if "conv_gemm" in name:
+        # phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad instantiation
+        loader = "UpLoad" if "UpLoad" in name else "GridLoad"
+        dtype = "bf16" if "bfloat16" in name else "fp32"
+        return f"conv_gemm<{dtype}, {loader}>"
+    if "pair_head_kernel" in name:
+        return "pair_head_kernel"
+    return "PyTorch ops"
+
+
+def busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in the trace's µs, as ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def device_profile(st, card: str, iters: int = 20):
+    """Phase 6: device time per kernel group and the idle share.
+
+    Idle share = 1 - (device busy time per iteration, from the union of the
+    trace's device events) / (host wall time per iteration, measured without
+    the profiler, synchronised at both ends)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geniconet_tpu_torch.ops.kernels import build
+
+    x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
+    z = st.latents[0]
+
+    def encode_decode():
+        with torch.inference_mode():
+            st.model.decode(st.model.encode(x))
+
+    out_dir = Path(__file__).resolve().parent / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for tag, fn in [(f"encode_decode_B{BATCH}", encode_decode),
+                    ("decode_latent_B1", lambda: st.decode_latent(z))]:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+        build.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        launches = {k: v / iters for k, v in sorted(build.LAUNCHES.items())}
+        trace = out_dir / f"{tag}.json"
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if not events:
+            raise AssertionError(f"profile {tag}: the trace holds no device events")
+        busy = busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / iters
+        span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3 / iters
+        groups = collections.defaultdict(lambda: [0, 0.0])
+        for e in events:
+            g = groups[kernel_group(e)]
+            g[0] += 1
+            g[1] += e["dur"] / 1e3
+        summed = sum(ms for _, ms in groups.values()) / iters
+        print(f"[profile bfloat16 {tag}] {iters} iterations: host wall {wall:.4f} ms/iter "
+              f"(profiler off); device busy {busy:.4f} ms/iter (union of {len(events) / iters:.1f} "
+              f"device events/iter, summed {summed:.4f} ms); device idle share "
+              f"{1 - busy / wall:.4f}; first-to-last device event {span:.4f} ms/iter "
+              f"(profiler on); wrapper launches/iter {launches} [{card}]", flush=True)
+        for name, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"[profile bfloat16 {tag}]   {name}: {n / iters:.1f} calls/iter, "
+                  f"{ms / iters:.4f} ms/iter, {ms / iters / busy:.4f} of busy", flush=True)
+        glue = collections.Counter()
+        for e in events:
+            if kernel_group(e) == "PyTorch ops":
+                glue[e["name"][:80]] += e["dur"] / 1e3 / iters
+        for name, ms in glue.most_common(5):
+            print(f"[profile bfloat16 {tag}]     glue {name}: {ms:.4f} ms/iter", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU")
+    from geniconet_tpu_torch import bridge
+    from geniconet_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)  # as nvidia-smi gives it: name, power limit
+
+    t0 = time.perf_counter()
+    build.library()
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    stats = kernel_vs_plain(card)
+
+    variables = bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True)
+    build.reset_launches()
+    states = {name: serve(name, variables, card) for name in ("bfloat16", "float32")}
+    launches = dict(build.LAUNCHES)
+    print(f"[serve] kernel launches on the serving slice: {launches}", flush=True)
+    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serving slice: {missing}")
+    plain_route_check(states["float32"], card)
+    for name, st in states.items():
+        timings(st, name, card)
+    device_profile(states["bfloat16"], card)
+
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
+         **stats[k]}
+        for k, (src, rep) in KERNELS.items()
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,92 @@
+"""Weight bridge between the flax variable tree and the port's state_dict.
+
+The flax tree of ``geniconet_tpu.nn.models.IcoAE`` (the same on its XLA and
+fused routes) is ``{"params": ..., "batch_stats": ...}`` as nested dicts;
+the port's module tree mirrors it, so the mapping is by path:
+
+  params/<path>/{taps,bias}                  <-> <path>.{taps,bias}
+  params/<path>/BatchNorm_0/{scale,bias}     <-> <path>.{scale,bias}
+  batch_stats/<path>/BatchNorm_0/{mean,var}  <-> <path>.{mean,var}
+  params/decoder/head/{kernel,bias}          <-> decoder.head.{kernel,bias}
+
+A BatchNorm is the module whose name starts with ``bn``. ``init_variables``
+builds such a tree in numpy from a seed, in the JAX package's init recipe,
+so weights can be made without JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["flax_to_state_dict", "state_dict_to_flax", "init_variables"]
+
+_BN = "BatchNorm_0"
+
+
+def _flatten(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
+    """flax {"params", "batch_stats"} tree (nested dicts of arrays) -> state_dict."""
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            key = ".".join(p for p in path if p != _BN)
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key!r}")
+            out[key] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return out
+
+
+def state_dict_to_flax(state_dict) -> dict:
+    """state_dict -> flax {"params", "batch_stats"} tree of float32 numpy arrays."""
+    tree = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *mods, leaf = key.split(".")
+        is_bn = bool(mods) and mods[-1].startswith("bn")
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        node = tree[collection]
+        for m in mods + ([_BN] if is_bn else []):
+            node = node.setdefault(m, {})
+        node[leaf] = value.detach().cpu().numpy().astype(np.float32)
+    return tree
+
+
+def init_variables(subdivisions: int = 5, widths=(64, 128, 256), seed: int = 0,
+                   random_stats: bool = False) -> dict:
+    """A seeded IcoAE variable tree in the JAX init recipe: conv taps and
+    bias U(±1/sqrt(7·C_in)) (``layers.py:hex_uniform_init``), head kernel
+    and bias U(±1/sqrt(fan_in)), BN scale 1, bias 0, mean 0, var 1.
+    ``random_stats`` draws non-trivial BN affines and running statistics
+    instead, so that eval-mode BN is exercised."""
+    from geniconet_tpu_torch.nn.models import IcoAE
+
+    shapes = {k: tuple(v.shape)
+              for k, v in IcoAE(subdivisions, widths, device="meta").state_dict().items()}
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key in sorted(shapes):
+        shape, leaf = shapes[key], key.rsplit(".", 1)[-1]
+        mod = key.rsplit(".", 1)[0]
+        if mod.rsplit(".", 1)[-1].startswith("bn"):
+            if not random_stats:
+                fill = {"scale": 1.0, "bias": 0.0, "mean": 0.0, "var": 1.0}[leaf]
+                v = np.full(shape, fill, np.float32)
+            elif leaf in ("scale", "var"):
+                v = rng.uniform(0.5, 1.5, shape)
+            else:
+                v = 0.1 * rng.randn(*shape)
+        else:
+            fan_in = (shapes[f"{mod}.kernel"][0] if mod.endswith("head")
+                      else 7 * shapes[f"{mod}.taps"][1])
+            bound = 1.0 / fan_in**0.5
+            v = rng.uniform(-bound, bound, shape)
+        sd[key] = torch.from_numpy(np.asarray(v, np.float32))
+    return state_dict_to_flax(sd)

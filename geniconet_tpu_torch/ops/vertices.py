@@ -1,0 +1,28 @@
+"""Grid -> vertex-list conversion with pole reconstruction.
+
+Port of ``geniconet_tpu/ops/vertices.py:grid_to_vertices``: flatten the
+``(5·2^s, 2^(s+1))`` grid row-major, then append the north pole (mean of
+the 5 chart-local ``(0, 0)`` cells) and the south pole (mean of the
+chart-local ``(2^s-1, 2^(s+1)-1)`` cells).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.ops.pad import chart_mean
+
+__all__ = ["grid_to_vertices"]
+
+
+def grid_to_vertices(x: torch.Tensor, subdivisions: int) -> torch.Tensor:
+    """(B, 5h, w, C) grid -> (B, V, C) vertex signal with poles appended."""
+    h, w = ico.chart_shape(subdivisions)
+    B, H, W, C = x.shape
+    if H != 5 * h or W != w:
+        raise ValueError(f"expected (B,{5 * h},{w},C), got {tuple(x.shape)}")
+    xc = x.reshape(B, 5, h, w, C)
+    north = chart_mean(xc[:, :, 0, 0, :])[:, None]
+    south = chart_mean(xc[:, :, h - 1, w - 1, :])[:, None]
+    return torch.cat([x.reshape(B, 5 * h * w, C), north, south], dim=1)

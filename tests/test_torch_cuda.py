@@ -1,0 +1,141 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+This file imports no JAX, so it runs on the card's machine (which has no
+JAX) with the JAX-only conftest left out:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Without a CUDA device every test skips. Tolerances: float32 1e-4·max|ref|
+(only the order of the float32 sums differs), bfloat16 2e-2·max|ref| (the
+float32 sums round to bf16 at different points).
+"""
+
+import copy
+
+import pytest
+import torch
+
+from geniconet_tpu_torch import bridge
+from geniconet_tpu_torch.nn.models import IcoAE
+from geniconet_tpu_torch.ops.kernels import build
+from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
+from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+MODES = ["average", "zeros"]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, dt):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    assert err <= TOL[dt] * scale, (err, scale)
+
+
+def _inputs(device, dt, s, cin, cout, seed):
+    g = torch.Generator().manual_seed(seed)
+    h, w = 2**s, 2 ** (s + 1)
+    x = torch.randn(2, 5, h, w, cin, generator=g).to(device, dt)
+    act = (torch.rand(cin, generator=g).add(0.5).to(device),
+           (0.3 * torch.randn(cin, generator=g)).to(device))
+    sets = [((torch.randn(7, cin, cout, generator=g) * (7 * cin) ** -0.5).to(device, dt),
+             torch.randn(cout, generator=g).to(device, dt)) for _ in range(2)]
+    return x, act, sets
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 5])
+def test_phase_conv(cuda, s, corner_mode, dt):
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=s)
+    phases = tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+    for out_phases, tap_sets, a in [((0, 1, 2, 3), sets[:1], None), ((2,), sets, act),
+                                    ((0, 1, 2, 3), [(sets[0][0], None)], act)]:
+        got = pk.phase_conv_fwd(phases, tap_sets, corner_mode, out_phases, a)
+        ref = pk.phase_conv_fwd_plain(phases, tap_sets, corner_mode, out_phases, a)
+        for outs_g, outs_r in zip(got, ref):
+            for u, v in zip(outs_g, outs_r):
+                _close(u, v, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [0, 2, 4])
+def test_up_dual_conv(cuda, s, corner_mode, dt):
+    x, _, sets = _inputs(cuda, dt, s, 12, 20, seed=10 + s)
+    for tap_sets in (sets, sets[:1]):
+        got = pk.up_dual_conv_fwd(x, tap_sets, corner_mode)
+        ref = pk.up_dual_conv_fwd_plain(x, tap_sets, corner_mode)
+        for outs_g, outs_r in zip(got, ref):
+            for u, v in zip(outs_g, outs_r):
+                _close(u, v, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 4])
+def test_ico_conv(cuda, s, corner_mode, dt):
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=20 + s)
+    for a, bias in [(act, sets[0][1]), (None, None)]:
+        _close(ck.ico_conv_s2s_fwd(x, sets[0][0], bias, corner_mode, a),
+               ck.ico_conv_s2s_fwd_plain(x, sets[0][0], bias, corner_mode, a), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_pair_head(cuda, dt):
+    g = torch.Generator().manual_seed(3)
+    b0 = [torch.randn(2, 5, 16, 32, 24, generator=g).to(cuda, dt) for _ in range(8)]
+    aff = [t.to(cuda) for t in (torch.rand(24, generator=g) + 0.5, torch.randn(24, generator=g),
+                                torch.rand(24, generator=g) + 0.5, torch.randn(24, generator=g))]
+    W = (torch.randn(24, 3, generator=g) * 0.2).to(cuda, dt)
+    bias = torch.randn(3, generator=g).to(cuda, dt)
+    got = pk.pair_head_fwd(b0[:4], b0[4:], aff, W, bias)
+    for u, v in zip(got, pk.pair_head_fwd_plain(b0[:4], b0[4:], aff, W, bias)):
+        assert u.dtype == torch.float32
+        _close(u, v, dt)
+
+
+def test_wrappers_check_their_inputs(cuda):
+    x, act, sets = _inputs(cuda, torch.float32, 3, 8, 8, seed=1)
+    strided = x.transpose(-1, -2).contiguous().transpose(-1, -2)  # same shape, not contiguous
+    with pytest.raises(ValueError):
+        ck.ico_conv_s2s_fwd(strided, *sets[0])
+    with pytest.raises(TypeError):  # taps in another dtype
+        ck.ico_conv_s2s_fwd(x, sets[0][0].double(), sets[0][1])
+    with pytest.raises(ValueError):  # act on the wrong device
+        ck.ico_conv_s2s_fwd(x, *sets[0], act=tuple(a.cpu() for a in act))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_model_kernel_route_matches_plain_route(cuda, dt):
+    """IcoAE on the card (kernels) against the same model on the CPU (plain)."""
+    s, widths = 4, (16, 24, 32)
+    model = IcoAE(s, widths, dtype=dt)
+    model.load_state_dict(bridge.flax_to_state_dict(
+        bridge.init_variables(s, widths, seed=0, random_stats=True)))
+    model.eval()
+    x = 0.5 * torch.randn(2, 5 * 2**s, 2 ** (s + 1), 3, generator=torch.Generator().manual_seed(0))
+    build.reset_launches()
+    with torch.inference_mode():
+        got = copy.deepcopy(model).to(cuda).forward(x.to(cuda))
+        torch.cuda.synchronize()
+        ref = model(x)
+    assert set(build.LAUNCHES) == {"phase_conv_fwd", "up_dual_conv_fwd", "ico_conv_s2s_fwd",
+                                   "pair_head_fwd"}
+    # bf16 rounding differences compound through ten layers: 5e-2·max|ref|
+    tol = 1e-4 if dt == torch.float32 else 5e-2
+    err = (got.cpu() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err

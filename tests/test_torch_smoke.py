@@ -1,0 +1,64 @@
+"""``chip_smoke.py`` off the card: it refuses to run without a CUDA device,
+imports no JAX, and its profile arithmetic is right."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+
+def test_refuses_without_a_card_and_imports_no_jax():
+    code = (
+        "import importlib.abc, runpy, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode != 0
+    assert "is_available() is False" in out.stderr, out.stderr
+    assert '"ok"' not in out.stdout
+
+
+def test_imports_only_torch_and_the_port():
+    """No import anywhere in the script, nested ones included, names JAX,
+    flax or the JAX package."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    tops = {name.split(".")[0] for name in names}
+    assert "geniconet_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "flax", "geniconet_tpu"}, sorted(tops)
+
+
+@pytest.mark.parametrize("intervals, want_ms", [
+    ([(0, 10), (5, 20), (30, 40)], 0.030),   # overlap merged, gap left out
+    ([(30, 40), (0, 10)], 0.020),            # any order
+    ([(0, 50), (10, 20), (20, 30)], 0.050),  # nested
+])
+def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
+    assert chip_smoke.busy_ms(intervals) == pytest.approx(want_ms)
+
+
+@pytest.mark.parametrize("event, group", [
+    ({"cat": "kernel", "name": "void gn::conv_gemm<__nv_bfloat16, gn::UpLoad<__nv_bfloat16> >"},
+     "conv_gemm<bf16, UpLoad>"),
+    ({"cat": "kernel", "name": "void gn::conv_gemm<float, gn::GridLoad<float> >"},
+     "conv_gemm<fp32, GridLoad>"),
+    ({"cat": "kernel", "name": "void gn::pair_head_kernel<float>"}, "pair_head_kernel"),
+    ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
+    ({"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)"}, "gpu_memcpy"),
+])
+def test_profile_groups_device_events_by_kernel(event, group):
+    assert chip_smoke.kernel_group(event) == group
