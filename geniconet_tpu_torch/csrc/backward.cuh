@@ -1,0 +1,294 @@
+// Shared pieces of the backward kernels of the phase conv and the up conv:
+// the cotangent loader (with the BatchNorm stats fold), the dx gather-GEMM
+// over a transposed halo table, the dtaps GEMM with per-chunk partials, and
+// the bias-gradient column sum. Every sum across blocks goes through block
+// partials and gn::sum_rows, so results do not change from run to run.
+#pragma once
+
+#include "common.cuh"
+
+namespace gn {
+
+// The upstream cotangents of n_sets tap sets, each n_out output phases of
+// shape (B, 5, h, w, cout), held set-major in g[set * n_out + slot]. A row
+// q = slot * M + m (M = 5hw) of one sample and a column n < n_sets * cout
+// name one element. With gs[set] != null the stats cotangent is folded in:
+// g_eff = g + gs0 + 2 * gs1 * y in float32, rounded to T (the Pallas
+// kernels' _geff_one, with the same two roundings per product and sum).
+template <typename T>
+struct GLoad {
+  const T* g[8];
+  const T* y[8];       // forward outputs, read only with the fold
+  const float* gs[2];  // per set (2, cout) cotangents of [sum, sumsq], or null
+  int M, cout, n_out;
+
+  __device__ __forceinline__ float operator()(int b, int q, int n) const {
+    const int s = n / cout, nl = n - s * cout;
+    const int slot = q / M, m = q - slot * M;
+    const int i = s * n_out + slot;
+    const size_t off = ((size_t)b * M + m) * cout + nl;
+    const float v = to_f(g[i][off]);
+    if (gs[s] == nullptr) return v;
+    const float yy = __fmul_rn(2.f, to_f(y[i][off]));
+    return round_to<T>(__fadd_rn(__fadd_rn(v, gs[s][nl]), __fmul_rn(yy, gs[s][cout + nl])));
+  }
+};
+
+template <typename T>
+GLoad<T> make_gload(const void* const* g, const void* const* y, const float* gs0,
+                    const float* gs1, int M, int cout, int n_sets, int n_out) {
+  GLoad<T> gl = {};
+  for (int i = 0; i < n_sets * n_out; ++i) {
+    gl.g[i] = static_cast<const T*>(g[i]);
+    gl.y[i] = y ? static_cast<const T*>(y[i]) : nullptr;
+  }
+  gl.gs[0] = y ? gs0 : nullptr;
+  gl.gs[1] = y ? gs1 : nullptr;
+  gl.M = M;
+  gl.cout = cout;
+  gl.n_out = n_out;
+  return gl;
+}
+
+// Where dx goes: R rows per sample split over out tensors of `per` cells
+// each ((B, per, cin) in T: the 4 input phases, or one level-s grid). With
+// mul != null the act adjoint runs in the epilogue: dx = dx' * mul *
+// 1{x * mul + add > 0} against the raw input, and the block's column sums of
+// dx'·1{..}·x and dx'·1{..} go to red, (blocks, 2 * cin).
+template <typename T>
+struct DxOut {
+  T* out[4];
+  const T* raw[4];
+  const float* mul;
+  const float* add;
+  float* red;
+  int per;
+};
+
+// dx[b, r, k] = sum_t sum_{(q, wt) in table row t*R + r} wt * sum_n G[b, q, n] W[t][k, n],
+// a GEMM over K = 7 * n_sets * cout whose A operand is gathered (and
+// weighted) through the CSR transposed table. Block: BM rows r x BN
+// channels k of one sample; float32 sums, one rounding at the end.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dx_gemm(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
+        const int* __restrict__ offsets, const int* __restrict__ cells,
+        const float* __restrict__ weights, DxOut<T> o, int R, int cin, int n_sets) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int b = blockIdx.z;
+  const int cout = gl.cout;
+  const int Ntot = n_sets * cout;
+  const int K = 7 * Ntot;
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int r = 0; r < BM * BK / NT; ++r) {
+      const int e = tid + r * NT;
+      const int kk = e % BK, mm = e / BK;  // neighbouring threads: neighbouring channels
+      const int m = m0 + mm, kg = k0 + kk;
+      float v = 0.f;
+      if (m < R && kg < K) {
+        const int t = kg / Ntot, n = kg - t * Ntot;
+        const int row = t * R + m;
+        for (int x = offsets[row]; x < offsets[row + 1]; ++x) v += weights[x] * gl(b, cells[x], n);
+      }
+      As[kk][mm] = v;
+    }
+#pragma unroll
+    for (int r = 0; r < BN * BK / NT; ++r) {
+      const int e = tid + r * NT;
+      const int kk = e % BK, nn = e / BK;  // W[t][k][n] is contiguous in n
+      const int k = n0 + nn, kg = k0 + kk;
+      float v = 0.f;
+      if (k < cin && kg < K) {
+        const int t = kg / Ntot, n = kg - t * Ntot;
+        const int s = n / cout;
+        v = to_f((s ? w1 : w0)[((size_t)t * cin + k) * cout + (n - s * cout)]);
+      }
+      Bs[kk][nn] = v;
+    }
+    __syncthreads();
+    tile_fma(As, Bs, acc, tx, ty);
+    __syncthreads();
+  }
+
+  float smul[4] = {0.f, 0.f, 0.f, 0.f}, sadd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= R) continue;
+    const int p = r / o.per, cell = r - p * o.per;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = n0 + tx * 4 + j;
+      if (k >= cin) continue;
+      const size_t off = ((size_t)b * o.per + cell) * cin + k;
+      const float d = acc[i][j];
+      if (o.mul == nullptr) {
+        o.out[p][off] = from_f<T>(d);
+        continue;
+      }
+      const float x = to_f(o.raw[p][off]);
+      const float dm = __fadd_rn(__fmul_rn(x, o.mul[k]), o.add[k]) > 0.f ? d : 0.f;
+      o.out[p][off] = from_f<T>(dm * o.mul[k]);
+      smul[j] += dm * x;
+      sadd[j] += dm;
+    }
+  }
+  if (o.mul != nullptr) {
+    float* row = o.red + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * cin + n0;
+    column_sums(As, Bs, smul, sadd, tid, min(BN, cin - n0), row, row + cin);
+  }
+}
+
+template <typename T>
+cudaError_t launch_dx_gemm(const GLoad<T>& gl, const void* w0, const void* w1,
+                           const int* offsets, const int* cells, const float* weights,
+                           const DxOut<T>& o, float* dmul, float* dadd, int B, int R, int cin,
+                           int n_sets, cudaStream_t stream) {
+  dim3 grid((R + BM - 1) / BM, (cin + BN - 1) / BN, B);
+  dx_gemm<T><<<grid, NT, 0, stream>>>(gl, static_cast<const T*>(w0), static_cast<const T*>(w1),
+                                      offsets, cells, weights, o, R, cin, n_sets);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || o.mul == nullptr) return err;
+  SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+  return launch_sum_rows(o.red, (int)(grid.x * grid.z), 2LL * cin, st, stream);
+}
+
+// dtaps partials: ws[chunk][t * cin + k][n] = sum over the chunk's rows q of
+// A(q, t, k) * G(q, n), where the rows q run over (sample, output phase slot,
+// cell) and A is the conv operand re-gathered through the forward table by
+// the forward's Loader (act prologue, pole means, midpoints included).
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(NT)
+dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n_sets,
+           int out_phase0, int Q, int kc, float* __restrict__ ws) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;  // rows t * cin + k
+  const int n0 = blockIdx.y * BN;
+  const int q_lo = blockIdx.z * kc;
+  const int q_hi = min(q_lo + kc, Q);
+  const int M = gl.M;
+  const int per_b = gl.n_out * M;
+  const int Mr = 7 * cin;
+  const int Ntot = n_sets * gl.cout;
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = q_lo; k0 < q_hi; k0 += BK) {
+#pragma unroll
+    for (int r = 0; r < BM * BK / NT; ++r) {
+      const int e = tid + r * NT;
+      const int mm = e % BM, kk = e / BM;  // neighbouring threads: neighbouring channels
+      const int row = m0 + mm, q = k0 + kk;
+      float v = 0.f;
+      if (row < Mr && q < q_hi) {
+        const int t = row / cin, k = row - t * cin;
+        const int b = q / per_b, qq = q - b * per_b;
+        const int slot = qq / M, m = qq - slot * M;
+        v = ld(b, table[((size_t)(out_phase0 + slot) * 7 + t) * M + m], k);
+      }
+      As[kk][mm] = v;
+    }
+#pragma unroll
+    for (int r = 0; r < BN * BK / NT; ++r) {
+      const int e = tid + r * NT;
+      const int nn = e % BN, kk = e / BN;
+      const int n = n0 + nn, q = k0 + kk;
+      float v = 0.f;
+      if (n < Ntot && q < q_hi) {
+        const int b = q / per_b;
+        v = gl(b, q - b * per_b, n);
+      }
+      Bs[kk][nn] = v;
+    }
+    __syncthreads();
+    tile_fma(As, Bs, acc, tx, ty);
+    __syncthreads();
+  }
+  float* part = ws + (size_t)blockIdx.z * Mr * Ntot;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= Mr) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < Ntot) part[(size_t)row * Ntot + n] = acc[i][j];
+    }
+  }
+}
+
+// dtaps[set] (7, cin, cout) float32 = the fixed-order sum of the chunks'
+// partials; Q = B * n_out * M rows in chunks of kc (a multiple of BK).
+template <typename T, typename Loader>
+cudaError_t launch_dtaps_gemm(const Loader& ld, const GLoad<T>& gl, const int* table, int cin,
+                              int n_sets, int out_phase0, int Q, int kc, int n_chunks, float* ws,
+                              float* dt0, float* dt1, cudaStream_t stream) {
+  const int Ntot = n_sets * gl.cout;
+  dim3 grid((7 * cin + BM - 1) / BM, (Ntot + BN - 1) / BN, n_chunks);
+  dtaps_gemm<T, Loader><<<grid, NT, 0, stream>>>(ld, gl, table, cin, n_sets, out_phase0, Q, kc,
+                                                 ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  SplitOut st = {{dt0, dt1}, Ntot, gl.cout};
+  return launch_sum_rows(ws, n_chunks, 7LL * cin * Ntot, st, stream);
+}
+
+// Bias gradient, first pass: part[chunk][n] = sum of G (folded) over the
+// chunk's `rows` rows q of the flattened (sample, slot, cell) axis.
+// Block (32, 8): 32 columns, 8 row lanes.
+template <typename T>
+__global__ void __launch_bounds__(256)
+colsum(GLoad<T> gl, int Q, int rows, int Ntot, float* __restrict__ part) {
+  __shared__ float red[8][33];
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  const int q_lo = blockIdx.y * rows;
+  const int q_hi = min(q_lo + rows, Q);
+  const int per_b = gl.n_out * gl.M;
+  float acc = 0.f;
+  if (n < Ntot)
+    for (int q = q_lo + threadIdx.y; q < q_hi; q += 8) {
+      const int b = q / per_b;
+      acc += gl(b, q - b * per_b, n);
+    }
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < Ntot) {
+    float s = 0.f;
+    for (int y = 0; y < 8; ++y) s += red[y][threadIdx.x];
+    part[(size_t)blockIdx.y * Ntot + n] = s;
+  }
+}
+
+// gsum[set] (cout) float32 = sum of G over all B * n_out * M rows.
+template <typename T>
+cudaError_t launch_gsum(const GLoad<T>& gl, int B, int n_sets, int rows, float* ws, float* gsum0,
+                        float* gsum1, cudaStream_t stream) {
+  const int Q = B * gl.n_out * gl.M;
+  const int Ntot = n_sets * gl.cout;
+  dim3 grid((Ntot + 31) / 32, (Q + rows - 1) / rows);
+  colsum<T><<<grid, dim3(32, 8), 0, stream>>>(gl, Q, rows, Ntot, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  SplitOut st = {{gsum0, gsum1}, Ntot, gl.cout};
+  return launch_sum_rows(ws, (int)grid.y, (long long)Ntot, st, stream);
+}
+
+}  // namespace gn

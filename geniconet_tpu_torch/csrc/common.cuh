@@ -86,12 +86,139 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int NT = 256;
 
+// The GEMM cores' shared steps. A block of NT = 256 threads computes a
+// BM x BN tile; thread (tx, ty) = (tid % 16, tid / 16) holds rows ty*4..+3
+// and columns tx*4..+3 in acc.
+__device__ __forceinline__ void tile_fma(const float (&As)[BK][BM], const float (&Bs)[BK][BN],
+                                         float (&acc)[4][4], int tx, int ty) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    float a[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+  }
+}
+
+// Two per-column sums over the block's rows (each thread gives its 4
+// columns' partials u, v over its 4 rows), added in a fixed order; the sums
+// of tile column c land in u_out[c], v_out[c] for c < n_cols. As / Bs are
+// reused, so call after the K loop's last __syncthreads; every thread of
+// the block must call it.
+__device__ __forceinline__ void column_sums(float (&As)[BK][BM], float (&Bs)[BK][BN],
+                                            const float (&u)[4], const float (&v)[4], int tid,
+                                            int n_cols, float* u_out, float* v_out) {
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    As[ty][tx * 4 + j] = u[j];
+    Bs[ty][tx * 4 + j] = v[j];
+  }
+  __syncthreads();
+  if (tid < n_cols) {
+    float su = 0.f, sv = 0.f;
+    for (int r = 0; r < BK; ++r) {
+      su += As[r][tid];
+      sv += Bs[r][tid];
+    }
+    u_out[tid] = su;
+    v_out[tid] = sv;
+  }
+}
+
 template <typename T>
 struct ConvOut {
   T* out[8];           // set-major: out[set * n_out + phase slot]
   const T* w[2];       // taps per set, (7, C_in, C_out)
   const T* bias[2];    // per set, nullable
+  float* stats;        // nullable: per-block [sum | sumsq] partials, (blocks, 2 * N)
 };
+
+// The cells of the upsampled level-(s+1) phases, rebuilt on load from a
+// level-s grid: the level-s halo (ico_pad, with pole means cast to the
+// activation dtype), the edge midpoints as (a + b) * 0.5 with the sum
+// rounded to the activation dtype, then the phase halo of the four new
+// phases, whose poles are recomputed from the new phases.
+template <typename T>
+struct UpLoad {
+  const T* x;      // (B, 5, h, w, cin) level-s grid
+  const int* up;   // (4 * 5hw, 2) midpoint pairs, halo.upsample_table
+  int hw, hw5, cin;
+
+  // a cell of the level-s padded grid P (a grid cell, a zero, or a pole)
+  __device__ __forceinline__ float pcell(int b, int code, int k) const {
+    if (code >= 0) return to_f(x[((size_t)b * hw5 + code) * cin + k]);
+    if (code == ZERO) return 0.f;
+    const int off = code == NORTH ? 0 : hw - 1;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) acc += to_f(x[((size_t)b * hw5 + c * hw + off) * cin + k]);
+    return round_to<T>(acc * 0.2f);
+  }
+  // a cell of the four upsampled phases, index p * 5hw + chart * hw + i * w + j
+  __device__ __forceinline__ float ucell(int b, int idx, int k) const {
+    const float a = pcell(b, up[2 * idx], k);
+    const int second = up[2 * idx + 1];
+    if (second == NONE) return a;
+    return round_to<T>(round_to<T>(a + pcell(b, second, k)) * 0.5f);
+  }
+  __device__ __forceinline__ float operator()(int b, int code, int k) const {
+    if (code >= 0) return ucell(b, code, k);
+    if (code == ZERO) return 0.f;
+    // poles of level s+1: 5-chart means of phase ee cell 0 / phase oq cell hw-1
+    const int base = code == NORTH ? 0 : 3 * hw5 + hw - 1;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) acc += ucell(b, base + c * hw, k);
+    return round_to<T>(acc * 0.2f);
+  }
+};
+
+// Where a deterministic column sum lands: column c of a (rows, C) partial
+// array is (a, n) with a = c / ntot, n = c % ntot; n picks the tap set
+// (n / cout) and its column, so out[set][a * cout + n % cout] gets the sum.
+struct SplitOut {
+  float* out[2];
+  int ntot, cout;
+  __device__ __forceinline__ void operator()(long long c, float v) const {
+    const long long a = c / ntot;
+    const int n = (int)(c - a * ntot);
+    const int s = n / cout;
+    out[s][a * cout + (n - s * cout)] = v;
+  }
+};
+
+// The second pass of every cross-block reduction: out(c) = sum over rows r
+// of in[r][c], rows taken in a fixed order, so the result does not depend
+// on which block finished first. Block (32, 32): 32 columns, 32 row lanes.
+template <typename Store>
+__global__ void __launch_bounds__(1024)
+sum_rows(const float* __restrict__ in, int R, long long C, Store st) {
+  __shared__ float part[32][33];
+  const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (c < C)
+    for (int r = threadIdx.y; r < R; r += 32) acc += in[(size_t)r * C + c];
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < C) {
+    float s = 0.f;
+    for (int y = 0; y < 32; ++y) s += part[y][threadIdx.x];
+    st(c, s);
+  }
+}
+
+template <typename Store>
+cudaError_t launch_sum_rows(const float* in, int R, long long C, Store st, cudaStream_t stream) {
+  const long long blocks = (C + 31) / 32;
+  sum_rows<Store><<<(unsigned)blocks, dim3(32, 32), 0, stream>>>(in, R, C, st);
+  return cudaGetLastError();
+}
 
 template <typename T, typename Loader>
 __global__ void __launch_bounds__(NT)
@@ -140,21 +267,11 @@ conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int ci
       Bs[kk][nn] = v;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
+    tile_fma(As, Bs, acc, tx, ty);
     __syncthreads();
   }
 
+  float csum[4] = {0.f, 0.f, 0.f, 0.f}, csq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -165,19 +282,32 @@ conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int ci
       if (n >= N) continue;
       const int s = n / cout, nc = n - s * cout;
       const float bias = co.bias[s] ? to_f(co.bias[s][nc]) : 0.f;
-      co.out[s * n_out + slot][((size_t)b * M + m) * cout + nc] = from_f<T>(acc[i][j] + bias);
+      const T y = from_f<T>(acc[i][j] + bias);
+      co.out[s * n_out + slot][((size_t)b * M + m) * cout + nc] = y;
+      const float v = to_f(y);  // the moments are of the downcast output
+      csum[j] += v;
+      csq[j] += v * v;
     }
+  }
+  if (co.stats != nullptr) {
+    float* row = co.stats + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * N + n0;
+    column_sums(As, Bs, csum, csq, tid, min(BN, N - n0), row, row + N);
   }
 }
 
+// Launch the conv GEMM, then (with co.stats) sum the block partials into
+// stats[set] = (2, cout) [sum, sumsq] over every output phase and sample.
 template <typename T, typename Loader>
 cudaError_t launch_conv_gemm(const Loader& ld, const ConvOut<T>& co, const int* table, int B,
                              int M, int cin, int cout, int n_sets, int out_phase0, int n_out,
-                             cudaStream_t stream) {
+                             float* const* stats, cudaStream_t stream) {
   dim3 grid((M + BM - 1) / BM, (n_sets * cout + BN - 1) / BN, B * n_out);
   conv_gemm<T, Loader><<<grid, NT, 0, stream>>>(ld, co, table, M, cin, cout, n_sets,
                                                 out_phase0, n_out);
-  return cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || co.stats == nullptr) return err;
+  SplitOut st = {{stats[0], stats[1]}, n_sets * cout, cout};
+  return launch_sum_rows(co.stats, (int)(grid.x * grid.z), 2LL * n_sets * cout, st, stream);
 }
 
 }  // namespace gn

@@ -31,7 +31,8 @@ cudaError_t run(const void* x, const float* mul, const float* add, const void* w
   co.out[0] = static_cast<T*>(out);
   co.w[0] = static_cast<const T*>(w0);
   co.bias[0] = static_cast<const T*>(b0);
-  return gn::launch_conv_gemm<T>(ld, co, table, B, 5 * h * w, cin, cout, 1, 0, 1, stream);
+  return gn::launch_conv_gemm<T>(ld, co, table, B, 5 * h * w, cin, cout, 1, 0, 1, nullptr,
+                                 stream);
 }
 
 }  // namespace

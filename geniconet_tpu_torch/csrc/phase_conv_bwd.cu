@@ -1,0 +1,137 @@
+// Phase-form hex conv, backward: dx (input cotangent) and dtaps (tap
+// cotangents summed over the batch), for both output-phase modes (all 4
+// phases, and phase 2 alone for stride 2).
+//
+// Replaces: geniconet_tpu/ops/pallas/phase_kernel.py:_phase_conv_dx (kernel
+// body _pc_dx_kernel) and :_phase_conv_dtaps (_pc_dtaps_kernel), as called
+// by the custom VJPs of fused_phase_conv_s1 and fused_dual_s2_conv,
+// including the in-kernel BatchNorm stats fold and the Σg_eff bias gradient.
+//
+// Design. The Pallas dx kernel scatters each tap's contribution into padded
+// VMEM buffers and runs the exact adjoint of the halo pad. Blocks on the card
+// run in no order, so dx is instead a gather: the transposed halo table
+// (halo.phase_dx_table) lists, for each source cell and tap, the output cells
+// that read it with their weights (0.2 for pole means), and each operand
+// element of the dx GEMM sums those rows of g. No atomics: dx, d_mul/d_add
+// and Σg are deterministic (d_mul/d_add and Σg through block partials and a
+// fixed-order second pass). dtaps re-gathers the forward operand through the
+// forward table (act prologue and pole means included) and reduces over the
+// B * n_out * 5hw rows in chunks, whose partials a second pass sums.
+//
+// What bounds it on the card: like the forward, the float32 FMA rate of the
+// SIMT GEMM core (2 * 7 * C_in * C_out FLOPs per output cell each for dx and
+// dtaps); the dx operand gather reads about 1.05 rows of g per element (the
+// halo and pole rows), and dtaps writes 7 * C_in * C_out floats per chunk.
+#include "backward.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, const float* gs1,
+               const void* w0, const void* w1, const void* const* raw, const float* mul,
+               const float* add, void* const* outs, const int* offsets, const int* cells,
+               const float* weights, float* red, float* dmul, float* dadd, float* gsum_ws,
+               float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
+               int n_out, int gsum_rows, cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
+  gn::DxOut<T> o = {};
+  for (int p = 0; p < 4; ++p) {
+    o.out[p] = static_cast<T*>(outs[p]);
+    o.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+  }
+  o.mul = mul;
+  o.add = add;
+  o.red = red;
+  o.per = M;
+  cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B,
+                                          4 * M, cin, n_sets, stream);
+  if (err != cudaSuccess || gsum_ws == nullptr) return err;
+  return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+}
+
+template <typename T>
+cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
+                  const void* const* g, const void* const* y, const float* gs0, const float* gs1,
+                  const int* table, float* ws, float* dt0, float* dt1, float* gsum_ws,
+                  float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
+                  int out_phase0, int n_out, int kc, int n_chunks, int gsum_rows,
+                  cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
+  gn::GridLoad<T> ld;
+  for (int p = 0; p < 4; ++p) ld.src[p] = static_cast<const T*>(x[p]);
+  ld.mul = mul;
+  ld.add = add;
+  ld.hw = h * w;
+  ld.hw5 = M;
+  ld.cin = cin;
+  ld.south_src = 3;
+  cudaError_t err = gn::launch_dtaps_gemm<T>(ld, gl, table, cin, n_sets, out_phase0,
+                                             B * n_out * M, kc, n_chunks, ws, dt0, dt1, stream);
+  if (err != cudaSuccess || gsum_ws == nullptr) return err;
+  return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+}
+
+bool bad_sets(int n_sets, int n_out) {
+  return n_sets < 1 || n_sets > 2 || (n_out != 1 && n_out != 4);
+}
+
+}  // namespace
+
+// g: host array of n_sets * n_out cotangent pointers (set-major), each
+// (B, 5, h, w, cout); y: null (no fold) or the forward outputs in the same
+// order, with gs0/gs1 the sets' (2, cout) float32 stats cotangents; w0/w1:
+// taps (7, cin, cout); raw: null (no act) or a host array of the 4 raw input
+// phases, with mul/add float32 (cin); outs: host array of the 4 dphase
+// outputs (B, 5, h, w, cin); offsets/cells/weights: halo.phase_dx_table for
+// these output phases; red: with act, float32 scratch of (B * ceil(4*5hw/64),
+// 2 * cin), and dmul/dadd receive (cin) each; gsum_ws: with the fold, scratch
+// of (ceil(B * n_out * 5hw / gsum_rows), n_sets * cout) and gsum0/gsum1
+// receive Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_phase_conv_dx(const void* const* g, const void* const* y, const float* gs0,
+                                const float* gs1, const void* w0, const void* w1,
+                                const void* const* raw, const float* mul, const float* add,
+                                void* const* outs, const int* offsets, const int* cells,
+                                const float* weights, float* red, float* dmul, float* dadd,
+                                float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w,
+                                int cin, int cout, int n_sets, int n_out, int gsum_rows,
+                                int dtype, void* stream) {
+  if (bad_sets(n_sets, n_out)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, red,
+                     dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, n_out,
+                     gsum_rows, s);
+  if (dtype == 1)
+    return dx<__nv_bfloat16>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells,
+                             weights, red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin,
+                             cout, n_sets, n_out, gsum_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// x: host array of the 4 raw input phases (B, 5, h, w, cin); mul/add: the
+// act prologue or null; g, y, gs0, gs1: as in gn_phase_conv_dx; table:
+// halo.phase_conv_table; output phases out_phase0 .. +n_out-1; ws: float32
+// scratch of (n_chunks, 7 * cin, n_sets * cout), the rows B * n_out * 5hw
+// split in chunks of kc; dt0/dt1 receive (7, cin, cout) float32; gsum_ws:
+// null, or as in gn_phase_conv_dx for Σg_eff. dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_phase_conv_dtaps(const void* const* x, const float* mul, const float* add,
+                                   const void* const* g, const void* const* y, const float* gs0,
+                                   const float* gs1, const int* table, float* ws, float* dt0,
+                                   float* dt1, float* gsum_ws, float* gsum0, float* gsum1, int B,
+                                   int h, int w, int cin, int cout, int n_sets, int out_phase0,
+                                   int n_out, int kc, int n_chunks, int gsum_rows, int dtype,
+                                   void* stream) {
+  if (bad_sets(n_sets, n_out) || out_phase0 + n_out > 4 || kc % gn::BK != 0)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dtaps<float>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0, gsum1,
+                        B, h, w, cin, cout, n_sets, out_phase0, n_out, kc, n_chunks, gsum_rows, s);
+  if (dtype == 1)
+    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0,
+                                gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc,
+                                n_chunks, gsum_rows, s);
+  return cudaErrorInvalidValue;
+}

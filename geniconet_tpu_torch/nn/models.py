@@ -1,12 +1,20 @@
-"""The icosahedral autoencoder (IcoAE, reference ico2ico), eval mode.
+"""The icosahedral autoencoder (IcoAE, reference ico2ico), eval and train mode.
 
 Port of ``geniconet_tpu/nn/models.py`` (``_Encoder``, ``_Decoder``,
-``_Head``, ``IcoAE``) along the fused route of the JAX package:
+``_Head``, ``IcoAE``):
 
-  encoder: conv_in (3 -> w0, phase form) ; bn_in as down0's act prologue ;
-           Down(w0 -> w1) ; Down(w1 -> w2) ; Down(w2 -> w2)
+  encoder: conv_in (3 -> w0) ; bn_in ; Down(w0 -> w1) ; Down(w1 -> w2) ;
+           Down(w2 -> w2)
   decoder: Up(w2 -> w2) ; Up(w2 -> w1) ; Up(w1 -> w0) ; the last block's
-           join + 1×1 head (w0 -> 3) + tanh in one fused call
+           join + 1×1 head (w0 -> 3) + tanh
+
+``pallas_blocks`` is the JAX model attribute: None runs every block on the
+fused route (the kernels), a comma list (``conv_in``, ``down0``..``down2``,
+``up0``..``up2``, ``head``) only the named blocks, the rest on the plain
+route. Training (``train=True``) runs the fused UpBlocks; a fused
+conv_in, DownBlock or head raises ``NotImplementedError`` there, since
+their backward kernels are not ported yet. The configuration that trains
+is ``pallas_blocks="up0,up1,up2"``.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)``. ``decode`` returns float32.
@@ -17,7 +25,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from geniconet_tpu_torch.nn.layers import DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock
+from geniconet_tpu_torch.nn.layers import (
+    DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, not_trainable, pallas_block_enabled,
+    residual_join,
+)
 from geniconet_tpu_torch.ops.conv import merge_charts, split_charts
 from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_head_fwd, phase_conv_fwd
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
@@ -26,23 +37,33 @@ __all__ = ["IcoAE"]
 
 
 class _Encoder(nn.Module):
-    def __init__(self, widths, corner_mode: str, device=None):
+    def __init__(self, widths, corner_mode: str, pallas_blocks=None, device=None):
         super().__init__()
         w0 = widths[0]
         self.corner_mode = corner_mode
+        self.fused_in = pallas_block_enabled("conv_in", pallas_blocks)
         self.conv_in = IcoConvS2S(3, w0, corner_mode=corner_mode, device=device)
         self.bn_in = IcoBatchNorm(w0, device=device)
         for k, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
-            self.add_module(f"down{k}", DownBlock(cin, cout, corner_mode, device=device))
+            self.add_module(f"down{k}", DownBlock(
+                cin, cout, corner_mode, fused=pallas_block_enabled(f"down{k}", pallas_blocks),
+                device=device))
         self.n_down = len(widths) - 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 5, h, w, 3) chart-split grid -> (B, 5, h/8, w/8, w2)."""
-        phases = tuple(p.contiguous() for p in phase_split(x))
-        (y,) = phase_conv_fwd(phases, [self.conv_in.params(x.dtype)], self.corner_mode)
-        in_act = self.bn_in.affine()
+        if self.fused_in:
+            if train:
+                raise not_trainable("conv_in", "of the fused DownBlock it feeds "
+                                    "(conv_kernel.py:665, :727)")
+            phases = tuple(p.contiguous() for p in phase_split(x))
+            (y,) = phase_conv_fwd(phases, [self.conv_in.params(x.dtype)], self.corner_mode)
+            in_act = self.bn_in.affine()
+        else:
+            y = torch.relu(self.bn_in(self.conv_in.plain(x), train))
+            in_act = None
         for k in range(self.n_down):
-            y = getattr(self, f"down{k}")(y, in_act=in_act if k == 0 else None)
+            y = getattr(self, f"down{k}")(y, in_act=in_act if k == 0 else None, train=train)
         return y
 
 
@@ -56,53 +77,98 @@ class _Head(nn.Module):
             torch.empty(fan_in, features, device=device).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(features, device=device).uniform_(-bound, bound))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain route: x·W + b in x's dtype, then a float32 tanh."""
+        dt = x.dtype
+        return torch.tanh((x @ self.kernel.to(dt) + self.bias.to(dt)).float())
+
 
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
-                 device=None):
+                 pallas_blocks=None, device=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
         for k, (cin, cout) in enumerate(zip(cins, widths)):
-            self.add_module(f"up{k}", UpBlock(cin, cout, corner_mode,
-                                              return_phases=k == len(widths) - 1,
-                                              device=device))
+            self.add_module(f"up{k}", UpBlock(
+                cin, cout, corner_mode, return_phases=k == len(widths) - 1,
+                fused=pallas_block_enabled(f"up{k}", pallas_blocks), device=device))
         self.n_up = len(widths)
+        self.fused_head = pallas_block_enabled("head", pallas_blocks)
         self.head = _Head(widths[-1], out_features, device=device)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, 5, hz, wz, C) -> (B, 5, 8hz, 8wz, out_features) float32."""
+    def forward(self, z: torch.Tensor, train: bool = False, target=None) -> torch.Tensor:
+        """(B, 5, hz, wz, C) -> (B, 5, 8hz, 8wz, out_features) float32; with
+        target = (tpack, tpoles), the per-sample position SSE instead."""
         x = z
         for k in range(self.n_up):
-            x = getattr(self, f"up{k}")(x)
-        b0, y10, affines = x
-        dt = b0[0].dtype
-        outs = pair_head_fwd(b0, y10, affines, self.head.kernel.to(dt), self.head.bias.to(dt))
-        return phase_merge(outs)
+            x = getattr(self, f"up{k}")(x, train=train)
+        if isinstance(x, tuple):  # fused last block: (b0 phases, y10 phases, affines)
+            b0, y10, (mul01, add01, mul10, add10) = x
+            if self.fused_head:
+                if train or target is not None:
+                    raise not_trainable("head", "of the head and of the fused head+MSE "
+                                        "(phase_kernel.py:3287, :3528, :3577)")
+                dt = b0[0].dtype
+                return phase_merge(pair_head_fwd(b0, y10, (mul01, add01, mul10, add10),
+                                                 self.head.kernel.to(dt), self.head.bias.to(dt)))
+            x = phase_merge(tuple(residual_join(a, b, (mul01, add01), (mul10, add10))
+                                  for a, b in zip(b0, y10)))
+        out = self.head(x)
+        if target is None:
+            return out
+        return _position_sse(out, *target)
+
+
+def _position_sse(out, tpack, tpoles):
+    """Per-sample Σ (v − t)² over the grid, phase by phase against the packed
+    target (``ops/vertices.pack_target_phases``), plus the two poles (the
+    means over charts of the corner cells) — the JAX decoder's XLA form of
+    the fused head+MSE."""
+    F = out.shape[-1]
+    sse = 0.0
+    for p in range(4):
+        d = out[:, :, p >> 1 :: 2, p & 1 :: 2, :] - tpack[..., p * F : (p + 1) * F].float()
+        sse = sse + (d * d).sum(dim=(1, 2, 3, 4))
+    dn = out[:, :, 0, 0, :].mean(dim=1) - tpoles[:, 0:F].float()
+    ds = out[:, :, -1, -1, :].mean(dim=1) - tpoles[:, F : 2 * F].float()
+    return sse + (dn * dn).sum(dim=1) + (ds * ds).sum(dim=1)
 
 
 class IcoAE(nn.Module):
-    """Deterministic icosahedral autoencoder (reference ico2ico), eval mode.
+    """Deterministic icosahedral autoencoder (reference ico2ico).
 
     ``dtype`` is the activation (compute) dtype, float32 or bfloat16;
-    parameters stay float32. Sums run in float32 inside every conv."""
+    parameters stay float32. Sums run in float32 inside every conv.
+    ``train`` selects batch statistics (and updates the running ones) in
+    every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
-                 corner_mode: str = "average", dtype: torch.dtype = torch.float32, device=None):
+                 corner_mode: str = "average", dtype: torch.dtype = torch.float32,
+                 pallas_blocks: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoAE needs subdivisions >= 3 (three stride-2 stages)")
         w0, w1, w2 = widths
-        self.subdivisions, self.dtype = subdivisions, dtype
-        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, device=device)
-        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, device=device)
+        self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
+        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, device=device)
+        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, device=device)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
-        return merge_charts(self.encoder(split_charts(x.to(self.dtype), self.subdivisions)))
+        return merge_charts(self.encoder(split_charts(x.to(self.dtype), self.subdivisions),
+                                         train))
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
         """latent -> grid (B, 5·2^s, 2^(s+1), 3), float32."""
-        return merge_charts(self.decoder(split_charts(z.to(self.dtype), self.subdivisions - 3)))
+        zc = split_charts(z.to(self.dtype), self.subdivisions - 3)
+        return merge_charts(self.decoder(zc, train))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x))
+    def recon_sse(self, x, tpack, tpoles, train: bool = False) -> torch.Tensor:
+        """Per-sample position squared-error sum of the reconstruction against
+        a packed target (``ops/vertices.pack_target_phases``): equals
+        sum((grid_to_vertices(self(x)) - target_pos)**2) per sample."""
+        z = self.encoder(split_charts(x.to(self.dtype), self.subdivisions), train)
+        return self.decoder(z, train, target=(tpack, tpoles))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.decode(self.encode(x, train), train)

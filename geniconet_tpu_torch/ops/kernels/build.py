@@ -30,6 +30,7 @@ import torch
 __all__ = [
     "LAUNCHES", "reset_launches", "build", "library", "check", "stream_ptr", "ptr",
     "ptr_array", "dtype_code", "on_cuda", "expect", "check_act", "act_apply", "grid_level",
+    "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -100,11 +101,41 @@ def build(verbose: bool = False) -> Path:
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pointers, then ints, then the stream; csrc/*.cu documents each argument
-    "gn_phase_conv_fwd": [_VP] * 12 + [_INT] * 9 + [_VP],
-    "gn_up_dual_conv_fwd": [_VP] * 8 + [_INT] * 7 + [_VP],
+    "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
+    "gn_up_dual_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
     "gn_pair_head_fwd": [_VP] * 8 + [_INT] * 6 + [_VP],
     "gn_ico_conv_fwd": [_VP] * 7 + [_INT] * 6 + [_VP],
+    "gn_phase_conv_dx": [_VP] * 19 + [_INT] * 9 + [_VP],
+    "gn_phase_conv_dtaps": [_VP] * 14 + [_INT] * 12 + [_VP],
+    "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],
+    "gn_up_dual_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
 }
+
+# Work split shared with csrc/: the GEMM cores compute TILE x TILE output
+# tiles; reductions across blocks write float32 partials to a scratch buffer
+# that a second pass sums in a fixed order, so every sum is deterministic.
+TILE = 64
+GSUM_ROWS = 1024  # rows of g summed by one block of the bias-gradient pass
+_TARGET_BLOCKS = 1056  # 8 blocks for each of the H100's 132 SMs
+
+
+def n_tiles(n: int) -> int:
+    return -(-n // TILE)
+
+
+def dtaps_split(rows: int, out_tiles: int):
+    """(rows per chunk, chunks) for a dtaps reduction over ``rows`` rows
+    into ``out_tiles`` output tiles: enough chunks to fill the card, each a
+    multiple of the 16-row K step."""
+    want = max(1, min(-(-_TARGET_BLOCKS // out_tiles), -(-rows // 256)))
+    kc = -(-rows // want)
+    kc = -(-kc // 16) * 16
+    return kc, -(-rows // kc)
+
+
+def scratch(n: int, device) -> torch.Tensor:
+    """A float32 scratch buffer of n values for the partial sums."""
+    return torch.empty(max(n, 1), dtype=torch.float32, device=device)
 
 
 def library(verbose: bool = False):

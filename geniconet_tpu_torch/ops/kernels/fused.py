@@ -1,0 +1,152 @@
+"""The fused phase-domain convs with their hand-written backward, as
+``torch.autograd.Function``s.
+
+Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py``,
+with their names and arguments:
+
+* ``fused_phase_conv_s1`` (``_pcs1``): 4 phases -> 4 phases, stride 1;
+* ``fused_dual_s2_conv``  (``_ds2``): a DownBlock's two stride-2 convs;
+* ``fused_up_dual_conv``  (``_upd``): an UpBlock's upsample + two convs.
+
+Forward: ``phase_conv_fwd`` / ``up_dual_conv_fwd``. With ``with_stats`` the
+(2, C_out) float32 [Σy, Σy²] of each tap set's output is a differentiable
+output; the backward folds its cotangent into the kernels' g as
+g_eff = g + gs0 + 2·gs1·y (float32, cast to the activation dtype) and takes
+the bias gradient from Σg_eff. dtaps are rounded to the taps' dtype. Backward:
+``phase_conv_dx`` + ``phase_conv_dtaps`` / ``up_dual_conv_dx`` +
+``up_dual_conv_dtaps``. The act prologue's (mul, add) get their gradients
+d_mul, d_add from the dx kernel.
+
+The JAX signatures' ``fold_ok`` and ``fold_site`` are left out: they only
+choose, on the TPU, whether the fold runs inside the kernels or as an XLA
+pass before them. The math is the same; here it always runs inside.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from geniconet_tpu_torch.ops.kernels.phase_kernel import (
+    phase_conv_dtaps, phase_conv_dx, phase_conv_fwd, up_dual_conv_dtaps, up_dual_conv_dx,
+    up_dual_conv_fwd,
+)
+
+__all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv"]
+
+_ALL = (0, 1, 2, 3)
+
+
+def _groups(grads, n_sets, n):
+    return [[g.contiguous() for g in grads[s * n : (s + 1) * n]] for s in range(n_sets)]
+
+
+def _fold_kwargs(with_stats, ys, stat_grads, n_sets, n):
+    if not with_stats:
+        return {}
+    return dict(y_groups=_groups(ys, n_sets, n),
+                gs_list=[g.float().contiguous() for g in stat_grads])
+
+
+class _PhaseConv(torch.autograd.Function):
+    """Inputs: the non-tensor settings, then 4 phases, n_sets taps, n_sets
+    biases (or None), act mul, add (or None). Outputs: n_sets × n_out
+    phases, then n_sets stats when with_stats."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, *tensors):
+        phases, taps = tensors[:4], tensors[4 : 4 + n_sets]
+        biases = tensors[4 + n_sets : 4 + 2 * n_sets]
+        mul, add = tensors[4 + 2 * n_sets :]
+        act = None if mul is None else (mul, add)
+        r = phase_conv_fwd(phases, list(zip(taps, biases)), corner_mode, out_phases, act,
+                           with_stats)
+        sets, stats = r if with_stats else (r, [])
+        outs = [o for group in sets for o in group]
+        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx,
+                        [b is not None for b in biases])
+        ctx.save_for_backward(*phases, *taps, mul, add, *(outs if with_stats else ()))
+        return (*outs, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        corner_mode, out_phases, n_sets, with_stats, needs_dx, has_bias = ctx.settings
+        saved = ctx.saved_tensors
+        phases, taps = saved[:4], saved[4 : 4 + n_sets]
+        mul, add = saved[4 + n_sets : 6 + n_sets]
+        act = None if mul is None else (mul, add)
+        n_out, dt, cin = len(out_phases), phases[0].dtype, phases[0].shape[-1]
+        g_groups = _groups(grads, n_sets, n_out)
+        fk = _fold_kwargs(with_stats, saved[6 + n_sets :], grads[n_sets * n_out :], n_sets, n_out)
+        dphases, dmul, dadd, gsums = (None,) * 4, None, None, None
+        if needs_dx:
+            dphases, dmul, dadd, gsums = phase_conv_dx(
+                g_groups, [(t, None) for t in taps], corner_mode, out_phases, cin, dt, act,
+                phases, **fk)
+        # the bias gradient rides the dtaps kernel unless the dx kernel made it
+        want_gsum = gsums is None and any(has_bias)
+        r = phase_conv_dtaps(phases, g_groups, [t.shape for t in taps], corner_mode, out_phases,
+                             act, emit_gsum=want_gsum, **fk)
+        dtaps, gsums = r if want_gsum else (r, gsums)
+        dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
+        return (None,) * 5 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
+                              dmul, dadd)
+
+
+def fused_phase_conv_s1(phases, taps, bias, corner_mode="average", act=None, with_stats=False,
+                        needs_dx=True):
+    """Stride-1 hex conv in phase form: 4 phases in -> 4 phases out.
+
+    act: optional float32 (mul, add) (C_in,) BN-apply + ReLU prologue.
+    with_stats: also return the (2, C_out) float32 [Σy, Σy²] of the output.
+    needs_dx=False skips the input-cotangent kernel (for data inputs)."""
+    mul, add = act if act is not None else (None, None)
+    r = _PhaseConv.apply(corner_mode, _ALL, 1, with_stats, needs_dx, *phases, taps, bias,
+                         mul, add)
+    return (tuple(r[:4]), r[4]) if with_stats else tuple(r)
+
+
+def fused_dual_s2_conv(phases, taps_a, bias_a, taps_b, bias_b, corner_mode="average", act=None,
+                       with_stats=False):
+    """Both stride-2 convs of a DownBlock in one kernel: the 4 parity phases
+    of the level-s input -> (y_a, y_b), standard level-(s-1) tensors
+    (output phase 2 of the phase conv) [+ their (2, C) stats]."""
+    mul, add = act if act is not None else (None, None)
+    return _PhaseConv.apply(corner_mode, (2,), 2, with_stats, True, *phases, taps_a, taps_b,
+                            bias_a, bias_b, mul, add)
+
+
+class _UpDual(torch.autograd.Function):
+    """Inputs: settings, x, taps_a, bias_a, taps_b, bias_b. Outputs: 4 + 4
+    phases, then 2 stats when with_stats."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, with_stats, x, taps_a, bias_a, taps_b, bias_b):
+        r = up_dual_conv_fwd(x, [(taps_a, bias_a), (taps_b, bias_b)], corner_mode, with_stats)
+        sets, stats = r if with_stats else (r, [])
+        outs = [*sets[0], *sets[1]]
+        ctx.settings = (corner_mode, with_stats, bias_a is not None, bias_b is not None)
+        ctx.save_for_backward(x, taps_a, taps_b, *(outs if with_stats else ()))
+        return (*outs, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        corner_mode, with_stats, has_a, has_b = ctx.settings
+        x, taps_a, taps_b, *ys = ctx.saved_tensors
+        g_groups = _groups(grads, 2, 4)
+        fk = _fold_kwargs(with_stats, ys, grads[8:], 2, 4)
+        dx, gsums = up_dual_conv_dx(g_groups, [(taps_a, None), (taps_b, None)], corner_mode,
+                                    x.dtype, emit_gsum=has_a or has_b, **fk)
+        dta, dtb = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
+        dba = gsums[0].to(taps_a.dtype) if has_a else None
+        dbb = gsums[1].to(taps_b.dtype) if has_b else None
+        return None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
+
+
+def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
+                       with_stats=False):
+    """An UpBlock's upsample + both first convs, fused: standard level-s
+    (B, 5, h, w, C_in) in -> two 4-tuples of level-(s+1) phases [+ the two
+    (2, C_out) stats]."""
+    r = _UpDual.apply(corner_mode, with_stats, x, taps_a, bias_a, taps_b, bias_b)
+    out = (tuple(r[0:4]), tuple(r[4:8]))
+    return (*out, r[8], r[9]) if with_stats else out

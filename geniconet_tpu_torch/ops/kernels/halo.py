@@ -21,6 +21,7 @@ from geniconet_tpu_torch.ops.phase import phase_pad, tap_table
 __all__ = [
     "ZERO", "NORTH", "SOUTH", "NONE",
     "phase_conv_table", "std_conv_table", "upsample_table", "device_table",
+    "phase_dx_table", "up_dx_table", "device_dx_table",
 ]
 
 # codes shared with csrc/common.cuh
@@ -100,6 +101,99 @@ def upsample_table(h: int, w: int, corner_mode: str) -> np.ndarray:
     return table.reshape(4 * 5 * h * w, 2).astype(np.int32)
 
 
+# --------------------------------------------------------------------------
+# transposed tables for the dx kernels
+# --------------------------------------------------------------------------
+#
+# A forward table says which source cell each (output phase, tap, output
+# cell) reads. The dx kernels need the other direction: for each source cell
+# and tap, every output cell that reads it and with which weight (1 for a
+# plain read, 0.2 for each of the 5 cells of a pole mean, 0.5 for each end of
+# an upsampled midpoint, and products of these where the up conv composes
+# three pads). A transposed table is CSR: ``offsets`` (7·R + 1,) int32 into
+# ``cells`` (int32, ``slot·M + m`` with slot the position of the output phase
+# in ``out_phases`` and M = 5·h·w) and ``weights`` (float32), row ``t·R + r``
+# for tap t and source cell r. dx is then a deterministic gather-GEMM.
+
+
+def _poles_expand(dst, src, w, north_cells, south_cells):
+    """Entries (dst, src code, w) -> entries on cells: a code >= 0 stays, ZERO
+    drops, a pole code becomes 5 entries of weight w·0.2 on its chart cells."""
+    keep = src >= 0
+    parts = [(dst[keep], src[keep], w[keep])]
+    for code, cells in ((NORTH, north_cells), (SOUTH, south_cells)):
+        sel = src == code
+        for cell in cells:
+            parts.append((dst[sel], np.full(int(sel.sum()), cell, np.int64), w[sel] * 0.2))
+    return tuple(np.concatenate(p) for p in zip(*parts))
+
+
+def _conv_entries(h: int, w: int, corner_mode: str, out_phases):
+    """(tap·n_cells + cell, phase-space source code, weight 1) for every
+    read of the selected output phases of the phase conv."""
+    table = phase_conv_table(h, w, corner_mode).astype(np.int64)
+    n = 5 * h * w
+    dst, src = [], []
+    for slot, p in enumerate(out_phases):
+        for t in range(7):
+            dst.append(t * len(out_phases) * n + slot * n + np.arange(n))
+            src.append(table[p, t])
+    dst, src = np.concatenate(dst), np.concatenate(src)
+    return dst, src, np.ones(len(dst))
+
+
+def _to_csr(dst, src, w, n_src: int, n_dst_per_tap: int):
+    """Coalesce (tap·n_dst + d, source r, w) into the CSR rows t·R + r."""
+    t, d = np.divmod(dst, n_dst_per_tap)
+    key = (t * n_src + src) * n_dst_per_tap + d
+    uniq, inv = np.unique(key, return_inverse=True)
+    weights = np.zeros(len(uniq))
+    np.add.at(weights, inv, w)
+    row, cells = np.divmod(uniq, n_dst_per_tap)
+    offsets = np.zeros(7 * n_src + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=7 * n_src), out=offsets[1:])
+    return offsets.astype(np.int32), cells.astype(np.int32), weights.astype(np.float32)
+
+
+def phase_dx_table(h: int, w: int, corner_mode: str, out_phases=(0, 1, 2, 3)):
+    """Transposed ``phase_conv_table`` for these output phases: CSR over the
+    R = 4·5·h·w cells of the four input phases (source ``p·5hw + cell``).
+    Stride 2 (``out_phases=(2,)``) reads only output phase 2, so its
+    transpose is another table."""
+    _check_mode(corner_mode)
+    n, hw = 5 * h * w, h * w
+    dst, src, wt = _conv_entries(h, w, corner_mode, tuple(out_phases))
+    north = [c * hw for c in range(5)]                  # phase ee, cell (0, 0)
+    south = [3 * n + c * hw + hw - 1 for c in range(5)]  # phase oq, last cell
+    dst, src, wt = _poles_expand(dst, src, wt, north, south)
+    return _to_csr(dst, src, wt, 4 * n, len(out_phases) * n)
+
+
+def up_dx_table(h: int, w: int, corner_mode: str):
+    """Transposed composite of the up conv's three pads: CSR over the
+    R = 5·h·w cells of the level-s input. A conv read of an upsampled cell
+    (or of a level-(s+1) pole, the mean of 5 of them) expands to its one or
+    two level-s ``ico_pad`` cells (weight 1, or 0.5 each for a midpoint),
+    each of which is an input cell, a zero or a level-s pole (0.2 on each of
+    5 cells); equal (tap, source, output cell) entries are summed."""
+    _check_mode(corner_mode)
+    n, hw = 5 * h * w, h * w
+    dst, src, wt = _conv_entries(h, w, corner_mode, (0, 1, 2, 3))
+    # level-(s+1) poles: phase ee cell 0 / phase oq last cell of the new phases
+    dst, u, wt = _poles_expand(dst, src, wt, [c * hw for c in range(5)],
+                               [3 * n + c * hw + hw - 1 for c in range(5)])
+    pairs = upsample_table(h, w, corner_mode).astype(np.int64)
+    a, b = pairs[u, 0], pairs[u, 1]
+    single = b == NONE
+    dst = np.concatenate([dst, dst[~single]])
+    src = np.concatenate([a, b[~single]])
+    wt = np.concatenate([np.where(single, wt, 0.5 * wt), 0.5 * wt[~single]])
+    # level-s poles of the ico_pad halo: cell (0, 0) / cell (h-1, w-1) of each chart
+    dst, src, wt = _poles_expand(dst, src, wt, [c * hw for c in range(5)],
+                                 [c * hw + hw - 1 for c in range(5)])
+    return _to_csr(dst, src, wt, n, 4 * n)
+
+
 _DEVICE_TABLES: dict = {}
 
 
@@ -111,5 +205,19 @@ def device_table(kind: str, h: int, w: int, corner_mode: str, device) -> torch.T
     if t is None:
         build = {"phase": phase_conv_table, "std": std_conv_table, "up": upsample_table}[kind]
         t = torch.from_numpy(build(h, w, corner_mode)).to(device).contiguous()
+        _DEVICE_TABLES[key] = t
+    return t
+
+
+def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_phases=None):
+    """A transposed table (``"phase"`` with its out_phases, or ``"up"``) as
+    (offsets, cells, weights) tensors on ``device``, built once and kept."""
+    out_phases = None if out_phases is None else tuple(out_phases)
+    key = ("dx", kind, h, w, corner_mode, out_phases, str(torch.device(device)))
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        arrs = (phase_dx_table(h, w, corner_mode, out_phases) if kind == "phase"
+                else up_dx_table(h, w, corner_mode))
+        t = tuple(torch.from_numpy(a).to(device).contiguous() for a in arrs)
         _DEVICE_TABLES[key] = t
     return t

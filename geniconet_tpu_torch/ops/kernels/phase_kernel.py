@@ -1,16 +1,28 @@
-"""Phase-domain hex-conv kernels: phase conv, upsample + dual conv, pair head.
+"""Phase-domain hex-conv kernels: phase conv, upsample + dual conv, pair head,
+and the backward kernels of the first two.
 
-Port of the forward halves of ``geniconet_tpu/ops/pallas/phase_kernel.py``
-that the serving path runs:
+Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 
-* ``phase_conv_fwd``     -> ``csrc/phase_conv.cu`` (``fused_phase_conv_s1``
-  and ``fused_dual_s2_conv``: 4 phases in; all 4 output phases, or phase 2
-  alone for stride 2; 1 or 2 tap sets; optional act prologue);
-* ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``fused_up_dual_conv``);
-* ``pair_head_fwd``      -> ``csrc/pair_head.cu`` (``fused_pair_head``).
+* ``phase_conv_fwd``     -> ``csrc/phase_conv.cu`` (``_phase_conv_fwd``, for
+  ``fused_phase_conv_s1`` and ``fused_dual_s2_conv``: 4 phases in; all 4
+  output phases, or phase 2 alone for stride 2; 1 or 2 tap sets; optional
+  act prologue; optional BatchNorm ``[Σy, Σy²]`` stats);
+* ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``);
+* ``pair_head_fwd``      -> ``csrc/pair_head.cu`` (``_phead``);
+* ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
+  (``_phase_conv_dx`` / ``_phase_conv_dtaps``);
+* ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
+  (the two kernels of ``_upd_bwd``).
+
+The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
+``gs_list`` (the forward outputs and the cotangents of their stats) switch
+on the in-kernel fold g_eff = g + gs0 + 2·gs1·y, rounded to the activation
+dtype; Σg_eff per tap set is the bias gradient. The custom VJPs built from
+them are in ``ops/kernels/fused.py``.
 
 A CUDA tensor goes to the kernel (or the wrapper raises); a CPU tensor goes
-to the plain PyTorch version beside each wrapper, built from ``ops/phase.py``.
+to the plain PyTorch version beside each wrapper, built from ``ops/phase.py``
+(the backward ones by autograd of the plain forward, in float32).
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import (
     act_apply, check_act, expect, grid_level, on_cuda,
 )
-from geniconet_tpu_torch.ops.kernels.halo import device_table
+from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
 from geniconet_tpu_torch.ops.pad import ico_pad
 from geniconet_tpu_torch.ops.phase import phase_conv, phase_upsample
 
@@ -29,9 +41,20 @@ __all__ = [
     "phase_conv_fwd", "phase_conv_fwd_plain",
     "up_dual_conv_fwd", "up_dual_conv_fwd_plain",
     "pair_head_fwd", "pair_head_fwd_plain",
+    "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
+    "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
+    "up_dual_conv_dtaps_plain", "stats_plain", "geff_plain",
 ]
 
 _OUT_PHASES = ((0, 1, 2, 3), (2,))
+_ALL = (0, 1, 2, 3)
+
+
+def _check_out_phases(out_phases, name):
+    out_phases = tuple(out_phases)
+    if out_phases not in _OUT_PHASES:
+        raise ValueError(f"{name}: out_phases must be one of {_OUT_PHASES}")
+    return out_phases
 
 
 def _check_sets(tap_sets, cin, dt, dev, name):
@@ -53,20 +76,75 @@ def _set_ptrs(tap_sets):
     return ptrs
 
 
+def _pair(ts):
+    """Two pointers from a list of 1 or 2 tensors (the second may be absent)."""
+    return [build.ptr(ts[0]), build.ptr(ts[1]) if len(ts) > 1 else None]
+
+
+def stats_plain(outs):
+    """[Σy, Σy²] (2, C) float32 over every position of the (downcast) arrays."""
+    s = sum(o.float().sum(dim=tuple(range(o.dim() - 1))) for o in outs)
+    ss = sum(o.float().square().sum(dim=tuple(range(o.dim() - 1))) for o in outs)
+    return torch.stack([s, ss])
+
+
+def geff_plain(g_group, y_group, gs):
+    """The stats-cotangent fold g_eff = g + gs0 + 2·gs1·y in float32, cast to
+    g's dtype (``conv_kernel.py:_geff_one``); no fold when gs is None."""
+    if gs is None:
+        return tuple(g_group)
+    return tuple((g.float() + gs[0] + 2.0 * y.float() * gs[1]).to(g.dtype)
+                 for g, y in zip(g_group, y_group))
+
+
+def _fold_groups(g_groups, y_groups, gs_list):
+    if y_groups is None:
+        return [tuple(g) for g in g_groups]
+    return [geff_plain(g, y, gs) for g, y, gs in zip(g_groups, y_groups, gs_list)]
+
+
+def _check_cotangents(g_groups, y_groups, gs_list, shape, dt, dev, name):
+    cout = shape[-1]
+    for s, group in enumerate(g_groups):
+        for g in group:
+            expect(g, shape, dt, dev, f"{name} g (set {s})")
+        if y_groups is not None:
+            for y in y_groups[s]:
+                expect(y, shape, dt, dev, f"{name} y (set {s})")
+            expect(gs_list[s], (2, cout), torch.float32, dev, f"{name} gs (set {s})")
+
+
+def _fold_ptrs(g_groups, y_groups, gs_list):
+    """Host pointer arrays of g (set-major), y (or null), and the gs pair."""
+    gp = build.ptr_array([g for group in g_groups for g in group])
+    if y_groups is None:
+        return gp, None, None, None
+    yp = build.ptr_array([y for group in y_groups for y in group])
+    return (gp, yp, *_pair(gs_list))
+
+
+def _gsum_outputs(rows, n_sets, cout, dev):
+    """Scratch and outputs of the Σg pass over ``rows`` rows of g."""
+    parts = -(-rows // build.GSUM_ROWS)
+    return (build.scratch(parts * n_sets * cout, dev),
+            [torch.empty(cout, dtype=torch.float32, device=dev) for _ in range(n_sets)])
+
+
 # --------------------------------------------------------------------------
 # phase conv (fused_phase_conv_s1 / fused_dual_s2_conv)
 # --------------------------------------------------------------------------
 
 
 def phase_conv_fwd_plain(phases, tap_sets, corner_mode="average", out_phases=(0, 1, 2, 3),
-                         act=None):
+                         act=None, with_stats=False):
     """Plain version: act prologue, then ``ops/phase.py:phase_conv`` per set."""
     phases = tuple(act_apply(p, act) for p in phases)
-    return [phase_conv(phases, taps, bias, corner_mode, out_phases) for taps, bias in tap_sets]
+    sets = [phase_conv(phases, taps, bias, corner_mode, out_phases) for taps, bias in tap_sets]
+    return (sets, [stats_plain(o) for o in sets]) if with_stats else sets
 
 
 def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0, 1, 2, 3),
-                   act=None):
+                   act=None, with_stats: bool = False):
     """Hex conv in phase form.
 
     phases: 4 contiguous (B, 5, h, w, C_in) tensors, float32 or bfloat16.
@@ -75,16 +153,16 @@ def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0
     stride-1 conv, (2,) for the stride-2 conv (standard level-(s-1) output).
     act: optional float32 (mul, add), each (C_in,), the relu(x·mul + add)
     prologue applied before the halo.
-    Returns, per tap set, a tuple of (B, 5, h, w, C_out) output phases.
+    Returns, per tap set, a tuple of (B, 5, h, w, C_out) output phases; with
+    ``with_stats`` also, per set, the float32 (2, C_out) [Σy, Σy²] of the
+    downcast outputs over every phase and the whole batch.
     """
-    out_phases = tuple(out_phases)
-    if out_phases not in _OUT_PHASES:
-        raise ValueError(f"phase_conv_fwd: out_phases must be one of {_OUT_PHASES}")
+    out_phases = _check_out_phases(out_phases, "phase_conv_fwd")
     if len(phases) != 4:
         raise ValueError(f"phase_conv_fwd: takes 4 phases, got {len(phases)}")
     x0 = phases[0]
     if not on_cuda(x0, "phase_conv_fwd"):
-        return phase_conv_fwd_plain(phases, tap_sets, corner_mode, out_phases, act)
+        return phase_conv_fwd_plain(phases, tap_sets, corner_mode, out_phases, act, with_stats)
     B, _, h, w, cin = x0.shape
     grid_level(h, w)
     dev, dt = x0.device, x0.dtype
@@ -97,17 +175,188 @@ def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0
             for _ in range(n_sets * n_out)]
     table = device_table("phase", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
+    stats, ws = _stats_outputs(with_stats, B * n_out * build.n_tiles(5 * h * w),
+                               n_sets, cout, dev)
     out_ptrs = build.ptr_array(outs)
     with torch.cuda.device(dev):
         err = build.library().gn_phase_conv_fwd(
             *[p.data_ptr() for p in phases], build.ptr(mul), build.ptr(add),
-            *_set_ptrs(tap_sets), out_ptrs, table.data_ptr(),
+            *_set_ptrs(tap_sets), out_ptrs, table.data_ptr(), build.ptr(ws), *_pair(stats),
             B, h, w, cin, cout, n_sets, out_phases[0], n_out, build.dtype_code(dt),
             build.stream_ptr(dev),
         )
     build.check("phase_conv_fwd", err)
     build.LAUNCHES["phase_conv_fwd"] += 1
-    return [tuple(outs[i * n_out : (i + 1) * n_out]) for i in range(n_sets)]
+    sets = [tuple(outs[i * n_out : (i + 1) * n_out]) for i in range(n_sets)]
+    return (sets, stats) if with_stats else sets
+
+
+def _stats_outputs(with_stats, partial_rows, n_sets, cout, dev):
+    """(per-set (2, C_out) float32 outputs, scratch of the block partials)."""
+    if not with_stats:
+        return [None], None
+    stats = [torch.empty((2, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    return stats, build.scratch(partial_rows * 2 * n_sets * cout, dev)
+
+
+def _phase_adjoint(g_groups, tap_sets, corner_mode, out_phases, shape):
+    """dL/d(activated input phases), float32, by autograd of the plain conv
+    (linear in its input, so the input's values do not matter)."""
+    dev = g_groups[0][0].device
+    leaf = [torch.zeros(shape, dtype=torch.float32, device=dev, requires_grad=True)
+            for _ in range(4)]
+    outs, grads = [], []
+    for (taps, _), group in zip(tap_sets, g_groups):
+        outs += phase_conv(leaf, taps.float(), None, corner_mode, out_phases)
+        grads += [g.float() for g in group]
+    return torch.autograd.grad(outs, leaf, grads)
+
+
+def phase_conv_dx_plain(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=None,
+                        raw_phases=None, y_groups=None, gs_list=None):
+    """Plain version of ``phase_conv_dx``: the conv and halo transposes in
+    float32, then the act adjoint, rounded once to ``dtype``."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    B, _, h, w, _ = g_groups[0][0].shape
+    with torch.enable_grad():
+        d = _phase_adjoint(g_groups, tap_sets, corner_mode, out_phases, (B, 5, h, w, cin))
+    gsums = None
+    if y_groups is not None:
+        gsums = [sum(g.float().sum(dim=(0, 1, 2, 3)) for g in group) for group in g_groups]
+    if act is None:
+        return tuple(t.to(dtype) for t in d), None, None, gsums
+    mul, add = act
+    dphases, dmul, dadd = [], 0.0, 0.0
+    for t, x in zip(d, raw_phases):
+        x32 = x.float()
+        dm = t * (x32 * mul + add > 0.0).float()
+        dphases.append((dm * mul).to(dtype))
+        dmul = dmul + (dm * x32).sum(dim=(0, 1, 2, 3))
+        dadd = dadd + dm.sum(dim=(0, 1, 2, 3))
+    return tuple(dphases), dmul, dadd, gsums
+
+
+def phase_conv_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=None,
+                  raw_phases=None, y_groups=None, gs_list=None):
+    """Input cotangent of the phase conv (the Pallas ``_phase_conv_dx``).
+
+    g_groups: per tap set, the cotangents of its output phases (B, 5, h, w,
+    C_out) in ``dtype``; tap_sets: (taps, bias) as in the forward (bias is
+    not read); act and raw_phases: the forward's prologue and RAW input
+    phases, which make the result the cotangent of the raw input
+    (dx' · mul · 1{x·mul + add > 0}) and add d_mul, d_add (float32 (C_in,),
+    summed over batch and cells). y_groups / gs_list switch on the fold and
+    the Σg_eff outputs. Returns (4 dphases, d_mul, d_add, gsums).
+    """
+    out_phases = _check_out_phases(out_phases, "phase_conv_dx")
+    g0 = g_groups[0][0]
+    if not on_cuda(g0, "phase_conv_dx"):
+        return phase_conv_dx_plain(g_groups, tap_sets, corner_mode, out_phases, cin, dtype,
+                                   act, raw_phases, y_groups, gs_list)
+    B, _, h, w, cout = g0.shape
+    grid_level(h, w)
+    dev, n_sets, n_out = g0.device, len(tap_sets), len(out_phases)
+    if len(g_groups) != n_sets or any(len(g) != n_out for g in g_groups):
+        raise ValueError("phase_conv_dx: one cotangent per tap set and output phase")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dtype, dev,
+                      "phase_conv_dx")
+    _check_sets(tap_sets, cin, dtype, dev, "phase_conv_dx")
+    check_act(act, cin, dev, "phase_conv_dx")
+    if act is not None:
+        for i, x in enumerate(raw_phases):
+            expect(x, (B, 5, h, w, cin), dtype, dev, f"phase_conv_dx raw phase {i}")
+    M = 5 * h * w
+    outs = [torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev) for _ in range(4)]
+    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, out_phases)
+    mul, add = act if act is not None else (None, None)
+    red = dmul = dadd = None
+    if act is not None:
+        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
+        dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
+    gsum_ws, gsums = (None, [None])
+    if y_groups is not None:
+        gsum_ws, gsums = _gsum_outputs(B * n_out * M, n_sets, cout, dev)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    raws = build.ptr_array(raw_phases) if act is not None else None
+    with torch.cuda.device(dev):
+        err = build.library().gn_phase_conv_dx(
+            gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), raws, build.ptr(mul),
+            build.ptr(add), build.ptr_array(outs), offsets.data_ptr(), cells.data_ptr(),
+            weights.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
+            build.ptr(gsum_ws), *_pair(gsums),
+            B, h, w, cin, cout, n_sets, n_out, build.GSUM_ROWS, build.dtype_code(dtype),
+            build.stream_ptr(dev),
+        )
+    build.check("phase_conv_dx", err)
+    build.LAUNCHES["phase_conv_dx"] += 1
+    return tuple(outs), dmul, dadd, (gsums if y_groups is not None else None)
+
+
+def _dtaps_by_autograd(phases, g_groups, tap_shapes, corner_mode, out_phases):
+    """Σ_batch dL/dtaps per set, float32, by autograd of the plain conv over
+    the given (already activated, forward-dtype) input phases."""
+    leaves = [torch.zeros(s, dtype=torch.float32, device=phases[0].device, requires_grad=True)
+              for s in tap_shapes]
+    outs, grads = [], []
+    for taps, group in zip(leaves, g_groups):
+        outs += phase_conv(phases, taps, None, corner_mode, out_phases)
+        grads += list(group)
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def phase_conv_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, out_phases, act=None,
+                           y_groups=None, gs_list=None, emit_gsum=False):
+    """Plain version of ``phase_conv_dtaps``."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    phases = tuple(act_apply(p, act) for p in phases)
+    with torch.enable_grad():
+        dtaps = _dtaps_by_autograd(phases, g_groups, tap_shapes, corner_mode, out_phases)
+    if not emit_gsum:
+        return tuple(dtaps)
+    return tuple(dtaps), [sum(g.float().sum(dim=(0, 1, 2, 3)) for g in group)
+                          for group in g_groups]
+
+
+def phase_conv_dtaps(phases, g_groups, tap_shapes, corner_mode, out_phases, act=None,
+                     y_groups=None, gs_list=None, emit_gsum=False):
+    """Tap cotangents of the phase conv, summed over the batch (the Pallas
+    ``_phase_conv_dtaps``): per set a float32 (7, C_in, C_out); with
+    ``emit_gsum`` also the per-set Σg_eff (the bias gradient)."""
+    out_phases = _check_out_phases(out_phases, "phase_conv_dtaps")
+    x0 = phases[0]
+    if not on_cuda(x0, "phase_conv_dtaps"):
+        return phase_conv_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, out_phases,
+                                      act, y_groups, gs_list, emit_gsum)
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    dev, dt = x0.device, x0.dtype
+    n_sets, n_out = len(g_groups), len(out_phases)
+    cout = tap_shapes[0][-1]
+    if any(tuple(s) != (7, cin, cout) for s in tap_shapes) or not 1 <= n_sets <= 2:
+        raise ValueError(f"phase_conv_dtaps: tap shapes {tap_shapes} for C_in {cin}")
+    for i, p in enumerate(phases):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"phase_conv_dtaps phase {i}")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
+                      "phase_conv_dtaps")
+    check_act(act, cin, dev, "phase_conv_dtaps")
+    rows = B * n_out * 5 * h * w
+    kc, n_chunks = build.dtaps_split(rows, build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
+    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    gsum_ws, gsums = _gsum_outputs(rows, n_sets, cout, dev) if emit_gsum else (None, [None])
+    table = device_table("phase", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_phase_conv_dtaps(
+            build.ptr_array(phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
+            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(gsum_ws), *_pair(gsums),
+            B, h, w, cin, cout, n_sets, out_phases[0], n_out, kc, n_chunks, build.GSUM_ROWS,
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("phase_conv_dtaps", err)
+    build.LAUNCHES["phase_conv_dtaps"] += 1
+    return (tuple(dtaps), gsums) if emit_gsum else tuple(dtaps)
 
 
 # --------------------------------------------------------------------------
@@ -115,23 +364,30 @@ def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0
 # --------------------------------------------------------------------------
 
 
-def up_dual_conv_fwd_plain(x, tap_sets, corner_mode="average"):
+def _up_phases(x, corner_mode):
+    """The four level-(s+1) phases the up conv reads (``ico_pad`` then the
+    midpoints), in x's dtype."""
+    return phase_upsample(ico_pad(x, grid_level(x.shape[2], x.shape[3]), corner_mode))
+
+
+def up_dual_conv_fwd_plain(x, tap_sets, corner_mode="average", with_stats=False):
     """Plain version: ``ico_pad`` at level s, the midpoint phases of level
     s+1 (``phase_upsample``), then ``phase_conv`` (all 4 phases) per set."""
-    s = grid_level(x.shape[2], x.shape[3])
-    phases = phase_upsample(ico_pad(x, s, corner_mode))
-    return [phase_conv(phases, taps, bias, corner_mode) for taps, bias in tap_sets]
+    phases = _up_phases(x, corner_mode)
+    sets = [phase_conv(phases, taps, bias, corner_mode) for taps, bias in tap_sets]
+    return (sets, [stats_plain(o) for o in sets]) if with_stats else sets
 
 
-def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average"):
+def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool = False):
     """An UpBlock's upsample s -> s+1 and first convs, fused.
 
     x: contiguous (B, 5, h, w, C_in) level-s grid, float32 or bfloat16;
     tap_sets: 1 or 2 (taps, bias) as for ``phase_conv_fwd``.
-    Returns, per tap set, the 4 level-(s+1) output phases (B, 5, h, w, C_out).
+    Returns, per tap set, the 4 level-(s+1) output phases (B, 5, h, w, C_out);
+    with ``with_stats`` also the per-set (2, C_out) [Σy, Σy²].
     """
     if not on_cuda(x, "up_dual_conv_fwd"):
-        return up_dual_conv_fwd_plain(x, tap_sets, corner_mode)
+        return up_dual_conv_fwd_plain(x, tap_sets, corner_mode, with_stats)
     B, _, h, w, cin = x.shape
     grid_level(h, w)
     dev, dt = x.device, x.dtype
@@ -141,16 +397,117 @@ def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average"):
     outs = [torch.empty((B, 5, h, w, cout), dtype=dt, device=dev) for _ in range(4 * n_sets)]
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
+    stats, ws = _stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), n_sets, cout, dev)
     out_ptrs = build.ptr_array(outs)
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_fwd(
             x.data_ptr(), *_set_ptrs(tap_sets), out_ptrs, conv_table.data_ptr(),
-            up_table.data_ptr(), B, h, w, cin, cout, n_sets, build.dtype_code(dt),
-            build.stream_ptr(dev),
+            up_table.data_ptr(), build.ptr(ws), *_pair(stats),
+            B, h, w, cin, cout, n_sets, build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_dual_conv_fwd", err)
     build.LAUNCHES["up_dual_conv_fwd"] += 1
-    return [tuple(outs[i * 4 : (i + 1) * 4]) for i in range(n_sets)]
+    sets = [tuple(outs[i * 4 : (i + 1) * 4]) for i in range(n_sets)]
+    return (sets, stats) if with_stats else sets
+
+
+def up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_list=None,
+                          emit_gsum=False):
+    """Plain version of ``up_dual_conv_dx``: conv, phase-pad, upsample and
+    pad transposes in float32, rounded once."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    B, _, h, w, _ = g_groups[0][0].shape
+    cin = tap_sets[0][0].shape[1]
+    with torch.enable_grad():
+        leaf = torch.zeros((B, 5, h, w, cin), dtype=torch.float32, device=g_groups[0][0].device,
+                           requires_grad=True)
+        phases = _up_phases(leaf, corner_mode)
+        outs, grads = [], []
+        for (taps, _), group in zip(tap_sets, g_groups):
+            outs += phase_conv(phases, taps.float(), None, corner_mode)
+            grads += [g.float() for g in group]
+        (dx,) = torch.autograd.grad(outs, [leaf], grads)
+    gsums = None
+    if emit_gsum:
+        gsums = [sum(g.float().sum(dim=(0, 1, 2, 3)) for g in group) for group in g_groups]
+    return dx.to(dtype), gsums
+
+
+def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_list=None,
+                    emit_gsum=False):
+    """Input cotangent of the up conv (``_upd_bwd``'s dx kernel): the level-s
+    (B, 5, h, w, C_in) dx in ``dtype``, and with ``emit_gsum`` the per-set
+    Σg_eff. Arguments as for ``phase_conv_dx`` (4 phases per set)."""
+    g0 = g_groups[0][0]
+    if not on_cuda(g0, "up_dual_conv_dx"):
+        return up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups, gs_list,
+                                     emit_gsum)
+    B, _, h, w, cout = g0.shape
+    grid_level(h, w)
+    dev, n_sets = g0.device, len(tap_sets)
+    cin = tap_sets[0][0].shape[1]
+    if len(g_groups) != n_sets or any(len(g) != 4 for g in g_groups):
+        raise ValueError("up_dual_conv_dx: 4 cotangent phases per tap set")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dtype, dev,
+                      "up_dual_conv_dx")
+    _check_sets(tap_sets, cin, dtype, dev, "up_dual_conv_dx")
+    dx = torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev)
+    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
+    gsum_ws, gsums = (_gsum_outputs(B * 4 * 5 * h * w, n_sets, cout, dev) if emit_gsum
+                      else (None, [None]))
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_dual_conv_dx(
+            gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), dx.data_ptr(),
+            offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(), build.ptr(gsum_ws),
+            *_pair(gsums), B, h, w, cin, cout, n_sets, build.GSUM_ROWS,
+            build.dtype_code(dtype), build.stream_ptr(dev),
+        )
+    build.check("up_dual_conv_dx", err)
+    build.LAUNCHES["up_dual_conv_dx"] += 1
+    return dx, (gsums if emit_gsum else None)
+
+
+def up_dual_conv_dtaps_plain(x, g_groups, corner_mode, y_groups=None, gs_list=None):
+    """Plain version of ``up_dual_conv_dtaps``."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    cin, cout = x.shape[-1], g_groups[0][0].shape[-1]
+    with torch.enable_grad():
+        return tuple(_dtaps_by_autograd(_up_phases(x, corner_mode), g_groups,
+                                        [(7, cin, cout)] * len(g_groups), corner_mode, _ALL))
+
+
+def up_dual_conv_dtaps(x, g_groups, corner_mode, y_groups=None, gs_list=None):
+    """Tap cotangents of the up conv summed over the batch (``_upd_bwd``'s
+    dtaps kernel): per set a float32 (7, C_in, C_out)."""
+    if not on_cuda(x, "up_dual_conv_dtaps"):
+        return up_dual_conv_dtaps_plain(x, g_groups, corner_mode, y_groups, gs_list)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    expect(x, (B, 5, h, w, cin), dt, dev, "up_dual_conv_dtaps x")
+    n_sets = len(g_groups)
+    cout = g_groups[0][0].shape[-1]
+    if not 1 <= n_sets <= 2 or any(len(g) != 4 for g in g_groups):
+        raise ValueError("up_dual_conv_dtaps: 1 or 2 sets of 4 cotangent phases")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
+                      "up_dual_conv_dtaps")
+    kc, n_chunks = build.dtaps_split(B * 4 * 5 * h * w,
+                                     build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
+    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    conv_table = device_table("phase", h, w, corner_mode, dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_dual_conv_dtaps(
+            x.data_ptr(), gp, yp, gs0, gs1, conv_table.data_ptr(), up_table.data_ptr(),
+            ws.data_ptr(), *_pair(dtaps), B, h, w, cin, cout, n_sets, kc, n_chunks,
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_dual_conv_dtaps", err)
+    build.LAUNCHES["up_dual_conv_dtaps"] += 1
+    return tuple(dtaps)
 
 
 # --------------------------------------------------------------------------

@@ -139,3 +139,81 @@ def test_model_kernel_route_matches_plain_route(cuda, dt):
     tol = 1e-4 if dt == torch.float32 else 5e-2
     err = (got.cpu() - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# training: forward stats and the four backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _stats_fold(device, dt, shape, n_sets, seed):
+    """Cotangents of the outputs and of their [sum, sumsq] stats, per set."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(n):
+        return [[torch.randn(*shape, generator=g).to(device, dt) for _ in range(n)]
+                for _ in range(n_sets)]
+
+    return mk, [torch.randn(2, shape[-1], generator=g).mul(1e-3).to(device)
+                for _ in range(n_sets)]
+
+
+def _close_all(got, ref, dt):
+    for u, v in zip(got, ref):
+        if isinstance(v, (tuple, list)):
+            _close_all(u, v, dt)
+        elif v is None:
+            assert u is None
+        else:
+            _close(u, v, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 5])
+def test_forward_stats(cuda, s, corner_mode, dt):
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=30 + s)
+    phases = tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+    for out_phases, n in [((0, 1, 2, 3), 1), ((2,), 2)]:
+        got = pk.phase_conv_fwd(phases, sets[:n], corner_mode, out_phases, act, with_stats=True)
+        ref = pk.phase_conv_fwd_plain(phases, sets[:n], corner_mode, out_phases, act, True)
+        _close_all(got, ref, dt)
+    if s < 5:
+        got = pk.up_dual_conv_fwd(x, sets, corner_mode, with_stats=True)
+        _close_all(got, pk.up_dual_conv_fwd_plain(x, sets, corner_mode, True), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 5])
+def test_phase_conv_backward(cuda, s, corner_mode, dt):
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=40 + s)
+    phases = tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+    mk, gs = _stats_fold(cuda, dt, phases[0].shape[:-1] + (20,), 2, seed=s)
+    for out_phases, n, a, fold in [((0, 1, 2, 3), 1, act, True), ((2,), 2, act, True),
+                                   ((0, 1, 2, 3), 1, None, False), ((2,), 2, None, True)]:
+        g = [grp[: len(out_phases)] for grp in mk(len(out_phases))][:n]
+        y = [grp[: len(out_phases)] for grp in mk(len(out_phases))][:n] if fold else None
+        fk = dict(y_groups=y, gs_list=gs[:n]) if fold else {}
+        args = (g, sets[:n], corner_mode, out_phases, 12, dt, a, phases if a else None)
+        _close_all(pk.phase_conv_dx(*args, **fk), pk.phase_conv_dx_plain(*args, **fk), dt)
+        shapes = [(7, 12, 20)] * n
+        args = (phases, g, shapes, corner_mode, out_phases, a)
+        _close_all(pk.phase_conv_dtaps(*args, **fk, emit_gsum=True),
+                   pk.phase_conv_dtaps_plain(*args, **fk, emit_gsum=True), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [0, 2, 4])
+def test_up_dual_conv_backward(cuda, s, corner_mode, dt):
+    x, _, sets = _inputs(cuda, dt, s, 12, 20, seed=50 + s)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (20,), 2, seed=s)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        args = (g, sets, corner_mode, dt)
+        _close_all(pk.up_dual_conv_dx(*args, **fk, emit_gsum=True),
+                   pk.up_dual_conv_dx_plain(*args, **fk, emit_gsum=True), dt)
+        _close_all(pk.up_dual_conv_dtaps(x, g, corner_mode, **fk),
+                   pk.up_dual_conv_dtaps_plain(x, g, corner_mode, **fk), dt)

@@ -118,7 +118,7 @@ def test_bf16_model_tracks_fp32():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (server included) pulls in neither jax nor flax."""
+    """Importing the port (server and trainer included) pulls in neither jax nor flax."""
     code = (
         "import importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -127,7 +127,8 @@ def test_port_imports_no_jax():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import geniconet_tpu_torch, geniconet_tpu_torch.app.server, geniconet_tpu_torch.bridge\n"
-        "import geniconet_tpu_torch.ops.kernels.build\n"
+        "import geniconet_tpu_torch.ops.kernels.build, geniconet_tpu_torch.ops.kernels.fused\n"
+        "import geniconet_tpu_torch.train.trainer, geniconet_tpu_torch.data.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

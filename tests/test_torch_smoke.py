@@ -57,6 +57,14 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::conv_gemm<float, gn::GridLoad<float> >"},
      "conv_gemm<fp32, GridLoad>"),
     ({"cat": "kernel", "name": "void gn::pair_head_kernel<float>"}, "pair_head_kernel"),
+    ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16>(gn::GLoad<__nv_bfloat16>)"},
+     "dx_gemm<bf16>"),
+    ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::UpLoad<float> >"},
+     "dtaps_gemm<fp32, UpLoad>"),
+    ({"cat": "kernel", "name": "void gn::sum_rows<gn::SplitOut>"},
+     "sum_rows + colsum (cross-block sums)"),
+    ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
+     "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
     ({"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)"}, "gpu_memcpy"),
 ])
