@@ -13,26 +13,40 @@ Phases, each printed on its own lines, each fatal on failure:
    the error against the stated tolerance and the median CUDA-event time of
    both;
 4. kernel vs plain, training: the forward kernels' BatchNorm stats and the
-   four backward kernels (phase-conv and up-conv dx and dtaps, with the
-   stats fold) at the shapes of AE training at B=36, the same way;
+   eight backward and loss kernels (phase-conv, up-conv and standard-conv
+   dx and dtaps, with the stats fold; the head+MSE forward and backward) at
+   the shapes of AE training at B=36, the same way. Every case also prints
+   its bound (the least time the card could take: bytes over 3.35 TB/s or
+   FLOPs over the peak for the dtype, whichever is larger) and, for the
+   convs, the time of the one cuDNN call that does the same contraction on
+   an input already haloed (upsampled, for the up conv), which the port
+   never calls;
 5. serving slice: ``AppState.load`` on 32 synthetic meshes with seeded
    random weights (non-trivial BN statistics), then ``handle_api`` requests,
    in bfloat16 and float32; every mesh must have 10,242 finite vertices,
    every serving kernel must have launched, and two float32 decodes must
    match the same model run through the plain route on the CPU;
 6. timings: p50 single-mesh decode latency and encode+decode meshes/s at B=16;
-7. training: the AE ``Trainer`` (``pallas_blocks="up0,up1,up2"``) takes
-   12 Adam steps at B=36 on 64 synthetic meshes, in bfloat16 and float32;
-   every loss must be finite, every training kernel must have launched, and
-   training meshes/s is the median of the last 10 steps; then one float32
-   step at B=4 must match the same step on the CPU's plain route (loss,
-   every gradient, the new BatchNorm statistics);
+7. training: the AE ``Trainer`` (the default routing, every block on the
+   kernels, the loss from the head+MSE kernel) takes 12 Adam steps at B=36
+   on 64 synthetic meshes, in bfloat16 and float32; every loss must be
+   finite, every training kernel must have launched, and training meshes/s
+   is the median of the last 10 steps; then one float32 step at B=4 must
+   match the same step on the CPU's plain route (loss, every gradient, the
+   new BatchNorm statistics), and that check must catch a 1% error planted
+   in one kernel output at a time; then the
+   forward+backward of the default routing and of
+   ``pallas_blocks="up0,up1,up2"`` (encoder and head on cuDNN), in turns at
+   B=36 bfloat16, side by side;
 8. profile: where the device time goes in the timed serving workloads and
    in training steps (bfloat16), read from a ``torch.profiler`` trace, with
    the device's idle share; the Chrome traces are kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
-launches on the serving and training paths; the last is
+launches on the serving and training paths, its bf16 time, its plain
+version's, its bound and the library call's, summed over its shapes (a
+forward kernel's times are its serving shapes', and ``training_shapes``
+holds those of its training shapes); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with an error before printing any result.
 """
@@ -57,11 +71,15 @@ N_MESHES = 32
 TRAIN_BATCH = 36
 TRAIN_MESHES = 64
 TRAIN_STEPS, TRAIN_WARMUP = 12, 2
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # times max|ref|
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # times each output's max|ref|
 TOL_WHY = {
     torch.float32: "only the order of the float32 sums differs",
     torch.bfloat16: "float32 sums round to bf16 at different points",
 }
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet): bf16 on the
+# tensor cores, float32 on the CUDA cores, device memory bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 KERNELS = {
     "phase_conv_fwd": ("geniconet_tpu_torch/csrc/phase_conv.cu",
                        "geniconet_tpu/ops/pallas/phase_kernel.py:1272"),
@@ -79,10 +97,17 @@ KERNELS = {
                         "geniconet_tpu/ops/pallas/phase_kernel.py:2123"),
     "up_dual_conv_dtaps": ("geniconet_tpu_torch/csrc/up_conv_bwd.cu",
                            "geniconet_tpu/ops/pallas/phase_kernel.py:2150"),
+    "ico_conv_s2s_dx": ("geniconet_tpu_torch/csrc/ico_conv_bwd.cu",
+                        "geniconet_tpu/ops/pallas/conv_kernel.py:727"),
+    "ico_conv_s2s_dtaps": ("geniconet_tpu_torch/csrc/ico_conv_bwd.cu",
+                           "geniconet_tpu/ops/pallas/conv_kernel.py:665"),
+    "pair_head_mse_fwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
+                          "geniconet_tpu/ops/pallas/phase_kernel.py:3528"),
+    "pair_head_mse_bwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
+                          "geniconet_tpu/ops/pallas/phase_kernel.py:3577"),
 }
 SERVING_KERNELS = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
-TRAINING_KERNELS = ("phase_conv_fwd", "up_dual_conv_fwd", "phase_conv_dx", "phase_conv_dtaps",
-                    "up_dual_conv_dx", "up_dual_conv_dtaps")
+TRAINING_KERNELS = tuple(k for k in KERNELS if k != "pair_head_fwd")
 
 
 def card_line() -> str:
@@ -120,8 +145,42 @@ def _taps(gen, cin, cout, dt):
     return _rnd(gen, 7, cin, cout, dtype=dt, scale=(7 * cin) ** -0.5), _rnd(gen, cout, dtype=dt)
 
 
+class Case:
+    """One kernel call at one shape: the kernel and its plain version, the
+    FLOPs the function needs, its input tensors (each read once) and, where
+    one cuDNN call computes the same contraction, that call."""
+
+    def __init__(self, kernel, plain, flops, inputs, library=None):
+        self.kernel, self.plain, self.flops, self.library = kernel, plain, flops, library
+        self.inputs = [t for t in flat(inputs) if t is not None]
+
+
+def conv_flops(B, cells, cin, ntot):
+    """2·rows·7·C_in·C_out of a hex conv whose outputs are B·cells rows of ntot channels."""
+    return 2 * B * cells * 7 * cin * ntot
+
+
+def cudnn(kind, gen, dt, n, cin, cout, hp, wp, stride=1):
+    """The cuDNN call of one hex conv's contraction, on an input already
+    haloed to (n, C_in, hp, wp), channels-last, with a 3×3 kernel: conv2d
+    (fwd), conv2d_input (dx) or conv2d_weight (dtaps)."""
+    import torch.nn.functional as F
+
+    def nhwc(*shape):
+        return _rnd(gen, *shape, dtype=dt).contiguous(memory_format=torch.channels_last)
+
+    x, wt = nhwc(n, cin, hp, wp), nhwc(cout, cin, 3, 3)
+    y = F.conv2d(x, wt, stride=stride)
+    gy = nhwc(*y.shape)
+    if kind == "fwd":
+        return lambda: F.conv2d(x, wt, stride=stride)
+    if kind == "dx":
+        return lambda: torch.nn.grad.conv2d_input(x.shape, wt, gy, stride=stride)
+    return lambda: torch.nn.grad.conv2d_weight(x, wt.shape, gy, stride=stride)
+
+
 def serving_cases():
-    """(kernel, label, make(dtype, gen) -> (kernel_fn, plain_fn)) at the serving shapes."""
+    """(kernel, label, make(dtype, gen) -> Case) at the serving shapes."""
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -132,15 +191,23 @@ def serving_cases():
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
             a = _act(gen, cin) if with_act else None
-            return (lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a),
-                    lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a))
+            stride = 2 if out_phases == (2,) else 1
+            return Case(lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a),
+                        lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a),
+                        conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout),
+                        [ph, sets, a],
+                        cudnn("fwd", gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
+                              2 * w + 2, stride))
         return make
 
     def up(h, w, cin, cout):
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return (lambda: pk.up_dual_conv_fwd(x, sets), lambda: pk.up_dual_conv_fwd_plain(x, sets))
+            return Case(lambda: pk.up_dual_conv_fwd(x, sets),
+                        lambda: pk.up_dual_conv_fwd_plain(x, sets),
+                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [x, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
         return make
 
     def std(h, w, c):
@@ -148,8 +215,10 @@ def serving_cases():
             x = _rnd(gen, B, 5, h, w, c, dtype=dt)
             t, b = _taps(gen, c, c, dt)
             a = _act(gen, c)
-            return (lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a),
-                    lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a))
+            return Case(lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a),
+                        lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a),
+                        conv_flops(B, 5 * h * w, c, c), [x, t, b, a],
+                        cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2))
         return make
 
     def head(h, w, c):
@@ -158,8 +227,9 @@ def serving_cases():
             y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
             aff = [*_act(gen, c), *_act(gen, c)]
             W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt)
-            return (lambda: pk.pair_head_fwd(b0, y10, aff, W, bias),
-                    lambda: pk.pair_head_fwd_plain(b0, y10, aff, W, bias))
+            return Case(lambda: pk.pair_head_fwd(b0, y10, aff, W, bias),
+                        lambda: pk.pair_head_fwd_plain(b0, y10, aff, W, bias),
+                        head_flops(B, h, w, c, 3), [b0, y10, aff, W, bias])
         return make
 
     return [
@@ -180,11 +250,18 @@ def serving_cases():
     ]
 
 
+def head_flops(B, h, w, c, F, backward=False):
+    """The join (5 FLOPs a channel) and the 1×1 head (2·C·F) of every cell of
+    the four phases; the backward recomputes both and adds dW and dt."""
+    per_cell = 5 * c + 2 * c * F
+    return 4 * B * 5 * h * w * (per_cell + (2 * 2 * c * F + 6 * c if backward else 0))
+
+
 def training_cases():
     """(kernel, label, make) at the shapes of AE training (s=5, B=36): the
-    forward kernels with BatchNorm stats, and the four backward kernels with
-    the stats fold (a/b also at the DownBlocks' stride-2 shapes, which the
-    next slice trains)."""
+    forward kernels with BatchNorm stats, the six conv backward kernels with
+    the stats fold, and the head+MSE forward and backward."""
+    from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
     B, (w0, w1, w2) = TRAIN_BATCH, WIDTHS
@@ -196,32 +273,58 @@ def training_cases():
                     for _ in range(n_sets)]
         return group(), group(), [_rnd(gen, 2, cout, scale=1e-3) for _ in range(n_sets)]
 
-    def phase_fwd(h, w, cin, cout):
+    def phase_fwd(h, w, cin, cout, n_sets=1, out_phases=(0, 1, 2, 3), with_act=True):
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
-            sets, a = [_taps(gen, cin, cout, dt)], _act(gen, cin)
-            return (lambda: pk.phase_conv_fwd(ph, sets, "average", (0, 1, 2, 3), a, True),
-                    lambda: pk.phase_conv_fwd_plain(ph, sets, "average", (0, 1, 2, 3), a, True))
+            sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
+            a = _act(gen, cin) if with_act else None
+            stride = 2 if out_phases == (2,) else 1
+            return Case(lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a, True),
+                        lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a,
+                                                        True),
+                        conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout),
+                        [ph, sets, a],
+                        cudnn("fwd", gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
+                              2 * w + 2, stride))
         return make
 
     def up_fwd(h, w, cin, cout):
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return (lambda: pk.up_dual_conv_fwd(x, sets, "average", True),
-                    lambda: pk.up_dual_conv_fwd_plain(x, sets, "average", True))
+            return Case(lambda: pk.up_dual_conv_fwd(x, sets, "average", True),
+                        lambda: pk.up_dual_conv_fwd_plain(x, sets, "average", True),
+                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [x, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
         return make
 
-    def phase_bwd(which, h, w, cin, cout, n_sets, out_phases):
+    def std_fwd(h, w, c):
+        def make(dt, gen):
+            x, (t, b), a = _rnd(gen, B, 5, h, w, c, dtype=dt), _taps(gen, c, c, dt), _act(gen, c)
+            return Case(lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a, True),
+                        lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a, True),
+                        conv_flops(B, 5 * h * w, c, c), [x, t, b, a],
+                        cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2))
+        return make
+
+    def phase_bwd(which, h, w, cin, cout, n_sets, out_phases, with_act=True, emit_gsum=False):
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
-            sets, a = [_taps(gen, cin, cout, dt) for _ in range(n_sets)], _act(gen, cin)
+            sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
+            a = _act(gen, cin) if with_act else None
             g, y, gs = cotangents(gen, dt, h, w, cout, n_sets, len(out_phases))
+            stride = 2 if out_phases == (2,) else 1
+            flops = conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout)
+            lib = cudnn(which, gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
+                        2 * w + 2, stride)
             if which == "dx":
                 args = (g, sets, "average", out_phases, cin, dt, a, ph, y, gs)
-                return (lambda: pk.phase_conv_dx(*args), lambda: pk.phase_conv_dx_plain(*args))
-            args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs)
-            return (lambda: pk.phase_conv_dtaps(*args), lambda: pk.phase_conv_dtaps_plain(*args))
+                return Case(lambda: pk.phase_conv_dx(*args),
+                            lambda: pk.phase_conv_dx_plain(*args), flops,
+                            [g, [t for t, _ in sets], a, ph, y, gs], lib)
+            args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs, emit_gsum)
+            return Case(lambda: pk.phase_conv_dtaps(*args),
+                        lambda: pk.phase_conv_dtaps_plain(*args), flops, [ph, g, a, y, gs], lib)
         return make
 
     def up_bwd(which, h, w, cin, cout):
@@ -229,12 +332,52 @@ def training_cases():
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
             g, y, gs = cotangents(gen, dt, h, w, cout, 2, 4)
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            lib = cudnn(which, gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2)
             if which == "dx":
                 args = (g, sets, "average", dt, y, gs, True)
-                return (lambda: pk.up_dual_conv_dx(*args), lambda: pk.up_dual_conv_dx_plain(*args))
+                return Case(lambda: pk.up_dual_conv_dx(*args),
+                            lambda: pk.up_dual_conv_dx_plain(*args), flops,
+                            [g, [t for t, _ in sets], y, gs], lib)
             args = (x, g, "average", y, gs)
-            return (lambda: pk.up_dual_conv_dtaps(*args),
-                    lambda: pk.up_dual_conv_dtaps_plain(*args))
+            return Case(lambda: pk.up_dual_conv_dtaps(*args),
+                        lambda: pk.up_dual_conv_dtaps_plain(*args), flops, [x, g, y, gs], lib)
+        return make
+
+    def std_bwd(which, h, w, c):
+        def make(dt, gen):
+            x, (t, _), a = _rnd(gen, B, 5, h, w, c, dtype=dt), _taps(gen, c, c, dt), _act(gen, c)
+            gg, yy, gss = cotangents(gen, dt, h, w, c, 1, 1)
+            g, y, gs = gg[0][0], yy[0][0], gss[0]
+            flops = conv_flops(B, 5 * h * w, c, c)
+            lib = cudnn(which, gen, dt, B * 5, c, c, h + 2, w + 2)
+            if which == "dx":
+                args = (g, t, "average", dt, a, x, y, gs, True)
+                return Case(lambda: ck.ico_conv_s2s_dx(*args),
+                            lambda: ck.ico_conv_s2s_dx_plain(*args), flops, [g, t, a, x, y, gs],
+                            lib)
+            args = (x, g, "average", a, y, gs)
+            return Case(lambda: ck.ico_conv_s2s_dtaps(*args),
+                        lambda: ck.ico_conv_s2s_dtaps_plain(*args), flops, [x, g, a, y, gs], lib)
+        return make
+
+    def head_mse(which, h, w, c):
+        def make(dt, gen):
+            b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            aff = [*_act(gen, c), *_act(gen, c)]
+            W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt, scale=0.1)
+            tpack = torch.rand(B, 5, h, w, 12, generator=gen, device="cuda") * 2 - 1
+            tpoles = torch.rand(B, 6, generator=gen, device="cuda") * 2 - 1
+            args = (b0, y10, aff, W, bias, tpack, tpoles)
+            if which == "fwd":
+                return Case(lambda: pk.pair_head_mse_fwd(*args),
+                            lambda: pk.pair_head_mse_fwd_plain(*args),
+                            head_flops(B, h, w, c, 3), args)
+            g = torch.rand(B, generator=gen, device="cuda")
+            return Case(lambda: pk.pair_head_mse_bwd(g, *args),
+                        lambda: pk.pair_head_mse_bwd_plain(g, *args),
+                        head_flops(B, h, w, c, 3, backward=True), [g, *args])
         return make
 
     conv01 = [("up0 conv01 (4,8) 256->256", (4, 8, w2, w2)),
@@ -245,8 +388,15 @@ def training_cases():
             ("down2 s2 (4,8) 256->2x256", (4, 8, w2, w2))]
     ups = [("up0 (4,8) 256->2x256", (4, 8, w2, w2)), ("up1 (8,16) 256->2x128", (8, 16, w2, w1)),
            ("up2 (16,32) 128->2x64", (16, 32, w1, w0))]
-    cases = [("phase_conv_fwd", f"{label} +stats", phase_fwd(*shape)) for label, shape in conv01]
+    std = [("down0 conv01 (16,32) 128", (16, 32, w1)), ("down1 conv01 (8,16) 256", (8, 16, w2)),
+           ("down2 conv01 (4,8) 256", (4, 8, w2))]
+    cases = [("phase_conv_fwd", "conv_in (16,32) 3->64 +stats",
+              phase_fwd(16, 32, 3, w0, with_act=False))]
+    cases += [("phase_conv_fwd", f"{label} act+stats", phase_fwd(*shape, 2, (2,)))
+              for label, shape in down]
+    cases += [("phase_conv_fwd", f"{label} +stats", phase_fwd(*shape)) for label, shape in conv01]
     cases += [("up_dual_conv_fwd", f"{label} +stats", up_fwd(*shape)) for label, shape in ups]
+    cases += [("ico_conv_s2s_fwd", f"{label} act+stats", std_fwd(*shape)) for label, shape in std]
     for which in ("dx", "dtaps"):
         name = f"phase_conv_{which}"
         cases += [(name, f"{label} act+fold", phase_bwd(which, *shape, 1, (0, 1, 2, 3)))
@@ -255,6 +405,14 @@ def training_cases():
                   for label, shape in down]
         cases += [(f"up_dual_conv_{which}", f"{label} fold", up_bwd(which, *shape))
                   for label, shape in ups]
+        cases += [(f"ico_conv_s2s_{which}", f"{label} act+fold+bias", std_bwd(which, *shape))
+                  for label, shape in std]
+    # conv_in trains without dx, so its dtaps call emits the bias gradient
+    cases += [("phase_conv_dtaps", "conv_in (16,32) 3->64 fold+bias",
+               phase_bwd("dtaps", 16, 32, 3, w0, 1, (0, 1, 2, 3), with_act=False,
+                         emit_gsum=True))]
+    cases += [(f"pair_head_mse_{which}", "head (16,32) 64->3", head_mse(which, 16, 32, w0))
+              for which in ("fwd", "bwd")]
     return cases
 
 
@@ -267,35 +425,61 @@ def flat(out):
     return [t for o in out for t in flat(o)]
 
 
+def bound(case: Case, outputs, dt):
+    """(ms, "bytes" or "operations"): the larger of the bytes the function
+    must move (each input read once, each output written once) over the
+    memory rate, and its FLOPs over the peak for its dtype."""
+    nbytes = sum(t.numel() * t.element_size() for t in case.inputs + outputs)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, case.flops / PEAK_FLOPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
     """Phases 3 and 4. Returns per kernel its largest max_abs_err over its
-    cases, and ms / plain_ms: its bf16 median times summed over its shapes."""
-    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    cases and, summed over its shapes in bf16: ms and plain_ms (median
+    times), bound_ms (with what bounds the largest share of it) and
+    library_ms (None where no cuDNN call does the same work)."""
+    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                             "bound_ms": 0.0, "bound_by": {}, "library_ms": None})
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, label, make in cases:
         for dt in (torch.float32, torch.bfloat16):
-            kernel_fn, plain_fn = make(dt, gen)
-            got, ref = flat(kernel_fn()), flat(plain_fn())
+            case = make(dt, gen)
+            got, ref = flat(case.kernel()), flat(case.plain())
             torch.cuda.synchronize()
             if len(got) != len(ref):
                 raise AssertionError(f"{name} {label}: {len(got)} outputs, plain {len(ref)}")
-            err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-            scale = max(r.float().abs().max().item() for r in ref)
+            # each output is held against its own max|ref|
+            errs = [((g.float() - r.float()).abs().max().item(), r.float().abs().max().item())
+                    for g, r in zip(got, ref)]
+            rel, err, scale = max((e / s if s else (math.inf if e else 0.0), e, s)
+                                  for e, s in errs)
             finite = all(bool(torch.isfinite(g).all()) for g in got)
-            ms, plain_ms = cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, reps)
+            ms, plain_ms = cuda_ms(case.kernel, reps), cuda_ms(case.plain, reps)
+            lib_ms = cuda_ms(case.library, reps) if case.library is not None else None
+            b_ms, b_by = bound(case, got, dt)
             tag = "bf16" if dt == torch.bfloat16 else "fp32"
-            print(f"[{phase}] {name} {label} {tag}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
-                  f"rel={err / scale:.3e} tol={TOL[dt]:.0e} ({TOL_WHY[dt]}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
-            if not finite or not err <= TOL[dt] * scale:
+            lib = ("none" if lib_ms is None else
+                   f"{lib_ms:.4f} ms (cuDNN, contraction only, on a haloed input)")
+            print(f"[{phase}] {name} {label} {tag}: worst of {len(got)} outputs "
+                  f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={rel:.3e} tol={TOL[dt]:.0e} "
+                  f"({TOL_WHY[dt]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}), library {lib} [{card}]", flush=True)
+            if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
                                      f"{TOL[dt]} x {scale} (finite={finite})")
             s = stats[name]
-            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["max_abs_err"] = max([s["max_abs_err"]] + [e for e, _ in errs])
             if dt == torch.bfloat16:
                 s["ms"] += ms
                 s["plain_ms"] += plain_ms
-            del kernel_fn, plain_fn, got, ref
+                s["bound_ms"] += b_ms
+                s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
+                if lib_ms is not None:
+                    s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
+            del case, got, ref
+    for s in stats.values():
+        s["bound_by"] = max(s["bound_by"], key=s["bound_by"].get)
     return stats
 
 
@@ -396,6 +580,8 @@ def kernel_group(event: dict) -> str:
         return "sum_rows + colsum (cross-block sums)"
     if "pair_head_kernel" in name:
         return "pair_head_kernel"
+    if "phmse" in name:
+        return "phmse (head+MSE fwd/bwd)"
     if any(k in name.lower() for k in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
         return "cuDNN / cuBLAS (plain route)"
     return "PyTorch ops"
@@ -533,20 +719,63 @@ def train(dtype_name: str, variables, dataset, card: str):
     return tr, st, next(it), launches
 
 
+def routing_compare(variables, dataset, card: str, iters: int = 4):
+    """Forward + backward of ``IcoAE.recon_sse`` at B=36 bf16 (no optimizer)
+    under the default routing and under ``pallas_blocks="up0,up1,up2"`` (the
+    encoder and the head on cuDNN and PyTorch ops), in turns: default,
+    decoder-only, decoder-only, default. Losses must be finite; prints each
+    routing's median host-clock time, synchronised."""
+    from geniconet_tpu_torch.bridge import flax_to_state_dict
+    from geniconet_tpu_torch.nn.models import IcoAE
+    from geniconet_tpu_torch.ops.vertices import pack_target_phases
+
+    x = torch.as_tensor(dataset.inputs[:TRAIN_BATCH], device="cuda")
+    tpack, tpoles = pack_target_phases(torch.as_tensor(dataset.targets[:TRAIN_BATCH],
+                                                       device="cuda"), SUBDIVISIONS)
+    models = {}
+    for blocks in (None, "up0,up1,up2"):
+        m = IcoAE(SUBDIVISIONS, WIDTHS, dtype=torch.bfloat16, pallas_blocks=blocks, device="cuda")
+        m.load_state_dict({k: v.cuda() for k, v in flax_to_state_dict(variables).items()})
+        models[blocks] = m
+    times = collections.defaultdict(list)
+    for blocks in (None, "up0,up1,up2", "up0,up1,up2", None):
+        m = models[blocks]
+        for i in range(iters + 1):
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = m.recon_sse(x, tpack, tpoles, train=True).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            if i:  # the first pass of each turn warms up
+                times[blocks].append(time.perf_counter() - t0)
+            if not math.isfinite(loss.item()):
+                raise AssertionError(f"pallas_blocks={blocks!r}: loss {loss.item()}")
+    for blocks, ts in times.items():
+        ms = statistics.median(ts) * 1e3
+        print(f"[train routing] pallas_blocks={blocks!r}: forward+backward at B={TRAIN_BATCH} "
+              f"bf16 {ms:.3f} ms (median of {len(ts)}, two turns, host clock, synchronised) = "
+              f"{TRAIN_BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
+
+
 def train_step_check(variables, card: str):
     """One float32 step at B=4 on the card against the same step on the CPU
     (plain route): the loss and the new BatchNorm statistics within 1e-4 of
     max|ref|, every gradient within 1e-4·max|ref| plus twice the CPU's own
     float32 spread on it. That spread is measured: the largest change of
-    the CPU step's gradient when the batch's samples come in three other
+    the CPU step's gradient when the batch's samples come in five other
     orders. The BatchNorm backward at B=4 loses digits to cancellation (a
     float32 gradient leaf moves by up to 1e-2·max|ref| with the summation
     order alone), so a fixed bound would measure the conditioning, not the
     kernels. The bound is that loose only on some leaves, which the check
-    names; a 1% error of the up-conv dtaps kernel at up0 puts
-    ``decoder.up0.conv10.taps`` at 10x its bound here (PERF.md §6)."""
+    names. To show that the check still catches a kernel error, the card's
+    step then runs once per entry of ``PLANTED``, with that kernel output 1%
+    off: the check must read above its bound for each."""
+    from unittest import mock
+
     from geniconet_tpu_torch.data.datasets import synthetic_dataset
     from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.ops.kernels import fused
     from geniconet_tpu_torch.train.trainer import Trainer
 
     ds = synthetic_dataset(SUBDIVISIONS, 4, seed=1)
@@ -561,29 +790,34 @@ def train_step_check(variables, card: str):
                  if k.endswith((".mean", ".var"))}
         return loss, grads, stats
 
-    loss, grads, stats = step("cuda", [0, 1, 2, 3])
     ref_loss, ref_grads, ref_stats = step("cpu", [0, 1, 2, 3])
-    orders = [[3, 2, 1, 0], [1, 0, 3, 2], [2, 3, 0, 1]]
+    orders = [[3, 2, 1, 0], [1, 0, 3, 2], [2, 3, 0, 1], [0, 2, 1, 3], [1, 3, 0, 2]]
     spread = {k: 0.0 for k in ref_grads}
     for order in orders:
         _, other, _ = step("cpu", order)
         for k, ref in ref_grads.items():
             spread[k] = max(spread[k], (other[k] - ref).abs().max().item())
-    # each entry: error / its bound, so 1 is at the bound
-    ratio = {"loss": abs(loss - ref_loss) / (1e-4 * abs(ref_loss))}
-    for k, ref in ref_stats.items():
-        ratio[k] = (stats[k] - ref).abs().max().item() / (1e-4 * ref.abs().max().item())
-    loose = {}  # leaf -> its bound / max|ref|, where that is above 2e-3
+    bounds = {}  # leaf -> (bound, scale)
     for k, ref in ref_grads.items():
         # a conv's bias feeds a BatchNorm: its exact gradient is 0, so it is
         # held against its taps' scale
         conv_bias = ".conv" in k and k.endswith(".bias")
         scale = (ref_grads[k[: -len("bias")] + "taps"] if conv_bias else ref).abs().max().item()
-        bound = 1e-4 * scale + 2 * spread[k]
-        ratio[k] = (grads[k] - ref).abs().max().item() / bound
-        if bound > 2e-3 * scale:
-            loose[k] = bound / scale
-    name, worst = max(ratio.items(), key=lambda kv: kv[1])
+        bounds[k] = (1e-4 * scale + 2 * spread[k], scale)
+
+    def card_step():
+        """The card's step read against the bounds: (worst error / its bound, leaf)."""
+        loss, grads, stats = step("cuda", [0, 1, 2, 3])
+        ratio = {"loss": abs(loss - ref_loss) / (1e-4 * abs(ref_loss))}
+        for k, ref in ref_stats.items():
+            ratio[k] = (stats[k] - ref).abs().max().item() / (1e-4 * ref.abs().max().item())
+        for k, ref in ref_grads.items():
+            ratio[k] = (grads[k] - ref).abs().max().item() / bounds[k][0]
+        name, worst = max(ratio.items(), key=lambda kv: kv[1])
+        return loss, worst, name
+
+    loss, worst, name = card_step()
+    loose = {k: b / s for k, (b, s) in bounds.items() if b > 2e-3 * s}
     print(f"[train float32] one step at B=4 on the card vs the CPU plain route: loss "
           f"{loss:.6f} vs {ref_loss:.6f}; loss, {len(ref_stats)} BatchNorm statistics within "
           f"1e-4·max|ref|, {len(ref_grads)} gradients within 1e-4·max|ref| + 2x the CPU's "
@@ -596,6 +830,42 @@ def train_step_check(variables, card: str):
           f"holds at 1e-4", flush=True)
     if not worst <= 1.0:
         raise AssertionError(f"training step on the card differs from the CPU: {name} {worst}")
+    missed = []
+    for kernel, where, path, hit in PLANTED:
+        real = getattr(fused, kernel)
+
+        def planted(*args, _real=real, _path=path, _hit=hit, **kwargs):
+            r = _real(*args, **kwargs)
+            return one_percent_off(r, _path) if _hit(args) else r
+
+        with mock.patch.object(fused, kernel, planted):
+            _, worst, name = card_step()
+        print(f"[train float32] planted fault, {kernel} 1% off at {where}: the check reads "
+              f"{worst:.3f} of its bound ({name}), {'caught' if worst > 1.0 else 'NOT caught'} "
+              f"[{card}]", flush=True)
+        if not worst > 1.0:
+            missed.append(f"{kernel} at {where}")
+    if missed:
+        raise AssertionError(f"the step check misses a planted 1% fault: {missed}")
+
+
+# Kernel outputs the step check's probe puts 1% off, one at a time: (wrapper
+# as ``fused`` calls it, where, index path of the output, which calls).
+PLANTED = (
+    ("ico_conv_s2s_dtaps", "down0-2 conv01, dtaps", (), lambda a: True),
+    ("ico_conv_s2s_dx", "down0-2 conv01, dx", (0,), lambda a: True),
+    ("ico_conv_s2s_dx", "down1 conv01, d_mul (to encoder.down1.bn00)", (1,),
+     lambda a: a[0].shape[2] == 8),
+    ("phase_conv_dtaps", "conv_in, dtaps", (0, 0), lambda a: a[0][0].shape[-1] == 3),
+)
+
+
+def one_percent_off(r, path):
+    """r with the tensor at the index path (into nested tuples) times 1.01."""
+    if not path:
+        return r * 1.01
+    i, *rest = path
+    return (*r[:i], one_percent_off(r[i], rest), *r[i + 1:])
 
 
 def main():
@@ -614,20 +884,22 @@ def main():
     build.library()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    stats = kernel_vs_plain(card, serving_cases(), "kernel")
+    stats = kernel_vs_plain(card, serving_cases(), "kernel", reps=10)
     train_stats = kernel_vs_plain(card, training_cases(), "train kernel", reps=10)
     for k, v in train_stats.items():
-        if k in stats:  # a forward kernel: its times stay the serving shapes'
+        if k in stats:  # a forward kernel: its main times stay the serving shapes'
             stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], v["max_abs_err"])
+            stats[k]["training_shapes"] = {key: v[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         else:
             stats[k] = v
 
     variables = bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True)
     build.reset_launches()
     states = {name: serve(name, variables, card) for name in ("bfloat16", "float32")}
-    launches = dict(build.LAUNCHES)
-    print(f"[serve] kernel launches on the serving slice: {launches}", flush=True)
-    missing = [k for k in SERVING_KERNELS if launches.get(k, 0) == 0]
+    serving = dict(build.LAUNCHES)
+    print(f"[serve] kernel launches on the serving slice: {serving}", flush=True)
+    missing = [k for k in SERVING_KERNELS if serving.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving slice: {missing}")
     plain_route_check(states["float32"], card)
@@ -640,17 +912,20 @@ def main():
           flush=True)
     train_vars = bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=1)
     runs = {name: train(name, train_vars, dataset, card) for name in ("bfloat16", "float32")}
+    training = collections.Counter()
     for *_, counts in runs.values():
-        for k, n in counts.items():
-            launches[k] = launches.get(k, 0) + n
+        training.update(counts)
     train_step_check(train_vars, card)
+    routing_compare(train_vars, dataset, card)
 
     tr, st, (x, y, wt), _ = runs["bfloat16"]
     device_profile(serving_workloads(states["bfloat16"]) + [
         (f"train_step_B{TRAIN_BATCH}", lambda: tr.train_step(st, x, y, wt), 5)], card)
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": serving.get(k, 0) + training.get(k, 0),
+         "serving_launches": serving.get(k, 0), "training_launches": training.get(k, 0),
          **stats[k]}
         for k, (src, rep) in KERNELS.items()
     ]}))

@@ -5,13 +5,16 @@ reference. Tensors keep the JAX package's layout at every public function:
 chart-split, channels-last ``(B, 5, h, w, C)``; hex taps ``(7, C_in, C_out)``;
 BatchNorm ``scale/bias/mean/var``.
 
-This package imports ``torch`` and never ``jax`` or ``flax``. It reuses the
-numpy-only modules of the JAX package (``geometry.ico``, ``data.offio``,
-``train.config``, ``native``); ``geometry`` and ``Config`` are re-exported
-here so that callers of the port need import nothing else.
+This package imports ``torch`` and numpy, and nothing of ``jax``, ``flax``
+or ``geniconet_tpu``: what it needs of the JAX package's numpy-only modules
+it keeps as its own copies (``geometry/ico.py``, ``train/config.py``,
+``native/``), which the tests hold equal to the originals. ``geometry`` and
+``Config`` are re-exported here. The entry points (``Trainer``,
+``AppState``, ``Batches``) run on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 
-from geniconet_tpu.geometry import ico as geometry
-from geniconet_tpu.train.config import Config
+from geniconet_tpu_torch.geometry import ico as geometry
+from geniconet_tpu_torch.train.config import Config
 
 __all__ = ["Config", "geometry"]

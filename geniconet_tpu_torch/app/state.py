@@ -5,7 +5,8 @@ the dataset, loads the model from a flax variable tree and encodes the
 dataset into a float32 latent cache in batches of 16; the decode paths
 (reconstruct, interpolate, arithmetic, per-channel exploration, patch
 combination, batched decode) return float32 ``(V, 3)`` vertices. Every
-decode runs the model on ``device`` (the CUDA kernels for ``"cuda"``).
+decode runs the model on ``device``: the card by default (the CUDA
+kernels), the plain versions with ``device="cpu"``.
 
 Not ported here: reading ``.ckpt`` checkpoints and the VAE (ROADMAP, Queue
 1); PCA and nearest neighbours (they need scikit-learn); the TPU-specific
@@ -17,13 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from geniconet_tpu import native
-from geniconet_tpu.geometry import ico
-from geniconet_tpu.train.config import Config
+from geniconet_tpu_torch import device as devices
+from geniconet_tpu_torch import native
 from geniconet_tpu_torch.bridge import flax_to_state_dict
 from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_dataset
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.models import IcoAE
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
+from geniconet_tpu_torch.train.config import Config
 
 __all__ = ["AppState"]
 
@@ -32,8 +34,8 @@ ENCODE_BATCH = 16
 
 
 class AppState:
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = devices.resolve(device)
         self.info = None
         self.instance = "val"
         self.cfg: Config | None = None

@@ -1,0 +1,136 @@
+// Standard-layout hex conv, stride 1, backward: dx (input cotangent, with
+// the act adjoint and d_mul/d_add, and optionally the bias gradient Σg) and
+// dtaps (tap cotangents summed over the batch, rounded to the activation
+// dtype).
+//
+// Replaces: geniconet_tpu/ops/pallas/conv_kernel.py:_pallas_dx (kernel body
+// _dx_kernel) and :_pallas_dtaps (_dtaps_kernel), as called by the custom
+// VJP of fused_ico_conv_s2s (each DownBlock's conv01), including the
+// BatchNorm stats fold g_eff = g + gs0 + 2*gs1*y.
+//
+// Design. The Pallas dx kernel scatters the conv transpose into a padded
+// VMEM buffer and then runs the exact transpose of the ico_pad halo. Here dx
+// is a gather, as for the phase conv (phase_conv_bwd.cu): the transposed
+// table halo.std_dx_table lists, for each input cell and tap, the output
+// cells that read it with their weights (1, or 0.2 for each of the 5 cells
+// of a pole mean), and the dx GEMM's operand element sums those rows of g.
+// The act adjoint runs in the epilogue, after the halo transpose, since the
+// pole means are means of activated values. dtaps re-gathers the activated
+// forward operand through the forward table and reduces over the B * 5hw
+// rows in chunks; the fixed-order second pass writes the sum rounded to the
+// activation dtype (the Pallas wrapper's out.astype(x.dtype)). No atomics:
+// every result is the same from run to run.
+//
+// What bounds it on the card: the float32 FMA rate of the SIMT GEMM core,
+// 2 * 7 * C_in * C_out FLOPs per cell for each of dx and dtaps (at the
+// DownBlocks' conv01 shapes, B=36: 1.3-5.3 GFLOP a call), against
+// (2-3) * B * 5hw * C bytes of g, x and dx.
+#include "backward.cuh"
+
+namespace {
+
+// dtaps in T: the second pass rounds each float32 sum once.
+template <typename T>
+struct CastOut {
+  T* out;
+  __device__ __forceinline__ void operator()(long long c, float v) const {
+    out[c] = gn::from_f<T>(v);
+  }
+};
+
+template <typename T>
+gn::GLoad<T> gload(const void* g, const void* y, const float* gs, int M, int cout) {
+  const void* gp[1] = {g};
+  const void* yp[1] = {y};
+  return gn::make_gload<T>(gp, y ? yp : nullptr, gs, nullptr, M, cout, 1, 1);
+}
+
+template <typename T>
+cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, const void* raw,
+               const float* mul, const float* add, void* out, const int* offsets,
+               const int* cells, const float* weights, float* red, float* dmul, float* dadd,
+               float* gsum_ws, float* gsum, int B, int h, int w, int cin, int cout,
+               int gsum_rows, cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
+  gn::DxOut<T> o = {};
+  o.out[0] = static_cast<T*>(out);
+  o.raw[0] = mul ? static_cast<const T*>(raw) : nullptr;
+  o.mul = mul;
+  o.add = add;
+  o.red = red;
+  o.per = M;
+  cudaError_t err = gn::launch_dx_gemm<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul,
+                                          dadd, B, M, cin, 1, stream);
+  if (err != cudaSuccess || gsum_ws == nullptr) return err;
+  return gn::launch_gsum<T>(gl, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
+}
+
+template <typename T>
+cudaError_t dtaps(const void* x, const float* mul, const float* add, const void* g,
+                  const void* y, const float* gs, const int* table, float* ws, void* out, int B,
+                  int h, int w, int cin, int cout, int kc, int n_chunks, cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
+  gn::GridLoad<T> ld = {};
+  ld.src[0] = static_cast<const T*>(x);
+  ld.mul = mul;
+  ld.add = add;
+  ld.hw = h * w;
+  ld.hw5 = M;
+  ld.cin = cin;
+  ld.south_src = 0;
+  dim3 grid((7 * cin + gn::BM - 1) / gn::BM, (cout + gn::BN - 1) / gn::BN, n_chunks);
+  gn::dtaps_gemm<T, gn::GridLoad<T> ><<<grid, gn::NT, 0, stream>>>(ld, gl, table, cin, 1, 0,
+                                                                    B * M, kc, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CastOut<T> st = {static_cast<T*>(out)};
+  return gn::launch_sum_rows(ws, n_chunks, 7LL * cin * cout, st, stream);
+}
+
+}  // namespace
+
+// g: (B, 5, h, w, cout) cotangent; y: null (no fold) or the forward output
+// (B, 5, h, w, cout), with gs the (2, cout) float32 stats cotangent; taps:
+// (7, cin, cout); raw: null (no act) or the raw input (B, 5, h, w, cin),
+// with mul/add float32 (cin); out: dx (B, 5, h, w, cin);
+// offsets/cells/weights: halo.std_dx_table; red: with act, float32 scratch
+// of (B * ceil(5hw/64), 2 * cin), and dmul/dadd receive (cin) each; gsum_ws:
+// null, or scratch of (ceil(B * 5hw / gsum_rows), cout), and gsum receives
+// Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_ico_conv_dx(const void* g, const void* y, const float* gs, const void* taps,
+                              const void* raw, const float* mul, const float* add, void* out,
+                              const int* offsets, const int* cells, const float* weights,
+                              float* red, float* dmul, float* dadd, float* gsum_ws, float* gsum,
+                              int B, int h, int w, int cin, int cout, int gsum_rows, int dtype,
+                              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dx<float>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, red, dmul,
+                     dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
+  if (dtype == 1)
+    return dx<__nv_bfloat16>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, red,
+                             dmul, dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// x: the raw input (B, 5, h, w, cin); mul/add: the act prologue or null;
+// g, y, gs: as in gn_ico_conv_dx; table: halo.std_conv_table; ws: float32
+// scratch of (n_chunks, 7 * cin, cout), the B * 5hw rows split in chunks of
+// kc (a multiple of 16); out: dtaps (7, cin, cout) in the activation dtype.
+// dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_ico_conv_dtaps(const void* x, const float* mul, const float* add,
+                                 const void* g, const void* y, const float* gs, const int* table,
+                                 float* ws, void* out, int B, int h, int w, int cin, int cout,
+                                 int kc, int n_chunks, int dtype, void* stream) {
+  if (kc % gn::BK != 0) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dtaps<float>(x, mul, add, g, y, gs, table, ws, out, B, h, w, cin, cout, kc, n_chunks,
+                        s);
+  if (dtype == 1)
+    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs, table, ws, out, B, h, w, cin, cout, kc,
+                                n_chunks, s);
+  return cudaErrorInvalidValue;
+}

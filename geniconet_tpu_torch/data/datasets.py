@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.mesh_math import laplacian_numpy, vertex_normals_numpy
 
 __all__ = [

@@ -14,6 +14,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from geniconet_tpu_torch import device as devices
 from geniconet_tpu_torch.data.datasets import IcoDataset
 
 __all__ = ["Batches"]
@@ -24,15 +25,16 @@ class Batches:
 
     inputs (B, H, W, 3) and targets (B, V, 9) float32; weights (B,) float32
     ones. ``drop_remainder`` False keeps the ragged last batch, as a torch
-    DataLoader and the JAX Batches without sharding do."""
+    DataLoader and the JAX Batches without sharding do. ``device``: the
+    card by default; ``"cpu"`` for the CPU."""
 
     def __init__(self, dataset: IcoDataset, batch_size: int, shuffle: bool = True,
-                 drop_remainder: bool = False, seed: int = 0, device="cpu"):
+                 drop_remainder: bool = False, seed: int = 0, device="cuda"):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self._rng = np.random.RandomState(seed)
         self.inputs = torch.as_tensor(dataset.inputs, device=self.device)
         self.targets = torch.as_tensor(dataset.targets, device=self.device)

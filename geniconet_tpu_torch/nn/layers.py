@@ -9,13 +9,13 @@ model's ``pallas_blocks`` attribute through ``pallas_block_enabled``):
     already level s-1), with the pending BN-apply + ReLU of the layer before
     as the act prologue; conv01 as the standard-layout conv with bn00 as
     its prologue; the residual join relu(bn01(b0) + bn10(y10)) in float32.
-    Eval only: its backward kernels are not ported yet.
   - UpBlock: upsample + conv00 + conv10 in one call (4 phases of level s+1
     each), conv01 as a phase conv with bn00 as its prologue, then the join
     and one interleave — or, with ``return_phases``, the raw phases and the
-    two pending affines for the decoder's head. In train mode the kernels
-    emit the BatchNorm sums, and the custom VJPs of ``ops/kernels/fused.py``
-    run the backward kernels.
+    two pending affines for the decoder's head.
+  In train mode the kernels emit the BatchNorm sums [Σy, Σy²], the
+  BatchNorms take their batch statistics from them, and the custom VJPs of
+  ``ops/kernels/fused.py`` run the backward kernels.
 * plain (the JAX XLA route): ``ops/conv.py:ico_conv_s2s`` per conv and
   ``IcoBatchNorm`` applied to the grid (flax ``nn.BatchNorm``), with
   PyTorch's autograd for the backward.
@@ -33,14 +33,14 @@ from torch import nn
 
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.build import act_apply, grid_level
-from geniconet_tpu_torch.ops.kernels.conv_kernel import ico_conv_s2s_fwd
-from geniconet_tpu_torch.ops.kernels.fused import fused_phase_conv_s1, fused_up_dual_conv
-from geniconet_tpu_torch.ops.kernels.phase_kernel import phase_conv_fwd
+from geniconet_tpu_torch.ops.kernels.fused import (
+    fused_dual_s2_conv, fused_ico_conv_s2s, fused_phase_conv_s1, fused_up_dual_conv,
+)
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
 
 __all__ = ["IcoConvS2S", "IcoBatchNorm", "DownBlock", "UpBlock", "residual_join",
-           "pallas_block_enabled", "not_trainable"]
+           "pallas_block_enabled"]
 
 
 def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
@@ -52,18 +52,13 @@ def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
     return name in {s.strip() for s in pallas_blocks.split(",")}
 
 
-def not_trainable(name: str, kernels: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"training with the fused {name} needs the backward kernels {kernels}, which are not "
-        "ported yet (ROADMAP Queue 2); train with pallas_blocks='up0,up1,up2'")
-
-
 class IcoConvS2S(nn.Module):
     """Hexagonal icosahedral conv (reference IcoConvS2S contract): taps
     (7, C_in, C_out) and bias (C_out,), initialised U(±1/sqrt(7·C_in)) like
     the JAX package (the hex conv's true fan-in). ``forward`` is the fused
-    stride-1 conv (eval only), ``plain`` the plain route of either stride;
-    the blocks hand ``params`` of their fused convs to the fused kernels."""
+    stride-1 conv (``fused_ico_conv_s2s``, trainable), ``plain`` the plain
+    route of either stride; the blocks hand ``params`` of their other fused
+    convs to the fused kernels."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  device=None):
@@ -78,11 +73,13 @@ class IcoConvS2S(nn.Module):
         """(taps, bias) cast to the activation dtype, for the fused calls."""
         return self.taps.to(dtype), self.bias.to(dtype)
 
-    def forward(self, x: torch.Tensor, act=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act=None, with_stats: bool = False):
         """(B, 5, h, w, C_in) -> (B, 5, h, w, C_out), stride 1; act: optional
-        float32 (mul, add) prologue relu(x·mul + add)."""
+        float32 (mul, add) prologue relu(x·mul + add); with_stats: also the
+        (2, C_out) float32 [Σy, Σy²] of the output."""
         taps, bias = self.params(x.dtype)
-        return ico_conv_s2s_fwd(x.contiguous(), taps, bias, self.corner_mode, act)
+        return fused_ico_conv_s2s(x, taps, bias, grid_level(x.shape[2], x.shape[3]),
+                                  self.corner_mode, act=act, with_stats=with_stats)
 
     def plain(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         """The plain route (``ico_pad`` + masked 3×3 conv, float32 sums),
@@ -188,16 +185,18 @@ class DownBlock(_Block):
         if not self.fused:
             xd = phase_merge(x) if isinstance(x, (tuple, list)) else x
             return self._plain_tail(act_apply(xd, in_act), 2, train)
-        if train:
-            raise not_trainable("DownBlock", "of the standard conv (conv_kernel.py:665, :727)")
         phases = x if isinstance(x, (tuple, list)) else phase_split(x)
         phases = tuple(p.contiguous() for p in phases)
         dt = phases[0].dtype
-        (y00,), (y10,) = phase_conv_fwd(
-            phases, [self.conv00.params(dt), self.conv10.params(dt)], self.corner_mode,
-            (2,), in_act)
-        b0 = self.conv01(y00, act=self.bn00.affine())
-        return residual_join(b0, y10, self.bn01.affine(), self.bn10.affine())
+        r = fused_dual_s2_conv(phases, *self.conv00.params(dt), *self.conv10.params(dt),
+                               self.corner_mode, act=in_act, with_stats=train)
+        y00, y10 = r[:2]
+        s00, s10 = r[2:] if train else (None, None)
+        count = float(y00.shape[:-1].numel())
+        r = self.conv01(y00, act=self.bn00.affine(s00, count, train), with_stats=train)
+        b0, s01 = r if train else (r, None)
+        return residual_join(b0, y10, self.bn01.affine(s01, count, train),
+                             self.bn10.affine(s10, count, train))
 
 
 class UpBlock(_Block):

@@ -11,10 +11,11 @@ Port of ``geniconet_tpu/nn/models.py`` (``_Encoder``, ``_Decoder``,
 ``pallas_blocks`` is the JAX model attribute: None runs every block on the
 fused route (the kernels), a comma list (``conv_in``, ``down0``..``down2``,
 ``up0``..``up2``, ``head``) only the named blocks, the rest on the plain
-route. Training (``train=True``) runs the fused UpBlocks; a fused
-conv_in, DownBlock or head raises ``NotImplementedError`` there, since
-their backward kernels are not ported yet. The configuration that trains
-is ``pallas_blocks="up0,up1,up2"``.
+route. Every routing trains (``train=True``) through ``recon_sse``: the
+fused head then runs the head+MSE kernel and its backward. The fused head
+in train mode without a target (``decode(z, train=True)``, the VAE's loss)
+raises ``NotImplementedError``: its backward kernel ``_phead_bwd`` is not
+ported yet.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)``. ``decode`` returns float32.
@@ -26,11 +27,11 @@ import torch
 from torch import nn
 
 from geniconet_tpu_torch.nn.layers import (
-    DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, not_trainable, pallas_block_enabled,
-    residual_join,
+    DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, pallas_block_enabled, residual_join,
 )
 from geniconet_tpu_torch.ops.conv import merge_charts, split_charts
-from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_head_fwd, phase_conv_fwd
+from geniconet_tpu_torch.ops.kernels.fused import fused_pair_head_mse, fused_phase_conv_s1
+from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_head_fwd
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
 __all__ = ["IcoAE"]
@@ -53,12 +54,13 @@ class _Encoder(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 5, h, w, 3) chart-split grid -> (B, 5, h/8, w/8, w2)."""
         if self.fused_in:
-            if train:
-                raise not_trainable("conv_in", "of the fused DownBlock it feeds "
-                                    "(conv_kernel.py:665, :727)")
+            # phase form: the phases feed down0's dual stride-2 conv directly;
+            # the input is data, so no input cotangent
             phases = tuple(p.contiguous() for p in phase_split(x))
-            (y,) = phase_conv_fwd(phases, [self.conv_in.params(x.dtype)], self.corner_mode)
-            in_act = self.bn_in.affine()
+            r = fused_phase_conv_s1(phases, *self.conv_in.params(x.dtype), self.corner_mode,
+                                    with_stats=train, needs_dx=False)
+            y, st = r if train else (r, None)
+            in_act = self.bn_in.affine(st, 4.0 * y[0].shape[:-1].numel(), train)
         else:
             y = torch.relu(self.bn_in(self.conv_in.plain(x), train))
             in_act = None
@@ -105,12 +107,18 @@ class _Decoder(nn.Module):
         if isinstance(x, tuple):  # fused last block: (b0 phases, y10 phases, affines)
             b0, y10, (mul01, add01, mul10, add10) = x
             if self.fused_head:
-                if train or target is not None:
-                    raise not_trainable("head", "of the head and of the fused head+MSE "
-                                        "(phase_kernel.py:3287, :3528, :3577)")
                 dt = b0[0].dtype
-                return phase_merge(pair_head_fwd(b0, y10, (mul01, add01, mul10, add10),
-                                                 self.head.kernel.to(dt), self.head.bias.to(dt)))
+                head = (self.head.kernel.to(dt), self.head.bias.to(dt))
+                affines = (mul01, add01, mul10, add10)
+                if target is not None:
+                    return fused_pair_head_mse(b0, y10, affines, *head, *target)
+                if train:
+                    raise NotImplementedError(
+                        "training the fused head without a target needs its backward kernel "
+                        "_phead_bwd (phase_kernel.py:3287), which is not ported yet (the VAE "
+                        "slice, ROADMAP Queue 1); train through recon_sse, or leave 'head' "
+                        "out of pallas_blocks")
+                return phase_merge(pair_head_fwd(b0, y10, affines, *head))
             x = phase_merge(tuple(residual_join(a, b, (mul01, add01), (mul10, add10))
                                   for a, b in zip(b0, y10)))
         out = self.head(x)

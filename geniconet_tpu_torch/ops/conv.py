@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.pad import ico_pad
 
 __all__ = [

@@ -104,7 +104,11 @@ _SIGNATURES = {
     "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
     "gn_up_dual_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
     "gn_pair_head_fwd": [_VP] * 8 + [_INT] * 6 + [_VP],
-    "gn_ico_conv_fwd": [_VP] * 7 + [_INT] * 6 + [_VP],
+    "gn_pair_head_mse_fwd": [_VP] * 11 + [_INT] * 6 + [_VP],
+    "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
+    "gn_ico_conv_fwd": [_VP] * 9 + [_INT] * 6 + [_VP],
+    "gn_ico_conv_dx": [_VP] * 16 + [_INT] * 7 + [_VP],
+    "gn_ico_conv_dtaps": [_VP] * 9 + [_INT] * 8 + [_VP],
     "gn_phase_conv_dx": [_VP] * 19 + [_INT] * 9 + [_VP],
     "gn_phase_conv_dtaps": [_VP] * 14 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],

@@ -1,8 +1,21 @@
-"""Standard-layout hex conv with the BN-apply + ReLU prologue (stride 1).
+"""Standard-layout hex conv with the BN-apply + ReLU prologue (stride 1):
+forward with optional BatchNorm stats, and its two backward kernels.
 
-Port of ``geniconet_tpu/ops/pallas/conv_kernel.py:fused_ico_conv_s2s``,
-forward only: ``ico_conv_s2s_fwd`` launches ``csrc/ico_conv.cu`` for a CUDA
-tensor and runs ``ico_conv_s2s_fwd_plain`` for a CPU tensor.
+Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
+
+* ``ico_conv_s2s_fwd``   -> ``csrc/ico_conv.cu`` (``_pallas_forward``, with
+  ``with_stats`` the (2, C_out) float32 ``[Σy, Σy²]`` of the downcast output);
+* ``ico_conv_s2s_dx``    -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dx``: conv and
+  halo transposes, act adjoint with d_mul/d_add, optional Σg_eff);
+* ``ico_conv_s2s_dtaps`` -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dtaps``, rounded
+  to the activation dtype as the Pallas wrapper does).
+
+``y`` and ``gs`` (the forward output and the cotangent of its stats) switch
+on the in-kernel fold g_eff = g + gs0 + 2·gs1·y, rounded to the activation
+dtype. The custom VJP built from them, ``fused_ico_conv_s2s``, is in
+``ops/kernels/fused.py``. A CUDA tensor goes to the kernel (or the wrapper
+raises); a CPU tensor to the plain version beside each wrapper (the backward
+ones by autograd of ``ops/conv.py:ico_conv_s2s`` in float32).
 """
 
 from __future__ import annotations
@@ -12,25 +25,32 @@ import torch
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import act_apply, check_act, expect, grid_level, on_cuda
-from geniconet_tpu_torch.ops.kernels.halo import device_table
+from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
+from geniconet_tpu_torch.ops.kernels.phase_kernel import geff_plain, stats_plain
 
-__all__ = ["ico_conv_s2s_fwd", "ico_conv_s2s_fwd_plain"]
+__all__ = [
+    "ico_conv_s2s_fwd", "ico_conv_s2s_fwd_plain", "ico_conv_s2s_dx", "ico_conv_s2s_dx_plain",
+    "ico_conv_s2s_dtaps", "ico_conv_s2s_dtaps_plain",
+]
 
 
-def ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode="average", act=None):
+def ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode="average", act=None, with_stats=False):
     """Plain version: act prologue, ``ico_pad``, masked 3×3 conv, fp32 sums."""
-    return ico_conv_s2s(act_apply(x, act), taps, bias, grid_level(x.shape[2], x.shape[3]),
-                        1, corner_mode)
+    out = ico_conv_s2s(act_apply(x, act), taps, bias, grid_level(x.shape[2], x.shape[3]), 1,
+                       corner_mode)
+    return (out, stats_plain([out])) if with_stats else out
 
 
-def ico_conv_s2s_fwd(x, taps, bias, corner_mode: str = "average", act=None) -> torch.Tensor:
+def ico_conv_s2s_fwd(x, taps, bias, corner_mode: str = "average", act=None,
+                     with_stats: bool = False):
     """Stride-1 hex conv (B, 5, h, w, C_in) -> (B, 5, h, w, C_out).
 
     taps (7, C_in, C_out) and bias (C_out,) or None in x's dtype (float32 or
     bfloat16); act: optional float32 (mul, add), each (C_in,), applied as
-    relu(x·mul + add) before the halo."""
+    relu(x·mul + add) before the halo. With ``with_stats`` also returns the
+    float32 (2, C_out) [Σy, Σy²] of the downcast output over the batch."""
     if not on_cuda(x, "ico_conv_s2s_fwd"):
-        return ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode, act)
+        return ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode, act, with_stats)
     B, _, h, w, cin = x.shape
     grid_level(h, w)
     cout = taps.shape[-1]
@@ -43,12 +63,129 @@ def ico_conv_s2s_fwd(x, taps, bias, corner_mode: str = "average", act=None) -> t
     out = torch.empty((B, 5, h, w, cout), dtype=dt, device=dev)
     table = device_table("std", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
+    stats = ws = None
+    if with_stats:
+        stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
+        ws = build.scratch(B * build.n_tiles(5 * h * w) * 2 * cout, dev)
     with torch.cuda.device(dev):
         err = build.library().gn_ico_conv_fwd(
             x.data_ptr(), build.ptr(mul), build.ptr(add), taps.data_ptr(), build.ptr(bias),
-            out.data_ptr(), table.data_ptr(), B, h, w, cin, cout, build.dtype_code(dt),
-            build.stream_ptr(dev),
+            out.data_ptr(), table.data_ptr(), build.ptr(ws), build.ptr(stats),
+            B, h, w, cin, cout, build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("ico_conv_s2s_fwd", err)
     build.LAUNCHES["ico_conv_s2s_fwd"] += 1
-    return out
+    return (out, stats) if with_stats else out
+
+
+def ico_conv_s2s_dx_plain(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=None,
+                          emit_gsum=False):
+    """Plain version of ``ico_conv_s2s_dx``: the conv and halo transposes in
+    float32 (autograd of the plain conv, linear in its input), then the act
+    adjoint, rounded once to ``dtype``."""
+    (g,) = geff_plain([g], [y], gs)
+    B, _, h, w, _ = g.shape
+    with torch.enable_grad():
+        leaf = torch.zeros((B, 5, h, w, taps.shape[1]), dtype=torch.float32, device=g.device,
+                           requires_grad=True)
+        out = ico_conv_s2s(leaf, taps.float(), None, grid_level(h, w), 1, corner_mode)
+        (d,) = torch.autograd.grad(out, [leaf], [g.float()])
+    gsum = g.float().sum(dim=(0, 1, 2, 3)) if emit_gsum else None
+    if act is None:
+        return d.to(dtype), None, None, gsum
+    mul, add = act
+    x32 = raw.float()
+    dm = d * (x32 * mul + add > 0.0).float()
+    return (dm * mul).to(dtype), (dm * x32).sum(dim=(0, 1, 2, 3)), dm.sum(dim=(0, 1, 2, 3)), gsum
+
+
+def ico_conv_s2s_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=None,
+                    emit_gsum=False):
+    """Input cotangent of the standard conv (the Pallas ``_pallas_dx``).
+
+    g: the output cotangent (B, 5, h, w, C_out) in ``dtype``; taps (7, C_in,
+    C_out) in ``dtype``; act and raw: the forward's prologue and RAW input,
+    which make the result the cotangent of the raw input (dx'·mul·1{x·mul +
+    add > 0}) and add d_mul, d_add (float32 (C_in,), summed over batch and
+    cells); y / gs switch on the fold; ``emit_gsum`` adds Σg_eff (float32
+    (C_out,), the bias gradient). Returns (dx, d_mul, d_add, gsum)."""
+    if not on_cuda(g, "ico_conv_s2s_dx"):
+        return ico_conv_s2s_dx_plain(g, taps, corner_mode, dtype, act, raw, y, gs, emit_gsum)
+    B, _, h, w, cout = g.shape
+    grid_level(h, w)
+    cin, dev = taps.shape[1], g.device
+    expect(g, (B, 5, h, w, cout), dtype, dev, "ico_conv_s2s_dx g")
+    expect(taps, (7, cin, cout), dtype, dev, "ico_conv_s2s_dx taps")
+    if y is not None:
+        expect(y, (B, 5, h, w, cout), dtype, dev, "ico_conv_s2s_dx y")
+        expect(gs, (2, cout), torch.float32, dev, "ico_conv_s2s_dx gs")
+    check_act(act, cin, dev, "ico_conv_s2s_dx")
+    if act is not None:
+        expect(raw, (B, 5, h, w, cin), dtype, dev, "ico_conv_s2s_dx raw")
+    M = 5 * h * w
+    dx = torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev)
+    offsets, cells, weights = device_dx_table("std", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    red = dmul = dadd = None
+    if act is not None:
+        red = build.scratch(B * build.n_tiles(M) * 2 * cin, dev)
+        dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
+    gsum_ws = gsum = None
+    if emit_gsum:
+        gsum_ws = build.scratch(-(-B * M // build.GSUM_ROWS) * cout, dev)
+        gsum = torch.empty(cout, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_ico_conv_dx(
+            g.data_ptr(), build.ptr(y), build.ptr(gs), taps.data_ptr(),
+            build.ptr(raw if act is not None else None), build.ptr(mul), build.ptr(add),
+            dx.data_ptr(), offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(),
+            build.ptr(red), build.ptr(dmul), build.ptr(dadd), build.ptr(gsum_ws), build.ptr(gsum),
+            B, h, w, cin, cout, build.GSUM_ROWS, build.dtype_code(dtype), build.stream_ptr(dev),
+        )
+    build.check("ico_conv_s2s_dx", err)
+    build.LAUNCHES["ico_conv_s2s_dx"] += 1
+    return dx, dmul, dadd, gsum
+
+
+def ico_conv_s2s_dtaps_plain(x, g, corner_mode, act=None, y=None, gs=None):
+    """Plain version of ``ico_conv_s2s_dtaps``."""
+    (g,) = geff_plain([g], [y], gs)
+    xa = act_apply(x, act)
+    with torch.enable_grad():
+        leaf = torch.zeros((7, x.shape[-1], g.shape[-1]), dtype=torch.float32, device=x.device,
+                           requires_grad=True)
+        out = ico_conv_s2s(xa, leaf, None, grid_level(x.shape[2], x.shape[3]), 1, corner_mode)
+        (d,) = torch.autograd.grad(out, [leaf], [g])
+    return d.to(x.dtype)
+
+
+def ico_conv_s2s_dtaps(x, g, corner_mode, act=None, y=None, gs=None):
+    """Tap cotangent of the standard conv summed over the batch (the Pallas
+    ``_pallas_dtaps``): (7, C_in, C_out), float32 sums rounded to x's dtype.
+    x: the RAW input; act, y, gs as for ``ico_conv_s2s_dx``."""
+    if not on_cuda(x, "ico_conv_s2s_dtaps"):
+        return ico_conv_s2s_dtaps_plain(x, g, corner_mode, act, y, gs)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    cout = g.shape[-1]
+    expect(x, (B, 5, h, w, cin), dt, dev, "ico_conv_s2s_dtaps x")
+    expect(g, (B, 5, h, w, cout), dt, dev, "ico_conv_s2s_dtaps g")
+    if y is not None:
+        expect(y, (B, 5, h, w, cout), dt, dev, "ico_conv_s2s_dtaps y")
+        expect(gs, (2, cout), torch.float32, dev, "ico_conv_s2s_dtaps gs")
+    check_act(act, cin, dev, "ico_conv_s2s_dtaps")
+    kc, n_chunks = build.dtaps_split(B * 5 * h * w, build.n_tiles(7 * cin) * build.n_tiles(cout))
+    ws = build.scratch(n_chunks * 7 * cin * cout, dev)
+    dtaps = torch.empty((7, cin, cout), dtype=dt, device=dev)
+    table = device_table("std", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    with torch.cuda.device(dev):
+        err = build.library().gn_ico_conv_dtaps(
+            x.data_ptr(), build.ptr(mul), build.ptr(add), g.data_ptr(), build.ptr(y),
+            build.ptr(gs), table.data_ptr(), ws.data_ptr(), dtaps.data_ptr(),
+            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("ico_conv_s2s_dtaps", err)
+    build.LAUNCHES["ico_conv_s2s_dtaps"] += 1
+    return dtaps

@@ -1,12 +1,18 @@
-"""The fused phase-domain convs with their hand-written backward, as
-``torch.autograd.Function``s.
+"""The fused convs and the fused head+MSE with their hand-written backward,
+as ``torch.autograd.Function``s.
 
-Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py``,
-with their names and arguments:
+Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
+``conv_kernel.py``, with their names and arguments:
 
 * ``fused_phase_conv_s1`` (``_pcs1``): 4 phases -> 4 phases, stride 1;
 * ``fused_dual_s2_conv``  (``_ds2``): a DownBlock's two stride-2 convs;
-* ``fused_up_dual_conv``  (``_upd``): an UpBlock's upsample + two convs.
+* ``fused_up_dual_conv``  (``_upd``): an UpBlock's upsample + two convs;
+* ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
+  (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
+  ``ico_conv_s2s_dtaps``;
+* ``fused_pair_head_mse`` (``_phmse``): the decoder tail + head + tanh +
+  per-sample position squared error: ``pair_head_mse_fwd`` /
+  ``pair_head_mse_bwd``.
 
 Forward: ``phase_conv_fwd`` / ``up_dual_conv_fwd``. With ``with_stats`` the
 (2, C_out) float32 [Σy, Σy²] of each tap set's output is a differentiable
@@ -19,19 +25,26 @@ d_mul, d_add from the dx kernel.
 
 The JAX signatures' ``fold_ok`` and ``fold_site`` are left out: they only
 choose, on the TPU, whether the fold runs inside the kernels or as an XLA
-pass before them. The math is the same; here it always runs inside.
+pass before them (``_stats_geff``, the default for the standard conv). The
+math is the same; here it always runs inside. The standard conv's merged
+backward (``_std_bwd``, behind ``GENICONET_MERGED_BWD``) is not ported: its
+dx and dtaps are the two kernels above.
 """
 
 from __future__ import annotations
 
 import torch
 
+from geniconet_tpu_torch.ops.kernels.conv_kernel import (
+    ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
+)
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    phase_conv_dtaps, phase_conv_dx, phase_conv_fwd, up_dual_conv_dtaps, up_dual_conv_dx,
-    up_dual_conv_fwd,
+    pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
+    up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
 )
 
-__all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv"]
+__all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv",
+           "fused_ico_conv_s2s", "fused_pair_head_mse"]
 
 _ALL = (0, 1, 2, 3)
 
@@ -150,3 +163,83 @@ def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
     r = _UpDual.apply(corner_mode, with_stats, x, taps_a, bias_a, taps_b, bias_b)
     out = (tuple(r[0:4]), tuple(r[4:8]))
     return (*out, r[8], r[9]) if with_stats else out
+
+
+class _IcoConv(torch.autograd.Function):
+    """Inputs: settings, x, taps, bias (or None), act mul, add (or None).
+    Outputs: y, then its stats when with_stats."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, with_stats, x, taps, bias, mul, add):
+        act = None if mul is None else (mul, add)
+        r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats)
+        y = r[0] if with_stats else r
+        ctx.settings = (corner_mode, with_stats, bias is not None)
+        ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
+        return r
+
+    @staticmethod
+    def backward(ctx, gy, gst=None):
+        corner_mode, with_stats, has_bias = ctx.settings
+        x, taps, mul, add, y = ctx.saved_tensors
+        act = None if mul is None else (mul, add)
+        gy = gy.contiguous()
+        fk = dict(y=y, gs=gst.float().contiguous()) if with_stats else {}
+        dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
+                                               emit_gsum=has_bias, **fk)
+        dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
+        dbias = gsum.to(taps.dtype) if has_bias else None
+        return None, None, dx, dtaps, dbias, dmul, dadd
+
+
+def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", stride=1, act=None,
+                       with_stats=False):
+    """Standard-layout hex conv (B, 5, h, w, C_in) -> (B, 5, h, w, C_out),
+    stride 1, with its hand-written backward.
+
+    bias may be None; act: optional float32 (mul, add) (C_in,) BN-apply +
+    ReLU prologue; with_stats: also return the (2, C_out) float32 [Σy, Σy²],
+    a differentiable output. The backward kernels give dx (with the act
+    adjoint and d_mul, d_add), dtaps rounded to x's dtype, and the bias
+    gradient Σg_eff. Stride 2 runs in phase form (``fused_dual_s2_conv``).
+    ``subdivisions`` keeps the JAX signature; the kernels take the level from
+    x's shape."""
+    if stride != 1:
+        raise ValueError("fused_ico_conv_s2s: stride 1 only; stride 2 is fused_dual_s2_conv")
+    mul, add = act if act is not None else (None, None)
+    return _IcoConv.apply(corner_mode, with_stats, x.contiguous(), taps, bias, mul, add)
+
+
+class _PairHeadMSE(torch.autograd.Function):
+    """Inputs: 4 b0 phases, 4 y10 phases, mul1, add1, mul2, add2, W, bias,
+    tpack, tpoles. Output: the (B,) float32 per-sample squared error."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        b0, y10, affines, (W, bias, tpack, tpoles) = (tensors[:4], tensors[4:8], tensors[8:12],
+                                                      tensors[12:])
+        ctx.save_for_backward(*tensors)
+        return pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles)
+
+    @staticmethod
+    def backward(ctx, g):
+        t = ctx.saved_tensors
+        W, bias = t[12], t[13]
+        db0, dy10, dW, dbias, *daff = pair_head_mse_bwd(
+            g.float().contiguous(), t[:4], t[4:8], t[8:12], W, bias, t[14], t[15])
+        return (*db0, *dy10, *daff, dW.to(W.dtype), dbias.to(bias.dtype), None, None)
+
+
+def fused_pair_head_mse(b0, y10, affines, Wh, bh, tpack, tpoles):
+    """Last-UpBlock tail + head + tanh + position squared error in one
+    kernel, with its hand-written backward.
+
+    b0, y10: 4-tuples of (B, 5, h, w, C) phases; affines: float32 (mul1,
+    add1, mul2, add2) (C,), the pending bn01 / bn10 applies; Wh (C, F), bh
+    (F,) in the phases' dtype; tpack, tpoles from
+    ``ops/vertices.pack_target_phases``. Returns the (B,) float32 per-sample
+    squared-error SUM over every vertex coordinate (grid cells and the two
+    pole vertices); divide by V·3 for the per-sample MSE. The targets get no
+    gradient."""
+    return _PairHeadMSE.apply(*b0, *y10, *affines, Wh, bh, tpack.contiguous(),
+                              tpoles.contiguous())

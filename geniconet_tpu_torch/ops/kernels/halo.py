@@ -21,7 +21,7 @@ from geniconet_tpu_torch.ops.phase import phase_pad, tap_table
 __all__ = [
     "ZERO", "NORTH", "SOUTH", "NONE",
     "phase_conv_table", "std_conv_table", "upsample_table", "device_table",
-    "phase_dx_table", "up_dx_table", "device_dx_table",
+    "phase_dx_table", "up_dx_table", "std_dx_table", "device_dx_table",
 ]
 
 # codes shared with csrc/common.cuh
@@ -194,6 +194,21 @@ def up_dx_table(h: int, w: int, corner_mode: str):
     return _to_csr(dst, src, wt, n, 4 * n)
 
 
+def std_dx_table(h: int, w: int, corner_mode: str):
+    """Transposed ``std_conv_table``: CSR over the R = 5·h·w cells of the
+    standard-layout input. Each (tap, output cell) read of a cell, a zero or
+    a pole mean (0.2 on cell (0, 0) / (h-1, w-1) of each chart) becomes
+    entries on the cells it reads."""
+    _check_mode(corner_mode)
+    n, hw = 5 * h * w, h * w
+    table = std_conv_table(h, w, corner_mode).astype(np.int64)
+    dst = (np.arange(7)[:, None] * n + np.arange(n)[None, :]).ravel()
+    dst, src, wt = _poles_expand(dst, table.ravel(), np.ones(7 * n),
+                                 [c * hw for c in range(5)],
+                                 [c * hw + hw - 1 for c in range(5)])
+    return _to_csr(dst, src, wt, n, n)
+
+
 _DEVICE_TABLES: dict = {}
 
 
@@ -210,14 +225,17 @@ def device_table(kind: str, h: int, w: int, corner_mode: str, device) -> torch.T
 
 
 def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_phases=None):
-    """A transposed table (``"phase"`` with its out_phases, or ``"up"``) as
-    (offsets, cells, weights) tensors on ``device``, built once and kept."""
+    """A transposed table (``"phase"`` with its out_phases, ``"up"`` or
+    ``"std"``) as (offsets, cells, weights) tensors on ``device``, built once
+    and kept."""
     out_phases = None if out_phases is None else tuple(out_phases)
     key = ("dx", kind, h, w, corner_mode, out_phases, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        arrs = (phase_dx_table(h, w, corner_mode, out_phases) if kind == "phase"
-                else up_dx_table(h, w, corner_mode))
+        if kind == "phase":
+            arrs = phase_dx_table(h, w, corner_mode, out_phases)
+        else:
+            arrs = {"up": up_dx_table, "std": std_dx_table}[kind](h, w, corner_mode)
         t = tuple(torch.from_numpy(a).to(device).contiguous() for a in arrs)
         _DEVICE_TABLES[key] = t
     return t

@@ -9,6 +9,8 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   act prologue; optional BatchNorm ``[Σy, Σy²]`` stats);
 * ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``);
 * ``pair_head_fwd``      -> ``csrc/pair_head.cu`` (``_phead``);
+* ``pair_head_mse_fwd`` / ``pair_head_mse_bwd`` -> ``csrc/pair_head.cu``
+  (``_phmse`` / ``_phmse_bwd``: the head fused with the AE's position loss);
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
   (``_phase_conv_dx`` / ``_phase_conv_dtaps``);
 * ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
@@ -18,7 +20,7 @@ The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
 ``gs_list`` (the forward outputs and the cotangents of their stats) switch
 on the in-kernel fold g_eff = g + gs0 + 2·gs1·y, rounded to the activation
 dtype; Σg_eff per tap set is the bias gradient. The custom VJPs built from
-them are in ``ops/kernels/fused.py``.
+them (and the head+MSE's) are in ``ops/kernels/fused.py``.
 
 A CUDA tensor goes to the kernel (or the wrapper raises); a CPU tensor goes
 to the plain PyTorch version beside each wrapper, built from ``ops/phase.py``
@@ -40,7 +42,8 @@ from geniconet_tpu_torch.ops.phase import phase_conv, phase_upsample
 __all__ = [
     "phase_conv_fwd", "phase_conv_fwd_plain",
     "up_dual_conv_fwd", "up_dual_conv_fwd_plain",
-    "pair_head_fwd", "pair_head_fwd_plain",
+    "pair_head_fwd", "pair_head_fwd_plain", "pair_head_mse_fwd", "pair_head_mse_fwd_plain",
+    "pair_head_mse_bwd", "pair_head_mse_bwd_plain",
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "stats_plain", "geff_plain",
@@ -561,3 +564,140 @@ def pair_head_fwd(b0, y10, affines, W, bias):
     build.check("pair_head_fwd", err)
     build.LAUNCHES["pair_head_fwd"] += 1
     return tuple(outs)
+
+
+# --------------------------------------------------------------------------
+# pair head + position loss (fused_pair_head_mse)
+# --------------------------------------------------------------------------
+
+
+def _check_head(b0, y10, affines, W, bias, name):
+    """Shapes and types of the head's inputs; returns (B, h, w, C, F)."""
+    x0 = b0[0]
+    B, _, h, w, cin = x0.shape
+    F = W.shape[-1]
+    dev, dt = x0.device, x0.dtype
+    if len(b0) != 4 or len(y10) != 4:
+        raise ValueError(f"{name}: takes 4 + 4 phases")
+    for i, p in enumerate((*b0, *y10)):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"{name} input {i}")
+    for a in affines:
+        expect(a, (cin,), torch.float32, dev, f"{name} affine")
+    expect(W, (cin, F), dt, dev, f"{name} W")
+    expect(bias, (F,), dt, dev, f"{name} bias")
+    if not 1 <= F <= 8 or cin > 256:
+        raise ValueError(f"{name}: takes F <= 8 outputs and C <= 256 channels")
+    return B, h, w, cin, F
+
+
+def _check_targets(tpack, tpoles, B, h, w, F, dev, name):
+    expect(tpack, (B, 5, h, w, 4 * F), torch.float32, dev, f"{name} tpack")
+    expect(tpoles, (B, 2 * F), torch.float32, dev, f"{name} tpoles")
+
+
+def _pole_means(v0, v3):
+    """The two pole vertices of the output: the 5-chart means (sum in order,
+    times 0.2) of phase 0 cell (0, 0) and phase 3 cell (h-1, w-1)."""
+    pn = sum(v0[:, c, 0, 0, :] for c in range(5)) * 0.2
+    ps = sum(v3[:, c, -1, -1, :] for c in range(5)) * 0.2
+    return pn, ps
+
+
+def pair_head_mse_fwd_plain(b0, y10, affines, W, bias, tpack, tpoles):
+    """Plain version: ``pair_head_fwd_plain``'s outputs against the packed
+    target, phase by phase, plus the two poles; float32 (B,)."""
+    v = pair_head_fwd_plain(b0, y10, affines, W, bias)
+    F = W.shape[-1]
+    sse = sum(((vp - tpack[..., p * F : (p + 1) * F]) ** 2).sum(dim=(1, 2, 3, 4))
+              for p, vp in enumerate(v))
+    pn, ps = _pole_means(v[0], v[3])
+    return sse + ((pn - tpoles[:, :F]) ** 2).sum(dim=1) + ((ps - tpoles[:, F:]) ** 2).sum(dim=1)
+
+
+def pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles):
+    """Last-UpBlock tail + 1×1 head + tanh + position squared error, fused.
+
+    b0, y10, affines, W, bias: as ``pair_head_fwd``; tpack float32 (B, 5, h,
+    w, 4F) and tpoles float32 (B, 2F) from ``ops/vertices.pack_target_phases``.
+    Returns the per-sample squared-error sum over every grid cell and the two
+    pole vertices, float32 (B,). The reconstruction is never written."""
+    if not on_cuda(b0[0], "pair_head_mse_fwd"):
+        return pair_head_mse_fwd_plain(b0, y10, affines, W, bias, tpack, tpoles)
+    B, h, w, cin, F = _check_head(b0, y10, affines, W, bias, "pair_head_mse_fwd")
+    dev, dt = b0[0].device, b0[0].dtype
+    _check_targets(tpack, tpoles, B, h, w, F, dev, "pair_head_mse_fwd")
+    part = build.scratch(B * -(-5 * h * w // 256), dev)
+    sse = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_pair_head_mse_fwd(
+            build.ptr_array((*b0, *y10)), *[a.data_ptr() for a in affines], W.data_ptr(),
+            bias.data_ptr(), tpack.data_ptr(), tpoles.data_ptr(), part.data_ptr(),
+            sse.data_ptr(), B, h, w, cin, F, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("pair_head_mse_fwd", err)
+    build.LAUNCHES["pair_head_mse_fwd"] += 1
+    return sse
+
+
+def pair_head_mse_bwd_plain(g, b0, y10, affines, W, bias, tpack, tpoles):
+    """Plain version of ``pair_head_mse_bwd``, written out (autograd through
+    the bf16 cast of the head's pre-activation would round its cotangent)."""
+    mul1, add1, mul2, add2 = affines
+    dt, F = b0[0].dtype, W.shape[-1]
+    W32, g = W.float(), g.float()
+    gb = g.reshape(-1, 1, 1, 1, 1)
+    db0, dy10, dW, dbias, dmul1, dadd1, dmul2 = [], [], 0.0, 0.0, 0.0, 0.0, 0.0
+    vs = pair_head_fwd_plain(b0, y10, affines, W, bias)
+    pn, ps = _pole_means(vs[0], vs[3])
+    dpn = (g[:, None] * 2.0 * (pn - tpoles[:, :F])) * 0.2
+    dps = (g[:, None] * 2.0 * (ps - tpoles[:, F:])) * 0.2
+    dims = (0, 1, 2, 3)
+    for p, (a, b, v) in enumerate(zip(b0, y10, vs)):
+        a32, b32 = a.float(), b.float()
+        pre = a32 * mul1 + add1 + b32 * mul2 + add2
+        t = torch.clamp_min(pre, 0.0).to(dt).float()
+        dv = gb * 2.0 * (v - tpack[..., p * F : (p + 1) * F])
+        if p == 0:
+            dv[:, :, 0, 0, :] += dpn[:, None, :]
+        if p == 3:
+            dv[:, :, -1, -1, :] += dps[:, None, :]
+        dz = dv * (1.0 - v * v)
+        dbias = dbias + dz.sum(dim=dims)
+        dW = dW + t.reshape(-1, t.shape[-1]).T @ dz.reshape(-1, F)
+        dm = (dz @ W32.T) * (pre > 0.0).float()
+        db0.append((dm * mul1).to(dt))
+        dy10.append((dm * mul2).to(dt))
+        dmul1 = dmul1 + (dm * a32).sum(dim=dims)
+        dadd1 = dadd1 + dm.sum(dim=dims)
+        dmul2 = dmul2 + (dm * b32).sum(dim=dims)
+    return tuple(db0), tuple(dy10), dW, dbias, dmul1, dadd1, dmul2, dadd1
+
+
+def pair_head_mse_bwd(g, b0, y10, affines, W, bias, tpack, tpoles):
+    """Backward of ``pair_head_mse_fwd`` (the Pallas ``_phmse_bwd``) for the
+    float32 (B,) cotangent g of the per-sample error: recomputes the head and
+    returns (4 db0 phases, 4 dy10 phases in the phases' dtype, dW float32
+    (C, F), dbias float32 (F,), d_mul1, d_add1, d_mul2, d_add2 float32 (C,));
+    d_add2 equals d_add1, since both affines' shifts add to one sum."""
+    if not on_cuda(b0[0], "pair_head_mse_bwd"):
+        return pair_head_mse_bwd_plain(g, b0, y10, affines, W, bias, tpack, tpoles)
+    B, h, w, cin, F = _check_head(b0, y10, affines, W, bias, "pair_head_mse_bwd")
+    dev, dt = b0[0].device, b0[0].dtype
+    _check_targets(tpack, tpoles, B, h, w, F, dev, "pair_head_mse_bwd")
+    expect(g, (B,), torch.float32, dev, "pair_head_mse_bwd g")
+    grads = [torch.empty_like(b0[0]) for _ in range(8)]
+    dpole = build.scratch(B * 2 * F, dev)
+    part = build.scratch(4 * -(-B * 5 * h * w // 256) * (cin * F + F + 3 * cin), dev)
+    dW = torch.empty((cin, F), dtype=torch.float32, device=dev)
+    vecs = [torch.empty(n, dtype=torch.float32, device=dev) for n in (F, cin, cin, cin, cin)]
+    with torch.cuda.device(dev):
+        err = build.library().gn_pair_head_mse_bwd(
+            g.data_ptr(), build.ptr_array((*b0, *y10)), *[a.data_ptr() for a in affines],
+            W.data_ptr(), bias.data_ptr(), tpack.data_ptr(), tpoles.data_ptr(),
+            build.ptr_array(grads), dpole.data_ptr(), part.data_ptr(), dW.data_ptr(),
+            *[v.data_ptr() for v in vecs], B, h, w, cin, F, build.dtype_code(dt),
+            build.stream_ptr(dev),
+        )
+    build.check("pair_head_mse_bwd", err)
+    build.LAUNCHES["pair_head_mse_bwd"] += 1
+    return tuple(grads[:4]), tuple(grads[4:]), dW, *vecs

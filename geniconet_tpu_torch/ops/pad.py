@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.geometry import ico
 
 __all__ = ["ico_pad", "padded_index_map", "chart_mean", "MASKED", "NORTH_SYNTH", "SOUTH_SYNTH"]
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.pad import ico_pad
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_upsample
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.pad import chart_mean
 
 __all__ = ["grid_to_vertices", "pack_target_phases"]

@@ -9,10 +9,11 @@ so far, so the first update uses ``lr_base``), the BatchNorm running
 statistics the forward updated, and the metrics total / mse / lr / finite /
 grad_norm.
 
-The model runs ``pallas_blocks="up0,up1,up2"``: the decoder's
-UpBlocks on the kernels (forward with BatchNorm sums, hand-written
-backward), the encoder and the head on the plain route. The VAE, the other
-loss terms, epochs, validation and checkpoints are not ported yet.
+The model is the JAX AE default, ``pallas_blocks=None`` (trainer.py:145-161):
+every block on the kernels, forward with BatchNorm sums and hand-written
+backward, and the loss from the fused head+MSE kernel, so the
+reconstruction never reaches device memory. The VAE, the other loss
+terms, epochs, validation and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from functools import partial
 
 import torch
 
-from geniconet_tpu.geometry import ico
+from geniconet_tpu_torch import device as devices
 from geniconet_tpu_torch.bridge import flax_to_state_dict, state_dict_to_flax
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.losses.p2p import _wmean, loss_factors
 from geniconet_tpu_torch.nn.models import IcoAE
 from geniconet_tpu_torch.ops.vertices import pack_target_phases
@@ -41,18 +43,19 @@ class TrainState:
 
 
 class Trainer:
-    """Owns the model and runs the AE train step."""
+    """Owns the model and runs the AE train step, on the card unless
+    ``device="cpu"``."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device="cuda"):
         m = cfg.model
         if m.is_vae:
             raise NotImplementedError("the VAE trainer is not ported yet (ROADMAP Queue 1)")
         self.factors = loss_factors(cfg)
         if self.factors.nor != 0.0 or self.factors.lap != 0.0:
             raise NotImplementedError("only the position loss (the AE's) is ported")
-        self.cfg, self.device, self.s = cfg, torch.device(device), m.subdivisions
+        self.cfg, self.device, self.s = cfg, devices.resolve(device), m.subdivisions
         self.model = IcoAE(m.subdivisions, tuple(m.widths), m.corner_mode,
-                           _DTYPES[m.compute_dtype], "up0,up1,up2", device=self.device)
+                           _DTYPES[m.compute_dtype], device=self.device)
         o = cfg.optim
         self.lr_fn = partial(cyclic_triangular, base_lr=o.lr_base, max_lr=o.lr_max,
                              step_size_up=o.step_size_up, step_size_down=o.step_size_down)

@@ -106,4 +106,4 @@ def test_colorings_and_unported_routes(served):
     with pytest.raises(ValueError):
         handle_api(st, "/api/nope", {})
     with pytest.raises(NotImplementedError):
-        AppState().load(st.cfg)  # no variables: checkpoints are not ported yet
+        AppState(device="cpu").load(st.cfg)  # no variables: checkpoints are not ported yet

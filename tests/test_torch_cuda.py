@@ -217,3 +217,93 @@ def test_up_dual_conv_backward(cuda, s, corner_mode, dt):
                    pk.up_dual_conv_dx_plain(*args, **fk, emit_gsum=True), dt)
         _close_all(pk.up_dual_conv_dtaps(x, g, corner_mode, **fk),
                    pk.up_dual_conv_dtaps_plain(x, g, corner_mode, **fk), dt)
+
+
+# ---------------------------------------------------------------------------
+# the default training route: the standard conv's stats, dx and dtaps, and
+# the head+MSE forward and backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 4])
+def test_ico_conv_stats_and_backward(cuda, s, corner_mode, dt):
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=60 + s)
+    taps, bias = sets[0]
+    _close_all(ck.ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats=True),
+               ck.ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode, act, with_stats=True), dt)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (20,), 1, seed=s)
+    for a, fold, emit in [(act, True, True), (None, False, True), (act, False, False)]:
+        g, y = mk(1)[0][0], mk(1)[0][0]
+        fk = dict(y=y, gs=gs[0]) if fold else {}
+        args = (g, taps, corner_mode, dt, a, x if a else None)
+        _close_all(ck.ico_conv_s2s_dx(*args, **fk, emit_gsum=emit),
+                   ck.ico_conv_s2s_dx_plain(*args, **fk, emit_gsum=emit), dt)
+        got = ck.ico_conv_s2s_dtaps(x, g, corner_mode, a, **fk)
+        assert got.dtype == dt
+        _close(got, ck.ico_conv_s2s_dtaps_plain(x, g, corner_mode, a, **fk), dt)
+
+
+def _head_mse_inputs(device, dt, s, C, seed):
+    g = torch.Generator().manual_seed(seed)
+    h, w = 2**s, 2 ** (s + 1)
+    b0 = [torch.randn(3, 5, h, w, C, generator=g).to(device, dt) for _ in range(8)]
+    aff = [t.to(device) for t in (torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g),
+                                  torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g))]
+    W = (torch.randn(C, 3, generator=g) * C**-0.5).to(device, dt)
+    bias = (0.1 * torch.randn(3, generator=g)).to(device, dt)
+    tpack = torch.rand(3, 5, h, w, 12, generator=g).mul(2).sub(1).to(device)
+    tpoles = torch.rand(3, 6, generator=g).mul(2).sub(1).to(device)
+    return b0[:4], b0[4:], aff, W, bias, tpack, tpoles
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("s, C", [(1, 24), (3, 64), (4, 64)])
+def test_pair_head_mse(cuda, s, C, dt):
+    args = _head_mse_inputs(cuda, dt, s, C, seed=70 + s)
+    got = pk.pair_head_mse_fwd(*args)
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    _close(got, pk.pair_head_mse_fwd_plain(*args), dt)
+    g = torch.tensor([1.0, 0.5, -2.0], device=cuda)
+    got = pk.pair_head_mse_bwd(g, *args)
+    ref = pk.pair_head_mse_bwd_plain(g, *args)
+    for u, v in zip(got[:2], ref[:2]):
+        for a, b in zip(u, v):
+            assert a.dtype == dt
+            _close(a, b, dt)
+    for a, b in zip(got[2:], ref[2:]):
+        assert a.dtype == torch.float32
+        _close(a, b, dt)
+
+
+def test_default_training_route_launches_every_training_kernel(cuda):
+    """One training step of the default routing on the card: every kernel
+    but the serving head launches, and the loss and gradients match the
+    same model on the CPU."""
+    s, widths = 3, (8, 16, 16)
+    model = IcoAE(s, widths)
+    model.load_state_dict(bridge.flax_to_state_dict(
+        bridge.init_variables(s, widths, seed=1, random_stats=True)))
+    gen = torch.Generator().manual_seed(2)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    tpack = torch.randn(4, 5, 2 ** (s - 1), 2**s, 12, generator=gen)
+    tpoles = torch.randn(4, 6, generator=gen)
+    card = copy.deepcopy(model).to(cuda)
+    build.reset_launches()
+    loss = card.recon_sse(x.to(cuda), tpack.to(cuda), tpoles.to(cuda), train=True).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert set(build.LAUNCHES) == {
+        "phase_conv_fwd", "up_dual_conv_fwd", "ico_conv_s2s_fwd", "phase_conv_dx",
+        "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps", "ico_conv_s2s_dx",
+        "ico_conv_s2s_dtaps", "pair_head_mse_fwd", "pair_head_mse_bwd"}
+    ref = model.recon_sse(x, tpack, tpoles, train=True).sum()
+    ref.backward()
+    assert abs(loss.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    for (k, p), q in zip(card.named_parameters(), model.parameters()):
+        scale = q.grad.abs().max().item()
+        # a conv's bias feeds a BatchNorm: its exact gradient is 0
+        if ".conv" in k and k.endswith(".bias"):
+            scale = dict(model.named_parameters())[k[: -len("bias")] + "taps"].grad.abs().max()
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-3 * float(scale), k

@@ -1,5 +1,6 @@
-"""``chip_smoke.py`` off the card: it refuses to run without a CUDA device,
-imports no JAX, and its profile arithmetic is right."""
+"""``chip_smoke.py`` and the port off the card: the script refuses to run
+without a CUDA device; neither it nor any module of ``geniconet_tpu_torch``
+imports JAX, flax or the JAX package; the profile arithmetic is right."""
 
 import ast
 import subprocess
@@ -14,32 +15,51 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 
 
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in (REPO / "geniconet_tpu_torch").rglob("*.py"))
+
+
 def test_refuses_without_a_card_and_imports_no_jax():
+    """In a fresh interpreter where importing jax, jaxlib, flax or
+    geniconet_tpu fails: every module of the port imports, and the script
+    runs to its refusal."""
     code = (
-        "import importlib.abc, runpy, sys\n"
+        "import importlib, importlib.abc, runpy, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'geniconet_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('imported', len(sys.modules))\n"
         "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert out.returncode != 0
+    assert "imported" in out.stdout, out.stderr
     assert "is_available() is False" in out.stderr, out.stderr
     assert '"ok"' not in out.stdout
 
 
-def test_imports_only_torch_and_the_port():
-    """No import anywhere in the script, nested ones included, names JAX,
-    flax or the JAX package."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def _import_tops(path: Path) -> set:
+    tree = ast.parse(path.read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    tops = {name.split(".")[0] for name in names}
-    assert "geniconet_tpu_torch" in tops
-    assert not tops & {"jax", "jaxlib", "flax", "geniconet_tpu"}, sorted(tops)
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    return {name.split(".")[0] for name in names}
+
+
+def test_imports_only_torch_and_the_port():
+    """No import anywhere in the script or in any file of the port, nested
+    ones included, names JAX, flax or the JAX package."""
+    assert "geniconet_tpu_torch" in _import_tops(REPO / "chip_smoke.py")
+    files = [REPO / "chip_smoke.py", *sorted((REPO / "geniconet_tpu_torch").rglob("*.py"))]
+    assert len(files) > 30
+    for path in files:
+        tops = _import_tops(path)
+        assert not tops & {"jax", "jaxlib", "flax", "geniconet_tpu"}, (path, sorted(tops))
 
 
 @pytest.mark.parametrize("intervals, want_ms", [
@@ -57,6 +77,8 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::conv_gemm<float, gn::GridLoad<float> >"},
      "conv_gemm<fp32, GridLoad>"),
     ({"cat": "kernel", "name": "void gn::pair_head_kernel<float>"}, "pair_head_kernel"),
+    ({"cat": "kernel", "name": "void phmse_bwd_kernel<__nv_bfloat16>(HeadIn<__nv_bfloat16>)"},
+     "phmse (head+MSE fwd/bwd)"),
     ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16>(gn::GLoad<__nv_bfloat16>)"},
      "dx_gemm<bf16>"),
     ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::UpLoad<float> >"},
