@@ -3,57 +3,65 @@
 
     python3 chip_smoke.py
 
-Phases, each printed on its own lines, each fatal on failure:
+Four paths at full width (s=5, widths 64/128/256; the VAE's latent 512):
+AE serving, AE training, VAE serving and VAE training. Phases, each printed
+on its own lines, each fatal on failure:
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: compile ``geniconet_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
 3. kernel vs plain, serving: each of the four forward kernels against its
-   plain PyTorch version at the shapes the serving path gives it (IcoAE,
-   s=5, widths 64/128/256, B=16), in float32 (TF32 off) and bfloat16, with
-   the error against the stated tolerance and the median CUDA-event time of
-   both;
+   plain PyTorch version at the shapes the AE and VAE serving paths give it
+   (B=16), in float32 (TF32 off) and bfloat16, with the error against the
+   stated tolerance and the median CUDA-event time of both;
 4. kernel vs plain, training: the forward kernels' BatchNorm stats and the
-   eight backward and loss kernels (phase-conv, up-conv and standard-conv
-   dx and dtaps, with the stats fold; the head+MSE forward and backward) at
-   the shapes of AE training at B=36, the same way. Every case also prints
-   its bound (the least time the card could take: bytes over 3.35 TB/s or
-   FLOPs over the peak for the dtype, whichever is larger) and, for the
-   convs, the time of the one cuDNN call that does the same contraction on
-   an input already haloed (upsampled, for the up conv), which the port
-   never calls;
-5. serving slice: ``AppState.load`` on 32 synthetic meshes with seeded
-   random weights (non-trivial BN statistics), then ``handle_api`` requests,
-   in bfloat16 and float32; every mesh must have 10,242 finite vertices,
-   every serving kernel must have launched, and two float32 decodes must
+   nine backward and loss kernels (phase-conv, up-conv and standard-conv
+   dx and dtaps, with the stats fold; the head's backward; the head+MSE
+   forward and backward) at the shapes of AE and VAE training at B=36
+   (the DownBlocks' and the VAE heads' stride-2 convs with and without an
+   act prologue), the same way. Every case also prints its bound (the
+   least time the card could take: bytes over 3.35 TB/s or FLOPs over the
+   peak for the dtype, whichever is larger) and, for the convs, the time of
+   the one cuDNN call that does the same contraction on an input already
+   haloed (upsampled, for the up conv), which the port never calls;
+5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
+   with seeded random weights (non-trivial BN statistics), then
+   ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
+   and float32; every mesh must have 10,242 finite vertices, every serving
+   kernel must have launched on each path, and two float32 decodes must
    match the same model run through the plain route on the CPU;
 6. timings: p50 single-mesh decode latency and encode+decode meshes/s at B=16;
-7. training: the AE ``Trainer`` (the default routing, every block on the
-   kernels, the loss from the head+MSE kernel) takes 12 Adam steps at B=36
-   on 64 synthetic meshes, in bfloat16 and float32; every loss must be
-   finite, every training kernel must have launched, and training meshes/s
-   is the median of the last 10 steps; then one float32 step at B=4 must
-   match the same step on the CPU's plain route (loss, every gradient, the
-   new BatchNorm statistics), and that check must catch a 1% error planted
-   in one kernel output at a time; then the
-   forward+backward of the default routing and of
-   ``pallas_blocks="up0,up1,up2"`` (encoder and head on cuDNN), in turns at
-   B=36 bfloat16, side by side;
+7. training: the AE ``Trainer`` and the VAE ``Trainer`` (the default
+   routing, every block on the kernels; the AE's loss from the head+MSE
+   kernel, the VAE's from the head kernel and the P2P+KLD loss) take 12
+   Adam steps each at B=36 on 64 synthetic meshes, in bfloat16 and
+   float32; every loss must be finite, every kernel of each path must have
+   launched, and training meshes/s is the median of the last 10 steps; then
+   one float32 step of each at B=4 (the VAE's eps fixed) must match the
+   same step on the CPU's plain route (loss, every gradient, the new
+   BatchNorm statistics), and each check must catch a 1% error planted in
+   one kernel output at a time; then the forward+backward of the AE's
+   default routing and of ``pallas_blocks="up0,up1,up2"`` (encoder and
+   head on cuDNN), in turns at B=36 bfloat16, side by side;
 8. profile: where the device time goes in the timed serving workloads and
-   in training steps (bfloat16), read from a ``torch.profiler`` trace, with
-   the device's idle share; the Chrome traces are kept in ``build/profile/``.
+   in AE and VAE training steps (bfloat16), read from a ``torch.profiler``
+   trace, with the device's idle share; the Chrome traces are kept in
+   ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
-launches on the serving and training paths, its bf16 time, its plain
-version's, its bound and the library call's, summed over its shapes (a
-forward kernel's times are its serving shapes', and ``training_shapes``
-holds those of its training shapes); the last is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-with an error before printing any result.
+launches on the serving and training paths (AE and VAE summed, and per
+path), its bf16 time, its plain version's, its bound and the library
+call's, summed over its shapes (a forward kernel's times are its serving
+shapes', and ``training_shapes`` holds those of its training shapes;
+``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
+shapes and the VAE's new shapes); the last is ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits with an error before
+printing any result.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -66,6 +74,7 @@ import torch
 
 SUBDIVISIONS = 5
 WIDTHS = (64, 128, 256)
+LATENT = 512  # the VAE's latent_features
 BATCH = 16
 N_MESHES = 32
 TRAIN_BATCH = 36
@@ -105,9 +114,21 @@ KERNELS = {
                           "geniconet_tpu/ops/pallas/phase_kernel.py:3528"),
     "pair_head_mse_bwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
                           "geniconet_tpu/ops/pallas/phase_kernel.py:3577"),
+    "pair_head_bwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
+                      "geniconet_tpu/ops/pallas/phase_kernel.py:3287"),
 }
-SERVING_KERNELS = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
-TRAINING_KERNELS = tuple(k for k in KERNELS if k != "pair_head_fwd")
+_FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
+_BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
+             "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
+# the kernels each path must launch: the AE's training loss runs the
+# head+MSE pair (g, h), the VAE's the head and its backward (e)
+PATH_KERNELS = {
+    "AE serve": _FORWARD,
+    "AE train": (*(k for k in _FORWARD if k != "pair_head_fwd"), *_BACKWARD,
+                 "pair_head_mse_fwd", "pair_head_mse_bwd"),
+    "VAE serve": _FORWARD,
+    "VAE train": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
+}
 
 
 def card_line() -> str:
@@ -180,7 +201,7 @@ def cudnn(kind, gen, dt, n, cin, cout, hp, wp, stride=1):
 
 
 def serving_cases():
-    """(kernel, label, make(dtype, gen) -> Case) at the serving shapes."""
+    """(kernel, label, make(dtype, gen) -> Case, group) at the serving shapes."""
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -232,7 +253,7 @@ def serving_cases():
                         head_flops(B, h, w, c, 3), [b0, y10, aff, W, bias])
         return make
 
-    return [
+    cases = [
         ("phase_conv_fwd", "conv_in (16,32) 3->64", phase(16, 32, 3, w0, 1, (0, 1, 2, 3), False)),
         ("phase_conv_fwd", "down0 s2 (16,32) 64->2x128", phase(16, 32, w0, w1, 2, (2,), True)),
         ("phase_conv_fwd", "down1 s2 (8,16) 128->2x256", phase(8, 16, w1, w2, 2, (2,), True)),
@@ -248,6 +269,12 @@ def serving_cases():
         ("ico_conv_s2s_fwd", "down2 conv01 (4,8) 256", std(4, 8, w2)),
         ("pair_head_fwd", "head (16,32) 64->3", head(16, 32, w0)),
     ]
+    # the VAE's own shapes: its heads (no act) and up0 from the 512-channel latent
+    vae = [
+        ("phase_conv_fwd", "VAE heads s2 (4,8) 256->2x512", phase(4, 8, w2, LATENT, 2, (2,), False)),
+        ("up_dual_conv_fwd", "VAE up0 (4,8) 512->2x256", up(4, 8, LATENT, w2)),
+    ]
+    return [(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
 
 
 def head_flops(B, h, w, c, F, backward=False):
@@ -258,9 +285,10 @@ def head_flops(B, h, w, c, F, backward=False):
 
 
 def training_cases():
-    """(kernel, label, make) at the shapes of AE training (s=5, B=36): the
-    forward kernels with BatchNorm stats, the six conv backward kernels with
-    the stats fold, and the head+MSE forward and backward."""
+    """(kernel, label, make, group) at the shapes of AE and VAE training
+    (s=5, B=36): the forward kernels with BatchNorm stats, the six conv
+    backward kernels with the stats fold, the head's backward, and the
+    head+MSE forward and backward."""
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -380,6 +408,18 @@ def training_cases():
                         head_flops(B, h, w, c, 3, backward=True), [g, *args])
         return make
 
+    def head_bwd(h, w, c):
+        def make(dt, gen):
+            b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            aff = [*_act(gen, c), *_act(gen, c)]
+            W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt, scale=0.1)
+            g = tuple(_rnd(gen, B, 5, h, w, 3) for _ in range(4))
+            args = (g, b0, y10, aff, W, bias)
+            return Case(lambda: pk.pair_head_bwd(*args), lambda: pk.pair_head_bwd_plain(*args),
+                        head_flops(B, h, w, c, 3, backward=True), args)
+        return make
+
     conv01 = [("up0 conv01 (4,8) 256->256", (4, 8, w2, w2)),
               ("up1 conv01 (8,16) 128->128", (8, 16, w1, w1)),
               ("up2 conv01 (16,32) 64->64", (16, 32, w0, w0))]
@@ -413,7 +453,24 @@ def training_cases():
                          emit_gsum=True))]
     cases += [(f"pair_head_mse_{which}", "head (16,32) 64->3", head_mse(which, 16, 32, w0))
               for which in ("fwd", "bwd")]
-    return cases
+    # the AE's DownBlocks after down0 run their stride-2 convs without an act
+    # prologue (the pending BN-apply is down0's alone)
+    no_act = [(f"phase_conv_{which}", f"{label} fold (no act)",
+               phase_bwd(which, *shape, 2, (2,), with_act=False))
+              for which in ("dx", "dtaps") for label, shape in down[1:]]
+    no_act = [("phase_conv_fwd", f"{label} +stats (no act)", phase_fwd(*shape, 2, (2,), False))
+              for label, shape in down[1:]] + no_act
+    heads = ("VAE heads s2 (4,8) 256->2x512", (4, 8, w2, LATENT))
+    up0 = ("VAE up0 (4,8) 512->2x256", (4, 8, LATENT, w2))
+    vae = [("phase_conv_fwd", f"{heads[0]} +stats", phase_fwd(*heads[1], 2, (2,), False)),
+           ("up_dual_conv_fwd", f"{up0[0]} +stats", up_fwd(*up0[1]))]
+    vae += [(f"phase_conv_{which}", f"{heads[0]} fold",
+             phase_bwd(which, *heads[1], 2, (2,), with_act=False)) for which in ("dx", "dtaps")]
+    vae += [(f"up_dual_conv_{which}", f"{up0[0]} fold", up_bwd(which, *up0[1]))
+            for which in ("dx", "dtaps")]
+    vae += [("pair_head_bwd", "head (16,32) 64->3", head_bwd(16, 32, w0))]
+    return ([(*c, "AE") for c in cases] + [(*c, "AE no act") for c in no_act]
+            + [(*c, "VAE") for c in vae])
 
 
 def flat(out):
@@ -438,11 +495,14 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
     """Phases 3 and 4. Returns per kernel its largest max_abs_err over its
     cases and, summed over its shapes in bf16: ms and plain_ms (median
     times), bound_ms (with what bounds the largest share of it) and
-    library_ms (None where no cuDNN call does the same work)."""
-    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                             "bound_ms": 0.0, "bound_by": {}, "library_ms": None})
+    library_ms (None where no cuDNN call does the same work); ``by_shapes``
+    holds the same sums per group of shapes."""
+    def sums():
+        return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
+
+    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, **sums(), "by_shapes": {}})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, label, make in cases:
+    for name, label, make, group in cases:
         for dt in (torch.float32, torch.bfloat16):
             case = make(dt, gen)
             got, ref = flat(case.kernel()), flat(case.plain())
@@ -468,18 +528,19 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
                                      f"{TOL[dt]} x {scale} (finite={finite})")
-            s = stats[name]
-            s["max_abs_err"] = max([s["max_abs_err"]] + [e for e, _ in errs])
+            stats[name]["max_abs_err"] = max([stats[name]["max_abs_err"]] + [e for e, _ in errs])
             if dt == torch.bfloat16:
-                s["ms"] += ms
-                s["plain_ms"] += plain_ms
-                s["bound_ms"] += b_ms
-                s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
-                if lib_ms is not None:
-                    s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
+                for s in (stats[name], stats[name]["by_shapes"].setdefault(group, sums())):
+                    s["ms"] += ms
+                    s["plain_ms"] += plain_ms
+                    s["bound_ms"] += b_ms
+                    s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
+                    if lib_ms is not None:
+                        s["library_ms"] = (s["library_ms"] or 0.0) + lib_ms
             del case, got, ref
     for s in stats.values():
-        s["bound_by"] = max(s["bound_by"], key=s["bound_by"].get)
+        for t in (s, *s["by_shapes"].values()):
+            t["bound_by"] = max(t["bound_by"], key=t["bound_by"].get)
     return stats
 
 
@@ -492,45 +553,57 @@ def check_mesh(vertices, n: int, what: str):
                              f"finite={bool(np.isfinite(v).all())}")
 
 
-def serve(dtype_name: str, variables, card: str):
-    """Phase 4 for one compute dtype: load + requests. Returns the state."""
+def model_config(model: str, dtype_name: str):
     from geniconet_tpu_torch import Config
+
+    cfg = Config()
+    cfg.model.name = model
+    cfg.model.subdivisions, cfg.model.widths = SUBDIVISIONS, WIDTHS
+    cfg.model.latent_features = LATENT
+    cfg.model.compute_dtype = dtype_name
+    return cfg
+
+
+def serve(model: str, dtype_name: str, variables, card: str):
+    """Phase 5 for one model and compute dtype: load + requests. Returns the state."""
     from geniconet_tpu_torch import geometry as ico
     from geniconet_tpu_torch.app.server import handle_api
     from geniconet_tpu_torch.app.state import AppState
 
-    cfg = Config()
-    cfg.model.subdivisions, cfg.model.widths = SUBDIVISIONS, WIDTHS
-    cfg.model.compute_dtype = dtype_name
+    cfg = model_config(model, dtype_name)
     cfg.data.synthetic = N_MESHES
     V = ico.num_vertices(SUBDIVISIONS)
+    tag = f"serve {model} {dtype_name}"
     st = AppState(device="cuda")
     t0 = time.perf_counter()
     info = st.load(cfg, variables)
     torch.cuda.synchronize()
-    print(f"[serve {dtype_name}] load: {info['n']} meshes, latent {info['latent_shape']}, "
+    print(f"[{tag}] load: {info['n']} meshes, latent {info['latent_shape']}, "
           f"{time.perf_counter() - t0:.2f} s (dataset build included)", flush=True)
-    if handle_api(st, "/api/info", {})["n"] != N_MESHES:
-        raise AssertionError("/api/info: wrong mesh count")
+    if handle_api(st, "/api/info", {})["n"] != N_MESHES or info["is_vae"] != cfg.model.is_vae:
+        raise AssertionError("/api/info: wrong mesh count or model kind")
     requests = [
         ("/api/mesh", {"i": 0, "coloring": "patch"}),
         ("/api/interpolate", {"i": 0, "j": 1, "t": 0.5, "coloring": "patch"}),
         ("/api/explore", {"i": 0, "channel": 3, "delta": 1.5, "coloring": "patch"}),
     ]
+    if cfg.model.is_vae:
+        requests.append(("/api/regenerate", {"i": 1, "k": 1.0, "seed": 3, "coloring": "patch"}))
     for path, body in requests:
-        check_mesh(handle_api(st, path, body)["vertices"], V, f"{dtype_name} {path}")
+        check_mesh(handle_api(st, path, body)["vertices"], V, f"{tag} {path}")
     out = handle_api(st, "/api/decode", {"indices": list(range(8))})
     if len(out["vertices"]) != 8:
         raise AssertionError(f"/api/decode returned {len(out['vertices'])} meshes")
     for k, v in enumerate(out["vertices"]):
-        check_mesh(v, V, f"{dtype_name} /api/decode mesh {k}")
-    print(f"[serve {dtype_name}] /api/info /api/mesh /api/interpolate /api/explore /api/decode(8): "
+        check_mesh(v, V, f"{tag} /api/decode mesh {k}")
+    print(f"[{tag}] /api/info {' '.join(p for p, _ in requests)} /api/decode(8): "
           f"every mesh {V} finite vertices [{card}]", flush=True)
     return st
 
 
 def plain_route_check(st, card: str):
     """Two float32 decodes on the card against the same model on the CPU."""
+    model = st.cfg.model.name
     from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 
     z = st.latents[:2]
@@ -540,14 +613,21 @@ def plain_route_check(st, card: str):
         ref = grid_to_vertices(cpu_model.decode(torch.from_numpy(z)), SUBDIVISIONS).numpy()
     err = float(abs(got - ref).max())
     scale = float(abs(ref).max())
-    print(f"[serve float32] kernel route vs plain route on CPU, 2 meshes: max_abs_err={err:.3e} "
+    print(f"[serve {model} float32] kernel route vs plain route on CPU, 2 meshes: "
+          f"max_abs_err={err:.3e} "
           f"max|ref|={scale:.3e} tol=1e-4 x max|ref| [{card}]", flush=True)
     if not err <= 1e-4 * scale:
         raise AssertionError(f"kernel route differs from the plain route: {err}")
 
 
+def encode_decode(st, x):
+    """The model's encode then decode of x (the VAE decodes its mu)."""
+    z = st.model.encode(x)
+    return st.model.decode(z[0] if isinstance(z, tuple) else z)
+
+
 def timings(st, dtype_name: str, card: str):
-    """Phase 5: p50 single-mesh decode latency, encode+decode meshes/s at B=16."""
+    """Phase 6: p50 single-mesh decode latency, encode+decode meshes/s at B=16."""
     lat = []
     for i in range(40):
         t0 = time.perf_counter()
@@ -556,8 +636,8 @@ def timings(st, dtype_name: str, card: str):
     p50 = statistics.median(lat[5:]) * 1e3
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     with torch.inference_mode():
-        ms = cuda_ms(lambda: st.model.decode(st.model.encode(x)), reps=10)
-    print(f"[timing {dtype_name}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
+        ms = cuda_ms(lambda: encode_decode(st, x), reps=10)
+    print(f"[timing {st.cfg.model.name} {dtype_name}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
           f"latent in -> vertices out); encode+decode B={BATCH}: {ms:.3f} ms = "
           f"{BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
 
@@ -580,6 +660,8 @@ def kernel_group(event: dict) -> str:
         return "sum_rows + colsum (cross-block sums)"
     if "pair_head_kernel" in name:
         return "pair_head_kernel"
+    if "phead_bwd" in name:
+        return "phead_bwd (head bwd, kernel e)"
     if "phmse" in name:
         return "phmse (head+MSE fwd/bwd)"
     if any(k in name.lower() for k in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
@@ -659,32 +741,29 @@ def serving_workloads(st):
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     z = st.latents[0]
 
-    def encode_decode():
+    def run():
         with torch.inference_mode():
-            st.model.decode(st.model.encode(x))
+            encode_decode(st, x)
 
-    return [(f"encode_decode_B{BATCH}", encode_decode, 20),
+    return [(f"encode_decode_B{BATCH}", run, 20),
             ("decode_latent_B1", lambda: st.decode_latent(z), 20)]
 
 
-def train_config(dtype_name: str, batch: int):
-    from geniconet_tpu_torch import Config
-
-    cfg = Config()
-    cfg.model.subdivisions, cfg.model.widths = SUBDIVISIONS, WIDTHS
-    cfg.model.compute_dtype = dtype_name
+def train_config(dtype_name: str, batch: int, model: str = "ico2ico"):
+    cfg = model_config(model, dtype_name)
     cfg.train.batch_size = batch
     return cfg
 
 
-def train(dtype_name: str, variables, dataset, card: str):
-    """Phase 7 for one compute dtype: TRAIN_STEPS Adam steps at B=36.
-    Returns the trainer, its state and a fixed batch for the profile."""
+def train(model: str, dtype_name: str, variables, dataset, card: str):
+    """Phase 7 for one model and compute dtype: TRAIN_STEPS Adam steps at
+    B=36. Returns the trainer, its state, a fixed batch for the profile and
+    the kernel launches."""
     from geniconet_tpu_torch.data.pipeline import Batches
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.train.trainer import Trainer
 
-    tr = Trainer(train_config(dtype_name, TRAIN_BATCH), device="cuda")
+    tr = Trainer(train_config(dtype_name, TRAIN_BATCH, model), device="cuda")
     st = tr.init_state(variables)
     batches = Batches(dataset, TRAIN_BATCH, drop_remainder=True, seed=0, device="cuda")
 
@@ -705,18 +784,25 @@ def train(dtype_name: str, variables, dataset, card: str):
         losses.append(float(m["total"]))
     launches = dict(build.LAUNCHES)
     ms = statistics.median(times[TRAIN_WARMUP:]) * 1e3
-    print(f"[train {dtype_name}] {TRAIN_STEPS} steps at B={TRAIN_BATCH}, s={SUBDIVISIONS}, "
-          f"widths {WIDTHS}, pallas_blocks={tr.model.pallas_blocks!r}: losses "
+    tag = f"train {model} {dtype_name}"
+    print(f"[{tag}] {TRAIN_STEPS} steps at B={TRAIN_BATCH}, s={SUBDIVISIONS}, widths {WIDTHS}"
+          f"{f', latent {LATENT}' if tr.is_vae else ''}, pallas_blocks="
+          f"{tr.model.pallas_blocks!r}: losses "
           f"{[round(v, 6) for v in losses]}; step {ms:.3f} ms (median of the last "
           f"{TRAIN_STEPS - TRAIN_WARMUP}, host clock, synchronised) = "
           f"{TRAIN_BATCH / ms * 1e3:.1f} training meshes/s [{card}]", flush=True)
-    print(f"[train {dtype_name}] kernel launches on the training path: {launches}", flush=True)
+    print(f"[{tag}] kernel launches on the training path: {launches}", flush=True)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    missing = [k for k in TRAINING_KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the training path: {missing}")
+    check_launches(f"{'VAE' if tr.is_vae else 'AE'} train", launches)
     return tr, st, next(it), launches
+
+
+def check_launches(path: str, launches):
+    """Fail unless every kernel of the path launched at least once."""
+    missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: {missing}")
 
 
 def routing_compare(variables, dataset, card: str, iters: int = 4):
@@ -758,33 +844,60 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
               f"{TRAIN_BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
 
 
-def train_step_check(variables, card: str):
+def train_step_check(model: str, variables, planted, card: str):
     """One float32 step at B=4 on the card against the same step on the CPU
     (plain route): the loss and the new BatchNorm statistics within 1e-4 of
-    max|ref|, every gradient within 1e-4·max|ref| plus twice the CPU's own
-    float32 spread on it. That spread is measured: the largest change of
-    the CPU step's gradient when the batch's samples come in five other
-    orders. The BatchNorm backward at B=4 loses digits to cancellation (a
-    float32 gradient leaf moves by up to 1e-2·max|ref| with the summation
-    order alone), so a fixed bound would measure the conditioning, not the
-    kernels. The bound is that loose only on some leaves, which the check
-    names. To show that the check still catches a kernel error, the card's
-    step then runs once per entry of ``PLANTED``, with that kernel output 1%
-    off: the check must read above its bound for each."""
+    max|ref|, every gradient within 1e-4·max|ref| plus twice the float32
+    spread on it. That spread is measured on both sides: the largest change
+    of a step's gradient when the batch's samples come in five other orders
+    (the VAE's eps, fixed for the check, permuted with its samples, so that
+    each order computes the same function), on the CPU and on the card,
+    and on the CPU also when no block is fused (``pallas_blocks="none"``:
+    masked 3×3 convs, the same function with other float32 sums inside each
+    sample, which a reorder leaves alone). The card's own spread counts
+    because its kernels sum in fixed blocks of rows, which a reorder of the
+    samples regroups and the CPU's sums do not show; the VAE's normal term
+    amplifies such differences. The BatchNorm backward
+    at B=4 loses digits to cancellation (a float32 gradient leaf moves by up
+    to 1e-2·max|ref| with the summation order alone), so a fixed bound
+    would measure the conditioning, not the kernels. The bound is that loose
+    only on some leaves, which the check names. To show that the check
+    still catches a kernel error, the card's step then runs once per entry
+    of ``planted``, with that kernel output 1% off: the check must read
+    above its bound for each."""
     from unittest import mock
+
+    import numpy as np
 
     from geniconet_tpu_torch.data.datasets import synthetic_dataset
     from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.nn import models
+    from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
     from geniconet_tpu_torch.ops.kernels import fused
     from geniconet_tpu_torch.train.trainer import Trainer
 
     ds = synthetic_dataset(SUBDIVISIONS, 4, seed=1)
+    is_vae = model.endswith("_vae")
+    eps = torch.from_numpy(np.random.RandomState(2).randn(
+        4, 5 * 2 ** (SUBDIVISIONS - 3), 2 ** (SUBDIVISIONS - 2), LATENT).astype(np.float32))
 
-    def step(device, order):
-        tr = Trainer(train_config("float32", 4), device=device)
+    def fixed_eps(order, device):
+        if not is_vae:
+            return contextlib.nullcontext()
+        e = eps[order].to(device)
+        return mock.patch.object(models, "reparameterize",
+                                 lambda mu, logvar, generator=None: e * torch.exp(0.5 * logvar) + mu)
+
+    def step(device, order, unfused=False):
+        tr = Trainer(train_config("float32", 4, model), device=device)
+        if unfused:  # "none" names no block: no block is fused
+            kw = dict(pallas_blocks="none", device=device)
+            tr.model = (IcoVAE(SUBDIVISIONS, WIDTHS, LATENT, **kw) if is_vae
+                        else IcoAE(SUBDIVISIONS, WIDTHS, **kw))
         st = tr.init_state(variables)
         x, y, wt = next(iter(Batches(ds, 4, shuffle=False, device=device).epoch()))
-        loss = float(tr.train_step(st, x[order], y[order], wt)["total"])
+        with fixed_eps(order, device):
+            loss = float(tr.train_step(st, x[order], y[order], wt)["total"])
         grads = {k: p.grad.detach().cpu() for k, p in tr.model.named_parameters()}
         stats = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()
                  if k.endswith((".mean", ".var"))}
@@ -793,15 +906,18 @@ def train_step_check(variables, card: str):
     ref_loss, ref_grads, ref_stats = step("cpu", [0, 1, 2, 3])
     orders = [[3, 2, 1, 0], [1, 0, 3, 2], [2, 3, 0, 1], [0, 2, 1, 3], [1, 3, 0, 2]]
     spread = {k: 0.0 for k in ref_grads}
-    for order in orders:
-        _, other, _ = step("cpu", order)
-        for k, ref in ref_grads.items():
-            spread[k] = max(spread[k], (other[k] - ref).abs().max().item())
+    for device, runs in (("cpu", [(o, False) for o in orders] + [([0, 1, 2, 3], True)]),
+                         ("cuda", [(o, False) for o in orders])):
+        base = ref_grads if device == "cpu" else step(device, [0, 1, 2, 3])[1]
+        for order, unfused in runs:
+            _, other, _ = step(device, order, unfused)
+            for k, ref in base.items():
+                spread[k] = max(spread[k], (other[k] - ref).abs().max().item())
     bounds = {}  # leaf -> (bound, scale)
     for k, ref in ref_grads.items():
         # a conv's bias feeds a BatchNorm: its exact gradient is 0, so it is
         # held against its taps' scale
-        conv_bias = ".conv" in k and k.endswith(".bias")
+        conv_bias = "conv" in k.rsplit(".", 2)[-2] and k.endswith(".bias")
         scale = (ref_grads[k[: -len("bias")] + "taps"] if conv_bias else ref).abs().max().item()
         bounds[k] = (1e-4 * scale + 2 * spread[k], scale)
 
@@ -816,48 +932,60 @@ def train_step_check(variables, card: str):
         name, worst = max(ratio.items(), key=lambda kv: kv[1])
         return loss, worst, name
 
+    tag = f"train {model} float32"
     loss, worst, name = card_step()
     loose = {k: b / s for k, (b, s) in bounds.items() if b > 2e-3 * s}
-    print(f"[train float32] one step at B=4 on the card vs the CPU plain route: loss "
-          f"{loss:.6f} vs {ref_loss:.6f}; loss, {len(ref_stats)} BatchNorm statistics within "
-          f"1e-4·max|ref|, {len(ref_grads)} gradients within 1e-4·max|ref| + 2x the CPU's "
-          f"spread over {len(orders)} other sample orders; largest error {worst:.3f} of its "
-          f"bound ({name}) [{card}]", flush=True)
+    print(f"[{tag}] one step at B=4 on the card vs the CPU plain route"
+          f"{' (eps fixed)' if is_vae else ''}: loss {loss:.6f} vs {ref_loss:.6f}; loss, "
+          f"{len(ref_stats)} BatchNorm statistics within 1e-4·max|ref|, {len(ref_grads)} "
+          f"gradients within 1e-4·max|ref| + 2x the larger float32 spread, the CPU's over "
+          f"{len(orders)} other sample orders and the unfused routing or the card's over the "
+          f"orders; largest error {worst:.3f} of its bound "
+          f"({name}) [{card}]", flush=True)
     widest = sorted(loose.items(), key=lambda kv: -kv[1])[:4]
-    print(f"[train float32] {len(loose)} gradients have a bound above 2e-3·max|ref| "
+    print(f"[{tag}] {len(loose)} gradients have a bound above 2e-3·max|ref| "
           f"(widest: {', '.join(f'{k} {v:.2e}' for k, v in widest)}): this check holds "
           f"them loosely, and the kernels that make them only the kernel-vs-plain phase "
           f"holds at 1e-4", flush=True)
     if not worst <= 1.0:
-        raise AssertionError(f"training step on the card differs from the CPU: {name} {worst}")
+        raise AssertionError(f"{tag} step on the card differs from the CPU: {name} {worst}")
     missed = []
-    for kernel, where, path, hit in PLANTED:
+    for kernel, where, path, hit in planted:
         real = getattr(fused, kernel)
 
-        def planted(*args, _real=real, _path=path, _hit=hit, **kwargs):
+        def plant(*args, _real=real, _path=path, _hit=hit, **kwargs):
             r = _real(*args, **kwargs)
             return one_percent_off(r, _path) if _hit(args) else r
 
-        with mock.patch.object(fused, kernel, planted):
+        with mock.patch.object(fused, kernel, plant):
             _, worst, name = card_step()
-        print(f"[train float32] planted fault, {kernel} 1% off at {where}: the check reads "
+        print(f"[{tag}] planted fault, {kernel} 1% off at {where}: the check reads "
               f"{worst:.3f} of its bound ({name}), {'caught' if worst > 1.0 else 'NOT caught'} "
               f"[{card}]", flush=True)
         if not worst > 1.0:
             missed.append(f"{kernel} at {where}")
     if missed:
-        raise AssertionError(f"the step check misses a planted 1% fault: {missed}")
+        raise AssertionError(f"the {tag} step check misses a planted 1% fault: {missed}")
 
 
-# Kernel outputs the step check's probe puts 1% off, one at a time: (wrapper
+# Kernel outputs the step checks' probes put 1% off, one at a time: (wrapper
 # as ``fused`` calls it, where, index path of the output, which calls).
-PLANTED = (
-    ("ico_conv_s2s_dtaps", "down0-2 conv01, dtaps", (), lambda a: True),
-    ("ico_conv_s2s_dx", "down0-2 conv01, dx", (0,), lambda a: True),
-    ("ico_conv_s2s_dx", "down1 conv01, d_mul (to encoder.down1.bn00)", (1,),
-     lambda a: a[0].shape[2] == 8),
-    ("phase_conv_dtaps", "conv_in, dtaps", (0, 0), lambda a: a[0][0].shape[-1] == 3),
-)
+PLANTED = {
+    "ico2ico": (
+        ("ico_conv_s2s_dtaps", "down0-2 conv01, dtaps", (), lambda a: True),
+        ("ico_conv_s2s_dx", "down0-2 conv01, dx", (0,), lambda a: True),
+        ("ico_conv_s2s_dx", "down1 conv01, d_mul (to encoder.down1.bn00)", (1,),
+         lambda a: a[0].shape[2] == 8),
+        ("phase_conv_dtaps", "conv_in, dtaps", (0, 0), lambda a: a[0][0].shape[-1] == 3),
+    ),
+    "ico2ico_vae": (
+        ("pair_head_bwd", "head, db0 phase 0", (0, 0), lambda a: True),
+        ("pair_head_bwd", "head, dW", (2,), lambda a: True),
+        ("phase_conv_dtaps", "heads (256->2x512), mu's dtaps", (0,),
+         lambda a: a[2][0][-1] == LATENT),
+        ("up_dual_conv_dx", "up0 (C_in 512), dx", (0,), lambda a: a[1][0][0].shape[1] == LATENT),
+    ),
+}
 
 
 def one_percent_off(r, path):
@@ -875,6 +1003,7 @@ def main():
     from geniconet_tpu_torch.data.datasets import synthetic_dataset
     from geniconet_tpu_torch.ops.kernels import build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -890,42 +1019,64 @@ def main():
         if k in stats:  # a forward kernel: its main times stay the serving shapes'
             stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], v["max_abs_err"])
             stats[k]["training_shapes"] = {key: v[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_shapes")}
         else:
             stats[k] = v
 
-    variables = bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True)
-    build.reset_launches()
-    states = {name: serve(name, variables, card) for name in ("bfloat16", "float32")}
-    serving = dict(build.LAUNCHES)
-    print(f"[serve] kernel launches on the serving slice: {serving}", flush=True)
-    missing = [k for k in SERVING_KERNELS if serving.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serving slice: {missing}")
-    plain_route_check(states["float32"], card)
-    for name, st in states.items():
-        timings(st, name, card)
+    vae = "ico2ico_vae"
+    serve_vars = {
+        "ico2ico": bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True),
+        vae: bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True, model=vae,
+                                   latent_features=LATENT),
+    }
+    launches = {}  # path -> kernel launches in its run
+    states = {}
+    for model, path in (("ico2ico", "AE serve"), (vae, "VAE serve")):
+        build.reset_launches()
+        states[model] = {name: serve(model, name, serve_vars[model], card)
+                         for name in ("bfloat16", "float32")}
+        launches[path] = dict(build.LAUNCHES)
+        print(f"[serve {model}] kernel launches on the serving path: {launches[path]}", flush=True)
+        check_launches(path, launches[path])
+        plain_route_check(states[model]["float32"], card)
+        for name, st in states[model].items():
+            timings(st, name, card)
 
     t0 = time.perf_counter()
     dataset = synthetic_dataset(SUBDIVISIONS, TRAIN_MESHES, seed=0)
     print(f"[train] {TRAIN_MESHES} synthetic meshes in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    train_vars = bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=1)
-    runs = {name: train(name, train_vars, dataset, card) for name in ("bfloat16", "float32")}
-    training = collections.Counter()
-    for *_, counts in runs.values():
-        training.update(counts)
-    train_step_check(train_vars, card)
-    routing_compare(train_vars, dataset, card)
+    train_vars = {
+        "ico2ico": bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=1),
+        vae: bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=1, model=vae,
+                                   latent_features=LATENT),
+    }
+    runs = {}
+    for model, path in (("ico2ico", "AE train"), (vae, "VAE train")):
+        runs[model] = {name: train(model, name, train_vars[model], dataset, card)
+                       for name in ("bfloat16", "float32")}
+        launches[path] = dict(sum((collections.Counter(r[-1]) for r in runs[model].values()),
+                                  collections.Counter()))
+        train_step_check(model, train_vars[model], PLANTED[model], card)
+    routing_compare(train_vars["ico2ico"], dataset, card)
 
-    tr, st, (x, y, wt), _ = runs["bfloat16"]
-    device_profile(serving_workloads(states["bfloat16"]) + [
-        (f"train_step_B{TRAIN_BATCH}", lambda: tr.train_step(st, x, y, wt), 5)], card)
+    profiled = []
+    for model in ("ico2ico", vae):
+        tr, st, (x, y, wt), _ = runs[model]["bfloat16"]
+        profiled.append((f"train_step_{model}_B{TRAIN_BATCH}",
+                         lambda tr=tr, st=st, x=x, y=y, wt=wt: tr.train_step(st, x, y, wt), 5))
+    device_profile(serving_workloads(states["ico2ico"]["bfloat16"]) + profiled, card)
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the build included",
+          flush=True)
+
+    def count(k, kind):
+        return sum(n.get(k, 0) for path, n in launches.items() if path.endswith(kind))
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving.get(k, 0) + training.get(k, 0),
-         "serving_launches": serving.get(k, 0), "training_launches": training.get(k, 0),
+         "launches": count(k, "serve") + count(k, "train"),
+         "serving_launches": count(k, "serve"), "training_launches": count(k, "train"),
+         "launches_by_path": {path: n.get(k, 0) for path, n in launches.items()},
          **stats[k]}
         for k, (src, rep) in KERNELS.items()
     ]}))

@@ -3,7 +3,7 @@
 Port of ``geniconet_tpu/app/server.py:handle_api`` for the routes the
 ported state serves: ``/api/info``, ``/api/mesh``, ``/api/interpolate``,
 ``/api/arithmetic`` (without the PCA nearest neighbour), ``/api/explore``,
-``/api/patch_combine`` and ``/api/decode``. The state is an argument, not
+``/api/regenerate`` (a VAE's), ``/api/patch_combine`` and ``/api/decode``. The state is an argument, not
 a module global. Loading from a checkpoint (``/api/load``) and the PCA
 routes (``/api/pca``, ``/api/pca_decode``, ``/api/pairs``) wait for later
 work (ROADMAP, Queue 1).
@@ -57,6 +57,9 @@ def handle_api(st: AppState, path: str, body: dict) -> dict:
     if path == "/api/explore":
         v = st.explore_channel(int(body["i"]), int(body["channel"]), float(body["delta"]),
                                float(body.get("noise", 0.0)), int(body.get("seed", 0)))
+        return mesh_payload(v, faces, st.colorize(v, coloring))
+    if path == "/api/regenerate":
+        v = st.regenerate(int(body["i"]), float(body["k"]), int(body.get("seed", 0)))
         return mesh_payload(v, faces, st.colorize(v, coloring))
     if path == "/api/patch_combine":
         v = st.patch_combine(int(body["i"]), int(body["j"]), list(body["patches"]))

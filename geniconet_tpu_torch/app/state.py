@@ -1,16 +1,17 @@
 """Latent-space explorer backend: the model, the latent cache, decode paths.
 
-Port of ``geniconet_tpu/app/state.py`` for the autoencoder: ``load`` builds
-the dataset, loads the model from a flax variable tree and encodes the
-dataset into a float32 latent cache in batches of 16; the decode paths
-(reconstruct, interpolate, arithmetic, per-channel exploration, patch
-combination, batched decode) return float32 ``(V, 3)`` vertices. Every
-decode runs the model on ``device``: the card by default (the CUDA
+Port of ``geniconet_tpu/app/state.py`` for the autoencoder and the VAE:
+``load`` builds the dataset, loads the model from a flax variable tree and
+encodes the dataset into a float32 latent cache in batches of 16 (the VAE's
+cache holds mu, and ``logvars`` its logvar); the decode paths (reconstruct,
+interpolate, arithmetic, per-channel exploration, the VAE's regeneration,
+patch combination, batched decode) return float32 ``(V, 3)`` vertices.
+Every decode runs the model on ``device``: the card by default (the CUDA
 kernels), the plain versions with ``device="cpu"``.
 
-Not ported here: reading ``.ckpt`` checkpoints and the VAE (ROADMAP, Queue
-1); PCA and nearest neighbours (they need scikit-learn); the TPU-specific
-int16 decode transfer and power-of-two batch bucketing.
+Not ported here: reading ``.ckpt`` checkpoints (ROADMAP, Queue 1); PCA and
+nearest neighbours (they need scikit-learn); the TPU-specific int16 decode
+transfer and power-of-two batch bucketing.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from geniconet_tpu_torch import native
 from geniconet_tpu_torch.bridge import flax_to_state_dict
 from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_dataset
 from geniconet_tpu_torch.geometry import ico
-from geniconet_tpu_torch.nn.models import IcoAE
+from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 from geniconet_tpu_torch.train.config import Config
 
@@ -39,9 +40,10 @@ class AppState:
         self.info = None
         self.instance = "val"
         self.cfg: Config | None = None
-        self.model: IcoAE | None = None
+        self.model: IcoAE | IcoVAE | None = None
         self.dataset: IcoDataset | None = None
-        self.latents: np.ndarray | None = None  # (N, Hz, Wz, C) float32
+        self.latents: np.ndarray | None = None  # (N, Hz, Wz, C) float32; the VAE's mu
+        self.logvars: np.ndarray | None = None  # the VAE's logvar, else None
 
     def load(self, cfg: Config, variables=None, data_instance: str = "val", epoch: int = 0):
         """Build the dataset, load the model from ``variables`` (a flax
@@ -51,8 +53,6 @@ class AppState:
             raise NotImplementedError(
                 "reading .ckpt checkpoints is not ported yet (ROADMAP, Queue 1 item 7: "
                 "checkpoints); pass the variables tree")
-        if cfg.model.is_vae:
-            raise NotImplementedError("IcoVAE is not ported yet (ROADMAP, Queue 1 item 6: VAE)")
         self.cfg, self.instance, s = cfg, data_instance, cfg.model.subdivisions
         if cfg.data.synthetic:
             self.dataset = synthetic_dataset(s, cfg.data.synthetic, seed=cfg.data.synthetic_seed)
@@ -60,21 +60,28 @@ class AppState:
             self.dataset = IcoDataset.from_directory(
                 cfg.data.data_dir, s, cfg.data.layout_level, data_instance, cfg.data.ext,
                 cfg.train.quick_learn)
-        model = IcoAE(s, tuple(cfg.model.widths), cfg.model.corner_mode,
-                      _DTYPES[cfg.model.compute_dtype], device=self.device)
+        m, dtype = cfg.model, _DTYPES[cfg.model.compute_dtype]
+        if m.is_vae:
+            model = IcoVAE(s, tuple(m.widths), m.latent_features, m.corner_mode, dtype,
+                           device=self.device)
+        else:
+            model = IcoAE(s, tuple(m.widths), m.corner_mode, dtype, device=self.device)
         model.load_state_dict(flax_to_state_dict(variables))
         self.model = model.eval()
-        self.latents = np.concatenate([
-            self._encode(self.dataset.inputs[i : i + ENCODE_BATCH])
-            for i in range(0, len(self.dataset), ENCODE_BATCH)
-        ])
+        encoded = [self._encode(self.dataset.inputs[i : i + ENCODE_BATCH])
+                   for i in range(0, len(self.dataset), ENCODE_BATCH)]
+        if m.is_vae:
+            self.latents = np.concatenate([mu for mu, _ in encoded])
+            self.logvars = np.concatenate([lv for _, lv in encoded])
+        else:
+            self.latents, self.logvars = np.concatenate(encoded), None
         self.info = {
             "n": len(self.dataset),
             "names": self.dataset.names,
             "classes": self.dataset.classes,
             "epoch": epoch,
             "latent_shape": list(self.latents.shape[1:]),
-            "is_vae": False,
+            "is_vae": m.is_vae,
             "subdivisions": s,
             "model": cfg.model.name,
             "logDir": cfg.log_dir,
@@ -89,9 +96,13 @@ class AppState:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def _encode(self, grids: np.ndarray) -> np.ndarray:
+    def _encode(self, grids: np.ndarray):
+        """Float32 latents of a batch of grids; the VAE's (mu, logvar)."""
         x = torch.as_tensor(grids, dtype=torch.float32, device=self.device)
-        return self.model.encode(x).float().cpu().numpy()
+        out = self.model.encode(x)
+        if isinstance(out, tuple):
+            return tuple(t.float().cpu().numpy() for t in out)
+        return out.float().cpu().numpy()
 
     @torch.inference_mode()
     def decode_batch(self, zs: np.ndarray) -> np.ndarray:
@@ -127,6 +138,16 @@ class AppState:
         z[..., channel] += delta * sigma[..., channel].mean()
         if noise:
             z += noise * sigma * np.random.RandomState(seed).randn(*z.shape)
+        return self.decode_latent(z)
+
+    def regenerate(self, i: int, k: float, seed: int = 0) -> np.ndarray:
+        """The VAE's re-generation z = mu + k·σ·ε, ε from ``RandomState(seed)``
+        (reference app.py:929-948)."""
+        if self.logvars is None:
+            raise ValueError("regeneration requires a VAE model")
+        std = np.exp(0.5 * self.logvars[i])
+        z = self.latents[i] + k * std * np.random.RandomState(seed).randn(*std.shape).astype(
+            np.float32)
         return self.decode_latent(z)
 
     def patch_combine(self, i: int, j: int, take_from_j: list[int]) -> np.ndarray:

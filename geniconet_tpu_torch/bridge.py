@@ -1,7 +1,7 @@
 """Weight bridge between the flax variable tree and the port's state_dict.
 
-The flax tree of ``geniconet_tpu.nn.models.IcoAE`` (the same on its XLA and
-fused routes) is ``{"params": ..., "batch_stats": ...}`` as nested dicts;
+The flax tree of ``geniconet_tpu.nn.models.IcoAE`` or ``IcoVAE`` (the same
+on the XLA and fused routes) is ``{"params": ..., "batch_stats": ...}`` as nested dicts;
 the port's module tree mirrors it, so the mapping is by path:
 
   params/<path>/{taps,bias}                  <-> <path>.{taps,bias}
@@ -9,9 +9,10 @@ the port's module tree mirrors it, so the mapping is by path:
   batch_stats/<path>/BatchNorm_0/{mean,var}  <-> <path>.{mean,var}
   params/decoder/head/{kernel,bias}          <-> decoder.head.{kernel,bias}
 
-A BatchNorm is the module whose name starts with ``bn``. ``init_variables``
-builds such a tree in numpy from a seed, in the JAX package's init recipe,
-so weights can be made without JAX.
+A BatchNorm is the module named ``bn*`` (the blocks' ``bn00``, ``bn_in``)
+or ``*_bn`` (the VAE's ``mu_bn``, ``logvar_bn``). ``init_variables`` builds
+such a tree in numpy from a seed, in the JAX package's init recipe, so
+weights can be made without JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ import torch
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "init_variables"]
 
 _BN = "BatchNorm_0"
+
+
+def _is_bn(module_name: str) -> bool:
+    return module_name.startswith("bn") or module_name.endswith("_bn")
 
 
 def _flatten(tree, prefix=()):
@@ -50,7 +55,7 @@ def state_dict_to_flax(state_dict) -> dict:
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
-        is_bn = bool(mods) and mods[-1].startswith("bn")
+        is_bn = bool(mods) and _is_bn(mods[-1])
         collection = "batch_stats" if leaf in ("mean", "var") else "params"
         node = tree[collection]
         for m in mods + ([_BN] if is_bn else []):
@@ -60,22 +65,28 @@ def state_dict_to_flax(state_dict) -> dict:
 
 
 def init_variables(subdivisions: int = 5, widths=(64, 128, 256), seed: int = 0,
-                   random_stats: bool = False) -> dict:
-    """A seeded IcoAE variable tree in the JAX init recipe: conv taps and
-    bias U(±1/sqrt(7·C_in)) (``layers.py:hex_uniform_init``), head kernel
-    and bias U(±1/sqrt(fan_in)), BN scale 1, bias 0, mean 0, var 1.
-    ``random_stats`` draws non-trivial BN affines and running statistics
-    instead, so that eval-mode BN is exercised."""
-    from geniconet_tpu_torch.nn.models import IcoAE
+                   random_stats: bool = False, model: str = "ico2ico",
+                   latent_features: int = 512) -> dict:
+    """A seeded variable tree of ``model`` (``"ico2ico"``, the IcoAE, or
+    ``"ico2ico_vae"``, the IcoVAE with ``latent_features``) in the JAX init
+    recipe: conv taps and bias U(±1/sqrt(7·C_in))
+    (``layers.py:hex_uniform_init``), head kernel and bias
+    U(±1/sqrt(fan_in)), BN scale 1, bias 0, mean 0, var 1. ``random_stats``
+    draws non-trivial BN affines and running statistics instead, so that
+    eval-mode BN is exercised."""
+    from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 
-    shapes = {k: tuple(v.shape)
-              for k, v in IcoAE(subdivisions, widths, device="meta").state_dict().items()}
+    if model.endswith("_vae"):
+        net = IcoVAE(subdivisions, widths, latent_features, device="meta")
+    else:
+        net = IcoAE(subdivisions, widths, device="meta")
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     rng = np.random.RandomState(seed)
     sd = {}
     for key in sorted(shapes):
         shape, leaf = shapes[key], key.rsplit(".", 1)[-1]
         mod = key.rsplit(".", 1)[0]
-        if mod.rsplit(".", 1)[-1].startswith("bn"):
+        if _is_bn(mod.rsplit(".", 1)[-1]):
             if not random_stats:
                 fill = {"scale": 1.0, "bias": 0.0, "mean": 0.0, "var": 1.0}[leaf]
                 v = np.full(shape, fill, np.float32)

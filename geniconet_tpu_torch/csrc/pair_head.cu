@@ -2,17 +2,24 @@
 // cell of each of the 4 level-s phases:
 //   t   = relu(b0 * mul1 + add1 + y10 * mul2 + add2)    (float32, cast to T)
 //   v   = tanh(float(T(t @ W + bias)))                  (float32)
-// and the same tail fused with the AE's position loss.
+// its backward, and the same tail fused with the AE's position loss.
 //
-// gn_pair_head_fwd writes v (the serving path; the caller interleaves the
-// four F-channel outputs). Replaces geniconet_tpu/ops/pallas/
-// phase_kernel.py:_phead (kernel body _phead_fwd_kernel), fused_pair_head.
+// gn_pair_head_fwd writes v (the serving path and the VAE's training
+// forward; the caller interleaves the four F-channel outputs). Replaces
+// geniconet_tpu/ops/pallas/phase_kernel.py:_phead (kernel body
+// _phead_fwd_kernel), fused_pair_head.
+//
+// gn_pair_head_bwd is its backward for given float32 cotangents g of the 4
+// output phases: it recomputes v and writes the 8 phase cotangents, dW,
+// dbias and the affine gradients. Replaces phase_kernel.py:_phead_bwd
+// (_phead_bwd_kernel), the VAE's training loss (and the AE's whenever its
+// loss has normal or Laplacian terms).
 //
 // gn_pair_head_mse_fwd writes the per-sample squared-error sum of v against
 // the packed target, grid cells and the two pole vertices (each the mean
 // over the 5 charts of phase 0 cell (0, 0) / phase 3 cell (h-1, w-1)), and
-// never writes v. gn_pair_head_mse_bwd is its backward: it recomputes v and
-// writes the 8 phase cotangents, dW, dbias and the affine gradients.
+// never writes v. gn_pair_head_mse_bwd is its backward: the same pass as
+// gn_pair_head_bwd with the cotangent of v formed from the target.
 // Replace phase_kernel.py:_phmse (_phmse_fwd_kernel) and :_phmse_bwd
 // (_phmse_bwd_kernel), fused_pair_head_mse, the AE training loss.
 //
@@ -26,14 +33,17 @@
 //   fixed-order tree sum is one partial of one sample's error; a second
 //   launch, one block per sample, adds the partials in order and the pole
 //   errors (recomputing the 10 pole cells);
-// * backward: a first launch recomputes the two poles' cotangents per
-//   sample; then each block takes 256 cells of one phase: one thread per
-//   cell recomputes v and the cotangent dz of the head's pre-activation
-//   (kept in shared memory), then threads map to (cell group, channel), so
-//   the reads of b0/y10 and the writes of their cotangents are coalesced,
-//   and each thread accumulates dW, d_mul1, d_add1, d_mul2 for its channel
-//   in registers. Groups merge in a fixed order into one partial row per
-//   block, and gn::sum_rows adds the rows in a fixed order: no atomics.
+// * backward (head_bwd_body, shared by both backward kernels): each block
+//   takes 256 cells of one phase: one thread per cell recomputes v and the
+//   cotangent dz = dv (1 - v^2) of the head's pre-activation (kept in
+//   shared memory), where dv is the given g (gn_pair_head_bwd: the pole
+//   adjoint is already in g) or 2 g_b (v - target) plus the poles'
+//   cotangents from a first launch (gn_pair_head_mse_bwd); then threads map
+//   to (cell group, channel), so the reads of b0/y10 and the writes of
+//   their cotangents are coalesced, and each thread accumulates dW, d_mul1,
+//   d_add1, d_mul2 for its channel in registers. Groups merge in a fixed
+//   order into one partial row per block, and gn::sum_rows adds the rows in
+//   a fixed order: no atomics, so the results repeat exactly.
 #include "common.cuh"
 
 namespace {
@@ -206,17 +216,25 @@ struct HeadGrad {
   T* dy10[4];
 };
 
+// Where the backward's dv comes from: the given float32 cotangents g of the
+// 4 output phases (gph, kernel e), or 2 g[b] (v - tpack) plus the pole
+// cotangents dpole (kernel h).
+struct DvSource {
+  const float* gph[4];
+  const float* tpack;
+  const float* g;
+  const float* dpole;
+};
+
 // Backward main pass. Block (x, p): cells q = x*THREADS .. +THREADS of the
 // flattened (sample, cell) axis, phase p. One partial row per block:
 // [dW (cin*F) | dbias (F) | d_mul1 (cin) | d_add1 (cin) | d_mul2 (cin)].
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-phmse_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
-                 const float* __restrict__ add1, const float* __restrict__ mul2,
-                 const float* __restrict__ add2, const T* __restrict__ W,
-                 const T* __restrict__ bias, const float* __restrict__ tpack,
-                 const float* __restrict__ g, const float* __restrict__ dpole, int Q, int M,
-                 int hw, int cin, int F, float* __restrict__ part) {
+template <typename T, bool MSE>
+__device__ __forceinline__ void head_bwd_body(const HeadIn<T>& a, const HeadGrad<T>& d,
+                                              const float* mul1, const float* add1,
+                                              const float* mul2, const float* add2, const T* W,
+                                              const T* bias, const DvSource& src, int Q, int M,
+                                              int hw, int cin, int F, float* part) {
   extern __shared__ float sh[];
   load_head<T>(sh, mul1, add1, mul2, add2, W, bias, cin, F);
   const float* aff = sh + cin * F + F;
@@ -226,28 +244,35 @@ phmse_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
   const int q0 = blockIdx.x * THREADS;
   const int tid = threadIdx.x;
 
-  // one thread per cell: v, dv (+ the pole adjoint), dz = dv (1 - v^2)
+  // one thread per cell: v, dv, dz = dv (1 - v^2)
   {
     const int q = q0 + tid;
     float dz[MAX_F];
 #pragma unroll
     for (int f = 0; f < MAX_F; ++f) dz[f] = 0.f;
     if (q < Q) {
-      const int b = q / M, m = q - b * M;
       float v[MAX_F];
       cell_v<T>(a.b0[p] + (size_t)q * cin, a.y10[p] + (size_t)q * cin, sh, cin, F, v);
-      const float* tp = tpack + (size_t)q * 4 * F + p * F;
-      const float g2 = g[b] * 2.f;
-      const int corner = m % hw;
-      const float* pole = nullptr;
-      if (p == 0 && corner == 0) pole = dpole + (size_t)b * 2 * F;
-      if (p == 3 && corner == hw - 1) pole = dpole + ((size_t)b * 2 + 1) * F;
+      if constexpr (MSE) {
+        const int b = q / M, m = q - b * M;
+        const float* tp = src.tpack + (size_t)q * 4 * F + p * F;
+        const float g2 = src.g[b] * 2.f;
+        const int corner = m % hw;
+        const float* pole = nullptr;
+        if (p == 0 && corner == 0) pole = src.dpole + (size_t)b * 2 * F;
+        if (p == 3 && corner == hw - 1) pole = src.dpole + ((size_t)b * 2 + 1) * F;
 #pragma unroll
-      for (int f = 0; f < MAX_F; ++f) {
-        if (f >= F) continue;
-        float dv = g2 * (v[f] - tp[f]);
-        if (pole) dv += pole[f];
-        dz[f] = dv * (1.f - v[f] * v[f]);
+        for (int f = 0; f < MAX_F; ++f) {
+          if (f >= F) continue;
+          float dv = g2 * (v[f] - tp[f]);
+          if (pole) dv += pole[f];
+          dz[f] = dv * (1.f - v[f] * v[f]);
+        }
+      } else {
+        const float* gq = src.gph[p] + (size_t)q * F;
+#pragma unroll
+        for (int f = 0; f < MAX_F; ++f)
+          if (f < F) dz[f] = gq[f] * (1.f - v[f] * v[f]);
       }
     }
     for (int f = 0; f < F; ++f) dz_s[tid * F + f] = dz[f];
@@ -293,8 +318,8 @@ phmse_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
     float s[MAX_F + 3];
     for (int j = 0; j < F + 3; ++j) s[j] = 0.f;
     for (int gi = 0; gi < G; ++gi) {
-      const float* src = merge + (size_t)(gi * cin + tid) * (F + 3);
-      for (int j = 0; j < F + 3; ++j) s[j] += src[j];
+      const float* src_row = merge + (size_t)(gi * cin + tid) * (F + 3);
+      for (int j = 0; j < F + 3; ++j) s[j] += src_row[j];
     }
     for (int f = 0; f < F; ++f) row[tid * F + f] = s[f];
     row[cin * F + F + tid] = s[F];
@@ -306,6 +331,27 @@ phmse_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
     for (int i = 0; i < THREADS; ++i) s += dz_s[i * F + tid];
     row[cin * F + tid] = s;
   }
+}
+
+// Two kernels (and not one templated kernel) so that a profile names each.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+phead_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
+                 const float* __restrict__ add1, const float* __restrict__ mul2,
+                 const float* __restrict__ add2, const T* __restrict__ W,
+                 const T* __restrict__ bias, DvSource src, int Q, int M, int hw, int cin, int F,
+                 float* __restrict__ part) {
+  head_bwd_body<T, false>(a, d, mul1, add1, mul2, add2, W, bias, src, Q, M, hw, cin, F, part);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+phmse_bwd_kernel(HeadIn<T> a, HeadGrad<T> d, const float* __restrict__ mul1,
+                 const float* __restrict__ add1, const float* __restrict__ mul2,
+                 const float* __restrict__ add2, const T* __restrict__ W,
+                 const T* __restrict__ bias, DvSource src, int Q, int M, int hw, int cin, int F,
+                 float* __restrict__ part) {
+  head_bwd_body<T, true>(a, d, mul1, add1, mul2, add2, W, bias, src, Q, M, hw, cin, F, part);
 }
 
 // Where each column of the backward's partial rows lands; d_add2 = d_add1.
@@ -381,35 +427,76 @@ cudaError_t mse_fwd(void* const* ins, const float* m1, const float* a1, const fl
 }
 
 template <typename T>
+HeadGrad<T> head_grad(void* const* grads) {
+  HeadGrad<T> d;
+  for (int p = 0; p < 4; ++p) {
+    d.db0[p] = static_cast<T*>(grads[p]);
+    d.dy10[p] = static_cast<T*>(grads[4 + p]);
+  }
+  return d;
+}
+
+size_t head_bwd_smem(int cin, int F) {
+  return head_smem(cin, F) + sizeof(float) * THREADS * (2 * F + 3);
+}
+
+// The backward's main pass (kernel e or h) and the fixed-order sum of its
+// partial rows into dW, dbias and the affine gradients.
+template <typename T, bool MSE>
+cudaError_t head_bwd(const HeadIn<T>& a, const HeadGrad<T>& d, const float* m1, const float* a1,
+                     const float* m2, const float* a2, const void* W, const void* bias,
+                     const DvSource& src, float* part, float* dW, float* dbias, float* dm1,
+                     float* da1, float* dm2, float* da2, int B, int h, int w, int cin, int F,
+                     cudaStream_t stream) {
+  const int M = 5 * h * w, Q = B * M;
+  const size_t smem = head_bwd_smem(cin, F);
+  const T* Wt = static_cast<const T*>(W);
+  const T* bt = static_cast<const T*>(bias);
+  dim3 grid((Q + THREADS - 1) / THREADS, 4);
+  if constexpr (MSE)
+    phmse_bwd_kernel<T><<<grid, THREADS, smem, stream>>>(a, d, m1, a1, m2, a2, Wt, bt, src, Q, M,
+                                                         h * w, cin, F, part);
+  else
+    phead_bwd_kernel<T><<<grid, THREADS, smem, stream>>>(a, d, m1, a1, m2, a2, Wt, bt, src, Q, M,
+                                                         h * w, cin, F, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  HeadGradOut st = {dW, dbias, dm1, da1, dm2, da2, cin, F};
+  return gn::launch_sum_rows(part, (int)(grid.x * grid.y), (long long)cin * F + F + 3LL * cin, st,
+                             stream);
+}
+
+template <typename T>
+cudaError_t pair_bwd(void* const* gph, void* const* ins, const float* m1, const float* a1,
+                     const float* m2, const float* a2, const void* W, const void* bias,
+                     void* const* grads, float* part, float* dW, float* dbias, float* dm1,
+                     float* da1, float* dm2, float* da2, int B, int h, int w, int cin, int F,
+                     cudaStream_t stream) {
+  if (head_bwd_smem(cin, F) > 48 * 1024) return cudaErrorInvalidValue;
+  DvSource src = {};
+  for (int p = 0; p < 4; ++p) src.gph[p] = static_cast<const float*>(gph[p]);
+  return head_bwd<T, false>(head_in<T>(ins), head_grad<T>(grads), m1, a1, m2, a2, W, bias, src,
+                            part, dW, dbias, dm1, da1, dm2, da2, B, h, w, cin, F, stream);
+}
+
+template <typename T>
 cudaError_t mse_bwd(const float* g, void* const* ins, const float* m1, const float* a1,
                     const float* m2, const float* a2, const void* W, const void* bias,
                     const float* tpack, const float* tpoles, void* const* grads, float* dpole,
                     float* part, float* dW, float* dbias, float* dm1, float* da1, float* dm2,
                     float* da2, int B, int h, int w, int cin, int F, cudaStream_t stream) {
   const size_t smem = head_smem(cin, F);
-  const size_t smem_bwd = smem + sizeof(float) * THREADS * (2 * F + 3);
-  if (smem_bwd > 48 * 1024) return cudaErrorInvalidValue;
-  const int M = 5 * h * w, Q = B * M;
+  if (head_bwd_smem(cin, F) > 48 * 1024) return cudaErrorInvalidValue;
+  const int M = 5 * h * w;
   const HeadIn<T> a = head_in<T>(ins);
-  const T* Wt = static_cast<const T*>(W);
-  const T* bt = static_cast<const T*>(bias);
-  phmse_poles_kernel<T><<<B, 32, smem, stream>>>(a, m1, a1, m2, a2, Wt, bt, tpoles, nullptr, 0,
+  phmse_poles_kernel<T><<<B, 32, smem, stream>>>(a, m1, a1, m2, a2, static_cast<const T*>(W),
+                                                 static_cast<const T*>(bias), tpoles, nullptr, 0,
                                                  g, M, h * w, cin, F, dpole);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  HeadGrad<T> d;
-  for (int p = 0; p < 4; ++p) {
-    d.db0[p] = static_cast<T*>(grads[p]);
-    d.dy10[p] = static_cast<T*>(grads[4 + p]);
-  }
-  dim3 grid((Q + THREADS - 1) / THREADS, 4);
-  phmse_bwd_kernel<T><<<grid, THREADS, smem_bwd, stream>>>(a, d, m1, a1, m2, a2, Wt, bt, tpack, g,
-                                                           dpole, Q, M, h * w, cin, F, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  HeadGradOut st = {dW, dbias, dm1, da1, dm2, da2, cin, F};
-  return gn::launch_sum_rows(part, (int)(grid.x * grid.y), (long long)cin * F + F + 3LL * cin, st,
-                             stream);
+  DvSource src = {{nullptr, nullptr, nullptr, nullptr}, tpack, g, dpole};
+  return head_bwd<T, true>(a, head_grad<T>(grads), m1, a1, m2, a2, W, bias, src, part, dW, dbias,
+                           dm1, da1, dm2, da2, B, h, w, cin, F, stream);
 }
 
 }  // namespace
@@ -449,6 +536,29 @@ extern "C" int gn_pair_head_mse_fwd(void* const* ins, const float* mul1, const f
   if (dtype == 1)
     return mse_fwd<__nv_bfloat16>(ins, mul1, add1, mul2, add2, W, bias, tpack, tpoles, part, sse,
                                   B, h, w, cin, F, s);
+  return cudaErrorInvalidValue;
+}
+
+// gph: host array of 4 float32 (B, 5, h, w, F), the cotangents of
+// gn_pair_head_fwd's outputs; ins, mul1..add2, W, bias: as gn_pair_head_fwd;
+// grads: host array of 8 outputs (the b0 then the y10 phase cotangents, T);
+// part: float32 scratch of (4 * ceil(B*5hw/256), cin*F + F + 3*cin); dW
+// (cin, F), dbias (F), dmul1, dadd1, dmul2, dadd2 (cin): float32 outputs.
+// dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_pair_head_bwd(void* const* gph, void* const* ins, const float* mul1,
+                                const float* add1, const float* mul2, const float* add2,
+                                const void* W, const void* bias, void* const* grads, float* part,
+                                float* dW, float* dbias, float* dmul1, float* dadd1, float* dmul2,
+                                float* dadd2, int B, int h, int w, int cin, int F, int dtype,
+                                void* stream) {
+  if (F < 1 || F > MAX_F || cin < 1 || cin > THREADS) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return pair_bwd<float>(gph, ins, mul1, add1, mul2, add2, W, bias, grads, part, dW, dbias,
+                           dmul1, dadd1, dmul2, dadd2, B, h, w, cin, F, s);
+  if (dtype == 1)
+    return pair_bwd<__nv_bfloat16>(gph, ins, mul1, add1, mul2, add2, W, bias, grads, part, dW,
+                                   dbias, dmul1, dadd1, dmul2, dadd2, B, h, w, cin, F, s);
   return cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,8 @@ __all__ = [
     "get_ico_faces",
     "get_vertex_coords",
     "get_patch_ids",
+    "get_neighbor_table",
+    "get_vertex_face_table",
     "base_icosahedron",
 ]
 
@@ -198,6 +200,45 @@ def get_vertex_coords(subdivisions: int) -> np.ndarray:
     base, _ = base_icosahedron()
     return np.concatenate([coords, base[10:11], base[11:12]], axis=0)
 
+
+@functools.lru_cache(maxsize=None)
+def get_neighbor_table(subdivisions: int) -> tuple[np.ndarray, np.ndarray]:
+    """Dense vertex adjacency: (neighbors (V, 6) int64, mask (V, 6) bool).
+
+    Derived from the face table, neighbours in ascending order. Degree is 6
+    everywhere except the 12 base icosahedron vertices (degree 5); their
+    6th slot holds vertex 0 with ``mask=False``."""
+    V = num_vertices(subdivisions)
+    nbr_sets: list[set[int]] = [set() for _ in range(V)]
+    for a, b, c in get_ico_faces(subdivisions):
+        nbr_sets[a].update((b, c))
+        nbr_sets[b].update((a, c))
+        nbr_sets[c].update((a, b))
+    nbrs = np.zeros((V, 6), dtype=np.int64)
+    mask = np.zeros((V, 6), dtype=bool)
+    for v_id, s in enumerate(nbr_sets):
+        lst = sorted(s)
+        nbrs[v_id, : len(lst)] = lst
+        mask[v_id, : len(lst)] = True
+    return nbrs, mask
+
+
+@functools.lru_cache(maxsize=None)
+def get_vertex_face_table(subdivisions: int) -> tuple[np.ndarray, np.ndarray]:
+    """Incident faces per vertex in face order: (face_idx (V, 6) int64,
+    mask (V, 6) bool); 6 faces per vertex, 5 for the 12 base vertices."""
+    V = num_vertices(subdivisions)
+    lists: list[list[int]] = [[] for _ in range(V)]
+    for f_id, (a, b, c) in enumerate(get_ico_faces(subdivisions)):
+        lists[a].append(f_id)
+        lists[b].append(f_id)
+        lists[c].append(f_id)
+    idx = np.zeros((V, 6), dtype=np.int64)
+    mask = np.zeros((V, 6), dtype=bool)
+    for v_id, lst in enumerate(lists):
+        idx[v_id, : len(lst)] = lst
+        mask[v_id, : len(lst)] = True
+    return idx, mask
 
 
 @functools.lru_cache(maxsize=None)

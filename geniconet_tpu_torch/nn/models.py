@@ -1,24 +1,28 @@
-"""The icosahedral autoencoder (IcoAE, reference ico2ico), eval and train mode.
+"""The icosahedral autoencoder and VAE (reference ico2ico, ico2ico_vae),
+eval and train mode.
 
 Port of ``geniconet_tpu/nn/models.py`` (``_Encoder``, ``_Decoder``,
-``_Head``, ``IcoAE``):
+``_Head``, ``IcoAE``, ``IcoVAE``, ``reparameterize``):
 
-  encoder: conv_in (3 -> w0) ; bn_in ; Down(w0 -> w1) ; Down(w1 -> w2) ;
-           Down(w2 -> w2)
-  decoder: Up(w2 -> w2) ; Up(w2 -> w1) ; Up(w1 -> w0) ; the last block's
-           join + 1×1 head (w0 -> 3) + tanh
+  IcoAE encoder: conv_in (3 -> w0) ; bn_in ; Down(w0 -> w1) ;
+                 Down(w1 -> w2) ; Down(w2 -> w2)
+  IcoVAE encoder: conv_in ; bn_in ; Down(w0 -> w1) ; Down(w1 -> w2) (the
+                 trunk, level s-2), then the mu / logvar heads: a stride-2
+                 conv (w2 -> wz) + BatchNorm each (no ReLU), and
+                 z = mu + eps·exp(0.5·logvar)
+  decoder: Up(w2 or wz -> w2) ; Up(w2 -> w1) ; Up(w1 -> w0) ; the last
+           block's join + 1×1 head (w0 -> 3) + tanh
 
 ``pallas_blocks`` is the JAX model attribute: None runs every block on the
 fused route (the kernels), a comma list (``conv_in``, ``down0``..``down2``,
-``up0``..``up2``, ``head``) only the named blocks, the rest on the plain
-route. Every routing trains (``train=True``) through ``recon_sse``: the
-fused head then runs the head+MSE kernel and its backward. The fused head
-in train mode without a target (``decode(z, train=True)``, the VAE's loss)
-raises ``NotImplementedError``: its backward kernel ``_phead_bwd`` is not
-ported yet.
+``heads``, ``up0``..``up2``, ``head``) only the named blocks, the rest on
+the plain route. Every routing trains (``train=True``): the fused head runs
+the head+MSE kernel and its backward under ``recon_sse``, and the head
+kernel and its backward (``fused_pair_head``) otherwise.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
-``(B, 5·2^(s-3), 2^(s-2), w2)``. ``decode`` returns float32.
+``(B, 5·2^(s-3), 2^(s-2), w2)`` (the VAE's: ``wz`` channels). ``decode``
+returns float32.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ from geniconet_tpu_torch.nn.layers import (
     DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, pallas_block_enabled, residual_join,
 )
 from geniconet_tpu_torch.ops.conv import merge_charts, split_charts
-from geniconet_tpu_torch.ops.kernels.fused import fused_pair_head_mse, fused_phase_conv_s1
-from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_head_fwd
+from geniconet_tpu_torch.ops.kernels.fused import (
+    fused_dual_s2_conv, fused_pair_head, fused_pair_head_mse, fused_phase_conv_s1,
+)
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
-__all__ = ["IcoAE"]
+__all__ = ["IcoAE", "IcoVAE", "reparameterize"]
 
 
 class _Encoder(nn.Module):
@@ -112,13 +117,7 @@ class _Decoder(nn.Module):
                 affines = (mul01, add01, mul10, add10)
                 if target is not None:
                     return fused_pair_head_mse(b0, y10, affines, *head, *target)
-                if train:
-                    raise NotImplementedError(
-                        "training the fused head without a target needs its backward kernel "
-                        "_phead_bwd (phase_kernel.py:3287), which is not ported yet (the VAE "
-                        "slice, ROADMAP Queue 1); train through recon_sse, or leave 'head' "
-                        "out of pallas_blocks")
-                return phase_merge(pair_head_fwd(b0, y10, affines, *head))
+                return phase_merge(fused_pair_head(b0, y10, affines, *head))
             x = phase_merge(tuple(residual_join(a, b, (mul01, add01), (mul10, add10))
                                   for a, b in zip(b0, y10)))
         out = self.head(x)
@@ -180,3 +179,86 @@ class IcoAE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.decode(self.encode(x, train), train)
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, generator=None) -> torch.Tensor:
+    """z = mu + eps·exp(0.5·logvar) with eps ~ N(0, 1) drawn from
+    ``generator`` (a ``torch.Generator`` on mu's device) in float32, cast
+    to mu's dtype (reference models.py:89-92). The JAX package draws eps
+    from its own PRNG, so the two never share samples."""
+    std = torch.exp(0.5 * logvar)
+    eps = torch.randn(std.shape, generator=generator, device=std.device).to(std.dtype)
+    return eps * std + mu
+
+
+def _bn_apply(y: torch.Tensor, aff) -> torch.Tensor:
+    """A BatchNorm's (mul, add) applied in float32, without ReLU, cast back."""
+    mul, add = aff
+    return (y.float() * mul + add).to(y.dtype)
+
+
+class IcoVAE(nn.Module):
+    """Icosahedral VAE (reference ico2ico_vae).
+
+    ``dtype``, ``pallas_blocks`` and ``train`` as ``IcoAE``; the mu / logvar
+    heads are the block ``"heads"``: on the fused route both stride-2 convs
+    run as one dual stride-2 phase conv (no act prologue, BatchNorm sums
+    when training), then each BatchNorm's affine without ReLU."""
+
+    def __init__(self, subdivisions: int = 5, widths=(64, 128, 256), latent_features: int = 512,
+                 corner_mode: str = "average", dtype: torch.dtype = torch.float32,
+                 pallas_blocks: str | None = None, device=None):
+        super().__init__()
+        if subdivisions < 3:
+            raise ValueError("IcoVAE needs subdivisions >= 3 (three stride-2 stages)")
+        w0, w1, w2 = widths
+        self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
+        self.corner_mode = corner_mode
+        self.fused_heads = pallas_block_enabled("heads", pallas_blocks)
+        self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, device=device)
+        self.mu_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
+        self.mu_bn = IcoBatchNorm(latent_features, device=device)
+        self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
+        self.logvar_bn = IcoBatchNorm(latent_features, device=device)
+        self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
+                                device=device)
+
+    def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""
+        return self.encoder(split_charts(x.to(self.dtype), self.subdivisions), train)
+
+    def encode_heads(self, feat: torch.Tensor, train: bool = False):
+        """Trunk features -> (mu, logvar), each (B, 5·2^(s-3), 2^(s-2), wz)
+        in ``dtype``."""
+        if self.fused_heads:
+            phases = tuple(p.contiguous() for p in phase_split(feat))
+            dt = phases[0].dtype
+            r = fused_dual_s2_conv(phases, *self.mu_conv.params(dt),
+                                   *self.logvar_conv.params(dt), self.corner_mode,
+                                   with_stats=train)
+            y_mu, y_lv = r[:2]
+            s_mu, s_lv = r[2:] if train else (None, None)
+            count = float(y_mu.shape[:-1].numel())
+            mu = _bn_apply(y_mu, self.mu_bn.affine(s_mu, count, train))
+            logvar = _bn_apply(y_lv, self.logvar_bn.affine(s_lv, count, train))
+        else:
+            mu = self.mu_bn(self.mu_conv.plain(feat, 2), train)
+            logvar = self.logvar_bn(self.logvar_conv.plain(feat, 2), train)
+        return merge_charts(mu), merge_charts(logvar)
+
+    def encode(self, x: torch.Tensor, train: bool = False):
+        """grid -> (mu, logvar)."""
+        return self.encode_heads(self.encode_trunk(x, train), train)
+
+    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """latent -> grid (B, 5·2^s, 2^(s+1), 3), float32."""
+        zc = split_charts(z.to(self.dtype), self.subdivisions - 3)
+        return merge_charts(self.decoder(zc, train))
+
+    def forward(self, x: torch.Tensor, train: bool = False, sample: bool = True,
+                generator=None):
+        """-> (reconstruction, mu, logvar); the decoder reads
+        ``reparameterize(mu, logvar, generator)`` if ``sample``, else mu."""
+        mu, logvar = self.encode(x, train)
+        z = reparameterize(mu, logvar, generator) if sample else mu
+        return self.decode(z, train), mu, logvar

@@ -104,6 +104,7 @@ _SIGNATURES = {
     "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
     "gn_up_dual_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
     "gn_pair_head_fwd": [_VP] * 8 + [_INT] * 6 + [_VP],
+    "gn_pair_head_bwd": [_VP] * 16 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_fwd": [_VP] * 11 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
     "gn_ico_conv_fwd": [_VP] * 9 + [_INT] * 6 + [_VP],

@@ -10,6 +10,8 @@ Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
 * ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
   (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
   ``ico_conv_s2s_dtaps``;
+* ``fused_pair_head`` (``_phead``): the decoder tail + head + tanh, 4 output
+  phases: ``pair_head_fwd`` / ``pair_head_bwd`` (the VAE's training loss);
 * ``fused_pair_head_mse`` (``_phmse``): the decoder tail + head + tanh +
   per-sample position squared error: ``pair_head_mse_fwd`` /
   ``pair_head_mse_bwd``.
@@ -39,12 +41,12 @@ from geniconet_tpu_torch.ops.kernels.conv_kernel import (
     ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
 )
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
+    pair_head_bwd, pair_head_fwd, pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
     up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
 )
 
 __all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv",
-           "fused_ico_conv_s2s", "fused_pair_head_mse"]
+           "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse"]
 
 _ALL = (0, 1, 2, 3)
 
@@ -208,6 +210,37 @@ def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", strid
         raise ValueError("fused_ico_conv_s2s: stride 1 only; stride 2 is fused_dual_s2_conv")
     mul, add = act if act is not None else (None, None)
     return _IcoConv.apply(corner_mode, with_stats, x.contiguous(), taps, bias, mul, add)
+
+
+class _PairHead(torch.autograd.Function):
+    """Inputs: 4 b0 phases, 4 y10 phases, mul1, add1, mul2, add2, W, bias.
+    Outputs: the 4 float32 output phases."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.save_for_backward(*tensors)
+        return pair_head_fwd(tensors[:4], tensors[4:8], tensors[8:12], *tensors[12:])
+
+    @staticmethod
+    def backward(ctx, *g):
+        t = ctx.saved_tensors
+        db0, dy10, dW, dbias, *daff = pair_head_bwd(
+            tuple(gp.contiguous() for gp in g), t[:4], t[4:8], t[8:12], t[12], t[13])
+        return (*db0, *dy10, *daff, dW, dbias)
+
+
+def fused_pair_head(b0, y10, affines, Wh, bh):
+    """Last-UpBlock tail + 1×1 head + tanh in one kernel, with its
+    hand-written backward.
+
+    b0, y10: 4-tuples of contiguous (B, 5, h, w, C) phases; affines: float32
+    (mul1, add1, mul2, add2) (C,), the pending bn01 / bn10 applies; Wh
+    (C, F), bh (F,) in the phases' dtype. Returns the 4 output phases
+    (B, 5, h, w, F) float32 with tanh applied (interleave with
+    ``phase_merge``). The backward kernel recomputes the head and takes the
+    4 phase cotangents as they come (the poles' adjoint is already in
+    them); dW and dbias come rounded to Wh's dtype."""
+    return _PairHead.apply(*b0, *y10, *affines, Wh, bh)
 
 
 class _PairHeadMSE(torch.autograd.Function):

@@ -8,7 +8,8 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   output phases, or phase 2 alone for stride 2; 1 or 2 tap sets; optional
   act prologue; optional BatchNorm ``[Σy, Σy²]`` stats);
 * ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``);
-* ``pair_head_fwd``      -> ``csrc/pair_head.cu`` (``_phead``);
+* ``pair_head_fwd`` / ``pair_head_bwd`` -> ``csrc/pair_head.cu`` (``_phead`` /
+  ``_phead_bwd``: the decoder's tail + head + tanh and its backward);
 * ``pair_head_mse_fwd`` / ``pair_head_mse_bwd`` -> ``csrc/pair_head.cu``
   (``_phmse`` / ``_phmse_bwd``: the head fused with the AE's position loss);
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
@@ -42,7 +43,8 @@ from geniconet_tpu_torch.ops.phase import phase_conv, phase_upsample
 __all__ = [
     "phase_conv_fwd", "phase_conv_fwd_plain",
     "up_dual_conv_fwd", "up_dual_conv_fwd_plain",
-    "pair_head_fwd", "pair_head_fwd_plain", "pair_head_mse_fwd", "pair_head_mse_fwd_plain",
+    "pair_head_fwd", "pair_head_fwd_plain", "pair_head_bwd", "pair_head_bwd_plain",
+    "pair_head_mse_fwd", "pair_head_mse_fwd_plain",
     "pair_head_mse_bwd", "pair_head_mse_bwd_plain",
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
@@ -639,29 +641,22 @@ def pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles):
     return sse
 
 
-def pair_head_mse_bwd_plain(g, b0, y10, affines, W, bias, tpack, tpoles):
-    """Plain version of ``pair_head_mse_bwd``, written out (autograd through
-    the bf16 cast of the head's pre-activation would round its cotangent)."""
+def _head_bwd_plain(b0, y10, affines, W, bias, dv_of):
+    """The head's backward written out (autograd through the bf16 cast of
+    the head's pre-activation would round its cotangent), for the float32
+    cotangent ``dv_of(p, v)`` of output phase p given its values v: the
+    8 phase cotangents in the phases' dtype, then float32 dW, dbias, d_mul1,
+    d_add1, d_mul2, d_add2 (= d_add1)."""
     mul1, add1, mul2, add2 = affines
     dt, F = b0[0].dtype, W.shape[-1]
-    W32, g = W.float(), g.float()
-    gb = g.reshape(-1, 1, 1, 1, 1)
+    W32 = W.float()
     db0, dy10, dW, dbias, dmul1, dadd1, dmul2 = [], [], 0.0, 0.0, 0.0, 0.0, 0.0
-    vs = pair_head_fwd_plain(b0, y10, affines, W, bias)
-    pn, ps = _pole_means(vs[0], vs[3])
-    dpn = (g[:, None] * 2.0 * (pn - tpoles[:, :F])) * 0.2
-    dps = (g[:, None] * 2.0 * (ps - tpoles[:, F:])) * 0.2
     dims = (0, 1, 2, 3)
-    for p, (a, b, v) in enumerate(zip(b0, y10, vs)):
+    for p, (a, b, v) in enumerate(zip(b0, y10, pair_head_fwd_plain(b0, y10, affines, W, bias))):
         a32, b32 = a.float(), b.float()
         pre = a32 * mul1 + add1 + b32 * mul2 + add2
         t = torch.clamp_min(pre, 0.0).to(dt).float()
-        dv = gb * 2.0 * (v - tpack[..., p * F : (p + 1) * F])
-        if p == 0:
-            dv[:, :, 0, 0, :] += dpn[:, None, :]
-        if p == 3:
-            dv[:, :, -1, -1, :] += dps[:, None, :]
-        dz = dv * (1.0 - v * v)
+        dz = dv_of(p, v) * (1.0 - v * v)
         dbias = dbias + dz.sum(dim=dims)
         dW = dW + t.reshape(-1, t.shape[-1]).T @ dz.reshape(-1, F)
         dm = (dz @ W32.T) * (pre > 0.0).float()
@@ -671,6 +666,67 @@ def pair_head_mse_bwd_plain(g, b0, y10, affines, W, bias, tpack, tpoles):
         dadd1 = dadd1 + dm.sum(dim=dims)
         dmul2 = dmul2 + (dm * b32).sum(dim=dims)
     return tuple(db0), tuple(dy10), dW, dbias, dmul1, dadd1, dmul2, dadd1
+
+
+def pair_head_bwd_plain(g, b0, y10, affines, W, bias):
+    """Plain version of ``pair_head_bwd``."""
+    db0, dy10, dW, dbias, *daff = _head_bwd_plain(b0, y10, affines, W, bias,
+                                                  lambda p, v: g[p].float())
+    return db0, dy10, dW.to(W.dtype), dbias.to(bias.dtype), *daff
+
+
+def pair_head_bwd(g, b0, y10, affines, W, bias):
+    """Backward of ``pair_head_fwd`` (the Pallas ``_phead_bwd``) for the
+    float32 cotangents g, a 4-tuple of contiguous (B, 5, h, w, F), of its
+    output phases: recomputes the head and returns (4 db0 phases, 4 dy10
+    phases in the phases' dtype, dW (C, F) and dbias (F) rounded to W's
+    dtype, d_mul1, d_add1, d_mul2, d_add2 float32 (C,)); d_add2 equals
+    d_add1, since both affines' shifts add to one sum."""
+    if not on_cuda(b0[0], "pair_head_bwd"):
+        return pair_head_bwd_plain(g, b0, y10, affines, W, bias)
+    B, h, w, cin, F = _check_head(b0, y10, affines, W, bias, "pair_head_bwd")
+    dev, dt = b0[0].device, b0[0].dtype
+    if len(g) != 4:
+        raise ValueError("pair_head_bwd: takes 4 cotangent phases")
+    for i, gp in enumerate(g):
+        expect(gp, (B, 5, h, w, F), torch.float32, dev, f"pair_head_bwd g {i}")
+    grads = [torch.empty_like(b0[0]) for _ in range(8)]
+    part = build.scratch(4 * -(-B * 5 * h * w // 256) * (cin * F + F + 3 * cin), dev)
+    dW = torch.empty((cin, F), dtype=torch.float32, device=dev)
+    vecs = [torch.empty(n, dtype=torch.float32, device=dev) for n in (F, cin, cin, cin, cin)]
+    with torch.cuda.device(dev):
+        err = build.library().gn_pair_head_bwd(
+            build.ptr_array(g), build.ptr_array((*b0, *y10)), *[a.data_ptr() for a in affines],
+            W.data_ptr(), bias.data_ptr(), build.ptr_array(grads), part.data_ptr(),
+            dW.data_ptr(), *[v.data_ptr() for v in vecs], B, h, w, cin, F,
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("pair_head_bwd", err)
+    build.LAUNCHES["pair_head_bwd"] += 1
+    dbias, *daff = vecs
+    return tuple(grads[:4]), tuple(grads[4:]), dW.to(W.dtype), dbias.to(bias.dtype), *daff
+
+
+def pair_head_mse_bwd_plain(g, b0, y10, affines, W, bias, tpack, tpoles):
+    """Plain version of ``pair_head_mse_bwd``: the head's backward with the
+    cotangent of v from the target and the poles."""
+    F = W.shape[-1]
+    g = g.float()
+    gb = g.reshape(-1, 1, 1, 1, 1)
+    vs = pair_head_fwd_plain(b0, y10, affines, W, bias)
+    pn, ps = _pole_means(vs[0], vs[3])
+    dpn = (g[:, None] * 2.0 * (pn - tpoles[:, :F])) * 0.2
+    dps = (g[:, None] * 2.0 * (ps - tpoles[:, F:])) * 0.2
+
+    def dv_of(p, v):
+        dv = gb * 2.0 * (v - tpack[..., p * F : (p + 1) * F])
+        if p == 0:
+            dv[:, :, 0, 0, :] += dpn[:, None, :]
+        if p == 3:
+            dv[:, :, -1, -1, :] += dps[:, None, :]
+        return dv
+
+    return _head_bwd_plain(b0, y10, affines, W, bias, dv_of)
 
 
 def pair_head_mse_bwd(g, b0, y10, affines, W, bias, tpack, tpoles):

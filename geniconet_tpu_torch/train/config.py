@@ -20,6 +20,7 @@ class ModelConfig:
     name: str = "ico2ico"  # 'ico2ico' (AE) | 'ico2ico_vae' (VAE)
     subdivisions: int = 5
     widths: tuple = (64, 128, 256)
+    latent_features: int = 512  # VAE only
     corner_mode: str = "average"
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
@@ -53,6 +54,9 @@ class DataConfig:
 class TrainConfig:
     batch_size: int = 12
     quick_learn: int = 0
+    # VAE loss factor schedule (reference run.py:651-654)
+    factor_step_size: int = 25
+    factor_gamma: float = 0.9
 
 
 @dataclass

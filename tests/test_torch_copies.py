@@ -2,7 +2,8 @@
 the originals, and the entry points' device default.
 
 * ``geniconet_tpu_torch/geometry/ico.py``: faces, vertex coordinates, patch
-  ids and shapes equal ``geniconet_tpu/geometry/ico.py``'s, s=0..5.
+  ids, the neighbour and incident-face tables and shapes equal
+  ``geniconet_tpu/geometry/ico.py``'s, s=0..5.
 * ``geniconet_tpu_torch/train/config.py``: every field the port keeps has
   the JAX ``Config``'s default.
 * ``geniconet_tpu_torch/native``: the same self-intersecting face pairs as
@@ -30,6 +31,9 @@ def test_ico_tables_equal_the_jax_module(s):
                  "grid_shape", "num_vertices", "num_faces"):
         got, ref = getattr(ico, name)(s), getattr(jax_ico, name)(s)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref), err_msg=name)
+    for name in ("get_neighbor_table", "get_vertex_face_table"):
+        for got, ref in zip(getattr(ico, name)(s), getattr(jax_ico, name)(s), strict=True):
+            np.testing.assert_array_equal(got, ref, err_msg=name)
     np.testing.assert_array_equal(ico.base_icosahedron()[0], jax_ico.base_icosahedron()[0])
 
 
@@ -75,12 +79,15 @@ def test_entry_points_default_to_the_card(no_card):
     from geniconet_tpu_torch.data.pipeline import Batches
     from geniconet_tpu_torch.train.trainer import Trainer
 
-    cfg = Config()
+    cfg, vae = Config(), Config()
     cfg.model.subdivisions, cfg.model.widths = 3, (8, 8, 8)
+    vae.model.name, vae.model.subdivisions, vae.model.widths = "ico2ico_vae", 3, (8, 8, 8)
+    vae.model.latent_features = 8
     ds = synthetic_dataset(1, 2, seed=0)
-    for make in (lambda: Trainer(cfg), AppState, lambda: Batches(ds, 2)):
+    for make in (lambda: Trainer(cfg), lambda: Trainer(vae), AppState, lambda: Batches(ds, 2)):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
     assert Trainer(cfg, device="cpu").model.encoder.conv_in.taps.device.type == "cpu"
+    assert Trainer(vae, device="cpu").model.mu_conv.taps.device.type == "cpu"
     assert AppState(device="cpu").device.type == "cpu"
     assert Batches(ds, 2, device="cpu").inputs.device.type == "cpu"

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from geniconet_tpu_torch import bridge
-from geniconet_tpu_torch.nn.models import IcoAE
+from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
 from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
@@ -275,6 +275,71 @@ def test_pair_head_mse(cuda, s, C, dt):
     for a, b in zip(got[2:], ref[2:]):
         assert a.dtype == torch.float32
         _close(a, b, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("s, C", [(1, 24), (3, 64), (4, 64)])
+def test_pair_head_bwd(cuda, s, C, dt):
+    """Kernel e against its plain version: the 8 phase cotangents, dW and
+    dbias (in W's dtype) and the 4 affine gradients."""
+    b0, y10, aff, W, bias, _, _ = _head_mse_inputs(cuda, dt, s, C, seed=80 + s)
+    gen = torch.Generator().manual_seed(90 + s)
+    g = tuple(torch.randn(b0[0].shape[:-1] + (3,), generator=gen).to(cuda) for _ in range(4))
+    got = pk.pair_head_bwd(g, b0, y10, aff, W, bias)
+    ref = pk.pair_head_bwd_plain(g, b0, y10, aff, W, bias)
+    for u, v in zip(got[:2], ref[:2]):
+        for a, b in zip(u, v):
+            assert a.dtype == dt
+            _close(a, b, dt)
+    for a, b in zip(got[2:], ref[2:]):
+        assert a.dtype == b.dtype
+        _close(a, b, dt)
+
+
+def test_vae_default_training_route_launches_every_vae_training_kernel(cuda):
+    """One training forward and backward of the default VAE (every block and
+    the heads on the kernels, eps fixed) under a linear loss of (recon, mu,
+    logvar) with random weights: every kernel of the VAE's path launches,
+    the head's backward included, and the gradients match the CPU's."""
+    s, widths, latent = 4, (8, 16, 16), 8
+    model = IcoVAE(s, widths, latent)
+    model.load_state_dict(bridge.flax_to_state_dict(bridge.init_variables(
+        s, widths, seed=1, random_stats=True, model="ico2ico_vae", latent_features=latent)))
+    gen = torch.Generator().manual_seed(3)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    eps = torch.randn(4, 5 * 2 ** (s - 3), 2 ** (s - 2), latent, generator=gen)
+    cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
+           torch.randn(eps.shape, generator=gen)]
+
+    def loss_of(m, dev):
+        from unittest import mock
+
+        import geniconet_tpu_torch.nn.models as models
+
+        def fixed(mu, logvar, generator=None):
+            return eps.to(dev) * torch.exp(0.5 * logvar) + mu
+
+        with mock.patch.object(models, "reparameterize", fixed):
+            outs = m(x.to(dev), train=True)
+        return sum((o * c.to(dev)).sum() for o, c in zip(outs, cts))
+
+    card = copy.deepcopy(model).to(cuda)
+    build.reset_launches()
+    loss = loss_of(card, cuda)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert set(build.LAUNCHES) == {
+        "phase_conv_fwd", "up_dual_conv_fwd", "ico_conv_s2s_fwd", "pair_head_fwd",
+        "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
+        "ico_conv_s2s_dx", "ico_conv_s2s_dtaps", "pair_head_bwd"}
+    ref = loss_of(model, "cpu")
+    ref.backward()
+    assert abs(loss.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    for (k, p), q in zip(card.named_parameters(), model.parameters()):
+        scale = q.grad.abs().max().item()
+        if "conv" in k and k.endswith(".bias"):  # feeds a BatchNorm: exact gradient 0
+            scale = dict(model.named_parameters())[k[: -len("bias")] + "taps"].grad.abs().max()
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-3 * float(scale), k
 
 
 def test_default_training_route_launches_every_training_kernel(cuda):

@@ -79,6 +79,9 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::pair_head_kernel<float>"}, "pair_head_kernel"),
     ({"cat": "kernel", "name": "void phmse_bwd_kernel<__nv_bfloat16>(HeadIn<__nv_bfloat16>)"},
      "phmse (head+MSE fwd/bwd)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::phead_bwd_kernel<__nv_bfloat16>("
+                               "(anonymous namespace)::HeadIn<__nv_bfloat16>)"},
+     "phead_bwd (head bwd, kernel e)"),
     ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16>(gn::GLoad<__nv_bfloat16>)"},
      "dx_gemm<bf16>"),
     ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::UpLoad<float> >"},

@@ -20,8 +20,8 @@
   2e-3·max|ref| of rounding noise here (see ``_flax_train_reference``), so
   the per-step losses and grad norms are the tight check.
 * ``Batches`` shuffles as the JAX ``Batches``; the cyclic LR matches; the
-  fused head refuses to train without a target (its backward, ``_phead_bwd``,
-  is not ported).
+  fused head trains without a target (through ``fused_pair_head`` and its
+  backward, kernel e's plain version) with the plain head's gradients.
 """
 
 import jax
@@ -227,16 +227,40 @@ def test_cyclic_lr_matches_jax():
 
 
 @pytest.mark.parametrize("blocks", [None, "up0,up1,up2,head"])
-def test_training_a_block_without_backward_kernels_raises(blocks):
-    """The fused head trains through the head+MSE kernel only: without a
-    target its backward is ``_phead_bwd``, which waits for the VAE slice."""
-    m = IcoAE(S, WIDTHS, pallas_blocks=blocks)
-    x = torch.zeros(2, 5 * 2**S, 2 ** (S + 1), 3)
-    z = torch.zeros(2, 5 * 2 ** (S - 3), 2 ** (S - 2), WIDTHS[-1])
-    with pytest.raises(NotImplementedError, match="_phead_bwd"):
-        m.decode(z, train=True)
-    with torch.no_grad():
-        assert m(x).shape == x.shape  # eval mode runs every route
+def test_fused_head_trains_without_a_target(blocks):
+    """``decode(z, train=True)`` with the head on the kernel route (the
+    VAE's loss path) against the same model with the head on the plain
+    route: the reconstruction, the gradients of z and of every parameter,
+    and the new batch statistics, within 1e-5·max|ref| (float32, only the
+    order of the sums differs)."""
+    plain_blocks = ",".join(b for b in ("conv_in", "down0", "down1", "down2", "up0", "up1", "up2")
+                            if blocks is None or b in blocks)
+    variables = bridge.init_variables(S, WIDTHS, seed=8, random_stats=True)
+    r = np.random.RandomState(9)
+    z0 = r.randn(2, 5 * 2 ** (S - 3), 2 ** (S - 2), WIDTHS[-1]).astype(np.float32)
+    ct = torch.from_numpy(r.randn(2, 5 * 2**S, 2 ** (S + 1), 3).astype(np.float32))
+    out = []
+    for b in (blocks, plain_blocks):
+        m = IcoAE(S, WIDTHS, pallas_blocks=b)
+        m.load_state_dict(bridge.flax_to_state_dict(variables))
+        z = torch.from_numpy(z0).requires_grad_()
+        recon = m.decode(z, train=True)
+        (recon * ct).sum().backward()
+        out.append((recon.detach(), z.grad,
+                    {k: p.grad for k, p in m.named_parameters() if k.startswith("decoder.")},
+                    {k: v for k, v in m.state_dict().items() if k.endswith((".mean", ".var"))}))
+    assert IcoAE(S, WIDTHS, pallas_blocks=blocks).decoder.fused_head
+    assert not IcoAE(S, WIDTHS, pallas_blocks=plain_blocks).decoder.fused_head
+    (recon, gz, grads, stats), (recon_r, gz_r, grads_r, stats_r) = out
+    # a conv's bias feeds a BatchNorm: its exact gradient is 0, so it is
+    # held against its taps' scale
+    scales = {k: grads_r[k[: -len("bias")] + "taps" if ".conv" in k and k.endswith(".bias")
+                         else k].abs().max() for k in grads_r}
+    for got, ref, scale in [(recon, recon_r, recon_r.abs().max()), (gz, gz_r, gz_r.abs().max()),
+                            *[(grads[k], grads_r[k], scales[k]) for k in grads_r],
+                            *[(stats[k], stats_r[k], stats_r[k].abs().max()) for k in stats_r]]:
+        assert (got - ref).abs().max() <= 1e-5 * scale
+    assert grads["decoder.head.kernel"].abs().max() > 0
 
 
 def test_position_loss_matches_jax():
