@@ -1,8 +1,10 @@
-// Shared pieces of the backward kernels of the phase conv and the up conv:
-// the cotangent loader (with the BatchNorm stats fold), the dx gather-GEMM
-// over a transposed halo table, the dtaps GEMM with per-chunk partials, and
-// the bias-gradient column sum. Every sum across blocks goes through block
-// partials and gn::sum_rows, so results do not change from run to run.
+// Shared pieces of the backward kernels of the phase conv, the up conv and
+// the standard conv: the cotangent loader (with the BatchNorm stats fold),
+// the dx gather-GEMM over a transposed halo table, the dtaps GEMM with
+// per-chunk partials, the bias-gradient column sum, and the merged one-pass
+// backward that runs the dx and dtaps tiles in one launch. Every sum across
+// blocks goes through block partials and gn::sum_rows, so results do not
+// change from run to run.
 #pragma once
 
 #include "common.cuh"
@@ -67,19 +69,20 @@ struct DxOut {
 
 // dx[b, r, k] = sum_t sum_{(q, wt) in table row t*R + r} wt * sum_n G[b, q, n] W[t][k, n],
 // a GEMM over K = 7 * n_sets * cout whose A operand is gathered (and
-// weighted) through the CSR transposed table. Block: BM rows r x BN
-// channels k of one sample; float32 sums, one rounding at the end.
+// weighted) through the CSR transposed table. Tile (bx, by, b): BM rows r x
+// BN channels k of sample b, of gx row tiles; float32 sums, one rounding at
+// the end. Shared by the split dx kernel and the merged backward's dx role.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-dx_gemm(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
-        const int* __restrict__ offsets, const int* __restrict__ cells,
-        const float* __restrict__ weights, DxOut<T> o, int R, int cin, int n_sets) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
+__device__ __forceinline__ void dx_tile(const GLoad<T>& gl, const T* __restrict__ w0,
+                                        const T* __restrict__ w1,
+                                        const int* __restrict__ offsets,
+                                        const int* __restrict__ cells,
+                                        const float* __restrict__ weights, const DxOut<T>& o,
+                                        int R, int cin, int n_sets, int bx, int by, int b, int gx,
+                                        float (&As)[BK][BM], float (&Bs)[BK][BN]) {
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
+  const int m0 = bx * BM;
+  const int n0 = by * BN;
   const int cout = gl.cout;
   const int Ntot = n_sets * cout;
   const int K = 7 * Ntot;
@@ -146,9 +149,20 @@ dx_gemm(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
     }
   }
   if (o.mul != nullptr) {
-    float* row = o.red + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * cin + n0;
+    float* row = o.red + ((size_t)b * gx + bx) * 2 * cin + n0;
     column_sums(As, Bs, smul, sadd, tid, min(BN, cin - n0), row, row + cin);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dx_gemm(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
+        const int* __restrict__ offsets, const int* __restrict__ cells,
+        const float* __restrict__ weights, DxOut<T> o, int R, int cin, int n_sets) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  dx_tile<T>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, blockIdx.x, blockIdx.y,
+             blockIdx.z, gridDim.x, As, Bs);
 }
 
 template <typename T>
@@ -168,23 +182,28 @@ cudaError_t launch_dx_gemm(const GLoad<T>& gl, const void* w0, const void* w1,
 // dtaps partials: ws[chunk][t * cin + k][n] = sum over the chunk's rows q of
 // A(q, t, k) * G(q, n), where the rows q run over (sample, output phase slot,
 // cell) and A is the conv operand re-gathered through the forward table by
-// the forward's Loader (act prologue, pole means, midpoints included).
+// the forward's Loader (act prologue, pole means, midpoints included). Tile
+// (bx, by, chunk). With gpart, the tiles of the first row tile (bx == 0)
+// also write the chunk's column sums of G, gpart[chunk][n]: Σg from the g
+// tiles they already hold in shared memory, at no extra pass over g.
 template <typename T, typename Loader>
-__global__ void __launch_bounds__(NT)
-dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n_sets,
-           int out_phase0, int Q, int kc, float* __restrict__ ws) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
+__device__ __forceinline__ void dtaps_tile(const Loader& ld, const GLoad<T>& gl,
+                                           const int* __restrict__ table, int cin, int n_sets,
+                                           int out_phase0, int Q, int kc, float* __restrict__ ws,
+                                           float* __restrict__ gpart, int bx, int by, int chunk,
+                                           float (&As)[BK][BM], float (&Bs)[BK][BN]) {
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;  // rows t * cin + k
-  const int n0 = blockIdx.y * BN;
-  const int q_lo = blockIdx.z * kc;
+  const int m0 = bx * BM;  // rows t * cin + k
+  const int n0 = by * BN;
+  const int q_lo = chunk * kc;
   const int q_hi = min(q_lo + kc, Q);
   const int M = gl.M;
   const int per_b = gl.n_out * M;
   const int Mr = 7 * cin;
   const int Ntot = n_sets * gl.cout;
   const int tx = tid % 16, ty = tid / 16;
+  const bool with_gsum = gpart != nullptr && bx == 0;
+  float gacc = 0.f;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -219,10 +238,15 @@ dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n
       Bs[kk][nn] = v;
     }
     __syncthreads();
+    if (with_gsum && tid < BN) {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) gacc += Bs[kk][tid];
+    }
     tile_fma(As, Bs, acc, tx, ty);
     __syncthreads();
   }
-  float* part = ws + (size_t)blockIdx.z * Mr * Ntot;
+  if (with_gsum && tid < BN && n0 + tid < Ntot) gpart[(size_t)chunk * Ntot + n0 + tid] = gacc;
+  float* part = ws + (size_t)chunk * Mr * Ntot;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
@@ -233,6 +257,16 @@ dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n
       if (n < Ntot) part[(size_t)row * Ntot + n] = acc[i][j];
     }
   }
+}
+
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(NT)
+dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n_sets,
+           int out_phase0, int Q, int kc, float* __restrict__ ws) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  dtaps_tile<T, Loader>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, nullptr, blockIdx.x,
+                        blockIdx.y, blockIdx.z, As, Bs);
 }
 
 // dtaps[set] (7, cin, cout) float32 = the fixed-order sum of the chunks'
@@ -289,6 +323,81 @@ cudaError_t launch_gsum(const GLoad<T>& gl, int B, int n_sets, int rows, float* 
   if (err != cudaSuccess) return err;
   SplitOut st = {{gsum0, gsum1}, Ntot, gl.cout};
   return launch_sum_rows(ws, (int)grid.y, (long long)Ntot, st, stream);
+}
+
+// The merged backward: ONE launch runs every tile of a conv's backward, with
+// two block roles chosen by block index. Blocks [0, dx_blocks) are dx tiles
+// (dx_tile: the gather over the transposed table, the act adjoint and the
+// d_mul/d_add partials in its epilogue); the rest are dtaps tiles
+// (dtaps_tile: the per-chunk dtaps partials, and Σg_eff partials from the
+// first row tile). Both roles read g through the one GLoad, so each block
+// folds each g element it reads once, rounded to T. The roles do not share
+// a staged g tile: each reads g itself (see the .cu files' notes).
+struct MergedGrid {
+  int dx_x, dx_y, dx_blocks;  // dx tiles: row tiles, channel tiles, x samples
+  int dt_x, dt_y;             // dtaps tiles: row tiles, column tiles, x chunks
+};
+
+// At most 64 registers a thread, so that 4 blocks fit on an SM as for the
+// split kernels (the bf16 GridLoad instantiation otherwise takes 66, which
+// allows only 3).
+template <typename T, typename Loader>
+__global__ void __launch_bounds__(NT, 4)
+merged_bwd(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
+           const int* __restrict__ offsets, const int* __restrict__ cells,
+           const float* __restrict__ weights, DxOut<T> o, int R, Loader ld,
+           const int* __restrict__ table, int out_phase0, int Q, int kc, float* __restrict__ ws,
+           float* __restrict__ gpart, int cin, int n_sets, MergedGrid mg) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  int i = blockIdx.x;
+  if (i < mg.dx_blocks) {
+    const int bx = i % mg.dx_x;
+    i /= mg.dx_x;
+    dx_tile<T>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, bx, i % mg.dx_y,
+               i / mg.dx_y, mg.dx_x, As, Bs);
+    return;
+  }
+  i -= mg.dx_blocks;
+  const int bx = i % mg.dt_x;
+  i /= mg.dt_x;
+  dtaps_tile<T, Loader>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, gpart, bx,
+                        i % mg.dt_y, i / mg.dt_y, As, Bs);
+}
+
+// Launch the merged backward over B samples (R dx rows each, Q = B * n_out *
+// M dtaps rows in n_chunks chunks of kc), then the fixed-order second passes:
+// dtaps through dt_store, Σg_eff into gsum0/gsum1, and with act d_mul/d_add.
+template <typename T, typename Loader, typename DtStore>
+cudaError_t launch_merged_bwd(const GLoad<T>& gl, const void* w0, const void* w1,
+                              const int* offsets, const int* cells, const float* weights,
+                              const DxOut<T>& o, float* dmul, float* dadd, int B, int R,
+                              const Loader& ld, const int* table, int out_phase0, int kc,
+                              int n_chunks, float* ws, const DtStore& dt_store, float* gpart,
+                              float* gsum0, float* gsum1, int cin, int n_sets,
+                              cudaStream_t stream) {
+  if (kc % BK != 0) return cudaErrorInvalidValue;
+  const int Ntot = n_sets * gl.cout;
+  const int Q = B * gl.n_out * gl.M;
+  MergedGrid mg;
+  mg.dx_x = (R + BM - 1) / BM;
+  mg.dx_y = (cin + BN - 1) / BN;
+  mg.dx_blocks = mg.dx_x * mg.dx_y * B;
+  mg.dt_x = (7 * cin + BM - 1) / BM;
+  mg.dt_y = (Ntot + BN - 1) / BN;
+  const long long blocks = (long long)mg.dx_blocks + (long long)mg.dt_x * mg.dt_y * n_chunks;
+  merged_bwd<T, Loader><<<(unsigned)blocks, NT, 0, stream>>>(
+      gl, static_cast<const T*>(w0), static_cast<const T*>(w1), offsets, cells, weights, o, R,
+      ld, table, out_phase0, Q, kc, ws, gpart, cin, n_sets, mg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_sum_rows(ws, n_chunks, 7LL * cin * Ntot, dt_store, stream);
+  if (err != cudaSuccess) return err;
+  SplitOut gst = {{gsum0, gsum1}, Ntot, gl.cout};
+  err = launch_sum_rows(gpart, n_chunks, (long long)Ntot, gst, stream);
+  if (err != cudaSuccess || o.mul == nullptr) return err;
+  SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+  return launch_sum_rows(o.red, mg.dx_x * B, 2LL * cin, st, stream);
 }
 
 }  // namespace gn

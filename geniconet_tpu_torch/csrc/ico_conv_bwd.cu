@@ -1,12 +1,14 @@
 // Standard-layout hex conv, stride 1, backward: dx (input cotangent, with
 // the act adjoint and d_mul/d_add, and optionally the bias gradient Σg) and
 // dtaps (tap cotangents summed over the batch, rounded to the activation
-// dtype).
+// dtype), as two kernels (the split route) or as one merged kernel.
 //
 // Replaces: geniconet_tpu/ops/pallas/conv_kernel.py:_pallas_dx (kernel body
 // _dx_kernel) and :_pallas_dtaps (_dtaps_kernel), as called by the custom
 // VJP of fused_ico_conv_s2s (each DownBlock's conv01), including the
-// BatchNorm stats fold g_eff = g + gs0 + 2*gs1*y.
+// BatchNorm stats fold g_eff = g + gs0 + 2*gs1*y; and, as gn_ico_conv_bwd,
+// :_std_bwd (pallas_call at :601, _std_bwd_kernel), the merged one-pass
+// backward of GENICONET_MERGED_BWD's std family (stride 1).
 //
 // Design. The Pallas dx kernel scatters the conv transpose into a padded
 // VMEM buffer and then runs the exact transpose of the ico_pad halo. Here dx
@@ -25,6 +27,13 @@
 // 2 * 7 * C_in * C_out FLOPs per cell for each of dx and dtaps (at the
 // DownBlocks' conv01 shapes, B=36: 1.3-5.3 GFLOP a call), against
 // (2-3) * B * 5hw * C bytes of g, x and dx.
+//
+// The merged kernel is gn::merged_bwd (backward.cuh): dx tiles over
+// halo.std_dx_table with the act adjoint and d_mul/d_add partials, dtaps
+// tiles over the activated input (relu(x*mul + add) cast to x's dtype, as
+// _std_bwd_kernel) with the Σg_eff partials, which _std_bwd always emits.
+// One launch, then the fixed-order sum_rows passes (dtaps rounded to the
+// activation dtype); the two roles each read g (see phase_conv_bwd.cu).
 #include "backward.cuh"
 
 namespace {
@@ -89,6 +98,36 @@ cudaError_t dtaps(const void* x, const float* mul, const float* add, const void*
   return gn::launch_sum_rows(ws, n_chunks, 7LL * cin * cout, st, stream);
 }
 
+template <typename T>
+cudaError_t merged(const void* x, const float* mul, const float* add, const void* g,
+                   const void* y, const float* gs, const void* taps, void* out,
+                   const int* offsets, const int* cells, const float* weights, const int* table,
+                   float* red, float* dmul, float* dadd, float* ws, void* dtaps, float* gpart,
+                   float* gsum, int B, int h, int w, int cin, int cout, int kc, int n_chunks,
+                   cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
+  gn::DxOut<T> o = {};
+  o.out[0] = static_cast<T*>(out);
+  o.raw[0] = mul ? static_cast<const T*>(x) : nullptr;
+  o.mul = mul;
+  o.add = add;
+  o.red = red;
+  o.per = M;
+  gn::GridLoad<T> ld = {};
+  ld.src[0] = static_cast<const T*>(x);
+  ld.mul = mul;
+  ld.add = add;
+  ld.hw = h * w;
+  ld.hw5 = M;
+  ld.cin = cin;
+  ld.south_src = 0;
+  const CastOut<T> dt = {static_cast<T*>(dtaps)};
+  return gn::launch_merged_bwd<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul, dadd, B,
+                                  M, ld, table, 0, kc, n_chunks, ws, dt, gpart, gsum, nullptr, cin,
+                                  1, stream);
+}
+
 }  // namespace
 
 // g: (B, 5, h, w, cout) cotangent; y: null (no fold) or the forward output
@@ -132,5 +171,32 @@ extern "C" int gn_ico_conv_dtaps(const void* x, const float* mul, const float* a
   if (dtype == 1)
     return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs, table, ws, out, B, h, w, cin, cout, kc,
                                 n_chunks, s);
+  return cudaErrorInvalidValue;
+}
+
+// The merged backward (_std_bwd, stride 1). x: the raw input (B, 5, h, w,
+// cin); mul/add: the act prologue or null (with it, dx is the raw input's
+// cotangent and dmul/dadd receive (cin) each, through red: float32 scratch
+// of (B * ceil(5hw/64), 2 * cin)); g, y, gs, taps: as in gn_ico_conv_dx;
+// out: dx (B, 5, h, w, cin); offsets/cells/weights: halo.std_dx_table;
+// table: halo.std_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
+// cout), the B * 5hw rows split in chunks of kc (a multiple of 16); dtaps:
+// (7, cin, cout) in the activation dtype; gpart: float32 scratch of
+// (n_chunks, cout), and gsum receives Σg_eff (cout). dtype: 0 float32, 1
+// bfloat16.
+extern "C" int gn_ico_conv_bwd(const void* x, const float* mul, const float* add, const void* g,
+                               const void* y, const float* gs, const void* taps, void* out,
+                               const int* offsets, const int* cells, const float* weights,
+                               const int* table, float* red, float* dmul, float* dadd, float* ws,
+                               void* dtaps, float* gpart, float* gsum, int B, int h, int w,
+                               int cin, int cout, int kc, int n_chunks, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return merged<float>(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table, red,
+                         dmul, dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc, n_chunks, s);
+  if (dtype == 1)
+    return merged<__nv_bfloat16>(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table,
+                                 red, dmul, dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc,
+                                 n_chunks, s);
   return cudaErrorInvalidValue;
 }

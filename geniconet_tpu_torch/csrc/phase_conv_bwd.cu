@@ -1,11 +1,14 @@
 // Phase-form hex conv, backward: dx (input cotangent) and dtaps (tap
 // cotangents summed over the batch), for both output-phase modes (all 4
-// phases, and phase 2 alone for stride 2).
+// phases, and phase 2 alone for stride 2), as two kernels (the split route)
+// or as one merged kernel.
 //
 // Replaces: geniconet_tpu/ops/pallas/phase_kernel.py:_phase_conv_dx (kernel
 // body _pc_dx_kernel) and :_phase_conv_dtaps (_pc_dtaps_kernel), as called
 // by the custom VJPs of fused_phase_conv_s1 and fused_dual_s2_conv,
-// including the in-kernel BatchNorm stats fold and the Σg_eff bias gradient.
+// including the in-kernel BatchNorm stats fold and the Σg_eff bias gradient;
+// and, as gn_phase_conv_bwd, :_phase_conv_bwd (_pc_bwd_kernel), the merged
+// one-pass backward of GENICONET_MERGED_BWD's pcs1 and ds2 families.
 //
 // Design. The Pallas dx kernel scatters each tap's contribution into padded
 // VMEM buffers and runs the exact adjoint of the halo pad. Blocks on the card
@@ -22,6 +25,17 @@
 // SIMT GEMM core (2 * 7 * C_in * C_out FLOPs per output cell each for dx and
 // dtaps); the dx operand gather reads about 1.05 rows of g per element (the
 // halo and pole rows), and dtaps writes 7 * C_in * C_out floats per chunk.
+//
+// The merged kernel (gn::merged_bwd, backward.cuh) computes every output of
+// _pc_bwd_kernel in one launch: dx with the act adjoint and the d_mul/d_add
+// partials, the dtaps partials over the activated input, and the Σg_eff
+// partials, which the dtaps tiles of the first row tile take from the g
+// tiles they hold in shared memory (no colsum pass). Its blocks take one of
+// two roles, dx tile or dtaps tile, by block index; then only the
+// fixed-order sum_rows passes run. It saves the split route's colsum pass
+// and two launches, not the second read of g: the two roles each read g
+// (through the one GLoad, which folds each element once per read, rounded
+// to T). Sharing one staged g tile between the roles is the next step.
 #include "backward.cuh"
 
 namespace {
@@ -71,6 +85,38 @@ cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
                                              B * n_out * M, kc, n_chunks, ws, dt0, dt1, stream);
   if (err != cudaSuccess || gsum_ws == nullptr) return err;
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+}
+
+template <typename T>
+cudaError_t merged(const void* const* x, const float* mul, const float* add,
+                   const void* const* g, const void* const* y, const float* gs0, const float* gs1,
+                   const void* w0, const void* w1, void* const* outs, const int* offsets,
+                   const int* cells, const float* weights, const int* table, float* red,
+                   float* dmul, float* dadd, float* ws, float* dt0, float* dt1, float* gpart,
+                   float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout,
+                   int n_sets, int out_phase0, int n_out, int kc, int n_chunks,
+                   cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
+  gn::DxOut<T> o = {};
+  gn::GridLoad<T> ld = {};
+  for (int p = 0; p < 4; ++p) {
+    o.out[p] = static_cast<T*>(outs[p]);
+    o.raw[p] = mul ? static_cast<const T*>(x[p]) : nullptr;
+    ld.src[p] = static_cast<const T*>(x[p]);
+  }
+  o.mul = ld.mul = mul;
+  o.add = ld.add = add;
+  o.red = red;
+  o.per = M;
+  ld.hw = h * w;
+  ld.hw5 = M;
+  ld.cin = cin;
+  ld.south_src = 3;
+  const gn::SplitOut dt = {{dt0, dt1}, n_sets * cout, cout};
+  return gn::launch_merged_bwd<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B, 4 * M,
+                                  ld, table, out_phase0, kc, n_chunks, ws, dt, gpart, gsum0,
+                                  gsum1, cin, n_sets, stream);
 }
 
 bool bad_sets(int n_sets, int n_out) {
@@ -133,5 +179,40 @@ extern "C" int gn_phase_conv_dtaps(const void* const* x, const float* mul, const
     return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0,
                                 gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc,
                                 n_chunks, gsum_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// The merged backward (_phase_conv_bwd). x: host array of the 4 raw input
+// phases (B, 5, h, w, cin); mul/add: the act prologue or null (with it, dx
+// is the raw input's cotangent and dmul/dadd receive (cin) each, through
+// red: float32 scratch of (B * ceil(4*5hw/64), 2 * cin)); g, y, gs0, gs1: as
+// in gn_phase_conv_dx; w0/w1: taps (7, cin, cout); outs: host array of the
+// 4 dphase outputs (B, 5, h, w, cin); offsets/cells/weights:
+// halo.phase_dx_table for output phases out_phase0 .. +n_out-1; table:
+// halo.phase_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
+// n_sets * cout), the rows B * n_out * 5hw split in chunks of kc (a multiple
+// of 16); dt0/dt1 receive (7, cin, cout) float32; gpart: float32 scratch of
+// (n_chunks, n_sets * cout), and gsum0/gsum1 receive Σg_eff (cout). dtype: 0
+// float32, 1 bfloat16.
+extern "C" int gn_phase_conv_bwd(const void* const* x, const float* mul, const float* add,
+                                 const void* const* g, const void* const* y, const float* gs0,
+                                 const float* gs1, const void* w0, const void* w1,
+                                 void* const* outs, const int* offsets, const int* cells,
+                                 const float* weights, const int* table, float* red, float* dmul,
+                                 float* dadd, float* ws, float* dt0, float* dt1, float* gpart,
+                                 float* gsum0, float* gsum1, int B, int h, int w, int cin,
+                                 int cout, int n_sets, int out_phase0, int n_out, int kc,
+                                 int n_chunks, int dtype, void* stream) {
+  if (bad_sets(n_sets, n_out) || out_phase0 + n_out > 4) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return merged<float>(x, mul, add, g, y, gs0, gs1, w0, w1, outs, offsets, cells, weights,
+                         table, red, dmul, dadd, ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin,
+                         cout, n_sets, out_phase0, n_out, kc, n_chunks, s);
+  if (dtype == 1)
+    return merged<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, w0, w1, outs, offsets, cells,
+                                 weights, table, red, dmul, dadd, ws, dt0, dt1, gpart, gsum0,
+                                 gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc,
+                                 n_chunks, s);
   return cudaErrorInvalidValue;
 }

@@ -20,6 +20,11 @@ model's ``pallas_blocks`` attribute through ``pallas_block_enabled``):
   ``IcoBatchNorm`` applied to the grid (flax ``nn.BatchNorm``), with
   PyTorch's autograd for the backward.
 
+On the fused route the model option ``merged_bwd`` (``merged_bwd_enabled``)
+picks, per kernel family, the merged one-pass backward kernels over the
+split dx + dtaps pair: ``ds2`` (a DownBlock's stride-2 pair), ``std`` (its
+conv01), ``upd`` (an UpBlock's upsample + pair) and ``pcs1`` (its conv01).
+
 Every fused conv goes through a wrapper in ``ops/kernels``, which launches
 the CUDA kernel for CUDA tensors and runs the plain PyTorch version for CPU
 tensors. Parameters stay float32; each call casts them to the activation
@@ -40,7 +45,7 @@ from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
 
 __all__ = ["IcoConvS2S", "IcoBatchNorm", "DownBlock", "UpBlock", "residual_join",
-           "pallas_block_enabled"]
+           "pallas_block_enabled", "merged_bwd_enabled"]
 
 
 def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
@@ -50,6 +55,18 @@ def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
     if not pallas_blocks:
         return True
     return name in {s.strip() for s in pallas_blocks.split(",")}
+
+
+def merged_bwd_enabled(family: str, merged_bwd: str | None) -> bool:
+    """The JAX package's ``GENICONET_MERGED_BWD`` routing as a model option:
+    None, "" or "0" is off (the split dx + dtaps kernels), "1" or "all"
+    merges every family, and a comma list merges the families it names
+    (``pcs1``, ``ds2``, ``upd``, ``std``)."""
+    if merged_bwd in (None, "", "0"):
+        return False
+    if merged_bwd in ("1", "all"):
+        return True
+    return family in {f.strip() for f in merged_bwd.split(",")}
 
 
 class IcoConvS2S(nn.Module):
@@ -73,13 +90,16 @@ class IcoConvS2S(nn.Module):
         """(taps, bias) cast to the activation dtype, for the fused calls."""
         return self.taps.to(dtype), self.bias.to(dtype)
 
-    def forward(self, x: torch.Tensor, act=None, with_stats: bool = False):
+    def forward(self, x: torch.Tensor, act=None, with_stats: bool = False,
+                merged_bwd: bool = False):
         """(B, 5, h, w, C_in) -> (B, 5, h, w, C_out), stride 1; act: optional
         float32 (mul, add) prologue relu(x·mul + add); with_stats: also the
-        (2, C_out) float32 [Σy, Σy²] of the output."""
+        (2, C_out) float32 [Σy, Σy²] of the output; merged_bwd: the backward
+        as one merged kernel."""
         taps, bias = self.params(x.dtype)
         return fused_ico_conv_s2s(x, taps, bias, grid_level(x.shape[2], x.shape[3]),
-                                  self.corner_mode, act=act, with_stats=with_stats)
+                                  self.corner_mode, act=act, with_stats=with_stats,
+                                  merged_bwd=merged_bwd)
 
     def plain(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         """The plain route (``ico_pad`` + masked 3×3 conv, float32 sums),
@@ -152,10 +172,10 @@ def residual_join(a: torch.Tensor, b: torch.Tensor, aff1, aff2) -> torch.Tensor:
 class _Block(nn.Module):
     """The six modules of a residual block (reference BasicIcoS2S*Block)."""
 
-    def __init__(self, in_features, features, corner_mode, fused, device):
+    def __init__(self, in_features, features, corner_mode, fused, merged_bwd, device):
         super().__init__()
         kw = dict(corner_mode=corner_mode, device=device)
-        self.corner_mode, self.fused = corner_mode, fused
+        self.corner_mode, self.fused, self.merged_bwd = corner_mode, fused, merged_bwd
         self.conv00 = IcoConvS2S(in_features, features, **kw)
         self.conv10 = IcoConvS2S(in_features, features, **kw)
         self.conv01 = IcoConvS2S(features, features, **kw)
@@ -176,8 +196,8 @@ class DownBlock(_Block):
     relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x)))."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
-                 fused: bool = True, device=None):
-        super().__init__(in_features, features, corner_mode, fused, device)
+                 fused: bool = True, merged_bwd: str | None = None, device=None):
+        super().__init__(in_features, features, corner_mode, fused, merged_bwd, device)
 
     def forward(self, x, in_act=None, train: bool = False) -> torch.Tensor:
         """x: a (B, 5, H, W, C) grid or its 4 parity phases; in_act: the
@@ -189,11 +209,13 @@ class DownBlock(_Block):
         phases = tuple(p.contiguous() for p in phases)
         dt = phases[0].dtype
         r = fused_dual_s2_conv(phases, *self.conv00.params(dt), *self.conv10.params(dt),
-                               self.corner_mode, act=in_act, with_stats=train)
+                               self.corner_mode, act=in_act, with_stats=train,
+                               merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd))
         y00, y10 = r[:2]
         s00, s10 = r[2:] if train else (None, None)
         count = float(y00.shape[:-1].numel())
-        r = self.conv01(y00, act=self.bn00.affine(s00, count, train), with_stats=train)
+        r = self.conv01(y00, act=self.bn00.affine(s00, count, train), with_stats=train,
+                        merged_bwd=merged_bwd_enabled("std", self.merged_bwd))
         b0, s01 = r if train else (r, None)
         return residual_join(b0, y10, self.bn01.affine(s01, count, train),
                              self.bn10.affine(s10, count, train))
@@ -204,8 +226,9 @@ class UpBlock(_Block):
     parameter-free upsample is shared by both branches."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
-                 return_phases: bool = False, fused: bool = True, device=None):
-        super().__init__(in_features, features, corner_mode, fused, device)
+                 return_phases: bool = False, fused: bool = True, merged_bwd: str | None = None,
+                 device=None):
+        super().__init__(in_features, features, corner_mode, fused, merged_bwd, device)
         self.return_phases = return_phases
 
     def forward(self, x: torch.Tensor, train: bool = False):
@@ -218,13 +241,15 @@ class UpBlock(_Block):
         x = x.contiguous()
         dt = x.dtype
         r = fused_up_dual_conv(x, *self.conv00.params(dt), *self.conv10.params(dt),
-                               self.corner_mode, with_stats=train)
+                               self.corner_mode, with_stats=train,
+                               merged_bwd=merged_bwd_enabled("upd", self.merged_bwd))
         y00, y10 = r[:2]
         s00, s10 = r[2:] if train else (None, None)
         count = 4.0 * y00[0].shape[:-1].numel()
         act00 = self.bn00.affine(s00, count, train)
         r = fused_phase_conv_s1(y00, *self.conv01.params(dt), self.corner_mode, act=act00,
-                                with_stats=train)
+                                with_stats=train,
+                                merged_bwd=merged_bwd_enabled("pcs1", self.merged_bwd))
         b0, s01 = r if train else (r, None)
         aff01 = self.bn01.affine(s01, count, train)
         aff10 = self.bn10.affine(s10, count, train)

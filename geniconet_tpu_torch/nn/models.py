@@ -18,7 +18,10 @@ fused route (the kernels), a comma list (``conv_in``, ``down0``..``down2``,
 ``heads``, ``up0``..``up2``, ``head``) only the named blocks, the rest on
 the plain route. Every routing trains (``train=True``): the fused head runs
 the head+MSE kernel and its backward under ``recon_sse``, and the head
-kernel and its backward (``fused_pair_head``) otherwise.
+kernel and its backward (``fused_pair_head``) otherwise. ``merged_bwd``
+(``nn/layers.py:merged_bwd_enabled``) puts the fused blocks' conv backward
+on the merged one-pass kernels, per kernel family (the VAE's heads are a
+``ds2``); ``conv_in`` has no input cotangent and keeps its dtaps kernel.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)`` (the VAE's: ``wz`` channels). ``decode``
@@ -31,7 +34,8 @@ import torch
 from torch import nn
 
 from geniconet_tpu_torch.nn.layers import (
-    DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, pallas_block_enabled, residual_join,
+    DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, merged_bwd_enabled, pallas_block_enabled,
+    residual_join,
 )
 from geniconet_tpu_torch.ops.conv import merge_charts, split_charts
 from geniconet_tpu_torch.ops.kernels.fused import (
@@ -43,7 +47,8 @@ __all__ = ["IcoAE", "IcoVAE", "reparameterize"]
 
 
 class _Encoder(nn.Module):
-    def __init__(self, widths, corner_mode: str, pallas_blocks=None, device=None):
+    def __init__(self, widths, corner_mode: str, pallas_blocks=None, merged_bwd=None,
+                 device=None):
         super().__init__()
         w0 = widths[0]
         self.corner_mode = corner_mode
@@ -53,7 +58,7 @@ class _Encoder(nn.Module):
         for k, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
             self.add_module(f"down{k}", DownBlock(
                 cin, cout, corner_mode, fused=pallas_block_enabled(f"down{k}", pallas_blocks),
-                device=device))
+                merged_bwd=merged_bwd, device=device))
         self.n_down = len(widths) - 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -92,13 +97,14 @@ class _Head(nn.Module):
 
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
-                 pallas_blocks=None, device=None):
+                 pallas_blocks=None, merged_bwd=None, device=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
         for k, (cin, cout) in enumerate(zip(cins, widths)):
             self.add_module(f"up{k}", UpBlock(
                 cin, cout, corner_mode, return_phases=k == len(widths) - 1,
-                fused=pallas_block_enabled(f"up{k}", pallas_blocks), device=device))
+                fused=pallas_block_enabled(f"up{k}", pallas_blocks), merged_bwd=merged_bwd,
+                device=device))
         self.n_up = len(widths)
         self.fused_head = pallas_block_enabled("head", pallas_blocks)
         self.head = _Head(widths[-1], out_features, device=device)
@@ -147,18 +153,22 @@ class IcoAE(nn.Module):
     ``dtype`` is the activation (compute) dtype, float32 or bfloat16;
     parameters stay float32. Sums run in float32 inside every conv.
     ``train`` selects batch statistics (and updates the running ones) in
-    every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``."""
+    every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``.
+    ``merged_bwd``: the kernel families whose backward is merged (module doc)."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
-                 pallas_blocks: str | None = None, device=None):
+                 pallas_blocks: str | None = None, merged_bwd: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoAE needs subdivisions >= 3 (three stride-2 stages)")
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
-        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, device=device)
-        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, device=device)
+        self.merged_bwd = merged_bwd
+        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks,
+                                merged_bwd=merged_bwd, device=device)
+        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks,
+                                merged_bwd=merged_bwd, device=device)
 
     def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
@@ -200,28 +210,31 @@ def _bn_apply(y: torch.Tensor, aff) -> torch.Tensor:
 class IcoVAE(nn.Module):
     """Icosahedral VAE (reference ico2ico_vae).
 
-    ``dtype``, ``pallas_blocks`` and ``train`` as ``IcoAE``; the mu / logvar
-    heads are the block ``"heads"``: on the fused route both stride-2 convs
-    run as one dual stride-2 phase conv (no act prologue, BatchNorm sums
-    when training), then each BatchNorm's affine without ReLU."""
+    ``dtype``, ``pallas_blocks``, ``merged_bwd`` and ``train`` as ``IcoAE``;
+    the mu / logvar heads are the block ``"heads"``: on the fused route both
+    stride-2 convs run as one dual stride-2 phase conv (no act prologue,
+    BatchNorm sums when training; family ``ds2`` of ``merged_bwd``), then
+    each BatchNorm's affine without ReLU."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256), latent_features: int = 512,
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
-                 pallas_blocks: str | None = None, device=None):
+                 pallas_blocks: str | None = None, merged_bwd: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoVAE needs subdivisions >= 3 (three stride-2 stages)")
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
+        self.merged_bwd = merged_bwd
         self.corner_mode = corner_mode
         self.fused_heads = pallas_block_enabled("heads", pallas_blocks)
-        self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, device=device)
+        self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, merged_bwd=merged_bwd,
+                                device=device)
         self.mu_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.mu_bn = IcoBatchNorm(latent_features, device=device)
         self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.logvar_bn = IcoBatchNorm(latent_features, device=device)
         self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
-                                device=device)
+                                merged_bwd=merged_bwd, device=device)
 
     def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""
@@ -235,7 +248,8 @@ class IcoVAE(nn.Module):
             dt = phases[0].dtype
             r = fused_dual_s2_conv(phases, *self.mu_conv.params(dt),
                                    *self.logvar_conv.params(dt), self.corner_mode,
-                                   with_stats=train)
+                                   with_stats=train,
+                                   merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd))
             y_mu, y_lv = r[:2]
             s_mu, s_lv = r[2:] if train else (None, None)
             count = float(y_mu.shape[:-1].numel())

@@ -30,7 +30,7 @@ import torch
 __all__ = [
     "LAUNCHES", "reset_launches", "build", "library", "check", "stream_ptr", "ptr",
     "ptr_array", "dtype_code", "on_cuda", "expect", "check_act", "act_apply", "grid_level",
-    "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch",
+    "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch", "merged_scratch",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -114,6 +114,9 @@ _SIGNATURES = {
     "gn_phase_conv_dtaps": [_VP] * 14 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],
     "gn_up_dual_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
+    "gn_phase_conv_bwd": [_VP] * 23 + [_INT] * 11 + [_VP],
+    "gn_up_dual_conv_bwd": [_VP] * 19 + [_INT] * 9 + [_VP],
+    "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
 }
 
 # Work split shared with csrc/: the GEMM cores compute TILE x TILE output
@@ -141,6 +144,14 @@ def dtaps_split(rows: int, out_tiles: int):
 def scratch(n: int, device) -> torch.Tensor:
     """A float32 scratch buffer of n values for the partial sums."""
     return torch.empty(max(n, 1), dtype=torch.float32, device=device)
+
+
+def merged_scratch(rows: int, cin: int, ntot: int, device):
+    """(kc, n_chunks, dtaps partials, Σg partials) of a merged backward
+    kernel whose dtaps reduce over ``rows`` rows of g into (7·cin, ntot)."""
+    kc, n_chunks = dtaps_split(rows, n_tiles(7 * cin) * n_tiles(ntot))
+    return (kc, n_chunks, scratch(n_chunks * 7 * cin * ntot, device),
+            scratch(n_chunks * ntot, device))
 
 
 def library(verbose: bool = False):

@@ -8,7 +8,10 @@ Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
 * ``ico_conv_s2s_dx``    -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dx``: conv and
   halo transposes, act adjoint with d_mul/d_add, optional Σg_eff);
 * ``ico_conv_s2s_dtaps`` -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dtaps``, rounded
-  to the activation dtype as the Pallas wrapper does).
+  to the activation dtype as the Pallas wrapper does);
+* ``ico_conv_s2s_bwd``   -> ``csrc/ico_conv_bwd.cu`` (``_std_bwd``, stride 1:
+  the merged one-pass backward, dx with the act adjoint, dtaps, Σg_eff and
+  d_mul/d_add from one launch).
 
 ``y`` and ``gs`` (the forward output and the cotangent of its stats) switch
 on the in-kernel fold g_eff = g + gs0 + 2·gs1·y, rounded to the activation
@@ -30,7 +33,8 @@ from geniconet_tpu_torch.ops.kernels.phase_kernel import geff_plain, stats_plain
 
 __all__ = [
     "ico_conv_s2s_fwd", "ico_conv_s2s_fwd_plain", "ico_conv_s2s_dx", "ico_conv_s2s_dx_plain",
-    "ico_conv_s2s_dtaps", "ico_conv_s2s_dtaps_plain",
+    "ico_conv_s2s_dtaps", "ico_conv_s2s_dtaps_plain", "ico_conv_s2s_bwd",
+    "ico_conv_s2s_bwd_plain",
 ]
 
 
@@ -189,3 +193,69 @@ def ico_conv_s2s_dtaps(x, g, corner_mode, act=None, y=None, gs=None):
     build.check("ico_conv_s2s_dtaps", err)
     build.LAUNCHES["ico_conv_s2s_dtaps"] += 1
     return dtaps
+
+
+def ico_conv_s2s_bwd_plain(x, g, taps, y=None, gs=None, corner_mode="average", act=None,
+                           with_stats=False, out_dtype=None):
+    """Plain version of ``ico_conv_s2s_bwd``: ``ico_conv_s2s_dx_plain`` and
+    ``ico_conv_s2s_dtaps_plain`` over one shared fold."""
+    if with_stats:
+        (g,) = geff_plain([g], [y], gs)
+    dx, dmul, dadd, gsum = ico_conv_s2s_dx_plain(g, taps, corner_mode, out_dtype or x.dtype, act,
+                                                 x, emit_gsum=True)
+    return dx, ico_conv_s2s_dtaps_plain(x, g, corner_mode, act), gsum, dmul, dadd
+
+
+def ico_conv_s2s_bwd(x, g, taps, y=None, gs=None, corner_mode: str = "average", act=None,
+                     with_stats: bool = False, out_dtype=None):
+    """The merged standard-conv backward (the Pallas ``_std_bwd``, stride 1):
+    dx, dtaps and Σg_eff of one conv in one launch.
+
+    x: the RAW input (B, 5, h, w, C_in); g: the output cotangent (B, 5, h,
+    w, C_out) in x's dtype; taps (7, C_in, C_out); with ``with_stats``, y and
+    gs switch on the fold; act: the forward's prologue, which makes dx the
+    raw input's cotangent and adds d_mul, d_add; out_dtype: x's dtype.
+    Returns (dx, dtaps rounded to x's dtype (as ``_bwd`` rounds them),
+    float32 Σg_eff (C_out,), d_mul, d_add (float32 (C_in,), or None without
+    act))."""
+    if not on_cuda(x, "ico_conv_s2s_bwd"):
+        return ico_conv_s2s_bwd_plain(x, g, taps, y, gs, corner_mode, act, with_stats,
+                                      out_dtype)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    if out_dtype not in (None, dt):
+        raise TypeError(f"ico_conv_s2s_bwd: out_dtype {out_dtype} is not the input's {dt}")
+    cout = taps.shape[-1]
+    expect(x, (B, 5, h, w, cin), dt, dev, "ico_conv_s2s_bwd x")
+    expect(g, (B, 5, h, w, cout), dt, dev, "ico_conv_s2s_bwd g")
+    expect(taps, (7, cin, cout), dt, dev, "ico_conv_s2s_bwd taps")
+    if not with_stats:
+        y = gs = None
+    if y is not None:
+        expect(y, (B, 5, h, w, cout), dt, dev, "ico_conv_s2s_bwd y")
+        expect(gs, (2, cout), torch.float32, dev, "ico_conv_s2s_bwd gs")
+    check_act(act, cin, dev, "ico_conv_s2s_bwd")
+    M = 5 * h * w
+    dx = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev)
+    offsets, cells, weights = device_dx_table("std", h, w, corner_mode, dev)
+    table = device_table("std", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    red = dmul = dadd = None
+    if act is not None:
+        red = build.scratch(B * build.n_tiles(M) * 2 * cin, dev)
+        dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
+    kc, n_chunks, ws, gpart = build.merged_scratch(B * M, cin, cout, dev)
+    dtaps = torch.empty((7, cin, cout), dtype=dt, device=dev)
+    gsum = torch.empty(cout, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_ico_conv_bwd(
+            x.data_ptr(), build.ptr(mul), build.ptr(add), g.data_ptr(), build.ptr(y),
+            build.ptr(gs), taps.data_ptr(), dx.data_ptr(), offsets.data_ptr(), cells.data_ptr(),
+            weights.data_ptr(), table.data_ptr(), build.ptr(red), build.ptr(dmul),
+            build.ptr(dadd), ws.data_ptr(), dtaps.data_ptr(), gpart.data_ptr(), gsum.data_ptr(),
+            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("ico_conv_s2s_bwd", err)
+    build.LAUNCHES["ico_conv_s2s_bwd"] += 1
+    return dx, dtaps, gsum, dmul, dadd

@@ -20,17 +20,26 @@ Forward: ``phase_conv_fwd`` / ``up_dual_conv_fwd``. With ``with_stats`` the
 (2, C_out) float32 [Σy, Σy²] of each tap set's output is a differentiable
 output; the backward folds its cotangent into the kernels' g as
 g_eff = g + gs0 + 2·gs1·y (float32, cast to the activation dtype) and takes
-the bias gradient from Σg_eff. dtaps are rounded to the taps' dtype. Backward:
-``phase_conv_dx`` + ``phase_conv_dtaps`` / ``up_dual_conv_dx`` +
-``up_dual_conv_dtaps``. The act prologue's (mul, add) get their gradients
-d_mul, d_add from the dx kernel.
+the bias gradient from Σg_eff. dtaps are rounded to the taps' dtype. The act
+prologue's (mul, add) get their gradients d_mul, d_add from the dx kernel.
+
+Two backward routes, chosen per call by the keyword ``merged_bwd`` (the
+model option of the same name picks it per kernel family, as
+``GENICONET_MERGED_BWD`` does in JAX):
+
+* split (the default): a dx and a dtaps kernel, ``phase_conv_dx`` +
+  ``phase_conv_dtaps`` / ``up_dual_conv_dx`` + ``up_dual_conv_dtaps`` /
+  ``ico_conv_s2s_dx`` + ``ico_conv_s2s_dtaps``;
+* merged: one kernel per conv, ``phase_conv_bwd`` (``_phase_conv_bwd``),
+  ``up_dual_conv_bwd`` (``_upd_bwd``'s merged branch) and
+  ``ico_conv_s2s_bwd`` (``_std_bwd``), which emit dx, dtaps, Σg_eff and
+  d_mul/d_add from one launch. A phase conv without an input cotangent
+  (``needs_dx=False``) keeps the dtaps kernel, as ``_pcs1_bwd`` does.
 
 The JAX signatures' ``fold_ok`` and ``fold_site`` are left out: they only
 choose, on the TPU, whether the fold runs inside the kernels or as an XLA
 pass before them (``_stats_geff``, the default for the standard conv). The
-math is the same; here it always runs inside. The standard conv's merged
-backward (``_std_bwd``, behind ``GENICONET_MERGED_BWD``) is not ported: its
-dx and dtaps are the two kernels above.
+math is the same; here it always runs inside, on both routes.
 """
 
 from __future__ import annotations
@@ -38,11 +47,12 @@ from __future__ import annotations
 import torch
 
 from geniconet_tpu_torch.ops.kernels.conv_kernel import (
-    ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
+    ico_conv_s2s_bwd, ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
 )
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    pair_head_bwd, pair_head_fwd, pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
-    up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
+    pair_head_bwd, pair_head_fwd, pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_bwd,
+    phase_conv_dtaps, phase_conv_dx, phase_conv_fwd, up_dual_conv_bwd, up_dual_conv_dtaps,
+    up_dual_conv_dx, up_dual_conv_fwd,
 )
 
 __all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv",
@@ -68,7 +78,8 @@ class _PhaseConv(torch.autograd.Function):
     phases, then n_sets stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, *tensors):
+    def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd,
+                *tensors):
         phases, taps = tensors[:4], tensors[4 : 4 + n_sets]
         biases = tensors[4 + n_sets : 4 + 2 * n_sets]
         mul, add = tensors[4 + 2 * n_sets :]
@@ -77,14 +88,14 @@ class _PhaseConv(torch.autograd.Function):
                            with_stats)
         sets, stats = r if with_stats else (r, [])
         outs = [o for group in sets for o in group]
-        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx,
+        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd,
                         [b is not None for b in biases])
         ctx.save_for_backward(*phases, *taps, mul, add, *(outs if with_stats else ()))
         return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, out_phases, n_sets, with_stats, needs_dx, has_bias = ctx.settings
+        corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, has_bias = ctx.settings
         saved = ctx.saved_tensors
         phases, taps = saved[:4], saved[4 : 4 + n_sets]
         mul, add = saved[4 + n_sets : 6 + n_sets]
@@ -92,42 +103,49 @@ class _PhaseConv(torch.autograd.Function):
         n_out, dt, cin = len(out_phases), phases[0].dtype, phases[0].shape[-1]
         g_groups = _groups(grads, n_sets, n_out)
         fk = _fold_kwargs(with_stats, saved[6 + n_sets :], grads[n_sets * n_out :], n_sets, n_out)
+        sets = [(t, None) for t in taps]
         dphases, dmul, dadd, gsums = (None,) * 4, None, None, None
-        if needs_dx:
-            dphases, dmul, dadd, gsums = phase_conv_dx(
-                g_groups, [(t, None) for t in taps], corner_mode, out_phases, cin, dt, act,
-                phases, **fk)
-        # the bias gradient rides the dtaps kernel unless the dx kernel made it
-        want_gsum = gsums is None and any(has_bias)
-        r = phase_conv_dtaps(phases, g_groups, [t.shape for t in taps], corner_mode, out_phases,
-                             act, emit_gsum=want_gsum, **fk)
-        dtaps, gsums = r if want_gsum else (r, gsums)
+        if needs_dx and merged_bwd:
+            dphases, dtaps, gsums, dmul, dadd = phase_conv_bwd(
+                phases, g_groups, fk.get("y_groups"), fk.get("gs_list"), sets, corner_mode,
+                out_phases, act, with_stats, dt)
+        else:
+            if needs_dx:
+                dphases, dmul, dadd, gsums = phase_conv_dx(
+                    g_groups, sets, corner_mode, out_phases, cin, dt, act, phases, **fk)
+            # the bias gradient rides the dtaps kernel unless the dx kernel made it
+            want_gsum = gsums is None and any(has_bias)
+            r = phase_conv_dtaps(phases, g_groups, [t.shape for t in taps], corner_mode,
+                                 out_phases, act, emit_gsum=want_gsum, **fk)
+            dtaps, gsums = r if want_gsum else (r, gsums)
         dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
-        return (None,) * 5 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
+        return (None,) * 6 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
                               dmul, dadd)
 
 
 def fused_phase_conv_s1(phases, taps, bias, corner_mode="average", act=None, with_stats=False,
-                        needs_dx=True):
+                        needs_dx=True, merged_bwd: bool = False):
     """Stride-1 hex conv in phase form: 4 phases in -> 4 phases out.
 
     act: optional float32 (mul, add) (C_in,) BN-apply + ReLU prologue.
     with_stats: also return the (2, C_out) float32 [Σy, Σy²] of the output.
-    needs_dx=False skips the input-cotangent kernel (for data inputs)."""
+    needs_dx=False skips the input-cotangent kernel (for data inputs).
+    merged_bwd: the backward as one merged kernel (with needs_dx)."""
     mul, add = act if act is not None else (None, None)
-    r = _PhaseConv.apply(corner_mode, _ALL, 1, with_stats, needs_dx, *phases, taps, bias,
-                         mul, add)
+    r = _PhaseConv.apply(corner_mode, _ALL, 1, with_stats, needs_dx, merged_bwd, *phases, taps,
+                         bias, mul, add)
     return (tuple(r[:4]), r[4]) if with_stats else tuple(r)
 
 
 def fused_dual_s2_conv(phases, taps_a, bias_a, taps_b, bias_b, corner_mode="average", act=None,
-                       with_stats=False):
+                       with_stats=False, merged_bwd: bool = False):
     """Both stride-2 convs of a DownBlock in one kernel: the 4 parity phases
     of the level-s input -> (y_a, y_b), standard level-(s-1) tensors
-    (output phase 2 of the phase conv) [+ their (2, C) stats]."""
+    (output phase 2 of the phase conv) [+ their (2, C) stats]. merged_bwd:
+    the backward as one merged kernel."""
     mul, add = act if act is not None else (None, None)
-    return _PhaseConv.apply(corner_mode, (2,), 2, with_stats, True, *phases, taps_a, taps_b,
-                            bias_a, bias_b, mul, add)
+    return _PhaseConv.apply(corner_mode, (2,), 2, with_stats, True, merged_bwd, *phases, taps_a,
+                            taps_b, bias_a, bias_b, mul, add)
 
 
 class _UpDual(torch.autograd.Function):
@@ -135,34 +153,39 @@ class _UpDual(torch.autograd.Function):
     phases, then 2 stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, with_stats, x, taps_a, bias_a, taps_b, bias_b):
+    def forward(ctx, corner_mode, with_stats, merged_bwd, x, taps_a, bias_a, taps_b, bias_b):
         r = up_dual_conv_fwd(x, [(taps_a, bias_a), (taps_b, bias_b)], corner_mode, with_stats)
         sets, stats = r if with_stats else (r, [])
         outs = [*sets[0], *sets[1]]
-        ctx.settings = (corner_mode, with_stats, bias_a is not None, bias_b is not None)
+        ctx.settings = (corner_mode, with_stats, merged_bwd, bias_a is not None,
+                        bias_b is not None)
         ctx.save_for_backward(x, taps_a, taps_b, *(outs if with_stats else ()))
         return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, with_stats, has_a, has_b = ctx.settings
+        corner_mode, with_stats, merged_bwd, has_a, has_b = ctx.settings
         x, taps_a, taps_b, *ys = ctx.saved_tensors
         g_groups = _groups(grads, 2, 4)
         fk = _fold_kwargs(with_stats, ys, grads[8:], 2, 4)
-        dx, gsums = up_dual_conv_dx(g_groups, [(taps_a, None), (taps_b, None)], corner_mode,
-                                    x.dtype, emit_gsum=has_a or has_b, **fk)
-        dta, dtb = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
+        sets = [(taps_a, None), (taps_b, None)]
+        if merged_bwd:
+            dx, dta, dtb, *gsums = up_dual_conv_bwd(x, g_groups, sets, corner_mode, **fk)
+        else:
+            dx, gsums = up_dual_conv_dx(g_groups, sets, corner_mode, x.dtype,
+                                        emit_gsum=has_a or has_b, **fk)
+            dta, dtb = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
         dba = gsums[0].to(taps_a.dtype) if has_a else None
         dbb = gsums[1].to(taps_b.dtype) if has_b else None
-        return None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
+        return None, None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
 
 
 def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
-                       with_stats=False):
+                       with_stats=False, merged_bwd: bool = False):
     """An UpBlock's upsample + both first convs, fused: standard level-s
     (B, 5, h, w, C_in) in -> two 4-tuples of level-(s+1) phases [+ the two
-    (2, C_out) stats]."""
-    r = _UpDual.apply(corner_mode, with_stats, x, taps_a, bias_a, taps_b, bias_b)
+    (2, C_out) stats]. merged_bwd: the backward as one merged kernel."""
+    r = _UpDual.apply(corner_mode, with_stats, merged_bwd, x, taps_a, bias_a, taps_b, bias_b)
     out = (tuple(r[0:4]), tuple(r[4:8]))
     return (*out, r[8], r[9]) if with_stats else out
 
@@ -172,30 +195,34 @@ class _IcoConv(torch.autograd.Function):
     Outputs: y, then its stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, with_stats, x, taps, bias, mul, add):
+    def forward(ctx, corner_mode, with_stats, merged_bwd, x, taps, bias, mul, add):
         act = None if mul is None else (mul, add)
         r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats)
         y = r[0] if with_stats else r
-        ctx.settings = (corner_mode, with_stats, bias is not None)
+        ctx.settings = (corner_mode, with_stats, merged_bwd, bias is not None)
         ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
         return r
 
     @staticmethod
     def backward(ctx, gy, gst=None):
-        corner_mode, with_stats, has_bias = ctx.settings
+        corner_mode, with_stats, merged_bwd, has_bias = ctx.settings
         x, taps, mul, add, y = ctx.saved_tensors
         act = None if mul is None else (mul, add)
         gy = gy.contiguous()
         fk = dict(y=y, gs=gst.float().contiguous()) if with_stats else {}
-        dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
-                                               emit_gsum=has_bias, **fk)
-        dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
+        if merged_bwd:
+            dx, dtaps, gsum, dmul, dadd = ico_conv_s2s_bwd(
+                x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype)
+        else:
+            dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
+                                                   emit_gsum=has_bias, **fk)
+            dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
         dbias = gsum.to(taps.dtype) if has_bias else None
-        return None, None, dx, dtaps, dbias, dmul, dadd
+        return None, None, None, dx, dtaps, dbias, dmul, dadd
 
 
 def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", stride=1, act=None,
-                       with_stats=False):
+                       with_stats=False, merged_bwd: bool = False):
     """Standard-layout hex conv (B, 5, h, w, C_in) -> (B, 5, h, w, C_out),
     stride 1, with its hand-written backward.
 
@@ -203,13 +230,14 @@ def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", strid
     ReLU prologue; with_stats: also return the (2, C_out) float32 [Σy, Σy²],
     a differentiable output. The backward kernels give dx (with the act
     adjoint and d_mul, d_add), dtaps rounded to x's dtype, and the bias
-    gradient Σg_eff. Stride 2 runs in phase form (``fused_dual_s2_conv``).
-    ``subdivisions`` keeps the JAX signature; the kernels take the level from
-    x's shape."""
+    gradient Σg_eff; with ``merged_bwd`` all from one merged kernel. Stride 2
+    runs in phase form (``fused_dual_s2_conv``). ``subdivisions`` keeps the
+    JAX signature; the kernels take the level from x's shape."""
     if stride != 1:
         raise ValueError("fused_ico_conv_s2s: stride 1 only; stride 2 is fused_dual_s2_conv")
     mul, add = act if act is not None else (None, None)
-    return _IcoConv.apply(corner_mode, with_stats, x.contiguous(), taps, bias, mul, add)
+    return _IcoConv.apply(corner_mode, with_stats, merged_bwd, x.contiguous(), taps, bias, mul,
+                          add)
 
 
 class _PairHead(torch.autograd.Function):

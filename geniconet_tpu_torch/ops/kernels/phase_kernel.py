@@ -15,7 +15,11 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
   (``_phase_conv_dx`` / ``_phase_conv_dtaps``);
 * ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
-  (the two kernels of ``_upd_bwd``).
+  (the two kernels of ``_upd_bwd``);
+* ``phase_conv_bwd`` -> ``csrc/phase_conv_bwd.cu`` (``_phase_conv_bwd``) and
+  ``up_dual_conv_bwd`` -> ``csrc/up_conv_bwd.cu`` (``_upd_bwd``'s merged
+  branch): the merged one-pass backward, every output of the split pair
+  (dx with the act adjoint, dtaps, Σg_eff, d_mul/d_add) from one launch.
 
 The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
 ``gs_list`` (the forward outputs and the cotangents of their stats) switch
@@ -48,7 +52,8 @@ __all__ = [
     "pair_head_mse_bwd", "pair_head_mse_bwd_plain",
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
-    "up_dual_conv_dtaps_plain", "stats_plain", "geff_plain",
+    "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
+    "up_dual_conv_bwd_plain", "stats_plain", "geff_plain",
 ]
 
 _OUT_PHASES = ((0, 1, 2, 3), (2,))
@@ -364,6 +369,81 @@ def phase_conv_dtaps(phases, g_groups, tap_shapes, corner_mode, out_phases, act=
     return (tuple(dtaps), gsums) if emit_gsum else tuple(dtaps)
 
 
+def phase_conv_bwd_plain(raw_phases, g_groups, y_groups, gs_list, tap_sets, corner_mode,
+                         out_phases, act, with_stats, out_dtype):
+    """Plain version of ``phase_conv_bwd``: ``phase_conv_dx_plain`` and
+    ``phase_conv_dtaps_plain`` over one shared fold."""
+    g_groups = _fold_groups(g_groups, y_groups if with_stats else None, gs_list)
+    cin = raw_phases[0].shape[-1]
+    dphases, dmul, dadd, _ = phase_conv_dx_plain(g_groups, tap_sets, corner_mode, out_phases, cin,
+                                                 out_dtype, act, raw_phases)
+    dtaps, gsums = phase_conv_dtaps_plain(raw_phases, g_groups, [t.shape for t, _ in tap_sets],
+                                          corner_mode, out_phases, act, emit_gsum=True)
+    return dphases, list(dtaps), gsums, dmul, dadd
+
+
+def phase_conv_bwd(raw_phases, g_groups, y_groups, gs_list, tap_sets, corner_mode, out_phases,
+                   act, with_stats, out_dtype):
+    """The merged phase-conv backward (the Pallas ``_phase_conv_bwd``): dx,
+    dtaps and Σg_eff of one conv in one launch.
+
+    raw_phases: the forward's 4 RAW input phases (B, 5, h, w, C_in); g_groups:
+    per tap set, the cotangents of its ``out_phases`` outputs; with
+    ``with_stats``, y_groups / gs_list switch on the fold g_eff = g + gs0 +
+    2·gs1·y; tap_sets: (taps, bias) as in the forward (bias is not read);
+    act: the forward's prologue, which makes dx the raw input's cotangent
+    and adds d_mul, d_add; out_dtype: the activation dtype. Returns (4
+    dphases in out_dtype, per-set float32 dtaps (7, C_in, C_out), per-set
+    float32 Σg_eff (C_out,), d_mul, d_add (float32 (C_in,), or None without
+    act))."""
+    out_phases = _check_out_phases(out_phases, "phase_conv_bwd")
+    x0 = raw_phases[0]
+    if not on_cuda(x0, "phase_conv_bwd"):
+        return phase_conv_bwd_plain(raw_phases, g_groups, y_groups, gs_list, tap_sets,
+                                    corner_mode, out_phases, act, with_stats, out_dtype)
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    dev, dt = x0.device, x0.dtype
+    if out_dtype != dt:
+        raise TypeError(f"phase_conv_bwd: out_dtype {out_dtype} is not the input's {dt}")
+    n_sets, n_out = len(tap_sets), len(out_phases)
+    if len(raw_phases) != 4 or len(g_groups) != n_sets or any(len(g) != n_out for g in g_groups):
+        raise ValueError("phase_conv_bwd: 4 phases, one cotangent per tap set and output phase")
+    for i, p in enumerate(raw_phases):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"phase_conv_bwd phase {i}")
+    cout = _check_sets(tap_sets, cin, dt, dev, "phase_conv_bwd")
+    if not with_stats:
+        y_groups = gs_list = None
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
+                      "phase_conv_bwd")
+    check_act(act, cin, dev, "phase_conv_bwd")
+    M = 5 * h * w
+    dphases = [torch.empty((B, 5, h, w, cin), dtype=dt, device=dev) for _ in range(4)]
+    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, out_phases)
+    table = device_table("phase", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    red = dmul = dadd = None
+    if act is not None:
+        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
+        dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
+    kc, n_chunks, ws, gpart = build.merged_scratch(B * n_out * M, cin, n_sets * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    gsums = [torch.empty(cout, dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_phase_conv_bwd(
+            build.ptr_array(raw_phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
+            *_pair([t for t, _ in tap_sets]), build.ptr_array(dphases), offsets.data_ptr(),
+            cells.data_ptr(), weights.data_ptr(), table.data_ptr(), build.ptr(red),
+            build.ptr(dmul), build.ptr(dadd), ws.data_ptr(), *_pair(dtaps), gpart.data_ptr(),
+            *_pair(gsums), B, h, w, cin, cout, n_sets, out_phases[0], n_out, kc, n_chunks,
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("phase_conv_bwd", err)
+    build.LAUNCHES["phase_conv_bwd"] += 1
+    return tuple(dphases), dtaps, gsums, dmul, dadd
+
+
 # --------------------------------------------------------------------------
 # upsample + dual conv (fused_up_dual_conv)
 # --------------------------------------------------------------------------
@@ -513,6 +593,55 @@ def up_dual_conv_dtaps(x, g_groups, corner_mode, y_groups=None, gs_list=None):
     build.check("up_dual_conv_dtaps", err)
     build.LAUNCHES["up_dual_conv_dtaps"] += 1
     return tuple(dtaps)
+
+
+def up_dual_conv_bwd_plain(x, g_groups, tap_sets, corner_mode, y_groups=None, gs_list=None):
+    """Plain version of ``up_dual_conv_bwd``: ``up_dual_conv_dx_plain`` and
+    ``up_dual_conv_dtaps_plain`` over one shared fold."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    dx, gsums = up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, x.dtype, emit_gsum=True)
+    dta, dtb = up_dual_conv_dtaps_plain(x, g_groups, corner_mode)
+    return dx, dta, dtb, *gsums
+
+
+def up_dual_conv_bwd(x, g_groups, tap_sets, corner_mode, y_groups=None, gs_list=None):
+    """The merged up-conv backward (``_upd_bwd``'s merged branch): dx, both
+    sets' dtaps and Σg_eff in one launch.
+
+    x: the forward's (B, 5, h, w, C_in) level-s grid; g_groups: the two tap
+    sets' 4 level-(s+1) phase cotangents (B, 5, h, w, C_out) in x's dtype;
+    tap_sets: the two (taps, bias) (bias is not read); y_groups / gs_list
+    switch on the fold. Returns (dx in x's dtype, dtaps_a, dtaps_b float32
+    (7, C_in, C_out), Σg_eff a, Σg_eff b float32 (C_out,))."""
+    if not on_cuda(x, "up_dual_conv_bwd"):
+        return up_dual_conv_bwd_plain(x, g_groups, tap_sets, corner_mode, y_groups, gs_list)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    expect(x, (B, 5, h, w, cin), dt, dev, "up_dual_conv_bwd x")
+    if len(tap_sets) != 2 or len(g_groups) != 2 or any(len(g) != 4 for g in g_groups):
+        raise ValueError("up_dual_conv_bwd: 2 tap sets, each with 4 cotangent phases")
+    cout = _check_sets(tap_sets, cin, dt, dev, "up_dual_conv_bwd")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
+                      "up_dual_conv_bwd")
+    dx = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev)
+    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
+    conv_table = device_table("phase", h, w, corner_mode, dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    kc, n_chunks, ws, gpart = build.merged_scratch(B * 4 * 5 * h * w, cin, 2 * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(2)]
+    gsums = [torch.empty(cout, dtype=torch.float32, device=dev) for _ in range(2)]
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_dual_conv_bwd(
+            x.data_ptr(), gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), dx.data_ptr(),
+            offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(), conv_table.data_ptr(),
+            up_table.data_ptr(), ws.data_ptr(), *_pair(dtaps), gpart.data_ptr(), *_pair(gsums),
+            B, h, w, cin, cout, 2, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_dual_conv_bwd", err)
+    build.LAUNCHES["up_dual_conv_bwd"] += 1
+    return dx, *dtaps, *gsums
 
 
 # --------------------------------------------------------------------------

@@ -20,7 +20,10 @@ kld) / lr / finite / grad_norm. The loss takes one of three branches:
   then ``p2p_loss``.
 
 The models are the JAX defaults, ``pallas_blocks=None``: every block on the
-kernels, forward with BatchNorm sums and hand-written backward. The JAX
+kernels, forward with BatchNorm sums and hand-written backward; with
+``merged_bwd`` (the JAX package's ``GENICONET_MERGED_BWD``, here a
+constructor argument) the backward of the named kernel families runs on
+the merged one-pass kernels. The JAX
 package's TPU workarounds for the VAE at batch 24 and more (its split step
 and ``pallas_blocks`` default) are not ported. Epochs, validation and
 checkpoints are not ported yet.
@@ -56,9 +59,10 @@ class TrainState:
 
 class Trainer:
     """Owns the model and runs the train step, on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``. ``merged_bwd``: None, "all" or a comma list of
+    kernel families (``nn/layers.py:merged_bwd_enabled``)."""
 
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", merged_bwd: str | None = None):
         m = cfg.model
         self.cfg, self.device, self.s = cfg, devices.resolve(device), m.subdivisions
         self.is_vae = m.is_vae
@@ -67,10 +71,10 @@ class Trainer:
         dtype = _DTYPES[m.compute_dtype]
         if self.is_vae:
             self.model = IcoVAE(m.subdivisions, tuple(m.widths), m.latent_features,
-                                m.corner_mode, dtype, device=self.device)
+                                m.corner_mode, dtype, merged_bwd=merged_bwd, device=self.device)
         else:
             self.model = IcoAE(m.subdivisions, tuple(m.widths), m.corner_mode, dtype,
-                               device=self.device)
+                               merged_bwd=merged_bwd, device=self.device)
         o = cfg.optim
         self.lr_fn = partial(cyclic_triangular, base_lr=o.lr_base, max_lr=o.lr_max,
                              step_size_up=o.step_size_up, step_size_down=o.step_size_down)

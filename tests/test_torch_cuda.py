@@ -372,3 +372,138 @@ def test_default_training_route_launches_every_training_kernel(cuda):
         if ".conv" in k and k.endswith(".bias"):
             scale = dict(model.named_parameters())[k[: -len("bias")] + "taps"].grad.abs().max()
         assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-3 * float(scale), k
+
+
+# ---------------------------------------------------------------------------
+# the merged one-pass backward: kernels i, j and k
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 4])
+def test_phase_conv_bwd(cuda, s, corner_mode, dt):
+    """Kernel i against its plain version: both output-phase modes, 1 and 2
+    sets, with and without the act prologue and the stats fold."""
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=100 + s)
+    phases = tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+    mk, gs = _stats_fold(cuda, dt, phases[0].shape[:-1] + (20,), 2, seed=s)
+    for out_phases, n, a, fold in [((0, 1, 2, 3), 1, act, True), ((2,), 2, act, True),
+                                   ((0, 1, 2, 3), 1, None, False), ((2,), 2, None, True)]:
+        g = mk(len(out_phases))[:n]
+        y = mk(len(out_phases))[:n] if fold else None
+        args = (phases, g, y, gs[:n] if fold else None, sets[:n], corner_mode, out_phases, a,
+                fold, dt)
+        got = pk.phase_conv_bwd(*args)
+        assert [d.dtype for d in got[1] + got[2]] == [torch.float32] * (2 * n)
+        _close_all(got, pk.phase_conv_bwd_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [0, 3])
+def test_up_dual_conv_bwd(cuda, s, corner_mode, dt):
+    """Kernel j against its plain version, with and without the fold."""
+    x, _, sets = _inputs(cuda, dt, s, 12, 20, seed=110 + s)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (20,), 2, seed=s)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        _close_all(pk.up_dual_conv_bwd(x, g, sets, corner_mode, **fk),
+                   pk.up_dual_conv_bwd_plain(x, g, sets, corner_mode, **fk), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 4])
+def test_ico_conv_bwd(cuda, s, corner_mode, dt):
+    """Kernel k against its plain version: act and fold on and off; dtaps
+    in the activation dtype."""
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=120 + s)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (20,), 1, seed=s)
+    for a, fold in [(act, True), (None, False), (act, False), (None, True)]:
+        g, y = mk(1)[0][0], mk(1)[0][0]
+        args = (x, g, sets[0][0], y if fold else None, gs[0] if fold else None, corner_mode, a,
+                fold, dt)
+        got = ck.ico_conv_s2s_bwd(*args)
+        assert got[1].dtype == dt
+        _close_all(got, ck.ico_conv_s2s_bwd_plain(*args), dt)
+
+
+def test_merged_wrappers_check_their_inputs(cuda):
+    x, act, sets = _inputs(cuda, torch.float32, 2, 8, 8, seed=2)
+    phases = tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+    g = [[torch.zeros_like(phases[0]) for _ in range(4)]]
+    with pytest.raises(TypeError):  # out_dtype is not the activations'
+        pk.phase_conv_bwd(phases, g, None, None, sets[:1], "average", (0, 1, 2, 3), act, False,
+                          torch.bfloat16)
+    with pytest.raises(ValueError):  # one tap set: the up conv takes two
+        pk.up_dual_conv_bwd(x, [[torch.zeros_like(x)] * 4], sets[:1], "average")
+    with pytest.raises(ValueError):  # g on the CPU
+        ck.ico_conv_s2s_bwd(x, x.cpu(), sets[0][0])
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_merged_training_route_launches_the_merged_kernels(cuda, model):
+    """One training forward and backward with ``merged_bwd="all"`` on the
+    card: kernels i, j and k launch, the split dx kernels and the split
+    up-conv and standard-conv dtaps do not (``conv_in`` keeps its
+    ``phase_conv_dtaps``). The merged kernels run the split kernels' dx and
+    dtaps tiles on the same work split, so every gradient equals the split
+    route's on the card bit for bit, but for the conv biases (Σg_eff summed
+    in another order; each feeds a BatchNorm, so its exact gradient is 0 and
+    it is held against its taps' scale); the loss matches the CPU's."""
+    s, widths, latent = 4, (8, 16, 16), 8
+    vae = model == "ico2ico_vae"
+    variables = bridge.init_variables(s, widths, seed=1, random_stats=True, model=model,
+                                      latent_features=latent)
+    gen = torch.Generator().manual_seed(4)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    eps = torch.randn(4, 5 * 2 ** (s - 3), 2 ** (s - 2), latent, generator=gen)
+    tpack = torch.randn(4, 5, 2 ** (s - 1), 2**s, 12, generator=gen)
+    tpoles = torch.randn(4, 6, generator=gen)
+    cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
+           torch.randn(eps.shape, generator=gen)]
+
+    def run(route, dev):
+        from unittest import mock
+
+        import geniconet_tpu_torch.nn.models as models
+
+        net = (IcoVAE(s, widths, latent, merged_bwd=route) if vae
+               else IcoAE(s, widths, merged_bwd=route))
+        net.load_state_dict(bridge.flax_to_state_dict(variables))
+        net.to(dev)
+        build.reset_launches()
+        if vae:
+            def fixed(mu, logvar, generator=None):
+                return eps.to(dev) * torch.exp(0.5 * logvar) + mu
+
+            with mock.patch.object(models, "reparameterize", fixed):
+                outs = net(x.to(dev), train=True)
+            loss = sum((o * c.to(dev)).sum() for o, c in zip(outs, cts))
+        else:
+            loss = net.recon_sse(x.to(dev), tpack.to(dev), tpoles.to(dev), train=True).sum()
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return loss.item(), dict(build.LAUNCHES), {k: p.grad.cpu() for k, p in
+                                                   net.named_parameters()}
+
+    loss, launches, grads = run("all", cuda)
+    head = ("pair_head_fwd", "pair_head_bwd") if vae else ("pair_head_mse_fwd",
+                                                           "pair_head_mse_bwd")
+    assert set(launches) == {
+        "phase_conv_fwd", "up_dual_conv_fwd", "ico_conv_s2s_fwd", "phase_conv_bwd",
+        "up_dual_conv_bwd", "ico_conv_s2s_bwd", "phase_conv_dtaps", *head}
+    assert launches["phase_conv_dtaps"] == 1  # conv_in, which has no dx
+    split_loss, _, split = run(None, cuda)
+    assert loss == split_loss
+    for k, g in grads.items():
+        if "conv" in k and k.endswith(".bias"):
+            err = (g - split[k]).abs().max().item()
+            assert err <= 1e-5 * split[k[: -len("bias")] + "taps"].abs().max().item(), k
+        else:
+            assert torch.equal(g, split[k]), k
+    ref_loss, _, _ = run("all", "cpu")
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
