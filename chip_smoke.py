@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Six paths at full width (s=5, widths 64/128/256; the VAE's latent 512):
-AE serving, AE training, VAE serving, VAE training, and AE and VAE training
-on the merged backward route (``merged_bwd="all"``). Phases, each printed
-on its own lines, each fatal on failure:
+Eleven paths at full width (s=5, widths 64/128/256; the VAE's latent 512):
+AE serving, AE training, VAE serving, VAE training, AE and VAE training on
+the merged backward route (``merged_bwd="all"``), and the encoder's phase
+chain (``phase_chain="enc"``: kernel m): AE serving, AE and VAE training,
+AE training on the merged route, and AE training with the stats fold
+outside the kernels (``kernel_geff=""``, JAX's built-in fold set: kernel
+l). Phases, each printed on its own lines, each fatal on failure:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: compile ``geniconet_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
+2. build: compile ``geniconet_tpu_torch/csrc/*.cu`` (sm_90a; one nvcc per
+   source, all started together, then one link);
 3. kernel vs plain, serving: each of the four forward kernels against its
    plain PyTorch version at the shapes the AE and VAE serving paths give it
    (B=16), in float32 (TF32 off) and bfloat16, with the error against the
@@ -27,31 +31,40 @@ on its own lines, each fatal on failure:
    three merged backward kernels (i, j, k) also print the time of the
    split pair they replace at the same shape (its dx call, with the Σg
    pass, and its dtaps call, each timed alone: they run the merged
-   kernel's two tile roles on their own) and cuDNN's dx + dweight;
+   kernel's two tile roles on their own) and cuDNN's dx + dweight; kernel
+   m (``ds2s_*``) at the chain's DownBlock shapes and l (``stats_geff``)
+   at each group it folds on the chain, with the phase conv's kernels at
+   the chain's conv01 shapes; l at down0 also prints what the fold costs
+   inside m's dx + dtaps (those two with and without it). l's time comes
+   from a ``torch.profiler`` trace: CUDA events around a call that short
+   measure its wrapper's host time;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
    and float32; every mesh must have 10,242 finite vertices, every serving
    kernel must have launched on each path, and two float32 decodes must
-   match the same model run through the plain route on the CPU;
+   match the same model run through the plain route on the CPU; then the
+   AE on the chain, whose latent cache must match the unchained one;
 6. timings: p50 single-mesh decode latency and encode+decode meshes/s at B=16;
 7. training: the AE ``Trainer`` and the VAE ``Trainer`` (the default
    routing, every block on the kernels; the AE's loss from the head+MSE
    kernel, the VAE's from the head kernel and the P2P+KLD loss), each on
-   the default backward route and on the merged one (``merged_bwd="all"``),
-   take 12 Adam steps each at B=36 on 64 synthetic meshes, in bfloat16 and
-   float32; every loss must be finite, every kernel of each path must have
-   launched and none of the other route's backward kernels, and training
-   meshes/s is the median of the last 10 steps; then one float32 step of
-   each model and route at B=4 (the VAE's eps fixed) must match the same
-   step on the CPU's plain route (loss, every gradient, the new BatchNorm
+   the default backward route, the merged one (``merged_bwd="all"``) and
+   the phase chain (the AE's also chained on the merged route and with the
+   fold outside), take 8 Adam steps each at B=36 on 64 synthetic meshes,
+   in bfloat16 and float32; every loss must be finite, every kernel of
+   each path must have launched and none that the path must not run
+   (``PATH_FORBIDDEN``), and training meshes/s is the median of the last 6
+   steps; then one float32 step of each model and routing at B=4 (the
+   VAE's eps fixed) must match the same step on the CPU's plain route of
+   the same chain setting (loss, every gradient, the new BatchNorm
    statistics), and each check must catch a 1% error planted in one kernel
-   output at a time; then whole training steps of the default routing, the
-   merged route and (the AE only) ``pallas_blocks="up0,up1,up2"`` (encoder
-   and head on cuDNN), in turns at B=36 bfloat16, side by side;
+   output at a time; then whole training steps of each model's routings
+   (the AE's also ``pallas_blocks="up0,up1,up2"``, encoder and head on
+   cuDNN), in turns at B=36 bfloat16, side by side;
 8. profile: where the device time goes in the timed serving workloads and
-   in AE and VAE training steps on both routes (bfloat16), read from a
-   ``torch.profiler``
+   in AE and VAE training steps on every training path (bfloat16), read
+   from a ``torch.profiler``
    trace, with the device's idle share; the Chrome traces are kept in
    ``build/profile/``.
 
@@ -61,7 +74,7 @@ path), its bf16 time, its plain version's, its bound and the library
 call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
 ``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
-shapes and the VAE's new shapes); the last is ``{"ok": true, "device":
+shapes, the VAE's new shapes and the chain's); the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits with an error before
 printing any result.
 """
@@ -87,7 +100,7 @@ BATCH = 16
 N_MESHES = 32
 TRAIN_BATCH = 36
 TRAIN_MESHES = 64
-TRAIN_STEPS, TRAIN_WARMUP = 12, 2
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # times each output's max|ref|
 TOL_WHY = {
     torch.float32: "only the order of the float32 sums differs",
@@ -97,6 +110,7 @@ TOL_WHY = {
 # tensor cores, float32 on the CUDA cores, device memory bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+_ALL = (0, 1, 2, 3)
 KERNELS = {
     "phase_conv_fwd": ("geniconet_tpu_torch/csrc/phase_conv.cu",
                        "geniconet_tpu/ops/pallas/phase_kernel.py:1272"),
@@ -130,6 +144,14 @@ KERNELS = {
                          "geniconet_tpu/ops/pallas/phase_kernel.py:2068"),
     "ico_conv_s2s_bwd": ("geniconet_tpu_torch/csrc/ico_conv_bwd.cu",
                          "geniconet_tpu/ops/pallas/conv_kernel.py:601"),
+    "stats_geff": ("geniconet_tpu_torch/csrc/stats_geff.cu",
+                   "geniconet_tpu/ops/pallas/phase_kernel.py:1462"),
+    "ds2s_fwd": ("geniconet_tpu_torch/csrc/ds2s.cu",
+                 "geniconet_tpu/ops/pallas/phase_kernel.py:1818"),
+    "ds2s_dx": ("geniconet_tpu_torch/csrc/ds2s.cu",
+                "geniconet_tpu/ops/pallas/phase_kernel.py:1895"),
+    "ds2s_dtaps": ("geniconet_tpu_torch/csrc/ds2s.cu",
+                   "geniconet_tpu/ops/pallas/phase_kernel.py:1936"),
 }
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
@@ -137,6 +159,13 @@ _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_co
 # the merged route: i, j, k, and conv_in's dtaps (it has no input cotangent)
 _MERGED = ("phase_conv_bwd", "up_dual_conv_bwd", "ico_conv_s2s_bwd", "phase_conv_dtaps")
 _AE_HEAD = ("pair_head_mse_fwd", "pair_head_mse_bwd")
+# the phase chain: m in place of the DownBlocks' stride-2 phase conv and
+# standard conv01 (conv01 runs as the phase conv); l with the fold outside
+_STD = ("ico_conv_s2s_fwd", "ico_conv_s2s_dx", "ico_conv_s2s_dtaps", "ico_conv_s2s_bwd")
+_CHAIN = ("ds2s_fwd", "ds2s_dx", "ds2s_dtaps")
+_CHAIN_FWD = ("phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd")
+_CHAIN_SPLIT = (*_CHAIN[1:], "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx",
+                "up_dual_conv_dtaps")
 # the kernels each path must launch: the AE's training loss runs the
 # head+MSE pair (g, h), the VAE's the head and its backward (e)
 PATH_KERNELS = {
@@ -146,13 +175,35 @@ PATH_KERNELS = {
     "VAE serve": _FORWARD,
     "VAE train": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
     "VAE train (merged)": (*_FORWARD, *_MERGED, "pair_head_bwd"),
+    "AE serve (chain)": (*_CHAIN_FWD, "pair_head_fwd"),
+    "AE train (chain)": (*_CHAIN_FWD, *_CHAIN_SPLIT, *_AE_HEAD),
+    "VAE train (chain)": (*_CHAIN_FWD, *_CHAIN_SPLIT, "pair_head_fwd", "pair_head_bwd"),
+    "AE train (chain, merged)": (*_CHAIN_FWD, *_CHAIN[1:], *_MERGED[:2], "phase_conv_dtaps",
+                                 *_AE_HEAD),
+    "AE train (chain, fold outside)": (*_CHAIN_FWD, *_CHAIN_SPLIT, "stats_geff", *_AE_HEAD),
 }
 # ... and the kernels it must not launch: each backward route runs none of
-# the other's conv backward kernels
+# the other's conv backward kernels, the default paths neither l nor m, and
+# the chain none of the standard conv's
 _SPLIT_ONLY = tuple(k for k in _BACKWARD if k != "phase_conv_dtaps")
+_NEW = ("stats_geff", *_CHAIN)
 PATH_FORBIDDEN = {
-    "AE train": _MERGED[:3], "VAE train": _MERGED[:3],
-    "AE train (merged)": _SPLIT_ONLY, "VAE train (merged)": _SPLIT_ONLY,
+    "AE serve": _NEW, "VAE serve": _NEW,
+    "AE train": (*_MERGED[:3], *_NEW), "VAE train": (*_MERGED[:3], *_NEW),
+    "AE train (merged)": (*_SPLIT_ONLY, *_NEW), "VAE train (merged)": (*_SPLIT_ONLY, *_NEW),
+    "AE serve (chain)": _STD,
+    "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff"),
+    "VAE train (chain)": (*_STD, *_MERGED[:2], "stats_geff"),
+    "AE train (chain, merged)": (*_STD, *_SPLIT_ONLY, "stats_geff"),
+    "AE train (chain, fold outside)": (*_STD, *_MERGED[:2]),
+}
+# the training routings, by path: (merged_bwd, phase_chain, kernel_geff)
+ROUTES = {
+    "": (None, None, None),
+    " (merged)": ("all", None, None),
+    " (chain)": (None, "enc", None),
+    " (chain, merged)": ("all", "enc", None),
+    " (chain, fold outside)": (None, "enc", ""),
 }
 
 
@@ -179,6 +230,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def trace_ms(fn, reps: int = 20) -> float:
+    """Device time of fn() in ms: the kernels' durations in a torch.profiler
+    trace, per call. For a kernel shorter than its wrapper's host time, where
+    CUDA events around one call measure the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = Path(__file__).resolve().parent / "build" / "profile" / "kernel_case.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    return sum(e["dur"] for e in events if e.get("cat") == "kernel") / 1e3 / reps
+
+
 def _rnd(gen, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
@@ -194,12 +264,15 @@ def _taps(gen, cin, cout, dt):
 class Case:
     """One kernel call at one shape: the kernel and its plain version, the
     FLOPs the function needs, its input tensors (each read once), where
-    cuDNN computes the same contraction that call, and for a merged backward
-    kernel the split pair it replaces (its dx and its dtaps call)."""
+    cuDNN computes the same contraction that call, for a merged backward
+    kernel the split pair it replaces (its dx and its dtaps call), and
+    other calls to time beside it (``compare``: label -> call). ``short``:
+    the kernel is timed from a profiler trace (``trace_ms``)."""
 
-    def __init__(self, kernel, plain, flops, inputs, library=None, split=None):
+    def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
+                 short=False):
         self.kernel, self.plain, self.flops, self.library = kernel, plain, flops, library
-        self.split = split
+        self.split, self.compare, self.short = split, compare or {}, short
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
@@ -301,7 +374,30 @@ def serving_cases():
         ("phase_conv_fwd", "VAE heads s2 (4,8) 256->2x512", phase(4, 8, w2, LATENT, 2, (2,), False)),
         ("up_dual_conv_fwd", "VAE up0 (4,8) 512->2x256", up(4, 8, LATENT, w2)),
     ]
-    return [(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
+
+    def split(h, w, cin, cout, with_act):
+        def make(dt, gen):
+            ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            a = _act(gen, cin) if with_act else None
+            return Case(lambda: pk.ds2s_fwd(ph, sets, "average", a),
+                        lambda: pk.ds2s_fwd_plain(ph, sets, "average", a),
+                        conv_flops(B, 5 * h * w, cin, 2 * cout), [ph, sets, a],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
+        return make
+
+    # the phase chain (the AE's, and the VAE trunk's down0-1): m at the
+    # DownBlocks (an act prologue at down0 only), conv01 as the phase conv
+    chain = [
+        ("ds2s_fwd", "down0 s2 split (16,32) 64->2x128", split(16, 32, w0, w1, True)),
+        ("ds2s_fwd", "down1 s2 split (8,16) 128->2x256 (no act)", split(8, 16, w1, w2, False)),
+        ("ds2s_fwd", "down2 s2 split (4,8) 256->2x256 (no act)", split(4, 8, w2, w2, False)),
+        ("phase_conv_fwd", "down0 conv01 (8,16) 128->128", phase(8, 16, w1, w1, 1, _ALL, True)),
+        ("phase_conv_fwd", "down1 conv01 (4,8) 256->256", phase(4, 8, w2, w2, 1, _ALL, True)),
+        ("phase_conv_fwd", "down2 conv01 (2,4) 256->256", phase(2, 4, w2, w2, 1, _ALL, True)),
+    ]
+    return ([(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
+            + [(*c, "chain") for c in chain])
 
 
 def head_flops(B, h, w, c, F, backward=False):
@@ -362,12 +458,16 @@ def training_cases():
                         cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2))
         return make
 
-    def phase_bwd(which, h, w, cin, cout, n_sets, out_phases, with_act=True, emit_gsum=False):
+    def phase_bwd(which, h, w, cin, cout, n_sets, out_phases, with_act=True, emit_gsum=False,
+                  fold=True):
+        """A phase-conv dx or dtaps call; without the fold (the fold outside
+        the kernels) it gets neither y nor gs, and dtaps emits Σg."""
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
             a = _act(gen, cin) if with_act else None
             g, y, gs = cotangents(gen, dt, h, w, cout, n_sets, len(out_phases))
+            y, gs = (y, gs) if fold else (None, None)
             stride = 2 if out_phases == (2,) else 1
             flops = conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout)
             lib = cudnn(which, gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
@@ -377,9 +477,72 @@ def training_cases():
                 return Case(lambda: pk.phase_conv_dx(*args),
                             lambda: pk.phase_conv_dx_plain(*args), flops,
                             [g, [t for t, _ in sets], a, ph, y, gs], lib)
-            args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs, emit_gsum)
+            args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs,
+                    emit_gsum or not fold)
             return Case(lambda: pk.phase_conv_dtaps(*args),
                         lambda: pk.phase_conv_dtaps_plain(*args), flops, [ph, g, a, y, gs], lib)
+        return make
+
+    def split_fwd(h, w, cin, cout, with_act):
+        def make(dt, gen):
+            ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            a = _act(gen, cin) if with_act else None
+            return Case(lambda: pk.ds2s_fwd(ph, sets, "average", a, True),
+                        lambda: pk.ds2s_fwd_plain(ph, sets, "average", a, True),
+                        conv_flops(B, 5 * h * w, cin, 2 * cout), [ph, sets, a],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
+        return make
+
+    def split_bwd(which, h, w, cin, cout, with_act, fold):
+        """m's dx or dtaps on the level-s input phases (h, w): the 2 x 4
+        phase cotangents (h/2, w/2) with the fold in the kernel, or none
+        (the fold outside: dtaps then emits Σg)."""
+        def make(dt, gen):
+            ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            a = _act(gen, cin) if with_act else None
+            g, y, gs = cotangents(gen, dt, h // 2, w // 2, cout, 2, 4)
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            flops = conv_flops(B, 5 * h * w, cin, 2 * cout)
+            lib = cudnn(which, gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2)
+            if which == "dx":
+                args = (g, sets, "average", cin, dt, a, ph if a else None)
+                return Case(lambda: pk.ds2s_dx(*args, **fk), lambda: pk.ds2s_dx_plain(*args, **fk),
+                            flops, [g, [t for t, _ in sets], a, ph if a else None,
+                                    list(fk.values())], lib)
+            args = (ph, g, [(7, cin, cout)] * 2, "average", a)
+            return Case(lambda: pk.ds2s_dtaps(*args, **fk, emit_gsum=not fold),
+                        lambda: pk.ds2s_dtaps_plain(*args, **fk, emit_gsum=not fold), flops,
+                        [ph, g, a, list(fk.values())], lib)
+        return make
+
+    def geff(h, w, c, fold_cost=None):
+        """l over a group of 4 phases (B, 5, h, w, c); with ``fold_cost`` =
+        (h, w, cin) of m's input, also m's dx + dtaps with the fold in the
+        kernels and without it, whose difference is what l replaces."""
+        def make(dt, gen):
+            g = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            y = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+            gs = _rnd(gen, 2, c, scale=1e-3)
+            compare = {}
+            if fold_cost:
+                hi, wi, cin = fold_cost
+                ph = [_rnd(gen, B, 5, hi, wi, cin, dtype=dt) for _ in range(4)]
+                sets = [_taps(gen, cin, c, dt) for _ in range(2)]
+                a = _act(gen, cin)
+                gg = [g, [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]]
+                yy = [y, [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]]
+
+                def m_pair(fold):
+                    fk = dict(y_groups=yy, gs_list=[gs, gs]) if fold else {}
+                    pk.ds2s_dx(gg, sets, "average", cin, dt, a, ph, **fk)
+                    pk.ds2s_dtaps(ph, gg, [(7, cin, c)] * 2, "average", a, **fk,
+                                  emit_gsum=not fold)
+                compare = {"m dx + dtaps with the fold in-kernel": lambda: m_pair(True),
+                           "without it": lambda: m_pair(False)}
+            return Case(lambda: pk.stats_geff(g, y, gs), lambda: pk.geff_plain(g, y, gs),
+                        4 * 4 * B * 5 * h * w * c, [g, y, gs], compare=compare, short=True)
         return make
 
     def up_bwd(which, h, w, cin, cout):
@@ -561,8 +724,37 @@ def training_cases():
     vae += [("phase_conv_bwd", f"{heads[0]} fold",
              merged_bwd("phase", *heads[1], 2, (2,), with_act=False)),
             ("up_dual_conv_bwd", f"{up0[0]} fold", merged_bwd("up", *up0[1]))]
+    # the phase chain (the AE's, and the VAE trunk's down0-1): m at the
+    # DownBlocks with the fold in-kernel and (kernel_geff="") without; conv01
+    # as the phase conv at the level-(s-1) phases, also merged (i); l at
+    # each group it folds there (conv01 and m's outputs, per set; the
+    # decoder's conv01 at (16,32) 64)
+    chain = []
+    for k, (label, (h, w, cin, cout)) in enumerate(down):
+        label = label.replace("s2", "s2 split")
+        tail = "" if k == 0 else " (no act)"
+        chain.append(("ds2s_fwd", f"{label} {'act+' if k == 0 else ''}stats{tail}",
+                      split_fwd(h, w, cin, cout, k == 0)))
+        for which in ("dx", "dtaps"):
+            chain += [(f"ds2s_{which}", f"{label} {'act+' if k == 0 else ''}{f}{tail}",
+                       split_bwd(which, h, w, cin, cout, k == 0, f == "fold"))
+                      for f in ("fold", "no fold")]
+    conv01_chain = [("down0 conv01 (8,16) 128->128", (8, 16, w1, w1)),
+                    ("down1 conv01 (4,8) 256->256", (4, 8, w2, w2)),
+                    ("down2 conv01 (2,4) 256->256", (2, 4, w2, w2))]
+    for label, shape in conv01_chain:
+        chain.append(("phase_conv_fwd", f"{label} act+stats", phase_fwd(*shape)))
+        for which in ("dx", "dtaps"):
+            chain += [(f"phase_conv_{which}", f"{label} act+{f}",
+                       phase_bwd(which, *shape, 1, _ALL, fold=f == "fold"))
+                      for f in ("fold", "no fold")]
+        chain.append(("phase_conv_bwd", f"{label} act+fold", merged_bwd("phase", *shape, 1)))
+    chain += [("stats_geff", "down0 (8,16) 4x128", geff(8, 16, w1, fold_cost=(16, 32, w0))),
+              ("stats_geff", "down1 (4,8) 4x256", geff(4, 8, w2)),
+              ("stats_geff", "down2 (2,4) 4x256", geff(2, 4, w2)),
+              ("stats_geff", "up2 conv01 (16,32) 4x64", geff(16, 32, w0))]
     return ([(*c, "AE") for c in cases + merged] + [(*c, "AE no act") for c in no_act]
-            + [(*c, "VAE") for c in vae])
+            + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain])
 
 
 def flat(out):
@@ -612,8 +804,12 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                                   for e, s in errs)
             finite = all(bool(torch.isfinite(g).all()) for g in got)
             ms, plain_ms = cuda_ms(case.kernel, reps), cuda_ms(case.plain, reps)
+            event = ""
+            if case.short:  # the events measured the wrapper: the trace gives the kernel
+                event, ms = f" (CUDA events around one call: {ms:.4f} ms)", trace_ms(case.kernel)
             lib_ms = cuda_ms(case.library, reps) if case.library is not None else None
             split_ms = [cuda_ms(f, reps) for f in case.split] if case.split else None
+            compare_ms = {k: cuda_ms(f, reps) for k, f in case.compare.items()}
             b_ms, b_by = bound(case, got, dt)
             tag = "bf16" if dt == torch.bfloat16 else "fp32"
             lib = ("none" if lib_ms is None else
@@ -621,9 +817,10 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             split = ("" if split_ms is None else
                      f", split pair {sum(split_ms):.4f} ms (dx + Σg {split_ms[0]:.4f}, dtaps "
                      f"{split_ms[1]:.4f})")
+            split += "".join(f", {k} {v:.4f} ms" for k, v in compare_ms.items())
             print(f"[{phase}] {name} {label} {tag}: worst of {len(got)} outputs "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={rel:.3e} tol={TOL[dt]:.0e} "
-                  f"({TOL_WHY[dt]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"({TOL_WHY[dt]}); kernel {ms:.4f} ms{event}, plain {plain_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}), library {lib}{split} [{card}]", flush=True)
             if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
@@ -641,6 +838,8 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                         add(s, "split_ms", sum(split_ms))
                         add(s, "split_dx_ms", split_ms[0])
                         add(s, "split_dtaps_ms", split_ms[1])
+                    for k, v in compare_ms.items():
+                        s.setdefault("compare_ms", {})[f"{label}: {k}"] = v
             del case, got, ref
     for s in stats.values():
         for t in (s, *s["by_shapes"].values()):
@@ -668,7 +867,7 @@ def model_config(model: str, dtype_name: str):
     return cfg
 
 
-def serve(model: str, dtype_name: str, variables, card: str):
+def serve(model: str, dtype_name: str, variables, card: str, phase_chain=None):
     """Phase 5 for one model and compute dtype: load + requests. Returns the state."""
     from geniconet_tpu_torch import geometry as ico
     from geniconet_tpu_torch.app.server import handle_api
@@ -677,10 +876,10 @@ def serve(model: str, dtype_name: str, variables, card: str):
     cfg = model_config(model, dtype_name)
     cfg.data.synthetic = N_MESHES
     V = ico.num_vertices(SUBDIVISIONS)
-    tag = f"serve {model} {dtype_name}"
+    tag = f"serve {model} {dtype_name}{' phase_chain=' + phase_chain if phase_chain else ''}"
     st = AppState(device="cuda")
     t0 = time.perf_counter()
-    info = st.load(cfg, variables)
+    info = st.load(cfg, variables, phase_chain=phase_chain)
     torch.cuda.synchronize()
     print(f"[{tag}] load: {info['n']} meshes, latent {info['latent_shape']}, "
           f"{time.perf_counter() - t0:.2f} s (dataset build included)", flush=True)
@@ -724,6 +923,22 @@ def plain_route_check(st, card: str):
         raise AssertionError(f"kernel route differs from the plain route: {err}")
 
 
+def chain_cache_check(chained, unchained, dtype_name: str, card: str):
+    """The latent cache built through the phase chain against the unchained
+    one: eval BatchNorm uses the running statistics, so the two encoders
+    compute one function with other sums; within TOL of max|ref|."""
+    import numpy as np
+
+    dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
+    err = float(np.abs(chained.latents - unchained.latents).max())
+    scale = float(np.abs(unchained.latents).max())
+    print(f"[serve ico2ico {dtype_name} phase_chain='enc'] latent cache of {N_MESHES} meshes vs "
+          f"the unchained one: max_abs_err={err:.3e} max|ref|={scale:.3e} tol={TOL[dt]:.0e} x "
+          f"max|ref| ({TOL_WHY[dt]}) [{card}]", flush=True)
+    if not err <= TOL[dt] * scale:
+        raise AssertionError(f"the chained latent cache differs from the unchained one: {err}")
+
+
 def encode_decode(st, x):
     """The model's encode then decode of x (the VAE decodes its mu)."""
     z = st.model.encode(x)
@@ -741,7 +956,8 @@ def timings(st, dtype_name: str, card: str):
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     with torch.inference_mode():
         ms = cuda_ms(lambda: encode_decode(st, x), reps=10)
-    print(f"[timing {st.cfg.model.name} {dtype_name}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
+    chain = " phase_chain='enc'" if st.model.phase_chain else ""
+    print(f"[timing {st.cfg.model.name} {dtype_name}{chain}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
           f"latent in -> vertices out); encode+decode B={BATCH}: {ms:.3f} ms = "
           f"{BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
 
@@ -753,13 +969,17 @@ def kernel_group(event: dict) -> str:
         return event.get("cat", "other")  # gpu_memcpy, gpu_memset
     dtype = "bf16" if "bfloat16" in name else "fp32"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
+    # kernel m: the phase conv's GEMMs with the split store / split loader
+    split = ", split> (m)" if "true>" in name else ">"
     if "conv_gemm" in name:
         # phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad instantiation
-        return f"conv_gemm<{dtype}, {loader}>"
+        return f"conv_gemm<{dtype}, {loader}{split}"
     if "dx_gemm" in name:
-        return f"dx_gemm<{dtype}>"
+        return f"dx_gemm<{dtype}{split}"
     if "dtaps_gemm" in name:
-        return f"dtaps_gemm<{dtype}, {loader}>"
+        return f"dtaps_gemm<{dtype}, {loader}{split}"
+    if "stats_geff" in name:
+        return "stats_geff (l)"
     if "merged_bwd" in name:  # kernels i and k share the GridLoad instantiation
         return f"merged_bwd<{dtype}, {loader}>"
     if "sum_rows" in name or "colsum" in name:
@@ -843,7 +1063,7 @@ def device_profile(workloads, card: str):
             print(f"[profile bfloat16 {tag}]     top {name}: {ms:.4f} ms/iter", flush=True)
 
 
-def serving_workloads(st):
+def serving_workloads(st, tag=""):
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     z = st.latents[0]
 
@@ -851,6 +1071,8 @@ def serving_workloads(st):
         with torch.inference_mode():
             encode_decode(st, x)
 
+    if tag:  # the decoder is the same on every routing: its encode+decode only
+        return [(f"encode_decode_B{BATCH}{tag}", run, 20)]
     return [(f"encode_decode_B{BATCH}", run, 20),
             ("decode_latent_B1", lambda: st.decode_latent(z), 20)]
 
@@ -861,20 +1083,21 @@ def train_config(dtype_name: str, batch: int, model: str = "ico2ico"):
     return cfg
 
 
-def train_path(model: str, merged_bwd=None) -> str:
-    return f"{'VAE' if model.endswith('_vae') else 'AE'} train{' (merged)' if merged_bwd else ''}"
+def routing(route: str) -> dict:
+    """The Trainer's routing options of a path suffix of ``ROUTES``."""
+    return dict(zip(("merged_bwd", "phase_chain", "kernel_geff"), ROUTES[route]))
 
 
-def train(model: str, dtype_name: str, variables, dataset, card: str, merged_bwd=None):
-    """Phase 7 for one model, compute dtype and backward route: TRAIN_STEPS
-    Adam steps at B=36. Returns the trainer, its state, a fixed batch for
-    the profile and the kernel launches."""
+def train(model: str, dtype_name: str, variables, dataset, card: str, route: str = ""):
+    """Phase 7 for one model, compute dtype and routing (a ``ROUTES`` key):
+    TRAIN_STEPS Adam steps at B=36. Returns the trainer, its state, a fixed
+    batch for the profile and the kernel launches."""
     from geniconet_tpu_torch.data.pipeline import Batches
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.train.trainer import Trainer
 
-    tr = Trainer(train_config(dtype_name, TRAIN_BATCH, model), device="cuda",
-                 merged_bwd=merged_bwd)
+    opts = routing(route)
+    tr = Trainer(train_config(dtype_name, TRAIN_BATCH, model), device="cuda", **opts)
     st = tr.init_state(variables)
     batches = Batches(dataset, TRAIN_BATCH, drop_remainder=True, seed=0, device="cuda")
 
@@ -898,15 +1121,15 @@ def train(model: str, dtype_name: str, variables, dataset, card: str, merged_bwd
     tag = f"train {model} {dtype_name}"
     print(f"[{tag}] {TRAIN_STEPS} steps at B={TRAIN_BATCH}, s={SUBDIVISIONS}, widths {WIDTHS}"
           f"{f', latent {LATENT}' if tr.is_vae else ''}, pallas_blocks="
-          f"{tr.model.pallas_blocks!r}, merged_bwd={merged_bwd!r}: losses "
-          f"{[round(v, 6) for v in losses]}; step {ms:.3f} ms (median of the last "
+          f"{tr.model.pallas_blocks!r}, {', '.join(f'{k}={v!r}' for k, v in opts.items())}: "
+          f"losses {[round(v, 6) for v in losses]}; step {ms:.3f} ms (median of the last "
           f"{TRAIN_STEPS - TRAIN_WARMUP}, host clock, synchronised) = "
           f"{TRAIN_BATCH / ms * 1e3:.1f} training meshes/s [{card}]", flush=True)
     print(f"[{tag}] kernel launches on the training path: {launches}", flush=True)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    check_launches(train_path(model, merged_bwd), launches)
-    if merged_bwd and launches["phase_conv_dtaps"] != TRAIN_STEPS:
+    check_launches(f"{'VAE' if tr.is_vae else 'AE'} train{route}", launches)
+    if opts["merged_bwd"] and launches["phase_conv_dtaps"] != TRAIN_STEPS:
         raise AssertionError(f"{tag}: phase_conv_dtaps launched {launches['phase_conv_dtaps']} "
                              f"times, want once a step (conv_in)")
     return tr, st, next(it), launches
@@ -920,7 +1143,7 @@ def check_launches(path: str, launches):
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     stray = [k for k in PATH_FORBIDDEN.get(path, ()) if launches.get(k, 0)]
     if stray:
-        raise AssertionError(f"kernels of the other backward route on the {path} path: {stray}")
+        raise AssertionError(f"kernels the {path} path must not launch: {stray}")
 
 
 def routing_compare(variables, dataset, card: str, iters: int = 4):
@@ -928,24 +1151,27 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
     at B=36 bf16 of each model under each of its routings, in turns: every
     routing once, then again in the reverse order. The AE's routings: the
     default (every block fused, the split backward kernels),
-    ``merged_bwd="all"`` and ``pallas_blocks="up0,up1,up2"`` (the encoder
-    and the head on cuDNN and PyTorch ops); the VAE's: the default and the
-    merged. Losses must be finite; prints each routing's median host-clock
-    step time, synchronised."""
+    ``merged_bwd="all"``, ``pallas_blocks="up0,up1,up2"`` (the encoder and
+    the head on cuDNN and PyTorch ops), the phase chain, the chain on the
+    merged route and the chain with the fold outside; the VAE's: the
+    default, the merged and the chain. Losses must be finite; prints each
+    routing's median host-clock step time, synchronised."""
     from geniconet_tpu_torch.data.pipeline import Batches
     from geniconet_tpu_torch.nn.models import IcoAE
     from geniconet_tpu_torch.train.trainer import Trainer
 
-    routings = {"ico2ico": (("default", None, None), ("merged", "all", None),
-                            ("decoder-only", None, "up0,up1,up2")),
-                "ico2ico_vae": (("default", None, None), ("merged", "all", None))}
+    chain = (("chain", " (chain)", None), ("chain, merged", " (chain, merged)", None),
+             ("chain, fold outside", " (chain, fold outside)", None))
+    routings = {"ico2ico": (("default", "", None), ("merged", " (merged)", None),
+                            ("decoder-only", "", "up0,up1,up2"), *chain),
+                "ico2ico_vae": (("default", "", None), ("merged", " (merged)", None), chain[0])}
     x, y, wt = next(iter(Batches(dataset, TRAIN_BATCH, drop_remainder=True, seed=0,
                                  device="cuda").epoch()))
     for model, routes in routings.items():
         trainers = {}
-        for name, merged_bwd, blocks in routes:
+        for name, route, blocks in routes:
             tr = Trainer(train_config("bfloat16", TRAIN_BATCH, model), device="cuda",
-                         merged_bwd=merged_bwd)
+                         **routing(route))
             if blocks:
                 tr.model = IcoAE(SUBDIVISIONS, WIDTHS, dtype=torch.bfloat16, pallas_blocks=blocks,
                                  device="cuda")
@@ -971,9 +1197,9 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
 
 
 def train_step_check(model: str, variables, card: str, routes):
-    """One float32 step at B=4 on the card, per backward route in ``routes``
-    ((merged_bwd, planted) pairs), against the same step on the CPU (plain
-    route): the loss and the new BatchNorm statistics within 1e-4 of
+    """One float32 step at B=4 on the card, per routing in ``routes``
+    ((``ROUTES`` key, planted) pairs), against the same step on the CPU
+    (plain route, with the routing's ``phase_chain``): the loss and the new BatchNorm statistics within 1e-4 of
     max|ref|, every gradient within 1e-4·max|ref| plus twice the float32
     spread on it. That spread is measured on both sides: the largest change
     of a step's gradient when the batch's samples come in five other orders
@@ -989,8 +1215,9 @@ def train_step_check(model: str, variables, card: str, routes):
     moves by up to 1e-2·max|ref| with the summation order alone), so a fixed
     bound would measure the conditioning, not the kernels. The bound is that
     loose only on some leaves, which the check names. The CPU's plain
-    versions of the two routes are the same function, so one CPU reference
-    serves both. To show that the check still catches a kernel error, the
+    versions of the backward routes and fold placements are the same
+    function, so one CPU reference serves each ``phase_chain`` (the spread,
+    measured on the default's, serves every routing). To show that the check still catches a kernel error, the
     card's step then runs once per entry of ``planted``, with that kernel
     output 1% off: the check must read above its bound for each."""
     from unittest import mock
@@ -1016,8 +1243,8 @@ def train_step_check(model: str, variables, card: str, routes):
         return mock.patch.object(models, "reparameterize",
                                  lambda mu, logvar, generator=None: e * torch.exp(0.5 * logvar) + mu)
 
-    def step(device, order, unfused=False, merged_bwd=None):
-        tr = Trainer(train_config("float32", 4, model), device=device, merged_bwd=merged_bwd)
+    def step(device, order, unfused=False, route=""):
+        tr = Trainer(train_config("float32", 4, model), device=device, **routing(route))
         if unfused:  # "none" names no block: no block is fused
             kw = dict(pallas_blocks="none", device=device)
             tr.model = (IcoVAE(SUBDIVISIONS, WIDTHS, LATENT, **kw) if is_vae
@@ -1039,13 +1266,18 @@ def train_step_check(model: str, variables, card: str, routes):
                 out[k] = max(out[k], (other[k] - ref).abs().max().item())
         return out
 
-    ref_loss, ref_grads, ref_stats = step("cpu", [0, 1, 2, 3])
+    refs = {None: step("cpu", [0, 1, 2, 3])}  # phase_chain -> the CPU's step
+    ref_grads = refs[None][1]
     orders = [[3, 2, 1, 0], [1, 0, 3, 2], [2, 3, 0, 1], [0, 2, 1, 3], [1, 3, 0, 2]]
     cpu_spread = spread_of(ref_grads, [("cpu", o) for o in orders]
                            + [("cpu", [0, 1, 2, 3], True)])
-    for merged_bwd, planted in routes:
-        base = step("cuda", [0, 1, 2, 3], merged_bwd=merged_bwd)[1]
-        card_spread = spread_of(base, [("cuda", o, False, merged_bwd) for o in orders])
+    for route, planted in routes:
+        chain = routing(route)["phase_chain"]
+        if chain not in refs:
+            refs[chain] = step("cpu", [0, 1, 2, 3], route=route)
+        ref_loss, ref_grads, ref_stats = refs[chain]
+        base = step("cuda", [0, 1, 2, 3], route=route)[1]
+        card_spread = spread_of(base, [("cuda", o, False, route) for o in orders])
         bounds = {}  # leaf -> (bound, scale)
         for k, ref in ref_grads.items():
             # a conv's bias feeds a BatchNorm: its exact gradient is 0, so it
@@ -1054,9 +1286,10 @@ def train_step_check(model: str, variables, card: str, routes):
             scale = (ref_grads[k[: -len("bias")] + "taps"] if conv_bias else ref).abs().max().item()
             bounds[k] = (1e-4 * scale + 2 * max(cpu_spread[k], card_spread[k]), scale)
 
-        def card_step(merged_bwd=merged_bwd, bounds=bounds):
+        def card_step(route=route, bounds=bounds, ref_loss=ref_loss, ref_grads=ref_grads,
+                      ref_stats=ref_stats):
             """The card's step read against the bounds: (loss, worst error / its bound, leaf)."""
-            loss, grads, stats = step("cuda", [0, 1, 2, 3], merged_bwd=merged_bwd)
+            loss, grads, stats = step("cuda", [0, 1, 2, 3], route=route)
             ratio = {"loss": abs(loss - ref_loss) / (1e-4 * abs(ref_loss))}
             for k, ref in ref_stats.items():
                 ratio[k] = (stats[k] - ref).abs().max().item() / (1e-4 * ref.abs().max().item())
@@ -1065,7 +1298,7 @@ def train_step_check(model: str, variables, card: str, routes):
             name, worst = max(ratio.items(), key=lambda kv: kv[1])
             return loss, worst, name
 
-        tag = f"train {model} float32{' merged_bwd=' + repr(merged_bwd) if merged_bwd else ''}"
+        tag = f"train {model} float32{route}"
         loss, worst, name = card_step()
         loose = {k: b / s for k, (b, s) in bounds.items() if b > 2e-3 * s}
         print(f"[{tag}] one step at B=4 on the card vs the CPU plain route"
@@ -1136,6 +1369,27 @@ PLANTED_MERGED = {
         ("ico_conv_s2s_bwd", "down0-1 conv01, dtaps", (1,), lambda a: True),
     ),
 }
+# ... and on the phase chain (every routing; the VAE's trunk has down0-1):
+# m's dx and dtaps, and with the fold outside the kernels l's output too
+# (m's dtaps then also emits the bias gradients, so its dtaps are (0, 0)).
+_M_DX = ("ds2s_dx", "down0-2 m, dphase 0", (0, 0), lambda a: True)
+PLANTED_CHAIN = {
+    " (chain)": (_M_DX, ("ds2s_dtaps", "down0-2 m, dtaps of set a", (0,), lambda a: True)),
+    " (chain, merged)": (_M_DX, ("ds2s_dtaps", "down0-2 m, dtaps of set a", (0,),
+                                 lambda a: True)),
+    " (chain, fold outside)": (
+        ("stats_geff", "every group it folds, phase 0", (0,), lambda a: True), _M_DX,
+        ("ds2s_dtaps", "down0-2 m, dtaps of set a", (0, 0), lambda a: True)),
+}
+# the training routings of each model (``ROUTES`` keys)
+TRAIN_ROUTES = {"ico2ico": ("", " (merged)", " (chain)", " (chain, merged)",
+                            " (chain, fold outside)"),
+                "ico2ico_vae": ("", " (merged)", " (chain)")}
+
+
+def planted_for(model: str, route: str):
+    return {"": PLANTED[model], " (merged)": PLANTED_MERGED[model]}.get(route) or \
+        PLANTED_CHAIN[route]
 
 
 def one_percent_off(r, path):
@@ -1191,6 +1445,17 @@ def main():
         plain_route_check(states[model]["float32"], card)
         for name, st in states[model].items():
             timings(st, name, card)
+    # the AE on the encoder's phase chain: its latent cache goes through m
+    build.reset_launches()
+    chained = {name: serve("ico2ico", name, serve_vars["ico2ico"], card, phase_chain="enc")
+               for name in ("bfloat16", "float32")}
+    launches["AE serve (chain)"] = dict(build.LAUNCHES)
+    print(f"[serve ico2ico phase_chain='enc'] kernel launches on the serving path: "
+          f"{launches['AE serve (chain)']}", flush=True)
+    check_launches("AE serve (chain)", launches["AE serve (chain)"])
+    for name, st in chained.items():
+        chain_cache_check(st, states["ico2ico"][name], name, card)
+        timings(st, name, card)
 
     t0 = time.perf_counter()
     dataset = synthetic_dataset(SUBDIVISIONS, TRAIN_MESHES, seed=0)
@@ -1203,22 +1468,24 @@ def main():
     }
     runs = {}
     for model in ("ico2ico", vae):
-        for merged_bwd in (None, "all"):
-            path = train_path(model, merged_bwd)
-            runs[path] = {name: train(model, name, train_vars[model], dataset, card, merged_bwd)
+        for route in TRAIN_ROUTES[model]:
+            path = f"{'VAE' if model == vae else 'AE'} train{route}"
+            runs[path] = {name: train(model, name, train_vars[model], dataset, card, route)
                           for name in ("bfloat16", "float32")}
             launches[path] = dict(sum((collections.Counter(r[-1]) for r in runs[path].values()),
                                       collections.Counter()))
         train_step_check(model, train_vars[model], card,
-                         [(None, PLANTED[model]), ("all", PLANTED_MERGED[model])])
+                         [(route, planted_for(model, route)) for route in TRAIN_ROUTES[model]])
     routing_compare(train_vars, dataset, card)
 
     profiled = []
     for path, (tr, st, (x, y, wt), _) in ((p, r["bfloat16"]) for p, r in runs.items()):
-        tag = f"train_step_{tr.cfg.model.name}{'_merged' if 'merged' in path else ''}"
+        route = path.partition(" train")[2].strip(" ()").replace(", ", "_").replace(" ", "_")
+        tag = f"train_step_{tr.cfg.model.name}{'_' + route if route else ''}"
         profiled.append((f"{tag}_B{TRAIN_BATCH}",
                          lambda tr=tr, st=st, x=x, y=y, wt=wt: tr.train_step(st, x, y, wt), 5))
-    device_profile(serving_workloads(states["ico2ico"]["bfloat16"]) + profiled, card)
+    device_profile(serving_workloads(states["ico2ico"]["bfloat16"])
+                   + serving_workloads(chained["bfloat16"], "_chain") + profiled, card)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
 

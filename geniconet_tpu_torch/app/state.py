@@ -45,10 +45,13 @@ class AppState:
         self.latents: np.ndarray | None = None  # (N, Hz, Wz, C) float32; the VAE's mu
         self.logvars: np.ndarray | None = None  # the VAE's logvar, else None
 
-    def load(self, cfg: Config, variables=None, data_instance: str = "val", epoch: int = 0):
+    def load(self, cfg: Config, variables=None, data_instance: str = "val", epoch: int = 0,
+             phase_chain: str | None = None):
         """Build the dataset, load the model from ``variables`` (a flax
         ``{"params", "batch_stats"}`` tree of arrays) and encode the latent
-        cache. Returns the info dict that ``/api/info`` serves."""
+        cache. ``phase_chain="enc"`` encodes through the encoder's phase
+        chain (``nn/models.py``). Returns the info dict that ``/api/info``
+        serves."""
         if variables is None:
             raise NotImplementedError(
                 "reading .ckpt checkpoints is not ported yet (ROADMAP, Queue 1 item 7: "
@@ -63,9 +66,10 @@ class AppState:
         m, dtype = cfg.model, _DTYPES[cfg.model.compute_dtype]
         if m.is_vae:
             model = IcoVAE(s, tuple(m.widths), m.latent_features, m.corner_mode, dtype,
-                           device=self.device)
+                           phase_chain=phase_chain, device=self.device)
         else:
-            model = IcoAE(s, tuple(m.widths), m.corner_mode, dtype, device=self.device)
+            model = IcoAE(s, tuple(m.widths), m.corner_mode, dtype, phase_chain=phase_chain,
+                          device=self.device)
         model.load_state_dict(flax_to_state_dict(variables))
         self.model = model.eval()
         encoded = [self._encode(self.dataset.inputs[i : i + ENCODE_BATCH])

@@ -17,18 +17,30 @@ namespace gn {
 // name one element. With gs[set] != null the stats cotangent is folded in:
 // g_eff = g + gs0 + 2 * gs1 * y in float32, rounded to T (the Pallas
 // kernels' _geff_one, with the same two roundings per product and sum).
-template <typename T>
+// SPLIT (the phase chain's stride-2 conv, n_out = 1): row m of the (5, h, w)
+// output grid is read from parity phase g[set * 4 + p] by the forward's split
+// store map (gn::split_row), so the kernels see the phase_merge'd cotangent.
+template <typename T, bool SPLIT = false>
 struct GLoad {
   const T* g[8];
   const T* y[8];       // forward outputs, read only with the fold
   const float* gs[2];  // per set (2, cout) cotangents of [sum, sumsq], or null
   int M, cout, n_out;
+  int lh, lw;          // SPLIT only: log2 of the (5, h, w) output grid's h and w
 
   __device__ __forceinline__ float operator()(int b, int q, int n) const {
     const int s = n / cout, nl = n - s * cout;
-    const int slot = q / M, m = q - slot * M;
-    const int i = s * n_out + slot;
-    const size_t off = ((size_t)b * M + m) * cout + nl;
+    int i;
+    size_t off;
+    if constexpr (SPLIT) {  // n_out = 1: row q is cell q of the grid
+      size_t row;
+      i = s * 4 + split_row(b, q, lh, lw, row);
+      off = row * cout + nl;
+    } else {
+      const int slot = q / M, m = q - slot * M;
+      i = s * n_out + slot;
+      off = ((size_t)b * M + m) * cout + nl;
+    }
     const float v = to_f(g[i][off]);
     if (gs[s] == nullptr) return v;
     const float yy = __fmul_rn(2.f, to_f(y[i][off]));
@@ -52,6 +64,26 @@ GLoad<T> make_gload(const void* const* g, const void* const* y, const float* gs0
   return gl;
 }
 
+// The split loader: g and y are host arrays of n_sets * 4 phase pointers
+// (set-major), each (B, 5, h/2, w/2, cout) with h = 2^lh, w = 2^lw.
+template <typename T>
+GLoad<T, true> make_split_gload(const void* const* g, const void* const* y, const float* gs0,
+                                const float* gs1, int lh, int lw, int cout, int n_sets) {
+  GLoad<T, true> gl = {};
+  for (int i = 0; i < n_sets * 4; ++i) {
+    gl.g[i] = static_cast<const T*>(g[i]);
+    gl.y[i] = y ? static_cast<const T*>(y[i]) : nullptr;
+  }
+  gl.gs[0] = y ? gs0 : nullptr;
+  gl.gs[1] = y ? gs1 : nullptr;
+  gl.M = 5 << (lh + lw);
+  gl.cout = cout;
+  gl.n_out = 1;
+  gl.lh = lh;
+  gl.lw = lw;
+  return gl;
+}
+
 // Where dx goes: R rows per sample split over out tensors of `per` cells
 // each ((B, per, cin) in T: the 4 input phases, or one level-s grid). With
 // mul != null the act adjoint runs in the epilogue: dx = dx' * mul *
@@ -72,8 +104,9 @@ struct DxOut {
 // weighted) through the CSR transposed table. Tile (bx, by, b): BM rows r x
 // BN channels k of sample b, of gx row tiles; float32 sums, one rounding at
 // the end. Shared by the split dx kernel and the merged backward's dx role.
-template <typename T>
-__device__ __forceinline__ void dx_tile(const GLoad<T>& gl, const T* __restrict__ w0,
+// G is GLoad<T> or the split GLoad<T, true>.
+template <typename T, typename G>
+__device__ __forceinline__ void dx_tile(const G& gl, const T* __restrict__ w0,
                                         const T* __restrict__ w1,
                                         const int* __restrict__ offsets,
                                         const int* __restrict__ cells,
@@ -154,25 +187,26 @@ __device__ __forceinline__ void dx_tile(const GLoad<T>& gl, const T* __restrict_
   }
 }
 
-template <typename T>
+template <typename T, typename G>
 __global__ void __launch_bounds__(NT)
-dx_gemm(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
+dx_gemm(G gl, const T* __restrict__ w0, const T* __restrict__ w1,
         const int* __restrict__ offsets, const int* __restrict__ cells,
         const float* __restrict__ weights, DxOut<T> o, int R, int cin, int n_sets) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN];
-  dx_tile<T>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, blockIdx.x, blockIdx.y,
-             blockIdx.z, gridDim.x, As, Bs);
+  dx_tile<T, G>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, blockIdx.x, blockIdx.y,
+                blockIdx.z, gridDim.x, As, Bs);
 }
 
-template <typename T>
-cudaError_t launch_dx_gemm(const GLoad<T>& gl, const void* w0, const void* w1,
+template <typename T, typename G>
+cudaError_t launch_dx_gemm(const G& gl, const void* w0, const void* w1,
                            const int* offsets, const int* cells, const float* weights,
                            const DxOut<T>& o, float* dmul, float* dadd, int B, int R, int cin,
                            int n_sets, cudaStream_t stream) {
   dim3 grid((R + BM - 1) / BM, (cin + BN - 1) / BN, B);
-  dx_gemm<T><<<grid, NT, 0, stream>>>(gl, static_cast<const T*>(w0), static_cast<const T*>(w1),
-                                      offsets, cells, weights, o, R, cin, n_sets);
+  dx_gemm<T, G><<<grid, NT, 0, stream>>>(gl, static_cast<const T*>(w0),
+                                         static_cast<const T*>(w1), offsets, cells, weights, o, R,
+                                         cin, n_sets);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || o.mul == nullptr) return err;
   SplitOut st = {{dmul, dadd}, 2 * cin, cin};
@@ -186,8 +220,8 @@ cudaError_t launch_dx_gemm(const GLoad<T>& gl, const void* w0, const void* w1,
 // (bx, by, chunk). With gpart, the tiles of the first row tile (bx == 0)
 // also write the chunk's column sums of G, gpart[chunk][n]: Σg from the g
 // tiles they already hold in shared memory, at no extra pass over g.
-template <typename T, typename Loader>
-__device__ __forceinline__ void dtaps_tile(const Loader& ld, const GLoad<T>& gl,
+template <typename T, typename Loader, typename G>
+__device__ __forceinline__ void dtaps_tile(const Loader& ld, const G& gl,
                                            const int* __restrict__ table, int cin, int n_sets,
                                            int out_phase0, int Q, int kc, float* __restrict__ ws,
                                            float* __restrict__ gpart, int bx, int by, int chunk,
@@ -259,26 +293,26 @@ __device__ __forceinline__ void dtaps_tile(const Loader& ld, const GLoad<T>& gl,
   }
 }
 
-template <typename T, typename Loader>
+template <typename T, typename Loader, typename G>
 __global__ void __launch_bounds__(NT)
-dtaps_gemm(Loader ld, GLoad<T> gl, const int* __restrict__ table, int cin, int n_sets,
+dtaps_gemm(Loader ld, G gl, const int* __restrict__ table, int cin, int n_sets,
            int out_phase0, int Q, int kc, float* __restrict__ ws) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN];
-  dtaps_tile<T, Loader>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, nullptr, blockIdx.x,
-                        blockIdx.y, blockIdx.z, As, Bs);
+  dtaps_tile<T, Loader, G>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, nullptr,
+                           blockIdx.x, blockIdx.y, blockIdx.z, As, Bs);
 }
 
 // dtaps[set] (7, cin, cout) float32 = the fixed-order sum of the chunks'
 // partials; Q = B * n_out * M rows in chunks of kc (a multiple of BK).
-template <typename T, typename Loader>
-cudaError_t launch_dtaps_gemm(const Loader& ld, const GLoad<T>& gl, const int* table, int cin,
+template <typename T, typename Loader, typename G>
+cudaError_t launch_dtaps_gemm(const Loader& ld, const G& gl, const int* table, int cin,
                               int n_sets, int out_phase0, int Q, int kc, int n_chunks, float* ws,
                               float* dt0, float* dt1, cudaStream_t stream) {
   const int Ntot = n_sets * gl.cout;
   dim3 grid((7 * cin + BM - 1) / BM, (Ntot + BN - 1) / BN, n_chunks);
-  dtaps_gemm<T, Loader><<<grid, NT, 0, stream>>>(ld, gl, table, cin, n_sets, out_phase0, Q, kc,
-                                                 ws);
+  dtaps_gemm<T, Loader, G><<<grid, NT, 0, stream>>>(ld, gl, table, cin, n_sets, out_phase0, Q,
+                                                    kc, ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   SplitOut st = {{dt0, dt1}, Ntot, gl.cout};
@@ -288,9 +322,9 @@ cudaError_t launch_dtaps_gemm(const Loader& ld, const GLoad<T>& gl, const int* t
 // Bias gradient, first pass: part[chunk][n] = sum of G (folded) over the
 // chunk's `rows` rows q of the flattened (sample, slot, cell) axis.
 // Block (32, 8): 32 columns, 8 row lanes.
-template <typename T>
+template <typename G>
 __global__ void __launch_bounds__(256)
-colsum(GLoad<T> gl, int Q, int rows, int Ntot, float* __restrict__ part) {
+colsum(G gl, int Q, int rows, int Ntot, float* __restrict__ part) {
   __shared__ float red[8][33];
   const int n = blockIdx.x * 32 + threadIdx.x;
   const int q_lo = blockIdx.y * rows;
@@ -312,13 +346,13 @@ colsum(GLoad<T> gl, int Q, int rows, int Ntot, float* __restrict__ part) {
 }
 
 // gsum[set] (cout) float32 = sum of G over all B * n_out * M rows.
-template <typename T>
-cudaError_t launch_gsum(const GLoad<T>& gl, int B, int n_sets, int rows, float* ws, float* gsum0,
+template <typename T, typename G>
+cudaError_t launch_gsum(const G& gl, int B, int n_sets, int rows, float* ws, float* gsum0,
                         float* gsum1, cudaStream_t stream) {
   const int Q = B * gl.n_out * gl.M;
   const int Ntot = n_sets * gl.cout;
   dim3 grid((Ntot + 31) / 32, (Q + rows - 1) / rows);
-  colsum<T><<<grid, dim3(32, 8), 0, stream>>>(gl, Q, rows, Ntot, ws);
+  colsum<G><<<grid, dim3(32, 8), 0, stream>>>(gl, Q, rows, Ntot, ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   SplitOut st = {{gsum0, gsum1}, Ntot, gl.cout};
@@ -354,15 +388,15 @@ merged_bwd(GLoad<T> gl, const T* __restrict__ w0, const T* __restrict__ w1,
   if (i < mg.dx_blocks) {
     const int bx = i % mg.dx_x;
     i /= mg.dx_x;
-    dx_tile<T>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, bx, i % mg.dx_y,
-               i / mg.dx_y, mg.dx_x, As, Bs);
+    dx_tile<T, GLoad<T>>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, bx,
+                         i % mg.dx_y, i / mg.dx_y, mg.dx_x, As, Bs);
     return;
   }
   i -= mg.dx_blocks;
   const int bx = i % mg.dt_x;
   i /= mg.dt_x;
-  dtaps_tile<T, Loader>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, gpart, bx,
-                        i % mg.dt_y, i / mg.dt_y, As, Bs);
+  dtaps_tile<T, Loader, GLoad<T>>(ld, gl, table, cin, n_sets, out_phase0, Q, kc, ws, gpart, bx,
+                                  i % mg.dt_y, i / mg.dt_y, As, Bs);
 }
 
 // Launch the merged backward over B samples (R dx rows each, Q = B * n_out *

@@ -133,11 +133,25 @@ __device__ __forceinline__ void column_sums(float (&As)[BK][BM], float (&Bs)[BK]
 
 template <typename T>
 struct ConvOut {
-  T* out[8];           // set-major: out[set * n_out + phase slot]
+  T* out[8];           // set-major: out[set * n_out + phase slot] (split: set * 4 + phase)
   const T* w[2];       // taps per set, (7, C_in, C_out)
   const T* bias[2];    // per set, nullable
   float* stats;        // nullable: per-block [sum | sumsq] partials, (blocks, 2 * N)
+  int split_lh, split_lw;  // the split store only: log2 of the output grid's h and w
 };
+
+// The split store (the phase chain's stride-2 conv): output row m = (chart,
+// i, j) of the (5, h, w) level-(s-1) grid goes to parity phase
+// p = 2 * (i & 1) + (j & 1) at (chart, i >> 1, j >> 1) of a (5, h/2, w/2)
+// phase grid, i.e. ops/phase.py:phase_split done by addressing. h = 2^lh and
+// w = 2^lw (an icosahedral chart, h >= 2), so the map is shifts and masks.
+// Returns the phase and sets `row` to the sample-b row of that phase tensor.
+__device__ __forceinline__ int split_row(int b, int m, int lh, int lw, size_t& row) {
+  const int chart = m >> (lh + lw), r = m & ((1 << (lh + lw)) - 1);
+  const int i = r >> lw, j = r & ((1 << lw) - 1);
+  row = (((((size_t)b * 5 + chart) << (lh - 1)) + (i >> 1)) << (lw - 1)) + (j >> 1);
+  return ((i & 1) << 1) | (j & 1);
+}
 
 // The cells of the upsampled level-(s+1) phases, rebuilt on load from a
 // level-s grid: the level-s halo (ico_pad, with pole means cast to the
@@ -220,7 +234,9 @@ cudaError_t launch_sum_rows(const float* in, int R, long long C, Store st, cudaS
   return cudaGetLastError();
 }
 
-template <typename T, typename Loader>
+// SPLIT: the split store (split_row) instead of out[set * n_out + slot] at row
+// b * M + m; the GEMM, its row order and the stats partials are the same.
+template <typename T, typename Loader, bool SPLIT>
 __global__ void __launch_bounds__(NT)
 conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int cin,
           int cout, int n_sets, int out_phase0, int n_out) {
@@ -283,7 +299,13 @@ conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int ci
       const int s = n / cout, nc = n - s * cout;
       const float bias = co.bias[s] ? to_f(co.bias[s][nc]) : 0.f;
       const T y = from_f<T>(acc[i][j] + bias);
-      co.out[s * n_out + slot][((size_t)b * M + m) * cout + nc] = y;
+      if constexpr (SPLIT) {
+        size_t row;
+        const int p = split_row(b, m, co.split_lh, co.split_lw, row);
+        co.out[s * 4 + p][row * cout + nc] = y;
+      } else {
+        co.out[s * n_out + slot][((size_t)b * M + m) * cout + nc] = y;
+      }
       const float v = to_f(y);  // the moments are of the downcast output
       csum[j] += v;
       csq[j] += v * v;
@@ -297,13 +319,14 @@ conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int ci
 
 // Launch the conv GEMM, then (with co.stats) sum the block partials into
 // stats[set] = (2, cout) [sum, sumsq] over every output phase and sample.
-template <typename T, typename Loader>
+template <typename T, typename Loader, bool SPLIT = false>
 cudaError_t launch_conv_gemm(const Loader& ld, const ConvOut<T>& co, const int* table, int B,
                              int M, int cin, int cout, int n_sets, int out_phase0, int n_out,
                              float* const* stats, cudaStream_t stream) {
+  if (SPLIT && n_out != 1) return cudaErrorInvalidValue;
   dim3 grid((M + BM - 1) / BM, (n_sets * cout + BN - 1) / BN, B * n_out);
-  conv_gemm<T, Loader><<<grid, NT, 0, stream>>>(ld, co, table, M, cin, cout, n_sets,
-                                                out_phase0, n_out);
+  conv_gemm<T, Loader, SPLIT><<<grid, NT, 0, stream>>>(ld, co, table, M, cin, cout, n_sets,
+                                                       out_phase0, n_out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || co.stats == nullptr) return err;
   SplitOut st = {{stats[0], stats[1]}, n_sets * cout, cout};

@@ -24,6 +24,19 @@ On the fused route the model option ``merged_bwd`` (``merged_bwd_enabled``)
 picks, per kernel family, the merged one-pass backward kernels over the
 split dx + dtaps pair: ``ds2`` (a DownBlock's stride-2 pair), ``std`` (its
 conv01), ``upd`` (an UpBlock's upsample + pair) and ``pcs1`` (its conv01).
+The option ``kernel_geff`` (``kernel_geff_enabled``) picks, per kernel
+family, whether the split route folds the stats cotangent inside the
+kernels or before them (kernel l); the blocks pass their name as the
+stride-1 convs' ``fold_site`` and ``fold_ok`` (the model's ``pallas_blocks``
+is None), as in JAX.
+
+The DownBlock's phase chain (``phase_chain``, the JAX package's
+``GENICONET_PHASE_CHAIN=enc``, ``layers.py:339-386``): the stride-2 pair
+runs as ``fused_dual_s2_conv_split`` (kernel m), whose outputs are the
+level-(s-1) phases; conv01 runs on them as the phase conv, the residual
+join per phase, and the block returns the phase tuple, which the next
+DownBlock takes as it is. It needs a level-(s-1) grid with parity phases:
+the block takes it from input level 2 up, as JAX's ``s >= 2`` gate.
 
 Every fused conv goes through a wrapper in ``ops/kernels``, which launches
 the CUDA kernel for CUDA tensors and runs the plain PyTorch version for CPU
@@ -39,13 +52,15 @@ from torch import nn
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.build import act_apply, grid_level
 from geniconet_tpu_torch.ops.kernels.fused import (
-    fused_dual_s2_conv, fused_ico_conv_s2s, fused_phase_conv_s1, fused_up_dual_conv,
+    fused_dual_s2_conv, fused_dual_s2_conv_split, fused_ico_conv_s2s, fused_phase_conv_s1,
+    fused_up_dual_conv, kernel_geff_enabled,
 )
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
 
 __all__ = ["IcoConvS2S", "IcoBatchNorm", "DownBlock", "UpBlock", "residual_join",
-           "pallas_block_enabled", "merged_bwd_enabled"]
+           "pallas_block_enabled", "merged_bwd_enabled", "kernel_geff_enabled",
+           "phase_chain_enabled"]
 
 
 def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
@@ -67,6 +82,13 @@ def merged_bwd_enabled(family: str, merged_bwd: str | None) -> bool:
     if merged_bwd in ("1", "all"):
         return True
     return family in {f.strip() for f in merged_bwd.split(",")}
+
+
+def phase_chain_enabled(part: str, phase_chain: str | None) -> bool:
+    """The JAX package's ``GENICONET_PHASE_CHAIN`` routing as a model
+    option: whether ``part`` ("enc" or "dec") runs chained. None or "0" is
+    off, "1" chains both halves, "enc" and "dec" one half each."""
+    return phase_chain in ("1", part)
 
 
 class IcoConvS2S(nn.Module):
@@ -91,15 +113,15 @@ class IcoConvS2S(nn.Module):
         return self.taps.to(dtype), self.bias.to(dtype)
 
     def forward(self, x: torch.Tensor, act=None, with_stats: bool = False,
-                merged_bwd: bool = False):
+                merged_bwd: bool = False, kernel_geff: str | None = None):
         """(B, 5, h, w, C_in) -> (B, 5, h, w, C_out), stride 1; act: optional
         float32 (mul, add) prologue relu(x·mul + add); with_stats: also the
         (2, C_out) float32 [Σy, Σy²] of the output; merged_bwd: the backward
-        as one merged kernel."""
+        as one merged kernel; kernel_geff: where the stats fold runs."""
         taps, bias = self.params(x.dtype)
         return fused_ico_conv_s2s(x, taps, bias, grid_level(x.shape[2], x.shape[3]),
                                   self.corner_mode, act=act, with_stats=with_stats,
-                                  merged_bwd=merged_bwd)
+                                  merged_bwd=merged_bwd, kernel_geff=kernel_geff)
 
     def plain(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         """The plain route (``ico_pad`` + masked 3×3 conv, float32 sums),
@@ -172,10 +194,14 @@ def residual_join(a: torch.Tensor, b: torch.Tensor, aff1, aff2) -> torch.Tensor:
 class _Block(nn.Module):
     """The six modules of a residual block (reference BasicIcoS2S*Block)."""
 
-    def __init__(self, in_features, features, corner_mode, fused, merged_bwd, device):
+    def __init__(self, in_features, features, corner_mode, fused, merged_bwd, kernel_geff, fold_ok,
+                 name, device):
         super().__init__()
         kw = dict(corner_mode=corner_mode, device=device)
         self.corner_mode, self.fused, self.merged_bwd = corner_mode, fused, merged_bwd
+        # where the split backward folds the stats cotangent (fused.kernel_geff_enabled)
+        self.fold = dict(kernel_geff=kernel_geff, fold_ok=fold_ok)
+        self.name = name
         self.conv00 = IcoConvS2S(in_features, features, **kw)
         self.conv10 = IcoConvS2S(in_features, features, **kw)
         self.conv01 = IcoConvS2S(features, features, **kw)
@@ -193,32 +219,59 @@ class _Block(nn.Module):
 
 class DownBlock(_Block):
     """Residual down block (reference BasicIcoS2SDownBlock), s -> s-1:
-    relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x)))."""
+    relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x))).
+    ``phase_chain``: the fused route in phase form (module doc)."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
-                 fused: bool = True, merged_bwd: str | None = None, device=None):
-        super().__init__(in_features, features, corner_mode, fused, merged_bwd, device)
+                 fused: bool = True, merged_bwd: str | None = None, phase_chain: bool = False,
+                 kernel_geff: str | None = None, fold_ok: bool = True, name: str = "",
+                 device=None):
+        super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
+                         fold_ok, name, device)
+        self.phase_chain = phase_chain
 
-    def forward(self, x, in_act=None, train: bool = False) -> torch.Tensor:
+    def forward(self, x, in_act=None, train: bool = False):
         """x: a (B, 5, H, W, C) grid or its 4 parity phases; in_act: the
-        pending (mul, add) BN-apply + ReLU of the producing layer."""
+        pending (mul, add) BN-apply + ReLU of the producing layer. Returns
+        the level-(s-1) grid, or its 4 phases on the phase chain."""
         if not self.fused:
             xd = phase_merge(x) if isinstance(x, (tuple, list)) else x
             return self._plain_tail(act_apply(xd, in_act), 2, train)
         phases = x if isinstance(x, (tuple, list)) else phase_split(x)
         phases = tuple(p.contiguous() for p in phases)
+        if self.phase_chain and phases[0].shape[2] >= 2:
+            return self._chain(phases, in_act, train)
         dt = phases[0].dtype
         r = fused_dual_s2_conv(phases, *self.conv00.params(dt), *self.conv10.params(dt),
                                self.corner_mode, act=in_act, with_stats=train,
-                               merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd))
+                               merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd), **self.fold)
         y00, y10 = r[:2]
         s00, s10 = r[2:] if train else (None, None)
         count = float(y00.shape[:-1].numel())
         r = self.conv01(y00, act=self.bn00.affine(s00, count, train), with_stats=train,
-                        merged_bwd=merged_bwd_enabled("std", self.merged_bwd))
+                        merged_bwd=merged_bwd_enabled("std", self.merged_bwd),
+                        kernel_geff=self.fold["kernel_geff"])
         b0, s01 = r if train else (r, None)
         return residual_join(b0, y10, self.bn01.affine(s01, count, train),
                              self.bn10.affine(s10, count, train))
+
+    def _chain(self, phases, in_act, train):
+        """The phase chain: the stride-2 pair emits level-(s-1) phases, conv01
+        runs on them in phase form, the join per phase."""
+        dt = phases[0].dtype
+        r = fused_dual_s2_conv_split(phases, *self.conv00.params(dt), *self.conv10.params(dt),
+                                     self.corner_mode, act=in_act, with_stats=train, **self.fold)
+        y00, y10 = r[:2]
+        s00, s10 = r[2:] if train else (None, None)
+        count = 4.0 * y00[0].shape[:-1].numel()
+        r = fused_phase_conv_s1(y00, *self.conv01.params(dt), self.corner_mode,
+                                act=self.bn00.affine(s00, count, train), with_stats=train,
+                                merged_bwd=merged_bwd_enabled("pcs1", self.merged_bwd),
+                                fold_site=self.name, **self.fold)
+        b0, s01 = r if train else (r, None)
+        aff01 = self.bn01.affine(s01, count, train)
+        aff10 = self.bn10.affine(s10, count, train)
+        return tuple(residual_join(a, b, aff01, aff10) for a, b in zip(b0, y10))
 
 
 class UpBlock(_Block):
@@ -227,8 +280,10 @@ class UpBlock(_Block):
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  return_phases: bool = False, fused: bool = True, merged_bwd: str | None = None,
+                 kernel_geff: str | None = None, fold_ok: bool = True, name: str = "",
                  device=None):
-        super().__init__(in_features, features, corner_mode, fused, merged_bwd, device)
+        super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
+                         fold_ok, name, device)
         self.return_phases = return_phases
 
     def forward(self, x: torch.Tensor, train: bool = False):
@@ -242,14 +297,15 @@ class UpBlock(_Block):
         dt = x.dtype
         r = fused_up_dual_conv(x, *self.conv00.params(dt), *self.conv10.params(dt),
                                self.corner_mode, with_stats=train,
-                               merged_bwd=merged_bwd_enabled("upd", self.merged_bwd))
+                               merged_bwd=merged_bwd_enabled("upd", self.merged_bwd), **self.fold)
         y00, y10 = r[:2]
         s00, s10 = r[2:] if train else (None, None)
         count = 4.0 * y00[0].shape[:-1].numel()
         act00 = self.bn00.affine(s00, count, train)
         r = fused_phase_conv_s1(y00, *self.conv01.params(dt), self.corner_mode, act=act00,
                                 with_stats=train,
-                                merged_bwd=merged_bwd_enabled("pcs1", self.merged_bwd))
+                                merged_bwd=merged_bwd_enabled("pcs1", self.merged_bwd),
+                                fold_site=self.name, **self.fold)
         b0, s01 = r if train else (r, None)
         aff01 = self.bn01.affine(s01, count, train)
         aff10 = self.bn10.affine(s10, count, train)

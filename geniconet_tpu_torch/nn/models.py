@@ -22,6 +22,15 @@ kernel and its backward (``fused_pair_head``) otherwise. ``merged_bwd``
 (``nn/layers.py:merged_bwd_enabled``) puts the fused blocks' conv backward
 on the merged one-pass kernels, per kernel family (the VAE's heads are a
 ``ds2``); ``conv_in`` has no input cotangent and keeps its dtaps kernel.
+``kernel_geff`` (``ops/kernels/fused.py:kernel_geff_enabled``) picks the
+kernel families whose split backward folds the stats cotangent inside
+their kernels; the others fold it before them (kernel l). None, the
+default, folds every family inside. ``phase_chain`` is the JAX package's
+``GENICONET_PHASE_CHAIN``: "enc" runs the fused DownBlocks as the phase
+chain (``nn/layers.py``), in training and in eval, and the encoder
+interleaves the phase tuple once, at its end (the VAE's trunk too, before
+its heads); "dec" and "1", which chain the decoder, are not ported yet and
+raise.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)`` (the VAE's: ``wz`` channels). ``decode``
@@ -35,7 +44,7 @@ from torch import nn
 
 from geniconet_tpu_torch.nn.layers import (
     DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, merged_bwd_enabled, pallas_block_enabled,
-    residual_join,
+    phase_chain_enabled, residual_join,
 )
 from geniconet_tpu_torch.ops.conv import merge_charts, split_charts
 from geniconet_tpu_torch.ops.kernels.fused import (
@@ -46,29 +55,42 @@ from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 __all__ = ["IcoAE", "IcoVAE", "reparameterize"]
 
 
+def _check_phase_chain(phase_chain):
+    if phase_chain not in (None, "0", "1", "enc", "dec"):
+        raise ValueError(f"phase_chain must be None, '0', '1', 'enc' or 'dec', got {phase_chain!r}")
+    if phase_chain_enabled("dec", phase_chain):
+        raise NotImplementedError(
+            f"phase_chain={phase_chain!r}: the decoder's phase chain (the JAX _updp kernels, "
+            "kernel n) is not ported yet (ROADMAP, Queue 1); use 'enc' or None")
+
+
 class _Encoder(nn.Module):
     def __init__(self, widths, corner_mode: str, pallas_blocks=None, merged_bwd=None,
-                 device=None):
+                 phase_chain=None, kernel_geff=None, device=None):
         super().__init__()
         w0 = widths[0]
         self.corner_mode = corner_mode
+        # the fold placement of the split backward (fused.kernel_geff_enabled)
+        self.fold = dict(kernel_geff=kernel_geff, fold_ok=pallas_blocks is None)
         self.fused_in = pallas_block_enabled("conv_in", pallas_blocks)
         self.conv_in = IcoConvS2S(3, w0, corner_mode=corner_mode, device=device)
         self.bn_in = IcoBatchNorm(w0, device=device)
         for k, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
             self.add_module(f"down{k}", DownBlock(
                 cin, cout, corner_mode, fused=pallas_block_enabled(f"down{k}", pallas_blocks),
-                merged_bwd=merged_bwd, device=device))
+                merged_bwd=merged_bwd, phase_chain=phase_chain_enabled("enc", phase_chain),
+                name=f"down{k}", device=device, **self.fold))
         self.n_down = len(widths) - 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, 5, h, w, 3) chart-split grid -> (B, 5, h/8, w/8, w2)."""
+        """(B, 5, h, w, 3) chart-split grid -> (B, 5, h/2^n, w/2^n, C) after
+        the n DownBlocks."""
         if self.fused_in:
             # phase form: the phases feed down0's dual stride-2 conv directly;
             # the input is data, so no input cotangent
             phases = tuple(p.contiguous() for p in phase_split(x))
             r = fused_phase_conv_s1(phases, *self.conv_in.params(x.dtype), self.corner_mode,
-                                    with_stats=train, needs_dx=False)
+                                    with_stats=train, needs_dx=False, **self.fold)
             y, st = r if train else (r, None)
             in_act = self.bn_in.affine(st, 4.0 * y[0].shape[:-1].numel(), train)
         else:
@@ -76,7 +98,8 @@ class _Encoder(nn.Module):
             in_act = None
         for k in range(self.n_down):
             y = getattr(self, f"down{k}")(y, in_act=in_act if k == 0 else None, train=train)
-        return y
+        # the phase chain hands phases along: one interleave at the end
+        return phase_merge(y) if isinstance(y, tuple) else y
 
 
 class _Head(nn.Module):
@@ -97,13 +120,14 @@ class _Head(nn.Module):
 
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
-                 pallas_blocks=None, merged_bwd=None, device=None):
+                 pallas_blocks=None, merged_bwd=None, kernel_geff=None, device=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
         for k, (cin, cout) in enumerate(zip(cins, widths)):
             self.add_module(f"up{k}", UpBlock(
                 cin, cout, corner_mode, return_phases=k == len(widths) - 1,
                 fused=pallas_block_enabled(f"up{k}", pallas_blocks), merged_bwd=merged_bwd,
+                kernel_geff=kernel_geff, fold_ok=pallas_blocks is None, name=f"up{k}",
                 device=device))
         self.n_up = len(widths)
         self.fused_head = pallas_block_enabled("head", pallas_blocks)
@@ -154,21 +178,25 @@ class IcoAE(nn.Module):
     parameters stay float32. Sums run in float32 inside every conv.
     ``train`` selects batch statistics (and updates the running ones) in
     every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``.
-    ``merged_bwd``: the kernel families whose backward is merged (module doc)."""
+    ``merged_bwd``: the kernel families whose backward is merged;
+    ``kernel_geff``: those whose split backward folds in-kernel;
+    ``phase_chain``: None or "enc" (module doc)."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
-                 pallas_blocks: str | None = None, merged_bwd: str | None = None, device=None):
+                 pallas_blocks: str | None = None, merged_bwd: str | None = None,
+                 phase_chain: str | None = None, kernel_geff: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoAE needs subdivisions >= 3 (three stride-2 stages)")
+        _check_phase_chain(phase_chain)
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
-        self.merged_bwd = merged_bwd
-        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks,
-                                merged_bwd=merged_bwd, device=device)
-        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks,
-                                merged_bwd=merged_bwd, device=device)
+        self.merged_bwd, self.phase_chain, self.kernel_geff = merged_bwd, phase_chain, kernel_geff
+        self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, merged_bwd,
+                                phase_chain, kernel_geff, device=device)
+        self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, merged_bwd,
+                                kernel_geff, device=device)
 
     def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
@@ -210,31 +238,34 @@ def _bn_apply(y: torch.Tensor, aff) -> torch.Tensor:
 class IcoVAE(nn.Module):
     """Icosahedral VAE (reference ico2ico_vae).
 
-    ``dtype``, ``pallas_blocks``, ``merged_bwd`` and ``train`` as ``IcoAE``;
-    the mu / logvar heads are the block ``"heads"``: on the fused route both
-    stride-2 convs run as one dual stride-2 phase conv (no act prologue,
-    BatchNorm sums when training; family ``ds2`` of ``merged_bwd``), then
-    each BatchNorm's affine without ReLU."""
+    ``dtype``, ``pallas_blocks``, ``merged_bwd``, ``phase_chain``,
+    ``kernel_geff`` and ``train`` as ``IcoAE``; the mu / logvar heads are
+    the block ``"heads"``: on the fused route both stride-2 convs run as one
+    dual stride-2 phase conv (no act prologue, BatchNorm sums when training;
+    family ``ds2`` of ``merged_bwd`` and ``kernel_geff``; never chained),
+    then each BatchNorm's affine without ReLU."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256), latent_features: int = 512,
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
-                 pallas_blocks: str | None = None, merged_bwd: str | None = None, device=None):
+                 pallas_blocks: str | None = None, merged_bwd: str | None = None,
+                 phase_chain: str | None = None, kernel_geff: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoVAE needs subdivisions >= 3 (three stride-2 stages)")
+        _check_phase_chain(phase_chain)
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
-        self.merged_bwd = merged_bwd
+        self.merged_bwd, self.phase_chain, self.kernel_geff = merged_bwd, phase_chain, kernel_geff
         self.corner_mode = corner_mode
         self.fused_heads = pallas_block_enabled("heads", pallas_blocks)
-        self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, merged_bwd=merged_bwd,
-                                device=device)
+        self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, merged_bwd,
+                                phase_chain, kernel_geff, device=device)
         self.mu_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.mu_bn = IcoBatchNorm(latent_features, device=device)
         self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.logvar_bn = IcoBatchNorm(latent_features, device=device)
         self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
-                                merged_bwd=merged_bwd, device=device)
+                                merged_bwd, kernel_geff, device=device)
 
     def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""
@@ -249,7 +280,9 @@ class IcoVAE(nn.Module):
             r = fused_dual_s2_conv(phases, *self.mu_conv.params(dt),
                                    *self.logvar_conv.params(dt), self.corner_mode,
                                    with_stats=train,
-                                   merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd))
+                                   merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd),
+                                   fold_ok=self.pallas_blocks is None,
+                                   kernel_geff=self.kernel_geff)
             y_mu, y_lv = r[:2]
             s_mu, s_lv = r[2:] if train else (None, None)
             count = float(y_mu.shape[:-1].numel())

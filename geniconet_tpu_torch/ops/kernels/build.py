@@ -2,7 +2,8 @@
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), for
-``sm_90a`` (Hopper). The library is named by a hash of the sources and
+``sm_90a`` (Hopper): one nvcc process per source file, in parallel, then
+one link. The library is named by a hash of the sources and
 flags, so a fresh checkout builds at first use and an unchanged one reuses
 its build. It lands in ``build/kernels/`` at the repo root when the package
 is imported from a checkout, and in ``~/.cache/geniconet_tpu_torch/kernels``
@@ -75,7 +76,8 @@ def _sources():
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels if this source hash has no library yet; return its path."""
+    """Compile the kernels if this source hash has no library yet; return its
+    path. One nvcc per ``.cu`` file, all started together, then one link."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -84,21 +86,29 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", f"-I{CSRC}", "-o", str(obj),
+                                   str(CSRC / f"{obj.stem}.cu")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for obj in objs]
+        logs = [(p, *p.communicate()) for p in procs]
+        failed = [err for p, _, err in logs if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = Path(work) / "lib.so"
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        if verbose:
+            print("".join(err for _, _, err in logs), end="")
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # pointers, then ints, then the stream; csrc/*.cu documents each argument
     "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
@@ -117,6 +127,10 @@ _SIGNATURES = {
     "gn_phase_conv_bwd": [_VP] * 23 + [_INT] * 11 + [_VP],
     "gn_up_dual_conv_bwd": [_VP] * 19 + [_INT] * 9 + [_VP],
     "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
+    "gn_ds2s_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
+    "gn_ds2s_dx": [_VP] * 19 + [_INT] * 8 + [_VP],
+    "gn_ds2s_dtaps": [_VP] * 14 + [_INT] * 10 + [_VP],
+    "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
 }
 
 # Work split shared with csrc/: the GEMM cores compute TILE x TILE output

@@ -6,6 +6,9 @@ Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
 
 * ``fused_phase_conv_s1`` (``_pcs1``): 4 phases -> 4 phases, stride 1;
 * ``fused_dual_s2_conv``  (``_ds2``): a DownBlock's two stride-2 convs;
+* ``fused_dual_s2_conv_split`` (``_ds2s``): the same, with both outputs as
+  the 4 parity phases of the level-(s-1) grid (the encoder's phase chain):
+  ``ds2s_fwd`` + ``ds2s_dx`` / ``ds2s_dtaps``;
 * ``fused_up_dual_conv``  (``_upd``): an UpBlock's upsample + two convs;
 * ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
   (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
@@ -35,11 +38,21 @@ model option of the same name picks it per kernel family, as
   ``ico_conv_s2s_bwd`` (``_std_bwd``), which emit dx, dtaps, Σg_eff and
   d_mul/d_add from one launch. A phase conv without an input cotangent
   (``needs_dx=False``) keeps the dtaps kernel, as ``_pcs1_bwd`` does.
+  ``fused_dual_s2_conv_split`` has no merged branch, as in JAX.
 
-The JAX signatures' ``fold_ok`` and ``fold_site`` are left out: they only
-choose, on the TPU, whether the fold runs inside the kernels or as an XLA
-pass before them (``_stats_geff``, the default for the standard conv). The
-math is the same; here it always runs inside, on both routes.
+Where the fold runs, on the split route, is the JAX signatures' ``fold_ok``
+and ``fold_site`` with the option ``kernel_geff`` (``kernel_geff_enabled``,
+the JAX package's ``GENICONET_KERNEL_GEFF``). Each call names its kernel
+family as ``_pcs1_bwd``, ``_ds2_bwd``, ``_ds2s_bwd``, ``_upd_bwd`` and the
+standard conv's ``_bwd`` do: ``pcs1_front`` (no input cotangent),
+``pcs1_<fold_site>`` or ``pcs1``, ``ds2`` (both stride-2 Functions),
+``upd``, ``std``. A family in the set folds inside its kernels; any other
+runs the fold before them as ``stats_geff`` (kernel l, one launch per tap
+set) and passes its kernels g_eff with no fold, and the bias gradient then
+comes from the dtaps kernel's Σg (the phase convs) or the dx kernel's (the
+up and standard convs). ``kernel_geff=None``, the default, folds every
+family inside. The merged route always folds inside, as the JAX merged
+branches run before the fold test.
 """
 
 from __future__ import annotations
@@ -50,26 +63,57 @@ from geniconet_tpu_torch.ops.kernels.conv_kernel import (
     ico_conv_s2s_bwd, ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
 )
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    pair_head_bwd, pair_head_fwd, pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_bwd,
-    phase_conv_dtaps, phase_conv_dx, phase_conv_fwd, up_dual_conv_bwd, up_dual_conv_dtaps,
-    up_dual_conv_dx, up_dual_conv_fwd,
+    ds2s_dtaps, ds2s_dx, ds2s_fwd, pair_head_bwd, pair_head_fwd, pair_head_mse_bwd,
+    pair_head_mse_fwd, phase_conv_bwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
+    stats_geff, up_dual_conv_bwd, up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
 )
 
-__all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_up_dual_conv",
-           "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse"]
+__all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_dual_s2_conv_split",
+           "fused_up_dual_conv", "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse",
+           "kernel_geff_enabled"]
 
 _ALL = (0, 1, 2, 3)
+
+
+def kernel_geff_enabled(family: str, kernel_geff: str | None, allow: bool = True) -> bool:
+    """Whether kernel ``family`` folds the stats cotangent inside its
+    backward kernels: the JAX package's ``_kernel_geff_enabled`` with the
+    value of ``GENICONET_KERNEL_GEFF`` as ``kernel_geff``. "" is JAX's
+    built-in set (``pcs1_front``, ``upd``), "0" none, "1"/"all" every
+    family, else a comma list of families. ``allow=False`` (a restricted
+    ``pallas_blocks`` model, JAX's ``fold_ok``) folds none unless the value
+    starts with "!". None, the port's default, folds every family."""
+    if kernel_geff is None:
+        return True
+    v = kernel_geff
+    if v.startswith("!"):
+        v = v[1:]
+    elif not allow:
+        return False
+    if v == "":
+        return family in ("pcs1_front", "upd")
+    if v == "0":
+        return False
+    if v in ("1", "all"):
+        return True
+    return family in {f.strip() for f in v.split(",")}
 
 
 def _groups(grads, n_sets, n):
     return [[g.contiguous() for g in grads[s * n : (s + 1) * n]] for s in range(n_sets)]
 
 
-def _fold_kwargs(with_stats, ys, stat_grads, n_sets, n):
+def _fold(with_stats, in_kernel, g_groups, ys, stat_grads, n_sets, n):
+    """(g_groups, fold kwargs of the kernels): with stats, the fold inside
+    the kernels (``y_groups``, ``gs_list``) or before them (``stats_geff``
+    per tap set, then no fold)."""
     if not with_stats:
-        return {}
-    return dict(y_groups=_groups(ys, n_sets, n),
-                gs_list=[g.float().contiguous() for g in stat_grads])
+        return g_groups, {}
+    y_groups = _groups(ys, n_sets, n)
+    gs_list = [g.float().contiguous() for g in stat_grads]
+    if in_kernel:
+        return g_groups, dict(y_groups=y_groups, gs_list=gs_list)
+    return [list(stats_geff(g, y, gs)) for g, y, gs in zip(g_groups, y_groups, gs_list)], {}
 
 
 class _PhaseConv(torch.autograd.Function):
@@ -78,7 +122,7 @@ class _PhaseConv(torch.autograd.Function):
     phases, then n_sets stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd,
+    def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
                 *tensors):
         phases, taps = tensors[:4], tensors[4 : 4 + n_sets]
         biases = tensors[4 + n_sets : 4 + 2 * n_sets]
@@ -88,24 +132,26 @@ class _PhaseConv(torch.autograd.Function):
                            with_stats)
         sets, stats = r if with_stats else (r, [])
         outs = [o for group in sets for o in group]
-        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd,
+        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
                         [b is not None for b in biases])
         ctx.save_for_backward(*phases, *taps, mul, add, *(outs if with_stats else ()))
         return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, has_bias = ctx.settings
+        (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
+         has_bias) = ctx.settings
         saved = ctx.saved_tensors
         phases, taps = saved[:4], saved[4 : 4 + n_sets]
         mul, add = saved[4 + n_sets : 6 + n_sets]
         act = None if mul is None else (mul, add)
         n_out, dt, cin = len(out_phases), phases[0].dtype, phases[0].shape[-1]
-        g_groups = _groups(grads, n_sets, n_out)
-        fk = _fold_kwargs(with_stats, saved[6 + n_sets :], grads[n_sets * n_out :], n_sets, n_out)
+        merged = needs_dx and merged_bwd
+        g_groups, fk = _fold(with_stats, fold or merged, _groups(grads, n_sets, n_out),
+                             saved[6 + n_sets :], grads[n_sets * n_out :], n_sets, n_out)
         sets = [(t, None) for t in taps]
         dphases, dmul, dadd, gsums = (None,) * 4, None, None, None
-        if needs_dx and merged_bwd:
+        if merged:
             dphases, dtaps, gsums, dmul, dadd = phase_conv_bwd(
                 phases, g_groups, fk.get("y_groups"), fk.get("gs_list"), sets, corner_mode,
                 out_phases, act, with_stats, dt)
@@ -119,33 +165,94 @@ class _PhaseConv(torch.autograd.Function):
                                  out_phases, act, emit_gsum=want_gsum, **fk)
             dtaps, gsums = r if want_gsum else (r, gsums)
         dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
-        return (None,) * 6 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
+        return (None,) * 7 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
                               dmul, dadd)
 
 
 def fused_phase_conv_s1(phases, taps, bias, corner_mode="average", act=None, with_stats=False,
-                        needs_dx=True, merged_bwd: bool = False):
+                        needs_dx=True, merged_bwd: bool = False, fold_ok: bool = True,
+                        fold_site: str = "", kernel_geff: str | None = None):
     """Stride-1 hex conv in phase form: 4 phases in -> 4 phases out.
 
     act: optional float32 (mul, add) (C_in,) BN-apply + ReLU prologue.
     with_stats: also return the (2, C_out) float32 [Σy, Σy²] of the output.
     needs_dx=False skips the input-cotangent kernel (for data inputs).
-    merged_bwd: the backward as one merged kernel (with needs_dx)."""
+    merged_bwd: the backward as one merged kernel (with needs_dx).
+    fold_ok, fold_site, kernel_geff: where the stats fold runs (module doc;
+    family ``pcs1_front``, ``pcs1_<fold_site>`` or ``pcs1``)."""
     mul, add = act if act is not None else (None, None)
-    r = _PhaseConv.apply(corner_mode, _ALL, 1, with_stats, needs_dx, merged_bwd, *phases, taps,
-                         bias, mul, add)
+    family = "pcs1_front" if not needs_dx else f"pcs1_{fold_site}" if fold_site else "pcs1"
+    fold = kernel_geff_enabled(family, kernel_geff, fold_ok)
+    r = _PhaseConv.apply(corner_mode, _ALL, 1, with_stats, needs_dx, merged_bwd, fold, *phases,
+                         taps, bias, mul, add)
     return (tuple(r[:4]), r[4]) if with_stats else tuple(r)
 
 
 def fused_dual_s2_conv(phases, taps_a, bias_a, taps_b, bias_b, corner_mode="average", act=None,
-                       with_stats=False, merged_bwd: bool = False):
+                       with_stats=False, merged_bwd: bool = False, fold_ok: bool = True,
+                       kernel_geff: str | None = None):
     """Both stride-2 convs of a DownBlock in one kernel: the 4 parity phases
     of the level-s input -> (y_a, y_b), standard level-(s-1) tensors
     (output phase 2 of the phase conv) [+ their (2, C) stats]. merged_bwd:
-    the backward as one merged kernel."""
+    the backward as one merged kernel; fold_ok, kernel_geff: where the stats
+    fold runs (family ``ds2``)."""
     mul, add = act if act is not None else (None, None)
-    return _PhaseConv.apply(corner_mode, (2,), 2, with_stats, True, merged_bwd, *phases, taps_a,
-                            taps_b, bias_a, bias_b, mul, add)
+    fold = kernel_geff_enabled("ds2", kernel_geff, fold_ok)
+    return _PhaseConv.apply(corner_mode, (2,), 2, with_stats, True, merged_bwd, fold, *phases,
+                            taps_a, taps_b, bias_a, bias_b, mul, add)
+
+
+class _DualS2Split(torch.autograd.Function):
+    """Inputs: settings, 4 phases, taps_a, taps_b, bias_a, bias_b (or None),
+    act mul, add (or None). Outputs: 4 + 4 level-(s-1) phases, then 2 stats
+    when with_stats."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, with_stats, fold, *tensors):
+        phases, (ta, tb, ba, bb, mul, add) = tensors[:4], tensors[4:]
+        act = None if mul is None else (mul, add)
+        r = ds2s_fwd(phases, [(ta, ba), (tb, bb)], corner_mode, act, with_stats)
+        sets, stats = r if with_stats else (r, [])
+        outs = [*sets[0], *sets[1]]
+        ctx.settings = (corner_mode, with_stats, fold, ba is not None, bb is not None)
+        ctx.save_for_backward(*phases, ta, tb, mul, add, *(outs if with_stats else ()))
+        return (*outs, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        corner_mode, with_stats, fold, has_a, has_b = ctx.settings
+        saved = ctx.saved_tensors
+        phases, (ta, tb, mul, add) = saved[:4], saved[4:8]
+        act = None if mul is None else (mul, add)
+        dt, cin = phases[0].dtype, phases[0].shape[-1]
+        g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[8:], grads[8:], 2, 4)
+        sets = [(ta, None), (tb, None)]
+        dphases, dmul, dadd, gsums = ds2s_dx(g_groups, sets, corner_mode, cin, dt, act, phases,
+                                             **fk)
+        # the bias gradients ride the dtaps kernel unless the dx kernel's fold made them
+        want_gsum = gsums is None and (has_a or has_b)
+        r = ds2s_dtaps(phases, g_groups, [ta.shape, tb.shape], corner_mode, act,
+                       emit_gsum=want_gsum, **fk)
+        (dta, dtb), gsums = r if want_gsum else (r, gsums)
+        dba = gsums[0].to(ta.dtype) if has_a else None
+        dbb = gsums[1].to(tb.dtype) if has_b else None
+        return (None,) * 3 + (*dphases, dta.to(ta.dtype), dtb.to(tb.dtype), dba, dbb, dmul, dadd)
+
+
+def fused_dual_s2_conv_split(phases, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
+                             act=None, with_stats=False, fold_ok: bool = True,
+                             kernel_geff: str | None = None):
+    """Both stride-2 convs of a DownBlock, their outputs emitted as the 4
+    parity phases of the level-(s-1) grid (the encoder's phase chain): the
+    4 phases of the level-s input -> (ya_phases, yb_phases) 4-tuples [+ the
+    two (2, C) stats]. act: optional float32 (mul, add) prologue; fold_ok,
+    kernel_geff: where the stats fold runs (family ``ds2``)."""
+    mul, add = act if act is not None else (None, None)
+    fold = kernel_geff_enabled("ds2", kernel_geff, fold_ok)
+    r = _DualS2Split.apply(corner_mode, with_stats, fold, *phases, taps_a, taps_b, bias_a, bias_b,
+                           mul, add)
+    out = (tuple(r[0:4]), tuple(r[4:8]))
+    return (*out, r[8], r[9]) if with_stats else out
 
 
 class _UpDual(torch.autograd.Function):
@@ -153,21 +260,23 @@ class _UpDual(torch.autograd.Function):
     phases, then 2 stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, with_stats, merged_bwd, x, taps_a, bias_a, taps_b, bias_b):
+    def forward(ctx, corner_mode, with_stats, merged_bwd, fold, x, taps_a, bias_a, taps_b,
+                bias_b):
         r = up_dual_conv_fwd(x, [(taps_a, bias_a), (taps_b, bias_b)], corner_mode, with_stats)
         sets, stats = r if with_stats else (r, [])
         outs = [*sets[0], *sets[1]]
-        ctx.settings = (corner_mode, with_stats, merged_bwd, bias_a is not None,
+        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, bias_a is not None,
                         bias_b is not None)
         ctx.save_for_backward(x, taps_a, taps_b, *(outs if with_stats else ()))
         return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, with_stats, merged_bwd, has_a, has_b = ctx.settings
+        corner_mode, with_stats, merged_bwd, fold, has_a, has_b = ctx.settings
         x, taps_a, taps_b, *ys = ctx.saved_tensors
-        g_groups = _groups(grads, 2, 4)
-        fk = _fold_kwargs(with_stats, ys, grads[8:], 2, 4)
+        # Σg rides the dx kernel with the fold in or out of the kernels
+        g_groups, fk = _fold(with_stats, fold or merged_bwd, _groups(grads, 2, 4), ys, grads[8:],
+                             2, 4)
         sets = [(taps_a, None), (taps_b, None)]
         if merged_bwd:
             dx, dta, dtb, *gsums = up_dual_conv_bwd(x, g_groups, sets, corner_mode, **fk)
@@ -177,15 +286,19 @@ class _UpDual(torch.autograd.Function):
             dta, dtb = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
         dba = gsums[0].to(taps_a.dtype) if has_a else None
         dbb = gsums[1].to(taps_b.dtype) if has_b else None
-        return None, None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
+        return None, None, None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
 
 
 def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
-                       with_stats=False, merged_bwd: bool = False):
+                       with_stats=False, merged_bwd: bool = False, fold_ok: bool = True,
+                       kernel_geff: str | None = None):
     """An UpBlock's upsample + both first convs, fused: standard level-s
     (B, 5, h, w, C_in) in -> two 4-tuples of level-(s+1) phases [+ the two
-    (2, C_out) stats]. merged_bwd: the backward as one merged kernel."""
-    r = _UpDual.apply(corner_mode, with_stats, merged_bwd, x, taps_a, bias_a, taps_b, bias_b)
+    (2, C_out) stats]. merged_bwd: the backward as one merged kernel;
+    fold_ok, kernel_geff: where the stats fold runs (family ``upd``)."""
+    fold = kernel_geff_enabled("upd", kernel_geff, fold_ok)
+    r = _UpDual.apply(corner_mode, with_stats, merged_bwd, fold, x, taps_a, bias_a, taps_b,
+                      bias_b)
     out = (tuple(r[0:4]), tuple(r[4:8]))
     return (*out, r[8], r[9]) if with_stats else out
 
@@ -195,21 +308,24 @@ class _IcoConv(torch.autograd.Function):
     Outputs: y, then its stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, with_stats, merged_bwd, x, taps, bias, mul, add):
+    def forward(ctx, corner_mode, with_stats, merged_bwd, fold, x, taps, bias, mul, add):
         act = None if mul is None else (mul, add)
         r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats)
         y = r[0] if with_stats else r
-        ctx.settings = (corner_mode, with_stats, merged_bwd, bias is not None)
+        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, bias is not None)
         ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
         return r
 
     @staticmethod
     def backward(ctx, gy, gst=None):
-        corner_mode, with_stats, merged_bwd, has_bias = ctx.settings
+        corner_mode, with_stats, merged_bwd, fold, has_bias = ctx.settings
         x, taps, mul, add, y = ctx.saved_tensors
         act = None if mul is None else (mul, add)
-        gy = gy.contiguous()
-        fk = dict(y=y, gs=gst.float().contiguous()) if with_stats else {}
+        gy, fk = gy.contiguous(), {}
+        if with_stats and (fold or merged_bwd):
+            fk = dict(y=y, gs=gst.float().contiguous())
+        elif with_stats:  # Σg rides the dx kernel with the fold in or out of the kernels
+            (gy,) = stats_geff((gy,), (y,), gst.float().contiguous())
         if merged_bwd:
             dx, dtaps, gsum, dmul, dadd = ico_conv_s2s_bwd(
                 x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype)
@@ -218,11 +334,12 @@ class _IcoConv(torch.autograd.Function):
                                                    emit_gsum=has_bias, **fk)
             dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
         dbias = gsum.to(taps.dtype) if has_bias else None
-        return None, None, None, dx, dtaps, dbias, dmul, dadd
+        return None, None, None, None, dx, dtaps, dbias, dmul, dadd
 
 
 def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", stride=1, act=None,
-                       with_stats=False, merged_bwd: bool = False):
+                       with_stats=False, merged_bwd: bool = False,
+                       kernel_geff: str | None = None):
     """Standard-layout hex conv (B, 5, h, w, C_in) -> (B, 5, h, w, C_out),
     stride 1, with its hand-written backward.
 
@@ -230,14 +347,17 @@ def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", strid
     ReLU prologue; with_stats: also return the (2, C_out) float32 [Σy, Σy²],
     a differentiable output. The backward kernels give dx (with the act
     adjoint and d_mul, d_add), dtaps rounded to x's dtype, and the bias
-    gradient Σg_eff; with ``merged_bwd`` all from one merged kernel. Stride 2
-    runs in phase form (``fused_dual_s2_conv``). ``subdivisions`` keeps the
-    JAX signature; the kernels take the level from x's shape."""
+    gradient Σg_eff; with ``merged_bwd`` all from one merged kernel.
+    kernel_geff: where the stats fold runs (family ``std``, which, as in
+    JAX, has no ``fold_ok``). Stride 2 runs in phase form
+    (``fused_dual_s2_conv``). ``subdivisions`` keeps the JAX signature; the
+    kernels take the level from x's shape."""
     if stride != 1:
         raise ValueError("fused_ico_conv_s2s: stride 1 only; stride 2 is fused_dual_s2_conv")
     mul, add = act if act is not None else (None, None)
-    return _IcoConv.apply(corner_mode, with_stats, merged_bwd, x.contiguous(), taps, bias, mul,
-                          add)
+    fold = kernel_geff_enabled("std", kernel_geff)
+    return _IcoConv.apply(corner_mode, with_stats, merged_bwd, fold, x.contiguous(), taps, bias,
+                          mul, add)
 
 
 class _PairHead(torch.autograd.Function):

@@ -19,7 +19,14 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``phase_conv_bwd`` -> ``csrc/phase_conv_bwd.cu`` (``_phase_conv_bwd``) and
   ``up_dual_conv_bwd`` -> ``csrc/up_conv_bwd.cu`` (``_upd_bwd``'s merged
   branch): the merged one-pass backward, every output of the split pair
-  (dx with the act adjoint, dtaps, Σg_eff, d_mul/d_add) from one launch.
+  (dx with the act adjoint, dtaps, Σg_eff, d_mul/d_add) from one launch;
+* ``stats_geff`` -> ``csrc/stats_geff.cu`` (``_stats_geff``): the stats
+  fold outside the conv kernels, for the kernel families that do not fold
+  in-kernel (the ``kernel_geff`` option);
+* ``ds2s_fwd`` / ``ds2s_dx`` / ``ds2s_dtaps`` -> ``csrc/ds2s.cu`` (``_ds2s``
+  and the two kernels of ``_ds2s_bwd``): the phase chain's stride-2 conv,
+  whose outputs and their cotangents are the 4 parity phases of the
+  level-(s-1) grid.
 
 The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
 ``gs_list`` (the forward outputs and the cotangents of their stats) switch
@@ -42,9 +49,11 @@ from geniconet_tpu_torch.ops.kernels.build import (
 )
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
 from geniconet_tpu_torch.ops.pad import ico_pad
-from geniconet_tpu_torch.ops.phase import phase_conv, phase_upsample
+from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, phase_upsample
 
 __all__ = [
+    "stats_geff", "ds2s_fwd", "ds2s_fwd_plain", "ds2s_dx", "ds2s_dx_plain", "ds2s_dtaps",
+    "ds2s_dtaps_plain",
     "phase_conv_fwd", "phase_conv_fwd_plain",
     "up_dual_conv_fwd", "up_dual_conv_fwd_plain",
     "pair_head_fwd", "pair_head_fwd_plain", "pair_head_bwd", "pair_head_bwd_plain",
@@ -442,6 +451,219 @@ def phase_conv_bwd(raw_phases, g_groups, y_groups, gs_list, tap_sets, corner_mod
     build.check("phase_conv_bwd", err)
     build.LAUNCHES["phase_conv_bwd"] += 1
     return tuple(dphases), dtaps, gsums, dmul, dadd
+
+
+# --------------------------------------------------------------------------
+# the stats fold outside the conv kernels (kernel l)
+# --------------------------------------------------------------------------
+
+
+def stats_geff(g_group, y_group, gs):
+    """The stats-cotangent fold g_eff = g + gs0 + 2·gs1·y over a group of
+    1-4 phase tensors in one launch (the Pallas ``_stats_geff``): float32
+    math, rounded to g's dtype. g_group, y_group: contiguous tensors of one
+    shape (B, 5, h, w, C) and dtype; gs: float32 (2, C). Returns the tuple
+    of g_eff."""
+    g0 = g_group[0]
+    if not on_cuda(g0, "stats_geff"):
+        return geff_plain(g_group, y_group, gs)
+    n, shape, dev, dt = len(g_group), tuple(g0.shape), g0.device, g0.dtype
+    if not 1 <= n <= 4 or len(y_group) != n:
+        raise ValueError(f"stats_geff: takes 1-4 (g, y) pairs, got {n} and {len(y_group)}")
+    for i, (g, y) in enumerate(zip(g_group, y_group)):
+        expect(g, shape, dt, dev, f"stats_geff g {i}")
+        expect(y, shape, dt, dev, f"stats_geff y {i}")
+    expect(gs, (2, shape[-1]), torch.float32, dev, "stats_geff gs")
+    outs = [torch.empty_like(g) for g in g_group]
+    with torch.cuda.device(dev):
+        err = build.library().gn_stats_geff(
+            build.ptr_array(g_group), build.ptr_array(y_group), gs.data_ptr(),
+            build.ptr_array(outs), n, g0.numel(), shape[-1], build.dtype_code(dt),
+            build.stream_ptr(dev),
+        )
+    build.check("stats_geff", err)
+    build.LAUNCHES["stats_geff"] += 1
+    return tuple(outs)
+
+
+# --------------------------------------------------------------------------
+# the phase chain's stride-2 conv (fused_dual_s2_conv_split, kernel m)
+# --------------------------------------------------------------------------
+
+
+def _merge_groups(groups):
+    return None if groups is None else [(phase_merge(tuple(g)),) for g in groups]
+
+
+def ds2s_fwd_plain(phases, tap_sets, corner_mode="average", act=None, with_stats=False):
+    """Plain version: ``phase_conv_fwd_plain`` with output phase 2, then
+    ``phase_split`` of each output."""
+    r = phase_conv_fwd_plain(phases, tap_sets, corner_mode, (2,), act, with_stats)
+    sets, stats = r if with_stats else (r, None)
+    sets = [tuple(p.contiguous() for p in phase_split(y)) for (y,) in sets]
+    return (sets, stats) if with_stats else sets
+
+
+def _check_split(h, w, name):
+    if h < 2 or h % 2:
+        raise ValueError(f"{name}: the output grid ({h}, {w}) has no parity phases "
+                         "(level s-1 >= 1 needed)")
+
+
+def ds2s_fwd(phases, tap_sets, corner_mode: str = "average", act=None, with_stats: bool = False):
+    """Both stride-2 convs of a DownBlock with their outputs as the 4 parity
+    phases of the level-(s-1) grid (the Pallas ``_ds2s``).
+
+    phases, tap_sets, act, with_stats: as ``phase_conv_fwd`` with out_phases
+    (2,). Returns, per tap set, a 4-tuple of (B, 5, h/2, w/2, C_out) phases
+    (the ``phase_split`` of its (B, 5, h, w, C_out) output); with
+    ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]."""
+    if len(phases) != 4:
+        raise ValueError(f"ds2s_fwd: takes 4 phases, got {len(phases)}")
+    x0 = phases[0]
+    if not on_cuda(x0, "ds2s_fwd"):
+        return ds2s_fwd_plain(phases, tap_sets, corner_mode, act, with_stats)
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    _check_split(h, w, "ds2s_fwd")
+    dev, dt = x0.device, x0.dtype
+    for i, p in enumerate(phases):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"ds2s_fwd phase {i}")
+    cout = _check_sets(tap_sets, cin, dt, dev, "ds2s_fwd")
+    check_act(act, cin, dev, "ds2s_fwd")
+    n_sets = len(tap_sets)
+    outs = [torch.empty((B, 5, h // 2, w // 2, cout), dtype=dt, device=dev)
+            for _ in range(4 * n_sets)]
+    table = device_table("phase", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    stats, ws = _stats_outputs(with_stats, B * build.n_tiles(5 * h * w), n_sets, cout, dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_ds2s_fwd(
+            *[p.data_ptr() for p in phases], build.ptr(mul), build.ptr(add),
+            *_set_ptrs(tap_sets), build.ptr_array(outs), table.data_ptr(), build.ptr(ws),
+            *_pair(stats), B, h, w, cin, cout, n_sets, build.dtype_code(dt),
+            build.stream_ptr(dev),
+        )
+    build.check("ds2s_fwd", err)
+    build.LAUNCHES["ds2s_fwd"] += 1
+    sets = [tuple(outs[4 * i : 4 * (i + 1)]) for i in range(n_sets)]
+    return (sets, stats) if with_stats else sets
+
+
+def ds2s_dx_plain(g_groups, tap_sets, corner_mode, cin, dtype, act=None, raw_phases=None,
+                  y_groups=None, gs_list=None):
+    """Plain version of ``ds2s_dx``: ``phase_conv_dx_plain`` with output
+    phase 2 on the ``phase_merge``d cotangents (and outputs)."""
+    return phase_conv_dx_plain(_merge_groups(g_groups), tap_sets, corner_mode, (2,), cin,
+                               dtype, act, raw_phases, _merge_groups(y_groups), gs_list)
+
+
+def _check_split_cotangents(g_groups, y_groups, gs_list, shape, dt, dev, n_sets, name):
+    if len(g_groups) != n_sets or any(len(g) != 4 for g in g_groups):
+        raise ValueError(f"{name}: 4 cotangent phases per tap set")
+    if y_groups is not None and (len(y_groups) != n_sets or any(len(y) != 4 for y in y_groups)):
+        raise ValueError(f"{name}: 4 output phases per tap set")
+    _check_cotangents(g_groups, y_groups, gs_list, shape, dt, dev, name)
+
+
+def ds2s_dx(g_groups, tap_sets, corner_mode, cin, dtype, act=None, raw_phases=None,
+            y_groups=None, gs_list=None):
+    """Input cotangent of ``ds2s_fwd`` (the dx kernel of ``_ds2s_bwd``).
+
+    g_groups: per tap set, the 4 cotangent phases (B, 5, h/2, w/2, C_out) of
+    its output in ``dtype``; the rest as ``phase_conv_dx`` (y_groups: the
+    forward's output phases). Returns (4 dphases (B, 5, h, w, C_in), d_mul,
+    d_add, gsums)."""
+    g0 = g_groups[0][0]
+    if not on_cuda(g0, "ds2s_dx"):
+        return ds2s_dx_plain(g_groups, tap_sets, corner_mode, cin, dtype, act, raw_phases,
+                             y_groups, gs_list)
+    B, _, hp, wp, cout = g0.shape
+    h, w = 2 * hp, 2 * wp
+    grid_level(h, w)
+    dev, n_sets = g0.device, len(tap_sets)
+    _check_split_cotangents(g_groups, y_groups, gs_list, (B, 5, hp, wp, cout), dtype, dev,
+                            n_sets, "ds2s_dx")
+    _check_sets(tap_sets, cin, dtype, dev, "ds2s_dx")
+    check_act(act, cin, dev, "ds2s_dx")
+    if act is not None:
+        for i, x in enumerate(raw_phases):
+            expect(x, (B, 5, h, w, cin), dtype, dev, f"ds2s_dx raw phase {i}")
+    M = 5 * h * w
+    outs = [torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev) for _ in range(4)]
+    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, (2,))
+    mul, add = act if act is not None else (None, None)
+    red = dmul = dadd = None
+    if act is not None:
+        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
+        dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
+    gsum_ws, gsums = (None, [None])
+    if y_groups is not None:
+        gsum_ws, gsums = _gsum_outputs(B * M, n_sets, cout, dev)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    raws = build.ptr_array(raw_phases) if act is not None else None
+    with torch.cuda.device(dev):
+        err = build.library().gn_ds2s_dx(
+            gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), raws, build.ptr(mul),
+            build.ptr(add), build.ptr_array(outs), offsets.data_ptr(), cells.data_ptr(),
+            weights.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
+            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, n_sets, build.GSUM_ROWS,
+            build.dtype_code(dtype), build.stream_ptr(dev),
+        )
+    build.check("ds2s_dx", err)
+    build.LAUNCHES["ds2s_dx"] += 1
+    return tuple(outs), dmul, dadd, (gsums if y_groups is not None else None)
+
+
+def ds2s_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, act=None, y_groups=None,
+                     gs_list=None, emit_gsum=False):
+    """Plain version of ``ds2s_dtaps``: ``phase_conv_dtaps_plain`` with
+    output phase 2 on the ``phase_merge``d cotangents (and outputs)."""
+    return phase_conv_dtaps_plain(phases, _merge_groups(g_groups), tap_shapes, corner_mode, (2,),
+                                  act, _merge_groups(y_groups), gs_list, emit_gsum)
+
+
+def ds2s_dtaps(phases, g_groups, tap_shapes, corner_mode, act=None, y_groups=None, gs_list=None,
+               emit_gsum=False):
+    """Tap cotangents of ``ds2s_fwd`` summed over the batch (the dtaps kernel
+    of ``_ds2s_bwd``): per set a float32 (7, C_in, C_out); with ``emit_gsum``
+    also the per-set Σg_eff. phases: the forward's 4 RAW input phases;
+    g_groups, y_groups, gs_list: as ``ds2s_dx``."""
+    x0 = phases[0]
+    if not on_cuda(x0, "ds2s_dtaps"):
+        return ds2s_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, act, y_groups,
+                                gs_list, emit_gsum)
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    _check_split(h, w, "ds2s_dtaps")
+    dev, dt = x0.device, x0.dtype
+    n_sets = len(g_groups)
+    cout = tap_shapes[0][-1]
+    if any(tuple(s) != (7, cin, cout) for s in tap_shapes) or not 1 <= n_sets <= 2:
+        raise ValueError(f"ds2s_dtaps: tap shapes {tap_shapes} for C_in {cin}")
+    for i, p in enumerate(phases):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"ds2s_dtaps phase {i}")
+    _check_split_cotangents(g_groups, y_groups, gs_list, (B, 5, h // 2, w // 2, cout), dt, dev,
+                            n_sets, "ds2s_dtaps")
+    check_act(act, cin, dev, "ds2s_dtaps")
+    rows = B * 5 * h * w
+    kc, n_chunks = build.dtaps_split(rows, build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
+    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
+    gsum_ws, gsums = _gsum_outputs(rows, n_sets, cout, dev) if emit_gsum else (None, [None])
+    table = device_table("phase", h, w, corner_mode, dev)
+    mul, add = act if act is not None else (None, None)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_ds2s_dtaps(
+            build.ptr_array(phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
+            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(gsum_ws), *_pair(gsums),
+            B, h, w, cin, cout, n_sets, kc, n_chunks, build.GSUM_ROWS, build.dtype_code(dt),
+            build.stream_ptr(dev),
+        )
+    build.check("ds2s_dtaps", err)
+    build.LAUNCHES["ds2s_dtaps"] += 1
+    return (tuple(dtaps), gsums) if emit_gsum else tuple(dtaps)
 
 
 # --------------------------------------------------------------------------

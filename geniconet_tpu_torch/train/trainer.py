@@ -23,7 +23,11 @@ The models are the JAX defaults, ``pallas_blocks=None``: every block on the
 kernels, forward with BatchNorm sums and hand-written backward; with
 ``merged_bwd`` (the JAX package's ``GENICONET_MERGED_BWD``, here a
 constructor argument) the backward of the named kernel families runs on
-the merged one-pass kernels. The JAX
+the merged one-pass kernels; ``kernel_geff`` (``GENICONET_KERNEL_GEFF``)
+picks the families whose split backward folds the stats cotangent inside
+its kernels, the rest folding it before them (kernel l); ``phase_chain``
+("enc", ``GENICONET_PHASE_CHAIN=enc``) runs the encoder as the phase chain
+(kernel m). The JAX
 package's TPU workarounds for the VAE at batch 24 and more (its split step
 and ``pallas_blocks`` default) are not ported. Epochs, validation and
 checkpoints are not ported yet.
@@ -60,21 +64,25 @@ class TrainState:
 class Trainer:
     """Owns the model and runs the train step, on the card unless
     ``device="cpu"``. ``merged_bwd``: None, "all" or a comma list of
-    kernel families (``nn/layers.py:merged_bwd_enabled``)."""
+    kernel families (``nn/layers.py:merged_bwd_enabled``); ``phase_chain``:
+    None or "enc"; ``kernel_geff``: None (every family folds in-kernel) or
+    a ``GENICONET_KERNEL_GEFF`` value (``nn/layers.py:kernel_geff_enabled``)."""
 
-    def __init__(self, cfg, device="cuda", merged_bwd: str | None = None):
+    def __init__(self, cfg, device="cuda", merged_bwd: str | None = None,
+                 phase_chain: str | None = None, kernel_geff: str | None = None):
         m = cfg.model
         self.cfg, self.device, self.s = cfg, devices.resolve(device), m.subdivisions
         self.is_vae = m.is_vae
         self.factors = loss_factors(cfg)
         self.fused_mse = not self.is_vae and self.factors.nor == 0.0 and self.factors.lap == 0.0
         dtype = _DTYPES[m.compute_dtype]
+        routing = dict(merged_bwd=merged_bwd, phase_chain=phase_chain, kernel_geff=kernel_geff,
+                       device=self.device)
         if self.is_vae:
             self.model = IcoVAE(m.subdivisions, tuple(m.widths), m.latent_features,
-                                m.corner_mode, dtype, merged_bwd=merged_bwd, device=self.device)
+                                m.corner_mode, dtype, **routing)
         else:
-            self.model = IcoAE(m.subdivisions, tuple(m.widths), m.corner_mode, dtype,
-                               merged_bwd=merged_bwd, device=self.device)
+            self.model = IcoAE(m.subdivisions, tuple(m.widths), m.corner_mode, dtype, **routing)
         o = cfg.optim
         self.lr_fn = partial(cyclic_triangular, base_lr=o.lr_base, max_lr=o.lr_max,
                              step_size_up=o.step_size_up, step_size_down=o.step_size_down)

@@ -20,6 +20,7 @@ from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
 from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+from geniconet_tpu_torch.ops.phase import phase_merge
 
 pytestmark = pytest.mark.cuda
 
@@ -506,4 +507,144 @@ def test_merged_training_route_launches_the_merged_kernels(cuda, model):
         else:
             assert torch.equal(g, split[k]), k
     ref_loss, _, _ = run("all", "cpu")
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+
+
+# ---------------------------------------------------------------------------
+# the encoder's phase chain (kernel m) and the stats fold outside the
+# kernels (kernel l)
+# ---------------------------------------------------------------------------
+
+
+def _split(x):
+    return tuple(x[:, :, p >> 1 :: 2, p & 1 :: 2].contiguous() for p in range(4))
+
+
+def _merge(groups):
+    return [(phase_merge(tuple(g)).contiguous(),) for g in groups]
+
+
+def _equal_all(got, ref):
+    for u, v in zip(got, ref):
+        if isinstance(v, (tuple, list)):
+            _equal_all(u, v)
+        elif v is None:
+            assert u is None
+        else:
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [2, 4])
+def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
+    """Kernel m against the phase conv's kernels with output phase 2: its
+    split is addressing only (the same GEMM, row order and loads), so the
+    outputs and stats equal ``phase_conv_fwd`` + ``phase_split``, and dx,
+    d_mul/d_add, dtaps and Σg_eff equal ``phase_conv_dx`` /
+    ``phase_conv_dtaps`` on the ``phase_merge``d cotangents, bit for bit;
+    and m is within the tolerance of its plain versions."""
+    x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
+    phases = _split(x)
+    for a in (act, None):
+        got = pk.ds2s_fwd(phases, sets, corner_mode, a, with_stats=True)
+        ref_sets, ref_stats = pk.phase_conv_fwd(phases, sets, corner_mode, (2,), a, True)
+        _equal_all(got, ([_split(y) for (y,) in ref_sets], ref_stats))
+        _close_all(got, pk.ds2s_fwd_plain(phases, sets, corner_mode, a, True), dt)
+    mk, gs = _stats_fold(cuda, dt, phases[0].shape[:2] + (2 ** (s - 2), 2 ** (s - 1), 20), 2,
+                         seed=s)
+    shapes = [(7, 12, 20)] * 2
+    for a, fold in [(act, True), (None, True), (act, False), (None, False)]:
+        g = mk(4)
+        y = mk(4) if fold else None
+        fk = dict(y_groups=y, gs_list=gs) if fold else {}
+        fkm = dict(y_groups=_merge(y), gs_list=gs) if fold else {}
+        raw = phases if a else None
+        got = pk.ds2s_dx(g, sets, corner_mode, 12, dt, a, raw, **fk)
+        _equal_all(got, pk.phase_conv_dx(_merge(g), sets, corner_mode, (2,), 12, dt, a, raw,
+                                         **fkm))
+        _close_all(got, pk.ds2s_dx_plain(g, sets, corner_mode, 12, dt, a, raw, **fk), dt)
+        got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, a, **fk, emit_gsum=True)
+        _equal_all(got, pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a,
+                                            **fkm, emit_gsum=True))
+        _close_all(got, pk.ds2s_dtaps_plain(phases, g, shapes, corner_mode, a, **fk,
+                                            emit_gsum=True), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n, C", [(4, 64), (2, 128), (1, 20)])
+def test_stats_geff(cuda, n, C, dt):
+    """Kernel l against its plain version: the same float32 operations in
+    the same order, rounded once, so equal (C=20 takes the scalar loads)."""
+    gen = torch.Generator().manual_seed(140 + C + n)
+    shape = (3, 5, 4, 8, C)
+    g = [torch.randn(shape, generator=gen).to(cuda, dt) for _ in range(n)]
+    y = [torch.randn(shape, generator=gen).to(cuda, dt) for _ in range(n)]
+    gs = torch.randn(2, C, generator=gen).to(cuda)
+    _equal_all(pk.stats_geff(g, y, gs), pk.geff_plain(g, y, gs))
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
+    """One training forward and backward on the encoder's phase chain, with
+    every family folding in-kernel (``kernel_geff=None``) and with JAX's
+    built-in set (``""``: kernel l folds the rest before their kernels). l
+    rounds g_eff as the kernels' own fold does, so every gradient is equal
+    bit for bit, but for the conv biases (Σg_eff from another kernel; each
+    feeds a BatchNorm, so its exact gradient is 0 and it is held against its
+    taps' scale). The chain launches kernel m and no standard conv; the loss
+    matches the CPU's."""
+    s, widths, latent = 4, (8, 16, 16), 8
+    vae = model == "ico2ico_vae"
+    variables = bridge.init_variables(s, widths, seed=2, random_stats=True, model=model,
+                                      latent_features=latent)
+    gen = torch.Generator().manual_seed(5)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    eps = torch.randn(4, 5 * 2 ** (s - 3), 2 ** (s - 2), latent, generator=gen)
+    tpack = torch.randn(4, 5, 2 ** (s - 1), 2**s, 12, generator=gen)
+    tpoles = torch.randn(4, 6, generator=gen)
+    cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
+           torch.randn(eps.shape, generator=gen)]
+
+    def run(kernel_geff, dev):
+        from unittest import mock
+
+        import geniconet_tpu_torch.nn.models as models
+
+        kw = dict(phase_chain="enc", kernel_geff=kernel_geff)
+        net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
+        net.load_state_dict(bridge.flax_to_state_dict(variables))
+        net.to(dev)
+        build.reset_launches()
+        if vae:
+            def fixed(mu, logvar, generator=None):
+                return eps.to(dev) * torch.exp(0.5 * logvar) + mu
+
+            with mock.patch.object(models, "reparameterize", fixed):
+                outs = net(x.to(dev), train=True)
+            loss = sum((o * c.to(dev)).sum() for o, c in zip(outs, cts))
+        else:
+            loss = net.recon_sse(x.to(dev), tpack.to(dev), tpoles.to(dev), train=True).sum()
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return loss.item(), dict(build.LAUNCHES), {k: p.grad.cpu() for k, p in
+                                                   net.named_parameters()}
+
+    loss, launches, grads = run(None, cuda)
+    head = ("pair_head_fwd", "pair_head_bwd") if vae else ("pair_head_mse_fwd",
+                                                           "pair_head_mse_bwd")
+    chain = {"phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd", "ds2s_dx", "ds2s_dtaps",
+             "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps", *head}
+    assert set(launches) == chain
+    out_loss, out_launches, out = run("", cuda)
+    assert set(out_launches) == chain | {"stats_geff"}
+    assert out_loss == loss
+    for k, g in out.items():
+        if "conv" in k and k.endswith(".bias"):
+            err = (g - grads[k]).abs().max().item()
+            assert err <= 1e-6 * grads[k[: -len("bias")] + "taps"].abs().max().item(), k
+        else:
+            assert torch.equal(g, grads[k]), k
+    ref_loss, _, _ = run(None, "cpu")
     assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
