@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Eleven paths at full width (s=5, widths 64/128/256; the VAE's latent 512):
-AE serving, AE training, VAE serving, VAE training, AE and VAE training on
-the merged backward route (``merged_bwd="all"``), and the encoder's phase
-chain (``phase_chain="enc"``: kernel m): AE serving, AE and VAE training,
-AE training on the merged route, and AE training with the stats fold
-outside the kernels (``kernel_geff=""``, JAX's built-in fold set: kernel
-l). Phases, each printed on its own lines, each fatal on failure:
+Eighteen paths at full width (s=5, widths 64/128/256; the VAE's latent
+512): AE serving, AE training, VAE serving, VAE training, AE and VAE
+training on the merged backward route (``merged_bwd="all"``); the encoder's
+phase chain (``phase_chain="enc"``: kernel m): AE serving, AE and VAE
+training, AE training on the merged route, and AE training with the stats
+fold outside the kernels (``kernel_geff=""``, JAX's built-in fold set:
+kernel l); both halves chained (``phase_chain="1"``: m and the decoder's
+kernel n): AE and VAE serving, AE and VAE training, AE training on the
+merged route and with every fold outside (``kernel_geff="0"``); and AE
+training on the decoder's chain alone (``phase_chain="dec"``). Phases, each
+printed on its own lines, each fatal on failure:
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: compile ``geniconet_tpu_torch/csrc/*.cu`` (sm_90a; one nvcc per
@@ -37,31 +41,36 @@ l). Phases, each printed on its own lines, each fatal on failure:
    the chain's conv01 shapes; l at down0 also prints what the fold costs
    inside m's dx + dtaps (those two with and without it). l's time comes
    from a ``torch.profiler`` trace: CUDA events around a call that short
-   measure its wrapper's host time;
+   measure its wrapper's host time; n (``up_pair_*``) at up1 and up2, its
+   forward at the serving and the training batch, its dx and dtaps with
+   the fold in the kernels and without;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
    and float32; every mesh must have 10,242 finite vertices, every serving
    kernel must have launched on each path, and two float32 decodes must
    match the same model run through the plain route on the CPU; then the
-   AE on the chain, whose latent cache must match the unchained one;
+   AE on the encoder's chain, whose latent cache must match the unchained
+   one, and the AE and the VAE on both chains, whose latent caches and
+   decodes must;
 6. timings: p50 single-mesh decode latency and encode+decode meshes/s at B=16;
 7. training: the AE ``Trainer`` and the VAE ``Trainer`` (the default
    routing, every block on the kernels; the AE's loss from the head+MSE
    kernel, the VAE's from the head kernel and the P2P+KLD loss), each on
    the default backward route, the merged one (``merged_bwd="all"``) and
-   the phase chain (the AE's also chained on the merged route and with the
-   fold outside), take 8 Adam steps each at B=36 on 64 synthetic meshes,
-   in bfloat16 and float32; every loss must be finite, every kernel of
-   each path must have launched and none that the path must not run
-   (``PATH_FORBIDDEN``), and training meshes/s is the median of the last 6
-   steps; then one float32 step of each model and routing at B=4 (the
+   the phase chains (``TRAIN_ROUTES``), take 6 Adam steps each at B=36 on
+   64 synthetic meshes, in bfloat16 and float32; every loss must be finite,
+   every kernel of each path must have launched and none that the path
+   must not run (``PATH_FORBIDDEN``), n twice and the up conv once a
+   forward on the decoder's chain, and training meshes/s is the median of
+   the last 4 steps; then one float32 step of each model and routing at B=4 (the
    VAE's eps fixed) must match the same step on the CPU's plain route of
    the same chain setting (loss, every gradient, the new BatchNorm
    statistics), and each check must catch a 1% error planted in one kernel
    output at a time; then whole training steps of each model's routings
    (the AE's also ``pallas_blocks="up0,up1,up2"``, encoder and head on
-   cuDNN), in turns at B=36 bfloat16, side by side;
+   cuDNN), in turns at B=36 bfloat16, side by side (default, enc, dec,
+   both chains, ...);
 8. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
@@ -74,7 +83,7 @@ path), its bf16 time, its plain version's, its bound and the library
 call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
 ``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
-shapes, the VAE's new shapes and the chain's); the last is ``{"ok": true, "device":
+shapes, the VAE's new shapes and the chains'); the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits with an error before
 printing any result.
 """
@@ -100,7 +109,7 @@ BATCH = 16
 N_MESHES = 32
 TRAIN_BATCH = 36
 TRAIN_MESHES = 64
-TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # times each output's max|ref|
 TOL_WHY = {
     torch.float32: "only the order of the float32 sums differs",
@@ -152,6 +161,12 @@ KERNELS = {
                 "geniconet_tpu/ops/pallas/phase_kernel.py:1895"),
     "ds2s_dtaps": ("geniconet_tpu_torch/csrc/ds2s.cu",
                    "geniconet_tpu/ops/pallas/phase_kernel.py:1936"),
+    "up_pair_fwd": ("geniconet_tpu_torch/csrc/up_pair.cu",
+                    "geniconet_tpu/ops/pallas/phase_kernel.py:2380"),
+    "up_pair_dx": ("geniconet_tpu_torch/csrc/up_pair.cu",
+                   "geniconet_tpu/ops/pallas/phase_kernel.py:2458"),
+    "up_pair_dtaps": ("geniconet_tpu_torch/csrc/up_pair.cu",
+                      "geniconet_tpu/ops/pallas/phase_kernel.py:2490"),
 }
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
@@ -166,6 +181,8 @@ _CHAIN = ("ds2s_fwd", "ds2s_dx", "ds2s_dtaps")
 _CHAIN_FWD = ("phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd")
 _CHAIN_SPLIT = (*_CHAIN[1:], "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx",
                 "up_dual_conv_dtaps")
+_N = ("up_pair_fwd", "up_pair_dx", "up_pair_dtaps")
+_N_BWD = _N[1:]
 # the kernels each path must launch: the AE's training loss runs the
 # head+MSE pair (g, h), the VAE's the head and its backward (e)
 PATH_KERNELS = {
@@ -181,21 +198,40 @@ PATH_KERNELS = {
     "AE train (chain, merged)": (*_CHAIN_FWD, *_CHAIN[1:], *_MERGED[:2], "phase_conv_dtaps",
                                  *_AE_HEAD),
     "AE train (chain, fold outside)": (*_CHAIN_FWD, *_CHAIN_SPLIT, "stats_geff", *_AE_HEAD),
+    # both chains: n at up1 and up2 (up0 keeps the up conv, which reads the latent grid)
+    "AE serve (chain all)": (*_CHAIN_FWD, "up_pair_fwd", "pair_head_fwd"),
+    "VAE serve (chain all)": (*_CHAIN_FWD, "up_pair_fwd", "pair_head_fwd"),
+    "AE train (chain all)": (*_CHAIN_FWD, "up_pair_fwd", *_CHAIN_SPLIT, *_N_BWD, *_AE_HEAD),
+    "VAE train (chain all)": (*_CHAIN_FWD, "up_pair_fwd", *_CHAIN_SPLIT, *_N_BWD,
+                              "pair_head_fwd", "pair_head_bwd"),
+    "AE train (chain all, merged)": (*_CHAIN_FWD, "up_pair_fwd", *_CHAIN[1:], *_MERGED[:2],
+                                     "phase_conv_dtaps", *_N_BWD, *_AE_HEAD),
+    "AE train (chain all, fold outside)": (*_CHAIN_FWD, "up_pair_fwd", *_CHAIN_SPLIT, *_N_BWD,
+                                           "stats_geff", *_AE_HEAD),
+    "AE train (chain dec)": (*(k for k in _FORWARD if k != "pair_head_fwd"), "up_pair_fwd",
+                             *_BACKWARD, *_N_BWD, *_AE_HEAD),
 }
 # ... and the kernels it must not launch: each backward route runs none of
-# the other's conv backward kernels, the default paths neither l nor m, and
-# the chain none of the standard conv's
+# the other's conv backward kernels, the default paths neither l nor m, the
+# encoder's chain none of the standard conv's, no path without the
+# decoder's chain n, and the decoder's chain no merged up conv at up1-2
 _SPLIT_ONLY = tuple(k for k in _BACKWARD if k != "phase_conv_dtaps")
-_NEW = ("stats_geff", *_CHAIN)
+_NEW = ("stats_geff", *_CHAIN, *_N)
 PATH_FORBIDDEN = {
     "AE serve": _NEW, "VAE serve": _NEW,
     "AE train": (*_MERGED[:3], *_NEW), "VAE train": (*_MERGED[:3], *_NEW),
     "AE train (merged)": (*_SPLIT_ONLY, *_NEW), "VAE train (merged)": (*_SPLIT_ONLY, *_NEW),
-    "AE serve (chain)": _STD,
-    "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff"),
-    "VAE train (chain)": (*_STD, *_MERGED[:2], "stats_geff"),
-    "AE train (chain, merged)": (*_STD, *_SPLIT_ONLY, "stats_geff"),
-    "AE train (chain, fold outside)": (*_STD, *_MERGED[:2]),
+    "AE serve (chain)": (*_STD, *_N),
+    "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff", *_N),
+    "VAE train (chain)": (*_STD, *_MERGED[:2], "stats_geff", *_N),
+    "AE train (chain, merged)": (*_STD, *_SPLIT_ONLY, "stats_geff", *_N),
+    "AE train (chain, fold outside)": (*_STD, *_MERGED[:2], *_N),
+    "AE serve (chain all)": _STD, "VAE serve (chain all)": _STD,
+    "AE train (chain all)": (*_STD, *_MERGED[:2], "stats_geff"),
+    "VAE train (chain all)": (*_STD, *_MERGED[:2], "stats_geff"),
+    "AE train (chain all, merged)": (*_STD, *_SPLIT_ONLY, "stats_geff"),
+    "AE train (chain all, fold outside)": (*_STD, *_MERGED[:2]),
+    "AE train (chain dec)": (*_MERGED[:3], *_NEW[:4]),
 }
 # the training routings, by path: (merged_bwd, phase_chain, kernel_geff)
 ROUTES = {
@@ -204,6 +240,10 @@ ROUTES = {
     " (chain)": (None, "enc", None),
     " (chain, merged)": ("all", "enc", None),
     " (chain, fold outside)": (None, "enc", ""),
+    " (chain all)": (None, "1", None),
+    " (chain all, merged)": ("all", "1", None),
+    " (chain all, fold outside)": (None, "1", "0"),
+    " (chain dec)": (None, "dec", None),
 }
 
 
@@ -259,6 +299,13 @@ def _act(gen, c):
 
 def _taps(gen, cin, cout, dt):
     return _rnd(gen, 7, cin, cout, dtype=dt, scale=(7 * cin) ** -0.5), _rnd(gen, cout, dtype=dt)
+
+
+def _pair_inputs(gen, B, h, w, cin, dt):
+    """A level-s (h, w) grid's raw phase pair (4 + 4 phases (B, 5, h/2, w/2,
+    C_in)) and its 4 float32 affines, as kernel n takes them."""
+    ph = [_rnd(gen, B, 5, h // 2, w // 2, cin, dtype=dt) for _ in range(8)]
+    return ph[:4], ph[4:], [*_act(gen, cin), *_act(gen, cin)]
 
 
 class Case:
@@ -386,8 +433,19 @@ def serving_cases():
                         cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
         return make
 
-    # the phase chain (the AE's, and the VAE trunk's down0-1): m at the
-    # DownBlocks (an act prologue at down0 only), conv01 as the phase conv
+    def pair(h, w, cin, cout):
+        def make(dt, gen):
+            b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            return Case(lambda: pk.up_pair_fwd(b0, y10, aff, sets),
+                        lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets),
+                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [b0, y10, aff, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+        return make
+
+    # the phase chains (the AE's, and the VAE trunk's down0-1): m at the
+    # DownBlocks (an act prologue at down0 only), conv01 as the phase conv;
+    # n at up1 and up2 (the AE's and the VAE's decoders share these shapes)
     chain = [
         ("ds2s_fwd", "down0 s2 split (16,32) 64->2x128", split(16, 32, w0, w1, True)),
         ("ds2s_fwd", "down1 s2 split (8,16) 128->2x256 (no act)", split(8, 16, w1, w2, False)),
@@ -395,6 +453,8 @@ def serving_cases():
         ("phase_conv_fwd", "down0 conv01 (8,16) 128->128", phase(8, 16, w1, w1, 1, _ALL, True)),
         ("phase_conv_fwd", "down1 conv01 (4,8) 256->256", phase(4, 8, w2, w2, 1, _ALL, True)),
         ("phase_conv_fwd", "down2 conv01 (2,4) 256->256", phase(2, 4, w2, w2, 1, _ALL, True)),
+        ("up_pair_fwd", "up1 pair (8,16) 256->2x128", pair(8, 16, w2, w1)),
+        ("up_pair_fwd", "up2 pair (16,32) 128->2x64", pair(16, 32, w1, w0)),
     ]
     return ([(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
             + [(*c, "chain") for c in chain])
@@ -543,6 +603,37 @@ def training_cases():
                            "without it": lambda: m_pair(False)}
             return Case(lambda: pk.stats_geff(g, y, gs), lambda: pk.geff_plain(g, y, gs),
                         4 * 4 * B * 5 * h * w * c, [g, y, gs], compare=compare, short=True)
+        return make
+
+    def pair_fwd(h, w, cin, cout):
+        def make(dt, gen):
+            b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            return Case(lambda: pk.up_pair_fwd(b0, y10, aff, sets, "average", True),
+                        lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets, "average", True),
+                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [b0, y10, aff, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+        return make
+
+    def pair_bwd(which, h, w, cin, cout, fold):
+        """n's dx (with Σg) or dtaps on the level-s (h, w) pair, with the fold
+        in the kernel or none (the fold outside)."""
+        def make(dt, gen):
+            b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
+            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+            g, y, gs = cotangents(gen, dt, h, w, cout, 2, 4)
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            lib = cudnn(which, gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2)
+            reads = [g, b0, y10, aff, list(fk.values())]
+            if which == "dx":
+                args = (g, b0, y10, aff, sets, "average")
+                return Case(lambda: pk.up_pair_dx(*args, emit_gsum=True, **fk),
+                            lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk), flops,
+                            [*reads, [t for t, _ in sets]], lib)
+            args = (b0, y10, aff, g, "average")
+            return Case(lambda: pk.up_pair_dtaps(*args, **fk),
+                        lambda: pk.up_pair_dtaps_plain(*args, **fk), flops, reads, lib)
         return make
 
     def up_bwd(which, h, w, cin, cout):
@@ -753,6 +844,14 @@ def training_cases():
               ("stats_geff", "down1 (4,8) 4x256", geff(4, 8, w2)),
               ("stats_geff", "down2 (2,4) 4x256", geff(2, 4, w2)),
               ("stats_geff", "up2 conv01 (16,32) 4x64", geff(16, 32, w0))]
+    # the decoder's chain: n at up1 and up2, the fold in the kernels and not
+    for label, (h, w, cin, cout) in ups[1:]:
+        label = label.replace(" (", " pair (")
+        chain.append(("up_pair_fwd", f"{label} +stats", pair_fwd(h, w, cin, cout)))
+        for which in ("dx", "dtaps"):
+            chain += [(f"up_pair_{which}", f"{label} {f}",
+                       pair_bwd(which, h, w, cin, cout, f == "fold"))
+                      for f in ("fold", "no fold")]
     return ([(*c, "AE") for c in cases + merged] + [(*c, "AE no act") for c in no_act]
             + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain])
 
@@ -925,18 +1024,29 @@ def plain_route_check(st, card: str):
 
 def chain_cache_check(chained, unchained, dtype_name: str, card: str):
     """The latent cache built through the phase chain against the unchained
-    one: eval BatchNorm uses the running statistics, so the two encoders
-    compute one function with other sums; within TOL of max|ref|."""
+    one (the VAE's mu and logvar), and, where the decoder is chained, 4
+    decodes of the unchained latents: eval BatchNorm uses the running
+    statistics, so the chained and unchained models compute one function
+    with other sums; within TOL of max|ref|."""
     import numpy as np
 
     dt = torch.float32 if dtype_name == "float32" else torch.bfloat16
-    err = float(np.abs(chained.latents - unchained.latents).max())
-    scale = float(np.abs(unchained.latents).max())
-    print(f"[serve ico2ico {dtype_name} phase_chain='enc'] latent cache of {N_MESHES} meshes vs "
-          f"the unchained one: max_abs_err={err:.3e} max|ref|={scale:.3e} tol={TOL[dt]:.0e} x "
-          f"max|ref| ({TOL_WHY[dt]}) [{card}]", flush=True)
-    if not err <= TOL[dt] * scale:
-        raise AssertionError(f"the chained latent cache differs from the unchained one: {err}")
+    pairs = [(f"latent cache of {N_MESHES} meshes", chained.latents, unchained.latents)]
+    if unchained.logvars is not None:
+        pairs.append((f"logvar cache of {N_MESHES} meshes", chained.logvars, unchained.logvars))
+    chain = chained.model.phase_chain
+    if chain in ("1", "dec"):
+        z = unchained.latents[:4]
+        pairs.append(("decode of 4 latents", chained.decode_batch(z), unchained.decode_batch(z)))
+    for what, got, ref in pairs:
+        err = float(np.abs(got - ref).max())
+        scale = float(np.abs(ref).max())
+        print(f"[serve {chained.cfg.model.name} {dtype_name} phase_chain={chain!r}] {what} "
+              f"vs the unchained model's: max_abs_err={err:.3e} "
+              f"max|ref|={scale:.3e} tol={TOL[dt]:.0e} x max|ref| ({TOL_WHY[dt]}) [{card}]",
+              flush=True)
+        if not err <= TOL[dt] * scale:
+            raise AssertionError(f"the chained {what} differs from the unchained one: {err}")
 
 
 def encode_decode(st, x):
@@ -956,7 +1066,7 @@ def timings(st, dtype_name: str, card: str):
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     with torch.inference_mode():
         ms = cuda_ms(lambda: encode_decode(st, x), reps=10)
-    chain = " phase_chain='enc'" if st.model.phase_chain else ""
+    chain = f" phase_chain={st.model.phase_chain!r}" if st.model.phase_chain else ""
     print(f"[timing {st.cfg.model.name} {dtype_name}{chain}] p50 single-mesh decode latency {p50:.3f} ms (host clock, "
           f"latent in -> vertices out); encode+decode B={BATCH}: {ms:.3f} ms = "
           f"{BATCH / ms * 1e3:.1f} meshes/s [{card}]", flush=True)
@@ -969,8 +1079,11 @@ def kernel_group(event: dict) -> str:
         return event.get("cat", "other")  # gpu_memcpy, gpu_memset
     dtype = "bf16" if "bfloat16" in name else "fp32"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
-    # kernel m: the phase conv's GEMMs with the split store / split loader
+    # kernel m: the phase conv's GEMMs with the split store / split loader;
+    # kernel n: the up conv's with the pair loader / the pair's dx epilogue
     split = ", split> (m)" if "true>" in name else ">"
+    if "PairCells" in name or "DxPairOut" in name:
+        split = ", pair> (n)"
     if "conv_gemm" in name:
         # phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad instantiation
         return f"conv_gemm<{dtype}, {loader}{split}"
@@ -1063,7 +1176,10 @@ def device_profile(workloads, card: str):
             print(f"[profile bfloat16 {tag}]     top {name}: {ms:.4f} ms/iter", flush=True)
 
 
-def serving_workloads(st, tag=""):
+def serving_workloads(st, tag="", b1=True):
+    """encode+decode at B=16 and, with ``b1``, decode_latent at B=1 (the
+    encoder's chain leaves the decoder as it is: its B=1 decode is the
+    default's)."""
     x = torch.as_tensor(st.dataset.inputs[:BATCH], device="cuda")
     z = st.latents[0]
 
@@ -1071,10 +1187,8 @@ def serving_workloads(st, tag=""):
         with torch.inference_mode():
             encode_decode(st, x)
 
-    if tag:  # the decoder is the same on every routing: its encode+decode only
-        return [(f"encode_decode_B{BATCH}{tag}", run, 20)]
-    return [(f"encode_decode_B{BATCH}", run, 20),
-            ("decode_latent_B1", lambda: st.decode_latent(z), 20)]
+    return [(f"encode_decode_B{BATCH}{tag}", run, 20),
+            *([(f"decode_latent_B1{tag}", lambda: st.decode_latent(z), 20)] if b1 else [])]
 
 
 def train_config(dtype_name: str, batch: int, model: str = "ico2ico"):
@@ -1128,22 +1242,32 @@ def train(model: str, dtype_name: str, variables, dataset, card: str, route: str
     print(f"[{tag}] kernel launches on the training path: {launches}", flush=True)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    check_launches(f"{'VAE' if tr.is_vae else 'AE'} train{route}", launches)
-    if opts["merged_bwd"] and launches["phase_conv_dtaps"] != TRAIN_STEPS:
-        raise AssertionError(f"{tag}: phase_conv_dtaps launched {launches['phase_conv_dtaps']} "
-                             f"times, want once a step (conv_in)")
+    check_launches(f"{'VAE' if tr.is_vae else 'AE'} train{route}", launches, TRAIN_STEPS)
+    # on the merged route conv_in (no dx) keeps its dtaps kernel, and on the
+    # decoder's chain only up0 runs the merged up conv (j): once a step each
+    once = ("phase_conv_dtaps", *(("up_dual_conv_bwd",) if opts["phase_chain"] in ("1", "dec")
+                                  else ()))
+    wrong = {k: launches.get(k, 0) for k in once if launches.get(k, 0) != TRAIN_STEPS}
+    if opts["merged_bwd"] and wrong:
+        raise AssertionError(f"{tag}: launched {wrong} times, want once a step (conv_in; up0)")
     return tr, st, next(it), launches
 
 
-def check_launches(path: str, launches):
+def check_launches(path: str, launches, forwards=None):
     """Fail unless every kernel of the path launched at least once, and none
-    that the path must not run."""
+    that the path must not run; on the decoder's chain, n (up1, up2) twice
+    as often as the up conv (up0), and that once a forward where
+    ``forwards`` is known."""
     missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     stray = [k for k in PATH_FORBIDDEN.get(path, ()) if launches.get(k, 0)]
     if stray:
         raise AssertionError(f"kernels the {path} path must not launch: {stray}")
+    n, up = launches.get("up_pair_fwd", 0), launches.get("up_dual_conv_fwd", 0)
+    if "up_pair_fwd" in PATH_KERNELS[path] and (n != 2 * up or forwards not in (None, up)):
+        raise AssertionError(f"the {path} path launched n {n} and the up conv {up} times "
+                             f"({forwards} forwards): want n twice a forward, the up conv once")
 
 
 def routing_compare(variables, dataset, card: str, iters: int = 4):
@@ -1152,19 +1276,21 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
     routing once, then again in the reverse order. The AE's routings: the
     default (every block fused, the split backward kernels),
     ``merged_bwd="all"``, ``pallas_blocks="up0,up1,up2"`` (the encoder and
-    the head on cuDNN and PyTorch ops), the phase chain, the chain on the
-    merged route and the chain with the fold outside; the VAE's: the
-    default, the merged and the chain. Losses must be finite; prints each
-    routing's median host-clock step time, synchronised."""
+    the head on cuDNN and PyTorch ops), and every chained ``ROUTES`` entry
+    (the encoder's chain "chain", the decoder's "chain dec", both "chain
+    all", on the split and merged routes and with the fold outside); the
+    VAE's: the default, the merged, the encoder's chain and both chains.
+    Losses must be finite; prints each routing's median host-clock step
+    time, synchronised."""
     from geniconet_tpu_torch.data.pipeline import Batches
     from geniconet_tpu_torch.nn.models import IcoAE
     from geniconet_tpu_torch.train.trainer import Trainer
 
-    chain = (("chain", " (chain)", None), ("chain, merged", " (chain, merged)", None),
-             ("chain, fold outside", " (chain, fold outside)", None))
+    chain = [(route.strip(" ()"), route, None) for route in ROUTES if "chain" in route]
     routings = {"ico2ico": (("default", "", None), ("merged", " (merged)", None),
                             ("decoder-only", "", "up0,up1,up2"), *chain),
-                "ico2ico_vae": (("default", "", None), ("merged", " (merged)", None), chain[0])}
+                "ico2ico_vae": (("default", "", None), ("merged", " (merged)", None),
+                                *(c for c in chain if c[0] in ("chain", "chain all")))}
     x, y, wt = next(iter(Batches(dataset, TRAIN_BATCH, drop_remainder=True, seed=0,
                                  device="cuda").epoch()))
     for model, routes in routings.items():
@@ -1381,13 +1507,24 @@ PLANTED_CHAIN = {
         ("stats_geff", "every group it folds, phase 0", (0,), lambda a: True), _M_DX,
         ("ds2s_dtaps", "down0-2 m, dtaps of set a", (0, 0), lambda a: True)),
 }
+# ... and on the decoder's chain (every routing; up1 and up2): n's forward
+# output, a phase cotangent and an affine gradient of its dx, and its dtaps
+PLANTED_N = (
+    ("up_pair_fwd", "up1-2 n, output phase 0 of set a", (0, 0, 0), lambda a: True),
+    ("up_pair_dx", "up1-2 n, db0 phase 0", (0, 0), lambda a: True),
+    ("up_pair_dx", "up1-2 n, d_mul1 (to up0-1's bn01)", (2,), lambda a: True),
+    ("up_pair_dtaps", "up1-2 n, dtaps of set a", (0,), lambda a: True),
+)
 # the training routings of each model (``ROUTES`` keys)
 TRAIN_ROUTES = {"ico2ico": ("", " (merged)", " (chain)", " (chain, merged)",
-                            " (chain, fold outside)"),
-                "ico2ico_vae": ("", " (merged)", " (chain)")}
+                            " (chain, fold outside)", " (chain all)", " (chain all, merged)",
+                            " (chain all, fold outside)", " (chain dec)"),
+                "ico2ico_vae": ("", " (merged)", " (chain)", " (chain all)")}
 
 
 def planted_for(model: str, route: str):
+    if "chain all" in route or "chain dec" in route:
+        return PLANTED_N
     return {"": PLANTED[model], " (merged)": PLANTED_MERGED[model]}.get(route) or \
         PLANTED_CHAIN[route]
 
@@ -1445,17 +1582,22 @@ def main():
         plain_route_check(states[model]["float32"], card)
         for name, st in states[model].items():
             timings(st, name, card)
-    # the AE on the encoder's phase chain: its latent cache goes through m
-    build.reset_launches()
-    chained = {name: serve("ico2ico", name, serve_vars["ico2ico"], card, phase_chain="enc")
-               for name in ("bfloat16", "float32")}
-    launches["AE serve (chain)"] = dict(build.LAUNCHES)
-    print(f"[serve ico2ico phase_chain='enc'] kernel launches on the serving path: "
-          f"{launches['AE serve (chain)']}", flush=True)
-    check_launches("AE serve (chain)", launches["AE serve (chain)"])
-    for name, st in chained.items():
-        chain_cache_check(st, states["ico2ico"][name], name, card)
-        timings(st, name, card)
+    # the AE on the encoder's phase chain (its latent cache goes through m),
+    # and the AE and the VAE on both chains (every decode through n too)
+    chained = {}
+    for model, chain, path in (("ico2ico", "enc", "AE serve (chain)"),
+                               ("ico2ico", "1", "AE serve (chain all)"),
+                               (vae, "1", "VAE serve (chain all)")):
+        build.reset_launches()
+        chained[path] = {name: serve(model, name, serve_vars[model], card, phase_chain=chain)
+                         for name in ("bfloat16", "float32")}
+        launches[path] = dict(build.LAUNCHES)
+        print(f"[serve {model} phase_chain={chain!r}] kernel launches on the serving path: "
+              f"{launches[path]}", flush=True)
+        check_launches(path, launches[path])
+        for name, st in chained[path].items():
+            chain_cache_check(st, states[model][name], name, card)
+            timings(st, name, card)
 
     t0 = time.perf_counter()
     dataset = synthetic_dataset(SUBDIVISIONS, TRAIN_MESHES, seed=0)
@@ -1485,7 +1627,9 @@ def main():
         profiled.append((f"{tag}_B{TRAIN_BATCH}",
                          lambda tr=tr, st=st, x=x, y=y, wt=wt: tr.train_step(st, x, y, wt), 5))
     device_profile(serving_workloads(states["ico2ico"]["bfloat16"])
-                   + serving_workloads(chained["bfloat16"], "_chain") + profiled, card)
+                   + serving_workloads(chained["AE serve (chain)"]["bfloat16"], "_chain", b1=False)
+                   + serving_workloads(chained["AE serve (chain all)"]["bfloat16"], "_chain_all")
+                   + profiled, card)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the build included",
           flush=True)
 

@@ -49,8 +49,9 @@ class AppState:
              phase_chain: str | None = None):
         """Build the dataset, load the model from ``variables`` (a flax
         ``{"params", "batch_stats"}`` tree of arrays) and encode the latent
-        cache. ``phase_chain="enc"`` encodes through the encoder's phase
-        chain (``nn/models.py``). Returns the info dict that ``/api/info``
+        cache. ``phase_chain`` ("enc", "dec" or "1") runs the encoder's, the
+        decoder's or both halves' phase chain for every encode and decode
+        (``nn/models.py``). Returns the info dict that ``/api/info``
         serves."""
         if variables is None:
             raise NotImplementedError(

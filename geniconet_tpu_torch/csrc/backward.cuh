@@ -97,6 +97,92 @@ struct DxOut {
   const float* add;
   float* red;
   int per;
+
+  // The epilogue of tile (bx, b) whose float32 sums acc hold rows m0 + ty*4
+  // + i and channels n0 + tx*4 + j; every thread of the block calls it.
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4], int b, int m0, int n0,
+                                             int R, int cin, int bx, int gx, float (&As)[BK][BM],
+                                             float (&Bs)[BK][BN]) const {
+    const int tid = threadIdx.x;
+    const int tx = tid % 16, ty = tid / 16;
+    float smul[4] = {0.f, 0.f, 0.f, 0.f}, sadd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + ty * 4 + i;
+      if (r >= R) continue;
+      const int p = r / per, cell = r - p * per;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = n0 + tx * 4 + j;
+        if (k >= cin) continue;
+        const size_t off = ((size_t)b * per + cell) * cin + k;
+        const float d = acc[i][j];
+        if (mul == nullptr) {
+          out[p][off] = from_f<T>(d);
+          continue;
+        }
+        const float x = to_f(raw[p][off]);
+        const float dm = __fadd_rn(__fmul_rn(x, mul[k]), add[k]) > 0.f ? d : 0.f;
+        out[p][off] = from_f<T>(dm * mul[k]);
+        smul[j] += dm * x;
+        sadd[j] += dm;
+      }
+    }
+    if (mul != nullptr) {
+      float* row = red + ((size_t)b * gx + bx) * 2 * cin + n0;
+      column_sums(As, Bs, smul, sadd, tid, min(BN, cin - n0), row, row + cin);
+    }
+  }
+};
+
+// The decoder chain's dx epilogue (kernel n): the R = 5hw rows are the cells
+// of the level-s grid that the pair (b0, y10) joins into, each at its phase
+// and row by split_row. The residual tail's adjoint runs on the unrounded
+// float32 dx: dpre = dx * 1{pair_pre(a, b) > 0} against the raw phases,
+// db0 = T(dpre * mul1) and dy10 = T(dpre * mul2) stored de-interleaved, and
+// the block's column sums of dpre·a, dpre and dpre·b go to red,
+// (blocks, 3 * cin): d_mul1, d_add1 (= d_add2) and d_mul2.
+template <typename T>
+struct DxPairOut {
+  T* out[8];           // db0[4], dy10[4]
+  const T* raw[8];     // b0[4], y10[4]
+  const float* aff[4];  // mul1, add1, mul2, add2
+  float* red;
+  int lh, lw;          // log2 of the level-s grid's h and w
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4], int b, int m0, int n0,
+                                             int R, int cin, int bx, int gx, float (&As)[BK][BM],
+                                             float (&Bs)[BK][BN]) const {
+    const int tid = threadIdx.x;
+    const int tx = tid % 16, ty = tid / 16;
+    float sa[4] = {0.f, 0.f, 0.f, 0.f}, sd[4] = {0.f, 0.f, 0.f, 0.f},
+          sb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + ty * 4 + i;
+      if (r >= R) continue;
+      size_t row;
+      const int p = split_row(b, r, lh, lw, row);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = n0 + tx * 4 + j;
+        if (k >= cin) continue;
+        const size_t off = row * cin + k;
+        const float a = to_f(raw[p][off]), c = to_f(raw[4 + p][off]);
+        const float dm = pair_pre(a, c, aff, k) > 0.f ? acc[i][j] : 0.f;
+        out[p][off] = from_f<T>(dm * aff[0][k]);
+        out[4 + p][off] = from_f<T>(dm * aff[2][k]);
+        sa[j] += dm * a;
+        sd[j] += dm;
+        sb[j] += dm * c;
+      }
+    }
+    float* red_row = red + ((size_t)b * gx + bx) * 3 * cin + n0;
+    const int n_cols = min(BN, cin - n0);
+    column_sums(As, Bs, sa, sd, tid, n_cols, red_row, red_row + cin);
+    __syncthreads();  // the third sum reuses As / Bs (both halves write the same value)
+    column_sums(As, Bs, sb, sb, tid, n_cols, red_row + 2 * cin, red_row + 2 * cin);
+  }
 };
 
 // dx[b, r, k] = sum_t sum_{(q, wt) in table row t*R + r} wt * sum_n G[b, q, n] W[t][k, n],
@@ -104,13 +190,14 @@ struct DxOut {
 // weighted) through the CSR transposed table. Tile (bx, by, b): BM rows r x
 // BN channels k of sample b, of gx row tiles; float32 sums, one rounding at
 // the end. Shared by the split dx kernel and the merged backward's dx role.
-// G is GLoad<T> or the split GLoad<T, true>.
-template <typename T, typename G>
+// G is GLoad<T> or the split GLoad<T, true>; O, the epilogue, is DxOut<T>
+// or the pair's DxPairOut<T>.
+template <typename T, typename G, typename O = DxOut<T>>
 __device__ __forceinline__ void dx_tile(const G& gl, const T* __restrict__ w0,
                                         const T* __restrict__ w1,
                                         const int* __restrict__ offsets,
                                         const int* __restrict__ cells,
-                                        const float* __restrict__ weights, const DxOut<T>& o,
+                                        const float* __restrict__ weights, const O& o,
                                         int R, int cin, int n_sets, int bx, int by, int b, int gx,
                                         float (&As)[BK][BM], float (&Bs)[BK][BN]) {
   const int tid = threadIdx.x;
@@ -158,44 +245,18 @@ __device__ __forceinline__ void dx_tile(const G& gl, const T* __restrict__ w0,
     __syncthreads();
   }
 
-  float smul[4] = {0.f, 0.f, 0.f, 0.f}, sadd[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= R) continue;
-    const int p = r / o.per, cell = r - p * o.per;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = n0 + tx * 4 + j;
-      if (k >= cin) continue;
-      const size_t off = ((size_t)b * o.per + cell) * cin + k;
-      const float d = acc[i][j];
-      if (o.mul == nullptr) {
-        o.out[p][off] = from_f<T>(d);
-        continue;
-      }
-      const float x = to_f(o.raw[p][off]);
-      const float dm = __fadd_rn(__fmul_rn(x, o.mul[k]), o.add[k]) > 0.f ? d : 0.f;
-      o.out[p][off] = from_f<T>(dm * o.mul[k]);
-      smul[j] += dm * x;
-      sadd[j] += dm;
-    }
-  }
-  if (o.mul != nullptr) {
-    float* row = o.red + ((size_t)b * gx + bx) * 2 * cin + n0;
-    column_sums(As, Bs, smul, sadd, tid, min(BN, cin - n0), row, row + cin);
-  }
+  o(acc, b, m0, n0, R, cin, bx, gx, As, Bs);
 }
 
-template <typename T, typename G>
+template <typename T, typename G, typename O = DxOut<T>>
 __global__ void __launch_bounds__(NT)
 dx_gemm(G gl, const T* __restrict__ w0, const T* __restrict__ w1,
         const int* __restrict__ offsets, const int* __restrict__ cells,
-        const float* __restrict__ weights, DxOut<T> o, int R, int cin, int n_sets) {
+        const float* __restrict__ weights, O o, int R, int cin, int n_sets) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN];
-  dx_tile<T, G>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, blockIdx.x, blockIdx.y,
-                blockIdx.z, gridDim.x, As, Bs);
+  dx_tile<T, G, O>(gl, w0, w1, offsets, cells, weights, o, R, cin, n_sets, blockIdx.x,
+                   blockIdx.y, blockIdx.z, gridDim.x, As, Bs);
 }
 
 template <typename T, typename G>

@@ -109,7 +109,7 @@ __device__ __forceinline__ void tile_fma(const float (&As)[BK][BM], const float 
 // columns' partials u, v over its 4 rows), added in a fixed order; the sums
 // of tile column c land in u_out[c], v_out[c] for c < n_cols. As / Bs are
 // reused, so call after the K loop's last __syncthreads; every thread of
-// the block must call it.
+// the block must call it, and __syncthreads before reusing As / Bs.
 __device__ __forceinline__ void column_sums(float (&As)[BK][BM], float (&Bs)[BK][BN],
                                             const float (&u)[4], const float (&v)[4], int tid,
                                             int n_cols, float* u_out, float* v_out) {
@@ -153,25 +153,72 @@ __device__ __forceinline__ int split_row(int b, int m, int lh, int lw, size_t& r
   return ((i & 1) << 1) | (j & 1);
 }
 
+// The residual join's pre-activation ((a*mul1 + add1) + b*mul2) + add2 of
+// channel k, in float32 without FMA contraction (the reference's order and
+// roundings); aff = {mul1, add1, mul2, add2}, each (C,) float32.
+__device__ __forceinline__ float pair_pre(float a, float b, const float* const (&aff)[4], int k) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, aff[0][k]), aff[1][k]),
+                             __fmul_rn(b, aff[2][k])), aff[3][k]);
+}
+
+// The level-s grid cells an UpLoad reads, by cell index r = chart * hw +
+// i * w + j of one sample (hw5 = 5hw cells a sample, cin channels): one
+// (B, 5, h, w, cin) tensor ...
+template <typename T>
+struct GridCells {
+  const T* x;
+  __device__ __forceinline__ float operator()(int b, int r, int k, int hw5, int cin) const {
+    return to_f(x[((size_t)b * hw5 + r) * cin + k]);
+  }
+};
+
+// Entry p of a 4-array of kernel parameters by selects: indexing it with a
+// run-time p would copy the array to local memory.
+template <typename P>
+__device__ __forceinline__ P pick4(const P (&a)[4], int p) {
+  return p < 2 ? (p == 0 ? a[0] : a[1]) : (p == 2 ? a[2] : a[3]);
+}
+
+// ... or the decoder's phase chain pair: cell r is the join
+// relu(pair_pre(b0[p], y10[p])) rounded to T, of the previous UpBlock's raw
+// phases (B, 5, h/2, w/2, cin) at the cell that split_row maps r to (the
+// reference's _pair_join, then _interleave4, done by addressing).
+template <typename T>
+struct PairCells {
+  const T* b0[4];
+  const T* y10[4];
+  const float* aff[4];  // mul1, add1, mul2, add2
+  int lh, lw;           // log2 of the level-s grid's h and w
+  __device__ __forceinline__ float operator()(int b, int r, int k, int, int cin) const {
+    size_t row;
+    const int p = split_row(b, r, lh, lw, row);
+    const size_t off = row * cin + k;
+    const float a = to_f(pick4(b0, p)[off]), c = to_f(pick4(y10, p)[off]);
+    return round_to<T>(fmaxf(pair_pre(a, c, aff, k), 0.f));
+  }
+};
+
 // The cells of the upsampled level-(s+1) phases, rebuilt on load from a
 // level-s grid: the level-s halo (ico_pad, with pole means cast to the
 // activation dtype), the edge midpoints as (a + b) * 0.5 with the sum
 // rounded to the activation dtype, then the phase halo of the four new
-// phases, whose poles are recomputed from the new phases.
-template <typename T>
+// phases, whose poles are recomputed from the new phases. Cells is
+// GridCells<T> (the up conv) or PairCells<T> (kernel n: the level-s grid is
+// the join of a pair, so the pole means are of joined cells).
+template <typename T, typename Cells = GridCells<T>>
 struct UpLoad {
-  const T* x;      // (B, 5, h, w, cin) level-s grid
+  Cells x;         // the (B, 5, h, w, cin) level-s grid
   const int* up;   // (4 * 5hw, 2) midpoint pairs, halo.upsample_table
   int hw, hw5, cin;
 
   // a cell of the level-s padded grid P (a grid cell, a zero, or a pole)
   __device__ __forceinline__ float pcell(int b, int code, int k) const {
-    if (code >= 0) return to_f(x[((size_t)b * hw5 + code) * cin + k]);
+    if (code >= 0) return x(b, code, k, hw5, cin);
     if (code == ZERO) return 0.f;
     const int off = code == NORTH ? 0 : hw - 1;
     float acc = 0.f;
 #pragma unroll
-    for (int c = 0; c < 5; ++c) acc += to_f(x[((size_t)b * hw5 + c * hw + off) * cin + k]);
+    for (int c = 0; c < 5; ++c) acc += x(b, c * hw + off, k, hw5, cin);
     return round_to<T>(acc * 0.2f);
   }
   // a cell of the four upsampled phases, index p * 5hw + chart * hw + i * w + j
@@ -204,6 +251,17 @@ struct SplitOut {
     const int n = (int)(c - a * ntot);
     const int s = n / cout;
     out[s][a * cout + (n - s * cout)] = v;
+  }
+};
+
+// Up to 4 stacked vectors of n columns each: column c of the partial array
+// goes to out[c / n][c % n].
+struct StackOut {
+  float* out[4];
+  int n;
+  __device__ __forceinline__ void operator()(long long c, float v) const {
+    const int s = (int)(c / n);
+    out[s][c - (long long)s * n] = v;
   }
 };
 

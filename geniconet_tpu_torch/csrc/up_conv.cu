@@ -24,7 +24,7 @@ cudaError_t run(const void* x, const void* w0, const void* b0, const void* w1, c
                 float* const* stats, int B, int h, int w, int cin, int cout, int n_sets,
                 cudaStream_t stream) {
   gn::UpLoad<T> ld;
-  ld.x = static_cast<const T*>(x);
+  ld.x = {static_cast<const T*>(x)};
   ld.up = up_table;
   ld.hw = h * w;
   ld.hw5 = 5 * h * w;

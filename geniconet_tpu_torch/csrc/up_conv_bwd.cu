@@ -58,7 +58,7 @@ cudaError_t dtaps(const void* x, const void* const* g, const void* const* y, con
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
   gn::UpLoad<T> ld;
-  ld.x = static_cast<const T*>(x);
+  ld.x = {static_cast<const T*>(x)};
   ld.up = up_table;
   ld.hw = h * w;
   ld.hw5 = M;
@@ -80,7 +80,7 @@ cudaError_t merged(const void* x, const void* const* g, const void* const* y, co
   o.out[0] = static_cast<T*>(out);
   o.per = M;
   gn::UpLoad<T> ld;
-  ld.x = static_cast<const T*>(x);
+  ld.x = {static_cast<const T*>(x)};
   ld.up = up_table;
   ld.hw = h * w;
   ld.hw5 = M;

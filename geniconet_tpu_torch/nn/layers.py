@@ -38,6 +38,14 @@ join per phase, and the block returns the phase tuple, which the next
 DownBlock takes as it is. It needs a level-(s-1) grid with parity phases:
 the block takes it from input level 2 up, as JAX's ``s >= 2`` gate.
 
+The UpBlock's phase chain (``GENICONET_PHASE_CHAIN=dec``, ``layers.py:
+513-520, 582-592, 636-645``): an UpBlock may take the previous block's
+``(b0 phases, y10 phases, affines)`` in place of a grid. On the fused route
+its upsample + pair runs as ``fused_up_dual_conv_pair`` (kernel n), whose
+prologue is the previous block's residual join (no merged branch, as in
+JAX); on the plain route the pair is joined per phase and interleaved
+first. The decoder decides which blocks return phases.
+
 Every fused conv goes through a wrapper in ``ops/kernels``, which launches
 the CUDA kernel for CUDA tensors and runs the plain PyTorch version for CPU
 tensors. Parameters stay float32; each call casts them to the activation
@@ -53,8 +61,9 @@ from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.build import act_apply, grid_level
 from geniconet_tpu_torch.ops.kernels.fused import (
     fused_dual_s2_conv, fused_dual_s2_conv_split, fused_ico_conv_s2s, fused_phase_conv_s1,
-    fused_up_dual_conv, kernel_geff_enabled,
+    fused_up_dual_conv, fused_up_dual_conv_pair, kernel_geff_enabled,
 )
+from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_join
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
 
@@ -187,8 +196,7 @@ class IcoBatchNorm(nn.Module):
 
 def residual_join(a: torch.Tensor, b: torch.Tensor, aff1, aff2) -> torch.Tensor:
     """relu(a·mul1 + add1 + b·mul2 + add2) in float32, cast to a's dtype."""
-    (mul1, add1), (mul2, add2) = aff1, aff2
-    return torch.clamp_min(a.float() * mul1 + add1 + b.float() * mul2 + add2, 0.0).to(a.dtype)
+    return pair_join(a, b, (*aff1, *aff2))
 
 
 class _Block(nn.Module):
@@ -286,18 +294,33 @@ class UpBlock(_Block):
                          fold_ok, name, device)
         self.return_phases = return_phases
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        """(B, 5, h, w, C) level-s grid -> (B, 5, 2h, 2w, F) level s+1; on the
-        fused route with ``return_phases``, (b0 phases, y10 phases, (mul01,
-        add01, mul10, add10)) for the decoder's head instead."""
+    def forward(self, x, train: bool = False):
+        """(B, 5, h, w, C) level-s grid, or the previous UpBlock's (b0 phases,
+        y10 phases, affines) on the decoder's phase chain -> (B, 5, 2h, 2w, F)
+        level s+1; on the fused route with ``return_phases``, (b0 phases, y10
+        phases, (mul01, add01, mul10, add10)) for the next block or the
+        decoder's head instead."""
+        pair_in = isinstance(x, tuple)
         if not self.fused:
+            if pair_in:  # the previous block's residual tail, then the interleave
+                pb0, py10, paff = x
+                x = phase_merge(tuple(pair_join(a, b, paff) for a, b in zip(pb0, py10)))
             up = ico_upsample_s2s(x, grid_level(x.shape[2], x.shape[3]), self.corner_mode)
             return self._plain_tail(up, 1, train)
-        x = x.contiguous()
-        dt = x.dtype
-        r = fused_up_dual_conv(x, *self.conv00.params(dt), *self.conv10.params(dt),
-                               self.corner_mode, with_stats=train,
-                               merged_bwd=merged_bwd_enabled("upd", self.merged_bwd), **self.fold)
+        if pair_in:
+            pb0, py10, paff = x
+            dt = pb0[0].dtype
+            r = fused_up_dual_conv_pair(tuple(p.contiguous() for p in pb0),
+                                        tuple(p.contiguous() for p in py10), paff,
+                                        *self.conv00.params(dt), *self.conv10.params(dt),
+                                        self.corner_mode, with_stats=train, **self.fold)
+        else:
+            x = x.contiguous()
+            dt = x.dtype
+            r = fused_up_dual_conv(x, *self.conv00.params(dt), *self.conv10.params(dt),
+                                   self.corner_mode, with_stats=train,
+                                   merged_bwd=merged_bwd_enabled("upd", self.merged_bwd),
+                                   **self.fold)
         y00, y10 = r[:2]
         s00, s10 = r[2:] if train else (None, None)
         count = 4.0 * y00[0].shape[:-1].numel()

@@ -26,11 +26,13 @@ on the merged one-pass kernels, per kernel family (the VAE's heads are a
 kernel families whose split backward folds the stats cotangent inside
 their kernels; the others fold it before them (kernel l). None, the
 default, folds every family inside. ``phase_chain`` is the JAX package's
-``GENICONET_PHASE_CHAIN``: "enc" runs the fused DownBlocks as the phase
-chain (``nn/layers.py``), in training and in eval, and the encoder
-interleaves the phase tuple once, at its end (the VAE's trunk too, before
-its heads); "dec" and "1", which chain the decoder, are not ported yet and
-raise.
+``GENICONET_PHASE_CHAIN``, in training and in eval: "enc" runs the fused
+DownBlocks as the phase chain (kernel m, ``nn/layers.py``), and the
+encoder interleaves the phase tuple once, at its end (the VAE's trunk too,
+before its heads); "dec" chains the decoder: every fused UpBlock returns
+its raw phases and pending affines, and the next one takes them as its
+input (kernel n after a fused block, the join and interleave before a
+plain one; up0 always takes the latent grid); "1" chains both halves.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)`` (the VAE's: ``wz`` channels). ``decode``
@@ -58,10 +60,6 @@ __all__ = ["IcoAE", "IcoVAE", "reparameterize"]
 def _check_phase_chain(phase_chain):
     if phase_chain not in (None, "0", "1", "enc", "dec"):
         raise ValueError(f"phase_chain must be None, '0', '1', 'enc' or 'dec', got {phase_chain!r}")
-    if phase_chain_enabled("dec", phase_chain):
-        raise NotImplementedError(
-            f"phase_chain={phase_chain!r}: the decoder's phase chain (the JAX _updp kernels, "
-            "kernel n) is not ported yet (ROADMAP, Queue 1); use 'enc' or None")
 
 
 class _Encoder(nn.Module):
@@ -120,12 +118,16 @@ class _Head(nn.Module):
 
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
-                 pallas_blocks=None, merged_bwd=None, kernel_geff=None, device=None):
+                 pallas_blocks=None, merged_bwd=None, phase_chain=None, kernel_geff=None,
+                 device=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
+        # the decoder's phase chain: every fused block hands its raw phases and
+        # pending affines on, the last one to the head (JAX models.py:283-291)
+        chain = phase_chain_enabled("dec", phase_chain)
         for k, (cin, cout) in enumerate(zip(cins, widths)):
             self.add_module(f"up{k}", UpBlock(
-                cin, cout, corner_mode, return_phases=k == len(widths) - 1,
+                cin, cout, corner_mode, return_phases=chain or k == len(widths) - 1,
                 fused=pallas_block_enabled(f"up{k}", pallas_blocks), merged_bwd=merged_bwd,
                 kernel_geff=kernel_geff, fold_ok=pallas_blocks is None, name=f"up{k}",
                 device=device))
@@ -180,7 +182,7 @@ class IcoAE(nn.Module):
     every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``.
     ``merged_bwd``: the kernel families whose backward is merged;
     ``kernel_geff``: those whose split backward folds in-kernel;
-    ``phase_chain``: None or "enc" (module doc)."""
+    ``phase_chain``: None, "0", "enc", "dec" or "1" (module doc)."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
@@ -196,7 +198,7 @@ class IcoAE(nn.Module):
         self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, merged_bwd,
                                 phase_chain, kernel_geff, device=device)
         self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, merged_bwd,
-                                kernel_geff, device=device)
+                                phase_chain, kernel_geff, device=device)
 
     def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
@@ -265,7 +267,7 @@ class IcoVAE(nn.Module):
         self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.logvar_bn = IcoBatchNorm(latent_features, device=device)
         self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
-                                merged_bwd, kernel_geff, device=device)
+                                merged_bwd, phase_chain, kernel_geff, device=device)
 
     def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""

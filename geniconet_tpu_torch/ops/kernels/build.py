@@ -131,6 +131,9 @@ _SIGNATURES = {
     "gn_ds2s_dx": [_VP] * 19 + [_INT] * 8 + [_VP],
     "gn_ds2s_dtaps": [_VP] * 14 + [_INT] * 10 + [_VP],
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
+    "gn_up_pair_fwd": [_VP] * 12 + [_INT] * 6 + [_VP],
+    "gn_up_pair_dx": [_VP] * 17 + [_INT] * 7 + [_VP],
+    "gn_up_pair_dtaps": [_VP] * 11 + [_INT] * 8 + [_VP],
 }
 
 # Work split shared with csrc/: the GEMM cores compute TILE x TILE output

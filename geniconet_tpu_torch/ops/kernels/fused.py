@@ -10,6 +10,10 @@ Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
   the 4 parity phases of the level-(s-1) grid (the encoder's phase chain):
   ``ds2s_fwd`` + ``ds2s_dx`` / ``ds2s_dtaps``;
 * ``fused_up_dual_conv``  (``_upd``): an UpBlock's upsample + two convs;
+* ``fused_up_dual_conv_pair`` (``_updp``): the same on the previous
+  UpBlock's residual tail, given as its raw phase pair and four affines
+  (the decoder's phase chain): ``up_pair_fwd`` + ``up_pair_dx`` /
+  ``up_pair_dtaps``;
 * ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
   (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
   ``ico_conv_s2s_dtaps``;
@@ -38,15 +42,16 @@ model option of the same name picks it per kernel family, as
   ``ico_conv_s2s_bwd`` (``_std_bwd``), which emit dx, dtaps, Σg_eff and
   d_mul/d_add from one launch. A phase conv without an input cotangent
   (``needs_dx=False``) keeps the dtaps kernel, as ``_pcs1_bwd`` does.
-  ``fused_dual_s2_conv_split`` has no merged branch, as in JAX.
+  ``fused_dual_s2_conv_split`` and ``fused_up_dual_conv_pair`` have no
+  merged branch, as in JAX.
 
 Where the fold runs, on the split route, is the JAX signatures' ``fold_ok``
 and ``fold_site`` with the option ``kernel_geff`` (``kernel_geff_enabled``,
 the JAX package's ``GENICONET_KERNEL_GEFF``). Each call names its kernel
-family as ``_pcs1_bwd``, ``_ds2_bwd``, ``_ds2s_bwd``, ``_upd_bwd`` and the
-standard conv's ``_bwd`` do: ``pcs1_front`` (no input cotangent),
-``pcs1_<fold_site>`` or ``pcs1``, ``ds2`` (both stride-2 Functions),
-``upd``, ``std``. A family in the set folds inside its kernels; any other
+family as ``_pcs1_bwd``, ``_ds2_bwd``, ``_ds2s_bwd``, ``_upd_bwd``,
+``_updp_bwd`` and the standard conv's ``_bwd`` do: ``pcs1_front`` (no input
+cotangent), ``pcs1_<fold_site>`` or ``pcs1``, ``ds2`` (both stride-2
+Functions), ``upd`` (both up Functions), ``std``. A family in the set folds inside its kernels; any other
 runs the fold before them as ``stats_geff`` (kernel l, one launch per tap
 set) and passes its kernels g_eff with no fold, and the bias gradient then
 comes from the dtaps kernel's Σg (the phase convs) or the dx kernel's (the
@@ -66,10 +71,11 @@ from geniconet_tpu_torch.ops.kernels.phase_kernel import (
     ds2s_dtaps, ds2s_dx, ds2s_fwd, pair_head_bwd, pair_head_fwd, pair_head_mse_bwd,
     pair_head_mse_fwd, phase_conv_bwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
     stats_geff, up_dual_conv_bwd, up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
+    up_pair_dtaps, up_pair_dx, up_pair_fwd,
 )
 
 __all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_dual_s2_conv_split",
-           "fused_up_dual_conv", "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse",
+           "fused_up_dual_conv", "fused_up_dual_conv_pair", "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse",
            "kernel_geff_enabled"]
 
 _ALL = (0, 1, 2, 3)
@@ -299,6 +305,58 @@ def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
     fold = kernel_geff_enabled("upd", kernel_geff, fold_ok)
     r = _UpDual.apply(corner_mode, with_stats, merged_bwd, fold, x, taps_a, bias_a, taps_b,
                       bias_b)
+    out = (tuple(r[0:4]), tuple(r[4:8]))
+    return (*out, r[8], r[9]) if with_stats else out
+
+
+class _UpDualPair(torch.autograd.Function):
+    """Inputs: settings, 4 b0 phases, 4 y10 phases, mul1, add1, mul2, add2,
+    taps_a, bias_a, taps_b, bias_b. Outputs: 4 + 4 phases, then 2 stats when
+    with_stats."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, with_stats, fold, *tensors):
+        pair, affines = tensors[:8], tensors[8:12]
+        taps_a, bias_a, taps_b, bias_b = tensors[12:]
+        r = up_pair_fwd(pair[:4], pair[4:], affines, [(taps_a, bias_a), (taps_b, bias_b)],
+                        corner_mode, with_stats)
+        sets, stats = r if with_stats else (r, [])
+        outs = [*sets[0], *sets[1]]
+        ctx.settings = (corner_mode, with_stats, fold, bias_a is not None, bias_b is not None)
+        ctx.save_for_backward(*pair, *affines, taps_a, taps_b, *(outs if with_stats else ()))
+        return (*outs, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        corner_mode, with_stats, fold, has_a, has_b = ctx.settings
+        saved = ctx.saved_tensors
+        b0, y10, affines, (taps_a, taps_b) = saved[:4], saved[4:8], saved[8:12], saved[12:14]
+        # Σg rides the dx kernel with the fold in or out of the kernels
+        g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[14:], grads[8:], 2, 4)
+        sets = [(taps_a, None), (taps_b, None)]
+        db0, dy10, *daff, gsums = up_pair_dx(g_groups, b0, y10, affines, sets, corner_mode,
+                                             emit_gsum=has_a or has_b, **fk)
+        dta, dtb = up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, **fk)
+        dba = gsums[0].to(taps_a.dtype) if has_a else None
+        dbb = gsums[1].to(taps_b.dtype) if has_b else None
+        return (None,) * 3 + (*db0, *dy10, *daff, dta.to(taps_a.dtype), dba,
+                              dtb.to(taps_b.dtype), dbb)
+
+
+def fused_up_dual_conv_pair(b0, y10, affines, taps_a, bias_a, taps_b, bias_b,
+                            corner_mode="average", with_stats=False, fold_ok: bool = True,
+                            kernel_geff: str | None = None):
+    """The decoder's phase chain: the previous UpBlock's residual tail +
+    upsample + both first convs, fused. b0, y10: 4-tuples of contiguous
+    level-s phases (B, 5, h/2, w/2, C_in); affines: float32 (mul1, add1,
+    mul2, add2) (C_in,), the previous block's pending bn01 / bn10 applies.
+    Returns what ``fused_up_dual_conv`` returns for the joined grid, which
+    never reaches device memory; the backward gives the 8 phase
+    cotangents and the 4 affine gradients. fold_ok, kernel_geff: where the
+    stats fold runs (family ``upd``)."""
+    fold = kernel_geff_enabled("upd", kernel_geff, fold_ok)
+    r = _UpDualPair.apply(corner_mode, with_stats, fold, *b0, *y10, *affines, taps_a, bias_a,
+                          taps_b, bias_b)
     out = (tuple(r[0:4]), tuple(r[4:8]))
     return (*out, r[8], r[9]) if with_stats else out
 

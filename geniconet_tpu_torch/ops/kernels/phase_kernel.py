@@ -26,7 +26,12 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``ds2s_fwd`` / ``ds2s_dx`` / ``ds2s_dtaps`` -> ``csrc/ds2s.cu`` (``_ds2s``
   and the two kernels of ``_ds2s_bwd``): the phase chain's stride-2 conv,
   whose outputs and their cotangents are the 4 parity phases of the
-  level-(s-1) grid.
+  level-(s-1) grid;
+* ``up_pair_fwd`` / ``up_pair_dx`` / ``up_pair_dtaps`` -> ``csrc/up_pair.cu``
+  (``_updp`` and the two kernels of ``_updp_bwd``): the decoder's phase
+  chain, the up conv whose level-s input is the previous UpBlock's residual
+  join of a raw phase pair, and whose dx is that pair's 8 phase cotangents
+  and 4 affine gradients.
 
 The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
 ``gs_list`` (the forward outputs and the cotangents of their stats) switch
@@ -53,7 +58,8 @@ from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, 
 
 __all__ = [
     "stats_geff", "ds2s_fwd", "ds2s_fwd_plain", "ds2s_dx", "ds2s_dx_plain", "ds2s_dtaps",
-    "ds2s_dtaps_plain",
+    "ds2s_dtaps_plain", "up_pair_fwd", "up_pair_fwd_plain", "up_pair_dx", "up_pair_dx_plain",
+    "up_pair_dtaps", "up_pair_dtaps_plain",
     "phase_conv_fwd", "phase_conv_fwd_plain",
     "up_dual_conv_fwd", "up_dual_conv_fwd_plain",
     "pair_head_fwd", "pair_head_fwd_plain", "pair_head_bwd", "pair_head_bwd_plain",
@@ -62,7 +68,7 @@ __all__ = [
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
-    "up_dual_conv_bwd_plain", "stats_plain", "geff_plain",
+    "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join",
 ]
 
 _OUT_PHASES = ((0, 1, 2, 3), (2,))
@@ -718,11 +724,10 @@ def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool
     return (sets, stats) if with_stats else sets
 
 
-def up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_list=None,
-                          emit_gsum=False):
-    """Plain version of ``up_dual_conv_dx``: conv, phase-pad, upsample and
-    pad transposes in float32, rounded once."""
-    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+def _up_adjoint(g_groups, tap_sets, corner_mode):
+    """The level-s dx of the up conv in float32: the conv, phase-pad,
+    upsample and pad transposes, by autograd of the plain forward (linear in
+    its input)."""
     B, _, h, w, _ = g_groups[0][0].shape
     cin = tap_sets[0][0].shape[1]
     with torch.enable_grad():
@@ -734,10 +739,20 @@ def up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups=None,
             outs += phase_conv(phases, taps.float(), None, corner_mode)
             grads += [g.float() for g in group]
         (dx,) = torch.autograd.grad(outs, [leaf], grads)
-    gsums = None
-    if emit_gsum:
-        gsums = [sum(g.float().sum(dim=(0, 1, 2, 3)) for g in group) for group in g_groups]
-    return dx.to(dtype), gsums
+    return dx
+
+
+def _gsums(g_groups):
+    return [sum(g.float().sum(dim=(0, 1, 2, 3)) for g in group) for group in g_groups]
+
+
+def up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_list=None,
+                          emit_gsum=False):
+    """Plain version of ``up_dual_conv_dx``: conv, phase-pad, upsample and
+    pad transposes in float32, rounded once."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    dx = _up_adjoint(g_groups, tap_sets, corner_mode)
+    return dx.to(dtype), (_gsums(g_groups) if emit_gsum else None)
 
 
 def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_list=None,
@@ -867,6 +882,184 @@ def up_dual_conv_bwd(x, g_groups, tap_sets, corner_mode, y_groups=None, gs_list=
 
 
 # --------------------------------------------------------------------------
+# the decoder's phase chain: upsample + dual conv of a joined pair
+# (fused_up_dual_conv_pair, kernel n)
+# --------------------------------------------------------------------------
+
+
+def pair_join(a, b, affines):
+    """The residual join relu(a·mul1 + add1 + b·mul2 + add2) of one phase in
+    float32, cast to a's dtype; affines = (mul1, add1, mul2, add2)."""
+    mul1, add1, mul2, add2 = affines
+    return torch.clamp_min(a.float() * mul1 + add1 + b.float() * mul2 + add2, 0.0).to(a.dtype)
+
+
+def _pair_grid(b0, y10, affines):
+    """The level-s grid the pair joins into: the join per phase, interleaved."""
+    return phase_merge(tuple(pair_join(a, b, affines) for a, b in zip(b0, y10))).contiguous()
+
+
+def _check_pair(b0, y10, affines, name):
+    """Shapes and types of a pair and its affines; returns (B, h, w, C) of
+    the level-s grid (twice the phases' sides)."""
+    if len(b0) != 4 or len(y10) != 4 or len(affines) != 4:
+        raise ValueError(f"{name}: takes 4 + 4 phases and 4 affines")
+    x0 = b0[0]
+    B, _, hp, wp, cin = x0.shape
+    h, w = 2 * hp, 2 * wp
+    grid_level(h, w)
+    dev, dt = x0.device, x0.dtype
+    for i, p in enumerate((*b0, *y10)):
+        expect(p, (B, 5, hp, wp, cin), dt, dev, f"{name} phase {i}")
+    for a in affines:
+        expect(a, (cin,), torch.float32, dev, f"{name} affine")
+    return B, h, w, cin
+
+
+def up_pair_fwd_plain(b0, y10, affines, tap_sets, corner_mode="average", with_stats=False):
+    """Plain version: the join per phase, ``phase_merge``, then
+    ``up_dual_conv_fwd_plain``."""
+    return up_dual_conv_fwd_plain(_pair_grid(b0, y10, affines), tap_sets, corner_mode, with_stats)
+
+
+def up_pair_fwd(b0, y10, affines, tap_sets, corner_mode: str = "average",
+                with_stats: bool = False):
+    """An UpBlock's upsample s -> s+1 and both first convs on the previous
+    UpBlock's residual tail (the Pallas ``_updp``).
+
+    b0, y10: 4-tuples of contiguous (B, 5, h/2, w/2, C_in) raw phases of the
+    level-s grid (float32 or bfloat16); affines: float32 (mul1, add1, mul2,
+    add2), each (C_in,), the pending bn01 / bn10 applies; tap_sets: 2
+    (taps, bias) as for ``up_dual_conv_fwd``. Computes ``up_dual_conv_fwd``
+    of the grid that relu(b0·mul1 + add1 + y10·mul2 + add2), cast to the
+    dtype and interleaved, would be; that grid is never written. Returns,
+    per tap set, the 4 level-(s+1) phases (B, 5, h, w, C_out); with
+    ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]."""
+    if not on_cuda(b0[0], "up_pair_fwd"):
+        return up_pair_fwd_plain(b0, y10, affines, tap_sets, corner_mode, with_stats)
+    B, h, w, cin = _check_pair(b0, y10, affines, "up_pair_fwd")
+    dev, dt = b0[0].device, b0[0].dtype
+    if len(tap_sets) != 2:
+        raise ValueError(f"up_pair_fwd: takes 2 tap sets, got {len(tap_sets)}")
+    cout = _check_sets(tap_sets, cin, dt, dev, "up_pair_fwd")
+    outs = [torch.empty((B, 5, h, w, cout), dtype=dt, device=dev) for _ in range(8)]
+    conv_table = device_table("phase", h, w, corner_mode, dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    stats, ws = _stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), 2, cout, dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_pair_fwd(
+            build.ptr_array((*b0, *y10)), build.ptr_array(affines), *_set_ptrs(tap_sets),
+            build.ptr_array(outs), conv_table.data_ptr(), up_table.data_ptr(), build.ptr(ws),
+            *_pair(stats), B, h, w, cin, cout, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_pair_fwd", err)
+    build.LAUNCHES["up_pair_fwd"] += 1
+    sets = [tuple(outs[:4]), tuple(outs[4:])]
+    return (sets, stats) if with_stats else sets
+
+
+def up_pair_dx_plain(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None,
+                     gs_list=None, emit_gsum=False):
+    """Plain version of ``up_pair_dx``: the up conv's transposes in float32
+    (not rounded), then the join's adjoint per phase, rounded once."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    dx = _up_adjoint(g_groups, tap_sets, corner_mode)
+    mul1, add1, mul2, add2 = affines
+    dt, dims = b0[0].dtype, (0, 1, 2, 3)
+    db0, dy10, dmul1, dadd, dmul2 = [], [], 0.0, 0.0, 0.0
+    for d, a, b in zip(phase_split(dx), b0, y10):
+        a32, b32 = a.float(), b.float()
+        dpre = d * (a32 * mul1 + add1 + b32 * mul2 + add2 > 0.0).float()
+        db0.append((dpre * mul1).to(dt))
+        dy10.append((dpre * mul2).to(dt))
+        dmul1 = dmul1 + (dpre * a32).sum(dim=dims)
+        dadd = dadd + dpre.sum(dim=dims)
+        dmul2 = dmul2 + (dpre * b32).sum(dim=dims)
+    return (tuple(db0), tuple(dy10), dmul1, dadd, dmul2, dadd,
+            _gsums(g_groups) if emit_gsum else None)
+
+
+def up_pair_dx(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None, gs_list=None,
+               emit_gsum=False):
+    """Input cotangents of ``up_pair_fwd`` (the dx kernel of ``_updp_bwd``).
+
+    g_groups: the two tap sets' 4 level-(s+1) phase cotangents (B, 5, h, w,
+    C_out) in the pair's dtype; b0, y10, affines: the forward's pair;
+    tap_sets: (taps, bias) as in the forward (bias is not read); y_groups /
+    gs_list switch on the fold, ``emit_gsum`` the per-set Σg_eff. The up
+    conv's level-s dx stays float32 through the join's adjoint, dpre =
+    dx·1{a·mul1 + add1 + b·mul2 + add2 > 0}. Returns (4 db0 = dpre·mul1, 4
+    dy10 = dpre·mul2 phases in the dtype, d_mul1 = Σdpre·a, d_add1 = Σdpre,
+    d_mul2 = Σdpre·b, d_add2 = d_add1 (float32 (C_in,)), gsums or None)."""
+    if not on_cuda(b0[0], "up_pair_dx"):
+        return up_pair_dx_plain(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups,
+                                gs_list, emit_gsum)
+    B, h, w, cin = _check_pair(b0, y10, affines, "up_pair_dx")
+    dev, dt = b0[0].device, b0[0].dtype
+    if len(tap_sets) != 2 or len(g_groups) != 2 or any(len(g) != 4 for g in g_groups):
+        raise ValueError("up_pair_dx: 2 tap sets, each with 4 cotangent phases")
+    cout = _check_sets(tap_sets, cin, dt, dev, "up_pair_dx")
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev, "up_pair_dx")
+    M = 5 * h * w
+    grads = [torch.empty_like(b0[0]) for _ in range(8)]
+    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
+    red = build.scratch(B * build.n_tiles(M) * 3 * cin, dev)
+    daff = [torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(3)]
+    gsum_ws, gsums = _gsum_outputs(B * 4 * M, 2, cout, dev) if emit_gsum else (None, [None])
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_pair_dx(
+            gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), build.ptr_array((*b0, *y10)),
+            build.ptr_array(affines), build.ptr_array(grads), offsets.data_ptr(),
+            cells.data_ptr(), weights.data_ptr(), red.data_ptr(), build.ptr_array(daff),
+            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, build.GSUM_ROWS,
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_pair_dx", err)
+    build.LAUNCHES["up_pair_dx"] += 1
+    dmul1, dadd, dmul2 = daff
+    return (tuple(grads[:4]), tuple(grads[4:]), dmul1, dadd, dmul2, dadd,
+            gsums if emit_gsum else None)
+
+
+def up_pair_dtaps_plain(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_list=None):
+    """Plain version of ``up_pair_dtaps``: ``up_dual_conv_dtaps_plain`` on the
+    joined grid."""
+    return up_dual_conv_dtaps_plain(_pair_grid(b0, y10, affines), g_groups, corner_mode,
+                                    y_groups, gs_list)
+
+
+def up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_list=None):
+    """Tap cotangents of ``up_pair_fwd`` summed over the batch (the dtaps
+    kernel of ``_updp_bwd``), the joined input rebuilt from the pair on
+    load: per set a float32 (7, C_in, C_out). Arguments as ``up_pair_dx``."""
+    if not on_cuda(b0[0], "up_pair_dtaps"):
+        return up_pair_dtaps_plain(b0, y10, affines, g_groups, corner_mode, y_groups, gs_list)
+    B, h, w, cin = _check_pair(b0, y10, affines, "up_pair_dtaps")
+    dev, dt = b0[0].device, b0[0].dtype
+    if len(g_groups) != 2 or any(len(g) != 4 for g in g_groups):
+        raise ValueError("up_pair_dtaps: 2 sets of 4 cotangent phases")
+    cout = g_groups[0][0].shape[-1]
+    _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev, "up_pair_dtaps")
+    kc, n_chunks = build.dtaps_split(B * 4 * 5 * h * w,
+                                     build.n_tiles(7 * cin) * build.n_tiles(2 * cout))
+    ws = build.scratch(n_chunks * 7 * cin * 2 * cout, dev)
+    dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(2)]
+    conv_table = device_table("phase", h, w, corner_mode, dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_pair_dtaps(
+            build.ptr_array((*b0, *y10)), build.ptr_array(affines), gp, yp, gs0, gs1,
+            conv_table.data_ptr(), up_table.data_ptr(), ws.data_ptr(), *_pair(dtaps),
+            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_pair_dtaps", err)
+    build.LAUNCHES["up_pair_dtaps"] += 1
+    return tuple(dtaps)
+
+
+# --------------------------------------------------------------------------
 # pair head (fused_pair_head)
 # --------------------------------------------------------------------------
 
@@ -875,11 +1068,10 @@ def pair_head_fwd_plain(b0, y10, affines, W, bias):
     """Plain version: the residual join in float32, cast to the activation
     dtype; the 1×1 head with float32 sums plus bias, cast to the activation
     dtype; float32 tanh."""
-    mul1, add1, mul2, add2 = affines
     dt = b0[0].dtype
     outs = []
     for a, b in zip(b0, y10):
-        t = torch.clamp_min(a.float() * mul1 + add1 + b.float() * mul2 + add2, 0.0).to(dt)
+        t = pair_join(a, b, affines)
         z = t.float() @ W.float() + bias.float()
         outs.append(torch.tanh(z.to(dt).float()))
     return tuple(outs)

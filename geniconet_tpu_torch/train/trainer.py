@@ -26,8 +26,8 @@ constructor argument) the backward of the named kernel families runs on
 the merged one-pass kernels; ``kernel_geff`` (``GENICONET_KERNEL_GEFF``)
 picks the families whose split backward folds the stats cotangent inside
 its kernels, the rest folding it before them (kernel l); ``phase_chain``
-("enc", ``GENICONET_PHASE_CHAIN=enc``) runs the encoder as the phase chain
-(kernel m). The JAX
+(``GENICONET_PHASE_CHAIN``) runs the encoder ("enc": kernel m), the
+decoder ("dec": kernel n) or both ("1") as the phase chain. The JAX
 package's TPU workarounds for the VAE at batch 24 and more (its split step
 and ``pallas_blocks`` default) are not ported. Epochs, validation and
 checkpoints are not ported yet.
@@ -65,8 +65,9 @@ class Trainer:
     """Owns the model and runs the train step, on the card unless
     ``device="cpu"``. ``merged_bwd``: None, "all" or a comma list of
     kernel families (``nn/layers.py:merged_bwd_enabled``); ``phase_chain``:
-    None or "enc"; ``kernel_geff``: None (every family folds in-kernel) or
-    a ``GENICONET_KERNEL_GEFF`` value (``nn/layers.py:kernel_geff_enabled``)."""
+    None, "0", "enc", "dec" or "1"; ``kernel_geff``: None (every family
+    folds in-kernel) or a ``GENICONET_KERNEL_GEFF`` value
+    (``nn/layers.py:kernel_geff_enabled``)."""
 
     def __init__(self, cfg, device="cuda", merged_bwd: str | None = None,
                  phase_chain: str | None = None, kernel_geff: str | None = None):

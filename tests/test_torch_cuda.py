@@ -20,7 +20,7 @@ from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
 from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
-from geniconet_tpu_torch.ops.phase import phase_merge
+from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
 pytestmark = pytest.mark.cuda
 
@@ -584,16 +584,15 @@ def test_stats_geff(cuda, n, C, dt):
     _equal_all(pk.stats_geff(g, y, gs), pk.geff_plain(g, y, gs))
 
 
-@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
-def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
-    """One training forward and backward on the encoder's phase chain, with
-    every family folding in-kernel (``kernel_geff=None``) and with JAX's
-    built-in set (``""``: kernel l folds the rest before their kernels). l
-    rounds g_eff as the kernels' own fold does, so every gradient is equal
-    bit for bit, but for the conv biases (Σg_eff from another kernel; each
-    feeds a BatchNorm, so its exact gradient is 0 and it is held against its
-    taps' scale). The chain launches kernel m and no standard conv; the loss
-    matches the CPU's."""
+def _fold_placement(cuda, model, chain, outside):
+    """One training forward and backward of the s=4 model on ``chain``, with
+    every family folding in-kernel (``kernel_geff=None``) and with
+    ``outside`` (kernel l folds the families it leaves out before their
+    kernels). l rounds g_eff as the kernels' own fold does, so every
+    gradient is equal bit for bit, but for the conv biases (Σg_eff from
+    another kernel; each feeds a BatchNorm, so its exact gradient is 0 and
+    it is held against its taps' scale); the loss matches the CPU's.
+    Returns the kernels the in-kernel run launched."""
     s, widths, latent = 4, (8, 16, 16), 8
     vae = model == "ico2ico_vae"
     variables = bridge.init_variables(s, widths, seed=2, random_stats=True, model=model,
@@ -611,7 +610,7 @@ def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
 
         import geniconet_tpu_torch.nn.models as models
 
-        kw = dict(phase_chain="enc", kernel_geff=kernel_geff)
+        kw = dict(phase_chain=chain, kernel_geff=kernel_geff)
         net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
         net.load_state_dict(bridge.flax_to_state_dict(variables))
         net.to(dev)
@@ -632,13 +631,8 @@ def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
                                                    net.named_parameters()}
 
     loss, launches, grads = run(None, cuda)
-    head = ("pair_head_fwd", "pair_head_bwd") if vae else ("pair_head_mse_fwd",
-                                                           "pair_head_mse_bwd")
-    chain = {"phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd", "ds2s_dx", "ds2s_dtaps",
-             "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps", *head}
-    assert set(launches) == chain
-    out_loss, out_launches, out = run("", cuda)
-    assert set(out_launches) == chain | {"stats_geff"}
+    out_loss, out_launches, out = run(outside, cuda)
+    assert set(out_launches) == set(launches) | {"stats_geff"}
     assert out_loss == loss
     for k, g in out.items():
         if "conv" in k and k.endswith(".bias"):
@@ -648,3 +642,119 @@ def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
             assert torch.equal(g, grads[k]), k
     ref_loss, _, _ = run(None, "cpu")
     assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    return launches
+
+
+def _head(vae):
+    return ("pair_head_fwd", "pair_head_bwd") if vae else ("pair_head_mse_fwd",
+                                                           "pair_head_mse_bwd")
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_fold_outside_the_kernels_equals_the_fold_inside(cuda, model):
+    """The encoder's phase chain with JAX's built-in fold set (``""``)
+    against the fold in-kernel (``_fold_placement``); the chain launches
+    kernel m and no standard conv."""
+    launches = _fold_placement(cuda, model, "enc", "")
+    assert set(launches) == {"phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd", "ds2s_dx",
+                             "ds2s_dtaps", "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx",
+                             "up_dual_conv_dtaps", *_head(model == "ico2ico_vae")}
+
+
+# ---------------------------------------------------------------------------
+# the decoder's phase chain (kernel n)
+# ---------------------------------------------------------------------------
+
+
+def _pair(device, dt, s, cin, seed):
+    """The raw phase pair (4 + 4 phases) of a level-s grid and its 4 affines."""
+    g = torch.Generator().manual_seed(seed)
+    hp = 2 ** (s - 1)
+    ph = [torch.randn(2, 5, hp, 2 * hp, cin, generator=g).to(device, dt) for _ in range(8)]
+    aff = [t.to(device) for t in (torch.rand(cin, generator=g) + 0.5,
+                                  0.3 * torch.randn(cin, generator=g),
+                                  torch.rand(cin, generator=g) + 0.5,
+                                  0.3 * torch.randn(cin, generator=g))]
+    return ph[:4], ph[4:], aff
+
+
+def _join_adjoint(dx, b0, y10, aff):
+    """The residual join's adjoint on a float32 level-s dx, as the reference
+    writes it: the 8 phase cotangents and the 4 affine gradients."""
+    mul1, add1, mul2, add2 = aff
+    db0, dy10, dm1, da, dm2 = [], [], 0.0, 0.0, 0.0
+    for d, a, b in zip(phase_split(dx.float()), b0, y10):
+        a32, b32 = a.float(), b.float()
+        dpre = d * (a32 * mul1 + add1 + b32 * mul2 + add2 > 0.0).float()
+        db0.append((dpre * mul1).to(a.dtype))
+        dy10.append((dpre * mul2).to(a.dtype))
+        dm1 = dm1 + (dpre * a32).sum(dim=(0, 1, 2, 3))
+        da = da + dpre.sum(dim=(0, 1, 2, 3))
+        dm2 = dm2 + (dpre * b32).sum(dim=(0, 1, 2, 3))
+    return tuple(db0), tuple(dy10), dm1, da, dm2, da
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 4])
+def test_up_pair_is_the_up_conv_on_the_joined_grid(cuda, s, corner_mode, dt):
+    """Kernel n against the up conv's kernels on ``phase_merge`` of the
+    joined pair: the join on load rounds as the plain join does and the
+    GEMM, its row order and its loads are the up conv's, so the outputs,
+    stats and dtaps are equal bit for bit; dx (float32) is within 1e-5 of
+    ``up_dual_conv_dx`` followed by the join's adjoint, its Σg_eff equal;
+    and every output is within the tolerance of the plain versions."""
+    b0, y10, aff = _pair(cuda, dt, s, 12, seed=150 + s)
+    _, _, sets = _inputs(cuda, dt, s, 12, 20, seed=160 + s)
+    x = phase_merge(tuple(pk.pair_join(a, b, aff) for a, b in zip(b0, y10))).contiguous()
+    assert x.shape[2:4] == (2**s, 2 ** (s + 1))
+    _equal_all(pk.up_pair_fwd(b0, y10, aff, sets, corner_mode),
+               pk.up_dual_conv_fwd(x, sets, corner_mode))
+    got = pk.up_pair_fwd(b0, y10, aff, sets, corner_mode, with_stats=True)
+    _equal_all(got, pk.up_dual_conv_fwd(x, sets, corner_mode, with_stats=True))
+    _close_all(got, pk.up_pair_fwd_plain(b0, y10, aff, sets, corner_mode, True), dt)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (20,), 2, seed=170 + s)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        got = pk.up_pair_dtaps(b0, y10, aff, g, corner_mode, **fk)
+        _equal_all(got, pk.up_dual_conv_dtaps(x, g, corner_mode, **fk))
+        _close_all(got, pk.up_pair_dtaps_plain(b0, y10, aff, g, corner_mode, **fk), dt)
+        got = pk.up_pair_dx(g, b0, y10, aff, sets, corner_mode, emit_gsum=True, **fk)
+        _close_all(got, pk.up_pair_dx_plain(g, b0, y10, aff, sets, corner_mode, emit_gsum=True,
+                                            **fk), dt)
+        if dt == torch.float32:
+            dx, gsums = pk.up_dual_conv_dx(g, sets, corner_mode, dt, emit_gsum=True, **fk)
+            for u, v in zip(_flat_all(got[:6]), _flat_all(_join_adjoint(dx, b0, y10, aff))):
+                assert (u - v).abs().max().item() <= 1e-5 * v.abs().max().item()
+            _equal_all(got[6], gsums)
+
+
+def _flat_all(out):
+    return [out] if isinstance(out, torch.Tensor) else [x for o in out for x in _flat_all(o)]
+
+
+def test_up_pair_wrappers_check_their_inputs(cuda):
+    b0, y10, aff = _pair(cuda, torch.float32, 2, 8, seed=3)
+    _, _, sets = _inputs(cuda, torch.float32, 2, 8, 8, seed=4)
+    with pytest.raises(ValueError):  # a phase of another shape
+        pk.up_pair_fwd(b0, (*y10[:3], y10[3][:, :, :1].contiguous()), aff, sets)
+    with pytest.raises(TypeError):  # affines in the activation dtype's place
+        pk.up_pair_fwd(b0, y10, [a.double() for a in aff], sets)
+    with pytest.raises(ValueError):  # one tap set
+        pk.up_pair_fwd(b0, y10, aff, sets[:1])
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_chain_all_fold_outside_equals_the_fold_inside(cuda, model):
+    """Both halves chained (``phase_chain="1"``) with every stats fold
+    outside the kernels (``kernel_geff="0"``) against the fold in-kernel
+    (``_fold_placement``): the chain launches m and n, no standard conv,
+    and n's forward, dx and dtaps at up1 and up2."""
+    launches = _fold_placement(cuda, model, "1", "0")
+    assert set(launches) == {"phase_conv_fwd", "ds2s_fwd", "up_dual_conv_fwd", "up_pair_fwd",
+                             "ds2s_dx", "ds2s_dtaps", "phase_conv_dx", "phase_conv_dtaps",
+                             "up_dual_conv_dx", "up_dual_conv_dtaps", "up_pair_dx",
+                             "up_pair_dtaps", *_head(model == "ico2ico_vae")}
+    assert launches["up_pair_fwd"] == launches["up_pair_dx"] == 2
+    assert launches["up_dual_conv_fwd"] == 1

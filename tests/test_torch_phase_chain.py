@@ -24,7 +24,9 @@ output's max|ref|:
 * (e) the chained eval encode of both models against the JAX eval encode:
   1e-5;
 * (f) ``phase_chain_enabled`` and ``kernel_geff_enabled`` parse as the JAX
-  functions do, and ``"dec"``/``"1"`` raise.
+  functions do; ``"dec"``/``"1"`` build, load the unchained state dict and
+  run (the decoder's chain itself: ``tests/test_torch_dec_chain.py``), and
+  an unknown value raises.
 
 About 80 s in one process.
 """
@@ -379,8 +381,36 @@ def test_kernel_geff_enabled_parses_as_jax(monkeypatch, value):
 
 
 @pytest.mark.parametrize("value", ["dec", "1"])
-def test_decoder_chain_raises(value):
+def test_decoder_chain_builds_loads_and_runs(value):
+    """``"dec"`` and ``"1"`` build both models, which take the unchained
+    model's state dict as it is (the chain has no parameters of its own),
+    and decode and train as the unchained models do: one state dict, the
+    same decode within 1e-5·max|ref| and the same training loss."""
+    for model in ("ico2ico", "ico2ico_vae"):
+        vae = model == "ico2ico_vae"
+        variables = bridge.init_variables(S, WIDTHS, seed=12, random_stats=True, model=model,
+                                          latent_features=LATENT)
+        sd = bridge.flax_to_state_dict(variables)
+        z = torch.from_numpy(np.random.RandomState(13).randn(
+            2, 5 * 2 ** (S - 3), 2 ** (S - 2), LATENT if vae else WIDTHS[2]).astype(np.float32))
+        x = torch.from_numpy(synthetic_dataset(S, 2, seed=14).inputs)
+        outs, losses = {}, {}
+        for chain in (value, None):
+            m = (IcoVAE(S, WIDTHS, LATENT, phase_chain=chain) if vae
+                 else IcoAE(S, WIDTHS, phase_chain=chain))
+            assert set(m.state_dict()) == set(sd)
+            m.load_state_dict(sd)
+            with torch.no_grad():
+                outs[chain] = m.eval().decode(z)
+            out = m.train()(x, train=True, sample=False)[0] if vae else m(x, train=True)
+            losses[chain] = out.square().sum().item()
+        _close_tree(outs[value], np.asarray(outs[None]))
+        np.testing.assert_allclose(losses[value], losses[None], rtol=1e-5)
+
+
+@pytest.mark.parametrize("value", ["2", "encdec", ""])
+def test_unknown_phase_chain_raises(value):
     for make in (lambda: IcoAE(S, WIDTHS, phase_chain=value),
                  lambda: IcoVAE(S, WIDTHS, LATENT, phase_chain=value)):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+        with pytest.raises(ValueError, match="phase_chain"):
             make()
