@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Eighteen paths at full width (s=5, widths 64/128/256; the VAE's latent
+Twenty-two paths at full width (s=5, widths 64/128/256; the VAE's latent
 512): AE serving, AE training, VAE serving, VAE training, AE and VAE
-training on the merged backward route (``merged_bwd="all"``); the encoder's
+training on the merged backward route (``merged_bwd="all"``); AE and VAE
+training on the merged blocks (``merged_block="all"``: every UpBlock's
+training forward one launch of kernel o, every DownBlock's one of p), the
+AE's also with the merged backward and on both chains (o at up0 alone); the encoder's
 phase chain (``phase_chain="enc"``: kernel m): AE serving, AE and VAE
 training, AE training on the merged route, and AE training with the stats
 fold outside the kernels (``kernel_geff=""``, JAX's built-in fold set:
@@ -43,7 +46,10 @@ printed on its own lines, each fatal on failure:
    from a ``torch.profiler`` trace: CUDA events around a call that short
    measure its wrapper's host time; n (``up_pair_*``) at up1 and up2, its
    forward at the serving and the training batch, its dx and dtaps with
-   the fold in the kernels and without;
+   the fold in the kernels and without; o (``up_block_fwd``) and p
+   (``dn_block_fwd``) at every block they run at, each beside the split
+   pair it replaces (the first conv with stats; bn00's affine and conv01
+   with stats) and cuDNN's two contractions;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -57,12 +63,13 @@ printed on its own lines, each fatal on failure:
 7. training: the AE ``Trainer`` and the VAE ``Trainer`` (the default
    routing, every block on the kernels; the AE's loss from the head+MSE
    kernel, the VAE's from the head kernel and the P2P+KLD loss), each on
-   the default backward route, the merged one (``merged_bwd="all"``) and
-   the phase chains (``TRAIN_ROUTES``), take 6 Adam steps each at B=36 on
+   the default backward route, the merged one (``merged_bwd="all"``), the
+   phase chains and the merged blocks (``TRAIN_ROUTES``), take 6 Adam steps each at B=36 on
    64 synthetic meshes, in bfloat16 and float32; every loss must be finite,
    every kernel of each path must have launched and none that the path
    must not run (``PATH_FORBIDDEN``), n twice and the up conv once a
-   forward on the decoder's chain, and training meshes/s is the median of
+   forward on the decoder's chain, o and p once a block and forward on the
+   merged blocks (``BLOCKS_PER_FORWARD``), and training meshes/s is the median of
    the last 4 steps; then one float32 step of each model and routing at B=4 (the
    VAE's eps fixed) must match the same step on the CPU's plain route of
    the same chain setting (loss, every gradient, the new BatchNorm
@@ -70,7 +77,7 @@ printed on its own lines, each fatal on failure:
    output at a time; then whole training steps of each model's routings
    (the AE's also ``pallas_blocks="up0,up1,up2"``, encoder and head on
    cuDNN), in turns at B=36 bfloat16, side by side (default, enc, dec,
-   both chains, ...);
+   both chains, merged blocks, ...);
 8. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
@@ -167,6 +174,10 @@ KERNELS = {
                    "geniconet_tpu/ops/pallas/phase_kernel.py:2458"),
     "up_pair_dtaps": ("geniconet_tpu_torch/csrc/up_pair.cu",
                       "geniconet_tpu/ops/pallas/phase_kernel.py:2490"),
+    "up_block_fwd": ("geniconet_tpu_torch/csrc/up_block.cu",
+                     "geniconet_tpu/ops/pallas/phase_kernel.py:2718"),
+    "dn_block_fwd": ("geniconet_tpu_torch/csrc/dn_block.cu",
+                     "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
@@ -183,6 +194,10 @@ _CHAIN_SPLIT = (*_CHAIN[1:], "phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_
                 "up_dual_conv_dtaps")
 _N = ("up_pair_fwd", "up_pair_dx", "up_pair_dtaps")
 _N_BWD = _N[1:]
+# the merged blocks: o and p in place of the up conv's and the standard
+# conv's forward (and of the phase conv's, but at conv_in and the VAE's heads)
+_BLOCKS = ("up_block_fwd", "dn_block_fwd")
+_SPLIT_FWD = ("up_dual_conv_fwd", "ico_conv_s2s_fwd")
 # the kernels each path must launch: the AE's training loss runs the
 # head+MSE pair (g, h), the VAE's the head and its backward (e)
 PATH_KERNELS = {
@@ -210,6 +225,13 @@ PATH_KERNELS = {
                                            "stats_geff", *_AE_HEAD),
     "AE train (chain dec)": (*(k for k in _FORWARD if k != "pair_head_fwd"), "up_pair_fwd",
                              *_BACKWARD, *_N_BWD, *_AE_HEAD),
+    "AE train (merged block)": ("phase_conv_fwd", *_BLOCKS, *_BACKWARD, *_AE_HEAD),
+    "VAE train (merged block)": ("phase_conv_fwd", "pair_head_fwd", *_BLOCKS, *_BACKWARD,
+                                 "pair_head_bwd"),
+    "AE train (merged block, merged)": ("phase_conv_fwd", *_BLOCKS, *_MERGED, *_AE_HEAD),
+    # both chains: o at up0 (the latent grid), n at up1-2, m at the DownBlocks
+    "AE train (chain all, merged block)": ("phase_conv_fwd", "ds2s_fwd", "up_block_fwd",
+                                           "up_pair_fwd", *_CHAIN_SPLIT, *_N_BWD, *_AE_HEAD),
 }
 # ... and the kernels it must not launch: each backward route runs none of
 # the other's conv backward kernels, the default paths neither l nor m, the
@@ -232,18 +254,33 @@ PATH_FORBIDDEN = {
     "AE train (chain all, merged)": (*_STD, *_SPLIT_ONLY, "stats_geff"),
     "AE train (chain all, fold outside)": (*_STD, *_MERGED[:2]),
     "AE train (chain dec)": (*_MERGED[:3], *_NEW[:4]),
+    "AE train (merged block)": (*_SPLIT_FWD, *_MERGED[:3], *_NEW),
+    "VAE train (merged block)": (*_SPLIT_FWD, *_MERGED[:3], *_NEW),
+    "AE train (merged block, merged)": (*_SPLIT_FWD, *_SPLIT_ONLY, *_NEW),
+    "AE train (chain all, merged block)": (*_STD, *_MERGED[:2], "stats_geff", "up_dual_conv_fwd",
+                                           "dn_block_fwd"),
 }
-# the training routings, by path: (merged_bwd, phase_chain, kernel_geff)
+# no other path runs o or p (eval never merges)
+PATH_FORBIDDEN = {path: (*ks, *(() if "merged block" in path else _BLOCKS))
+                  for path, ks in PATH_FORBIDDEN.items()}
+# (o, p) launches a forward on the merged-block paths
+BLOCKS_PER_FORWARD = {"AE train (merged block)": (3, 3), "VAE train (merged block)": (3, 2),
+                      "AE train (merged block, merged)": (3, 3),
+                      "AE train (chain all, merged block)": (1, 0)}
+# the training routings, by path: (merged_bwd, phase_chain, kernel_geff, merged_block)
 ROUTES = {
-    "": (None, None, None),
-    " (merged)": ("all", None, None),
-    " (chain)": (None, "enc", None),
-    " (chain, merged)": ("all", "enc", None),
-    " (chain, fold outside)": (None, "enc", ""),
-    " (chain all)": (None, "1", None),
-    " (chain all, merged)": ("all", "1", None),
-    " (chain all, fold outside)": (None, "1", "0"),
-    " (chain dec)": (None, "dec", None),
+    "": (None, None, None, None),
+    " (merged)": ("all", None, None, None),
+    " (chain)": (None, "enc", None, None),
+    " (chain, merged)": ("all", "enc", None, None),
+    " (chain, fold outside)": (None, "enc", "", None),
+    " (chain all)": (None, "1", None, None),
+    " (chain all, merged)": ("all", "1", None, None),
+    " (chain all, fold outside)": (None, "1", "0", None),
+    " (chain dec)": (None, "dec", None, None),
+    " (merged block)": (None, None, None, "all"),
+    " (merged block, merged)": ("all", None, None, "all"),
+    " (chain all, merged block)": (None, "1", None, "all"),
 }
 
 
@@ -311,15 +348,18 @@ def _pair_inputs(gen, B, h, w, cin, dt):
 class Case:
     """One kernel call at one shape: the kernel and its plain version, the
     FLOPs the function needs, its input tensors (each read once), where
-    cuDNN computes the same contraction that call, for a merged backward
-    kernel the split pair it replaces (its dx and its dtaps call), and
-    other calls to time beside it (``compare``: label -> call). ``short``:
-    the kernel is timed from a profiler trace (``trace_ms``)."""
+    cuDNN computes the same contraction that call, for a merged kernel the
+    split pair it replaces (two calls: a merged backward's dx and dtaps, a
+    merged block's two convs; ``split_keys`` name them in the results and
+    ``split_labels`` in the print), and other calls to time beside it
+    (``compare``: label -> call). ``short``: the kernel is timed from a
+    profiler trace (``trace_ms``)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
-                 short=False):
+                 short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps")):
         self.kernel, self.plain, self.flops, self.library = kernel, plain, flops, library
         self.split, self.compare, self.short = split, compare or {}, short
+        self.split_keys, self.split_labels = split_keys, split_labels
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
@@ -750,6 +790,62 @@ def training_cases():
                         lambda: (lib_dx(), lib_dw()), split)
         return make
 
+    def block(kind, h, w, cin, c0, c2, with_act=False):
+        """Kernel o ("up": the level-s grid (h, w)) or p ("down": the 4
+        parity phases (h, w) of the level-s input, whose stride-2 output
+        is (h, w) too) at one block, with bn00's gamma and beta; the split
+        pair it replaces (the first conv with stats and its sums; then
+        bn00's affine from them and conv01 with stats) and cuDNN's two
+        contractions on haloed inputs. FLOPs: both passes. The first convs'
+        biases are 0.1 of ``_taps``': with unit biases a channel's batch
+        mean can be many of its standard deviations, and bn00's variance,
+        Σy²/n − mean², then loses bits to cancellation in float32 (the
+        plain version's sums are in another order), which the float32
+        tolerance would measure instead of the kernel."""
+        def make(dt, gen):
+            sets = [_taps(gen, cin, c0, dt), _taps(gen, cin, c0, dt), _taps(gen, c0, c2, dt)]
+            sets[:2] = [(t, 0.1 * b) for t, b in sets[:2]]
+            gamma, beta = _act(gen, c0)
+            a = _act(gen, cin) if with_act else None
+            if kind == "up":
+                x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
+                args = (x, sets, gamma, beta)
+                fn, plain = pk.up_block_fwd, pk.up_block_fwd_plain
+                count, rows = 4.0 * B * 5 * h * w, 4 * 5 * h * w
+                (y00, _), (s00, _) = pk.up_dual_conv_fwd(x, sets[:2], "average", True)
+
+                def first():
+                    return pk.up_dual_conv_fwd(x, sets[:2], "average", True)
+
+                def second():
+                    aff = pk.bn_affine_plain(s00, count, gamma, beta)
+                    return pk.phase_conv_fwd(y00, sets[2:], "average", _ALL, aff, True)
+
+                lib_a = cudnn("fwd", gen, dt, B * 5, cin, 2 * c0, 2 * h + 2, 2 * w + 2)
+                lib_b = cudnn("fwd", gen, dt, B * 5, c0, c2, 2 * h + 2, 2 * w + 2)
+            else:
+                x = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+                args = (x, sets, gamma, beta, a)
+                fn, plain = pk.dn_block_fwd, pk.dn_block_fwd_plain
+                count, rows = 1.0 * B * 5 * h * w, 5 * h * w
+                ((y00,), _), (s00, _) = pk.phase_conv_fwd(x, sets[:2], "average", (2,), a, True)
+
+                def first():
+                    return pk.phase_conv_fwd(x, sets[:2], "average", (2,), a, True)
+
+                def second():
+                    aff = pk.bn_affine_plain(s00, count, gamma, beta)
+                    return ck.ico_conv_s2s_fwd(y00, *sets[2], "average", aff, True)
+
+                lib_a = cudnn("fwd", gen, dt, B * 5, cin, 2 * c0, 2 * h + 1, 2 * w + 2, 2)
+                lib_b = cudnn("fwd", gen, dt, B * 5, c0, c2, h + 2, w + 2)
+            return Case(lambda: fn(*args), lambda: plain(*args),
+                        conv_flops(B, rows, cin, 2 * c0) + conv_flops(B, rows, c0, c2),
+                        [x, sets, gamma, beta, a], lambda: (lib_a(), lib_b()), (first, second),
+                        split_keys=("first", "second"),
+                        split_labels=("conv00+conv10 + stats", "affine + conv01 + stats"))
+        return make
+
     conv01 = [("up0 conv01 (4,8) 256->256", (4, 8, w2, w2)),
               ("up1 conv01 (8,16) 128->128", (8, 16, w1, w1)),
               ("up2 conv01 (16,32) 64->64", (16, 32, w0, w0))]
@@ -852,7 +948,15 @@ def training_cases():
             chain += [(f"up_pair_{which}", f"{label} {f}",
                        pair_bwd(which, h, w, cin, cout, f == "fold"))
                       for f in ("fold", "no fold")]
-    return ([(*c, "AE") for c in cases + merged] + [(*c, "AE no act") for c in no_act]
+    # the merged blocks: o at every UpBlock, p at every DownBlock (an act
+    # prologue at down0 only; the VAE's encoder has down0-1)
+    blocks = [("up_block_fwd", f"{label}, conv01 {shape[3]}", block("up", *shape, shape[3]))
+              for label, shape in ups]
+    blocks += [("dn_block_fwd", f"{label}, conv01 {shape[3]}{'' if k == 0 else ' (no act)'}",
+                block("down", *shape, shape[3], k == 0)) for k, (label, shape) in enumerate(down)]
+    vae += [("up_block_fwd", f"{up0[0]}, conv01 {w2}", block("up", *up0[1], w2))]
+    return ([(*c, "AE") for c in cases + merged + blocks]
+            + [(*c, "AE no act") for c in no_act]
             + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain])
 
 
@@ -879,8 +983,9 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
     cases and, summed over its shapes in bf16: ms and plain_ms (median
     times), bound_ms (with what bounds the largest share of it),
     library_ms (None where no cuDNN call does the same work) and, for a
-    merged backward kernel, split_ms (the split pair: split_dx_ms +
-    split_dtaps_ms); ``by_shapes`` holds the same sums per group of shapes."""
+    merged kernel, split_ms (the split pair: split_dx_ms + split_dtaps_ms
+    for a merged backward, split_first_ms + split_second_ms for a merged
+    block); ``by_shapes`` holds the same sums per group of shapes."""
     def sums():
         return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
 
@@ -914,8 +1019,9 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             lib = ("none" if lib_ms is None else
                    f"{lib_ms:.4f} ms (cuDNN, contraction only, on a haloed input)")
             split = ("" if split_ms is None else
-                     f", split pair {sum(split_ms):.4f} ms (dx + Σg {split_ms[0]:.4f}, dtaps "
-                     f"{split_ms[1]:.4f})")
+                     f", split pair {sum(split_ms):.4f} ms ("
+                     + ", ".join(f"{k} {v:.4f}" for k, v in zip(case.split_labels, split_ms))
+                     + ")")
             split += "".join(f", {k} {v:.4f} ms" for k, v in compare_ms.items())
             print(f"[{phase}] {name} {label} {tag}: worst of {len(got)} outputs "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={rel:.3e} tol={TOL[dt]:.0e} "
@@ -935,8 +1041,8 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                         add(s, "library_ms", lib_ms)
                     if split_ms is not None:
                         add(s, "split_ms", sum(split_ms))
-                        add(s, "split_dx_ms", split_ms[0])
-                        add(s, "split_dtaps_ms", split_ms[1])
+                        for key, v in zip(case.split_keys, split_ms):
+                            add(s, f"split_{key}_ms", v)
                     for k, v in compare_ms.items():
                         s.setdefault("compare_ms", {})[f"{label}: {k}"] = v
             del case, got, ref
@@ -1095,6 +1201,8 @@ def kernel_group(event: dict) -> str:
         return "stats_geff (l)"
     if "merged_bwd" in name:  # kernels i and k share the GridLoad instantiation
         return f"merged_bwd<{dtype}, {loader}>"
+    if "two_pass_block" in name:  # the merged blocks: o (UpLoad), p (GridLoad)
+        return f"two_pass_block<{dtype}, {loader}> ({'o' if loader == 'UpLoad' else 'p'})"
     if "sum_rows" in name or "colsum" in name:
         return "sum_rows + colsum (cross-block sums)"
     if "pair_head_kernel" in name:
@@ -1199,7 +1307,7 @@ def train_config(dtype_name: str, batch: int, model: str = "ico2ico"):
 
 def routing(route: str) -> dict:
     """The Trainer's routing options of a path suffix of ``ROUTES``."""
-    return dict(zip(("merged_bwd", "phase_chain", "kernel_geff"), ROUTES[route]))
+    return dict(zip(("merged_bwd", "phase_chain", "kernel_geff", "merged_block"), ROUTES[route]))
 
 
 def train(model: str, dtype_name: str, variables, dataset, card: str, route: str = ""):
@@ -1256,18 +1364,26 @@ def train(model: str, dtype_name: str, variables, dataset, card: str, route: str
 def check_launches(path: str, launches, forwards=None):
     """Fail unless every kernel of the path launched at least once, and none
     that the path must not run; on the decoder's chain, n (up1, up2) twice
-    as often as the up conv (up0), and that once a forward where
-    ``forwards`` is known."""
+    as often as up0's forward kernel (the up conv, or o on the merged
+    blocks), and that once a forward where ``forwards`` is known; on the
+    merged blocks, o and p ``BLOCKS_PER_FORWARD`` times a forward."""
     missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     stray = [k for k in PATH_FORBIDDEN.get(path, ()) if launches.get(k, 0)]
     if stray:
         raise AssertionError(f"kernels the {path} path must not launch: {stray}")
-    n, up = launches.get("up_pair_fwd", 0), launches.get("up_dual_conv_fwd", 0)
+    n = launches.get("up_pair_fwd", 0)
+    up = launches.get("up_dual_conv_fwd", 0) + launches.get("up_block_fwd", 0)
     if "up_pair_fwd" in PATH_KERNELS[path] and (n != 2 * up or forwards not in (None, up)):
-        raise AssertionError(f"the {path} path launched n {n} and the up conv {up} times "
-                             f"({forwards} forwards): want n twice a forward, the up conv once")
+        raise AssertionError(f"the {path} path launched n {n} and up0's kernel {up} times "
+                             f"({forwards} forwards): want n twice a forward, up0's once")
+    if path in BLOCKS_PER_FORWARD and forwards is not None:
+        got = tuple(launches.get(k, 0) for k in _BLOCKS)
+        want = tuple(k * forwards for k in BLOCKS_PER_FORWARD[path])
+        if got != want:
+            raise AssertionError(f"the {path} path launched (o, p) {got} times in {forwards} "
+                                 f"forwards: want {want}")
 
 
 def routing_compare(variables, dataset, card: str, iters: int = 4):
@@ -1276,10 +1392,12 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
     routing once, then again in the reverse order. The AE's routings: the
     default (every block fused, the split backward kernels),
     ``merged_bwd="all"``, ``pallas_blocks="up0,up1,up2"`` (the encoder and
-    the head on cuDNN and PyTorch ops), and every chained ``ROUTES`` entry
+    the head on cuDNN and PyTorch ops), every chained ``ROUTES`` entry
     (the encoder's chain "chain", the decoder's "chain dec", both "chain
-    all", on the split and merged routes and with the fold outside); the
-    VAE's: the default, the merged, the encoder's chain and both chains.
+    all", on the split and merged routes, with the fold outside and on the
+    merged blocks) and the merged blocks on the split and merged backward;
+    the VAE's: the default, the merged, the encoder's chain, both chains
+    and the merged blocks.
     Losses must be finite; prints each routing's median host-clock step
     time, synchronised."""
     from geniconet_tpu_torch.data.pipeline import Batches
@@ -1287,10 +1405,13 @@ def routing_compare(variables, dataset, card: str, iters: int = 4):
     from geniconet_tpu_torch.train.trainer import Trainer
 
     chain = [(route.strip(" ()"), route, None) for route in ROUTES if "chain" in route]
+    block = [(route.strip(" ()"), route, None) for route in ROUTES
+             if "merged block" in route and "chain" not in route]
     routings = {"ico2ico": (("default", "", None), ("merged", " (merged)", None),
-                            ("decoder-only", "", "up0,up1,up2"), *chain),
+                            ("decoder-only", "", "up0,up1,up2"), *chain, *block),
                 "ico2ico_vae": (("default", "", None), ("merged", " (merged)", None),
-                                *(c for c in chain if c[0] in ("chain", "chain all")))}
+                                *(c for c in chain if c[0] in ("chain", "chain all")),
+                                block[0])}
     x, y, wt = next(iter(Batches(dataset, TRAIN_BATCH, drop_remainder=True, seed=0,
                                  device="cuda").epoch()))
     for model, routes in routings.items():
@@ -1515,14 +1636,25 @@ PLANTED_N = (
     ("up_pair_dx", "up1-2 n, d_mul1 (to up0-1's bn01)", (2,), lambda a: True),
     ("up_pair_dtaps", "up1-2 n, dtaps of set a", (0,), lambda a: True),
 )
+# ... and on the merged blocks: o's and p's b0, and a residual of each that
+# only the backward reads (o's y00, p's mul00); on both chains o at up0 alone
+PLANTED_BLOCK = (
+    ("up_block_fwd", "up0-2 o, b0 phase 0", (0, 0), lambda a: True),
+    ("up_block_fwd", "up0-2 o, y00 phase 0 (the backward's residual)", (2, 0), lambda a: True),
+    ("dn_block_fwd", "down0-2 p, b0", (0,), lambda a: True),
+    ("dn_block_fwd", "down0-2 p, mul00 (the backward's residual)", (6,), lambda a: True),
+)
 # the training routings of each model (``ROUTES`` keys)
 TRAIN_ROUTES = {"ico2ico": ("", " (merged)", " (chain)", " (chain, merged)",
                             " (chain, fold outside)", " (chain all)", " (chain all, merged)",
-                            " (chain all, fold outside)", " (chain dec)"),
-                "ico2ico_vae": ("", " (merged)", " (chain)", " (chain all)")}
+                            " (chain all, fold outside)", " (chain dec)", " (merged block)",
+                            " (merged block, merged)", " (chain all, merged block)"),
+                "ico2ico_vae": ("", " (merged)", " (chain)", " (chain all)", " (merged block)")}
 
 
 def planted_for(model: str, route: str):
+    if "merged block" in route:
+        return PLANTED_BLOCK[:2] if "chain" in route else PLANTED_BLOCK
     if "chain all" in route or "chain dec" in route:
         return PLANTED_N
     return {"": PLANTED[model], " (merged)": PLANTED_MERGED[model]}.get(route) or \

@@ -37,13 +37,23 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// COHERENT: read through L2 only (__ldcg), for data that other blocks of
+// the same launch wrote (the block kernels' second pass); never the
+// non-coherent read-only path, whose lines may be stale.
+template <bool COHERENT, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (COHERENT) return __ldcg(p);
+  else return *p;
+}
+
 // The BN-apply + ReLU prologue, relu(x*mul + add) in float32 without FMA
 // contraction (the reference multiplies and adds as two roundings), then
 // cast to T. Applied BEFORE the halo, so pole means are of activated values.
-template <typename T>
+template <typename T, bool COHERENT = false>
 __device__ __forceinline__ float act_apply(float v, const float* mul, const float* add, int k) {
   if (mul == nullptr) return v;
-  return round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v, mul[k]), add[k]), 0.f));
+  return round_to<T>(
+      fmaxf(__fadd_rn(__fmul_rn(v, load<COHERENT>(&mul[k])), load<COHERENT>(&add[k])), 0.f));
 }
 
 // Activations of one grid held as `n_src` tensors of shape (B, 5, h, w, C)
@@ -51,7 +61,8 @@ __device__ __forceinline__ float act_apply(float v, const float* mul, const floa
 // A source index `code >= 0` is src * 5hw + chart * hw + i * w + j.
 // NORTH is the 5-chart mean of cell 0 of source 0; SOUTH of cell hw-1 of
 // source `south_src` (phase oq = 3 for phases, 0 for a standard grid).
-template <typename T>
+// COHERENT: the sources and the act are read by `load<true>`.
+template <typename T, bool COHERENT = false>
 struct GridLoad {
   const T* src[4];
   const float* mul;  // act prologue, nullable
@@ -59,7 +70,8 @@ struct GridLoad {
   int hw, hw5, cin, south_src;
 
   __device__ __forceinline__ float cell(int b, int s, int r, int k) const {
-    return act_apply<T>(to_f(src[s][((size_t)b * hw5 + r) * cin + k]), mul, add, k);
+    return act_apply<T, COHERENT>(to_f(load<COHERENT>(&src[s][((size_t)b * hw5 + r) * cin + k])),
+                                  mul, add, k);
   }
   __device__ __forceinline__ float operator()(int b, int code, int k) const {
     if (code >= 0) {
@@ -267,22 +279,34 @@ struct StackOut {
 
 // The second pass of every cross-block reduction: out(c) = sum over rows r
 // of in[r][c], rows taken in a fixed order, so the result does not depend
-// on which block finished first. Block (32, 32): 32 columns, 32 row lanes.
+// on which block finished first. Row lane y (of 32) sums rows y, y + 32, ...
+// of column c (column_part), then lane partials 0..31 add in order
+// (column_total).
+template <bool COHERENT = false>
+__device__ __forceinline__ float column_part(const float* __restrict__ in, int R, long long C,
+                                             long long c, int y) {
+  float acc = 0.f;
+  if (c < C)
+    for (int r = y; r < R; r += 32) acc += load<COHERENT>(&in[(size_t)r * C + c]);
+  return acc;
+}
+
+template <int W>
+__device__ __forceinline__ float column_total(const float (&part)[32][W], int x) {
+  float s = 0.f;
+  for (int y = 0; y < 32; ++y) s += part[y][x];
+  return s;
+}
+
+// Block (32, 32): 32 columns, 32 row lanes.
 template <typename Store>
 __global__ void __launch_bounds__(1024)
 sum_rows(const float* __restrict__ in, int R, long long C, Store st) {
   __shared__ float part[32][33];
   const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < C)
-    for (int r = threadIdx.y; r < R; r += 32) acc += in[(size_t)r * C + c];
-  part[threadIdx.y][threadIdx.x] = acc;
+  part[threadIdx.y][threadIdx.x] = column_part(in, R, C, c, threadIdx.y);
   __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float s = 0.f;
-    for (int y = 0; y < 32; ++y) s += part[y][threadIdx.x];
-    st(c, s);
-  }
+  if (threadIdx.y == 0 && c < C) st(c, column_total(part, threadIdx.x));
 }
 
 template <typename Store>
@@ -292,19 +316,23 @@ cudaError_t launch_sum_rows(const float* in, int R, long long C, Store st, cudaS
   return cudaGetLastError();
 }
 
-// SPLIT: the split store (split_row) instead of out[set * n_out + slot] at row
-// b * M + m; the GEMM, its row order and the stats partials are the same.
+// One BM x BN output tile of the conv GEMM: tile (bx, by) of the rows and
+// columns, bz = sample * n_out + output phase slot, gx tiles along the rows
+// (the stats partials' row is bz * gx + bx); unsigned, as blockIdx is. SPLIT: the split store
+// (split_row) instead of out[set * n_out + slot] at row b * M + m; the GEMM,
+// its row order and the stats partials are the same. Every thread of the
+// block must call it; As / Bs are the block's staging tiles.
 template <typename T, typename Loader, bool SPLIT>
-__global__ void __launch_bounds__(NT)
-conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int cin,
-          int cout, int n_sets, int out_phase0, int n_out) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
+__device__ __forceinline__ void conv_tile(const Loader& ld, const ConvOut<T>& co,
+                                          const int* __restrict__ table, int M, int cin, int cout,
+                                          int n_sets, int out_phase0, int n_out, unsigned bx,
+                                          unsigned by, unsigned bz, unsigned gx,
+                                          float (&As)[BK][BM], float (&Bs)[BK][BN]) {
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int b = blockIdx.z / n_out;
-  const int slot = blockIdx.z - b * n_out;
+  const int m0 = bx * BM;
+  const int n0 = by * BN;
+  const int b = bz / n_out;
+  const int slot = bz - b * n_out;
   const int* tab = table + (size_t)(out_phase0 + slot) * 7 * M;
   const int K = 7 * cin;
   const int N = n_sets * cout;
@@ -370,9 +398,19 @@ conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int ci
     }
   }
   if (co.stats != nullptr) {
-    float* row = co.stats + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * N + n0;
+    float* row = co.stats + ((size_t)bz * gx + bx) * 2 * N + n0;
     column_sums(As, Bs, csum, csq, tid, min(BN, N - n0), row, row + N);
   }
+}
+
+template <typename T, typename Loader, bool SPLIT>
+__global__ void __launch_bounds__(NT)
+conv_gemm(Loader ld, ConvOut<T> co, const int* __restrict__ table, int M, int cin,
+          int cout, int n_sets, int out_phase0, int n_out) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  conv_tile<T, Loader, SPLIT>(ld, co, table, M, cin, cout, n_sets, out_phase0, n_out, blockIdx.x,
+                              blockIdx.y, blockIdx.z, gridDim.x, As, Bs);
 }
 
 // Launch the conv GEMM, then (with co.stats) sum the block partials into

@@ -46,6 +46,16 @@ prologue is the previous block's residual join (no merged branch, as in
 JAX); on the plain route the pair is joined per phase and interleaved
 first. The decoder decides which blocks return phases.
 
+The merged blocks (``merged_block``, ``merged_block_enabled``; the JAX
+package's ``GENICONET_MERGED_BLOCK``, ``layers.py:387-422, 540-581``): in
+training, a fused DownBlock or UpBlock named by the option runs its whole
+forward as one kernel (``fused_down_block``, kernel p; ``fused_up_block``,
+kernel o), which computes bn00's affine from its own batch moments and
+takes bn00's raw scale and bias (``IcoBatchNorm.kernel_affine``). As in
+JAX, the encoder's chain comes first (a chained DownBlock never merges) and
+an UpBlock that takes a pair never merges, so on the decoder's chain only
+up0 does. Its backward is the split blocks' kernels.
+
 Every fused conv goes through a wrapper in ``ops/kernels``, which launches
 the CUDA kernel for CUDA tensors and runs the plain PyTorch version for CPU
 tensors. Parameters stay float32; each call casts them to the activation
@@ -60,8 +70,9 @@ from torch import nn
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.build import act_apply, grid_level
 from geniconet_tpu_torch.ops.kernels.fused import (
-    fused_dual_s2_conv, fused_dual_s2_conv_split, fused_ico_conv_s2s, fused_phase_conv_s1,
-    fused_up_dual_conv, fused_up_dual_conv_pair, kernel_geff_enabled,
+    fused_down_block, fused_dual_s2_conv, fused_dual_s2_conv_split, fused_ico_conv_s2s,
+    fused_phase_conv_s1, fused_up_block, fused_up_dual_conv, fused_up_dual_conv_pair,
+    kernel_geff_enabled, merged_bwd_enabled,
 )
 from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_join
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
@@ -69,7 +80,7 @@ from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
 
 __all__ = ["IcoConvS2S", "IcoBatchNorm", "DownBlock", "UpBlock", "residual_join",
            "pallas_block_enabled", "merged_bwd_enabled", "kernel_geff_enabled",
-           "phase_chain_enabled"]
+           "phase_chain_enabled", "merged_block_enabled"]
 
 
 def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
@@ -81,16 +92,16 @@ def pallas_block_enabled(name: str, pallas_blocks: str | None) -> bool:
     return name in {s.strip() for s in pallas_blocks.split(",")}
 
 
-def merged_bwd_enabled(family: str, merged_bwd: str | None) -> bool:
-    """The JAX package's ``GENICONET_MERGED_BWD`` routing as a model option:
-    None, "" or "0" is off (the split dx + dtaps kernels), "1" or "all"
-    merges every family, and a comma list merges the families it names
-    (``pcs1``, ``ds2``, ``upd``, ``std``)."""
-    if merged_bwd in (None, "", "0"):
+def merged_block_enabled(name: str, merged_block: str | None) -> bool:
+    """The JAX package's ``GENICONET_MERGED_BLOCK`` routing as a model
+    option: whether block ``name`` runs its training forward as one merged
+    kernel (o or p). None, "" or "0" is off, "1" or "all" merges every
+    block, and a comma list the blocks it names (e.g. ``"up0,down1"``)."""
+    if merged_block in (None, "", "0"):
         return False
-    if merged_bwd in ("1", "all"):
+    if merged_block in ("1", "all"):
         return True
-    return family in {f.strip() for f in merged_bwd.split(",")}
+    return name in {b.strip() for b in merged_block.split(",")}
 
 
 def phase_chain_enabled(part: str, phase_chain: str | None) -> bool:
@@ -184,6 +195,17 @@ class IcoBatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         return mul, self.bias - mean * mul
 
+    def kernel_affine(self, kernel_fn, count):
+        """``_StatsBN``'s ``kernel_fn`` mode (the merged blocks, train mode):
+        a kernel computes this BatchNorm's affine from its own batch
+        moments, so it takes the raw (scale, bias). ``kernel_fn(scale,
+        bias)`` returns (aux, stats); the running statistics move from the
+        [Σy, Σy²] ``stats`` over ``count`` positions. Returns aux."""
+        aux, stats = kernel_fn(self.scale, self.bias)
+        stats = stats.detach()
+        self._moments(stats[0] / count, stats[1] / count, True)
+        return aux
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Normalise a (B, 5, h, w, C) grid in float32, cast back to its dtype."""
         x32 = x.float()
@@ -203,10 +225,11 @@ class _Block(nn.Module):
     """The six modules of a residual block (reference BasicIcoS2S*Block)."""
 
     def __init__(self, in_features, features, corner_mode, fused, merged_bwd, kernel_geff, fold_ok,
-                 name, device):
+                 merged_block, name, device):
         super().__init__()
         kw = dict(corner_mode=corner_mode, device=device)
         self.corner_mode, self.fused, self.merged_bwd = corner_mode, fused, merged_bwd
+        self.merged_block = merged_block_enabled(name, merged_block)
         # where the split backward folds the stats cotangent (fused.kernel_geff_enabled)
         self.fold = dict(kernel_geff=kernel_geff, fold_ok=fold_ok)
         self.name = name
@@ -224,18 +247,30 @@ class _Block(nn.Module):
         b0 = self.bn01(self.conv01.plain(b0), train)
         return torch.relu(b0 + self.bn10(self.conv10.plain(x, stride), train))
 
+    def _merged(self, fn, count):
+        """The merged block's forward: ``fn(gamma, beta)`` runs the kernel
+        (o or p) with bn00's raw parameters; returns (b0, y10, bn01's and
+        bn10's affines)."""
+        def run(gamma, beta):
+            b0, y10, s00, s01, s10 = fn(gamma, beta)
+            return (b0, y10, s01, s10), s00
+
+        b0, y10, s01, s10 = self.bn00.kernel_affine(run, count)
+        return b0, y10, self.bn01.affine(s01, count, True), self.bn10.affine(s10, count, True)
+
 
 class DownBlock(_Block):
     """Residual down block (reference BasicIcoS2SDownBlock), s -> s-1:
     relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x))).
-    ``phase_chain``: the fused route in phase form (module doc)."""
+    ``phase_chain``: the fused route in phase form; ``merged_block``: the
+    training forward as kernel p (module doc)."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  fused: bool = True, merged_bwd: str | None = None, phase_chain: bool = False,
-                 kernel_geff: str | None = None, fold_ok: bool = True, name: str = "",
-                 device=None):
+                 kernel_geff: str | None = None, fold_ok: bool = True,
+                 merged_block: str | None = None, name: str = "", device=None):
         super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
-                         fold_ok, name, device)
+                         fold_ok, merged_block, name, device)
         self.phase_chain = phase_chain
 
     def forward(self, x, in_act=None, train: bool = False):
@@ -250,6 +285,17 @@ class DownBlock(_Block):
         if self.phase_chain and phases[0].shape[2] >= 2:
             return self._chain(phases, in_act, train)
         dt = phases[0].dtype
+        if train and self.merged_block:
+            def fn(gamma, beta):
+                return fused_down_block(
+                    phases, *self.conv00.params(dt), *self.conv10.params(dt),
+                    *self.conv01.params(dt), gamma, beta,
+                    grid_level(phases[0].shape[2], phases[0].shape[3]) + 1, in_act,
+                    self.corner_mode, self.fold["fold_ok"], self.bn00.eps, self.merged_bwd,
+                    self.fold["kernel_geff"])
+
+            b0, y10, aff01, aff10 = self._merged(fn, float(phases[0].shape[:-1].numel()))
+            return residual_join(b0, y10, aff01, aff10)
         r = fused_dual_s2_conv(phases, *self.conv00.params(dt), *self.conv10.params(dt),
                                self.corner_mode, act=in_act, with_stats=train,
                                merged_bwd=merged_bwd_enabled("ds2", self.merged_bwd), **self.fold)
@@ -284,14 +330,15 @@ class DownBlock(_Block):
 
 class UpBlock(_Block):
     """Residual up block (reference BasicIcoS2SUpBlock), s -> s+1. The
-    parameter-free upsample is shared by both branches."""
+    parameter-free upsample is shared by both branches. ``merged_block``:
+    the training forward of a grid input as kernel o (module doc)."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  return_phases: bool = False, fused: bool = True, merged_bwd: str | None = None,
-                 kernel_geff: str | None = None, fold_ok: bool = True, name: str = "",
-                 device=None):
+                 kernel_geff: str | None = None, fold_ok: bool = True,
+                 merged_block: str | None = None, name: str = "", device=None):
         super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
-                         fold_ok, name, device)
+                         fold_ok, merged_block, name, device)
         self.return_phases = return_phases
 
     def forward(self, x, train: bool = False):
@@ -307,6 +354,17 @@ class UpBlock(_Block):
                 x = phase_merge(tuple(pair_join(a, b, paff) for a, b in zip(pb0, py10)))
             up = ico_upsample_s2s(x, grid_level(x.shape[2], x.shape[3]), self.corner_mode)
             return self._plain_tail(up, 1, train)
+        if train and self.merged_block and not pair_in:
+            x = x.contiguous()
+            dt = x.dtype
+
+            def fn(gamma, beta):
+                return fused_up_block(x, *self.conv00.params(dt), *self.conv10.params(dt),
+                                      *self.conv01.params(dt), gamma, beta, self.corner_mode,
+                                      self.fold["fold_ok"], self.name, self.bn00.eps,
+                                      self.merged_bwd, self.fold["kernel_geff"])
+
+            return self._tail(*self._merged(fn, 4.0 * x.shape[:-1].numel()))
         if pair_in:
             pb0, py10, paff = x
             dt = pb0[0].dtype
@@ -330,8 +388,12 @@ class UpBlock(_Block):
                                 merged_bwd=merged_bwd_enabled("pcs1", self.merged_bwd),
                                 fold_site=self.name, **self.fold)
         b0, s01 = r if train else (r, None)
-        aff01 = self.bn01.affine(s01, count, train)
-        aff10 = self.bn10.affine(s10, count, train)
+        return self._tail(b0, y10, self.bn01.affine(s01, count, train),
+                          self.bn10.affine(s10, count, train))
+
+    def _tail(self, b0, y10, aff01, aff10):
+        """The raw phases and pending affines with ``return_phases``, else
+        the residual join per phase, interleaved."""
         if self.return_phases:
             return b0, y10, (*aff01, *aff10)
         return phase_merge(tuple(residual_join(a, b, aff01, aff10) for a, b in zip(b0, y10)))

@@ -19,13 +19,17 @@ fused route (the kernels), a comma list (``conv_in``, ``down0``..``down2``,
 the plain route. Every routing trains (``train=True``): the fused head runs
 the head+MSE kernel and its backward under ``recon_sse``, and the head
 kernel and its backward (``fused_pair_head``) otherwise. ``merged_bwd``
-(``nn/layers.py:merged_bwd_enabled``) puts the fused blocks' conv backward
+(``ops/kernels/fused.py:merged_bwd_enabled``) puts the fused blocks' conv backward
 on the merged one-pass kernels, per kernel family (the VAE's heads are a
 ``ds2``); ``conv_in`` has no input cotangent and keeps its dtaps kernel.
 ``kernel_geff`` (``ops/kernels/fused.py:kernel_geff_enabled``) picks the
 kernel families whose split backward folds the stats cotangent inside
 their kernels; the others fold it before them (kernel l). None, the
-default, folds every family inside. ``phase_chain`` is the JAX package's
+default, folds every family inside. ``merged_block``
+(``nn/layers.py:merged_block_enabled``: None, "all" or a comma list of
+block names) runs the named fused blocks' training forward as one kernel
+each (o for an UpBlock, p for a DownBlock), never on a chained DownBlock
+or a pair-input UpBlock. ``phase_chain`` is the JAX package's
 ``GENICONET_PHASE_CHAIN``, in training and in eval: "enc" runs the fused
 DownBlocks as the phase chain (kernel m, ``nn/layers.py``), and the
 encoder interleaves the phase tuple once, at its end (the VAE's trunk too,
@@ -64,7 +68,7 @@ def _check_phase_chain(phase_chain):
 
 class _Encoder(nn.Module):
     def __init__(self, widths, corner_mode: str, pallas_blocks=None, merged_bwd=None,
-                 phase_chain=None, kernel_geff=None, device=None):
+                 phase_chain=None, kernel_geff=None, merged_block=None, device=None):
         super().__init__()
         w0 = widths[0]
         self.corner_mode = corner_mode
@@ -77,7 +81,7 @@ class _Encoder(nn.Module):
             self.add_module(f"down{k}", DownBlock(
                 cin, cout, corner_mode, fused=pallas_block_enabled(f"down{k}", pallas_blocks),
                 merged_bwd=merged_bwd, phase_chain=phase_chain_enabled("enc", phase_chain),
-                name=f"down{k}", device=device, **self.fold))
+                merged_block=merged_block, name=f"down{k}", device=device, **self.fold))
         self.n_down = len(widths) - 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -119,7 +123,7 @@ class _Head(nn.Module):
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
                  pallas_blocks=None, merged_bwd=None, phase_chain=None, kernel_geff=None,
-                 device=None):
+                 merged_block=None, device=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
         # the decoder's phase chain: every fused block hands its raw phases and
@@ -129,8 +133,8 @@ class _Decoder(nn.Module):
             self.add_module(f"up{k}", UpBlock(
                 cin, cout, corner_mode, return_phases=chain or k == len(widths) - 1,
                 fused=pallas_block_enabled(f"up{k}", pallas_blocks), merged_bwd=merged_bwd,
-                kernel_geff=kernel_geff, fold_ok=pallas_blocks is None, name=f"up{k}",
-                device=device))
+                kernel_geff=kernel_geff, fold_ok=pallas_blocks is None,
+                merged_block=merged_block, name=f"up{k}", device=device))
         self.n_up = len(widths)
         self.fused_head = pallas_block_enabled("head", pallas_blocks)
         self.head = _Head(widths[-1], out_features, device=device)
@@ -182,12 +186,14 @@ class IcoAE(nn.Module):
     every BatchNorm, as flax's ``apply(train=True, mutable=["batch_stats"])``.
     ``merged_bwd``: the kernel families whose backward is merged;
     ``kernel_geff``: those whose split backward folds in-kernel;
-    ``phase_chain``: None, "0", "enc", "dec" or "1" (module doc)."""
+    ``phase_chain``: None, "0", "enc", "dec" or "1"; ``merged_block``: the
+    blocks whose training forward is one kernel (module doc)."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
                  pallas_blocks: str | None = None, merged_bwd: str | None = None,
-                 phase_chain: str | None = None, kernel_geff: str | None = None, device=None):
+                 phase_chain: str | None = None, kernel_geff: str | None = None,
+                 merged_block: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoAE needs subdivisions >= 3 (three stride-2 stages)")
@@ -195,10 +201,11 @@ class IcoAE(nn.Module):
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
         self.merged_bwd, self.phase_chain, self.kernel_geff = merged_bwd, phase_chain, kernel_geff
+        self.merged_block = merged_block
         self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device)
         self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device)
 
     def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
@@ -241,7 +248,7 @@ class IcoVAE(nn.Module):
     """Icosahedral VAE (reference ico2ico_vae).
 
     ``dtype``, ``pallas_blocks``, ``merged_bwd``, ``phase_chain``,
-    ``kernel_geff`` and ``train`` as ``IcoAE``; the mu / logvar heads are
+    ``kernel_geff``, ``merged_block`` and ``train`` as ``IcoAE``; the mu / logvar heads are
     the block ``"heads"``: on the fused route both stride-2 convs run as one
     dual stride-2 phase conv (no act prologue, BatchNorm sums when training;
     family ``ds2`` of ``merged_bwd`` and ``kernel_geff``; never chained),
@@ -250,7 +257,8 @@ class IcoVAE(nn.Module):
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256), latent_features: int = 512,
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
                  pallas_blocks: str | None = None, merged_bwd: str | None = None,
-                 phase_chain: str | None = None, kernel_geff: str | None = None, device=None):
+                 phase_chain: str | None = None, kernel_geff: str | None = None,
+                 merged_block: str | None = None, device=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoVAE needs subdivisions >= 3 (three stride-2 stages)")
@@ -258,16 +266,18 @@ class IcoVAE(nn.Module):
         w0, w1, w2 = widths
         self.subdivisions, self.dtype, self.pallas_blocks = subdivisions, dtype, pallas_blocks
         self.merged_bwd, self.phase_chain, self.kernel_geff = merged_bwd, phase_chain, kernel_geff
+        self.merged_block = merged_block
         self.corner_mode = corner_mode
         self.fused_heads = pallas_block_enabled("heads", pallas_blocks)
         self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device)
         self.mu_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.mu_bn = IcoBatchNorm(latent_features, device=device)
         self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
         self.logvar_bn = IcoBatchNorm(latent_features, device=device)
         self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
-                                merged_bwd, phase_chain, kernel_geff, device=device)
+                                merged_bwd, phase_chain, kernel_geff, merged_block,
+                                device=device)
 
     def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""

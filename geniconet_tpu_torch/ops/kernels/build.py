@@ -108,7 +108,7 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _INT, _I64, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # pointers, then ints, then the stream; csrc/*.cu documents each argument
     "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
@@ -134,6 +134,8 @@ _SIGNATURES = {
     "gn_up_pair_fwd": [_VP] * 12 + [_INT] * 6 + [_VP],
     "gn_up_pair_dx": [_VP] * 17 + [_INT] * 7 + [_VP],
     "gn_up_pair_dtaps": [_VP] * 11 + [_INT] * 8 + [_VP],
+    "gn_up_block_fwd": [_VP] * 15 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
+    "gn_dn_block_fwd": [_VP] * 17 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
 }
 
 # Work split shared with csrc/: the GEMM cores compute TILE x TILE output
@@ -204,8 +206,9 @@ def ptr(t: torch.Tensor | None):
 
 
 def ptr_array(tensors):
-    """A host array of device pointers, for the kernels' pointer-list arguments."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A host array of device pointers (null for None), for the kernels'
+    pointer-list arguments."""
+    return (ctypes.c_void_p * len(tensors))(*[ptr(t) for t in tensors])
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -17,6 +17,12 @@ Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
 * ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
   (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
   ``ico_conv_s2s_dtaps``;
+* ``fused_up_block`` (``_upblk``) and ``fused_down_block`` (``_dnblk``): a
+  whole UpBlock's or DownBlock's training forward in one launch (kernels
+  o, ``up_block_fwd``, and p, ``dn_block_fwd``), bn00's affine computed in
+  the kernel; no backward kernel of their own: the backward bodies
+  ``_pcs1_bwd`` / ``_upd_bwd`` and ``_std_bwd`` / ``_ds2_bwd`` (which the
+  split Functions run too) around the affine's (C,)-sized VJP;
 * ``fused_pair_head`` (``_phead``): the decoder tail + head + tanh, 4 output
   phases: ``pair_head_fwd`` / ``pair_head_bwd`` (the VAE's training loss);
 * ``fused_pair_head_mse`` (``_phmse``): the decoder tail + head + tanh +
@@ -62,23 +68,39 @@ branches run before the fold test.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from geniconet_tpu_torch.ops.kernels.build import grid_level
 from geniconet_tpu_torch.ops.kernels.conv_kernel import (
     ico_conv_s2s_bwd, ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
 )
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    ds2s_dtaps, ds2s_dx, ds2s_fwd, pair_head_bwd, pair_head_fwd, pair_head_mse_bwd,
-    pair_head_mse_fwd, phase_conv_bwd, phase_conv_dtaps, phase_conv_dx, phase_conv_fwd,
-    stats_geff, up_dual_conv_bwd, up_dual_conv_dtaps, up_dual_conv_dx, up_dual_conv_fwd,
-    up_pair_dtaps, up_pair_dx, up_pair_fwd,
+    bn_affine_plain, dn_block_fwd, ds2s_dtaps, ds2s_dx, ds2s_fwd, pair_head_bwd, pair_head_fwd,
+    pair_head_mse_bwd, pair_head_mse_fwd, phase_conv_bwd, phase_conv_dtaps, phase_conv_dx,
+    phase_conv_fwd, stats_geff, up_block_fwd, up_dual_conv_bwd, up_dual_conv_dtaps,
+    up_dual_conv_dx, up_dual_conv_fwd, up_pair_dtaps, up_pair_dx, up_pair_fwd,
 )
 
 __all__ = ["fused_phase_conv_s1", "fused_dual_s2_conv", "fused_dual_s2_conv_split",
-           "fused_up_dual_conv", "fused_up_dual_conv_pair", "fused_ico_conv_s2s", "fused_pair_head", "fused_pair_head_mse",
-           "kernel_geff_enabled"]
+           "fused_up_dual_conv", "fused_up_dual_conv_pair", "fused_ico_conv_s2s", "fused_up_block",
+           "fused_down_block", "fused_pair_head", "fused_pair_head_mse", "kernel_geff_enabled",
+           "merged_bwd_enabled"]
 
 _ALL = (0, 1, 2, 3)
+
+
+def merged_bwd_enabled(family: str, merged_bwd: str | None) -> bool:
+    """The JAX package's ``GENICONET_MERGED_BWD`` routing as a model option:
+    None, "" or "0" is off (the split dx + dtaps kernels), "1" or "all"
+    merges every family, and a comma list merges the families it names
+    (``pcs1``, ``ds2``, ``upd``, ``std``)."""
+    if merged_bwd in (None, "", "0"):
+        return False
+    if merged_bwd in ("1", "all"):
+        return True
+    return family in {f.strip() for f in merged_bwd.split(",")}
 
 
 def kernel_geff_enabled(family: str, kernel_geff: str | None, allow: bool = True) -> bool:
@@ -148,31 +170,50 @@ class _PhaseConv(torch.autograd.Function):
         (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
          has_bias) = ctx.settings
         saved = ctx.saved_tensors
-        phases, taps = saved[:4], saved[4 : 4 + n_sets]
         mul, add = saved[4 + n_sets : 6 + n_sets]
-        act = None if mul is None else (mul, add)
-        n_out, dt, cin = len(out_phases), phases[0].dtype, phases[0].shape[-1]
-        merged = needs_dx and merged_bwd
-        g_groups, fk = _fold(with_stats, fold or merged, _groups(grads, n_sets, n_out),
-                             saved[6 + n_sets :], grads[n_sets * n_out :], n_sets, n_out)
-        sets = [(t, None) for t in taps]
-        dphases, dmul, dadd, gsums = (None,) * 4, None, None, None
-        if merged:
-            dphases, dtaps, gsums, dmul, dadd = phase_conv_bwd(
-                phases, g_groups, fk.get("y_groups"), fk.get("gs_list"), sets, corner_mode,
-                out_phases, act, with_stats, dt)
-        else:
-            if needs_dx:
-                dphases, dmul, dadd, gsums = phase_conv_dx(
-                    g_groups, sets, corner_mode, out_phases, cin, dt, act, phases, **fk)
-            # the bias gradient rides the dtaps kernel unless the dx kernel made it
-            want_gsum = gsums is None and any(has_bias)
-            r = phase_conv_dtaps(phases, g_groups, [t.shape for t in taps], corner_mode,
-                                 out_phases, act, emit_gsum=want_gsum, **fk)
-            dtaps, gsums = r if want_gsum else (r, gsums)
-        dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
-        return (None,) * 7 + (*dphases, *[d.to(t.dtype) for d, t in zip(dtaps, taps)], *dbias,
-                              dmul, dadd)
+        n = n_sets * len(out_phases)
+        dphases, dtaps, dbias, dmul, dadd = _phase_bwd(
+            out_phases, corner_mode, with_stats, needs_dx, merged_bwd, fold, has_bias, saved[:4],
+            saved[4 : 4 + n_sets], None if mul is None else (mul, add), saved[6 + n_sets :],
+            grads[:n], grads[n:])
+        return (None,) * 7 + (*dphases, *dtaps, *dbias, dmul, dadd)
+
+
+def _phase_bwd(out_phases, corner_mode, with_stats, needs_dx, merged_bwd, fold, has_bias, phases,
+               taps, act, ys, g_out, g_stats):
+    """The phase conv's backward (JAX's ``_pcs1_bwd`` / ``_ds2_bwd``): the
+    forward's 4 raw input phases, its taps per set, act, outputs ``ys`` and
+    the cotangents of its outputs and stats (flat, set-major) -> (4 input
+    cotangents or Nones, dtaps and dbias per set in the taps' dtype, d_mul,
+    d_add). Merged (with ``needs_dx``) or split, the fold inside or before
+    the kernels (module doc)."""
+    n_sets, n_out = len(taps), len(out_phases)
+    dt, cin = phases[0].dtype, phases[0].shape[-1]
+    merged = needs_dx and merged_bwd
+    g_groups, fk = _fold(with_stats, fold or merged, _groups(g_out, n_sets, n_out), ys, g_stats,
+                         n_sets, n_out)
+    sets = [(t, None) for t in taps]
+    dphases, dmul, dadd, gsums = (None,) * 4, None, None, None
+    if merged:
+        dphases, dtaps, gsums, dmul, dadd = phase_conv_bwd(
+            phases, g_groups, fk.get("y_groups"), fk.get("gs_list"), sets, corner_mode,
+            out_phases, act, with_stats, dt)
+    else:
+        if needs_dx:
+            dphases, dmul, dadd, gsums = phase_conv_dx(
+                g_groups, sets, corner_mode, out_phases, cin, dt, act, phases, **fk)
+        # the bias gradient rides the dtaps kernel unless the dx kernel made it
+        want_gsum = gsums is None and any(has_bias)
+        r = phase_conv_dtaps(phases, g_groups, [t.shape for t in taps], corner_mode,
+                             out_phases, act, emit_gsum=want_gsum, **fk)
+        dtaps, gsums = r if want_gsum else (r, gsums)
+    dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
+    return dphases, [d.to(t.dtype) for d, t in zip(dtaps, taps)], dbias, dmul, dadd
+
+
+# fused_phase_conv_s1's and fused_dual_s2_conv's backward, by JAX's names
+_pcs1_bwd = functools.partial(_phase_bwd, _ALL)
+_ds2_bwd = functools.partial(_phase_bwd, (2,))
 
 
 def fused_phase_conv_s1(phases, taps, bias, corner_mode="average", act=None, with_stats=False,
@@ -280,19 +321,28 @@ class _UpDual(torch.autograd.Function):
     def backward(ctx, *grads):
         corner_mode, with_stats, merged_bwd, fold, has_a, has_b = ctx.settings
         x, taps_a, taps_b, *ys = ctx.saved_tensors
-        # Σg rides the dx kernel with the fold in or out of the kernels
-        g_groups, fk = _fold(with_stats, fold or merged_bwd, _groups(grads, 2, 4), ys, grads[8:],
-                             2, 4)
-        sets = [(taps_a, None), (taps_b, None)]
-        if merged_bwd:
-            dx, dta, dtb, *gsums = up_dual_conv_bwd(x, g_groups, sets, corner_mode, **fk)
-        else:
-            dx, gsums = up_dual_conv_dx(g_groups, sets, corner_mode, x.dtype,
-                                        emit_gsum=has_a or has_b, **fk)
-            dta, dtb = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
-        dba = gsums[0].to(taps_a.dtype) if has_a else None
-        dbb = gsums[1].to(taps_b.dtype) if has_b else None
-        return None, None, None, None, dx, dta.to(taps_a.dtype), dba, dtb.to(taps_b.dtype), dbb
+        dx, (dta, dtb), (dba, dbb) = _upd_bwd(corner_mode, with_stats, merged_bwd, fold,
+                                              (has_a, has_b), x, (taps_a, taps_b), ys, grads[:8],
+                                              grads[8:])
+        return None, None, None, None, dx, dta, dba, dtb, dbb
+
+
+def _upd_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, ys, g_out, g_stats):
+    """The up conv's backward (JAX's ``_upd_bwd``): the forward's level-s x,
+    its two tap sets, outputs ``ys`` and the cotangents of its 8 output
+    phases and 2 stats -> (dx, dtaps and dbias per set in the taps' dtype)."""
+    # Σg rides the dx kernel with the fold in or out of the kernels
+    g_groups, fk = _fold(with_stats, fold or merged_bwd, _groups(g_out, 2, 4), ys, g_stats, 2, 4)
+    sets = [(t, None) for t in taps]
+    if merged_bwd:
+        dx, *dtaps, g0, g1 = up_dual_conv_bwd(x, g_groups, sets, corner_mode, **fk)
+        gsums = (g0, g1)
+    else:
+        dx, gsums = up_dual_conv_dx(g_groups, sets, corner_mode, x.dtype,
+                                    emit_gsum=any(has_bias), **fk)
+        dtaps = up_dual_conv_dtaps(x, g_groups, corner_mode, **fk)
+    dbias = [gsums[s].to(t.dtype) if has_bias[s] else None for s, t in enumerate(taps)]
+    return dx, [d.to(t.dtype) for d, t in zip(dtaps, taps)], dbias
 
 
 def fused_up_dual_conv(x, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
@@ -379,20 +429,28 @@ class _IcoConv(torch.autograd.Function):
         corner_mode, with_stats, merged_bwd, fold, has_bias = ctx.settings
         x, taps, mul, add, y = ctx.saved_tensors
         act = None if mul is None else (mul, add)
-        gy, fk = gy.contiguous(), {}
-        if with_stats and (fold or merged_bwd):
-            fk = dict(y=y, gs=gst.float().contiguous())
-        elif with_stats:  # Σg rides the dx kernel with the fold in or out of the kernels
-            (gy,) = stats_geff((gy,), (y,), gst.float().contiguous())
-        if merged_bwd:
-            dx, dtaps, gsum, dmul, dadd = ico_conv_s2s_bwd(
-                x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype)
-        else:
-            dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
-                                                   emit_gsum=has_bias, **fk)
-            dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
-        dbias = gsum.to(taps.dtype) if has_bias else None
+        dx, dtaps, dbias, dmul, dadd = _std_bwd(corner_mode, with_stats, merged_bwd, fold,
+                                                has_bias, x, taps, act, y, gy, gst)
         return None, None, None, None, dx, dtaps, dbias, dmul, dadd
+
+
+def _std_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, act, y, gy, gst):
+    """The standard conv's backward (JAX's ``conv_kernel._bwd``, the
+    ``std`` family): the forward's raw x, taps, act, output y and the
+    cotangents of y and its stats -> (dx, dtaps, dbias, d_mul, d_add)."""
+    gy, fk = gy.contiguous(), {}
+    if with_stats and (fold or merged_bwd):
+        fk = dict(y=y, gs=gst.float().contiguous())
+    elif with_stats:  # Σg rides the dx kernel with the fold in or out of the kernels
+        (gy,) = stats_geff((gy,), (y,), gst.float().contiguous())
+    if merged_bwd:
+        dx, dtaps, gsum, dmul, dadd = ico_conv_s2s_bwd(
+            x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype)
+    else:
+        dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
+                                               emit_gsum=has_bias, **fk)
+        dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
+    return dx, dtaps, gsum.to(taps.dtype) if has_bias else None, dmul, dadd
 
 
 def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", stride=1, act=None,
@@ -416,6 +474,135 @@ def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", strid
     fold = kernel_geff_enabled("std", kernel_geff)
     return _IcoConv.apply(corner_mode, with_stats, merged_bwd, fold, x.contiguous(), taps, bias,
                           mul, add)
+
+
+def _affine_vjp(stats, count, gamma, beta, eps, dmul, dadd):
+    """(d_stats, d_gamma, d_beta): the VJP of bn00's affine
+    (``bn_affine_plain``) at (stats, gamma, beta) for the cotangents of
+    (mul, add), by autograd of the (C,)-sized formula."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (stats, gamma, beta)]
+        mul, add = bn_affine_plain(leaves[0], count, leaves[1], leaves[2], eps)
+        return torch.autograd.grad((mul, add), leaves, (dmul.float(), dadd.float()))
+
+
+class _UpBlock(torch.autograd.Function):
+    """Inputs: settings, x, t00, b00, t10, b10, t01, b01 (biases or None),
+    gamma, beta. Outputs: 4 b0 phases, 4 y10 phases, s00, s01, s10."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, eps, merged, folds, x, t00, b00, t10, b10, t01, b01, gamma,
+                beta):
+        b0, y10, y00, s00, s01, s10, mul00, add00 = up_block_fwd(
+            x, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, corner_mode, eps)
+        ctx.settings = (corner_mode, eps, merged, folds, [b is not None for b in (b00, b10, b01)])
+        ctx.save_for_backward(x, t00, t10, t01, gamma, beta, *y00, *y10, *b0, s00, mul00, add00)
+        return (*b0, *y10, s00, s01, s10)
+
+    @staticmethod
+    def backward(ctx, *g):
+        corner_mode, eps, (m_upd, m_pcs1), (f_upd, f_pcs1), has_bias = ctx.settings
+        x, t00, t10, t01, gamma, beta, *res = ctx.saved_tensors
+        y00, y10, b0, (s00, mul00, add00) = res[:4], res[4:8], res[8:12], res[12:]
+        g_s00, g_s01, g_s10 = g[8:]
+        # conv01's backward, then the affine's (C,)-sized VJP, whose moments
+        # cotangent joins s00's, then the pair's backward (_upblk_bwd)
+        d_y00, (dt01,), (db01,), dmul, dadd = _pcs1_bwd(
+            corner_mode, True, True, m_pcs1, f_pcs1, has_bias[2:], y00, [t01], (mul00, add00),
+            b0, g[:4], [g_s01])
+        d_s00, d_gamma, d_beta = _affine_vjp(s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta,
+                                             eps, dmul, dadd)
+        dx, (dt00, dt10), (db00, db10) = _upd_bwd(corner_mode, True, m_upd, f_upd, has_bias[:2],
+                                                  x, (t00, t10), (*y00, *y10), (*d_y00, *g[4:8]),
+                                                  (d_s00 + g_s00, g_s10))
+        return (None,) * 4 + (dx, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta)
+
+
+def fused_up_block(x, t00, b00, t10, b10, t01, b01, gamma, beta, corner_mode="average",
+                   fold_ok: bool = True, fold_site: str = "", eps: float = 1e-5,
+                   merged_bwd: str | None = None, kernel_geff: str | None = None):
+    """A whole UpBlock's training forward in one launch (kernel o), with the
+    split route's backward.
+
+    x: (B, 5, h, w, C_in) level-s grid; the taps and biases of conv00,
+    conv10 and conv01 in x's dtype; gamma, beta: bn00's float32 scale and
+    bias, from which the kernel computes bn00's affine on its own batch
+    moments. Returns (b0 4-tuple, y10 4-tuple, s00, s01, s10), the contract
+    of ``fused_up_dual_conv`` + bn00's affine + ``fused_phase_conv_s1``.
+    The backward recomposes those two Functions' backward programs around
+    the affine's VJP (JAX's ``_upblk_bwd``), each in the family JAX names
+    (``pcs1_<fold_site>``, ``upd``): merged_bwd (the model option, by
+    family), fold_ok and kernel_geff pick their kernels as for the split
+    blocks."""
+    merged = (merged_bwd_enabled("upd", merged_bwd), merged_bwd_enabled("pcs1", merged_bwd))
+    folds = (kernel_geff_enabled("upd", kernel_geff, fold_ok),
+             kernel_geff_enabled(f"pcs1_{fold_site}" if fold_site else "pcs1", kernel_geff,
+                                 fold_ok))
+    r = _UpBlock.apply(corner_mode, eps, merged, folds, x.contiguous(), t00, b00, t10, b10, t01,
+                       b01, gamma, beta)
+    return tuple(r[:4]), tuple(r[4:8]), *r[8:]
+
+
+class _DownBlock(torch.autograd.Function):
+    """Inputs: settings, 4 phases, t00, b00, t10, b10, t01, b01 (biases or
+    None), gamma, beta, act mul, add (or None). Outputs: b0, y10, s00, s01,
+    s10."""
+
+    @staticmethod
+    def forward(ctx, corner_mode, eps, merged, folds, *tensors):
+        phases, (t00, b00, t10, b10, t01, b01, gamma, beta, mul, add) = tensors[:4], tensors[4:]
+        act = None if mul is None else (mul, add)
+        b0, y10, y00, s00, s01, s10, mul00, add00 = dn_block_fwd(
+            phases, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, act, corner_mode, eps)
+        ctx.settings = (corner_mode, eps, merged, folds, [b is not None for b in (b00, b10, b01)])
+        ctx.save_for_backward(*phases, t00, t10, t01, gamma, beta, mul, add, y00, y10, b0, s00,
+                              mul00, add00)
+        return b0, y10, s00, s01, s10
+
+    @staticmethod
+    def backward(ctx, g_b0, g_y10, g_s00, g_s01, g_s10):
+        corner_mode, eps, (m_ds2, m_std), (f_ds2, f_std), has_bias = ctx.settings
+        saved = ctx.saved_tensors
+        phases, (t00, t10, t01, gamma, beta, mul, add) = saved[:4], saved[4:11]
+        y00, y10, b0, s00, mul00, add00 = saved[11:]
+        # conv01's backward, the affine's VJP, then the stride-2 pair's
+        # backward (_dnblk_bwd)
+        d_y00, dt01, db01, dmul, dadd = _std_bwd(corner_mode, True, m_std, f_std, has_bias[2],
+                                                 y00, t01, (mul00, add00), b0, g_b0, g_s01)
+        d_s00, d_gamma, d_beta = _affine_vjp(s00, float(y00.shape[:-1].numel()), gamma, beta,
+                                             eps, dmul, dadd)
+        dphases, (dt00, dt10), (db00, db10), dmul_in, dadd_in = _ds2_bwd(
+            corner_mode, True, True, m_ds2, f_ds2, has_bias[:2], phases, (t00, t10),
+            None if mul is None else (mul, add), (y00, y10), (d_y00, g_y10),
+            (d_s00 + g_s00, g_s10))
+        return (None,) * 4 + (*dphases, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta,
+                              dmul_in, dadd_in)
+
+
+def fused_down_block(xp, t00, b00, t10, b10, t01, b01, gamma, beta, s_in: int, in_act=None,
+                     corner_mode="average", fold_ok: bool = True, eps: float = 1e-5,
+                     merged_bwd: str | None = None, kernel_geff: str | None = None):
+    """A whole DownBlock's training forward in one launch (kernel p), with
+    the split route's backward.
+
+    xp: the 4 parity phases of the level-``s_in`` input, each (B, 5, h, w,
+    C_in); the taps and biases of conv00, conv10 (stride 2) and conv01 in
+    their dtype; gamma, beta: bn00's float32 scale and bias; in_act:
+    optional float32 (mul, add) pending prologue. Returns (b0, y10, s00,
+    s01, s10) with b0, y10 standard level-(s_in - 1) grids, the contract of
+    ``fused_dual_s2_conv`` + bn00's affine + the standard conv01. The
+    backward recomposes their backward programs around the affine's VJP
+    (JAX's ``_dnblk_bwd``), in the families ``std`` and ``ds2``: merged_bwd,
+    fold_ok and kernel_geff pick their kernels as for the split blocks."""
+    xp = tuple(p.contiguous() for p in xp)
+    if grid_level(xp[0].shape[2], xp[0].shape[3]) + 1 != s_in:
+        raise ValueError(f"fused_down_block: phases {tuple(xp[0].shape)} are not of level {s_in}")
+    mul, add = in_act if in_act is not None else (None, None)
+    merged = (merged_bwd_enabled("ds2", merged_bwd), merged_bwd_enabled("std", merged_bwd))
+    folds = (kernel_geff_enabled("ds2", kernel_geff, fold_ok),
+             kernel_geff_enabled("std", kernel_geff))
+    return _DownBlock.apply(corner_mode, eps, merged, folds, *xp, t00, b00, t10, b10, t01, b01,
+                            gamma, beta, mul, add)
 
 
 class _PairHead(torch.autograd.Function):

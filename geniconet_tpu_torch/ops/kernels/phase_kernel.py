@@ -31,7 +31,14 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   (``_updp`` and the two kernels of ``_updp_bwd``): the decoder's phase
   chain, the up conv whose level-s input is the previous UpBlock's residual
   join of a raw phase pair, and whose dx is that pair's 8 phase cotangents
-  and 4 affine gradients.
+  and 4 affine gradients;
+* ``up_block_fwd`` -> ``csrc/up_block.cu`` (``_up_block_fwd_impl``, kernel
+  o) and ``dn_block_fwd`` -> ``csrc/dn_block.cu`` (``_dn_block_fwd_impl``,
+  kernel p): a whole UpBlock's or DownBlock's training forward in one
+  launch, the block's two first convs with stats, bn00's affine computed
+  in the kernel from their moments, then conv01 with the affine as its
+  prologue, with stats (the merged blocks; their backward is the existing
+  kernels', ``ops/kernels/fused.py``).
 
 The backward wrappers keep the Pallas calls' contracts: ``y_groups`` and
 ``gs_list`` (the forward outputs and the cotangents of their stats) switch
@@ -52,6 +59,7 @@ from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import (
     act_apply, check_act, expect, grid_level, on_cuda,
 )
+from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
 from geniconet_tpu_torch.ops.pad import ico_pad
 from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, phase_upsample
@@ -68,7 +76,8 @@ __all__ = [
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
-    "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join",
+    "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
+    "up_block_fwd", "up_block_fwd_plain", "dn_block_fwd", "dn_block_fwd_plain",
 ]
 
 _OUT_PHASES = ((0, 1, 2, 3), (2,))
@@ -1057,6 +1066,152 @@ def up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_lis
     build.check("up_pair_dtaps", err)
     build.LAUNCHES["up_pair_dtaps"] += 1
     return tuple(dtaps)
+
+
+# --------------------------------------------------------------------------
+# the merged blocks (fused_up_block, fused_down_block: kernels o and p)
+# --------------------------------------------------------------------------
+
+
+def bn_affine_plain(stats, count, gamma, beta, eps=1e-5):
+    """BatchNorm's (mul, add) from [Σy, Σy²] over ``count`` positions, as
+    ``IcoBatchNorm.affine`` computes it in train mode (``_StatsBN``'s
+    formula): mean = Σy/count, var = max(0, Σy²/count − mean²), mul =
+    rsqrt(var + eps)·gamma, add = beta − mean·mul, float32."""
+    mean = stats[0] / count
+    var = torch.clamp_min(stats[1] / count - mean * mean, 0.0)
+    mul = torch.rsqrt(var + eps) * gamma
+    return mul, beta - mean * mul
+
+
+def up_block_fwd_plain(x, tap_sets, gamma, beta, corner_mode="average", eps=1e-5):
+    """Plain version of ``up_block_fwd``: ``up_dual_conv_fwd_plain`` with
+    stats, the affine, then ``phase_conv_fwd_plain`` with it as the act."""
+    (y00, y10), (s00, s10) = up_dual_conv_fwd_plain(x, tap_sets[:2], corner_mode, True)
+    mul00, add00 = bn_affine_plain(s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta, eps)
+    (b0,), (s01,) = phase_conv_fwd_plain(y00, tap_sets[2:], corner_mode, _ALL, (mul00, add00),
+                                         True)
+    return b0, y10, y00, s00, s01, s10, mul00, add00
+
+
+def _check_block(tap_sets, gamma, beta, cin, dt, dev, name):
+    """(c0, c2) of a merged block's three tap sets and bn00's parameters."""
+    if len(tap_sets) != 3:
+        raise ValueError(f"{name}: takes 3 tap sets (conv00, conv10, conv01), got {len(tap_sets)}")
+    c0 = _check_sets(tap_sets[:2], cin, dt, dev, name)
+    c2 = _check_sets(tap_sets[2:], c0, dt, dev, f"{name} conv01")
+    for a in (gamma, beta):
+        expect(a, (c0,), torch.float32, dev, f"{name} gamma/beta")
+    return c0, c2
+
+
+def _block_outputs(B, M, c0, c2, n_a, dev):
+    """Stats, affine, barrier and partial scratch of a merged block whose
+    pass A has ``n_a`` output phases a sample."""
+    s00, s10 = (torch.empty((2, c0), dtype=torch.float32, device=dev) for _ in range(2))
+    s01 = torch.empty((2, c2), dtype=torch.float32, device=dev)
+    mul00, add00 = (torch.empty(c0, dtype=torch.float32, device=dev) for _ in range(2))
+    rows = B * n_a * build.n_tiles(M)
+    scratch = (build.scratch(rows * 4 * c0, dev), build.scratch(rows * 2 * c2, dev))
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    return (s00, s10, s01, mul00, add00), scratch, bar
+
+
+def up_block_fwd(x, tap_sets, gamma, beta, corner_mode: str = "average", eps: float = 1e-5):
+    """A whole UpBlock's training forward in one launch (the Pallas
+    ``_up_block_fwd_impl``, kernel o).
+
+    x: contiguous (B, 5, h, w, C_in) level-s grid (float32 or bfloat16);
+    tap_sets: (taps, bias) of conv00 and conv10 (C_in -> C0) and of conv01
+    (C0 -> C2), in x's dtype; gamma, beta: bn00's float32 (C0,). Pass A is
+    ``up_dual_conv_fwd`` with stats, then mul00, add00 = bn00's affine of
+    its batch moments (``bn_affine_plain``, count 4·B·5hw), then pass B
+    ``phase_conv_fwd`` of y00 with act (mul00, add00) and stats. Returns
+    (b0, y10, y00 (4-tuples of level-(s+1) phases), s00, s01, s10 (float32
+    (2, C) [Σy, Σy²]), mul00, add00), as the Pallas call."""
+    if not on_cuda(x, "up_block_fwd"):
+        return up_block_fwd_plain(x, tap_sets, gamma, beta, corner_mode, eps)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    expect(x, (B, 5, h, w, cin), dt, dev, "up_block_fwd x")
+    c0, c2 = _check_block(tap_sets, gamma, beta, cin, dt, dev, "up_block_fwd")
+    M = 5 * h * w
+    outs = [torch.empty((B, 5, h, w, c), dtype=dt, device=dev) for c in [c0] * 8 + [c2] * 4]
+    stats, (part_a, part_b), bar = _block_outputs(B, M, c0, c2, 4, dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_block_fwd(
+            x.data_ptr(), build.ptr_array([t for pair in tap_sets for t in pair]),
+            gamma.data_ptr(), beta.data_ptr(), build.ptr_array(outs),
+            device_table("phase", h, w, corner_mode, dev).data_ptr(),
+            device_table("up", h, w, corner_mode, dev).data_ptr(), part_a.data_ptr(),
+            part_b.data_ptr(), *[t.data_ptr() for t in stats], bar.data_ptr(),
+            B, h, w, cin, c0, c2, 4.0 * B * M, eps, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_block_fwd", err)
+    build.LAUNCHES["up_block_fwd"] += 1
+    s00, s10, s01, mul00, add00 = stats
+    return tuple(outs[8:]), tuple(outs[4:8]), tuple(outs[:4]), s00, s01, s10, mul00, add00
+
+
+def dn_block_fwd_plain(phases, tap_sets, gamma, beta, in_act=None, corner_mode="average",
+                       eps=1e-5):
+    """Plain version of ``dn_block_fwd``: ``phase_conv_fwd_plain`` with
+    output phase 2 and stats, the affine, then the standard conv
+    (``ico_conv_s2s``) with it as the act, and its stats."""
+    sets, (s00, s10) = phase_conv_fwd_plain(phases, tap_sets[:2], corner_mode, (2,), in_act,
+                                            True)
+    (y00,), (y10,) = sets
+    mul00, add00 = bn_affine_plain(s00, float(y00.shape[:-1].numel()), gamma, beta, eps)
+    b0 = ico_conv_s2s(act_apply(y00, (mul00, add00)), *tap_sets[2],
+                      grid_level(y00.shape[2], y00.shape[3]), 1, corner_mode)
+    return b0, y10, y00, s00, stats_plain([b0]), s10, mul00, add00
+
+
+def dn_block_fwd(phases, tap_sets, gamma, beta, in_act=None, corner_mode: str = "average",
+                 eps: float = 1e-5):
+    """A whole DownBlock's training forward in one launch (the Pallas
+    ``_dn_block_fwd_impl``, kernel p).
+
+    phases: the 4 contiguous parity phases (B, 5, h, w, C_in) of the
+    level-s input; tap_sets: (taps, bias) of conv00 and conv10 (C_in -> C0,
+    stride 2) and of conv01 (C0 -> C2); gamma, beta: bn00's float32 (C0,);
+    in_act: optional float32 (mul, add) (C_in,), the pending prologue. Pass
+    A is ``phase_conv_fwd`` with output phase 2 (the standard level-(s-1)
+    grid) and stats, then bn00's affine (count B·5hw), then pass B the
+    standard conv (``ico_conv_s2s_fwd``) of y00 with act (mul00, add00) and
+    stats. Returns (b0, y10, y00 ((B, 5, h, w, C) grids), s00, s01, s10,
+    mul00, add00), as the Pallas call."""
+    if len(phases) != 4:
+        raise ValueError(f"dn_block_fwd: takes 4 phases, got {len(phases)}")
+    x0 = phases[0]
+    if not on_cuda(x0, "dn_block_fwd"):
+        return dn_block_fwd_plain(phases, tap_sets, gamma, beta, in_act, corner_mode, eps)
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    dev, dt = x0.device, x0.dtype
+    for i, p in enumerate(phases):
+        expect(p, (B, 5, h, w, cin), dt, dev, f"dn_block_fwd phase {i}")
+    c0, c2 = _check_block(tap_sets, gamma, beta, cin, dt, dev, "dn_block_fwd")
+    check_act(in_act, cin, dev, "dn_block_fwd")
+    M = 5 * h * w
+    outs = [torch.empty((B, 5, h, w, c), dtype=dt, device=dev) for c in (c0, c0, c2)]
+    stats, (part_a, part_b), bar = _block_outputs(B, M, c0, c2, 1, dev)
+    mul, add = in_act if in_act is not None else (None, None)
+    with torch.cuda.device(dev):
+        err = build.library().gn_dn_block_fwd(
+            build.ptr_array(phases), build.ptr(mul), build.ptr(add),
+            build.ptr_array([t for pair in tap_sets for t in pair]), gamma.data_ptr(),
+            beta.data_ptr(), build.ptr_array(outs),
+            device_table("phase", h, w, corner_mode, dev).data_ptr(),
+            device_table("std", h, w, corner_mode, dev).data_ptr(), part_a.data_ptr(),
+            part_b.data_ptr(), *[t.data_ptr() for t in stats], bar.data_ptr(),
+            B, h, w, cin, c0, c2, float(B * M), eps, build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("dn_block_fwd", err)
+    build.LAUNCHES["dn_block_fwd"] += 1
+    s00, s10, s01, mul00, add00 = stats
+    return outs[2], outs[1], outs[0], s00, s01, s10, mul00, add00
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,9 @@ the merged one-pass kernels; ``kernel_geff`` (``GENICONET_KERNEL_GEFF``)
 picks the families whose split backward folds the stats cotangent inside
 its kernels, the rest folding it before them (kernel l); ``phase_chain``
 (``GENICONET_PHASE_CHAIN``) runs the encoder ("enc": kernel m), the
-decoder ("dec": kernel n) or both ("1") as the phase chain. The JAX
+decoder ("dec": kernel n) or both ("1") as the phase chain;
+``merged_block`` (``GENICONET_MERGED_BLOCK``) runs the named blocks'
+forward as one kernel each (o, p). The JAX
 package's TPU workarounds for the VAE at batch 24 and more (its split step
 and ``pallas_blocks`` default) are not ported. Epochs, validation and
 checkpoints are not ported yet.
@@ -64,13 +66,15 @@ class TrainState:
 class Trainer:
     """Owns the model and runs the train step, on the card unless
     ``device="cpu"``. ``merged_bwd``: None, "all" or a comma list of
-    kernel families (``nn/layers.py:merged_bwd_enabled``); ``phase_chain``:
+    kernel families (``ops/kernels/fused.py:merged_bwd_enabled``); ``phase_chain``:
     None, "0", "enc", "dec" or "1"; ``kernel_geff``: None (every family
     folds in-kernel) or a ``GENICONET_KERNEL_GEFF`` value
-    (``nn/layers.py:kernel_geff_enabled``)."""
+    (``nn/layers.py:kernel_geff_enabled``); ``merged_block``: None, "all"
+    or a comma list of block names (``nn/layers.py:merged_block_enabled``)."""
 
     def __init__(self, cfg, device="cuda", merged_bwd: str | None = None,
-                 phase_chain: str | None = None, kernel_geff: str | None = None):
+                 phase_chain: str | None = None, kernel_geff: str | None = None,
+                 merged_block: str | None = None):
         m = cfg.model
         self.cfg, self.device, self.s = cfg, devices.resolve(device), m.subdivisions
         self.is_vae = m.is_vae
@@ -78,7 +82,7 @@ class Trainer:
         self.fused_mse = not self.is_vae and self.factors.nor == 0.0 and self.factors.lap == 0.0
         dtype = _DTYPES[m.compute_dtype]
         routing = dict(merged_bwd=merged_bwd, phase_chain=phase_chain, kernel_geff=kernel_geff,
-                       device=self.device)
+                       merged_block=merged_block, device=self.device)
         if self.is_vae:
             self.model = IcoVAE(m.subdivisions, tuple(m.widths), m.latent_features,
                                 m.corner_mode, dtype, **routing)

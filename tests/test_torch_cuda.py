@@ -758,3 +758,153 @@ def test_chain_all_fold_outside_equals_the_fold_inside(cuda, model):
                              "up_pair_dtaps", *_head(model == "ico2ico_vae")}
     assert launches["up_pair_fwd"] == launches["up_pair_dx"] == 2
     assert launches["up_dual_conv_fwd"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the merged blocks (kernels o and p)
+# ---------------------------------------------------------------------------
+
+
+def _block_params(device, dt, cin, c0, c2, seed):
+    """Three tap sets (conv00, conv10: cin -> c0; conv01: c0 -> c2) and
+    bn00's float32 gamma, beta."""
+    g = torch.Generator().manual_seed(seed)
+    sets = [((torch.randn(7, a, b, generator=g) * (7 * a) ** -0.5).to(device, dt),
+             torch.randn(b, generator=g).to(device, dt)) for a, b in ((cin, c0), (cin, c0),
+                                                                      (c0, c2))]
+    gamma = (torch.rand(c0, generator=g) + 0.5).to(device)
+    beta = (0.3 * torch.randn(c0, generator=g)).to(device)
+    return sets, gamma, beta
+
+
+def _check_affine(mul, add, s00, count, gamma, beta):
+    """The kernel's affine against ``bn_affine_plain`` on the card (as
+    ``IcoBatchNorm.affine`` computes it): mul within 1 ulp (the kernel's
+    rsqrtf against PyTorch's rsqrt), add exactly the formula on that mul."""
+    ref_mul, _ = pk.bn_affine_plain(s00, count, gamma, beta)
+    ulp = torch.nextafter(ref_mul.abs(), torch.tensor(float("inf"), device=ref_mul.device))
+    assert bool(((mul - ref_mul).abs() <= ulp - ref_mul.abs()).all())
+    assert torch.equal(add, beta - s00[0] / count * mul)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [3, 4])
+def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
+    """Kernel o against the split route on the card: y00, y10, s00 and s10
+    equal ``up_dual_conv_fwd`` with stats, bit for bit; mul00 and add00 are
+    bn00's affine of s00 (``_check_affine``); b0 and s01 equal
+    ``phase_conv_fwd`` of y00 with that affine, bit for bit; and every
+    output is within the tolerance of ``up_block_fwd_plain``."""
+    x, _, _ = _inputs(cuda, dt, s, 12, 20, seed=180 + s)
+    sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=190 + s)
+    got = pk.up_block_fwd(x, sets, gamma, beta, corner_mode)
+    b0, y10, y00, s00, s01, s10, mul, add = got
+    ref_sets, ref_stats = pk.up_dual_conv_fwd(x, sets[:2], corner_mode, True)
+    _equal_all((y00, y10, s00, s10), (*ref_sets, *ref_stats))
+    _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
+    (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], corner_mode, (0, 1, 2, 3),
+                                              (mul, add), True)
+    _equal_all((b0, s01), (ref_b0, ref_s01))
+    _close_all(got, pk.up_block_fwd_plain(x, sets, gamma, beta, corner_mode), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [3, 4])
+def test_dn_block_is_the_split_pair(cuda, s, corner_mode, dt):
+    """Kernel p against the split route on the card, with and without the
+    pending act: y00, y10, s00 and s10 equal ``phase_conv_fwd`` with output
+    phase 2 and stats, bit for bit; mul00 and add00 are bn00's affine of s00;
+    b0 and s01 equal ``ico_conv_s2s_fwd`` of y00 with that affine, bit for
+    bit; and every output is within the tolerance of ``dn_block_fwd_plain``."""
+    x, act, _ = _inputs(cuda, dt, s, 12, 20, seed=200 + s)
+    phases = _split(x)
+    sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=210 + s)
+    for a in (act, None):
+        got = pk.dn_block_fwd(phases, sets, gamma, beta, a, corner_mode)
+        b0, y10, y00, s00, s01, s10, mul, add = got
+        ((ref00,), (ref10,)), ref_stats = pk.phase_conv_fwd(phases, sets[:2], corner_mode, (2,),
+                                                            a, True)
+        _equal_all((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
+        _check_affine(mul, add, s00, float(y00.shape[:-1].numel()), gamma, beta)
+        _equal_all((b0, s01), ck.ico_conv_s2s_fwd(y00, *sets[2], corner_mode, (mul, add), True))
+        _close_all(got, pk.dn_block_fwd_plain(phases, sets, gamma, beta, a, corner_mode), dt)
+
+
+def test_block_wrappers_check_their_inputs(cuda):
+    x, _, _ = _inputs(cuda, torch.float32, 2, 8, 8, seed=5)
+    sets, gamma, beta = _block_params(cuda, torch.float32, 8, 8, 8, seed=6)
+    with pytest.raises(ValueError):  # two tap sets: the block takes three
+        pk.up_block_fwd(x, sets[:2], gamma, beta)
+    with pytest.raises(TypeError):  # gamma in the activation dtype's place
+        pk.up_block_fwd(x, sets, gamma.double(), beta)
+    with pytest.raises(ValueError):  # conv01 not from c0
+        pk.dn_block_fwd(_split(x), [*sets[:2], (sets[2][0][:, :4].contiguous(), sets[2][1])],
+                        gamma, beta)
+    with pytest.raises(ValueError):  # a phase on the CPU
+        pk.dn_block_fwd((*_split(x)[:3], _split(x)[3].cpu()), sets, gamma, beta)
+
+
+def _block_step(cuda, model, merged_block, **routing):
+    """One s=4 training forward and backward on the card with
+    ``merged_block`` (and the other routing options): (loss, launches,
+    gradients)."""
+    from unittest import mock
+
+    import geniconet_tpu_torch.nn.models as models
+
+    s, widths, latent = 4, (8, 16, 16), 8
+    vae = model == "ico2ico_vae"
+    variables = bridge.init_variables(s, widths, seed=3, random_stats=True, model=model,
+                                      latent_features=latent)
+    gen = torch.Generator().manual_seed(6)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    eps = torch.randn(4, 5 * 2 ** (s - 3), 2 ** (s - 2), latent, generator=gen)
+    tpack = torch.randn(4, 5, 2 ** (s - 1), 2**s, 12, generator=gen)
+    tpoles = torch.randn(4, 6, generator=gen)
+    cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
+           torch.randn(eps.shape, generator=gen)]
+    kw = dict(merged_block=merged_block, **routing)
+    net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
+    net.load_state_dict(bridge.flax_to_state_dict(variables))
+    net.to(cuda)
+    build.reset_launches()
+    if vae:
+        def fixed(mu, logvar, generator=None):
+            return eps.to(cuda) * torch.exp(0.5 * logvar) + mu
+
+        with mock.patch.object(models, "reparameterize", fixed):
+            outs = net(x.to(cuda), train=True)
+        loss = sum((o * c.to(cuda)).sum() for o, c in zip(outs, cts))
+    else:
+        loss = net.recon_sse(x.to(cuda), tpack.to(cuda), tpoles.to(cuda), train=True).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), dict(build.LAUNCHES), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_merged_block_step_equals_the_split_route(cuda, model):
+    """One training forward and backward with ``merged_block="all"``: o at
+    every UpBlock and p at every DownBlock (the split forward kernels only
+    at ``conv_in`` and the VAE's heads), and the gradients equal the split
+    route's on the card bit for bit, but for the conv biases (each feeds a
+    BatchNorm, so its exact gradient is 0; held against its taps' scale):
+    the kernels' outputs and sums equal the split pair's and the backward
+    is the split route's. With ``phase_chain="1"`` o runs at up0 alone."""
+    vae = model == "ico2ico_vae"
+    loss, launches, grads = _block_step(cuda, model, "all")
+    assert launches["up_block_fwd"] == 3 and launches["dn_block_fwd"] == (2 if vae else 3)
+    assert launches["phase_conv_fwd"] == (2 if vae else 1)
+    assert "up_dual_conv_fwd" not in launches and "ico_conv_s2s_fwd" not in launches
+    split_loss, _, split = _block_step(cuda, model, None)
+    assert loss == split_loss
+    for k, g in grads.items():
+        if "conv" in k and k.endswith(".bias"):
+            err = (g - split[k]).abs().max().item()
+            assert err <= 1e-5 * split[k[: -len("bias")] + "taps"].abs().max().item(), k
+        else:
+            assert torch.equal(g, split[k]), k
+    _, chained, _ = _block_step(cuda, model, "all", phase_chain="1")
+    assert chained["up_block_fwd"] == 1 and "dn_block_fwd" not in chained
