@@ -49,7 +49,10 @@ printed on its own lines, each fatal on failure:
    the fold in the kernels and without; o (``up_block_fwd``) and p
    (``dn_block_fwd``) at every block they run at, each beside the split
    pair it replaces (the first conv with stats; bn00's affine and conv01
-   with stats) and cuDNN's two contractions;
+   with stats) and cuDNN's two contractions. The bf16 dtaps of the up conv
+   (d) and of n also print their parts from a trace: the operand pass
+   against its byte bound, the tensor-core GEMM's TFLOP/s, the partials'
+   sum, and the GEMM's registers and blocks an SM;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -179,6 +182,10 @@ KERNELS = {
     "dn_block_fwd": ("geniconet_tpu_torch/csrc/dn_block.cu",
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
+# sources beyond the one named in KERNELS: the bf16 dtaps of d and n run the
+# operand pass and the tensor-core GEMM of csrc/mma_dtaps.cuh
+SOURCES = {k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh",)
+           for k in ("up_dual_conv_dtaps", "up_pair_dtaps")}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -307,10 +314,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def trace_ms(fn, reps: int = 20) -> float:
-    """Device time of fn() in ms: the kernels' durations in a torch.profiler
-    trace, per call. For a kernel shorter than its wrapper's host time, where
-    CUDA events around one call measure the host."""
+def trace_kernels(fn, reps: int = 20, per_launch: bool = False) -> dict:
+    """Device time per call of fn()'s kernels in ms, by ``kernel_group`` row:
+    their durations in a torch.profiler trace. ``per_launch``: fn launches
+    each of its kernels once, and a row sums each kernel's mean duration,
+    which stays right when the trace loses events (seen on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -322,8 +330,22 @@ def trace_ms(fn, reps: int = 20) -> float:
     out = Path(__file__).resolve().parent / "build" / "profile" / "kernel_case.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out))
-    events = json.loads(out.read_text())["traceEvents"]
-    return sum(e["dur"] for e in events if e.get("cat") == "kernel") / 1e3 / reps
+    durs = collections.defaultdict(list)
+    for e in json.loads(out.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            durs[e["name"]].append(e["dur"] / 1e3)
+    rows = collections.Counter()
+    for name, ds in durs.items():
+        rows[kernel_group({"cat": "kernel", "name": name})] += (
+            statistics.mean(ds) if per_launch else sum(ds) / reps)
+    return dict(rows)
+
+
+def trace_ms(fn, reps: int = 20) -> float:
+    """Device time of fn() in ms from a trace (``trace_kernels``). For a
+    kernel shorter than its wrapper's host time, where CUDA events around
+    one call measure the host."""
+    return sum(trace_kernels(fn, reps).values())
 
 
 def _rnd(gen, *shape, dtype=torch.float32, scale=1.0):
@@ -353,14 +375,40 @@ class Case:
     merged block's two convs; ``split_keys`` name them in the results and
     ``split_labels`` in the print), and other calls to time beside it
     (``compare``: label -> call). ``short``: the kernel is timed from a
-    profiler trace (``trace_ms``)."""
+    profiler trace (``trace_ms``). ``parts``: a call that returns the bf16
+    kernel's parts from a trace (``mma_parts``: d's and n's dtaps)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
-                 short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps")):
+                 short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
+                 parts=None):
         self.kernel, self.plain, self.flops, self.library = kernel, plain, flops, library
         self.split, self.compare, self.short = split, compare or {}, short
+        self.parts = parts
         self.split_keys, self.split_labels = split_keys, split_labels
         self.inputs = [t for t in flat(inputs) if t is not None]
+
+
+def mma_parts(call, flops, inputs, grid, pair, fold):
+    """The bf16 dtaps of d (``pair`` False) or n from a trace: its operand
+    pass (against its bound: the inputs it reads once, ``inputs``, and the
+    operand of the level-s grid (B, h, w, C_in) it writes), the tensor-core
+    GEMM (achieved TFLOP/s against the bf16 peak), the partials' sum; and
+    the GEMM instantiation's registers a thread, blocks an SM, shared and
+    local memory as the runtime reports them."""
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    rows = trace_kernels(call, per_launch=True)
+    B, h, w, cin = grid
+    op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
+    op_bytes += pk.operand_rows(B, h, w) * build.operand_width(cin) * 2
+    gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_dtaps"))
+    return {"operand_ms": sum(ms for k, ms in rows.items() if k.startswith("up_operand_pass")),
+            "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3, "gemm_ms": gemm,
+            "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
+            "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")),
+            **build.mma_dtaps_info(pair, fold)}
 
 
 def conv_flops(B, cells, cin, ntot):
@@ -672,8 +720,11 @@ def training_cases():
                             lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk), flops,
                             [*reads, [t for t, _ in sets]], lib)
             args = (b0, y10, aff, g, "average")
-            return Case(lambda: pk.up_pair_dtaps(*args, **fk),
-                        lambda: pk.up_pair_dtaps_plain(*args, **fk), flops, reads, lib)
+            call = lambda: pk.up_pair_dtaps(*args, **fk)  # noqa: E731
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, fold)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_pair_dtaps_plain(*args, **fk), flops, reads, lib,
+                        parts=parts)
         return make
 
     def up_bwd(which, h, w, cin, cout):
@@ -689,8 +740,11 @@ def training_cases():
                             lambda: pk.up_dual_conv_dx_plain(*args), flops,
                             [g, [t for t, _ in sets], y, gs], lib)
             args = (x, g, "average", y, gs)
-            return Case(lambda: pk.up_dual_conv_dtaps(*args),
-                        lambda: pk.up_dual_conv_dtaps_plain(*args), flops, [x, g, y, gs], lib)
+            call = lambda: pk.up_dual_conv_dtaps(*args)  # noqa: E731
+            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, True)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_dual_conv_dtaps_plain(*args), flops, [x, g, y, gs],
+                        lib, parts=parts)
         return make
 
     def std_bwd(which, h, w, c):
@@ -1030,6 +1084,17 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
                                      f"{TOL[dt]} x {scale} (finite={finite})")
+            if case.parts is not None:
+                p = case.parts()
+                print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): operand "
+                      f"pass {p['operand_ms']:.4f} ms (bound {p['operand_bound_ms']:.4f} ms, "
+                      f"bytes), tensor-core GEMM {p['gemm_ms']:.4f} ms = "
+                      f"{p['gemm_tflops']:.1f} TFLOP/s (bound {p['gemm_bound_ms']:.4f} ms, "
+                      f"operations), partials' sum {p['sum_ms']:.4f} ms; whole call {ms:.4f} "
+                      f"ms against cuDNN {lib_ms:.4f} ms; GEMM {p['registers']} registers a "
+                      f"thread, {p['blocks_per_sm']} blocks an SM, {p['smem_bytes']} B shared, "
+                      f"{p['local_bytes']} B local [{card}]", flush=True)
+                stats[name].setdefault("parts", {})[label] = p
             stats[name]["max_abs_err"] = max([stats[name]["max_abs_err"]] + [e for e, _ in errs])
             if dt == torch.bfloat16:
                 for s in (stats[name], stats[name]["by_shapes"].setdefault(group, sums())):
@@ -1184,6 +1249,13 @@ def kernel_group(event: dict) -> str:
     if event.get("cat") != "kernel":
         return event.get("cat", "other")  # gpu_memcpy, gpu_memset
     dtype = "bf16" if "bfloat16" in name else "fp32"
+    # the bf16 dtaps of d and n: the operand pass and the tensor-core GEMM
+    # (by the cells it reads: the up conv's grid, or the pair)
+    which = "(n)" if "PairCells" in name else "(d)"
+    if "up_operand_pass" in name or "pair_join_pass" in name:
+        return f"up_operand_pass<{dtype}> {which}"
+    if "mma_dtaps" in name:
+        return f"mma_dtaps<bf16> {which}"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
     # kernel m: the phase conv's GEMMs with the split store / split loader;
     # kernel n: the up conv's with the pair loader / the pair's dx epilogue
@@ -1203,7 +1275,7 @@ def kernel_group(event: dict) -> str:
         return f"merged_bwd<{dtype}, {loader}>"
     if "two_pass_block" in name:  # the merged blocks: o (UpLoad), p (GridLoad)
         return f"two_pass_block<{dtype}, {loader}> ({'o' if loader == 'UpLoad' else 'p'})"
-    if "sum_rows" in name or "colsum" in name:
+    if "sum_rows" in name or "colsum" in name or "sum_chunks" in name:
         return "sum_rows + colsum (cross-block sums)"
     if "pair_head_kernel" in name:
         return "pair_head_kernel"
@@ -1769,7 +1841,8 @@ def main():
         return sum(n.get(k, 0) for path, n in launches.items() if kind in path)
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+        {"name": k, "route": "cuda", "source": src, "sources": [src, *SOURCES.get(k, ())],
+         "replaces": rep,
          "launches": count(k, "serve") + count(k, "train"),
          "serving_launches": count(k, "serve"), "training_launches": count(k, "train"),
          "launches_by_path": {path: n.get(k, 0) for path, n in launches.items()},

@@ -11,6 +11,13 @@
 
 namespace gn {
 
+// The stats fold of one cotangent element: g + gs0 + 2 * gs1 * y in float32
+// with the Pallas kernels' roundings (_geff_one), rounded to T.
+template <typename T>
+__device__ __forceinline__ float fold_geff(float g, float y, float gs0, float gs1) {
+  return round_to<T>(__fadd_rn(__fadd_rn(g, gs0), __fmul_rn(__fmul_rn(2.f, y), gs1)));
+}
+
 // The upstream cotangents of n_sets tap sets, each n_out output phases of
 // shape (B, 5, h, w, cout), held set-major in g[set * n_out + slot]. A row
 // q = slot * M + m (M = 5hw) of one sample and a column n < n_sets * cout
@@ -43,8 +50,7 @@ struct GLoad {
     }
     const float v = to_f(g[i][off]);
     if (gs[s] == nullptr) return v;
-    const float yy = __fmul_rn(2.f, to_f(y[i][off]));
-    return round_to<T>(__fadd_rn(__fadd_rn(v, gs[s][nl]), __fmul_rn(yy, gs[s][cout + nl])));
+    return fold_geff<T>(v, to_f(y[i][off]), gs[s][nl], gs[s][cout + nl]);
   }
 };
 

@@ -168,9 +168,12 @@ __device__ __forceinline__ int split_row(int b, int m, int lh, int lw, size_t& r
 // The residual join's pre-activation ((a*mul1 + add1) + b*mul2) + add2 of
 // channel k, in float32 without FMA contraction (the reference's order and
 // roundings); aff = {mul1, add1, mul2, add2}, each (C,) float32.
+__device__ __forceinline__ float pair_pre(float a, float b, float mul1, float add1, float mul2,
+                                          float add2) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, mul1), add1), __fmul_rn(b, mul2)), add2);
+}
 __device__ __forceinline__ float pair_pre(float a, float b, const float* const (&aff)[4], int k) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, aff[0][k]), aff[1][k]),
-                             __fmul_rn(b, aff[2][k])), aff[3][k]);
+  return pair_pre(a, b, aff[0][k], aff[1][k], aff[2][k], aff[3][k]);
 }
 
 // The level-s grid cells an UpLoad reads, by cell index r = chart * hw +

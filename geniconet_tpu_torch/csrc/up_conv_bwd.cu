@@ -15,11 +15,13 @@
 // weights (halo.up_dx_table): for each level-s cell and tap, the output
 // cells of the 4 new phases that read it, and how much. dx is then one
 // gather-GEMM with float32 sums and one rounding, as in phase_conv_bwd.cu,
-// with no atomics. dtaps re-gathers the upsampled operand through
-// gn::UpLoad (the forward's loader) and reduces over B * 4 * 5hw rows in
-// chunks, whose partials a second pass sums in a fixed order.
+// with no atomics. dtaps reduces over B * 4 * 5hw rows in chunks, whose
+// partials a second pass sums in a fixed order: in float32 it re-gathers the
+// upsampled operand through gn::UpLoad (the forward's loader) on the SIMT
+// core; in bf16 it builds the operand once and runs gn::mma_dtaps on the
+// tensor cores (mma_dtaps.cuh, which also says what bounds it).
 //
-// What bounds it on the card: the float32 FMA rate of the SIMT GEMM core.
+// What bounds dx on the card: the float32 FMA rate of the SIMT GEMM core.
 // A dx operand element sums about 7 rows of g (one per upsampled cell that
 // holds the input cell: the copy and the 6 midpoints), so the gather costs
 // more loads than the phase conv's; they hit L1/L2.
@@ -30,7 +32,9 @@
 // is never built in device memory) and, in the first row tile, take Σg_eff
 // from their g tiles. One launch, then the fixed-order sum_rows passes; the
 // two roles each read g (see phase_conv_bwd.cu).
-#include "backward.cuh"
+#include <type_traits>
+
+#include "mma_dtaps.cuh"
 
 namespace {
 
@@ -51,20 +55,32 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
 }
 
 template <typename T>
-cudaError_t dtaps(const void* x, const void* const* g, const void* const* y, const float* gs0,
-                  const float* gs1, const int* conv_table, const int* up_table, float* ws,
-                  float* dt0, float* dt1, int B, int h, int w, int cin, int cout, int n_sets,
-                  int kc, int n_chunks, cudaStream_t stream) {
-  const int M = 5 * h * w;
-  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
+gn::UpLoad<T> up_load(const void* x, const int* up_table, int h, int w, int cin) {
   gn::UpLoad<T> ld;
   ld.x = {static_cast<const T*>(x)};
   ld.up = up_table;
   ld.hw = h * w;
-  ld.hw5 = M;
+  ld.hw5 = 5 * h * w;
   ld.cin = cin;
-  return gn::launch_dtaps_gemm<T>(ld, gl, conv_table, cin, n_sets, 0, B * 4 * M, kc, n_chunks,
-                                  ws, dt0, dt1, stream);
+  return ld;
+}
+
+// float32: the SIMT GEMM over UpLoad; bf16: the operand pass into `operand`,
+// then the tensor-core GEMM
+template <typename T>
+cudaError_t dtaps(const void* x, const void* const* g, const void* const* y, const float* gs0,
+                  const float* gs1, const int* conv_table, const int* up_table, float* ws,
+                  float* dt0, float* dt1, void* operand, int B, int h, int w, int cin, int cout,
+                  int n_sets, int kc, int n_chunks, int zero_poles, cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
+  const gn::UpLoad<T> ld = up_load<T>(x, up_table, h, w, cin);
+  if constexpr (std::is_same_v<T, float>)
+    return gn::launch_dtaps_gemm<T>(ld, gl, conv_table, cin, n_sets, 0, B * 4 * M, kc,
+                                    n_chunks, ws, dt0, dt1, stream);
+  else
+    return gn::launch_mma_dtaps(ld, gl, conv_table, static_cast<T*>(operand), nullptr,
+                                zero_poles, B, cin, n_sets, kc, n_chunks, ws, dt0, dt1, stream);
 }
 
 template <typename T>
@@ -79,12 +95,7 @@ cudaError_t merged(const void* x, const void* const* g, const void* const* y, co
   gn::DxOut<T> o = {};
   o.out[0] = static_cast<T*>(out);
   o.per = M;
-  gn::UpLoad<T> ld;
-  ld.x = {static_cast<const T*>(x)};
-  ld.up = up_table;
-  ld.hw = h * w;
-  ld.hw5 = M;
-  ld.cin = cin;
+  const gn::UpLoad<T> ld = up_load<T>(x, up_table, h, w, cin);
   const gn::SplitOut dt = {{dt0, dt1}, n_sets * cout, cout};
   return gn::launch_merged_bwd<T>(gl, w0, w1, offsets, cells, weights, o, nullptr, nullptr, B,
                                   M, ld, conv_table, 0, kc, n_chunks, ws, dt, gpart, gsum0,
@@ -120,22 +131,49 @@ extern "C" int gn_up_dual_conv_dx(const void* const* g, const void* const* y, co
 // x: (B, 5, h, w, cin) level-s grid; g, y, gs0, gs1: as in
 // gn_up_dual_conv_dx; conv_table / up_table: halo.phase_conv_table and
 // halo.upsample_table; ws: float32 scratch of (n_chunks, 7 * cin,
-// n_sets * cout), the rows B * 4 * 5hw split in chunks of kc; dt0/dt1
-// receive (7, cin, cout) float32. dtype: 0 float32, 1 bfloat16.
+// n_sets * cout), the rows B * 4 * 5hw split in chunks of kc (float32: a
+// multiple of 16, build.dtaps_split; bfloat16: of 32, build.mma_dtaps_split);
+// dt0/dt1 receive (7, cin, cout) float32; operand: bfloat16 only, scratch of
+// (B * (4 * 5hw + 2) + 1, cin rounded up to 8) for the upsampled operand
+// (zero_poles: corner_mode "zeros", whose phase-pad poles are 0). dtype: 0
+// float32, 1 bfloat16.
 extern "C" int gn_up_dual_conv_dtaps(const void* x, const void* const* g, const void* const* y,
                                      const float* gs0, const float* gs1, const int* conv_table,
                                      const int* up_table, float* ws, float* dt0, float* dt1,
-                                     int B, int h, int w, int cin, int cout, int n_sets, int kc,
-                                     int n_chunks, int dtype, void* stream) {
+                                     void* operand, int B, int h, int w, int cin, int cout,
+                                     int n_sets, int kc, int n_chunks, int zero_poles, int dtype,
+                                     void* stream) {
   if (n_sets < 1 || n_sets > 2 || kc % gn::BK != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(x, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, B, h, w, cin,
-                        cout, n_sets, kc, n_chunks, s);
+    return dtaps<float>(x, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, nullptr, B, h, w,
+                        cin, cout, n_sets, kc, n_chunks, zero_poles, s);
   if (dtype == 1)
-    return dtaps<__nv_bfloat16>(x, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, B, h, w,
-                                cin, cout, n_sets, kc, n_chunks, s);
+    return dtaps<__nv_bfloat16>(x, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, operand,
+                                B, h, w, cin, cout, n_sets, kc, n_chunks, zero_poles, s);
   return cudaErrorInvalidValue;
+}
+
+// The upsampled operand alone (the first launch of the bf16 dtaps): x and
+// up_table as in gn_up_dual_conv_dtaps; out: (B * (4 * 5hw + 2) + 1, cin
+// rounded up to 8) in x's dtype. dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_up_operand(const void* x, const int* up_table, void* out, int B, int h, int w,
+                             int cin, int zero_poles, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gn::launch_up_operand(up_load<float>(x, up_table, h, w, cin), static_cast<float*>(out),
+                                 nullptr, B, zero_poles, s);
+  if (dtype == 1)
+    return gn::launch_up_operand(up_load<__nv_bfloat16>(x, up_table, h, w, cin),
+                                 static_cast<__nv_bfloat16*>(out), nullptr, B, zero_poles, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of d's tensor-core GEMM, with the fold or without.
+extern "C" int gn_up_dual_conv_dtaps_info(int fold, int* out) {
+  return fold ? gn::mma_dtaps_info<gn::GridCells<__nv_bfloat16>, true>(out)
+              : gn::mma_dtaps_info<gn::GridCells<__nv_bfloat16>, false>(out);
 }
 
 // The merged backward (_upd_bwd's merged branch). x: (B, 5, h, w, cin)

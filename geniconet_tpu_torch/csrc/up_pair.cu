@@ -20,8 +20,9 @@
 // joined cells, as in the reference). The forward is the up conv's GEMM
 // (gn::conv_gemm) over that loader, so its outputs and stats equal
 // up_dual_conv_fwd on phase_merge(join) bit for bit; the dtaps kernel
-// re-gathers the same operand (gn::dtaps_gemm), likewise equal to
-// up_dual_conv_dtaps. dx is the up conv's dx GEMM over the same transposed
+// re-gathers the same operand (float32: gn::dtaps_gemm; bf16: the operand
+// pass through the same loader, then gn::mma_dtaps, mma_dtaps.cuh),
+// likewise equal to up_dual_conv_dtaps. dx is the up conv's dx GEMM over the same transposed
 // table (halo.up_dx_table; rows are level-s grid cells) with the epilogue
 // gn::DxPairOut: the tail's adjoint on the unrounded float32 dx, the masks
 // from the raw pair in float32, the 8 phase cotangents stored by split_row,
@@ -31,16 +32,16 @@
 //
 // What bounds it on the card: the dx kernel, as c, the float32 FMA rate of
 // the SIMT GEMM core (2 * 4 * 7 * C_in * 2 * C_out FLOPs per level-s cell).
-// The forward and dtaps pay for the join on load: an operand element of
-// their GEMMs joins up to two level-s cells (five for a pole mean), each 2
-// phase loads, 4 affine loads and 5 FLOPs, where the up conv loads one
-// cell, and the loader holds more registers (74-77 a thread: 3 blocks an SM
-// where the up conv fits 4). On an H100 the forward takes about 1.6x the up
-// conv's time at the same shape and the dtaps about 1.15x (PERF.md §6).
-// Staging the joined level-s tile in shared memory, or joining it once into
-// device memory (microseconds at these sizes), is the way to the up conv's
-// time.
-#include "backward.cuh"
+// The forward and the float32 dtaps pay for the join on load: an operand
+// element of their GEMMs joins up to two level-s cells (five for a pole
+// mean), each 2 phase loads, 4 affine loads and 5 FLOPs, where the up conv
+// loads one cell, and the loader holds more registers (74-77 a thread: 3
+// blocks an SM where the up conv fits 4). On an H100 the forward takes about
+// 1.6x the up conv's time at the same shape (PERF.md §6). The bf16 dtaps
+// joins each cell once, into a level-s grid its operand pass reads.
+#include <type_traits>
+
+#include "mma_dtaps.cuh"
 
 namespace {
 
@@ -117,17 +118,25 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
   return gn::launch_gsum<T>(gl, B, 2, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
+// float32: the SIMT GEMM over the pair loader; bf16: the pair joined once
+// into `joined`, the operand pass over it into `operand`, then the
+// tensor-core GEMM
 template <typename T>
 cudaError_t dtaps(const void* const* pair, const float* const* aff, const void* const* g,
                   const void* const* y, const float* gs0, const float* gs1,
                   const int* conv_table, const int* up_table, float* ws, float* dt0, float* dt1,
-                  int B, int h, int w, int cin, int cout, int kc, int n_chunks,
-                  cudaStream_t stream) {
+                  void* operand, void* joined, int B, int h, int w, int cin, int cout, int kc,
+                  int n_chunks, int zero_poles, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, 2, 4);
   const auto ld = pair_load<T>(pair, aff, up_table, h, w, cin);
-  return gn::launch_dtaps_gemm<T>(ld, gl, conv_table, cin, 2, 0, B * 4 * M, kc, n_chunks, ws,
-                                  dt0, dt1, stream);
+  if constexpr (std::is_same_v<T, float>)
+    return gn::launch_dtaps_gemm<T>(ld, gl, conv_table, cin, 2, 0, B * 4 * M, kc, n_chunks, ws,
+                                    dt0, dt1, stream);
+  else
+    return gn::launch_mma_dtaps(ld, gl, conv_table, static_cast<T*>(operand),
+                                static_cast<T*>(joined), zero_poles, B, cin, 2, kc, n_chunks, ws,
+                                dt0, dt1, stream);
 }
 
 // The pair's level-s grid needs parity phases: h = 2^lh >= 2, w = 2h.
@@ -192,20 +201,49 @@ extern "C" int gn_up_pair_dx(const void* const* g, const void* const* y, const f
 // pair, aff: as in gn_up_pair_fwd; g, y, gs0, gs1: as in gn_up_pair_dx;
 // conv_table / up_table: halo.phase_conv_table and halo.upsample_table; ws:
 // float32 scratch of (n_chunks, 7 * cin, 2 * cout), the rows B * 4 * 5hw
-// split in chunks of kc (a multiple of 16); dt0/dt1 receive (7, cin, cout)
-// float32. dtype: 0 float32, 1 bfloat16.
+// split in chunks of kc (float32: a multiple of 16; bfloat16: of 32);
+// dt0/dt1 receive (7, cin, cout) float32; operand, zero_poles: as in
+// gn_up_dual_conv_dtaps; joined: bfloat16 only, scratch of (B, 5, h, w,
+// cin) for the joined level-s grid. dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_up_pair_dtaps(const void* const* pair, const float* const* aff,
                                 const void* const* g, const void* const* y, const float* gs0,
                                 const float* gs1, const int* conv_table, const int* up_table,
-                                float* ws, float* dt0, float* dt1, int B, int h, int w, int cin,
-                                int cout, int kc, int n_chunks, int dtype, void* stream) {
+                                float* ws, float* dt0, float* dt1, void* operand, void* joined,
+                                int B, int h, int w, int cin, int cout, int kc, int n_chunks,
+                                int zero_poles, int dtype, void* stream) {
   if (bad_shape(h, w) || kc % gn::BK != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(pair, aff, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, B, h, w,
-                        cin, cout, kc, n_chunks, s);
+    return dtaps<float>(pair, aff, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, nullptr,
+                        nullptr, B, h, w, cin, cout, kc, n_chunks, zero_poles, s);
   if (dtype == 1)
-    return dtaps<__nv_bfloat16>(pair, aff, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1, B,
-                                h, w, cin, cout, kc, n_chunks, s);
+    return dtaps<__nv_bfloat16>(pair, aff, g, y, gs0, gs1, conv_table, up_table, ws, dt0, dt1,
+                                operand, joined, B, h, w, cin, cout, kc, n_chunks, zero_poles, s);
   return cudaErrorInvalidValue;
+}
+
+// The joined pair's upsampled operand alone (the first two launches of the
+// bf16 dtaps): pair, aff as in gn_up_pair_fwd, up_table as in
+// gn_up_pair_dtaps; out: (B * (4 * 5hw + 2) + 1, cin rounded up to 8) in the
+// pair's dtype; joined: scratch of (B, 5, h, w, cin) in that dtype.
+extern "C" int gn_up_pair_operand(const void* const* pair, const float* const* aff,
+                                  const int* up_table, void* out, void* joined, int B, int h,
+                                  int w, int cin, int zero_poles, int dtype, void* stream) {
+  if (bad_shape(h, w)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gn::launch_up_operand(pair_load<float>(pair, aff, up_table, h, w, cin),
+                                 static_cast<float*>(out), static_cast<float*>(joined), B,
+                                 zero_poles, s);
+  if (dtype == 1)
+    return gn::launch_up_operand(pair_load<__nv_bfloat16>(pair, aff, up_table, h, w, cin),
+                                 static_cast<__nv_bfloat16*>(out),
+                                 static_cast<__nv_bfloat16*>(joined), B, zero_poles, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[4]: as gn_up_dual_conv_dtaps_info, for n's tensor-core GEMM.
+extern "C" int gn_up_pair_dtaps_info(int fold, int* out) {
+  return fold ? gn::mma_dtaps_info<gn::PairCells<__nv_bfloat16>, true>(out)
+              : gn::mma_dtaps_info<gn::PairCells<__nv_bfloat16>, false>(out);
 }

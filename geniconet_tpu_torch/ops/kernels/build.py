@@ -32,6 +32,8 @@ __all__ = [
     "LAUNCHES", "reset_launches", "build", "library", "check", "stream_ptr", "ptr",
     "ptr_array", "dtype_code", "on_cuda", "expect", "check_act", "act_apply", "grid_level",
     "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch", "merged_scratch",
+    "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
+    "operand_width", "mma_dtaps_info",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -123,7 +125,9 @@ _SIGNATURES = {
     "gn_phase_conv_dx": [_VP] * 19 + [_INT] * 9 + [_VP],
     "gn_phase_conv_dtaps": [_VP] * 14 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],
-    "gn_up_dual_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
+    "gn_up_dual_conv_dtaps": [_VP] * 11 + [_INT] * 10 + [_VP],
+    "gn_up_operand": [_VP] * 3 + [_INT] * 6 + [_VP],
+    "gn_up_dual_conv_dtaps_info": [_INT, _VP],
     "gn_phase_conv_bwd": [_VP] * 23 + [_INT] * 11 + [_VP],
     "gn_up_dual_conv_bwd": [_VP] * 19 + [_INT] * 9 + [_VP],
     "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
@@ -133,7 +137,9 @@ _SIGNATURES = {
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
     "gn_up_pair_fwd": [_VP] * 12 + [_INT] * 6 + [_VP],
     "gn_up_pair_dx": [_VP] * 17 + [_INT] * 7 + [_VP],
-    "gn_up_pair_dtaps": [_VP] * 11 + [_INT] * 8 + [_VP],
+    "gn_up_pair_dtaps": [_VP] * 13 + [_INT] * 9 + [_VP],
+    "gn_up_pair_operand": [_VP] * 5 + [_INT] * 6 + [_VP],
+    "gn_up_pair_dtaps_info": [_INT, _VP],
     "gn_up_block_fwd": [_VP] * 15 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
     "gn_dn_block_fwd": [_VP] * 17 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
 }
@@ -158,6 +164,47 @@ def dtaps_split(rows: int, out_tiles: int):
     kc = -(-rows // want)
     kc = -(-kc // 16) * 16
     return kc, -(-rows // kc)
+
+
+# The tensor-core dtaps (csrc/mma_dtaps.cuh): a block takes a 128 x 128
+# output tile (a tap's 128 channels x 128 columns), 32 rows of the reduction
+# a pipeline step, 2 blocks an SM.
+MMA_TILE = 128
+MMA_K_STEP = 32
+MMA_TARGET_BLOCKS = 264  # 2 blocks for each of the H100's 132 SMs
+
+
+def mma_dtaps_blocks(cin: int, ntot: int) -> int:
+    """Blocks of one chunk of the tensor-core dtaps: the 7 taps' channel
+    tiles times the column tiles."""
+    return 7 * -(-cin // MMA_TILE) * -(-ntot // MMA_TILE)
+
+
+def mma_dtaps_split(rows: int, out_tiles: int):
+    """(rows per chunk, chunks) for the tensor-core dtaps over ``rows`` rows
+    with ``out_tiles`` blocks a chunk (``mma_dtaps_blocks``): as many chunks
+    as keep the grid within one wave of ``MMA_TARGET_BLOCKS`` (at least one,
+    at least 512 rows each), each a multiple of the 32-row K step."""
+    want = max(1, min(MMA_TARGET_BLOCKS // out_tiles, -(-rows // 512)))
+    kc = -(-rows // want)
+    kc = -(-kc // MMA_K_STEP) * MMA_K_STEP
+    return kc, -(-rows // kc)
+
+
+def operand_width(cin: int) -> int:
+    """Channels of an operand row of the tensor-core dtaps: C_in rounded up
+    to 8 (16-byte rows in bf16)."""
+    return -(-cin // 8) * 8
+
+
+def mma_dtaps_info(pair: bool, fold: bool) -> dict:
+    """Registers a thread, blocks an SM, dynamic shared memory and local
+    memory (bytes; spills) of the tensor-core dtaps GEMM of n (``pair``) or
+    d, with the fold or without, as the card's runtime reports them."""
+    out = (ctypes.c_int * 4)()
+    fn = library().gn_up_pair_dtaps_info if pair else library().gn_up_dual_conv_dtaps_info
+    check("mma_dtaps_info", fn(int(fold), out))
+    return dict(zip(("registers", "blocks_per_sm", "smem_bytes", "local_bytes"), out))
 
 
 def scratch(n: int, device) -> torch.Tensor:

@@ -15,7 +15,10 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
   (``_phase_conv_dx`` / ``_phase_conv_dtaps``);
 * ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
-  (the two kernels of ``_upd_bwd``);
+  (the two kernels of ``_upd_bwd``); in bf16 the dtaps builds the upsampled
+  operand once (``up_operand``, also callable alone) and runs a tensor-core
+  GEMM over its gathered rows (``csrc/mma_dtaps.cuh``), in float32 the SIMT
+  GEMM that rebuilds each operand element on load;
 * ``phase_conv_bwd`` -> ``csrc/phase_conv_bwd.cu`` (``_phase_conv_bwd``) and
   ``up_dual_conv_bwd`` -> ``csrc/up_conv_bwd.cu`` (``_upd_bwd``'s merged
   branch): the merged one-pass backward, every output of the split pair
@@ -31,7 +34,8 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   (``_updp`` and the two kernels of ``_updp_bwd``): the decoder's phase
   chain, the up conv whose level-s input is the previous UpBlock's residual
   join of a raw phase pair, and whose dx is that pair's 8 phase cotangents
-  and 4 affine gradients;
+  and 4 affine gradients (the bf16 dtaps as the up conv's, its operand
+  joined once: ``up_pair_operand``);
 * ``up_block_fwd`` -> ``csrc/up_block.cu`` (``_up_block_fwd_impl``, kernel
   o) and ``dn_block_fwd`` -> ``csrc/dn_block.cu`` (``_dn_block_fwd_impl``,
   kernel p): a whole UpBlock's or DownBlock's training forward in one
@@ -61,7 +65,7 @@ from geniconet_tpu_torch.ops.kernels.build import (
 )
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
-from geniconet_tpu_torch.ops.pad import ico_pad
+from geniconet_tpu_torch.ops.pad import chart_mean, ico_pad
 from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, phase_upsample
 
 __all__ = [
@@ -74,6 +78,8 @@ __all__ = [
     "pair_head_mse_fwd", "pair_head_mse_fwd_plain",
     "pair_head_mse_bwd", "pair_head_mse_bwd_plain",
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
+    "operand_rows", "up_operand", "up_operand_plain", "up_pair_operand",
+    "up_pair_operand_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
     "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
@@ -799,6 +805,68 @@ def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_li
     return dx, (gsums if emit_gsum else None)
 
 
+def operand_rows(B, h, w):
+    """Rows of the up conv's operand: per sample the 4·5hw upsampled cells
+    and the 2 level-(s+1) poles, then one zero row."""
+    return B * (4 * 5 * h * w + 2) + 1
+
+
+def up_operand_plain(x, corner_mode="average"):
+    """Plain version of ``up_operand``: ``_up_phases`` stacked phase by phase,
+    each sample's phase-pad poles (``chart_mean`` of phase ee's cell (0, 0)
+    and phase oq's last cell; zeros under ``"zeros"``), a zero row, and the
+    channels padded with zeros to ``build.operand_width``."""
+    B, _, h, w, cin = x.shape
+    phases = _up_phases(x, corner_mode)
+    cells = torch.stack(phases, dim=1).reshape(B, 4 * 5 * h * w, cin)
+    if corner_mode == "average":
+        poles = torch.stack([chart_mean(phases[0][:, :, 0, 0]),
+                             chart_mean(phases[3][:, :, h - 1, w - 1])], dim=1)
+    else:
+        poles = x.new_zeros((B, 2, cin))
+    rows = torch.cat([torch.cat([cells, poles], dim=1).reshape(-1, cin), x.new_zeros((1, cin))])
+    return torch.nn.functional.pad(rows, (0, build.operand_width(cin) - cin))
+
+
+def up_operand(x, corner_mode: str = "average"):
+    """The upsampled level-(s+1) operand of the up conv, as the bf16 dtaps
+    builds it before its GEMM: x, a contiguous (B, 5, h, w, C_in) level-s grid
+    (float32 or bfloat16) -> (B·(4·5hw + 2) + 1, C_in rounded up to 8) in x's
+    dtype (``up_operand_plain`` says which row is which)."""
+    if not on_cuda(x, "up_operand"):
+        return up_operand_plain(x, corner_mode)
+    B, _, h, w, cin = x.shape
+    grid_level(h, w)
+    dev, dt = x.device, x.dtype
+    expect(x, (B, 5, h, w, cin), dt, dev, "up_operand x")
+    out = torch.empty((operand_rows(B, h, w), build.operand_width(cin)), dtype=dt, device=dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_operand(
+            x.data_ptr(), up_table.data_ptr(), out.data_ptr(), B, h, w, cin,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_operand", err)
+    build.LAUNCHES["up_operand"] += 1
+    return out
+
+
+def _up_dtaps_scratch(dt, B, h, w, cin, n_sets, cout, dev):
+    """(kc, n_chunks, partials, operand) of the up conv's dtaps over B·4·5hw
+    rows: float32 the SIMT GEMM's split and no operand; bf16 the tensor-core
+    GEMM's split and the operand scratch of its first pass."""
+    rows = B * 4 * 5 * h * w
+    if dt == torch.bfloat16:
+        kc, n_chunks = build.mma_dtaps_split(rows, build.mma_dtaps_blocks(cin, n_sets * cout))
+        operand = torch.empty((operand_rows(B, h, w), build.operand_width(cin)), dtype=dt,
+                              device=dev)
+    else:
+        kc, n_chunks = build.dtaps_split(rows,
+                                         build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
+        operand = None
+    return kc, n_chunks, build.scratch(n_chunks * 7 * cin * n_sets * cout, dev), operand
+
+
 def up_dual_conv_dtaps_plain(x, g_groups, corner_mode, y_groups=None, gs_list=None):
     """Plain version of ``up_dual_conv_dtaps``."""
     g_groups = _fold_groups(g_groups, y_groups, gs_list)
@@ -810,7 +878,9 @@ def up_dual_conv_dtaps_plain(x, g_groups, corner_mode, y_groups=None, gs_list=No
 
 def up_dual_conv_dtaps(x, g_groups, corner_mode, y_groups=None, gs_list=None):
     """Tap cotangents of the up conv summed over the batch (``_upd_bwd``'s
-    dtaps kernel): per set a float32 (7, C_in, C_out)."""
+    dtaps kernel): per set a float32 (7, C_in, C_out). In bf16 two kernels
+    and the fixed-order sum: the operand pass (``up_operand``) and the
+    tensor-core GEMM over its rows; in float32 the SIMT GEMM."""
     if not on_cuda(x, "up_dual_conv_dtaps"):
         return up_dual_conv_dtaps_plain(x, g_groups, corner_mode, y_groups, gs_list)
     B, _, h, w, cin = x.shape
@@ -823,9 +893,7 @@ def up_dual_conv_dtaps(x, g_groups, corner_mode, y_groups=None, gs_list=None):
         raise ValueError("up_dual_conv_dtaps: 1 or 2 sets of 4 cotangent phases")
     _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
                       "up_dual_conv_dtaps")
-    kc, n_chunks = build.dtaps_split(B * 4 * 5 * h * w,
-                                     build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
-    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    kc, n_chunks, ws, operand = _up_dtaps_scratch(dt, B, h, w, cin, n_sets, cout, dev)
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
@@ -833,8 +901,8 @@ def up_dual_conv_dtaps(x, g_groups, corner_mode, y_groups=None, gs_list=None):
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_dtaps(
             x.data_ptr(), gp, yp, gs0, gs1, conv_table.data_ptr(), up_table.data_ptr(),
-            ws.data_ptr(), *_pair(dtaps), B, h, w, cin, cout, n_sets, kc, n_chunks,
-            build.dtype_code(dt), build.stream_ptr(dev),
+            ws.data_ptr(), *_pair(dtaps), build.ptr(operand), B, h, w, cin, cout, n_sets, kc,
+            n_chunks, int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_dual_conv_dtaps", err)
     build.LAUNCHES["up_dual_conv_dtaps"] += 1
@@ -1031,6 +1099,35 @@ def up_pair_dx(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None,
             gsums if emit_gsum else None)
 
 
+def up_pair_operand_plain(b0, y10, affines, corner_mode="average"):
+    """Plain version of ``up_pair_operand``: ``up_operand_plain`` of the
+    joined grid."""
+    return up_operand_plain(_pair_grid(b0, y10, affines), corner_mode)
+
+
+def up_pair_operand(b0, y10, affines, corner_mode: str = "average"):
+    """The upsampled operand of ``up_pair_fwd``'s level-s grid, as its bf16
+    dtaps builds it (the pair joined once into a level-s grid, then the up
+    conv's operand pass over it): ``up_operand`` of the joined grid.
+    Arguments as ``up_pair_fwd``."""
+    if not on_cuda(b0[0], "up_pair_operand"):
+        return up_pair_operand_plain(b0, y10, affines, corner_mode)
+    B, h, w, cin = _check_pair(b0, y10, affines, "up_pair_operand")
+    dev, dt = b0[0].device, b0[0].dtype
+    out = torch.empty((operand_rows(B, h, w), build.operand_width(cin)), dtype=dt, device=dev)
+    joined = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev)
+    up_table = device_table("up", h, w, corner_mode, dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_up_pair_operand(
+            build.ptr_array((*b0, *y10)), build.ptr_array(affines), up_table.data_ptr(),
+            out.data_ptr(), joined.data_ptr(), B, h, w, cin, int(corner_mode == "zeros"),
+            build.dtype_code(dt), build.stream_ptr(dev),
+        )
+    build.check("up_pair_operand", err)
+    build.LAUNCHES["up_pair_operand"] += 1
+    return out
+
+
 def up_pair_dtaps_plain(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_list=None):
     """Plain version of ``up_pair_dtaps``: ``up_dual_conv_dtaps_plain`` on the
     joined grid."""
@@ -1040,8 +1137,10 @@ def up_pair_dtaps_plain(b0, y10, affines, g_groups, corner_mode, y_groups=None, 
 
 def up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_list=None):
     """Tap cotangents of ``up_pair_fwd`` summed over the batch (the dtaps
-    kernel of ``_updp_bwd``), the joined input rebuilt from the pair on
-    load: per set a float32 (7, C_in, C_out). Arguments as ``up_pair_dx``."""
+    kernel of ``_updp_bwd``): per set a float32 (7, C_in, C_out). Arguments
+    as ``up_pair_dx``. In bf16 the pair is joined once, its operand built
+    (``up_pair_operand``) and the up conv's tensor-core GEMM runs over it;
+    in float32 the SIMT GEMM joins it on load."""
     if not on_cuda(b0[0], "up_pair_dtaps"):
         return up_pair_dtaps_plain(b0, y10, affines, g_groups, corner_mode, y_groups, gs_list)
     B, h, w, cin = _check_pair(b0, y10, affines, "up_pair_dtaps")
@@ -1050,9 +1149,8 @@ def up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_lis
         raise ValueError("up_pair_dtaps: 2 sets of 4 cotangent phases")
     cout = g_groups[0][0].shape[-1]
     _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev, "up_pair_dtaps")
-    kc, n_chunks = build.dtaps_split(B * 4 * 5 * h * w,
-                                     build.n_tiles(7 * cin) * build.n_tiles(2 * cout))
-    ws = build.scratch(n_chunks * 7 * cin * 2 * cout, dev)
+    kc, n_chunks, ws, operand = _up_dtaps_scratch(dt, B, h, w, cin, 2, cout, dev)
+    joined = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev) if operand is not None else None
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(2)]
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
@@ -1061,7 +1159,8 @@ def up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, y_groups=None, gs_lis
         err = build.library().gn_up_pair_dtaps(
             build.ptr_array((*b0, *y10)), build.ptr_array(affines), gp, yp, gs0, gs1,
             conv_table.data_ptr(), up_table.data_ptr(), ws.data_ptr(), *_pair(dtaps),
-            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(operand), build.ptr(joined), B, h, w, cin, cout, kc, n_chunks,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_pair_dtaps", err)
     build.LAUNCHES["up_pair_dtaps"] += 1

@@ -10,6 +10,7 @@ Without a CUDA device every test skips. Tolerances: float32 1e-4·max|ref|
 float32 sums round to bf16 at different points).
 """
 
+import contextlib
 import copy
 
 import pytest
@@ -908,3 +909,168 @@ def test_merged_block_step_equals_the_split_route(cuda, model):
             assert torch.equal(g, split[k]), k
     _, chained, _ = _block_step(cuda, model, "all", phase_chain="1")
     assert chained["up_block_fwd"] == 1 and "dn_block_fwd" not in chained
+
+
+# ---------------------------------------------------------------------------
+# the bf16 dtaps of the up conv (d) and of the decoder's chain (n) on the
+# tensor cores: the operand pass, then the GEMM over its gathered rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cin", [12, 16])
+@pytest.mark.parametrize("source", ["grid", "pair"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [2, 4])
+def test_up_operand_is_the_plain_operand(cuda, s, corner_mode, dt, source, cin):
+    """The operand pass against ``up_operand_plain`` (the upsampled phases,
+    the phase-pad poles, the zero row, channels padded to a multiple of 8):
+    equal bit for bit, for a level-s grid (the up conv, d) and a joined pair
+    (n), channel by channel (C_in 12) and 8 at a time (16): the pass runs
+    gn::UpLoad's arithmetic, which rounds where the plain ops do."""
+    if source == "grid":
+        x, _, _ = _inputs(cuda, dt, s, cin, 20, seed=200 + s)
+        got, ref = pk.up_operand(x, corner_mode), pk.up_operand_plain(x, corner_mode)
+    else:
+        b0, y10, aff = _pair(cuda, dt, s, cin, seed=210 + s)
+        got = pk.up_pair_operand(b0, y10, aff, corner_mode)
+        ref = pk.up_pair_operand_plain(b0, y10, aff, corner_mode)
+    torch.cuda.synchronize()
+    B, M = 2, 5 * 2**s * 2 ** (s + 1)
+    assert got.shape == (B * (4 * M + 2) + 1, 16) and got.dtype == dt
+    assert torch.equal(got, ref)
+    assert not got[:, cin:].any() and not got[-1].any()
+
+
+def _model_width_dtaps(cuda, kernel, fold):
+    """bf16 inputs of one dtaps call at a site of the s=5 model (B=2): d at
+    up1 (level-3 grid, 256 -> 2x128), n at up2 (level-4 pair, 128 -> 2x64)."""
+    s, cin, cout = (3, 256, 128) if kernel == "d" else (4, 128, 64)
+    dt = torch.bfloat16
+    mk, gs = _stats_fold(cuda, dt, (2, 5, 2**s, 2 ** (s + 1), cout), 2, seed=220 + s)
+    g = mk(4)
+    fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+    if kernel == "d":
+        x, _, _ = _inputs(cuda, dt, s, cin, cout, seed=230)
+        return (lambda: pk.up_dual_conv_dtaps(x, g, "average", **fk),
+                lambda: pk.up_dual_conv_dtaps_plain(x, g, "average", **fk))
+    b0, y10, aff = _pair(cuda, dt, s, cin, seed=240)
+    return (lambda: pk.up_pair_dtaps(b0, y10, aff, g, "average", **fk),
+            lambda: pk.up_pair_dtaps_plain(b0, y10, aff, g, "average", **fk))
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("kernel", ["d", "n"])
+def test_mma_dtaps_at_the_model_widths(cuda, kernel, fold):
+    """d and n's bf16 dtaps at a site of the s=5 model, with the stats fold in
+    the kernel and without, against the plain versions (autograd of the plain
+    conv in float32): the products are exact and both sum in float32, so
+    they differ by the order of the sums alone; held within 1e-3·max|ref|
+    (float32 summation noise is about 1e-6 here), far inside TOL."""
+    kernel_call, plain = _model_width_dtaps(cuda, kernel, fold)
+    name = "up_dual_conv_dtaps" if kernel == "d" else "up_pair_dtaps"
+    build.reset_launches()
+    got = kernel_call()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == 1
+    for u, v in zip(got, plain()):
+        assert u.dtype == torch.float32 and bool(torch.isfinite(u).all())
+        err, scale = (u - v).abs().max().item(), v.abs().max().item()
+        assert err <= 1e-3 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("cin, cout", [(12, 20), (16, 64)])
+def test_mma_dtaps_one_tap_set(cuda, cin, cout):
+    """The up conv's bf16 dtaps with one tap set (N = C_out columns), with
+    and without the fold, against its plain version: C_out 20 takes the
+    element-by-element g loads, 64 the 16-byte copies."""
+    x, _, _ = _inputs(cuda, torch.bfloat16, 2, cin, cout, seed=250 + cin)
+    mk, gs = _stats_fold(cuda, torch.bfloat16, x.shape[:-1] + (cout,), 1, seed=cout)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        got = pk.up_dual_conv_dtaps(x, g, "average", **fk)
+        assert len(got) == 1
+        _close_all(got, pk.up_dual_conv_dtaps_plain(x, g, "average", **fk), torch.bfloat16)
+
+
+def _bf16_step(cuda, model, plain_dtaps):
+    """One bf16 training forward and backward of the s=4 model on the default
+    route; with ``plain_dtaps`` the up conv's dtaps is its plain version on
+    the card tensors. (loss, launches, gradients)."""
+    from unittest import mock
+
+    import geniconet_tpu_torch.nn.models as models
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    s, widths, latent = 4, (8, 16, 16), 8
+    vae = model == "ico2ico_vae"
+    variables = bridge.init_variables(s, widths, seed=4, random_stats=True, model=model,
+                                      latent_features=latent)
+    gen = torch.Generator().manual_seed(7)
+    x = 0.5 * torch.randn(4, 5 * 2**s, 2 ** (s + 1), 3, generator=gen)
+    eps = torch.randn(4, 5 * 2 ** (s - 3), 2 ** (s - 2), latent, generator=gen)
+    tpack = torch.randn(4, 5, 2 ** (s - 1), 2**s, 12, generator=gen)
+    tpoles = torch.randn(4, 6, generator=gen)
+    cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
+           torch.randn(eps.shape, generator=gen)]
+    kw = dict(dtype=torch.bfloat16)
+    net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
+    net.load_state_dict(bridge.flax_to_state_dict(variables))
+    net.to(cuda)
+
+    def fixed(mu, logvar, generator=None):
+        std = torch.exp(0.5 * logvar)
+        return eps.to(cuda, std.dtype) * std + mu
+
+    patches = [mock.patch.object(models, "reparameterize", fixed)]
+    if plain_dtaps:
+        patches.append(mock.patch.object(fused, "up_dual_conv_dtaps",
+                                         pk.up_dual_conv_dtaps_plain))
+    build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        if vae:
+            outs = net(x.to(cuda), train=True)
+            loss = sum((o.float() * c.to(cuda)).sum() for o, c in zip(outs, cts))
+        else:
+            loss = net.recon_sse(x.to(cuda), tpack.to(cuda), tpoles.to(cuda), train=True).sum()
+        loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), dict(build.LAUNCHES), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_mma_dtaps(cuda, model):
+    """A bf16 training step of the default route with the tensor-core dtaps
+    at up0-2, against the same step with the up conv's dtaps patched to its
+    plain version on the card tensors. Only the up convs' taps gradients can
+    differ: their float32 sums differ in order alone (about 1e-6 relative),
+    then round to bf16 on both sides, so each element is within one bf16 ulp
+    of the other: |got - ref| <= 2^-7·max|ref| (plus 1e-5·max|ref| of
+    float32 noise). Every other gradient and the loss are equal bit for
+    bit."""
+    loss, launches, grads = _bf16_step(cuda, model, plain_dtaps=False)
+    assert launches["up_dual_conv_dtaps"] == 3
+    ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain_dtaps=True)
+    assert "up_dual_conv_dtaps" not in ref_launches
+    assert loss == ref_loss
+    up_taps = [k for k in grads if k.startswith("decoder.up") and
+               (".conv00.taps" in k or ".conv10.taps" in k)]
+    assert len(up_taps) == 6
+    for k, g in grads.items():
+        if k in up_taps:
+            err, scale = (g - ref[k]).abs().max().item(), ref[k].abs().max().item()
+            assert scale > 0 and err <= (2**-7 + 1e-5) * scale, (k, err, scale)
+        else:
+            assert torch.equal(g, ref[k]), k
+
+
+def test_mma_dtaps_occupancy(cuda):
+    """Each instantiation of the tensor-core GEMM (d and n, fold or not)
+    fits 2 blocks an SM with no local memory (no spill)."""
+    for pair in (False, True):
+        for fold in (False, True):
+            info = build.mma_dtaps_info(pair, fold)
+            assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (pair, fold, info)

@@ -88,6 +88,24 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
      "dtaps_gemm<fp32, UpLoad>"),
     ({"cat": "kernel", "name": "void gn::sum_rows<gn::SplitOut>"},
      "sum_rows + colsum (cross-block sums)"),
+    ({"cat": "kernel", "name": "void gn::sum_chunks<gn::SplitOut>"},
+     "sum_rows + colsum (cross-block sums)"),
+    # the bf16 dtaps of d and n: their own rows, whatever else the name holds
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::GridCells<__nv_bfloat16>, true>"
+                               "(gn::OperandRows, gn::GLoad<__nv_bfloat16, false>)"},
+     "mma_dtaps<bf16> (d)"),
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::PairCells<__nv_bfloat16>, false>"
+                               "(gn::OperandRows, gn::GLoad<__nv_bfloat16, false>)"},
+     "mma_dtaps<bf16> (n)"),
+    ({"cat": "kernel", "name": "void gn::up_operand_pass<__nv_bfloat16, "
+                               "gn::GridCells<__nv_bfloat16> >(gn::UpLoad<__nv_bfloat16>)"},
+     "up_operand_pass<bf16> (d)"),
+    ({"cat": "kernel", "name": "void gn::up_operand_pass<float, gn::PairCells<float> >"
+                               "(gn::UpLoad<float, gn::GridCells<float> >)"},
+     "up_operand_pass<fp32> (n)"),
+    ({"cat": "kernel", "name": "void gn::pair_join_pass<__nv_bfloat16>"
+                               "(gn::PairCells<__nv_bfloat16>, __nv_bfloat16*)"},
+     "up_operand_pass<bf16> (n)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
