@@ -49,10 +49,11 @@ printed on its own lines, each fatal on failure:
    the fold in the kernels and without; o (``up_block_fwd``) and p
    (``dn_block_fwd``) at every block they run at, each beside the split
    pair it replaces (the first conv with stats; bn00's affine and conv01
-   with stats) and cuDNN's two contractions. The bf16 dtaps of the up conv
-   (d) and of n also print their parts from a trace: the operand pass
-   against its byte bound, the tensor-core GEMM's TFLOP/s, the partials'
-   sum, and the GEMM's registers and blocks an SM;
+   with stats) and cuDNN's two contractions. The bf16 forward of the up
+   conv and of n (serving and training shapes) and their dtaps (d, n's)
+   also print their parts from a trace: the operand pass against its byte
+   bound, the forward's tap pack, the tensor-core GEMM's TFLOP/s, the
+   partials' sum, and the GEMM's registers and blocks an SM;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -182,10 +183,14 @@ KERNELS = {
     "dn_block_fwd": ("geniconet_tpu_torch/csrc/dn_block.cu",
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
-# sources beyond the one named in KERNELS: the bf16 dtaps of d and n run the
-# operand pass and the tensor-core GEMM of csrc/mma_dtaps.cuh
-SOURCES = {k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh",)
-           for k in ("up_dual_conv_dtaps", "up_pair_dtaps")}
+# sources beyond the one named in KERNELS: in bf16 the up conv's and n's
+# forward and dtaps run the operand pass of csrc/mma.cuh and the
+# tensor-core GEMMs of csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
+_MMA = "geniconet_tpu_torch/csrc/mma.cuh"
+SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
+              for k in ("up_dual_conv_dtaps", "up_pair_dtaps")},
+           **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
+              for k in ("up_dual_conv_fwd", "up_pair_fwd")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -376,7 +381,8 @@ class Case:
     ``split_labels`` in the print), and other calls to time beside it
     (``compare``: label -> call). ``short``: the kernel is timed from a
     profiler trace (``trace_ms``). ``parts``: a call that returns the bf16
-    kernel's parts from a trace (``mma_parts``: d's and n's dtaps)."""
+    kernel's parts from a trace (``mma_parts``: the up conv's and n's
+    forward, d's and n's dtaps)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -388,13 +394,15 @@ class Case:
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
-def mma_parts(call, flops, inputs, grid, pair, fold):
-    """The bf16 dtaps of d (``pair`` False) or n from a trace: its operand
-    pass (against its bound: the inputs it reads once, ``inputs``, and the
-    operand of the level-s grid (B, h, w, C_in) it writes), the tensor-core
-    GEMM (achieved TFLOP/s against the bf16 peak), the partials' sum; and
-    the GEMM instantiation's registers a thread, blocks an SM, shared and
-    local memory as the runtime reports them."""
+def mma_parts(call, flops, inputs, grid, pair, fold, fwd=False):
+    """The bf16 forward (``fwd``; ``fold``: with stats) or dtaps (``fold``:
+    with the stats fold) of the up conv (``pair`` False) or n from a trace:
+    its operand pass (against its bound: the inputs it reads once,
+    ``inputs``, and the operand of the level-s grid (B, h, w, C_in) it
+    writes), the forward's tap pack, the tensor-core GEMM (achieved TFLOP/s
+    against the bf16 peak), the partials' sum; and the GEMM instantiation's
+    registers a thread, blocks an SM, shared and local memory as the runtime
+    reports them."""
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -402,13 +410,14 @@ def mma_parts(call, flops, inputs, grid, pair, fold):
     B, h, w, cin = grid
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
     op_bytes += pk.operand_rows(B, h, w) * build.operand_width(cin) * 2
-    gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_dtaps"))
+    gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_"))
+    info = build.mma_fwd_info(pair, fold) if fwd else build.mma_dtaps_info(pair, fold)
     return {"operand_ms": sum(ms for k, ms in rows.items() if k.startswith("up_operand_pass")),
-            "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3, "gemm_ms": gemm,
-            "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
+            "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3,
+            "pack_ms": sum(ms for k, ms in rows.items() if k.startswith("pack_taps")),
+            "gemm_ms": gemm, "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
             "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")),
-            **build.mma_dtaps_info(pair, fold)}
+            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")), **info}
 
 
 def conv_flops(B, cells, cin, ntot):
@@ -460,10 +469,13 @@ def serving_cases():
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return Case(lambda: pk.up_dual_conv_fwd(x, sets),
-                        lambda: pk.up_dual_conv_fwd_plain(x, sets),
-                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [x, sets],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+            call = lambda: pk.up_dual_conv_fwd(x, sets)  # noqa: E731
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, False, True)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_dual_conv_fwd_plain(x, sets), flops, [x, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
+                        parts=parts)
         return make
 
     def std(h, w, c):
@@ -525,10 +537,14 @@ def serving_cases():
         def make(dt, gen):
             b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return Case(lambda: pk.up_pair_fwd(b0, y10, aff, sets),
-                        lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets),
-                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [b0, y10, aff, sets],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+            call = lambda: pk.up_pair_fwd(b0, y10, aff, sets)  # noqa: E731
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, False,
+                                       True)) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets), flops,
+                        [b0, y10, aff, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
+                        parts=parts)
         return make
 
     # the phase chains (the AE's, and the VAE trunk's down0-1): m at the
@@ -591,10 +607,14 @@ def training_cases():
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return Case(lambda: pk.up_dual_conv_fwd(x, sets, "average", True),
-                        lambda: pk.up_dual_conv_fwd_plain(x, sets, "average", True),
-                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [x, sets],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+            call = lambda: pk.up_dual_conv_fwd(x, sets, "average", True)  # noqa: E731
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, True, True)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_dual_conv_fwd_plain(x, sets, "average", True), flops,
+                        [x, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
+                        parts=parts)
         return make
 
     def std_fwd(h, w, c):
@@ -697,10 +717,14 @@ def training_cases():
         def make(dt, gen):
             b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            return Case(lambda: pk.up_pair_fwd(b0, y10, aff, sets, "average", True),
-                        lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets, "average", True),
-                        conv_flops(B, 4 * 5 * h * w, cin, 2 * cout), [b0, y10, aff, sets],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2))
+            call = lambda: pk.up_pair_fwd(b0, y10, aff, sets, "average", True)  # noqa: E731
+            flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, True,
+                                       True)) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets, "average", True),
+                        flops, [b0, y10, aff, sets],
+                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
+                        parts=parts)
         return make
 
     def pair_bwd(which, h, w, cin, cout, fold):
@@ -1086,9 +1110,10 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                                      f"{TOL[dt]} x {scale} (finite={finite})")
             if case.parts is not None:
                 p = case.parts()
+                pack = f"tap pack {p['pack_ms']:.4f} ms, " if p["pack_ms"] else ""
                 print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): operand "
                       f"pass {p['operand_ms']:.4f} ms (bound {p['operand_bound_ms']:.4f} ms, "
-                      f"bytes), tensor-core GEMM {p['gemm_ms']:.4f} ms = "
+                      f"bytes), {pack}tensor-core GEMM {p['gemm_ms']:.4f} ms = "
                       f"{p['gemm_tflops']:.1f} TFLOP/s (bound {p['gemm_bound_ms']:.4f} ms, "
                       f"operations), partials' sum {p['sum_ms']:.4f} ms; whole call {ms:.4f} "
                       f"ms against cuDNN {lib_ms:.4f} ms; GEMM {p['registers']} registers a "
@@ -1249,13 +1274,19 @@ def kernel_group(event: dict) -> str:
     if event.get("cat") != "kernel":
         return event.get("cat", "other")  # gpu_memcpy, gpu_memset
     dtype = "bf16" if "bfloat16" in name else "fp32"
-    # the bf16 dtaps of d and n: the operand pass and the tensor-core GEMM
-    # (by the cells it reads: the up conv's grid, or the pair)
-    which = "(n)" if "PairCells" in name else "(d)"
+    # the bf16 up conv and n: the operand pass (the forward's and d's), the
+    # forward's tap pack, the tensor-core GEMMs (by the cells they read: the
+    # up conv's grid, or the pair)
+    pair = "PairCells" in name
+    which = "(n)" if pair else "(d)"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {which}"
+    if "mma_conv_fwd" in name:
+        return f"mma_conv_fwd<bf16> {'(n)' if pair else '(up conv)'}"
+    if "pack_taps" in name:
+        return "pack_taps (up conv, n)"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
     # kernel m: the phase conv's GEMMs with the split store / split loader;
     # kernel n: the up conv's with the pair loader / the pair's dx epilogue

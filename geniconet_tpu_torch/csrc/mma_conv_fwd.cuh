@@ -1,0 +1,352 @@
+// The bf16 forward of the up conv and of the decoder chain's pair conv
+// (kernel n) on the tensor cores: the upsampled operand is built once into
+// device memory (mma.cuh), the two tap sets are packed once, then one GEMM
+// gathers the operand's rows through the conv table, with the BatchNorm
+// [Σy, Σy²] stats in its epilogue.
+//
+// Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:
+// _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel) and _updp (:2380,
+// _up_pair_fwd_kernel). The float32 path keeps gn::conv_gemm over gn::UpLoad
+// (common.cuh), the SIMT core, bit for bit.
+//
+// What bounds it on the card. out[q][n] = sum_t sum_k U[row_t(q)][k] W[t][k][n]
+// + bias[n] over q = (sample, output phase slot, cell), B * 4 * 5hw rows, and
+// n the columns of both tap sets side by side: 42-85 GFLOP a site at B=36,
+// bound by the tensor cores' bf16 rate (0.04-0.09 ms at 989 TFLOP/s). The
+// SIMT kernel rebuilt every upsampled cell on every load (a conv-table read,
+// two midpoint-table reads, one or two cells, a 5-cell mean at a pole; for n
+// each cell also the pair join), once for each of the 7 taps and each column
+// tile, at 2-10 TFLOP/s.
+//
+// Design.
+// 1. The operand: launch_up_operand (mma.cuh), the pass d's dtaps runs (for
+//    n after the pair is joined once into a level-s grid).
+// 2. pack_taps writes both tap sets side by side into one bf16 buffer,
+//    row t * Kp + k, column n (set n / cout, channel n % cout), zero past
+//    C_in (Kp = C_in rounded up to the 32-channel step) and past the
+//    columns (N rounded up to the 128-column tile), so every copy of a tap
+//    tile is a whole 16-byte chunk in bounds.
+// 3. mma_conv_fwd: a block takes 128 rows q and 128 columns n and walks K =
+//    7 taps x Kp in 32-channel steps. Rows run flat over B * 4 * 5hw
+//    (mma::RowPos), so a small phase (160 cells at up0) does not leave a tile
+//    part empty. Each thread copies two 16-byte chunks of one A row ([q][k],
+//    k contiguous) and two of the tap tile ([k][n]) into a 4-stage cp.async
+//    ring, zero-filled past the operand's width and past Q; a row's conv-table
+//    code is read once per tap, and names a cell, its sample's pole row or
+//    the zero row (OperandRows). A is K-major, so its fragments come by
+//    ldmatrix without .trans; the tap tile is N-major, so .trans, as the
+//    dtaps' g tile. mma.sync.m16n8k16 (bf16 products, float32 sums), 8 warps
+//    of 64 x 32, 2 blocks an SM: on an H100 this ring ran 190-250 TFLOP/s
+//    where 4 warps of 64 x 64 (1.2-1.4x the time), 64-channel steps (1.2x)
+//    or 3 or 5 stages ran slower (PERF.md §6). wgmma (both operands
+//    could be K-major here) is the way on.
+// 4. The epilogue adds the bias in float32, rounds to bf16 and stores row q
+//    at out[set][slot][(b * 5hw + m) * cout + c], two columns at a time. With
+//    stats, [Σy, Σy²] of the rounded values as conv_tile takes them: per
+//    block column partials (warp shuffles, then the two row warps in shared
+//    memory, in a fixed order), then one fixed-order gn::sum_rows over the
+//    row tiles. No atomics: results repeat exactly, and d and n, which run
+//    this GEMM on bit-equal operands with the same split, are bit-equal on
+//    the joined grid.
+#pragma once
+
+#include "mma.cuh"
+
+namespace gn {
+
+namespace fwd {
+
+constexpr int BM = 128;                     // rows q a block
+constexpr int BN = 128;                     // columns n a block
+constexpr int BK = mma::BK;                 // channels k of one tap a step
+constexpr int STAGES = 4;
+constexpr int NT = 256;                     // 8 warps, 64 x 32 each
+constexpr int A_LDS = BK + 8;               // an A row in bf16: 80 bytes, conflict-free
+constexpr int B_LDS = BN + 8;               // a tap-tile row: 272 bytes, likewise
+constexpr int A_TILE = BM * A_LDS;
+constexpr int STAGE = A_TILE + BK * B_LDS;  // bf16 elements of one stage
+constexpr int SMEM = STAGES * STAGE * 2;    // bytes
+
+// rows of one tap in the packed taps, and the packed columns
+__host__ __device__ __forceinline__ int k_pad(int cin) { return (cin + BK - 1) / BK * BK; }
+__host__ __device__ __forceinline__ int n_pad(int ntot) { return (ntot + BN - 1) / BN * BN; }
+
+}  // namespace fwd
+
+// Where the forward writes: 4 output phases per tap set, the sets' biases,
+// and the stats partials (row tiles, 2 * n_sets * cout), [Σy | Σy²].
+struct FwdOut {
+  __nv_bfloat16* out[2][4];
+  const __nv_bfloat16* bias[2];  // nullable
+  float* stats;                  // nullable: no stats
+};
+
+// packed[t * Kp + k][n] = taps[n / cout][t][k][n % cout] for k < cin and
+// n < n_sets * cout, else 0; (7 * Kp, Np). (A template, as every kernel of
+// a header that two sources include.)
+template <typename T>
+__global__ void __launch_bounds__(256)
+pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ out, int cin,
+          int cout, int n_sets, int Kp, int Np, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / Np;
+  const int n = (int)(i - r * Np), t = (int)(r / Kp), k = (int)(r - (long long)t * Kp);
+  T v = from_f<T>(0.f);
+  if (k < cin && n < n_sets * cout) {
+    const int s = n / cout;
+    v = (s ? w1 : w0)[((size_t)t * cin + k) * cout + (n - s * cout)];
+  }
+  out[i] = v;
+}
+
+// The GEMM. Block (column tile, row tile); steps = 7 * Kp / BK. Tag
+// (GridCells or PairCells) only names the instantiation, so a profile tells
+// the up conv's launches from n's; the code is one.
+template <typename Tag, bool STATS>
+__global__ void __launch_bounds__(fwd::NT, 2)
+mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int cout,
+             int n_sets, int Q, int Np, int ksteps) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BM = fwd::BM, BN = fwd::BN, BK = fwd::BK, STAGES = fwd::STAGES;
+  constexpr int A_LDS = fwd::A_LDS, B_LDS = fwd::B_LDS, A_TILE = fwd::A_TILE;
+  constexpr int STAGE = fwd::STAGE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, q0 = blockIdx.y * BM;
+  const int M = ld.M, Ntot = n_sets * cout, steps = 7 * ksteps;
+
+  // load roles: A row ar, its chunks ac and ac + 1 of a step; tap-tile row
+  // br, its chunks bc and bc + 8
+  const int ar = tid >> 1, ac = (tid & 1) * 2, br = tid >> 3, bc = tid & 7;
+  mma::RowPos pos;
+  pos.start(q0 + ar, M);
+  const bool row_ok = pos.q < Q;
+  int t = 0, ks = 0;  // the tap and K step of the next copy
+  const bf16* arow = row_ok ? ld.row(pos.b, ld.code(pos.slot, 0, pos.m)) : ld.rows;
+  const bf16* wrow = wp + (size_t)br * Np + n0 + bc * 8;
+
+  auto copy_step = [&](int s) {
+    bf16* As = smem + (s % STAGES) * STAGE;
+    bf16* Bs = As + A_TILE;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int k = ks * BK + (ac + c) * 8;
+      const bool ok = row_ok && k < ld.ldk;
+      mma::cp_async16(As + ar * A_LDS + (ac + c) * 8, ok ? arow + k : ld.rows, ok ? 16 : 0);
+      mma::cp_async16(Bs + br * B_LDS + (bc + 8 * c) * 8,
+                      wrow + (size_t)s * BK * Np + 64 * c, 16);
+    }
+    if (++ks == ksteps) {  // the next tap: this row's code for it
+      ks = 0;
+      if (++t < 7 && row_ok) arow = ld.row(pos.b, ld.code(pos.slot, t, pos.m));
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < steps) copy_step(j);
+    mma::cp_async_commit();
+  }
+
+  // warp tile: rows wm * 64 .. +63, columns wn * 32 .. +31
+  const int wm = warp & 1, wn = warp >> 1;
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  // ldmatrix row addresses (elements) within a stage, before the k16 offset
+  const int a_off = (wm * 64 + (lane & 7) + ((lane >> 3) & 1) * 8) * A_LDS + (lane >> 4) * 8;
+  const int b_off = A_TILE + ((lane & 7) + (((lane >> 3) & 1) << 3)) * B_LDS + wn * 32 +
+                    (lane >> 4) * 8;
+
+  for (int i = 0; i < steps; ++i) {
+    mma::cp_async_wait<STAGES - 2>();  // this thread's copies of step i have landed
+    __syncthreads();  // step i visible to all; every warp is done with step i - 1
+    if (i + STAGES - 1 < steps) copy_step(i + STAGES - 1);
+    mma::cp_async_commit();
+    const bf16* S = smem + (i % STAGES) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned b[4][2];
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        unsigned r[4];
+        mma::ldsm_x4_trans(r, S + b_off + kk * B_LDS + nj * 16);
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        unsigned a[4];
+        mma::ldsm_x4(a, S + a_off + mi * 16 * A_LDS + kk);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma::mma_bf16(acc[mi][ni], a, b[ni][0], b[ni][1]);
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  // acc[mi][ni]: rows wm*64 + mi*16 + lane/4 (+8 for e >= 2), columns
+  // wn*32 + ni*8 + 2*(lane%4) (+1 for odd e); column n is channel n - cout
+  // of set 1 from n = cout on (at most two sets). Columns n and n + 1 share
+  // a set when cout is even: then one 4-byte store takes both.
+  const bool pairs = (cout & 1) == 0;
+  const int nl = n0 + wn * 32 + 2 * (lane & 3);  // column of ni = 0, e = 0
+  float col_bias[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = nl + ni * 8 + e, s = n >= cout;
+      const bf16* bias = s ? o.bias[1] : o.bias[0];
+      col_bias[ni][e] = n < Ntot && bias != nullptr ? to_f(bias[n - s * cout]) : 0.f;
+    }
+  float csum[4][2] = {}, csq[4][2] = {};
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
+      if (q >= Q) continue;
+      const int b = q / (4 * M), r = q - b * 4 * M, slot = r / M, m = r - slot * M;
+      const size_t row = ((size_t)b * M + m) * cout;
+      bf16* row0 = pick4(o.out[0], slot) + row;
+      bf16* row1 = pick4(o.out[1], slot) + row;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = nl + ni * 8;
+        bf16 y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          y[e] = from_f<bf16>(acc[mi][ni][2 * h + e] + col_bias[ni][e]);
+          if (STATS && n + e < Ntot) {
+            const float v = to_f(y[e]);  // the moments are of the downcast output
+            csum[ni][e] += v;
+            csq[ni][e] += v * v;
+          }
+        }
+        if (n >= Ntot) continue;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(n >= cout ? row1 + (n - cout) : row0 + n) =
+              __halves2bfloat162(y[0], y[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < Ntot) (n + e >= cout ? row1 + (n + e - cout) : row0 + n + e)[0] = y[e];
+        }
+      }
+    }
+  if constexpr (STATS) {
+    // sum over the 8 row groups of the warp (lanes with one lane % 4), then
+    // over its two row warps: fixed orders
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1) {
+          csum[ni][e] += __shfl_xor_sync(0xffffffffu, csum[ni][e], x);
+          csq[ni][e] += __shfl_xor_sync(0xffffffffu, csq[ni][e], x);
+        }
+    __syncthreads();  // the ring is free
+    float* red = reinterpret_cast<float*>(smem_raw);  // [wm][sum | sumsq][BN]
+    if (lane < 4) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wn * 32 + ni * 8 + 2 * lane + e;
+          red[(wm * 2) * BN + col] = csum[ni][e];
+          red[(wm * 2 + 1) * BN + col] = csq[ni][e];
+        }
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < Ntot) {
+      float* part = o.stats + (size_t)blockIdx.y * 2 * Ntot + n0 + tid;
+      part[0] = red[tid] + red[2 * BN + tid];
+      part[Ntot] = red[BN + tid] + red[3 * BN + tid];
+    }
+  }
+}
+
+template <typename Tag, bool STATS>
+cudaError_t mma_conv_fwd_attr() {
+  return cudaFuncSetAttribute(mma_conv_fwd<Tag, STATS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::SMEM);
+}
+
+// Row tiles of the GEMM over Q rows (the stats partials' rows).
+inline int fwd_row_tiles(long long Q) { return (int)((Q + fwd::BM - 1) / fwd::BM); }
+
+// The bf16 forward: the operand pass into `operand` ((B * (4 * 5hw + 2) +
+// 1, operand_width(cin)); for a pair, joined first into `joined`), the taps
+// packed into `wpack` ((7 * k_pad(cin), n_pad(n_sets * cout))), the GEMM,
+// and with o.stats (row tiles, 2 * n_sets * cout) the fixed-order sum into
+// stats[set] (2, cout).
+template <typename Cells>
+cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const FwdOut& o,
+                                const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                                const int* conv_table, __nv_bfloat16* operand,
+                                __nv_bfloat16* joined, __nv_bfloat16* wpack, int zero_poles,
+                                int B, int cout, int n_sets, float* const* stats,
+                                cudaStream_t stream) {
+  if (operand == nullptr || wpack == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
+  if (err != cudaSuccess) return err;
+  const int cin = up.cin, M = up.hw5, Ntot = n_sets * cout;
+  const int Kp = fwd::k_pad(cin), Np = fwd::n_pad(Ntot);
+  const long long packed = 7LL * Kp * Np;
+  pack_taps<__nv_bfloat16><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
+      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  OperandRows ld;
+  ld.rows = operand;
+  ld.table = conv_table;
+  ld.M = M;
+  ld.ldk = operand_width(cin);
+  ld.per_b = operand_per_sample(M);
+  ld.zero_row = B * ld.per_b;
+  const int Q = B * 4 * M, row_tiles = fwd_row_tiles(Q);
+  const dim3 grid(Np / fwd::BN, row_tiles);
+  if (o.stats != nullptr) {
+    if ((err = mma_conv_fwd_attr<Cells, true>()) != cudaSuccess) return err;
+    mma_conv_fwd<Cells, true><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, o, cout, n_sets,
+                                                                   Q, Np, Kp / fwd::BK);
+  } else {
+    if ((err = mma_conv_fwd_attr<Cells, false>()) != cudaSuccess) return err;
+    mma_conv_fwd<Cells, false><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, o, cout, n_sets,
+                                                                    Q, Np, Kp / fwd::BK);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || o.stats == nullptr) return err;
+  const SplitOut st = {{stats[0], stats[1]}, Ntot, cout};
+  return launch_sum_rows(o.stats, row_tiles, 2LL * Ntot, st, stream);
+}
+
+// Registers a thread, blocks an SM, dynamic shared memory and local memory
+// (spills) of one instantiation (for the records).
+template <typename Tag, bool STATS>
+cudaError_t mma_conv_fwd_info(int* out) {
+  cudaError_t err = mma_conv_fwd_attr<Tag, STATS>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, mma_conv_fwd<Tag, STATS>)) != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_conv_fwd<Tag, STATS>, fwd::NT,
+                                                      fwd::SMEM);
+  out[0] = attr.numRegs;
+  out[1] = blocks;
+  out[2] = fwd::SMEM;
+  out[3] = (int)attr.localSizeBytes;
+  return err;
+}
+
+}  // namespace gn

@@ -24,7 +24,7 @@
 // an SM.
 //
 // Design.
-// 1. up_operand_pass writes the upsampled level-(s+1) operand once, in the
+// 1. up_operand_pass (mma.cuh) writes the upsampled level-(s+1) operand once, in the
 //    activation dtype (for n, after pair_join_pass has joined the pair once
 //    into a level-s grid): per sample the 4 * 5hw cells of the four phases,
 //    then the level-(s+1) north and south pole rows (the phase pad's poles: the
@@ -64,256 +64,15 @@
 #pragma once
 
 #include "backward.cuh"
+#include "mma.cuh"
 
 namespace gn {
 
-// the operand rows' layout, shared by the pass and the GEMM's loader
-__host__ __device__ __forceinline__ int operand_width(int cin) { return (cin + 7) & ~7; }
-__host__ __device__ __forceinline__ int operand_per_sample(int hw5) { return 4 * hw5 + 2; }
-
-// The operand pass's loads 8 channels at a time, where C_in is a multiple
-// of 8 (16-byte rows): gn::UpLoad's pcell / ucell / pole arithmetic, value
-// by value in its order and roundings, on the 8 channels of a Cells8.
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
-  alignas(16) T t[8];
-#pragma unroll
-  for (int j = 0; j < (int)sizeof(t) / 16; ++j)
-    reinterpret_cast<uint4*>(t)[j] = reinterpret_cast<const uint4*>(p)[j];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = to_f(t[e]);
-}
-
-// 8 channels k0 .. k0 + 7 of the level-s cells: a GridCells row as it is;
-// a PairCells cell joined, with its 4 affines' 8 channels loaded once.
-template <typename Cells>
-struct Cells8;
-
-template <typename T>
-struct Cells8<GridCells<T>> {
-  const T* x;
-  int k0, hw5, cin;
-  __device__ __forceinline__ Cells8(const GridCells<T>& c, int k0_, int hw5_, int cin_)
-      : x(c.x), k0(k0_), hw5(hw5_), cin(cin_) {}
-  __device__ __forceinline__ void operator()(int b, int r, float (&v)[8]) const {
-    load8(x + ((size_t)b * hw5 + r) * cin + k0, v);
-  }
-};
-
-template <typename T>
-struct Cells8<PairCells<T>> {
-  const PairCells<T>& x;
-  int k0, cin;
-  float aff[4][8];
-  __device__ __forceinline__ Cells8(const PairCells<T>& c, int k0_, int, int cin_)
-      : x(c), k0(k0_), cin(cin_) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) aff[i][e] = c.aff[i][k0 + e];
-  }
-  __device__ __forceinline__ void operator()(int b, int r, float (&v)[8]) const {
-    size_t row;
-    const int p = split_row(b, r, x.lh, x.lw, row);
-    float a[8], c[8];
-    load8(pick4(x.b0, p) + row * cin + k0, a);
-    load8(pick4(x.y10, p) + row * cin + k0, c);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = round_to<T>(fmaxf(pair_pre(a[e], c[e], aff[0][e], aff[1][e], aff[2][e], aff[3][e]),
-                               0.f));
-  }
-};
-
-template <typename T, typename Cells>
-__device__ __forceinline__ void pcell8(const UpLoad<T, Cells>& ld, const Cells8<Cells>& x, int b,
-                                       int code, float (&v)[8]) {
-  if (code >= 0) {
-    x(b, code, v);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 0.f;
-  if (code == ZERO) return;
-  const int off = code == NORTH ? 0 : ld.hw - 1;
-  for (int c = 0; c < 5; ++c) {
-    float t[8];
-    x(b, c * ld.hw + off, t);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += t[e];
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = round_to<T>(v[e] * 0.2f);
-}
-
-template <typename T, typename Cells>
-__device__ __forceinline__ void ucell8(const UpLoad<T, Cells>& ld, const Cells8<Cells>& x, int b,
-                                       int idx, float (&v)[8]) {
-  pcell8(ld, x, b, ld.up[2 * idx], v);
-  const int second = ld.up[2 * idx + 1];
-  if (second == NONE) return;
-  float t[8];
-  pcell8(ld, x, b, second, t);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = round_to<T>(round_to<T>(v[e] + t[e]) * 0.5f);
-}
-
-// Whether every level-s tensor of the cells is 16-byte aligned (with C_in a
-// multiple of 8, every row then is, for the 8-channel loads).
-inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
-template <typename T>
-bool aligned16(const GridCells<T>& c) { return aligned16(c.x); }
-template <typename T>
-bool aligned16(const PairCells<T>& c) {
-  for (int p = 0; p < 4; ++p)
-    if (!aligned16(c.b0[p]) || !aligned16(c.y10[p])) return false;
-  return true;
-}
-
-// One thread: one operand row, 8 channels, of a level-s grid (for n, the
-// pair joined by pair_join_pass; Tag names the instantiation: GridCells for
-// d, PairCells for n). vec: C_in is a multiple of 8 and the grid's rows are
-// 16-byte aligned, so loads take 8 channels at a time.
-template <typename T, typename Tag>
-__global__ void __launch_bounds__(256)
-up_operand_pass(UpLoad<T> ld, T* __restrict__ out, int B, int zero_poles, int vec,
-                long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int ldk = operand_width(ld.cin), chunks = ldk / 8;
-  const long long r = i / chunks;
-  const int c = (int)(i - r * chunks);
-  const int per = operand_per_sample(ld.hw5);
-  const int b = (int)(r / per), rr = (int)(r - (long long)b * per);
-  const int phases = 4 * ld.hw5;
-  const bool pole = rr >= phases, cell = b < B && !(pole && zero_poles);
-  float v[8];
-  if (vec) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    const Cells8<GridCells<T>> x(ld.x, c * 8, ld.hw5, ld.cin);
-    if (cell && !pole) {
-      ucell8(ld, x, b, rr, v);
-    } else if (cell) {  // level-(s+1) pole: 5-chart mean of phase ee cell 0 / phase oq cell hw-1
-      const int base = rr == phases ? 0 : 3 * ld.hw5 + ld.hw - 1;
-      for (int ch = 0; ch < 5; ++ch) {
-        float t[8];
-        ucell8(ld, x, b, base + ch * ld.hw, t);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += t[e];
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = round_to<T>(v[e] * 0.2f);
-    }
-  } else {  // a ragged C_in (or rows): channel by channel through UpLoad itself
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int k = c * 8 + e;
-      v[e] = !cell || k >= ld.cin ? 0.f
-             : pole ? ld(b, rr == phases ? NORTH : SOUTH, k) : ld.ucell(b, rr, k);
-    }
-  }
-  alignas(16) T pack[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) pack[e] = from_f<T>(v[e]);
-  uint4* dst = reinterpret_cast<uint4*>(out + r * ldk + c * 8);
-#pragma unroll
-  for (int j = 0; j < (int)sizeof(pack) / 16; ++j) dst[j] = reinterpret_cast<const uint4*>(pack)[j];
-}
-
-// One thread: 8 channels of one cell of the level-s grid that a pair joins
-// into, written as a (B, 5, h, w, C_in) grid: PairCells' join, value by value.
-template <typename T>
-__global__ void __launch_bounds__(256)
-pair_join_pass(PairCells<T> x, T* __restrict__ out, int hw5, int cin, int vec, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int chunks = (cin + 7) / 8;
-  const long long r = i / chunks;
-  const int c = (int)(i - r * chunks);
-  const int b = (int)(r / hw5), cell = (int)(r - (long long)b * hw5);
-  T* dst = out + r * cin + c * 8;
-  if (vec) {
-    float v[8];
-    Cells8<PairCells<T>>(x, c * 8, hw5, cin)(b, cell, v);
-    alignas(16) T pack[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) pack[e] = from_f<T>(v[e]);
-#pragma unroll
-    for (int j = 0; j < (int)sizeof(pack) / 16; ++j)
-      reinterpret_cast<uint4*>(dst)[j] = reinterpret_cast<const uint4*>(pack)[j];
-  } else {
-    for (int e = 0; e < 8 && c * 8 + e < cin; ++e)
-      dst[e] = from_f<T>(x(b, cell, c * 8 + e, hw5, cin));
-  }
-}
-
-// Write the (B * (4 * 5hw + 2) + 1, operand_width(cin)) operand of a level-s
-// grid; Tag names the pass (GridCells: d's, PairCells: n's).
-template <typename T, typename Tag>
-cudaError_t launch_grid_operand(const UpLoad<T>& ld, T* out, int B, int zero_poles,
-                                cudaStream_t stream) {
-  const long long rows = (long long)B * operand_per_sample(ld.hw5) + 1;
-  const long long total = rows * (operand_width(ld.cin) / 8);
-  const int vec = ld.cin % 8 == 0 && aligned16(ld.x);
-  up_operand_pass<T, Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      ld, out, B, zero_poles, vec, total);
-  return cudaGetLastError();
-}
-
-// The operand of the up conv's level-s grid (d; `joined` is not used) ...
-template <typename T>
-cudaError_t launch_up_operand(const UpLoad<T>& ld, T* out, void*, int B, int zero_poles,
-                              cudaStream_t stream) {
-  return launch_grid_operand<T, GridCells<T>>(ld, out, B, zero_poles, stream);
-}
-
-// ... or of a pair (n): the pair joined once into `joined`, (B, 5, h, w,
-// C_in), then the same pass over that grid.
-template <typename T>
-cudaError_t launch_up_operand(const UpLoad<T, PairCells<T>>& ld, T* out, T* joined, int B,
-                              int zero_poles, cudaStream_t stream) {
-  if (joined == nullptr) return cudaErrorInvalidValue;
-  const long long total = (long long)B * ld.hw5 * ((ld.cin + 7) / 8);
-  const int vec = ld.cin % 8 == 0 && aligned16(ld.x);
-  pair_join_pass<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(ld.x, joined, ld.hw5,
-                                                                         ld.cin, vec, total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  UpLoad<T> grid;
-  grid.x = {joined};
-  grid.up = ld.up;
-  grid.hw = ld.hw;
-  grid.hw5 = ld.hw5;
-  grid.cin = ld.cin;
-  return launch_grid_operand<T, PairCells<T>>(grid, out, B, zero_poles, stream);
-}
-
-// The A loader of mma_dtaps: rows of a built operand named by the conv
-// table of output phase slot, tap t and cell m.
-struct OperandRows {
-  const __nv_bfloat16* rows;
-  const int* table;  // (4, 7, M) halo.phase_conv_table
-  int M, ldk, per_b, zero_row;
-
-  __device__ __forceinline__ int code(int slot, int t, int m) const {
-    return __ldg(&table[(slot * 7 + t) * M + m]);
-  }
-  // a cell, the sample's pole rows after its 4M cells, or the zero row
-  __device__ __forceinline__ const __nv_bfloat16* row(int b, int code) const {
-    const long long base = (long long)b * per_b;
-    const long long r = code >= 0 ? base + code
-                        : code == ZERO ? (long long)zero_row
-                        : base + 4 * M + (code == NORTH ? 0 : 1);
-    return rows + r * ldk;
-  }
-};
-
 namespace mma {
 
+// the dtaps GEMM's tile (its 32-row step, BK, is mma.cuh's)
 constexpr int BM = 128;          // channels k of one tap a block
 constexpr int BN = 128;          // columns n a block
-constexpr int BK = 32;           // rows q a stage
 constexpr int STAGES = 4;
 constexpr int NT = 256;
 constexpr int LDS = 136;         // a tile row in bf16: 128 + 8 keeps ldmatrix conflict-free
@@ -323,38 +82,6 @@ __host__ __device__ constexpr int smem_bytes(bool fold) {
   return STAGES * (fold ? 3 : 2) * TILE * 2 + (fold ? 2 * BN * 4 : 0);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-// 16 bytes global -> shared; bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// four 8x8 b16 matrices, transposed: lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Where the fold's constant of block column col (0..BN-1) lies in shared
 // memory: column col = (lc + 8c) * 8 + 4q + i sits at ((2c + q) * 8 + lc) * 4
 // + i, so that the 8 chunks lc of a warp's float4 reads are 8 consecutive
@@ -362,29 +89,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 __host__ __device__ constexpr int gsm_at(int col) {
   return ((((col >> 6) * 2 + ((col >> 2) & 1)) * 8 + ((col >> 3) & 7)) << 2) + (col & 3);
 }
-
-// Where a load row stands: q = b * 4M + slot * M + m.
-struct RowPos {
-  int q, b, slot, m;
-  __device__ __forceinline__ void start(int q0, int M) {
-    q = q0;
-    b = q0 / (4 * M);
-    const int r = q0 - b * 4 * M;
-    slot = r / M;
-    m = r - slot * M;
-  }
-  __device__ __forceinline__ void advance(int M) {
-    q += BK;
-    m += BK;
-    while (m >= M) {
-      m -= M;
-      if (++slot == 4) {
-        slot = 0;
-        ++b;
-      }
-    }
-  }
-};
 
 }  // namespace mma
 

@@ -17,12 +17,14 @@
 // Here nothing is interleaved: the up conv's loader gn::UpLoad reads its
 // level-s cells through gn::PairCells, which joins b0 and y10 at the phase
 // and row that gn::split_row maps the grid cell to (the pole means are of
-// joined cells, as in the reference). The forward is the up conv's GEMM
-// (gn::conv_gemm) over that loader, so its outputs and stats equal
-// up_dual_conv_fwd on phase_merge(join) bit for bit; the dtaps kernel
-// re-gathers the same operand (float32: gn::dtaps_gemm; bf16: the operand
-// pass through the same loader, then gn::mma_dtaps, mma_dtaps.cuh),
-// likewise equal to up_dual_conv_dtaps. dx is the up conv's dx GEMM over the same transposed
+// joined cells, as in the reference). The forward and the dtaps run the up
+// conv's GEMMs: in float32 over that loader (gn::conv_gemm, gn::dtaps_gemm);
+// in bf16 the pair is joined once into a level-s grid (gn::pair_join_pass),
+// the operand pass builds the upsampled operand from it, and the
+// tensor-core GEMMs run over its rows (gn::mma_conv_fwd, mma_conv_fwd.cuh;
+// gn::mma_dtaps, mma_dtaps.cuh). Either way the outputs, stats and dtaps
+// equal up_dual_conv_fwd / up_dual_conv_dtaps on phase_merge(join) bit for
+// bit. dx is the up conv's dx GEMM over the same transposed
 // table (halo.up_dx_table; rows are level-s grid cells) with the epilogue
 // gn::DxPairOut: the tail's adjoint on the unrounded float32 dx, the masks
 // from the raw pair in float32, the 8 phase cotangents stored by split_row,
@@ -32,15 +34,17 @@
 //
 // What bounds it on the card: the dx kernel, as c, the float32 FMA rate of
 // the SIMT GEMM core (2 * 4 * 7 * C_in * 2 * C_out FLOPs per level-s cell).
-// The forward and the float32 dtaps pay for the join on load: an operand
+// The float32 forward and dtaps pay for the join on load: an operand
 // element of their GEMMs joins up to two level-s cells (five for a pole
 // mean), each 2 phase loads, 4 affine loads and 5 FLOPs, where the up conv
 // loads one cell, and the loader holds more registers (74-77 a thread: 3
-// blocks an SM where the up conv fits 4). On an H100 the forward takes about
-// 1.6x the up conv's time at the same shape (PERF.md §6). The bf16 dtaps
-// joins each cell once, into a level-s grid its operand pass reads.
+// blocks an SM where the up conv fits 4); on an H100 the float32 forward
+// takes about 1.6x the up conv's time at the same shape (PERF.md §6). In
+// bf16 each cell is joined once, into the level-s grid the operand pass
+// reads, and the GEMMs are the up conv's.
 #include <type_traits>
 
+#include "mma_conv_fwd.cuh"
 #include "mma_dtaps.cuh"
 
 namespace {
@@ -74,18 +78,30 @@ gn::UpLoad<T, gn::PairCells<T>> pair_load(const void* const* pair, const float* 
 template <typename T>
 cudaError_t fwd(const void* const* pair, const float* const* aff, const void* w0, const void* b0,
                 const void* w1, const void* b1, void* const* outs, const int* conv_table,
-                const int* up_table, float* stats_ws, float* const* stats, int B, int h, int w,
-                int cin, int cout, cudaStream_t stream) {
+                const int* up_table, float* stats_ws, float* const* stats, void* operand,
+                void* joined, void* wpack, int B, int h, int w, int cin, int cout, int zero_poles,
+                cudaStream_t stream) {
   const auto ld = pair_load<T>(pair, aff, up_table, h, w, cin);
-  gn::ConvOut<T> co = {};
-  for (int i = 0; i < 8; ++i) co.out[i] = static_cast<T*>(outs[i]);
-  co.w[0] = static_cast<const T*>(w0);
-  co.w[1] = static_cast<const T*>(w1);
-  co.bias[0] = static_cast<const T*>(b0);
-  co.bias[1] = static_cast<const T*>(b1);
-  co.stats = stats_ws;
-  return gn::launch_conv_gemm<T>(ld, co, conv_table, B, 5 * h * w, cin, cout, 2, 0, 4, stats,
-                                 stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    gn::FwdOut o = {};
+    for (int i = 0; i < 8; ++i) o.out[i / 4][i % 4] = static_cast<T*>(outs[i]);
+    o.bias[0] = static_cast<const T*>(b0);
+    o.bias[1] = static_cast<const T*>(b1);
+    o.stats = stats_ws;
+    return gn::launch_mma_conv_fwd(ld, o, static_cast<const T*>(w0), static_cast<const T*>(w1),
+                                   conv_table, static_cast<T*>(operand), static_cast<T*>(joined),
+                                   static_cast<T*>(wpack), zero_poles, B, cout, 2, stats, stream);
+  } else {
+    gn::ConvOut<T> co = {};
+    for (int i = 0; i < 8; ++i) co.out[i] = static_cast<T*>(outs[i]);
+    co.w[0] = static_cast<const T*>(w0);
+    co.w[1] = static_cast<const T*>(w1);
+    co.bias[0] = static_cast<const T*>(b0);
+    co.bias[1] = static_cast<const T*>(b1);
+    co.stats = stats_ws;
+    return gn::launch_conv_gemm<T>(ld, co, conv_table, B, 5 * h * w, cin, cout, 2, 0, 4, stats,
+                                   stream);
+  }
 }
 
 template <typename T>
@@ -150,23 +166,27 @@ bool bad_shape(int h, int w) { return h < 2 || (h & (h - 1)) != 0 || w != 2 * h;
 // (cout) or null; outs: host array of 8 pointers, set-major, each (B, 5, h,
 // w, cout), the level-(s+1) phases; conv_table: int32 (4, 7, 5*h*w) from
 // halo.phase_conv_table; up_table: int32 (4*5*h*w, 2) from
-// halo.upsample_table; stats_ws: null (no stats) or float32 scratch of
-// (B * 4 * ceil(5hw/64), 4 * cout), and then st0/st1 receive each set's
-// (2, cout) [sum, sumsq]. dtype: 0 float32, 1 bfloat16.
+// halo.upsample_table; stats_ws: null (no stats) or float32 scratch of the
+// block partials, as in gn_up_dual_conv_fwd with n_sets = 2, and then
+// st0/st1 receive each set's (2, cout) [sum, sumsq]; operand, wpack,
+// zero_poles: as in gn_up_dual_conv_fwd; joined: bfloat16 only, scratch of
+// (B, 5, h, w, cin) for the joined level-s grid. dtype: 0 float32, 1
+// bfloat16.
 extern "C" int gn_up_pair_fwd(const void* const* pair, const float* const* aff, const void* w0,
                               const void* b0, const void* w1, const void* b1, void* const* outs,
                               const int* conv_table, const int* up_table, float* stats_ws,
-                              float* st0, float* st1, int B, int h, int w, int cin, int cout,
-                              int dtype, void* stream) {
+                              float* st0, float* st1, void* operand, void* joined, void* wpack,
+                              int B, int h, int w, int cin, int cout, int zero_poles, int dtype,
+                              void* stream) {
   if (bad_shape(h, w)) return cudaErrorInvalidValue;
   float* stats[2] = {st0, st1};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fwd<float>(pair, aff, w0, b0, w1, b1, outs, conv_table, up_table, stats_ws, stats, B,
-                      h, w, cin, cout, s);
+    return fwd<float>(pair, aff, w0, b0, w1, b1, outs, conv_table, up_table, stats_ws, stats,
+                      nullptr, nullptr, nullptr, B, h, w, cin, cout, zero_poles, s);
   if (dtype == 1)
     return fwd<__nv_bfloat16>(pair, aff, w0, b0, w1, b1, outs, conv_table, up_table, stats_ws,
-                              stats, B, h, w, cin, cout, s);
+                              stats, operand, joined, wpack, B, h, w, cin, cout, zero_poles, s);
   return cudaErrorInvalidValue;
 }
 
@@ -246,4 +266,10 @@ extern "C" int gn_up_pair_operand(const void* const* pair, const float* const* a
 extern "C" int gn_up_pair_dtaps_info(int fold, int* out) {
   return fold ? gn::mma_dtaps_info<gn::PairCells<__nv_bfloat16>, true>(out)
               : gn::mma_dtaps_info<gn::PairCells<__nv_bfloat16>, false>(out);
+}
+
+// out[4]: as gn_up_dual_conv_fwd_info, for n's tensor-core forward GEMM.
+extern "C" int gn_up_pair_fwd_info(int stats, int* out) {
+  return stats ? gn::mma_conv_fwd_info<gn::PairCells<__nv_bfloat16>, true>(out)
+               : gn::mma_conv_fwd_info<gn::PairCells<__nv_bfloat16>, false>(out);
 }

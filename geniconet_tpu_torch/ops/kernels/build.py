@@ -33,7 +33,7 @@ __all__ = [
     "ptr_array", "dtype_code", "on_cuda", "expect", "check_act", "act_apply", "grid_level",
     "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch", "merged_scratch",
     "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
-    "operand_width", "mma_dtaps_info",
+    "operand_width", "mma_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -114,7 +114,8 @@ _VP, _INT, _I64, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes
 _SIGNATURES = {
     # pointers, then ints, then the stream; csrc/*.cu documents each argument
     "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
-    "gn_up_dual_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
+    "gn_up_dual_conv_fwd": [_VP] * 13 + [_INT] * 8 + [_VP],
+    "gn_up_dual_conv_fwd_info": [_INT, _VP],
     "gn_pair_head_fwd": [_VP] * 8 + [_INT] * 6 + [_VP],
     "gn_pair_head_bwd": [_VP] * 16 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_fwd": [_VP] * 11 + [_INT] * 6 + [_VP],
@@ -135,7 +136,8 @@ _SIGNATURES = {
     "gn_ds2s_dx": [_VP] * 19 + [_INT] * 8 + [_VP],
     "gn_ds2s_dtaps": [_VP] * 14 + [_INT] * 10 + [_VP],
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
-    "gn_up_pair_fwd": [_VP] * 12 + [_INT] * 6 + [_VP],
+    "gn_up_pair_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
+    "gn_up_pair_fwd_info": [_INT, _VP],
     "gn_up_pair_dx": [_VP] * 17 + [_INT] * 7 + [_VP],
     "gn_up_pair_dtaps": [_VP] * 13 + [_INT] * 9 + [_VP],
     "gn_up_pair_operand": [_VP] * 5 + [_INT] * 6 + [_VP],
@@ -192,19 +194,44 @@ def mma_dtaps_split(rows: int, out_tiles: int):
 
 
 def operand_width(cin: int) -> int:
-    """Channels of an operand row of the tensor-core dtaps: C_in rounded up
+    """Channels of an operand row of the tensor-core GEMMs: C_in rounded up
     to 8 (16-byte rows in bf16)."""
     return -(-cin // 8) * 8
+
+
+def _gemm_info(name: str, flag: bool) -> dict:
+    out = (ctypes.c_int * 4)()
+    check(name, getattr(library(), name)(int(flag), out))
+    return dict(zip(("registers", "blocks_per_sm", "smem_bytes", "local_bytes"), out))
 
 
 def mma_dtaps_info(pair: bool, fold: bool) -> dict:
     """Registers a thread, blocks an SM, dynamic shared memory and local
     memory (bytes; spills) of the tensor-core dtaps GEMM of n (``pair``) or
     d, with the fold or without, as the card's runtime reports them."""
-    out = (ctypes.c_int * 4)()
-    fn = library().gn_up_pair_dtaps_info if pair else library().gn_up_dual_conv_dtaps_info
-    check("mma_dtaps_info", fn(int(fold), out))
-    return dict(zip(("registers", "blocks_per_sm", "smem_bytes", "local_bytes"), out))
+    return _gemm_info("gn_up_pair_dtaps_info" if pair else "gn_up_dual_conv_dtaps_info", fold)
+
+
+def mma_fwd_grid(rows: int, ntot: int):
+    """(column tiles, row tiles) of the tensor-core forward
+    (csrc/mma_conv_fwd.cuh) over ``rows`` output rows and ``ntot`` columns
+    (both tap sets side by side): a block takes MMA_TILE of each, over 7
+    taps of C_in in MMA_K_STEP-channel steps; its stats partials have one
+    row a row tile."""
+    return -(-ntot // MMA_TILE), -(-rows // MMA_TILE)
+
+
+def packed_taps_shape(cin: int, ntot: int):
+    """Shape of the tensor-core forward's packed taps: a row per tap and
+    input channel (C_in rounded up to the K step, zero past C_in), a column
+    per output column (rounded up to the tile, zero past ``ntot``)."""
+    return 7 * -(-cin // MMA_K_STEP) * MMA_K_STEP, -(-ntot // MMA_TILE) * MMA_TILE
+
+
+def mma_fwd_info(pair: bool, stats: bool) -> dict:
+    """``mma_dtaps_info`` for the tensor-core forward GEMM of n (``pair``) or
+    the up conv, with the stats epilogue or without."""
+    return _gemm_info("gn_up_pair_fwd_info" if pair else "gn_up_dual_conv_fwd_info", stats)
 
 
 def scratch(n: int, device) -> torch.Tensor:

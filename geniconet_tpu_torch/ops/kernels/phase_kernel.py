@@ -7,7 +7,10 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   ``fused_phase_conv_s1`` and ``fused_dual_s2_conv``: 4 phases in; all 4
   output phases, or phase 2 alone for stride 2; 1 or 2 tap sets; optional
   act prologue; optional BatchNorm ``[Σy, Σy²]`` stats);
-* ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``);
+* ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``); in
+  bf16 it builds the upsampled operand once and runs a tensor-core GEMM
+  over its gathered rows with the stats in its epilogue
+  (``csrc/mma_conv_fwd.cuh``), in float32 the SIMT GEMM;
 * ``pair_head_fwd`` / ``pair_head_bwd`` -> ``csrc/pair_head.cu`` (``_phead`` /
   ``_phead_bwd``: the decoder's tail + head + tanh and its backward);
 * ``pair_head_mse_fwd`` / ``pair_head_mse_bwd`` -> ``csrc/pair_head.cu``
@@ -34,8 +37,8 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   (``_updp`` and the two kernels of ``_updp_bwd``): the decoder's phase
   chain, the up conv whose level-s input is the previous UpBlock's residual
   join of a raw phase pair, and whose dx is that pair's 8 phase cotangents
-  and 4 affine gradients (the bf16 dtaps as the up conv's, its operand
-  joined once: ``up_pair_operand``);
+  and 4 affine gradients (the bf16 forward and dtaps as the up conv's, on
+  the pair joined once: ``up_pair_operand``);
 * ``up_block_fwd`` -> ``csrc/up_block.cu`` (``_up_block_fwd_impl``, kernel
   o) and ``dn_block_fwd`` -> ``csrc/dn_block.cu`` (``_dn_block_fwd_impl``,
   kernel p): a whole UpBlock's or DownBlock's training forward in one
@@ -706,13 +709,38 @@ def up_dual_conv_fwd_plain(x, tap_sets, corner_mode="average", with_stats=False)
     return (sets, [stats_plain(o) for o in sets]) if with_stats else sets
 
 
+def _phase_outputs(n, shape, dt, dev):
+    """n output phases of one shape as views of one allocation: one
+    allocator call where n would cost n of the wrapper's host time (autograd
+    forbids modifying such views in place, and no caller does)."""
+    return torch.empty((n, *shape), dtype=dt, device=dev).unbind(0)
+
+
+def _up_fwd_scratch(dt, B, h, w, cin, n_sets, cout, with_stats, dev):
+    """(stats outputs, their block partials, operand, packed taps) of the up
+    conv's forward: float32 the SIMT GEMM's partials (a row per 64-row tile
+    of each sample and phase) and no operand; bf16 the tensor-core GEMM's
+    (a row per row tile), and the operand and packed-taps scratch of its
+    first passes."""
+    if dt != torch.bfloat16:
+        return (*_stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), n_sets, cout, dev),
+                None, None)
+    _, row_tiles = build.mma_fwd_grid(B * 4 * 5 * h * w, n_sets * cout)
+    operand = torch.empty((operand_rows(B, h, w), build.operand_width(cin)), dtype=dt, device=dev)
+    wpack = torch.empty(build.packed_taps_shape(cin, n_sets * cout), dtype=dt, device=dev)
+    return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
+
+
 def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool = False):
     """An UpBlock's upsample s -> s+1 and first convs, fused.
 
     x: contiguous (B, 5, h, w, C_in) level-s grid, float32 or bfloat16;
     tap_sets: 1 or 2 (taps, bias) as for ``phase_conv_fwd``.
     Returns, per tap set, the 4 level-(s+1) output phases (B, 5, h, w, C_out);
-    with ``with_stats`` also the per-set (2, C_out) [Σy, Σy²].
+    with ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]. In bf16 four
+    kernels: the operand pass (``up_operand``), the taps packed side by side,
+    the tensor-core GEMM and the stats' fixed-order sum; in float32 the SIMT
+    GEMM and the sum.
     """
     if not on_cuda(x, "up_dual_conv_fwd"):
         return up_dual_conv_fwd_plain(x, tap_sets, corner_mode, with_stats)
@@ -722,16 +750,17 @@ def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool
     expect(x, (B, 5, h, w, cin), dt, dev, "up_dual_conv_fwd x")
     cout = _check_sets(tap_sets, cin, dt, dev, "up_dual_conv_fwd")
     n_sets = len(tap_sets)
-    outs = [torch.empty((B, 5, h, w, cout), dtype=dt, device=dev) for _ in range(4 * n_sets)]
+    outs = _phase_outputs(4 * n_sets, (B, 5, h, w, cout), dt, dev)
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
-    stats, ws = _stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), n_sets, cout, dev)
+    stats, ws, operand, wpack = _up_fwd_scratch(dt, B, h, w, cin, n_sets, cout, with_stats, dev)
     out_ptrs = build.ptr_array(outs)
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_fwd(
             x.data_ptr(), *_set_ptrs(tap_sets), out_ptrs, conv_table.data_ptr(),
-            up_table.data_ptr(), build.ptr(ws), *_pair(stats),
-            B, h, w, cin, cout, n_sets, build.dtype_code(dt), build.stream_ptr(dev),
+            up_table.data_ptr(), build.ptr(ws), *_pair(stats), build.ptr(operand),
+            build.ptr(wpack), B, h, w, cin, cout, n_sets, int(corner_mode == "zeros"),
+            build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_dual_conv_fwd", err)
     build.LAUNCHES["up_dual_conv_fwd"] += 1
@@ -1009,8 +1038,10 @@ def up_pair_fwd(b0, y10, affines, tap_sets, corner_mode: str = "average",
     add2), each (C_in,), the pending bn01 / bn10 applies; tap_sets: 2
     (taps, bias) as for ``up_dual_conv_fwd``. Computes ``up_dual_conv_fwd``
     of the grid that relu(b0·mul1 + add1 + y10·mul2 + add2), cast to the
-    dtype and interleaved, would be; that grid is never written. Returns,
-    per tap set, the 4 level-(s+1) phases (B, 5, h, w, C_out); with
+    dtype and interleaved, would be: in float32 the SIMT GEMM joins it on
+    load and it is never written; in bf16 it is joined once into a level-s
+    grid, and the up conv's operand pass and tensor-core GEMM run on it.
+    Returns, per tap set, the 4 level-(s+1) phases (B, 5, h, w, C_out); with
     ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]."""
     if not on_cuda(b0[0], "up_pair_fwd"):
         return up_pair_fwd_plain(b0, y10, affines, tap_sets, corner_mode, with_stats)
@@ -1019,15 +1050,17 @@ def up_pair_fwd(b0, y10, affines, tap_sets, corner_mode: str = "average",
     if len(tap_sets) != 2:
         raise ValueError(f"up_pair_fwd: takes 2 tap sets, got {len(tap_sets)}")
     cout = _check_sets(tap_sets, cin, dt, dev, "up_pair_fwd")
-    outs = [torch.empty((B, 5, h, w, cout), dtype=dt, device=dev) for _ in range(8)]
+    outs = _phase_outputs(8, (B, 5, h, w, cout), dt, dev)
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
-    stats, ws = _stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), 2, cout, dev)
+    stats, ws, operand, wpack = _up_fwd_scratch(dt, B, h, w, cin, 2, cout, with_stats, dev)
+    joined = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev) if operand is not None else None
     with torch.cuda.device(dev):
         err = build.library().gn_up_pair_fwd(
             build.ptr_array((*b0, *y10)), build.ptr_array(affines), *_set_ptrs(tap_sets),
             build.ptr_array(outs), conv_table.data_ptr(), up_table.data_ptr(), build.ptr(ws),
-            *_pair(stats), B, h, w, cin, cout, build.dtype_code(dt), build.stream_ptr(dev),
+            *_pair(stats), build.ptr(operand), build.ptr(joined), build.ptr(wpack), B, h, w,
+            cin, cout, int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_pair_fwd", err)
     build.LAUNCHES["up_pair_fwd"] += 1

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Peak device memory and time of bf16 training steps of the PyTorch port on one CUDA GPU.
 
-    python3 scripts/torch_step_memory.py [--root DIR] [--steps N]
+    python3 scripts/torch_step_memory.py [--root DIR] [--steps N] [--requests N]
 
 Trains the AE and the VAE (latent 512) at s=5, widths 64/128/256, B=36 on 36
 synthetic meshes with seeded random weights, on the default routing and on
 the decoder's chain (``phase_chain="dec"``, AE), and prints per model and
 routing: ``torch.cuda.max_memory_allocated()`` over the steps (after
 ``reset_peak_memory_stats``) and the median host-clock step time,
-synchronised. ``--root`` names the checkout whose ``geniconet_tpu_torch`` is
-imported (default: the one this script is in), so two commits can be
-compared on one card, each in its own process: run the old tree, the new,
-the new, the old.
+synchronised. Then serves the AE in bf16 (``AppState`` on 32 synthetic
+meshes) and prints the p50 host-clock latency of ``decode_latent`` (one
+mesh, latent in, vertices out) over ``--requests`` requests after 10, and
+the median CUDA-event time of encode+decode at B=16 over 20 after 3
+(with ``--steps 0`` alone). ``--root`` names the checkout whose ``geniconet_tpu_torch`` is imported
+(default: the one this script is in), so two commits can be compared on one
+card, each in its own process: run the old tree, the new, the new, the old.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--requests", type=int, default=200)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -42,7 +46,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dataset = synthetic_dataset(5, 36, seed=0)
-    for model, chain in (("ico2ico", None), ("ico2ico", "dec"), ("ico2ico_vae", None)):
+    runs = (("ico2ico", None), ("ico2ico", "dec"), ("ico2ico_vae", None))
+    for model, chain in runs if args.steps > 0 else ():  # --steps 0: serving alone
         cfg = Config()
         cfg.model.name, cfg.model.subdivisions, cfg.model.widths = model, 5, (64, 128, 256)
         cfg.model.latent_features, cfg.model.compute_dtype = 512, "bfloat16"
@@ -69,6 +74,42 @@ def main():
               f"synchronised) [{card}]", flush=True)
         del tr, st
         torch.cuda.empty_cache()
+    serving(args, card)
+
+
+def serving(args, card):
+    """The AE's bf16 serving latency: B=1 decode p50 and B=16 encode+decode."""
+    import torch
+
+    from geniconet_tpu_torch import Config, bridge
+    from geniconet_tpu_torch.app.state import AppState
+
+    cfg = Config()
+    cfg.model.name, cfg.model.subdivisions, cfg.model.widths = "ico2ico", 5, (64, 128, 256)
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.data.synthetic = 32
+    st = AppState(device="cuda")
+    st.load(cfg, bridge.init_variables(5, (64, 128, 256), seed=0, random_stats=True))
+    lat = []
+    for i in range(10 + args.requests):
+        t0 = time.perf_counter()
+        st.decode_latent(st.latents[i % 32])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    x = torch.as_tensor(st.dataset.inputs[:16], device="cuda")
+    times = []
+    with torch.inference_mode():
+        for i in range(23):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            st.model.decode(st.model.encode(x))
+            end.record()
+            end.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+    p50 = statistics.median(lat[10:])
+    print(f"[serving] {args.root} ico2ico bf16: p50 decode_latent {p50:.3f} ms (host clock, "
+          f"{args.requests} requests); encode+decode B=16 "
+          f"{statistics.median(times):.3f} ms (median of 20, CUDA events) [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -525,6 +525,15 @@ def _merge(groups):
     return [(phase_merge(tuple(g)).contiguous(),) for g in groups]
 
 
+def _within_ulp(got, ref):
+    """Each bf16 tensor within one bf16 ulp of its max|ref|, plus 1e-5·max|ref|
+    of float32 noise: what float32 sums taken in two orders, each rounded to
+    bf16 (or summed from such roundings), can differ by."""
+    for u, v in zip(_flat_all(got), _flat_all(ref)):
+        err, scale = (u.float() - v.float()).abs().max().item(), v.float().abs().max().item()
+        assert u.dtype == v.dtype and err <= (2**-7 + 1e-5) * scale, (err, scale)
+
+
 def _equal_all(got, ref):
     for u, v in zip(got, ref):
         if isinstance(v, (tuple, list)):
@@ -793,16 +802,22 @@ def _check_affine(mul, add, s00, count, gamma, beta):
 @pytest.mark.parametrize("s", [3, 4])
 def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
     """Kernel o against the split route on the card: y00, y10, s00 and s10
-    equal ``up_dual_conv_fwd`` with stats, bit for bit; mul00 and add00 are
-    bn00's affine of s00 (``_check_affine``); b0 and s01 equal
-    ``phase_conv_fwd`` of y00 with that affine, bit for bit; and every
-    output is within the tolerance of ``up_block_fwd_plain``."""
+    equal ``up_dual_conv_fwd`` with stats, bit for bit in float32 (both the
+    SIMT tile); in bf16 the split up conv runs the tensor-core GEMM, whose
+    float32 sums are taken in another order, so each is within one bf16 ulp
+    of max|ref| (plus 1e-5·max|ref|); mul00 and add00 are bn00's affine of
+    s00 (``_check_affine``); b0 and s01 equal ``phase_conv_fwd`` of y00 with
+    that affine, bit for bit; and every output is within the tolerance of
+    ``up_block_fwd_plain``."""
     x, _, _ = _inputs(cuda, dt, s, 12, 20, seed=180 + s)
     sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=190 + s)
     got = pk.up_block_fwd(x, sets, gamma, beta, corner_mode)
     b0, y10, y00, s00, s01, s10, mul, add = got
     ref_sets, ref_stats = pk.up_dual_conv_fwd(x, sets[:2], corner_mode, True)
-    _equal_all((y00, y10, s00, s10), (*ref_sets, *ref_stats))
+    if dt == torch.float32:
+        _equal_all((y00, y10, s00, s10), (*ref_sets, *ref_stats))
+    else:
+        _within_ulp((y00, y10, s00, s10), (*ref_sets, *ref_stats))
     _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
     (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], corner_mode, (0, 1, 2, 3),
                                               (mul, add), True)
@@ -994,10 +1009,11 @@ def test_mma_dtaps_one_tap_set(cuda, cin, cout):
         _close_all(got, pk.up_dual_conv_dtaps_plain(x, g, "average", **fk), torch.bfloat16)
 
 
-def _bf16_step(cuda, model, plain_dtaps):
+def _bf16_step(cuda, model, plain=None):
     """One bf16 training forward and backward of the s=4 model on the default
-    route; with ``plain_dtaps`` the up conv's dtaps is its plain version on
-    the card tensors. (loss, launches, gradients)."""
+    route; ``plain`` names a kernel wrapper that ``ops/kernels/fused.py``
+    calls (``up_dual_conv_dtaps``, ``up_dual_conv_fwd``), which then runs its
+    plain version on the card tensors. (loss, launches, gradients)."""
     from unittest import mock
 
     import geniconet_tpu_torch.nn.models as models
@@ -1024,9 +1040,8 @@ def _bf16_step(cuda, model, plain_dtaps):
         return eps.to(cuda, std.dtype) * std + mu
 
     patches = [mock.patch.object(models, "reparameterize", fixed)]
-    if plain_dtaps:
-        patches.append(mock.patch.object(fused, "up_dual_conv_dtaps",
-                                         pk.up_dual_conv_dtaps_plain))
+    if plain is not None:
+        patches.append(mock.patch.object(fused, plain, getattr(pk, f"{plain}_plain")))
     build.reset_launches()
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -1051,9 +1066,9 @@ def test_bf16_step_with_the_mma_dtaps(cuda, model):
     of the other: |got - ref| <= 2^-7·max|ref| (plus 1e-5·max|ref| of
     float32 noise). Every other gradient and the loss are equal bit for
     bit."""
-    loss, launches, grads = _bf16_step(cuda, model, plain_dtaps=False)
+    loss, launches, grads = _bf16_step(cuda, model)
     assert launches["up_dual_conv_dtaps"] == 3
-    ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain_dtaps=True)
+    ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain="up_dual_conv_dtaps")
     assert "up_dual_conv_dtaps" not in ref_launches
     assert loss == ref_loss
     up_taps = [k for k in grads if k.startswith("decoder.up") and
@@ -1074,3 +1089,111 @@ def test_mma_dtaps_occupancy(cuda):
         for fold in (False, True):
             info = build.mma_dtaps_info(pair, fold)
             assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (pair, fold, info)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward of the up conv and of n on the tensor cores: the operand
+# pass, the taps packed once, then the GEMM with the stats epilogue
+# ---------------------------------------------------------------------------
+
+# (level s of the input grid, C_in, C_out) of the s=5 models' up convs: the
+# AE's up0-2 and the VAE's up0 (from its 512-channel latent)
+MODEL_UPS = {"AE up0": (2, 256, 256), "AE up1": (3, 256, 128), "AE up2": (4, 128, 64),
+             "VAE up0": (2, 512, 256)}
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("site", list(MODEL_UPS))
+def test_mma_fwd_at_the_model_widths(cuda, site, with_stats):
+    """The up conv's bf16 forward at a site of the s=5 models (B=2) against
+    its plain version (float32 sums, then bf16): the products are exact and
+    both sum in float32, so each output is within one bf16 ulp of its
+    max|ref| (``_within_ulp``); the stats, sums of those outputs, within
+    TOL."""
+    s, cin, cout = MODEL_UPS[site]
+    x, _, sets = _inputs(cuda, torch.bfloat16, s, cin, cout, seed=260 + s)
+    build.reset_launches()
+    got = pk.up_dual_conv_fwd(x, sets, "average", with_stats)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["up_dual_conv_fwd"] == 1
+    ref = pk.up_dual_conv_fwd_plain(x, sets, "average", with_stats)
+    outs, ref_outs = (got[0], ref[0]) if with_stats else (got, ref)
+    _within_ulp(outs, ref_outs)
+    if with_stats:
+        _close_all(got[1], ref[1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("cin, cout", [(12, 20), (16, 64), (20, 9)])
+def test_mma_fwd_tap_sets_and_widths(cuda, cin, cout, corner_mode):
+    """The bf16 forward with 1 and 2 tap sets, with and without stats, at
+    widths the model has not: C_in 12 and 20 (the operand's ragged channel
+    pass; a 32-channel step half past C_in), C_out 20 (two sets in one
+    column tile), 9 (odd: one-column stores) and a bias of None, against
+    its plain version (``_within_ulp`` on the outputs, TOL on the stats);
+    without stats the outputs are the same GEMM's, bit for bit."""
+    x, _, sets = _inputs(cuda, torch.bfloat16, 3, cin, cout, seed=270 + cin)
+    for tap_sets in (sets, sets[:1], [(sets[0][0], None)]):
+        got, stats = pk.up_dual_conv_fwd(x, tap_sets, corner_mode, True)
+        ref, ref_stats = pk.up_dual_conv_fwd_plain(x, tap_sets, corner_mode, True)
+        assert len(got) == len(tap_sets)
+        _within_ulp(got, ref)
+        _equal_all(pk.up_dual_conv_fwd(x, tap_sets, corner_mode), got)
+        _close_all(stats, ref_stats, torch.bfloat16)
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_mma_fwd(cuda, model):
+    """A bf16 training step of the default route with the tensor-core
+    forward at up0-2, against the same step with the up conv's forward
+    patched to its plain version on the card tensors. The two forwards
+    differ by at most one bf16 ulp an output (float32 sums in another
+    order), and those roundings carry through the BatchNorms, nine later
+    convs and the backward: the loss within 1e-2 of its value and every
+    gradient within 5e-2·max|ref| (the tolerance of
+    ``test_model_kernel_route_matches_plain_route`` for bf16 roundings that
+    compound through the model), but for the conv biases: each feeds a
+    BatchNorm, so its exact gradient is 0 and it is held against its taps'
+    scale, as ``test_merged_block_step_equals_the_split_route`` does."""
+    loss, launches, grads = _bf16_step(cuda, model)
+    assert launches["up_dual_conv_fwd"] == 3
+    ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain="up_dual_conv_fwd")
+    assert "up_dual_conv_fwd" not in ref_launches
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
+    rel = {}
+    for k, g in grads.items():
+        scale_of = k[: -len("bias")] + "taps" if "conv" in k and k.endswith(".bias") else k
+        err = (g.float() - ref[k].float()).abs().max().item()
+        rel[k] = err / ref[scale_of].float().abs().max().item()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    assert worst[0][1] <= 5e-2, worst
+
+
+def test_mma_fwd_has_no_fallback(cuda):
+    """A bf16 call whose operand scratch is missing raises (the C entry
+    refuses it) rather than running the SIMT core."""
+    from unittest import mock
+
+    x, _, sets = _inputs(cuda, torch.bfloat16, 2, 16, 8, seed=280)
+    scratch = pk._up_fwd_scratch
+
+    def without_operand(*args):
+        stats, ws, _, wpack = scratch(*args)
+        return stats, ws, None, wpack
+
+    with mock.patch.object(pk, "_up_fwd_scratch", without_operand):
+        with pytest.raises(RuntimeError, match="up_dual_conv_fwd"):
+            pk.up_dual_conv_fwd(x, sets)
+        b0, y10, aff = _pair(cuda, torch.bfloat16, 2, 16, seed=281)
+        with pytest.raises(RuntimeError, match="up_pair_fwd"):
+            pk.up_pair_fwd(b0, y10, aff, sets)
+
+
+def test_mma_fwd_occupancy(cuda):
+    """Each instantiation of the tensor-core forward GEMM (the up conv and n,
+    with stats or not) fits 2 blocks an SM with no local memory (no
+    spill)."""
+    for pair in (False, True):
+        for stats in (False, True):
+            info = build.mma_fwd_info(pair, stats)
+            assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (pair, stats, info)

@@ -106,6 +106,17 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::pair_join_pass<__nv_bfloat16>"
                                "(gn::PairCells<__nv_bfloat16>, __nv_bfloat16*)"},
      "up_operand_pass<bf16> (n)"),
+    # the bf16 forward of the up conv and of n: the GEMM's rows and the tap pack
+    ({"cat": "kernel", "name": "void gn::mma_conv_fwd<gn::GridCells<__nv_bfloat16>, true>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdOut, int)"},
+     "mma_conv_fwd<bf16> (up conv)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv_fwd<gn::PairCells<__nv_bfloat16>, false>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdOut, int)"},
+     "mma_conv_fwd<bf16> (n)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps<__nv_bfloat16>(__nv_bfloat16 const*, "
+                               "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, "
+                               "long long)"},
+     "pack_taps (up conv, n)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
