@@ -50,10 +50,11 @@ printed on its own lines, each fatal on failure:
    (``dn_block_fwd``) at every block they run at, each beside the split
    pair it replaces (the first conv with stats; bn00's affine and conv01
    with stats) and cuDNN's two contractions. The bf16 forward of the up
-   conv and of n (serving and training shapes) and their dtaps (d, n's)
+   conv and of n (serving and training shapes), their dtaps (d, n's) and
+   the grid convs' dtaps (b, f; a C_in of at most 64 on the NARROW tile)
    also print their parts from a trace: the operand pass against its byte
-   bound, the forward's tap pack, the tensor-core GEMM's TFLOP/s, the
-   partials' sum, and the GEMM's registers and blocks an SM;
+   bound, the forward's tap pack, the tensor-core GEMM's TFLOP/s, the sums,
+   and the GEMM's registers and blocks an SM;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -85,7 +86,9 @@ printed on its own lines, each fatal on failure:
 8. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
-   trace, with the device's idle share; the Chrome traces are kept in
+   trace, with the device's idle share; every bf16 call of b and f must
+   show its operand pass and tensor-core GEMM there, and no window the
+   SIMT ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are kept in
    ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
@@ -184,11 +187,13 @@ KERNELS = {
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's and n's
-# forward and dtaps run the operand pass of csrc/mma.cuh and the
-# tensor-core GEMMs of csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
+# forward and dtaps, and the grid convs' dtaps (b, f), run an operand pass
+# of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
+# csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
-              for k in ("up_dual_conv_dtaps", "up_pair_dtaps")},
+              for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
+                        "ico_conv_s2s_dtaps")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
@@ -394,30 +399,45 @@ class Case:
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
-def mma_parts(call, flops, inputs, grid, pair, fold, fwd=False):
-    """The bf16 forward (``fwd``; ``fold``: with stats) or dtaps (``fold``:
-    with the stats fold) of the up conv (``pair`` False) or n from a trace:
-    its operand pass (against its bound: the inputs it reads once,
-    ``inputs``, and the operand of the level-s grid (B, h, w, C_in) it
-    writes), the forward's tap pack, the tensor-core GEMM (achieved TFLOP/s
-    against the bf16 peak), the partials' sum; and the GEMM instantiation's
+def mma_parts(call, flops, inputs, operand, info):
+    """A bf16 tensor-core kernel's parts from a trace (the up conv's and n's
+    forward and dtaps, b's and f's dtaps): its operand pass (against its
+    bound: the inputs it reads once, ``inputs``, and the bf16 operand of
+    ``operand`` = (rows, width) it writes), the forward's tap pack, the
+    tensor-core GEMM (achieved TFLOP/s against the bf16 peak), the sums
+    (the partials' and Σg's); and ``info``, the GEMM instantiation's
     registers a thread, blocks an SM, shared and local memory as the runtime
-    reports them."""
-    from geniconet_tpu_torch.ops.kernels import build
-    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
-
+    reports them (``build.mma_dtaps_info``, ``grid_dtaps_info``,
+    ``mma_fwd_info``)."""
     rows = trace_kernels(call, per_launch=True)
-    B, h, w, cin = grid
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
-    op_bytes += pk.operand_rows(B, h, w) * build.operand_width(cin) * 2
+    op_bytes += operand[0] * operand[1] * 2
     gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_"))
-    info = build.mma_fwd_info(pair, fold) if fwd else build.mma_dtaps_info(pair, fold)
-    return {"operand_ms": sum(ms for k, ms in rows.items() if k.startswith("up_operand_pass")),
+    return {"operand_ms": sum(ms for k, ms in rows.items() if "operand_pass" in k),
             "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3,
             "pack_ms": sum(ms for k, ms in rows.items() if k.startswith("pack_taps")),
             "gemm_ms": gemm, "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
             "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
             "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")), **info}
+
+
+def up_operand(B, h, w, cin):
+    """(rows, width) of the up conv's (and n's) operand of a level-s grid."""
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    return pk.operand_rows(B, h, w), build.operand_width(cin)
+
+
+def grid_parts(call, flops, inputs, B, h, w, cin, n_src, fold):
+    """``mma_parts`` of b (``n_src`` 4) or f (1) at (B, h, w, C_in), with
+    the fold or without, on the tile ``build.mma_narrow`` picks."""
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    return mma_parts(call, flops, inputs,
+                     (pk.grid_operand_rows(B, h, w, n_src), build.operand_width(cin)),
+                     build.grid_dtaps_info(n_src == 1, fold, build.mma_narrow(cin)))
 
 
 def conv_flops(B, cells, cin, ntot):
@@ -446,6 +466,7 @@ def cudnn(kind, gen, dt, n, cin, cout, hp, wp, stride=1):
 
 def serving_cases():
     """(kernel, label, make(dtype, gen) -> Case, group) at the serving shapes."""
+    from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -471,7 +492,8 @@ def serving_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
             call = lambda: pk.up_dual_conv_fwd(x, sets)  # noqa: E731
             flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
-            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, False, True)
+            parts = (lambda: mma_parts(call, flops, [x], up_operand(B, h, w, cin),
+                                       build.mma_fwd_info(False, False))
                      ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_dual_conv_fwd_plain(x, sets), flops, [x, sets],
                         cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
@@ -539,8 +561,9 @@ def serving_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
             call = lambda: pk.up_pair_fwd(b0, y10, aff, sets)  # noqa: E731
             flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
-            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, False,
-                                       True)) if dt == torch.bfloat16 else None
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], up_operand(B, h, w, cin),
+                                       build.mma_fwd_info(True, False))
+                     ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets), flops,
                         [b0, y10, aff, sets],
                         cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
@@ -576,6 +599,7 @@ def training_cases():
     (s=5, B=36): the forward kernels with BatchNorm stats, the six conv
     backward kernels with the stats fold, the head's backward, and the
     head+MSE forward and backward."""
+    from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
@@ -609,7 +633,8 @@ def training_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
             call = lambda: pk.up_dual_conv_fwd(x, sets, "average", True)  # noqa: E731
             flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
-            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, True, True)
+            parts = (lambda: mma_parts(call, flops, [x], up_operand(B, h, w, cin),
+                                       build.mma_fwd_info(False, True))
                      ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_dual_conv_fwd_plain(x, sets, "average", True), flops,
                         [x, sets],
@@ -647,8 +672,11 @@ def training_cases():
                             [g, [t for t, _ in sets], a, ph, y, gs], lib)
             args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs,
                     emit_gsum or not fold)
-            return Case(lambda: pk.phase_conv_dtaps(*args),
-                        lambda: pk.phase_conv_dtaps_plain(*args), flops, [ph, g, a, y, gs], lib)
+            call = lambda: pk.phase_conv_dtaps(*args)  # noqa: E731
+            parts = (lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, fold)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: pk.phase_conv_dtaps_plain(*args), flops,
+                        [ph, g, a, y, gs], lib, parts=parts)
         return make
 
     def split_fwd(h, w, cin, cout, with_act):
@@ -719,8 +747,9 @@ def training_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
             call = lambda: pk.up_pair_fwd(b0, y10, aff, sets, "average", True)  # noqa: E731
             flops = conv_flops(B, 4 * 5 * h * w, cin, 2 * cout)
-            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, True,
-                                       True)) if dt == torch.bfloat16 else None
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], up_operand(B, h, w, cin),
+                                       build.mma_fwd_info(True, True))
+                     ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_pair_fwd_plain(b0, y10, aff, sets, "average", True),
                         flops, [b0, y10, aff, sets],
                         cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2),
@@ -745,7 +774,8 @@ def training_cases():
                             [*reads, [t for t, _ in sets]], lib)
             args = (b0, y10, aff, g, "average")
             call = lambda: pk.up_pair_dtaps(*args, **fk)  # noqa: E731
-            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], (B, h, w, cin), True, fold)
+            parts = (lambda: mma_parts(call, flops, [b0, y10, aff], up_operand(B, h, w, cin),
+                                       build.mma_dtaps_info(True, fold))
                      ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_pair_dtaps_plain(*args, **fk), flops, reads, lib,
                         parts=parts)
@@ -765,7 +795,8 @@ def training_cases():
                             [g, [t for t, _ in sets], y, gs], lib)
             args = (x, g, "average", y, gs)
             call = lambda: pk.up_dual_conv_dtaps(*args)  # noqa: E731
-            parts = (lambda: mma_parts(call, flops, [x], (B, h, w, cin), False, True)
+            parts = (lambda: mma_parts(call, flops, [x], up_operand(B, h, w, cin),
+                                       build.mma_dtaps_info(False, True))
                      ) if dt == torch.bfloat16 else None
             return Case(call, lambda: pk.up_dual_conv_dtaps_plain(*args), flops, [x, g, y, gs],
                         lib, parts=parts)
@@ -784,8 +815,11 @@ def training_cases():
                             lambda: ck.ico_conv_s2s_dx_plain(*args), flops, [g, t, a, x, y, gs],
                             lib)
             args = (x, g, "average", a, y, gs)
-            return Case(lambda: ck.ico_conv_s2s_dtaps(*args),
-                        lambda: ck.ico_conv_s2s_dtaps_plain(*args), flops, [x, g, a, y, gs], lib)
+            call = lambda: ck.ico_conv_s2s_dtaps(*args)  # noqa: E731
+            parts = (lambda: grid_parts(call, flops, [x, a], B, h, w, c, 1, True)
+                     ) if dt == torch.bfloat16 else None
+            return Case(call, lambda: ck.ico_conv_s2s_dtaps_plain(*args), flops,
+                        [x, g, a, y, gs], lib, parts=parts)
         return make
 
     def head_mse(which, h, w, c):
@@ -1274,15 +1308,19 @@ def kernel_group(event: dict) -> str:
     if event.get("cat") != "kernel":
         return event.get("cat", "other")  # gpu_memcpy, gpu_memset
     dtype = "bf16" if "bfloat16" in name else "fp32"
-    # the bf16 up conv and n: the operand pass (the forward's and d's), the
-    # forward's tap pack, the tensor-core GEMMs (by the cells they read: the
-    # up conv's grid, or the pair)
+    # the bf16 tensor-core kernels: the operand passes (the up conv's
+    # forward's and d's, n's; b's and f's), the forward's tap pack, the GEMMs
+    # (by the rows they read: the up conv's grid, the pair, the phase conv's
+    # phases, the standard conv's grid)
     pair = "PairCells" in name
     which = "(n)" if pair else "(d)"
+    grid = "(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name else None
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
+    if "grid_operand_pass" in name:
+        return f"grid_operand_pass<{dtype}> {grid}"
     if "mma_dtaps" in name:
-        return f"mma_dtaps<bf16> {which}"
+        return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv_fwd" in name:
         return f"mma_conv_fwd<bf16> {'(n)' if pair else '(up conv)'}"
     if "pack_taps" in name:
@@ -1371,6 +1409,7 @@ def device_profile(workloads, card: str):
             g[0] += 1
             g[1] += e["dur"] / 1e3
         summed = sum(ms for _, ms in groups.values()) / iters
+        check_device_launches(tag, groups, launches, iters)
         print(f"[profile bfloat16 {tag}] {iters} iterations: host wall {wall:.4f} ms/iter "
               f"(profiler off); device busy {busy:.4f} ms/iter (union of {len(events) / iters:.1f} "
               f"device events/iter, summed {summed:.4f} ms); device idle share "
@@ -1385,6 +1424,29 @@ def device_profile(workloads, card: str):
                 glue[e["name"][:80]] += e["dur"] / 1e3 / iters
         for name, ms in glue.most_common(5):
             print(f"[profile bfloat16 {tag}]     top {name}: {ms:.4f} ms/iter", flush=True)
+
+
+# the profile rows of the device launches of one bf16 call of b and of f,
+# beside the sums: the operand pass and the tensor-core GEMM, once each
+GRID_DTAPS_ROWS = {"phase_conv_dtaps": "(b)", "ico_conv_s2s_dtaps": "(f)"}
+
+
+def check_device_launches(tag, groups, launches, iters):
+    """Fail unless, in a profiled bf16 window, the calls of b and f
+    (``launches``, wrapper calls an iteration) ran their operand pass and
+    their tensor-core GEMM (each row present where the wrapper ran, and at
+    most once a call: a trace may lose events, never add them), and no
+    launch of the SIMT ``dtaps_gemm<bf16, GridLoad>`` (m's split loader has
+    its own row)."""
+    for wrapper, which in GRID_DTAPS_ROWS.items():
+        calls = launches.get(wrapper, 0)
+        for row in (f"grid_operand_pass<bf16> {which}", f"mma_dtaps<bf16> {which}"):
+            n = groups[row][0] / iters if row in groups else 0
+            if (calls > 0) != (n > 0) or n > calls:
+                raise AssertionError(f"profile {tag}: {row} {n} a step for {calls} calls of "
+                                     f"{wrapper}")
+    if "dtaps_gemm<bf16, GridLoad>" in groups:
+        raise AssertionError(f"profile {tag}: the SIMT dtaps_gemm<bf16, GridLoad> ran")
 
 
 def serving_workloads(st, tag="", b1=True):

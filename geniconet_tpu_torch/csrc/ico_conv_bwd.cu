@@ -17,16 +17,19 @@
 // cells that read it with their weights (1, or 0.2 for each of the 5 cells
 // of a pole mean), and the dx GEMM's operand element sums those rows of g.
 // The act adjoint runs in the epilogue, after the halo transpose, since the
-// pole means are means of activated values. dtaps re-gathers the activated
-// forward operand through the forward table and reduces over the B * 5hw
+// pole means are means of activated values. dtaps reduces over the B * 5hw
 // rows in chunks; the fixed-order second pass writes the sum rounded to the
-// activation dtype (the Pallas wrapper's out.astype(x.dtype)). No atomics:
-// every result is the same from run to run.
+// activation dtype (the Pallas wrapper's out.astype(x.dtype)). In float32
+// it re-gathers the activated forward operand through the forward table on
+// the SIMT core; in bf16 it writes that operand once (the act-applied grid
+// and each sample's two pole rows) and runs gn::mma_dtaps on the tensor
+// cores over its gathered rows (mma_dtaps.cuh, which also says what bounds
+// it). No atomics: every result is the same from run to run.
 //
-// What bounds it on the card: the float32 FMA rate of the SIMT GEMM core,
-// 2 * 7 * C_in * C_out FLOPs per cell for each of dx and dtaps (at the
-// DownBlocks' conv01 shapes, B=36: 1.3-5.3 GFLOP a call), against
-// (2-3) * B * 5hw * C bytes of g, x and dx.
+// What bounds dx (and float32 dtaps) on the card: the float32 FMA rate of
+// the SIMT GEMM core, 2 * 7 * C_in * C_out FLOPs per cell for each of dx
+// and dtaps (at the DownBlocks' conv01 shapes, B=36: 1.3-5.3 GFLOP a call),
+// against (2-3) * B * 5hw * C bytes of g, x and dx.
 //
 // The merged kernel is gn::merged_bwd (backward.cuh): dx tiles over
 // halo.std_dx_table with the act adjoint and d_mul/d_add partials, dtaps
@@ -34,7 +37,9 @@
 // _std_bwd_kernel) with the Σg_eff partials, which _std_bwd always emits.
 // One launch, then the fixed-order sum_rows passes (dtaps rounded to the
 // activation dtype); the two roles each read g (see phase_conv_bwd.cu).
-#include "backward.cuh"
+#include <type_traits>
+
+#include "mma_dtaps.cuh"
 
 namespace {
 
@@ -75,10 +80,13 @@ cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, 
   return gn::launch_gsum<T>(gl, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
 }
 
+// float32: the SIMT GEMM over GridLoad; bf16: the operand pass into
+// `operand`, then the tensor-core GEMM; either way the sum rounded to T.
 template <typename T>
 cudaError_t dtaps(const void* x, const float* mul, const float* add, const void* g,
-                  const void* y, const float* gs, const int* table, float* ws, void* out, int B,
-                  int h, int w, int cin, int cout, int kc, int n_chunks, cudaStream_t stream) {
+                  const void* y, const float* gs, const int* table, float* ws, void* out,
+                  void* operand, int B, int h, int w, int cin, int cout, int kc, int n_chunks,
+                  int zero_poles, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
   gn::GridLoad<T> ld = {};
@@ -89,13 +97,19 @@ cudaError_t dtaps(const void* x, const float* mul, const float* add, const void*
   ld.hw5 = M;
   ld.cin = cin;
   ld.south_src = 0;
-  dim3 grid((7 * cin + gn::BM - 1) / gn::BM, (cout + gn::BN - 1) / gn::BN, n_chunks);
-  gn::dtaps_gemm<T, gn::GridLoad<T> ><<<grid, gn::NT, 0, stream>>>(ld, gl, table, cin, 1, 0,
-                                                                    B * M, kc, ws);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  CastOut<T> st = {static_cast<T*>(out)};
-  return gn::launch_sum_rows(ws, n_chunks, 7LL * cin * cout, st, stream);
+  const CastOut<T> st = {static_cast<T*>(out)};
+  if constexpr (std::is_same_v<T, float>) {
+    dim3 grid((7 * cin + gn::BM - 1) / gn::BM, (cout + gn::BN - 1) / gn::BN, n_chunks);
+    gn::dtaps_gemm<T, gn::GridLoad<T> ><<<grid, gn::NT, 0, stream>>>(ld, gl, table, cin, 1, 0,
+                                                                      B * M, kc, ws);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return gn::launch_sum_rows(ws, n_chunks, 7LL * cin * cout, st, stream);
+  } else {
+    return gn::launch_grid_mma_dtaps<gn::StdGrid>(ld, 1, gl, table, 0, 1,
+                                                  static_cast<T*>(operand), zero_poles, B, cin, 1,
+                                                  kc, n_chunks, ws, st, stream);
+  }
 }
 
 template <typename T>
@@ -157,21 +171,36 @@ extern "C" int gn_ico_conv_dx(const void* g, const void* y, const float* gs, con
 // x: the raw input (B, 5, h, w, cin); mul/add: the act prologue or null;
 // g, y, gs: as in gn_ico_conv_dx; table: halo.std_conv_table; ws: float32
 // scratch of (n_chunks, 7 * cin, cout), the B * 5hw rows split in chunks of
-// kc (a multiple of 16); out: dtaps (7, cin, cout) in the activation dtype.
+// kc (float32: a multiple of 16, build.dtaps_split; bfloat16: of 32,
+// build.grid_dtaps_split); out: dtaps (7, cin, cout) in the activation
+// dtype; operand: bfloat16 only, scratch of (B * (5hw + 2) + 1, cin rounded
+// up to 8) for the act-applied operand (zero_poles: corner_mode "zeros").
 // dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_ico_conv_dtaps(const void* x, const float* mul, const float* add,
                                  const void* g, const void* y, const float* gs, const int* table,
-                                 float* ws, void* out, int B, int h, int w, int cin, int cout,
-                                 int kc, int n_chunks, int dtype, void* stream) {
+                                 float* ws, void* out, void* operand, int B, int h, int w,
+                                 int cin, int cout, int kc, int n_chunks, int zero_poles,
+                                 int dtype, void* stream) {
   if (kc % gn::BK != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(x, mul, add, g, y, gs, table, ws, out, B, h, w, cin, cout, kc, n_chunks,
-                        s);
+    return dtaps<float>(x, mul, add, g, y, gs, table, ws, out, nullptr, B, h, w, cin, cout, kc,
+                        n_chunks, zero_poles, s);
   if (dtype == 1)
-    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs, table, ws, out, B, h, w, cin, cout, kc,
-                                n_chunks, s);
+    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs, table, ws, out, operand, B, h, w, cin,
+                                cout, kc, n_chunks, zero_poles, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of f's tensor-core GEMM, with the fold or without, on the
+// NARROW tile (a C_in of at most 64) or the wide one.
+extern "C" int gn_ico_conv_dtaps_info(int narrow, int fold, int* out) {
+  using Tag = gn::StdGrid;
+  if (narrow)
+    return fold ? gn::mma_dtaps_info<Tag, true, true>(out)
+                : gn::mma_dtaps_info<Tag, false, true>(out);
+  return fold ? gn::mma_dtaps_info<Tag, true>(out) : gn::mma_dtaps_info<Tag, false>(out);
 }
 
 // The merged backward (_std_bwd, stride 1). x: the raw input (B, 5, h, w,

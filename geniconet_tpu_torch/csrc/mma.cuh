@@ -1,17 +1,23 @@
-// What the tensor-core cores of the up convs share (bf16): the upsampled
-// operand (its row layout, the pass that writes it once, the loader that
-// names its rows through the conv table) and the mma.sync primitives.
-// mma_dtaps.cuh (the tap gradients, d and n) and mma_conv_fwd.cuh (the
-// forward, the up conv and n) build their GEMMs on them.
+// What the tensor-core GEMMs share (bf16): the operand (its row layout, the
+// passes that write it once, the loader that names its rows through the
+// conv table) and the mma.sync primitives. The operand is the up convs'
+// upsampled level-(s+1) grid (up_operand_pass) or the grid convs'
+// act-applied input (grid_operand_pass). mma_dtaps.cuh (the tap gradients:
+// d, n, b and f) and mma_conv_fwd.cuh (the forward: the up conv and n)
+// build their GEMMs on them.
 #pragma once
 
 #include "common.cuh"
 
 namespace gn {
 
-// the operand rows' layout, shared by the pass and the GEMM's loader
+// the operand rows' layout, shared by the passes and the GEMMs' loader: per
+// sample its n_src * 5hw cells (4 phases, or 1 standard grid), then its 2
+// pole rows; after the last sample one zero row
 __host__ __device__ __forceinline__ int operand_width(int cin) { return (cin + 7) & ~7; }
-__host__ __device__ __forceinline__ int operand_per_sample(int hw5) { return 4 * hw5 + 2; }
+__host__ __device__ __forceinline__ int operand_per_sample(int hw5, int n_src = 4) {
+  return n_src * hw5 + 2;
+}
 
 // The operand pass's loads 8 channels at a time, where C_in is a multiple
 // of 8 (16-byte rows): gn::UpLoad's pcell / ucell / pole arithmetic, value
@@ -193,8 +199,8 @@ pair_join_pass(PairCells<T> x, T* __restrict__ out, int hw5, int cin, int vec, l
 // Write the (B * (4 * 5hw + 2) + 1, operand_width(cin)) operand of a level-s
 // grid; Tag names the pass (GridCells: d's, PairCells: n's).
 template <typename T, typename Tag>
-cudaError_t launch_grid_operand(const UpLoad<T>& ld, T* out, int B, int zero_poles,
-                                cudaStream_t stream) {
+cudaError_t launch_upsampled_operand(const UpLoad<T>& ld, T* out, int B, int zero_poles,
+                                     cudaStream_t stream) {
   const long long rows = (long long)B * operand_per_sample(ld.hw5) + 1;
   const long long total = rows * (operand_width(ld.cin) / 8);
   const int vec = ld.cin % 8 == 0 && aligned16(ld.x);
@@ -207,7 +213,7 @@ cudaError_t launch_grid_operand(const UpLoad<T>& ld, T* out, int B, int zero_pol
 template <typename T>
 cudaError_t launch_up_operand(const UpLoad<T>& ld, T* out, void*, int B, int zero_poles,
                               cudaStream_t stream) {
-  return launch_grid_operand<T, GridCells<T>>(ld, out, B, zero_poles, stream);
+  return launch_upsampled_operand<T, GridCells<T>>(ld, out, B, zero_poles, stream);
 }
 
 // ... or of a pair (n): the pair joined once into `joined`, (B, 5, h, w,
@@ -228,25 +234,109 @@ cudaError_t launch_up_operand(const UpLoad<T, PairCells<T>>& ld, T* out, T* join
   grid.hw = ld.hw;
   grid.hw5 = ld.hw5;
   grid.cin = ld.cin;
-  return launch_grid_operand<T, PairCells<T>>(grid, out, B, zero_poles, stream);
+  return launch_upsampled_operand<T, PairCells<T>>(grid, out, B, zero_poles, stream);
 }
 
-// The operand's row loader of both GEMMs: rows of a built operand named
-// by the conv table of output phase slot, tap t and cell m.
+// The grid convs' operand (b: the phase conv's 4 input phases, f: the
+// standard conv's grid): one thread writes 8 channels of one row, the
+// act-applied cell (act_apply, rounded to T; the raw cell without act) or a
+// pole row, the 5-chart mean of cell 0 of source 0 (NORTH) / of cell hw-1
+// of source south_src (SOUTH) with GridLoad's sums and roundings (zeros
+// under corner_mode "zeros"), or the zero row. A cell's source-space code
+// s * 5hw + cell is its row within the sample, so GridLoad names both. vec:
+// C_in is a multiple of 8 and the sources 16-byte aligned (8-channel
+// loads); otherwise channel by channel through GridLoad itself. Tag names
+// the instantiation (the phase conv's or the standard conv's) for a profile.
+template <typename T>
+__device__ __forceinline__ void act8(const GridLoad<T>& ld, const Cells8<GridCells<T>>& x, int b,
+                                     int r, float (&v)[8]) {
+  x(b, r, v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = act_apply<T>(v[e], ld.mul, ld.add, x.k0 + e);
+}
+
+template <typename T, typename Tag>
+__global__ void __launch_bounds__(256)
+grid_operand_pass(GridLoad<T> ld, T* __restrict__ out, int B, int n_src, int zero_poles, int vec,
+                  long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int ldk = operand_width(ld.cin), chunks = ldk / 8;
+  const long long r = i / chunks;
+  const int c = (int)(i - r * chunks);
+  const int per = operand_per_sample(ld.hw5, n_src), cells = n_src * ld.hw5;
+  const int b = (int)(r / per), rr = (int)(r - (long long)b * per);
+  const bool pole = rr >= cells, live = b < B && !(pole && zero_poles);
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (live && vec) {
+    if (!pole) {
+      const int s = rr / ld.hw5;
+      act8(ld, Cells8<GridCells<T>>({pick4(ld.src, s)}, c * 8, ld.hw5, ld.cin), b,
+           rr - s * ld.hw5, v);
+    } else {  // 5-chart mean of the sources' pole cells
+      const bool north = rr == cells;
+      const Cells8<GridCells<T>> x({north ? ld.src[0] : pick4(ld.src, ld.south_src)}, c * 8,
+                                   ld.hw5, ld.cin);
+      for (int ch = 0; ch < 5; ++ch) {
+        float t[8];
+        act8(ld, x, b, ch * ld.hw + (north ? 0 : ld.hw - 1), t);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += t[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = round_to<T>(v[e] * 0.2f);
+    }
+  } else if (live) {  // a ragged C_in (or unaligned sources): channel by channel
+    const int code = !pole ? rr : rr == cells ? NORTH : SOUTH;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (c * 8 + e < ld.cin) v[e] = ld(b, code, c * 8 + e);
+  }
+  alignas(16) T pack[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) pack[e] = from_f<T>(v[e]);
+  uint4* dst = reinterpret_cast<uint4*>(out + r * ldk + c * 8);
+#pragma unroll
+  for (int j = 0; j < (int)sizeof(pack) / 16; ++j) dst[j] = reinterpret_cast<const uint4*>(pack)[j];
+}
+
+// Write the (B * (n_src * 5hw + 2) + 1, operand_width(cin)) operand of a
+// grid conv's n_src sources (ld.src[0 .. n_src-1]).
+template <typename T, typename Tag>
+cudaError_t launch_grid_operand(const GridLoad<T>& ld, T* out, int B, int n_src, int zero_poles,
+                                cudaStream_t stream) {
+  const long long rows = (long long)B * operand_per_sample(ld.hw5, n_src) + 1;
+  const long long total = rows * (operand_width(ld.cin) / 8);
+  int vec = ld.cin % 8 == 0;
+  for (int s = 0; s < n_src; ++s) vec = vec && aligned16(ld.src[s]);
+  grid_operand_pass<T, Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      ld, out, B, n_src, zero_poles, vec, total);
+  return cudaGetLastError();
+}
+
+// Tags of the grid convs' instantiations: a profile tells the phase conv's
+// launches (b) from the standard conv's (f) by them; the code is one.
+struct PhaseGrid {};
+struct StdGrid {};
+
+// The operand's row loader of the GEMMs: rows of a built operand named by
+// the conv table of output phase p, tap t and cell m.
 struct OperandRows {
   const __nv_bfloat16* rows;
-  const int* table;  // (4, 7, M) halo.phase_conv_table
+  const int* table;  // (4, 7, M) halo.phase_conv_table, or (7, M) halo.std_conv_table
   int M, ldk, per_b, zero_row;
 
-  __device__ __forceinline__ int code(int slot, int t, int m) const {
-    return __ldg(&table[(slot * 7 + t) * M + m]);
+  __device__ __forceinline__ int code(int p, int t, int m) const {
+    return __ldg(&table[(p * 7 + t) * M + m]);
   }
-  // a cell, the sample's pole rows after its 4M cells, or the zero row
+  // a cell, the sample's two pole rows after its cells, or the zero row
   __device__ __forceinline__ const __nv_bfloat16* row(int b, int code) const {
     const long long base = (long long)b * per_b;
     const long long r = code >= 0 ? base + code
                         : code == ZERO ? (long long)zero_row
-                        : base + 4 * M + (code == NORTH ? 0 : 1);
+                        : base + per_b - 2 + (code == NORTH ? 0 : 1);
     return rows + r * ldk;
   }
 };
@@ -295,22 +385,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Where a load row stands: q = b * 4M + slot * M + m.
+// Where a load row stands: q = b * n_out * M + slot * M + m, over n_out
+// output phase slots (the up convs' 4; a grid conv's 4, or 1 for the
+// stride-2 phase conv's phase 2 and for the standard conv).
 struct RowPos {
   int q, b, slot, m;
-  __device__ __forceinline__ void start(int q0, int M) {
+  __device__ __forceinline__ void start(int q0, int M, int n_out = 4) {
     q = q0;
-    b = q0 / (4 * M);
-    const int r = q0 - b * 4 * M;
+    b = q0 / (n_out * M);
+    const int r = q0 - b * n_out * M;
     slot = r / M;
     m = r - slot * M;
   }
-  __device__ __forceinline__ void advance(int M) {
+  __device__ __forceinline__ void advance(int M, int n_out = 4) {
     q += BK;
     m += BK;
     while (m >= M) {
       m -= M;
-      if (++slot == 4) {
+      if (++slot == n_out) {
         slot = 0;
         ++b;
       }

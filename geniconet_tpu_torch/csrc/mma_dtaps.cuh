@@ -1,12 +1,27 @@
-// The bf16 tap gradients of the up conv (kernel d) and of the decoder chain's
-// pair conv (kernel n's dtaps) on the tensor cores: the upsampled operand is
-// built once into device memory by a pass over the level-s grid, then one
-// GEMM gathers its rows through the conv table.
+// The bf16 tap gradients on the tensor cores, of the up conv (kernel d), of
+// the decoder chain's pair conv (kernel n's dtaps) and of the grid convs
+// (the phase conv, b, and the standard conv, f): the operand is built once
+// into device memory by a pass over the input, then one GEMM gathers its
+// rows through the conv table.
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:_upd_bwd's
-// dtaps call (:2150, _up_dtaps_kernel) and _updp_bwd's dtaps call (:2490,
-// _up_pair_dtaps_kernel). The float32 path keeps gn::dtaps_gemm over
-// gn::UpLoad (backward.cuh), the SIMT core, bit for bit.
+// dtaps call (:2150, _up_dtaps_kernel), _updp_bwd's dtaps call (:2490,
+// _up_pair_dtaps_kernel) and _phase_conv_dtaps (:1406, _pc_dtaps_kernel),
+// and geniconet_tpu/ops/pallas/conv_kernel.py:_pallas_dtaps (:665,
+// _dtaps_kernel). The float32 path keeps gn::dtaps_gemm over gn::UpLoad or
+// gn::GridLoad (backward.cuh), the SIMT core, bit for bit.
+//
+// The grid convs run the same GEMM on their own operand (grid_operand_pass,
+// mma.cuh): per sample the n_src * 5hw act-applied cells (the phase conv's
+// 4 phases in source order, or the standard conv's grid), then its two
+// pole rows, every value GridLoad's. The rows q walk n_out output phase
+// slots from out_phase0 (4 from 0, 1 at phase 2 for the stride-2 phase
+// conv, 1 of the standard conv's one table), and the cotangent of slot
+// and set is g[set * n_out + slot], make_gload's order. A C_in of at most
+// 64 takes the NARROW tile: one block holds several taps (all 7 for
+// conv_in's 3 channels, 2 for 64), each load row gathering those taps'
+// operand rows, where one tap a block would fill 3 (or 64) of its 128
+// channels. f's sums round once to its dtype.
 //
 // What bounds it on the card. dtaps[t][k][n] = sum_q U[row_t(q)][k] G(q, n)
 // over q = (sample, phase slot, cell), B * 4 * 5hw rows: 42-85 GFLOP a site
@@ -58,7 +73,8 @@
 //    from device memory about once and from L2 the other times.
 // 3. Cross-block sums as before: float32 partials per chunk, then a
 //    fixed-order sum (sum_chunks: one thread a column, as the chunks are
-//    few), so results repeat exactly; d and n run the same GEMM on
+//    few; the NARROW tile's many chunks take sum_rows' 32 row lanes a
+//    column), so results repeat exactly; d and n run the same GEMM on
 //    bit-equal operands with the same split, so their dtaps are bit-equal
 //    on the joined grid.
 #pragma once
@@ -92,14 +108,33 @@ __host__ __device__ constexpr int gsm_at(int col) {
 
 }  // namespace mma
 
+// Whether a grid conv's C_in takes the NARROW tile (C_in <= 64: an operand
+// row fills at most half the tile's BM channels), and the taps a NARROW
+// block holds: as many whole rows of ldk / 8 chunks as the tile's 16 fit,
+// at most 7 (all of them for a C_in of at most 16). build.mma_narrow and
+// build.mma_taps_per_block say the same.
+__host__ __device__ __forceinline__ bool mma_narrow(int cin) {
+  return operand_width(cin) <= 64;
+}
+__host__ __device__ __forceinline__ int mma_taps_per_block(int cin) {
+  const int cpt = operand_width(cin) / 8;
+  return cpt > 8 ? 1 : min(7, 16 / cpt);
+}
+
 // dtaps partials on the tensor cores: ws[chunk][t * cin + k][n] = sum over the
-// chunk's rows q of U[row_t(q)][k] * G(q, n). Block (t + 7 * k tile, n tile,
-// chunk). Tag (GridCells or PairCells) only names the instantiation, so a
-// profile tells d's launches from n's; the code is one.
-template <typename Tag, bool FOLD>
+// chunk's rows q of U[row_t(q)][k] * G(q, n), the rows q = (sample, output
+// phase slot 0 .. n_out-1, cell) of output phases out_phase0 .. +n_out-1.
+// Block (t + 7 * k tile, n tile, chunk). NARROW (a C_in of at most 64, the
+// grid convs): one block takes tpb = mma_taps_per_block taps t0 = tpb * x
+// .. +tpb-1 (all 7 for a C_in of at most 16), its tile row (t - t0) * ldk
+// + k, each load row gathering those taps' operand rows (ldk / 8 chunks
+// each); block (x, n tile, chunk). Tag (GridCells, PairCells, PhaseGrid or
+// StdGrid) only names the instantiation, so a profile tells d's, n's, b's
+// and f's launches apart; the code is one.
+template <typename Tag, bool FOLD, bool NARROW = false>
 __global__ void __launch_bounds__(mma::NT, 2)
-mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, int kc,
-          int g_vec, float* __restrict__ ws) {
+mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_phase0,
+          int n_out, int Q, int kc, int g_vec, float* __restrict__ ws) {
   using bf16 = __nv_bfloat16;
   // the tile's constants (gn:: has the SIMT core's BM, BN, BK)
   constexpr int BM = mma::BM, BN = mma::BN, BK = mma::BK, STAGES = mma::STAGES;
@@ -110,7 +145,7 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, i
   float* gsm = reinterpret_cast<float*>(smem + STAGES * stage_elems);  // FOLD: [2][BN]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = blockIdx.x % 7, k0 = (blockIdx.x / 7) * BM;
+  const int t = blockIdx.x % 7, k0 = NARROW ? 0 : (blockIdx.x / 7) * BM;
   const int n0 = blockIdx.y * BN, chunk = blockIdx.z;
   const int q_lo = chunk * kc, q_hi = min(q_lo + kc, Q);
   const int steps = (q_hi - q_lo + BK - 1) / BK;
@@ -134,36 +169,58 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, i
 
   // load roles: row lr of each stage, its 8-element chunks lc and lc + 8 of A
   // and of G (and y), so that one row's position, code and addresses serve 4
-  // (6) copies
+  // (6) copies. A's chunk j = lc + 8c is channels k0 + 8j .. +7 of tap t;
+  // NARROW: channels 8 * (j % cpt) .. +7 of tap t0 + j / cpt (cpt = ldk / 8
+  // chunks a tap; none past the block's tpb taps or the 7th), each with its
+  // own code
   const int lr = tid >> 3, lc = tid & 7;
-  int a_bytes[2], g_set[2], g_nl[2];
+  constexpr int NC = NARROW ? 2 : 1;  // codes a row: one per A chunk when NARROW
+  const int cpt = ld.ldk / 8, tpb = mma_taps_per_block(cin);
+  const int t0 = NARROW ? blockIdx.x * tpb : t;
+  int a_bytes[2], a_tap[2], a_at[2], g_set[2], g_nl[2];
   bool g_ok[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    a_bytes[c] = k0 + (lc + 8 * c) * 8 < ld.ldk ? 16 : 0;
-    const int gn = n0 + (lc + 8 * c) * 8;
+    const int j = lc + 8 * c;
+    if constexpr (NARROW) {
+      const int tl = j / cpt;
+      a_tap[c] = t0 + tl;
+      a_at[c] = (j - tl * cpt) * 8;
+      a_bytes[c] = tl < tpb && a_tap[c] < 7 ? 16 : 0;
+    } else {
+      a_tap[c] = t;
+      a_at[c] = k0 + j * 8;
+      a_bytes[c] = a_at[c] < ld.ldk ? 16 : 0;
+    }
+    const int gn = n0 + j * 8;
     g_ok[c] = gn < Ntot;
     g_set[c] = g_ok[c] ? gn / cout : 0;
     g_nl[c] = gn - g_set[c] * cout;
   }
 
   mma::RowPos pos;
-  pos.start(q_lo + lr, M);
-  int code = ld.code(pos.slot, t, pos.m);
+  pos.start(q_lo + lr, M, n_out);
+  int code[NC];
+  auto fetch_codes = [&]() {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      code[c] = a_bytes[c] ? ld.code(out_phase0 + pos.slot, a_tap[c], pos.m) : ZERO;
+  };
+  fetch_codes();
 
   auto copy_step = [&](int buf) {
     bf16* As = smem + buf * stage_elems;
     bf16* Gs = As + TILE;
     const bool ok = pos.q < q_hi;
-    const bf16* arow = ld.row(pos.b, code) + k0;
     const size_t cell = (size_t)pos.b * M + pos.m;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int so = lr * LDS + (lc + 8 * c) * 8;
       const bool va = ok && a_bytes[c];
-      mma::cp_async16(As + so, va ? arow + (lc + 8 * c) * 8 : ld.rows, va ? 16 : 0);
+      const bf16* arow = ld.row(pos.b, code[NARROW ? c : 0]) + a_at[c];
+      mma::cp_async16(As + so, va ? arow : ld.rows, va ? 16 : 0);
       if (g_vec) {
-        const int gi = g_set[c] * 4 + pos.slot;
+        const int gi = g_set[c] * n_out + pos.slot;
         const bool v = ok && g_ok[c];
         const size_t off = cell * cout + g_nl[c];
         mma::cp_async16(Gs + so, v ? gl.g[gi] + off : gl.g[0], v ? 16 : 0);
@@ -177,8 +234,8 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, i
           if (ok && n < Ntot) {
             const int s = n / cout, nl = n - s * cout;
             const size_t off = cell * cout + nl;
-            gv = gl.g[s * 4 + pos.slot][off];
-            if constexpr (FOLD) yv = gl.y[s * 4 + pos.slot][off];
+            gv = gl.g[s * n_out + pos.slot][off];
+            if constexpr (FOLD) yv = gl.y[s * n_out + pos.slot][off];
           }
           Gs[so + e] = gv;
           if constexpr (FOLD) Gs[TILE + so + e] = yv;
@@ -187,8 +244,8 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, i
     }
   };
   auto next_row = [&]() {
-    pos.advance(M);
-    code = ld.code(pos.slot, t, pos.m);  // used by the next copy_step
+    pos.advance(M, n_out);
+    fetch_codes();  // used by the next copy_step
   };
 
   // fold the g chunk lc + 8c this thread copied of step j, in place (FOLD)
@@ -277,16 +334,23 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int Q, i
   mma::cp_async_wait<0>();
 
   // acc[mi][ni]: channels wm*64 + mi*16 + lane/4 (+8 for e >= 2), columns
-  // wn*32 + ni*8 + 2*(lane%4) (+1 for odd e)
+  // wn*32 + ni*8 + 2*(lane%4) (+1 for odd e); NARROW: tile row
+  // (tap - t0) * ldk + k
   const int Mr = 7 * cin;
   float* part = ws + (size_t)chunk * Mr * Ntot;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int k = k0 + wm * 64 + mi * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+      int tt = t, k = k0 + wm * 64 + mi * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+      if constexpr (NARROW) {
+        const int tl = k / ld.ldk;
+        k -= tl * ld.ldk;
+        tt = t0 + tl;
+        if (tl >= tpb || tt >= 7) continue;
+      }
       if (k >= cin) continue;
-      float* prow = part + (size_t)(t * cin + k) * Ntot;
+      float* prow = part + (size_t)(tt * cin + k) * Ntot;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int n = n0 + wn * 32 + ni * 8 + 2 * (lane & 3) + (e & 1);
@@ -308,17 +372,66 @@ sum_chunks(const float* __restrict__ in, int R, long long C, Store st) {
   st(c, acc);
 }
 
-template <typename Tag, bool FOLD>
+template <typename Tag, bool FOLD, bool NARROW>
 cudaError_t mma_dtaps_attr() {
-  return cudaFuncSetAttribute(mma_dtaps<Tag, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              mma::smem_bytes(FOLD));
+  return cudaFuncSetAttribute(mma_dtaps<Tag, FOLD, NARROW>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, mma::smem_bytes(FOLD));
 }
 
-// bf16 dtaps[set] (7, cin, cout) float32: the operand pass into `operand`
-// ((B * (4 * 5hw + 2) + 1, operand_width(cin)) bf16), the GEMM into ws
-// (n_chunks, 7 * cin, n_sets * cout) over Q = B * 4 * 5hw rows in chunks of
-// kc (a multiple of mma::BK), then the fixed-order sum of the partials
-// (sum_chunks).
+template <typename Tag, bool FOLD, bool NARROW>
+cudaError_t launch_mma_dtaps_gemm(const dim3& grid, const OperandRows& ld,
+                                  const GLoad<__nv_bfloat16>& gl, int cin, int n_sets,
+                                  int out_phase0, int n_out, int Q, int kc, int g_vec, float* ws,
+                                  cudaStream_t stream) {
+  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW>();
+  if (err != cudaSuccess) return err;
+  mma_dtaps<Tag, FOLD, NARROW><<<grid, mma::NT, mma::smem_bytes(FOLD), stream>>>(
+      ld, gl, cin, n_sets, out_phase0, n_out, Q, kc, g_vec, ws);
+  return cudaGetLastError();
+}
+
+// The GEMM over a built operand (`ld`) into ws (n_chunks, 7 * cin,
+// n_sets * cout): Q = B * n_out * 5hw rows in chunks of kc (a multiple of
+// mma::BK); NARROW: the grid convs' tile at mma_narrow(cin).
+template <typename Tag, bool NARROW>
+cudaError_t launch_mma_dtaps_rows(const OperandRows& ld, const GLoad<__nv_bfloat16>& gl, int B,
+                                  int cin, int n_sets, int out_phase0, int n_out, int kc,
+                                  int n_chunks, float* ws, cudaStream_t stream) {
+  const int Ntot = n_sets * gl.cout, Q = B * n_out * gl.M;
+  const int tpb = mma_taps_per_block(cin);
+  const dim3 grid(NARROW ? (7 + tpb - 1) / tpb : 7 * ((cin + mma::BM - 1) / mma::BM),
+                  (Ntot + mma::BN - 1) / mma::BN, n_chunks);
+  const bool fold = gl.gs[0] != nullptr;
+  // 16-byte copies of g (and y) rows: cout a multiple of 8, the tensors aligned
+  int g_vec = gl.cout % 8 == 0;
+  for (int i = 0; i < n_out * n_sets; ++i)
+    g_vec = g_vec && aligned16(gl.g[i]) && (!fold || aligned16(gl.y[i]));
+  if (fold)
+    return launch_mma_dtaps_gemm<Tag, true, NARROW>(grid, ld, gl, cin, n_sets, out_phase0,
+                                                    n_out, Q, kc, g_vec, ws, stream);
+  return launch_mma_dtaps_gemm<Tag, false, NARROW>(grid, ld, gl, cin, n_sets, out_phase0, n_out,
+                                                   Q, kc, g_vec, ws, stream);
+}
+
+// The operand's row loader over `operand`: per sample n_src * M cells and
+// 2 pole rows, then the zero row.
+inline OperandRows operand_rows(const __nv_bfloat16* operand, const int* table, int B, int M,
+                                int cin, int n_src) {
+  OperandRows ld;
+  ld.rows = operand;
+  ld.table = table;
+  ld.M = M;
+  ld.ldk = operand_width(cin);
+  ld.per_b = operand_per_sample(M, n_src);
+  ld.zero_row = B * ld.per_b;
+  return ld;
+}
+
+// bf16 dtaps[set] (7, cin, cout) float32 of the up convs: the operand pass
+// into `operand` ((B * (4 * 5hw + 2) + 1, operand_width(cin)) bf16), the
+// GEMM into ws (n_chunks, 7 * cin, n_sets * cout) over Q = B * 4 * 5hw rows
+// in chunks of kc (a multiple of mma::BK), then the fixed-order sum of the
+// partials (sum_chunks).
 template <typename Cells>
 cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
                              const GLoad<__nv_bfloat16>& gl, const int* conv_table,
@@ -328,49 +441,60 @@ cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
   if (kc % mma::BK != 0 || operand == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
   if (err != cudaSuccess) return err;
-  const int M = gl.M, Ntot = n_sets * gl.cout;
-  OperandRows ld;
-  ld.rows = operand;
-  ld.table = conv_table;
-  ld.M = M;
-  ld.ldk = operand_width(cin);
-  ld.per_b = operand_per_sample(M);
-  ld.zero_row = B * ld.per_b;
-  const int Q = B * 4 * M;
-  dim3 grid(7 * ((cin + mma::BM - 1) / mma::BM), (Ntot + mma::BN - 1) / mma::BN, n_chunks);
-  const bool fold = gl.gs[0] != nullptr;
-  // 16-byte copies of g (and y) rows: cout a multiple of 8, the tensors aligned
-  int g_vec = gl.cout % 8 == 0;
-  for (int i = 0; i < 4 * n_sets; ++i)
-    g_vec = g_vec && aligned16(gl.g[i]) && (!fold || aligned16(gl.y[i]));
-  if (fold) {
-    if ((err = mma_dtaps_attr<Cells, true>()) != cudaSuccess) return err;
-    mma_dtaps<Cells, true><<<grid, mma::NT, mma::smem_bytes(true), stream>>>(ld, gl, cin, n_sets,
-                                                                             Q, kc, g_vec, ws);
-  } else {
-    if ((err = mma_dtaps_attr<Cells, false>()) != cudaSuccess) return err;
-    mma_dtaps<Cells, false><<<grid, mma::NT, mma::smem_bytes(false), stream>>>(
-        ld, gl, cin, n_sets, Q, kc, g_vec, ws);
-  }
-  err = cudaGetLastError();
+  const OperandRows ld = operand_rows(operand, conv_table, B, gl.M, cin, 4);
+  err = launch_mma_dtaps_rows<Cells, false>(ld, gl, B, cin, n_sets, 0, 4, kc, n_chunks, ws,
+                                            stream);
   if (err != cudaSuccess) return err;
+  const int Ntot = n_sets * gl.cout;
   const SplitOut st = {{dt0, dt1}, Ntot, gl.cout};
   const long long C = 7LL * cin * Ntot;
   sum_chunks<SplitOut><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks, C, st);
   return cudaGetLastError();
 }
 
-// Registers a thread, blocks an SM and dynamic shared memory of one
-// instantiation (for the records).
-template <typename Tag, bool FOLD>
+// bf16 dtaps of a grid conv (b: the phase conv, n_src = 4 phases in ld.src,
+// table halo.phase_conv_table, output phases out_phase0 .. +n_out-1; f: the
+// standard conv, n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1):
+// the act-applied operand written once into `operand` ((B * (n_src * 5hw
+// + 2) + 1, operand_width(cin)) bf16), the GEMM over its gathered rows
+// (NARROW at mma_narrow(cin)), then the fixed-order sum of the chunks'
+// partials through `st` (SplitOut: float32 per set; f: rounded to bf16):
+// one thread a column for few chunks (sum_chunks), else 32 row lanes a
+// column (sum_rows; for R <= 32 the two make the same sums).
+template <typename Tag, typename Store>
+cudaError_t launch_grid_mma_dtaps(const GridLoad<__nv_bfloat16>& src, int n_src,
+                                  const GLoad<__nv_bfloat16>& gl, const int* table,
+                                  int out_phase0, int n_out, __nv_bfloat16* operand,
+                                  int zero_poles, int B, int cin, int n_sets, int kc,
+                                  int n_chunks, float* ws, const Store& st, cudaStream_t stream) {
+  if (kc % mma::BK != 0 || operand == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
+                                                            stream);
+  if (err != cudaSuccess) return err;
+  const OperandRows ld = operand_rows(operand, table, B, gl.M, cin, n_src);
+  err = mma_narrow(cin) ? launch_mma_dtaps_rows<Tag, true>(ld, gl, B, cin, n_sets, out_phase0,
+                                                           n_out, kc, n_chunks, ws, stream)
+                        : launch_mma_dtaps_rows<Tag, false>(ld, gl, B, cin, n_sets, out_phase0,
+                                                            n_out, kc, n_chunks, ws, stream);
+  if (err != cudaSuccess) return err;
+  const long long C = 7LL * cin * n_sets * gl.cout;
+  if (n_chunks > 32) return launch_sum_rows(ws, n_chunks, C, st, stream);
+  sum_chunks<Store><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks, C, st);
+  return cudaGetLastError();
+}
+
+// Registers a thread, blocks an SM, dynamic shared memory and local memory
+// (spills) of one instantiation (for the records).
+template <typename Tag, bool FOLD, bool NARROW = false>
 cudaError_t mma_dtaps_info(int* out) {
-  cudaError_t err = mma_dtaps_attr<Tag, FOLD>();
+  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mma_dtaps<Tag, FOLD>)) != cudaSuccess) return err;
+  if ((err = cudaFuncGetAttributes(&attr, mma_dtaps<Tag, FOLD, NARROW>)) != cudaSuccess)
+    return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_dtaps<Tag, FOLD>, mma::NT,
-                                                      mma::smem_bytes(FOLD));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_dtaps<Tag, FOLD, NARROW>,
+                                                      mma::NT, mma::smem_bytes(FOLD));
   out[0] = attr.numRegs;
   out[1] = blocks;
   out[2] = mma::smem_bytes(FOLD);

@@ -17,14 +17,20 @@
 // that read it with their weights (0.2 for pole means), and each operand
 // element of the dx GEMM sums those rows of g. No atomics: dx, d_mul/d_add
 // and Σg are deterministic (d_mul/d_add and Σg through block partials and a
-// fixed-order second pass). dtaps re-gathers the forward operand through the
-// forward table (act prologue and pole means included) and reduces over the
-// B * n_out * 5hw rows in chunks, whose partials a second pass sums.
+// fixed-order second pass). dtaps reduces over the B * n_out * 5hw rows in
+// chunks, whose partials a second pass sums: in float32 it re-gathers the
+// forward operand through the forward table (act prologue and pole means
+// included) on the SIMT core; in bf16 it writes that operand once (the
+// act-applied phases and each sample's two pole rows) and runs gn::mma_dtaps
+// on the tensor cores over its gathered rows (mma_dtaps.cuh, which also says
+// what bounds it; a C_in of at most 64, conv_in's 3 and the 64 of up2's
+// conv01 and down0's stride-2 conv, takes its NARROW tile).
 //
-// What bounds it on the card: like the forward, the float32 FMA rate of the
-// SIMT GEMM core (2 * 7 * C_in * C_out FLOPs per output cell each for dx and
-// dtaps); the dx operand gather reads about 1.05 rows of g per element (the
-// halo and pole rows), and dtaps writes 7 * C_in * C_out floats per chunk.
+// What bounds dx (and float32 dtaps) on the card: like the forward, the
+// float32 FMA rate of the SIMT GEMM core (2 * 7 * C_in * C_out FLOPs per
+// output cell each); the dx operand gather reads about 1.05 rows of g per
+// element (the halo and pole rows), and dtaps writes 7 * C_in * C_out floats
+// per chunk.
 //
 // The merged kernel (gn::merged_bwd, backward.cuh) computes every output of
 // _pc_bwd_kernel in one launch: dx with the act adjoint and the d_mul/d_add
@@ -36,7 +42,9 @@
 // and two launches, not the second read of g: the two roles each read g
 // (through the one GLoad, which folds each element once per read, rounded
 // to T). Sharing one staged g tile between the roles is the next step.
-#include "backward.cuh"
+#include <type_traits>
+
+#include "mma_dtaps.cuh"
 
 namespace {
 
@@ -64,25 +72,43 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
+// The 4 input phases with their act prologue, as the forward reads them.
 template <typename T>
-cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
-                  const void* const* g, const void* const* y, const float* gs0, const float* gs1,
-                  const int* table, float* ws, float* dt0, float* dt1, float* gsum_ws,
-                  float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
-                  int out_phase0, int n_out, int kc, int n_chunks, int gsum_rows,
-                  cudaStream_t stream) {
-  const int M = 5 * h * w;
-  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
-  gn::GridLoad<T> ld;
+gn::GridLoad<T> phase_load(const void* const* x, const float* mul, const float* add, int h,
+                           int w, int cin) {
+  gn::GridLoad<T> ld = {};
   for (int p = 0; p < 4; ++p) ld.src[p] = static_cast<const T*>(x[p]);
   ld.mul = mul;
   ld.add = add;
   ld.hw = h * w;
-  ld.hw5 = M;
+  ld.hw5 = 5 * h * w;
   ld.cin = cin;
   ld.south_src = 3;
-  cudaError_t err = gn::launch_dtaps_gemm<T>(ld, gl, table, cin, n_sets, out_phase0,
-                                             B * n_out * M, kc, n_chunks, ws, dt0, dt1, stream);
+  return ld;
+}
+
+// float32: the SIMT GEMM over GridLoad; bf16: the operand pass into
+// `operand`, then the tensor-core GEMM. Σg_eff (gsum_ws) by launch_gsum.
+template <typename T>
+cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
+                  const void* const* g, const void* const* y, const float* gs0, const float* gs1,
+                  const int* table, float* ws, float* dt0, float* dt1, void* operand,
+                  float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w, int cin,
+                  int cout, int n_sets, int out_phase0, int n_out, int kc, int n_chunks,
+                  int gsum_rows, int zero_poles, cudaStream_t stream) {
+  const int M = 5 * h * w;
+  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
+  const gn::GridLoad<T> ld = phase_load<T>(x, mul, add, h, w, cin);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    err = gn::launch_dtaps_gemm<T>(ld, gl, table, cin, n_sets, out_phase0, B * n_out * M, kc,
+                                   n_chunks, ws, dt0, dt1, stream);
+  } else {
+    const gn::SplitOut st = {{dt0, dt1}, n_sets * cout, cout};
+    err = gn::launch_grid_mma_dtaps<gn::PhaseGrid>(ld, 4, gl, table, out_phase0, n_out,
+                                                   static_cast<T*>(operand), zero_poles, B, cin,
+                                                   n_sets, kc, n_chunks, ws, st, stream);
+  }
   if (err != cudaSuccess || gsum_ws == nullptr) return err;
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
@@ -160,26 +186,69 @@ extern "C" int gn_phase_conv_dx(const void* const* g, const void* const* y, cons
 // act prologue or null; g, y, gs0, gs1: as in gn_phase_conv_dx; table:
 // halo.phase_conv_table; output phases out_phase0 .. +n_out-1; ws: float32
 // scratch of (n_chunks, 7 * cin, n_sets * cout), the rows B * n_out * 5hw
-// split in chunks of kc; dt0/dt1 receive (7, cin, cout) float32; gsum_ws:
-// null, or as in gn_phase_conv_dx for Σg_eff. dtype: 0 float32, 1 bfloat16.
+// split in chunks of kc (float32: a multiple of 16, build.dtaps_split;
+// bfloat16: of 32, build.grid_dtaps_split); dt0/dt1 receive (7, cin, cout)
+// float32; operand: bfloat16 only, scratch of (B * (4 * 5hw + 2) + 1, cin
+// rounded up to 8) for the act-applied operand (zero_poles: corner_mode
+// "zeros", whose poles are 0); gsum_ws: null, or as in gn_phase_conv_dx for
+// Σg_eff. dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_phase_conv_dtaps(const void* const* x, const float* mul, const float* add,
                                    const void* const* g, const void* const* y, const float* gs0,
                                    const float* gs1, const int* table, float* ws, float* dt0,
-                                   float* dt1, float* gsum_ws, float* gsum0, float* gsum1, int B,
-                                   int h, int w, int cin, int cout, int n_sets, int out_phase0,
-                                   int n_out, int kc, int n_chunks, int gsum_rows, int dtype,
-                                   void* stream) {
+                                   float* dt1, void* operand, float* gsum_ws, float* gsum0,
+                                   float* gsum1, int B, int h, int w, int cin, int cout,
+                                   int n_sets, int out_phase0, int n_out, int kc, int n_chunks,
+                                   int gsum_rows, int zero_poles, int dtype, void* stream) {
   if (bad_sets(n_sets, n_out) || out_phase0 + n_out > 4 || kc % gn::BK != 0)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0, gsum1,
-                        B, h, w, cin, cout, n_sets, out_phase0, n_out, kc, n_chunks, gsum_rows, s);
+    return dtaps<float>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, nullptr, gsum_ws,
+                        gsum0, gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc, n_chunks,
+                        gsum_rows, zero_poles, s);
   if (dtype == 1)
-    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0,
-                                gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc,
-                                n_chunks, gsum_rows, s);
+    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, operand,
+                                gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, out_phase0,
+                                n_out, kc, n_chunks, gsum_rows, zero_poles, s);
   return cudaErrorInvalidValue;
+}
+
+// The grid convs' operand alone (the first launch of their bf16 dtaps): x:
+// host array of n_src sources (4 phases, or 1 standard grid), each (B, 5, h,
+// w, cin); mul/add: the act prologue or null; out: (B * (n_src * 5hw + 2) +
+// 1, cin rounded up to 8) in x's dtype (zero_poles: corner_mode "zeros").
+// dtype: 0 float32, 1 bfloat16.
+extern "C" int gn_grid_operand(const void* const* x, const float* mul, const float* add,
+                               void* out, int B, int h, int w, int cin, int n_src, int zero_poles,
+                               int dtype, void* stream) {
+  if (n_src != 1 && n_src != 4) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const void* src[4] = {x[0], x[0], x[0], x[0]};
+  for (int p = 0; p < n_src; ++p) src[p] = x[p];
+  if (dtype == 0) {
+    gn::GridLoad<float> ld = phase_load<float>(src, mul, add, h, w, cin);
+    ld.south_src = n_src - 1;
+    return gn::launch_grid_operand<float, gn::PhaseGrid>(ld, static_cast<float*>(out), B, n_src,
+                                                         zero_poles, s);
+  }
+  if (dtype == 1) {
+    gn::GridLoad<__nv_bfloat16> ld = phase_load<__nv_bfloat16>(src, mul, add, h, w, cin);
+    ld.south_src = n_src - 1;
+    return gn::launch_grid_operand<__nv_bfloat16, gn::PhaseGrid>(
+        ld, static_cast<__nv_bfloat16*>(out), B, n_src, zero_poles, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of b's tensor-core GEMM, with the fold or without, on the
+// NARROW tile (a C_in of at most 64) or the wide one.
+extern "C" int gn_phase_conv_dtaps_info(int narrow, int fold, int* out) {
+  using Tag = gn::PhaseGrid;
+  if (narrow)
+    return fold ? gn::mma_dtaps_info<Tag, true, true>(out)
+                : gn::mma_dtaps_info<Tag, false, true>(out);
+  return fold ? gn::mma_dtaps_info<Tag, true>(out) : gn::mma_dtaps_info<Tag, false>(out);
 }
 
 // The merged backward (_phase_conv_bwd). x: host array of the 4 raw input

@@ -33,7 +33,8 @@ __all__ = [
     "ptr_array", "dtype_code", "on_cuda", "expect", "check_act", "act_apply", "grid_level",
     "TILE", "GSUM_ROWS", "n_tiles", "dtaps_split", "scratch", "merged_scratch",
     "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
-    "operand_width", "mma_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
+    "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
+    "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -122,9 +123,12 @@ _SIGNATURES = {
     "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
     "gn_ico_conv_fwd": [_VP] * 9 + [_INT] * 6 + [_VP],
     "gn_ico_conv_dx": [_VP] * 16 + [_INT] * 7 + [_VP],
-    "gn_ico_conv_dtaps": [_VP] * 9 + [_INT] * 8 + [_VP],
+    "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
+    "gn_ico_conv_dtaps_info": [_INT, _INT, _VP],
     "gn_phase_conv_dx": [_VP] * 19 + [_INT] * 9 + [_VP],
-    "gn_phase_conv_dtaps": [_VP] * 14 + [_INT] * 12 + [_VP],
+    "gn_phase_conv_dtaps": [_VP] * 15 + [_INT] * 13 + [_VP],
+    "gn_phase_conv_dtaps_info": [_INT, _INT, _VP],
+    "gn_grid_operand": [_VP] * 4 + [_INT] * 7 + [_VP],
     "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],
     "gn_up_dual_conv_dtaps": [_VP] * 11 + [_INT] * 10 + [_VP],
     "gn_up_operand": [_VP] * 3 + [_INT] * 6 + [_VP],
@@ -176,10 +180,32 @@ MMA_K_STEP = 32
 MMA_TARGET_BLOCKS = 264  # 2 blocks for each of the H100's 132 SMs
 
 
-def mma_dtaps_blocks(cin: int, ntot: int) -> int:
+def mma_narrow(cin: int) -> bool:
+    """Whether the grid convs' tensor-core dtaps take the NARROW tile at this
+    C_in: at most 64 (an operand row fills at most half of a block's
+    MMA_TILE channels), so one block holds several taps
+    (``csrc/mma_dtaps.cuh:mma_narrow`` says the same)."""
+    return operand_width(cin) <= MMA_TILE // 2
+
+
+def mma_taps_per_block(cin: int) -> int:
+    """Taps a block of the tensor-core dtaps holds: on the NARROW tile as
+    many whole operand rows (``operand_width(cin) / 8`` chunks of 8
+    channels) as its 16 chunks fit, at most 7 (all of them for a C_in of at
+    most 16); else 1 (``csrc/mma_dtaps.cuh:mma_taps_per_block``)."""
+    cpt = operand_width(cin) // 8
+    return 1 if cpt > 8 else min(7, (MMA_TILE // 8) // cpt)
+
+
+def mma_dtaps_blocks(cin: int, ntot: int, narrow: bool = False) -> int:
     """Blocks of one chunk of the tensor-core dtaps: the 7 taps' channel
-    tiles times the column tiles."""
-    return 7 * -(-cin // MMA_TILE) * -(-ntot // MMA_TILE)
+    tiles (with ``narrow``, the blocks of ``mma_taps_per_block`` taps each)
+    times the column tiles."""
+    if narrow:
+        tiles = -(-7 // mma_taps_per_block(cin))
+    else:
+        tiles = 7 * -(-cin // MMA_TILE)
+    return tiles * -(-ntot // MMA_TILE)
 
 
 def mma_dtaps_split(rows: int, out_tiles: int):
@@ -193,15 +219,22 @@ def mma_dtaps_split(rows: int, out_tiles: int):
     return kc, -(-rows // kc)
 
 
+def grid_dtaps_split(rows: int, cin: int, ntot: int):
+    """(rows per chunk, chunks) of the grid convs' tensor-core dtaps (b, f)
+    over ``rows`` rows into (7·C_in, ``ntot``): ``mma_dtaps_split`` over
+    its blocks a chunk, on the NARROW tile where ``mma_narrow``."""
+    return mma_dtaps_split(rows, mma_dtaps_blocks(cin, ntot, mma_narrow(cin)))
+
+
 def operand_width(cin: int) -> int:
     """Channels of an operand row of the tensor-core GEMMs: C_in rounded up
     to 8 (16-byte rows in bf16)."""
     return -(-cin // 8) * 8
 
 
-def _gemm_info(name: str, flag: bool) -> dict:
+def _gemm_info(name: str, *flags: bool) -> dict:
     out = (ctypes.c_int * 4)()
-    check(name, getattr(library(), name)(int(flag), out))
+    check(name, getattr(library(), name)(*map(int, flags), out))
     return dict(zip(("registers", "blocks_per_sm", "smem_bytes", "local_bytes"), out))
 
 
@@ -210,6 +243,14 @@ def mma_dtaps_info(pair: bool, fold: bool) -> dict:
     memory (bytes; spills) of the tensor-core dtaps GEMM of n (``pair``) or
     d, with the fold or without, as the card's runtime reports them."""
     return _gemm_info("gn_up_pair_dtaps_info" if pair else "gn_up_dual_conv_dtaps_info", fold)
+
+
+def grid_dtaps_info(std: bool, fold: bool, narrow: bool = False) -> dict:
+    """``mma_dtaps_info`` for the grid convs' tensor-core dtaps GEMM: of f
+    (``std``) or b, with the fold or without, on the NARROW tile or the
+    wide one."""
+    return _gemm_info("gn_ico_conv_dtaps_info" if std else "gn_phase_conv_dtaps_info", narrow,
+                      fold)
 
 
 def mma_fwd_grid(rows: int, ntot: int):

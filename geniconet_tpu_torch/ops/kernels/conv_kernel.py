@@ -8,7 +8,10 @@ Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
 * ``ico_conv_s2s_dx``    -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dx``: conv and
   halo transposes, act adjoint with d_mul/d_add, optional Σg_eff);
 * ``ico_conv_s2s_dtaps`` -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dtaps``, rounded
-  to the activation dtype as the Pallas wrapper does);
+  to the activation dtype as the Pallas wrapper does); in bf16 it writes the
+  act-applied operand once (``phase_kernel.grid_operand`` of the one grid)
+  and runs the tensor-core GEMM over its gathered rows
+  (``csrc/mma_dtaps.cuh``), in float32 the SIMT GEMM;
 * ``ico_conv_s2s_bwd``   -> ``csrc/ico_conv_bwd.cu`` (``_std_bwd``, stride 1:
   the merged one-pass backward, dx with the act adjoint, dtaps, Σg_eff and
   d_mul/d_add from one launch).
@@ -29,7 +32,9 @@ from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import act_apply, check_act, expect, grid_level, on_cuda
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
-from geniconet_tpu_torch.ops.kernels.phase_kernel import geff_plain, stats_plain
+from geniconet_tpu_torch.ops.kernels.phase_kernel import (
+    geff_plain, grid_dtaps_scratch, stats_plain,
+)
 
 __all__ = [
     "ico_conv_s2s_fwd", "ico_conv_s2s_fwd_plain", "ico_conv_s2s_dx", "ico_conv_s2s_dx_plain",
@@ -166,7 +171,9 @@ def ico_conv_s2s_dtaps_plain(x, g, corner_mode, act=None, y=None, gs=None):
 def ico_conv_s2s_dtaps(x, g, corner_mode, act=None, y=None, gs=None):
     """Tap cotangent of the standard conv summed over the batch (the Pallas
     ``_pallas_dtaps``): (7, C_in, C_out), float32 sums rounded to x's dtype.
-    x: the RAW input; act, y, gs as for ``ico_conv_s2s_dx``."""
+    x: the RAW input; act, y, gs as for ``ico_conv_s2s_dx``. In bf16 two
+    kernels and the fixed-order sum: the operand pass and the tensor-core
+    GEMM over its rows; in float32 the SIMT GEMM."""
     if not on_cuda(x, "ico_conv_s2s_dtaps"):
         return ico_conv_s2s_dtaps_plain(x, g, corner_mode, act, y, gs)
     B, _, h, w, cin = x.shape
@@ -179,16 +186,16 @@ def ico_conv_s2s_dtaps(x, g, corner_mode, act=None, y=None, gs=None):
         expect(y, (B, 5, h, w, cout), dt, dev, "ico_conv_s2s_dtaps y")
         expect(gs, (2, cout), torch.float32, dev, "ico_conv_s2s_dtaps gs")
     check_act(act, cin, dev, "ico_conv_s2s_dtaps")
-    kc, n_chunks = build.dtaps_split(B * 5 * h * w, build.n_tiles(7 * cin) * build.n_tiles(cout))
-    ws = build.scratch(n_chunks * 7 * cin * cout, dev)
+    kc, n_chunks, ws, operand = grid_dtaps_scratch(dt, B, h, w, cin, cout, 1, 1, dev)
     dtaps = torch.empty((7, cin, cout), dtype=dt, device=dev)
     table = device_table("std", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
     with torch.cuda.device(dev):
         err = build.library().gn_ico_conv_dtaps(
             x.data_ptr(), build.ptr(mul), build.ptr(add), g.data_ptr(), build.ptr(y),
-            build.ptr(gs), table.data_ptr(), ws.data_ptr(), dtaps.data_ptr(),
-            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(gs), table.data_ptr(), ws.data_ptr(), dtaps.data_ptr(), build.ptr(operand),
+            B, h, w, cin, cout, kc, n_chunks, int(corner_mode == "zeros"), build.dtype_code(dt),
+            build.stream_ptr(dev),
         )
     build.check("ico_conv_s2s_dtaps", err)
     build.LAUNCHES["ico_conv_s2s_dtaps"] += 1

@@ -16,7 +16,10 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``pair_head_mse_fwd`` / ``pair_head_mse_bwd`` -> ``csrc/pair_head.cu``
   (``_phmse`` / ``_phmse_bwd``: the head fused with the AE's position loss);
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
-  (``_phase_conv_dx`` / ``_phase_conv_dtaps``);
+  (``_phase_conv_dx`` / ``_phase_conv_dtaps``); in bf16 the dtaps writes the
+  act-applied operand once (``grid_operand``, also callable alone, shared
+  with the standard conv's dtaps) and runs the tensor-core GEMM over its
+  gathered rows (``csrc/mma_dtaps.cuh``), in float32 the SIMT GEMM;
 * ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
   (the two kernels of ``_upd_bwd``); in bf16 the dtaps builds the upsampled
   operand once (``up_operand``, also callable alone) and runs a tensor-core
@@ -82,7 +85,8 @@ __all__ = [
     "pair_head_mse_bwd", "pair_head_mse_bwd_plain",
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "operand_rows", "up_operand", "up_operand_plain", "up_pair_operand",
-    "up_pair_operand_plain",
+    "up_pair_operand_plain", "grid_operand_rows", "grid_operand", "grid_operand_plain",
+    "grid_dtaps_scratch",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
     "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
@@ -360,11 +364,87 @@ def phase_conv_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, out_phases
                           for group in g_groups]
 
 
+def grid_operand_rows(B, h, w, n_src):
+    """Rows of a grid conv's operand: per sample its n_src·5hw cells (the
+    phase conv's 4 phases, or the standard conv's 1 grid) and its 2 poles,
+    then one zero row."""
+    return B * (n_src * 5 * h * w + 2) + 1
+
+
+def grid_operand_plain(sources, act=None, corner_mode="average"):
+    """Plain version of ``grid_operand``: the act-applied sources stacked in
+    order, each sample's two poles (``chart_mean`` of cell (0, 0) of the
+    first source and of the last cell of the last, i.e. the phase pad's
+    poles of the 4 phases (phase ee, phase oq) or ``ico_pad``'s of one grid;
+    zeros under ``"zeros"``), a zero row, and the channels padded with zeros
+    to ``build.operand_width``."""
+    xs = [act_apply(x, act) for x in sources]
+    B, _, h, w, cin = xs[0].shape
+    cells = torch.stack(xs, dim=1).reshape(B, len(xs) * 5 * h * w, cin)
+    if corner_mode == "average":
+        poles = torch.stack([chart_mean(xs[0][:, :, 0, 0]),
+                             chart_mean(xs[-1][:, :, h - 1, w - 1])], dim=1)
+    else:
+        poles = xs[0].new_zeros((B, 2, cin))
+    rows = torch.cat([torch.cat([cells, poles], dim=1).reshape(-1, cin), xs[0].new_zeros((1, cin))])
+    return torch.nn.functional.pad(rows, (0, build.operand_width(cin) - cin))
+
+
+def grid_operand(sources, act=None, corner_mode: str = "average"):
+    """The act-applied operand of a grid conv, as the bf16 dtaps of the phase
+    conv (4 phases) and of the standard conv (1 grid) build it before their
+    GEMM: ``sources``, 1 or 4 contiguous (B, 5, h, w, C_in) tensors (float32
+    or bfloat16), act the optional float32 (mul, add) prologue ->
+    (B·(n_src·5hw + 2) + 1, C_in rounded up to 8) in their dtype
+    (``grid_operand_plain`` says which row is which)."""
+    x0 = sources[0]
+    if not on_cuda(x0, "grid_operand"):
+        return grid_operand_plain(sources, act, corner_mode)
+    if len(sources) not in (1, 4):
+        raise ValueError(f"grid_operand: takes 1 or 4 sources, got {len(sources)}")
+    B, _, h, w, cin = x0.shape
+    grid_level(h, w)
+    dev, dt = x0.device, x0.dtype
+    for i, x in enumerate(sources):
+        expect(x, (B, 5, h, w, cin), dt, dev, f"grid_operand source {i}")
+    check_act(act, cin, dev, "grid_operand")
+    mul, add = act if act is not None else (None, None)
+    out = torch.empty((grid_operand_rows(B, h, w, len(sources)), build.operand_width(cin)),
+                      dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().gn_grid_operand(
+            build.ptr_array(sources), build.ptr(mul), build.ptr(add), out.data_ptr(), B, h, w,
+            cin, len(sources), int(corner_mode == "zeros"), build.dtype_code(dt),
+            build.stream_ptr(dev),
+        )
+    build.check("grid_operand", err)
+    build.LAUNCHES["grid_operand"] += 1
+    return out
+
+
+def grid_dtaps_scratch(dt, B, h, w, cin, ntot, n_src, n_out, dev):
+    """(kc, n_chunks, partials, operand) of a grid conv's dtaps over
+    B·n_out·5hw rows into (7·C_in, ntot): float32 the SIMT GEMM's split and
+    no operand; bf16 the tensor-core GEMM's split (``build.grid_dtaps_split``)
+    and the operand scratch of its first pass."""
+    rows = B * n_out * 5 * h * w
+    if dt == torch.bfloat16:
+        kc, n_chunks = build.grid_dtaps_split(rows, cin, ntot)
+        operand = torch.empty((grid_operand_rows(B, h, w, n_src), build.operand_width(cin)),
+                              dtype=dt, device=dev)
+    else:
+        kc, n_chunks = build.dtaps_split(rows, build.n_tiles(7 * cin) * build.n_tiles(ntot))
+        operand = None
+    return kc, n_chunks, build.scratch(n_chunks * 7 * cin * ntot, dev), operand
+
+
 def phase_conv_dtaps(phases, g_groups, tap_shapes, corner_mode, out_phases, act=None,
                      y_groups=None, gs_list=None, emit_gsum=False):
     """Tap cotangents of the phase conv, summed over the batch (the Pallas
     ``_phase_conv_dtaps``): per set a float32 (7, C_in, C_out); with
-    ``emit_gsum`` also the per-set Σg_eff (the bias gradient)."""
+    ``emit_gsum`` also the per-set Σg_eff (the bias gradient). In bf16 two
+    kernels and the fixed-order sum: the operand pass (``grid_operand``) and
+    the tensor-core GEMM over its rows; in float32 the SIMT GEMM."""
     out_phases = _check_out_phases(out_phases, "phase_conv_dtaps")
     x0 = phases[0]
     if not on_cuda(x0, "phase_conv_dtaps"):
@@ -383,8 +463,7 @@ def phase_conv_dtaps(phases, g_groups, tap_shapes, corner_mode, out_phases, act=
                       "phase_conv_dtaps")
     check_act(act, cin, dev, "phase_conv_dtaps")
     rows = B * n_out * 5 * h * w
-    kc, n_chunks = build.dtaps_split(rows, build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
-    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    kc, n_chunks, ws, operand = grid_dtaps_scratch(dt, B, h, w, cin, n_sets * cout, 4, n_out, dev)
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
     gsum_ws, gsums = _gsum_outputs(rows, n_sets, cout, dev) if emit_gsum else (None, [None])
     table = device_table("phase", h, w, corner_mode, dev)
@@ -393,9 +472,10 @@ def phase_conv_dtaps(phases, g_groups, tap_shapes, corner_mode, out_phases, act=
     with torch.cuda.device(dev):
         err = build.library().gn_phase_conv_dtaps(
             build.ptr_array(phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
-            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(gsum_ws), *_pair(gsums),
-            B, h, w, cin, cout, n_sets, out_phases[0], n_out, kc, n_chunks, build.GSUM_ROWS,
-            build.dtype_code(dt), build.stream_ptr(dev),
+            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(operand),
+            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, n_sets, out_phases[0], n_out,
+            kc, n_chunks, build.GSUM_ROWS, int(corner_mode == "zeros"), build.dtype_code(dt),
+            build.stream_ptr(dev),
         )
     build.check("phase_conv_dtaps", err)
     build.LAUNCHES["phase_conv_dtaps"] += 1

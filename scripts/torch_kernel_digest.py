@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Digests of the tensor-core kernels' and the grid convs' dtaps outputs on one CUDA GPU.
+
+    python3 scripts/torch_kernel_digest.py [--root DIR]
+
+Runs, on seeded inputs at s=5 model widths (B=2), the bf16 and float32 up
+conv forward (``up_dual_conv_fwd``, with stats) and dtaps (d,
+``up_dual_conv_dtaps``), kernel n's forward and dtaps (``up_pair_fwd``,
+``up_pair_dtaps``), each with and without the stats fold where it has one,
+and the grid convs' dtaps (b, ``phase_conv_dtaps``, at conv_in, up2's
+conv01 and down1's stride-2 conv; f, ``ico_conv_s2s_dtaps``, at down1's
+conv01), and prints one line per call: ``digest <kernel> <dtype> <case>
+<sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
+``geniconet_tpu_torch`` is imported (default: the one this script is in),
+so the lines of two commits, each run in its own process, can be compared
+with ``diff``: equal digests are bit-equal outputs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import sys
+from pathlib import Path
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_digest: needs a CUDA GPU")
+    from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B = 2
+
+    def rnd(gen, *shape, dt, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to("cuda", dt)
+
+    def digest(out):
+        h = hashlib.sha256()
+        stack = [out]
+        while stack:
+            o = stack.pop(0)
+            if isinstance(o, (tuple, list)):
+                stack[:0] = list(o)
+            elif o is not None:
+                h.update(o.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+    def line(kernel, dt, case, call):
+        out = call()
+        torch.cuda.synchronize()
+        print(f"digest {kernel} {str(dt).split('.')[-1]} {case} {digest(out)}", flush=True)
+
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator().manual_seed(11)
+        act = (torch.rand(128, generator=gen).add(0.5).to("cuda"),
+               (0.3 * torch.randn(128, generator=gen)).to("cuda"))
+        # the up conv at up1 (level-3 grid, 256 -> 2x128) and n at up2 (level-4 pair, 128 -> 2x64)
+        x = rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        sets = [(rnd(gen, 7, 256, 128, dt=dt, scale=256**-0.5), rnd(gen, 128, dt=dt))
+                for _ in range(2)]
+        line("up_dual_conv_fwd", dt, "up1+stats",
+             lambda: pk.up_dual_conv_fwd(x, sets, "average", True))
+        g = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 128, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        for fold in (True, False):
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            line("up_dual_conv_dtaps", dt, f"up1 fold={fold}",
+                 lambda: pk.up_dual_conv_dtaps(x, g, "average", **fk))
+        b0 = [rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)]
+        y10 = [rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)]
+        aff = [*act, *act]
+        psets = [(rnd(gen, 7, 128, 64, dt=dt, scale=128**-0.5), rnd(gen, 64, dt=dt))
+                 for _ in range(2)]
+        line("up_pair_fwd", dt, "up2+stats",
+             lambda: pk.up_pair_fwd(b0, y10, aff, psets, "average", True))
+        g = [[rnd(gen, B, 5, 16, 32, 64, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 16, 32, 64, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 64, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        for fold in (True, False):
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            line("up_pair_dtaps", dt, f"up2 fold={fold}",
+                 lambda: pk.up_pair_dtaps(b0, y10, aff, g, "average", **fk))
+        # b at conv_in (3 -> 64, Σg), up2's conv01 (64 -> 64, act) and down1's
+        # stride-2 conv (128 -> 2x256, act); f at down1's conv01 (256, act)
+        for case, (h, w, cin, cout, n_sets, out_phases, a) in {
+                "conv_in": (16, 32, 3, 64, 1, (0, 1, 2, 3), None),
+                "up2_conv01": (16, 32, 64, 64, 1, (0, 1, 2, 3), act),
+                "down1_s2": (8, 16, 128, 256, 2, (2,), act)}.items():
+            a = None if a is None else (a[0][:cin].contiguous(), a[1][:cin].contiguous())
+            ph = [rnd(gen, B, 5, h, w, cin, dt=dt) for _ in range(4)]
+            g = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            y = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            gs = [rnd(gen, 2, cout, dt=torch.float32, scale=1e-3) for _ in range(n_sets)]
+            line("phase_conv_dtaps", dt, case,
+                 lambda: pk.phase_conv_dtaps(ph, g, [(7, cin, cout)] * n_sets, "average",
+                                             out_phases, a, y, gs, emit_gsum=True))
+        x = rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        g, y = rnd(gen, B, 5, 8, 16, 256, dt=dt), rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        gs = rnd(gen, 2, 256, dt=torch.float32, scale=1e-3)
+        a256 = (torch.rand(256, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(256, generator=gen)).to("cuda"))
+        line("ico_conv_s2s_dtaps", dt, "down1_conv01",
+             lambda: ck.ico_conv_s2s_dtaps(x, g, "average", a256, y, gs))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,9 @@
     python3 scripts/torch_step_memory.py [--root DIR] [--steps N] [--requests N]
 
 Trains the AE and the VAE (latent 512) at s=5, widths 64/128/256, B=36 on 36
-synthetic meshes with seeded random weights, on the default routing and on
-the decoder's chain (``phase_chain="dec"``, AE), and prints per model and
+synthetic meshes with seeded random weights, on the default routing and, for
+the AE, on the merged backward (``merged_bwd="all"``), the decoder's chain
+(``phase_chain="dec"``) and both chains (``"1"``), and prints per model and
 routing: ``torch.cuda.max_memory_allocated()`` over the steps (after
 ``reset_peak_memory_stats``) and the median host-clock step time,
 synchronised. Then serves the AE in bf16 (``AppState`` on 32 synthetic
@@ -46,15 +47,17 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dataset = synthetic_dataset(5, 36, seed=0)
-    runs = (("ico2ico", None), ("ico2ico", "dec"), ("ico2ico_vae", None))
-    for model, chain in runs if args.steps > 0 else ():  # --steps 0: serving alone
+    runs = (("ico2ico", {}), ("ico2ico", {"merged_bwd": "all"}),
+            ("ico2ico", {"phase_chain": "dec"}), ("ico2ico", {"phase_chain": "1"}),
+            ("ico2ico_vae", {}))
+    for model, routing in runs if args.steps > 0 else ():  # --steps 0: serving alone
         cfg = Config()
         cfg.model.name, cfg.model.subdivisions, cfg.model.widths = model, 5, (64, 128, 256)
         cfg.model.latent_features, cfg.model.compute_dtype = 512, "bfloat16"
         cfg.train.batch_size = 36
         variables = bridge.init_variables(5, (64, 128, 256), seed=1, model=model,
                                           latent_features=512)
-        tr = Trainer(cfg, device="cuda", phase_chain=chain)
+        tr = Trainer(cfg, device="cuda", **routing)
         st = tr.init_state(variables)
         x, y, wt = next(iter(Batches(dataset, 36, drop_remainder=True, seed=0,
                                      device="cuda").epoch()))
@@ -68,7 +71,7 @@ def main():
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        print(f"[step memory] {args.root} {model} phase_chain={chain!r} bf16 B=36: peak "
+        print(f"[step memory] {args.root} {model} {routing or 'default'} bf16 B=36: peak "
               f"max_memory_allocated {peak} bytes ({peak / 2**20:.1f} MiB); step "
               f"{statistics.median(times):.3f} ms (median of {args.steps}, host clock, "
               f"synchronised) [{card}]", flush=True)

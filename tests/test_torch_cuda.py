@@ -553,7 +553,11 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     outputs and stats equal ``phase_conv_fwd`` + ``phase_split``, and dx,
     d_mul/d_add, dtaps and Σg_eff equal ``phase_conv_dx`` /
     ``phase_conv_dtaps`` on the ``phase_merge``d cotangents, bit for bit;
-    and m is within the tolerance of its plain versions."""
+    and m is within the tolerance of its plain versions. In bf16 the phase
+    conv's dtaps runs the tensor-core GEMM and m's the SIMT one: both sum
+    the same exact bf16 products in float32, in two orders, so the dtaps are
+    within 1e-4·max|ref| (float32 noise) and Σg_eff (one pass for both) is
+    equal."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
     for a in (act, None):
@@ -575,8 +579,14 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
                                          **fkm))
         _close_all(got, pk.ds2s_dx_plain(g, sets, corner_mode, 12, dt, a, raw, **fk), dt)
         got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, a, **fk, emit_gsum=True)
-        _equal_all(got, pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a,
-                                            **fkm, emit_gsum=True))
+        ref = pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a, **fkm,
+                                  emit_gsum=True)
+        if dt == torch.float32:
+            _equal_all(got, ref)
+        else:  # bf16 b runs the tensor-core GEMM: its float32 sums in another order
+            _equal_all(got[1], ref[1])
+            for u, v in zip(got[0], ref[0]):
+                assert (u - v).abs().max().item() <= 1e-4 * v.abs().max().item()
         _close_all(got, pk.ds2s_dtaps_plain(phases, g, shapes, corner_mode, a, **fk,
                                             emit_gsum=True), dt)
 
@@ -1012,8 +1022,9 @@ def test_mma_dtaps_one_tap_set(cuda, cin, cout):
 def _bf16_step(cuda, model, plain=None):
     """One bf16 training forward and backward of the s=4 model on the default
     route; ``plain`` names a kernel wrapper that ``ops/kernels/fused.py``
-    calls (``up_dual_conv_dtaps``, ``up_dual_conv_fwd``), which then runs its
-    plain version on the card tensors. (loss, launches, gradients)."""
+    calls (``up_dual_conv_dtaps``, ``up_dual_conv_fwd``), or a tuple of them
+    (``phase_conv_dtaps``, ``ico_conv_s2s_dtaps``), which then run their
+    plain versions on the card tensors. (loss, launches, gradients)."""
     from unittest import mock
 
     import geniconet_tpu_torch.nn.models as models
@@ -1040,8 +1051,9 @@ def _bf16_step(cuda, model, plain=None):
         return eps.to(cuda, std.dtype) * std + mu
 
     patches = [mock.patch.object(models, "reparameterize", fixed)]
-    if plain is not None:
-        patches.append(mock.patch.object(fused, plain, getattr(pk, f"{plain}_plain")))
+    for name in (plain,) if isinstance(plain, str) else plain or ():
+        module = pk if hasattr(pk, f"{name}_plain") else ck
+        patches.append(mock.patch.object(fused, name, getattr(module, f"{name}_plain")))
     build.reset_launches()
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -1197,3 +1209,194 @@ def test_mma_fwd_occupancy(cuda):
         for stats in (False, True):
             info = build.mma_fwd_info(pair, stats)
             assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (pair, stats, info)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 dtaps of the grid convs (b: the phase conv, f: the standard conv)
+# on the tensor cores: the act-applied operand pass, then the GEMM over its
+# gathered rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_act", [True, False])
+@pytest.mark.parametrize("cin", [12, 16])
+@pytest.mark.parametrize("n_src", [4, 1])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [2, 4])
+def test_grid_operand_is_the_plain_operand(cuda, s, corner_mode, dt, n_src, cin, with_act):
+    """The grid convs' operand pass against ``grid_operand_plain`` (the
+    act-applied sources, each sample's two poles, the zero row, channels
+    padded to a multiple of 8): equal bit for bit, for the phase conv's 4
+    phases and the standard conv's grid, channel by channel (C_in 12) and 8
+    at a time (16): the pass runs GridLoad's act and pole arithmetic, which
+    rounds where the plain ops do."""
+    x, act, _ = _inputs(cuda, dt, s, cin, 8, seed=300 + s + cin)
+    sources = _split(x) if n_src == 4 else (x,)
+    a = act if with_act else None
+    got = pk.grid_operand(sources, a, corner_mode)
+    torch.cuda.synchronize()
+    ref = pk.grid_operand_plain(sources, a, corner_mode)
+    h, w = sources[0].shape[2:4]
+    assert got.shape == (pk.grid_operand_rows(2, h, w, n_src), 16) and got.dtype == dt
+    assert torch.equal(got, ref)
+    assert not got[:, cin:].any() and not got[-1].any()
+
+
+# The grid convs' dtaps at the s=5 models' training shapes (B=2): (kernel,
+# phase h, w, C_in, C_out, tap sets, output phases, act); b's conv_in,
+# conv01 of up0-2 and the stride-2 convs of down0-2 (with an act prologue
+# at down0 only in the AE; both kinds at down1-2) and the VAE's heads, f's
+# conv01 of down0-2
+GRID_DTAPS = {
+    "conv_in": ("b", 16, 32, 3, 64, 1, (0, 1, 2, 3), False),
+    "up0 conv01": ("b", 4, 8, 256, 256, 1, (0, 1, 2, 3), True),
+    "up1 conv01": ("b", 8, 16, 128, 128, 1, (0, 1, 2, 3), True),
+    "up2 conv01": ("b", 16, 32, 64, 64, 1, (0, 1, 2, 3), True),
+    "down0 s2": ("b", 16, 32, 64, 128, 2, (2,), True),
+    "down1 s2": ("b", 8, 16, 128, 256, 2, (2,), True),
+    "down1 s2 (no act)": ("b", 8, 16, 128, 256, 2, (2,), False),
+    "down2 s2": ("b", 4, 8, 256, 256, 2, (2,), True),
+    "down2 s2 (no act)": ("b", 4, 8, 256, 256, 2, (2,), False),
+    "VAE heads": ("b", 4, 8, 256, 512, 2, (2,), False),
+    "down0 conv01": ("f", 16, 32, 128, 128, 1, (0,), True),
+    "down1 conv01": ("f", 8, 16, 256, 256, 1, (0,), True),
+    "down2 conv01": ("f", 4, 8, 256, 256, 1, (0,), True),
+}
+
+
+def _grid_dtaps_calls(cuda, case, fold, corner_mode="average", seed=0):
+    """(kernel call, plain call) of b or f at a GRID_DTAPS shape, bf16, B=2,
+    with the stats fold in the kernel or without (b then emits Σg_eff)."""
+    kernel, h, w, cin, cout, n_sets, out_phases, with_act = case
+    dt, B = torch.bfloat16, 2
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda, dt)
+
+    act = ((torch.rand(cin, generator=gen) + 0.5).to(cuda),
+           (0.3 * torch.randn(cin, generator=gen)).to(cuda)) if with_act else None
+    shape = (B, 5, h, w, cout)
+    gs = [(1e-3 * torch.randn(2, cout, generator=gen)).to(cuda) for _ in range(n_sets)]
+    if kernel == "f":
+        x, g, y = rnd(B, 5, h, w, cin), rnd(*shape), rnd(*shape)
+        fk = dict(y=y, gs=gs[0]) if fold else {}
+        return (lambda: ck.ico_conv_s2s_dtaps(x, g, corner_mode, act, **fk),
+                lambda: ck.ico_conv_s2s_dtaps_plain(x, g, corner_mode, act, **fk))
+    phases = [rnd(B, 5, h, w, cin) for _ in range(4)]
+    g = [[rnd(*shape) for _ in out_phases] for _ in range(n_sets)]
+    fk = dict(y_groups=[[rnd(*shape) for _ in out_phases] for _ in range(n_sets)],
+              gs_list=gs) if fold else {}
+    args = (phases, g, [(7, cin, cout)] * n_sets, corner_mode, out_phases, act)
+    return (lambda: pk.phase_conv_dtaps(*args, **fk, emit_gsum=not fold),
+            lambda: pk.phase_conv_dtaps_plain(*args, **fk, emit_gsum=not fold))
+
+
+def _check_grid_dtaps(got, ref, kernel):
+    """b's float32 dtaps (and Σg_eff) within 1e-3·max|ref|: the products
+    are exact and both sides sum in float32, in two orders (about 1e-6 of
+    noise), far inside TOL; f's, rounded to bf16 on both sides, within one
+    bf16 ulp of max|ref| (``_within_ulp``)."""
+    if kernel == "f":
+        _within_ulp([got], [ref])
+        return
+    for u, v in zip(_flat_all(got), _flat_all(ref)):
+        assert u.dtype == torch.float32 and bool(torch.isfinite(u).all())
+        err, scale = (u - v).abs().max().item(), v.abs().max().item()
+        assert err <= 1e-3 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("site", list(GRID_DTAPS))
+def test_mma_grid_dtaps_at_the_model_widths(cuda, site, fold):
+    """b and f in bf16 at every training shape of the s=5 AE and VAE (B=2),
+    with the stats fold in the kernel and without, against their plain
+    versions (``_check_grid_dtaps``); C_in 3 (conv_in: all 7 taps a block)
+    and 64 (up2 conv01, down0 s2: 2 taps a block) take the NARROW tile. One
+    launch of the wrapper each."""
+    case = GRID_DTAPS[site]
+    call, plain = _grid_dtaps_calls(cuda, case, fold, seed=len(site))
+    name = "ico_conv_s2s_dtaps" if case[0] == "f" else "phase_conv_dtaps"
+    build.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 1}
+    _check_grid_dtaps(got, plain(), case[0])
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("cin, cout", [(12, 20), (20, 9), (100, 24)])
+@pytest.mark.parametrize("kind", ["b s1", "b s2", "f"])
+def test_mma_grid_dtaps_ragged_widths(cuda, kind, cin, cout, corner_mode):
+    """b (4 output phases, one set; phase 2, two sets) and f at widths the
+    model has not, with and without the fold and the act: C_in 12 (the
+    NARROW tile, all 7 taps of two chunks a block), 20 (NARROW, 5 taps of
+    three chunks a block, the last block 2) and 100 (the wide tile, past
+    C_in), each through the operand's ragged channel pass; C_out 20 and 9
+    (the element-by-element g loads) and 24, against their plain versions
+    (``_check_grid_dtaps``)."""
+    kernel = kind[0]
+    n_sets, out_phases = (2, (2,)) if kind == "b s2" else (1, (0, 1, 2, 3))
+    for fold, with_act in ((True, True), (False, False), (True, False)):
+        case = (kernel, 8, 16, cin, cout, n_sets, out_phases, with_act)
+        call, plain = _grid_dtaps_calls(cuda, case, fold, corner_mode, seed=cin + cout)
+        _check_grid_dtaps(call(), plain(), kernel)
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_mma_grid_dtaps(cuda, model):
+    """A bf16 training step of the default route with the tensor-core dtaps
+    of the phase conv (b) and the standard conv (f), against the same step
+    with both patched to their plain versions on the card tensors. Only the
+    taps gradients b and f compute can differ (13 in the AE: conv_in, up0-2
+    conv01, down0-2 conv00/conv10 and conv01; 12 in the VAE: its 2
+    DownBlocks, the mu/logvar heads instead of down2): their float32 sums
+    differ in order alone, then round to bf16 on both sides, so each is
+    within one bf16 ulp of max|ref| (plus 1e-5·max|ref| of float32 noise).
+    Every other gradient and the loss are equal bit for bit."""
+    loss, launches, grads = _bf16_step(cuda, model)
+    assert launches["phase_conv_dtaps"] == 7 and launches["ico_conv_s2s_dtaps"] > 0
+    plain = ("phase_conv_dtaps", "ico_conv_s2s_dtaps")
+    ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain=plain)
+    assert not set(plain) & set(ref_launches)
+    assert loss == ref_loss
+    up = [k for k in grads if k.startswith("decoder.up") and
+          (".conv00.taps" in k or ".conv10.taps" in k)]
+    grid_taps = [k for k in grads if k.endswith(".taps") and k not in up]
+    assert len(grid_taps) == (12 if model == "ico2ico_vae" else 13), grid_taps
+    for k, g in grads.items():
+        if k in grid_taps:
+            err, scale = (g - ref[k]).abs().max().item(), ref[k].abs().max().item()
+            assert scale > 0 and err <= (2**-7 + 1e-5) * scale, (k, err, scale)
+        else:
+            assert torch.equal(g, ref[k]), k
+
+
+def test_mma_grid_dtaps_has_no_fallback(cuda):
+    """A bf16 call of b or f whose operand scratch is missing raises (the C
+    entry refuses it) rather than running the SIMT core."""
+    from unittest import mock
+
+    def without_operand(scratch):
+        return lambda *args: (*scratch(*args)[:3], None)
+
+    case_b, case_f = GRID_DTAPS["up2 conv01"], GRID_DTAPS["down2 conv01"]
+    with mock.patch.object(pk, "grid_dtaps_scratch", without_operand(pk.grid_dtaps_scratch)):
+        with pytest.raises(RuntimeError, match="phase_conv_dtaps"):
+            _grid_dtaps_calls(cuda, case_b, True)[0]()
+    with mock.patch.object(ck, "grid_dtaps_scratch", without_operand(ck.grid_dtaps_scratch)):
+        with pytest.raises(RuntimeError, match="ico_conv_s2s_dtaps"):
+            _grid_dtaps_calls(cuda, case_f, True)[0]()
+
+
+def test_mma_grid_dtaps_occupancy(cuda):
+    """Each instantiation of the grid convs' tensor-core GEMM (b and f, fold
+    or not, NARROW or wide) fits 2 blocks an SM with no local memory (no
+    spill)."""
+    for std in (False, True):
+        for fold in (False, True):
+            for narrow in (False, True):
+                info = build.grid_dtaps_info(std, fold, narrow)
+                assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (
+                    std, fold, narrow, info)

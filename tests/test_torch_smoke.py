@@ -106,6 +106,23 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::pair_join_pass<__nv_bfloat16>"
                                "(gn::PairCells<__nv_bfloat16>, __nv_bfloat16*)"},
      "up_operand_pass<bf16> (n)"),
+    # the bf16 dtaps of the grid convs, b and f: their GEMM's rows (the
+    # NARROW tile's too) and their operand passes
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::PhaseGrid, true, true>"
+                               "(gn::OperandRows, gn::GLoad<__nv_bfloat16, false>, int)"},
+     "mma_dtaps<bf16> (b)"),
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::StdGrid, false, false>"
+                               "(gn::OperandRows, gn::GLoad<__nv_bfloat16, false>, int)"},
+     "mma_dtaps<bf16> (f)"),
+    ({"cat": "kernel", "name": "void gn::grid_operand_pass<__nv_bfloat16, gn::PhaseGrid>"
+                               "(gn::GridLoad<__nv_bfloat16, false>, __nv_bfloat16*, int)"},
+     "grid_operand_pass<bf16> (b)"),
+    ({"cat": "kernel", "name": "void gn::grid_operand_pass<__nv_bfloat16, gn::StdGrid>"
+                               "(gn::GridLoad<__nv_bfloat16, false>, __nv_bfloat16*, int)"},
+     "grid_operand_pass<bf16> (f)"),
+    ({"cat": "kernel", "name": "void gn::sum_rows<(anonymous namespace)::CastOut<__nv_bfloat16> >"
+                               "(float const*, int, long long)"},
+     "sum_rows + colsum (cross-block sums)"),
     # the bf16 forward of the up conv and of n: the GEMM's rows and the tap pack
     ({"cat": "kernel", "name": "void gn::mma_conv_fwd<gn::GridCells<__nv_bfloat16>, true>"
                                "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdOut, int)"},
@@ -124,3 +141,33 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
 ])
 def test_profile_groups_device_events_by_kernel(event, group):
     assert chip_smoke.kernel_group(event) == group
+
+
+def _groups(**calls):
+    return {row: [n, 0.1 * n] for row, n in calls.items()}
+
+
+@pytest.mark.parametrize("groups, launches, ok", [
+    # every call of b and f ran its pass and its GEMM (a trace may lose some)
+    ({"grid_operand_pass<bf16> (b)": 35, "mma_dtaps<bf16> (b)": 34,
+      "grid_operand_pass<bf16> (f)": 15, "mma_dtaps<bf16> (f)": 15},
+     {"phase_conv_dtaps": 7.0, "ico_conv_s2s_dtaps": 3.0}, True),
+    ({}, {}, True),  # a serving window: neither ran
+    # m's SIMT dtaps has its own row; b's SIMT one must not appear
+    ({"grid_operand_pass<bf16> (b)": 5, "mma_dtaps<bf16> (b)": 5,
+      "dtaps_gemm<bf16, GridLoad, split> (m)": 15}, {"phase_conv_dtaps": 1.0}, True),
+    ({"grid_operand_pass<bf16> (b)": 35, "mma_dtaps<bf16> (b)": 35,
+      "dtaps_gemm<bf16, GridLoad>": 15}, {"phase_conv_dtaps": 7.0}, False),
+    ({"grid_operand_pass<bf16> (b)": 35}, {"phase_conv_dtaps": 7.0}, False),  # no GEMM
+    ({"grid_operand_pass<bf16> (f)": 20, "mma_dtaps<bf16> (f)": 20},
+     {"ico_conv_s2s_dtaps": 3.0}, False),  # more GEMMs than calls
+])
+def test_device_launches_of_the_grid_dtaps(groups, launches, ok):
+    """``check_device_launches`` over 5 profiled iterations: each call of b
+    and f shows its operand pass and tensor-core GEMM, at most once a call,
+    and no window the SIMT ``dtaps_gemm<bf16, GridLoad>``."""
+    if ok:
+        chip_smoke.check_device_launches("t", _groups(**groups), launches, 5)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_device_launches("t", _groups(**groups), launches, 5)
