@@ -51,10 +51,10 @@ printed on its own lines, each fatal on failure:
    pair it replaces (the first conv with stats; bn00's affine and conv01
    with stats) and cuDNN's two contractions. The bf16 forward of the up
    conv and of n (serving and training shapes), their dtaps (d, n's) and
-   the grid convs' dtaps (b, f; a C_in of at most 64 on the NARROW tile)
-   also print their parts from a trace: the operand pass against its byte
-   bound, the forward's tap pack, the tensor-core GEMM's TFLOP/s, the sums,
-   and the GEMM's registers and blocks an SM;
+   the grid convs' forward and dtaps (b, f; a C_in of at most 64 on the
+   dtaps' NARROW tile) also print their parts from a trace: the operand
+   pass against its byte bound, the forward's tap pack, the tensor-core
+   GEMM's TFLOP/s, the sums, and the GEMM's registers and blocks an SM;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -86,10 +86,11 @@ printed on its own lines, each fatal on failure:
 8. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
-   trace, with the device's idle share; every bf16 call of b and f must
-   show its operand pass and tensor-core GEMM there, and no window the
-   SIMT ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are kept in
-   ``build/profile/``.
+   trace, with the device's idle share; every bf16 call of the grid
+   convs' forward and dtaps (b, f) must show its operand pass and
+   tensor-core GEMM there, and no window the SIMT ``conv_gemm<bf16,
+   GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are
+   kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches on the serving and training paths (AE and VAE summed, and per
@@ -141,7 +142,7 @@ KERNELS = {
                          "geniconet_tpu/ops/pallas/phase_kernel.py:1999"),
     "pair_head_fwd": ("geniconet_tpu_torch/csrc/pair_head.cu",
                       "geniconet_tpu/ops/pallas/phase_kernel.py:3241"),
-    "ico_conv_s2s_fwd": ("geniconet_tpu_torch/csrc/ico_conv.cu",
+    "ico_conv_s2s_fwd": ("geniconet_tpu_torch/csrc/phase_conv.cu",
                          "geniconet_tpu/ops/pallas/conv_kernel.py:253"),
     "phase_conv_dx": ("geniconet_tpu_torch/csrc/phase_conv_bwd.cu",
                       "geniconet_tpu/ops/pallas/phase_kernel.py:1336"),
@@ -186,16 +187,17 @@ KERNELS = {
     "dn_block_fwd": ("geniconet_tpu_torch/csrc/dn_block.cu",
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
-# sources beyond the one named in KERNELS: in bf16 the up conv's and n's
-# forward and dtaps, and the grid convs' dtaps (b, f), run an operand pass
-# of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
-# csrc/mma_dtaps.cuh
+# sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
+# the grid convs' forward and dtaps (the grid convs' dtaps: b, f) run an
+# operand pass of csrc/mma.cuh and the tensor-core GEMMs of
+# csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
               for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
                         "ico_conv_s2s_dtaps")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
-              for k in ("up_dual_conv_fwd", "up_pair_fwd")}}
+              for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
+                        "ico_conv_s2s_fwd")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -386,8 +388,8 @@ class Case:
     ``split_labels`` in the print), and other calls to time beside it
     (``compare``: label -> call). ``short``: the kernel is timed from a
     profiler trace (``trace_ms``). ``parts``: a call that returns the bf16
-    kernel's parts from a trace (``mma_parts``: the up conv's and n's
-    forward, d's and n's dtaps)."""
+    kernel's parts from a trace (``mma_parts``: the up conv's, n's and the
+    grid convs' forward, d's, n's, b's and f's dtaps)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -400,15 +402,15 @@ class Case:
 
 
 def mma_parts(call, flops, inputs, operand, info):
-    """A bf16 tensor-core kernel's parts from a trace (the up conv's and n's
-    forward and dtaps, b's and f's dtaps): its operand pass (against its
+    """A bf16 tensor-core kernel's parts from a trace (the up conv's, n's
+    and the grid convs' forward and dtaps): its operand pass (against its
     bound: the inputs it reads once, ``inputs``, and the bf16 operand of
     ``operand`` = (rows, width) it writes), the forward's tap pack, the
     tensor-core GEMM (achieved TFLOP/s against the bf16 peak), the sums
     (the partials' and Σg's); and ``info``, the GEMM instantiation's
     registers a thread, blocks an SM, shared and local memory as the runtime
     reports them (``build.mma_dtaps_info``, ``grid_dtaps_info``,
-    ``mma_fwd_info``)."""
+    ``mma_fwd_info``, ``grid_fwd_info``)."""
     rows = trace_kernels(call, per_launch=True)
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
     op_bytes += operand[0] * operand[1] * 2
@@ -429,15 +431,15 @@ def up_operand(B, h, w, cin):
     return pk.operand_rows(B, h, w), build.operand_width(cin)
 
 
-def grid_parts(call, flops, inputs, B, h, w, cin, n_src, fold):
-    """``mma_parts`` of b (``n_src`` 4) or f (1) at (B, h, w, C_in), with
-    the fold or without, on the tile ``build.mma_narrow`` picks."""
+def grid_parts(call, flops, inputs, B, h, w, cin, n_src, info):
+    """``mma_parts`` of a grid conv's bf16 forward or dtaps (b, f) at (B, h,
+    w, C_in) over ``n_src`` sources (the phase conv's 4, the standard
+    conv's 1), with its GEMM's ``info``."""
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
     return mma_parts(call, flops, inputs,
-                     (pk.grid_operand_rows(B, h, w, n_src), build.operand_width(cin)),
-                     build.grid_dtaps_info(n_src == 1, fold, build.mma_narrow(cin)))
+                     (pk.grid_operand_rows(B, h, w, n_src), build.operand_width(cin)), info)
 
 
 def conv_flops(B, cells, cin, ntot):
@@ -478,12 +480,15 @@ def serving_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
             a = _act(gen, cin) if with_act else None
             stride = 2 if out_phases == (2,) else 1
-            return Case(lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a),
-                        lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a),
-                        conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout),
-                        [ph, sets, a],
+            call = lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a)  # noqa: E731
+            flops = conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout)
+            info = build.grid_fwd_info(False, False) if dt == torch.bfloat16 else None
+            parts = (lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, info)
+                     ) if info is not None else None
+            return Case(call, lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a),
+                        flops, [ph, sets, a],
                         cudnn("fwd", gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
-                              2 * w + 2, stride))
+                              2 * w + 2, stride), parts=parts)
         return make
 
     def up(h, w, cin, cout):
@@ -505,10 +510,14 @@ def serving_cases():
             x = _rnd(gen, B, 5, h, w, c, dtype=dt)
             t, b = _taps(gen, c, c, dt)
             a = _act(gen, c)
-            return Case(lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a),
-                        lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a),
-                        conv_flops(B, 5 * h * w, c, c), [x, t, b, a],
-                        cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2))
+            call = lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a)  # noqa: E731
+            flops = conv_flops(B, 5 * h * w, c, c)
+            info = build.grid_fwd_info(True, False) if dt == torch.bfloat16 else None
+            parts = (lambda: grid_parts(call, flops, [x, a], B, h, w, c, 1, info)
+                     ) if info is not None else None
+            return Case(call, lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a), flops,
+                        [x, t, b, a], cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2),
+                        parts=parts)
         return make
 
     def head(h, w, c):
@@ -618,13 +627,16 @@ def training_cases():
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
             a = _act(gen, cin) if with_act else None
             stride = 2 if out_phases == (2,) else 1
-            return Case(lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a, True),
-                        lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases, a,
-                                                        True),
-                        conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout),
-                        [ph, sets, a],
+            call = lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a, True)  # noqa: E731
+            flops = conv_flops(B, len(out_phases) * 5 * h * w, cin, n_sets * cout)
+            info = build.grid_fwd_info(False, True) if dt == torch.bfloat16 else None
+            parts = (lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, info)
+                     ) if info is not None else None
+            return Case(call, lambda: pk.phase_conv_fwd_plain(ph, sets, "average", out_phases,
+                                                              a, True),
+                        flops, [ph, sets, a],
                         cudnn("fwd", gen, dt, B * 5, cin, n_sets * cout, 2 * h + 3 - stride,
-                              2 * w + 2, stride))
+                              2 * w + 2, stride), parts=parts)
         return make
 
     def up_fwd(h, w, cin, cout):
@@ -645,10 +657,14 @@ def training_cases():
     def std_fwd(h, w, c):
         def make(dt, gen):
             x, (t, b), a = _rnd(gen, B, 5, h, w, c, dtype=dt), _taps(gen, c, c, dt), _act(gen, c)
-            return Case(lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a, True),
-                        lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a, True),
-                        conv_flops(B, 5 * h * w, c, c), [x, t, b, a],
-                        cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2))
+            call = lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a, True)  # noqa: E731
+            flops = conv_flops(B, 5 * h * w, c, c)
+            info = build.grid_fwd_info(True, True) if dt == torch.bfloat16 else None
+            parts = (lambda: grid_parts(call, flops, [x, a], B, h, w, c, 1, info)
+                     ) if info is not None else None
+            return Case(call, lambda: ck.ico_conv_s2s_fwd_plain(x, t, b, "average", a, True),
+                        flops, [x, t, b, a], cudnn("fwd", gen, dt, B * 5, c, c, h + 2, w + 2),
+                        parts=parts)
         return make
 
     def phase_bwd(which, h, w, cin, cout, n_sets, out_phases, with_act=True, emit_gsum=False,
@@ -673,8 +689,10 @@ def training_cases():
             args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs,
                     emit_gsum or not fold)
             call = lambda: pk.phase_conv_dtaps(*args)  # noqa: E731
-            parts = (lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, fold)
-                     ) if dt == torch.bfloat16 else None
+            info = (build.grid_dtaps_info(False, fold, build.mma_narrow(cin))
+                    if dt == torch.bfloat16 else None)
+            parts = (lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, info)
+                     ) if info is not None else None
             return Case(call, lambda: pk.phase_conv_dtaps_plain(*args), flops,
                         [ph, g, a, y, gs], lib, parts=parts)
         return make
@@ -816,8 +834,10 @@ def training_cases():
                             lib)
             args = (x, g, "average", a, y, gs)
             call = lambda: ck.ico_conv_s2s_dtaps(*args)  # noqa: E731
-            parts = (lambda: grid_parts(call, flops, [x, a], B, h, w, c, 1, True)
-                     ) if dt == torch.bfloat16 else None
+            info = (build.grid_dtaps_info(True, True, build.mma_narrow(c))
+                    if dt == torch.bfloat16 else None)
+            parts = (lambda: grid_parts(call, flops, [x, a], B, h, w, c, 1, info)
+                     ) if info is not None else None
             return Case(call, lambda: ck.ico_conv_s2s_dtaps_plain(*args), flops,
                         [x, g, a, y, gs], lib, parts=parts)
         return make
@@ -1322,9 +1342,9 @@ def kernel_group(event: dict) -> str:
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv_fwd" in name:
-        return f"mma_conv_fwd<bf16> {'(n)' if pair else '(up conv)'}"
+        return f"mma_conv_fwd<bf16> {grid or ('(n)' if pair else '(up conv)')}"
     if "pack_taps" in name:
-        return "pack_taps (up conv, n)"
+        return f"pack_taps {grid or '(up conv, n)'}"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
     # kernel m: the phase conv's GEMMs with the split store / split loader;
     # kernel n: the up conv's with the pair loader / the pair's dx epilogue
@@ -1332,7 +1352,8 @@ def kernel_group(event: dict) -> str:
     if "PairCells" in name or "DxPairOut" in name:
         split = ", pair> (n)"
     if "conv_gemm" in name:
-        # phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad instantiation
+        # the float32 phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad
+        # instantiation; in bf16 they run mma_conv_fwd (b), (f)
         return f"conv_gemm<{dtype}, {loader}{split}"
     if "dx_gemm" in name:
         return f"dx_gemm<{dtype}{split}"
@@ -1426,27 +1447,36 @@ def device_profile(workloads, card: str):
             print(f"[profile bfloat16 {tag}]     top {name}: {ms:.4f} ms/iter", flush=True)
 
 
-# the profile rows of the device launches of one bf16 call of b and of f,
-# beside the sums: the operand pass and the tensor-core GEMM, once each
-GRID_DTAPS_ROWS = {"phase_conv_dtaps": "(b)", "ico_conv_s2s_dtaps": "(f)"}
+# the profile rows of the device launches of the bf16 grid convs, by kernel
+# tag: their wrappers (forward, dtaps b or f), each call's operand pass and
+# its tensor-core GEMM (the forward's or the dtaps')
+GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
+             "(f)": ("ico_conv_s2s_fwd", "ico_conv_s2s_dtaps")}
 
 
 def check_device_launches(tag, groups, launches, iters):
-    """Fail unless, in a profiled bf16 window, the calls of b and f
-    (``launches``, wrapper calls an iteration) ran their operand pass and
-    their tensor-core GEMM (each row present where the wrapper ran, and at
-    most once a call: a trace may lose events, never add them), and no
-    launch of the SIMT ``dtaps_gemm<bf16, GridLoad>`` (m's split loader has
-    its own row)."""
-    for wrapper, which in GRID_DTAPS_ROWS.items():
-        calls = launches.get(wrapper, 0)
-        for row in (f"grid_operand_pass<bf16> {which}", f"mma_dtaps<bf16> {which}"):
-            n = groups[row][0] / iters if row in groups else 0
-            if (calls > 0) != (n > 0) or n > calls:
-                raise AssertionError(f"profile {tag}: {row} {n} a step for {calls} calls of "
-                                     f"{wrapper}")
-    if "dtaps_gemm<bf16, GridLoad>" in groups:
-        raise AssertionError(f"profile {tag}: the SIMT dtaps_gemm<bf16, GridLoad> ran")
+    """Fail unless, in a profiled bf16 window, the calls of the grid convs'
+    forward and dtaps (``launches``, wrapper calls an iteration) ran their
+    operand pass (one a call of either) and their tensor-core GEMM
+    (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps): each row present
+    where its wrappers ran, and at most once a call (a trace may lose
+    events, never add them); and no launch of the SIMT ``conv_gemm<bf16,
+    GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>`` (m's split store and
+    loader, o's and p's tiles have rows of their own)."""
+    def check(row, calls, wrappers):
+        n = groups[row][0] / iters if row in groups else 0
+        if (calls > 0) != (n > 0) or n > calls:
+            raise AssertionError(f"profile {tag}: {row} {n} a step for {calls} calls of "
+                                 f"{' + '.join(wrappers)}")
+
+    for which, (fwd, dtaps) in GRID_ROWS.items():
+        n_fwd, n_dtaps = launches.get(fwd, 0), launches.get(dtaps, 0)
+        check(f"grid_operand_pass<bf16> {which}", n_fwd + n_dtaps, (fwd, dtaps))
+        check(f"mma_conv_fwd<bf16> {which}", n_fwd, (fwd,))
+        check(f"mma_dtaps<bf16> {which}", n_dtaps, (dtaps,))
+    for simt in ("conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>"):
+        if simt in groups:
+            raise AssertionError(f"profile {tag}: the SIMT {simt} ran")
 
 
 def serving_workloads(st, tag="", b1=True):

@@ -11,11 +11,14 @@
 // persistent cooperative grid split by grid barriers, and y00 an ordinary
 // output without the TPU's lane padding.
 //
-// Pass A is phase_conv.cu's tiles (gn::GridLoad over the 4 input phases,
-// two tap sets, out phase 2), pass B ico_conv.cu's (gn::GridLoad over y00,
-// halo.std_conv_table); every output and sum equals the split route's
-// (phase_conv_fwd with stats, the affine, then ico_conv_s2s_fwd with stats)
-// bit for bit.
+// Pass A is the float32 SIMT tiles of phase_conv.cu's phase conv
+// (gn::GridLoad over the 4 input phases, two tap sets, out phase 2), pass B
+// those of its standard conv (gn::GridLoad over y00, halo.std_conv_table);
+// every output and sum equals the split route's (phase_conv_fwd with stats,
+// the affine, then ico_conv_s2s_fwd with stats) bit for bit in float32. In
+// bf16 the split route runs the tensor-core GEMM (mma_conv_fwd.cuh), whose
+// float32 sums are taken in another order: each output is within one bf16
+// ulp of the split route's.
 //
 // What bounds it on the card: the float32 FMA rate of the GEMM tiles.
 #include "block_fwd.cuh"

@@ -18,8 +18,11 @@
 // goes to phase 2 * (i & 1) + (j & 1) at (chart, i >> 1, j >> 1), shifts and
 // masks of the cell index, as the grid sides are powers of two. The stats
 // partials come from the tile before the store and the GEMM's row order is
-// the phase conv's, so the outputs and stats equal phase_conv_fwd with
-// out_phases (2,) followed by phase_split bit for bit. The backward kernels
+// the phase conv's float32 one, so the outputs and stats equal
+// phase_conv_fwd with out_phases (2,) followed by phase_split bit for bit
+// in float32; in bf16 phase_conv_fwd runs the tensor-core GEMM
+// (mma_conv_fwd.cuh) and m keeps this SIMT tile, so the two are within one
+// bf16 ulp of each other. The backward kernels
 // run the phase conv's dx and dtaps tiles (gn::dx_tile over the transposed
 // table of output phase 2, gn::dtaps_tile) with the split cotangent loader
 // GLoad<T, true>, which reads row m of the merged cotangent (and y, under

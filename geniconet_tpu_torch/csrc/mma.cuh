@@ -3,8 +3,8 @@
 // conv table) and the mma.sync primitives. The operand is the up convs'
 // upsampled level-(s+1) grid (up_operand_pass) or the grid convs'
 // act-applied input (grid_operand_pass). mma_dtaps.cuh (the tap gradients:
-// d, n, b and f) and mma_conv_fwd.cuh (the forward: the up conv and n)
-// build their GEMMs on them.
+// d, n, b and f) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
+// grid convs) build their GEMMs on them.
 #pragma once
 
 #include "common.cuh"
@@ -237,8 +237,9 @@ cudaError_t launch_up_operand(const UpLoad<T, PairCells<T>>& ld, T* out, T* join
   return launch_upsampled_operand<T, PairCells<T>>(grid, out, B, zero_poles, stream);
 }
 
-// The grid convs' operand (b: the phase conv's 4 input phases, f: the
-// standard conv's grid): one thread writes 8 channels of one row, the
+// The grid convs' operand (the phase conv's 4 input phases, the standard
+// conv's grid; their forwards and dtaps b, f): one thread writes 8
+// channels of one row, the
 // act-applied cell (act_apply, rounded to T; the raw cell without act) or a
 // pole row, the 5-chart mean of cell 0 of source 0 (NORTH) / of cell hw-1
 // of source south_src (SOUTH) with GridLoad's sums and roundings (zeros
@@ -316,8 +317,9 @@ cudaError_t launch_grid_operand(const GridLoad<T>& ld, T* out, int B, int n_src,
   return cudaGetLastError();
 }
 
-// Tags of the grid convs' instantiations: a profile tells the phase conv's
-// launches (b) from the standard conv's (f) by them; the code is one.
+// Tags of the grid convs' instantiations (operand pass, forward GEMM, dtaps
+// GEMM): a profile tells the phase conv's launches (b) from the standard
+// conv's (f) by them; the code is one.
 struct PhaseGrid {};
 struct StdGrid {};
 
@@ -340,6 +342,20 @@ struct OperandRows {
     return rows + r * ldk;
   }
 };
+
+// The operand's row loader over `operand`: per sample n_src * M cells and
+// 2 pole rows, then the zero row.
+inline OperandRows operand_rows(const __nv_bfloat16* operand, const int* table, int B, int M,
+                                int cin, int n_src) {
+  OperandRows ld;
+  ld.rows = operand;
+  ld.table = table;
+  ld.M = M;
+  ld.ldk = operand_width(cin);
+  ld.per_b = operand_per_sample(M, n_src);
+  ld.zero_row = B * ld.per_b;
+  return ld;
+}
 
 namespace mma {
 

@@ -1,45 +1,54 @@
-// The bf16 forward of the up conv and of the decoder chain's pair conv
-// (kernel n) on the tensor cores: the upsampled operand is built once into
-// device memory (mma.cuh), the two tap sets are packed once, then one GEMM
-// gathers the operand's rows through the conv table, with the BatchNorm
-// [Σy, Σy²] stats in its epilogue.
+// The bf16 forward of the up conv, of the decoder chain's pair conv (kernel
+// n) and of the grid convs (the phase conv and the standard conv) on the
+// tensor cores: the operand is built once into device memory (mma.cuh),
+// the tap sets are packed once, then one GEMM gathers the operand's rows
+// through the conv table, with the BatchNorm [Σy, Σy²] stats in its
+// epilogue.
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:
-// _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel) and _updp (:2380,
-// _up_pair_fwd_kernel). The float32 path keeps gn::conv_gemm over gn::UpLoad
-// (common.cuh), the SIMT core, bit for bit.
+// _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel), _updp (:2380,
+// _up_pair_fwd_kernel) and _phase_conv_fwd (:1272, _pc_fwd_kernel), and
+// conv_kernel.py:_pallas_forward (:253, _kernel). The float32 path keeps
+// gn::conv_gemm over gn::UpLoad / gn::GridLoad (common.cuh), the SIMT core,
+// bit for bit.
 //
 // What bounds it on the card. out[q][n] = sum_t sum_k U[row_t(q)][k] W[t][k][n]
-// + bias[n] over q = (sample, output phase slot, cell), B * 4 * 5hw rows, and
-// n the columns of both tap sets side by side: 42-85 GFLOP a site at B=36,
-// bound by the tensor cores' bf16 rate (0.04-0.09 ms at 989 TFLOP/s). The
-// SIMT kernel rebuilt every upsampled cell on every load (a conv-table read,
-// two midpoint-table reads, one or two cells, a 5-cell mean at a pole; for n
-// each cell also the pair join), once for each of the 7 taps and each column
-// tile, at 2-10 TFLOP/s.
+// + bias[n] over q = (sample, output phase slot, cell), B * n_out * 5hw rows,
+// and n the columns of the tap sets side by side: 5-85 GFLOP a site at
+// B=36, bound by the tensor cores' bf16 rate (0.01-0.09 ms at 989
+// TFLOP/s). The SIMT kernels rebuilt every operand cell on every load (a
+// conv-table read; the up convs' midpoints, the grid convs' act prologue, a
+// 5-cell mean at a pole; for n each cell also the pair join), once for each
+// of the 7 taps and each column tile, at 2-12 TFLOP/s.
 //
 // Design.
 // 1. The operand: launch_up_operand (mma.cuh), the pass d's dtaps runs (for
-//    n after the pair is joined once into a level-s grid).
-// 2. pack_taps writes both tap sets side by side into one bf16 buffer,
+//    n after the pair is joined once into a level-s grid); for the grid
+//    convs launch_grid_operand, the pass b's and f's dtaps run (n_src = 4
+//    phases or 1 grid, act applied, then each sample's two pole rows).
+// 2. pack_taps writes the tap sets side by side into one bf16 buffer,
 //    row t * Kp + k, column n (set n / cout, channel n % cout), zero past
 //    C_in (Kp = C_in rounded up to the 32-channel step) and past the
 //    columns (N rounded up to the 128-column tile), so every copy of a tap
 //    tile is a whole 16-byte chunk in bounds.
 // 3. mma_conv_fwd: a block takes 128 rows q and 128 columns n and walks K =
-//    7 taps x Kp in 32-channel steps. Rows run flat over B * 4 * 5hw
-//    (mma::RowPos), so a small phase (160 cells at up0) does not leave a tile
-//    part empty. Each thread copies two 16-byte chunks of one A row ([q][k],
-//    k contiguous) and two of the tap tile ([k][n]) into a 4-stage cp.async
-//    ring, zero-filled past the operand's width and past Q; a row's conv-table
+//    7 taps x Kp in 32-channel steps. Rows run flat over B * n_out * 5hw
+//    (mma::RowPos over n_out output phase slots from out_phase0: 4 from 0
+//    for the up convs and the stride-1 phase conv, 1 from 2 for the
+//    stride-2 phase conv, 1 from 0 for the standard conv's one table), so a
+//    small phase (160 cells at up0) does not leave a tile part empty. Each
+//    thread copies two 16-byte chunks of one A row ([q][k], k contiguous)
+//    and two of the tap tile ([k][n]) into a 4-stage cp.async ring,
+//    zero-filled past the operand's width and past Q; a row's conv-table
 //    code is read once per tap, and names a cell, its sample's pole row or
-//    the zero row (OperandRows). A is K-major, so its fragments come by
-//    ldmatrix without .trans; the tap tile is N-major, so .trans, as the
-//    dtaps' g tile. mma.sync.m16n8k16 (bf16 products, float32 sums), 8 warps
-//    of 64 x 32, 2 blocks an SM: on an H100 this ring ran 190-250 TFLOP/s
-//    where 4 warps of 64 x 64 (1.2-1.4x the time), 64-channel steps (1.2x)
-//    or 3 or 5 stages ran slower (PERF.md §6). wgmma (both operands
-//    could be K-major here) is the way on.
+//    the zero row (OperandRows; the pole rows follow the n_src sources'
+//    cells). A is K-major, so its fragments come by ldmatrix without .trans;
+//    the tap tile is N-major, so .trans, as the dtaps' g tile.
+//    mma.sync.m16n8k16 (bf16 products, float32 sums), 8 warps of 64 x 32, 2
+//    blocks an SM: on an H100 this ring ran 190-250 TFLOP/s where 4 warps of
+//    64 x 64 (1.2-1.4x the time), 64-channel steps (1.2x) or 3 or 5 stages
+//    ran slower (PERF.md §6). wgmma (both operands could be K-major here)
+//    is the way on.
 // 4. The epilogue adds the bias in float32, rounds to bf16 and stores row q
 //    at out[set][slot][(b * 5hw + m) * cout + c], two columns at a time. With
 //    stats, [Σy, Σy²] of the rounded values as conv_tile takes them: per
@@ -73,8 +82,8 @@ __host__ __device__ __forceinline__ int n_pad(int ntot) { return (ntot + BN - 1)
 
 }  // namespace fwd
 
-// Where the forward writes: 4 output phases per tap set, the sets' biases,
-// and the stats partials (row tiles, 2 * n_sets * cout), [Σy | Σy²].
+// Where the forward writes: n_out output phase slots per tap set, the sets'
+// biases, and the stats partials (row tiles, 2 * n_sets * cout), [Σy | Σy²].
 struct FwdOut {
   __nv_bfloat16* out[2][4];
   const __nv_bfloat16* bias[2];  // nullable
@@ -83,8 +92,9 @@ struct FwdOut {
 
 // packed[t * Kp + k][n] = taps[n / cout][t][k][n % cout] for k < cin and
 // n < n_sets * cout, else 0; (7 * Kp, Np). (A template, as every kernel of
-// a header that two sources include.)
-template <typename T>
+// a header that two sources include; Tag, the GEMM's, names the
+// instantiation for a profile.)
+template <typename T, typename Tag>
 __global__ void __launch_bounds__(256)
 pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ out, int cin,
           int cout, int n_sets, int Kp, int Np, long long total) {
@@ -100,13 +110,15 @@ pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ ou
   out[i] = v;
 }
 
-// The GEMM. Block (column tile, row tile); steps = 7 * Kp / BK. Tag
-// (GridCells or PairCells) only names the instantiation, so a profile tells
-// the up conv's launches from n's; the code is one.
+// The GEMM over Q = B * n_out * M rows, output phase slot s reading the
+// conv table of output phase out_phase0 + s. Block (column tile, row tile);
+// steps = 7 * Kp / BK. Tag (GridCells, PairCells, PhaseGrid or StdGrid) only
+// names the instantiation, so a profile tells the up conv's launches from
+// n's and the grid convs'; the code is one.
 template <typename Tag, bool STATS>
 __global__ void __launch_bounds__(fwd::NT, 2)
 mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int cout,
-             int n_sets, int Q, int Np, int ksteps) {
+             int n_sets, int out_phase0, int n_out, int Q, int Np, int ksteps) {
   using bf16 = __nv_bfloat16;
   constexpr int BM = fwd::BM, BN = fwd::BN, BK = fwd::BK, STAGES = fwd::STAGES;
   constexpr int A_LDS = fwd::A_LDS, B_LDS = fwd::B_LDS, A_TILE = fwd::A_TILE;
@@ -122,10 +134,11 @@ mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int
   // br, its chunks bc and bc + 8
   const int ar = tid >> 1, ac = (tid & 1) * 2, br = tid >> 3, bc = tid & 7;
   mma::RowPos pos;
-  pos.start(q0 + ar, M);
+  pos.start(q0 + ar, M, n_out);
   const bool row_ok = pos.q < Q;
+  const int phase = out_phase0 + pos.slot;  // this row's conv table
   int t = 0, ks = 0;  // the tap and K step of the next copy
-  const bf16* arow = row_ok ? ld.row(pos.b, ld.code(pos.slot, 0, pos.m)) : ld.rows;
+  const bf16* arow = row_ok ? ld.row(pos.b, ld.code(phase, 0, pos.m)) : ld.rows;
   const bf16* wrow = wp + (size_t)br * Np + n0 + bc * 8;
 
   auto copy_step = [&](int s) {
@@ -141,7 +154,7 @@ mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int
     }
     if (++ks == ksteps) {  // the next tap: this row's code for it
       ks = 0;
-      if (++t < 7 && row_ok) arow = ld.row(pos.b, ld.code(pos.slot, t, pos.m));
+      if (++t < 7 && row_ok) arow = ld.row(pos.b, ld.code(phase, t, pos.m));
     }
   };
 
@@ -210,13 +223,14 @@ mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int
       col_bias[ni][e] = n < Ntot && bias != nullptr ? to_f(bias[n - s * cout]) : 0.f;
     }
   float csum[4][2] = {}, csq[4][2] = {};
+  const int per = n_out * M;  // rows of a sample
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int q = q0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
       if (q >= Q) continue;
-      const int b = q / (4 * M), r = q - b * 4 * M, slot = r / M, m = r - slot * M;
+      const int b = q / per, r = q - b * per, slot = r / M, m = r - slot * M;
       const size_t row = ((size_t)b * M + m) * cout;
       bf16* row0 = pick4(o.out[0], slot) + row;
       bf16* row1 = pick4(o.out[1], slot) + row;
@@ -286,11 +300,42 @@ cudaError_t mma_conv_fwd_attr() {
 // Row tiles of the GEMM over Q rows (the stats partials' rows).
 inline int fwd_row_tiles(long long Q) { return (int)((Q + fwd::BM - 1) / fwd::BM); }
 
-// The bf16 forward: the operand pass into `operand` ((B * (4 * 5hw + 2) +
-// 1, operand_width(cin)); for a pair, joined first into `joined`), the taps
-// packed into `wpack` ((7 * k_pad(cin), n_pad(n_sets * cout))), the GEMM,
-// and with o.stats (row tiles, 2 * n_sets * cout) the fixed-order sum into
-// stats[set] (2, cout).
+// The GEMM over a built operand's rows `ld` into n_out output phase slots
+// from out_phase0: the taps packed into `wpack` ((7 * k_pad(cin),
+// n_pad(n_sets * cout))), the GEMM, and with o.stats (row tiles, 2 * n_sets
+// * cout) the fixed-order sum into stats[set] (2, cout).
+template <typename Tag>
+cudaError_t launch_mma_fwd_rows(const OperandRows& ld, const FwdOut& o,
+                                const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                                __nv_bfloat16* wpack, int B, int cin, int cout, int n_sets,
+                                int out_phase0, int n_out, float* const* stats,
+                                cudaStream_t stream) {
+  const int Ntot = n_sets * cout, Kp = fwd::k_pad(cin), Np = fwd::n_pad(Ntot);
+  const long long packed = 7LL * Kp * Np;
+  pack_taps<__nv_bfloat16, Tag><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
+      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int Q = B * n_out * ld.M, row_tiles = fwd_row_tiles(Q);
+  const dim3 grid(Np / fwd::BN, row_tiles);
+  if (o.stats != nullptr) {
+    if ((err = mma_conv_fwd_attr<Tag, true>()) != cudaSuccess) return err;
+    mma_conv_fwd<Tag, true><<<grid, fwd::NT, fwd::SMEM, stream>>>(
+        ld, wpack, o, cout, n_sets, out_phase0, n_out, Q, Np, Kp / fwd::BK);
+  } else {
+    if ((err = mma_conv_fwd_attr<Tag, false>()) != cudaSuccess) return err;
+    mma_conv_fwd<Tag, false><<<grid, fwd::NT, fwd::SMEM, stream>>>(
+        ld, wpack, o, cout, n_sets, out_phase0, n_out, Q, Np, Kp / fwd::BK);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || o.stats == nullptr) return err;
+  const SplitOut st = {{stats[0], stats[1]}, Ntot, cout};
+  return launch_sum_rows(o.stats, row_tiles, 2LL * Ntot, st, stream);
+}
+
+// The up conv's (and n's) bf16 forward: the operand pass into `operand`
+// ((B * (4 * 5hw + 2) + 1, operand_width(cin)); for a pair, joined first
+// into `joined`), then launch_mma_fwd_rows over all 4 output phases.
 template <typename Cells>
 cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const FwdOut& o,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
@@ -301,34 +346,29 @@ cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const Fw
   if (operand == nullptr || wpack == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
   if (err != cudaSuccess) return err;
-  const int cin = up.cin, M = up.hw5, Ntot = n_sets * cout;
-  const int Kp = fwd::k_pad(cin), Np = fwd::n_pad(Ntot);
-  const long long packed = 7LL * Kp * Np;
-  pack_taps<__nv_bfloat16><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
-      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  OperandRows ld;
-  ld.rows = operand;
-  ld.table = conv_table;
-  ld.M = M;
-  ld.ldk = operand_width(cin);
-  ld.per_b = operand_per_sample(M);
-  ld.zero_row = B * ld.per_b;
-  const int Q = B * 4 * M, row_tiles = fwd_row_tiles(Q);
-  const dim3 grid(Np / fwd::BN, row_tiles);
-  if (o.stats != nullptr) {
-    if ((err = mma_conv_fwd_attr<Cells, true>()) != cudaSuccess) return err;
-    mma_conv_fwd<Cells, true><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, o, cout, n_sets,
-                                                                   Q, Np, Kp / fwd::BK);
-  } else {
-    if ((err = mma_conv_fwd_attr<Cells, false>()) != cudaSuccess) return err;
-    mma_conv_fwd<Cells, false><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, o, cout, n_sets,
-                                                                    Q, Np, Kp / fwd::BK);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || o.stats == nullptr) return err;
-  const SplitOut st = {{stats[0], stats[1]}, Ntot, cout};
-  return launch_sum_rows(o.stats, row_tiles, 2LL * Ntot, st, stream);
+  return launch_mma_fwd_rows<Cells>(operand_rows(operand, conv_table, B, up.hw5, up.cin, 4), o,
+                                    w0, w1, wpack, B, up.cin, cout, n_sets, 0, 4, stats, stream);
+}
+
+// A grid conv's bf16 forward (the phase conv: n_src = 4 phases in src.src,
+// table halo.phase_conv_table, output phases out_phase0 .. +n_out-1; the
+// standard conv: n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1):
+// the act-applied operand written once into `operand` ((B * (n_src * 5hw +
+// 2) + 1, operand_width(cin))), then launch_mma_fwd_rows.
+template <typename Tag>
+cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, const int* table,
+                                const FwdOut& o, const __nv_bfloat16* w0,
+                                const __nv_bfloat16* w1, __nv_bfloat16* operand,
+                                __nv_bfloat16* wpack, int zero_poles, int B, int cout,
+                                int n_sets, int out_phase0, int n_out, float* const* stats,
+                                cudaStream_t stream) {
+  if (operand == nullptr || wpack == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
+                                                            stream);
+  if (err != cudaSuccess) return err;
+  return launch_mma_fwd_rows<Tag>(operand_rows(operand, table, B, src.hw5, src.cin, n_src), o,
+                                  w0, w1, wpack, B, src.cin, cout, n_sets, out_phase0, n_out,
+                                  stats, stream);
 }
 
 // Registers a thread, blocks an SM, dynamic shared memory and local memory

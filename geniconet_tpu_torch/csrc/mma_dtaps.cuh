@@ -413,20 +413,6 @@ cudaError_t launch_mma_dtaps_rows(const OperandRows& ld, const GLoad<__nv_bfloat
                                                    Q, kc, g_vec, ws, stream);
 }
 
-// The operand's row loader over `operand`: per sample n_src * M cells and
-// 2 pole rows, then the zero row.
-inline OperandRows operand_rows(const __nv_bfloat16* operand, const int* table, int B, int M,
-                                int cin, int n_src) {
-  OperandRows ld;
-  ld.rows = operand;
-  ld.table = table;
-  ld.M = M;
-  ld.ldk = operand_width(cin);
-  ld.per_b = operand_per_sample(M, n_src);
-  ld.zero_row = B * ld.per_b;
-  return ld;
-}
-
 // bf16 dtaps[set] (7, cin, cout) float32 of the up convs: the operand pass
 // into `operand` ((B * (4 * 5hw + 2) + 1, operand_width(cin)) bf16), the
 // GEMM into ws (n_chunks, 7 * cin, n_sets * cout) over Q = B * 4 * 5hw rows

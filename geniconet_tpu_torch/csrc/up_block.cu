@@ -10,10 +10,13 @@
 // tile loops of a persistent cooperative grid split by grid barriers, and
 // y00 is an ordinary output.
 //
-// Pass A is up_conv.cu's tiles (gn::UpLoad, both tap sets), pass B
-// phase_conv.cu's (gn::GridLoad over y00's 4 phases); every output and sum
-// equals the split route's (up_dual_conv_fwd with stats, the affine, then
-// phase_conv_fwd with stats) bit for bit.
+// Pass A is up_conv.cu's float32 SIMT tiles (gn::UpLoad, both tap sets),
+// pass B phase_conv.cu's (gn::GridLoad over y00's 4 phases); every output
+// and sum equals the split route's (up_dual_conv_fwd with stats, the
+// affine, then phase_conv_fwd with stats) bit for bit in float32. In bf16
+// the split route runs the tensor-core GEMM (mma_conv_fwd.cuh), whose
+// float32 sums are taken in another order: each output is within one bf16
+// ulp of the split route's.
 //
 // What bounds it on the card: the float32 FMA rate of the GEMM tiles, as
 // for the two kernels it merges; the merge saves the launches and the

@@ -35,6 +35,7 @@ __all__ = [
     "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
+    "grid_fwd_info",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -114,14 +115,16 @@ def build(verbose: bool = False) -> Path:
 _VP, _INT, _I64, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # pointers, then ints, then the stream; csrc/*.cu documents each argument
-    "gn_phase_conv_fwd": [_VP] * 15 + [_INT] * 9 + [_VP],
+    "gn_phase_conv_fwd": [_VP] * 17 + [_INT] * 10 + [_VP],
+    "gn_phase_conv_fwd_info": [_INT, _VP],
     "gn_up_dual_conv_fwd": [_VP] * 13 + [_INT] * 8 + [_VP],
     "gn_up_dual_conv_fwd_info": [_INT, _VP],
     "gn_pair_head_fwd": [_VP] * 8 + [_INT] * 6 + [_VP],
     "gn_pair_head_bwd": [_VP] * 16 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_fwd": [_VP] * 11 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
-    "gn_ico_conv_fwd": [_VP] * 9 + [_INT] * 6 + [_VP],
+    "gn_ico_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
+    "gn_ico_conv_fwd_info": [_INT, _VP],
     "gn_ico_conv_dx": [_VP] * 16 + [_INT] * 7 + [_VP],
     "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
     "gn_ico_conv_dtaps_info": [_INT, _INT, _VP],
@@ -273,6 +276,13 @@ def mma_fwd_info(pair: bool, stats: bool) -> dict:
     """``mma_dtaps_info`` for the tensor-core forward GEMM of n (``pair``) or
     the up conv, with the stats epilogue or without."""
     return _gemm_info("gn_up_pair_fwd_info" if pair else "gn_up_dual_conv_fwd_info", stats)
+
+
+def grid_fwd_info(std: bool, stats: bool) -> dict:
+    """``mma_fwd_info`` for the grid convs' tensor-core forward GEMM: of the
+    standard conv (``std``) or the phase conv, with the stats epilogue or
+    without."""
+    return _gemm_info("gn_ico_conv_fwd_info" if std else "gn_phase_conv_fwd_info", stats)
 
 
 def scratch(n: int, device) -> torch.Tensor:

@@ -3,8 +3,11 @@ forward with optional BatchNorm stats, and its two backward kernels.
 
 Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
 
-* ``ico_conv_s2s_fwd``   -> ``csrc/ico_conv.cu`` (``_pallas_forward``, with
-  ``with_stats`` the (2, C_out) float32 ``[Σy, Σy²]`` of the downcast output);
+* ``ico_conv_s2s_fwd``   -> ``csrc/phase_conv.cu`` (``_pallas_forward``, with
+  ``with_stats`` the (2, C_out) float32 ``[Σy, Σy²]`` of the downcast output;
+  the phase conv's launcher over one source and ``halo.std_conv_table``: in
+  bf16 the act-applied operand written once, then the tensor-core GEMM with
+  the stats epilogue, ``csrc/mma_conv_fwd.cuh``; in float32 the SIMT GEMM);
 * ``ico_conv_s2s_dx``    -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dx``: conv and
   halo transposes, act adjoint with d_mul/d_add, optional Σg_eff);
 * ``ico_conv_s2s_dtaps`` -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dtaps``, rounded
@@ -33,7 +36,7 @@ from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import act_apply, check_act, expect, grid_level, on_cuda
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    geff_plain, grid_dtaps_scratch, stats_plain,
+    fwd_scratch, geff_plain, grid_dtaps_scratch, stats_plain,
 )
 
 __all__ = [
@@ -57,7 +60,8 @@ def ico_conv_s2s_fwd(x, taps, bias, corner_mode: str = "average", act=None,
     taps (7, C_in, C_out) and bias (C_out,) or None in x's dtype (float32 or
     bfloat16); act: optional float32 (mul, add), each (C_in,), applied as
     relu(x·mul + add) before the halo. With ``with_stats`` also returns the
-    float32 (2, C_out) [Σy, Σy²] of the downcast output over the batch."""
+    float32 (2, C_out) [Σy, Σy²] of the downcast output over the batch. In
+    bf16 the phase conv's kernels over the one grid (``phase_conv_fwd``)."""
     if not on_cuda(x, "ico_conv_s2s_fwd"):
         return ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode, act, with_stats)
     B, _, h, w, cin = x.shape
@@ -72,15 +76,13 @@ def ico_conv_s2s_fwd(x, taps, bias, corner_mode: str = "average", act=None,
     out = torch.empty((B, 5, h, w, cout), dtype=dt, device=dev)
     table = device_table("std", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    stats = ws = None
-    if with_stats:
-        stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
-        ws = build.scratch(B * build.n_tiles(5 * h * w) * 2 * cout, dev)
+    (stats,), ws, operand, wpack = fwd_scratch(dt, B, h, w, cin, 1, cout, 1, 1, with_stats, dev)
     with torch.cuda.device(dev):
         err = build.library().gn_ico_conv_fwd(
             x.data_ptr(), build.ptr(mul), build.ptr(add), taps.data_ptr(), build.ptr(bias),
             out.data_ptr(), table.data_ptr(), build.ptr(ws), build.ptr(stats),
-            B, h, w, cin, cout, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(operand), build.ptr(wpack), B, h, w, cin, cout,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("ico_conv_s2s_fwd", err)
     build.LAUNCHES["ico_conv_s2s_fwd"] += 1

@@ -6,7 +6,11 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``phase_conv_fwd``     -> ``csrc/phase_conv.cu`` (``_phase_conv_fwd``, for
   ``fused_phase_conv_s1`` and ``fused_dual_s2_conv``: 4 phases in; all 4
   output phases, or phase 2 alone for stride 2; 1 or 2 tap sets; optional
-  act prologue; optional BatchNorm ``[Σy, Σy²]`` stats);
+  act prologue; optional BatchNorm ``[Σy, Σy²]`` stats); in bf16 it writes
+  the act-applied operand once (``grid_operand``'s pass) and runs the
+  tensor-core GEMM with the stats epilogue over its gathered rows
+  (``csrc/mma_conv_fwd.cuh``, as the up conv's forward), in float32 the
+  SIMT GEMM; the standard conv's forward is the same launcher;
 * ``up_dual_conv_fwd``   -> ``csrc/up_conv.cu`` (``_up_conv_fwd_impl``); in
   bf16 it builds the upsampled operand once and runs a tensor-core GEMM
   over its gathered rows with the stats in its epilogue
@@ -86,7 +90,7 @@ __all__ = [
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "operand_rows", "up_operand", "up_operand_plain", "up_pair_operand",
     "up_pair_operand_plain", "grid_operand_rows", "grid_operand", "grid_operand_plain",
-    "grid_dtaps_scratch",
+    "grid_dtaps_scratch", "fwd_scratch",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
     "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
@@ -202,7 +206,9 @@ def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0
     prologue applied before the halo.
     Returns, per tap set, a tuple of (B, 5, h, w, C_out) output phases; with
     ``with_stats`` also, per set, the float32 (2, C_out) [Σy, Σy²] of the
-    downcast outputs over every phase and the whole batch.
+    downcast outputs over every phase and the whole batch. In bf16 up to
+    four kernels: the operand pass, the taps packed, the tensor-core GEMM
+    and the stats' fixed-order sum; in float32 the SIMT GEMM and the sum.
     """
     out_phases = _check_out_phases(out_phases, "phase_conv_fwd")
     if len(phases) != 4:
@@ -218,18 +224,17 @@ def phase_conv_fwd(phases, tap_sets, corner_mode: str = "average", out_phases=(0
     cout = _check_sets(tap_sets, cin, dt, dev, "phase_conv_fwd")
     check_act(act, cin, dev, "phase_conv_fwd")
     n_sets, n_out = len(tap_sets), len(out_phases)
-    outs = [torch.empty((B, 5, h, w, cout), dtype=dt, device=dev)
-            for _ in range(n_sets * n_out)]
+    outs = _phase_outputs(n_sets * n_out, (B, 5, h, w, cout), dt, dev)
     table = device_table("phase", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    stats, ws = _stats_outputs(with_stats, B * n_out * build.n_tiles(5 * h * w),
-                               n_sets, cout, dev)
-    out_ptrs = build.ptr_array(outs)
+    stats, ws, operand, wpack = fwd_scratch(dt, B, h, w, cin, n_sets, cout, 4, n_out,
+                                            with_stats, dev)
     with torch.cuda.device(dev):
         err = build.library().gn_phase_conv_fwd(
             *[p.data_ptr() for p in phases], build.ptr(mul), build.ptr(add),
-            *_set_ptrs(tap_sets), out_ptrs, table.data_ptr(), build.ptr(ws), *_pair(stats),
-            B, h, w, cin, cout, n_sets, out_phases[0], n_out, build.dtype_code(dt),
+            *_set_ptrs(tap_sets), build.ptr_array(outs), table.data_ptr(), build.ptr(ws),
+            *_pair(stats), build.ptr(operand), build.ptr(wpack), B, h, w, cin, cout, n_sets,
+            out_phases[0], n_out, int(corner_mode == "zeros"), build.dtype_code(dt),
             build.stream_ptr(dev),
         )
     build.check("phase_conv_fwd", err)
@@ -244,6 +249,24 @@ def _stats_outputs(with_stats, partial_rows, n_sets, cout, dev):
         return [None], None
     stats = [torch.empty((2, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
     return stats, build.scratch(partial_rows * 2 * n_sets * cout, dev)
+
+
+def fwd_scratch(dt, B, h, w, cin, n_sets, cout, n_src, n_out, with_stats, dev):
+    """(stats outputs, their block partials, operand, packed taps) of a
+    forward into n_out output phases of n_sets tap sets whose operand has
+    n_src sources a sample (the up convs': 4 upsampled phases, 4 output
+    phases; the grid convs': 4 phases or 1 grid): float32 the SIMT GEMM's
+    partials (a row per 64-row tile of each sample and output phase) and
+    no scratch; bf16 the tensor-core GEMM's (a row per row tile), and the
+    operand and packed-taps scratch of its first passes."""
+    if dt != torch.bfloat16:
+        return (*_stats_outputs(with_stats, B * n_out * build.n_tiles(5 * h * w), n_sets, cout,
+                                dev), None, None)
+    _, row_tiles = build.mma_fwd_grid(B * n_out * 5 * h * w, n_sets * cout)
+    operand = torch.empty((grid_operand_rows(B, h, w, n_src), build.operand_width(cin)),
+                          dtype=dt, device=dev)
+    wpack = torch.empty(build.packed_taps_shape(cin, n_sets * cout), dtype=dt, device=dev)
+    return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
 
 
 def _phase_adjoint(g_groups, tap_sets, corner_mode, out_phases, shape):
@@ -796,21 +819,6 @@ def _phase_outputs(n, shape, dt, dev):
     return torch.empty((n, *shape), dtype=dt, device=dev).unbind(0)
 
 
-def _up_fwd_scratch(dt, B, h, w, cin, n_sets, cout, with_stats, dev):
-    """(stats outputs, their block partials, operand, packed taps) of the up
-    conv's forward: float32 the SIMT GEMM's partials (a row per 64-row tile
-    of each sample and phase) and no operand; bf16 the tensor-core GEMM's
-    (a row per row tile), and the operand and packed-taps scratch of its
-    first passes."""
-    if dt != torch.bfloat16:
-        return (*_stats_outputs(with_stats, B * 4 * build.n_tiles(5 * h * w), n_sets, cout, dev),
-                None, None)
-    _, row_tiles = build.mma_fwd_grid(B * 4 * 5 * h * w, n_sets * cout)
-    operand = torch.empty((operand_rows(B, h, w), build.operand_width(cin)), dtype=dt, device=dev)
-    wpack = torch.empty(build.packed_taps_shape(cin, n_sets * cout), dtype=dt, device=dev)
-    return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
-
-
 def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool = False):
     """An UpBlock's upsample s -> s+1 and first convs, fused.
 
@@ -833,7 +841,7 @@ def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool
     outs = _phase_outputs(4 * n_sets, (B, 5, h, w, cout), dt, dev)
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
-    stats, ws, operand, wpack = _up_fwd_scratch(dt, B, h, w, cin, n_sets, cout, with_stats, dev)
+    stats, ws, operand, wpack = fwd_scratch(dt, B, h, w, cin, n_sets, cout, 4, 4, with_stats, dev)
     out_ptrs = build.ptr_array(outs)
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_fwd(
@@ -1133,7 +1141,7 @@ def up_pair_fwd(b0, y10, affines, tap_sets, corner_mode: str = "average",
     outs = _phase_outputs(8, (B, 5, h, w, cout), dt, dev)
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
-    stats, ws, operand, wpack = _up_fwd_scratch(dt, B, h, w, cin, 2, cout, with_stats, dev)
+    stats, ws, operand, wpack = fwd_scratch(dt, B, h, w, cin, 2, cout, 4, 4, with_stats, dev)
     joined = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev) if operand is not None else None
     with torch.cuda.device(dev):
         err = build.library().gn_up_pair_fwd(

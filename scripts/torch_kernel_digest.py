@@ -9,7 +9,10 @@ conv forward (``up_dual_conv_fwd``, with stats) and dtaps (d,
 ``up_pair_dtaps``), each with and without the stats fold where it has one,
 and the grid convs' dtaps (b, ``phase_conv_dtaps``, at conv_in, up2's
 conv01 and down1's stride-2 conv; f, ``ico_conv_s2s_dtaps``, at down1's
-conv01), and prints one line per call: ``digest <kernel> <dtype> <case>
+conv01) and the grid convs' forward (``phase_conv_fwd`` at conv_in, up1's
+and up2's conv01 and down1's stride-2 conv; ``ico_conv_s2s_fwd`` at
+down1's conv01; with stats, and once without), and prints one line per
+call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -110,6 +113,29 @@ def main():
                 (0.3 * torch.randn(256, generator=gen)).to("cuda"))
         line("ico_conv_s2s_dtaps", dt, "down1_conv01",
              lambda: ck.ico_conv_s2s_dtaps(x, g, "average", a256, y, gs))
+    for dt in (torch.bfloat16, torch.float32):
+        # the grid convs' forward, after the lines above (a generator of its
+        # own, so theirs stay as they were)
+        gen = torch.Generator().manual_seed(12)
+        for case, (h, w, cin, cout, n_sets, out_phases, with_act, stats) in {
+                "conv_in+stats": (16, 32, 3, 64, 1, (0, 1, 2, 3), False, True),
+                "up1_conv01+stats": (8, 16, 128, 128, 1, (0, 1, 2, 3), True, True),
+                "up2_conv01+stats": (16, 32, 64, 64, 1, (0, 1, 2, 3), True, True),
+                "up2_conv01": (16, 32, 64, 64, 1, (0, 1, 2, 3), True, False),
+                "down1_s2+stats": (8, 16, 128, 256, 2, (2,), True, True)}.items():
+            a = ((torch.rand(cin, generator=gen).add(0.5).to("cuda"),
+                  (0.3 * torch.randn(cin, generator=gen)).to("cuda")) if with_act else None)
+            ph = [rnd(gen, B, 5, h, w, cin, dt=dt) for _ in range(4)]
+            sets = [(rnd(gen, 7, cin, cout, dt=dt, scale=cin**-0.5), rnd(gen, cout, dt=dt))
+                    for _ in range(n_sets)]
+            line("phase_conv_fwd", dt, case,
+                 lambda: pk.phase_conv_fwd(ph, sets, "average", out_phases, a, stats))
+        x = rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        t, b = rnd(gen, 7, 256, 256, dt=dt, scale=256**-0.5), rnd(gen, 256, dt=dt)
+        a256 = (torch.rand(256, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(256, generator=gen)).to("cuda"))
+        line("ico_conv_s2s_fwd", dt, "down1_conv01+stats",
+             lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a256, True))
 
 
 if __name__ == "__main__":

@@ -554,16 +554,22 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     d_mul/d_add, dtaps and Σg_eff equal ``phase_conv_dx`` /
     ``phase_conv_dtaps`` on the ``phase_merge``d cotangents, bit for bit;
     and m is within the tolerance of its plain versions. In bf16 the phase
-    conv's dtaps runs the tensor-core GEMM and m's the SIMT one: both sum
-    the same exact bf16 products in float32, in two orders, so the dtaps are
-    within 1e-4·max|ref| (float32 noise) and Σg_eff (one pass for both) is
-    equal."""
+    conv's forward and dtaps run the tensor-core GEMMs and m's the SIMT
+    ones: both sum the same exact bf16 products in float32, in two orders,
+    so m's outputs are within one bf16 ulp of max|ref| (``_within_ulp``;
+    the stats, sums of outputs that differ by such roundings, within TOL),
+    the dtaps within 1e-4·max|ref| (float32 noise) and Σg_eff (one pass for
+    both) is equal."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
     for a in (act, None):
         got = pk.ds2s_fwd(phases, sets, corner_mode, a, with_stats=True)
         ref_sets, ref_stats = pk.phase_conv_fwd(phases, sets, corner_mode, (2,), a, True)
-        _equal_all(got, ([_split(y) for (y,) in ref_sets], ref_stats))
+        if dt == torch.float32:
+            _equal_all(got, ([_split(y) for (y,) in ref_sets], ref_stats))
+        else:  # bf16 phase_conv_fwd runs the tensor-core GEMM
+            _within_ulp(got[0], [_split(y) for (y,) in ref_sets])
+            _close_all(got[1], ref_stats, dt)
         _close_all(got, pk.ds2s_fwd_plain(phases, sets, corner_mode, a, True), dt)
     mk, gs = _stats_fold(cuda, dt, phases[0].shape[:2] + (2 ** (s - 2), 2 ** (s - 1), 20), 2,
                          seed=s)
@@ -817,8 +823,9 @@ def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
     float32 sums are taken in another order, so each is within one bf16 ulp
     of max|ref| (plus 1e-5·max|ref|); mul00 and add00 are bn00's affine of
     s00 (``_check_affine``); b0 and s01 equal ``phase_conv_fwd`` of y00 with
-    that affine, bit for bit; and every output is within the tolerance of
-    ``up_block_fwd_plain``."""
+    that affine, bit for bit in float32 and within one bf16 ulp in bf16 (the
+    split phase conv's tensor-core GEMM); and every output is within the
+    tolerance of ``up_block_fwd_plain``."""
     x, _, _ = _inputs(cuda, dt, s, 12, 20, seed=180 + s)
     sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=190 + s)
     got = pk.up_block_fwd(x, sets, gamma, beta, corner_mode)
@@ -831,7 +838,10 @@ def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
     _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
     (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], corner_mode, (0, 1, 2, 3),
                                               (mul, add), True)
-    _equal_all((b0, s01), (ref_b0, ref_s01))
+    if dt == torch.float32:
+        _equal_all((b0, s01), (ref_b0, ref_s01))
+    else:
+        _within_ulp((b0, s01), (ref_b0, ref_s01))
     _close_all(got, pk.up_block_fwd_plain(x, sets, gamma, beta, corner_mode), dt)
 
 
@@ -841,9 +851,12 @@ def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
 def test_dn_block_is_the_split_pair(cuda, s, corner_mode, dt):
     """Kernel p against the split route on the card, with and without the
     pending act: y00, y10, s00 and s10 equal ``phase_conv_fwd`` with output
-    phase 2 and stats, bit for bit; mul00 and add00 are bn00's affine of s00;
-    b0 and s01 equal ``ico_conv_s2s_fwd`` of y00 with that affine, bit for
-    bit; and every output is within the tolerance of ``dn_block_fwd_plain``."""
+    phase 2 and stats; mul00 and add00 are bn00's affine of s00; b0 and s01
+    equal ``ico_conv_s2s_fwd`` of y00 with that affine; each bit for bit in
+    float32 (both the SIMT tile) and within one bf16 ulp of max|ref| in
+    bf16 (the split convs run the tensor-core GEMM, whose float32 sums are
+    taken in another order; ``_within_ulp``); and every output is within the
+    tolerance of ``dn_block_fwd_plain``."""
     x, act, _ = _inputs(cuda, dt, s, 12, 20, seed=200 + s)
     phases = _split(x)
     sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=210 + s)
@@ -852,9 +865,10 @@ def test_dn_block_is_the_split_pair(cuda, s, corner_mode, dt):
         b0, y10, y00, s00, s01, s10, mul, add = got
         ((ref00,), (ref10,)), ref_stats = pk.phase_conv_fwd(phases, sets[:2], corner_mode, (2,),
                                                             a, True)
-        _equal_all((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
+        same = _equal_all if dt == torch.float32 else _within_ulp
+        same((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
         _check_affine(mul, add, s00, float(y00.shape[:-1].numel()), gamma, beta)
-        _equal_all((b0, s01), ck.ico_conv_s2s_fwd(y00, *sets[2], corner_mode, (mul, add), True))
+        same((b0, s01), ck.ico_conv_s2s_fwd(y00, *sets[2], corner_mode, (mul, add), True))
         _close_all(got, pk.dn_block_fwd_plain(phases, sets, gamma, beta, a, corner_mode), dt)
 
 
@@ -1172,12 +1186,7 @@ def test_bf16_step_with_the_mma_fwd(cuda, model):
     ref_loss, ref_launches, ref = _bf16_step(cuda, model, plain="up_dual_conv_fwd")
     assert "up_dual_conv_fwd" not in ref_launches
     assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
-    rel = {}
-    for k, g in grads.items():
-        scale_of = k[: -len("bias")] + "taps" if "conv" in k and k.endswith(".bias") else k
-        err = (g.float() - ref[k].float()).abs().max().item()
-        rel[k] = err / ref[scale_of].float().abs().max().item()
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    worst = _step_rel(grads, ref)[:5]
     assert worst[0][1] <= 5e-2, worst
 
 
@@ -1187,13 +1196,13 @@ def test_mma_fwd_has_no_fallback(cuda):
     from unittest import mock
 
     x, _, sets = _inputs(cuda, torch.bfloat16, 2, 16, 8, seed=280)
-    scratch = pk._up_fwd_scratch
+    scratch = pk.fwd_scratch
 
     def without_operand(*args):
         stats, ws, _, wpack = scratch(*args)
         return stats, ws, None, wpack
 
-    with mock.patch.object(pk, "_up_fwd_scratch", without_operand):
+    with mock.patch.object(pk, "fwd_scratch", without_operand):
         with pytest.raises(RuntimeError, match="up_dual_conv_fwd"):
             pk.up_dual_conv_fwd(x, sets)
         b0, y10, aff = _pair(cuda, torch.bfloat16, 2, 16, seed=281)
@@ -1400,3 +1409,185 @@ def test_mma_grid_dtaps_occupancy(cuda):
                 info = build.grid_dtaps_info(std, fold, narrow)
                 assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (
                     std, fold, narrow, info)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward of the grid convs (the phase conv and the standard conv)
+# on the tensor cores: the act-applied operand pass, the taps packed, then the
+# GEMM with the stats epilogue
+# ---------------------------------------------------------------------------
+
+# The grid convs' forward at the s=5 models' shapes: (kernel, phase or grid
+# h, w, C_in, C_out, tap sets, output phases, act): conv_in, down0-2's
+# stride-2 convs (with the act at down0 only in the AE; both kinds at
+# down1-2), up0-2 conv01, the VAE's heads; the standard conv's conv01 of
+# down0-2
+GRID_FWD = {
+    "conv_in": ("b", 16, 32, 3, 64, 1, (0, 1, 2, 3), False),
+    "down0 s2": ("b", 16, 32, 64, 128, 2, (2,), True),
+    "down1 s2": ("b", 8, 16, 128, 256, 2, (2,), True),
+    "down1 s2 (no act)": ("b", 8, 16, 128, 256, 2, (2,), False),
+    "down2 s2": ("b", 4, 8, 256, 256, 2, (2,), True),
+    "down2 s2 (no act)": ("b", 4, 8, 256, 256, 2, (2,), False),
+    "VAE heads": ("b", 4, 8, 256, 512, 2, (2,), False),
+    "up0 conv01": ("b", 4, 8, 256, 256, 1, (0, 1, 2, 3), True),
+    "up1 conv01": ("b", 8, 16, 128, 128, 1, (0, 1, 2, 3), True),
+    "up2 conv01": ("b", 16, 32, 64, 64, 1, (0, 1, 2, 3), True),
+    "down0 conv01": ("f", 16, 32, 128, 128, 1, None, True),
+    "down1 conv01": ("f", 8, 16, 256, 256, 1, None, True),
+    "down2 conv01": ("f", 4, 8, 256, 256, 1, None, True),
+}
+
+
+def _grid_fwd_calls(cuda, case, with_stats, corner_mode="average", seed=0, bias=True):
+    """(kernel call, plain call, wrapper name) of the phase conv's or the
+    standard conv's forward at a GRID_FWD-shaped case, bf16, B=2."""
+    kernel, h, w, cin, cout, n_sets, out_phases, with_act = case
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    act = ((torch.rand(cin, generator=gen) + 0.5).to(cuda),
+           (0.3 * torch.randn(cin, generator=gen)).to(cuda)) if with_act else None
+    sets = [((torch.randn(7, cin, cout, generator=gen) * (7 * cin) ** -0.5).to(cuda, dt),
+             torch.randn(cout, generator=gen).to(cuda, dt) if bias else None)
+            for _ in range(n_sets)]
+    if kernel == "f":
+        x = torch.randn(2, 5, h, w, cin, generator=gen).to(cuda, dt)
+        args = (x, *sets[0], corner_mode, act, with_stats)
+        return (lambda: ck.ico_conv_s2s_fwd(*args), lambda: ck.ico_conv_s2s_fwd_plain(*args),
+                "ico_conv_s2s_fwd")
+    phases = [torch.randn(2, 5, h, w, cin, generator=gen).to(cuda, dt) for _ in range(4)]
+    args = (phases, sets, corner_mode, out_phases, act, with_stats)
+    return (lambda: pk.phase_conv_fwd(*args), lambda: pk.phase_conv_fwd_plain(*args),
+            "phase_conv_fwd")
+
+
+def _check_grid_fwd(got, ref, with_stats):
+    """The bf16 outputs within one bf16 ulp of max|ref| (``_within_ulp``: the
+    products are exact and both sides sum in float32, in two orders, then
+    round); the stats, sums of those outputs, within TOL."""
+    outs, ref_outs = (got[0], ref[0]) if with_stats else (got, ref)
+    assert all(bool(torch.isfinite(t).all()) for t in _flat_all(outs))
+    _within_ulp(outs, ref_outs)
+    if with_stats:
+        _close_all(got[1], ref[1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("site", list(GRID_FWD))
+def test_mma_grid_fwd_at_the_model_widths(cuda, site, with_stats):
+    """The phase conv's and the standard conv's bf16 forward at every site
+    of the s=5 AE and VAE (B=2), with stats and without, against their
+    plain versions (``_check_grid_fwd``). One launch of the wrapper each."""
+    call, plain, name = _grid_fwd_calls(cuda, GRID_FWD[site], with_stats, seed=len(site))
+    build.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 1}
+    _check_grid_fwd(got, plain(), with_stats)
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("cin, cout", [(3, 20), (5, 64), (12, 20), (12, 64)])
+@pytest.mark.parametrize("kind", ["b s1", "b s2", "f"])
+def test_mma_grid_fwd_ragged_widths(cuda, kind, cin, cout, corner_mode):
+    """The grid convs' bf16 forward at widths the model has not: C_in 3, 5
+    and 12 (the operand's ragged channel pass; a 32-channel step mostly past
+    C_in), C_out 20 (two sets in one column tile) and 64 (half a tile), with
+    and without the act, the stats and the bias, against the plain
+    versions (``_check_grid_fwd``); without stats the outputs are the same
+    GEMM's as with them, bit for bit."""
+    n_sets, out_phases = {"b s1": (1, (0, 1, 2, 3)), "b s2": (2, (2,)), "f": (1, None)}[kind]
+    for with_act, bias in ((True, True), (False, False)):
+        case = (kind[0], 8, 16, cin, cout, n_sets, out_phases, with_act)
+        call, plain, _ = _grid_fwd_calls(cuda, case, True, corner_mode, cin + cout, bias)
+        got = call()
+        _check_grid_fwd(got, plain(), True)
+        no_stats, _, _ = _grid_fwd_calls(cuda, case, False, corner_mode, cin + cout, bias)
+        _equal_all(_flat_all(no_stats()), _flat_all(got[0]))
+
+
+def _step_rel(grads, ref):
+    """Per gradient, max|got - ref| over max|ref| (a conv bias over its
+    taps': each feeds a BatchNorm, so its exact gradient is 0)."""
+    rel = {}
+    for k, g in grads.items():
+        scale_of = k[: -len("bias")] + "taps" if "conv" in k and k.endswith(".bias") else k
+        err = (g.float() - ref[k].float()).abs().max().item()
+        rel[k] = err / ref[scale_of].float().abs().max().item()
+    return sorted(rel.items(), key=lambda kv: -kv[1])
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_mma_grid_fwd(cuda, model):
+    """A bf16 training step of the default route with the tensor-core
+    forward of the phase conv and the standard conv. In the step, every
+    call of the two wrappers agrees with its plain version on that call's
+    own inputs: outputs within one bf16 ulp of max|ref| (``_within_ulp``),
+    stats within TOL. Against the same step with both patched to their
+    plain versions on the card tensors: the loss within 1e-2 of its value.
+    The gradients are not compared: a few thousandths of the forward's
+    outputs round one bf16 ulp the other way, and this B=4 model's
+    BatchNorms move its gradients by a share of max|ref| that depends on
+    which outputs flipped, as much for a forward summed in float64 as for
+    this one (``scripts/torch_step_grad_spread.py``)."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    calls = []
+
+    def checked(kernel, plain):
+        def fn(*args):  # ``fused`` passes with_stats last
+            got = kernel(*args)
+            calls.append((got, plain(*args), args[-1]))
+            return got
+        return fn
+
+    with mock.patch.object(fused, "phase_conv_fwd",
+                           checked(pk.phase_conv_fwd, pk.phase_conv_fwd_plain)), \
+            mock.patch.object(fused, "ico_conv_s2s_fwd",
+                              checked(ck.ico_conv_s2s_fwd, ck.ico_conv_s2s_fwd_plain)):
+        loss, launches, grads = _bf16_step(cuda, model)
+    vae = model == "ico2ico_vae"
+    assert launches["phase_conv_fwd"] == 7 and launches["ico_conv_s2s_fwd"] == (2 if vae else 3)
+    assert len(calls) == (9 if vae else 10)
+    for got, ref, with_stats in calls:
+        _check_grid_fwd(got, ref, with_stats)
+    plain = ("phase_conv_fwd", "ico_conv_s2s_fwd")
+    ref_loss, ref_launches, _ = _bf16_step(cuda, model, plain=plain)
+    assert not set(plain) & set(ref_launches)
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def test_mma_grid_fwd_has_no_fallback(cuda):
+    """A bf16 call of either grid forward whose operand or packed-taps
+    scratch is missing raises (the C entry refuses it) rather than running
+    the SIMT core."""
+    from unittest import mock
+
+    def without(i, scratch):
+        def fn(*args):
+            out = list(scratch(*args))
+            out[i] = None
+            return tuple(out)
+        return fn
+
+    cases = {"phase_conv_fwd": (pk, GRID_FWD["up2 conv01"]),
+             "ico_conv_s2s_fwd": (ck, GRID_FWD["down2 conv01"])}
+    for name, (module, case) in cases.items():
+        call = _grid_fwd_calls(cuda, case, True)[0]
+        for i in (2, 3):  # the operand, the packed taps
+            with mock.patch.object(module, "fwd_scratch", without(i, module.fwd_scratch)):
+                with pytest.raises(RuntimeError, match=name):
+                    call()
+
+
+def test_mma_grid_fwd_occupancy(cuda):
+    """Each instantiation of the grid convs' tensor-core forward GEMM (the
+    phase conv and the standard conv, with stats or not) fits 2 blocks an
+    SM with no local memory (no spill)."""
+    for std in (False, True):
+        for stats in (False, True):
+            info = build.grid_fwd_info(std, stats)
+            assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (std, stats, info)

@@ -134,6 +134,24 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
                                "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, "
                                "long long)"},
      "pack_taps (up conv, n)"),
+    # the bf16 forward of the grid convs: the GEMM's and the tap pack's rows
+    ({"cat": "kernel", "name": "void gn::mma_conv_fwd<gn::PhaseGrid, true>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdOut, int)"},
+     "mma_conv_fwd<bf16> (b)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv_fwd<gn::StdGrid, false>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdOut, int)"},
+     "mma_conv_fwd<bf16> (f)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps<__nv_bfloat16, gn::PhaseGrid>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+                               "int, int, int, int, int, long long)"},
+     "pack_taps (b)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps<__nv_bfloat16, gn::GridCells<__nv_bfloat16> >"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+                               "int, int, int, int, int, long long)"},
+     "pack_taps (up conv, n)"),
+    ({"cat": "kernel", "name": "void gn::conv_gemm<__nv_bfloat16, gn::GridLoad<__nv_bfloat16, "
+                               "false>, true>"},
+     "conv_gemm<bf16, GridLoad, split> (m)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
@@ -161,11 +179,32 @@ def _groups(**calls):
     ({"grid_operand_pass<bf16> (b)": 35}, {"phase_conv_dtaps": 7.0}, False),  # no GEMM
     ({"grid_operand_pass<bf16> (f)": 20, "mma_dtaps<bf16> (f)": 20},
      {"ico_conv_s2s_dtaps": 3.0}, False),  # more GEMMs than calls
+    # the grid forwards: one pass a call of either wrapper, the forward's GEMM
+    # a forward call
+    ({"grid_operand_pass<bf16> (b)": 70, "mma_dtaps<bf16> (b)": 35,
+      "mma_conv_fwd<bf16> (b)": 35, "grid_operand_pass<bf16> (f)": 30,
+      "mma_dtaps<bf16> (f)": 15, "mma_conv_fwd<bf16> (f)": 15},
+     {"phase_conv_fwd": 7.0, "phase_conv_dtaps": 7.0, "ico_conv_s2s_fwd": 3.0,
+      "ico_conv_s2s_dtaps": 3.0}, True),
+    ({"grid_operand_pass<bf16> (b)": 35, "mma_conv_fwd<bf16> (b)": 35,
+      "grid_operand_pass<bf16> (f)": 15, "mma_conv_fwd<bf16> (f)": 15},
+     {"phase_conv_fwd": 7.0, "ico_conv_s2s_fwd": 3.0}, True),  # a serving window
+    ({"grid_operand_pass<bf16> (b)": 35, "mma_conv_fwd<bf16> (b)": 35,
+      "conv_gemm<bf16, GridLoad, split> (m)": 15, "two_pass_block<bf16, GridLoad> (p)": 15},
+     {"phase_conv_fwd": 7.0}, True),  # m's and p's SIMT tiles have their own rows
+    ({"grid_operand_pass<bf16> (b)": 35, "mma_conv_fwd<bf16> (b)": 35,
+      "conv_gemm<bf16, GridLoad>": 15}, {"phase_conv_fwd": 7.0}, False),  # the SIMT forward
+    ({"grid_operand_pass<bf16> (b)": 35}, {"phase_conv_fwd": 7.0}, False),  # no GEMM
+    ({"mma_conv_fwd<bf16> (f)": 15}, {"ico_conv_s2s_fwd": 3.0}, False),  # no pass
+    ({"grid_operand_pass<bf16> (b)": 70, "mma_conv_fwd<bf16> (b)": 35,
+      "mma_dtaps<bf16> (b)": 35}, {"phase_conv_fwd": 7.0, "phase_conv_dtaps": 7.0,
+                                   "ico_conv_s2s_fwd": 3.0}, False),  # f's forward missing
 ])
 def test_device_launches_of_the_grid_dtaps(groups, launches, ok):
-    """``check_device_launches`` over 5 profiled iterations: each call of b
-    and f shows its operand pass and tensor-core GEMM, at most once a call,
-    and no window the SIMT ``dtaps_gemm<bf16, GridLoad>``."""
+    """``check_device_launches`` over 5 profiled iterations: each call of the
+    grid convs' dtaps (b, f) and forward shows its operand pass and its
+    tensor-core GEMM, at most once a call, and no window the SIMT
+    ``dtaps_gemm<bf16, GridLoad>`` or ``conv_gemm<bf16, GridLoad>``."""
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), launches, 5)
     else:
