@@ -50,11 +50,14 @@ printed on its own lines, each fatal on failure:
    (``dn_block_fwd``) at every block they run at, each beside the split
    pair it replaces (the first conv with stats; bn00's affine and conv01
    with stats) and cuDNN's two contractions. The bf16 forward of the up
-   conv and of n (serving and training shapes), their dtaps (d, n's) and
+   conv and of n (serving and training shapes), their dtaps (d, n's),
    the grid convs' forward and dtaps (b, f; a C_in of at most 64 on the
-   dtaps' NARROW tile) also print their parts from a trace: the operand
-   pass against its byte bound, the forward's tap pack, the tensor-core
-   GEMM's TFLOP/s, the sums, and the GEMM's registers and blocks an SM;
+   dtaps' NARROW tile) and the phase conv's and up conv's dx (a, c) also
+   print their parts from a trace: the operand pass (a's and c's: the
+   folded cotangent with its combined rows) against its byte bound, the
+   tap pack, the tensor-core GEMM's TFLOP/s, the sums, c's upsample
+   adjoint pass against its byte bound, and the GEMM's registers and
+   blocks an SM;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -87,10 +90,11 @@ printed on its own lines, each fatal on failure:
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
-   convs' forward and dtaps (b, f) must show its operand pass and
-   tensor-core GEMM there, and no window the SIMT ``conv_gemm<bf16,
-   GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are
-   kept in ``build/profile/``.
+   convs' forward and dtaps (b, f) and of a's and c's dx must show its
+   operand pass and tensor-core GEMM there (c also its upsample adjoint),
+   the SIMT ``dx_gemm<bf16>`` run for f's dx calls alone, and no window
+   the SIMT ``conv_gemm<bf16, GridLoad>`` or ``dtaps_gemm<bf16,
+   GridLoad>``; the Chrome traces are kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches on the serving and training paths (AE and VAE summed, and per
@@ -188,16 +192,17 @@ KERNELS = {
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
-# the grid convs' forward and dtaps (the grid convs' dtaps: b, f) run an
-# operand pass of csrc/mma.cuh and the tensor-core GEMMs of
-# csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
+# the grid convs' forward and dtaps (the grid convs' dtaps: b, f) and the
+# phase conv's and the up conv's dx (a, c) run an operand pass of
+# csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
+# csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
               for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
                         "ico_conv_s2s_dtaps")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
-                        "ico_conv_s2s_fwd")}}
+                        "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -401,26 +406,31 @@ class Case:
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
-def mma_parts(call, flops, inputs, operand, info):
+def mma_parts(call, flops, inputs, operand, info, adjoint=None):
     """A bf16 tensor-core kernel's parts from a trace (the up conv's, n's
-    and the grid convs' forward and dtaps): its operand pass (against its
-    bound: the inputs it reads once, ``inputs``, and the bf16 operand of
-    ``operand`` = (rows, width) it writes), the forward's tap pack, the
+    and the grid convs' forward and dtaps; a's and c's dx): its operand pass
+    (against its bound: the inputs it reads once, ``inputs``, and the bf16
+    operand of ``operand`` = (rows, width) it writes), the tap pack, the
     tensor-core GEMM (achieved TFLOP/s against the bf16 peak), the sums
-    (the partials' and Σg's); and ``info``, the GEMM instantiation's
+    (the partials' and Σg's), for c the upsample adjoint pass against the
+    ``adjoint`` bytes it must move; and ``info``, the GEMM instantiation's
     registers a thread, blocks an SM, shared and local memory as the runtime
     reports them (``build.mma_dtaps_info``, ``grid_dtaps_info``,
-    ``mma_fwd_info``, ``grid_fwd_info``)."""
+    ``mma_fwd_info``, ``grid_fwd_info``, ``mma_dx_info``)."""
     rows = trace_kernels(call, per_launch=True)
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
     op_bytes += operand[0] * operand[1] * 2
     gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_"))
-    return {"operand_ms": sum(ms for k, ms in rows.items() if "operand_pass" in k),
-            "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3,
-            "pack_ms": sum(ms for k, ms in rows.items() if k.startswith("pack_taps")),
-            "gemm_ms": gemm, "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
-            "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")), **info}
+    parts = {"operand_ms": sum(ms for k, ms in rows.items() if "operand_pass" in k),
+             "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3,
+             "pack_ms": sum(ms for k, ms in rows.items() if k.startswith("pack_taps")),
+             "gemm_ms": gemm, "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
+             "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+             "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")), **info}
+    if adjoint is not None:  # c: dU (float32) read once, dx (bf16) written once
+        parts["adjoint_ms"] = sum(ms for k, ms in rows.items() if "up_adjoint_pass" in k)
+        parts["adjoint_bound_ms"] = adjoint / PEAK_BYTES * 1e3
+    return parts
 
 
 def up_operand(B, h, w, cin):
@@ -429,6 +439,15 @@ def up_operand(B, h, w, cin):
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
     return pk.operand_rows(B, h, w), build.operand_width(cin)
+
+
+def dx_operand(B, h, w, ntot, out_phases):
+    """(rows, width) of a's and c's cotangent operand at (B, h, w) for
+    ``ntot`` columns of the cotangents of ``out_phases``."""
+    from geniconet_tpu_torch.ops.kernels import build, halo
+
+    n_comb = len(halo.phase_dx_codes(h, w, "average", tuple(out_phases))[1][0]) - 1
+    return build.cot_operand_shape(B, len(out_phases) * 5 * h * w, n_comb, ntot)
 
 
 def grid_parts(call, flops, inputs, B, h, w, cin, n_src, info):
@@ -445,6 +464,14 @@ def grid_parts(call, flops, inputs, B, h, w, cin, n_src, info):
 def conv_flops(B, cells, cin, ntot):
     """2·rows·7·C_in·C_out of a hex conv whose outputs are B·cells rows of ntot channels."""
     return 2 * B * cells * 7 * cin * ntot
+
+
+def up_dx_flops(B, h, w, cin, cout):
+    """The FLOPs an up conv's dx needs (c, n's dx, j's dx): the function is
+    linear and composes down to the level-s grid (``halo.up_dx_table``: 7
+    taps over B·5hw rows), a quarter of the stride-1 contraction over the 4
+    upsampled phases that c's bf16 GEMM and cuDNN's conv2d_input run."""
+    return conv_flops(B, 5 * h * w, cin, 2 * cout)
 
 
 def cudnn(kind, gen, dt, n, cin, cout, hp, wp, stride=1):
@@ -683,9 +710,13 @@ def training_cases():
                         2 * w + 2, stride)
             if which == "dx":
                 args = (g, sets, "average", out_phases, cin, dt, a, ph, y, gs)
-                return Case(lambda: pk.phase_conv_dx(*args),
-                            lambda: pk.phase_conv_dx_plain(*args), flops,
-                            [g, [t for t, _ in sets], a, ph, y, gs], lib)
+                call = lambda: pk.phase_conv_dx(*args)  # noqa: E731
+                parts = (lambda: mma_parts(
+                    call, flops, [g, y, gs],
+                    dx_operand(B, h, w, n_sets * cout, out_phases),
+                    build.mma_dx_info(False, a is not None))) if dt == torch.bfloat16 else None
+                return Case(call, lambda: pk.phase_conv_dx_plain(*args), flops,
+                            [g, [t for t, _ in sets], a, ph, y, gs], lib, parts=parts)
             args = (ph, g, [(7, cin, cout)] * n_sets, "average", out_phases, a, y, gs,
                     emit_gsum or not fold)
             call = lambda: pk.phase_conv_dtaps(*args)  # noqa: E731
@@ -788,8 +819,8 @@ def training_cases():
             if which == "dx":
                 args = (g, b0, y10, aff, sets, "average")
                 return Case(lambda: pk.up_pair_dx(*args, emit_gsum=True, **fk),
-                            lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk), flops,
-                            [*reads, [t for t, _ in sets]], lib)
+                            lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk),
+                            up_dx_flops(B, h, w, cin, cout), [*reads, [t for t, _ in sets]], lib)
             args = (b0, y10, aff, g, "average")
             call = lambda: pk.up_pair_dtaps(*args, **fk)  # noqa: E731
             parts = (lambda: mma_parts(call, flops, [b0, y10, aff], up_operand(B, h, w, cin),
@@ -808,9 +839,15 @@ def training_cases():
             lib = cudnn(which, gen, dt, B * 5, cin, 2 * cout, 2 * h + 2, 2 * w + 2)
             if which == "dx":
                 args = (g, sets, "average", dt, y, gs, True)
-                return Case(lambda: pk.up_dual_conv_dx(*args),
-                            lambda: pk.up_dual_conv_dx_plain(*args), flops,
-                            [g, [t for t, _ in sets], y, gs], lib)
+                call = lambda: pk.up_dual_conv_dx(*args)  # noqa: E731
+                du_bytes = B * 4 * 5 * h * w * cin * 4 + B * 5 * h * w * cin * 2
+                parts = (lambda: mma_parts(call, flops, [g, y, gs],
+                                           dx_operand(B, h, w, 2 * cout, _ALL),
+                                           build.mma_dx_info(True), du_bytes)
+                         ) if dt == torch.bfloat16 else None
+                return Case(call, lambda: pk.up_dual_conv_dx_plain(*args),
+                            up_dx_flops(B, h, w, cin, cout), [g, [t for t, _ in sets], y, gs],
+                            lib, parts=parts)
             args = (x, g, "average", y, gs)
             call = lambda: pk.up_dual_conv_dtaps(*args)  # noqa: E731
             parts = (lambda: mma_parts(call, flops, [x], up_operand(B, h, w, cin),
@@ -876,7 +913,8 @@ def training_cases():
     def merged_bwd(kind, h, w, cin, cout, n_sets=1, out_phases=(0, 1, 2, 3), with_act=True):
         """Kernel i ("phase"), j ("up") or k ("std") with the stats fold, the
         split pair it replaces (dx with its Σg pass, then dtaps) and cuDNN's
-        dx + dweight on the haloed input. FLOPs: dx + dtaps."""
+        dx + dweight on the haloed input. FLOPs: dx (an up conv's composed,
+        ``up_dx_flops``) + dtaps."""
         def make(dt, gen):
             a = _act(gen, cin) if with_act else None
             if kind == "up":
@@ -917,8 +955,10 @@ def training_cases():
                 halo = (2 * h + 3 - stride, 2 * w + 2)
             lib_dx = cudnn("dx", gen, dt, B * 5, cin, ntot, *halo, stride)
             lib_dw = cudnn("dtaps", gen, dt, B * 5, cin, ntot, *halo, stride)
+            dx_flops = (up_dx_flops(B, h, w, cin, cout) if kind == "up"
+                        else conv_flops(B, rows, cin, ntot))
             return Case(lambda: fn(*args), lambda: plain(*args),
-                        2 * conv_flops(B, rows, cin, ntot), reads,
+                        dx_flops + conv_flops(B, rows, cin, ntot), reads,
                         lambda: (lib_dx(), lib_dw()), split)
         return make
 
@@ -1165,6 +1205,9 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if case.parts is not None:
                 p = case.parts()
                 pack = f"tap pack {p['pack_ms']:.4f} ms, " if p["pack_ms"] else ""
+                if "adjoint_ms" in p:
+                    pack += (f"upsample adjoint pass {p['adjoint_ms']:.4f} ms (bound "
+                             f"{p['adjoint_bound_ms']:.4f} ms, bytes), ")
                 print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): operand "
                       f"pass {p['operand_ms']:.4f} ms (bound {p['operand_bound_ms']:.4f} ms, "
                       f"bytes), {pack}tensor-core GEMM {p['gemm_ms']:.4f} ms = "
@@ -1335,14 +1378,24 @@ def kernel_group(event: dict) -> str:
     pair = "PairCells" in name
     which = "(n)" if pair else "(d)"
     grid = "(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name else None
+    # the dx of a and c: by Tag the phase conv's (a) or the up conv's (c)
+    dx = "(a)" if "PhaseGrid" in name else "(c)"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "grid_operand_pass" in name:
         return f"grid_operand_pass<{dtype}> {grid}"
+    if "cot_operand_pass" in name:
+        return f"cot_operand_pass<bf16> {dx}"
+    if "up_adjoint_pass" in name:
+        return "up_adjoint_pass (c)"
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {grid or which}"
-    if "mma_conv_fwd" in name:
+    if "mma_conv" in name and ("DxEpi" in name or "DuEpi" in name):
+        return f"mma_conv_dx<bf16> {'(a)' if 'DxEpi' in name else '(c)'}"
+    if "mma_conv" in name:  # the forwards' GEMM (mma_conv with FwdEpi)
         return f"mma_conv_fwd<bf16> {grid or ('(n)' if pair else '(up conv)')}"
+    if "pack_taps_t" in name:
+        return f"pack_taps {dx}"
     if "pack_taps" in name:
         return f"pack_taps {grid or '(up conv, n)'}"
     loader = "UpLoad" if "UpLoad" in name else "GridLoad"
@@ -1355,8 +1408,8 @@ def kernel_group(event: dict) -> str:
         # the float32 phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad
         # instantiation; in bf16 they run mma_conv_fwd (b), (f)
         return f"conv_gemm<{dtype}, {loader}{split}"
-    if "dx_gemm" in name:
-        return f"dx_gemm<{dtype}{split}"
+    if "dx_gemm" in name:  # in bf16 a and c run mma_conv_dx: the plain tile is f's
+        return f"dx_gemm<{dtype}{split}" + (" (f)" if dtype == "bf16" and split == ">" else "")
     if "dtaps_gemm" in name:
         return f"dtaps_gemm<{dtype}, {loader}{split}"
     if "stats_geff" in name:
@@ -1452,17 +1505,23 @@ def device_profile(workloads, card: str):
 # its tensor-core GEMM (the forward's or the dtaps')
 GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
              "(f)": ("ico_conv_s2s_fwd", "ico_conv_s2s_dtaps")}
+# ... and of the bf16 dx of a and c: each call's cotangent pass and GEMM
+# (and c's upsample adjoint), by wrapper
+DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx"}
 
 
 def check_device_launches(tag, groups, launches, iters):
     """Fail unless, in a profiled bf16 window, the calls of the grid convs'
     forward and dtaps (``launches``, wrapper calls an iteration) ran their
     operand pass (one a call of either) and their tensor-core GEMM
-    (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps): each row present
-    where its wrappers ran, and at most once a call (a trace may lose
-    events, never add them); and no launch of the SIMT ``conv_gemm<bf16,
-    GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>`` (m's split store and
-    loader, o's and p's tiles have rows of their own)."""
+    (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), and each call of
+    a and c its cotangent pass and ``mma_conv_dx`` (c also its upsample
+    adjoint): each row present where its wrappers ran, and at most once a
+    call (a trace may lose events, never add them); the SIMT
+    ``dx_gemm<bf16>`` no more often than f's dx calls (so never for a or
+    c); and no launch of the SIMT ``conv_gemm<bf16, GridLoad>`` or
+    ``dtaps_gemm<bf16, GridLoad>`` (m's split store and loader, o's and
+    p's tiles have rows of their own)."""
     def check(row, calls, wrappers):
         n = groups[row][0] / iters if row in groups else 0
         if (calls > 0) != (n > 0) or n > calls:
@@ -1474,6 +1533,14 @@ def check_device_launches(tag, groups, launches, iters):
         check(f"grid_operand_pass<bf16> {which}", n_fwd + n_dtaps, (fwd, dtaps))
         check(f"mma_conv_fwd<bf16> {which}", n_fwd, (fwd,))
         check(f"mma_dtaps<bf16> {which}", n_dtaps, (dtaps,))
+    for which, dx in DX_ROWS.items():
+        n_dx = launches.get(dx, 0)
+        check(f"cot_operand_pass<bf16> {which}", n_dx, (dx,))
+        check(f"mma_conv_dx<bf16> {which}", n_dx, (dx,))
+    check("up_adjoint_pass (c)", launches.get("up_dual_conv_dx", 0), ("up_dual_conv_dx",))
+    # the SIMT dx tile in bf16 is f's alone: a and c launching it would
+    # outnumber f's calls
+    check("dx_gemm<bf16> (f)", launches.get("ico_conv_s2s_dx", 0), ("ico_conv_s2s_dx",))
     for simt in ("conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>"):
         if simt in groups:
             raise AssertionError(f"profile {tag}: the SIMT {simt} ran")

@@ -28,7 +28,9 @@
 // GLoad<T, true>, which reads row m of the merged cotangent (and y, under
 // the fold) from its phase by the same map; so dx, dtaps, d_mul/d_add and
 // Σg_eff equal phase_conv_dx / phase_conv_dtaps on phase_merge'd
-// cotangents bit for bit.
+// cotangents bit for bit in float32. In bf16 those two run the tensor
+// cores (mma_conv_fwd.cuh, mma_dtaps.cuh) and m keeps these tiles: dx is
+// within one bf16 ulp, dtaps within float32 noise, Σg_eff still equal.
 //
 // What bounds it on the card: as the phase conv's kernels, the float32 FMA
 // rate of the SIMT GEMM core (2 * 7 * C_in * 2 * C_out FLOPs per level-(s-1)

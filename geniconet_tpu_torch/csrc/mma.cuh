@@ -1,13 +1,15 @@
 // What the tensor-core GEMMs share (bf16): the operand (its row layout, the
 // passes that write it once, the loader that names its rows through the
 // conv table) and the mma.sync primitives. The operand is the up convs'
-// upsampled level-(s+1) grid (up_operand_pass) or the grid convs'
-// act-applied input (grid_operand_pass). mma_dtaps.cuh (the tap gradients:
-// d, n, b and f) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
-// grid convs) build their GEMMs on them.
+// upsampled level-(s+1) grid (up_operand_pass), the grid convs'
+// act-applied input (grid_operand_pass) or, for the input gradients of the
+// phase conv and the up conv (a, c), the folded cotangent with its
+// combined rows (cot_operand_pass). mma_dtaps.cuh (the tap gradients: d,
+// n, b and f) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
+// grid convs; the dx of a and c) build their GEMMs on them.
 #pragma once
 
-#include "common.cuh"
+#include "backward.cuh"
 
 namespace gn {
 
@@ -316,6 +318,106 @@ cudaError_t launch_grid_operand(const GridLoad<T>& ld, T* out, int B, int n_src,
       ld, out, B, n_src, zero_poles, vec, total);
   return cudaGetLastError();
 }
+
+// The combined rows of the dx GEMMs' operand (halo.phase_dx_codes): row j
+// is the sum of weights[x] * (cotangent row cells[x]) over x in
+// offsets[j] .. offsets[j + 1]; n of them a sample.
+struct CombRows {
+  const int* offsets;
+  const int* cells;
+  const float* weights;
+  int n;
+};
+
+// 8 columns n0 .. n0 + 7 of cotangent row q of sample b, as GLoad gives
+// them (the stats fold with fold_geff's roundings); vec: cout is a multiple
+// of 8 and g, y 16-byte aligned, so the 8 are one set's, loaded at once.
+__device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16>& gl, int b, int q, int n0,
+                                     int ntot, int vec, float (&v)[8]) {
+  if (!vec) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = n0 + e < ntot ? gl(b, q, n0 + e) : 0.f;
+    return;
+  }
+  const int s = n0 / gl.cout, nl = n0 - s * gl.cout;
+  const int slot = q / gl.M, m = q - slot * gl.M, i = s * gl.n_out + slot;
+  const size_t off = ((size_t)b * gl.M + m) * gl.cout + nl;
+  load8(gl.g[i] + off, v);
+  const float* gs = gl.gs[s];
+  if (gs == nullptr) return;
+  float y[8];
+  load8(gl.y[i] + off, y);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v[e] = fold_geff<__nv_bfloat16>(v[e], y[e], gs[nl + e], gs[gl.cout + nl + e]);
+}
+
+// One thread: 8 columns of one row of the dx GEMMs' cotangent operand (a,
+// c): per sample its n_out * M rows q = slot * M + m, the n_sets sets'
+// g_eff side by side (GLoad's values, folded once), then its combined rows,
+// each a float32 weighted sum of those values rounded to bf16 once; after
+// the last sample one zero row; columns past n_sets * cout are zeros. Tag
+// names the instantiation (a's or c's) for a profile.
+template <typename Tag>
+__global__ void __launch_bounds__(256)
+cot_operand_pass(GLoad<__nv_bfloat16> gl, CombRows comb, __nv_bfloat16* __restrict__ out, int B,
+                 int ntot, int vec, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int ldk = operand_width(ntot), chunks = ldk / 8;
+  const long long r = i / chunks;
+  const int c = (int)(i - r * chunks), n0 = c * 8;
+  const int rows = gl.n_out * gl.M, per = rows + comb.n;
+  const int b = (int)(r / per), rr = (int)(r - (long long)b * per);
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (b < B && n0 < ntot) {
+    if (rr < rows) {
+      cot8(gl, b, rr, n0, ntot, vec, v);
+    } else {
+      const int j = rr - rows;
+      for (int x = comb.offsets[j]; x < comb.offsets[j + 1]; ++x) {
+        float t[8];
+        cot8(gl, b, comb.cells[x], n0, ntot, vec, t);
+        const float wt = comb.weights[x];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += wt * t[e];
+      }
+    }
+  }
+  alignas(16) __nv_bfloat16 pack[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) pack[e] = from_f<__nv_bfloat16>(v[e]);
+  *reinterpret_cast<uint4*>(out + r * ldk + n0) = *reinterpret_cast<const uint4*>(pack);
+}
+
+// Write the (B * (n_out * M + comb.n) + 1, operand_width(n_sets * cout))
+// cotangent operand of the cotangents gl (n_sets sets of n_out phases).
+template <typename Tag>
+cudaError_t launch_cot_operand(const GLoad<__nv_bfloat16>& gl, const CombRows& comb,
+                               __nv_bfloat16* out, int B, int n_sets, cudaStream_t stream) {
+  const int ntot = n_sets * gl.cout;
+  const long long rows = (long long)B * (gl.n_out * gl.M + comb.n) + 1;
+  const long long total = rows * (operand_width(ntot) / 8);
+  int vec = gl.cout % 8 == 0;
+  for (int i = 0; i < n_sets * gl.n_out; ++i)
+    vec = vec && aligned16(gl.g[i]) && (gl.y[i] == nullptr || aligned16(gl.y[i]));
+  cot_operand_pass<Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(gl, comb, out, B,
+                                                                              ntot, vec, total);
+  return cudaGetLastError();
+}
+
+// The written operand's cotangent rows as gn::colsum reads g (row q <
+// n_out * M of sample b, column n): Σg_eff of a and c from the values the
+// pass folded once, in launch_gsum's order.
+struct CotRowsG {
+  const __nv_bfloat16* rows;
+  int M, n_out, cout, per_b, ldk;
+  __device__ __forceinline__ float operator()(int b, int q, int n) const {
+    return to_f(rows[((size_t)b * per_b + q) * ldk + n]);
+  }
+};
 
 // Tags of the grid convs' instantiations (operand pass, forward GEMM, dtaps
 // GEMM): a profile tells the phase conv's launches (b) from the standard

@@ -3,14 +3,17 @@
 // tensor cores: the operand is built once into device memory (mma.cuh),
 // the tap sets are packed once, then one GEMM gathers the operand's rows
 // through the conv table, with the BatchNorm [Σy, Σy²] stats in its
-// epilogue.
+// epilogue. The same GEMM, with other epilogues, is the bf16 input gradient
+// of the phase conv (a) and of the up conv (c): the transposed problem.
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:
 // _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel), _updp (:2380,
 // _up_pair_fwd_kernel) and _phase_conv_fwd (:1272, _pc_fwd_kernel), and
-// conv_kernel.py:_pallas_forward (:253, _kernel). The float32 path keeps
-// gn::conv_gemm over gn::UpLoad / gn::GridLoad (common.cuh), the SIMT core,
-// bit for bit.
+// conv_kernel.py:_pallas_forward (:253, _kernel); with the dx epilogues
+// phase_kernel.py:_phase_conv_dx (:1336, _pc_dx_kernel) and _upd_bwd's dx
+// call (:2123, _up_dx_kernel). The float32 path keeps gn::conv_gemm over
+// gn::UpLoad / gn::GridLoad (common.cuh) and gn::dx_gemm (backward.cuh),
+// the SIMT core, bit for bit.
 //
 // What bounds it on the card. out[q][n] = sum_t sum_k U[row_t(q)][k] W[t][k][n]
 // + bias[n] over q = (sample, output phase slot, cell), B * n_out * 5hw rows,
@@ -31,7 +34,7 @@
 //    C_in (Kp = C_in rounded up to the 32-channel step) and past the
 //    columns (N rounded up to the 128-column tile), so every copy of a tap
 //    tile is a whole 16-byte chunk in bounds.
-// 3. mma_conv_fwd: a block takes 128 rows q and 128 columns n and walks K =
+// 3. mma_conv: a block takes 128 rows q and 128 columns n and walks K =
 //    7 taps x Kp in 32-channel steps. Rows run flat over B * n_out * 5hw
 //    (mma::RowPos over n_out output phase slots from out_phase0: 4 from 0
 //    for the up convs and the stride-1 phase conv, 1 from 2 for the
@@ -39,24 +42,42 @@
 //    small phase (160 cells at up0) does not leave a tile part empty. Each
 //    thread copies two 16-byte chunks of one A row ([q][k], k contiguous)
 //    and two of the tap tile ([k][n]) into a 4-stage cp.async ring,
-//    zero-filled past the operand's width and past Q; a row's conv-table
-//    code is read once per tap, and names a cell, its sample's pole row or
-//    the zero row (OperandRows; the pole rows follow the n_src sources'
-//    cells). A is K-major, so its fragments come by ldmatrix without .trans;
-//    the tap tile is N-major, so .trans, as the dtaps' g tile.
-//    mma.sync.m16n8k16 (bf16 products, float32 sums), 8 warps of 64 x 32, 2
-//    blocks an SM: on an H100 this ring ran 190-250 TFLOP/s where 4 warps of
-//    64 x 64 (1.2-1.4x the time), 64-channel steps (1.2x) or 3 or 5 stages
-//    ran slower (PERF.md §6). wgmma (both operands could be K-major here)
-//    is the way on.
-// 4. The epilogue adds the bias in float32, rounds to bf16 and stores row q
-//    at out[set][slot][(b * 5hw + m) * cout + c], two columns at a time. With
+//    zero-filled past the operand's width, past Q and for a ZERO code; a
+//    row's conv-table code is read once per tap, and names a cell, its
+//    sample's pole row or nothing (OperandRows; the pole rows follow the
+//    n_src sources' cells). A is K-major, so its fragments come by ldmatrix
+//    without .trans; the tap tile is N-major, so .trans, as the dtaps' g
+//    tile. mma.sync.m16n8k16 (bf16 products, float32 sums), 8 warps of 64 x
+//    32, 2 blocks an SM: on an H100 this ring ran 190-250 TFLOP/s where 4
+//    warps of 64 x 64 (1.2-1.4x the time), 64-channel steps (1.2x) or 3 or
+//    5 stages ran slower (PERF.md §6). wgmma (both operands could be
+//    K-major here) is the way on.
+// 4. The epilogue, a template parameter of the one kernel (FwdEpi): the
+//    bias in float32, rounded to bf16, row q stored at
+//    out[set][slot][(b * 5hw + m) * cout + c], two columns at a time. With
 //    stats, [Σy, Σy²] of the rounded values as conv_tile takes them: per
 //    block column partials (warp shuffles, then the two row warps in shared
 //    memory, in a fixed order), then one fixed-order gn::sum_rows over the
 //    row tiles. No atomics: results repeat exactly, and d and n, which run
 //    this GEMM on bit-equal operands with the same split, are bit-equal on
 //    the joined grid.
+// 5. dx (a, c) is the same GEMM transposed: dx[p][m][k] = sum_t sum_n
+//    G[row_t(p, m)][n] W[t][k][n] over the rows (sample, input phase, cell)
+//    of the 4 input phases. The A operand is the folded cotangent written
+//    once (cot_operand_pass, mma.cuh: g + gs0 + 2 gs1 y with GLoad's
+//    roundings, the tap sets side by side, then a sample's combined rows)
+//    named by halo.phase_dx_codes' (4, 7, M) code table: a cotangent row
+//    where the transposed table holds one entry of weight 1, a combined row
+//    (its weighted sum rounded to bf16 once: the stride-1 seams and poles)
+//    or nothing. pack_taps_t stacks the taps transposed (row t * Kp + n,
+//    column k). At stride 2 two thirds of the (tile, tap) pairs read only
+//    ZERO codes, so each 128-row tile walks only the taps of its mask byte
+//    (DxEpi / DuEpi set kMasked): the GEMM does the forward's FLOPs, not up
+//    to 3x as many. Epilogues: a rounds once (DxEpi<false>) or applies the
+//    act adjoint of DxOut (backward.cuh) on the float32 sums, with the
+//    column sums of dm * x and dm as the stats are taken (DxEpi<true>); c
+//    stores float32 dU of the 4 upsampled phases (DuEpi), which
+//    up_conv_bwd.cu's upsample adjoint pass then reads.
 #pragma once
 
 #include "mma.cuh"
@@ -110,25 +131,294 @@ pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ ou
   out[i] = v;
 }
 
+// packed[t * Kp + n][k] = taps[n / cout][t][k][n % cout] for n < n_sets *
+// cout and k < cin, else 0; (7 * Kp, Np) with Kp = k_pad(n_sets * cout) and
+// Np = n_pad(cin): the tap sets transposed and stacked along K, the B
+// operand of the dx GEMMs (a, c). Tag names the instantiation.
+template <typename T, typename Tag>
+__global__ void __launch_bounds__(256)
+pack_taps_t(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ out, int cin,
+            int cout, int n_sets, int Kp, int Np, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / Np;
+  const int k = (int)(i - r * Np), t = (int)(r / Kp), n = (int)(r - (long long)t * Kp);
+  T v = from_f<T>(0.f);
+  if (k < cin && n < n_sets * cout) {
+    const int s = n / cout;
+    v = (s ? w1 : w0)[((size_t)t * cin + k) * cout + (n - s * cout)];
+  }
+  out[i] = v;
+}
+
+// Where an epilogue thread stands: acc[mi][ni][e] of the GEMM holds row q0 +
+// wm * 64 + mi * 16 + lane / 4 (+ 8 for e >= 2) and column n0 + wn * 32 +
+// ni * 8 + 2 * (lane % 4) (+ 1 for odd e); a sample has `per` rows, slot
+// by slot of M cells.
+struct EpiPos {
+  int q0, n0, wm, wn, lane, tid, Q, M, per;
+  __device__ __forceinline__ int col(int ni) const {
+    return n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
+  }
+  __device__ __forceinline__ int row(int mi, int h) const {
+    return q0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
+  }
+};
+
+// The block's column sums of u and v (per thread: its 4 x 2 columns, over
+// its rows) into part[c] and part[N + c], c = n0 + tid < N, in a fixed
+// order: over the 8 row groups of a warp (lanes with one lane % 4), then
+// over its two row warps in shared memory (the ring's, free after the main
+// loop). Every thread of the block calls it.
+__device__ __forceinline__ void block_column_sums(float (&u)[4][2], float (&v)[4][2],
+                                                  unsigned char* smem_raw, const EpiPos& p,
+                                                  float* __restrict__ part, int N) {
+  constexpr int BN = fwd::BN;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        u[ni][e] += __shfl_xor_sync(0xffffffffu, u[ni][e], x);
+        v[ni][e] += __shfl_xor_sync(0xffffffffu, v[ni][e], x);
+      }
+  __syncthreads();  // the ring is free
+  float* red = reinterpret_cast<float*>(smem_raw);  // [wm][u | v][BN]
+  if (p.lane < 4) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = p.wn * 32 + ni * 8 + 2 * p.lane + e;
+        red[(p.wm * 2) * BN + col] = u[ni][e];
+        red[(p.wm * 2 + 1) * BN + col] = v[ni][e];
+      }
+  }
+  __syncthreads();
+  if (p.tid < BN && p.n0 + p.tid < N) {
+    part[p.n0 + p.tid] = red[p.tid] + red[2 * BN + p.tid];
+    part[N + p.n0 + p.tid] = red[BN + p.tid] + red[3 * BN + p.tid];
+  }
+}
+
+// The forward's epilogue: the bias added in float32, rounded to bf16,
+// stored at out[set][slot][(b * 5hw + m) * cout + c], two columns at a time;
+// with STATS, [Σy, Σy²] of the rounded values into the row tile's partials.
+template <bool STATS>
+struct FwdEpi {
+  static constexpr bool kMasked = false;  // every tap, every row tile
+  FwdOut o;
+  int cout, n_sets;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
+                                             unsigned char* smem_raw) const {
+    using bf16 = __nv_bfloat16;
+    const int Ntot = n_sets * cout, M = p.M;
+    // column n is channel n - cout of set 1 from n = cout on (at most two
+    // sets). Columns n and n + 1 share a set when cout is even: then one
+    // 4-byte store takes both.
+    const bool pairs = (cout & 1) == 0;
+    float col_bias[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = p.col(ni) + e, s = n >= cout;
+        const bf16* bias = s ? o.bias[1] : o.bias[0];
+        col_bias[ni][e] = n < Ntot && bias != nullptr ? to_f(bias[n - s * cout]) : 0.f;
+      }
+    float csum[4][2] = {}, csq[4][2] = {};
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = p.row(mi, h);
+        if (q >= p.Q) continue;
+        const int b = q / p.per, r = q - b * p.per, slot = r / M, m = r - slot * M;
+        const size_t row = ((size_t)b * M + m) * cout;
+        bf16* row0 = pick4(o.out[0], slot) + row;
+        bf16* row1 = pick4(o.out[1], slot) + row;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = p.col(ni);
+          bf16 y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            y[e] = from_f<bf16>(acc[mi][ni][2 * h + e] + col_bias[ni][e]);
+            if (STATS && n + e < Ntot) {
+              const float v = to_f(y[e]);  // the moments are of the downcast output
+              csum[ni][e] += v;
+              csq[ni][e] += v * v;
+            }
+          }
+          if (n >= Ntot) continue;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(n >= cout ? row1 + (n - cout) : row0 + n) =
+                __halves2bfloat162(y[0], y[1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n + e < Ntot) (n + e >= cout ? row1 + (n + e - cout) : row0 + n + e)[0] = y[e];
+          }
+        }
+      }
+    if constexpr (STATS)
+      block_column_sums(csum, csq, smem_raw, p, o.stats + (size_t)blockIdx.y * 2 * Ntot, Ntot);
+  }
+};
+
+// Where the phase conv's dx GEMM writes (a): the 4 input phases (B, 5, h,
+// w, cin); with the act prologue the raw phases it reads, mul and add, and
+// the [d_mul | d_add] partials, (row tiles, 2 * cin).
+struct DxRows {
+  __nv_bfloat16* out[4];
+  const __nv_bfloat16* raw[4];
+  const float* mul;
+  const float* add;
+  float* red;
+  int cin;
+};
+
+// a's epilogue: column n is input channel k, row q = (sample, input phase,
+// cell). Without ACT dx rounds once to bf16; with it the act adjoint of
+// DxOut (backward.cuh) on the float32 sums: dm = d * 1{x * mul + add > 0}
+// against the raw input, dx = bf16(dm * mul), and the column sums of dm * x
+// and dm go to the row tile's partials, as the forward's stats do.
+template <bool ACT>
+struct DxEpi {
+  static constexpr bool kMasked = true;  // a row tile skips the taps it does not read
+  DxRows o;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
+                                             unsigned char* smem_raw) const {
+    using bf16 = __nv_bfloat16;
+    const int cin = o.cin, M = p.M;
+    const bool pairs = (cin & 1) == 0;
+    float cm[4][2], ca[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = p.col(ni) + e;
+        cm[ni][e] = ACT && n < cin ? o.mul[n] : 0.f;
+        ca[ni][e] = ACT && n < cin ? o.add[n] : 0.f;
+      }
+    float su[4][2] = {}, sv[4][2] = {};
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = p.row(mi, h);
+        if (q >= p.Q) continue;
+        const int b = q / p.per, r = q - b * p.per, slot = r / M, m = r - slot * M;
+        const size_t row = ((size_t)b * M + m) * cin;
+        bf16* orow = pick4(o.out, slot) + row;
+        const bf16* xrow = ACT ? pick4(o.raw, slot) + row : nullptr;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = p.col(ni);
+          if (n >= cin) continue;
+          bf16 y[2];
+          if constexpr (ACT) {
+            float x[2] = {0.f, 0.f};
+            if (pairs) {
+              const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(xrow + n);
+              x[0] = __low2float(x2);
+              x[1] = __high2float(x2);
+            } else {
+              x[0] = to_f(xrow[n]);
+              if (n + 1 < cin) x[1] = to_f(xrow[n + 1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = acc[mi][ni][2 * h + e];
+              const float dm = __fadd_rn(__fmul_rn(x[e], cm[ni][e]), ca[ni][e]) > 0.f ? d : 0.f;
+              y[e] = from_f<bf16>(dm * cm[ni][e]);
+              if (n + e < cin) {
+                su[ni][e] += dm * x[e];
+                sv[ni][e] += dm;
+              }
+            }
+          } else {
+            y[0] = from_f<bf16>(acc[mi][ni][2 * h]);
+            y[1] = from_f<bf16>(acc[mi][ni][2 * h + 1]);
+          }
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + n) = __halves2bfloat162(y[0], y[1]);
+          } else {
+            orow[n] = y[0];
+            if (n + 1 < cin) orow[n + 1] = y[1];
+          }
+        }
+      }
+    if constexpr (ACT)
+      block_column_sums(su, sv, smem_raw, p, o.red + (size_t)blockIdx.y * 2 * cin, cin);
+  }
+};
+
+// c's epilogue: the float32 cotangent of the 4 upsampled phases, dU (B, 4,
+// 5hw, cin), row q at du + q * cin, unrounded (the upsample adjoint pass
+// reads it and rounds once).
+struct DuEpi {
+  static constexpr bool kMasked = true;
+  float* du;
+  int cin;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
+                                             unsigned char*) const {
+    const bool pairs = (cin & 1) == 0;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = p.row(mi, h);
+        if (q >= p.Q) continue;
+        float* row = du + (size_t)q * cin;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = p.col(ni);
+          if (n >= cin) continue;
+          if (pairs) {
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          } else {
+            row[n] = acc[mi][ni][2 * h];
+            if (n + 1 < cin) row[n + 1] = acc[mi][ni][2 * h + 1];
+          }
+        }
+      }
+  }
+};
+
 // The GEMM over Q = B * n_out * M rows, output phase slot s reading the
-// conv table of output phase out_phase0 + s. Block (column tile, row tile);
-// steps = 7 * Kp / BK. Tag (GridCells, PairCells, PhaseGrid or StdGrid) only
-// names the instantiation, so a profile tells the up conv's launches from
-// n's and the grid convs'; the code is one.
-template <typename Tag, bool STATS>
+// conv table of output phase out_phase0 + s, with the epilogue Epi (the
+// forward's FwdEpi; a's DxEpi, c's DuEpi). Block (column tile, row tile);
+// 7 * Kp / BK steps, or with Epi::kMasked and a tap_mask only the taps of
+// the row tile's mask byte (tap_mask[(q0 % mask_period) / BM]; a tile
+// whose codes for a tap are all ZERO reads only zeros there). Tag
+// (GridCells, PairCells, PhaseGrid or StdGrid) names the instantiation,
+// so a profile tells the up conv's launches from n's and the grid convs';
+// the code is one.
+template <typename Tag, typename Epi>
 __global__ void __launch_bounds__(fwd::NT, 2)
-mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int cout,
-             int n_sets, int out_phase0, int n_out, int Q, int Np, int ksteps) {
+mma_conv(OperandRows ld, const __nv_bfloat16* __restrict__ wp, Epi epi, int out_phase0,
+         int n_out, int Q, int Np, int ksteps, const unsigned char* __restrict__ tap_mask,
+         int mask_period) {
   using bf16 = __nv_bfloat16;
   constexpr int BM = fwd::BM, BN = fwd::BN, BK = fwd::BK, STAGES = fwd::STAGES;
   constexpr int A_LDS = fwd::A_LDS, B_LDS = fwd::B_LDS, A_TILE = fwd::A_TILE;
   constexpr int STAGE = fwd::STAGE;
+  constexpr bool MASKED = Epi::kMasked;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BN, q0 = blockIdx.y * BM;
-  const int M = ld.M, Ntot = n_sets * cout, steps = 7 * ksteps;
+  const int M = ld.M;
+  unsigned taps = 0x7Fu;
+  if (MASKED && tap_mask != nullptr) taps = tap_mask[(q0 % mask_period) / BM];
+  const int steps = (MASKED ? __popc(taps) : 7) * ksteps;
 
   // load roles: A row ar, its chunks ac and ac + 1 of a step; tap-tile row
   // br, its chunks bc and bc + 8
@@ -137,24 +427,40 @@ mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int
   pos.start(q0 + ar, M, n_out);
   const bool row_ok = pos.q < Q;
   const int phase = out_phase0 + pos.slot;  // this row's conv table
-  int t = 0, ks = 0;  // the tap and K step of the next copy
-  const bf16* arow = row_ok ? ld.row(pos.b, ld.code(phase, 0, pos.m)) : ld.rows;
+  // this row's operand row for tap t, or null past Q and for a ZERO code:
+  // cp.async then writes zeros and reads nothing (the dx GEMMs' stride-2
+  // tables are mostly ZERO, and every block reading the one zero row would
+  // queue on one L2 line)
+  auto arow_of = [&](int t) -> const bf16* {
+    if (!row_ok) return nullptr;
+    const int code = ld.code(phase, t, pos.m);
+    return code == ZERO ? nullptr : ld.row(pos.b, code);
+  };
+  // the tap and K step of the next copy
+  int t = MASKED ? (taps ? __ffs(taps) - 1 : 7) : 0, ks = 0;
+  const bf16* arow = t < 7 ? arow_of(t) : nullptr;
   const bf16* wrow = wp + (size_t)br * Np + n0 + bc * 8;
 
   auto copy_step = [&](int s) {
     bf16* As = smem + (s % STAGES) * STAGE;
     bf16* Bs = As + A_TILE;
+    const bf16* wstep = wrow + (size_t)(MASKED ? t * ksteps + ks : s) * BK * Np;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int k = ks * BK + (ac + c) * 8;
-      const bool ok = row_ok && k < ld.ldk;
+      const bool ok = arow != nullptr && k < ld.ldk;
       mma::cp_async16(As + ar * A_LDS + (ac + c) * 8, ok ? arow + k : ld.rows, ok ? 16 : 0);
-      mma::cp_async16(Bs + br * B_LDS + (bc + 8 * c) * 8,
-                      wrow + (size_t)s * BK * Np + 64 * c, 16);
+      mma::cp_async16(Bs + br * B_LDS + (bc + 8 * c) * 8, wstep + 64 * c, 16);
     }
     if (++ks == ksteps) {  // the next tap: this row's code for it
       ks = 0;
-      if (++t < 7 && row_ok) arow = ld.row(pos.b, ld.code(phase, t, pos.m));
+      if constexpr (MASKED) {
+        const unsigned rest = taps >> (t + 1);
+        t = rest ? t + __ffs(rest) : 7;
+      } else {
+        ++t;
+      }
+      if (t < 7) arow = arow_of(t);
     }
   };
 
@@ -207,98 +513,32 @@ mma_conv_fwd(OperandRows ld, const __nv_bfloat16* __restrict__ wp, FwdOut o, int
   }
   mma::cp_async_wait<0>();
 
-  // acc[mi][ni]: rows wm*64 + mi*16 + lane/4 (+8 for e >= 2), columns
-  // wn*32 + ni*8 + 2*(lane%4) (+1 for odd e); column n is channel n - cout
-  // of set 1 from n = cout on (at most two sets). Columns n and n + 1 share
-  // a set when cout is even: then one 4-byte store takes both.
-  const bool pairs = (cout & 1) == 0;
-  const int nl = n0 + wn * 32 + 2 * (lane & 3);  // column of ni = 0, e = 0
-  float col_bias[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = nl + ni * 8 + e, s = n >= cout;
-      const bf16* bias = s ? o.bias[1] : o.bias[0];
-      col_bias[ni][e] = n < Ntot && bias != nullptr ? to_f(bias[n - s * cout]) : 0.f;
-    }
-  float csum[4][2] = {}, csq[4][2] = {};
-  const int per = n_out * M;  // rows of a sample
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = q0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-      if (q >= Q) continue;
-      const int b = q / per, r = q - b * per, slot = r / M, m = r - slot * M;
-      const size_t row = ((size_t)b * M + m) * cout;
-      bf16* row0 = pick4(o.out[0], slot) + row;
-      bf16* row1 = pick4(o.out[1], slot) + row;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = nl + ni * 8;
-        bf16 y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          y[e] = from_f<bf16>(acc[mi][ni][2 * h + e] + col_bias[ni][e]);
-          if (STATS && n + e < Ntot) {
-            const float v = to_f(y[e]);  // the moments are of the downcast output
-            csum[ni][e] += v;
-            csq[ni][e] += v * v;
-          }
-        }
-        if (n >= Ntot) continue;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(n >= cout ? row1 + (n - cout) : row0 + n) =
-              __halves2bfloat162(y[0], y[1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n + e < Ntot) (n + e >= cout ? row1 + (n + e - cout) : row0 + n + e)[0] = y[e];
-        }
-      }
-    }
-  if constexpr (STATS) {
-    // sum over the 8 row groups of the warp (lanes with one lane % 4), then
-    // over its two row warps: fixed orders
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int x = 4; x < 32; x <<= 1) {
-          csum[ni][e] += __shfl_xor_sync(0xffffffffu, csum[ni][e], x);
-          csq[ni][e] += __shfl_xor_sync(0xffffffffu, csq[ni][e], x);
-        }
-    __syncthreads();  // the ring is free
-    float* red = reinterpret_cast<float*>(smem_raw);  // [wm][sum | sumsq][BN]
-    if (lane < 4) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = wn * 32 + ni * 8 + 2 * lane + e;
-          red[(wm * 2) * BN + col] = csum[ni][e];
-          red[(wm * 2 + 1) * BN + col] = csq[ni][e];
-        }
-    }
-    __syncthreads();
-    if (tid < BN && n0 + tid < Ntot) {
-      float* part = o.stats + (size_t)blockIdx.y * 2 * Ntot + n0 + tid;
-      part[0] = red[tid] + red[2 * BN + tid];
-      part[Ntot] = red[BN + tid] + red[3 * BN + tid];
-    }
-  }
+  const EpiPos p = {q0, n0, wm, wn, lane, tid, Q, M, n_out * M};
+  epi(acc, p, smem_raw);
 }
 
-template <typename Tag, bool STATS>
-cudaError_t mma_conv_fwd_attr() {
-  return cudaFuncSetAttribute(mma_conv_fwd<Tag, STATS>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::SMEM);
+template <typename Tag, typename Epi>
+cudaError_t mma_conv_attr() {
+  return cudaFuncSetAttribute(mma_conv<Tag, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              fwd::SMEM);
 }
 
 // Row tiles of the GEMM over Q rows (the stats partials' rows).
 inline int fwd_row_tiles(long long Q) { return (int)((Q + fwd::BM - 1) / fwd::BM); }
+
+// One launch of the GEMM with its epilogue (its shared memory allowed
+// first); the tap masks' period is one sample's 4 * M rows of the dx GEMMs.
+template <typename Tag, typename Epi>
+cudaError_t launch_mma_conv(const dim3& grid, const OperandRows& ld,
+                            const __nv_bfloat16* wpack, const Epi& epi, int out_phase0,
+                            int n_out, int Q, int Np, int ksteps, const unsigned char* tap_mask,
+                            cudaStream_t stream) {
+  cudaError_t err = mma_conv_attr<Tag, Epi>();
+  if (err != cudaSuccess) return err;
+  mma_conv<Tag, Epi><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, epi, out_phase0, n_out, Q,
+                                                           Np, ksteps, tap_mask, 4 * ld.M);
+  return cudaGetLastError();
+}
 
 // The GEMM over a built operand's rows `ld` into n_out output phase slots
 // from out_phase0: the taps packed into `wpack` ((7 * k_pad(cin),
@@ -318,16 +558,11 @@ cudaError_t launch_mma_fwd_rows(const OperandRows& ld, const FwdOut& o,
   if (err != cudaSuccess) return err;
   const int Q = B * n_out * ld.M, row_tiles = fwd_row_tiles(Q);
   const dim3 grid(Np / fwd::BN, row_tiles);
-  if (o.stats != nullptr) {
-    if ((err = mma_conv_fwd_attr<Tag, true>()) != cudaSuccess) return err;
-    mma_conv_fwd<Tag, true><<<grid, fwd::NT, fwd::SMEM, stream>>>(
-        ld, wpack, o, cout, n_sets, out_phase0, n_out, Q, Np, Kp / fwd::BK);
-  } else {
-    if ((err = mma_conv_fwd_attr<Tag, false>()) != cudaSuccess) return err;
-    mma_conv_fwd<Tag, false><<<grid, fwd::NT, fwd::SMEM, stream>>>(
-        ld, wpack, o, cout, n_sets, out_phase0, n_out, Q, Np, Kp / fwd::BK);
-  }
-  err = cudaGetLastError();
+  err = o.stats != nullptr
+            ? launch_mma_conv<Tag>(grid, ld, wpack, FwdEpi<true>{o, cout, n_sets}, out_phase0,
+                                   n_out, Q, Np, Kp / fwd::BK, nullptr, stream)
+            : launch_mma_conv<Tag>(grid, ld, wpack, FwdEpi<false>{o, cout, n_sets}, out_phase0,
+                                   n_out, Q, Np, Kp / fwd::BK, nullptr, stream);
   if (err != cudaSuccess || o.stats == nullptr) return err;
   const SplitOut st = {{stats[0], stats[1]}, Ntot, cout};
   return launch_sum_rows(o.stats, row_tiles, 2LL * Ntot, st, stream);
@@ -371,22 +606,100 @@ cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, c
                                   stats, stream);
 }
 
+// The dx GEMMs' operand rows (a, c): the cotangent operand that
+// cot_operand_pass wrote (mma.cuh; per sample n_out * M cotangent rows,
+// then n_comb combined rows; the zero row after the last sample), named by
+// the (4, 7, M) code table of halo.phase_dx_codes, which holds no pole code.
+inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int B, int M,
+                            int ntot, int n_out, int n_comb) {
+  OperandRows ld;
+  ld.rows = operand;
+  ld.table = codes;
+  ld.M = M;
+  ld.ldk = operand_width(ntot);
+  ld.per_b = n_out * M + n_comb;
+  ld.zero_row = B * ld.per_b;
+  return ld;
+}
+
+// The dx GEMM of a and c over the B * 4 * M rows of the 4 input phases
+// (slots from 0), with the epilogue Epi: the tap sets packed transposed
+// into `wpack` ((7 * k_pad(n_sets * cout), n_pad(cin))), then mma_conv
+// over K = 7 * k_pad(n_sets * cout) with the row tiles' tap masks (null:
+// every tap; else one byte per 128 rows of a sample, 4 * M a multiple of
+// 128).
+template <typename Tag, typename Epi>
+cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv_bfloat16* w0,
+                               const __nv_bfloat16* w1, __nv_bfloat16* wpack,
+                               const unsigned char* tap_mask, int B, int cin, int cout,
+                               int n_sets, cudaStream_t stream) {
+  if (wpack == nullptr || (tap_mask != nullptr && (4 * ld.M) % fwd::BM != 0))
+    return cudaErrorInvalidValue;
+  const int Ntot = n_sets * cout, Kp = fwd::k_pad(Ntot), Np = fwd::n_pad(cin);
+  const long long packed = 7LL * Kp * Np;
+  pack_taps_t<__nv_bfloat16, Tag><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
+      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int Q = B * 4 * ld.M;
+  return launch_mma_conv<Tag>(dim3(Np / fwd::BN, fwd_row_tiles(Q)), ld, wpack, epi, 0, 4, Q, Np,
+                              Kp / fwd::BK, tap_mask, stream);
+}
+
+// The bf16 dx tables and scratch of a and c (halo.phase_dx_codes): the code
+// table, the combined rows, the row tiles' tap masks (null: every tap), the
+// cotangent operand and the transposed taps.
+struct DxTables {
+  const int* codes;
+  CombRows comb;
+  const unsigned char* mask;
+  __nv_bfloat16* operand;
+  __nv_bfloat16* wpack;
+};
+
+// The bf16 dx of a and c: the cotangent operand of gl written once
+// (launch_cot_operand), the dx GEMM with the epilogue Epi over the rows
+// tb.codes names (launch_mma_dx_rows), then, where gsum_ws is given,
+// Σg_eff over the written cotangent rows in launch_gsum's order.
+template <typename Tag, typename Epi>
+cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb, const Epi& epi,
+                          const __nv_bfloat16* w0, const __nv_bfloat16* w1, float* gsum_ws,
+                          float* gsum0, float* gsum1, int B, int cin, int n_sets, int gsum_rows,
+                          cudaStream_t stream) {
+  if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, n_sets, stream);
+  if (err != cudaSuccess) return err;
+  const OperandRows ld =
+      cot_rows(tb.operand, tb.codes, B, gl.M, n_sets * gl.cout, gl.n_out, tb.comb.n);
+  err = launch_mma_dx_rows<Tag>(ld, epi, w0, w1, tb.wpack, tb.mask, B, cin, gl.cout, n_sets,
+                                stream);
+  if (err != cudaSuccess || gsum_ws == nullptr) return err;
+  const CotRowsG cg = {tb.operand, gl.M, gl.n_out, gl.cout, ld.per_b, ld.ldk};
+  return launch_gsum<__nv_bfloat16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+}
+
 // Registers a thread, blocks an SM, dynamic shared memory and local memory
 // (spills) of one instantiation (for the records).
-template <typename Tag, bool STATS>
-cudaError_t mma_conv_fwd_info(int* out) {
-  cudaError_t err = mma_conv_fwd_attr<Tag, STATS>();
+template <typename Tag, typename Epi>
+cudaError_t mma_conv_info(int* out) {
+  cudaError_t err = mma_conv_attr<Tag, Epi>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mma_conv_fwd<Tag, STATS>)) != cudaSuccess) return err;
+  if ((err = cudaFuncGetAttributes(&attr, mma_conv<Tag, Epi>)) != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_conv_fwd<Tag, STATS>, fwd::NT,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_conv<Tag, Epi>, fwd::NT,
                                                       fwd::SMEM);
   out[0] = attr.numRegs;
   out[1] = blocks;
   out[2] = fwd::SMEM;
   out[3] = (int)attr.localSizeBytes;
   return err;
+}
+
+template <typename Tag, bool STATS>
+cudaError_t mma_conv_fwd_info(int* out) {
+  return mma_conv_info<Tag, FwdEpi<STATS>>(out);
 }
 
 }  // namespace gn

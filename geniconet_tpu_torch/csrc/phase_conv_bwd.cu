@@ -14,10 +14,18 @@
 // VMEM buffers and runs the exact adjoint of the halo pad. Blocks on the card
 // run in no order, so dx is instead a gather: the transposed halo table
 // (halo.phase_dx_table) lists, for each source cell and tap, the output cells
-// that read it with their weights (0.2 for pole means), and each operand
-// element of the dx GEMM sums those rows of g. No atomics: dx, d_mul/d_add
+// that read it with their weights (0.2 for pole means). In float32 each
+// operand element of the SIMT dx GEMM sums those rows of g (gn::dx_gemm); in
+// bf16 a pass writes the folded cotangent once, with a sample's combined rows
+// (a row whose transposed entries are not one weight-1 read: its weighted sum
+// rounded once), and the forward's tensor-core GEMM runs transposed over the
+// rows that halo.phase_dx_codes names, the act adjoint in its epilogue
+// (mma_conv_fwd.cuh, point 5, which also says what bounds it; a stride-2
+// row tile skips the taps it does not read). No atomics: dx, d_mul/d_add
 // and Σg are deterministic (d_mul/d_add and Σg through block partials and a
-// fixed-order second pass). dtaps reduces over the B * n_out * 5hw rows in
+// fixed-order second pass; in bf16 Σg sums the written cotangent rows in
+// launch_gsum's order, the values the fold gave). dtaps reduces over the
+// B * n_out * 5hw rows in
 // chunks, whose partials a second pass sums: in float32 it re-gathers the
 // forward operand through the forward table (act prologue and pole means
 // included) on the SIMT core; in bf16 it writes that operand once (the
@@ -26,7 +34,7 @@
 // what bounds it; a C_in of at most 64, conv_in's 3 and the 64 of up2's
 // conv01 and down0's stride-2 conv, takes its NARROW tile).
 //
-// What bounds dx (and float32 dtaps) on the card: like the forward, the
+// What bounds float32 dx and dtaps on the card: like the forward, the
 // float32 FMA rate of the SIMT GEMM core (2 * 7 * C_in * C_out FLOPs per
 // output cell each); the dx operand gather reads about 1.05 rows of g per
 // element (the halo and pole rows), and dtaps writes 7 * C_in * C_out floats
@@ -44,6 +52,7 @@
 // to T). Sharing one staged g tile between the roles is the next step.
 #include <type_traits>
 
+#include "mma_conv_fwd.cuh"
 #include "mma_dtaps.cuh"
 
 namespace {
@@ -52,24 +61,51 @@ template <typename T>
 cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, const float* gs1,
                const void* w0, const void* w1, const void* const* raw, const float* mul,
                const float* add, void* const* outs, const int* offsets, const int* cells,
-               const float* weights, float* red, float* dmul, float* dadd, float* gsum_ws,
-               float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
-               int n_out, int gsum_rows, cudaStream_t stream) {
+               const float* weights, const gn::DxTables& tb, float* red, float* dmul, float* dadd,
+               float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout,
+               int n_sets, int n_out, int gsum_rows, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
-  gn::DxOut<T> o = {};
-  for (int p = 0; p < 4; ++p) {
-    o.out[p] = static_cast<T*>(outs[p]);
-    o.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+  if constexpr (std::is_same_v<T, float>) {
+    gn::DxOut<T> o = {};
+    for (int p = 0; p < 4; ++p) {
+      o.out[p] = static_cast<T*>(outs[p]);
+      o.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+    }
+    o.mul = mul;
+    o.add = add;
+    o.red = red;
+    o.per = M;
+    cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd,
+                                            B, 4 * M, cin, n_sets, stream);
+    if (err != cudaSuccess || gsum_ws == nullptr) return err;
+    return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+  } else {
+    // the folded cotangent written once, then the tensor-core GEMM over its
+    // rows named by the code table (mma_conv_fwd.cuh), the act adjoint in
+    // its epilogue
+    using Tag = gn::PhaseGrid;
+    if (mul != nullptr && (raw == nullptr || red == nullptr)) return cudaErrorInvalidValue;
+    gn::DxRows rows = {};
+    for (int p = 0; p < 4; ++p) {
+      rows.out[p] = static_cast<T*>(outs[p]);
+      rows.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+    }
+    rows.mul = mul;
+    rows.add = add;
+    rows.red = red;
+    rows.cin = cin;
+    const T* t0 = static_cast<const T*>(w0);
+    const T* t1 = static_cast<const T*>(w1);
+    cudaError_t err =
+        mul ? gn::launch_cot_dx<Tag>(gl, tb, gn::DxEpi<true>{rows}, t0, t1, gsum_ws, gsum0, gsum1,
+                                     B, cin, n_sets, gsum_rows, stream)
+            : gn::launch_cot_dx<Tag>(gl, tb, gn::DxEpi<false>{rows}, t0, t1, gsum_ws, gsum0,
+                                     gsum1, B, cin, n_sets, gsum_rows, stream);
+    if (err != cudaSuccess || mul == nullptr) return err;
+    const gn::SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+    return gn::launch_sum_rows(red, gn::fwd_row_tiles(4LL * B * M), 2LL * cin, st, stream);
   }
-  o.mul = mul;
-  o.add = add;
-  o.red = red;
-  o.per = M;
-  cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B,
-                                          4 * M, cin, n_sets, stream);
-  if (err != cudaSuccess || gsum_ws == nullptr) return err;
-  return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
 // The 4 input phases with their act prologue, as the forward reads them.
@@ -156,28 +192,41 @@ bool bad_sets(int n_sets, int n_out) {
 // order, with gs0/gs1 the sets' (2, cout) float32 stats cotangents; w0/w1:
 // taps (7, cin, cout); raw: null (no act) or a host array of the 4 raw input
 // phases, with mul/add float32 (cin); outs: host array of the 4 dphase
-// outputs (B, 5, h, w, cin); offsets/cells/weights: halo.phase_dx_table for
-// these output phases; red: with act, float32 scratch of (B * ceil(4*5hw/64),
-// 2 * cin), and dmul/dadd receive (cin) each; gsum_ws: with the fold, scratch
-// of (ceil(B * n_out * 5hw / gsum_rows), n_sets * cout) and gsum0/gsum1
+// outputs (B, 5, h, w, cin). float32: offsets/cells/weights,
+// halo.phase_dx_table for these output phases; red, with act, float32
+// scratch of (B * ceil(4*5hw/64), 2 * cin). bfloat16 (else the call is
+// refused): codes, comb_offsets/comb_cells/comb_weights (n_comb combined
+// rows a sample) and tap_mask (null, or a byte per 128 rows of one
+// sample's 4 * 5hw) from halo.phase_dx_codes; operand, scratch of (B *
+// (n_out * 5hw + n_comb) + 1, n_sets * cout rounded up to 8); wpack, of
+// (7 * (n_sets * cout rounded up to 32), cin rounded up to 128); red, with
+// act, float32 scratch of (ceil(B * 4 * 5hw / 128), 2 * cin). dmul/dadd
+// receive (cin) each with act; gsum_ws: with the fold, scratch of
+// (ceil(B * n_out * 5hw / gsum_rows), n_sets * cout) and gsum0/gsum1
 // receive Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_phase_conv_dx(const void* const* g, const void* const* y, const float* gs0,
                                 const float* gs1, const void* w0, const void* w1,
                                 const void* const* raw, const float* mul, const float* add,
                                 void* const* outs, const int* offsets, const int* cells,
-                                const float* weights, float* red, float* dmul, float* dadd,
-                                float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w,
-                                int cin, int cout, int n_sets, int n_out, int gsum_rows,
+                                const float* weights, const int* codes, const int* comb_offsets,
+                                const int* comb_cells, const float* comb_weights,
+                                const unsigned char* tap_mask, void* operand, void* wpack,
+                                float* red, float* dmul, float* dadd, float* gsum_ws,
+                                float* gsum0, float* gsum1, int B, int h, int w, int cin,
+                                int cout, int n_sets, int n_out, int n_comb, int gsum_rows,
                                 int dtype, void* stream) {
   if (bad_sets(n_sets, n_out)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<__nv_bfloat16*>(operand),
+                           static_cast<__nv_bfloat16*>(wpack)};
   if (dtype == 0)
-    return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, red,
-                     dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, n_out,
+    return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, tb,
+                     red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, n_out,
                      gsum_rows, s);
   if (dtype == 1)
     return dx<__nv_bfloat16>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells,
-                             weights, red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin,
+                             weights, tb, red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin,
                              cout, n_sets, n_out, gsum_rows, s);
   return cudaErrorInvalidValue;
 }
@@ -238,6 +287,14 @@ extern "C" int gn_grid_operand(const void* const* x, const float* mul, const flo
         ld, static_cast<__nv_bfloat16*>(out), B, n_src, zero_poles, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of a's tensor-core dx GEMM, with the act epilogue or
+// without.
+extern "C" int gn_phase_conv_dx_info(int act, int* out) {
+  return act ? gn::mma_conv_info<gn::PhaseGrid, gn::DxEpi<true>>(out)
+             : gn::mma_conv_info<gn::PhaseGrid, gn::DxEpi<false>>(out);
 }
 
 // out[4]: registers a thread, blocks an SM, dynamic shared memory and local

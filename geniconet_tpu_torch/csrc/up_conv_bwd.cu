@@ -11,20 +11,32 @@
 // Design. The Pallas dx kernel runs three adjoints in VMEM one after the
 // other: the phase-pad transpose of level s+1, the upsample transpose (a
 // copy, or 0.5 to each end of a midpoint) and the level-s pad transpose.
-// Here the three are composed on the host into ONE transposed table with
-// weights (halo.up_dx_table): for each level-s cell and tap, the output
-// cells of the 4 new phases that read it, and how much. dx is then one
-// gather-GEMM with float32 sums and one rounding, as in phase_conv_bwd.cu,
-// with no atomics. dtaps reduces over B * 4 * 5hw rows in chunks, whose
+// In float32 the three are composed on the host into ONE transposed table
+// with weights (halo.up_dx_table): for each level-s cell and tap, the
+// output cells of the 4 new phases that read it, and how much; dx is one
+// SIMT gather-GEMM with float32 sums and one rounding, as in
+// phase_conv_bwd.cu, with no atomics. In bf16 they run in the Pallas
+// kernel's order: the stride-1 phase conv's tensor-core dx GEMM
+// (phase_conv_bwd.cu's bf16 dx, with the DuEpi epilogue of
+// mma_conv_fwd.cuh) writes the float32 cotangent dU of the 4 upsampled
+// phases, then up_adjoint_pass gathers it through the transposed
+// upsample_table with the level-s pad (halo.up_adjoint_table) and rounds
+// once. The GEMM does 4x the FLOPs a composed table would need, on the
+// tensor cores, where a composed row of about 7 weighted terms would have
+// to be written for every (cell, tap). dtaps reduces over B * 4 * 5hw rows
+// in chunks, whose
 // partials a second pass sums in a fixed order: in float32 it re-gathers the
 // upsampled operand through gn::UpLoad (the forward's loader) on the SIMT
 // core; in bf16 it builds the operand once and runs gn::mma_dtaps on the
 // tensor cores (mma_dtaps.cuh, which also says what bounds it).
 //
-// What bounds dx on the card: the float32 FMA rate of the SIMT GEMM core.
-// A dx operand element sums about 7 rows of g (one per upsampled cell that
-// holds the input cell: the copy and the 6 midpoints), so the gather costs
-// more loads than the phase conv's; they hit L1/L2.
+// What bounds float32 dx on the card: the float32 FMA rate of the SIMT GEMM
+// core. A dx operand element sums about 7 rows of g (one per upsampled cell
+// that holds the input cell: the copy and the 6 midpoints), so the gather
+// costs more loads than the phase conv's; they hit L1/L2. In bf16: the
+// GEMM's tensor cores (mma_conv_fwd.cuh), and the bytes of the passes (the
+// cotangent written once; dU, float32, written once and gathered about
+// 1.75 times).
 //
 // The merged kernel is gn::merged_bwd (backward.cuh) with the same two
 // tile roles: dx tiles gather through halo.up_dx_table, dtaps tiles
@@ -34,24 +46,86 @@
 // two roles each read g (see phase_conv_bwd.cu).
 #include <type_traits>
 
+#include "mma_conv_fwd.cuh"
 #include "mma_dtaps.cuh"
 
 namespace {
 
+// One thread: 4 channels of one level-s cell, dx = the float32 sum of its
+// upsample-adjoint entries (halo.up_adjoint_table: weight times the cell's
+// cotangent in dU, the 4 upsampled phases (B, 4, 5hw, cin) float32),
+// rounded to bf16 once. vec: cin is a multiple of 4 (16-byte loads of dU).
+__global__ void __launch_bounds__(256)
+up_adjoint_pass(const float* __restrict__ du, const int* __restrict__ offsets,
+                const int* __restrict__ cells, const float* __restrict__ weights,
+                __nv_bfloat16* __restrict__ dx, int M, int cin, int vec, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int chunks = (cin + 3) / 4;
+  const long long r = i / chunks;
+  const int k0 = (int)(i - r * chunks) * 4;
+  const int b = (int)(r / M), m = (int)(r - (long long)b * M);
+  const float* base = du + (size_t)b * 4 * M * cin + k0;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int x = offsets[m]; x < offsets[m + 1]; ++x) {
+    const float wt = weights[x];
+    const float* src = base + (size_t)cells[x] * cin;
+    if (vec) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] += wt * t.x;
+      v[1] += wt * t.y;
+      v[2] += wt * t.z;
+      v[3] += wt * t.w;
+    } else {
+      for (int e = 0; e < 4 && k0 + e < cin; ++e) v[e] += wt * src[e];
+    }
+  }
+  __nv_bfloat16* dst = dx + (size_t)r * cin + k0;
+  for (int e = 0; e < 4 && k0 + e < cin; ++e) dst[e] = __float2bfloat16_rn(v[e]);
+}
+
+// c's upsample adjoint (see gn_up_dual_conv_dx): halo.up_adjoint_table
+// and the float32 dU it gathers.
+struct UpAdjoint {
+  const int* offsets;
+  const int* cells;
+  const float* weights;
+  float* du;
+};
+
 template <typename T>
 cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, const float* gs1,
                const void* w0, const void* w1, void* out, const int* offsets, const int* cells,
-               const float* weights, float* gsum_ws, float* gsum0, float* gsum1, int B, int h,
-               int w, int cin, int cout, int n_sets, int gsum_rows, cudaStream_t stream) {
+               const float* weights, const gn::DxTables& tb, const UpAdjoint& adj,
+               float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w, int cin,
+               int cout, int n_sets, int gsum_rows, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
-  gn::DxOut<T> o = {};
-  o.out[0] = static_cast<T*>(out);
-  o.per = M;
-  cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, nullptr,
-                                          nullptr, B, M, cin, n_sets, stream);
-  if (err != cudaSuccess || gsum_ws == nullptr) return err;
-  return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+  if constexpr (std::is_same_v<T, float>) {
+    gn::DxOut<T> o = {};
+    o.out[0] = static_cast<T*>(out);
+    o.per = M;
+    cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, nullptr,
+                                            nullptr, B, M, cin, n_sets, stream);
+    if (err != cudaSuccess || gsum_ws == nullptr) return err;
+    return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+  } else {
+    // the stride-1 phase conv's dx GEMM over the 4 upsampled phases into
+    // float32 dU (mma_conv_fwd.cuh), then the upsample and level-s pad
+    // adjoint, rounded once
+    using Tag = gn::GridCells<T>;
+    if (adj.du == nullptr || adj.offsets == nullptr) return cudaErrorInvalidValue;
+    cudaError_t err = gn::launch_cot_dx<Tag>(gl, tb, gn::DuEpi{adj.du, cin},
+                                             static_cast<const T*>(w0),
+                                             static_cast<const T*>(w1), gsum_ws, gsum0, gsum1, B,
+                                             cin, n_sets, gsum_rows, stream);
+    if (err != cudaSuccess) return err;
+    const long long total = (long long)B * M * ((cin + 3) / 4);
+    up_adjoint_pass<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        adj.du, adj.offsets, adj.cells, adj.weights, static_cast<T*>(out), M, cin, cin % 4 == 0,
+        total);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -107,25 +181,46 @@ cudaError_t merged(const void* x, const void* const* g, const void* const* y, co
 // g: host array of n_sets * 4 cotangent pointers (set-major), each
 // (B, 5, h, w, cout), the level-(s+1) phases; y, gs0, gs1: null, or the
 // forward outputs and the (2, cout) stats cotangents for the fold; w0/w1:
-// taps (7, cin, cout); out: dx (B, 5, h, w, cin), level s;
-// offsets/cells/weights: halo.up_dx_table; gsum_ws: null, or float32
-// scratch of (ceil(B * 4 * 5hw / gsum_rows), n_sets * cout) and
+// taps (7, cin, cout); out: dx (B, 5, h, w, cin), level s. float32:
+// offsets/cells/weights, halo.up_dx_table. bfloat16 (else the call is
+// refused): codes, comb_offsets/comb_cells/comb_weights (n_comb combined
+// rows a sample) and tap_mask from halo.phase_dx_codes of all 4 output
+// phases; adj_offsets/adj_cells/adj_weights, halo.up_adjoint_table;
+// operand, scratch of (B * (4 * 5hw + n_comb) + 1, n_sets * cout rounded
+// up to 8); wpack, of (7 * (n_sets * cout rounded up to 32), cin rounded up
+// to 128); du, float32 scratch of (B, 4, 5hw, cin). gsum_ws: null, or
+// float32 scratch of (ceil(B * 4 * 5hw / gsum_rows), n_sets * cout) and
 // gsum0/gsum1 receive Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_up_dual_conv_dx(const void* const* g, const void* const* y, const float* gs0,
                                   const float* gs1, const void* w0, const void* w1, void* out,
                                   const int* offsets, const int* cells, const float* weights,
-                                  float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w,
-                                  int cin, int cout, int n_sets, int gsum_rows, int dtype,
+                                  const int* codes, const int* comb_offsets,
+                                  const int* comb_cells, const float* comb_weights,
+                                  const unsigned char* tap_mask, const int* adj_offsets,
+                                  const int* adj_cells, const float* adj_weights, void* operand,
+                                  void* wpack, float* du, float* gsum_ws, float* gsum0,
+                                  float* gsum1, int B, int h, int w, int cin, int cout,
+                                  int n_sets, int n_comb, int gsum_rows, int dtype,
                                   void* stream) {
   if (n_sets < 1 || n_sets > 2) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<__nv_bfloat16*>(operand),
+                           static_cast<__nv_bfloat16*>(wpack)};
+  const UpAdjoint adj = {adj_offsets, adj_cells, adj_weights, du};
   if (dtype == 0)
-    return dx<float>(g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, gsum_ws, gsum0, gsum1,
-                     B, h, w, cin, cout, n_sets, gsum_rows, s);
+    return dx<float>(g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, tb, adj, gsum_ws,
+                     gsum0, gsum1, B, h, w, cin, cout, n_sets, gsum_rows, s);
   if (dtype == 1)
-    return dx<__nv_bfloat16>(g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, gsum_ws,
-                             gsum0, gsum1, B, h, w, cin, cout, n_sets, gsum_rows, s);
+    return dx<__nv_bfloat16>(g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, tb, adj,
+                             gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, gsum_rows, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of c's tensor-core dx GEMM.
+extern "C" int gn_up_dual_conv_dx_info(int* out) {
+  return gn::mma_conv_info<gn::GridCells<__nv_bfloat16>, gn::DuEpi>(out);
 }
 
 // x: (B, 5, h, w, cin) level-s grid; g, y, gs0, gs1: as in

@@ -21,10 +21,11 @@
 // conv's GEMMs: in float32 over that loader (gn::conv_gemm, gn::dtaps_gemm);
 // in bf16 the pair is joined once into a level-s grid (gn::pair_join_pass),
 // the operand pass builds the upsampled operand from it, and the
-// tensor-core GEMMs run over its rows (gn::mma_conv_fwd, mma_conv_fwd.cuh;
+// tensor-core GEMMs run over its rows (gn::mma_conv, mma_conv_fwd.cuh;
 // gn::mma_dtaps, mma_dtaps.cuh). Either way the outputs, stats and dtaps
 // equal up_dual_conv_fwd / up_dual_conv_dtaps on phase_merge(join) bit for
-// bit. dx is the up conv's dx GEMM over the same transposed
+// bit. dx is the up conv's float32 SIMT dx GEMM (in both dtypes; the up
+// conv's bf16 dx runs the tensor cores since) over the same transposed
 // table (halo.up_dx_table; rows are level-s grid cells) with the epilogue
 // gn::DxPairOut: the tail's adjoint on the unrounded float32 dx, the masks
 // from the raw pair in float32, the 8 phase cotangents stored by split_row,
@@ -32,8 +33,8 @@
 // partials and one fixed-order gn::sum_rows. The Σg_eff pass is the up
 // conv's (gn::launch_gsum). No merged branch, as in the reference.
 //
-// What bounds it on the card: the dx kernel, as c, the float32 FMA rate of
-// the SIMT GEMM core (2 * 4 * 7 * C_in * 2 * C_out FLOPs per level-s cell).
+// What bounds it on the card: the dx kernel, as c's float32 one, the FMA
+// rate of the SIMT GEMM core (2 * 4 * 7 * C_in * 2 * C_out FLOPs per level-s cell).
 // The float32 forward and dtaps pay for the join on load: an operand
 // element of their GEMMs joins up to two level-s cells (five for a pole
 // mean), each 2 phase loads, 4 affine loads and 5 FLOPs, where the up conv

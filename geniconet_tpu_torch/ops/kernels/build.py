@@ -35,7 +35,7 @@ __all__ = [
     "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
-    "grid_fwd_info",
+    "grid_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -128,11 +128,13 @@ _SIGNATURES = {
     "gn_ico_conv_dx": [_VP] * 16 + [_INT] * 7 + [_VP],
     "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
     "gn_ico_conv_dtaps_info": [_INT, _INT, _VP],
-    "gn_phase_conv_dx": [_VP] * 19 + [_INT] * 9 + [_VP],
+    "gn_phase_conv_dx": [_VP] * 26 + [_INT] * 10 + [_VP],
+    "gn_phase_conv_dx_info": [_INT, _VP],
     "gn_phase_conv_dtaps": [_VP] * 15 + [_INT] * 13 + [_VP],
     "gn_phase_conv_dtaps_info": [_INT, _INT, _VP],
     "gn_grid_operand": [_VP] * 4 + [_INT] * 7 + [_VP],
-    "gn_up_dual_conv_dx": [_VP] * 13 + [_INT] * 8 + [_VP],
+    "gn_up_dual_conv_dx": [_VP] * 24 + [_INT] * 9 + [_VP],
+    "gn_up_dual_conv_dx_info": [_VP],
     "gn_up_dual_conv_dtaps": [_VP] * 11 + [_INT] * 10 + [_VP],
     "gn_up_operand": [_VP] * 3 + [_INT] * 6 + [_VP],
     "gn_up_dual_conv_dtaps_info": [_INT, _VP],
@@ -283,6 +285,29 @@ def grid_fwd_info(std: bool, stats: bool) -> dict:
     standard conv (``std``) or the phase conv, with the stats epilogue or
     without."""
     return _gemm_info("gn_ico_conv_fwd_info" if std else "gn_phase_conv_fwd_info", stats)
+
+
+def dx_packed_taps_shape(cin: int, ntot: int):
+    """Shape of the tensor-core dx GEMMs' (a, c) packed taps, the tap sets
+    transposed: a row per tap and cotangent column (``ntot`` rounded up to
+    the K step, zero past it), a column per input channel (C_in rounded up
+    to the tile, zero past it)."""
+    return 7 * -(-ntot // MMA_K_STEP) * MMA_K_STEP, -(-cin // MMA_TILE) * MMA_TILE
+
+
+def cot_operand_shape(B: int, rows: int, n_comb: int, ntot: int):
+    """Shape of the dx GEMMs' cotangent operand: per sample its ``rows``
+    cotangent rows (n_out·5hw) and ``n_comb`` combined rows, then one zero
+    row; ``ntot`` columns rounded up to 8."""
+    return B * (rows + n_comb) + 1, operand_width(ntot)
+
+
+def mma_dx_info(up: bool, act: bool = False) -> dict:
+    """``mma_dtaps_info`` for the tensor-core dx GEMM of the up conv (c,
+    ``up``) or the phase conv (a), with the act epilogue or without."""
+    if up:
+        return _gemm_info("gn_up_dual_conv_dx_info")
+    return _gemm_info("gn_phase_conv_dx_info", act)
 
 
 def scratch(n: int, device) -> torch.Tensor:

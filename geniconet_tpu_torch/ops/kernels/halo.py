@@ -22,6 +22,7 @@ __all__ = [
     "ZERO", "NORTH", "SOUTH", "NONE",
     "phase_conv_table", "std_conv_table", "upsample_table", "device_table",
     "phase_dx_table", "up_dx_table", "std_dx_table", "device_dx_table",
+    "up_adjoint_table", "phase_dx_codes", "device_dx_codes",
 ]
 
 # codes shared with csrc/common.cuh
@@ -142,7 +143,7 @@ def _conv_entries(h: int, w: int, corner_mode: str, out_phases):
     return dst, src, np.ones(len(dst))
 
 
-def _to_csr(dst, src, w, n_src: int, n_dst_per_tap: int):
+def _to_csr(dst, src, w, n_src: int, n_dst_per_tap: int, n_taps: int = 7):
     """Coalesce (tap·n_dst + d, source r, w) into the CSR rows t·R + r."""
     t, d = np.divmod(dst, n_dst_per_tap)
     key = (t * n_src + src) * n_dst_per_tap + d
@@ -150,8 +151,8 @@ def _to_csr(dst, src, w, n_src: int, n_dst_per_tap: int):
     weights = np.zeros(len(uniq))
     np.add.at(weights, inv, w)
     row, cells = np.divmod(uniq, n_dst_per_tap)
-    offsets = np.zeros(7 * n_src + 1, np.int64)
-    np.cumsum(np.bincount(row, minlength=7 * n_src), out=offsets[1:])
+    offsets = np.zeros(n_taps * n_src + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=n_taps * n_src), out=offsets[1:])
     return offsets.astype(np.int32), cells.astype(np.int32), weights.astype(np.float32)
 
 
@@ -209,6 +210,76 @@ def std_dx_table(h: int, w: int, corner_mode: str):
     return _to_csr(dst, src, wt, n, n)
 
 
+def up_adjoint_table(h: int, w: int, corner_mode: str):
+    """Transposed ``upsample_table`` with the level-s pad: CSR over the
+    R = 5·h·w level-s cells, ``offsets`` (R + 1,), ``cells`` the upsampled
+    cells ``p·5hw + m`` of the four level-(s+1) phases that read the cell
+    and ``weights`` how much (1 for an old vertex, 0.5 for each end of a
+    midpoint, times 0.2 where the end is a level-s pole). The adjoint of
+    ``phase_upsample(ico_pad(x))``: up_dual_conv_dx's bf16 path runs it
+    after its GEMM has produced the cotangent of the four upsampled phases."""
+    _check_mode(corner_mode)
+    n, hw = 5 * h * w, h * w
+    pairs = upsample_table(h, w, corner_mode).astype(np.int64)
+    a, b = pairs[:, 0], pairs[:, 1]
+    single = b == NONE
+    u = np.arange(4 * n)
+    dst = np.concatenate([u, u[~single]])
+    src = np.concatenate([a, b[~single]])
+    wt = np.concatenate([np.where(single, 1.0, 0.5), np.full(int((~single).sum()), 0.5)])
+    dst, src, wt = _poles_expand(dst, src, wt, [c * hw for c in range(5)],
+                                 [c * hw + hw - 1 for c in range(5)])
+    return _to_csr(dst, src, wt, n, 4 * n, n_taps=1)
+
+
+def _rows_of(offsets, weights):
+    """Per CSR row: its entry count and whether it is one entry of weight 1."""
+    count = np.diff(offsets.astype(np.int64))
+    first = np.minimum(offsets[:-1], max(len(weights) - 1, 0))
+    one = (count == 1) & (weights[first] == 1.0) if len(weights) else count < 0
+    return count, one
+
+
+def phase_dx_codes(h: int, w: int, corner_mode: str, out_phases=(0, 1, 2, 3)):
+    """The bf16 dx GEMM's view of ``phase_dx_table``: (codes, combined rows,
+    tap masks).
+
+    The GEMM reads, for input phase p, tap t and cell m, ONE row of the
+    written cotangent operand (per sample its n_out·5hw cotangent rows
+    ``slot·M + m``, then its combined rows; a zero row after the last
+    sample). ``codes`` (4, 7, M) int32 names it: the cotangent row q where
+    the transposed row t·R + p·M + m is one entry of weight 1, ZERO where it
+    is empty, and n_out·M + j where it is anything else, combined row j.
+    ``comb`` = (offsets (J + 1,), cells, weights) lists each combined row's
+    entries (cotangent rows and their weights, in the CSR's order): the
+    operand pass writes their weighted sum in float32, rounded to bf16 (the
+    stride-1 seams, weights (1, 1), and 10 pole rows, five 0.2 and two 1).
+    ``mask`` (4M / 128,) uint8 holds, per 128-row tile of one sample's
+    4·M GEMM rows, bit t for a tap whose codes in the tile are not all
+    ZERO (the GEMM skips the others), or None where 4·M is not a multiple
+    of 128."""
+    n = 5 * h * w
+    offsets, cells, weights = phase_dx_table(h, w, corner_mode, out_phases)
+    count, one = _rows_of(offsets, weights)
+    comb_rows = np.nonzero((count > 0) & ~one)[0]
+    codes = np.full(7 * 4 * n, ZERO, np.int64)  # CSR row order: t·R + r
+    codes[one] = cells[offsets[:-1][one]]
+    codes[comb_rows] = len(out_phases) * n + np.arange(len(comb_rows))
+    lo, hi = offsets[comb_rows].astype(np.int64), offsets[comb_rows + 1].astype(np.int64)
+    sel = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)]) if len(lo) else \
+        np.zeros(0, np.int64)
+    comb_offsets = np.zeros(len(comb_rows) + 1, np.int64)
+    np.cumsum(hi - lo, out=comb_offsets[1:])
+    codes = codes.reshape(7, 4, n).transpose(1, 0, 2)  # (p, t, m)
+    mask = None
+    if (4 * n) % 128 == 0:
+        live = (codes != ZERO).transpose(1, 0, 2).reshape(7, 4 * n // 128, 128).any(-1)
+        mask = (live * (1 << np.arange(7))[:, None]).sum(0).astype(np.uint8)
+    comb = (comb_offsets.astype(np.int32), cells[sel].astype(np.int32),
+            weights[sel].astype(np.float32))
+    return np.ascontiguousarray(codes, dtype=np.int32), comb, mask
+
+
 _DEVICE_TABLES: dict = {}
 
 
@@ -225,9 +296,9 @@ def device_table(kind: str, h: int, w: int, corner_mode: str, device) -> torch.T
 
 
 def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_phases=None):
-    """A transposed table (``"phase"`` with its out_phases, ``"up"`` or
-    ``"std"``) as (offsets, cells, weights) tensors on ``device``, built once
-    and kept."""
+    """A transposed table (``"phase"`` with its out_phases, ``"up"``, ``"std"``
+    or ``"up_adjoint"``) as (offsets, cells, weights) tensors on ``device``,
+    built once and kept."""
     out_phases = None if out_phases is None else tuple(out_phases)
     key = ("dx", kind, h, w, corner_mode, out_phases, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
@@ -235,7 +306,22 @@ def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_pha
         if kind == "phase":
             arrs = phase_dx_table(h, w, corner_mode, out_phases)
         else:
-            arrs = {"up": up_dx_table, "std": std_dx_table}[kind](h, w, corner_mode)
+            arrs = {"up": up_dx_table, "std": std_dx_table,
+                    "up_adjoint": up_adjoint_table}[kind](h, w, corner_mode)
         t = tuple(torch.from_numpy(a).to(device).contiguous() for a in arrs)
+        _DEVICE_TABLES[key] = t
+    return t
+
+
+def device_dx_codes(h: int, w: int, corner_mode: str, device, out_phases=(0, 1, 2, 3)):
+    """``phase_dx_codes`` on ``device``, built once and kept: (codes, comb
+    offsets, comb cells, comb weights, mask or None, combined rows a
+    sample)."""
+    key = ("codes", h, w, corner_mode, tuple(out_phases), str(torch.device(device)))
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        codes, comb, mask = phase_dx_codes(h, w, corner_mode, tuple(out_phases))
+        t = (*(torch.from_numpy(a).to(device).contiguous() for a in (codes, *comb)),
+             None if mask is None else torch.from_numpy(mask).to(device), len(comb[0]) - 1)
         _DEVICE_TABLES[key] = t
     return t

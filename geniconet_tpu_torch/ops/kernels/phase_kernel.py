@@ -20,15 +20,22 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
 * ``pair_head_mse_fwd`` / ``pair_head_mse_bwd`` -> ``csrc/pair_head.cu``
   (``_phmse`` / ``_phmse_bwd``: the head fused with the AE's position loss);
 * ``phase_conv_dx`` / ``phase_conv_dtaps`` -> ``csrc/phase_conv_bwd.cu``
-  (``_phase_conv_dx`` / ``_phase_conv_dtaps``); in bf16 the dtaps writes the
+  (``_phase_conv_dx`` / ``_phase_conv_dtaps``); in bf16 the dx writes the
+  folded cotangent once with its combined rows (``cot_operand_plain`` says
+  which row is which) and runs the forward's tensor-core GEMM transposed
+  over the rows ``halo.phase_dx_codes`` names, the act adjoint in its
+  epilogue (``csrc/mma_conv_fwd.cuh``), and the dtaps writes the
   act-applied operand once (``grid_operand``, also callable alone, shared
   with the standard conv's dtaps) and runs the tensor-core GEMM over its
-  gathered rows (``csrc/mma_dtaps.cuh``), in float32 the SIMT GEMM;
+  gathered rows (``csrc/mma_dtaps.cuh``); in float32 both the SIMT GEMMs;
 * ``up_dual_conv_dx`` / ``up_dual_conv_dtaps`` -> ``csrc/up_conv_bwd.cu``
-  (the two kernels of ``_upd_bwd``); in bf16 the dtaps builds the upsampled
-  operand once (``up_operand``, also callable alone) and runs a tensor-core
-  GEMM over its gathered rows (``csrc/mma_dtaps.cuh``), in float32 the SIMT
-  GEMM that rebuilds each operand element on load;
+  (the two kernels of ``_upd_bwd``); in bf16 the dx is the stride-1 phase
+  conv's tensor-core dx into the float32 cotangent of the 4 upsampled
+  phases, then the upsample adjoint (``halo.up_adjoint_table``), and the
+  dtaps builds the upsampled operand once (``up_operand``, also callable
+  alone) and runs a tensor-core GEMM over its gathered rows
+  (``csrc/mma_dtaps.cuh``); in float32 the SIMT GEMMs, which rebuild each
+  operand element on load;
 * ``phase_conv_bwd`` -> ``csrc/phase_conv_bwd.cu`` (``_phase_conv_bwd``) and
   ``up_dual_conv_bwd`` -> ``csrc/up_conv_bwd.cu`` (``_upd_bwd``'s merged
   branch): the merged one-pass backward, every output of the split pair
@@ -67,6 +74,7 @@ to the plain PyTorch version beside each wrapper, built from ``ops/phase.py``
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from geniconet_tpu_torch.ops.kernels import build
@@ -74,7 +82,9 @@ from geniconet_tpu_torch.ops.kernels.build import (
     act_apply, check_act, expect, grid_level, on_cuda,
 )
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
-from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
+from geniconet_tpu_torch.ops.kernels.halo import (
+    device_dx_codes, device_dx_table, device_table, phase_dx_codes,
+)
 from geniconet_tpu_torch.ops.pad import chart_mean, ico_pad
 from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, phase_upsample
 
@@ -90,7 +100,7 @@ __all__ = [
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "operand_rows", "up_operand", "up_operand_plain", "up_pair_operand",
     "up_pair_operand_plain", "grid_operand_rows", "grid_operand", "grid_operand_plain",
-    "grid_dtaps_scratch", "fwd_scratch",
+    "grid_dtaps_scratch", "fwd_scratch", "dx_scratch", "cot_operand_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
     "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
@@ -269,6 +279,65 @@ def fwd_scratch(dt, B, h, w, cin, n_sets, cout, n_src, n_out, with_stats, dev):
     return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
 
 
+def _dx_tables(kind, dtype, h, w, corner_mode, dev, out_phases=_ALL):
+    """(the 8 table pointers' tensors of a and c's C entries, combined rows
+    a sample): float32 the transposed CSR (``halo.phase_dx_table``, or
+    ``up_dx_table`` for ``"up"``) and no bf16 tables; bf16 no CSR and
+    ``halo.phase_dx_codes``' code table, combined rows and tap masks."""
+    if dtype != torch.bfloat16:
+        csr = device_dx_table(kind, h, w, corner_mode, dev,
+                              out_phases if kind == "phase" else None)
+        return (*csr, None, None, None, None, None), 0
+    codes, c_off, c_cells, c_w, mask, n_comb = device_dx_codes(h, w, corner_mode, dev,
+                                                               out_phases)
+    return (None, None, None, codes, c_off, c_cells, c_w, mask), n_comb
+
+
+def dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb, with_act, up, dev):
+    """(act partials, cotangent operand, packed taps, dU) of the phase conv's
+    (a) or the up conv's (c, ``up``) dx into C_in channels from n_sets sets
+    of n_out cotangent phases of C_out: float32 the SIMT GEMM's [d_mul |
+    d_add] partials (a row per 64-row tile of each sample) and no scratch;
+    bf16 the tensor-core GEMM's partials (a row per row tile), the written
+    cotangent (``build.cot_operand_shape``, n_comb combined rows a sample),
+    the transposed taps (``build.dx_packed_taps_shape``) and for c the
+    float32 cotangent of the 4 upsampled phases, (B, 4, 5hw, C_in)."""
+    M, ntot = 5 * h * w, n_sets * cout
+    if dt != torch.bfloat16:
+        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev) if with_act else None
+        return red, None, None, None
+    _, row_tiles = build.mma_fwd_grid(B * 4 * M, cin)
+    red = build.scratch(row_tiles * 2 * cin, dev) if with_act else None
+    operand = torch.empty(build.cot_operand_shape(B, n_out * M, n_comb, ntot), dtype=dt,
+                          device=dev)
+    wpack = torch.empty(build.dx_packed_taps_shape(cin, ntot), dtype=dt, device=dev)
+    du = torch.empty((B, 4, M, cin), dtype=torch.float32, device=dev) if up else None
+    return red, operand, wpack, du
+
+
+def cot_operand_plain(g_groups, y_groups=None, gs_list=None, corner_mode="average",
+                      out_phases=_ALL):
+    """Plain version of the dx GEMMs' cotangent operand (a, c; the pass
+    ``csrc/mma.cuh:cot_operand_pass``): per sample the n_out·5hw rows
+    ``slot·M + m`` of g_eff (``geff_plain``), the sets side by side, then its
+    combined rows (``halo.phase_dx_codes``: each the float32 weighted sum of
+    its rows, rounded to g's dtype once), and after the last sample one zero
+    row; the columns padded with zeros to ``build.operand_width``."""
+    g_groups = _fold_groups(g_groups, y_groups, gs_list)
+    B, _, h, w, _ = g_groups[0][0].shape
+    n_out = len(g_groups[0])
+    rows = torch.cat([torch.stack(group, dim=1).reshape(B, n_out * 5 * h * w, -1)
+                      for group in g_groups], dim=-1)
+    _, (offsets, cells, weights), _ = phase_dx_codes(h, w, corner_mode, tuple(out_phases))
+    seg = torch.from_numpy(np.repeat(np.arange(len(offsets) - 1), np.diff(offsets)))
+    terms = rows.float()[:, torch.from_numpy(cells).long()] * torch.from_numpy(weights)[:, None]
+    comb = rows.new_zeros((B, len(offsets) - 1, rows.shape[-1]), dtype=torch.float32)
+    comb = comb.index_add_(1, seg, terms).to(rows.dtype)
+    flat_rows = torch.cat([rows, comb], dim=1).reshape(-1, rows.shape[-1])
+    out = torch.cat([flat_rows, rows.new_zeros((1, rows.shape[-1]))])
+    return torch.nn.functional.pad(out, (0, build.operand_width(rows.shape[-1]) - rows.shape[-1]))
+
+
 def _phase_adjoint(g_groups, tap_sets, corner_mode, out_phases, shape):
     """dL/d(activated input phases), float32, by autograd of the plain conv
     (linear in its input, so the input's values do not matter)."""
@@ -316,7 +385,10 @@ def phase_conv_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=N
     phases, which make the result the cotangent of the raw input
     (dx' · mul · 1{x·mul + add > 0}) and add d_mul, d_add (float32 (C_in,),
     summed over batch and cells). y_groups / gs_list switch on the fold and
-    the Σg_eff outputs. Returns (4 dphases, d_mul, d_add, gsums).
+    the Σg_eff outputs. Returns (4 dphases, d_mul, d_add, gsums). In bf16
+    the cotangent pass, the transposed tap pack and the tensor-core GEMM
+    with the act adjoint in its epilogue (``dx_scratch``), then the sums; in
+    float32 the SIMT gather-GEMM over ``halo.phase_dx_table``.
     """
     out_phases = _check_out_phases(out_phases, "phase_conv_dx")
     g0 = g_groups[0][0]
@@ -335,26 +407,26 @@ def phase_conv_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=N
     if act is not None:
         for i, x in enumerate(raw_phases):
             expect(x, (B, 5, h, w, cin), dtype, dev, f"phase_conv_dx raw phase {i}")
-    M = 5 * h * w
     outs = [torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev) for _ in range(4)]
-    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, out_phases)
+    tables, n_comb = _dx_tables("phase", dtype, h, w, corner_mode, dev, out_phases)
     mul, add = act if act is not None else (None, None)
-    red = dmul = dadd = None
+    red, operand, wpack, _ = dx_scratch(dtype, B, h, w, cin, n_sets, cout, n_out, n_comb,
+                                        act is not None, False, dev)
+    dmul = dadd = None
     if act is not None:
-        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
         dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
     gsum_ws, gsums = (None, [None])
     if y_groups is not None:
-        gsum_ws, gsums = _gsum_outputs(B * n_out * M, n_sets, cout, dev)
+        gsum_ws, gsums = _gsum_outputs(B * n_out * 5 * h * w, n_sets, cout, dev)
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     raws = build.ptr_array(raw_phases) if act is not None else None
     with torch.cuda.device(dev):
         err = build.library().gn_phase_conv_dx(
             gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), raws, build.ptr(mul),
-            build.ptr(add), build.ptr_array(outs), offsets.data_ptr(), cells.data_ptr(),
-            weights.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
+            build.ptr(add), build.ptr_array(outs), *map(build.ptr, tables), build.ptr(operand),
+            build.ptr(wpack), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
             build.ptr(gsum_ws), *_pair(gsums),
-            B, h, w, cin, cout, n_sets, n_out, build.GSUM_ROWS, build.dtype_code(dtype),
+            B, h, w, cin, cout, n_sets, n_out, n_comb, build.GSUM_ROWS, build.dtype_code(dtype),
             build.stream_ptr(dev),
         )
     build.check("phase_conv_dx", err)
@@ -891,7 +963,11 @@ def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_li
                     emit_gsum=False):
     """Input cotangent of the up conv (``_upd_bwd``'s dx kernel): the level-s
     (B, 5, h, w, C_in) dx in ``dtype``, and with ``emit_gsum`` the per-set
-    Σg_eff. Arguments as for ``phase_conv_dx`` (4 phases per set)."""
+    Σg_eff. Arguments as for ``phase_conv_dx`` (4 phases per set). In bf16
+    the stride-1 phase conv's tensor-core dx GEMM over the 4 upsampled
+    phases into float32 dU (``dx_scratch``), then the upsample and level-s
+    pad adjoint (``halo.up_adjoint_table``), rounded once; in float32 the
+    SIMT gather-GEMM over the composed ``halo.up_dx_table``."""
     g0 = g_groups[0][0]
     if not on_cuda(g0, "up_dual_conv_dx"):
         return up_dual_conv_dx_plain(g_groups, tap_sets, corner_mode, dtype, y_groups, gs_list,
@@ -906,16 +982,21 @@ def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_li
                       "up_dual_conv_dx")
     _check_sets(tap_sets, cin, dtype, dev, "up_dual_conv_dx")
     dx = torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev)
-    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
+    tables, n_comb = _dx_tables("up", dtype, h, w, corner_mode, dev)
+    _, operand, wpack, du = dx_scratch(dtype, B, h, w, cin, n_sets, cout, 4, n_comb, False,
+                                       True, dev)
+    adjoint = ((None,) * 3 if dtype != torch.bfloat16
+               else device_dx_table("up_adjoint", h, w, corner_mode, dev))
     gsum_ws, gsums = (_gsum_outputs(B * 4 * 5 * h * w, n_sets, cout, dev) if emit_gsum
                       else (None, [None]))
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_dx(
             gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), dx.data_ptr(),
-            offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(), build.ptr(gsum_ws),
-            *_pair(gsums), B, h, w, cin, cout, n_sets, build.GSUM_ROWS,
-            build.dtype_code(dtype), build.stream_ptr(dev),
+            *map(build.ptr, tables), *map(build.ptr, adjoint), build.ptr(operand),
+            build.ptr(wpack), build.ptr(du), build.ptr(gsum_ws), *_pair(gsums),
+            B, h, w, cin, cout, n_sets, n_comb, build.GSUM_ROWS, build.dtype_code(dtype),
+            build.stream_ptr(dev),
         )
     build.check("up_dual_conv_dx", err)
     build.LAUNCHES["up_dual_conv_dx"] += 1

@@ -11,8 +11,10 @@ and the grid convs' dtaps (b, ``phase_conv_dtaps``, at conv_in, up2's
 conv01 and down1's stride-2 conv; f, ``ico_conv_s2s_dtaps``, at down1's
 conv01) and the grid convs' forward (``phase_conv_fwd`` at conv_in, up1's
 and up2's conv01 and down1's stride-2 conv; ``ico_conv_s2s_fwd`` at
-down1's conv01; with stats, and once without), and prints one line per
-call: ``digest <kernel> <dtype> <case>
+down1's conv01; with stats, and once without), and the input gradients
+(a, ``phase_conv_dx``, at up2's conv01, down1's and down2's stride-2 conv;
+c, ``up_dual_conv_dx``, at up1; f's, m's and n's dx at down1 / up1), and
+prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -136,6 +138,53 @@ def main():
                 (0.3 * torch.randn(256, generator=gen)).to("cuda"))
         line("ico_conv_s2s_fwd", dt, "down1_conv01+stats",
              lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a256, True))
+    for dt in (torch.bfloat16, torch.float32):
+        # the SIMT and tensor-core input gradients, after the lines above (a
+        # generator of their own): a (phase_conv_dx) at up2's conv01 and
+        # down1's stride-2 conv, with the act, and at down2's without it; c
+        # (up_dual_conv_dx) at up1; f, m and n's dx at down1
+        gen = torch.Generator().manual_seed(13)
+        for case, (h, w, cin, cout, n_sets, out_phases, with_act) in {
+                "up2_conv01": (16, 32, 64, 64, 1, (0, 1, 2, 3), True),
+                "down1_s2": (8, 16, 128, 256, 2, (2,), True),
+                "down2_s2_no_act": (4, 8, 256, 256, 2, (2,), False)}.items():
+            a = ((torch.rand(cin, generator=gen).add(0.5).to("cuda"),
+                  (0.3 * torch.randn(cin, generator=gen)).to("cuda")) if with_act else None)
+            ph = [rnd(gen, B, 5, h, w, cin, dt=dt) for _ in range(4)]
+            sets = [(rnd(gen, 7, cin, cout, dt=dt, scale=cin**-0.5), None) for _ in range(n_sets)]
+            g = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            y = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            gs = [rnd(gen, 2, cout, dt=torch.float32, scale=1e-3) for _ in range(n_sets)]
+            line("phase_conv_dx", dt, case,
+                 lambda: pk.phase_conv_dx(g, sets, "average", out_phases, cin, dt, a,
+                                          ph if a else None, y, gs))
+        sets = [(rnd(gen, 7, 256, 128, dt=dt, scale=256**-0.5), None) for _ in range(2)]
+        g = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 128, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        line("up_dual_conv_dx", dt, "up1",
+             lambda: pk.up_dual_conv_dx(g, sets, "average", dt, y, gs, True))
+        x, g, y = (rnd(gen, B, 5, 8, 16, 256, dt=dt) for _ in range(3))
+        t = rnd(gen, 7, 256, 256, dt=dt, scale=256**-0.5)
+        gs = rnd(gen, 2, 256, dt=torch.float32, scale=1e-3)
+        a256 = (torch.rand(256, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(256, generator=gen)).to("cuda"))
+        line("ico_conv_s2s_dx", dt, "down1_conv01",
+             lambda: ck.ico_conv_s2s_dx(g, t, "average", dt, a256, x, y, gs, True))
+        ph = [rnd(gen, B, 5, 16, 32, 128, dt=dt) for _ in range(4)]
+        msets = [(rnd(gen, 7, 128, 256, dt=dt, scale=128**-0.5), None) for _ in range(2)]
+        g = [[rnd(gen, B, 5, 8, 16, 256, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 8, 16, 256, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 256, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        line("ds2s_dx", dt, "down1",
+             lambda: pk.ds2s_dx(g, msets, "average", 128, dt, None, None, y_groups=y,
+                                gs_list=gs))
+        b0 = [rnd(gen, B, 5, 4, 8, 256, dt=dt) for _ in range(4)]
+        y10 = [rnd(gen, B, 5, 4, 8, 256, dt=dt) for _ in range(4)]
+        aff = [a256[0], a256[1], a256[0], a256[1]]
+        g = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        line("up_pair_dx", dt, "up1",
+             lambda: pk.up_pair_dx(g, b0, y10, aff, sets, "average", emit_gsum=True))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,11 @@ synthetic meshes with seeded random weights, on the default routing and, for
 the AE, on the merged backward (``merged_bwd="all"``), the decoder's chain
 (``phase_chain="dec"``) and both chains (``"1"``), and prints per model and
 routing: ``torch.cuda.max_memory_allocated()`` over the steps (after
-``reset_peak_memory_stats``) and the median host-clock step time,
-synchronised. Then serves the AE in bf16 (``AppState`` on 32 synthetic
+``reset_peak_memory_stats``), the median host-clock step time,
+synchronised, the median time ``train_step`` takes to return (the host's
+enqueue, before the synchronise), and the device busy time a step (the
+union of the device events of a ``torch.profiler`` trace of 3 steps) with
+the idle share 1 - busy / step. Then serves the AE in bf16 (``AppState`` on 32 synthetic
 meshes) and prints the p50 host-clock latency of ``decode_latent`` (one
 mesh, latent in, vertices out) over ``--requests`` requests after 10, and
 the median CUDA-event time of encode+decode at B=16 over 20 after 3
@@ -64,20 +67,46 @@ def main():
         tr.train_step(st, x, y, wt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times = []
+        times, returns = [], []
         for _ in range(args.steps):
             t0 = time.perf_counter()
             tr.train_step(st, x, y, wt)
+            returns.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
+        step = statistics.median(times)
+        busy = device_busy_ms(lambda: tr.train_step(st, x, y, wt), 3)
         print(f"[step memory] {args.root} {model} {routing or 'default'} bf16 B=36: peak "
               f"max_memory_allocated {peak} bytes ({peak / 2**20:.1f} MiB); step "
-              f"{statistics.median(times):.3f} ms (median of {args.steps}, host clock, "
-              f"synchronised) [{card}]", flush=True)
+              f"{step:.3f} ms (median of {args.steps}, host clock, synchronised), "
+              f"train_step returns after {statistics.median(returns):.3f} ms (host enqueue); "
+              f"device busy {busy:.3f} ms a step (trace of 3), idle share "
+              f"{1 - busy / step:.4f} [{card}]", flush=True)
         del tr, st
         torch.cuda.empty_cache()
     serving(args, card)
+
+
+def device_busy_ms(fn, iters):
+    """Device busy time per call of fn(): the union of the kernel, memcpy and
+    memset intervals of a torch.profiler trace of ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 / iters
 
 
 def serving(args, card):

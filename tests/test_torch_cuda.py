@@ -559,7 +559,10 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     so m's outputs are within one bf16 ulp of max|ref| (``_within_ulp``;
     the stats, sums of outputs that differ by such roundings, within TOL),
     the dtaps within 1e-4·max|ref| (float32 noise) and Σg_eff (one pass for
-    both) is equal."""
+    both) is equal; likewise the phase conv's bf16 dx runs the tensor-core
+    GEMM and m's the SIMT one, so m's dx is within one bf16 ulp of max|ref|,
+    d_mul and d_add within TOL and Σg_eff (the same fixed-order pass over
+    the same folded values) equal."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
     for a in (act, None):
@@ -581,8 +584,13 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
         fkm = dict(y_groups=_merge(y), gs_list=gs) if fold else {}
         raw = phases if a else None
         got = pk.ds2s_dx(g, sets, corner_mode, 12, dt, a, raw, **fk)
-        _equal_all(got, pk.phase_conv_dx(_merge(g), sets, corner_mode, (2,), 12, dt, a, raw,
-                                         **fkm))
+        ref = pk.phase_conv_dx(_merge(g), sets, corner_mode, (2,), 12, dt, a, raw, **fkm)
+        if dt == torch.float32:
+            _equal_all(got, ref)
+        else:  # bf16 a runs the tensor-core GEMM, m the SIMT tile
+            _within_ulp(got[0], ref[0])
+            _close_all(got[1:3], ref[1:3], dt)
+            _equal_all(got[3:], ref[3:])
         _close_all(got, pk.ds2s_dx_plain(g, sets, corner_mode, 12, dt, a, raw, **fk), dt)
         got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, a, **fk, emit_gsum=True)
         ref = pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a, **fkm,
@@ -1591,3 +1599,194 @@ def test_mma_grid_fwd_occupancy(cuda):
         for stats in (False, True):
             info = build.grid_fwd_info(std, stats)
             assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (std, stats, info)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 input gradients of the phase conv (a) and the up conv (c) on the
+# tensor cores: the folded cotangent written once with its combined rows,
+# then the forward's GEMM over a transposed code table (c: into float32 dU,
+# then the upsample adjoint)
+# ---------------------------------------------------------------------------
+
+# a and c at the s=5 models' shapes: (kernel, cotangent h, w, C_in, C_out,
+# tap sets, output phases, act): up0-2 conv01 (stride 1, act); down0-2's
+# stride-2 convs (act at down0; down1-2 with and without, as the AE runs
+# them); the VAE's heads; the up convs up0-2 and the VAE's up0
+GRID_DX = {
+    "up0 conv01": ("a", 4, 8, 256, 256, 1, (0, 1, 2, 3), True),
+    "up1 conv01": ("a", 8, 16, 128, 128, 1, (0, 1, 2, 3), True),
+    "up2 conv01": ("a", 16, 32, 64, 64, 1, (0, 1, 2, 3), True),
+    "down0 s2": ("a", 16, 32, 64, 128, 2, (2,), True),
+    "down1 s2": ("a", 8, 16, 128, 256, 2, (2,), True),
+    "down1 s2 (no act)": ("a", 8, 16, 128, 256, 2, (2,), False),
+    "down2 s2": ("a", 4, 8, 256, 256, 2, (2,), True),
+    "down2 s2 (no act)": ("a", 4, 8, 256, 256, 2, (2,), False),
+    "VAE heads": ("a", 4, 8, 256, 512, 2, (2,), False),
+    "up0": ("c", 4, 8, 256, 256, 2, (0, 1, 2, 3), False),
+    "up1": ("c", 8, 16, 256, 128, 2, (0, 1, 2, 3), False),
+    "up2": ("c", 16, 32, 128, 64, 2, (0, 1, 2, 3), False),
+    "VAE up0": ("c", 4, 8, 512, 256, 2, (0, 1, 2, 3), False),
+}
+
+
+def _dx_calls(cuda, case, fold, corner_mode="average", seed=0):
+    """(kernel call, plain call, wrapper name) of a's or c's dx at a
+    GRID_DX-shaped case, bf16, B=2 (Σg_eff with the fold, and always for c)."""
+    kernel, h, w, cin, cout, n_sets, out_phases, with_act = case
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    sets = [((torch.randn(7, cin, cout, generator=gen) * (7 * cin) ** -0.5).to(cuda, dt), None)
+            for _ in range(n_sets)]
+
+    def group():
+        return [[torch.randn(2, 5, h, w, cout, generator=gen).to(cuda, dt) for _ in out_phases]
+                for _ in range(n_sets)]
+
+    g = group()
+    fk = dict(y_groups=group(), gs_list=[(1e-3 * torch.randn(2, cout, generator=gen)).to(cuda)
+                                         for _ in range(n_sets)]) if fold else {}
+    if kernel == "c":
+        args = (g, sets, corner_mode, dt)
+        return (lambda: pk.up_dual_conv_dx(*args, **fk, emit_gsum=True),
+                lambda: pk.up_dual_conv_dx_plain(*args, **fk, emit_gsum=True), "up_dual_conv_dx")
+    act = ((torch.rand(cin, generator=gen) + 0.5).to(cuda),
+           (0.3 * torch.randn(cin, generator=gen)).to(cuda)) if with_act else None
+    raw = [torch.randn(2, 5, h, w, cin, generator=gen).to(cuda, dt) for _ in range(4)]
+    args = (g, sets, corner_mode, out_phases, cin, dt, act, raw if with_act else None)
+    return (lambda: pk.phase_conv_dx(*args, **fk), lambda: pk.phase_conv_dx_plain(*args, **fk),
+            "phase_conv_dx")
+
+
+def _check_dx(got, ref):
+    """dx within one bf16 ulp of max|ref| (``_within_ulp``: the products are
+    exact, both sides sum in float32 in two orders and round once; the
+    combined rows round their few-term sums once more, well inside); d_mul,
+    d_add and Σg_eff (float32 sums) within TOL."""
+    dx, ref_dx = (got[0], ref[0])
+    assert all(bool(torch.isfinite(t).all()) for t in _flat_all(dx))
+    _within_ulp(dx, ref_dx)
+    _close_all(got[1:], ref[1:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("site", list(GRID_DX))
+def test_mma_dx_at_the_model_widths(cuda, site, fold):
+    """a and c in bf16 at every site of the s=5 AE and VAE (B=2), with the
+    stats fold and without, against their plain versions (``_check_dx``).
+    One launch of the wrapper each."""
+    call, plain, name = _dx_calls(cuda, GRID_DX[site], fold, seed=len(site))
+    build.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 1}
+    _check_dx(got, plain())
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("cin, cout", [(12, 20), (20, 9), (100, 24), (5, 64)])
+@pytest.mark.parametrize("kind", ["a s1", "a s2", "c"])
+def test_mma_dx_ragged_widths(cuda, kind, cin, cout, corner_mode):
+    """a and c in bf16 at widths the model has not: C_in 5 and 100 (an odd
+    and a ragged epilogue), C_out 9 and 20 (the cotangent pass channel by
+    channel; two sets in one 32-column K step), at levels 1 and 3 (no tap
+    masks at level 1: 4·5hw = 160 rows), with and without the act and the
+    fold, against the plain versions (``_check_dx``)."""
+    n_sets, out_phases = {"a s1": (1, (0, 1, 2, 3)), "a s2": (2, (2,)),
+                          "c": (2, (0, 1, 2, 3))}[kind]
+    for s, with_act, fold in ((3, True, True), (1, False, False)):
+        case = (kind[0], 2**s, 2 ** (s + 1), cin, cout, n_sets, out_phases, with_act)
+        call, plain, _ = _dx_calls(cuda, case, fold, corner_mode, cin + cout + s)
+        _check_dx(call(), plain())
+
+
+def test_mma_dx_has_no_fallback(cuda):
+    """A bf16 call of a or c whose cotangent operand, packed taps, dU or code
+    table is missing raises (the C entry refuses it) rather than running the
+    SIMT dx_gemm."""
+    from unittest import mock
+
+    def without(i, fn):
+        def wrapped(*args, **kwargs):
+            out = list(fn(*args, **kwargs))
+            if isinstance(out[0], tuple):  # _dx_tables: (pointers, combined rows)
+                out[0] = tuple(None if j == i else t for j, t in enumerate(out[0]))
+            else:
+                out[i] = None
+            return tuple(out)
+        return wrapped
+
+    for site, name, drops in (("up2 conv01", "phase_conv_dx", (1, 2)),
+                              ("up2", "up_dual_conv_dx", (1, 2, 3))):
+        call = _dx_calls(cuda, GRID_DX[site], True)[0]
+        for i in drops:  # the operand, the packed taps, dU
+            with mock.patch.object(pk, "dx_scratch", without(i, pk.dx_scratch)):
+                with pytest.raises(RuntimeError, match=name):
+                    call()
+        with mock.patch.object(pk, "_dx_tables", without(3, pk._dx_tables)):  # the codes
+            with pytest.raises(RuntimeError, match=name):
+                call()
+
+
+def test_mma_dx_occupancy(cuda):
+    """Each instantiation of the dx GEMM (a with the act epilogue and
+    without, c) fits 2 blocks an SM with no local memory (no spill)."""
+    for up, act in ((False, True), (False, False), (True, False)):
+        info = build.mma_dx_info(up, act)
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (up, act, info)
+
+
+def _dx_kernel_names(fn):
+    """Kernel name -> launches in a profiler trace of fn()."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events() if e.device_type.name == "CUDA")
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_mma_dx(cuda, model):
+    """A bf16 training step of the default route with the tensor-core dx of
+    the phase conv (a) and the up conv (c). In the step, every call of the
+    two wrappers agrees with its plain version on that call's own inputs
+    (``_check_dx``); against the same step with both patched to their plain
+    versions on the card tensors, the loss within 1e-2 of its value (the
+    gradients are not compared: see ``test_bf16_step_with_the_mma_grid_fwd``).
+    A trace of the step shows the tensor-core GEMM once a call of a and of
+    c, and the SIMT dx_gemm<bf16> only for the standard conv's dx (f)."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    calls = []
+
+    def checked(kernel, plain):
+        def fn(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            calls.append((got, plain(*args, **kwargs)))
+            return got
+        return fn
+
+    with mock.patch.object(fused, "phase_conv_dx",
+                           checked(pk.phase_conv_dx, pk.phase_conv_dx_plain)), \
+            mock.patch.object(fused, "up_dual_conv_dx",
+                              checked(pk.up_dual_conv_dx, pk.up_dual_conv_dx_plain)):
+        loss, launches, grads = _bf16_step(cuda, model)
+    vae = model == "ico2ico_vae"
+    assert launches["phase_conv_dx"] == 6 and launches["up_dual_conv_dx"] == 3
+    assert len(calls) == 9
+    for got, ref in calls:
+        _check_dx(got, ref)
+    plain = ("phase_conv_dx", "up_dual_conv_dx")
+    ref_loss, ref_launches, _ = _bf16_step(cuda, model, plain=plain)
+    assert not set(plain) & set(ref_launches)
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    names = _dx_kernel_names(lambda: _bf16_step(cuda, model))
+    count = {k: sum(n for name, n in names.items() if all(p in name for p in k))
+             for k in (("mma_conv", "DxEpi"), ("mma_conv", "DuEpi"), ("dx_gemm", "bfloat16"))}
+    assert count[("mma_conv", "DxEpi")] == 6 and count[("mma_conv", "DuEpi")] == 3, count
+    assert count[("dx_gemm", "bfloat16")] == (2 if vae else 3), count

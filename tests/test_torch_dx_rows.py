@@ -1,0 +1,398 @@
+"""The bf16 tensor-core input gradients of the phase conv (a) and the up conv
+(c), as their GEMM formulates them, on the CPU; and the tables and scratch
+at the s=5 model shapes.
+
+``_rows_dx`` replays in plain PyTorch what ``csrc/mma_conv_fwd.cuh`` (the
+dx GEMM with a's and c's epilogues), ``csrc/mma.cuh:cot_operand_pass`` and
+``csrc/up_conv_bwd.cu:up_adjoint_pass`` compute: the written cotangent
+(``cot_operand_plain``: per sample the n_out·5hw rows of g_eff, the sets
+side by side, then the combined rows, each a weighted sum rounded once; a
+zero row after the last sample); GEMM row q = (sample, input phase, cell)
+sums, over the taps of its 128-row tile's mask, the operand row that
+``halo.phase_dx_codes`` names (a cotangent row, a combined row or the zero
+row) times the tap sets packed transposed ((7, Kp, Np): row n of tap t is
+column n's set, transposed); then a's epilogues (rounded once; with the
+act, the act adjoint against the raw phases and d_mul, d_add) or c's
+(float32 dU of the 4 upsampled phases, then ``halo.up_adjoint_table``'s
+adjoint, rounded once). Σg_eff is the column sum of the operand's
+cotangent rows. It is held against ``phase_conv_dx_plain`` and
+``up_dual_conv_dx_plain`` at s=1-4, both corner modes, act on and off, fold
+on and off, 1 and 2 tap sets, output phases (0, 1, 2, 3) and (2,), odd
+C_in, in float32 (1e-5·max|ref|: only the order of the float32 sums
+differs) and bfloat16 (2e-2·max|ref|: the combined rows and the float32
+sums round at other points), and against the JAX package's
+``fused_phase_conv_s1``, ``fused_dual_s2_conv`` and ``fused_up_dual_conv``
+VJPs in Pallas interpret mode at one tiny shape (float32, 1e-5). Inputs
+come from numpy seeds.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import sparse
+
+from geniconet_tpu.ops.pallas import phase_kernel as jpk
+from geniconet_tpu_torch.ops.kernels import build, halo
+from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+MODES = ["average", "zeros"]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+OUT_PHASES = {"s1": (0, 1, 2, 3), "s2": (2,)}
+
+
+@pytest.fixture
+def interpret():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _packed_taps_t(tap_sets, cin):
+    """The tap sets transposed and stacked along K, as the kernel's pack
+    writes them: (7, Kp, Np) float32, row n of tap t = set n // C_out's
+    column n % C_out over the C_in channels, zeros past the sets' columns
+    and past C_in."""
+    cout = tap_sets[0][0].shape[-1]
+    ntot = len(tap_sets) * cout
+    rows, cols = build.dx_packed_taps_shape(cin, ntot)
+    packed = torch.zeros(7, rows // 7, cols)
+    for s, (taps, _) in enumerate(tap_sets):
+        packed[:, s * cout : (s + 1) * cout, :cin] = taps.float().transpose(1, 2)
+    return packed
+
+
+def _gemm(rows, h, w, corner_mode, out_phases, tap_sets, cin):
+    """The dx GEMM over a written operand ``rows`` (as ``cot_operand_plain``
+    lays it out): (B, 4, M, C_in) float32, GEMM row (sample, input phase,
+    cell) summing, over the taps of its row tile's mask, the operand row
+    the code table names times the transposed taps."""
+    M, n_out = 5 * h * w, len(out_phases)
+    codes, comb, mask = halo.phase_dx_codes(h, w, corner_mode, out_phases)
+    per = n_out * M + len(comb[0]) - 1
+    B = (rows.shape[0] - 1) // per
+    cout = tap_sets[0][0].shape[-1]
+    assert rows.shape == build.cot_operand_shape(B, n_out * M, per - n_out * M,
+                                                 len(tap_sets) * cout)
+    code = torch.from_numpy(codes).long()  # (4, 7, M): a row, a combined row or ZERO
+    assert bool(((code >= 0) | (code == halo.ZERO)).all()) and int(code.max()) < per
+    base = (torch.arange(B) * per).view(B, 1, 1, 1)
+    idx = torch.where(code >= 0, base + code, torch.tensor(B * per))
+    gathered = rows.float()[idx]  # (B, 4, 7, M, width)
+    if mask is not None:  # a row tile reads only its mask's taps
+        live = torch.tensor([[(int(m) >> t) & 1 for m in mask] for t in range(7)], dtype=torch.bool)
+        live = live.repeat_interleave(128, dim=1).view(7, 4, M).transpose(0, 1)  # (4, 7, M)
+        assert not bool(((code != halo.ZERO) & ~live).any())
+        gathered = gathered * live[None, ..., None]
+    packed = _packed_taps_t(tap_sets, cin)[:, : rows.shape[1]]  # (7, width, Np)
+    return torch.einsum("bptmn,tnk->bpmk", gathered, packed)[..., :cin]
+
+
+def _up_adjoint(acc, h, w, corner_mode):
+    """c's second step: the (B, 4, M, C_in) float32 dU gathered through
+    ``halo.up_adjoint_table`` into the level-s (B, M, C_in), float32."""
+    B, _, M, cin = acc.shape
+    offsets, cells, weights = (torch.from_numpy(a) for a in halo.up_adjoint_table(
+        h, w, corner_mode))
+    seg = torch.repeat_interleave(torch.arange(M), torch.diff(offsets.long()))
+    terms = acc.reshape(B, 4 * M, cin)[:, cells.long()] * weights[:, None]
+    return torch.zeros(B, M, cin).index_add_(1, seg, terms)
+
+
+def _rows_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=None, raw=None,
+             y_groups=None, gs_list=None, up=False):
+    """The GEMM's formulation: a's (4 dphases, d_mul, d_add, Σg_eff) or, with
+    ``up``, c's (level-s dx, Σg_eff), as ``phase_conv_dx`` and
+    ``up_dual_conv_dx`` return them."""
+    B, _, h, w, cout = g_groups[0][0].shape
+    M, n_out = 5 * h * w, len(out_phases)
+    rows = pk.cot_operand_plain(g_groups, y_groups, gs_list, corner_mode, out_phases)
+    acc = _gemm(rows, h, w, corner_mode, out_phases, tap_sets, cin)  # (B, 4, M, C_in)
+    cot = rows[:-1].view(B, -1, rows.shape[1])[:, : n_out * M].float()
+    gsums = [cot[..., s * cout : (s + 1) * cout].sum(dim=(0, 1)) for s in range(len(tap_sets))]
+    if up:  # dU of the 4 upsampled phases, then the upsample and level-s pad adjoint
+        return _up_adjoint(acc, h, w, corner_mode).to(dtype).view(B, 5, h, w, cin), gsums
+    gsums = gsums if y_groups is not None else None
+    if act is None:
+        return tuple(acc[:, p].to(dtype).view(B, 5, h, w, cin) for p in range(4)), None, None, \
+            gsums
+    mul, add = act
+    x = torch.stack([r.float().reshape(B, M, cin) for r in raw], dim=1)
+    dm = acc * (x * mul + add > 0.0).float()
+    out = (dm * mul).to(dtype)
+    return (tuple(out[:, p].view(B, 5, h, w, cin) for p in range(4)),
+            (dm * x).sum(dim=(0, 1, 2)), dm.sum(dim=(0, 1, 2)), gsums)
+
+
+def _close(got, ref, tol):
+    got, ref = (t.float() if isinstance(t, torch.Tensor) else torch.from_numpy(
+        np.array(t, np.float32)) for t in (got, ref))
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+def _close_tree(got, ref, tol):
+    if ref is None:
+        assert got is None
+    elif isinstance(ref, (tuple, list)):
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            _close_tree(a, b, tol)
+    else:
+        _close(got, ref, tol)
+
+
+class _Case:
+    """Seeded numpy inputs at level s, B=2: cotangents, their forward outputs
+    and stats cotangents, tap sets, act and raw phases."""
+
+    def __init__(self, seed, s, cin, cout, dtype):
+        self.r = np.random.RandomState(seed)
+        self.h, self.w, self.cin, self.cout, self.dt = 2**s, 2 ** (s + 1), cin, cout, dtype
+
+    def t(self, a, dt=None):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dt or self.dt)
+
+    def grid(self, c):
+        return self.t(self.r.randn(2, 5, self.h, self.w, c))
+
+    def groups(self, n_sets, n_out):
+        return [[self.grid(self.cout) for _ in range(n_out)] for _ in range(n_sets)]
+
+    def gs(self, n_sets):
+        return [self.t(1e-3 * self.r.randn(2, self.cout), torch.float32) for _ in range(n_sets)]
+
+    def sets(self, n, cin=None):
+        cin = cin or self.cin
+        return [(self.t(self.r.randn(7, cin, self.cout) * (7 * cin) ** -0.5), None)
+                for _ in range(n)]
+
+    def act(self):
+        return (self.t(self.r.uniform(0.5, 1.5, self.cin), torch.float32),
+                self.t(0.3 * self.r.randn(self.cin), torch.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("stride", list(OUT_PHASES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 3, 4), (2, 5, 8), (3, 12, 20), (4, 16, 9)])
+def test_rows_dx_is_the_phase_conv_dx(s, cin, cout, corner_mode, stride, dtype):
+    """The formulation is ``phase_conv_dx_plain``: dphases, d_mul, d_add and
+    Σg_eff, for 1 and 2 tap sets, with the act and the fold on and off."""
+    dt, out_phases = DTYPES[dtype], OUT_PHASES[stride]
+    c = _Case(10 * s + cin, s, cin, cout, dt)
+    n_out = len(out_phases)
+    raw = [c.grid(cin) for _ in range(4)]
+    for n_sets, with_act, fold in ((1, True, True), (2, False, True), (2, True, False),
+                                   (1, False, False)):
+        g, sets = c.groups(n_sets, n_out), c.sets(n_sets)
+        fk = dict(y_groups=c.groups(n_sets, n_out), gs_list=c.gs(n_sets)) if fold else {}
+        act = c.act() if with_act else None
+        args = (g, sets, corner_mode, out_phases, cin, dt, act, raw if with_act else None)
+        got = _rows_dx(*args, **fk)
+        assert all(t.dtype == dt for t in got[0])
+        _close_tree(got, pk.phase_conv_dx_plain(*args, **fk), TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 5, 4), (2, 12, 8), (3, 7, 20), (4, 16, 12)])
+def test_rows_dx_is_the_up_conv_dx(s, cin, cout, corner_mode, dtype):
+    """With c's epilogue (float32 dU, then the upsample adjoint) the
+    formulation over the stride-1 tables is ``up_dual_conv_dx_plain``: dx
+    and Σg_eff, with the fold and without."""
+    dt = DTYPES[dtype]
+    c = _Case(50 + 10 * s + cin, s, cin, cout, dt)
+    for fold in (True, False):
+        g, sets = c.groups(2, 4), c.sets(2)
+        fk = dict(y_groups=c.groups(2, 4), gs_list=c.gs(2)) if fold else {}
+        got = _rows_dx(g, sets, corner_mode, (0, 1, 2, 3), cin, dt, up=True, **fk)
+        assert got[0].dtype == dt
+        ref = pk.up_dual_conv_dx_plain(g, sets, corner_mode, dt, emit_gsum=True, **fk)
+        _close_tree(got, ref, TOL[dt])
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_up_adjoint_is_the_composed_table(s, corner_mode):
+    """c's two steps compose to the SIMT kernel's one table: the stride-1
+    phase-conv transpose (``phase_dx_table``) followed by
+    ``up_adjoint_table`` has the entries and weights of ``up_dx_table``."""
+    h, w = 2**s, 2 ** (s + 1)
+    M = 5 * h * w
+
+    def csr(offsets, cells, weights, cols):
+        return sparse.csr_matrix((weights.astype(np.float64), cells, offsets),
+                                 shape=(len(offsets) - 1, cols))
+
+    conv = csr(*halo.phase_dx_table(h, w, corner_mode), 4 * M)  # rows t·4M + u
+    adj = csr(*halo.up_adjoint_table(h, w, corner_mode), 4 * M)  # rows r, columns u
+    composed = sparse.vstack([adj @ conv[t * 4 * M : (t + 1) * 4 * M] for t in range(7)])
+    ref = csr(*halo.up_dx_table(h, w, corner_mode), 4 * M)
+    assert abs(composed - ref).max() < 1e-6
+
+
+def _j(tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_j(a) for a in tree)
+    return None if tree is None else jnp.asarray(tree.numpy())
+
+
+def test_rows_dx_matches_pallas(interpret):
+    """The formulation against the VJPs of the JAX package's three convs with
+    stats in interpret mode, at a level-1 grid, B=2, float32, the fold on:
+    ``fused_phase_conv_s1`` with the act (dphases, d_mul, d_add),
+    ``fused_dual_s2_conv`` (two sets, output phase 2, with the act) and
+    ``fused_up_dual_conv`` (dx), each with its bias gradient Σg_eff."""
+    c = _Case(70, 1, 3, 4, torch.float32)
+    phases = [c.grid(3) for _ in range(4)]
+    (ta, _), (tb, _) = c.sets(2)
+    ba, bb = (c.t(c.r.randn(4)) for _ in range(2))
+    mul, add = c.act()
+    jph, jta, jtb, jba, jbb = _j(phases), *_j([ta, tb, ba, bb])
+    jmul, jadd = _j([mul, add])
+
+    def s1(ph, m, a, bias):
+        return jpk.fused_phase_conv_s1(ph, jta, bias, "average", act=(m, a), with_stats=True)
+
+    def s2(ph, m, a, b0, b1):
+        return jpk.fused_dual_s2_conv(ph, jta, b0, jtb, b1, "average", act=(m, a),
+                                      with_stats=True)
+
+    spies = [mock.patch.object(jpk, "_pc_dx_kernel", wraps=jpk._pc_dx_kernel),
+             mock.patch.object(jpk, "_up_dx_kernel", wraps=jpk._up_dx_kernel)]
+    with spies[0] as pc_spy, spies[1] as up_spy:
+        (y, st), vjp = jax.vjp(s1, jph, jmul, jadd, jba)
+        g, gs = c.groups(1, 4), c.gs(1)
+        dph, dmul, dadd, dbias = vjp((_j(tuple(g[0])), _j(gs[0])))
+        got = _rows_dx(g, [(ta, None)], "average", (0, 1, 2, 3), 3, torch.float32, (mul, add),
+                       phases, [[torch.from_numpy(np.array(v)) for v in y]], gs)
+        _close_tree(got, (dph, dmul, dadd, [dbias]), 1e-5)
+
+        (ya, yb, sa, sb), vjp = jax.vjp(s2, jph, jmul, jadd, jba, jbb)
+        g, gs = c.groups(2, 1), c.gs(2)
+        dph, dmul, dadd, dba, dbb = vjp((*_j([g[0][0], g[1][0], gs[0], gs[1]]),))
+        y = [[torch.from_numpy(np.array(ya))], [torch.from_numpy(np.array(yb))]]
+        got = _rows_dx(g, [(ta, None), (tb, None)], "average", (2,), 3, torch.float32,
+                       (mul, add), phases, y, gs)
+        _close_tree(got, (dph, dmul, dadd, [dba, dbb]), 1e-5)
+
+        x = c.grid(3)
+        (ya, yb, sa, sb), vjp = jax.vjp(
+            lambda x, b0, b1: jpk.fused_up_dual_conv(x, jta, b0, jtb, b1, "average",
+                                                     with_stats=True), _j(x), jba, jbb)
+        g, gs = c.groups(2, 4), c.gs(2)
+        dx, dba, dbb = vjp((_j(tuple(g[0])), _j(tuple(g[1])), _j(gs[0]), _j(gs[1])))
+        y = [[torch.from_numpy(np.array(v)) for v in ys] for ys in (ya, yb)]
+        got = _rows_dx(g, [(ta, None), (tb, None)], "average", (0, 1, 2, 3), 3, torch.float32,
+                       y_groups=y, gs_list=gs, up=True)
+        _close_tree(got, (dx, [dba, dbb]), 1e-5)
+    assert pc_spy.call_count >= 2 and up_spy.called
+
+
+# The dx calls of the s=5 models: (cotangent h, w, C_in, C_out, tap sets,
+# output phases, up conv), and per sample the combined rows and the active
+# (tile, tap) pairs of the 128-row tiles over 7 taps
+MODEL_DX = {
+    "up0 conv01": (4, 8, 256, 256, 1, (0, 1, 2, 3), False),
+    "up1 conv01": (8, 16, 128, 128, 1, (0, 1, 2, 3), False),
+    "up2 conv01": (16, 32, 64, 64, 1, (0, 1, 2, 3), False),
+    "down0 s2": (16, 32, 64, 128, 2, (2,), False),
+    "down1 s2": (8, 16, 128, 256, 2, (2,), False),
+    "down2 s2": (4, 8, 256, 256, 2, (2,), False),
+    "VAE heads": (4, 8, 256, 512, 2, (2,), False),
+    "up0": (4, 8, 256, 256, 2, (0, 1, 2, 3), True),
+    "up1": (8, 16, 256, 128, 2, (0, 1, 2, 3), True),
+    "up2": (16, 32, 128, 64, 2, (0, 1, 2, 3), True),
+    "VAE up0": (4, 8, 512, 256, 2, (0, 1, 2, 3), True),
+}
+TABLE_FACTS = {  # (h, w, output phases) -> (combined rows a sample, active / all tap steps)
+    (16, 32, (0, 1, 2, 3)): (640, 560, 560), (8, 16, (0, 1, 2, 3)): (320, 140, 140),
+    (4, 8, (0, 1, 2, 3)): (160, 35, 35), (16, 32, (2,)): (0, 190, 560),
+    (8, 16, (2,)): (0, 55, 140), (4, 8, (2,)): (0, 20, 35),
+}
+
+
+@pytest.mark.parametrize("key", list(TABLE_FACTS))
+def test_code_table_facts_at_s5(key):
+    """At the s=5 grids: the stride-1 tables' combined rows (640, 320, 160 a
+    sample: seams of weights (1, 1), and 10 pole rows of five 0.2 and two
+    1), none at stride 2; the tap steps the masks keep (every one at stride
+    1; at stride 2 190 of 560, 55 of 140 and 20 of 35)."""
+    h, w, out_phases = key
+    n_comb, active, steps = TABLE_FACTS[key]
+    codes, (offsets, cells, weights), mask = halo.phase_dx_codes(h, w, "average", out_phases)
+    assert codes.shape == (4, 7, 5 * h * w) and codes.dtype == np.int32
+    assert len(offsets) - 1 == n_comb
+    kinds = {}
+    for j in range(n_comb):
+        key_w = tuple(sorted(round(float(v), 6) for v in weights[offsets[j] : offsets[j + 1]]))
+        kinds[key_w] = kinds.get(key_w, 0) + 1
+    if n_comb:
+        assert kinds == {(1.0, 1.0): n_comb - 10, (0.2,) * 5 + (1.0, 1.0): 10}
+    assert len(mask) * 7 == steps and sum(bin(int(m)).count("1") for m in mask) == active
+
+
+@pytest.mark.parametrize("site", [k for k, v in MODEL_DX.items() if len(v[5]) == 4])
+def test_combined_rows_move_dx_under_half_an_ulp(site):
+    """The one rounding the bf16 GEMM adds: each combined row's weighted sum
+    rounded to bf16 once, where the SIMT kernel kept it in float32. The GEMM
+    is linear, so that rounding moves the float32 dx (before its last
+    rounding) by the GEMM of (rounded - exact combined rows) alone, through
+    a's act adjoint or c's upsample adjoint. At every stride-1 site of the
+    s=5 models (the stride-2 convs have no combined rows), B=2, seeded bf16
+    cotangents with the stats fold, the move stays under half a bf16 ulp of
+    max|dx| (2^-8·max|dx|; the card tests hold the whole kernel to one)."""
+    h, w, cin, cout, n_sets, out_phases, up = MODEL_DX[site]
+    c = _Case(90 + cin, int(np.log2(h)), cin, cout, torch.bfloat16)
+    g, sets = c.groups(n_sets, 4), c.sets(n_sets)
+    g_eff = pk._fold_groups(g, c.groups(n_sets, 4), c.gs(n_sets))  # bf16, as the pass folds
+    exact = pk.cot_operand_plain([[t.float() for t in grp] for grp in g_eff])
+    rounded = pk.cot_operand_plain(g_eff).float()
+    exact_b, rounded_b = (r[:-1].view(2, -1, r.shape[1]) for r in (exact, rounded))
+    assert torch.equal(rounded_b[:, : 4 * 5 * h * w], exact_b[:, : 4 * 5 * h * w])  # cot rows
+    dx, move = (_gemm(r, h, w, "average", out_phases, sets, cin) for r in (exact, rounded - exact))
+    if up:
+        dx, move = _up_adjoint(dx, h, w, "average"), _up_adjoint(move, h, w, "average")
+    else:  # the act adjoint is linear in the sums, given the mask
+        mul, add = c.act()
+        x = torch.stack([c.grid(cin).float().reshape(2, -1, cin) for _ in range(4)], dim=1)
+        live = (x * mul + add > 0).float() * mul
+        dx, move = dx * live, move * live
+    ulps = move.abs().max().item() / (2**-7 * dx.abs().max().item())
+    print(f"{site}: the combined rows' rounding moves dx by {ulps:.4f} bf16 ulp of max|dx|")
+    assert 0 < ulps < 0.5, ulps
+
+
+@pytest.mark.parametrize("site", list(MODEL_DX))
+def test_dx_scratch_at_the_model_shapes(site):
+    """``dx_scratch`` at B=36 (bf16): the cotangent operand (cotangent rows
+    and combined rows a sample, a zero row; the sets' columns rounded up to
+    8), the transposed taps, the act partials a row tile, c's float32 dU;
+    and the largest (up2: dU 36·4·2560·128·4 B = 189 MB, the operand 100
+    MB, 94 of them cotangent rows); float32 takes the SIMT partials and no
+    scratch."""
+    h, w, cin, cout, n_sets, out_phases, up = MODEL_DX[site]
+    B, M, ntot, n_out = 36, 5 * h * w, n_sets * cout, len(out_phases)
+    n_comb = TABLE_FACTS[(h, w, out_phases)][0]
+    red, operand, wpack, du = pk.dx_scratch(torch.bfloat16, B, h, w, cin, n_sets, cout, n_out,
+                                            n_comb, not up, up, "meta")
+    assert operand.shape == (B * (n_out * M + n_comb) + 1, -(-ntot // 8) * 8)
+    assert wpack.shape == (7 * -(-ntot // 32) * 32, -(-cin // 128) * 128)
+    assert operand.dtype == wpack.dtype == torch.bfloat16
+    if up:
+        assert red is None and du.shape == (B, 4, M, cin) and du.dtype == torch.float32
+    else:
+        assert du is None and red.shape == (-(-B * 4 * M // 128) * 2 * cin,)
+    if site == "up2":
+        assert du.numel() * 4 == 188_743_680 and operand.numel() * 2 == 100_270_336
+    red, operand, wpack, du = pk.dx_scratch(torch.float32, B, h, w, cin, n_sets, cout, n_out,
+                                            n_comb, True, up, "meta")
+    assert operand is None and wpack is None and du is None
+    assert red.shape == (B * build.n_tiles(4 * M) * 2 * cin,)

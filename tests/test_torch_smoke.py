@@ -83,7 +83,7 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
                                "(anonymous namespace)::HeadIn<__nv_bfloat16>)"},
      "phead_bwd (head bwd, kernel e)"),
     ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16>(gn::GLoad<__nv_bfloat16>)"},
-     "dx_gemm<bf16>"),
+     "dx_gemm<bf16> (f)"),
     ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::UpLoad<float> >"},
      "dtaps_gemm<fp32, UpLoad>"),
     ({"cat": "kernel", "name": "void gn::sum_rows<gn::SplitOut>"},
@@ -152,6 +152,45 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::conv_gemm<__nv_bfloat16, gn::GridLoad<__nv_bfloat16, "
                                "false>, true>"},
      "conv_gemm<bf16, GridLoad, split> (m)"),
+    # the one GEMM template's forward (FwdEpi) and dx (a: DxEpi, c: DuEpi)
+    # instantiations, a's and c's cotangent passes, tap packs and c's
+    # upsample adjoint; the SIMT dx tiles of m, n and the float32 a, c, f
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::PhaseGrid, gn::FwdEpi<true> >"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::FwdEpi<true>, int)"},
+     "mma_conv_fwd<bf16> (b)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::GridCells<__nv_bfloat16>, "
+                               "gn::FwdEpi<false> >(gn::OperandRows)"},
+     "mma_conv_fwd<bf16> (up conv)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::PhaseGrid, gn::DxEpi<true> >"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::DxEpi<true>, int)"},
+     "mma_conv_dx<bf16> (a)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::GridCells<__nv_bfloat16>, gn::DuEpi>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::DuEpi, int)"},
+     "mma_conv_dx<bf16> (c)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::PhaseGrid>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (a)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::GridCells<__nv_bfloat16> >"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (c)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::PhaseGrid>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (a)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::GridCells<"
+                               "__nv_bfloat16> >(__nv_bfloat16 const*)"},
+     "pack_taps (c)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::up_adjoint_pass(float const*, "
+                               "int const*, int const*, float const*, __nv_bfloat16*)"},
+     "up_adjoint_pass (c)"),
+    ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16, gn::GLoad<__nv_bfloat16, true>, "
+                               "gn::DxOut<__nv_bfloat16> >"},
+     "dx_gemm<bf16, split> (m)"),
+    ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16, gn::GLoad<__nv_bfloat16, false>, "
+                               "gn::DxPairOut<__nv_bfloat16> >"},
+     "dx_gemm<bf16, pair> (n)"),
+    ({"cat": "kernel", "name": "void gn::dx_gemm<float, gn::GLoad<float, false>, "
+                               "gn::DxOut<float> >"},
+     "dx_gemm<fp32>"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
@@ -210,3 +249,31 @@ def test_device_launches_of_the_grid_dtaps(groups, launches, ok):
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_device_launches("t", _groups(**groups), launches, 5)
+
+
+_DX = {"cot_operand_pass<bf16> (a)": 30, "mma_conv_dx<bf16> (a)": 30,
+       "cot_operand_pass<bf16> (c)": 15, "mma_conv_dx<bf16> (c)": 15,
+       "up_adjoint_pass (c)": 15, "dx_gemm<bf16> (f)": 15}
+_DX_CALLS = {"phase_conv_dx": 6.0, "up_dual_conv_dx": 3.0, "ico_conv_s2s_dx": 3.0}
+
+
+@pytest.mark.parametrize("drop, add, ok", [
+    ((), {}, True),                                # a default bf16 step
+    (("mma_conv_dx<bf16> (a)",), {}, False),       # a without its GEMM
+    (("cot_operand_pass<bf16> (c)",), {}, False),  # c without its pass
+    (("up_adjoint_pass (c)",), {}, False),         # c without its adjoint
+    ((), {"dx_gemm<bf16> (f)": 45}, False),        # the SIMT dx for a (or c)
+    (("dx_gemm<bf16> (f)",), {}, False),           # f's dx missing
+    ((), {"dx_gemm<bf16, split> (m)": 15}, True),  # m's SIMT dx has its own row
+])
+def test_device_launches_of_the_dx(drop, add, ok):
+    """``check_device_launches`` over 5 profiled iterations of a bf16 step:
+    every call of a and c shows its cotangent pass and ``mma_conv_dx`` (c
+    also its upsample adjoint), and the SIMT ``dx_gemm<bf16>`` runs for f's
+    calls alone."""
+    groups = {k: v for k, v in {**_DX, **add}.items() if k not in drop}
+    if ok:
+        chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
