@@ -52,12 +52,14 @@ printed on its own lines, each fatal on failure:
    with stats) and cuDNN's two contractions. The bf16 forward of the up
    conv and of n (serving and training shapes), their dtaps (d, n's),
    the grid convs' forward and dtaps (b, f; a C_in of at most 64 on the
-   dtaps' NARROW tile) and the phase conv's and up conv's dx (a, c) also
-   print their parts from a trace: the operand pass (a's and c's: the
-   folded cotangent with its combined rows) against its byte bound, the
-   tap pack, the tensor-core GEMM's TFLOP/s, the sums, c's upsample
-   adjoint pass against its byte bound, and the GEMM's registers and
-   blocks an SM;
+   dtaps' NARROW tile) and the phase conv's, up conv's and standard
+   conv's dx (a, c, f) also print their parts from a trace: the operand
+   pass (a's, c's and f's: the folded cotangent with its combined rows)
+   against its byte bound, the tap pack, the tensor-core GEMM's TFLOP/s,
+   the sums, c's upsample adjoint pass against its byte bound, and the
+   GEMM's registers and blocks an SM; the pair head's backward (e, h)
+   prints its main pass's achieved GB/s against its byte bound, h's pole
+   pass and the partial rows' sum;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -90,11 +92,11 @@ printed on its own lines, each fatal on failure:
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
-   convs' forward and dtaps (b, f) and of a's and c's dx must show its
-   operand pass and tensor-core GEMM there (c also its upsample adjoint),
-   the SIMT ``dx_gemm<bf16>`` run for f's dx calls alone, and no window
-   the SIMT ``conv_gemm<bf16, GridLoad>`` or ``dtaps_gemm<bf16,
-   GridLoad>``; the Chrome traces are kept in ``build/profile/``.
+   convs' forward and dtaps (b, f) and of a's, c's and f's dx must show
+   its operand pass and tensor-core GEMM there (c also its upsample
+   adjoint), and no window the SIMT ``dx_gemm<bf16>``, ``conv_gemm<bf16,
+   GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are
+   kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches on the serving and training paths (AE and VAE summed, and per
@@ -193,7 +195,8 @@ KERNELS = {
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
 # the grid convs' forward and dtaps (the grid convs' dtaps: b, f) and the
-# phase conv's and the up conv's dx (a, c) run an operand pass of
+# phase conv's, the up conv's and the standard conv's dx (a, c, f) run an
+# operand pass of
 # csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
 # csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
@@ -202,7 +205,8 @@ SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
                         "ico_conv_s2s_dtaps")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
-                        "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx")}}
+                        "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
+                        "ico_conv_s2s_dx")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -392,9 +396,10 @@ class Case:
     merged block's two convs; ``split_keys`` name them in the results and
     ``split_labels`` in the print), and other calls to time beside it
     (``compare``: label -> call). ``short``: the kernel is timed from a
-    profiler trace (``trace_ms``). ``parts``: a call that returns the bf16
-    kernel's parts from a trace (``mma_parts``: the up conv's, n's and the
-    grid convs' forward, d's, n's, b's and f's dtaps)."""
+    profiler trace (``trace_ms``). ``parts``: a call that returns the
+    kernel's parts from a trace (``mma_parts``, bf16: the up conv's, n's
+    and the grid convs' forward, d's, n's, b's and f's dtaps, a's, c's and
+    f's dx; ``head_parts``: the pair head's backward, e and h)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -433,6 +438,20 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None):
     return parts
 
 
+def head_parts(call, inputs):
+    """The pair head backward's parts (e, h) from a trace: its main pass
+    (the achieved GB/s of the bytes it must move, each input read once and
+    each output written once, against its byte bound), h's pole pass and
+    the partial rows' sum."""
+    rows = trace_kernels(call, per_launch=True)
+    nbytes = sum(t.numel() * t.element_size() for t in flat(inputs) + flat(call()))
+    main = sum(ms for k, ms in rows.items() if "phead_bwd" in k or "phmse_bwd" in k)
+    return {"head_ms": main, "head_gbs": nbytes / main / 1e6 if main else 0.0,
+            "head_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "poles_ms": sum(ms for k, ms in rows.items() if k.startswith("phmse (")),
+            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows"))}
+
+
 def up_operand(B, h, w, cin):
     """(rows, width) of the up conv's (and n's) operand of a level-s grid."""
     from geniconet_tpu_torch.ops.kernels import build
@@ -442,12 +461,15 @@ def up_operand(B, h, w, cin):
 
 
 def dx_operand(B, h, w, ntot, out_phases):
-    """(rows, width) of a's and c's cotangent operand at (B, h, w) for
-    ``ntot`` columns of the cotangents of ``out_phases``."""
+    """(rows, width) of a's, c's and f's cotangent operand at (B, h, w) for
+    ``ntot`` columns of the cotangents of ``out_phases`` (None: f's one
+    grid, ``halo.std_dx_codes``)."""
     from geniconet_tpu_torch.ops.kernels import build, halo
 
-    n_comb = len(halo.phase_dx_codes(h, w, "average", tuple(out_phases))[1][0]) - 1
-    return build.cot_operand_shape(B, len(out_phases) * 5 * h * w, n_comb, ntot)
+    codes = (halo.std_dx_codes(h, w, "average") if out_phases is None
+             else halo.phase_dx_codes(h, w, "average", tuple(out_phases)))
+    n_out = 1 if out_phases is None else len(out_phases)
+    return build.cot_operand_shape(B, n_out * 5 * h * w, len(codes[1][0]) - 1, ntot)
 
 
 def grid_parts(call, flops, inputs, B, h, w, cin, n_src, info):
@@ -866,9 +888,12 @@ def training_cases():
             lib = cudnn(which, gen, dt, B * 5, c, c, h + 2, w + 2)
             if which == "dx":
                 args = (g, t, "average", dt, a, x, y, gs, True)
-                return Case(lambda: ck.ico_conv_s2s_dx(*args),
-                            lambda: ck.ico_conv_s2s_dx_plain(*args), flops, [g, t, a, x, y, gs],
-                            lib)
+                call = lambda: ck.ico_conv_s2s_dx(*args)  # noqa: E731
+                parts = (lambda: mma_parts(call, flops, [g, y, gs], dx_operand(B, h, w, c, None),
+                                           build.mma_dx_info(False, True, std=True))
+                         ) if dt == torch.bfloat16 else None
+                return Case(call, lambda: ck.ico_conv_s2s_dx_plain(*args), flops,
+                            [g, t, a, x, y, gs], lib, parts=parts)
             args = (x, g, "average", a, y, gs)
             call = lambda: ck.ico_conv_s2s_dtaps(*args)  # noqa: E731
             info = (build.grid_dtaps_info(True, True, build.mma_narrow(c))
@@ -893,9 +918,10 @@ def training_cases():
                             lambda: pk.pair_head_mse_fwd_plain(*args),
                             head_flops(B, h, w, c, 3), args)
             g = torch.rand(B, generator=gen, device="cuda")
-            return Case(lambda: pk.pair_head_mse_bwd(g, *args),
-                        lambda: pk.pair_head_mse_bwd_plain(g, *args),
-                        head_flops(B, h, w, c, 3, backward=True), [g, *args])
+            call = lambda: pk.pair_head_mse_bwd(g, *args)  # noqa: E731
+            return Case(call, lambda: pk.pair_head_mse_bwd_plain(g, *args),
+                        head_flops(B, h, w, c, 3, backward=True), [g, *args],
+                        parts=lambda: head_parts(call, [g, *args]))
         return make
 
     def head_bwd(h, w, c):
@@ -906,8 +932,10 @@ def training_cases():
             W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt, scale=0.1)
             g = tuple(_rnd(gen, B, 5, h, w, 3) for _ in range(4))
             args = (g, b0, y10, aff, W, bias)
-            return Case(lambda: pk.pair_head_bwd(*args), lambda: pk.pair_head_bwd_plain(*args),
-                        head_flops(B, h, w, c, 3, backward=True), args)
+            call = lambda: pk.pair_head_bwd(*args)  # noqa: E731
+            return Case(call, lambda: pk.pair_head_bwd_plain(*args),
+                        head_flops(B, h, w, c, 3, backward=True), args,
+                        parts=lambda: head_parts(call, args))
         return make
 
     def merged_bwd(kind, h, w, cin, cout, n_sets=1, out_phases=(0, 1, 2, 3), with_act=True):
@@ -1202,8 +1230,14 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
                                      f"{TOL[dt]} x {scale} (finite={finite})")
-            if case.parts is not None:
-                p = case.parts()
+            p = case.parts() if case.parts is not None else None
+            if p is not None and "head_ms" in p:
+                print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): main "
+                      f"pass {p['head_ms']:.4f} ms = {p['head_gbs']:.1f} GB/s (bound "
+                      f"{p['head_bound_ms']:.4f} ms, bytes, at {PEAK_BYTES / 1e9:.0f} GB/s), "
+                      f"pole pass {p['poles_ms']:.4f} ms, partial rows' sum {p['sum_ms']:.4f} "
+                      f"ms; whole call {ms:.4f} ms [{card}]", flush=True)
+            elif p is not None:
                 pack = f"tap pack {p['pack_ms']:.4f} ms, " if p["pack_ms"] else ""
                 if "adjoint_ms" in p:
                     pack += (f"upsample adjoint pass {p['adjoint_ms']:.4f} ms (bound "
@@ -1216,7 +1250,8 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                       f"ms against cuDNN {lib_ms:.4f} ms; GEMM {p['registers']} registers a "
                       f"thread, {p['blocks_per_sm']} blocks an SM, {p['smem_bytes']} B shared, "
                       f"{p['local_bytes']} B local [{card}]", flush=True)
-                stats[name].setdefault("parts", {})[label] = p
+            if p is not None:
+                stats[name].setdefault("parts", {})[f"{label} {tag}"] = p
             stats[name]["max_abs_err"] = max([stats[name]["max_abs_err"]] + [e for e, _ in errs])
             if dt == torch.bfloat16:
                 for s in (stats[name], stats[name]["by_shapes"].setdefault(group, sums())):
@@ -1378,8 +1413,9 @@ def kernel_group(event: dict) -> str:
     pair = "PairCells" in name
     which = "(n)" if pair else "(d)"
     grid = "(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name else None
-    # the dx of a and c: by Tag the phase conv's (a) or the up conv's (c)
-    dx = "(a)" if "PhaseGrid" in name else "(c)"
+    # the dx of a, c and f: by Tag the phase conv's (a), the standard
+    # conv's (f) or the up conv's (c)
+    dx = "(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name else "(c)"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "grid_operand_pass" in name:
@@ -1391,7 +1427,7 @@ def kernel_group(event: dict) -> str:
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv" in name and ("DxEpi" in name or "DuEpi" in name):
-        return f"mma_conv_dx<bf16> {'(a)' if 'DxEpi' in name else '(c)'}"
+        return f"mma_conv_dx<bf16> {dx}"
     if "mma_conv" in name:  # the forwards' GEMM (mma_conv with FwdEpi)
         return f"mma_conv_fwd<bf16> {grid or ('(n)' if pair else '(up conv)')}"
     if "pack_taps_t" in name:
@@ -1408,8 +1444,8 @@ def kernel_group(event: dict) -> str:
         # the float32 phase_conv_fwd and ico_conv_s2s_fwd share the GridLoad
         # instantiation; in bf16 they run mma_conv_fwd (b), (f)
         return f"conv_gemm<{dtype}, {loader}{split}"
-    if "dx_gemm" in name:  # in bf16 a and c run mma_conv_dx: the plain tile is f's
-        return f"dx_gemm<{dtype}{split}" + (" (f)" if dtype == "bf16" and split == ">" else "")
+    if "dx_gemm" in name:  # in bf16 a, c and f run mma_conv_dx
+        return f"dx_gemm<{dtype}{split}"
     if "dtaps_gemm" in name:
         return f"dtaps_gemm<{dtype}, {loader}{split}"
     if "stats_geff" in name:
@@ -1424,8 +1460,10 @@ def kernel_group(event: dict) -> str:
         return "pair_head_kernel"
     if "phead_bwd" in name:
         return "phead_bwd (head bwd, kernel e)"
+    if "phmse_bwd" in name:
+        return "phmse_bwd (head+MSE bwd, kernel h)"
     if "phmse" in name:
-        return "phmse (head+MSE fwd/bwd)"
+        return "phmse (head+MSE fwd, poles)"
     if any(k in name.lower() for k in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
         return "cuDNN / cuBLAS (plain route)"
     return "PyTorch ops"
@@ -1505,9 +1543,9 @@ def device_profile(workloads, card: str):
 # its tensor-core GEMM (the forward's or the dtaps')
 GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
              "(f)": ("ico_conv_s2s_fwd", "ico_conv_s2s_dtaps")}
-# ... and of the bf16 dx of a and c: each call's cotangent pass and GEMM
-# (and c's upsample adjoint), by wrapper
-DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx"}
+# ... and of the bf16 dx of a, c and f: each call's cotangent pass and
+# GEMM (and c's upsample adjoint), by wrapper
+DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx", "(f)": "ico_conv_s2s_dx"}
 
 
 def check_device_launches(tag, groups, launches, iters):
@@ -1515,13 +1553,12 @@ def check_device_launches(tag, groups, launches, iters):
     forward and dtaps (``launches``, wrapper calls an iteration) ran their
     operand pass (one a call of either) and their tensor-core GEMM
     (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), and each call of
-    a and c its cotangent pass and ``mma_conv_dx`` (c also its upsample
+    a, c and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
     adjoint): each row present where its wrappers ran, and at most once a
-    call (a trace may lose events, never add them); the SIMT
-    ``dx_gemm<bf16>`` no more often than f's dx calls (so never for a or
-    c); and no launch of the SIMT ``conv_gemm<bf16, GridLoad>`` or
-    ``dtaps_gemm<bf16, GridLoad>`` (m's split store and loader, o's and
-    p's tiles have rows of their own)."""
+    call (a trace may lose events, never add them); and no launch of the
+    SIMT ``dx_gemm<bf16>``, ``conv_gemm<bf16, GridLoad>`` or
+    ``dtaps_gemm<bf16, GridLoad>`` (m's split store and loader, n's pair
+    dx, o's and p's tiles have rows of their own)."""
     def check(row, calls, wrappers):
         n = groups[row][0] / iters if row in groups else 0
         if (calls > 0) != (n > 0) or n > calls:
@@ -1538,10 +1575,7 @@ def check_device_launches(tag, groups, launches, iters):
         check(f"cot_operand_pass<bf16> {which}", n_dx, (dx,))
         check(f"mma_conv_dx<bf16> {which}", n_dx, (dx,))
     check("up_adjoint_pass (c)", launches.get("up_dual_conv_dx", 0), ("up_dual_conv_dx",))
-    # the SIMT dx tile in bf16 is f's alone: a and c launching it would
-    # outnumber f's calls
-    check("dx_gemm<bf16> (f)", launches.get("ico_conv_s2s_dx", 0), ("ico_conv_s2s_dx",))
-    for simt in ("conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>"):
+    for simt in ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>"):
         if simt in groups:
             raise AssertionError(f"profile {tag}: the SIMT {simt} ran")
 

@@ -11,25 +11,47 @@
 // backward of GENICONET_MERGED_BWD's std family (stride 1).
 //
 // Design. The Pallas dx kernel scatters the conv transpose into a padded
-// VMEM buffer and then runs the exact transpose of the ico_pad halo. Here dx
-// is a gather, as for the phase conv (phase_conv_bwd.cu): the transposed
+// VMEM buffer and then runs the exact transpose of the ico_pad halo. Blocks
+// on the card run in no order, so dx is a gather instead: the transposed
 // table halo.std_dx_table lists, for each input cell and tap, the output
 // cells that read it with their weights (1, or 0.2 for each of the 5 cells
-// of a pole mean), and the dx GEMM's operand element sums those rows of g.
-// The act adjoint runs in the epilogue, after the halo transpose, since the
-// pole means are means of activated values. dtaps reduces over the B * 5hw
-// rows in chunks; the fixed-order second pass writes the sum rounded to the
-// activation dtype (the Pallas wrapper's out.astype(x.dtype)). In float32
-// it re-gathers the activated forward operand through the forward table on
-// the SIMT core; in bf16 it writes that operand once (the act-applied grid
-// and each sample's two pole rows) and runs gn::mma_dtaps on the tensor
-// cores over its gathered rows (mma_dtaps.cuh, which also says what bounds
-// it). No atomics: every result is the same from run to run.
+// of a pole mean). The act adjoint runs after the halo transpose, since the
+// pole means are means of activated values.
+// * float32 keeps the SIMT gather-GEMM (gn::dx_gemm, backward.cuh): each
+//   operand element sums its table row's entries of g_eff.
+// * bf16 runs the transposed problem on the tensor cores, as the phase
+//   conv's dx (a) does, with one input grid (n_in = 1): cot_operand_pass
+//   (mma.cuh, tag StdGrid) writes g_eff = g + gs0 + 2 gs1 y once with
+//   GLoad's roundings, per sample its 5hw cotangent rows and then its
+//   combined rows (a transposed row that is not one weight-1 read: the
+//   chart seams, weights (1, 1), and the 10 pole rows, five 0.2 and two 1;
+//   320 / 160 / 80 a sample at (16,32) / (8,16) / (4,8), its float32 sum
+//   rounded to bf16 once), then a zero row; pack_taps_t stacks the taps
+//   transposed; gn::mma_conv with DxEpi (mma_conv_fwd.cuh: mma.sync
+//   m16n8k16 over a 4-stage cp.async ring, a ZERO code zero-filled) reads,
+//   for each of the B * 5hw rows and each tap, the one operand row that
+//   halo.std_dx_codes' (1, 7, M) code table names, and applies the act
+//   adjoint with the d_mul/d_add column partials in its epilogue; Σg_eff
+//   sums the written cotangent rows (launch_gsum's order: the values the
+//   fold gave). A sample's rows straddle 128-row tiles at (4,8) (M = 160),
+//   where there is no tap mask; each GEMM row finds its own sample.
+// dtaps reduces over the B * 5hw rows in chunks; the fixed-order second
+// pass writes the sum rounded to the activation dtype (the Pallas
+// wrapper's out.astype(x.dtype)). In float32 it re-gathers the activated
+// forward operand through the forward table on the SIMT core; in bf16 it
+// writes that operand once (the act-applied grid and each sample's two
+// pole rows) and runs gn::mma_dtaps on the tensor cores over its gathered
+// rows (mma_dtaps.cuh, which also says what bounds it). No atomics: every
+// result is the same from run to run.
 //
-// What bounds dx (and float32 dtaps) on the card: the float32 FMA rate of
-// the SIMT GEMM core, 2 * 7 * C_in * C_out FLOPs per cell for each of dx
-// and dtaps (at the DownBlocks' conv01 shapes, B=36: 1.3-5.3 GFLOP a call),
-// against (2-3) * B * 5hw * C bytes of g, x and dx.
+// What bounds dx on the card: 2 * 7 * C_in * C_out FLOPs per cell (at the
+// DownBlocks' conv01 shapes, B=36: 21.1, 21.1 and 5.3 GFLOP, 0.048 ms at
+// 989 bf16 TFLOP/s) against the bytes of g, y, x and dx read or written
+// once (0.055 ms at 3.35 TB/s): the two bounds are within 15%, so a bf16
+// call is held by the GEMM's rate (the ring runs 100-250 TFLOP/s) and by
+// filling the card ((4,8) at C_in 256 gives 90 blocks, under one wave of
+// 132 SMs), plus the cotangent pass's bytes; float32 by the SIMT core's
+// FMA rate, 7-12 TFLOP/s.
 //
 // The merged kernel is gn::merged_bwd (backward.cuh): dx tiles over
 // halo.std_dx_table with the act adjoint and d_mul/d_add partials, dtaps
@@ -39,6 +61,7 @@
 // activation dtype); the two roles each read g (see phase_conv_bwd.cu).
 #include <type_traits>
 
+#include "mma_conv_fwd.cuh"
 #include "mma_dtaps.cuh"
 
 namespace {
@@ -59,25 +82,49 @@ gn::GLoad<T> gload(const void* g, const void* y, const float* gs, int M, int cou
   return gn::make_gload<T>(gp, y ? yp : nullptr, gs, nullptr, M, cout, 1, 1);
 }
 
+// float32: the SIMT gather-GEMM over halo.std_dx_table; bf16: the folded
+// cotangent written once, then the tensor-core GEMM over the rows
+// halo.std_dx_codes names (mma_conv_fwd.cuh), the act adjoint in its
+// epilogue, one input grid (n_in = 1).
 template <typename T>
 cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, const void* raw,
                const float* mul, const float* add, void* out, const int* offsets,
-               const int* cells, const float* weights, float* red, float* dmul, float* dadd,
-               float* gsum_ws, float* gsum, int B, int h, int w, int cin, int cout,
-               int gsum_rows, cudaStream_t stream) {
+               const int* cells, const float* weights, const gn::DxTables& tb, float* red,
+               float* dmul, float* dadd, float* gsum_ws, float* gsum, int B, int h, int w,
+               int cin, int cout, int gsum_rows, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
-  gn::DxOut<T> o = {};
-  o.out[0] = static_cast<T*>(out);
-  o.raw[0] = mul ? static_cast<const T*>(raw) : nullptr;
-  o.mul = mul;
-  o.add = add;
-  o.red = red;
-  o.per = M;
-  cudaError_t err = gn::launch_dx_gemm<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul,
-                                          dadd, B, M, cin, 1, stream);
-  if (err != cudaSuccess || gsum_ws == nullptr) return err;
-  return gn::launch_gsum<T>(gl, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
+  if constexpr (std::is_same_v<T, float>) {
+    gn::DxOut<T> o = {};
+    o.out[0] = static_cast<T*>(out);
+    o.raw[0] = mul ? static_cast<const T*>(raw) : nullptr;
+    o.mul = mul;
+    o.add = add;
+    o.red = red;
+    o.per = M;
+    cudaError_t err = gn::launch_dx_gemm<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul,
+                                            dadd, B, M, cin, 1, stream);
+    if (err != cudaSuccess || gsum_ws == nullptr) return err;
+    return gn::launch_gsum<T>(gl, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
+  } else {
+    // every table and scratch buffer, or no launch: the mask exactly where
+    // a sample's M rows fill whole 128-row tiles
+    if ((tb.comb.n > 0 && (tb.comb.offsets == nullptr || tb.comb.cells == nullptr ||
+                           tb.comb.weights == nullptr)) ||
+        (tb.mask == nullptr) != (M % gn::fwd::BM != 0) ||
+        (mul != nullptr && (raw == nullptr || red == nullptr)))
+      return cudaErrorInvalidValue;
+    gn::DxRows rows = {};
+    rows.out[0] = static_cast<T*>(out);
+    rows.raw[0] = mul ? static_cast<const T*>(raw) : nullptr;
+    rows.mul = mul;
+    rows.add = add;
+    rows.red = red;
+    rows.cin = cin;
+    return gn::launch_grid_cot_dx<gn::StdGrid>(gl, tb, rows, static_cast<const T*>(taps),
+                                               nullptr, gsum_ws, gsum, nullptr, dmul, dadd, B, 1,
+                                               gsum_rows, stream);
+  }
 }
 
 // float32: the SIMT GEMM over GridLoad; bf16: the operand pass into
@@ -147,25 +194,44 @@ cudaError_t merged(const void* x, const float* mul, const float* add, const void
 // g: (B, 5, h, w, cout) cotangent; y: null (no fold) or the forward output
 // (B, 5, h, w, cout), with gs the (2, cout) float32 stats cotangent; taps:
 // (7, cin, cout); raw: null (no act) or the raw input (B, 5, h, w, cin),
-// with mul/add float32 (cin); out: dx (B, 5, h, w, cin);
-// offsets/cells/weights: halo.std_dx_table; red: with act, float32 scratch
-// of (B * ceil(5hw/64), 2 * cin), and dmul/dadd receive (cin) each; gsum_ws:
-// null, or scratch of (ceil(B * 5hw / gsum_rows), cout), and gsum receives
-// Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
+// with mul/add float32 (cin); out: dx (B, 5, h, w, cin). float32:
+// offsets/cells/weights, halo.std_dx_table; red, with act, float32 scratch
+// of (B * ceil(5hw/64), 2 * cin). bfloat16 (else the call is refused):
+// codes, comb_offsets/comb_cells/comb_weights (n_comb combined rows a
+// sample) and tap_mask (a byte per 128 rows of one sample's 5hw; null
+// exactly where 5hw is not a multiple of 128) from halo.std_dx_codes;
+// operand, scratch of (B * (5hw + n_comb) + 1, cout rounded up to 8);
+// wpack, of (7 * (cout rounded up to 32), cin rounded up to 128); red,
+// with act, float32 scratch of (ceil(B * 5hw / 128), 2 * cin). dmul/dadd
+// receive (cin) each with act; gsum_ws: null, or scratch of (ceil(B * 5hw
+// / gsum_rows), cout), and gsum receives Σg_eff (cout). dtype: 0 float32,
+// 1 bfloat16.
 extern "C" int gn_ico_conv_dx(const void* g, const void* y, const float* gs, const void* taps,
                               const void* raw, const float* mul, const float* add, void* out,
                               const int* offsets, const int* cells, const float* weights,
-                              float* red, float* dmul, float* dadd, float* gsum_ws, float* gsum,
-                              int B, int h, int w, int cin, int cout, int gsum_rows, int dtype,
-                              void* stream) {
+                              const int* codes, const int* comb_offsets, const int* comb_cells,
+                              const float* comb_weights, const unsigned char* tap_mask,
+                              void* operand, void* wpack, float* red, float* dmul, float* dadd,
+                              float* gsum_ws, float* gsum, int B, int h, int w, int cin, int cout,
+                              int n_comb, int gsum_rows, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<__nv_bfloat16*>(operand),
+                           static_cast<__nv_bfloat16*>(wpack), 1};
   if (dtype == 0)
-    return dx<float>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, red, dmul,
+    return dx<float>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, tb, red, dmul,
                      dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
   if (dtype == 1)
-    return dx<__nv_bfloat16>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, red,
-                             dmul, dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
+    return dx<__nv_bfloat16>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, tb,
+                             red, dmul, dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of f's bf16 dx GEMM, with the act epilogue or without.
+extern "C" int gn_ico_conv_dx_info(int act, int* out) {
+  return act ? gn::mma_conv_info<gn::StdGrid, gn::DxEpi<true>>(out)
+             : gn::mma_conv_info<gn::StdGrid, gn::DxEpi<false>>(out);
 }
 
 // x: the raw input (B, 5, h, w, cin); mul/add: the act prologue or null;

@@ -3,10 +3,11 @@
 // conv table) and the mma.sync primitives. The operand is the up convs'
 // upsampled level-(s+1) grid (up_operand_pass), the grid convs'
 // act-applied input (grid_operand_pass) or, for the input gradients of the
-// phase conv and the up conv (a, c), the folded cotangent with its
-// combined rows (cot_operand_pass). mma_dtaps.cuh (the tap gradients: d,
-// n, b and f) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
-// grid convs; the dx of a and c) build their GEMMs on them.
+// phase conv, the up conv and the standard conv (a, c, f), the folded
+// cotangent with its combined rows (cot_operand_pass). mma_dtaps.cuh (the
+// tap gradients: d, n, b and f) and mma_conv_fwd.cuh (the forwards: the up
+// conv, n and the grid convs; the dx of a, c and f) build their GEMMs on
+// them.
 #pragma once
 
 #include "backward.cuh"
@@ -319,7 +320,8 @@ cudaError_t launch_grid_operand(const GridLoad<T>& ld, T* out, int B, int n_src,
   return cudaGetLastError();
 }
 
-// The combined rows of the dx GEMMs' operand (halo.phase_dx_codes): row j
+// The combined rows of the dx GEMMs' operand (halo.phase_dx_codes,
+// halo.std_dx_codes): row j
 // is the sum of weights[x] * (cotangent row cells[x]) over x in
 // offsets[j] .. offsets[j + 1]; n of them a sample.
 struct CombRows {
@@ -353,11 +355,12 @@ __device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16>& gl, int b, int 
 }
 
 // One thread: 8 columns of one row of the dx GEMMs' cotangent operand (a,
-// c): per sample its n_out * M rows q = slot * M + m, the n_sets sets'
-// g_eff side by side (GLoad's values, folded once), then its combined rows,
-// each a float32 weighted sum of those values rounded to bf16 once; after
-// the last sample one zero row; columns past n_sets * cout are zeros. Tag
-// names the instantiation (a's or c's) for a profile.
+// c, f): per sample its n_out * M rows q = slot * M + m (f: its one grid's
+// M rows), the n_sets sets' g_eff side by side (GLoad's values, folded
+// once), then its combined rows, each a float32 weighted sum of those
+// values rounded to bf16 once; after the last sample one zero row; columns
+// past n_sets * cout are zeros. Tag names the instantiation (a's
+// PhaseGrid, c's GridCells, f's StdGrid) for a profile.
 template <typename Tag>
 __global__ void __launch_bounds__(256)
 cot_operand_pass(GLoad<__nv_bfloat16> gl, CombRows comb, __nv_bfloat16* __restrict__ out, int B,
@@ -409,7 +412,7 @@ cudaError_t launch_cot_operand(const GLoad<__nv_bfloat16>& gl, const CombRows& c
 }
 
 // The written operand's cotangent rows as gn::colsum reads g (row q <
-// n_out * M of sample b, column n): Σg_eff of a and c from the values the
+// n_out * M of sample b, column n): Σg_eff of a, c and f from the values the
 // pass folded once, in launch_gsum's order.
 struct CotRowsG {
   const __nv_bfloat16* rows;

@@ -4,14 +4,16 @@
 // the tap sets are packed once, then one GEMM gathers the operand's rows
 // through the conv table, with the BatchNorm [Σy, Σy²] stats in its
 // epilogue. The same GEMM, with other epilogues, is the bf16 input gradient
-// of the phase conv (a) and of the up conv (c): the transposed problem.
+// of the phase conv (a), of the up conv (c) and of the standard conv (f):
+// the transposed problem.
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:
 // _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel), _updp (:2380,
 // _up_pair_fwd_kernel) and _phase_conv_fwd (:1272, _pc_fwd_kernel), and
 // conv_kernel.py:_pallas_forward (:253, _kernel); with the dx epilogues
-// phase_kernel.py:_phase_conv_dx (:1336, _pc_dx_kernel) and _upd_bwd's dx
-// call (:2123, _up_dx_kernel). The float32 path keeps gn::conv_gemm over
+// phase_kernel.py:_phase_conv_dx (:1336, _pc_dx_kernel), _upd_bwd's dx
+// call (:2123, _up_dx_kernel) and conv_kernel.py:_pallas_dx (:727,
+// _dx_kernel). The float32 path keeps gn::conv_gemm over
 // gn::UpLoad / gn::GridLoad (common.cuh) and gn::dx_gemm (backward.cuh),
 // the SIMT core, bit for bit.
 //
@@ -61,20 +63,21 @@
 //    row tiles. No atomics: results repeat exactly, and d and n, which run
 //    this GEMM on bit-equal operands with the same split, are bit-equal on
 //    the joined grid.
-// 5. dx (a, c) is the same GEMM transposed: dx[p][m][k] = sum_t sum_n
+// 5. dx (a, c, f) is the same GEMM transposed: dx[p][m][k] = sum_t sum_n
 //    G[row_t(p, m)][n] W[t][k][n] over the rows (sample, input phase, cell)
-//    of the 4 input phases. The A operand is the folded cotangent written
-//    once (cot_operand_pass, mma.cuh: g + gs0 + 2 gs1 y with GLoad's
-//    roundings, the tap sets side by side, then a sample's combined rows)
-//    named by halo.phase_dx_codes' (4, 7, M) code table: a cotangent row
-//    where the transposed table holds one entry of weight 1, a combined row
-//    (its weighted sum rounded to bf16 once: the stride-1 seams and poles)
-//    or nothing. pack_taps_t stacks the taps transposed (row t * Kp + n,
+//    of the n_in input phases (4; f: its one grid, n_in = 1). The A operand
+//    is the folded cotangent written once (cot_operand_pass, mma.cuh: g +
+//    gs0 + 2 gs1 y with GLoad's roundings, the tap sets side by side, then
+//    a sample's combined rows) named by a (n_in, 7, M) code table
+//    (halo.phase_dx_codes, halo.std_dx_codes): a cotangent row where the
+//    transposed table holds one entry of weight 1, a combined row (its
+//    weighted sum rounded to bf16 once: the stride-1 seams and poles) or
+//    nothing. pack_taps_t stacks the taps transposed (row t * Kp + n,
 //    column k). At stride 2 two thirds of the (tile, tap) pairs read only
 //    ZERO codes, so each 128-row tile walks only the taps of its mask byte
 //    (DxEpi / DuEpi set kMasked): the GEMM does the forward's FLOPs, not up
-//    to 3x as many. Epilogues: a rounds once (DxEpi<false>) or applies the
-//    act adjoint of DxOut (backward.cuh) on the float32 sums, with the
+//    to 3x as many. Epilogues: a and f round once (DxEpi<false>) or apply
+//    the act adjoint of DxOut (backward.cuh) on the float32 sums, with the
 //    column sums of dm * x and dm as the stats are taken (DxEpi<true>); c
 //    stores float32 dU of the 4 upsampled phases (DuEpi), which
 //    up_conv_bwd.cu's upsample adjoint pass then reads.
@@ -269,8 +272,9 @@ struct FwdEpi {
 };
 
 // Where the phase conv's dx GEMM writes (a): the 4 input phases (B, 5, h,
-// w, cin); with the act prologue the raw phases it reads, mul and add, and
-// the [d_mul | d_add] partials, (row tiles, 2 * cin).
+// w, cin), or the standard conv's (f) one grid in out[0]; with the act
+// prologue the raw phases it reads, mul and add, and the [d_mul | d_add]
+// partials, (row tiles, 2 * cin).
 struct DxRows {
   __nv_bfloat16* out[4];
   const __nv_bfloat16* raw[4];
@@ -280,8 +284,8 @@ struct DxRows {
   int cin;
 };
 
-// a's epilogue: column n is input channel k, row q = (sample, input phase,
-// cell). Without ACT dx rounds once to bf16; with it the act adjoint of
+// a's and f's epilogue: column n is input channel k, row q = (sample,
+// input phase, cell). Without ACT dx rounds once to bf16; with it the act adjoint of
 // DxOut (backward.cuh) on the float32 sums: dm = d * 1{x * mul + add > 0}
 // against the raw input, dx = bf16(dm * mul), and the column sums of dm * x
 // and dm go to the row tile's partials, as the forward's stats do.
@@ -527,7 +531,8 @@ cudaError_t mma_conv_attr() {
 inline int fwd_row_tiles(long long Q) { return (int)((Q + fwd::BM - 1) / fwd::BM); }
 
 // One launch of the GEMM with its epilogue (its shared memory allowed
-// first); the tap masks' period is one sample's 4 * M rows of the dx GEMMs.
+// first); the tap masks' period is one sample's n_out * M rows (the dx
+// GEMMs' input phases: 4 for a and c, 1 for f).
 template <typename Tag, typename Epi>
 cudaError_t launch_mma_conv(const dim3& grid, const OperandRows& ld,
                             const __nv_bfloat16* wpack, const Epi& epi, int out_phase0,
@@ -536,7 +541,7 @@ cudaError_t launch_mma_conv(const dim3& grid, const OperandRows& ld,
   cudaError_t err = mma_conv_attr<Tag, Epi>();
   if (err != cudaSuccess) return err;
   mma_conv<Tag, Epi><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, epi, out_phase0, n_out, Q,
-                                                           Np, ksteps, tap_mask, 4 * ld.M);
+                                                           Np, ksteps, tap_mask, n_out * ld.M);
   return cudaGetLastError();
 }
 
@@ -606,10 +611,11 @@ cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, c
                                   stats, stream);
 }
 
-// The dx GEMMs' operand rows (a, c): the cotangent operand that
+// The dx GEMMs' operand rows (a, c, f): the cotangent operand that
 // cot_operand_pass wrote (mma.cuh; per sample n_out * M cotangent rows,
 // then n_comb combined rows; the zero row after the last sample), named by
-// the (4, 7, M) code table of halo.phase_dx_codes, which holds no pole code.
+// the (n_in, 7, M) code table of halo.phase_dx_codes (4 input phases) or
+// halo.std_dx_codes (the one grid), which holds no pole code.
 inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int B, int M,
                             int ntot, int n_out, int n_comb) {
   OperandRows ld;
@@ -622,18 +628,21 @@ inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int 
   return ld;
 }
 
-// The dx GEMM of a and c over the B * 4 * M rows of the 4 input phases
-// (slots from 0), with the epilogue Epi: the tap sets packed transposed
+// The dx GEMM of a, c and f over the B * n_in * M rows of the n_in input
+// phases (slots from 0: the phase conv's and the up conv's 4, the standard
+// conv's one grid), with the epilogue Epi: the tap sets packed transposed
 // into `wpack` ((7 * k_pad(n_sets * cout), n_pad(cin))), then mma_conv
 // over K = 7 * k_pad(n_sets * cout) with the row tiles' tap masks (null:
-// every tap; else one byte per 128 rows of a sample, 4 * M a multiple of
-// 128).
+// every tap; else one byte per 128 rows of a sample, n_in * M a multiple
+// of 128). A row tile may straddle samples (f at level 2, M = 160, has no
+// mask): each row finds its own sample (mma::RowPos, EpiPos).
 template <typename Tag, typename Epi>
 cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv_bfloat16* w0,
                                const __nv_bfloat16* w1, __nv_bfloat16* wpack,
                                const unsigned char* tap_mask, int B, int cin, int cout,
-                               int n_sets, cudaStream_t stream) {
-  if (wpack == nullptr || (tap_mask != nullptr && (4 * ld.M) % fwd::BM != 0))
+                               int n_sets, int n_in, cudaStream_t stream) {
+  if (wpack == nullptr || (n_in != 1 && n_in != 4) ||
+      (tap_mask != nullptr && (n_in * ld.M) % fwd::BM != 0))
     return cudaErrorInvalidValue;
   const int Ntot = n_sets * cout, Kp = fwd::k_pad(Ntot), Np = fwd::n_pad(cin);
   const long long packed = 7LL * Kp * Np;
@@ -641,13 +650,14 @@ cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv
       w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int Q = B * 4 * ld.M;
-  return launch_mma_conv<Tag>(dim3(Np / fwd::BN, fwd_row_tiles(Q)), ld, wpack, epi, 0, 4, Q, Np,
-                              Kp / fwd::BK, tap_mask, stream);
+  const int Q = B * n_in * ld.M;
+  return launch_mma_conv<Tag>(dim3(Np / fwd::BN, fwd_row_tiles(Q)), ld, wpack, epi, 0, n_in, Q,
+                              Np, Kp / fwd::BK, tap_mask, stream);
 }
 
-// The bf16 dx tables and scratch of a and c (halo.phase_dx_codes): the code
-// table, the combined rows, the row tiles' tap masks (null: every tap), the
+// The bf16 dx tables and scratch of a and c (halo.phase_dx_codes, n_in =
+// 4 input phases) and of f (halo.std_dx_codes, n_in = 1): the code table,
+// the combined rows, the row tiles' tap masks (null: every tap), the
 // cotangent operand and the transposed taps.
 struct DxTables {
   const int* codes;
@@ -655,9 +665,10 @@ struct DxTables {
   const unsigned char* mask;
   __nv_bfloat16* operand;
   __nv_bfloat16* wpack;
+  int n_in;
 };
 
-// The bf16 dx of a and c: the cotangent operand of gl written once
+// The bf16 dx of a, c and f: the cotangent operand of gl written once
 // (launch_cot_operand), the dx GEMM with the epilogue Epi over the rows
 // tb.codes names (launch_mma_dx_rows), then, where gsum_ws is given,
 // Σg_eff over the written cotangent rows in launch_gsum's order.
@@ -673,10 +684,33 @@ cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb, co
   const OperandRows ld =
       cot_rows(tb.operand, tb.codes, B, gl.M, n_sets * gl.cout, gl.n_out, tb.comb.n);
   err = launch_mma_dx_rows<Tag>(ld, epi, w0, w1, tb.wpack, tb.mask, B, cin, gl.cout, n_sets,
-                                stream);
+                                tb.n_in, stream);
   if (err != cudaSuccess || gsum_ws == nullptr) return err;
   const CotRowsG cg = {tb.operand, gl.M, gl.n_out, gl.cout, ld.per_b, ld.ldk};
   return launch_gsum<__nv_bfloat16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+}
+
+// The bf16 dx of a grid conv (a, f) into `rows`: launch_cot_dx with a's
+// epilogue (DxEpi<true>, the act adjoint, where rows.mul is set; else
+// DxEpi<false>), then with the act the fixed-order sum of the d_mul/d_add
+// partials (rows.red, a row per row tile of the B * n_in * M rows) into
+// dmul, dadd.
+template <typename Tag>
+cudaError_t launch_grid_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb,
+                               const DxRows& rows, const __nv_bfloat16* w0,
+                               const __nv_bfloat16* w1, float* gsum_ws, float* gsum0,
+                               float* gsum1, float* dmul, float* dadd, int B, int n_sets,
+                               int gsum_rows, cudaStream_t stream) {
+  const int cin = rows.cin;
+  cudaError_t err =
+      rows.mul ? launch_cot_dx<Tag>(gl, tb, DxEpi<true>{rows}, w0, w1, gsum_ws, gsum0, gsum1, B,
+                                    cin, n_sets, gsum_rows, stream)
+               : launch_cot_dx<Tag>(gl, tb, DxEpi<false>{rows}, w0, w1, gsum_ws, gsum0, gsum1,
+                                    B, cin, n_sets, gsum_rows, stream);
+  if (err != cudaSuccess || rows.mul == nullptr) return err;
+  const SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+  return launch_sum_rows(rows.red, fwd_row_tiles((long long)B * tb.n_in * gl.M), 2LL * cin, st,
+                         stream);
 }
 
 // Registers a thread, blocks an SM, dynamic shared memory and local memory

@@ -84,7 +84,6 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
     // the folded cotangent written once, then the tensor-core GEMM over its
     // rows named by the code table (mma_conv_fwd.cuh), the act adjoint in
     // its epilogue
-    using Tag = gn::PhaseGrid;
     if (mul != nullptr && (raw == nullptr || red == nullptr)) return cudaErrorInvalidValue;
     gn::DxRows rows = {};
     for (int p = 0; p < 4; ++p) {
@@ -95,16 +94,9 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
     rows.add = add;
     rows.red = red;
     rows.cin = cin;
-    const T* t0 = static_cast<const T*>(w0);
-    const T* t1 = static_cast<const T*>(w1);
-    cudaError_t err =
-        mul ? gn::launch_cot_dx<Tag>(gl, tb, gn::DxEpi<true>{rows}, t0, t1, gsum_ws, gsum0, gsum1,
-                                     B, cin, n_sets, gsum_rows, stream)
-            : gn::launch_cot_dx<Tag>(gl, tb, gn::DxEpi<false>{rows}, t0, t1, gsum_ws, gsum0,
-                                     gsum1, B, cin, n_sets, gsum_rows, stream);
-    if (err != cudaSuccess || mul == nullptr) return err;
-    const gn::SplitOut st = {{dmul, dadd}, 2 * cin, cin};
-    return gn::launch_sum_rows(red, gn::fwd_row_tiles(4LL * B * M), 2LL * cin, st, stream);
+    return gn::launch_grid_cot_dx<gn::PhaseGrid>(gl, tb, rows, static_cast<const T*>(w0),
+                                                 static_cast<const T*>(w1), gsum_ws, gsum0, gsum1,
+                                                 dmul, dadd, B, n_sets, gsum_rows, stream);
   }
 }
 
@@ -219,7 +211,7 @@ extern "C" int gn_phase_conv_dx(const void* const* g, const void* const* y, cons
   auto s = static_cast<cudaStream_t>(stream);
   const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
                            static_cast<__nv_bfloat16*>(operand),
-                           static_cast<__nv_bfloat16*>(wpack)};
+                           static_cast<__nv_bfloat16*>(wpack), 4};
   if (dtype == 0)
     return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, tb,
                      red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, n_out,

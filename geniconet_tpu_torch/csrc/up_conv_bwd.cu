@@ -206,7 +206,7 @@ extern "C" int gn_up_dual_conv_dx(const void* const* g, const void* const* y, co
   auto s = static_cast<cudaStream_t>(stream);
   const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
                            static_cast<__nv_bfloat16*>(operand),
-                           static_cast<__nv_bfloat16*>(wpack)};
+                           static_cast<__nv_bfloat16*>(wpack), 4};
   const UpAdjoint adj = {adj_offsets, adj_cells, adj_weights, du};
   if (dtype == 0)
     return dx<float>(g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, tb, adj, gsum_ws,

@@ -36,6 +36,7 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
+    "HEAD_BWD_BLOCKS", "head_bwd_blocks",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -125,7 +126,8 @@ _SIGNATURES = {
     "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
     "gn_ico_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
     "gn_ico_conv_fwd_info": [_INT, _VP],
-    "gn_ico_conv_dx": [_VP] * 16 + [_INT] * 7 + [_VP],
+    "gn_ico_conv_dx": [_VP] * 23 + [_INT] * 8 + [_VP],
+    "gn_ico_conv_dx_info": [_INT, _VP],
     "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
     "gn_ico_conv_dtaps_info": [_INT, _INT, _VP],
     "gn_phase_conv_dx": [_VP] * 26 + [_INT] * 10 + [_VP],
@@ -302,12 +304,29 @@ def cot_operand_shape(B: int, rows: int, n_comb: int, ntot: int):
     return B * (rows + n_comb) + 1, operand_width(ntot)
 
 
-def mma_dx_info(up: bool, act: bool = False) -> dict:
+def mma_dx_info(up: bool, act: bool = False, std: bool = False) -> dict:
     """``mma_dtaps_info`` for the tensor-core dx GEMM of the up conv (c,
-    ``up``) or the phase conv (a), with the act epilogue or without."""
+    ``up``), the standard conv (f, ``std``) or the phase conv (a), with the
+    act epilogue or without."""
     if up:
         return _gemm_info("gn_up_dual_conv_dx_info")
-    return _gemm_info("gn_phase_conv_dx_info", act)
+    return _gemm_info("gn_ico_conv_dx_info" if std else "gn_phase_conv_dx_info", act)
+
+
+# The pair head's backward (csrc/pair_head.cu): a grid of at most
+# HEAD_BWD_BLOCKS blocks (2 for each of the H100's 132 SMs), and at most one
+# for each HEAD_CELLS_A_BLOCK cells (a bf16 block's step at C 64: 32 groups
+# of 8 lanes), walks the cells in a grid-stride loop and writes one partial
+# row a block.
+HEAD_BWD_BLOCKS = 264
+HEAD_CELLS_A_BLOCK = 32
+
+
+def head_bwd_blocks(B: int, h: int, w: int) -> int:
+    """Blocks of the pair head's backward at (B, h, w), one partial row of
+    (C·F + F + 3·C) float32 each (``csrc/pair_head.cu:head_bwd_blocks``
+    says the same)."""
+    return max(1, min(HEAD_BWD_BLOCKS, -(-B * 5 * h * w // HEAD_CELLS_A_BLOCK)))
 
 
 def scratch(n: int, device) -> torch.Tensor:

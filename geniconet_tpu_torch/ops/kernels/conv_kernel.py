@@ -9,7 +9,11 @@ Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
   bf16 the act-applied operand written once, then the tensor-core GEMM with
   the stats epilogue, ``csrc/mma_conv_fwd.cuh``; in float32 the SIMT GEMM);
 * ``ico_conv_s2s_dx``    -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dx``: conv and
-  halo transposes, act adjoint with d_mul/d_add, optional Σg_eff);
+  halo transposes, act adjoint with d_mul/d_add, optional Σg_eff); in bf16
+  the folded cotangent written once with its combined rows, then the
+  tensor-core GEMM over ``halo.std_dx_codes``' rows with the act adjoint in
+  its epilogue (``csrc/mma_conv_fwd.cuh``, ``phase_kernel.dx_scratch`` with
+  one input grid), in float32 the SIMT gather-GEMM over ``std_dx_table``;
 * ``ico_conv_s2s_dtaps`` -> ``csrc/ico_conv_bwd.cu`` (``_pallas_dtaps``, rounded
   to the activation dtype as the Pallas wrapper does); in bf16 it writes the
   act-applied operand once (``phase_kernel.grid_operand`` of the one grid)
@@ -36,7 +40,7 @@ from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import act_apply, check_act, expect, grid_level, on_cuda
 from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
-    fwd_scratch, geff_plain, grid_dtaps_scratch, stats_plain,
+    dx_scratch, dx_tables, fwd_scratch, geff_plain, grid_dtaps_scratch, stats_plain,
 )
 
 __all__ = [
@@ -119,7 +123,10 @@ def ico_conv_s2s_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=
     which make the result the cotangent of the raw input (dx'·mul·1{x·mul +
     add > 0}) and add d_mul, d_add (float32 (C_in,), summed over batch and
     cells); y / gs switch on the fold; ``emit_gsum`` adds Σg_eff (float32
-    (C_out,), the bias gradient). Returns (dx, d_mul, d_add, gsum)."""
+    (C_out,), the bias gradient). Returns (dx, d_mul, d_add, gsum). In
+    bf16 the cotangent pass, the transposed tap pack and the tensor-core
+    GEMM with the act adjoint in its epilogue, then the sums; in float32
+    the SIMT gather-GEMM over ``halo.std_dx_table``."""
     if not on_cuda(g, "ico_conv_s2s_dx"):
         return ico_conv_s2s_dx_plain(g, taps, corner_mode, dtype, act, raw, y, gs, emit_gsum)
     B, _, h, w, cout = g.shape
@@ -135,11 +142,12 @@ def ico_conv_s2s_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=
         expect(raw, (B, 5, h, w, cin), dtype, dev, "ico_conv_s2s_dx raw")
     M = 5 * h * w
     dx = torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev)
-    offsets, cells, weights = device_dx_table("std", h, w, corner_mode, dev)
+    tables, n_comb = dx_tables("std", dtype, h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    red = dmul = dadd = None
+    red, operand, wpack, _ = dx_scratch(dtype, B, h, w, cin, 1, cout, 1, n_comb,
+                                        act is not None, False, dev, n_in=1)
+    dmul = dadd = None
     if act is not None:
-        red = build.scratch(B * build.n_tiles(M) * 2 * cin, dev)
         dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
     gsum_ws = gsum = None
     if emit_gsum:
@@ -149,9 +157,10 @@ def ico_conv_s2s_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=
         err = build.library().gn_ico_conv_dx(
             g.data_ptr(), build.ptr(y), build.ptr(gs), taps.data_ptr(),
             build.ptr(raw if act is not None else None), build.ptr(mul), build.ptr(add),
-            dx.data_ptr(), offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(),
+            dx.data_ptr(), *map(build.ptr, tables), build.ptr(operand), build.ptr(wpack),
             build.ptr(red), build.ptr(dmul), build.ptr(dadd), build.ptr(gsum_ws), build.ptr(gsum),
-            B, h, w, cin, cout, build.GSUM_ROWS, build.dtype_code(dtype), build.stream_ptr(dev),
+            B, h, w, cin, cout, n_comb, build.GSUM_ROWS, build.dtype_code(dtype),
+            build.stream_ptr(dev),
         )
     build.check("ico_conv_s2s_dx", err)
     build.LAUNCHES["ico_conv_s2s_dx"] += 1

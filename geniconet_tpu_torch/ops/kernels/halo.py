@@ -22,7 +22,7 @@ __all__ = [
     "ZERO", "NORTH", "SOUTH", "NONE",
     "phase_conv_table", "std_conv_table", "upsample_table", "device_table",
     "phase_dx_table", "up_dx_table", "std_dx_table", "device_dx_table",
-    "up_adjoint_table", "phase_dx_codes", "device_dx_codes",
+    "up_adjoint_table", "phase_dx_codes", "std_dx_codes", "device_dx_codes",
 ]
 
 # codes shared with csrc/common.cuh
@@ -240,44 +240,63 @@ def _rows_of(offsets, weights):
     return count, one
 
 
-def phase_dx_codes(h: int, w: int, corner_mode: str, out_phases=(0, 1, 2, 3)):
-    """The bf16 dx GEMM's view of ``phase_dx_table``: (codes, combined rows,
-    tap masks).
-
-    The GEMM reads, for input phase p, tap t and cell m, ONE row of the
-    written cotangent operand (per sample its n_out·5hw cotangent rows
-    ``slot·M + m``, then its combined rows; a zero row after the last
-    sample). ``codes`` (4, 7, M) int32 names it: the cotangent row q where
-    the transposed row t·R + p·M + m is one entry of weight 1, ZERO where it
-    is empty, and n_out·M + j where it is anything else, combined row j.
-    ``comb`` = (offsets (J + 1,), cells, weights) lists each combined row's
-    entries (cotangent rows and their weights, in the CSR's order): the
-    operand pass writes their weighted sum in float32, rounded to bf16 (the
-    stride-1 seams, weights (1, 1), and 10 pole rows, five 0.2 and two 1).
-    ``mask`` (4M / 128,) uint8 holds, per 128-row tile of one sample's
-    4·M GEMM rows, bit t for a tap whose codes in the tile are not all
-    ZERO (the GEMM skips the others), or None where 4·M is not a multiple
-    of 128."""
-    n = 5 * h * w
-    offsets, cells, weights = phase_dx_table(h, w, corner_mode, out_phases)
+def _dx_codes(offsets, cells, weights, n_in: int, M: int, n_rows: int):
+    """A transposed table's CSR (rows ``t·R + r`` over R = n_in·M source
+    rows) as the bf16 dx GEMM reads it: (codes (n_in, 7, M) int32, combined
+    rows, tap masks). A row that is one entry of weight 1 names that
+    cotangent row, an empty row ZERO, any other row ``n_rows + j``, combined
+    row j (the rows after a sample's n_rows cotangent rows). ``comb`` =
+    (offsets (J + 1,), cells, weights) lists each combined row's entries in
+    the CSR's order. ``mask`` (n_in·M / 128,) uint8 holds, per 128-row tile
+    of one sample's n_in·M GEMM rows, bit t for a tap whose codes in the
+    tile are not all ZERO (the GEMM skips the others), or None where n_in·M
+    is not a multiple of 128."""
     count, one = _rows_of(offsets, weights)
     comb_rows = np.nonzero((count > 0) & ~one)[0]
-    codes = np.full(7 * 4 * n, ZERO, np.int64)  # CSR row order: t·R + r
+    codes = np.full(7 * n_in * M, ZERO, np.int64)  # CSR row order: t·R + r
     codes[one] = cells[offsets[:-1][one]]
-    codes[comb_rows] = len(out_phases) * n + np.arange(len(comb_rows))
+    codes[comb_rows] = n_rows + np.arange(len(comb_rows))
     lo, hi = offsets[comb_rows].astype(np.int64), offsets[comb_rows + 1].astype(np.int64)
     sel = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)]) if len(lo) else \
         np.zeros(0, np.int64)
     comb_offsets = np.zeros(len(comb_rows) + 1, np.int64)
     np.cumsum(hi - lo, out=comb_offsets[1:])
-    codes = codes.reshape(7, 4, n).transpose(1, 0, 2)  # (p, t, m)
+    codes = codes.reshape(7, n_in, M).transpose(1, 0, 2)  # (p, t, m)
     mask = None
-    if (4 * n) % 128 == 0:
-        live = (codes != ZERO).transpose(1, 0, 2).reshape(7, 4 * n // 128, 128).any(-1)
+    if (n_in * M) % 128 == 0:
+        live = (codes != ZERO).transpose(1, 0, 2).reshape(7, n_in * M // 128, 128).any(-1)
         mask = (live * (1 << np.arange(7))[:, None]).sum(0).astype(np.uint8)
     comb = (comb_offsets.astype(np.int32), cells[sel].astype(np.int32),
             weights[sel].astype(np.float32))
     return np.ascontiguousarray(codes, dtype=np.int32), comb, mask
+
+
+def phase_dx_codes(h: int, w: int, corner_mode: str, out_phases=(0, 1, 2, 3)):
+    """The bf16 dx GEMM's view of ``phase_dx_table``: (codes, combined rows,
+    tap masks), ``_dx_codes`` over the 4 input phases.
+
+    The GEMM reads, for input phase p, tap t and cell m, ONE row of the
+    written cotangent operand (per sample its n_out·5hw cotangent rows
+    ``slot·M + m``, then its combined rows; a zero row after the last
+    sample). ``codes`` (4, 7, M) names it: the cotangent row q where the
+    transposed row t·R + p·M + m is one entry of weight 1, ZERO where it is
+    empty, and n_out·M + j where it is anything else, combined row j (the
+    stride-1 seams, weights (1, 1), and 10 pole rows, five 0.2 and two 1):
+    the operand pass writes its weighted sum in float32, rounded to bf16.
+    ``mask`` has a byte per 128-row tile of one sample's 4·M GEMM rows."""
+    n = 5 * h * w
+    return _dx_codes(*phase_dx_table(h, w, corner_mode, out_phases), 4, n, len(out_phases) * n)
+
+
+def std_dx_codes(h: int, w: int, corner_mode: str):
+    """The bf16 dx GEMM's view of ``std_dx_table``, ``_dx_codes`` over the
+    one input grid: codes (1, 7, M) naming, for tap t and input cell m, a
+    row of the written cotangent operand (per sample its M cotangent rows,
+    then its combined rows: the chart seams and the 10 pole rows), the
+    combined rows, and a mask byte per 128-row tile of one sample's M GEMM
+    rows (None where M is not a multiple of 128: level 2)."""
+    n = 5 * h * w
+    return _dx_codes(*std_dx_table(h, w, corner_mode), 1, n, n)
 
 
 _DEVICE_TABLES: dict = {}
@@ -314,13 +333,16 @@ def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_pha
 
 
 def device_dx_codes(h: int, w: int, corner_mode: str, device, out_phases=(0, 1, 2, 3)):
-    """``phase_dx_codes`` on ``device``, built once and kept: (codes, comb
-    offsets, comb cells, comb weights, mask or None, combined rows a
-    sample)."""
-    key = ("codes", h, w, corner_mode, tuple(out_phases), str(torch.device(device)))
+    """``phase_dx_codes`` for these output phases, or ``std_dx_codes`` for
+    ``out_phases=None`` (the standard conv), on ``device``, built once and
+    kept: (codes, comb offsets, comb cells, comb weights, mask or None,
+    combined rows a sample)."""
+    out_phases = None if out_phases is None else tuple(out_phases)
+    key = ("codes", h, w, corner_mode, out_phases, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        codes, comb, mask = phase_dx_codes(h, w, corner_mode, tuple(out_phases))
+        codes, comb, mask = (std_dx_codes(h, w, corner_mode) if out_phases is None
+                             else phase_dx_codes(h, w, corner_mode, out_phases))
         t = (*(torch.from_numpy(a).to(device).contiguous() for a in (codes, *comb)),
              None if mask is None else torch.from_numpy(mask).to(device), len(comb[0]) - 1)
         _DEVICE_TABLES[key] = t

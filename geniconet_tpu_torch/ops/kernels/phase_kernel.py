@@ -83,7 +83,7 @@ from geniconet_tpu_torch.ops.kernels.build import (
 )
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels.halo import (
-    device_dx_codes, device_dx_table, device_table, phase_dx_codes,
+    device_dx_codes, device_dx_table, device_table, phase_dx_codes, std_dx_codes,
 )
 from geniconet_tpu_torch.ops.pad import chart_mean, ico_pad
 from geniconet_tpu_torch.ops.phase import phase_conv, phase_merge, phase_split, phase_upsample
@@ -100,7 +100,7 @@ __all__ = [
     "phase_conv_dx", "phase_conv_dx_plain", "phase_conv_dtaps", "phase_conv_dtaps_plain",
     "operand_rows", "up_operand", "up_operand_plain", "up_pair_operand",
     "up_pair_operand_plain", "grid_operand_rows", "grid_operand", "grid_operand_plain",
-    "grid_dtaps_scratch", "fwd_scratch", "dx_scratch", "cot_operand_plain",
+    "grid_dtaps_scratch", "fwd_scratch", "dx_tables", "dx_scratch", "cot_operand_plain",
     "up_dual_conv_dx", "up_dual_conv_dx_plain", "up_dual_conv_dtaps",
     "up_dual_conv_dtaps_plain", "phase_conv_bwd", "phase_conv_bwd_plain", "up_dual_conv_bwd",
     "up_dual_conv_bwd_plain", "stats_plain", "geff_plain", "pair_join", "bn_affine_plain",
@@ -279,23 +279,26 @@ def fwd_scratch(dt, B, h, w, cin, n_sets, cout, n_src, n_out, with_stats, dev):
     return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
 
 
-def _dx_tables(kind, dtype, h, w, corner_mode, dev, out_phases=_ALL):
-    """(the 8 table pointers' tensors of a and c's C entries, combined rows
-    a sample): float32 the transposed CSR (``halo.phase_dx_table``, or
-    ``up_dx_table`` for ``"up"``) and no bf16 tables; bf16 no CSR and
-    ``halo.phase_dx_codes``' code table, combined rows and tap masks."""
+def dx_tables(kind, dtype, h, w, corner_mode, dev, out_phases=_ALL):
+    """(the 8 table pointers' tensors of the dx C entries of a, c and f,
+    combined rows a sample): float32 the transposed CSR
+    (``halo.phase_dx_table``, ``up_dx_table`` for ``"up"``, ``std_dx_table``
+    for ``"std"``) and no bf16 tables; bf16 no CSR and the code table,
+    combined rows and tap masks (``halo.phase_dx_codes``, or
+    ``std_dx_codes`` for ``"std"``)."""
     if dtype != torch.bfloat16:
         csr = device_dx_table(kind, h, w, corner_mode, dev,
                               out_phases if kind == "phase" else None)
         return (*csr, None, None, None, None, None), 0
-    codes, c_off, c_cells, c_w, mask, n_comb = device_dx_codes(h, w, corner_mode, dev,
-                                                               out_phases)
+    codes, c_off, c_cells, c_w, mask, n_comb = device_dx_codes(
+        h, w, corner_mode, dev, None if kind == "std" else out_phases)
     return (None, None, None, codes, c_off, c_cells, c_w, mask), n_comb
 
 
-def dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb, with_act, up, dev):
+def dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb, with_act, up, dev, n_in=4):
     """(act partials, cotangent operand, packed taps, dU) of the phase conv's
-    (a) or the up conv's (c, ``up``) dx into C_in channels from n_sets sets
+    (a), the up conv's (c, ``up``) or the standard conv's (f, ``n_in`` = 1
+    input grid) dx into C_in channels of n_in input phases from n_sets sets
     of n_out cotangent phases of C_out: float32 the SIMT GEMM's [d_mul |
     d_add] partials (a row per 64-row tile of each sample) and no scratch;
     bf16 the tensor-core GEMM's partials (a row per row tile), the written
@@ -304,9 +307,9 @@ def dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb, with_act, up, dev)
     float32 cotangent of the 4 upsampled phases, (B, 4, 5hw, C_in)."""
     M, ntot = 5 * h * w, n_sets * cout
     if dt != torch.bfloat16:
-        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev) if with_act else None
+        red = build.scratch(B * build.n_tiles(n_in * M) * 2 * cin, dev) if with_act else None
         return red, None, None, None
-    _, row_tiles = build.mma_fwd_grid(B * 4 * M, cin)
+    _, row_tiles = build.mma_fwd_grid(B * n_in * M, cin)
     red = build.scratch(row_tiles * 2 * cin, dev) if with_act else None
     operand = torch.empty(build.cot_operand_shape(B, n_out * M, n_comb, ntot), dtype=dt,
                           device=dev)
@@ -317,18 +320,22 @@ def dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb, with_act, up, dev)
 
 def cot_operand_plain(g_groups, y_groups=None, gs_list=None, corner_mode="average",
                       out_phases=_ALL):
-    """Plain version of the dx GEMMs' cotangent operand (a, c; the pass
+    """Plain version of the dx GEMMs' cotangent operand (a, c, f; the pass
     ``csrc/mma.cuh:cot_operand_pass``): per sample the n_out·5hw rows
     ``slot·M + m`` of g_eff (``geff_plain``), the sets side by side, then its
-    combined rows (``halo.phase_dx_codes``: each the float32 weighted sum of
-    its rows, rounded to g's dtype once), and after the last sample one zero
-    row; the columns padded with zeros to ``build.operand_width``."""
+    combined rows (``halo.phase_dx_codes``, or for ``out_phases=None`` the
+    standard conv's ``halo.std_dx_codes`` over its one cotangent: each the
+    float32 weighted sum of its rows, rounded to g's dtype once), and after
+    the last sample one zero row; the columns padded with zeros to
+    ``build.operand_width``."""
     g_groups = _fold_groups(g_groups, y_groups, gs_list)
     B, _, h, w, _ = g_groups[0][0].shape
     n_out = len(g_groups[0])
     rows = torch.cat([torch.stack(group, dim=1).reshape(B, n_out * 5 * h * w, -1)
                       for group in g_groups], dim=-1)
-    _, (offsets, cells, weights), _ = phase_dx_codes(h, w, corner_mode, tuple(out_phases))
+    _, (offsets, cells, weights), _ = (
+        std_dx_codes(h, w, corner_mode) if out_phases is None
+        else phase_dx_codes(h, w, corner_mode, tuple(out_phases)))
     seg = torch.from_numpy(np.repeat(np.arange(len(offsets) - 1), np.diff(offsets)))
     terms = rows.float()[:, torch.from_numpy(cells).long()] * torch.from_numpy(weights)[:, None]
     comb = rows.new_zeros((B, len(offsets) - 1, rows.shape[-1]), dtype=torch.float32)
@@ -408,7 +415,7 @@ def phase_conv_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=N
         for i, x in enumerate(raw_phases):
             expect(x, (B, 5, h, w, cin), dtype, dev, f"phase_conv_dx raw phase {i}")
     outs = [torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev) for _ in range(4)]
-    tables, n_comb = _dx_tables("phase", dtype, h, w, corner_mode, dev, out_phases)
+    tables, n_comb = dx_tables("phase", dtype, h, w, corner_mode, dev, out_phases)
     mul, add = act if act is not None else (None, None)
     red, operand, wpack, _ = dx_scratch(dtype, B, h, w, cin, n_sets, cout, n_out, n_comb,
                                         act is not None, False, dev)
@@ -982,7 +989,7 @@ def up_dual_conv_dx(g_groups, tap_sets, corner_mode, dtype, y_groups=None, gs_li
                       "up_dual_conv_dx")
     _check_sets(tap_sets, cin, dtype, dev, "up_dual_conv_dx")
     dx = torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev)
-    tables, n_comb = _dx_tables("up", dtype, h, w, corner_mode, dev)
+    tables, n_comb = dx_tables("up", dtype, h, w, corner_mode, dev)
     _, operand, wpack, du = dx_scratch(dtype, B, h, w, cin, n_sets, cout, 4, n_comb, False,
                                        True, dev)
     adjoint = ((None,) * 3 if dtype != torch.bfloat16
@@ -1690,7 +1697,7 @@ def pair_head_bwd(g, b0, y10, affines, W, bias):
     for i, gp in enumerate(g):
         expect(gp, (B, 5, h, w, F), torch.float32, dev, f"pair_head_bwd g {i}")
     grads = [torch.empty_like(b0[0]) for _ in range(8)]
-    part = build.scratch(4 * -(-B * 5 * h * w // 256) * (cin * F + F + 3 * cin), dev)
+    part = build.scratch(build.head_bwd_blocks(B, h, w) * (cin * F + F + 3 * cin), dev)
     dW = torch.empty((cin, F), dtype=torch.float32, device=dev)
     vecs = [torch.empty(n, dtype=torch.float32, device=dev) for n in (F, cin, cin, cin, cin)]
     with torch.cuda.device(dev):
@@ -1742,7 +1749,7 @@ def pair_head_mse_bwd(g, b0, y10, affines, W, bias, tpack, tpoles):
     expect(g, (B,), torch.float32, dev, "pair_head_mse_bwd g")
     grads = [torch.empty_like(b0[0]) for _ in range(8)]
     dpole = build.scratch(B * 2 * F, dev)
-    part = build.scratch(4 * -(-B * 5 * h * w // 256) * (cin * F + F + 3 * cin), dev)
+    part = build.scratch(build.head_bwd_blocks(B, h, w) * (cin * F + F + 3 * cin), dev)
     dW = torch.empty((cin, F), dtype=torch.float32, device=dev)
     vecs = [torch.empty(n, dtype=torch.float32, device=dev) for n in (F, cin, cin, cin, cin)]
     with torch.cuda.device(dev):

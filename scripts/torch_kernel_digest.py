@@ -14,7 +14,9 @@ and up2's conv01 and down1's stride-2 conv; ``ico_conv_s2s_fwd`` at
 down1's conv01; with stats, and once without), and the input gradients
 (a, ``phase_conv_dx``, at up2's conv01, down1's and down2's stride-2 conv;
 c, ``up_dual_conv_dx``, at up1; f's, m's and n's dx at down1 / up1), and
-prints one line per call: ``digest <kernel> <dtype> <case>
+the pair head's forwards and backwards (``pair_head_fwd``,
+``pair_head_mse_fwd``; e, ``pair_head_bwd``; h, ``pair_head_mse_bwd``) at
+the s=5 head, and prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -185,6 +187,28 @@ def main():
         g = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
         line("up_pair_dx", dt, "up1",
              lambda: pk.up_pair_dx(g, b0, y10, aff, sets, "average", emit_gsum=True))
+    for dt in (torch.bfloat16, torch.float32):
+        # the pair head at the s=5 head (the level-4 phases, C 64, F 3),
+        # after the lines above (a generator of its own): its forwards and
+        # its backwards e (given g) and h (g from the target)
+        gen = torch.Generator().manual_seed(14)
+        b0 = [rnd(gen, B, 5, 16, 32, 64, dt=dt) for _ in range(4)]
+        y10 = [rnd(gen, B, 5, 16, 32, 64, dt=dt) for _ in range(4)]
+        aff = [(torch.rand(64, generator=gen).add(0.5)).to("cuda"),
+               (0.3 * torch.randn(64, generator=gen)).to("cuda"),
+               (torch.rand(64, generator=gen).add(0.5)).to("cuda"),
+               (0.3 * torch.randn(64, generator=gen)).to("cuda")]
+        W, bias = rnd(gen, 64, 3, dt=dt, scale=0.125), rnd(gen, 3, dt=dt, scale=0.1)
+        tpack = torch.rand(B, 5, 16, 32, 12, generator=gen).mul(2).sub(1).to("cuda")
+        tpoles = torch.rand(B, 6, generator=gen).mul(2).sub(1).to("cuda")
+        g = tuple(rnd(gen, B, 5, 16, 32, 3, dt=torch.float32) for _ in range(4))
+        gb = rnd(gen, B, dt=torch.float32)
+        line("pair_head_fwd", dt, "head", lambda: pk.pair_head_fwd(b0, y10, aff, W, bias))
+        line("pair_head_mse_fwd", dt, "head",
+             lambda: pk.pair_head_mse_fwd(b0, y10, aff, W, bias, tpack, tpoles))
+        line("pair_head_bwd", dt, "head", lambda: pk.pair_head_bwd(g, b0, y10, aff, W, bias))
+        line("pair_head_mse_bwd", dt, "head",
+             lambda: pk.pair_head_mse_bwd(gb, b0, y10, aff, W, bias, tpack, tpoles))
 
 
 if __name__ == "__main__":

@@ -11,9 +11,12 @@ case three medians over ``--reps`` calls after warm-ups: the CUDA-event
 time of one call (the wrapper's host time included), the device time of
 one call's kernels from a ``torch.profiler`` trace, and the host time of
 one call (the wall time to return, with the device idle before it: the
-wrapper's checks, allocations and launches); then the sums per kernel,
-phase (serving, training) and group of shapes (AE, AE no act, VAE,
-chain). ``--root`` names the checkout whose ``chip_smoke.py`` and
+wrapper's checks, allocations and launches); where the case has them,
+its parts from a trace, as ``chip_smoke.py`` prints them (a
+tensor-core kernel's operand pass, GEMM TFLOP/s and sums; the pair head
+backward's main pass GB/s against its byte bound); then the sums per
+kernel, phase (serving, training) and group of shapes (AE, AE no act,
+VAE, chain). ``--root`` names the checkout whose ``chip_smoke.py`` and
 ``geniconet_tpu_torch`` are imported (default: the one this script is
 in), so two commits can be timed on one card, each in its own process: run
 the old tree, the new, the new, the old.
@@ -61,7 +64,8 @@ def main():
         for name, label, make, group in cases:
             if name not in names:
                 continue
-            fn = make(torch.bfloat16, gen).kernel
+            case = make(torch.bfloat16, gen)
+            fn = case.kernel
             ms = (cs.cuda_ms(fn, args.reps), sum(cs.trace_kernels(fn, args.reps).values()),
                   host_ms(fn))
             for key in ((name, phase, group), (name, phase, "all"), (name, "all", "all")):
@@ -69,7 +73,12 @@ def main():
             print(f"[kernel times] {name} {phase} {group}: {label} bf16 one call {ms[0]:.4f} ms "
                   f"(CUDA events), device {ms[1]:.4f} ms (trace), host {ms[2]:.4f} ms [{card}]",
                   flush=True)
-            del fn
+            if case.parts is not None:
+                parts = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in case.parts().items())
+                print(f"[kernel parts] {name} {phase} {group}: {label} bf16 {parts} [{card}]",
+                      flush=True)
+            del fn, case
     for (name, phase, group), (ms, dev, host) in sums.items():
         print(f"[kernel times sum] {name} {phase} {group}: {ms:.4f} ms (CUDA events), device "
               f"{dev:.4f} ms, host {host:.4f} ms [{card}]", flush=True)

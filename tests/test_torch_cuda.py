@@ -247,16 +247,16 @@ def test_ico_conv_stats_and_backward(cuda, s, corner_mode, dt):
         _close(got, ck.ico_conv_s2s_dtaps_plain(x, g, corner_mode, a, **fk), dt)
 
 
-def _head_mse_inputs(device, dt, s, C, seed):
+def _head_mse_inputs(device, dt, s, C, seed, B=3):
     g = torch.Generator().manual_seed(seed)
     h, w = 2**s, 2 ** (s + 1)
-    b0 = [torch.randn(3, 5, h, w, C, generator=g).to(device, dt) for _ in range(8)]
+    b0 = [torch.randn(B, 5, h, w, C, generator=g).to(device, dt) for _ in range(8)]
     aff = [t.to(device) for t in (torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g),
                                   torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g))]
     W = (torch.randn(C, 3, generator=g) * C**-0.5).to(device, dt)
     bias = (0.1 * torch.randn(3, generator=g)).to(device, dt)
-    tpack = torch.rand(3, 5, h, w, 12, generator=g).mul(2).sub(1).to(device)
-    tpoles = torch.rand(3, 6, generator=g).mul(2).sub(1).to(device)
+    tpack = torch.rand(B, 5, h, w, 12, generator=g).mul(2).sub(1).to(device)
+    tpoles = torch.rand(B, 6, generator=g).mul(2).sub(1).to(device)
     return b0[:4], b0[4:], aff, W, bias, tpack, tpoles
 
 
@@ -296,6 +296,77 @@ def test_pair_head_bwd(cuda, s, C, dt):
     for a, b in zip(got[2:], ref[2:]):
         assert a.dtype == b.dtype
         _close(a, b, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [2, 36])
+@pytest.mark.parametrize("kernel", ["e", "h"])
+def test_head_bwd_at_the_model_shapes(cuda, kernel, B, dt):
+    """The pair head's backward at the s=5 head (C 64, F 3, the level-4
+    phases (16, 32)), B=2 and 36: kernel e (``pair_head_bwd``, given g) and
+    h (``pair_head_mse_bwd``, g from the target) against their plain
+    versions within TOL (the 8 phase cotangents, dW, dbias, the affine
+    gradients), and a second call equal to the first bit for bit (a fixed
+    grid and fixed-order merges, no atomics)."""
+    b0, y10, aff, W, bias, tpack, tpoles = _head_mse_inputs(cuda, dt, 4, 64, seed=B, B=B)
+    gen = torch.Generator().manual_seed(B + 1)
+    if kernel == "e":
+        g = tuple(torch.randn(B, 5, 16, 32, 3, generator=gen).to(cuda) for _ in range(4))
+        args = (g, b0, y10, aff, W, bias)
+        call, plain, name = pk.pair_head_bwd, pk.pair_head_bwd_plain, "pair_head_bwd"
+    else:
+        g = torch.randn(B, generator=gen).to(cuda)
+        args = (g, b0, y10, aff, W, bias, tpack, tpoles)
+        call, plain, name = pk.pair_head_mse_bwd, pk.pair_head_mse_bwd_plain, "pair_head_mse_bwd"
+    build.reset_launches()
+    got = call(*args)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 1}
+    ref = plain(*args)
+    for u, v in zip(got[:2], ref[:2]):
+        for x, y in zip(u, v):
+            assert x.dtype == dt
+            _close(x, y, dt)
+    for x, y in zip(got[2:], ref[2:]):
+        assert x.dtype == y.dtype
+        _close(x, y, dt)
+    _equal_all(call(*args), got)
+
+
+@pytest.mark.parametrize("C, F, dt", [(12, 1, torch.bfloat16), (24, 5, torch.bfloat16),
+                                      (20, 8, torch.float32), (160, 3, torch.float32),
+                                      (256, 8, torch.float32), (256, 3, torch.bfloat16)])
+def test_head_bwd_ragged_widths(cuda, C, F, dt):
+    """e and h at widths the model has not, against their plain versions
+    within TOL: C 12 in bf16 (not a multiple of 8: channel by channel, not
+    16 bytes a lane), F 5 and 8 (W's 8 columns held), float32 C 160 and
+    256 (two 16-byte chunks a lane), C 256 in bf16 (32 lanes a cell); B=3
+    at level 2."""
+    gen = torch.Generator().manual_seed(C + F)
+    B, h, w = 3, 4, 8
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen)
+
+    b0 = [rnd(B, 5, h, w, C).to(cuda, dt) for _ in range(4)]
+    y10 = [rnd(B, 5, h, w, C).to(cuda, dt) for _ in range(4)]
+    aff = [t.to(cuda) for t in (rnd(C).abs() + 0.5, rnd(C), rnd(C).abs() + 0.5, rnd(C))]
+    W, bias = rnd(C, F, scale=C**-0.5).to(cuda, dt), rnd(F, scale=0.1).to(cuda, dt)
+    tpack = rnd(B, 5, h, w, 4 * F).clamp(-1, 1).to(cuda)
+    tpoles = rnd(B, 2 * F).clamp(-1, 1).to(cuda)
+    g = tuple(rnd(B, 5, h, w, F).to(cuda) for _ in range(4))
+    gb = rnd(B).to(cuda)
+    for call, plain, args in (
+            (pk.pair_head_bwd, pk.pair_head_bwd_plain, (g, b0, y10, aff, W, bias)),
+            (pk.pair_head_mse_bwd, pk.pair_head_mse_bwd_plain,
+             (gb, b0, y10, aff, W, bias, tpack, tpoles))):
+        got, ref = call(*args), plain(*args)
+        for u, v in zip(got[:2], ref[:2]):
+            for x, y in zip(u, v):
+                _close(x, y, dt)
+        for x, y in zip(got[2:], ref[2:]):
+            assert x.dtype == y.dtype
+            _close(x, y, dt)
 
 
 def test_vae_default_training_route_launches_every_vae_training_kernel(cuda):
@@ -1608,10 +1679,11 @@ def test_mma_grid_fwd_occupancy(cuda):
 # then the upsample adjoint)
 # ---------------------------------------------------------------------------
 
-# a and c at the s=5 models' shapes: (kernel, cotangent h, w, C_in, C_out,
-# tap sets, output phases, act): up0-2 conv01 (stride 1, act); down0-2's
-# stride-2 convs (act at down0; down1-2 with and without, as the AE runs
-# them); the VAE's heads; the up convs up0-2 and the VAE's up0
+# a, c and f at the s=5 models' shapes: (kernel, cotangent h, w, C_in,
+# C_out, tap sets, output phases, act): up0-2 conv01 (stride 1, act);
+# down0-2's stride-2 convs (act at down0; down1-2 with and without, as the
+# AE runs them); the VAE's heads; the up convs up0-2 and the VAE's up0;
+# the standard conv (f; output phases None) at down0-2 conv01
 GRID_DX = {
     "up0 conv01": ("a", 4, 8, 256, 256, 1, (0, 1, 2, 3), True),
     "up1 conv01": ("a", 8, 16, 128, 128, 1, (0, 1, 2, 3), True),
@@ -1626,20 +1698,25 @@ GRID_DX = {
     "up1": ("c", 8, 16, 256, 128, 2, (0, 1, 2, 3), False),
     "up2": ("c", 16, 32, 128, 64, 2, (0, 1, 2, 3), False),
     "VAE up0": ("c", 4, 8, 512, 256, 2, (0, 1, 2, 3), False),
+    "down0 conv01": ("f", 16, 32, 128, 128, 1, None, True),
+    "down1 conv01": ("f", 8, 16, 256, 256, 1, None, True),
+    "down2 conv01": ("f", 4, 8, 256, 256, 1, None, True),
+    "down2 conv01 (no act)": ("f", 4, 8, 256, 256, 1, None, False),
 }
 
 
 def _dx_calls(cuda, case, fold, corner_mode="average", seed=0):
-    """(kernel call, plain call, wrapper name) of a's or c's dx at a
+    """(kernel call, plain call, wrapper name) of a's, c's or f's dx at a
     GRID_DX-shaped case, bf16, B=2 (Σg_eff with the fold, and always for c)."""
     kernel, h, w, cin, cout, n_sets, out_phases, with_act = case
     dt = torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
     sets = [((torch.randn(7, cin, cout, generator=gen) * (7 * cin) ** -0.5).to(cuda, dt), None)
             for _ in range(n_sets)]
+    n_out = 1 if out_phases is None else len(out_phases)
 
     def group():
-        return [[torch.randn(2, 5, h, w, cout, generator=gen).to(cuda, dt) for _ in out_phases]
+        return [[torch.randn(2, 5, h, w, cout, generator=gen).to(cuda, dt) for _ in range(n_out)]
                 for _ in range(n_sets)]
 
     g = group()
@@ -1652,6 +1729,11 @@ def _dx_calls(cuda, case, fold, corner_mode="average", seed=0):
     act = ((torch.rand(cin, generator=gen) + 0.5).to(cuda),
            (0.3 * torch.randn(cin, generator=gen)).to(cuda)) if with_act else None
     raw = [torch.randn(2, 5, h, w, cin, generator=gen).to(cuda, dt) for _ in range(4)]
+    if kernel == "f":
+        args = (g[0][0], sets[0][0], corner_mode, dt, act, raw[0] if with_act else None,
+                *((fk["y_groups"][0][0], fk["gs_list"][0]) if fold else (None, None)), fold)
+        return (lambda: ck.ico_conv_s2s_dx(*args), lambda: ck.ico_conv_s2s_dx_plain(*args),
+                "ico_conv_s2s_dx")
     args = (g, sets, corner_mode, out_phases, cin, dt, act, raw if with_act else None)
     return (lambda: pk.phase_conv_dx(*args, **fk), lambda: pk.phase_conv_dx_plain(*args, **fk),
             "phase_conv_dx")
@@ -1671,9 +1753,9 @@ def _check_dx(got, ref):
 @pytest.mark.parametrize("fold", [True, False])
 @pytest.mark.parametrize("site", list(GRID_DX))
 def test_mma_dx_at_the_model_widths(cuda, site, fold):
-    """a and c in bf16 at every site of the s=5 AE and VAE (B=2), with the
-    stats fold and without, against their plain versions (``_check_dx``).
-    One launch of the wrapper each."""
+    """a, c and f in bf16 at every site of the s=5 AE and VAE (B=2), with
+    the stats fold and without, against their plain versions
+    (``_check_dx``). One launch of the wrapper each."""
     call, plain, name = _dx_calls(cuda, GRID_DX[site], fold, seed=len(site))
     build.reset_launches()
     got = call()
@@ -1684,15 +1766,16 @@ def test_mma_dx_at_the_model_widths(cuda, site, fold):
 
 @pytest.mark.parametrize("corner_mode", MODES)
 @pytest.mark.parametrize("cin, cout", [(12, 20), (20, 9), (100, 24), (5, 64)])
-@pytest.mark.parametrize("kind", ["a s1", "a s2", "c"])
+@pytest.mark.parametrize("kind", ["a s1", "a s2", "c", "f"])
 def test_mma_dx_ragged_widths(cuda, kind, cin, cout, corner_mode):
-    """a and c in bf16 at widths the model has not: C_in 5 and 100 (an odd
-    and a ragged epilogue), C_out 9 and 20 (the cotangent pass channel by
-    channel; two sets in one 32-column K step), at levels 1 and 3 (no tap
-    masks at level 1: 4·5hw = 160 rows), with and without the act and the
-    fold, against the plain versions (``_check_dx``)."""
+    """a, c and f in bf16 at widths the model has not: C_in 5 and 100 (an
+    odd and a ragged epilogue), C_out 9 and 20 (the cotangent pass channel
+    by channel; two sets in one 32-column K step), at levels 1 and 3 (no
+    tap masks at level 1: 4·5hw = 160 rows, f's 5hw = 40, several samples
+    in one 128-row tile), with and without the act and the fold, against
+    the plain versions (``_check_dx``)."""
     n_sets, out_phases = {"a s1": (1, (0, 1, 2, 3)), "a s2": (2, (2,)),
-                          "c": (2, (0, 1, 2, 3))}[kind]
+                          "c": (2, (0, 1, 2, 3)), "f": (1, None)}[kind]
     for s, with_act, fold in ((3, True, True), (1, False, False)):
         case = (kind[0], 2**s, 2 ** (s + 1), cin, cout, n_sets, out_phases, with_act)
         call, plain, _ = _dx_calls(cuda, case, fold, corner_mode, cin + cout + s)
@@ -1700,15 +1783,15 @@ def test_mma_dx_ragged_widths(cuda, kind, cin, cout, corner_mode):
 
 
 def test_mma_dx_has_no_fallback(cuda):
-    """A bf16 call of a or c whose cotangent operand, packed taps, dU or code
-    table is missing raises (the C entry refuses it) rather than running the
-    SIMT dx_gemm."""
+    """A bf16 call of a, c or f whose cotangent operand, packed taps, dU or
+    code table (for f also its combined rows or its tap masks) is missing
+    raises (the C entry refuses it) rather than running the SIMT dx_gemm."""
     from unittest import mock
 
     def without(i, fn):
         def wrapped(*args, **kwargs):
             out = list(fn(*args, **kwargs))
-            if isinstance(out[0], tuple):  # _dx_tables: (pointers, combined rows)
+            if isinstance(out[0], tuple):  # dx_tables: (pointers, combined rows)
                 out[0] = tuple(None if j == i else t for j, t in enumerate(out[0]))
             else:
                 out[i] = None
@@ -1722,17 +1805,27 @@ def test_mma_dx_has_no_fallback(cuda):
             with mock.patch.object(pk, "dx_scratch", without(i, pk.dx_scratch)):
                 with pytest.raises(RuntimeError, match=name):
                     call()
-        with mock.patch.object(pk, "_dx_tables", without(3, pk._dx_tables)):  # the codes
+        with mock.patch.object(pk, "dx_tables", without(3, pk.dx_tables)):  # the codes
             with pytest.raises(RuntimeError, match=name):
+                call()
+    call = _dx_calls(cuda, GRID_DX["down0 conv01"], True)[0]
+    for i in (1, 2):  # the operand, the packed taps
+        with mock.patch.object(ck, "dx_scratch", without(i, ck.dx_scratch)):
+            with pytest.raises(RuntimeError, match="ico_conv_s2s_dx"):
+                call()
+    for i in (3, 4, 7):  # the codes, the combined rows, the tap masks
+        with mock.patch.object(ck, "dx_tables", without(i, ck.dx_tables)):
+            with pytest.raises(RuntimeError, match="ico_conv_s2s_dx"):
                 call()
 
 
 def test_mma_dx_occupancy(cuda):
-    """Each instantiation of the dx GEMM (a with the act epilogue and
+    """Each instantiation of the dx GEMM (a and f with the act epilogue and
     without, c) fits 2 blocks an SM with no local memory (no spill)."""
-    for up, act in ((False, True), (False, False), (True, False)):
-        info = build.mma_dx_info(up, act)
-        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (up, act, info)
+    for up, act, std in ((False, True, False), (False, False, False), (True, False, False),
+                         (False, True, True), (False, False, True)):
+        info = build.mma_dx_info(up, act, std)
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (up, act, std, info)
 
 
 def _dx_kernel_names(fn):
@@ -1750,13 +1843,13 @@ def _dx_kernel_names(fn):
 @pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
 def test_bf16_step_with_the_mma_dx(cuda, model):
     """A bf16 training step of the default route with the tensor-core dx of
-    the phase conv (a) and the up conv (c). In the step, every call of the
-    two wrappers agrees with its plain version on that call's own inputs
-    (``_check_dx``); against the same step with both patched to their plain
-    versions on the card tensors, the loss within 1e-2 of its value (the
-    gradients are not compared: see ``test_bf16_step_with_the_mma_grid_fwd``).
-    A trace of the step shows the tensor-core GEMM once a call of a and of
-    c, and the SIMT dx_gemm<bf16> only for the standard conv's dx (f)."""
+    the phase conv (a), the up conv (c) and the standard conv (f). In the
+    step, every call of the three wrappers agrees with its plain version on
+    that call's own inputs (``_check_dx``); against the same step with all
+    three patched to their plain versions on the card tensors, the loss
+    within 1e-2 of its value (the gradients are not compared: see
+    ``test_bf16_step_with_the_mma_grid_fwd``). A trace of the step shows the
+    tensor-core GEMM once a call of a, c and f, and no SIMT dx_gemm<bf16>."""
     from unittest import mock
 
     from geniconet_tpu_torch.ops.kernels import fused
@@ -1773,20 +1866,27 @@ def test_bf16_step_with_the_mma_dx(cuda, model):
     with mock.patch.object(fused, "phase_conv_dx",
                            checked(pk.phase_conv_dx, pk.phase_conv_dx_plain)), \
             mock.patch.object(fused, "up_dual_conv_dx",
-                              checked(pk.up_dual_conv_dx, pk.up_dual_conv_dx_plain)):
+                              checked(pk.up_dual_conv_dx, pk.up_dual_conv_dx_plain)), \
+            mock.patch.object(fused, "ico_conv_s2s_dx",
+                              checked(ck.ico_conv_s2s_dx, ck.ico_conv_s2s_dx_plain)):
         loss, launches, grads = _bf16_step(cuda, model)
     vae = model == "ico2ico_vae"
+    n_f = 2 if vae else 3
     assert launches["phase_conv_dx"] == 6 and launches["up_dual_conv_dx"] == 3
-    assert len(calls) == 9
+    assert launches["ico_conv_s2s_dx"] == n_f
+    assert len(calls) == 9 + n_f
     for got, ref in calls:
         _check_dx(got, ref)
-    plain = ("phase_conv_dx", "up_dual_conv_dx")
+    plain = ("phase_conv_dx", "up_dual_conv_dx", "ico_conv_s2s_dx")
     ref_loss, ref_launches, _ = _bf16_step(cuda, model, plain=plain)
     assert not set(plain) & set(ref_launches)
     assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     names = _dx_kernel_names(lambda: _bf16_step(cuda, model))
     count = {k: sum(n for name, n in names.items() if all(p in name for p in k))
-             for k in (("mma_conv", "DxEpi"), ("mma_conv", "DuEpi"), ("dx_gemm", "bfloat16"))}
-    assert count[("mma_conv", "DxEpi")] == 6 and count[("mma_conv", "DuEpi")] == 3, count
-    assert count[("dx_gemm", "bfloat16")] == (2 if vae else 3), count
+             for k in (("mma_conv", "DxEpi", "PhaseGrid"), ("mma_conv", "DxEpi", "StdGrid"),
+                       ("mma_conv", "DuEpi"), ("dx_gemm", "bfloat16"))}
+    assert count[("mma_conv", "DxEpi", "PhaseGrid")] == 6, count
+    assert count[("mma_conv", "DxEpi", "StdGrid")] == n_f, count
+    assert count[("mma_conv", "DuEpi")] == 3, count
+    assert count[("dx_gemm", "bfloat16")] == 0, count

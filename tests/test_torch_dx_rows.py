@@ -35,8 +35,10 @@ import pytest
 import torch
 from scipy import sparse
 
+from geniconet_tpu.ops.pallas import conv_kernel as jck
 from geniconet_tpu.ops.pallas import phase_kernel as jpk
 from geniconet_tpu_torch.ops.kernels import build, halo
+from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
 from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
 MODES = ["average", "zeros"]
@@ -67,26 +69,36 @@ def _packed_taps_t(tap_sets, cin):
     return packed
 
 
+def _codes(h, w, corner_mode, out_phases):
+    """(codes, combined rows, mask, cotangent rows a sample) of the phase
+    conv's ``out_phases``, or of the standard conv for None."""
+    M = 5 * h * w
+    if out_phases is None:
+        return (*halo.std_dx_codes(h, w, corner_mode), M)
+    return (*halo.phase_dx_codes(h, w, corner_mode, out_phases), len(out_phases) * M)
+
+
 def _gemm(rows, h, w, corner_mode, out_phases, tap_sets, cin):
     """The dx GEMM over a written operand ``rows`` (as ``cot_operand_plain``
-    lays it out): (B, 4, M, C_in) float32, GEMM row (sample, input phase,
+    lays it out): (B, n_in, M, C_in) float32, GEMM row (sample, input phase,
     cell) summing, over the taps of its row tile's mask, the operand row
-    the code table names times the transposed taps."""
-    M, n_out = 5 * h * w, len(out_phases)
-    codes, comb, mask = halo.phase_dx_codes(h, w, corner_mode, out_phases)
-    per = n_out * M + len(comb[0]) - 1
+    the code table names times the transposed taps; n_in = 4 input phases,
+    or the standard conv's one grid for ``out_phases=None``."""
+    M = 5 * h * w
+    codes, comb, mask, n_rows = _codes(h, w, corner_mode, out_phases)
+    n_in = codes.shape[0]
+    per = n_rows + len(comb[0]) - 1
     B = (rows.shape[0] - 1) // per
     cout = tap_sets[0][0].shape[-1]
-    assert rows.shape == build.cot_operand_shape(B, n_out * M, per - n_out * M,
-                                                 len(tap_sets) * cout)
-    code = torch.from_numpy(codes).long()  # (4, 7, M): a row, a combined row or ZERO
+    assert rows.shape == build.cot_operand_shape(B, n_rows, per - n_rows, len(tap_sets) * cout)
+    code = torch.from_numpy(codes).long()  # (n_in, 7, M): a row, a combined row or ZERO
     assert bool(((code >= 0) | (code == halo.ZERO)).all()) and int(code.max()) < per
     base = (torch.arange(B) * per).view(B, 1, 1, 1)
     idx = torch.where(code >= 0, base + code, torch.tensor(B * per))
-    gathered = rows.float()[idx]  # (B, 4, 7, M, width)
+    gathered = rows.float()[idx]  # (B, n_in, 7, M, width)
     if mask is not None:  # a row tile reads only its mask's taps
         live = torch.tensor([[(int(m) >> t) & 1 for m in mask] for t in range(7)], dtype=torch.bool)
-        live = live.repeat_interleave(128, dim=1).view(7, 4, M).transpose(0, 1)  # (4, 7, M)
+        live = live.repeat_interleave(128, dim=1).view(7, n_in, M).transpose(0, 1)
         assert not bool(((code != halo.ZERO) & ~live).any())
         gathered = gathered * live[None, ..., None]
     packed = _packed_taps_t(tap_sets, cin)[:, : rows.shape[1]]  # (7, width, Np)
@@ -127,6 +139,29 @@ def _rows_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=None, 
     out = (dm * mul).to(dtype)
     return (tuple(out[:, p].view(B, 5, h, w, cin) for p in range(4)),
             (dm * x).sum(dim=(0, 1, 2)), dm.sum(dim=(0, 1, 2)), gsums)
+
+
+def _std_rows_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=None,
+                 emit_gsum=False):
+    """The GEMM's formulation of the standard conv's dx (f): the written
+    cotangent over ``halo.std_dx_codes`` (one input grid), a's epilogues;
+    (dx, d_mul, d_add, Σg_eff) as ``ico_conv_s2s_dx`` returns them."""
+    B, _, h, w, cout = g.shape
+    cin = taps.shape[1]
+    fold = dict(y_groups=[[y]], gs_list=[gs]) if y is not None else {}
+    rows = pk.cot_operand_plain([[g]], corner_mode=corner_mode, out_phases=None, **fold)
+    acc = _gemm(rows, h, w, corner_mode, None, [(taps, None)], cin)[:, 0]  # (B, M, C_in)
+    gsum = None
+    if emit_gsum:
+        gsum = rows[:-1].view(B, -1, rows.shape[1])[:, : 5 * h * w, :cout].float().sum(
+            dim=(0, 1))
+    if act is None:
+        return acc.to(dtype).view(B, 5, h, w, cin), None, None, gsum
+    mul, add = act
+    x = raw.float().reshape(B, -1, cin)
+    dm = acc * (x * mul + add > 0.0).float()
+    return ((dm * mul).to(dtype).view(B, 5, h, w, cin), (dm * x).sum(dim=(0, 1)),
+            dm.sum(dim=(0, 1)), gsum)
 
 
 def _close(got, ref, tol):
@@ -218,6 +253,26 @@ def test_rows_dx_is_the_up_conv_dx(s, cin, cout, corner_mode, dtype):
         _close_tree(got, ref, TOL[dt])
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 3, 4), (2, 5, 8), (3, 12, 20), (4, 16, 9)])
+def test_rows_dx_is_the_std_conv_dx(s, cin, cout, corner_mode, dtype):
+    """Over ``halo.std_dx_codes`` (one input grid; the chart seams and the
+    poles as combined rows) the formulation is ``ico_conv_s2s_dx_plain``:
+    dx, d_mul, d_add and Σg_eff, with the act and the fold on and off."""
+    dt = DTYPES[dtype]
+    c = _Case(30 + 10 * s + cin, s, cin, cout, dt)
+    raw = c.grid(cin)
+    for with_act, fold in ((True, True), (False, True), (True, False), (False, False)):
+        g, ((taps, _),) = c.grid(cout), c.sets(1)
+        y, gs = (c.grid(cout), c.gs(1)[0]) if fold else (None, None)
+        act = c.act() if with_act else None
+        args = (g, taps, corner_mode, dt, act, raw if with_act else None, y, gs, fold)
+        got = _std_rows_dx(*args)
+        assert got[0].dtype == dt
+        _close_tree(got, ck.ico_conv_s2s_dx_plain(*args), TOL[dt])
+
+
 @pytest.mark.parametrize("corner_mode", MODES)
 @pytest.mark.parametrize("s", [1, 2, 3])
 def test_up_adjoint_is_the_composed_table(s, corner_mode):
@@ -296,6 +351,29 @@ def test_rows_dx_matches_pallas(interpret):
     assert pc_spy.call_count >= 2 and up_spy.called
 
 
+def test_std_rows_dx_matches_pallas(interpret):
+    """f's formulation against the VJP of the JAX package's
+    ``fused_ico_conv_s2s`` with the act and stats in interpret mode, at a
+    level-2 grid, B=2, float32, the fold on: dx, d_mul, d_add and the bias
+    gradient Σg_eff."""
+    c = _Case(75, 2, 3, 5, torch.float32)
+    x, ((taps, _),), bias = c.grid(3), c.sets(1), c.t(c.r.randn(5))
+    mul, add = c.act()
+    jx, jt, jb, jmul, jadd = _j([x, taps, bias, mul, add])
+
+    def f(x, m, a, b):
+        return jck.fused_ico_conv_s2s(x, jt, b, 2, "average", act=(m, a), with_stats=True)
+
+    with mock.patch.object(jck, "_dx_kernel", wraps=jck._dx_kernel) as spy:
+        (y, st), vjp = jax.vjp(f, jx, jmul, jadd, jb)
+        g, gs = c.grid(5), c.gs(1)[0]
+        dx, dmul, dadd, dbias = vjp((_j(g), _j(gs)))
+    got = _std_rows_dx(g, taps, "average", torch.float32, (mul, add), x,
+                       torch.from_numpy(np.array(y)), gs, True)
+    _close_tree(got, (dx, dmul, dadd, dbias), 1e-5)
+    assert spy.called
+
+
 # The dx calls of the s=5 models: (cotangent h, w, C_in, C_out, tap sets,
 # output phases, up conv), and per sample the combined rows and the active
 # (tile, tap) pairs of the 128-row tiles over 7 taps
@@ -311,12 +389,45 @@ MODEL_DX = {
     "up1": (8, 16, 256, 128, 2, (0, 1, 2, 3), True),
     "up2": (16, 32, 128, 64, 2, (0, 1, 2, 3), True),
     "VAE up0": (4, 8, 512, 256, 2, (0, 1, 2, 3), True),
+    # the standard conv's (f; output phases None: its one grid)
+    "down0 conv01": (16, 32, 128, 128, 1, None, False),
+    "down1 conv01": (8, 16, 256, 256, 1, None, False),
+    "down2 conv01": (4, 8, 256, 256, 1, None, False),
 }
 TABLE_FACTS = {  # (h, w, output phases) -> (combined rows a sample, active / all tap steps)
     (16, 32, (0, 1, 2, 3)): (640, 560, 560), (8, 16, (0, 1, 2, 3)): (320, 140, 140),
     (4, 8, (0, 1, 2, 3)): (160, 35, 35), (16, 32, (2,)): (0, 190, 560),
     (8, 16, (2,)): (0, 55, 140), (4, 8, (2,)): (0, 20, 35),
 }
+
+
+STD_FACTS = {(16, 32): (320, 20), (8, 16): (160, 5), (4, 8): (80, None)}  # (combined, masks)
+
+
+@pytest.mark.parametrize("key", list(STD_FACTS))
+def test_std_code_table_facts_at_s5(key):
+    """The standard conv's table at the DownBlocks' conv01 grids: 320, 160,
+    80 combined rows a sample (the chart seams, weights (1, 1), and 10 pole
+    rows of five 0.2 and two 1), no pole code among the codes (the poles
+    are combined rows), every other code one cotangent row or ZERO, and a
+    tap mask byte per 128-row tile where 5hw is a multiple of 128 (every
+    tap live in every tile), none at (4, 8) where 5hw = 160."""
+    h, w = key
+    M = 5 * h * w
+    n_comb, n_masks = STD_FACTS[key]
+    codes, (offsets, cells, weights), mask = halo.std_dx_codes(h, w, "average")
+    assert codes.shape == (1, 7, M) and codes.dtype == np.int32
+    assert int(codes.min()) == halo.ZERO and int(codes.max()) == M + n_comb - 1
+    assert len(offsets) - 1 == n_comb and int(cells.max()) < M
+    kinds = {}
+    for j in range(n_comb):
+        key_w = tuple(sorted(round(float(v), 6) for v in weights[offsets[j] : offsets[j + 1]]))
+        kinds[key_w] = kinds.get(key_w, 0) + 1
+    assert kinds == {(1.0, 1.0): n_comb - 10, (0.2,) * 5 + (1.0, 1.0): 10}
+    if n_masks is None:
+        assert mask is None
+    else:
+        assert len(mask) == n_masks and bool((mask == 0x7F).all())
 
 
 @pytest.mark.parametrize("key", list(TABLE_FACTS))
@@ -339,30 +450,36 @@ def test_code_table_facts_at_s5(key):
     assert len(mask) * 7 == steps and sum(bin(int(m)).count("1") for m in mask) == active
 
 
-@pytest.mark.parametrize("site", [k for k, v in MODEL_DX.items() if len(v[5]) == 4])
+@pytest.mark.parametrize("site", [k for k, v in MODEL_DX.items() if v[5] is None or len(v[5]) == 4])
 def test_combined_rows_move_dx_under_half_an_ulp(site):
     """The one rounding the bf16 GEMM adds: each combined row's weighted sum
     rounded to bf16 once, where the SIMT kernel kept it in float32. The GEMM
     is linear, so that rounding moves the float32 dx (before its last
     rounding) by the GEMM of (rounded - exact combined rows) alone, through
-    a's act adjoint or c's upsample adjoint. At every stride-1 site of the
-    s=5 models (the stride-2 convs have no combined rows), B=2, seeded bf16
-    cotangents with the stats fold, the move stays under half a bf16 ulp of
-    max|dx| (2^-8·max|dx|; the card tests hold the whole kernel to one)."""
+    a's and f's act adjoint or c's upsample adjoint. At every stride-1 site
+    of the s=5 models (the phase conv's and the up conv's, and the standard
+    conv's at the DownBlocks' conv01; the stride-2 convs have no combined
+    rows), B=2, seeded bf16 cotangents with the stats fold, the move stays
+    under half a bf16 ulp of max|dx| (2^-8·max|dx|; the card tests hold the
+    whole kernel to one)."""
     h, w, cin, cout, n_sets, out_phases, up = MODEL_DX[site]
-    c = _Case(90 + cin, int(np.log2(h)), cin, cout, torch.bfloat16)
-    g, sets = c.groups(n_sets, 4), c.sets(n_sets)
-    g_eff = pk._fold_groups(g, c.groups(n_sets, 4), c.gs(n_sets))  # bf16, as the pass folds
-    exact = pk.cot_operand_plain([[t.float() for t in grp] for grp in g_eff])
-    rounded = pk.cot_operand_plain(g_eff).float()
+    std = out_phases is None
+    n_in = 1 if std else 4
+    c = _Case(90 + cin + std, int(np.log2(h)), cin, cout, torch.bfloat16)
+    g, sets = c.groups(n_sets, n_in), c.sets(n_sets)
+    g_eff = pk._fold_groups(g, c.groups(n_sets, n_in), c.gs(n_sets))  # bf16, as the pass folds
+    phases = None if std else (0, 1, 2, 3)
+    exact = pk.cot_operand_plain([[t.float() for t in grp] for grp in g_eff], out_phases=phases)
+    rounded = pk.cot_operand_plain(g_eff, out_phases=phases).float()
     exact_b, rounded_b = (r[:-1].view(2, -1, r.shape[1]) for r in (exact, rounded))
-    assert torch.equal(rounded_b[:, : 4 * 5 * h * w], exact_b[:, : 4 * 5 * h * w])  # cot rows
-    dx, move = (_gemm(r, h, w, "average", out_phases, sets, cin) for r in (exact, rounded - exact))
+    n_rows = n_in * 5 * h * w
+    assert torch.equal(rounded_b[:, :n_rows], exact_b[:, :n_rows])  # the cotangent rows
+    dx, move = (_gemm(r, h, w, "average", phases, sets, cin) for r in (exact, rounded - exact))
     if up:
         dx, move = _up_adjoint(dx, h, w, "average"), _up_adjoint(move, h, w, "average")
     else:  # the act adjoint is linear in the sums, given the mask
         mul, add = c.act()
-        x = torch.stack([c.grid(cin).float().reshape(2, -1, cin) for _ in range(4)], dim=1)
+        x = torch.stack([c.grid(cin).float().reshape(2, -1, cin) for _ in range(n_in)], dim=1)
         live = (x * mul + add > 0).float() * mul
         dx, move = dx * live, move * live
     ulps = move.abs().max().item() / (2**-7 * dx.abs().max().item())
@@ -374,25 +491,30 @@ def test_combined_rows_move_dx_under_half_an_ulp(site):
 def test_dx_scratch_at_the_model_shapes(site):
     """``dx_scratch`` at B=36 (bf16): the cotangent operand (cotangent rows
     and combined rows a sample, a zero row; the sets' columns rounded up to
-    8), the transposed taps, the act partials a row tile, c's float32 dU;
-    and the largest (up2: dU 36·4·2560·128·4 B = 189 MB, the operand 100
-    MB, 94 of them cotangent rows); float32 takes the SIMT partials and no
-    scratch."""
+    8), the transposed taps, the act partials a row tile (of the 4 input
+    phases' rows, or the standard conv's one grid's), c's float32 dU; and
+    the largest (up2: dU 36·4·2560·128·4 B = 189 MB, the operand 100 MB,
+    94 of them cotangent rows; f's at down0 conv01: 36·(2560 + 320) + 1
+    rows of 128 bf16, 27 MB); float32 takes the SIMT partials and no scratch."""
     h, w, cin, cout, n_sets, out_phases, up = MODEL_DX[site]
-    B, M, ntot, n_out = 36, 5 * h * w, n_sets * cout, len(out_phases)
-    n_comb = TABLE_FACTS[(h, w, out_phases)][0]
+    std = out_phases is None
+    B, M, ntot = 36, 5 * h * w, n_sets * cout
+    n_out, n_in = (1, 1) if std else (len(out_phases), 4)
+    n_comb = STD_FACTS[(h, w)][0] if std else TABLE_FACTS[(h, w, out_phases)][0]
     red, operand, wpack, du = pk.dx_scratch(torch.bfloat16, B, h, w, cin, n_sets, cout, n_out,
-                                            n_comb, not up, up, "meta")
+                                            n_comb, not up, up, "meta", n_in=n_in)
     assert operand.shape == (B * (n_out * M + n_comb) + 1, -(-ntot // 8) * 8)
     assert wpack.shape == (7 * -(-ntot // 32) * 32, -(-cin // 128) * 128)
     assert operand.dtype == wpack.dtype == torch.bfloat16
     if up:
         assert red is None and du.shape == (B, 4, M, cin) and du.dtype == torch.float32
     else:
-        assert du is None and red.shape == (-(-B * 4 * M // 128) * 2 * cin,)
+        assert du is None and red.shape == (-(-B * n_in * M // 128) * 2 * cin,)
     if site == "up2":
         assert du.numel() * 4 == 188_743_680 and operand.numel() * 2 == 100_270_336
+    if site == "down0 conv01":
+        assert operand.numel() * 2 == 26_542_336
     red, operand, wpack, du = pk.dx_scratch(torch.float32, B, h, w, cin, n_sets, cout, n_out,
-                                            n_comb, True, up, "meta")
+                                            n_comb, True, up, "meta", n_in=n_in)
     assert operand is None and wpack is None and du is None
-    assert red.shape == (B * build.n_tiles(4 * M) * 2 * cin,)
+    assert red.shape == (B * build.n_tiles(n_in * M) * 2 * cin,)

@@ -77,13 +77,29 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::conv_gemm<float, gn::GridLoad<float> >"},
      "conv_gemm<fp32, GridLoad>"),
     ({"cat": "kernel", "name": "void gn::pair_head_kernel<float>"}, "pair_head_kernel"),
-    ({"cat": "kernel", "name": "void phmse_bwd_kernel<__nv_bfloat16>(HeadIn<__nv_bfloat16>)"},
-     "phmse (head+MSE fwd/bwd)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::phmse_bwd_kernel<__nv_bfloat16, 1, "
+                               "3>((anonymous namespace)::HeadBwdArgs<__nv_bfloat16>)"},
+     "phmse_bwd (head+MSE bwd, kernel h)"),
+    ({"cat": "kernel", "name": "void phmse_fwd_kernel<__nv_bfloat16>(HeadIn<__nv_bfloat16>)"},
+     "phmse (head+MSE fwd, poles)"),
+    ({"cat": "kernel", "name": "void phmse_poles_kernel<float>(HeadIn<float>)"},
+     "phmse (head+MSE fwd, poles)"),
     ({"cat": "kernel", "name": "void (anonymous namespace)::phead_bwd_kernel<__nv_bfloat16>("
                                "(anonymous namespace)::HeadIn<__nv_bfloat16>)"},
      "phead_bwd (head bwd, kernel e)"),
     ({"cat": "kernel", "name": "void gn::dx_gemm<__nv_bfloat16>(gn::GLoad<__nv_bfloat16>)"},
-     "dx_gemm<bf16> (f)"),
+     "dx_gemm<bf16>"),
+    # f's bf16 dx: the one GEMM template's StdGrid instance, its cotangent
+    # pass and transposed tap pack
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::StdGrid, gn::DxEpi<true> >"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::DxEpi<true>, int)"},
+     "mma_conv_dx<bf16> (f)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::StdGrid>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (f)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::StdGrid>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (f)"),
     ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::UpLoad<float> >"},
      "dtaps_gemm<fp32, UpLoad>"),
     ({"cat": "kernel", "name": "void gn::sum_rows<gn::SplitOut>"},
@@ -253,7 +269,8 @@ def test_device_launches_of_the_grid_dtaps(groups, launches, ok):
 
 _DX = {"cot_operand_pass<bf16> (a)": 30, "mma_conv_dx<bf16> (a)": 30,
        "cot_operand_pass<bf16> (c)": 15, "mma_conv_dx<bf16> (c)": 15,
-       "up_adjoint_pass (c)": 15, "dx_gemm<bf16> (f)": 15}
+       "up_adjoint_pass (c)": 15, "cot_operand_pass<bf16> (f)": 15,
+       "mma_conv_dx<bf16> (f)": 15}
 _DX_CALLS = {"phase_conv_dx": 6.0, "up_dual_conv_dx": 3.0, "ico_conv_s2s_dx": 3.0}
 
 
@@ -262,15 +279,15 @@ _DX_CALLS = {"phase_conv_dx": 6.0, "up_dual_conv_dx": 3.0, "ico_conv_s2s_dx": 3.
     (("mma_conv_dx<bf16> (a)",), {}, False),       # a without its GEMM
     (("cot_operand_pass<bf16> (c)",), {}, False),  # c without its pass
     (("up_adjoint_pass (c)",), {}, False),         # c without its adjoint
-    ((), {"dx_gemm<bf16> (f)": 45}, False),        # the SIMT dx for a (or c)
-    (("dx_gemm<bf16> (f)",), {}, False),           # f's dx missing
+    ((), {"dx_gemm<bf16>": 15}, False),            # the SIMT dx in bf16
+    (("mma_conv_dx<bf16> (f)",), {}, False),       # f's GEMM missing
     ((), {"dx_gemm<bf16, split> (m)": 15}, True),  # m's SIMT dx has its own row
 ])
 def test_device_launches_of_the_dx(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step:
-    every call of a and c shows its cotangent pass and ``mma_conv_dx`` (c
-    also its upsample adjoint), and the SIMT ``dx_gemm<bf16>`` runs for f's
-    calls alone."""
+    every call of a, c and f shows its cotangent pass and ``mma_conv_dx``
+    (c also its upsample adjoint), and the SIMT ``dx_gemm<bf16>`` runs for
+    none of them."""
     groups = {k: v for k, v in {**_DX, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
