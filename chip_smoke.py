@@ -23,12 +23,13 @@ printed on its own lines, each fatal on failure:
    source, all started together, then one link);
 3. kernel vs plain, serving: each of the four forward kernels against its
    plain PyTorch version at the shapes the AE and VAE serving paths give it
-   (B=16), in float32 (TF32 off) and bfloat16, with the error against the
-   stated tolerance and the median CUDA-event time of both;
+   (B=16; the head also at a B=1 decode), in float32 (TF32 off) and
+   bfloat16, with the error against the stated tolerance and the median
+   CUDA-event time of both;
 4. kernel vs plain, training: the forward kernels' BatchNorm stats and the
    nine backward and loss kernels (phase-conv, up-conv and standard-conv
-   dx and dtaps, with the stats fold; the head's backward; the head+MSE
-   forward and backward) at the shapes of AE and VAE training at B=36
+   dx and dtaps, with the stats fold; the head's forward and backward; the
+   head+MSE forward and backward) at the shapes of AE and VAE training at B=36
    (the DownBlocks' and the VAE heads' stride-2 convs with and without an
    act prologue), the same way. Every case also prints its bound (the
    least time the card could take: bytes over 3.35 TB/s or FLOPs over the
@@ -57,9 +58,10 @@ printed on its own lines, each fatal on failure:
    pass (a's, c's and f's: the folded cotangent with its combined rows)
    against its byte bound, the tap pack, the tensor-core GEMM's TFLOP/s,
    the sums, c's upsample adjoint pass against its byte bound, and the
-   GEMM's registers and blocks an SM; the pair head's backward (e, h)
-   prints its main pass's achieved GB/s against its byte bound, h's pole
-   pass and the partial rows' sum;
+   GEMM's registers and blocks an SM; the pair head's forwards (the
+   head's, g) and backwards (e, h) print their main pass's achieved GB/s
+   against its byte bound, g's and h's pole pass and the backwards'
+   partial rows' sum;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -339,22 +341,27 @@ def trace_kernels(fn, reps: int = 20, per_launch: bool = False) -> dict:
     """Device time per call of fn()'s kernels in ms, by ``kernel_group`` row:
     their durations in a torch.profiler trace. ``per_launch``: fn launches
     each of its kernels once, and a row sums each kernel's mean duration,
-    which stays right when the trace loses events (seen on the card)."""
+    which stays right when the trace loses events (seen on the card). A trace
+    that holds no kernel at all (also seen there) is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = Path(__file__).resolve().parent / "build" / "profile" / "kernel_case.json"
     out.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out))
     durs = collections.defaultdict(list)
-    for e in json.loads(out.read_text())["traceEvents"]:
-        if e.get("cat") == "kernel":
-            durs[e["name"]].append(e["dur"] / 1e3)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(out))
+        for e in json.loads(out.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                durs[e["name"]].append(e["dur"] / 1e3)
+        if durs:
+            break
     rows = collections.Counter()
     for name, ds in durs.items():
         rows[kernel_group({"cat": "kernel", "name": name})] += (
@@ -399,7 +406,8 @@ class Case:
     profiler trace (``trace_ms``). ``parts``: a call that returns the
     kernel's parts from a trace (``mma_parts``, bf16: the up conv's, n's
     and the grid convs' forward, d's, n's, b's and f's dtaps, a's, c's and
-    f's dx; ``head_parts``: the pair head's backward, e and h)."""
+    f's dx; ``head_parts``: the pair head's forwards and backwards, the
+    head's, g, e and h)."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -438,18 +446,19 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None):
     return parts
 
 
-def head_parts(call, inputs):
-    """The pair head backward's parts (e, h) from a trace: its main pass
-    (the achieved GB/s of the bytes it must move, each input read once and
-    each output written once, against its byte bound), h's pole pass and
-    the partial rows' sum."""
+def head_parts(call, inputs, main):
+    """The pair head's parts (its forward, g, e, h) from a trace: its main
+    pass, the ``kernel_group`` row that starts with ``main`` (the achieved
+    GB/s of the bytes the call must move, each input read once and each
+    output written once, against its byte bound), g's and h's pole pass
+    and the backwards' partial rows' sum."""
     rows = trace_kernels(call, per_launch=True)
     nbytes = sum(t.numel() * t.element_size() for t in flat(inputs) + flat(call()))
-    main = sum(ms for k, ms in rows.items() if "phead_bwd" in k or "phmse_bwd" in k)
-    return {"head_ms": main, "head_gbs": nbytes / main / 1e6 if main else 0.0,
+    ms = sum(v for k, v in rows.items() if k.startswith(main))
+    return {"head_ms": ms, "head_gbs": nbytes / ms / 1e6 if ms else 0.0,
             "head_bound_ms": nbytes / PEAK_BYTES * 1e3,
-            "poles_ms": sum(ms for k, ms in rows.items() if k.startswith("phmse (")),
-            "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows"))}
+            "poles_ms": sum(v for k, v in rows.items() if k.startswith("phmse_poles")),
+            "sum_ms": sum(v for k, v in rows.items() if k.startswith("sum_rows"))}
 
 
 def up_operand(B, h, w, cin):
@@ -569,17 +578,6 @@ def serving_cases():
                         parts=parts)
         return make
 
-    def head(h, w, c):
-        def make(dt, gen):
-            b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
-            y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
-            aff = [*_act(gen, c), *_act(gen, c)]
-            W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt)
-            return Case(lambda: pk.pair_head_fwd(b0, y10, aff, W, bias),
-                        lambda: pk.pair_head_fwd_plain(b0, y10, aff, W, bias),
-                        head_flops(B, h, w, c, 3), [b0, y10, aff, W, bias])
-        return make
-
     cases = [
         ("phase_conv_fwd", "conv_in (16,32) 3->64", phase(16, 32, 3, w0, 1, (0, 1, 2, 3), False)),
         ("phase_conv_fwd", "down0 s2 (16,32) 64->2x128", phase(16, 32, w0, w1, 2, (2,), True)),
@@ -594,7 +592,8 @@ def serving_cases():
         ("ico_conv_s2s_fwd", "down0 conv01 (16,32) 128", std(16, 32, w1)),
         ("ico_conv_s2s_fwd", "down1 conv01 (8,16) 256", std(8, 16, w2)),
         ("ico_conv_s2s_fwd", "down2 conv01 (4,8) 256", std(4, 8, w2)),
-        ("pair_head_fwd", "head (16,32) 64->3", head(16, 32, w0)),
+        ("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16, 32, w0)),
+        ("pair_head_fwd", "head (16,32) 64->3 B=1", head_fwd(1, 16, 32, w0)),
     ]
     # the VAE's own shapes: its heads (no act) and up0 from the 512-channel latent
     vae = [
@@ -643,6 +642,22 @@ def serving_cases():
     ]
     return ([(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
             + [(*c, "chain") for c in chain])
+
+
+def head_fwd(B, h, w, c):
+    """The head's forward (``pair_head_fwd``) at batch B, with its parts."""
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    def make(dt, gen):
+        b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+        y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+        aff = [*_act(gen, c), *_act(gen, c)]
+        W, bias = _rnd(gen, c, 3, dtype=dt, scale=c**-0.5), _rnd(gen, 3, dtype=dt)
+        args = (b0, y10, aff, W, bias)
+        call = lambda: pk.pair_head_fwd(*args)  # noqa: E731
+        return Case(call, lambda: pk.pair_head_fwd_plain(*args), head_flops(B, h, w, c, 3), args,
+                    parts=lambda: head_parts(call, args, "pair_head_kernel"))
+    return make
 
 
 def head_flops(B, h, w, c, F, backward=False):
@@ -914,14 +929,15 @@ def training_cases():
             tpoles = torch.rand(B, 6, generator=gen, device="cuda") * 2 - 1
             args = (b0, y10, aff, W, bias, tpack, tpoles)
             if which == "fwd":
-                return Case(lambda: pk.pair_head_mse_fwd(*args),
-                            lambda: pk.pair_head_mse_fwd_plain(*args),
-                            head_flops(B, h, w, c, 3), args)
+                call = lambda: pk.pair_head_mse_fwd(*args)  # noqa: E731
+                return Case(call, lambda: pk.pair_head_mse_fwd_plain(*args),
+                            head_flops(B, h, w, c, 3), args,
+                            parts=lambda: head_parts(call, args, "phmse_fwd"))
             g = torch.rand(B, generator=gen, device="cuda")
             call = lambda: pk.pair_head_mse_bwd(g, *args)  # noqa: E731
             return Case(call, lambda: pk.pair_head_mse_bwd_plain(g, *args),
                         head_flops(B, h, w, c, 3, backward=True), [g, *args],
-                        parts=lambda: head_parts(call, [g, *args]))
+                        parts=lambda: head_parts(call, [g, *args], "phmse_bwd"))
         return make
 
     def head_bwd(h, w, c):
@@ -935,7 +951,7 @@ def training_cases():
             call = lambda: pk.pair_head_bwd(*args)  # noqa: E731
             return Case(call, lambda: pk.pair_head_bwd_plain(*args),
                         head_flops(B, h, w, c, 3, backward=True), args,
-                        parts=lambda: head_parts(call, args))
+                        parts=lambda: head_parts(call, args, "phead_bwd"))
         return make
 
     def merged_bwd(kind, h, w, cin, cout, n_sets=1, out_phases=(0, 1, 2, 3), with_act=True):
@@ -1094,7 +1110,8 @@ def training_cases():
              phase_bwd(which, *heads[1], 2, (2,), with_act=False)) for which in ("dx", "dtaps")]
     vae += [(f"up_dual_conv_{which}", f"{up0[0]} fold", up_bwd(which, *up0[1]))
             for which in ("dx", "dtaps")]
-    vae += [("pair_head_bwd", "head (16,32) 64->3", head_bwd(16, 32, w0))]
+    vae += [("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16, 32, w0)),
+            ("pair_head_bwd", "head (16,32) 64->3", head_bwd(16, 32, w0))]
     # the merged route's kernels i, j, k at every site they run at, with the
     # fold (every site has stats); the DownBlocks after down0 and the VAE's
     # heads have no act prologue
@@ -1462,8 +1479,10 @@ def kernel_group(event: dict) -> str:
         return "phead_bwd (head bwd, kernel e)"
     if "phmse_bwd" in name:
         return "phmse_bwd (head+MSE bwd, kernel h)"
-    if "phmse" in name:
-        return "phmse (head+MSE fwd, poles)"
+    if "phmse_fwd" in name:
+        return "phmse_fwd (head+MSE fwd, kernel g)"
+    if "phmse_poles" in name:
+        return "phmse_poles (pole pass, g and h)"
     if any(k in name.lower() for k in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
         return "cuDNN / cuBLAS (plain route)"
     return "PyTorch ops"

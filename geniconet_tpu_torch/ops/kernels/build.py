@@ -36,7 +36,7 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
-    "HEAD_BWD_BLOCKS", "head_bwd_blocks",
+    "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -327,6 +327,18 @@ def head_bwd_blocks(B: int, h: int, w: int) -> int:
     (C·F + F + 3·C) float32 each (``csrc/pair_head.cu:head_bwd_blocks``
     says the same)."""
     return max(1, min(HEAD_BWD_BLOCKS, -(-B * 5 * h * w // HEAD_CELLS_A_BLOCK)))
+
+
+# The head+MSE forward (csrc/pair_head.cu): a block sums HEAD_MSE_CELLS cells
+# of one sample into one float32 partial.
+HEAD_MSE_CELLS = 64
+
+
+def head_mse_parts(B: int, h: int, w: int) -> int:
+    """Partials of the head+MSE forward at (B, h, w): ceil(5hw /
+    HEAD_MSE_CELLS) a sample (``csrc/pair_head.cu:head_mse_parts`` says the
+    same)."""
+    return B * -(-5 * h * w // HEAD_MSE_CELLS)
 
 
 def scratch(n: int, device) -> torch.Tensor:

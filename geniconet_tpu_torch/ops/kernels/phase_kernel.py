@@ -1634,7 +1634,7 @@ def pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles):
     B, h, w, cin, F = _check_head(b0, y10, affines, W, bias, "pair_head_mse_fwd")
     dev, dt = b0[0].device, b0[0].dtype
     _check_targets(tpack, tpoles, B, h, w, F, dev, "pair_head_mse_fwd")
-    part = build.scratch(B * -(-5 * h * w // 256), dev)
+    part = build.scratch(build.head_mse_parts(B, h, w), dev)
     sse = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = build.library().gn_pair_head_mse_fwd(

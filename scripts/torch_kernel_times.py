@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times of chosen bf16 kernel wrappers on one CUDA GPU, at the s=5 models' shapes.
 
-    python3 scripts/torch_kernel_times.py --kernels NAME[,NAME...] [--root DIR] [--reps N]
+    python3 scripts/torch_kernel_times.py --kernels NAME[,NAME...] [--root DIR] [--cases DIR]
+        [--reps N]
 
 Takes the kernel cases of ``chip_smoke.py`` (``serving_cases`` at B=16 and
 ``training_cases`` at B=36; widths 64/128/256, the VAE's latent 512) whose
@@ -13,19 +14,22 @@ one call's kernels from a ``torch.profiler`` trace, and the host time of
 one call (the wall time to return, with the device idle before it: the
 wrapper's checks, allocations and launches); where the case has them,
 its parts from a trace, as ``chip_smoke.py`` prints them (a
-tensor-core kernel's operand pass, GEMM TFLOP/s and sums; the pair head
-backward's main pass GB/s against its byte bound); then the sums per
-kernel, phase (serving, training) and group of shapes (AE, AE no act,
-VAE, chain). ``--root`` names the checkout whose ``chip_smoke.py`` and
+tensor-core kernel's operand pass, GEMM TFLOP/s and sums; the pair head's
+forwards' and backwards' main pass GB/s against its byte bound); then the
+sums per kernel, phase (serving, training) and group of shapes (AE, AE no
+act, VAE, chain). ``--root`` names the checkout whose ``chip_smoke.py`` and
 ``geniconet_tpu_torch`` are imported (default: the one this script is
 in), so two commits can be timed on one card, each in its own process: run
-the old tree, the new, the new, the old.
+the old tree, the new, the new, the old. ``--cases`` names the checkout
+whose ``chip_smoke.py`` supplies the cases (default: ``--root``), so an old
+tree can be timed at the shapes a newer ``chip_smoke.py`` adds.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import statistics
 import sys
 import time
@@ -36,6 +40,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", required=True)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--cases", default=None)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
@@ -43,7 +48,10 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_times: needs a CUDA GPU")
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(args.cases or args.root).resolve() / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
 
     card, names = cs.card_line(), set(args.kernels.split(","))
 

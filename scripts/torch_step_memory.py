@@ -16,7 +16,8 @@ the idle share 1 - busy / step. Then serves the AE in bf16 (``AppState`` on 32 s
 meshes) and prints the p50 host-clock latency of ``decode_latent`` (one
 mesh, latent in, vertices out) over ``--requests`` requests after 10, and
 the median CUDA-event time of encode+decode at B=16 over 20 after 3
-(with ``--steps 0`` alone). ``--root`` names the checkout whose ``geniconet_tpu_torch`` is imported
+(with ``--steps 0`` alone), each with its device busy time (a trace of
+10). ``--root`` names the checkout whose ``geniconet_tpu_torch`` is imported
 (default: the one this script is in), so two commits can be compared on one
 card, each in its own process: run the old tree, the new, the new, the old.
 """
@@ -138,10 +139,13 @@ def serving(args, card):
             end.synchronize()
             if i >= 3:
                 times.append(start.elapsed_time(end))
+        busy16 = device_busy_ms(lambda: st.model.decode(st.model.encode(x)), 10)
+    busy1 = device_busy_ms(lambda: st.decode_latent(st.latents[0]), 10)
     p50 = statistics.median(lat[10:])
     print(f"[serving] {args.root} ico2ico bf16: p50 decode_latent {p50:.3f} ms (host clock, "
-          f"{args.requests} requests); encode+decode B=16 "
-          f"{statistics.median(times):.3f} ms (median of 20, CUDA events) [{card}]", flush=True)
+          f"{args.requests} requests), device busy {busy1:.4f} ms a decode (trace of 10); "
+          f"encode+decode B=16 {statistics.median(times):.3f} ms (median of 20, CUDA events), "
+          f"device busy {busy16:.4f} ms (trace of 10) [{card}]", flush=True)
 
 
 if __name__ == "__main__":

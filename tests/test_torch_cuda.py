@@ -369,6 +369,118 @@ def test_head_bwd_ragged_widths(cuda, C, F, dt):
             _close(x, y, dt)
 
 
+def _head_fwd_inputs(cuda, dt, B, C, F, seed, h=16, w=32, offset=0):
+    """The head's inputs at level (h, w); ``offset``: every phase starts that
+    many elements into its own buffer (not 16-byte aligned for offset 1)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen)
+
+    def phase():
+        n = B * 5 * h * w * C
+        return rnd(n + offset).to(cuda, dt)[offset:].view(B, 5, h, w, C)
+
+    b0, y10 = [phase() for _ in range(4)], [phase() for _ in range(4)]
+    aff = [t.to(cuda) for t in (rnd(C).abs() + 0.5, rnd(C), rnd(C).abs() + 0.5, rnd(C))]
+    W, bias = rnd(C, F, scale=C**-0.5).to(cuda, dt), rnd(F, scale=0.1).to(cuda, dt)
+    tpack = rnd(B, 5, h, w, 4 * F).clamp(-1, 1).to(cuda)
+    tpoles = rnd(B, 2 * F).clamp(-1, 1).to(cuda)
+    return b0, y10, aff, W, bias, tpack, tpoles
+
+
+def _check_head_fwds(args, dt, mse=True):
+    """Both forwards against their plain versions within TOL, each one
+    launch; the MSE forward's sse twice, bit for bit (a fixed order). The
+    forward's outputs are first given memory that holds NaN (blocks of their
+    size freed just before, which the caching allocator hands out again),
+    so a float the kernel leaves unwritten shows."""
+    x0, F = args[0][0], args[3].shape[-1]
+    nan = [torch.full((*x0.shape[:-1], F), float("nan"), device=x0.device) for _ in range(4)]
+    del nan
+    build.reset_launches()
+    got = pk.pair_head_fwd(*args[:5])
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"pair_head_fwd": 1}
+    for u, v in zip(got, pk.pair_head_fwd_plain(*args[:5])):
+        assert u.dtype == torch.float32
+        _close(u, v, dt)
+    if not mse:
+        return
+    sse = pk.pair_head_mse_fwd(*args)
+    assert sse.dtype == torch.float32 and sse.shape == (args[0][0].shape[0],)
+    _close(sse, pk.pair_head_mse_fwd_plain(*args), dt)
+    assert torch.equal(pk.pair_head_mse_fwd(*args), sse)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [1, 16, 36])
+def test_head_fwd_at_the_model_shapes(cuda, B, dt):
+    """The head's forward (``pair_head_fwd``) and the head+MSE forward (g,
+    ``pair_head_mse_fwd``) at the s=5 head (C 64, F 3, the level-4 phases
+    (16, 32)): B=1 (a decode: a group a cell and phase), 16 (serving) and
+    36 (training), against their plain versions within TOL."""
+    _check_head_fwds(_head_fwd_inputs(cuda, dt, B, 64, 3, seed=100 + B), dt)
+
+
+@pytest.mark.parametrize("C, F, dt", [(24, 1, torch.bfloat16), (60, 3, torch.bfloat16),
+                                      (200, 8, torch.bfloat16), (24, 8, torch.float32),
+                                      (62, 1, torch.float32), (200, 3, torch.float32),
+                                      (320, 3, torch.bfloat16), (600, 8, torch.float32),
+                                      (2000, 1, torch.float32), (8, 3, torch.bfloat16),
+                                      (8, 3, torch.float32), (4, 8, torch.float32),
+                                      (16, 8, torch.bfloat16)])
+def test_head_fwd_ragged_widths(cuda, C, F, dt):
+    """Both forwards at widths the model has not, B=3 at level 2, against
+    their plain versions within TOL: C 60 (bf16) and 62 (float32), not a
+    multiple of the 16-byte chunk (channel by channel); F 1 and 8 (W's 8
+    columns held); C 200 (32 lanes a cell; in float32 two rounds of
+    chunks); ``pair_head_fwd`` alone (the head+MSE takes C <= 256) at C 320
+    (bf16) and 600 (float32), several rounds, and at C 2000, F 1, whose
+    shared memory (56 KB) needs the opt-in above 48 KB; groups narrower
+    than F, where a lane writes several of v's floats: C 8 (bf16: 1 lane,
+    float32: 2) with F 3, C 4 (float32) and 16 (bf16) with F 8."""
+    args = _head_fwd_inputs(cuda, dt, 3, C, F, seed=C + F, h=4, w=8)
+    _check_head_fwds(args, dt, mse=C <= 256)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [1, 16])
+def test_head_fwd_unaligned_phases(cuda, B, dt):
+    """Phases that do not start on 16 bytes take the channel-by-channel
+    loads: both forwards within TOL at the model's head shape, and equal
+    bit for bit to the same values read 16 bytes at a time."""
+    args = _head_fwd_inputs(cuda, dt, B, 64, 3, seed=110 + B, offset=1)
+    assert args[0][0].data_ptr() % 16 != 0
+    _check_head_fwds(args, dt)
+    aligned = ([t.clone() for t in args[0]], [t.clone() for t in args[1]], *args[2:])
+    assert aligned[0][0].data_ptr() % 16 == 0
+    _equal_all(pk.pair_head_fwd(*aligned[:5]), pk.pair_head_fwd(*args[:5]))
+    assert torch.equal(pk.pair_head_mse_fwd(*aligned), pk.pair_head_mse_fwd(*args))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_head_kernels_share_one_cell_order(cuda, dt):
+    """The head forms v in one order: sample 0's v from a B=16 call (a group
+    a cell, 4 phases) equals a B=1 call's (a group a cell and phase) bit
+    for bit, and the MSE forward's sse equals the squared error of the
+    forward's own v (poles included), summed in float64, within float32
+    summation noise (1e-5·sse)."""
+    b0, y10, aff, W, bias, tpack, tpoles = _head_fwd_inputs(cuda, dt, 16, 64, 3, seed=120)
+    full = pk.pair_head_fwd(b0, y10, aff, W, bias)
+    one = pk.pair_head_fwd([t[:1] for t in b0], [t[:1] for t in y10], aff, W, bias)
+    _equal_all(one, tuple(v[:1] for v in full))
+    v = [t.double() for t in full]
+    sse = sum(((vp - tpack[..., p * 3:(p + 1) * 3].double()) ** 2).sum(dim=(1, 2, 3, 4))
+              for p, vp in enumerate(v))
+    pn = sum(v[0][:, c, 0, 0] for c in range(5)) * 0.2
+    ps = sum(v[3][:, c, -1, -1] for c in range(5)) * 0.2
+    sse = (sse + ((pn - tpoles[:, :3].double()) ** 2).sum(1)
+           + ((ps - tpoles[:, 3:].double()) ** 2).sum(1))
+    got = pk.pair_head_mse_fwd(b0, y10, aff, W, bias, tpack, tpoles).double()
+    assert ((got - sse).abs() <= 1e-5 * sse).all(), (got - sse).abs().max().item()
+
+
 def test_vae_default_training_route_launches_every_vae_training_kernel(cuda):
     """One training forward and backward of the default VAE (every block and
     the heads on the kernels, eps fixed) under a linear loss of (recon, mu,

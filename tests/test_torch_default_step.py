@@ -193,6 +193,37 @@ def test_pair_head_mse_matches_pallas(interpret, s):
     assert not np.any(np.asarray(dtp)) and not np.any(np.asarray(dtpoles))
 
 
+@pytest.mark.parametrize("s", [2, 3])
+def test_pair_head_mse_matches_pallas_in_bf16(interpret, s):
+    """The same in bfloat16 (the phases, W and bias rounded to bf16 from the
+    same float32 values on both sides), as the card holds the bf16 kernels g
+    and h to these plain versions: the per-sample sse, the 8 phase
+    cotangents (bf16), dW, dbias (in W's dtype) and the affine gradients
+    within 2e-2·max|ref| (TOL[bf16] of the card tests), as z's float32 sums
+    in two orders may round to bf16 one ulp apart."""
+    tol = 2e-2
+    b0, y10, aff, W, bias, tpack, tpoles = _head_inputs(50 + s, s=s, C=16)
+    bf = jnp.bfloat16
+    args = ([jnp.asarray(a).astype(bf) for a in b0], [jnp.asarray(a).astype(bf) for a in y10],
+            j(aff), jnp.asarray(W).astype(bf), jnp.asarray(bias).astype(bf), j(tpack), j(tpoles))
+    sse, vjp = jax.vjp(lambda *a: jpk.fused_pair_head_mse(*a), *args)
+    targs = ([a.bfloat16() for a in t(b0)], [a.bfloat16() for a in t(y10)], t(aff),
+             t(W).bfloat16(), t(bias).bfloat16(), t(tpack), t(tpoles))
+    got = pk.pair_head_mse_fwd(*targs)
+    assert got.dtype == torch.float32
+    _close(got, sse, tol)
+    g = np.array([1.5, -0.5], np.float32)
+    db0, dy10, daff, dW, dbias, _, _ = vjp(jnp.asarray(g))
+    got = pk.pair_head_mse_bwd(torch.from_numpy(g), *targs)
+    for a, b in zip((*got[0], *got[1]), (*db0, *dy10)):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, tol)
+    _close(got[2], dW, tol)
+    _close(got[3], dbias, tol)
+    for a, b in zip(got[4:], daff):
+        _close(a, b, tol)
+
+
 def test_fused_pair_head_mse_grads_match_jax(interpret):
     b0, y10, aff, W, bias, tpack, tpoles = _head_inputs(40)
     inputs = [*b0, *y10, *aff, W, bias]

@@ -168,6 +168,24 @@ def test_pair_head_plain_matches_pallas_interpret(interpret):
         _close(a, b)
 
 
+@pytest.mark.parametrize("C", [8, 20])
+def test_pair_head_plain_matches_pallas_interpret_in_bf16(interpret, C):
+    """The same in bfloat16 (the phases, W and bias rounded to bf16 from the
+    same float32 values on both sides; the affines stay float32), as the card
+    holds the bf16 kernel to this plain version: within TOL[bf16] =
+    2e-2·max|ref|, as z's float32 sums in two orders may round to bf16 one
+    ulp apart before tanh."""
+    b0, y10, aff, W, bias = _head_inputs(6, B=1, C=C)
+    bf = jnp.bfloat16
+    ref = jpk.fused_pair_head([a.astype(bf) for a in _j(*b0)], [a.astype(bf) for a in _j(*y10)],
+                              _j(*aff), jnp.asarray(W).astype(bf), jnp.asarray(bias).astype(bf))
+    got = pk.pair_head_fwd([a.bfloat16() for a in _t(*b0)], [a.bfloat16() for a in _t(*y10)],
+                           _t(*aff), *[a.bfloat16() for a in _t(W, bias)])
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        _close(a, b, TOL[torch.bfloat16])
+
+
 def test_pair_head_plain_matches_xla():
     b0, y10, aff, W, bias = _head_inputs(5)
     m1, a1, m2, a2 = _j(*aff)
@@ -311,6 +329,21 @@ def test_wrappers_reject_other_out_phases():
     phases, (ta, _), _ = _phase_inputs(2, 3, 4, seed=8)
     with pytest.raises(ValueError):
         pk.phase_conv_fwd(_t(*phases), [(_t(ta)[0], None)], out_phases=(0, 1))
+
+
+def test_head_constants_mirror_the_source():
+    """``build``'s sizes of the pair head's scratch say what
+    ``csrc/pair_head.cu`` launches: the MSE forward's partials (one a
+    HEAD_MSE_CELLS cells of a sample) and the backward's grid."""
+    import re
+
+    src = (build.CSRC / "pair_head.cu").read_text()
+    for name in ("HEAD_MSE_CELLS", "HEAD_BWD_BLOCKS", "HEAD_CELLS_A_BLOCK"):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == getattr(
+            build, name)
+    assert build.head_mse_parts(36, 16, 32) == 36 * 40
+    assert build.head_mse_parts(1, 2, 4) == 1
+    assert build.head_bwd_blocks(36, 16, 32) == build.HEAD_BWD_BLOCKS
 
 
 def test_kernels_build_inside_the_checkout():

@@ -81,9 +81,9 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
                                "3>((anonymous namespace)::HeadBwdArgs<__nv_bfloat16>)"},
      "phmse_bwd (head+MSE bwd, kernel h)"),
     ({"cat": "kernel", "name": "void phmse_fwd_kernel<__nv_bfloat16>(HeadIn<__nv_bfloat16>)"},
-     "phmse (head+MSE fwd, poles)"),
+     "phmse_fwd (head+MSE fwd, kernel g)"),
     ({"cat": "kernel", "name": "void phmse_poles_kernel<float>(HeadIn<float>)"},
-     "phmse (head+MSE fwd, poles)"),
+     "phmse_poles (pole pass, g and h)"),
     ({"cat": "kernel", "name": "void (anonymous namespace)::phead_bwd_kernel<__nv_bfloat16>("
                                "(anonymous namespace)::HeadIn<__nv_bfloat16>)"},
      "phead_bwd (head bwd, kernel e)"),
