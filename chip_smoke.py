@@ -50,7 +50,11 @@ printed on its own lines, each fatal on failure:
    the fold in the kernels and without; o (``up_block_fwd``) and p
    (``dn_block_fwd``) at every block they run at, each beside the split
    pair it replaces (the first conv with stats; bn00's affine and conv01
-   with stats) and cuDNN's two contractions. The bf16 forward of the up
+   with stats) and cuDNN's two contractions; in bf16 each of their eight
+   outputs must equal the split route's bit for bit, and they print their
+   cooperative kernel's device time beside the split pair's kernels', its
+   registers and blocks an SM; the head's training kernels (g, h, e) also
+   at a head of 320 channels. The bf16 forward of the up
    conv and of n (serving and training shapes), their dtaps (d, n's),
    the grid convs' forward and dtaps (b, f; a C_in of at most 64 on the
    dtaps' NARROW tile) and the phase conv's, up conv's and standard
@@ -106,7 +110,7 @@ path), its bf16 time, its plain version's, its bound and the library
 call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
 ``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
-shapes, the VAE's new shapes and the chains'); the last is ``{"ok": true, "device":
+shapes, the VAE's new shapes, the chains' and the wide head's); the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits with an error before
 printing any result.
 """
@@ -196,11 +200,10 @@ KERNELS = {
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
-# the grid convs' forward and dtaps (the grid convs' dtaps: b, f) and the
-# phase conv's, the up conv's and the standard conv's dx (a, c, f) run an
-# operand pass of
-# csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
-# csrc/mma_dtaps.cuh
+# the grid convs' forward and dtaps (the grid convs' dtaps: b, f), the
+# phase conv's, the up conv's and the standard conv's dx (a, c, f) and the
+# merged blocks (o, p) run an operand pass of csrc/mma.cuh and the
+# tensor-core GEMMs of csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
               for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
@@ -208,7 +211,13 @@ SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
                         "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
-                        "ico_conv_s2s_dx")}}
+                        "ico_conv_s2s_dx")},
+           # o and p: float32 block_fwd.cuh's SIMT tiles; bf16 the split
+           # route's tensor-core passes in one cooperative launch
+           **{k: ("geniconet_tpu_torch/csrc/mma_block_fwd.cuh",
+                  "geniconet_tpu_torch/csrc/block_fwd.cuh",
+                  "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
+              for k in ("up_block_fwd", "dn_block_fwd")}}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -407,14 +416,16 @@ class Case:
     kernel's parts from a trace (``mma_parts``, bf16: the up conv's, n's
     and the grid convs' forward, d's, n's, b's and f's dtaps, a's, c's and
     f's dx; ``head_parts``: the pair head's forwards and backwards, the
-    head's, g, e and h)."""
+    head's, g, e and h; ``block_parts``: o's and p's cooperative kernel).
+    ``exact``: in bf16, a call that checks the kernel's outputs equal the
+    split route's bit for bit (o, p) and returns what it compared."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
-                 parts=None):
+                 parts=None, exact=None):
         self.kernel, self.plain, self.flops, self.library = kernel, plain, flops, library
         self.split, self.compare, self.short = split, compare or {}, short
-        self.parts = parts
+        self.parts, self.exact = parts, exact
         self.split_keys, self.split_labels = split_keys, split_labels
         self.inputs = [t for t in flat(inputs) if t is not None]
 
@@ -459,6 +470,16 @@ def head_parts(call, inputs, main):
             "head_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "poles_ms": sum(v for k, v in rows.items() if k.startswith("phmse_poles")),
             "sum_ms": sum(v for k, v in rows.items() if k.startswith("sum_rows"))}
+
+
+def block_parts(call, split, info):
+    """o's or p's parts (bf16) from a trace: the cooperative kernel's device
+    time against the split pair's kernels' (``split``: its two calls), and
+    ``info``, the kernel's registers a thread, blocks an SM, shared and
+    local memory (``build.block_fwd_info``)."""
+    block = sum(trace_kernels(call, per_launch=True).values())
+    pair = sum(sum(trace_kernels(f, per_launch=True).values()) for f in split)
+    return {"block_ms": block, "split_device_ms": pair, **info}
 
 
 def up_operand(B, h, w, cin):
@@ -1055,11 +1076,45 @@ def training_cases():
 
                 lib_a = cudnn("fwd", gen, dt, B * 5, cin, 2 * c0, 2 * h + 1, 2 * w + 2, 2)
                 lib_b = cudnn("fwd", gen, dt, B * 5, c0, c2, h + 2, w + 2)
-            return Case(lambda: fn(*args), lambda: plain(*args),
+            def exact():
+                """o's or p's 8 outputs against the split route's: the first
+                conv with stats, then the second on the kernel's y00 and
+                affine; the affine against bn_affine_plain's on the card
+                (mul within one float32 ulp, rsqrtf against PyTorch's rsqrt,
+                as the card tests hold it; add the formula on that mul)."""
+                b0, y10, y00_k, s00_k, s01, s10, mul, add = fn(*args)
+                if kind == "up":
+                    (r00, r10), (rs00, rs10) = first()
+                    (rb0,), (rs01,) = pk.phase_conv_fwd(y00_k, sets[2:], "average", _ALL,
+                                                        (mul, add), True)
+                else:
+                    ((r00,), (r10,)), (rs00, rs10) = first()
+                    rb0, rs01 = ck.ico_conv_s2s_fwd(y00_k, *sets[2], "average", (mul, add), True)
+                pairs = {"y00": (y00_k, r00), "y10": (y10, r10), "s00": (s00_k, rs00),
+                         "s10": (s10, rs10), "b0": (b0, rb0), "s01": (s01, rs01)}
+                for key, (u, v) in pairs.items():
+                    if not all(torch.equal(g, r) for g, r in zip(flat(u), flat(v))):
+                        raise AssertionError(f"{'o' if kind == 'up' else 'p'}: bf16 {key} "
+                                             "differs from the split route's")
+                ref_mul, _ = pk.bn_affine_plain(s00_k, count, gamma, beta)
+                ulp = torch.nextafter(ref_mul.abs(), torch.tensor(math.inf, device="cuda"))
+                if not (bool(((mul - ref_mul).abs() <= ulp - ref_mul.abs()).all())
+                        and torch.equal(add, beta - s00_k[0] / count * mul)):
+                    raise AssertionError(f"{'o' if kind == 'up' else 'p'}: bf16 mul00/add00 "
+                                         "are not bn00's affine")
+                return (f"y00, y10, s00, s10, b0, s01 and add00 (mul00 "
+                        f"{'equal' if torch.equal(mul, ref_mul) else 'within one ulp'})")
+
+            info = build.block_fwd_info(kind == "up") if dt == torch.bfloat16 else None
+            call = lambda: fn(*args)  # noqa: E731
+            return Case(call, lambda: plain(*args),
                         conv_flops(B, rows, cin, 2 * c0) + conv_flops(B, rows, c0, c2),
                         [x, sets, gamma, beta, a], lambda: (lib_a(), lib_b()), (first, second),
                         split_keys=("first", "second"),
-                        split_labels=("conv00+conv10 + stats", "affine + conv01 + stats"))
+                        split_labels=("conv00+conv10 + stats", "affine + conv01 + stats"),
+                        parts=(lambda: block_parts(call, (first, second), info)
+                               ) if info is not None else None,
+                        exact=exact)
         return make
 
     conv01 = [("up0 conv01 (4,8) 256->256", (4, 8, w2, w2)),
@@ -1095,6 +1150,11 @@ def training_cases():
                          emit_gsum=True))]
     cases += [(f"pair_head_mse_{which}", "head (16,32) 64->3", head_mse(which, 16, 32, w0))
               for which in ("fwd", "bwd")]
+    # a head wider than 256 channels (widths (320, ...)): g, h and e, whose
+    # backward walks the cell in rounds
+    wide = [(f"pair_head_mse_{which}", "head (16,32) 320->3", head_mse(which, 16, 32, 320))
+            for which in ("fwd", "bwd")]
+    wide += [("pair_head_bwd", "head (16,32) 320->3", head_bwd(16, 32, 320))]
     # the AE's DownBlocks after down0 run their stride-2 convs without an act
     # prologue (the pending BN-apply is down0's alone)
     no_act = [(f"phase_conv_{which}", f"{label} fold (no act)",
@@ -1174,7 +1234,8 @@ def training_cases():
     vae += [("up_block_fwd", f"{up0[0]}, conv01 {w2}", block("up", *up0[1], w2))]
     return ([(*c, "AE") for c in cases + merged + blocks]
             + [(*c, "AE no act") for c in no_act]
-            + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain])
+            + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain]
+            + [(*c, "wide head") for c in wide])
 
 
 def flat(out):
@@ -1247,8 +1308,18 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if not finite or not rel <= TOL[dt]:
                 raise AssertionError(f"{name} {label} {tag}: error {err} over tolerance "
                                      f"{TOL[dt]} x {scale} (finite={finite})")
+            if case.exact is not None and dt == torch.bfloat16:
+                print(f"[{phase}] {name} {label} {tag}: {case.exact()} equal the split route's "
+                      f"bit for bit [{card}]", flush=True)
             p = case.parts() if case.parts is not None else None
-            if p is not None and "head_ms" in p:
+            if p is not None and "block_ms" in p:
+                print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): the "
+                      f"cooperative kernel {p['block_ms']:.4f} ms against the split pair's "
+                      f"kernels {p['split_device_ms']:.4f} ms "
+                      f"({p['block_ms'] / p['split_device_ms']:.3f}x); {p['registers']} "
+                      f"registers a thread, {p['blocks_per_sm']} blocks an SM, {p['smem_bytes']} "
+                      f"B shared, {p['local_bytes']} B local [{card}]", flush=True)
+            elif p is not None and "head_ms" in p:
                 print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): main "
                       f"pass {p['head_ms']:.4f} ms = {p['head_gbs']:.1f} GB/s (bound "
                       f"{p['head_bound_ms']:.4f} ms, bytes, at {PEAK_BYTES / 1e9:.0f} GB/s), "
@@ -1470,7 +1541,8 @@ def kernel_group(event: dict) -> str:
     if "merged_bwd" in name:  # kernels i and k share the GridLoad instantiation
         return f"merged_bwd<{dtype}, {loader}>"
     if "two_pass_block" in name:  # the merged blocks: o (UpLoad), p (GridLoad)
-        return f"two_pass_block<{dtype}, {loader}> ({'o' if loader == 'UpLoad' else 'p'})"
+        kind = "mma_" if "mma_two_pass_block" in name else ""  # bf16: the tensor cores
+        return f"{kind}two_pass_block<{dtype}, {loader}> ({'o' if loader == 'UpLoad' else 'p'})"
     if "sum_rows" in name or "colsum" in name or "sum_chunks" in name:
         return "sum_rows + colsum (cross-block sums)"
     if "pair_head_kernel" in name:

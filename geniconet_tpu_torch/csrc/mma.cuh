@@ -14,6 +14,21 @@
 
 namespace gn {
 
+// 8 channels of an operand row as they are stored (16 bytes in bf16), and
+// their store: element i of an operand of ldk = 8 * chunks channels a row is
+// row i / chunks, channels (i % chunks) * 8 .., at out + 8 i.
+template <typename T>
+struct Chunk8 {
+  alignas(16) T v[8];
+};
+
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* __restrict__ out, long long i, const Chunk8<T>& p) {
+  uint4* dst = reinterpret_cast<uint4*>(out + i * 8);
+#pragma unroll
+  for (int j = 0; j < (int)sizeof(p) / 16; ++j) dst[j] = reinterpret_cast<const uint4*>(p.v)[j];
+}
+
 // the operand rows' layout, shared by the passes and the GEMMs' loader: per
 // sample its n_src * 5hw cells (4 phases, or 1 standard grid), then its 2
 // pole rows; after the last sample one zero row
@@ -21,16 +36,21 @@ __host__ __device__ __forceinline__ int operand_width(int cin) { return (cin + 7
 __host__ __device__ __forceinline__ int operand_per_sample(int hw5, int n_src = 4) {
   return n_src * hw5 + 2;
 }
+// the 8-channel elements of an operand of cin channels a row
+inline long long operand_total(int B, int hw5, int n_src, int cin) {
+  return ((long long)B * operand_per_sample(hw5, n_src) + 1) * (operand_width(cin) / 8);
+}
 
 // The operand pass's loads 8 channels at a time, where C_in is a multiple
 // of 8 (16-byte rows): gn::UpLoad's pcell / ucell / pole arithmetic, value
 // by value in its order and roundings, on the 8 channels of a Cells8.
-template <typename T>
+// COHERENT: through L2 only (data written earlier in the same launch).
+template <bool COHERENT = false, typename T>
 __device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
   alignas(16) T t[8];
 #pragma unroll
   for (int j = 0; j < (int)sizeof(t) / 16; ++j)
-    reinterpret_cast<uint4*>(t)[j] = reinterpret_cast<const uint4*>(p)[j];
+    reinterpret_cast<uint4*>(t)[j] = load<COHERENT>(reinterpret_cast<const uint4*>(p) + j);
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = to_f(t[e]);
 }
@@ -121,16 +141,13 @@ bool aligned16(const PairCells<T>& c) {
   return true;
 }
 
-// One thread: one operand row, 8 channels, of a level-s grid (for n, the
-// pair joined by pair_join_pass; Tag names the instantiation: GridCells for
-// d, PairCells for n). vec: C_in is a multiple of 8 and the grid's rows are
-// 16-byte aligned, so loads take 8 channels at a time.
-template <typename T, typename Tag>
-__global__ void __launch_bounds__(256)
-up_operand_pass(UpLoad<T> ld, T* __restrict__ out, int B, int zero_poles, int vec,
-                long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+// Element i of a level-s grid's upsampled operand (for n, the pair joined
+// by pair_join_pass): 8 channels of one operand row. vec: C_in is a
+// multiple of 8 and the grid's rows are 16-byte aligned, so loads take 8
+// channels at a time.
+template <typename T>
+__device__ __forceinline__ Chunk8<T> up_operand_chunk(const UpLoad<T>& ld, int B, int zero_poles,
+                                                      int vec, long long i) {
   const int ldk = operand_width(ld.cin), chunks = ldk / 8;
   const long long r = i / chunks;
   const int c = (int)(i - r * chunks);
@@ -164,12 +181,20 @@ up_operand_pass(UpLoad<T> ld, T* __restrict__ out, int B, int zero_poles, int ve
              : pole ? ld(b, rr == phases ? NORTH : SOUTH, k) : ld.ucell(b, rr, k);
     }
   }
-  alignas(16) T pack[8];
+  Chunk8<T> pack;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) pack[e] = from_f<T>(v[e]);
-  uint4* dst = reinterpret_cast<uint4*>(out + r * ldk + c * 8);
-#pragma unroll
-  for (int j = 0; j < (int)sizeof(pack) / 16; ++j) dst[j] = reinterpret_cast<const uint4*>(pack)[j];
+  for (int e = 0; e < 8; ++e) pack.v[e] = from_f<T>(v[e]);
+  return pack;
+}
+
+// One thread an element of up_operand_chunk (Tag names the instantiation:
+// GridCells for d, PairCells for n).
+template <typename T, typename Tag>
+__global__ void __launch_bounds__(256)
+up_operand_pass(UpLoad<T> ld, T* __restrict__ out, int B, int zero_poles, int vec,
+                long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total) store_chunk(out, i, up_operand_chunk(ld, B, zero_poles, vec, i));
 }
 
 // One thread: 8 channels of one cell of the level-s grid that a pair joins
@@ -204,8 +229,7 @@ pair_join_pass(PairCells<T> x, T* __restrict__ out, int hw5, int cin, int vec, l
 template <typename T, typename Tag>
 cudaError_t launch_upsampled_operand(const UpLoad<T>& ld, T* out, int B, int zero_poles,
                                      cudaStream_t stream) {
-  const long long rows = (long long)B * operand_per_sample(ld.hw5) + 1;
-  const long long total = rows * (operand_width(ld.cin) / 8);
+  const long long total = operand_total(B, ld.hw5, 4, ld.cin);
   const int vec = ld.cin % 8 == 0 && aligned16(ld.x);
   up_operand_pass<T, Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       ld, out, B, zero_poles, vec, total);
@@ -249,22 +273,41 @@ cudaError_t launch_up_operand(const UpLoad<T, PairCells<T>>& ld, T* out, T* join
 // under corner_mode "zeros"), or the zero row. A cell's source-space code
 // s * 5hw + cell is its row within the sample, so GridLoad names both. vec:
 // C_in is a multiple of 8 and the sources 16-byte aligned (8-channel
-// loads); otherwise channel by channel through GridLoad itself. Tag names
-// the instantiation (the phase conv's or the standard conv's) for a profile.
-template <typename T>
-__device__ __forceinline__ void act8(const GridLoad<T>& ld, const Cells8<GridCells<T>>& x, int b,
-                                     int r, float (&v)[8]) {
-  x(b, r, v);
+// loads); otherwise channel by channel through GridLoad itself. COHERENT:
+// the sources and the act were written earlier in the same launch (the
+// merged blocks' pass B), so every read of them goes through L2 (load<true>),
+// but where ACT_SHARED: there the 8-channel path's mul and add are a copy in
+// shared memory, 16-byte aligned, read 4 channels a load (read through L2 at
+// every chunk, 16 loads of them, the pass took 5-6x the split route's time;
+// 16 loads of the shared copy, 1.2-1.5x its time with 4).
+template <bool ACT_SHARED, typename T, bool COHERENT>
+__device__ __forceinline__ void act8(const GridLoad<T, COHERENT>& ld, const T* src, int b, int r,
+                                     int k0, float (&v)[8]) {
+  load8<COHERENT>(src + ((size_t)b * ld.hw5 + r) * ld.cin + k0, v);
+  if constexpr (ACT_SHARED) {  // act_apply's arithmetic, 8 channels' mul and add in 4 loads
+    float m[8], a[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = act_apply<T>(v[e], ld.mul, ld.add, x.k0 + e);
+    for (int j = 0; j < 2; ++j) {
+      const float4 mj = reinterpret_cast<const float4*>(ld.mul + k0)[j];
+      const float4 aj = reinterpret_cast<const float4*>(ld.add + k0)[j];
+      m[4 * j] = mj.x, m[4 * j + 1] = mj.y, m[4 * j + 2] = mj.z, m[4 * j + 3] = mj.w;
+      a[4 * j] = aj.x, a[4 * j + 1] = aj.y, a[4 * j + 2] = aj.z, a[4 * j + 3] = aj.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v[e], m[e]), a[e]), 0.f));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = act_apply<T, COHERENT>(v[e], ld.mul, ld.add, k0 + e);
+  }
 }
 
-template <typename T, typename Tag>
-__global__ void __launch_bounds__(256)
-grid_operand_pass(GridLoad<T> ld, T* __restrict__ out, int B, int n_src, int zero_poles, int vec,
-                  long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+// Element i of a grid conv's operand over n_src sources: 8 channels of one
+// operand row (ACT_SHARED: as act8).
+template <bool ACT_SHARED = false, typename T, bool COHERENT>
+__device__ __forceinline__ Chunk8<T> grid_operand_chunk(const GridLoad<T, COHERENT>& ld, int B,
+                                                        int n_src, int zero_poles, int vec,
+                                                        long long i) {
   const int ldk = operand_width(ld.cin), chunks = ldk / 8;
   const long long r = i / chunks;
   const int c = (int)(i - r * chunks);
@@ -277,15 +320,13 @@ grid_operand_pass(GridLoad<T> ld, T* __restrict__ out, int B, int n_src, int zer
   if (live && vec) {
     if (!pole) {
       const int s = rr / ld.hw5;
-      act8(ld, Cells8<GridCells<T>>({pick4(ld.src, s)}, c * 8, ld.hw5, ld.cin), b,
-           rr - s * ld.hw5, v);
+      act8<ACT_SHARED>(ld, pick4(ld.src, s), b, rr - s * ld.hw5, c * 8, v);
     } else {  // 5-chart mean of the sources' pole cells
       const bool north = rr == cells;
-      const Cells8<GridCells<T>> x({north ? ld.src[0] : pick4(ld.src, ld.south_src)}, c * 8,
-                                   ld.hw5, ld.cin);
+      const T* src = north ? ld.src[0] : pick4(ld.src, ld.south_src);
       for (int ch = 0; ch < 5; ++ch) {
         float t[8];
-        act8(ld, x, b, ch * ld.hw + (north ? 0 : ld.hw - 1), t);
+        act8<ACT_SHARED>(ld, src, b, ch * ld.hw + (north ? 0 : ld.hw - 1), c * 8, t);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] += t[e];
       }
@@ -298,25 +339,40 @@ grid_operand_pass(GridLoad<T> ld, T* __restrict__ out, int B, int n_src, int zer
     for (int e = 0; e < 8; ++e)
       if (c * 8 + e < ld.cin) v[e] = ld(b, code, c * 8 + e);
   }
-  alignas(16) T pack[8];
+  Chunk8<T> pack;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) pack[e] = from_f<T>(v[e]);
-  uint4* dst = reinterpret_cast<uint4*>(out + r * ldk + c * 8);
-#pragma unroll
-  for (int j = 0; j < (int)sizeof(pack) / 16; ++j) dst[j] = reinterpret_cast<const uint4*>(pack)[j];
+  for (int e = 0; e < 8; ++e) pack.v[e] = from_f<T>(v[e]);
+  return pack;
 }
+
+// One thread an element of grid_operand_chunk; Tag names the instantiation
+// (the phase conv's or the standard conv's) for a profile.
+template <typename T, typename Tag>
+__global__ void __launch_bounds__(256)
+grid_operand_pass(GridLoad<T> ld, T* __restrict__ out, int B, int n_src, int zero_poles, int vec,
+                  long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total) store_chunk(out, i, grid_operand_chunk(ld, B, n_src, zero_poles, vec, i));
+}
+
+// Whether a grid conv's n_src sources are read 8 channels at a time: C_in
+// a multiple of 8 and every source 16-byte aligned.
+template <typename T, bool COHERENT>
+int grid_operand_vec(const GridLoad<T, COHERENT>& ld, int n_src) {
+  int vec = ld.cin % 8 == 0;
+  for (int s = 0; s < n_src; ++s) vec = vec && aligned16(ld.src[s]);
+  return vec;
+}
+
 
 // Write the (B * (n_src * 5hw + 2) + 1, operand_width(cin)) operand of a
 // grid conv's n_src sources (ld.src[0 .. n_src-1]).
 template <typename T, typename Tag>
 cudaError_t launch_grid_operand(const GridLoad<T>& ld, T* out, int B, int n_src, int zero_poles,
                                 cudaStream_t stream) {
-  const long long rows = (long long)B * operand_per_sample(ld.hw5, n_src) + 1;
-  const long long total = rows * (operand_width(ld.cin) / 8);
-  int vec = ld.cin % 8 == 0;
-  for (int s = 0; s < n_src; ++s) vec = vec && aligned16(ld.src[s]);
+  const long long total = operand_total(B, ld.hw5, n_src, ld.cin);
   grid_operand_pass<T, Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      ld, out, B, n_src, zero_poles, vec, total);
+      ld, out, B, n_src, zero_poles, grid_operand_vec(ld, n_src), total);
   return cudaGetLastError();
 }
 

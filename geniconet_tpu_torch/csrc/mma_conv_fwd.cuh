@@ -115,15 +115,11 @@ struct FwdOut {
 };
 
 // packed[t * Kp + k][n] = taps[n / cout][t][k][n % cout] for k < cin and
-// n < n_sets * cout, else 0; (7 * Kp, Np). (A template, as every kernel of
-// a header that two sources include; Tag, the GEMM's, names the
-// instantiation for a profile.)
-template <typename T, typename Tag>
-__global__ void __launch_bounds__(256)
-pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ out, int cin,
-          int cout, int n_sets, int Kp, int Np, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+// n < n_sets * cout, else 0; (7 * Kp, Np): element i of the 7 Kp Np.
+template <typename T>
+__device__ __forceinline__ void pack_tap(const T* __restrict__ w0, const T* __restrict__ w1,
+                                         T* __restrict__ out, int cin, int cout, int n_sets,
+                                         int Kp, int Np, long long i) {
   const long long r = i / Np;
   const int n = (int)(i - r * Np), t = (int)(r / Kp), k = (int)(r - (long long)t * Kp);
   T v = from_f<T>(0.f);
@@ -132,6 +128,17 @@ pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ ou
     v = (s ? w1 : w0)[((size_t)t * cin + k) * cout + (n - s * cout)];
   }
   out[i] = v;
+}
+
+// One thread an element of pack_tap. (A template, as every kernel of a
+// header that two sources include; Tag, the GEMM's, names the
+// instantiation for a profile.)
+template <typename T, typename Tag>
+__global__ void __launch_bounds__(256)
+pack_taps(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ out, int cin,
+          int cout, int n_sets, int Kp, int Np, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total) pack_tap(w0, w1, out, cin, cout, n_sets, Kp, Np, i);
 }
 
 // packed[t * Kp + n][k] = taps[n / cout][t][k][n % cout] for n < n_sets *
@@ -157,9 +164,10 @@ pack_taps_t(const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ 
 // Where an epilogue thread stands: acc[mi][ni][e] of the GEMM holds row q0 +
 // wm * 64 + mi * 16 + lane / 4 (+ 8 for e >= 2) and column n0 + wn * 32 +
 // ni * 8 + 2 * (lane % 4) (+ 1 for odd e); a sample has `per` rows, slot
-// by slot of M cells.
+// by slot of M cells. The tile's row of the partials is q0 / BM.
 struct EpiPos {
   int q0, n0, wm, wn, lane, tid, Q, M, per;
+  __device__ __forceinline__ size_t row_tile() const { return (size_t)(q0 / fwd::BM); }
   __device__ __forceinline__ int col(int ni) const {
     return n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
   }
@@ -267,7 +275,7 @@ struct FwdEpi {
         }
       }
     if constexpr (STATS)
-      block_column_sums(csum, csq, smem_raw, p, o.stats + (size_t)blockIdx.y * 2 * Ntot, Ntot);
+      block_column_sums(csum, csq, smem_raw, p, o.stats + p.row_tile() * 2 * Ntot, Ntot);
   }
 };
 
@@ -357,7 +365,7 @@ struct DxEpi {
         }
       }
     if constexpr (ACT)
-      block_column_sums(su, sv, smem_raw, p, o.red + (size_t)blockIdx.y * 2 * cin, cin);
+      block_column_sums(su, sv, smem_raw, p, o.red + p.row_tile() * 2 * cin, cin);
   }
 };
 
@@ -395,30 +403,34 @@ struct DuEpi {
   }
 };
 
-// The GEMM over Q = B * n_out * M rows, output phase slot s reading the
-// conv table of output phase out_phase0 + s, with the epilogue Epi (the
-// forward's FwdEpi; a's DxEpi, c's DuEpi). Block (column tile, row tile);
-// 7 * Kp / BK steps, or with Epi::kMasked and a tap_mask only the taps of
-// the row tile's mask byte (tap_mask[(q0 % mask_period) / BM]; a tile
-// whose codes for a tap are all ZERO reads only zeros there). Tag
-// (GridCells, PairCells, PhaseGrid or StdGrid) names the instantiation,
-// so a profile tells the up conv's launches from n's and the grid convs';
-// the code is one.
-template <typename Tag, typename Epi>
-__global__ void __launch_bounds__(fwd::NT, 2)
-mma_conv(OperandRows ld, const __nv_bfloat16* __restrict__ wp, Epi epi, int out_phase0,
-         int n_out, int Q, int Np, int ksteps, const unsigned char* __restrict__ tap_mask,
-         int mask_period) {
+// One tile of the GEMM over Q = B * n_out * M rows, output phase slot s
+// reading the conv table of output phase out_phase0 + s, with the epilogue
+// Epi (the forward's FwdEpi; a's DxEpi, c's DuEpi): column tile bx, row tile
+// by; 7 * Kp / BK steps, or with Epi::kMasked and a tap_mask only the taps
+// of the row tile's mask byte (tap_mask[(q0 % mask_period) / BM]; a tile
+// whose codes for a tap are all ZERO reads only zeros there). smem_raw:
+// the ring, fwd::SMEM bytes. Every thread of the block calls it; on return
+// its copies have landed, and the epilogue may still read the ring (a
+// caller that runs another tile passes a __syncthreads first). The
+// standalone GEMM (mma_conv) and the merged blocks' cooperative launch
+// (mma_block_fwd.cuh) run this one function.
+template <typename Epi>
+__device__ __forceinline__ void mma_conv_tile(const OperandRows& ld,
+                                              const __nv_bfloat16* __restrict__ wp,
+                                              const Epi& epi, int out_phase0, int n_out, int Q,
+                                              int Np, int ksteps,
+                                              const unsigned char* __restrict__ tap_mask,
+                                              int mask_period, int bx, int by,
+                                              unsigned char* smem_raw) {
   using bf16 = __nv_bfloat16;
   constexpr int BM = fwd::BM, BN = fwd::BN, BK = fwd::BK, STAGES = fwd::STAGES;
   constexpr int A_LDS = fwd::A_LDS, B_LDS = fwd::B_LDS, A_TILE = fwd::A_TILE;
   constexpr int STAGE = fwd::STAGE;
   constexpr bool MASKED = Epi::kMasked;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, q0 = blockIdx.y * BM;
+  const int n0 = bx * BN, q0 = by * BM;
   const int M = ld.M;
   unsigned taps = 0x7Fu;
   if (MASKED && tap_mask != nullptr) taps = tap_mask[(q0 % mask_period) / BM];
@@ -519,6 +531,20 @@ mma_conv(OperandRows ld, const __nv_bfloat16* __restrict__ wp, Epi epi, int out_
 
   const EpiPos p = {q0, n0, wm, wn, lane, tid, Q, M, n_out * M};
   epi(acc, p, smem_raw);
+}
+
+// The GEMM as one launch: block (column tile, row tile). Tag (GridCells,
+// PairCells, PhaseGrid or StdGrid) names the instantiation, so a profile
+// tells the up conv's launches from n's and the grid convs'; the code is
+// one.
+template <typename Tag, typename Epi>
+__global__ void __launch_bounds__(fwd::NT, 2)
+mma_conv(OperandRows ld, const __nv_bfloat16* __restrict__ wp, Epi epi, int out_phase0,
+         int n_out, int Q, int Np, int ksteps, const unsigned char* __restrict__ tap_mask,
+         int mask_period) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mma_conv_tile(ld, wp, epi, out_phase0, n_out, Q, Np, ksteps, tap_mask, mask_period, blockIdx.x,
+                blockIdx.y, smem_raw);
 }
 
 template <typename Tag, typename Epi>

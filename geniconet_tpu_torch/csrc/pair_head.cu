@@ -61,7 +61,9 @@
 //   (head_bwd_blocks: 2 blocks an SM), merge in a fixed order (shuffles
 //   across the groups of a warp, the warps in turn through shared memory)
 //   into one partial row a block, and gn::sum_rows adds the rows in a fixed
-//   order: no atomics, so the results repeat exactly. (A body that read
+//   order: no atomics, so the results repeat exactly. A head over 256
+//   channels takes the wide body (head_bwd_wide_body): rounds of one chunk a
+//   lane, v formed again each round. (A body that read
 //   each row twice, first one thread a cell walking its channels, 128 bytes
 //   apart across a warp, then coalesced, and wrote a partial row per 256
 //   cells and phase, took 11x the byte bound.)
@@ -479,48 +481,197 @@ struct HeadBwdArgs {
 // (load_cell, CPL chunks a lane, a template constant; the rows stay in
 // registers). Then, per phase, v from cell_v and:
 // * dv (the given g, or 2 g_b (v - target) plus the pole cotangent),
-//   dz = dv (1 - v^2);
+//   dz = dv (1 - v^2) (head_dz);
 // * per channel dt = sum_f dz_f W[k, f] (FMA in f order), the relu mask,
 //   db0/dy10 rounded to T and written once, 16 bytes a lane; dW, d_mul1,
-//   d_add1, d_mul2 (and dbias, the sum of dz) accumulate in registers.
+//   d_add1, d_mul2 (and dbias, the sum of dz) accumulate in registers
+//   (head_chunk_grads).
 // For h all four phases of a cell are one group's, so tpack's 4F-float row
 // is read once, contiguously. At the end the groups of a warp merge by a
 // butterfly of shuffles, the 8 warps in order through one shared row, and
 // the block writes that row: [dW (cin*F) | dbias (F) | d_mul1 (cin) |
-// d_add1 (cin) | d_mul2 (cin)]. No atomics: the results repeat exactly.
-// W (FM columns, zeros past F) and the affines are read from shared memory;
-// 2 blocks an SM (at most 128 registers a thread).
-template <typename T, bool MSE, int CPL, int FM>
-__device__ __forceinline__ void head_bwd_body(const HeadBwdArgs<T>& x) {
-  constexpr int VEC = Vec16<T>::VEC;
-  extern __shared__ float sh[];
-  const HeadArgs<T>& h = x.h;
-  const int cin = h.cin, F = h.F, L = h.L;
-  const bool vec = h.vec != 0;
-  const DvSource& src = x.src;
-  float* aff = sh;                   // mul1 | add1 | mul2 | add2, (4, cin)
-  float* sw = sh + 4 * cin;          // W, (cin, FM), zeros past F
-  float* row_s = sw + cin * MAX_F;   // the block's partial row
-  const int P = cin * F + F + 3 * cin;
-  stage_head<T, FM>(sh, h);
-  __syncthreads();
-
-  const Lane ln(L);
-  const int tid = threadIdx.x, lig = ln.lig, grp = ln.grp, gpw = ln.gpw;
-  const int nchunk = (cin + VEC - 1) / VEC;
-  float sb[FM];
-  load_bias(h, sb);
-  float dW[CPL][VEC][FM], dm1[CPL][VEC], da1[CPL][VEC], dm2[CPL][VEC], db[FM];
+// d_add1 (cin) | d_mul2 (cin)] (head_merge). No atomics: the results repeat
+// exactly. W (FM columns, zeros past F) and the affines are read from shared
+// memory; 2 blocks an SM (at most 128 registers a thread).
+//
+// A cell of more than two chunks a lane of a 32-lane group (bf16 over 256
+// channels: 8 a chunk, float32 over 256: 4 a chunk; bf16 takes no CPL 2)
+// would hold 3 or more chunks of 4 phases
+// and their sums in registers (over 255 a thread). head_bwd_wide_body walks
+// it in rounds instead: round r takes chunk lig + r L of each lane, with its
+// sums in registers (CPL 1), over the whole grid-stride loop, and merges
+// them into the row before the next round. Each round forms v of the cell
+// again (load_cell and cell_v over all its rounds of chunks, the forwards'
+// order, so the same bits), then reads round r's chunk of each phase again
+// for its gradients: the cell's b0 and y10 are read once a round and that
+// chunk twice (the second time from L1 or L2), each output written once.
+// Its kernels take 1 block an SM (up to 255 registers a thread: at 128
+// the sums, v and a round's rows of 4 phases spilled 1.4-2.9 KB a thread).
+template <typename T, int FM>
+struct HeadGrads {
+  float dW[Vec16<T>::VEC][FM], dm1[Vec16<T>::VEC], da1[Vec16<T>::VEC], dm2[Vec16<T>::VEC];
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int f = 0; f < FM; ++f) db[f] = 0.f;
+    for (int e = 0; e < Vec16<T>::VEC; ++e) {
+      dm1[e] = da1[e] = dm2[e] = 0.f;
+#pragma unroll
+      for (int f = 0; f < FM; ++f) dW[e][f] = 0.f;
+    }
+  }
+};
+
+// dz of phase p of cell q (sample b, cell m of it) from its v: zeros for a
+// cell past Q and past F.
+template <typename T, bool MSE, int FM>
+__device__ __forceinline__ void head_dz(const HeadBwdArgs<T>& x, long long q, int b, int m, int p,
+                                        bool live, const float (&v)[FM], float (&dz)[FM]) {
+  const DvSource& src = x.src;
+  const int F = x.h.F;
+#pragma unroll
+  for (int f = 0; f < FM; ++f) dz[f] = 0.f;
+  if (!live) return;
+  if constexpr (MSE) {
+    const float* tp = src.tpack + q * 4 * F + p * F;
+    const float g2 = src.g[b] * 2.f;
+    const int corner = m % x.hw;
+    const float* pole = nullptr;
+    if (p == 0 && corner == 0) pole = src.dpole + (size_t)b * 2 * F;
+    if (p == 3 && corner == x.hw - 1) pole = src.dpole + ((size_t)b * 2 + 1) * F;
+#pragma unroll
+    for (int f = 0; f < FM; ++f) {
+      if (f >= F) continue;
+      float dv = g2 * (v[f] - tp[f]);
+      if (pole) dv += pole[f];
+      dz[f] = dv * (1.f - v[f] * v[f]);
+    }
+  } else {
+    const float* gq = src.gph[p] + q * F;
+#pragma unroll
+    for (int f = 0; f < FM; ++f) {
+      if (f >= F) continue;
+      dz[f] = gq[f] * (1.f - v[f] * v[f]);
+    }
+  }
+}
+
+// One chunk j of phase p of cell q (its rows xa, xb as loaded): the join
+// recomputed (the same bits), db0/dy10 written once, the sums accumulated.
+template <typename T, int FM>
+__device__ __forceinline__ void head_chunk_grads(const HeadBwdArgs<T>& x, long long q, int p,
+                                                 bool live, int j, const float* aff,
+                                                 const float* sw, const float (&dz)[FM],
+                                                 const T (&xa)[Vec16<T>::VEC],
+                                                 const T (&xb)[Vec16<T>::VEC],
+                                                 HeadGrads<T, FM>& acc) {
+  constexpr int VEC = Vec16<T>::VEC;
+  const int cin = x.h.cin, k0 = j * VEC;
+  float o0[VEC], o1[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    o0[e] = o1[e] = 0.f;
+    const int k = k0 + e;
+    if (k >= cin) continue;
+    const float xav = gn::to_f(xa[e]), xbv = gn::to_f(xb[e]);
+    const float pre = join_pre(xav, xbv, aff, cin, k);
+    const float t = gn::round_to<T>(fmaxf(pre, 0.f));
+    float dt = 0.f;
+#pragma unroll
+    for (int f = 0; f < FM; ++f) dt = fmaf(dz[f], sw[k * FM + f], dt);
+    const float dm = pre > 0.f ? dt : 0.f;
+    o0[e] = dm * aff[k];
+    o1[e] = dm * aff[2 * cin + k];
+#pragma unroll
+    for (int f = 0; f < FM; ++f) acc.dW[e][f] = fmaf(t, dz[f], acc.dW[e][f]);
+    acc.dm1[e] = fmaf(dm, xav, acc.dm1[e]);
+    acc.da1[e] += dm;
+    acc.dm2[e] = fmaf(dm, xbv, acc.dm2[e]);
+  }
+  if (live && j < (cin + VEC - 1) / VEC) {
+    store_vec<T>(x.d.db0[p] + q * cin, k0, cin, x.h.vec != 0, o0);
+    store_vec<T>(x.d.dy10[p] + q * cin, k0, cin, x.h.vec != 0, o1);
+  }
+}
+
+// The groups of a warp in a butterfly, then the warps in order, into the
+// block's row row_s: chunk c's sums of this lane at its channels (chunk
+// lig + (r CPL + c) L); with db (round 0 only), dbias. Every thread of the
+// block calls it.
+template <typename T, int CPL, int FM>
+__device__ __forceinline__ void head_merge(HeadGrads<T, FM> (&acc)[CPL], float (&db)[FM],
+                                           bool with_db, int r, const Lane& ln, int L, int cin,
+                                           int F, float* row_s) {
+  constexpr int VEC = Vec16<T>::VEC;
+  if (with_db)
+#pragma unroll
+    for (int f = 0; f < FM; ++f)
+      for (int o = L; o < 32; o <<= 1) db[f] += __shfl_xor_sync(0xffffffffu, db[f], o);
 #pragma unroll
   for (int c = 0; c < CPL; ++c)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      dm1[c][e] = da1[c][e] = dm2[c][e] = 0.f;
+    for (int e = 0; e < VEC; ++e)
+      for (int o = L; o < 32; o <<= 1) {
 #pragma unroll
-      for (int f = 0; f < FM; ++f) dW[c][e][f] = 0.f;
+        for (int f = 0; f < FM; ++f)
+          acc[c].dW[e][f] += __shfl_xor_sync(0xffffffffu, acc[c].dW[e][f], o);
+        acc[c].dm1[e] += __shfl_xor_sync(0xffffffffu, acc[c].dm1[e], o);
+        acc[c].da1[e] += __shfl_xor_sync(0xffffffffu, acc[c].da1[e], o);
+        acc[c].dm2[e] += __shfl_xor_sync(0xffffffffu, acc[c].dm2[e], o);
+      }
+  for (int w = 0; w < NW; ++w) {
+    if (ln.warp == w && ln.grp == 0) {
+      auto put = [&](int i, float v) { row_s[i] = w == 0 ? v : row_s[i] + v; };
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int k = (ln.lig + (r * CPL + c) * L) * VEC + e;
+          if (k >= cin) continue;
+#pragma unroll
+          for (int f = 0; f < FM; ++f)
+            if (f < F) put(k * F + f, acc[c].dW[e][f]);
+          put(cin * F + F + k, acc[c].dm1[e]);
+          put(cin * F + F + cin + k, acc[c].da1[e]);
+          put(cin * F + F + 2 * cin + k, acc[c].dm2[e]);
+        }
+      if (with_db && ln.lig == 0)
+#pragma unroll
+        for (int f = 0; f < FM; ++f)
+          if (f < F) put(cin * F + f, db[f]);
     }
+    __syncthreads();
+  }
+}
+
+// The block's shared memory: the affines (4, cin), W (cin, FM), the row.
+template <typename T, int FM>
+__device__ __forceinline__ float* head_bwd_stage(const HeadArgs<T>& h) {
+  extern __shared__ float sh[];
+  stage_head<T, FM>(sh, h);
+  __syncthreads();
+  return sh;
+}
+
+template <typename T, bool MSE, int CPL, int FM>
+__device__ __forceinline__ void head_bwd_body(const HeadBwdArgs<T>& x) {
+  const HeadArgs<T>& h = x.h;
+  const int cin = h.cin, F = h.F, L = h.L;
+  const bool vec = h.vec != 0;
+  float* sh = head_bwd_stage<T, FM>(h);
+  const float* aff = sh;              // mul1 | add1 | mul2 | add2, (4, cin)
+  const float* sw = sh + 4 * cin;     // W, (cin, FM), zeros past F
+  float* row_s = sh + 4 * cin + cin * MAX_F;  // the block's partial row
+  const int P = cin * F + F + 3 * cin;
+
+  const Lane ln(L);
+  const int lig = ln.lig, grp = ln.grp, gpw = ln.gpw;
+  float sb[FM];
+  load_bias(h, sb);
+  HeadGrads<T, FM> acc[CPL];
+  float db[FM];
+#pragma unroll
+  for (int f = 0; f < FM; ++f) db[f] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) acc[c].zero();
 
   const long long stride = (long long)gridDim.x * NW * gpw;
   for (long long base = ((long long)blockIdx.x * NW + ln.warp) * gpw; base < x.Q;
@@ -538,122 +689,96 @@ __device__ __forceinline__ void head_bwd_body(const HeadBwdArgs<T>& x) {
 #pragma unroll
       for (int f = 0; f < FM; ++f) v[0][f] = 0.f;
       cell_v<T, 1, CPL, FM>(xr[p], aff, sw, sb, lig, L, 0, cin, F, true, v);
-      // dv, dz of the cell's phase p (zero for a cell past Q)
       float dz[FM];
-#pragma unroll
-      for (int f = 0; f < FM; ++f) dz[f] = 0.f;
-      if (live) {
-        if constexpr (MSE) {
-          const float* tp = src.tpack + q * 4 * F + p * F;
-          const float g2 = src.g[b] * 2.f;
-          const int corner = m % x.hw;
-          const float* pole = nullptr;
-          if (p == 0 && corner == 0) pole = src.dpole + (size_t)b * 2 * F;
-          if (p == 3 && corner == x.hw - 1) pole = src.dpole + ((size_t)b * 2 + 1) * F;
-#pragma unroll
-          for (int f = 0; f < FM; ++f) {
-            if (f >= F) continue;
-            float dv = g2 * (v[0][f] - tp[f]);
-            if (pole) dv += pole[f];
-            dz[f] = dv * (1.f - v[0][f] * v[0][f]);
-          }
-        } else {
-          const float* gq = src.gph[p] + q * F;
-#pragma unroll
-          for (int f = 0; f < FM; ++f) {
-            if (f >= F) continue;
-            dz[f] = gq[f] * (1.f - v[0][f] * v[0][f]);
-          }
-        }
-      }
+      head_dz<T, MSE, FM>(x, q, b, m, p, live, v[0], dz);
 #pragma unroll
       for (int f = 0; f < FM; ++f) db[f] += dz[f];
-      // the channels' cotangents (the join recomputed, the same bits),
-      // written once, and the sums
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int j = lig + c * L, k0 = j * VEC;
-        float o0[VEC], o1[VEC];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          o0[e] = o1[e] = 0.f;
-          const int k = k0 + e;
-          if (k >= cin) continue;
-          const float xav = gn::to_f(xr[p].a[0][c][e]), xbv = gn::to_f(xr[p].b[0][c][e]);
-          const float pre = join_pre(xav, xbv, aff, cin, k);
-          const float t = gn::round_to<T>(fmaxf(pre, 0.f));
-          float dt = 0.f;
-#pragma unroll
-          for (int f = 0; f < FM; ++f) dt = fmaf(dz[f], sw[k * FM + f], dt);
-          const float dm = pre > 0.f ? dt : 0.f;
-          o0[e] = dm * aff[k];
-          o1[e] = dm * aff[2 * cin + k];
-#pragma unroll
-          for (int f = 0; f < FM; ++f) dW[c][e][f] = fmaf(t, dz[f], dW[c][e][f]);
-          dm1[c][e] = fmaf(dm, xav, dm1[c][e]);
-          da1[c][e] += dm;
-          dm2[c][e] = fmaf(dm, xbv, dm2[c][e]);
-        }
-        if (live && j < nchunk) {
-          store_vec<T>(x.d.db0[p] + q * cin, k0, cin, vec, o0);
-          store_vec<T>(x.d.dy10[p] + q * cin, k0, cin, vec, o1);
-        }
-      }
-    }
-  }
-
-  // the groups of a warp in a butterfly, then the warps in order
-#pragma unroll
-  for (int f = 0; f < FM; ++f)
-    for (int o = L; o < 32; o <<= 1) db[f] += __shfl_xor_sync(0xffffffffu, db[f], o);
-#pragma unroll
-  for (int c = 0; c < CPL; ++c)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      for (int o = L; o < 32; o <<= 1) {
-#pragma unroll
-        for (int f = 0; f < FM; ++f)
-          dW[c][e][f] += __shfl_xor_sync(0xffffffffu, dW[c][e][f], o);
-        dm1[c][e] += __shfl_xor_sync(0xffffffffu, dm1[c][e], o);
-        da1[c][e] += __shfl_xor_sync(0xffffffffu, da1[c][e], o);
-        dm2[c][e] += __shfl_xor_sync(0xffffffffu, dm2[c][e], o);
-      }
-  for (int w = 0; w < NW; ++w) {
-    if (ln.warp == w && grp == 0) {
-      auto put = [&](int i, float v) { row_s[i] = w == 0 ? v : row_s[i] + v; };
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const int k = (lig + c * L) * VEC + e;
-          if (k >= cin) continue;
-#pragma unroll
-          for (int f = 0; f < FM; ++f)
-            if (f < F) put(k * F + f, dW[c][e][f]);
-          put(cin * F + F + k, dm1[c][e]);
-          put(cin * F + F + cin + k, da1[c][e]);
-          put(cin * F + F + 2 * cin + k, dm2[c][e]);
-        }
-      if (lig == 0)
-#pragma unroll
-        for (int f = 0; f < FM; ++f)
-          if (f < F) put(cin * F + f, db[f]);
+        head_chunk_grads<T, FM>(x, q, p, live, lig + c * L, aff, sw, dz, xr[p].a[0][c],
+                                xr[p].b[0][c], acc[c]);
     }
-    __syncthreads();
+  }
+  head_merge<T, CPL, FM>(acc, db, true, 0, ln, L, cin, F, row_s);
+  float* row = x.part + (size_t)blockIdx.x * P;
+  for (int i = threadIdx.x; i < P; i += THREADS) row[i] = row_s[i];
+}
+
+template <typename T, bool MSE, int FM>
+__device__ __forceinline__ void head_bwd_wide_body(const HeadBwdArgs<T>& x) {
+  constexpr int VEC = Vec16<T>::VEC;
+  const HeadArgs<T>& h = x.h;
+  const int cin = h.cin, F = h.F, L = h.L;
+  const bool vec = h.vec != 0;
+  float* sh = head_bwd_stage<T, FM>(h);
+  const float* aff = sh;
+  const float* sw = sh + 4 * cin;
+  float* row_s = sh + 4 * cin + cin * MAX_F;
+  const int P = cin * F + F + 3 * cin;
+  const int rounds = ((cin + VEC - 1) / VEC + L - 1) / L;
+
+  const Lane ln(L);
+  const int lig = ln.lig, grp = ln.grp, gpw = ln.gpw;
+  float sb[FM];
+  load_bias(h, sb);
+  float db[FM];
+#pragma unroll
+  for (int f = 0; f < FM; ++f) db[f] = 0.f;
+  const long long stride = (long long)gridDim.x * NW * gpw;
+  for (int r = 0; r < rounds; ++r) {
+    HeadGrads<T, FM> acc[1];
+    acc[0].zero();
+    for (long long base = ((long long)blockIdx.x * NW + ln.warp) * gpw; base < x.Q;
+         base += stride) {
+      const long long q = base + grp;
+      const bool live = q < x.Q;
+      const int b = live ? (int)(q / x.M) : 0;
+      const int m = live ? (int)(q - (long long)b * x.M) : 0;
+      float v[4][FM];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int f = 0; f < FM; ++f) v[p][f] = 0.f;
+      for (int rr = 0; rr < rounds; ++rr) {
+        CellRows<T, 4, 1> xx;
+        load_cell<T, 4, 1>(h.a, q, 0, rr, live, lig, L, cin, vec, xx);
+        cell_v<T, 4, 1, FM>(xx, aff, sw, sb, lig, L, rr, cin, F, rr + 1 == rounds, v);
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float dz[FM];
+        head_dz<T, MSE, FM>(x, q, b, m, p, live, v[p], dz);
+        if (r == 0)
+#pragma unroll
+          for (int f = 0; f < FM; ++f) db[f] += dz[f];
+        CellRows<T, 1, 1> xr;  // round r's chunk of phase p, read again (from L1 or L2)
+        load_cell<T, 1, 1>(h.a, q, p, r, live, lig, L, cin, vec, xr);
+        head_chunk_grads<T, FM>(x, q, p, live, lig + r * L, aff, sw, dz, xr.a[0][0], xr.b[0][0],
+                                acc[0]);
+      }
+    }
+    head_merge<T, 1, FM>(acc, db, r == 0, r, ln, L, cin, F, row_s);
   }
   float* row = x.part + (size_t)blockIdx.x * P;
-  for (int i = tid; i < P; i += THREADS) row[i] = row_s[i];
+  for (int i = threadIdx.x; i < P; i += THREADS) row[i] = row_s[i];
 }
 
-// Two kernels (and not one templated kernel) so that a profile names each.
+// Two kernels (and not one templated kernel) so that a profile names each;
+// CPL 0 is the wide body (rounds of one chunk a lane), 1 block an SM.
 template <typename T, int CPL, int FM>
-__global__ void __launch_bounds__(THREADS, 2) phead_bwd_kernel(HeadBwdArgs<T> x) {
-  head_bwd_body<T, false, CPL, FM>(x);
+__global__ void __launch_bounds__(THREADS, CPL == 0 ? 1 : 2) phead_bwd_kernel(HeadBwdArgs<T> x) {
+  if constexpr (CPL == 0)
+    head_bwd_wide_body<T, false, FM>(x);
+  else
+    head_bwd_body<T, false, CPL, FM>(x);
 }
 
 template <typename T, int CPL, int FM>
-__global__ void __launch_bounds__(THREADS, 2) phmse_bwd_kernel(HeadBwdArgs<T> x) {
-  head_bwd_body<T, true, CPL, FM>(x);
+__global__ void __launch_bounds__(THREADS, CPL == 0 ? 1 : 2) phmse_bwd_kernel(HeadBwdArgs<T> x) {
+  if constexpr (CPL == 0)
+    head_bwd_wide_body<T, true, FM>(x);
+  else
+    head_bwd_body<T, true, CPL, FM>(x);
 }
 
 // Where each column of the backward's partial rows lands; d_add2 = d_add1.
@@ -682,7 +807,8 @@ struct HeadGradOut {
 
 // Lanes a cell's group takes: the VEC-channel chunks of C, rounded up to a
 // power of two, at most 32 (then a lane takes several chunks: the backward
-// holds CPL = 2 for float32 with C over 128, a forward walks them in rounds).
+// holds CPL = 2 for float32 with C over 128 up to 256, and walks a wider
+// cell in rounds, as the forwards do).
 template <typename T>
 int head_lanes(int cin) {
   const int chunks = (cin + Vec16<T>::VEC - 1) / Vec16<T>::VEC;
@@ -804,46 +930,46 @@ size_t head_bwd_smem(int cin, int F) {
   return sizeof(float) * (4 * cin + cin * MAX_F + cin * F + F + 3 * cin);
 }
 
-// One launch of kernel e (MSE false) or h with CPL chunks a lane, FM
-// columns of W held (3, or MAX_F for F over 3).
+// One launch of kernel e (MSE false) or h with CPL chunks a lane (0: the
+// wide body's rounds), FM columns of W held (3, or MAX_F for F over 3); its
+// shared memory above 48 KB by opting in.
 template <typename T, bool MSE, int CPL>
 cudaError_t launch_head_bwd(int blocks, size_t smem, const HeadBwdArgs<T>& x,
                             cudaStream_t stream) {
-  if (x.h.F <= 3) {
-    if constexpr (MSE)
-      phmse_bwd_kernel<T, CPL, 3><<<blocks, THREADS, smem, stream>>>(x);
-    else
-      phead_bwd_kernel<T, CPL, 3><<<blocks, THREADS, smem, stream>>>(x);
-  } else {
-    if constexpr (MSE)
-      phmse_bwd_kernel<T, CPL, MAX_F><<<blocks, THREADS, smem, stream>>>(x);
-    else
-      phead_bwd_kernel<T, CPL, MAX_F><<<blocks, THREADS, smem, stream>>>(x);
-  }
-  return cudaGetLastError();
+  if (x.h.F <= 3)
+    return MSE ? launch(phmse_bwd_kernel<T, CPL, 3>, dim3(blocks), THREADS, smem, stream, x)
+               : launch(phead_bwd_kernel<T, CPL, 3>, dim3(blocks), THREADS, smem, stream, x);
+  return MSE ? launch(phmse_bwd_kernel<T, CPL, MAX_F>, dim3(blocks), THREADS, smem, stream, x)
+             : launch(phead_bwd_kernel<T, CPL, MAX_F>, dim3(blocks), THREADS, smem, stream, x);
 }
 
 // The backward's main pass (kernel e or h) and the fixed-order sum of its
 // partial rows (head_bwd_blocks of them) into dW, dbias and the affine
-// gradients. CPL = 2 only where a float32 cell of over 128 channels needs
-// two chunks a lane. db0/dy10 move 16 bytes at a time where the inputs do
-// and every cotangent phase is 16-byte aligned.
+// gradients. A cell of at most one chunk a lane of a 32-lane group takes CPL
+// = 1; a float32 cell of 129-256 channels CPL = 2; a wider one (bf16 over
+// 256, float32 over 256) the wide body. Any C whose shared memory fits
+// (head_bwd_smem: 72 bytes a channel at F 3, so C 3228 at the H100's 227
+// KB); past that the launch is refused and the error returned.
+// db0/dy10 move 16 bytes at a time where the inputs do and every cotangent
+// phase is 16-byte aligned.
 template <typename T, bool MSE>
 cudaError_t head_bwd(HeadArgs<T> h, const HeadGrad<T>& d, const DvSource& src, float* part,
                      float* dW, float* dbias, float* dm1, float* da1, float* dm2, float* da2,
                      int B, int hw, cudaStream_t stream) {
   const int M = 5 * hw, Q = B * M, cin = h.cin;
   const size_t smem = head_bwd_smem(cin, h.F);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
   for (int p = 0; p < 4; ++p) h.vec = h.vec && aligned16(d.db0[p]) && aligned16(d.dy10[p]);
   const HeadBwdArgs<T> x = {h, d, src, Q, M, hw, part};
   const int blocks = head_bwd_blocks(Q);
+  constexpr int LANE_CHANNELS = 32 * Vec16<T>::VEC;  // one chunk for each lane of 32
   cudaError_t err;
-  if constexpr (std::is_same_v<T, float>)
-    err = cin > 32 * Vec16<T>::VEC ? launch_head_bwd<T, MSE, 2>(blocks, smem, x, stream)
-                                   : launch_head_bwd<T, MSE, 1>(blocks, smem, x, stream);
-  else
+  if (cin <= LANE_CHANNELS)
     err = launch_head_bwd<T, MSE, 1>(blocks, smem, x, stream);
+  else if constexpr (std::is_same_v<T, float>)
+    err = cin <= 2 * LANE_CHANNELS ? launch_head_bwd<T, MSE, 2>(blocks, smem, x, stream)
+                                   : launch_head_bwd<T, MSE, 0>(blocks, smem, x, stream);
+  else
+    err = launch_head_bwd<T, MSE, 0>(blocks, smem, x, stream);
   if (err != cudaSuccess) return err;
   HeadGradOut st = {dW, dbias, dm1, da1, dm2, da2, cin, h.F};
   return gn::launch_sum_rows(part, blocks, (long long)cin * h.F + h.F + 3LL * cin, st, stream);
@@ -864,7 +990,6 @@ cudaError_t mse_bwd(const float* g, const HeadArgs<T>& h, const float* tpack, co
                     void* const* grads, float* dpole, float* part, float* dW, float* dbias,
                     float* dm1, float* da1, float* dm2, float* da2, int B, int hw,
                     cudaStream_t stream) {
-  if (head_bwd_smem(h.cin, h.F) > 48 * 1024) return cudaErrorInvalidValue;
   const cudaError_t err =
       h.F <= 3 ? poles<T, 3>(h, tpoles, nullptr, 0, g, B, 5 * hw, hw, dpole, stream)
                : poles<T, MAX_F>(h, tpoles, nullptr, 0, g, B, 5 * hw, hw, dpole, stream);
@@ -899,13 +1024,14 @@ extern "C" int gn_pair_head_fwd(void* const* ins, const float* mul1, const float
 // ins, mul1..add2, W, bias: as gn_pair_head_fwd; tpack: float32
 // (B, 5, h, w, 4F), phase p's target at [pF, pF + F); tpoles: float32 (B, 2F),
 // [north | south]; part: float32 scratch of (B, ceil(5hw/64)) (head_mse_parts);
-// sse: float32 (B) per-sample squared-error sum. dtype: 0 float32, 1 bfloat16.
+// sse: float32 (B) per-sample squared-error sum. Any cin whose head fits a
+// block's shared memory, as gn_pair_head_fwd. dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_pair_head_mse_fwd(void* const* ins, const float* mul1, const float* add1,
                                     const float* mul2, const float* add2, const void* W,
                                     const void* bias, const float* tpack, const float* tpoles,
                                     float* part, float* sse, int B, int h, int w, int cin, int F,
                                     int dtype, void* stream) {
-  if (F < 1 || F > MAX_F || cin < 1 || cin > THREADS) return cudaErrorInvalidValue;
+  if (F < 1 || F > MAX_F || cin < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return mse_fwd<float>(head_args<float>(ins, mul1, add1, mul2, add2, W, bias, cin, F), tpack,
@@ -922,14 +1048,14 @@ extern "C" int gn_pair_head_mse_fwd(void* const* ins, const float* mul1, const f
 // grads: host array of 8 outputs (the b0 then the y10 phase cotangents, T);
 // part: float32 scratch of (head_bwd_blocks(B * 5hw), cin*F + F + 3*cin); dW
 // (cin, F), dbias (F), dmul1, dadd1, dmul2, dadd2 (cin): float32 outputs.
-// dtype: 0 float32, 1 bfloat16.
+// Any cin whose shared memory fits (head_bwd). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_pair_head_bwd(void* const* gph, void* const* ins, const float* mul1,
                                 const float* add1, const float* mul2, const float* add2,
                                 const void* W, const void* bias, void* const* grads, float* part,
                                 float* dW, float* dbias, float* dmul1, float* dadd1, float* dmul2,
                                 float* dadd2, int B, int h, int w, int cin, int F, int dtype,
                                 void* stream) {
-  if (F < 1 || F > MAX_F || cin < 1 || cin > THREADS) return cudaErrorInvalidValue;
+  if (F < 1 || F > MAX_F || cin < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return pair_bwd<float>(gph, head_args<float>(ins, mul1, add1, mul2, add2, W, bias, cin, F),
@@ -945,7 +1071,8 @@ extern "C" int gn_pair_head_bwd(void* const* gph, void* const* ins, const float*
 // grads: host array of 8 outputs (the b0 then the y10 phase cotangents, T);
 // dpole: float32 scratch (B, 2, F); part: float32 scratch of
 // (head_bwd_blocks(B * 5hw), cin*F + F + 3*cin); dW (cin, F), dbias (F), dmul1,
-// dadd1, dmul2, dadd2 (cin): float32 outputs. dtype: 0 float32, 1 bfloat16.
+// dadd1, dmul2, dadd2 (cin): float32 outputs. Any cin whose shared memory
+// fits (head_bwd). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_pair_head_mse_bwd(const float* g, void* const* ins, const float* mul1,
                                     const float* add1, const float* mul2, const float* add2,
                                     const void* W, const void* bias, const float* tpack,
@@ -953,7 +1080,7 @@ extern "C" int gn_pair_head_mse_bwd(const float* g, void* const* ins, const floa
                                     float* part, float* dW, float* dbias, float* dmul1,
                                     float* dadd1, float* dmul2, float* dadd2, int B, int h, int w,
                                     int cin, int F, int dtype, void* stream) {
-  if (F < 1 || F > MAX_F || cin < 1 || cin > THREADS) return cudaErrorInvalidValue;
+  if (F < 1 || F > MAX_F || cin < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return mse_bwd<float>(g, head_args<float>(ins, mul1, add1, mul2, add2, W, bias, cin, F), tpack,

@@ -35,8 +35,9 @@ __all__ = [
     "MMA_TILE", "MMA_K_STEP", "MMA_TARGET_BLOCKS", "mma_dtaps_blocks", "mma_dtaps_split",
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
-    "grid_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
-    "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts",
+    "grid_fwd_info", "block_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
+    "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts", "MAX_SLOTS",
+    "MAX_SM_IDS",
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -153,8 +154,10 @@ _SIGNATURES = {
     "gn_up_pair_dtaps": [_VP] * 13 + [_INT] * 9 + [_VP],
     "gn_up_pair_operand": [_VP] * 5 + [_INT] * 6 + [_VP],
     "gn_up_pair_dtaps_info": [_INT, _VP],
-    "gn_up_block_fwd": [_VP] * 15 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
-    "gn_dn_block_fwd": [_VP] * 17 + [_INT] * 6 + [_FLT] * 2 + [_INT, _VP],
+    "gn_up_block_fwd": [_VP] * 18 + [_INT] * 6 + [_FLT] * 2 + [_INT] * 2 + [_VP],
+    "gn_dn_block_fwd": [_VP] * 20 + [_INT] * 6 + [_FLT] * 2 + [_INT] * 2 + [_VP],
+    "gn_up_block_fwd_info": [_VP],
+    "gn_dn_block_fwd_info": [_VP],
 }
 
 # Work split shared with csrc/: the GEMM cores compute TILE x TILE output
@@ -289,6 +292,12 @@ def grid_fwd_info(std: bool, stats: bool) -> dict:
     return _gemm_info("gn_ico_conv_fwd_info" if std else "gn_phase_conv_fwd_info", stats)
 
 
+def block_fwd_info(up: bool) -> dict:
+    """``mma_dtaps_info`` for the merged blocks' bf16 cooperative kernel: o's
+    (``up``) or p's."""
+    return _gemm_info("gn_up_block_fwd_info" if up else "gn_dn_block_fwd_info")
+
+
 def dx_packed_taps_shape(cin: int, ntot: int):
     """Shape of the tensor-core dx GEMMs' (a, c) packed taps, the tap sets
     transposed: a row per tap and cotangent column (``ntot`` rounded up to
@@ -339,6 +348,13 @@ def head_mse_parts(B: int, h: int, w: int) -> int:
     HEAD_MSE_CELLS) a sample (``csrc/pair_head.cu:head_mse_parts`` says the
     same)."""
     return B * -(-5 * h * w // HEAD_MSE_CELLS)
+
+
+# The merged blocks' bf16 cooperative kernel (csrc/mma_block_fwd.cuh) orders
+# its blocks by SM with zeroed counters: MAX_SLOTS for the blocks' arrival
+# order on an SM, then one for each of MAX_SM_IDS SM ids.
+MAX_SLOTS = 8
+MAX_SM_IDS = 1024
 
 
 def scratch(n: int, device) -> torch.Tensor:

@@ -1413,16 +1413,33 @@ def _check_block(tap_sets, gamma, beta, cin, dt, dev, name):
     return c0, c2
 
 
-def _block_outputs(B, M, c0, c2, n_a, dev):
-    """Stats, affine, barrier and partial scratch of a merged block whose
-    pass A has ``n_a`` output phases a sample."""
+def _block_outputs(dt, B, h, w, cin, c0, c2, n_out, dev):
+    """Stats, affine, barrier and scratch of a merged block whose two passes
+    write n_out output phases a sample (o: 4; p: 1, phase 2 and then the
+    standard grid): the row tiles' partials (float32 the SIMT tiles', a row
+    per 64 cells of a sample and output phase; bf16 the tensor-core GEMM's,
+    a row per 128 rows) and, in bf16, one operand buffer that both passes'
+    operands take in turn (pass A's of 4 sources a sample: o's upsampled
+    phases, p's input phases; pass B's of y00's n_out) and the two packed
+    tap sets."""
     s00, s10 = (torch.empty((2, c0), dtype=torch.float32, device=dev) for _ in range(2))
     s01 = torch.empty((2, c2), dtype=torch.float32, device=dev)
     mul00, add00 = (torch.empty(c0, dtype=torch.float32, device=dev) for _ in range(2))
-    rows = B * n_a * build.n_tiles(M)
+    operand, wpack = None, (None, None)
+    if dt == torch.bfloat16:
+        rows = build.mma_fwd_grid(B * n_out * 5 * h * w, 1)[1]
+        size = max(grid_operand_rows(B, h, w, 4) * build.operand_width(cin),
+                   grid_operand_rows(B, h, w, n_out) * build.operand_width(c0))
+        operand = torch.empty(size, dtype=dt, device=dev)
+        wpack = tuple(torch.empty(build.packed_taps_shape(k, n), dtype=dt, device=dev)
+                      for k, n in ((cin, 2 * c0), (c0, c2)))
+    else:
+        rows = B * n_out * build.n_tiles(5 * h * w)
     scratch = (build.scratch(rows * 4 * c0, dev), build.scratch(rows * 2 * c2, dev))
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
-    return (s00, s10, s01, mul00, add00), scratch, bar
+    # the grid barrier's 2 counters; bf16 also the blocks' SM order's
+    order = build.MAX_SLOTS + build.MAX_SM_IDS if dt == torch.bfloat16 else 0
+    bar = torch.zeros(2 + order, dtype=torch.int32, device=dev)
+    return (s00, s10, s01, mul00, add00), scratch, bar, operand, wpack
 
 
 def up_block_fwd(x, tap_sets, gamma, beta, corner_mode: str = "average", eps: float = 1e-5):
@@ -1436,7 +1453,10 @@ def up_block_fwd(x, tap_sets, gamma, beta, corner_mode: str = "average", eps: fl
     its batch moments (``bn_affine_plain``, count 4·B·5hw), then pass B
     ``phase_conv_fwd`` of y00 with act (mul00, add00) and stats. Returns
     (b0, y10, y00 (4-tuples of level-(s+1) phases), s00, s01, s10 (float32
-    (2, C) [Σy, Σy²]), mul00, add00), as the Pallas call."""
+    (2, C) [Σy, Σy²]), mul00, add00), as the Pallas call. float32 runs the
+    SIMT tiles, bf16 the split route's tensor-core passes
+    (``csrc/mma_block_fwd.cuh``); each output equals the split route's bit
+    for bit."""
     if not on_cuda(x, "up_block_fwd"):
         return up_block_fwd_plain(x, tap_sets, gamma, beta, corner_mode, eps)
     B, _, h, w, cin = x.shape
@@ -1446,7 +1466,8 @@ def up_block_fwd(x, tap_sets, gamma, beta, corner_mode: str = "average", eps: fl
     c0, c2 = _check_block(tap_sets, gamma, beta, cin, dt, dev, "up_block_fwd")
     M = 5 * h * w
     outs = [torch.empty((B, 5, h, w, c), dtype=dt, device=dev) for c in [c0] * 8 + [c2] * 4]
-    stats, (part_a, part_b), bar = _block_outputs(B, M, c0, c2, 4, dev)
+    stats, (part_a, part_b), bar, operand, wpack = _block_outputs(dt, B, h, w, cin, c0, c2, 4,
+                                                                  dev)
     with torch.cuda.device(dev):
         err = build.library().gn_up_block_fwd(
             x.data_ptr(), build.ptr_array([t for pair in tap_sets for t in pair]),
@@ -1454,7 +1475,8 @@ def up_block_fwd(x, tap_sets, gamma, beta, corner_mode: str = "average", eps: fl
             device_table("phase", h, w, corner_mode, dev).data_ptr(),
             device_table("up", h, w, corner_mode, dev).data_ptr(), part_a.data_ptr(),
             part_b.data_ptr(), *[t.data_ptr() for t in stats], bar.data_ptr(),
-            B, h, w, cin, c0, c2, 4.0 * B * M, eps, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(operand), *map(build.ptr, wpack), B, h, w, cin, c0, c2, 4.0 * B * M, eps,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_block_fwd", err)
     build.LAUNCHES["up_block_fwd"] += 1
@@ -1489,7 +1511,8 @@ def dn_block_fwd(phases, tap_sets, gamma, beta, in_act=None, corner_mode: str = 
     grid) and stats, then bn00's affine (count B·5hw), then pass B the
     standard conv (``ico_conv_s2s_fwd``) of y00 with act (mul00, add00) and
     stats. Returns (b0, y10, y00 ((B, 5, h, w, C) grids), s00, s01, s10,
-    mul00, add00), as the Pallas call."""
+    mul00, add00), as the Pallas call. float32 runs the SIMT tiles, bf16
+    the split route's tensor-core passes, as ``up_block_fwd``."""
     if len(phases) != 4:
         raise ValueError(f"dn_block_fwd: takes 4 phases, got {len(phases)}")
     x0 = phases[0]
@@ -1504,7 +1527,8 @@ def dn_block_fwd(phases, tap_sets, gamma, beta, in_act=None, corner_mode: str = 
     check_act(in_act, cin, dev, "dn_block_fwd")
     M = 5 * h * w
     outs = [torch.empty((B, 5, h, w, c), dtype=dt, device=dev) for c in (c0, c0, c2)]
-    stats, (part_a, part_b), bar = _block_outputs(B, M, c0, c2, 1, dev)
+    stats, (part_a, part_b), bar, operand, wpack = _block_outputs(dt, B, h, w, cin, c0, c2, 1,
+                                                                  dev)
     mul, add = in_act if in_act is not None else (None, None)
     with torch.cuda.device(dev):
         err = build.library().gn_dn_block_fwd(
@@ -1514,7 +1538,8 @@ def dn_block_fwd(phases, tap_sets, gamma, beta, in_act=None, corner_mode: str = 
             device_table("phase", h, w, corner_mode, dev).data_ptr(),
             device_table("std", h, w, corner_mode, dev).data_ptr(), part_a.data_ptr(),
             part_b.data_ptr(), *[t.data_ptr() for t in stats], bar.data_ptr(),
-            B, h, w, cin, c0, c2, float(B * M), eps, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(operand), *map(build.ptr, wpack), B, h, w, cin, c0, c2, float(B * M), eps,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("dn_block_fwd", err)
     build.LAUNCHES["dn_block_fwd"] += 1
@@ -1593,8 +1618,8 @@ def _check_head(b0, y10, affines, W, bias, name):
         expect(a, (cin,), torch.float32, dev, f"{name} affine")
     expect(W, (cin, F), dt, dev, f"{name} W")
     expect(bias, (F,), dt, dev, f"{name} bias")
-    if not 1 <= F <= 8 or cin > 256:
-        raise ValueError(f"{name}: takes F <= 8 outputs and C <= 256 channels")
+    if not 1 <= F <= 8:
+        raise ValueError(f"{name}: takes 1 <= F <= 8 outputs")
     return B, h, w, cin, F
 
 

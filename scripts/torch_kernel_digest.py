@@ -16,7 +16,8 @@ down1's conv01; with stats, and once without), and the input gradients
 c, ``up_dual_conv_dx``, at up1; f's, m's and n's dx at down1 / up1), and
 the pair head's forwards and backwards (``pair_head_fwd``,
 ``pair_head_mse_fwd``; e, ``pair_head_bwd``; h, ``pair_head_mse_bwd``) at
-the s=5 head, and prints one line per call: ``digest <kernel> <dtype> <case>
+the s=5 head, and the merged blocks (o, ``up_block_fwd``, at up1; p,
+``dn_block_fwd``, at down1), and prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -209,6 +210,26 @@ def main():
         line("pair_head_bwd", dt, "head", lambda: pk.pair_head_bwd(g, b0, y10, aff, W, bias))
         line("pair_head_mse_bwd", dt, "head",
              lambda: pk.pair_head_mse_bwd(gb, b0, y10, aff, W, bias, tpack, tpoles))
+    for dt in (torch.bfloat16, torch.float32):
+        # the merged blocks, after the lines above (a generator of their
+        # own): o (up_block_fwd) at up1, p (dn_block_fwd) at down1 with the
+        # pending act; every output (b0, y10, y00, s00, s01, s10, mul00, add00)
+        gen = torch.Generator().manual_seed(15)
+        x = rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        sets = [(rnd(gen, 7, a, c, dt=dt, scale=a**-0.5), rnd(gen, c, dt=dt, scale=0.1))
+                for a, c in ((256, 128), (256, 128), (128, 128))]
+        gamma = torch.rand(128, generator=gen).add(0.5).to("cuda")
+        beta = (0.3 * torch.randn(128, generator=gen)).to("cuda")
+        line("up_block_fwd", dt, "up1", lambda: pk.up_block_fwd(x, sets, gamma, beta))
+        ph = [rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)]
+        sets = [(rnd(gen, 7, a, c, dt=dt, scale=a**-0.5), rnd(gen, c, dt=dt, scale=0.1))
+                for a, c in ((128, 256), (128, 256), (256, 256))]
+        gamma = torch.rand(256, generator=gen).add(0.5).to("cuda")
+        beta = (0.3 * torch.randn(256, generator=gen)).to("cuda")
+        a128 = (torch.rand(128, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(128, generator=gen)).to("cuda"))
+        line("dn_block_fwd", dt, "down1",
+             lambda: pk.dn_block_fwd(ph, sets, gamma, beta, a128))
 
 
 if __name__ == "__main__":

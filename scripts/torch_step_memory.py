@@ -6,7 +6,8 @@
 Trains the AE and the VAE (latent 512) at s=5, widths 64/128/256, B=36 on 36
 synthetic meshes with seeded random weights, on the default routing and, for
 the AE, on the merged backward (``merged_bwd="all"``), the decoder's chain
-(``phase_chain="dec"``) and both chains (``"1"``), and prints per model and
+(``phase_chain="dec"``), both chains (``"1"``) and the merged blocks
+(``merged_block="all"``: kernels o and p), and prints per model and
 routing: ``torch.cuda.max_memory_allocated()`` over the steps (after
 ``reset_peak_memory_stats``), the median host-clock step time,
 synchronised, the median time ``train_step`` takes to return (the host's
@@ -53,7 +54,7 @@ def main():
     dataset = synthetic_dataset(5, 36, seed=0)
     runs = (("ico2ico", {}), ("ico2ico", {"merged_bwd": "all"}),
             ("ico2ico", {"phase_chain": "dec"}), ("ico2ico", {"phase_chain": "1"}),
-            ("ico2ico_vae", {}))
+            ("ico2ico", {"merged_block": "all"}), ("ico2ico_vae", {}))
     for model, routing in runs if args.steps > 0 else ():  # --steps 0: serving alone
         cfg = Config()
         cfg.model.name, cfg.model.subdivisions, cfg.model.widths = model, 5, (64, 128, 256)

@@ -342,7 +342,13 @@ def test_head_bwd_ragged_widths(cuda, C, F, dt):
     16 bytes a lane), F 5 and 8 (W's 8 columns held), float32 C 160 and
     256 (two 16-byte chunks a lane), C 256 in bf16 (32 lanes a cell); B=3
     at level 2."""
-    gen = torch.Generator().manual_seed(C + F)
+    _check_head_bwds(cuda, C, F, dt)
+
+
+def _check_head_bwds(cuda, C, F, dt, seed=None):
+    """e and h at (C, F), B=3 at level 2, against their plain versions
+    within TOL, and each a second time equal to the first bit for bit."""
+    gen = torch.Generator().manual_seed(C + F if seed is None else seed)
     B, h, w = 3, 4, 8
 
     def rnd(*shape, scale=1.0):
@@ -367,6 +373,7 @@ def test_head_bwd_ragged_widths(cuda, C, F, dt):
         for x, y in zip(got[2:], ref[2:]):
             assert x.dtype == y.dtype
             _close(x, y, dt)
+        _equal_all(call(*args), got)
 
 
 def _head_fwd_inputs(cuda, dt, B, C, F, seed, h=16, w=32, offset=0):
@@ -389,7 +396,7 @@ def _head_fwd_inputs(cuda, dt, B, C, F, seed, h=16, w=32, offset=0):
     return b0, y10, aff, W, bias, tpack, tpoles
 
 
-def _check_head_fwds(args, dt, mse=True):
+def _check_head_fwds(args, dt):
     """Both forwards against their plain versions within TOL, each one
     launch; the MSE forward's sse twice, bit for bit (a fixed order). The
     forward's outputs are first given memory that holds NaN (blocks of their
@@ -405,8 +412,6 @@ def _check_head_fwds(args, dt, mse=True):
     for u, v in zip(got, pk.pair_head_fwd_plain(*args[:5])):
         assert u.dtype == torch.float32
         _close(u, v, dt)
-    if not mse:
-        return
     sse = pk.pair_head_mse_fwd(*args)
     assert sse.dtype == torch.float32 and sse.shape == (args[0][0].shape[0],)
     _close(sse, pk.pair_head_mse_fwd_plain(*args), dt)
@@ -435,13 +440,48 @@ def test_head_fwd_ragged_widths(cuda, C, F, dt):
     their plain versions within TOL: C 60 (bf16) and 62 (float32), not a
     multiple of the 16-byte chunk (channel by channel); F 1 and 8 (W's 8
     columns held); C 200 (32 lanes a cell; in float32 two rounds of
-    chunks); ``pair_head_fwd`` alone (the head+MSE takes C <= 256) at C 320
-    (bf16) and 600 (float32), several rounds, and at C 2000, F 1, whose
-    shared memory (56 KB) needs the opt-in above 48 KB; groups narrower
-    than F, where a lane writes several of v's floats: C 8 (bf16: 1 lane,
-    float32: 2) with F 3, C 4 (float32) and 16 (bf16) with F 8."""
+    chunks); C 320 (bf16) and 600 (float32), several rounds, and C 2000, F
+    1, whose shared memory (56 KB) needs the opt-in above 48 KB; groups
+    narrower than F, where a lane writes several of v's floats: C 8 (bf16:
+    1 lane, float32: 2) with F 3, C 4 (float32) and 16 (bf16) with F 8."""
     args = _head_fwd_inputs(cuda, dt, 3, C, F, seed=C + F, h=4, w=8)
-    _check_head_fwds(args, dt, mse=C <= 256)
+    _check_head_fwds(args, dt)
+
+
+@pytest.mark.parametrize("C, F, dt", [(320, 3, torch.bfloat16), (600, 3, torch.float32),
+                                      (768, 3, torch.bfloat16), (1000, 8, torch.float32)])
+def test_head_training_kernels_at_wide_heads(cuda, C, F, dt):
+    """The head's training kernels at heads wider than 256 channels, where
+    the backward walks a cell in rounds (``head_bwd_wide_body``): g (with
+    the head's forward) and e and h against their plain versions within
+    TOL, B=3 at level 2: C 320 (bf16) and 600 (float32); C 768 (bf16) and
+    1000 with F 8 (float32), whose backward's shared memory (55 KB, 92 KB)
+    needs the opt-in above 48 KB."""
+    _check_head_fwds(_head_fwd_inputs(cuda, dt, 3, C, F, seed=C + F + 1, h=4, w=8), dt)
+    _check_head_bwds(cuda, C, F, dt, seed=C + F + 2)
+
+
+def test_head_mse_forms_the_heads_v_at_c320(cuda):
+    """g forms each cell's v with the bits of ``pair_head_fwd`` at C 320
+    (bf16, 32 lanes a cell, two rounds of chunks): against the forward's
+    own v as the target, every squared error is 0 and so is each sample's
+    sse, exactly (a v one bf16 rounding of z apart would add its square).
+    The pole cells' joins are all below 0 and the bias is 0, so each pole's
+    v, mean and target are 0 and the pole term is 0 whatever order and
+    contraction its arithmetic takes."""
+    b0, y10, aff, W, bias, _, _ = _head_fwd_inputs(cuda, torch.bfloat16, 3, 320, 3, seed=321,
+                                                   h=4, w=8)
+    bias = torch.zeros_like(bias)
+    for x in (b0[0], y10[0]):
+        x[:, :, 0, 0] = -1e4
+    for x in (b0[3], y10[3]):
+        x[:, :, -1, -1] = -1e4
+    v = pk.pair_head_fwd(b0, y10, aff, W, bias)
+    assert not any(t[:, :, i, i].any() for t, i in ((v[0], 0), (v[3], -1)))
+    tpack = torch.cat(v, dim=-1).contiguous()
+    tpoles = torch.zeros((3, 6), device=cuda)
+    sse = pk.pair_head_mse_fwd(b0, y10, aff, W, bias, tpack, tpoles)
+    assert torch.equal(sse, torch.zeros_like(sse)), sse
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -1009,31 +1049,25 @@ def _check_affine(mul, add, s00, count, gamma, beta):
 @pytest.mark.parametrize("s", [3, 4])
 def test_up_block_is_the_split_pair(cuda, s, corner_mode, dt):
     """Kernel o against the split route on the card: y00, y10, s00 and s10
-    equal ``up_dual_conv_fwd`` with stats, bit for bit in float32 (both the
-    SIMT tile); in bf16 the split up conv runs the tensor-core GEMM, whose
-    float32 sums are taken in another order, so each is within one bf16 ulp
-    of max|ref| (plus 1e-5·max|ref|); mul00 and add00 are bn00's affine of
-    s00 (``_check_affine``); b0 and s01 equal ``phase_conv_fwd`` of y00 with
-    that affine, bit for bit in float32 and within one bf16 ulp in bf16 (the
-    split phase conv's tensor-core GEMM); and every output is within the
-    tolerance of ``up_block_fwd_plain``."""
-    x, _, _ = _inputs(cuda, dt, s, 12, 20, seed=180 + s)
-    sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=190 + s)
-    got = pk.up_block_fwd(x, sets, gamma, beta, corner_mode)
-    b0, y10, y00, s00, s01, s10, mul, add = got
-    ref_sets, ref_stats = pk.up_dual_conv_fwd(x, sets[:2], corner_mode, True)
-    if dt == torch.float32:
+    equal ``up_dual_conv_fwd`` with stats; mul00 and add00 are bn00's affine
+    of s00 (``_check_affine``); b0 and s01 equal ``phase_conv_fwd`` of y00
+    with that affine; each bit for bit in both dtypes (float32: both the
+    SIMT tile; bf16: both the tensor-core passes, the same operand, packed
+    taps, tiles, partials and reduction order); and every output is within
+    the tolerance of ``up_block_fwd_plain``. C_in 12 takes the operand
+    pass's channel-by-channel loads; 16 its 8-channel loads."""
+    for cin in (12, 16):
+        x, _, _ = _inputs(cuda, dt, s, cin, 20, seed=180 + s + cin)
+        sets, gamma, beta = _block_params(cuda, dt, cin, 20, 24, seed=190 + s + cin)
+        got = pk.up_block_fwd(x, sets, gamma, beta, corner_mode)
+        b0, y10, y00, s00, s01, s10, mul, add = got
+        ref_sets, ref_stats = pk.up_dual_conv_fwd(x, sets[:2], corner_mode, True)
         _equal_all((y00, y10, s00, s10), (*ref_sets, *ref_stats))
-    else:
-        _within_ulp((y00, y10, s00, s10), (*ref_sets, *ref_stats))
-    _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
-    (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], corner_mode, (0, 1, 2, 3),
-                                              (mul, add), True)
-    if dt == torch.float32:
+        _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
+        (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], corner_mode, (0, 1, 2, 3),
+                                                  (mul, add), True)
         _equal_all((b0, s01), (ref_b0, ref_s01))
-    else:
-        _within_ulp((b0, s01), (ref_b0, ref_s01))
-    _close_all(got, pk.up_block_fwd_plain(x, sets, gamma, beta, corner_mode), dt)
+        _close_all(got, pk.up_block_fwd_plain(x, sets, gamma, beta, corner_mode), dt)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -1044,23 +1078,24 @@ def test_dn_block_is_the_split_pair(cuda, s, corner_mode, dt):
     pending act: y00, y10, s00 and s10 equal ``phase_conv_fwd`` with output
     phase 2 and stats; mul00 and add00 are bn00's affine of s00; b0 and s01
     equal ``ico_conv_s2s_fwd`` of y00 with that affine; each bit for bit in
-    float32 (both the SIMT tile) and within one bf16 ulp of max|ref| in
-    bf16 (the split convs run the tensor-core GEMM, whose float32 sums are
-    taken in another order; ``_within_ulp``); and every output is within the
-    tolerance of ``dn_block_fwd_plain``."""
-    x, act, _ = _inputs(cuda, dt, s, 12, 20, seed=200 + s)
-    phases = _split(x)
-    sets, gamma, beta = _block_params(cuda, dt, 12, 20, 24, seed=210 + s)
-    for a in (act, None):
-        got = pk.dn_block_fwd(phases, sets, gamma, beta, a, corner_mode)
-        b0, y10, y00, s00, s01, s10, mul, add = got
-        ((ref00,), (ref10,)), ref_stats = pk.phase_conv_fwd(phases, sets[:2], corner_mode, (2,),
-                                                            a, True)
-        same = _equal_all if dt == torch.float32 else _within_ulp
-        same((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
-        _check_affine(mul, add, s00, float(y00.shape[:-1].numel()), gamma, beta)
-        same((b0, s01), ck.ico_conv_s2s_fwd(y00, *sets[2], corner_mode, (mul, add), True))
-        _close_all(got, pk.dn_block_fwd_plain(phases, sets, gamma, beta, a, corner_mode), dt)
+    both dtypes (float32: both the SIMT tile; bf16: both the tensor-core
+    passes); and every output is within the tolerance of
+    ``dn_block_fwd_plain``. C_in 12 and 16, as for o."""
+    for cin in (12, 16):
+        x, act, _ = _inputs(cuda, dt, s, cin, 20, seed=200 + s + cin)
+        phases = _split(x)
+        sets, gamma, beta = _block_params(cuda, dt, cin, 20, 24, seed=210 + s + cin)
+        for a in (act, None):
+            got = pk.dn_block_fwd(phases, sets, gamma, beta, a, corner_mode)
+            b0, y10, y00, s00, s01, s10, mul, add = got
+            ((ref00,), (ref10,)), ref_stats = pk.phase_conv_fwd(phases, sets[:2], corner_mode,
+                                                                (2,), a, True)
+            _equal_all((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
+            _check_affine(mul, add, s00, float(y00.shape[:-1].numel()), gamma, beta)
+            _equal_all((b0, s01),
+                       ck.ico_conv_s2s_fwd(y00, *sets[2], corner_mode, (mul, add), True))
+            _close_all(got, pk.dn_block_fwd_plain(phases, sets, gamma, beta, a, corner_mode),
+                       dt)
 
 
 def test_block_wrappers_check_their_inputs(cuda):
@@ -1077,8 +1112,8 @@ def test_block_wrappers_check_their_inputs(cuda):
         pk.dn_block_fwd((*_split(x)[:3], _split(x)[3].cpu()), sets, gamma, beta)
 
 
-def _block_step(cuda, model, merged_block, **routing):
-    """One s=4 training forward and backward on the card with
+def _block_step(cuda, model, merged_block, dtype=torch.float32, **routing):
+    """One s=4 training forward and backward on the card in ``dtype`` with
     ``merged_block`` (and the other routing options): (loss, launches,
     gradients)."""
     from unittest import mock
@@ -1096,7 +1131,7 @@ def _block_step(cuda, model, merged_block, **routing):
     tpoles = torch.randn(4, 6, generator=gen)
     cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
            torch.randn(eps.shape, generator=gen)]
-    kw = dict(merged_block=merged_block, **routing)
+    kw = dict(merged_block=merged_block, dtype=dtype, **routing)
     net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
     net.load_state_dict(bridge.flax_to_state_dict(variables))
     net.to(cuda)
@@ -1138,6 +1173,28 @@ def test_merged_block_step_equals_the_split_route(cuda, model):
         else:
             assert torch.equal(g, split[k]), k
     _, chained, _ = _block_step(cuda, model, "all", phase_chain="1")
+    assert chained["up_block_fwd"] == 1 and "dn_block_fwd" not in chained
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_merged_block_step_equals_the_split_route_in_bf16(cuda, model):
+    """The same step in bf16: o and p run the split route's tensor-core
+    passes in one cooperative launch, so the loss equals the split route's
+    and every gradient does bit for bit, but for the conv biases (held as in
+    float32); with ``phase_chain="1"`` o runs at up0 alone."""
+    vae, bf = model == "ico2ico_vae", torch.bfloat16
+    loss, launches, grads = _block_step(cuda, model, "all", bf)
+    assert launches["up_block_fwd"] == 3 and launches["dn_block_fwd"] == (2 if vae else 3)
+    assert "up_dual_conv_fwd" not in launches and "ico_conv_s2s_fwd" not in launches
+    split_loss, _, split = _block_step(cuda, model, None, bf)
+    assert loss == split_loss
+    for k, g in grads.items():
+        if "conv" in k and k.endswith(".bias"):
+            err = (g - split[k]).abs().max().item()
+            assert err <= 1e-5 * split[k[: -len("bias")] + "taps"].abs().max().item(), k
+        else:
+            assert torch.equal(g, split[k]), k
+    _, chained, _ = _block_step(cuda, model, "all", bf, phase_chain="1")
     assert chained["up_block_fwd"] == 1 and "dn_block_fwd" not in chained
 
 

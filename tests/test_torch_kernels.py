@@ -186,6 +186,37 @@ def test_pair_head_plain_matches_pallas_interpret_in_bf16(interpret, C):
         _close(a, b, TOL[torch.bfloat16])
 
 
+def test_pair_head_mse_plain_matches_pallas_interpret_at_c320(interpret):
+    """The head+MSE (g) and its backward (h) at a head wider than 256
+    channels, C 320, where the card's backward walks a cell in rounds: the
+    plain versions (the card's references) against the Pallas
+    ``fused_pair_head_mse`` and ``jax.vjp`` of it in interpret mode, level
+    2, B=1, float32: the sse, the 8 phase cotangents, dW, dbias and the
+    affine gradients within 1e-5·max|ref| (only the order of the float32
+    sums differs)."""
+    import jax
+
+    C, F = 320, 3
+    c = _Case(9)
+    b0, y10, aff, W, bias = _head_inputs(9, B=1, C=C, F=F)
+    W = W * C**-0.5
+    tpack, tpoles = c.randn(1, 5, 2, 4, 4 * F, scale=0.5), c.randn(1, 2 * F, scale=0.5)
+    args = (_j(*b0), _j(*y10), _j(*aff), jnp.asarray(W), jnp.asarray(bias), jnp.asarray(tpack),
+            jnp.asarray(tpoles))
+    sse, vjp = jax.vjp(lambda *a: jpk.fused_pair_head_mse(*a), *args)
+    targs = (_t(*b0), _t(*y10), _t(*aff), *_t(W, bias, tpack, tpoles))
+    _close(pk.pair_head_mse_fwd(*targs), sse)
+    g = np.array([1.5], np.float32)
+    db0, dy10, daff, dW, dbias, _, _ = vjp(jnp.asarray(g))
+    got = pk.pair_head_mse_bwd(torch.from_numpy(g), *targs)
+    for u, v in zip((*got[0], *got[1]), (*db0, *dy10)):
+        _close(u, v)
+    _close(got[2], dW)
+    _close(got[3], dbias)
+    for u, v in zip(got[4:], daff):
+        _close(u, v)
+
+
 def test_pair_head_plain_matches_xla():
     b0, y10, aff, W, bias = _head_inputs(5)
     m1, a1, m2, a2 = _j(*aff)
@@ -344,6 +375,17 @@ def test_head_constants_mirror_the_source():
     assert build.head_mse_parts(36, 16, 32) == 36 * 40
     assert build.head_mse_parts(1, 2, 4) == 1
     assert build.head_bwd_blocks(36, 16, 32) == build.HEAD_BWD_BLOCKS
+
+
+def test_block_constants_mirror_the_source():
+    """``build``'s sizes of the merged blocks' SM-order counters say what
+    ``csrc/mma_block_fwd.cuh`` indexes."""
+    import re
+
+    src = (build.CSRC / "mma_block_fwd.cuh").read_text()
+    for name in ("MAX_SLOTS", "MAX_SM_IDS"):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == getattr(
+            build, name)
 
 
 def test_kernels_build_inside_the_checkout():

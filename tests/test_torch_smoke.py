@@ -207,6 +207,17 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::dx_gemm<float, gn::GLoad<float, false>, "
                                "gn::DxOut<float> >"},
      "dx_gemm<fp32>"),
+    # the merged blocks: o and p, bf16 on the tensor cores, float32 the SIMT tiles
+    ({"cat": "kernel", "name": "void gn::mma_two_pass_block<gn::UpLoad<__nv_bfloat16, "
+                               "gn::GridCells<__nv_bfloat16> > >(gn::MmaTwoPass<gn::UpLoad<"
+                               "__nv_bfloat16, gn::GridCells<__nv_bfloat16> > >)"},
+     "mma_two_pass_block<bf16, UpLoad> (o)"),
+    ({"cat": "kernel", "name": "void gn::mma_two_pass_block<gn::GridLoad<__nv_bfloat16, false> >"
+                               "(gn::MmaTwoPass<gn::GridLoad<__nv_bfloat16, false> >)"},
+     "mma_two_pass_block<bf16, GridLoad> (p)"),
+    ({"cat": "kernel", "name": "void gn::two_pass_block<float, gn::GridLoad<float, false> >"
+                               "(gn::TwoPass<float, gn::GridLoad<float, false> >)"},
+     "two_pass_block<fp32, GridLoad> (p)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
