@@ -39,7 +39,9 @@ printed on its own lines, each fatal on failure:
    three merged backward kernels (i, j, k) also print the time of the
    split pair they replace at the same shape (its dx call, with the Σg
    pass, and its dtaps call, each timed alone: they run the merged
-   kernel's two tile roles on their own) and cuDNN's dx + dweight; kernel
+   kernel's two tile roles on their own) and cuDNN's dx + dweight (in
+   bf16 j's five outputs must equal the split pair's bit for bit, and m's
+   dtaps the phase conv's on the merged cotangents); kernel
    m (``ds2s_*``) at the chain's DownBlock shapes and l (``stats_geff``)
    at each group it folds on the chain, with the phase conv's kernels at
    the chain's conv01 shapes; l at down0 also prints what the fold costs
@@ -98,11 +100,13 @@ printed on its own lines, each fatal on failure:
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
-   convs' forward and dtaps (b, f) and of a's, c's and f's dx must show
-   its operand pass and tensor-core GEMM there (c also its upsample
-   adjoint), and no window the SIMT ``dx_gemm<bf16>``, ``conv_gemm<bf16,
-   GridLoad>`` or ``dtaps_gemm<bf16, GridLoad>``; the Chrome traces are
-   kept in ``build/profile/``.
+   convs' forward and dtaps (b, f, m's dtaps) and of a's, c's and f's dx
+   must show its operand pass and tensor-core GEMM there (c also its
+   upsample adjoint; j its two passes, its one launch of both GEMMs and
+   its adjoint), and no window the SIMT ``dx_gemm<bf16>``,
+   ``conv_gemm<bf16, GridLoad>``, ``dtaps_gemm<bf16, GridLoad>`` (m's
+   split one too) or j's ``merged_bwd<bf16, UpLoad>``; the Chrome traces
+   are kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 launches on the serving and training paths (AE and VAE summed, and per
@@ -200,14 +204,17 @@ KERNELS = {
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
-# the grid convs' forward and dtaps (the grid convs' dtaps: b, f), the
-# phase conv's, the up conv's and the standard conv's dx (a, c, f) and the
-# merged blocks (o, p) run an operand pass of csrc/mma.cuh and the
-# tensor-core GEMMs of csrc/mma_conv_fwd.cuh and csrc/mma_dtaps.cuh
+# the grid convs' forward and dtaps (the grid convs' dtaps: b, f, m's), the
+# phase conv's, the up conv's and the standard conv's dx (a, c, f), the
+# merged up-conv backward (j) and the merged blocks (o, p) run an operand
+# pass of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh
+# and csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
               for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
-                        "ico_conv_s2s_dtaps")},
+                        "ico_conv_s2s_dtaps", "ds2s_dtaps")},
+           "up_dual_conv_bwd": ("geniconet_tpu_torch/csrc/mma_dtaps.cuh",
+                                "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA),
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
                         "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
@@ -418,7 +425,8 @@ class Case:
     f's dx; ``head_parts``: the pair head's forwards and backwards, the
     head's, g, e and h; ``block_parts``: o's and p's cooperative kernel).
     ``exact``: in bf16, a call that checks the kernel's outputs equal the
-    split route's bit for bit (o, p) and returns what it compared."""
+    split route's bit for bit (o, p, j; m's dtaps: the phase conv's) and
+    returns what it compared."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -432,18 +440,19 @@ class Case:
 
 def mma_parts(call, flops, inputs, operand, info, adjoint=None):
     """A bf16 tensor-core kernel's parts from a trace (the up conv's, n's
-    and the grid convs' forward and dtaps; a's and c's dx): its operand pass
-    (against its bound: the inputs it reads once, ``inputs``, and the bf16
-    operand of ``operand`` = (rows, width) it writes), the tap pack, the
-    tensor-core GEMM (achieved TFLOP/s against the bf16 peak), the sums
-    (the partials' and Σg's), for c the upsample adjoint pass against the
-    ``adjoint`` bytes it must move; and ``info``, the GEMM instantiation's
-    registers a thread, blocks an SM, shared and local memory as the runtime
-    reports them (``build.mma_dtaps_info``, ``grid_dtaps_info``,
-    ``mma_fwd_info``, ``grid_fwd_info``, ``mma_dx_info``)."""
+    and the grid convs' forward and dtaps; a's, c's and j's dx, j's dtaps):
+    its operand passes (against their bound: the inputs they read once,
+    ``inputs``, and the bf16 operands of ``operand`` = (rows, width), or a
+    list of them, they write), the tap pack, the tensor-core GEMM (``flops``
+    over its time against the bf16 peak), the sums (the partials' and
+    Σg's), for c and j the upsample adjoint pass against the ``adjoint``
+    bytes it must move; and ``info``, the GEMM instantiation's registers a
+    thread, blocks an SM, shared and local memory as the runtime reports
+    them (``build.mma_dtaps_info``, ``grid_dtaps_info``, ``mma_fwd_info``,
+    ``grid_fwd_info``, ``mma_dx_info``, ``up_bwd_info``)."""
     rows = trace_kernels(call, per_launch=True)
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
-    op_bytes += operand[0] * operand[1] * 2
+    op_bytes += sum(r * w * 2 for r, w in (operand if isinstance(operand, list) else [operand]))
     gemm = sum(ms for k, ms in rows.items() if k.startswith("mma_"))
     parts = {"operand_ms": sum(ms for k, ms in rows.items() if "operand_pass" in k),
              "operand_bound_ms": op_bytes / PEAK_BYTES * 1e3,
@@ -696,6 +705,7 @@ def training_cases():
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+    from geniconet_tpu_torch.ops.phase import phase_merge
 
     B, (w0, w1, w2) = TRAIN_BATCH, WIDTHS
 
@@ -797,10 +807,16 @@ def training_cases():
                         cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
         return make
 
+    def phase_merged(groups):
+        """Per set the ``phase_merge`` of its 4 phase cotangents (m's split
+        route: the phase conv at output phase 2)."""
+        return [(phase_merge(tuple(gg)).contiguous(),) for gg in groups]
+
     def split_bwd(which, h, w, cin, cout, with_act, fold):
         """m's dx or dtaps on the level-s input phases (h, w): the 2 x 4
         phase cotangents (h/2, w/2) with the fold in the kernel, or none
-        (the fold outside: dtaps then emits Σg)."""
+        (the fold outside: dtaps then emits Σg). In bf16 m's dtaps must
+        equal b's on the merged cotangents bit for bit."""
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -815,9 +831,26 @@ def training_cases():
                             flops, [g, [t for t, _ in sets], a, ph if a else None,
                                     list(fk.values())], lib)
             args = (ph, g, [(7, cin, cout)] * 2, "average", a)
-            return Case(lambda: pk.ds2s_dtaps(*args, **fk, emit_gsum=not fold),
-                        lambda: pk.ds2s_dtaps_plain(*args, **fk, emit_gsum=not fold), flops,
-                        [ph, g, a, list(fk.values())], lib)
+            call = lambda: pk.ds2s_dtaps(*args, **fk, emit_gsum=not fold)  # noqa: E731
+
+            def exact():
+                """m's bf16 dtaps and Σg_eff against b's on the phase_merge'd
+                cotangents (its split route)."""
+                fm = {k: phase_merged(v) if k == "y_groups" else v for k, v in fk.items()}
+                ref = pk.phase_conv_dtaps(ph, phase_merged(g), args[2], "average", (2,), a, **fm,
+                                          emit_gsum=not fold)
+                if not all(torch.equal(u, v) for u, v in zip(flat(call()), flat(ref))):
+                    raise AssertionError("m: bf16 dtaps or Σg_eff differ from phase_conv_dtaps'")
+                return ("dtaps a/b" + (" and Σg_eff a/b" if not fold else "")
+                        + " (phase_conv_dtaps at phase 2 on the merged cotangents)")
+
+            bf16 = dt == torch.bfloat16
+            info = build.grid_dtaps_info(False, fold, build.mma_narrow(cin), split=True) if bf16 \
+                else None
+            return Case(call, lambda: pk.ds2s_dtaps_plain(*args, **fk, emit_gsum=not fold), flops,
+                        [ph, g, a, list(fk.values())], lib,
+                        parts=(lambda: grid_parts(call, flops, [ph, a], B, h, w, cin, 4, info)
+                               ) if bf16 else None, exact=exact if bf16 else None)
         return make
 
     def geff(h, w, c, fold_cost=None):
@@ -979,9 +1012,13 @@ def training_cases():
         """Kernel i ("phase"), j ("up") or k ("std") with the stats fold, the
         split pair it replaces (dx with its Σg pass, then dtaps) and cuDNN's
         dx + dweight on the haloed input. FLOPs: dx (an up conv's composed,
-        ``up_dx_flops``) + dtaps."""
+        ``up_dx_flops``) + dtaps. In bf16 j's five outputs must equal the
+        split pair's bit for bit, and j prints its parts (its two passes,
+        the one launch of both GEMMs, whose FLOPs are c's 4-phase dx GEMM's
+        and d's, the adjoint and the sums)."""
         def make(dt, gen):
             a = _act(gen, cin) if with_act else None
+            exact = parts = None
             if kind == "up":
                 x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
                 sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -992,6 +1029,22 @@ def training_cases():
                          lambda: pk.up_dual_conv_dtaps(x, g, "average", y, gs))
                 reads = [x, g, y, gs, [t for t, _ in sets]]
                 rows, ntot, stride, halo = 4 * 5 * h * w, 2 * cout, 1, (2 * h + 2, 2 * w + 2)
+
+                def exact(split=split, args=args):
+                    got = pk.up_dual_conv_bwd(*args)
+                    (dx, (ga, gb)), (da, db) = split[0](), split[1]()
+                    for key, u, v in zip(("dx", "dtaps a", "dtaps b", "Σg_eff a", "Σg_eff b"),
+                                         got, (dx, da, db, ga, gb)):
+                        if not torch.equal(u, v):
+                            raise AssertionError(f"j: bf16 {key} differs from the split route's")
+                    return "dx, dtaps a/b and Σg_eff a/b"
+
+                if dt == torch.bfloat16:
+                    du_bytes = B * 4 * 5 * h * w * cin * 4 + B * 5 * h * w * cin * 2
+                    parts = (lambda args=args: mma_parts(
+                        lambda: pk.up_dual_conv_bwd(*args), 2 * conv_flops(B, rows, cin, ntot),
+                        [x, g, y, gs], [dx_operand(B, h, w, ntot, _ALL), up_operand(B, h, w, cin)],
+                        build.up_bwd_info(), du_bytes))
             elif kind == "std":
                 x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
                 t, _ = _taps(gen, cin, cout, dt)
@@ -1024,7 +1077,8 @@ def training_cases():
                         else conv_flops(B, rows, cin, ntot))
             return Case(lambda: fn(*args), lambda: plain(*args),
                         dx_flops + conv_flops(B, rows, cin, ntot), reads,
-                        lambda: (lib_dx(), lib_dw()), split)
+                        lambda: (lib_dx(), lib_dw()), split, parts=parts,
+                        exact=exact if dt == torch.bfloat16 else None)
         return make
 
     def block(kind, h, w, cin, c0, c2, with_act=False):
@@ -1499,11 +1553,16 @@ def kernel_group(event: dict) -> str:
     # (by the rows they read: the up conv's grid, the pair, the phase conv's
     # phases, the standard conv's grid)
     pair = "PairCells" in name
-    which = "(n)" if pair else "(d)"
-    grid = "(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name else None
+    j = "MergedUp" in name  # the merged up-conv backward's passes and GEMMs
+    which = "(n)" if pair else "(j)" if j else "(d)"
+    grid = ("(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name
+            else "(m)" if "SplitGrid" in name else None)
     # the dx of a, c and f: by Tag the phase conv's (a), the standard
-    # conv's (f) or the up conv's (c)
-    dx = "(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name else "(c)"
+    # conv's (f) or the up conv's (c); j's cotangent pass by its own
+    dx = ("(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name
+          else "(j)" if j else "(c)")
+    if "mma_up_bwd" in name:  # j: d's dtaps and c's dx tiles in one launch
+        return "mma_up_bwd<bf16> (j)"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "grid_operand_pass" in name:
@@ -1511,7 +1570,7 @@ def kernel_group(event: dict) -> str:
     if "cot_operand_pass" in name:
         return f"cot_operand_pass<bf16> {dx}"
     if "up_adjoint_pass" in name:
-        return "up_adjoint_pass (c)"
+        return f"up_adjoint_pass {'(j)' if j else '(c)'}"
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv" in name and ("DxEpi" in name or "DuEpi" in name):
@@ -1637,19 +1696,32 @@ GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
 # ... and of the bf16 dx of a, c and f: each call's cotangent pass and
 # GEMM (and c's upsample adjoint), by wrapper
 DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx", "(f)": "ico_conv_s2s_dx"}
+# ... and of the bf16 merged up-conv backward (j: its two passes, the one
+# launch of both GEMMs, its upsample adjoint) and m's bf16 dtaps (b's pass
+# and GEMM over the split cotangent), by wrapper
+SPLIT_ROUTE_ROWS = {
+    "up_dual_conv_bwd": ("cot_operand_pass<bf16> (j)", "up_operand_pass<bf16> (j)",
+                         "mma_up_bwd<bf16> (j)", "up_adjoint_pass (j)"),
+    "ds2s_dtaps": ("grid_operand_pass<bf16> (m)", "mma_dtaps<bf16> (m)"),
+}
+# the SIMT kernels no bf16 window may run: a's, c's, f's dx, b's and f's
+# dtaps and the grid forwards (m's split store and dx, n's pair dx, i's and
+# k's merged tiles, o's and p's tiles have rows of their own), j's merged
+# tiles and m's split dtaps
+BF16_SIMT = ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>",
+             "merged_bwd<bf16, UpLoad>", "dtaps_gemm<bf16, GridLoad, split> (m)")
 
 
 def check_device_launches(tag, groups, launches, iters):
     """Fail unless, in a profiled bf16 window, the calls of the grid convs'
     forward and dtaps (``launches``, wrapper calls an iteration) ran their
     operand pass (one a call of either) and their tensor-core GEMM
-    (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), and each call of
-    a, c and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
-    adjoint): each row present where its wrappers ran, and at most once a
-    call (a trace may lose events, never add them); and no launch of the
-    SIMT ``dx_gemm<bf16>``, ``conv_gemm<bf16, GridLoad>`` or
-    ``dtaps_gemm<bf16, GridLoad>`` (m's split store and loader, n's pair
-    dx, o's and p's tiles have rows of their own)."""
+    (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), each call of a, c
+    and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
+    adjoint), and each call of j and of m's dtaps the rows of
+    ``SPLIT_ROUTE_ROWS``: each row present where its wrappers ran, and at
+    most once a call (a trace may lose events, never add them); and no
+    launch of a ``BF16_SIMT`` kernel."""
     def check(row, calls, wrappers):
         n = groups[row][0] / iters if row in groups else 0
         if (calls > 0) != (n > 0) or n > calls:
@@ -1666,7 +1738,10 @@ def check_device_launches(tag, groups, launches, iters):
         check(f"cot_operand_pass<bf16> {which}", n_dx, (dx,))
         check(f"mma_conv_dx<bf16> {which}", n_dx, (dx,))
     check("up_adjoint_pass (c)", launches.get("up_dual_conv_dx", 0), ("up_dual_conv_dx",))
-    for simt in ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>"):
+    for wrapper, rows in SPLIT_ROUTE_ROWS.items():
+        for row in rows:
+            check(row, launches.get(wrapper, 0), (wrapper,))
+    for simt in BF16_SIMT:
         if simt in groups:
             raise AssertionError(f"profile {tag}: the SIMT {simt} ran")
 
@@ -1985,7 +2060,7 @@ PLANTED = {
         ("up_dual_conv_dx", "up0 (C_in 512), dx", (0,), lambda a: a[1][0][0].shape[1] == LATENT),
     ),
 }
-# ... and on the merged route: i's dtaps, j's dx and k's dtaps. k's Σg_eff
+# ... and on the merged route: i's dtaps, j's dx and dtaps and k's dtaps. k's Σg_eff
 # is not among them: it is the gradient of a conv bias that feeds a
 # BatchNorm, exactly 0, so 1% of it is 1% of float32 rounding noise, which
 # no gradient check can see.
@@ -1994,12 +2069,15 @@ PLANTED_MERGED = {
         ("phase_conv_bwd", "down0-2 stride-2 and up0-2 conv01, dtaps of set a", (1, 0),
          lambda a: True),
         ("up_dual_conv_bwd", "up0-2, dx", (0,), lambda a: True),
+        ("up_dual_conv_bwd", "up0-2, dtaps of set a", (1,), lambda a: True),
         ("ico_conv_s2s_bwd", "down0-2 conv01, dtaps", (1,), lambda a: True),
     ),
     "ico2ico_vae": (
         ("phase_conv_bwd", "heads (256->2x512), mu's dtaps", (1, 0),
          lambda a: a[0][0].shape[-1] == WIDTHS[2] and a[4][0][0].shape[-1] == LATENT),
         ("up_dual_conv_bwd", "up0 (C_in 512), dx", (0,), lambda a: a[0].shape[-1] == LATENT),
+        ("up_dual_conv_bwd", "up0 (C_in 512), dtaps of set a", (1,),
+         lambda a: a[0].shape[-1] == LATENT),
         ("ico_conv_s2s_bwd", "down0-1 conv01, dtaps", (1,), lambda a: True),
     ),
 }

@@ -28,15 +28,24 @@
 // GLoad<T, true>, which reads row m of the merged cotangent (and y, under
 // the fold) from its phase by the same map; so dx, dtaps, d_mul/d_add and
 // Σg_eff equal phase_conv_dx / phase_conv_dtaps on phase_merge'd
-// cotangents bit for bit in float32. In bf16 those two run the tensor
-// cores (mma_conv_fwd.cuh, mma_dtaps.cuh) and m keeps these tiles: dx is
-// within one bf16 ulp, dtaps within float32 noise, Σg_eff still equal.
+// cotangents bit for bit in float32. In bf16 the phase conv's dx runs the
+// tensor cores (mma_conv_fwd.cuh) and m keeps this tile: dx is within one
+// bf16 ulp, Σg_eff equal. m's bf16 dtaps is b's: grid_operand_pass writes
+// the act-applied operand of the 4 input phases once, and gn::mma_dtaps
+// (mma_dtaps.cuh) runs at output phase 2 with its G rows read from the
+// parity phases by the same map (mma::SplitRows; one row is still cout
+// contiguous elements, so the 16-byte copies stay, and the stats fold stays
+// in the kernel), on b's split: dtaps and Σg_eff equal phase_conv_dtaps on
+// the phase_merge'd cotangents bit for bit.
 //
-// What bounds it on the card: as the phase conv's kernels, the float32 FMA
-// rate of the SIMT GEMM core (2 * 7 * C_in * 2 * C_out FLOPs per level-(s-1)
-// cell, each for the forward, dx and dtaps). The split map costs a few
-// shifts per stored or loaded element, next to 7 * C_in FMAs.
-#include "backward.cuh"
+// What bounds it on the card: the forward and dx as the phase conv's float32
+// kernels, the FMA rate of the SIMT GEMM core (2 * 7 * C_in * 2 * C_out
+// FLOPs per level-(s-1) cell each); the split map costs a few shifts per
+// stored or loaded element, next to 7 * C_in FMAs. The bf16 dtaps: b's
+// tensor-core GEMM (mma_dtaps.cuh says what bounds it).
+#include <type_traits>
+
+#include "mma_dtaps.cuh"
 
 namespace {
 
@@ -103,17 +112,33 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
+// float32: the SIMT GEMM over GridLoad and the split loader; bf16: b's
+// operand pass into `operand` and b's tensor-core GEMM at output phase 2,
+// its G rows read from the parity phases (mma::SplitRows). Σg_eff
+// (gsum_ws) by launch_gsum over the split loader.
 template <typename T>
 cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
                   const void* const* g, const void* const* y, const float* gs0, const float* gs1,
-                  const int* table, float* ws, float* dt0, float* dt1, float* gsum_ws,
-                  float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
-                  int kc, int n_chunks, int gsum_rows, cudaStream_t stream) {
+                  const int* table, float* ws, float* dt0, float* dt1, void* operand,
+                  float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w, int cin,
+                  int cout, int n_sets, int kc, int n_chunks, int gsum_rows, int zero_poles,
+                  cudaStream_t stream) {
   const int M = 5 * h * w;
   const auto gl = gn::make_split_gload<T>(g, y, gs0, gs1, log2i(h), log2i(w), cout, n_sets);
   const gn::GridLoad<T> ld = grid_load<T>(x, mul, add, h, w, cin);
-  cudaError_t err = gn::launch_dtaps_gemm<T>(ld, gl, table, cin, n_sets, 2, B * M, kc, n_chunks,
-                                             ws, dt0, dt1, stream);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    err = gn::launch_dtaps_gemm<T>(ld, gl, table, cin, n_sets, 2, B * M, kc, n_chunks, ws, dt0,
+                                   dt1, stream);
+  } else {
+    // the 4 phase pointers of each set, row b * M + m of the merged grid by split_row
+    const gn::GLoad<T> phases = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
+    const gn::SplitOut st = {{dt0, dt1}, n_sets * cout, cout};
+    const gn::mma::SplitRows rows = {{4}, gl.lh, gl.lw};
+    err = gn::launch_grid_mma_dtaps<gn::SplitGrid>(ld, 4, phases, rows, table, 2, 1,
+                                                   static_cast<T*>(operand), zero_poles, B, cin,
+                                                   n_sets, kc, n_chunks, ws, st, stream);
+  }
   if (err != cudaSuccess || gsum_ws == nullptr) return err;
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
@@ -184,24 +209,42 @@ extern "C" int gn_ds2s_dx(const void* const* g, const void* const* y, const floa
 // x: host array of the 4 raw input phases (B, 5, h, w, cin); mul/add: the
 // act prologue or null; g, y, gs0, gs1: as in gn_ds2s_dx; table:
 // halo.phase_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
-// n_sets * cout), the B * 5hw rows split in chunks of kc (a multiple of 16);
-// dt0/dt1 receive (7, cin, cout) float32; gsum_ws: null, or scratch of
-// (ceil(B * 5hw / gsum_rows), n_sets * cout) with gsum0/gsum1 receiving
-// Σg_eff. dtype: 0 float32, 1 bfloat16.
+// n_sets * cout), the B * 5hw rows split in chunks of kc (float32: a
+// multiple of 16, build.dtaps_split; bfloat16: of 32, build.grid_dtaps_split,
+// as phase_conv_dtaps); dt0/dt1 receive (7, cin, cout) float32; operand:
+// bfloat16 only, scratch of (B * (4 * 5hw + 2) + 1, cin rounded up to 8)
+// for the act-applied operand (zero_poles: corner_mode "zeros"); gsum_ws:
+// null, or scratch of (ceil(B * 5hw / gsum_rows), n_sets * cout) with
+// gsum0/gsum1 receiving Σg_eff. dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_ds2s_dtaps(const void* const* x, const float* mul, const float* add,
                              const void* const* g, const void* const* y, const float* gs0,
                              const float* gs1, const int* table, float* ws, float* dt0,
-                             float* dt1, float* gsum_ws, float* gsum0, float* gsum1, int B, int h,
-                             int w, int cin, int cout, int n_sets, int kc, int n_chunks,
-                             int gsum_rows, int dtype, void* stream) {
+                             float* dt1, void* operand, float* gsum_ws, float* gsum0,
+                             float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
+                             int kc, int n_chunks, int gsum_rows, int zero_poles, int dtype,
+                             void* stream) {
   if (bad_shape(n_sets, h, w) || kc % gn::BK != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws, gsum0, gsum1,
-                        B, h, w, cin, cout, n_sets, kc, n_chunks, gsum_rows, s);
+    return dtaps<float>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, nullptr, gsum_ws, gsum0,
+                        gsum1, B, h, w, cin, cout, n_sets, kc, n_chunks, gsum_rows, zero_poles,
+                        s);
   if (dtype == 1)
-    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, gsum_ws,
-                                gsum0, gsum1, B, h, w, cin, cout, n_sets, kc, n_chunks,
-                                gsum_rows, s);
+    return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, table, ws, dt0, dt1, operand,
+                                gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, kc, n_chunks,
+                                gsum_rows, zero_poles, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of m's bf16 dtaps GEMM (b's over split G rows), with the
+// fold or without, on the NARROW tile (a C_in of at most 64) or the wide one.
+extern "C" int gn_ds2s_dtaps_info(int narrow, int fold, int* out) {
+  using Tag = gn::SplitGrid;
+  using R = gn::mma::SplitRows;
+  if (narrow)
+    return fold ? gn::mma_dtaps_info<Tag, true, true, R>(out)
+                : gn::mma_dtaps_info<Tag, false, true, R>(out);
+  return fold ? gn::mma_dtaps_info<Tag, true, false, R>(out)
+              : gn::mma_dtaps_info<Tag, false, false, R>(out);
 }

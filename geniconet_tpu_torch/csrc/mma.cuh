@@ -5,9 +5,9 @@
 // act-applied input (grid_operand_pass) or, for the input gradients of the
 // phase conv, the up conv and the standard conv (a, c, f), the folded
 // cotangent with its combined rows (cot_operand_pass). mma_dtaps.cuh (the
-// tap gradients: d, n, b and f) and mma_conv_fwd.cuh (the forwards: the up
-// conv, n and the grid convs; the dx of a, c and f) build their GEMMs on
-// them.
+// tap gradients: d, n, b, f and m's; j's over the written cotangent) and
+// mma_conv_fwd.cuh (the forwards: the up conv, n and the grid convs; the dx
+// of a, c, f and j) build their GEMMs on them.
 #pragma once
 
 #include "backward.cuh"
@@ -480,9 +480,12 @@ struct CotRowsG {
 
 // Tags of the grid convs' instantiations (operand pass, forward GEMM, dtaps
 // GEMM): a profile tells the phase conv's launches (b) from the standard
-// conv's (f) by them; the code is one.
+// conv's (f) and the phase chain's stride-2 dtaps (m) by them; the code is
+// one. MergedUp tags the merged up-conv backward's passes and GEMM (j).
 struct PhaseGrid {};
 struct StdGrid {};
+struct SplitGrid {};
+struct MergedUp {};
 
 // The operand's row loader of the GEMMs: rows of a built operand named by
 // the conv table of output phase p, tap t and cell m.

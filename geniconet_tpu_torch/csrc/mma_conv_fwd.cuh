@@ -654,6 +654,20 @@ inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int 
   return ld;
 }
 
+// The tap sets packed transposed into `wpack` ((7 * k_pad(n_sets * cout),
+// n_pad(cin))), the B operand of the dx GEMMs (a, c, f, j). Tag names the
+// instantiation.
+template <typename Tag>
+cudaError_t launch_pack_taps_t(const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                               __nv_bfloat16* wpack, int cin, int cout, int n_sets,
+                               cudaStream_t stream) {
+  const int Kp = fwd::k_pad(n_sets * cout), Np = fwd::n_pad(cin);
+  const long long packed = 7LL * Kp * Np;
+  pack_taps_t<__nv_bfloat16, Tag><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
+      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
+  return cudaGetLastError();
+}
+
 // The dx GEMM of a, c and f over the B * n_in * M rows of the n_in input
 // phases (slots from 0: the phase conv's and the up conv's 4, the standard
 // conv's one grid), with the epilogue Epi: the tap sets packed transposed
@@ -670,11 +684,8 @@ cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv
   if (wpack == nullptr || (n_in != 1 && n_in != 4) ||
       (tap_mask != nullptr && (n_in * ld.M) % fwd::BM != 0))
     return cudaErrorInvalidValue;
-  const int Ntot = n_sets * cout, Kp = fwd::k_pad(Ntot), Np = fwd::n_pad(cin);
-  const long long packed = 7LL * Kp * Np;
-  pack_taps_t<__nv_bfloat16, Tag><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
-      w0, w1, wpack, cin, cout, n_sets, Kp, Np, packed);
-  cudaError_t err = cudaGetLastError();
+  const int Kp = fwd::k_pad(n_sets * cout), Np = fwd::n_pad(cin);
+  cudaError_t err = launch_pack_taps_t<Tag>(w0, w1, wpack, cin, cout, n_sets, stream);
   if (err != cudaSuccess) return err;
   const int Q = B * n_in * ld.M;
   return launch_mma_conv<Tag>(dim3(Np / fwd::BN, fwd_row_tiles(Q)), ld, wpack, epi, 0, n_in, Q,

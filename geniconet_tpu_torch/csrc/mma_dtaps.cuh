@@ -1,15 +1,25 @@
 // The bf16 tap gradients on the tensor cores, of the up conv (kernel d), of
 // the decoder chain's pair conv (kernel n's dtaps) and of the grid convs
-// (the phase conv, b, and the standard conv, f): the operand is built once
-// into device memory by a pass over the input, then one GEMM gathers its
-// rows through the conv table.
+// (the phase conv, b, the standard conv, f, and the phase chain's stride-2
+// conv, m's dtaps), and the dtaps half of the merged up-conv backward (j):
+// the operand is built once into device memory by a pass over the input,
+// then one GEMM gathers its rows through the conv table.
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:_upd_bwd's
 // dtaps call (:2150, _up_dtaps_kernel), _updp_bwd's dtaps call (:2490,
-// _up_pair_dtaps_kernel) and _phase_conv_dtaps (:1406, _pc_dtaps_kernel),
-// and geniconet_tpu/ops/pallas/conv_kernel.py:_pallas_dtaps (:665,
-// _dtaps_kernel). The float32 path keeps gn::dtaps_gemm over gn::UpLoad or
-// gn::GridLoad (backward.cuh), the SIMT core, bit for bit.
+// _up_pair_dtaps_kernel), _phase_conv_dtaps (:1406, _pc_dtaps_kernel) and
+// _ds2s_bwd's dtaps call (:1936, _ds2s_dtaps_kernel), the dtaps role of
+// _upd_bwd's merged branch (:2068, _up_bwd_kernel; up_conv_bwd.cu runs it
+// beside c's dx tiles), and geniconet_tpu/ops/pallas/conv_kernel.py:
+// _pallas_dtaps (:665, _dtaps_kernel). The float32 path keeps
+// gn::dtaps_gemm over gn::UpLoad or gn::GridLoad (backward.cuh) and j's
+// gn::merged_bwd, the SIMT core, bit for bit.
+//
+// Where the G rows come from is a policy of the one GEMM (mma::DirectRows,
+// SplitRows, WrittenRows): each set's output phases as they are (d, n, b,
+// f); m's stride-2 output row m read from its parity phase at split_row's
+// cell; j's rows of the folded cotangent that cot_operand_pass wrote once
+// for c's dx GEMM too, so the GEMM runs without the fold.
 //
 // The grid convs run the same GEMM on their own operand (grid_operand_pass,
 // mma.cuh): per sample the n_src * 5hw act-applied cells (the phase conv's
@@ -121,32 +131,103 @@ __host__ __device__ __forceinline__ int mma_taps_per_block(int cin) {
   return cpt > 8 ? 1 : min(7, 16 / cpt);
 }
 
+namespace mma {
+
+// Where mma_dtaps reads the cotangent (its G rows): row (b, slot, m) of
+// column n = set * cout + nl is src(gl.g, set, idx)[off + nl] (y likewise,
+// under the fold), with (idx, off) = row(...), named once a load row. Each
+// row holds one set's cout columns contiguously, so the copies stay 16
+// bytes. PhaseTensors: the sets' per_set phase tensors, set-major in gl.g
+// (and gl.y), as the passes' loaders hold them.
+struct PhaseTensors {
+  static constexpr bool kWritten = false;
+  int per_set;
+  __device__ __forceinline__ const __nv_bfloat16* src(const __nv_bfloat16* const (&t)[8], int,
+                                                      int set, int idx) const {
+    return t[set * per_set + idx];
+  }
+  bool aligned(const GLoad<__nv_bfloat16>& gl, int n_sets, bool fold) const {
+    bool ok = true;
+    for (int i = 0; i < per_set * n_sets; ++i)
+      ok = ok && aligned16(gl.g[i]) && (!fold || aligned16(gl.y[i]));
+    return ok;
+  }
+};
+
+// DirectRows: each set's n_out output phases (per_set = n_out), slot's
+// tensor at row b * M + m (d, n, b, f).
+struct DirectRows : PhaseTensors {
+  __device__ __forceinline__ int row(int M, int cout, int b, int slot, int m, size_t& off) const {
+    off = ((size_t)b * M + m) * cout;
+    return slot;
+  }
+};
+
+// SplitRows (m): row m of the stride-2 output grid (5, 2^lh, 2^lw), one
+// output slot, from its parity phase p (per_set = 4) at the cell split_row
+// maps it to (shifts and masks), as GLoad<T, true> reads it.
+struct SplitRows : PhaseTensors {
+  int lh, lw;
+  __device__ __forceinline__ int row(int, int cout, int b, int, int m, size_t& off) const {
+    size_t r;
+    const int p = split_row(b, m, lh, lw, r);
+    off = r * cout;
+    return p;
+  }
+};
+
+// WrittenRows (j): the folded cotangent that cot_operand_pass wrote (mma.cuh),
+// per sample per_b rows of ldk columns, the sets side by side: row b * per_b
+// + slot * M + m, column n itself. The fold is in its values: no FOLD.
+struct WrittenRows {
+  static constexpr bool kWritten = true;
+  const __nv_bfloat16* rows;
+  int per_b, ldk;
+  __device__ __forceinline__ int row(int M, int, int b, int slot, int m, size_t& off) const {
+    off = ((size_t)b * per_b + slot * M + m) * ldk;
+    return 0;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* src(const __nv_bfloat16* const (&)[8], int cout,
+                                                      int set, int) const {
+    return rows + set * cout;
+  }
+  bool aligned(const GLoad<__nv_bfloat16>&, int, bool) const {
+    return aligned16(rows) && ldk % 8 == 0;
+  }
+};
+
+}  // namespace mma
+
 // dtaps partials on the tensor cores: ws[chunk][t * cin + k][n] = sum over the
 // chunk's rows q of U[row_t(q)][k] * G(q, n), the rows q = (sample, output
-// phase slot 0 .. n_out-1, cell) of output phases out_phase0 .. +n_out-1.
-// Block (t + 7 * k tile, n tile, chunk). NARROW (a C_in of at most 64, the
-// grid convs): one block takes tpb = mma_taps_per_block taps t0 = tpb * x
-// .. +tpb-1 (all 7 for a C_in of at most 16), its tile row (t - t0) * ldk
-// + k, each load row gathering those taps' operand rows (ldk / 8 chunks
-// each); block (x, n tile, chunk). Tag (GridCells, PairCells, PhaseGrid or
-// StdGrid) only names the instantiation, so a profile tells d's, n's, b's
-// and f's launches apart; the code is one.
-template <typename Tag, bool FOLD, bool NARROW = false>
-__global__ void __launch_bounds__(mma::NT, 2)
-mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_phase0,
-          int n_out, int Q, int kc, int g_vec, float* __restrict__ ws) {
+// phase slot 0 .. n_out-1, cell) of output phases out_phase0 .. +n_out-1,
+// G's rows where GRows names them. Tile (bx = t + 7 * k tile, by = n tile,
+// chunk). NARROW (a C_in of at most 64, the grid convs): one block takes
+// tpb = mma_taps_per_block taps t0 = tpb * bx .. +tpb-1 (all 7 for a C_in
+// of at most 16), its tile row (t - t0) * ldk + k, each load row gathering
+// those taps' operand rows (ldk / 8 chunks each); tile (bx, n tile, chunk).
+// smem_raw: the ring, mma::smem_bytes(FOLD) bytes. Every thread of the
+// block calls it. The standalone GEMM (mma_dtaps) and j's launch of both
+// GEMMs (up_conv_bwd.cu) run this one function.
+template <bool FOLD, bool NARROW, typename GRows>
+__device__ __forceinline__ void mma_dtaps_tile(const OperandRows& ld,
+                                               const GLoad<__nv_bfloat16>& gl, const GRows& gr,
+                                               int cin, int n_sets, int out_phase0, int n_out,
+                                               int Q, int kc, int g_vec, float* __restrict__ ws,
+                                               int bx, int by, int chunk,
+                                               unsigned char* smem_raw) {
+  static_assert(!(FOLD && GRows::kWritten), "a written cotangent is folded already");
   using bf16 = __nv_bfloat16;
   // the tile's constants (gn:: has the SIMT core's BM, BN, BK)
   constexpr int BM = mma::BM, BN = mma::BN, BK = mma::BK, STAGES = mma::STAGES;
   constexpr int LDS = mma::LDS, TILE = mma::TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int stage_elems = (FOLD ? 3 : 2) * TILE;
   float* gsm = reinterpret_cast<float*>(smem + STAGES * stage_elems);  // FOLD: [2][BN]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = blockIdx.x % 7, k0 = NARROW ? 0 : (blockIdx.x / 7) * BM;
-  const int n0 = blockIdx.y * BN, chunk = blockIdx.z;
+  const int t = bx % 7, k0 = NARROW ? 0 : (bx / 7) * BM;
+  const int n0 = by * BN;
   const int q_lo = chunk * kc, q_hi = min(q_lo + kc, Q);
   const int steps = (q_hi - q_lo + BK - 1) / BK;
   const int M = gl.M, cout = gl.cout, Ntot = n_sets * cout;
@@ -176,7 +257,7 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_
   const int lr = tid >> 3, lc = tid & 7;
   constexpr int NC = NARROW ? 2 : 1;  // codes a row: one per A chunk when NARROW
   const int cpt = ld.ldk / 8, tpb = mma_taps_per_block(cin);
-  const int t0 = NARROW ? blockIdx.x * tpb : t;
+  const int t0 = NARROW ? bx * tpb : t;
   int a_bytes[2], a_tap[2], a_at[2], g_set[2], g_nl[2];
   bool g_ok[2];
 #pragma unroll
@@ -212,7 +293,8 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_
     bf16* As = smem + buf * stage_elems;
     bf16* Gs = As + TILE;
     const bool ok = pos.q < q_hi;
-    const size_t cell = (size_t)pos.b * M + pos.m;
+    size_t goff;  // this row's G row (gi, goff), as GRows names it
+    const int gi = gr.row(M, cout, pos.b, pos.slot, pos.m, goff);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int so = lr * LDS + (lc + 8 * c) * 8;
@@ -220,12 +302,13 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_
       const bf16* arow = ld.row(pos.b, code[NARROW ? c : 0]) + a_at[c];
       mma::cp_async16(As + so, va ? arow : ld.rows, va ? 16 : 0);
       if (g_vec) {
-        const int gi = g_set[c] * n_out + pos.slot;
         const bool v = ok && g_ok[c];
-        const size_t off = cell * cout + g_nl[c];
-        mma::cp_async16(Gs + so, v ? gl.g[gi] + off : gl.g[0], v ? 16 : 0);
+        const size_t off = goff + g_nl[c];
+        mma::cp_async16(Gs + so, v ? gr.src(gl.g, cout, g_set[c], gi) + off : ld.rows,
+                        v ? 16 : 0);
         if constexpr (FOLD)
-          mma::cp_async16(Gs + TILE + so, v ? gl.y[gi] + off : gl.y[0], v ? 16 : 0);
+          mma::cp_async16(Gs + TILE + so, v ? gr.src(gl.y, cout, g_set[c], gi) + off : ld.rows,
+                          v ? 16 : 0);
       } else {  // a ragged cout (or unaligned g): element by element, into the same slots
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
@@ -233,9 +316,8 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_
           bf16 gv = from_f<bf16>(0.f), yv = gv;
           if (ok && n < Ntot) {
             const int s = n / cout, nl = n - s * cout;
-            const size_t off = cell * cout + nl;
-            gv = gl.g[s * n_out + pos.slot][off];
-            if constexpr (FOLD) yv = gl.y[s * n_out + pos.slot][off];
+            gv = gr.src(gl.g, cout, s, gi)[goff + nl];
+            if constexpr (FOLD) yv = gr.src(gl.y, cout, s, gi)[goff + nl];
           }
           Gs[so + e] = gv;
           if constexpr (FOLD) Gs[TILE + so + e] = yv;
@@ -359,6 +441,19 @@ mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, int cin, int n_sets, int out_
     }
 }
 
+// The GEMM as one launch: block (t + 7 * k tile, n tile, chunk), or on the
+// NARROW tile (taps tile, n tile, chunk). Tag (GridCells, PairCells,
+// PhaseGrid, StdGrid or SplitGrid) only names the instantiation, so a
+// profile tells d's, n's, b's, f's and m's launches apart; the code is one.
+template <typename Tag, bool FOLD, bool NARROW = false, typename GRows = mma::DirectRows>
+__global__ void __launch_bounds__(mma::NT, 2)
+mma_dtaps(OperandRows ld, GLoad<__nv_bfloat16> gl, GRows gr, int cin, int n_sets, int out_phase0,
+          int n_out, int Q, int kc, int g_vec, float* __restrict__ ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mma_dtaps_tile<FOLD, NARROW>(ld, gl, gr, cin, n_sets, out_phase0, n_out, Q, kc, g_vec, ws,
+                               blockIdx.x, blockIdx.y, blockIdx.z, smem_raw);
+}
+
 // The fixed-order sum of mma_dtaps' chunk partials: out(c) = in[0][c] +
 // in[1][c] + ... in row order, one thread a column (few chunks: for R <= 32
 // the sums gn::sum_rows makes, without its 32 row lanes a column).
@@ -372,45 +467,57 @@ sum_chunks(const float* __restrict__ in, int R, long long C, Store st) {
   st(c, acc);
 }
 
-template <typename Tag, bool FOLD, bool NARROW>
+template <typename Tag, bool FOLD, bool NARROW, typename GRows = mma::DirectRows>
 cudaError_t mma_dtaps_attr() {
-  return cudaFuncSetAttribute(mma_dtaps<Tag, FOLD, NARROW>,
+  return cudaFuncSetAttribute(mma_dtaps<Tag, FOLD, NARROW, GRows>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, mma::smem_bytes(FOLD));
 }
 
-template <typename Tag, bool FOLD, bool NARROW>
+template <typename Tag, bool FOLD, bool NARROW, typename GRows>
 cudaError_t launch_mma_dtaps_gemm(const dim3& grid, const OperandRows& ld,
-                                  const GLoad<__nv_bfloat16>& gl, int cin, int n_sets,
-                                  int out_phase0, int n_out, int Q, int kc, int g_vec, float* ws,
-                                  cudaStream_t stream) {
-  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW>();
+                                  const GLoad<__nv_bfloat16>& gl, const GRows& gr, int cin,
+                                  int n_sets, int out_phase0, int n_out, int Q, int kc, int g_vec,
+                                  float* ws, cudaStream_t stream) {
+  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW, GRows>();
   if (err != cudaSuccess) return err;
-  mma_dtaps<Tag, FOLD, NARROW><<<grid, mma::NT, mma::smem_bytes(FOLD), stream>>>(
-      ld, gl, cin, n_sets, out_phase0, n_out, Q, kc, g_vec, ws);
+  mma_dtaps<Tag, FOLD, NARROW, GRows><<<grid, mma::NT, mma::smem_bytes(FOLD), stream>>>(
+      ld, gl, gr, cin, n_sets, out_phase0, n_out, Q, kc, g_vec, ws);
   return cudaGetLastError();
+}
+
+// The blocks of one chunk of the GEMM: the 7 taps' channel tiles (NARROW:
+// the taps tiles) and the column tiles.
+inline dim3 mma_dtaps_tiles(bool narrow, int cin, int ntot) {
+  const int tpb = mma_taps_per_block(cin);
+  return dim3(narrow ? (7 + tpb - 1) / tpb : 7 * ((cin + mma::BM - 1) / mma::BM),
+              (ntot + mma::BN - 1) / mma::BN);
+}
+
+// Whether the GEMM copies G 16 bytes at a time: cout a multiple of 8 and
+// every row it reads aligned.
+template <typename GRows>
+int mma_dtaps_g_vec(const GLoad<__nv_bfloat16>& gl, const GRows& gr, int n_sets) {
+  return gl.cout % 8 == 0 && gr.aligned(gl, n_sets, gl.gs[0] != nullptr);
 }
 
 // The GEMM over a built operand (`ld`) into ws (n_chunks, 7 * cin,
 // n_sets * cout): Q = B * n_out * 5hw rows in chunks of kc (a multiple of
-// mma::BK); NARROW: the grid convs' tile at mma_narrow(cin).
-template <typename Tag, bool NARROW>
-cudaError_t launch_mma_dtaps_rows(const OperandRows& ld, const GLoad<__nv_bfloat16>& gl, int B,
-                                  int cin, int n_sets, int out_phase0, int n_out, int kc,
-                                  int n_chunks, float* ws, cudaStream_t stream) {
-  const int Ntot = n_sets * gl.cout, Q = B * n_out * gl.M;
-  const int tpb = mma_taps_per_block(cin);
-  const dim3 grid(NARROW ? (7 + tpb - 1) / tpb : 7 * ((cin + mma::BM - 1) / mma::BM),
-                  (Ntot + mma::BN - 1) / mma::BN, n_chunks);
-  const bool fold = gl.gs[0] != nullptr;
-  // 16-byte copies of g (and y) rows: cout a multiple of 8, the tensors aligned
-  int g_vec = gl.cout % 8 == 0;
-  for (int i = 0; i < n_out * n_sets; ++i)
-    g_vec = g_vec && aligned16(gl.g[i]) && (!fold || aligned16(gl.y[i]));
-  if (fold)
-    return launch_mma_dtaps_gemm<Tag, true, NARROW>(grid, ld, gl, cin, n_sets, out_phase0,
+// mma::BK), G's rows where `gr` names them; NARROW: the grid convs' tile at
+// mma_narrow(cin).
+template <typename Tag, bool NARROW, typename GRows>
+cudaError_t launch_mma_dtaps_rows(const OperandRows& ld, const GLoad<__nv_bfloat16>& gl,
+                                  const GRows& gr, int B, int cin, int n_sets, int out_phase0,
+                                  int n_out, int kc, int n_chunks, float* ws,
+                                  cudaStream_t stream) {
+  const int Q = B * n_out * gl.M;
+  const dim3 tiles = mma_dtaps_tiles(NARROW, cin, n_sets * gl.cout);
+  const dim3 grid(tiles.x, tiles.y, n_chunks);
+  const int g_vec = mma_dtaps_g_vec(gl, gr, n_sets);
+  if (gl.gs[0] != nullptr)
+    return launch_mma_dtaps_gemm<Tag, true, NARROW>(grid, ld, gl, gr, cin, n_sets, out_phase0,
                                                     n_out, Q, kc, g_vec, ws, stream);
-  return launch_mma_dtaps_gemm<Tag, false, NARROW>(grid, ld, gl, cin, n_sets, out_phase0, n_out,
-                                                   Q, kc, g_vec, ws, stream);
+  return launch_mma_dtaps_gemm<Tag, false, NARROW>(grid, ld, gl, gr, cin, n_sets, out_phase0,
+                                                   n_out, Q, kc, g_vec, ws, stream);
 }
 
 // bf16 dtaps[set] (7, cin, cout) float32 of the up convs: the operand pass
@@ -428,8 +535,8 @@ cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
   cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
   if (err != cudaSuccess) return err;
   const OperandRows ld = operand_rows(operand, conv_table, B, gl.M, cin, 4);
-  err = launch_mma_dtaps_rows<Cells, false>(ld, gl, B, cin, n_sets, 0, 4, kc, n_chunks, ws,
-                                            stream);
+  err = launch_mma_dtaps_rows<Cells, false>(ld, gl, mma::DirectRows{{4}}, B, cin, n_sets, 0, 4,
+                                            kc, n_chunks, ws, stream);
   if (err != cudaSuccess) return err;
   const int Ntot = n_sets * gl.cout;
   const SplitOut st = {{dt0, dt1}, Ntot, gl.cout};
@@ -440,28 +547,31 @@ cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
 
 // bf16 dtaps of a grid conv (b: the phase conv, n_src = 4 phases in ld.src,
 // table halo.phase_conv_table, output phases out_phase0 .. +n_out-1; f: the
-// standard conv, n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1):
-// the act-applied operand written once into `operand` ((B * (n_src * 5hw
-// + 2) + 1, operand_width(cin)) bf16), the GEMM over its gathered rows
-// (NARROW at mma_narrow(cin)), then the fixed-order sum of the chunks'
-// partials through `st` (SplitOut: float32 per set; f: rounded to bf16):
-// one thread a column for few chunks (sum_chunks), else 32 row lanes a
-// column (sum_rows; for R <= 32 the two make the same sums).
-template <typename Tag, typename Store>
+// standard conv, n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1; m:
+// b's at output phase 2, G's rows by SplitRows): the act-applied operand
+// written once into `operand` ((B * (n_src * 5hw + 2) + 1,
+// operand_width(cin)) bf16), the GEMM over its gathered rows (NARROW at
+// mma_narrow(cin)), then the fixed-order sum of the chunks' partials
+// through `st` (SplitOut: float32 per set; f: rounded to bf16): one thread
+// a column for few chunks (sum_chunks), else 32 row lanes a column
+// (sum_rows; for R <= 32 the two make the same sums).
+template <typename Tag, typename Store, typename GRows>
 cudaError_t launch_grid_mma_dtaps(const GridLoad<__nv_bfloat16>& src, int n_src,
-                                  const GLoad<__nv_bfloat16>& gl, const int* table,
-                                  int out_phase0, int n_out, __nv_bfloat16* operand,
-                                  int zero_poles, int B, int cin, int n_sets, int kc,
-                                  int n_chunks, float* ws, const Store& st, cudaStream_t stream) {
+                                  const GLoad<__nv_bfloat16>& gl, const GRows& gr,
+                                  const int* table, int out_phase0, int n_out,
+                                  __nv_bfloat16* operand, int zero_poles, int B, int cin,
+                                  int n_sets, int kc, int n_chunks, float* ws, const Store& st,
+                                  cudaStream_t stream) {
   if (kc % mma::BK != 0 || operand == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
                                                             stream);
   if (err != cudaSuccess) return err;
   const OperandRows ld = operand_rows(operand, table, B, gl.M, cin, n_src);
-  err = mma_narrow(cin) ? launch_mma_dtaps_rows<Tag, true>(ld, gl, B, cin, n_sets, out_phase0,
+  err = mma_narrow(cin) ? launch_mma_dtaps_rows<Tag, true>(ld, gl, gr, B, cin, n_sets, out_phase0,
                                                            n_out, kc, n_chunks, ws, stream)
-                        : launch_mma_dtaps_rows<Tag, false>(ld, gl, B, cin, n_sets, out_phase0,
-                                                            n_out, kc, n_chunks, ws, stream);
+                        : launch_mma_dtaps_rows<Tag, false>(ld, gl, gr, B, cin, n_sets,
+                                                            out_phase0, n_out, kc, n_chunks, ws,
+                                                            stream);
   if (err != cudaSuccess) return err;
   const long long C = 7LL * cin * n_sets * gl.cout;
   if (n_chunks > 32) return launch_sum_rows(ws, n_chunks, C, st, stream);
@@ -469,18 +579,30 @@ cudaError_t launch_grid_mma_dtaps(const GridLoad<__nv_bfloat16>& src, int n_src,
   return cudaGetLastError();
 }
 
+// ... b's and f's: each set's n_out output phases as they are.
+template <typename Tag, typename Store>
+cudaError_t launch_grid_mma_dtaps(const GridLoad<__nv_bfloat16>& src, int n_src,
+                                  const GLoad<__nv_bfloat16>& gl, const int* table,
+                                  int out_phase0, int n_out, __nv_bfloat16* operand,
+                                  int zero_poles, int B, int cin, int n_sets, int kc,
+                                  int n_chunks, float* ws, const Store& st, cudaStream_t stream) {
+  return launch_grid_mma_dtaps<Tag>(src, n_src, gl, mma::DirectRows{{n_out}}, table, out_phase0,
+                                    n_out, operand, zero_poles, B, cin, n_sets, kc, n_chunks, ws,
+                                    st, stream);
+}
+
 // Registers a thread, blocks an SM, dynamic shared memory and local memory
 // (spills) of one instantiation (for the records).
-template <typename Tag, bool FOLD, bool NARROW = false>
+template <typename Tag, bool FOLD, bool NARROW = false, typename GRows = mma::DirectRows>
 cudaError_t mma_dtaps_info(int* out) {
-  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW>();
+  cudaError_t err = mma_dtaps_attr<Tag, FOLD, NARROW, GRows>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mma_dtaps<Tag, FOLD, NARROW>)) != cudaSuccess)
+  if ((err = cudaFuncGetAttributes(&attr, mma_dtaps<Tag, FOLD, NARROW, GRows>)) != cudaSuccess)
     return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_dtaps<Tag, FOLD, NARROW>,
-                                                      mma::NT, mma::smem_bytes(FOLD));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, mma_dtaps<Tag, FOLD, NARROW, GRows>, mma::NT, mma::smem_bytes(FOLD));
   out[0] = attr.numRegs;
   out[1] = blocks;
   out[2] = mma::smem_bytes(FOLD);

@@ -38,12 +38,25 @@
 // cotangent written once; dU, float32, written once and gathered about
 // 1.75 times).
 //
-// The merged kernel is gn::merged_bwd (backward.cuh) with the same two
-// tile roles: dx tiles gather through halo.up_dx_table, dtaps tiles
-// re-gather the upsampled operand through gn::UpLoad (the upsampled tensor
-// is never built in device memory) and, in the first row tile, take Σg_eff
-// from their g tiles. One launch, then the fixed-order sum_rows passes; the
-// two roles each read g (see phase_conv_bwd.cu).
+// The merged kernel (gn_up_dual_conv_bwd): in float32 gn::merged_bwd
+// (backward.cuh) with the same two tile roles: dx tiles gather through
+// halo.up_dx_table, dtaps tiles re-gather the upsampled operand through
+// gn::UpLoad (the upsampled tensor is never built in device memory) and, in
+// the first row tile, take Σg_eff from their g tiles; one launch, then the
+// fixed-order sum_rows passes; the two roles each read g (see
+// phase_conv_bwd.cu). In bf16 it is the split route's device code over ONE
+// folded cotangent, as the TPU kernel folds once per g tile for both
+// roles: cot_operand_pass writes g_eff once (with the combined rows),
+// up_operand_pass the upsampled operand once, then one launch runs both
+// GEMMs by block index (mma_up_bwd): d's dtaps tiles read their G rows from
+// the written cotangent (mma::WrittenRows: no fold in the GEMM, whose ALU
+// and shared-memory work held d's folded GEMM at 140-165 TFLOP/s against
+// 230-270 without), the long tiles first, and c's dx tiles fill in around
+// them into dU; then the upsample adjoint, the chunks' fixed-order sum and
+// Σg_eff over the written rows. dx and Σg_eff are c's passes; dtaps is d's
+// GEMM over the same bf16 g_eff values (cot8 and d's shared-memory fold
+// both round fold_geff once) with d's split: the five outputs equal the
+// split route's (up_dual_conv_dx + up_dual_conv_dtaps) bit for bit.
 #include <type_traits>
 
 #include "mma_conv_fwd.cuh"
@@ -55,6 +68,8 @@ namespace {
 // upsample-adjoint entries (halo.up_adjoint_table: weight times the cell's
 // cotangent in dU, the 4 upsampled phases (B, 4, 5hw, cin) float32),
 // rounded to bf16 once. vec: cin is a multiple of 4 (16-byte loads of dU).
+// Tag names the instantiation (c's GridCells, j's MergedUp) for a profile.
+template <typename Tag>
 __global__ void __launch_bounds__(256)
 up_adjoint_pass(const float* __restrict__ du, const int* __restrict__ offsets,
                 const int* __restrict__ cells, const float* __restrict__ weights,
@@ -93,6 +108,17 @@ struct UpAdjoint {
   float* du;
 };
 
+// dx (B, 5hw, cin) bf16 from dU through the adjoint table, rounded once.
+template <typename Tag>
+cudaError_t launch_up_adjoint(const UpAdjoint& adj, void* dx, int B, int M, int cin,
+                              cudaStream_t stream) {
+  const long long total = (long long)B * M * ((cin + 3) / 4);
+  up_adjoint_pass<Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      adj.du, adj.offsets, adj.cells, adj.weights, static_cast<__nv_bfloat16*>(dx), M, cin,
+      cin % 4 == 0, total);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, const float* gs1,
                const void* w0, const void* w1, void* out, const int* offsets, const int* cells,
@@ -120,11 +146,7 @@ cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, con
                                              static_cast<const T*>(w1), gsum_ws, gsum0, gsum1, B,
                                              cin, n_sets, gsum_rows, stream);
     if (err != cudaSuccess) return err;
-    const long long total = (long long)B * M * ((cin + 3) / 4);
-    up_adjoint_pass<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        adj.du, adj.offsets, adj.cells, adj.weights, static_cast<T*>(out), M, cin, cin % 4 == 0,
-        total);
-    return cudaGetLastError();
+    return launch_up_adjoint<Tag>(adj, out, B, M, cin, stream);
   }
 }
 
@@ -157,7 +179,7 @@ cudaError_t dtaps(const void* x, const void* const* g, const void* const* y, con
                                 zero_poles, B, cin, n_sets, kc, n_chunks, ws, dt0, dt1, stream);
 }
 
-template <typename T>
+// float32: gn::merged_bwd, the SIMT tiles of both roles in one launch
 cudaError_t merged(const void* x, const void* const* g, const void* const* y, const float* gs0,
                    const float* gs1, const void* w0, const void* w1, void* out,
                    const int* offsets, const int* cells, const float* weights,
@@ -165,15 +187,107 @@ cudaError_t merged(const void* x, const void* const* g, const void* const* y, co
                    float* dt1, float* gpart, float* gsum0, float* gsum1, int B, int h, int w,
                    int cin, int cout, int n_sets, int kc, int n_chunks, cudaStream_t stream) {
   const int M = 5 * h * w;
-  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, 4);
-  gn::DxOut<T> o = {};
-  o.out[0] = static_cast<T*>(out);
+  const gn::GLoad<float> gl = gn::make_gload<float>(g, y, gs0, gs1, M, cout, n_sets, 4);
+  gn::DxOut<float> o = {};
+  o.out[0] = static_cast<float*>(out);
   o.per = M;
-  const gn::UpLoad<T> ld = up_load<T>(x, up_table, h, w, cin);
+  const gn::UpLoad<float> ld = up_load<float>(x, up_table, h, w, cin);
   const gn::SplitOut dt = {{dt0, dt1}, n_sets * cout, cout};
-  return gn::launch_merged_bwd<T>(gl, w0, w1, offsets, cells, weights, o, nullptr, nullptr, B,
-                                  M, ld, conv_table, 0, kc, n_chunks, ws, dt, gpart, gsum0,
-                                  gsum1, cin, n_sets, stream);
+  return gn::launch_merged_bwd<float>(gl, w0, w1, offsets, cells, weights, o, nullptr, nullptr,
+                                      B, M, ld, conv_table, 0, kc, n_chunks, ws, dt, gpart, gsum0,
+                                      gsum1, cin, n_sets, stream);
+}
+
+// j's two bf16 GEMMs in one launch, the roles by block index: blocks [0,
+// dt_blocks) are d's dtaps tiles (taps x channel tiles, column tiles,
+// chunks; x fastest) over the written cotangent, the rest c's dx tiles
+// (column tiles, row tiles; x fastest) into dU. A dtaps tile walks a
+// chunk of thousands of rows, a dx tile 7 taps of one 128-row tile, so
+// the long tiles go first and the short ones fill the SMs around them and
+// the tail. Both bodies take mma::NT threads and 2 blocks an SM, and each
+// ring fits the one dynamic allocation, the larger of the two.
+struct UpBwdGrid {
+  int dt_x, dt_y, dt_blocks;  // dtaps tiles: x, y, and x * y * chunks
+  int dx_x;                   // dx tiles: column tiles
+};
+constexpr int UP_BWD_SMEM = gn::fwd::SMEM > gn::mma::smem_bytes(false)
+                                ? gn::fwd::SMEM : gn::mma::smem_bytes(false);
+static_assert(gn::fwd::NT == gn::mma::NT, "one block size for both roles");
+
+template <typename Tag>
+__global__ void __launch_bounds__(gn::mma::NT, 2)
+mma_up_bwd(gn::OperandRows up, gn::GLoad<__nv_bfloat16> gl, gn::mma::WrittenRows gr, int cin,
+           int n_sets, int Q, int kc, int g_vec, float* __restrict__ ws, gn::OperandRows cot,
+           const __nv_bfloat16* __restrict__ wp, gn::DuEpi epi, int Np, int ksteps,
+           const unsigned char* __restrict__ tap_mask, UpBwdGrid grid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int i = blockIdx.x;
+  if (i < grid.dt_blocks) {
+    const int bx = i % grid.dt_x;
+    i /= grid.dt_x;
+    gn::mma_dtaps_tile<false, false>(up, gl, gr, cin, n_sets, 0, 4, Q, kc, g_vec, ws, bx,
+                                     i % grid.dt_y, i / grid.dt_y, smem_raw);
+    return;
+  }
+  i -= grid.dt_blocks;
+  gn::mma_conv_tile(cot, wp, epi, 0, 4, Q, Np, ksteps, tap_mask, 4 * cot.M, i % grid.dx_x,
+                    i / grid.dx_x, smem_raw);
+}
+
+template <typename Tag>
+cudaError_t mma_up_bwd_attr() {
+  return cudaFuncSetAttribute(mma_up_bwd<Tag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              UP_BWD_SMEM);
+}
+
+// bf16: the folded cotangent written once (c's pass, with the combined rows
+// of tb), the upsampled operand written once (d's pass, into `up_operand`),
+// the taps packed transposed, both GEMMs in one launch (mma_up_bwd), the
+// upsample adjoint of dU (rounded once), the dtaps chunks' fixed-order sum
+// (sum_chunks, as d) and Σg_eff over the written rows (CotRowsG, as c).
+cudaError_t merged_mma(const void* x, const gn::GLoad<__nv_bfloat16>& gl, const void* w0,
+                       const void* w1, void* out, const gn::DxTables& tb, const UpAdjoint& adj,
+                       const int* conv_table, const int* up_table, __nv_bfloat16* up_operand,
+                       float* ws, float* dt0, float* dt1, float* gsum_ws, float* gsum0,
+                       float* gsum1, int B, int h, int w, int cin, int n_sets, int kc,
+                       int n_chunks, int gsum_rows, int zero_poles, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using Tag = gn::MergedUp;
+  const int M = 5 * h * w, cout = gl.cout, Ntot = n_sets * cout;
+  if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr ||
+      adj.du == nullptr || adj.offsets == nullptr || up_operand == nullptr ||
+      gsum_ws == nullptr || kc % gn::mma::BK != 0 ||
+      (tb.mask != nullptr && (4 * M) % gn::fwd::BM != 0))
+    return cudaErrorInvalidValue;
+  cudaError_t err = gn::launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, n_sets, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_upsampled_operand<bf16, Tag>(up_load<bf16>(x, up_table, h, w, cin),
+                                                up_operand, B, zero_poles, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_pack_taps_t<Tag>(static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
+                                    tb.wpack, cin, cout, n_sets, stream);
+  if (err != cudaSuccess) return err;
+  const gn::OperandRows cot = gn::cot_rows(tb.operand, tb.codes, B, M, Ntot, 4, tb.comb.n);
+  const gn::OperandRows up = gn::operand_rows(up_operand, conv_table, B, M, cin, 4);
+  const gn::mma::WrittenRows gr = {tb.operand, cot.per_b, cot.ldk};
+  const int Q = B * 4 * M, Kp = gn::fwd::k_pad(Ntot), Np = gn::fwd::n_pad(cin);
+  const dim3 tiles = gn::mma_dtaps_tiles(false, cin, Ntot);
+  const UpBwdGrid grid = {(int)tiles.x, (int)tiles.y, (int)(tiles.x * tiles.y) * n_chunks,
+                          Np / gn::fwd::BN};
+  const long long blocks = grid.dt_blocks + (long long)grid.dx_x * gn::fwd_row_tiles(Q);
+  if ((err = mma_up_bwd_attr<Tag>()) != cudaSuccess) return err;
+  mma_up_bwd<Tag><<<(unsigned)blocks, gn::mma::NT, UP_BWD_SMEM, stream>>>(
+      up, gl, gr, cin, n_sets, Q, kc, gn::mma_dtaps_g_vec(gl, gr, n_sets), ws, cot, tb.wpack,
+      gn::DuEpi{adj.du, cin}, Np, Kp / gn::fwd::BK, tb.mask, grid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_up_adjoint<Tag>(adj, out, B, M, cin, stream)) != cudaSuccess) return err;
+  const gn::SplitOut st = {{dt0, dt1}, Ntot, cout};
+  const long long C = 7LL * cin * Ntot;
+  gn::sum_chunks<gn::SplitOut><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks, C,
+                                                                                 st);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const gn::CotRowsG cg = {tb.operand, M, 4, cout, cot.per_b, cot.ldk};
+  return gn::launch_gsum<bf16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
 }  // namespace
@@ -273,29 +387,62 @@ extern "C" int gn_up_dual_conv_dtaps_info(int fold, int* out) {
 
 // The merged backward (_upd_bwd's merged branch). x: (B, 5, h, w, cin)
 // level-s grid; g, y, gs0, gs1, w0, w1: as in gn_up_dual_conv_dx; out: dx
-// (B, 5, h, w, cin); offsets/cells/weights: halo.up_dx_table; conv_table /
-// up_table: halo.phase_conv_table and halo.upsample_table; ws: float32
-// scratch of (n_chunks, 7 * cin, n_sets * cout), the rows B * 4 * 5hw split
-// in chunks of kc (a multiple of 16); dt0/dt1 receive (7, cin, cout)
-// float32; gpart: float32 scratch of (n_chunks, n_sets * cout), and
-// gsum0/gsum1 receive Σg_eff (cout). dtype: 0 float32, 1 bfloat16.
+// (B, 5, h, w, cin); conv_table / up_table: halo.phase_conv_table and
+// halo.upsample_table; ws: float32 scratch of (n_chunks, 7 * cin,
+// n_sets * cout), the rows B * 4 * 5hw split in chunks of kc; dt0/dt1
+// receive (7, cin, cout) float32; gsum0/gsum1 receive Σg_eff (cout).
+// float32: offsets/cells/weights, halo.up_dx_table; kc a multiple of 16
+// (build.merged_scratch); gpart, float32 scratch of (n_chunks, n_sets *
+// cout); the bf16 arguments null. bfloat16 (else the call is refused): the
+// bf16 arguments of gn_up_dual_conv_dx (codes .. tap_mask,
+// adj_offsets .. adj_weights, operand, wpack, du; n_comb) and of
+// gn_up_dual_conv_dtaps (up_operand; kc a multiple of 32,
+// build.mma_dtaps_split; zero_poles); gpart, float32 scratch of
+// (ceil(B * 4 * 5hw / gsum_rows), n_sets * cout) for Σg_eff's pass.
+// dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_up_dual_conv_bwd(const void* x, const void* const* g, const void* const* y,
                                    const float* gs0, const float* gs1, const void* w0,
                                    const void* w1, void* out, const int* offsets,
-                                   const int* cells, const float* weights,
-                                   const int* conv_table, const int* up_table, float* ws,
-                                   float* dt0, float* dt1, float* gpart, float* gsum0,
-                                   float* gsum1, int B, int h, int w, int cin, int cout,
-                                   int n_sets, int kc, int n_chunks, int dtype, void* stream) {
+                                   const int* cells, const float* weights, const int* codes,
+                                   const int* comb_offsets, const int* comb_cells,
+                                   const float* comb_weights, const unsigned char* tap_mask,
+                                   const int* adj_offsets, const int* adj_cells,
+                                   const float* adj_weights, const int* conv_table,
+                                   const int* up_table, float* ws, float* dt0, float* dt1,
+                                   float* gpart, float* gsum0, float* gsum1, void* operand,
+                                   void* wpack, float* du, void* up_operand, int B, int h, int w,
+                                   int cin, int cout, int n_sets, int kc, int n_chunks,
+                                   int n_comb, int gsum_rows, int zero_poles, int dtype,
+                                   void* stream) {
   if (n_sets < 1 || n_sets > 2) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return merged<float>(x, g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, conv_table,
-                         up_table, ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin, cout,
-                         n_sets, kc, n_chunks, s);
-  if (dtype == 1)
-    return merged<__nv_bfloat16>(x, g, y, gs0, gs1, w0, w1, out, offsets, cells, weights,
-                                 conv_table, up_table, ws, dt0, dt1, gpart, gsum0, gsum1, B, h,
-                                 w, cin, cout, n_sets, kc, n_chunks, s);
-  return cudaErrorInvalidValue;
+    return merged(x, g, y, gs0, gs1, w0, w1, out, offsets, cells, weights, conv_table, up_table,
+                  ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin, cout, n_sets, kc, n_chunks, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const gn::GLoad<bf16> gl = gn::make_gload<bf16>(g, y, gs0, gs1, 5 * h * w, cout, n_sets, 4);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<bf16*>(operand), static_cast<bf16*>(wpack), 4};
+  const UpAdjoint adj = {adj_offsets, adj_cells, adj_weights, du};
+  return merged_mma(x, gl, w0, w1, out, tb, adj, conv_table, up_table,
+                    static_cast<bf16*>(up_operand), ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w,
+                    cin, n_sets, kc, n_chunks, gsum_rows, zero_poles, s);
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of j's bf16 launch of both GEMMs (mma_up_bwd).
+extern "C" int gn_up_dual_conv_bwd_info(int* out) {
+  cudaError_t err = mma_up_bwd_attr<gn::MergedUp>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, mma_up_bwd<gn::MergedUp>)) != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_up_bwd<gn::MergedUp>,
+                                                      gn::mma::NT, UP_BWD_SMEM);
+  out[0] = attr.numRegs;
+  out[1] = blocks;
+  out[2] = UP_BWD_SMEM;
+  out[3] = (int)attr.localSizeBytes;
+  return err;
 }

@@ -36,6 +36,7 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "block_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
+    "up_bwd_info",
     "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts", "MAX_SLOTS",
     "MAX_SM_IDS",
 ]
@@ -142,11 +143,13 @@ _SIGNATURES = {
     "gn_up_operand": [_VP] * 3 + [_INT] * 6 + [_VP],
     "gn_up_dual_conv_dtaps_info": [_INT, _VP],
     "gn_phase_conv_bwd": [_VP] * 23 + [_INT] * 11 + [_VP],
-    "gn_up_dual_conv_bwd": [_VP] * 19 + [_INT] * 9 + [_VP],
+    "gn_up_dual_conv_bwd": [_VP] * 31 + [_INT] * 12 + [_VP],
+    "gn_up_dual_conv_bwd_info": [_VP],
     "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
     "gn_ds2s_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
     "gn_ds2s_dx": [_VP] * 19 + [_INT] * 8 + [_VP],
-    "gn_ds2s_dtaps": [_VP] * 14 + [_INT] * 10 + [_VP],
+    "gn_ds2s_dtaps": [_VP] * 15 + [_INT] * 11 + [_VP],
+    "gn_ds2s_dtaps_info": [_INT, _INT, _VP],
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
     "gn_up_pair_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
     "gn_up_pair_fwd_info": [_INT, _VP],
@@ -255,12 +258,14 @@ def mma_dtaps_info(pair: bool, fold: bool) -> dict:
     return _gemm_info("gn_up_pair_dtaps_info" if pair else "gn_up_dual_conv_dtaps_info", fold)
 
 
-def grid_dtaps_info(std: bool, fold: bool, narrow: bool = False) -> dict:
+def grid_dtaps_info(std: bool, fold: bool, narrow: bool = False, split: bool = False) -> dict:
     """``mma_dtaps_info`` for the grid convs' tensor-core dtaps GEMM: of f
-    (``std``) or b, with the fold or without, on the NARROW tile or the
-    wide one."""
-    return _gemm_info("gn_ico_conv_dtaps_info" if std else "gn_phase_conv_dtaps_info", narrow,
-                      fold)
+    (``std``), of m's stride-2 dtaps (``split``: its G rows from the parity
+    phases) or b, with the fold or without, on the NARROW tile or the wide
+    one."""
+    name = ("gn_ico_conv_dtaps_info" if std else "gn_ds2s_dtaps_info" if split
+            else "gn_phase_conv_dtaps_info")
+    return _gemm_info(name, narrow, fold)
 
 
 def mma_fwd_grid(rows: int, ntot: int):
@@ -311,6 +316,12 @@ def cot_operand_shape(B: int, rows: int, n_comb: int, ntot: int):
     cotangent rows (n_out·5hw) and ``n_comb`` combined rows, then one zero
     row; ``ntot`` columns rounded up to 8."""
     return B * (rows + n_comb) + 1, operand_width(ntot)
+
+
+def up_bwd_info() -> dict:
+    """``mma_dtaps_info`` for j's bf16 launch of both GEMMs (``mma_up_bwd``:
+    d's dtaps tiles over the written cotangent and c's dx tiles)."""
+    return _gemm_info("gn_up_dual_conv_bwd_info")
 
 
 def mma_dx_info(up: bool, act: bool = False, std: bool = False) -> dict:

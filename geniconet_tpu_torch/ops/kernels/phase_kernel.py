@@ -834,7 +834,10 @@ def ds2s_dtaps(phases, g_groups, tap_shapes, corner_mode, act=None, y_groups=Non
     """Tap cotangents of ``ds2s_fwd`` summed over the batch (the dtaps kernel
     of ``_ds2s_bwd``): per set a float32 (7, C_in, C_out); with ``emit_gsum``
     also the per-set Σg_eff. phases: the forward's 4 RAW input phases;
-    g_groups, y_groups, gs_list: as ``ds2s_dx``."""
+    g_groups, y_groups, gs_list: as ``ds2s_dx``. In bf16 ``phase_conv_dtaps``'
+    operand pass and tensor-core GEMM at output phase 2, its cotangent rows
+    read from the 4 phases (``grid_dtaps_scratch``); in float32 the SIMT
+    GEMM."""
     x0 = phases[0]
     if not on_cuda(x0, "ds2s_dtaps"):
         return ds2s_dtaps_plain(phases, g_groups, tap_shapes, corner_mode, act, y_groups,
@@ -853,8 +856,7 @@ def ds2s_dtaps(phases, g_groups, tap_shapes, corner_mode, act=None, y_groups=Non
                             n_sets, "ds2s_dtaps")
     check_act(act, cin, dev, "ds2s_dtaps")
     rows = B * 5 * h * w
-    kc, n_chunks = build.dtaps_split(rows, build.n_tiles(7 * cin) * build.n_tiles(n_sets * cout))
-    ws = build.scratch(n_chunks * 7 * cin * n_sets * cout, dev)
+    kc, n_chunks, ws, operand = grid_dtaps_scratch(dt, B, h, w, cin, n_sets * cout, 4, 1, dev)
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
     gsum_ws, gsums = _gsum_outputs(rows, n_sets, cout, dev) if emit_gsum else (None, [None])
     table = device_table("phase", h, w, corner_mode, dev)
@@ -863,8 +865,9 @@ def ds2s_dtaps(phases, g_groups, tap_shapes, corner_mode, act=None, y_groups=Non
     with torch.cuda.device(dev):
         err = build.library().gn_ds2s_dtaps(
             build.ptr_array(phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
-            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(gsum_ws), *_pair(gsums),
-            B, h, w, cin, cout, n_sets, kc, n_chunks, build.GSUM_ROWS, build.dtype_code(dt),
+            table.data_ptr(), ws.data_ptr(), *_pair(dtaps), build.ptr(operand),
+            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, n_sets, kc, n_chunks,
+            build.GSUM_ROWS, int(corner_mode == "zeros"), build.dtype_code(dt),
             build.stream_ptr(dev),
         )
     build.check("ds2s_dtaps", err)
@@ -1125,13 +1128,19 @@ def up_dual_conv_bwd_plain(x, g_groups, tap_sets, corner_mode, y_groups=None, gs
 
 def up_dual_conv_bwd(x, g_groups, tap_sets, corner_mode, y_groups=None, gs_list=None):
     """The merged up-conv backward (``_upd_bwd``'s merged branch): dx, both
-    sets' dtaps and Σg_eff in one launch.
+    sets' dtaps and Σg_eff over one read of the cotangents.
 
     x: the forward's (B, 5, h, w, C_in) level-s grid; g_groups: the two tap
     sets' 4 level-(s+1) phase cotangents (B, 5, h, w, C_out) in x's dtype;
     tap_sets: the two (taps, bias) (bias is not read); y_groups / gs_list
     switch on the fold. Returns (dx in x's dtype, dtaps_a, dtaps_b float32
-    (7, C_in, C_out), Σg_eff a, Σg_eff b float32 (C_out,))."""
+    (7, C_in, C_out), Σg_eff a, Σg_eff b float32 (C_out,)). In bf16 the
+    split route's passes over one folded cotangent (``up_dual_conv_dx``'s
+    cotangent operand, ``up_operand``'s upsampled operand, with their
+    scratch), one launch of both tensor-core GEMMs, then the upsample
+    adjoint and the sums: the outputs equal ``up_dual_conv_dx`` +
+    ``up_dual_conv_dtaps`` bit for bit. In float32 one launch of the SIMT
+    tiles of both roles, then the sums."""
     if not on_cuda(x, "up_dual_conv_bwd"):
         return up_dual_conv_bwd_plain(x, g_groups, tap_sets, corner_mode, y_groups, gs_list)
     B, _, h, w, cin = x.shape
@@ -1144,19 +1153,29 @@ def up_dual_conv_bwd(x, g_groups, tap_sets, corner_mode, y_groups=None, gs_list=
     _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
                       "up_dual_conv_bwd")
     dx = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev)
-    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
+    rows = B * 4 * 5 * h * w
+    tables, n_comb = dx_tables("up", dt, h, w, corner_mode, dev)
+    _, operand, wpack, du = dx_scratch(dt, B, h, w, cin, 2, cout, 4, n_comb, False, True, dev)
     conv_table = device_table("phase", h, w, corner_mode, dev)
     up_table = device_table("up", h, w, corner_mode, dev)
-    kc, n_chunks, ws, gpart = build.merged_scratch(B * 4 * 5 * h * w, cin, 2 * cout, dev)
+    if dt == torch.bfloat16:
+        adjoint = device_dx_table("up_adjoint", h, w, corner_mode, dev)
+        kc, n_chunks, ws, up_operand = _up_dtaps_scratch(dt, B, h, w, cin, 2, cout, dev)
+        gpart = build.scratch(-(-rows // build.GSUM_ROWS) * 2 * cout, dev)
+    else:
+        adjoint, up_operand = (None,) * 3, None
+        kc, n_chunks, ws, gpart = build.merged_scratch(rows, cin, 2 * cout, dev)
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(2)]
     gsums = [torch.empty(cout, dtype=torch.float32, device=dev) for _ in range(2)]
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     with torch.cuda.device(dev):
         err = build.library().gn_up_dual_conv_bwd(
             x.data_ptr(), gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), dx.data_ptr(),
-            offsets.data_ptr(), cells.data_ptr(), weights.data_ptr(), conv_table.data_ptr(),
+            *map(build.ptr, tables), *map(build.ptr, adjoint), conv_table.data_ptr(),
             up_table.data_ptr(), ws.data_ptr(), *_pair(dtaps), gpart.data_ptr(), *_pair(gsums),
-            B, h, w, cin, cout, 2, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(operand), build.ptr(wpack), build.ptr(du), build.ptr(up_operand),
+            B, h, w, cin, cout, 2, kc, n_chunks, n_comb, build.GSUM_ROWS,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_dual_conv_bwd", err)
     build.LAUNCHES["up_dual_conv_bwd"] += 1

@@ -17,7 +17,9 @@ c, ``up_dual_conv_dx``, at up1; f's, m's and n's dx at down1 / up1), and
 the pair head's forwards and backwards (``pair_head_fwd``,
 ``pair_head_mse_fwd``; e, ``pair_head_bwd``; h, ``pair_head_mse_bwd``) at
 the s=5 head, and the merged blocks (o, ``up_block_fwd``, at up1; p,
-``dn_block_fwd``, at down1), and prints one line per call: ``digest <kernel> <dtype> <case>
+``dn_block_fwd``, at down1), and the merged up-conv backward (j,
+``up_dual_conv_bwd``, at up1) and m's dtaps (``ds2s_dtaps``, at down1),
+each with the fold and without, and prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -230,6 +232,31 @@ def main():
                 (0.3 * torch.randn(128, generator=gen)).to("cuda"))
         line("dn_block_fwd", dt, "down1",
              lambda: pk.dn_block_fwd(ph, sets, gamma, beta, a128))
+    for dt in (torch.bfloat16, torch.float32):
+        # the merged up-conv backward (j, up_dual_conv_bwd) at up1 and m's
+        # dtaps (ds2s_dtaps) at down1 with the pending act, each with the
+        # fold and without, after the lines above (a generator of their own)
+        gen = torch.Generator().manual_seed(16)
+        x = rnd(gen, B, 5, 8, 16, 256, dt=dt)
+        sets = [(rnd(gen, 7, 256, 128, dt=dt, scale=256**-0.5), None) for _ in range(2)]
+        g = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 8, 16, 128, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 128, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        for fold in (True, False):
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            line("up_dual_conv_bwd", dt, f"up1 fold={fold}",
+                 lambda: pk.up_dual_conv_bwd(x, g, sets, "average", **fk))
+        ph = [rnd(gen, B, 5, 16, 32, 128, dt=dt) for _ in range(4)]
+        a128 = (torch.rand(128, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(128, generator=gen)).to("cuda"))
+        g = [[rnd(gen, B, 5, 8, 16, 256, dt=dt) for _ in range(4)] for _ in range(2)]
+        y = [[rnd(gen, B, 5, 8, 16, 256, dt=dt) for _ in range(4)] for _ in range(2)]
+        gs = [rnd(gen, 2, 256, dt=torch.float32, scale=1e-3) for _ in range(2)]
+        for fold in (True, False):
+            fk = dict(y_groups=y, gs_list=gs) if fold else {}
+            line("ds2s_dtaps", dt, f"down1 fold={fold}",
+                 lambda: pk.ds2s_dtaps(ph, g, [(7, 128, 256)] * 2, "average", a128, **fk,
+                                       emit_gsum=True))
 
 
 if __name__ == "__main__":

@@ -638,6 +638,36 @@ def test_up_dual_conv_bwd(cuda, s, corner_mode, dt):
                    pk.up_dual_conv_bwd_plain(x, g, sets, corner_mode, **fk), dt)
 
 
+# (level s, C_in, C_out) of j's bit-for-bit cases: levels 0 and 3 at narrow
+# widths, and a VAE-up0-like C_in of 512 (the latent) at level 2
+UP_BWD_CASES = {"s0": (0, 12, 20), "s3": (3, 12, 20), "VAE up0": (2, 512, 256)}
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", list(UP_BWD_CASES))
+def test_up_dual_conv_bwd_is_the_split_pair(cuda, case, corner_mode):
+    """Kernel j in bf16 is the split route's device code over one folded
+    cotangent: c's cotangent pass, dx GEMM, upsample adjoint and Σg_eff
+    pass, and d's dtaps GEMM on d's split over the written rows, whose
+    values are d's in-kernel fold (both round ``fold_geff`` once). So its
+    five outputs equal ``up_dual_conv_dx`` + ``up_dual_conv_dtaps`` bit for
+    bit, with the fold and without, in one launch of the wrapper."""
+    s, cin, cout = UP_BWD_CASES[case]
+    dt = torch.bfloat16
+    x, _, sets = _inputs(cuda, dt, s, cin, cout, seed=140 + s)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (cout,), 2, seed=s)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        build.reset_launches()
+        got = pk.up_dual_conv_bwd(x, g, sets, corner_mode, **fk)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"up_dual_conv_bwd": 1}
+        dx, gsums = pk.up_dual_conv_dx(g, sets, corner_mode, dt, **fk, emit_gsum=True)
+        _equal_all(got, (dx, *pk.up_dual_conv_dtaps(x, g, corner_mode, **fk), *gsums))
+        _close_all(got, pk.up_dual_conv_bwd_plain(x, g, sets, corner_mode, **fk), dt)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("corner_mode", MODES)
 @pytest.mark.parametrize("s", [1, 4])
@@ -780,12 +810,13 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     conv's forward and dtaps run the tensor-core GEMMs and m's the SIMT
     ones: both sum the same exact bf16 products in float32, in two orders,
     so m's outputs are within one bf16 ulp of max|ref| (``_within_ulp``;
-    the stats, sums of outputs that differ by such roundings, within TOL),
-    the dtaps within 1e-4·max|ref| (float32 noise) and Σg_eff (one pass for
-    both) is equal; likewise the phase conv's bf16 dx runs the tensor-core
-    GEMM and m's the SIMT one, so m's dx is within one bf16 ulp of max|ref|,
-    d_mul and d_add within TOL and Σg_eff (the same fixed-order pass over
-    the same folded values) equal."""
+    the stats, sums of outputs that differ by such roundings, within TOL);
+    likewise the phase conv's bf16 dx runs the tensor-core GEMM and m's the
+    SIMT one, so m's dx is within one bf16 ulp of max|ref|, d_mul and d_add
+    within TOL and Σg_eff (the same fixed-order pass over the same folded
+    values) equal. m's bf16 dtaps is b's operand pass and tensor-core GEMM
+    with its cotangent rows read from the phases (the same values, split and
+    sums), so its dtaps and Σg_eff equal b's bit for bit in both dtypes."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
     for a in (act, None):
@@ -818,12 +849,7 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
         got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, a, **fk, emit_gsum=True)
         ref = pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a, **fkm,
                                   emit_gsum=True)
-        if dt == torch.float32:
-            _equal_all(got, ref)
-        else:  # bf16 b runs the tensor-core GEMM: its float32 sums in another order
-            _equal_all(got[1], ref[1])
-            for u, v in zip(got[0], ref[0]):
-                assert (u - v).abs().max().item() <= 1e-4 * v.abs().max().item()
+        _equal_all(got, ref)  # bf16: b's pass and GEMM, its G rows from the phases
         _close_all(got, pk.ds2s_dtaps_plain(phases, g, shapes, corner_mode, a, **fk,
                                             emit_gsum=True), dt)
 
@@ -1281,9 +1307,10 @@ def test_mma_dtaps_one_tap_set(cuda, cin, cout):
         _close_all(got, pk.up_dual_conv_dtaps_plain(x, g, "average", **fk), torch.bfloat16)
 
 
-def _bf16_step(cuda, model, plain=None):
+def _bf16_step(cuda, model, plain=None, **routing):
     """One bf16 training forward and backward of the s=4 model on the default
-    route; ``plain`` names a kernel wrapper that ``ops/kernels/fused.py``
+    route (or on ``routing``, the model's ``merged_bwd`` / ``phase_chain``
+    options); ``plain`` names a kernel wrapper that ``ops/kernels/fused.py``
     calls (``up_dual_conv_dtaps``, ``up_dual_conv_fwd``), or a tuple of them
     (``phase_conv_dtaps``, ``ico_conv_s2s_dtaps``), which then run their
     plain versions on the card tensors. (loss, launches, gradients)."""
@@ -1303,7 +1330,7 @@ def _bf16_step(cuda, model, plain=None):
     tpoles = torch.randn(4, 6, generator=gen)
     cts = [torch.randn(x.shape, generator=gen), torch.randn(eps.shape, generator=gen),
            torch.randn(eps.shape, generator=gen)]
-    kw = dict(dtype=torch.bfloat16)
+    kw = dict(dtype=torch.bfloat16, **routing)
     net = IcoVAE(s, widths, latent, **kw) if vae else IcoAE(s, widths, **kw)
     net.load_state_dict(bridge.flax_to_state_dict(variables))
     net.to(cuda)
@@ -2059,3 +2086,84 @@ def test_bf16_step_with_the_mma_dx(cuda, model):
     assert count[("mma_conv", "DxEpi", "StdGrid")] == n_f, count
     assert count[("mma_conv", "DuEpi")] == 3, count
     assert count[("dx_gemm", "bfloat16")] == 0, count
+
+
+# ---------------------------------------------------------------------------
+# the split route's tensor-core passes in j (the merged up-conv backward)
+# and in m's dtaps
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("route", ["merged", "chain all"])
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_split_route_passes(cuda, model, route):
+    """A bf16 training step on the merged backward route (j at up0-2) and on
+    both chains (m's dtaps at the chained DownBlocks). In the step, every
+    call of j equals the split pair (``up_dual_conv_dx`` +
+    ``up_dual_conv_dtaps``) on that call's own inputs, and every call of
+    m's dtaps equals ``phase_conv_dtaps`` at output phase 2 on the
+    ``phase_merge``d cotangents, bit for bit; against the same step with
+    both patched to their plain versions on the card tensors, the loss
+    within 1e-2 of its value (the gradients are not compared: see
+    ``test_bf16_step_with_the_mma_grid_fwd``). A trace of the step shows
+    ``mma_up_bwd`` once a call of j and ``mma_dtaps<SplitGrid>`` once a call
+    of m's dtaps, and neither j's SIMT ``merged_bwd<bf16, UpLoad>`` nor any
+    bf16 ``dtaps_gemm``."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    routing = dict(merged_bwd="all") if route == "merged" else dict(phase_chain="1")
+    calls = []
+
+    def checked_j(x, g, sets, corner_mode, y_groups=None, gs_list=None):
+        got = pk.up_dual_conv_bwd(x, g, sets, corner_mode, y_groups, gs_list)
+        dx, gsums = pk.up_dual_conv_dx(g, sets, corner_mode, x.dtype, y_groups, gs_list, True)
+        dtaps = pk.up_dual_conv_dtaps(x, g, corner_mode, y_groups, gs_list)
+        calls.append(("j", got, (dx, *dtaps, *gsums)))
+        return got
+
+    def checked_m(phases, g, shapes, corner_mode, act=None, y_groups=None, gs_list=None,
+                  emit_gsum=False):
+        got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, act, y_groups, gs_list, emit_gsum)
+        ref = pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), act,
+                                  None if y_groups is None else _merge(y_groups), gs_list,
+                                  emit_gsum)
+        calls.append(("m", got, ref))
+        return got
+
+    with mock.patch.object(fused, "up_dual_conv_bwd", checked_j), \
+            mock.patch.object(fused, "ds2s_dtaps", checked_m):
+        loss, launches, grads = _bf16_step(cuda, model, **routing)
+    kernel = "up_dual_conv_bwd" if route == "merged" else "ds2s_dtaps"
+    n = launches.get(kernel, 0)
+    assert n >= 2 and [k for k, _, _ in calls] == ["j" if route == "merged" else "m"] * n
+    for _, got, ref in calls:
+        _equal_all(got, ref)
+    plain = ("up_dual_conv_bwd", "ds2s_dtaps")
+    ref_loss, ref_launches, _ = _bf16_step(cuda, model, plain=plain, **routing)
+    assert not set(plain) & set(ref_launches)
+    assert abs(loss - ref_loss) <= 1e-2 * abs(ref_loss), (loss, ref_loss)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    names = _dx_kernel_names(lambda: _bf16_step(cuda, model, **routing))
+    count = {k: sum(c for name, c in names.items() if all(p in name for p in k))
+             for k in (("mma_up_bwd", "MergedUp"), ("mma_dtaps", "SplitGrid"),
+                       ("merged_bwd", "bfloat16", "UpLoad"), ("dtaps_gemm", "bfloat16"))}
+    want_j, want_m = (n, 0) if route == "merged" else (0, n)
+    assert count[("mma_up_bwd", "MergedUp")] == want_j, count
+    assert count[("mma_dtaps", "SplitGrid")] == want_m, count
+    assert count[("merged_bwd", "bfloat16", "UpLoad")] == 0, count
+    assert count[("dtaps_gemm", "bfloat16")] == 0, count
+
+
+def test_split_route_gemms_occupancy(cuda):
+    """j's one launch of both GEMMs and each instantiation of m's dtaps GEMM
+    (fold or not, NARROW or wide) fit 2 blocks an SM with no local memory
+    (no spill)."""
+    infos = {"j": build.up_bwd_info()}
+    for narrow in (False, True):
+        for fold in (False, True):
+            infos[f"m narrow={narrow} fold={fold}"] = build.grid_dtaps_info(False, fold, narrow,
+                                                                            split=True)
+    for key, info in infos.items():
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (key, info)

@@ -218,6 +218,53 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::two_pass_block<float, gn::GridLoad<float, false> >"
                                "(gn::TwoPass<float, gn::GridLoad<float, false> >)"},
      "two_pass_block<fp32, GridLoad> (p)"),
+    # j's bf16 backward: its cotangent and upsampled-operand passes, tap pack,
+    # the one launch of both GEMMs and its upsample adjoint; the float32 and
+    # the old bf16 SIMT merged tiles
+    ({"cat": "kernel", "name": "void (anonymous namespace)::mma_up_bwd<gn::MergedUp>("
+                               "gn::OperandRows, gn::GLoad<__nv_bfloat16, false>, "
+                               "gn::mma::WrittenRows, int, float*, gn::OperandRows, "
+                               "__nv_bfloat16 const*, gn::DuEpi, int)"},
+     "mma_up_bwd<bf16> (j)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::MergedUp>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (j)"),
+    ({"cat": "kernel", "name": "void gn::up_operand_pass<__nv_bfloat16, gn::MergedUp>"
+                               "(gn::UpLoad<__nv_bfloat16, gn::GridCells<__nv_bfloat16> >)"},
+     "up_operand_pass<bf16> (j)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::MergedUp>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (j)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::up_adjoint_pass<gn::MergedUp>("
+                               "float const*, int const*, int const*, float const*)"},
+     "up_adjoint_pass (j)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::up_adjoint_pass<gn::GridCells<"
+                               "__nv_bfloat16> >(float const*, int const*, int const*)"},
+     "up_adjoint_pass (c)"),
+    ({"cat": "kernel", "name": "void gn::merged_bwd<__nv_bfloat16, gn::UpLoad<__nv_bfloat16, "
+                               "gn::GridCells<__nv_bfloat16> > >(gn::GLoad<__nv_bfloat16>)"},
+     "merged_bwd<bf16, UpLoad>"),
+    ({"cat": "kernel", "name": "void gn::merged_bwd<float, gn::UpLoad<float, gn::GridCells<"
+                               "float> > >(gn::GLoad<float, false>)"},
+     "merged_bwd<fp32, UpLoad>"),
+    # m's bf16 dtaps: b's operand pass and GEMM, its own rows (G by SplitRows);
+    # d's GEMM with its direct rows named; m's float32 SIMT split dtaps
+    ({"cat": "kernel", "name": "void gn::grid_operand_pass<__nv_bfloat16, gn::SplitGrid>"
+                               "(gn::GridLoad<__nv_bfloat16, false>, __nv_bfloat16*, int)"},
+     "grid_operand_pass<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::SplitGrid, true, true, gn::mma::SplitRows>"
+                               "(gn::OperandRows, gn::GLoad<__nv_bfloat16, false>, "
+                               "gn::mma::SplitRows, int)"},
+     "mma_dtaps<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::SplitGrid, false, false, "
+                               "gn::mma::SplitRows>(gn::OperandRows)"},
+     "mma_dtaps<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::mma_dtaps<gn::GridCells<__nv_bfloat16>, true, false, "
+                               "gn::mma::DirectRows>(gn::OperandRows, gn::mma::DirectRows)"},
+     "mma_dtaps<bf16> (d)"),
+    ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::GridLoad<float, false>, "
+                               "gn::GLoad<float, true> >"},
+     "dtaps_gemm<fp32, GridLoad, split> (m)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
@@ -237,9 +284,10 @@ def _groups(**calls):
       "grid_operand_pass<bf16> (f)": 15, "mma_dtaps<bf16> (f)": 15},
      {"phase_conv_dtaps": 7.0, "ico_conv_s2s_dtaps": 3.0}, True),
     ({}, {}, True),  # a serving window: neither ran
-    # m's SIMT dtaps has its own row; b's SIMT one must not appear
+    # m's dtaps has its own rows (b's pass and GEMM over the split cotangent)
     ({"grid_operand_pass<bf16> (b)": 5, "mma_dtaps<bf16> (b)": 5,
-      "dtaps_gemm<bf16, GridLoad, split> (m)": 15}, {"phase_conv_dtaps": 1.0}, True),
+      "grid_operand_pass<bf16> (m)": 15, "mma_dtaps<bf16> (m)": 15},
+     {"phase_conv_dtaps": 1.0, "ds2s_dtaps": 3.0}, True),
     ({"grid_operand_pass<bf16> (b)": 35, "mma_dtaps<bf16> (b)": 35,
       "dtaps_gemm<bf16, GridLoad>": 15}, {"phase_conv_dtaps": 7.0}, False),
     ({"grid_operand_pass<bf16> (b)": 35}, {"phase_conv_dtaps": 7.0}, False),  # no GEMM
@@ -305,3 +353,39 @@ def test_device_launches_of_the_dx(drop, add, ok):
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
+
+
+_SPLIT_ROUTE = {"cot_operand_pass<bf16> (j)": 15, "up_operand_pass<bf16> (j)": 15,
+                "mma_up_bwd<bf16> (j)": 15, "up_adjoint_pass (j)": 15,
+                "grid_operand_pass<bf16> (m)": 15, "mma_dtaps<bf16> (m)": 15}
+_SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0}
+
+
+@pytest.mark.parametrize("drop, add, ok", [
+    ((), {}, True),                                     # j and m's dtaps in a bf16 step
+    (("mma_up_bwd<bf16> (j)",), {}, False),             # j without its GEMMs
+    (("up_operand_pass<bf16> (j)",), {}, False),        # j without its upsampled operand
+    (("cot_operand_pass<bf16> (j)",), {}, False),       # j without its cotangent pass
+    (("up_adjoint_pass (j)",), {}, False),              # j without its adjoint
+    (("mma_dtaps<bf16> (m)",), {}, False),              # m's dtaps without its GEMM
+    (("grid_operand_pass<bf16> (m)",), {}, False),      # m's dtaps without its pass
+    ((), {"mma_up_bwd<bf16> (j)": 30}, False),          # more GEMM launches than calls
+    ((), {"merged_bwd<bf16, UpLoad>": 15}, False),      # j's SIMT tiles in bf16
+    ((), {"dtaps_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT dtaps in bf16
+    ((), {"merged_bwd<bf16, GridLoad>": 30}, True),     # i's and k's merged tiles stay
+    ((), {"dx_gemm<bf16, split> (m)": 15, "conv_gemm<bf16, GridLoad, split> (m)": 15},
+     True),                                             # m's SIMT dx and forward stay
+])
+def test_device_launches_of_the_split_route_passes(drop, add, ok):
+    """``check_device_launches`` over 5 profiled iterations of a bf16 step on
+    the merged route and both chains: every call of j shows its two passes,
+    its one launch of both GEMMs and its upsample adjoint, every call of m's
+    dtaps b's operand pass and GEMM (``SPLIT_ROUTE_ROWS``), and no window
+    j's SIMT ``merged_bwd<bf16, UpLoad>`` or m's ``dtaps_gemm<bf16,
+    GridLoad, split>``."""
+    groups = {k: v for k, v in {**_SPLIT_ROUTE, **add}.items() if k not in drop}
+    if ok:
+        chip_smoke.check_device_launches("t", _groups(**groups), _SPLIT_ROUTE_CALLS, 5)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_device_launches("t", _groups(**groups), _SPLIT_ROUTE_CALLS, 5)
