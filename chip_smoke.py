@@ -40,8 +40,10 @@ printed on its own lines, each fatal on failure:
    split pair they replace at the same shape (its dx call, with the Σg
    pass, and its dtaps call, each timed alone: they run the merged
    kernel's two tile roles on their own) and cuDNN's dx + dweight (in
-   bf16 j's five outputs must equal the split pair's bit for bit, and m's
-   dtaps the phase conv's on the merged cotangents); kernel
+   bf16 i's seven outputs and j's five must equal the split pair's bit
+   for bit, and m's dx and dtaps the phase conv's on the merged
+   cotangents; i, j and m's dx print their parts and device time, i and j
+   beside the split pair's kernels, m's dx beside a's call); kernel
    m (``ds2s_*``) at the chain's DownBlock shapes and l (``stats_geff``)
    at each group it folds on the chain, with the phase conv's kernels at
    the chain's conv01 shapes; l at down0 also prints what the fold costs
@@ -100,17 +102,20 @@ printed on its own lines, each fatal on failure:
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
-   convs' forward and dtaps (b, f, m's dtaps) and of a's, c's and f's dx
-   must show its operand pass and tensor-core GEMM there (c also its
-   upsample adjoint; j its two passes, its one launch of both GEMMs and
-   its adjoint), and no window the SIMT ``dx_gemm<bf16>``,
+   convs' forward and dtaps (b, f, m's dtaps) and of a's, c's, f's and
+   m's dx must show its operand pass and tensor-core GEMM there (c also
+   its upsample adjoint; i and j their two passes and their one launch of
+   both GEMMs, j its adjoint), and no window the SIMT ``dx_gemm<bf16>``,
    ``conv_gemm<bf16, GridLoad>``, ``dtaps_gemm<bf16, GridLoad>`` (m's
-   split one too) or j's ``merged_bwd<bf16, UpLoad>``; the Chrome traces
-   are kept in ``build/profile/``.
+   split dx and dtaps too) or j's ``merged_bwd<bf16, UpLoad>``, nor
+   ``merged_bwd<bf16, GridLoad>`` more often than k's calls; the Chrome
+   traces are kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
-launches on the serving and training paths (AE and VAE summed, and per
-path), its bf16 time, its plain version's, its bound and the library
+route, sources, the TPU kernel it replaces, how it was redesigned for the
+card (``redesigned``; null: it runs its first SIMT port), its launches on
+the serving and training paths (AE and VAE summed, and per path), its
+bf16 time, its plain version's, its bound and the library
 call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
 ``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
@@ -205,26 +210,59 @@ KERNELS = {
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
 # the grid convs' forward and dtaps (the grid convs' dtaps: b, f, m's), the
-# phase conv's, the up conv's and the standard conv's dx (a, c, f), the
-# merged up-conv backward (j) and the merged blocks (o, p) run an operand
-# pass of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh
-# and csrc/mma_dtaps.cuh
+# phase conv's, the up conv's, the standard conv's and m's dx (a, c, f,
+# m), the merged backwards (i, j; one launch of both GEMMs,
+# csrc/mma_merged_bwd.cuh) and the merged blocks (o, p) run an operand pass
+# of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
+# csrc/mma_dtaps.cuh
 _MMA = "geniconet_tpu_torch/csrc/mma.cuh"
 SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
               for k in ("up_dual_conv_dtaps", "up_pair_dtaps", "phase_conv_dtaps",
                         "ico_conv_s2s_dtaps", "ds2s_dtaps")},
-           "up_dual_conv_bwd": ("geniconet_tpu_torch/csrc/mma_dtaps.cuh",
-                                "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA),
+           **{k: ("geniconet_tpu_torch/csrc/mma_merged_bwd.cuh",
+                  "geniconet_tpu_torch/csrc/mma_dtaps.cuh",
+                  "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
+              for k in ("up_dual_conv_bwd", "phase_conv_bwd")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
                         "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
-                        "ico_conv_s2s_dx")},
+                        "ico_conv_s2s_dx", "ds2s_dx")},
            # o and p: float32 block_fwd.cuh's SIMT tiles; bf16 the split
            # route's tensor-core passes in one cooperative launch
            **{k: ("geniconet_tpu_torch/csrc/mma_block_fwd.cuh",
                   "geniconet_tpu_torch/csrc/block_fwd.cuh",
                   "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_block_fwd", "dn_block_fwd")}}
+# how each kernel was redesigned for the card since its first SIMT port
+# (None: it still runs that port's float32 SIMT core in both dtypes)
+_TC = "bf16 on the tensor cores: "
+REDESIGNED = {
+    "phase_conv_fwd": _TC + "the operand pass and mma_conv with the stats epilogue",
+    "up_dual_conv_fwd": _TC + "the upsampled operand pass and mma_conv",
+    "pair_head_fwd": "the lane-group cell routine of the head's backward",
+    "ico_conv_s2s_fwd": _TC + "the operand pass and mma_conv with the stats epilogue",
+    "phase_conv_dx": _TC + "the cotangent pass and mma_conv with the act-adjoint epilogue",
+    "phase_conv_dtaps": _TC + "the operand pass and mma_dtaps",
+    "up_dual_conv_dx": _TC + "the cotangent pass, mma_conv into dU, the upsample adjoint",
+    "up_dual_conv_dtaps": _TC + "the upsampled operand pass and mma_dtaps",
+    "ico_conv_s2s_dx": _TC + "the cotangent pass and mma_conv over the standard table",
+    "ico_conv_s2s_dtaps": _TC + "the operand pass and mma_dtaps",
+    "pair_head_mse_fwd": "the lane-group cell routine, one partial a 64 cells",
+    "pair_head_mse_bwd": "one coalesced read a cell (head_bwd_body)",
+    "pair_head_bwd": "one coalesced read a cell (head_bwd_body)",
+    "phase_conv_bwd": _TC + "a's cotangent pass and b's operand pass, both GEMMs in one launch",
+    "up_dual_conv_bwd": _TC + "c's cotangent pass and d's operand pass, both GEMMs in one launch",
+    "ico_conv_s2s_bwd": None,
+    "stats_geff": None,
+    "ds2s_fwd": None,
+    "ds2s_dx": _TC + "a's cotangent pass over the parity phases and a's dx GEMM",
+    "ds2s_dtaps": _TC + "b's operand pass and mma_dtaps over the parity phases",
+    "up_pair_fwd": _TC + "the joined pair's operand pass and mma_conv",
+    "up_pair_dx": None,
+    "up_pair_dtaps": _TC + "the joined pair's operand pass and mma_dtaps",
+    "up_block_fwd": _TC + "the split route's passes and GEMM in one cooperative launch",
+    "dn_block_fwd": _TC + "the split route's passes and GEMM in one cooperative launch",
+}
 _FORWARD = ("phase_conv_fwd", "up_dual_conv_fwd", "pair_head_fwd", "ico_conv_s2s_fwd")
 _BACKWARD = ("phase_conv_dx", "phase_conv_dtaps", "up_dual_conv_dx", "up_dual_conv_dtaps",
              "ico_conv_s2s_dx", "ico_conv_s2s_dtaps")
@@ -438,9 +476,9 @@ class Case:
         self.inputs = [t for t in flat(inputs) if t is not None]
 
 
-def mma_parts(call, flops, inputs, operand, info, adjoint=None):
+def mma_parts(call, flops, inputs, operand, info, adjoint=None, split=None):
     """A bf16 tensor-core kernel's parts from a trace (the up conv's, n's
-    and the grid convs' forward and dtaps; a's, c's and j's dx, j's dtaps):
+    and the grid convs' forward and dtaps; a's, c's and m's dx; i and j):
     its operand passes (against their bound: the inputs they read once,
     ``inputs``, and the bf16 operands of ``operand`` = (rows, width), or a
     list of them, they write), the tap pack, the tensor-core GEMM (``flops``
@@ -449,7 +487,9 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None):
     bytes it must move; and ``info``, the GEMM instantiation's registers a
     thread, blocks an SM, shared and local memory as the runtime reports
     them (``build.mma_dtaps_info``, ``grid_dtaps_info``, ``mma_fwd_info``,
-    ``grid_fwd_info``, ``mma_dx_info``, ``up_bwd_info``)."""
+    ``grid_fwd_info``, ``mma_dx_info``, ``up_bwd_info``, ``phase_bwd_info``);
+    the call's device time (every kernel it launches) and, for a merged
+    kernel, its split pair's (``split``: the two calls)."""
     rows = trace_kernels(call, per_launch=True)
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
     op_bytes += sum(r * w * 2 for r, w in (operand if isinstance(operand, list) else [operand]))
@@ -459,7 +499,11 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None):
              "pack_ms": sum(ms for k, ms in rows.items() if k.startswith("pack_taps")),
              "gemm_ms": gemm, "gemm_tflops": flops / gemm / 1e9 if gemm else 0.0,
              "gemm_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-             "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")), **info}
+             "sum_ms": sum(ms for k, ms in rows.items() if k.startswith("sum_rows")),
+             "device_ms": sum(rows.values()), **info}
+    if split is not None:
+        parts["split_device_ms"] = sum(sum(trace_kernels(f, per_launch=True).values())
+                                       for f in split)
     if adjoint is not None:  # c: dU (float32) read once, dx (bf16) written once
         parts["adjoint_ms"] = sum(ms for k, ms in rows.items() if "up_adjoint_pass" in k)
         parts["adjoint_bound_ms"] = adjoint / PEAK_BYTES * 1e3
@@ -815,8 +859,10 @@ def training_cases():
     def split_bwd(which, h, w, cin, cout, with_act, fold):
         """m's dx or dtaps on the level-s input phases (h, w): the 2 x 4
         phase cotangents (h/2, w/2) with the fold in the kernel, or none
-        (the fold outside: dtaps then emits Σg). In bf16 m's dtaps must
-        equal b's on the merged cotangents bit for bit."""
+        (the fold outside: dtaps then emits Σg). In bf16 m's dx must equal
+        a's and m's dtaps b's on the merged cotangents bit for bit; m's dx
+        prints its parts and is timed beside a's call on the merged
+        cotangents."""
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -825,18 +871,39 @@ def training_cases():
             fk = dict(y_groups=y, gs_list=gs) if fold else {}
             flops = conv_flops(B, 5 * h * w, cin, 2 * cout)
             lib = cudnn(which, gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2)
+            bf16 = dt == torch.bfloat16
+            fm = {k: phase_merged(v) if k == "y_groups" else v for k, v in fk.items()}
             if which == "dx":
                 args = (g, sets, "average", cin, dt, a, ph if a else None)
-                return Case(lambda: pk.ds2s_dx(*args, **fk), lambda: pk.ds2s_dx_plain(*args, **fk),
-                            flops, [g, [t for t, _ in sets], a, ph if a else None,
-                                    list(fk.values())], lib)
+                call = lambda: pk.ds2s_dx(*args, **fk)  # noqa: E731
+                gm = phase_merged(g)
+                a_dx = lambda: pk.phase_conv_dx(gm, *args[1:3], (2,), *args[3:], **fm)  # noqa: E731
+
+                def exact_dx():
+                    """m's bf16 dx, d_mul/d_add and Σg_eff against a's at output
+                    phase 2 on the phase_merge'd cotangents (its split route)."""
+                    got, ref = call(), a_dx()
+                    if [u is None for u in got] != [v is None for v in ref] or not all(
+                            map(torch.equal, flat(got), flat(ref))):
+                        raise AssertionError("m: bf16 dx differs from phase_conv_dx's")
+                    return ("dphases" + (", d_mul/d_add" if a else "")
+                            + (", Σg_eff a/b" if fold else "")
+                            + " (phase_conv_dx at phase 2 on the merged cotangents)")
+
+                parts = (lambda: mma_parts(call, flops, [g, list(fk.values())],
+                                           dx_operand(B, h, w, 2 * cout, (2,)),
+                                           build.mma_dx_info(False, a is not None, split=True))
+                         ) if bf16 else None
+                return Case(call, lambda: pk.ds2s_dx_plain(*args, **fk), flops,
+                            [g, [t for t, _ in sets], a, ph if a else None, list(fk.values())],
+                            lib, compare={"a's dx on the merged cotangents": a_dx}, parts=parts,
+                            exact=exact_dx if bf16 else None)
             args = (ph, g, [(7, cin, cout)] * 2, "average", a)
             call = lambda: pk.ds2s_dtaps(*args, **fk, emit_gsum=not fold)  # noqa: E731
 
             def exact():
                 """m's bf16 dtaps and Σg_eff against b's on the phase_merge'd
                 cotangents (its split route)."""
-                fm = {k: phase_merged(v) if k == "y_groups" else v for k, v in fk.items()}
                 ref = pk.phase_conv_dtaps(ph, phase_merged(g), args[2], "average", (2,), a, **fm,
                                           emit_gsum=not fold)
                 if not all(torch.equal(u, v) for u, v in zip(flat(call()), flat(ref))):
@@ -844,7 +911,6 @@ def training_cases():
                 return ("dtaps a/b" + (" and Σg_eff a/b" if not fold else "")
                         + " (phase_conv_dtaps at phase 2 on the merged cotangents)")
 
-            bf16 = dt == torch.bfloat16
             info = build.grid_dtaps_info(False, fold, build.mma_narrow(cin), split=True) if bf16 \
                 else None
             return Case(call, lambda: pk.ds2s_dtaps_plain(*args, **fk, emit_gsum=not fold), flops,
@@ -1012,10 +1078,11 @@ def training_cases():
         """Kernel i ("phase"), j ("up") or k ("std") with the stats fold, the
         split pair it replaces (dx with its Σg pass, then dtaps) and cuDNN's
         dx + dweight on the haloed input. FLOPs: dx (an up conv's composed,
-        ``up_dx_flops``) + dtaps. In bf16 j's five outputs must equal the
-        split pair's bit for bit, and j prints its parts (its two passes,
-        the one launch of both GEMMs, whose FLOPs are c's 4-phase dx GEMM's
-        and d's, the adjoint and the sums)."""
+        ``up_dx_flops``) + dtaps. In bf16 i's seven outputs and j's five must
+        equal the split pair's bit for bit, and i and j print their parts
+        (their two passes, the one launch of both GEMMs, whose FLOPs are the
+        dx GEMM's and the dtaps', j's adjoint, the sums, and the device time
+        against the split pair's kernels)."""
         def make(dt, gen):
             a = _act(gen, cin) if with_act else None
             exact = parts = None
@@ -1041,10 +1108,10 @@ def training_cases():
 
                 if dt == torch.bfloat16:
                     du_bytes = B * 4 * 5 * h * w * cin * 4 + B * 5 * h * w * cin * 2
-                    parts = (lambda args=args: mma_parts(
+                    parts = (lambda args=args, split=split: mma_parts(
                         lambda: pk.up_dual_conv_bwd(*args), 2 * conv_flops(B, rows, cin, ntot),
                         [x, g, y, gs], [dx_operand(B, h, w, ntot, _ALL), up_operand(B, h, w, cin)],
-                        build.up_bwd_info(), du_bytes))
+                        build.up_bwd_info(), du_bytes, split))
             elif kind == "std":
                 x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
                 t, _ = _taps(gen, cin, cout, dt)
@@ -1071,6 +1138,31 @@ def training_cases():
                 stride = 2 if out_phases == (2,) else 1
                 rows, ntot = len(out_phases) * 5 * h * w, n_sets * cout
                 halo = (2 * h + 3 - stride, 2 * w + 2)
+
+                def exact(args=args):
+                    """i's 7 outputs against a's dx (dphases, d_mul/d_add,
+                    Σg_eff) and b's dtaps with its Σg_eff."""
+                    got = pk.phase_conv_bwd(*args)
+                    dph, dmul, dadd, gdx = pk.phase_conv_dx(g, sets, "average", out_phases, cin,
+                                                            dt, a, x, y, gs)
+                    dtaps, gsums = pk.phase_conv_dtaps(x, g, shapes, "average", out_phases, a, y,
+                                                       gs, emit_gsum=True)
+                    for key, u, v in zip(("dphases", "dtaps", "Σg_eff", "d_mul", "d_add",
+                                          "Σg_eff (a's pass)"),
+                                         (*got, got[2]), (dph, dtaps, gsums, dmul, dadd, gdx)):
+                        fu, fv = flat(u), flat(v)
+                        if len(fu) != len(fv) or not all(map(torch.equal, fu, fv)):
+                            raise AssertionError(f"i: bf16 {key} differs from the split route's")
+                    return ("dphases, dtaps and Σg_eff of each set"
+                            + (", d_mul, d_add" if a else "") + " (a's dx + b's dtaps)")
+
+                if dt == torch.bfloat16:
+                    parts = (lambda args=args, split=split: mma_parts(
+                        lambda: pk.phase_conv_bwd(*args), 2 * conv_flops(B, rows, cin, ntot),
+                        [x, g, y, gs, a],
+                        [dx_operand(B, h, w, ntot, out_phases),
+                         (pk.grid_operand_rows(B, h, w, 4), build.operand_width(cin))],
+                        build.phase_bwd_info(build.mma_narrow(cin), a is not None), split=split))
             lib_dx = cudnn("dx", gen, dt, B * 5, cin, ntot, *halo, stride)
             lib_dw = cudnn("dtaps", gen, dt, B * 5, cin, ntot, *halo, stride)
             dx_flops = (up_dx_flops(B, h, w, cin, cout) if kind == "up"
@@ -1384,14 +1476,19 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                 if "adjoint_ms" in p:
                     pack += (f"upsample adjoint pass {p['adjoint_ms']:.4f} ms (bound "
                              f"{p['adjoint_bound_ms']:.4f} ms, bytes), ")
+                device = f"device {p['device_ms']:.4f} ms"
+                if "split_device_ms" in p:
+                    device += (f" against the split pair's kernels {p['split_device_ms']:.4f} ms"
+                               f" ({p['device_ms'] / p['split_device_ms']:.3f}x)")
                 print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): operand "
                       f"pass {p['operand_ms']:.4f} ms (bound {p['operand_bound_ms']:.4f} ms, "
                       f"bytes), {pack}tensor-core GEMM {p['gemm_ms']:.4f} ms = "
                       f"{p['gemm_tflops']:.1f} TFLOP/s (bound {p['gemm_bound_ms']:.4f} ms, "
-                      f"operations), partials' sum {p['sum_ms']:.4f} ms; whole call {ms:.4f} "
-                      f"ms against cuDNN {lib_ms:.4f} ms; GEMM {p['registers']} registers a "
-                      f"thread, {p['blocks_per_sm']} blocks an SM, {p['smem_bytes']} B shared, "
-                      f"{p['local_bytes']} B local [{card}]", flush=True)
+                      f"operations), partials' sum {p['sum_ms']:.4f} ms, {device}; whole call "
+                      f"{ms:.4f} ms against cuDNN {lib_ms:.4f} ms; GEMM {p['registers']} "
+                      f"registers a thread, {p['blocks_per_sm']} blocks an SM, "
+                      f"{p['smem_bytes']} B shared, {p['local_bytes']} B local [{card}]",
+                      flush=True)
             if p is not None:
                 stats[name].setdefault("parts", {})[f"{label} {tag}"] = p
             stats[name]["max_abs_err"] = max([stats[name]["max_abs_err"]] + [e for e, _ in errs])
@@ -1554,15 +1651,17 @@ def kernel_group(event: dict) -> str:
     # phases, the standard conv's grid)
     pair = "PairCells" in name
     j = "MergedUp" in name  # the merged up-conv backward's passes and GEMMs
+    i = "MergedPhase" in name  # the merged phase-conv backward's
     which = "(n)" if pair else "(j)" if j else "(d)"
     grid = ("(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name
-            else "(m)" if "SplitGrid" in name else None)
-    # the dx of a, c and f: by Tag the phase conv's (a), the standard
-    # conv's (f) or the up conv's (c); j's cotangent pass by its own
+            else "(m)" if "SplitGrid" in name else "(i)" if i else None)
+    # the dx of a, c, f and m: by Tag the phase conv's (a), the standard
+    # conv's (f), the phase chain's stride-2 conv's (m) or the up conv's
+    # (c); i's and j's cotangent passes by their own
     dx = ("(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name
-          else "(j)" if j else "(c)")
-    if "mma_up_bwd" in name:  # j: d's dtaps and c's dx tiles in one launch
-        return "mma_up_bwd<bf16> (j)"
+          else "(m)" if "SplitGrid" in name else "(i)" if i else "(j)" if j else "(c)")
+    if "mma_bwd<" in name:  # i, j: the dtaps and the dx tiles in one launch
+        return f"mma_bwd<bf16> {'(j)' if j else '(i)'}"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "grid_operand_pass" in name:
@@ -1696,20 +1795,26 @@ GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
 # ... and of the bf16 dx of a, c and f: each call's cotangent pass and
 # GEMM (and c's upsample adjoint), by wrapper
 DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx", "(f)": "ico_conv_s2s_dx"}
-# ... and of the bf16 merged up-conv backward (j: its two passes, the one
-# launch of both GEMMs, its upsample adjoint) and m's bf16 dtaps (b's pass
-# and GEMM over the split cotangent), by wrapper
+# ... and of the bf16 merged backwards (i: its two passes and the one
+# launch of both GEMMs; j: the same and its upsample adjoint) and m's bf16
+# dx (a's pass and GEMM over the split cotangent) and dtaps (b's), by
+# wrapper
 SPLIT_ROUTE_ROWS = {
+    "phase_conv_bwd": ("cot_operand_pass<bf16> (i)", "grid_operand_pass<bf16> (i)",
+                       "mma_bwd<bf16> (i)"),
     "up_dual_conv_bwd": ("cot_operand_pass<bf16> (j)", "up_operand_pass<bf16> (j)",
-                         "mma_up_bwd<bf16> (j)", "up_adjoint_pass (j)"),
+                         "mma_bwd<bf16> (j)", "up_adjoint_pass (j)"),
+    "ds2s_dx": ("cot_operand_pass<bf16> (m)", "mma_conv_dx<bf16> (m)"),
     "ds2s_dtaps": ("grid_operand_pass<bf16> (m)", "mma_dtaps<bf16> (m)"),
 }
 # the SIMT kernels no bf16 window may run: a's, c's, f's dx, b's and f's
-# dtaps and the grid forwards (m's split store and dx, n's pair dx, i's and
-# k's merged tiles, o's and p's tiles have rows of their own), j's merged
-# tiles and m's split dtaps
+# dtaps and the grid forwards (m's split store, n's pair dx, k's merged
+# tiles, o's and p's tiles have rows of their own), j's merged tiles and
+# m's split dx and dtaps; the merged tiles' GridLoad row (i's in float32,
+# k's) runs at most once a call of k
 BF16_SIMT = ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>",
-             "merged_bwd<bf16, UpLoad>", "dtaps_gemm<bf16, GridLoad, split> (m)")
+             "merged_bwd<bf16, UpLoad>", "dtaps_gemm<bf16, GridLoad, split> (m)",
+             "dx_gemm<bf16, split> (m)")
 
 
 def check_device_launches(tag, groups, launches, iters):
@@ -1718,10 +1823,11 @@ def check_device_launches(tag, groups, launches, iters):
     operand pass (one a call of either) and their tensor-core GEMM
     (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), each call of a, c
     and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
-    adjoint), and each call of j and of m's dtaps the rows of
+    adjoint), and each call of i, j and m's dx and dtaps the rows of
     ``SPLIT_ROUTE_ROWS``: each row present where its wrappers ran, and at
-    most once a call (a trace may lose events, never add them); and no
-    launch of a ``BF16_SIMT`` kernel."""
+    most once a call (a trace may lose events, never add them); no launch
+    of a ``BF16_SIMT`` kernel, and the SIMT ``merged_bwd<bf16, GridLoad>``
+    at most once a call of k."""
     def check(row, calls, wrappers):
         n = groups[row][0] / iters if row in groups else 0
         if (calls > 0) != (n > 0) or n > calls:
@@ -1744,6 +1850,11 @@ def check_device_launches(tag, groups, launches, iters):
     for simt in BF16_SIMT:
         if simt in groups:
             raise AssertionError(f"profile {tag}: the SIMT {simt} ran")
+    k_calls = launches.get("ico_conv_s2s_bwd", 0)
+    n = groups.get("merged_bwd<bf16, GridLoad>", [0])[0] / iters
+    if n > k_calls:
+        raise AssertionError(f"profile {tag}: merged_bwd<bf16, GridLoad> {n} a step for "
+                             f"{k_calls} calls of ico_conv_s2s_bwd (i runs the tensor cores)")
 
 
 def serving_workloads(st, tag="", b1=True):
@@ -2235,7 +2346,7 @@ def main():
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "sources": [src, *SOURCES.get(k, ())],
-         "replaces": rep,
+         "replaces": rep, "redesigned": REDESIGNED[k],
          "launches": count(k, "serve") + count(k, "train"),
          "serving_launches": count(k, "serve"), "training_launches": count(k, "train"),
          "launches_by_path": {path: n.get(k, 0) for path, n in launches.items()},

@@ -22,29 +22,36 @@
 // phase_conv_fwd with out_phases (2,) followed by phase_split bit for bit
 // in float32; in bf16 phase_conv_fwd runs the tensor-core GEMM
 // (mma_conv_fwd.cuh) and m keeps this SIMT tile, so the two are within one
-// bf16 ulp of each other. The backward kernels
-// run the phase conv's dx and dtaps tiles (gn::dx_tile over the transposed
-// table of output phase 2, gn::dtaps_tile) with the split cotangent loader
-// GLoad<T, true>, which reads row m of the merged cotangent (and y, under
-// the fold) from its phase by the same map; so dx, dtaps, d_mul/d_add and
-// Σg_eff equal phase_conv_dx / phase_conv_dtaps on phase_merge'd
-// cotangents bit for bit in float32. In bf16 the phase conv's dx runs the
-// tensor cores (mma_conv_fwd.cuh) and m keeps this tile: dx is within one
-// bf16 ulp, Σg_eff equal. m's bf16 dtaps is b's: grid_operand_pass writes
-// the act-applied operand of the 4 input phases once, and gn::mma_dtaps
-// (mma_dtaps.cuh) runs at output phase 2 with its G rows read from the
-// parity phases by the same map (mma::SplitRows; one row is still cout
+// bf16 ulp of each other. The float32 backward kernels run the phase
+// conv's dx and dtaps tiles (gn::dx_tile over the transposed table of
+// output phase 2, gn::dtaps_tile) with the split cotangent loader GLoad<T,
+// true>, which reads row m of the merged cotangent (and y, under the fold)
+// from its phase by the same map; so dx, dtaps, d_mul/d_add and Σg_eff
+// equal phase_conv_dx / phase_conv_dtaps on phase_merge'd cotangents bit
+// for bit. In bf16 both backward kernels are the phase conv's tensor-core
+// route with the cotangent read from the parity phases by that map. dx is
+// a's: cot_operand_pass (mma.cuh) over the split loader writes row m of
+// the merged cotangent, folded once, from its phase (the written operand
+// holds a's values, read from other addresses; stride 2 has no combined
+// rows), and a's dx GEMM runs over halo.phase_dx_codes of output phase 2
+// with its tap masks and DxEpi, Σg_eff over the written rows. dtaps is b's:
+// grid_operand_pass writes the act-applied operand of the 4 input phases
+// once, and gn::mma_dtaps (mma_dtaps.cuh) runs at output phase 2 with its G
+// rows read from the parity phases (mma::SplitRows; one row is still cout
 // contiguous elements, so the 16-byte copies stay, and the stats fold stays
-// in the kernel), on b's split: dtaps and Σg_eff equal phase_conv_dtaps on
-// the phase_merge'd cotangents bit for bit.
+// in the kernel), on b's split. So in bf16 too dx, d_mul/d_add, dtaps and
+// Σg_eff equal phase_conv_dx / phase_conv_dtaps on the phase_merge'd
+// cotangents bit for bit.
 //
-// What bounds it on the card: the forward and dx as the phase conv's float32
-// kernels, the FMA rate of the SIMT GEMM core (2 * 7 * C_in * 2 * C_out
-// FLOPs per level-(s-1) cell each); the split map costs a few shifts per
-// stored or loaded element, next to 7 * C_in FMAs. The bf16 dtaps: b's
-// tensor-core GEMM (mma_dtaps.cuh says what bounds it).
+// What bounds it on the card: the forward (and the float32 backward) as
+// the phase conv's float32 kernels, the FMA rate of the SIMT GEMM core (2 *
+// 7 * C_in * 2 * C_out FLOPs per level-(s-1) cell each); the split map
+// costs a few shifts per stored or loaded element, next to 7 * C_in FMAs.
+// The bf16 dx and dtaps: a's and b's tensor-core GEMMs (mma_conv_fwd.cuh
+// and mma_dtaps.cuh say what bounds them) and the passes' bytes.
 #include <type_traits>
 
+#include "mma_conv_fwd.cuh"
 #include "mma_dtaps.cuh"
 
 namespace {
@@ -88,28 +95,49 @@ cudaError_t fwd(const void* const* x, const float* mul, const float* add, const 
                                                         n_sets, 2, 1, stats, stream);
 }
 
+// float32: the SIMT gather-GEMM over the transposed table of output phase 2
+// with the split loader; bf16: a's path (the cotangent pass reading the
+// parity phases through the split loader, a's (2,) code table and tap
+// masks, the tensor-core GEMM with a's epilogue, Σg_eff over the written
+// rows).
 template <typename T>
 cudaError_t dx(const void* const* g, const void* const* y, const float* gs0, const float* gs1,
                const void* w0, const void* w1, const void* const* raw, const float* mul,
                const float* add, void* const* outs, const int* offsets, const int* cells,
-               const float* weights, float* red, float* dmul, float* dadd, float* gsum_ws,
-               float* gsum0, float* gsum1, int B, int h, int w, int cin, int cout, int n_sets,
-               int gsum_rows, cudaStream_t stream) {
+               const float* weights, const gn::DxTables& tb, float* red, float* dmul,
+               float* dadd, float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w,
+               int cin, int cout, int n_sets, int gsum_rows, cudaStream_t stream) {
   const int M = 5 * h * w;
   const auto gl = gn::make_split_gload<T>(g, y, gs0, gs1, log2i(h), log2i(w), cout, n_sets);
-  gn::DxOut<T> o = {};
-  for (int p = 0; p < 4; ++p) {
-    o.out[p] = static_cast<T*>(outs[p]);
-    o.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+  if constexpr (std::is_same_v<T, float>) {
+    gn::DxOut<T> o = {};
+    for (int p = 0; p < 4; ++p) {
+      o.out[p] = static_cast<T*>(outs[p]);
+      o.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+    }
+    o.mul = mul;
+    o.add = add;
+    o.red = red;
+    o.per = M;
+    cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd,
+                                            B, 4 * M, cin, n_sets, stream);
+    if (err != cudaSuccess || gsum_ws == nullptr) return err;
+    return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
+  } else {
+    if (mul != nullptr && (raw == nullptr || red == nullptr)) return cudaErrorInvalidValue;
+    gn::DxRows rows = {};
+    for (int p = 0; p < 4; ++p) {
+      rows.out[p] = static_cast<T*>(outs[p]);
+      rows.raw[p] = mul ? static_cast<const T*>(raw[p]) : nullptr;
+    }
+    rows.mul = mul;
+    rows.add = add;
+    rows.red = red;
+    rows.cin = cin;
+    return gn::launch_grid_cot_dx<gn::SplitGrid>(gl, tb, rows, static_cast<const T*>(w0),
+                                                 static_cast<const T*>(w1), gsum_ws, gsum0,
+                                                 gsum1, dmul, dadd, B, n_sets, gsum_rows, stream);
   }
-  o.mul = mul;
-  o.add = add;
-  o.red = red;
-  o.per = M;
-  cudaError_t err = gn::launch_dx_gemm<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B,
-                                          4 * M, cin, n_sets, stream);
-  if (err != cudaSuccess || gsum_ws == nullptr) return err;
-  return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
 // float32: the SIMT GEMM over GridLoad and the split loader; bf16: b's
@@ -181,29 +209,49 @@ extern "C" int gn_ds2s_fwd(const void* x0, const void* x1, const void* x2, const
 // g: host array of n_sets * 4 phase cotangent pointers (set-major), each
 // (B, 5, h/2, w/2, cout); y: null (no fold) or the forward's output phases
 // in the same order, with gs0/gs1 the sets' (2, cout) float32 stats
-// cotangents; the rest as gn_phase_conv_dx with out_phases (2,): w0/w1 taps,
-// raw/mul/add the act prologue (or null), outs the 4 dphases (B, 5, h, w,
-// cin), offsets/cells/weights halo.phase_dx_table(h, w, mode, (2,)), red and
-// dmul/dadd with act, gsum_ws/gsum0/gsum1 with the fold. dtype: 0 float32,
-// 1 bfloat16.
+// cotangents; the rest as gn_phase_conv_dx with out_phases (2,) on the
+// (B, 5, h, w, cout) merged cotangent: w0/w1 taps, raw/mul/add the act
+// prologue (or null), outs the 4 dphases (B, 5, h, w, cin), dmul/dadd with
+// act, gsum_ws/gsum0/gsum1 with the fold. float32: offsets/cells/weights,
+// halo.phase_dx_table(h, w, mode, (2,)); red, with act, of (B *
+// ceil(4*5hw/64), 2 * cin). bfloat16 (else the call is refused): codes,
+// comb_offsets/comb_cells/comb_weights and tap_mask from
+// halo.phase_dx_codes(h, w, mode, (2,)); operand, scratch of (B * (5hw +
+// n_comb) + 1, n_sets * cout rounded up to 8); wpack, of (7 * (n_sets *
+// cout rounded up to 32), cin rounded up to 128); red, with act, of
+// (ceil(B * 4 * 5hw / 128), 2 * cin). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_ds2s_dx(const void* const* g, const void* const* y, const float* gs0,
                           const float* gs1, const void* w0, const void* w1,
                           const void* const* raw, const float* mul, const float* add,
                           void* const* outs, const int* offsets, const int* cells,
-                          const float* weights, float* red, float* dmul, float* dadd,
-                          float* gsum_ws, float* gsum0, float* gsum1, int B, int h, int w,
-                          int cin, int cout, int n_sets, int gsum_rows, int dtype,
-                          void* stream) {
+                          const float* weights, const int* codes, const int* comb_offsets,
+                          const int* comb_cells, const float* comb_weights,
+                          const unsigned char* tap_mask, void* operand, void* wpack, float* red,
+                          float* dmul, float* dadd, float* gsum_ws, float* gsum0, float* gsum1,
+                          int B, int h, int w, int cin, int cout, int n_sets, int n_comb,
+                          int gsum_rows, int dtype, void* stream) {
   if (bad_shape(n_sets, h, w)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<__nv_bfloat16*>(operand),
+                           static_cast<__nv_bfloat16*>(wpack), 4};
   if (dtype == 0)
-    return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, red,
-                     dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets, gsum_rows, s);
+    return dx<float>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells, weights, tb,
+                     red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin, cout, n_sets,
+                     gsum_rows, s);
   if (dtype == 1)
     return dx<__nv_bfloat16>(g, y, gs0, gs1, w0, w1, raw, mul, add, outs, offsets, cells,
-                             weights, red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin,
+                             weights, tb, red, dmul, dadd, gsum_ws, gsum0, gsum1, B, h, w, cin,
                              cout, n_sets, gsum_rows, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of m's bf16 dx GEMM (a's, over the cotangent written from
+// the parity phases), with the act epilogue or without.
+extern "C" int gn_ds2s_dx_info(int act, int* out) {
+  return act ? gn::mma_conv_info<gn::SplitGrid, gn::DxEpi<true>>(out)
+             : gn::mma_conv_info<gn::SplitGrid, gn::DxEpi<false>>(out);
 }
 
 // x: host array of the 4 raw input phases (B, 5, h, w, cin); mul/add: the

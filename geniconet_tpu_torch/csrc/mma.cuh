@@ -3,11 +3,12 @@
 // conv table) and the mma.sync primitives. The operand is the up convs'
 // upsampled level-(s+1) grid (up_operand_pass), the grid convs'
 // act-applied input (grid_operand_pass) or, for the input gradients of the
-// phase conv, the up conv and the standard conv (a, c, f), the folded
-// cotangent with its combined rows (cot_operand_pass). mma_dtaps.cuh (the
-// tap gradients: d, n, b, f and m's; j's over the written cotangent) and
-// mma_conv_fwd.cuh (the forwards: the up conv, n and the grid convs; the dx
-// of a, c, f and j) build their GEMMs on them.
+// phase conv, the up conv, the standard conv and the phase chain's
+// stride-2 conv (a, c, f, m), the folded cotangent with its combined rows
+// (cot_operand_pass; m's read from the parity phases). mma_dtaps.cuh (the
+// tap gradients: d, n, b, f and m's; i's and j's over the written
+// cotangent) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
+// grid convs; the dx of a, c, f, m, i and j) build their GEMMs on them.
 #pragma once
 
 #include "backward.cuh"
@@ -388,9 +389,12 @@ struct CombRows {
 };
 
 // 8 columns n0 .. n0 + 7 of cotangent row q of sample b, as GLoad gives
-// them (the stats fold with fold_geff's roundings); vec: cout is a multiple
-// of 8 and g, y 16-byte aligned, so the 8 are one set's, loaded at once.
-__device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16>& gl, int b, int q, int n0,
+// them (the stats fold with fold_geff's roundings; SPLIT: row q of the
+// stride-2 output grid from its parity phase at split_row's cell, m's dx);
+// vec: cout is a multiple of 8 and g, y 16-byte aligned, so the 8 are one
+// set's, loaded at once.
+template <bool SPLIT>
+__device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16, SPLIT>& gl, int b, int q, int n0,
                                      int ntot, int vec, float (&v)[8]) {
   if (!vec) {
 #pragma unroll
@@ -398,8 +402,16 @@ __device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16>& gl, int b, int 
     return;
   }
   const int s = n0 / gl.cout, nl = n0 - s * gl.cout;
-  const int slot = q / gl.M, m = q - slot * gl.M, i = s * gl.n_out + slot;
-  const size_t off = ((size_t)b * gl.M + m) * gl.cout + nl;
+  size_t row;
+  int i;
+  if constexpr (SPLIT) {
+    i = s * 4 + split_row(b, q, gl.lh, gl.lw, row);
+  } else {
+    const int slot = q / gl.M, m = q - slot * gl.M;
+    i = s * gl.n_out + slot;
+    row = (size_t)b * gl.M + m;
+  }
+  const size_t off = row * gl.cout + nl;
   load8(gl.g[i] + off, v);
   const float* gs = gl.gs[s];
   if (gs == nullptr) return;
@@ -415,12 +427,14 @@ __device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16>& gl, int b, int 
 // M rows), the n_sets sets' g_eff side by side (GLoad's values, folded
 // once), then its combined rows, each a float32 weighted sum of those
 // values rounded to bf16 once; after the last sample one zero row; columns
-// past n_sets * cout are zeros. Tag names the instantiation (a's
-// PhaseGrid, c's GridCells, f's StdGrid) for a profile.
-template <typename Tag>
+// past n_sets * cout are zeros. SPLIT (m's dx): the M rows of the
+// stride-2 output grid, read from its 4 parity phases (cot8). Tag names
+// the instantiation (a's PhaseGrid, c's GridCells, f's StdGrid, m's
+// SplitGrid, i's MergedPhase, j's MergedUp) for a profile.
+template <typename Tag, bool SPLIT>
 __global__ void __launch_bounds__(256)
-cot_operand_pass(GLoad<__nv_bfloat16> gl, CombRows comb, __nv_bfloat16* __restrict__ out, int B,
-                 int ntot, int vec, long long total) {
+cot_operand_pass(GLoad<__nv_bfloat16, SPLIT> gl, CombRows comb, __nv_bfloat16* __restrict__ out,
+                 int B, int ntot, int vec, long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int ldk = operand_width(ntot), chunks = ldk / 8;
@@ -452,18 +466,19 @@ cot_operand_pass(GLoad<__nv_bfloat16> gl, CombRows comb, __nv_bfloat16* __restri
 }
 
 // Write the (B * (n_out * M + comb.n) + 1, operand_width(n_sets * cout))
-// cotangent operand of the cotangents gl (n_sets sets of n_out phases).
-template <typename Tag>
-cudaError_t launch_cot_operand(const GLoad<__nv_bfloat16>& gl, const CombRows& comb,
+// cotangent operand of the cotangents gl (n_sets sets of n_out phases; the
+// split loader's: n_sets sets of 4 parity phases for its one output slot).
+template <typename Tag, bool SPLIT>
+cudaError_t launch_cot_operand(const GLoad<__nv_bfloat16, SPLIT>& gl, const CombRows& comb,
                                __nv_bfloat16* out, int B, int n_sets, cudaStream_t stream) {
   const int ntot = n_sets * gl.cout;
   const long long rows = (long long)B * (gl.n_out * gl.M + comb.n) + 1;
   const long long total = rows * (operand_width(ntot) / 8);
   int vec = gl.cout % 8 == 0;
-  for (int i = 0; i < n_sets * gl.n_out; ++i)
+  for (int i = 0; i < n_sets * (SPLIT ? 4 : gl.n_out); ++i)
     vec = vec && aligned16(gl.g[i]) && (gl.y[i] == nullptr || aligned16(gl.y[i]));
-  cot_operand_pass<Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(gl, comb, out, B,
-                                                                              ntot, vec, total);
+  cot_operand_pass<Tag, SPLIT><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      gl, comb, out, B, ntot, vec, total);
   return cudaGetLastError();
 }
 
@@ -479,12 +494,14 @@ struct CotRowsG {
 };
 
 // Tags of the grid convs' instantiations (operand pass, forward GEMM, dtaps
-// GEMM): a profile tells the phase conv's launches (b) from the standard
-// conv's (f) and the phase chain's stride-2 dtaps (m) by them; the code is
-// one. MergedUp tags the merged up-conv backward's passes and GEMM (j).
+// GEMM, dx pass and GEMM): a profile tells the phase conv's launches (a, b)
+// from the standard conv's (f) and the phase chain's stride-2 conv's (m's
+// dx and dtaps) by them; the code is one. MergedPhase and MergedUp tag the
+// merged backwards' passes and GEMMs (i, j).
 struct PhaseGrid {};
 struct StdGrid {};
 struct SplitGrid {};
+struct MergedPhase {};
 struct MergedUp {};
 
 // The operand's row loader of the GEMMs: rows of a built operand named by

@@ -12,10 +12,12 @@
 // _up_pair_fwd_kernel) and _phase_conv_fwd (:1272, _pc_fwd_kernel), and
 // conv_kernel.py:_pallas_forward (:253, _kernel); with the dx epilogues
 // phase_kernel.py:_phase_conv_dx (:1336, _pc_dx_kernel), _upd_bwd's dx
-// call (:2123, _up_dx_kernel) and conv_kernel.py:_pallas_dx (:727,
-// _dx_kernel). The float32 path keeps gn::conv_gemm over
-// gn::UpLoad / gn::GridLoad (common.cuh) and gn::dx_gemm (backward.cuh),
-// the SIMT core, bit for bit.
+// call (:2123, _up_dx_kernel), _ds2s_bwd's dx call (:1895,
+// _ds2s_dx_kernel) and conv_kernel.py:_pallas_dx (:727, _dx_kernel), and
+// the dx roles of the merged _phase_conv_bwd (:932) and _upd_bwd (:2068)
+// (phase_conv_bwd.cu, up_conv_bwd.cu). The float32 path keeps
+// gn::conv_gemm over gn::UpLoad / gn::GridLoad (common.cuh) and
+// gn::dx_gemm (backward.cuh), the SIMT core, bit for bit.
 //
 // What bounds it on the card. out[q][n] = sum_t sum_k U[row_t(q)][k] W[t][k][n]
 // + bias[n] over q = (sample, output phase slot, cell), B * n_out * 5hw rows,
@@ -63,9 +65,10 @@
 //    row tiles. No atomics: results repeat exactly, and d and n, which run
 //    this GEMM on bit-equal operands with the same split, are bit-equal on
 //    the joined grid.
-// 5. dx (a, c, f) is the same GEMM transposed: dx[p][m][k] = sum_t sum_n
-//    G[row_t(p, m)][n] W[t][k][n] over the rows (sample, input phase, cell)
-//    of the n_in input phases (4; f: its one grid, n_in = 1). The A operand
+// 5. dx (a, c, f; m's is a's) is the same GEMM transposed: dx[p][m][k] =
+//    sum_t sum_n G[row_t(p, m)][n] W[t][k][n] over the rows (sample, input
+//    phase, cell) of the n_in input phases (4; f: its one grid, n_in = 1).
+//    The A operand
 //    is the folded cotangent written once (cot_operand_pass, mma.cuh: g +
 //    gs0 + 2 gs1 y with GLoad's roundings, the tap sets side by side, then
 //    a sample's combined rows) named by a (n_in, 7, M) code table
@@ -412,8 +415,9 @@ struct DuEpi {
 // the ring, fwd::SMEM bytes. Every thread of the block calls it; on return
 // its copies have landed, and the epilogue may still read the ring (a
 // caller that runs another tile passes a __syncthreads first). The
-// standalone GEMM (mma_conv) and the merged blocks' cooperative launch
-// (mma_block_fwd.cuh) run this one function.
+// standalone GEMM (mma_conv), the merged blocks' cooperative launch
+// (mma_block_fwd.cuh) and the merged backwards' launch of both GEMMs (i, j)
+// run this one function.
 template <typename Epi>
 __device__ __forceinline__ void mma_conv_tile(const OperandRows& ld,
                                               const __nv_bfloat16* __restrict__ wp,
@@ -705,15 +709,16 @@ struct DxTables {
   int n_in;
 };
 
-// The bf16 dx of a, c and f: the cotangent operand of gl written once
-// (launch_cot_operand), the dx GEMM with the epilogue Epi over the rows
-// tb.codes names (launch_mma_dx_rows), then, where gsum_ws is given,
-// Σg_eff over the written cotangent rows in launch_gsum's order.
-template <typename Tag, typename Epi>
-cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb, const Epi& epi,
-                          const __nv_bfloat16* w0, const __nv_bfloat16* w1, float* gsum_ws,
-                          float* gsum0, float* gsum1, int B, int cin, int n_sets, int gsum_rows,
-                          cudaStream_t stream) {
+// The bf16 dx of a, c, f and m: the cotangent operand of gl written once
+// (launch_cot_operand; m's through the split loader), the dx GEMM with the
+// epilogue Epi over the rows tb.codes names (launch_mma_dx_rows), then,
+// where gsum_ws is given, Σg_eff over the written cotangent rows in
+// launch_gsum's order.
+template <typename Tag, typename Epi, bool SPLIT>
+cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16, SPLIT>& gl, const DxTables& tb,
+                          const Epi& epi, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                          float* gsum_ws, float* gsum0, float* gsum1, int B, int cin,
+                          int n_sets, int gsum_rows, cudaStream_t stream) {
   if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, n_sets, stream);
@@ -727,13 +732,13 @@ cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb, co
   return launch_gsum<__nv_bfloat16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
-// The bf16 dx of a grid conv (a, f) into `rows`: launch_cot_dx with a's
+// The bf16 dx of a grid conv (a, f, m) into `rows`: launch_cot_dx with a's
 // epilogue (DxEpi<true>, the act adjoint, where rows.mul is set; else
 // DxEpi<false>), then with the act the fixed-order sum of the d_mul/d_add
 // partials (rows.red, a row per row tile of the B * n_in * M rows) into
 // dmul, dadd.
-template <typename Tag>
-cudaError_t launch_grid_cot_dx(const GLoad<__nv_bfloat16>& gl, const DxTables& tb,
+template <typename Tag, bool SPLIT>
+cudaError_t launch_grid_cot_dx(const GLoad<__nv_bfloat16, SPLIT>& gl, const DxTables& tb,
                                const DxRows& rows, const __nv_bfloat16* w0,
                                const __nv_bfloat16* w1, float* gsum_ws, float* gsum0,
                                float* gsum1, float* dmul, float* dadd, int B, int n_sets,

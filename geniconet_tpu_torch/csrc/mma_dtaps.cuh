@@ -1,7 +1,7 @@
 // The bf16 tap gradients on the tensor cores, of the up conv (kernel d), of
 // the decoder chain's pair conv (kernel n's dtaps) and of the grid convs
 // (the phase conv, b, the standard conv, f, and the phase chain's stride-2
-// conv, m's dtaps), and the dtaps half of the merged up-conv backward (j):
+// conv, m's dtaps), and the dtaps half of the merged backwards (i, j):
 // the operand is built once into device memory by a pass over the input,
 // then one GEMM gathers its rows through the conv table.
 //
@@ -10,16 +10,18 @@
 // _up_pair_dtaps_kernel), _phase_conv_dtaps (:1406, _pc_dtaps_kernel) and
 // _ds2s_bwd's dtaps call (:1936, _ds2s_dtaps_kernel), the dtaps role of
 // _upd_bwd's merged branch (:2068, _up_bwd_kernel; up_conv_bwd.cu runs it
-// beside c's dx tiles), and geniconet_tpu/ops/pallas/conv_kernel.py:
-// _pallas_dtaps (:665, _dtaps_kernel). The float32 path keeps
-// gn::dtaps_gemm over gn::UpLoad or gn::GridLoad (backward.cuh) and j's
-// gn::merged_bwd, the SIMT core, bit for bit.
+// beside c's dx tiles) and of _phase_conv_bwd (:932, _pc_bwd_kernel;
+// phase_conv_bwd.cu runs it beside a's dx tiles), and
+// geniconet_tpu/ops/pallas/conv_kernel.py: _pallas_dtaps (:665,
+// _dtaps_kernel). The float32 path keeps gn::dtaps_gemm over gn::UpLoad
+// or gn::GridLoad (backward.cuh) and i's and j's gn::merged_bwd, the SIMT
+// core, bit for bit.
 //
 // Where the G rows come from is a policy of the one GEMM (mma::DirectRows,
 // SplitRows, WrittenRows): each set's output phases as they are (d, n, b,
 // f); m's stride-2 output row m read from its parity phase at split_row's
-// cell; j's rows of the folded cotangent that cot_operand_pass wrote once
-// for c's dx GEMM too, so the GEMM runs without the fold.
+// cell; i's and j's rows of the folded cotangent that cot_operand_pass
+// wrote once for a's or c's dx GEMM too, so the GEMM runs without the fold.
 //
 // The grid convs run the same GEMM on their own operand (grid_operand_pass,
 // mma.cuh): per sample the n_src * 5hw act-applied cells (the phase conv's
@@ -176,7 +178,7 @@ struct SplitRows : PhaseTensors {
   }
 };
 
-// WrittenRows (j): the folded cotangent that cot_operand_pass wrote (mma.cuh),
+// WrittenRows (i, j): the folded cotangent that cot_operand_pass wrote (mma.cuh),
 // per sample per_b rows of ldk columns, the sets side by side: row b * per_b
 // + slot * M + m, column n itself. The fold is in its values: no FOLD.
 struct WrittenRows {
@@ -207,8 +209,8 @@ struct WrittenRows {
 // of at most 16), its tile row (t - t0) * ldk + k, each load row gathering
 // those taps' operand rows (ldk / 8 chunks each); tile (bx, n tile, chunk).
 // smem_raw: the ring, mma::smem_bytes(FOLD) bytes. Every thread of the
-// block calls it. The standalone GEMM (mma_dtaps) and j's launch of both
-// GEMMs (up_conv_bwd.cu) run this one function.
+// block calls it. The standalone GEMM (mma_dtaps) and i's and j's launch of
+// both GEMMs (phase_conv_bwd.cu, up_conv_bwd.cu) run this one function.
 template <bool FOLD, bool NARROW, typename GRows>
 __device__ __forceinline__ void mma_dtaps_tile(const OperandRows& ld,
                                                const GLoad<__nv_bfloat16>& gl, const GRows& gr,

@@ -40,20 +40,33 @@
 // element (the halo and pole rows), and dtaps writes 7 * C_in * C_out floats
 // per chunk.
 //
-// The merged kernel (gn::merged_bwd, backward.cuh) computes every output of
-// _pc_bwd_kernel in one launch: dx with the act adjoint and the d_mul/d_add
-// partials, the dtaps partials over the activated input, and the Σg_eff
-// partials, which the dtaps tiles of the first row tile take from the g
-// tiles they hold in shared memory (no colsum pass). Its blocks take one of
-// two roles, dx tile or dtaps tile, by block index; then only the
-// fixed-order sum_rows passes run. It saves the split route's colsum pass
-// and two launches, not the second read of g: the two roles each read g
-// (through the one GLoad, which folds each element once per read, rounded
-// to T). Sharing one staged g tile between the roles is the next step.
+// The merged kernel (gn_phase_conv_bwd) computes every output of
+// _pc_bwd_kernel: dx with the act adjoint and the d_mul/d_add partials,
+// the dtaps over the activated input, and Σg_eff. In float32 it is
+// gn::merged_bwd (backward.cuh): dx tiles and dtaps tiles by block index in
+// one SIMT launch, Σg_eff from the g tiles the first row tile's dtaps tiles
+// hold (no colsum pass), then the fixed-order sum_rows passes; the two
+// roles each read and fold g. In bf16 it is the split route's device code
+// over ONE folded cotangent, as the TPU kernel folds once per g tile for
+// both roles: a's cot_operand_pass writes g_eff once (with the combined
+// rows of out_phases' code table), b's grid_operand_pass the act-applied
+// input once, the taps are packed transposed, then one launch runs both
+// GEMMs by block index (gn::mma_bwd, mma_merged_bwd.cuh): b's dtaps tiles
+// first, their G rows read from the written cotangent (mma::WrittenRows: no
+// fold in the GEMM; b's NARROW tile at a C_in of at most 64), and a's dx
+// tiles around them, with a's tap masks (stride 2: B * 4 * 5hw dx rows over
+// B * 5hw written rows) and a's DxEpi, whose d_mul/d_add partials take the
+// dx tile's own row; then a's d_mul/d_add sum, b's fixed-order chunk sum
+// and Σg_eff over the written rows. dx, d_mul/d_add and Σg_eff are a's passes, dtaps is
+// b's GEMM over the same bf16 g_eff values (cot8 and b's shared-memory fold
+// both round fold_geff once) on b's split: the outputs equal the split
+// route's (phase_conv_dx + phase_conv_dtaps) bit for bit. What bounds it:
+// the two GEMMs' tensor-core steps (mma_conv_fwd.cuh, mma_dtaps.cuh; b's
+// without its fold) and the passes' bytes (the cotangent and the operand
+// written once each).
 #include <type_traits>
 
-#include "mma_conv_fwd.cuh"
-#include "mma_dtaps.cuh"
+#include "mma_merged_bwd.cuh"
 
 namespace {
 
@@ -141,7 +154,7 @@ cudaError_t dtaps(const void* const* x, const float* mul, const float* add,
   return gn::launch_gsum<T>(gl, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
-template <typename T>
+// float32: gn::merged_bwd, the SIMT tiles of both roles in one launch
 cudaError_t merged(const void* const* x, const float* mul, const float* add,
                    const void* const* g, const void* const* y, const float* gs0, const float* gs1,
                    const void* w0, const void* w1, void* const* outs, const int* offsets,
@@ -151,26 +164,87 @@ cudaError_t merged(const void* const* x, const float* mul, const float* add,
                    int n_sets, int out_phase0, int n_out, int kc, int n_chunks,
                    cudaStream_t stream) {
   const int M = 5 * h * w;
-  const gn::GLoad<T> gl = gn::make_gload<T>(g, y, gs0, gs1, M, cout, n_sets, n_out);
-  gn::DxOut<T> o = {};
-  gn::GridLoad<T> ld = {};
+  const gn::GLoad<float> gl = gn::make_gload<float>(g, y, gs0, gs1, M, cout, n_sets, n_out);
+  gn::DxOut<float> o = {};
   for (int p = 0; p < 4; ++p) {
-    o.out[p] = static_cast<T*>(outs[p]);
-    o.raw[p] = mul ? static_cast<const T*>(x[p]) : nullptr;
-    ld.src[p] = static_cast<const T*>(x[p]);
+    o.out[p] = static_cast<float*>(outs[p]);
+    o.raw[p] = mul ? static_cast<const float*>(x[p]) : nullptr;
   }
-  o.mul = ld.mul = mul;
-  o.add = ld.add = add;
+  o.mul = mul;
+  o.add = add;
   o.red = red;
   o.per = M;
-  ld.hw = h * w;
-  ld.hw5 = M;
-  ld.cin = cin;
-  ld.south_src = 3;
   const gn::SplitOut dt = {{dt0, dt1}, n_sets * cout, cout};
-  return gn::launch_merged_bwd<T>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B, 4 * M,
-                                  ld, table, out_phase0, kc, n_chunks, ws, dt, gpart, gsum0,
-                                  gsum1, cin, n_sets, stream);
+  return gn::launch_merged_bwd<float>(gl, w0, w1, offsets, cells, weights, o, dmul, dadd, B,
+                                      4 * M, phase_load<float>(x, mul, add, h, w, cin), table,
+                                      out_phase0, kc, n_chunks, ws, dt, gpart, gsum0, gsum1, cin,
+                                      n_sets, stream);
+}
+
+// bf16: the folded cotangent written once (a's pass, with the combined rows
+// of tb), the act-applied input written once (b's pass, into `operand`),
+// the taps packed transposed, both GEMMs in one launch (gn::mma_bwd),
+// then a's d_mul/d_add sum (with the act), the dtaps chunks' fixed-order
+// sum (b's: sum_chunks, or sum_rows past 32 chunks) and Σg_eff over the
+// written rows (CotRowsG, as a).
+cudaError_t merged_mma(const void* const* x, const float* mul, const float* add,
+                       const gn::GLoad<__nv_bfloat16>& gl, const void* w0, const void* w1,
+                       void* const* outs, const gn::DxTables& tb, const int* table,
+                       __nv_bfloat16* operand, float* red, float* dmul, float* dadd, float* ws,
+                       float* dt0, float* dt1, float* gsum_ws, float* gsum0, float* gsum1, int B,
+                       int h, int w, int cin, int n_sets, int out_phase0, int n_out, int kc,
+                       int n_chunks, int gsum_rows, int zero_poles, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using Tag = gn::MergedPhase;
+  const int M = 5 * h * w, cout = gl.cout, Ntot = n_sets * cout;
+  if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr ||
+      operand == nullptr || gsum_ws == nullptr || (mul != nullptr && red == nullptr) ||
+      kc % gn::mma::BK != 0 || (tb.mask != nullptr && (4 * M) % gn::fwd::BM != 0))
+    return cudaErrorInvalidValue;
+  cudaError_t err = gn::launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, n_sets, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_grid_operand<bf16, Tag>(phase_load<bf16>(x, mul, add, h, w, cin), operand, B,
+                                           4, zero_poles, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_pack_taps_t<Tag>(static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
+                                    tb.wpack, cin, cout, n_sets, stream);
+  if (err != cudaSuccess) return err;
+  const bool narrow = gn::mma_narrow(cin);
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 4), gl, tb, B,
+                                        cin, n_sets, out_phase0, n_out, narrow, kc, n_chunks, ws);
+  gn::DxRows rows = {};
+  for (int p = 0; p < 4; ++p) {
+    rows.out[p] = static_cast<bf16*>(outs[p]);
+    rows.raw[p] = mul ? static_cast<const bf16*>(x[p]) : nullptr;
+  }
+  rows.mul = mul;
+  rows.add = add;
+  rows.red = red;
+  rows.cin = cin;
+  using Act = gn::DxEpi<true>;
+  using NoAct = gn::DxEpi<false>;
+  err = narrow ? (mul ? gn::launch_mma_bwd<Tag, true>(a, Act{rows}, stream)
+                      : gn::launch_mma_bwd<Tag, true>(a, NoAct{rows}, stream))
+               : (mul ? gn::launch_mma_bwd<Tag, false>(a, Act{rows}, stream)
+                      : gn::launch_mma_bwd<Tag, false>(a, NoAct{rows}, stream));
+  if (err != cudaSuccess) return err;
+  if (mul != nullptr) {
+    const gn::SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+    err = gn::launch_sum_rows(red, gn::fwd_row_tiles(a.Qx), 2LL * cin, st, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const gn::SplitOut st = {{dt0, dt1}, Ntot, cout};
+  const long long C = 7LL * cin * Ntot;
+  if (n_chunks > 32) {
+    err = gn::launch_sum_rows(ws, n_chunks, C, st, stream);
+  } else {
+    gn::sum_chunks<gn::SplitOut><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks,
+                                                                                   C, st);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  const gn::CotRowsG cg = {tb.operand, M, n_out, cout, a.cot.per_b, a.cot.ldk};
+  return gn::launch_gsum<bf16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
 bool bad_sets(int n_sets, int n_out) {
@@ -303,34 +377,59 @@ extern "C" int gn_phase_conv_dtaps_info(int narrow, int fold, int* out) {
 // The merged backward (_phase_conv_bwd). x: host array of the 4 raw input
 // phases (B, 5, h, w, cin); mul/add: the act prologue or null (with it, dx
 // is the raw input's cotangent and dmul/dadd receive (cin) each, through
-// red: float32 scratch of (B * ceil(4*5hw/64), 2 * cin)); g, y, gs0, gs1: as
-// in gn_phase_conv_dx; w0/w1: taps (7, cin, cout); outs: host array of the
-// 4 dphase outputs (B, 5, h, w, cin); offsets/cells/weights:
-// halo.phase_dx_table for output phases out_phase0 .. +n_out-1; table:
-// halo.phase_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
-// n_sets * cout), the rows B * n_out * 5hw split in chunks of kc (a multiple
-// of 16); dt0/dt1 receive (7, cin, cout) float32; gpart: float32 scratch of
-// (n_chunks, n_sets * cout), and gsum0/gsum1 receive Σg_eff (cout). dtype: 0
-// float32, 1 bfloat16.
+// red); g, y, gs0, gs1: as in gn_phase_conv_dx; w0/w1: taps (7, cin,
+// cout); outs: host array of the 4 dphase outputs (B, 5, h, w, cin);
+// table: halo.phase_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
+// n_sets * cout), the rows B * n_out * 5hw of output phases out_phase0 ..
+// +n_out-1 split in chunks of kc; dt0/dt1 receive (7, cin, cout) float32
+// and gsum0/gsum1 Σg_eff (cout). float32: offsets/cells/weights,
+// halo.phase_dx_table for these output phases; red of (B * ceil(4*5hw/64),
+// 2 * cin); kc a multiple of 16 (build.merged_scratch); gpart, float32
+// scratch of (n_chunks, n_sets * cout); the bf16 arguments null. bfloat16
+// (else the call is refused): the bf16 arguments of gn_phase_conv_dx
+// (codes .. tap_mask, operand, wpack, red; n_comb) and of
+// gn_phase_conv_dtaps (grid_operand; kc a multiple of 32,
+// build.grid_dtaps_split; zero_poles); gpart, float32 scratch of
+// (ceil(B * n_out * 5hw / gsum_rows), n_sets * cout) for Σg_eff's pass.
+// dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_phase_conv_bwd(const void* const* x, const float* mul, const float* add,
                                  const void* const* g, const void* const* y, const float* gs0,
                                  const float* gs1, const void* w0, const void* w1,
                                  void* const* outs, const int* offsets, const int* cells,
-                                 const float* weights, const int* table, float* red, float* dmul,
-                                 float* dadd, float* ws, float* dt0, float* dt1, float* gpart,
-                                 float* gsum0, float* gsum1, int B, int h, int w, int cin,
+                                 const float* weights, const int* codes, const int* comb_offsets,
+                                 const int* comb_cells, const float* comb_weights,
+                                 const unsigned char* tap_mask, const int* table, float* red,
+                                 float* dmul, float* dadd, float* ws, float* dt0, float* dt1,
+                                 float* gpart, float* gsum0, float* gsum1, void* operand,
+                                 void* wpack, void* grid_operand, int B, int h, int w, int cin,
                                  int cout, int n_sets, int out_phase0, int n_out, int kc,
-                                 int n_chunks, int dtype, void* stream) {
+                                 int n_chunks, int n_comb, int gsum_rows, int zero_poles,
+                                 int dtype, void* stream) {
   if (bad_sets(n_sets, n_out) || out_phase0 + n_out > 4) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return merged<float>(x, mul, add, g, y, gs0, gs1, w0, w1, outs, offsets, cells, weights,
-                         table, red, dmul, dadd, ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin,
-                         cout, n_sets, out_phase0, n_out, kc, n_chunks, s);
-  if (dtype == 1)
-    return merged<__nv_bfloat16>(x, mul, add, g, y, gs0, gs1, w0, w1, outs, offsets, cells,
-                                 weights, table, red, dmul, dadd, ws, dt0, dt1, gpart, gsum0,
-                                 gsum1, B, h, w, cin, cout, n_sets, out_phase0, n_out, kc,
-                                 n_chunks, s);
-  return cudaErrorInvalidValue;
+    return merged(x, mul, add, g, y, gs0, gs1, w0, w1, outs, offsets, cells, weights, table, red,
+                  dmul, dadd, ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin, cout, n_sets,
+                  out_phase0, n_out, kc, n_chunks, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const gn::GLoad<bf16> gl = gn::make_gload<bf16>(g, y, gs0, gs1, 5 * h * w, cout, n_sets, n_out);
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<bf16*>(operand), static_cast<bf16*>(wpack), 4};
+  return merged_mma(x, mul, add, gl, w0, w1, outs, tb, table, static_cast<bf16*>(grid_operand),
+                    red, dmul, dadd, ws, dt0, dt1, gpart, gsum0, gsum1, B, h, w, cin, n_sets,
+                    out_phase0, n_out, kc, n_chunks, gsum_rows, zero_poles, s);
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of i's bf16 launch of both GEMMs (gn::mma_bwd), on b's
+// NARROW tile (a C_in of at most 64) or the wide one, with a's act
+// epilogue or without.
+extern "C" int gn_phase_conv_bwd_info(int narrow, int act, int* out) {
+  using Tag = gn::MergedPhase;
+  using Act = gn::DxEpi<true>;
+  using NoAct = gn::DxEpi<false>;
+  if (narrow)
+    return act ? gn::mma_bwd_info<Tag, true, Act>(out) : gn::mma_bwd_info<Tag, true, NoAct>(out);
+  return act ? gn::mma_bwd_info<Tag, false, Act>(out) : gn::mma_bwd_info<Tag, false, NoAct>(out);
 }

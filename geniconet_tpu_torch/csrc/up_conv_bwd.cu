@@ -48,19 +48,18 @@
 // folded cotangent, as the TPU kernel folds once per g tile for both
 // roles: cot_operand_pass writes g_eff once (with the combined rows),
 // up_operand_pass the upsampled operand once, then one launch runs both
-// GEMMs by block index (mma_up_bwd): d's dtaps tiles read their G rows from
-// the written cotangent (mma::WrittenRows: no fold in the GEMM, whose ALU
-// and shared-memory work held d's folded GEMM at 140-165 TFLOP/s against
-// 230-270 without), the long tiles first, and c's dx tiles fill in around
-// them into dU; then the upsample adjoint, the chunks' fixed-order sum and
+// GEMMs by block index (gn::mma_bwd, mma_merged_bwd.cuh): d's dtaps tiles
+// read their G rows from the written cotangent (mma::WrittenRows: no fold
+// in the GEMM, whose ALU and shared-memory work held d's folded GEMM at
+// 140-165 TFLOP/s against 230-270 without), the long tiles first, and c's
+// dx tiles fill in around them into dU; then the upsample adjoint, the chunks' fixed-order sum and
 // Σg_eff over the written rows. dx and Σg_eff are c's passes; dtaps is d's
 // GEMM over the same bf16 g_eff values (cot8 and d's shared-memory fold
 // both round fold_geff once) with d's split: the five outputs equal the
 // split route's (up_dual_conv_dx + up_dual_conv_dtaps) bit for bit.
 #include <type_traits>
 
-#include "mma_conv_fwd.cuh"
-#include "mma_dtaps.cuh"
+#include "mma_merged_bwd.cuh"
 
 namespace {
 
@@ -198,51 +197,9 @@ cudaError_t merged(const void* x, const void* const* g, const void* const* y, co
                                       gsum1, cin, n_sets, stream);
 }
 
-// j's two bf16 GEMMs in one launch, the roles by block index: blocks [0,
-// dt_blocks) are d's dtaps tiles (taps x channel tiles, column tiles,
-// chunks; x fastest) over the written cotangent, the rest c's dx tiles
-// (column tiles, row tiles; x fastest) into dU. A dtaps tile walks a
-// chunk of thousands of rows, a dx tile 7 taps of one 128-row tile, so
-// the long tiles go first and the short ones fill the SMs around them and
-// the tail. Both bodies take mma::NT threads and 2 blocks an SM, and each
-// ring fits the one dynamic allocation, the larger of the two.
-struct UpBwdGrid {
-  int dt_x, dt_y, dt_blocks;  // dtaps tiles: x, y, and x * y * chunks
-  int dx_x;                   // dx tiles: column tiles
-};
-constexpr int UP_BWD_SMEM = gn::fwd::SMEM > gn::mma::smem_bytes(false)
-                                ? gn::fwd::SMEM : gn::mma::smem_bytes(false);
-static_assert(gn::fwd::NT == gn::mma::NT, "one block size for both roles");
-
-template <typename Tag>
-__global__ void __launch_bounds__(gn::mma::NT, 2)
-mma_up_bwd(gn::OperandRows up, gn::GLoad<__nv_bfloat16> gl, gn::mma::WrittenRows gr, int cin,
-           int n_sets, int Q, int kc, int g_vec, float* __restrict__ ws, gn::OperandRows cot,
-           const __nv_bfloat16* __restrict__ wp, gn::DuEpi epi, int Np, int ksteps,
-           const unsigned char* __restrict__ tap_mask, UpBwdGrid grid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int i = blockIdx.x;
-  if (i < grid.dt_blocks) {
-    const int bx = i % grid.dt_x;
-    i /= grid.dt_x;
-    gn::mma_dtaps_tile<false, false>(up, gl, gr, cin, n_sets, 0, 4, Q, kc, g_vec, ws, bx,
-                                     i % grid.dt_y, i / grid.dt_y, smem_raw);
-    return;
-  }
-  i -= grid.dt_blocks;
-  gn::mma_conv_tile(cot, wp, epi, 0, 4, Q, Np, ksteps, tap_mask, 4 * cot.M, i % grid.dx_x,
-                    i / grid.dx_x, smem_raw);
-}
-
-template <typename Tag>
-cudaError_t mma_up_bwd_attr() {
-  return cudaFuncSetAttribute(mma_up_bwd<Tag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              UP_BWD_SMEM);
-}
-
 // bf16: the folded cotangent written once (c's pass, with the combined rows
 // of tb), the upsampled operand written once (d's pass, into `up_operand`),
-// the taps packed transposed, both GEMMs in one launch (mma_up_bwd), the
+// the taps packed transposed, both GEMMs in one launch (gn::mma_bwd), the
 // upsample adjoint of dU (rounded once), the dtaps chunks' fixed-order sum
 // (sum_chunks, as d) and Σg_eff over the written rows (CotRowsG, as c).
 cudaError_t merged_mma(const void* x, const gn::GLoad<__nv_bfloat16>& gl, const void* w0,
@@ -267,26 +224,18 @@ cudaError_t merged_mma(const void* x, const gn::GLoad<__nv_bfloat16>& gl, const 
   err = gn::launch_pack_taps_t<Tag>(static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
                                     tb.wpack, cin, cout, n_sets, stream);
   if (err != cudaSuccess) return err;
-  const gn::OperandRows cot = gn::cot_rows(tb.operand, tb.codes, B, M, Ntot, 4, tb.comb.n);
-  const gn::OperandRows up = gn::operand_rows(up_operand, conv_table, B, M, cin, 4);
-  const gn::mma::WrittenRows gr = {tb.operand, cot.per_b, cot.ldk};
-  const int Q = B * 4 * M, Kp = gn::fwd::k_pad(Ntot), Np = gn::fwd::n_pad(cin);
-  const dim3 tiles = gn::mma_dtaps_tiles(false, cin, Ntot);
-  const UpBwdGrid grid = {(int)tiles.x, (int)tiles.y, (int)(tiles.x * tiles.y) * n_chunks,
-                          Np / gn::fwd::BN};
-  const long long blocks = grid.dt_blocks + (long long)grid.dx_x * gn::fwd_row_tiles(Q);
-  if ((err = mma_up_bwd_attr<Tag>()) != cudaSuccess) return err;
-  mma_up_bwd<Tag><<<(unsigned)blocks, gn::mma::NT, UP_BWD_SMEM, stream>>>(
-      up, gl, gr, cin, n_sets, Q, kc, gn::mma_dtaps_g_vec(gl, gr, n_sets), ws, cot, tb.wpack,
-      gn::DuEpi{adj.du, cin}, Np, Kp / gn::fwd::BK, tb.mask, grid);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // d's tiles always wide, as d's split route takes them
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(up_operand, conv_table, B, M, cin, 4), gl,
+                                        tb, B, cin, n_sets, 0, 4, false, kc, n_chunks, ws);
+  err = gn::launch_mma_bwd<Tag, false>(a, gn::DuEpi{adj.du, cin}, stream);
+  if (err != cudaSuccess) return err;
   if ((err = launch_up_adjoint<Tag>(adj, out, B, M, cin, stream)) != cudaSuccess) return err;
   const gn::SplitOut st = {{dt0, dt1}, Ntot, cout};
   const long long C = 7LL * cin * Ntot;
   gn::sum_chunks<gn::SplitOut><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks, C,
                                                                                  st);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const gn::CotRowsG cg = {tb.operand, M, 4, cout, cot.per_b, cot.ldk};
+  const gn::CotRowsG cg = {tb.operand, M, 4, cout, a.cot.per_b, a.cot.ldk};
   return gn::launch_gsum<bf16>(cg, B, n_sets, gsum_rows, gsum_ws, gsum0, gsum1, stream);
 }
 
@@ -431,18 +380,7 @@ extern "C" int gn_up_dual_conv_bwd(const void* x, const void* const* g, const vo
 }
 
 // out[4]: registers a thread, blocks an SM, dynamic shared memory and local
-// memory (spills) of j's bf16 launch of both GEMMs (mma_up_bwd).
+// memory (spills) of j's bf16 launch of both GEMMs (gn::mma_bwd).
 extern "C" int gn_up_dual_conv_bwd_info(int* out) {
-  cudaError_t err = mma_up_bwd_attr<gn::MergedUp>();
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mma_up_bwd<gn::MergedUp>)) != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_up_bwd<gn::MergedUp>,
-                                                      gn::mma::NT, UP_BWD_SMEM);
-  out[0] = attr.numRegs;
-  out[1] = blocks;
-  out[2] = UP_BWD_SMEM;
-  out[3] = (int)attr.localSizeBytes;
-  return err;
+  return gn::mma_bwd_info<gn::MergedUp, false, gn::DuEpi>(out);
 }

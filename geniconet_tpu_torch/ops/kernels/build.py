@@ -36,7 +36,7 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "block_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
-    "up_bwd_info",
+    "up_bwd_info", "phase_bwd_info",
     "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts", "MAX_SLOTS",
     "MAX_SM_IDS",
 ]
@@ -142,12 +142,14 @@ _SIGNATURES = {
     "gn_up_dual_conv_dtaps": [_VP] * 11 + [_INT] * 10 + [_VP],
     "gn_up_operand": [_VP] * 3 + [_INT] * 6 + [_VP],
     "gn_up_dual_conv_dtaps_info": [_INT, _VP],
-    "gn_phase_conv_bwd": [_VP] * 23 + [_INT] * 11 + [_VP],
+    "gn_phase_conv_bwd": [_VP] * 31 + [_INT] * 14 + [_VP],
+    "gn_phase_conv_bwd_info": [_INT, _INT, _VP],
     "gn_up_dual_conv_bwd": [_VP] * 31 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_bwd_info": [_VP],
     "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
     "gn_ds2s_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
-    "gn_ds2s_dx": [_VP] * 19 + [_INT] * 8 + [_VP],
+    "gn_ds2s_dx": [_VP] * 26 + [_INT] * 9 + [_VP],
+    "gn_ds2s_dx_info": [_INT, _VP],
     "gn_ds2s_dtaps": [_VP] * 15 + [_INT] * 11 + [_VP],
     "gn_ds2s_dtaps_info": [_INT, _INT, _VP],
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
@@ -319,18 +321,29 @@ def cot_operand_shape(B: int, rows: int, n_comb: int, ntot: int):
 
 
 def up_bwd_info() -> dict:
-    """``mma_dtaps_info`` for j's bf16 launch of both GEMMs (``mma_up_bwd``:
+    """``mma_dtaps_info`` for j's bf16 launch of both GEMMs (``mma_bwd``:
     d's dtaps tiles over the written cotangent and c's dx tiles)."""
     return _gemm_info("gn_up_dual_conv_bwd_info")
 
 
-def mma_dx_info(up: bool, act: bool = False, std: bool = False) -> dict:
+def phase_bwd_info(narrow: bool, act: bool) -> dict:
+    """``mma_dtaps_info`` for i's bf16 launch of both GEMMs
+    (``mma_bwd``: b's dtaps tiles over the written cotangent, on the
+    NARROW tile or the wide one, and a's dx tiles, with the act epilogue or
+    without)."""
+    return _gemm_info("gn_phase_conv_bwd_info", narrow, act)
+
+
+def mma_dx_info(up: bool, act: bool = False, std: bool = False, split: bool = False) -> dict:
     """``mma_dtaps_info`` for the tensor-core dx GEMM of the up conv (c,
-    ``up``), the standard conv (f, ``std``) or the phase conv (a), with the
-    act epilogue or without."""
+    ``up``), the standard conv (f, ``std``), m (``split``: its cotangent
+    written from the parity phases) or the phase conv (a), with the act
+    epilogue or without."""
     if up:
         return _gemm_info("gn_up_dual_conv_dx_info")
-    return _gemm_info("gn_ico_conv_dx_info" if std else "gn_phase_conv_dx_info", act)
+    name = ("gn_ico_conv_dx_info" if std else "gn_ds2s_dx_info" if split
+            else "gn_phase_conv_dx_info")
+    return _gemm_info(name, act)
 
 
 # The pair head's backward (csrc/pair_head.cu): a grid of at most

@@ -38,15 +38,19 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   operand element on load;
 * ``phase_conv_bwd`` -> ``csrc/phase_conv_bwd.cu`` (``_phase_conv_bwd``) and
   ``up_dual_conv_bwd`` -> ``csrc/up_conv_bwd.cu`` (``_upd_bwd``'s merged
-  branch): the merged one-pass backward, every output of the split pair
-  (dx with the act adjoint, dtaps, Σg_eff, d_mul/d_add) from one launch;
+  branch): the merged backward, every output of the split pair (dx with
+  the act adjoint, dtaps, Σg_eff, d_mul/d_add); in bf16 the split route's
+  passes over one folded cotangent and one launch of both tensor-core
+  GEMMs (``csrc/mma_merged_bwd.cuh``), in float32 one launch of the SIMT
+  tiles of both roles;
 * ``stats_geff`` -> ``csrc/stats_geff.cu`` (``_stats_geff``): the stats
   fold outside the conv kernels, for the kernel families that do not fold
   in-kernel (the ``kernel_geff`` option);
 * ``ds2s_fwd`` / ``ds2s_dx`` / ``ds2s_dtaps`` -> ``csrc/ds2s.cu`` (``_ds2s``
   and the two kernels of ``_ds2s_bwd``): the phase chain's stride-2 conv,
   whose outputs and their cotangents are the 4 parity phases of the
-  level-(s-1) grid;
+  level-(s-1) grid (in bf16 its dx and dtaps are ``phase_conv_dx``'s and
+  ``phase_conv_dtaps``' tensor-core paths reading those phases);
 * ``up_pair_fwd`` / ``up_pair_dx`` / ``up_pair_dtaps`` -> ``csrc/up_pair.cu``
   (``_updp`` and the two kernels of ``_updp_bwd``): the decoder's phase
   chain, the up conv whose level-s input is the previous UpBlock's residual
@@ -610,7 +614,12 @@ def phase_conv_bwd(raw_phases, g_groups, y_groups, gs_list, tap_sets, corner_mod
     and adds d_mul, d_add; out_dtype: the activation dtype. Returns (4
     dphases in out_dtype, per-set float32 dtaps (7, C_in, C_out), per-set
     float32 Σg_eff (C_out,), d_mul, d_add (float32 (C_in,), or None without
-    act))."""
+    act)). In bf16 the split route's passes over one folded cotangent
+    (``phase_conv_dx``'s cotangent operand and ``grid_operand``'s
+    act-applied input, with their scratch), one launch of both tensor-core
+    GEMMs, then the sums: the outputs equal ``phase_conv_dx`` +
+    ``phase_conv_dtaps`` (``emit_gsum``) bit for bit. In float32 one launch
+    of the SIMT tiles of both roles, then the sums."""
     out_phases = _check_out_phases(out_phases, "phase_conv_bwd")
     x0 = raw_phases[0]
     if not on_cuda(x0, "phase_conv_bwd"):
@@ -632,27 +641,35 @@ def phase_conv_bwd(raw_phases, g_groups, y_groups, gs_list, tap_sets, corner_mod
     _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev,
                       "phase_conv_bwd")
     check_act(act, cin, dev, "phase_conv_bwd")
-    M = 5 * h * w
+    rows = B * n_out * 5 * h * w
     dphases = [torch.empty((B, 5, h, w, cin), dtype=dt, device=dev) for _ in range(4)]
-    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, out_phases)
+    tables, n_comb = dx_tables("phase", dt, h, w, corner_mode, dev, out_phases)
+    red, operand, wpack, _ = dx_scratch(dt, B, h, w, cin, n_sets, cout, n_out, n_comb,
+                                        act is not None, False, dev)
+    if dt == torch.bfloat16:
+        kc, n_chunks, ws, grid_op = grid_dtaps_scratch(dt, B, h, w, cin, n_sets * cout, 4, n_out,
+                                                       dev)
+        gpart = build.scratch(-(-rows // build.GSUM_ROWS) * n_sets * cout, dev)
+    else:
+        grid_op = None
+        kc, n_chunks, ws, gpart = build.merged_scratch(rows, cin, n_sets * cout, dev)
     table = device_table("phase", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    red = dmul = dadd = None
+    dmul = dadd = None
     if act is not None:
-        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
         dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
-    kc, n_chunks, ws, gpart = build.merged_scratch(B * n_out * M, cin, n_sets * cout, dev)
     dtaps = [torch.empty((7, cin, cout), dtype=torch.float32, device=dev) for _ in range(n_sets)]
     gsums = [torch.empty(cout, dtype=torch.float32, device=dev) for _ in range(n_sets)]
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     with torch.cuda.device(dev):
         err = build.library().gn_phase_conv_bwd(
             build.ptr_array(raw_phases), build.ptr(mul), build.ptr(add), gp, yp, gs0, gs1,
-            *_pair([t for t, _ in tap_sets]), build.ptr_array(dphases), offsets.data_ptr(),
-            cells.data_ptr(), weights.data_ptr(), table.data_ptr(), build.ptr(red),
-            build.ptr(dmul), build.ptr(dadd), ws.data_ptr(), *_pair(dtaps), gpart.data_ptr(),
-            *_pair(gsums), B, h, w, cin, cout, n_sets, out_phases[0], n_out, kc, n_chunks,
-            build.dtype_code(dt), build.stream_ptr(dev),
+            *_pair([t for t, _ in tap_sets]), build.ptr_array(dphases), *map(build.ptr, tables),
+            table.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd), ws.data_ptr(),
+            *_pair(dtaps), gpart.data_ptr(), *_pair(gsums), build.ptr(operand), build.ptr(wpack),
+            build.ptr(grid_op), B, h, w, cin, cout, n_sets, out_phases[0], n_out, kc, n_chunks,
+            n_comb, build.GSUM_ROWS, int(corner_mode == "zeros"), build.dtype_code(dt),
+            build.stream_ptr(dev),
         )
     build.check("phase_conv_bwd", err)
     build.LAUNCHES["phase_conv_bwd"] += 1
@@ -779,7 +796,11 @@ def ds2s_dx(g_groups, tap_sets, corner_mode, cin, dtype, act=None, raw_phases=No
     g_groups: per tap set, the 4 cotangent phases (B, 5, h/2, w/2, C_out) of
     its output in ``dtype``; the rest as ``phase_conv_dx`` (y_groups: the
     forward's output phases). Returns (4 dphases (B, 5, h, w, C_in), d_mul,
-    d_add, gsums)."""
+    d_add, gsums). In bf16 ``phase_conv_dx``'s path at output phase 2, its
+    cotangent pass reading row m of the merged cotangent from its parity
+    phase (``dx_tables``, ``dx_scratch``), so the outputs equal
+    ``phase_conv_dx`` on the ``phase_merge``d cotangents bit for bit; in
+    float32 the SIMT gather-GEMM with the split loader."""
     g0 = g_groups[0][0]
     if not on_cuda(g0, "ds2s_dx"):
         return ds2s_dx_plain(g_groups, tap_sets, corner_mode, cin, dtype, act, raw_phases,
@@ -795,26 +816,26 @@ def ds2s_dx(g_groups, tap_sets, corner_mode, cin, dtype, act=None, raw_phases=No
     if act is not None:
         for i, x in enumerate(raw_phases):
             expect(x, (B, 5, h, w, cin), dtype, dev, f"ds2s_dx raw phase {i}")
-    M = 5 * h * w
     outs = [torch.empty((B, 5, h, w, cin), dtype=dtype, device=dev) for _ in range(4)]
-    offsets, cells, weights = device_dx_table("phase", h, w, corner_mode, dev, (2,))
+    tables, n_comb = dx_tables("phase", dtype, h, w, corner_mode, dev, (2,))
+    red, operand, wpack, _ = dx_scratch(dtype, B, h, w, cin, n_sets, cout, 1, n_comb,
+                                        act is not None, False, dev)
     mul, add = act if act is not None else (None, None)
-    red = dmul = dadd = None
+    dmul = dadd = None
     if act is not None:
-        red = build.scratch(B * build.n_tiles(4 * M) * 2 * cin, dev)
         dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
     gsum_ws, gsums = (None, [None])
     if y_groups is not None:
-        gsum_ws, gsums = _gsum_outputs(B * M, n_sets, cout, dev)
+        gsum_ws, gsums = _gsum_outputs(B * 5 * h * w, n_sets, cout, dev)
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     raws = build.ptr_array(raw_phases) if act is not None else None
     with torch.cuda.device(dev):
         err = build.library().gn_ds2s_dx(
             gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), raws, build.ptr(mul),
-            build.ptr(add), build.ptr_array(outs), offsets.data_ptr(), cells.data_ptr(),
-            weights.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
-            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, n_sets, build.GSUM_ROWS,
-            build.dtype_code(dtype), build.stream_ptr(dev),
+            build.ptr(add), build.ptr_array(outs), *map(build.ptr, tables), build.ptr(operand),
+            build.ptr(wpack), build.ptr(red), build.ptr(dmul), build.ptr(dadd),
+            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, n_sets, n_comb,
+            build.GSUM_ROWS, build.dtype_code(dtype), build.stream_ptr(dev),
         )
     build.check("ds2s_dx", err)
     build.LAUNCHES["ds2s_dx"] += 1

@@ -19,7 +19,9 @@ the pair head's forwards and backwards (``pair_head_fwd``,
 the s=5 head, and the merged blocks (o, ``up_block_fwd``, at up1; p,
 ``dn_block_fwd``, at down1), and the merged up-conv backward (j,
 ``up_dual_conv_bwd``, at up1) and m's dtaps (``ds2s_dtaps``, at down1),
-each with the fold and without, and prints one line per call: ``digest <kernel> <dtype> <case>
+each with the fold and without, and the merged phase-conv backward (i,
+``phase_conv_bwd``, at up2's conv01 and down1's stride-2 conv, with the
+act, with the fold and without), and prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
 so the lines of two commits, each run in its own process, can be compared
@@ -257,6 +259,26 @@ def main():
             line("ds2s_dtaps", dt, f"down1 fold={fold}",
                  lambda: pk.ds2s_dtaps(ph, g, [(7, 128, 256)] * 2, "average", a128, **fk,
                                        emit_gsum=True))
+    for dt in (torch.bfloat16, torch.float32):
+        # the merged phase-conv backward (i, phase_conv_bwd) at up2's conv01
+        # (C_in 64) and down1's stride-2 conv, with the pending act, each
+        # with the fold and without, after the lines above (a generator of
+        # their own)
+        gen = torch.Generator().manual_seed(17)
+        for case, (h, w, cin, cout, n_sets, out_phases) in {
+                "up2_conv01": (16, 32, 64, 64, 1, (0, 1, 2, 3)),
+                "down1_s2": (8, 16, 128, 256, 2, (2,))}.items():
+            a = (torch.rand(cin, generator=gen).add(0.5).to("cuda"),
+                 (0.3 * torch.randn(cin, generator=gen)).to("cuda"))
+            ph = [rnd(gen, B, 5, h, w, cin, dt=dt) for _ in range(4)]
+            sets = [(rnd(gen, 7, cin, cout, dt=dt, scale=cin**-0.5), None) for _ in range(n_sets)]
+            g = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            y = [[rnd(gen, B, 5, h, w, cout, dt=dt) for _ in out_phases] for _ in range(n_sets)]
+            gs = [rnd(gen, 2, cout, dt=torch.float32, scale=1e-3) for _ in range(n_sets)]
+            for fold in (True, False):
+                line("phase_conv_bwd", dt, f"{case} fold={fold}",
+                     lambda: pk.phase_conv_bwd(ph, g, y if fold else None, gs if fold else None,
+                                               sets, "average", out_phases, a, fold, dt))
 
 
 if __name__ == "__main__":

@@ -810,13 +810,12 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     conv's forward and dtaps run the tensor-core GEMMs and m's the SIMT
     ones: both sum the same exact bf16 products in float32, in two orders,
     so m's outputs are within one bf16 ulp of max|ref| (``_within_ulp``;
-    the stats, sums of outputs that differ by such roundings, within TOL);
-    likewise the phase conv's bf16 dx runs the tensor-core GEMM and m's the
-    SIMT one, so m's dx is within one bf16 ulp of max|ref|, d_mul and d_add
-    within TOL and Σg_eff (the same fixed-order pass over the same folded
-    values) equal. m's bf16 dtaps is b's operand pass and tensor-core GEMM
-    with its cotangent rows read from the phases (the same values, split and
-    sums), so its dtaps and Σg_eff equal b's bit for bit in both dtypes."""
+    the stats, sums of outputs that differ by such roundings, within TOL).
+    m's bf16 dx is a's cotangent pass (its rows read from the phases),
+    tensor-core GEMM, epilogue and Σg_eff pass, and m's bf16 dtaps is b's
+    operand pass and tensor-core GEMM with its cotangent rows read from the
+    phases (the same values, split and sums), so dx, d_mul, d_add, dtaps and
+    Σg_eff equal a's and b's bit for bit in both dtypes."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
     for a in (act, None):
@@ -839,12 +838,7 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
         raw = phases if a else None
         got = pk.ds2s_dx(g, sets, corner_mode, 12, dt, a, raw, **fk)
         ref = pk.phase_conv_dx(_merge(g), sets, corner_mode, (2,), 12, dt, a, raw, **fkm)
-        if dt == torch.float32:
-            _equal_all(got, ref)
-        else:  # bf16 a runs the tensor-core GEMM, m the SIMT tile
-            _within_ulp(got[0], ref[0])
-            _close_all(got[1:3], ref[1:3], dt)
-            _equal_all(got[3:], ref[3:])
+        _equal_all(got, ref)  # bf16: a's pass and GEMM, its cotangent rows from the phases
         _close_all(got, pk.ds2s_dx_plain(g, sets, corner_mode, 12, dt, a, raw, **fk), dt)
         got = pk.ds2s_dtaps(phases, g, shapes, corner_mode, a, **fk, emit_gsum=True)
         ref = pk.phase_conv_dtaps(phases, _merge(g), shapes, corner_mode, (2,), a, **fkm,
@@ -2106,7 +2100,7 @@ def test_bf16_step_with_the_split_route_passes(cuda, model, route):
     both patched to their plain versions on the card tensors, the loss
     within 1e-2 of its value (the gradients are not compared: see
     ``test_bf16_step_with_the_mma_grid_fwd``). A trace of the step shows
-    ``mma_up_bwd`` once a call of j and ``mma_dtaps<SplitGrid>`` once a call
+    ``mma_bwd<MergedUp>`` once a call of j and ``mma_dtaps<SplitGrid>`` once a call
     of m's dtaps, and neither j's SIMT ``merged_bwd<bf16, UpLoad>`` nor any
     bf16 ``dtaps_gemm``."""
     from unittest import mock
@@ -2147,10 +2141,10 @@ def test_bf16_step_with_the_split_route_passes(cuda, model, route):
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     names = _dx_kernel_names(lambda: _bf16_step(cuda, model, **routing))
     count = {k: sum(c for name, c in names.items() if all(p in name for p in k))
-             for k in (("mma_up_bwd", "MergedUp"), ("mma_dtaps", "SplitGrid"),
+             for k in (("mma_bwd", "MergedUp"), ("mma_dtaps", "SplitGrid"),
                        ("merged_bwd", "bfloat16", "UpLoad"), ("dtaps_gemm", "bfloat16"))}
     want_j, want_m = (n, 0) if route == "merged" else (0, n)
-    assert count[("mma_up_bwd", "MergedUp")] == want_j, count
+    assert count[("mma_bwd", "MergedUp")] == want_j, count
     assert count[("mma_dtaps", "SplitGrid")] == want_m, count
     assert count[("merged_bwd", "bfloat16", "UpLoad")] == 0, count
     assert count[("dtaps_gemm", "bfloat16")] == 0, count
@@ -2167,3 +2161,129 @@ def test_split_route_gemms_occupancy(cuda):
                                                                             split=True)
     for key, info in infos.items():
         assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (key, info)
+
+
+# ---------------------------------------------------------------------------
+# the split route's tensor-core passes in i (the merged phase-conv backward)
+# and in m's dx
+# ---------------------------------------------------------------------------
+
+# (level s, C_in, C_out) of i's bit-for-bit cases: levels 1 and 3 at narrow
+# widths, b's NARROW tile (C_in 64, as up2's conv01 and down0's stride-2
+# conv) and the VAE heads' 256 -> 2x512 at level 2
+PHASE_BWD_CASES = {"s1": (1, 12, 20), "s3": (3, 12, 20), "NARROW C_in 64": (4, 64, 64),
+                   "heads-like": (2, 256, 512)}
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", list(PHASE_BWD_CASES))
+def test_phase_conv_bwd_is_the_split_pair(cuda, case, corner_mode):
+    """Kernel i in bf16 is the split route's device code over one folded
+    cotangent: a's cotangent pass, dx GEMM and Σg_eff pass, and b's operand
+    pass and dtaps GEMM on b's split over the written rows, whose values are
+    b's in-kernel fold (both round ``fold_geff`` once). So its outputs equal
+    ``phase_conv_dx`` + ``phase_conv_dtaps`` (``emit_gsum``) bit for bit:
+    the 4 dphases, d_mul, d_add, each set's dtaps and Σg_eff, in both
+    output-phase modes, with 1 and 2 sets, the act and the fold on and off,
+    in one launch of the wrapper."""
+    s, cin, cout = PHASE_BWD_CASES[case]
+    dt = torch.bfloat16
+    x, act, sets = _inputs(cuda, dt, s, cin, cout, seed=150 + s)
+    phases = _split(x)
+    mk, gs = _stats_fold(cuda, dt, phases[0].shape[:-1] + (cout,), 2, seed=s)
+    shapes = [(7, cin, cout)] * 2
+    for out_phases, n, a, fold in [((0, 1, 2, 3), 1, act, True), ((2,), 2, act, True),
+                                   ((0, 1, 2, 3), 2, None, False), ((2,), 1, None, True),
+                                   ((2,), 2, act, False)]:
+        g = mk(len(out_phases))[:n]
+        y = mk(len(out_phases))[:n] if fold else None
+        fk = dict(y_groups=y, gs_list=gs[:n]) if fold else {}
+        raw = phases if a else None
+        build.reset_launches()
+        got = pk.phase_conv_bwd(phases, g, y, gs[:n] if fold else None, sets[:n], corner_mode,
+                                out_phases, a, fold, dt)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"phase_conv_bwd": 1}
+        dphases, dmul, dadd, dx_gsums = pk.phase_conv_dx(g, sets[:n], corner_mode, out_phases,
+                                                          cin, dt, a, raw, **fk)
+        dtaps, gsums = pk.phase_conv_dtaps(phases, g, shapes[:n], corner_mode, out_phases, a,
+                                           **fk, emit_gsum=True)
+        _equal_all(got, (dphases, dtaps, gsums, dmul, dadd))
+        if fold:  # a's Σg_eff pass over the written rows: the same sums
+            _equal_all(got[2], dx_gsums)
+        _close_all(got, pk.phase_conv_bwd_plain(phases, g, y, gs[:n] if fold else None, sets[:n],
+                                                corner_mode, out_phases, a, fold, dt), dt)
+
+
+@pytest.mark.parametrize("route", ["merged", "chain all"])
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_merged_phase_passes(cuda, model, route):
+    """A bf16 training step on the merged backward route (i at the UpBlocks'
+    conv01, the DownBlocks' stride-2 convs and the VAE's heads) and on both
+    chains (m's dx at the chained DownBlocks). In the step, every call of i
+    equals ``phase_conv_dx`` + ``phase_conv_dtaps`` on that call's own
+    inputs, and every call of m's dx equals ``phase_conv_dx`` at output
+    phase 2 on the ``phase_merge``d cotangents, bit for bit. A trace of the
+    step shows ``mma_bwd<MergedPhase>`` once a call of i and m's tensor-core dx
+    (``mma_conv<SplitGrid, DxEpi>``) once a call of m's dx, the SIMT
+    ``merged_bwd<bf16, GridLoad>`` only for k's calls and no bf16
+    ``dx_gemm`` of m."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    routing = dict(merged_bwd="all") if route == "merged" else dict(phase_chain="1")
+    calls = []
+
+    def checked_i(raw, g, y, gs, sets, corner_mode, out_phases, act, with_stats, dt):
+        got = pk.phase_conv_bwd(raw, g, y, gs, sets, corner_mode, out_phases, act, with_stats, dt)
+        fk = dict(y_groups=y, gs_list=gs) if with_stats else {}
+        dx = pk.phase_conv_dx(g, sets, corner_mode, out_phases, raw[0].shape[-1], dt, act,
+                              raw if act else None, **fk)
+        dtaps, gsums = pk.phase_conv_dtaps(raw, g, [t.shape for t, _ in sets], corner_mode,
+                                           out_phases, act, **fk, emit_gsum=True)
+        calls.append(("i", got, (dx[0], dtaps, gsums, dx[1], dx[2])))
+        return got
+
+    def checked_m(g, sets, corner_mode, cin, dt, act=None, raw=None, y_groups=None,
+                  gs_list=None):
+        got = pk.ds2s_dx(g, sets, corner_mode, cin, dt, act, raw, y_groups, gs_list)
+        ref = pk.phase_conv_dx(_merge(g), sets, corner_mode, (2,), cin, dt, act, raw,
+                               None if y_groups is None else _merge(y_groups), gs_list)
+        calls.append(("m", got, ref))
+        return got
+
+    with mock.patch.object(fused, "phase_conv_bwd", checked_i), \
+            mock.patch.object(fused, "ds2s_dx", checked_m):
+        _, launches, grads = _bf16_step(cuda, model, **routing)
+    kernel = "phase_conv_bwd" if route == "merged" else "ds2s_dx"
+    n = launches.get(kernel, 0)
+    assert n >= 2 and [k for k, _, _ in calls] == ["i" if route == "merged" else "m"] * n
+    for _, got, ref in calls:
+        _equal_all(got, ref)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    names = _dx_kernel_names(lambda: _bf16_step(cuda, model, **routing))
+    count = {k: sum(c for name, c in names.items() if all(p in name for p in k))
+             for k in (("mma_bwd", "MergedPhase"), ("mma_conv", "DxEpi", "SplitGrid"),
+                       ("merged_bwd", "bfloat16", "GridLoad"), ("dx_gemm", "bfloat16", "true"))}
+    want_i, want_m = (n, 0) if route == "merged" else (0, n)
+    assert count[("mma_bwd", "MergedPhase")] == want_i, count
+    assert count[("mma_conv", "DxEpi", "SplitGrid")] == want_m, count
+    assert count[("merged_bwd", "bfloat16", "GridLoad")] == launches.get("ico_conv_s2s_bwd", 0)
+    assert count[("dx_gemm", "bfloat16", "true")] == 0, count
+
+
+def test_merged_phase_gemms_occupancy(cuda):
+    """i's one launch of both GEMMs (b's NARROW tile or the wide one, a's act
+    epilogue or not) and m's dx GEMM (act or not) fit 2 blocks an SM; all
+    but one take no local memory. i's NARROW tile with the act epilogue
+    (up2's conv01, down0's stride-2 conv) spills 16 bytes at the 128
+    registers that 2 blocks an SM allow, as the card reports it (PERF.md
+    §6); more would fail."""
+    infos = {f"i narrow={narrow} act={act}": build.phase_bwd_info(narrow, act)
+             for narrow in (False, True) for act in (False, True)}
+    infos.update({f"m dx act={act}": build.mma_dx_info(False, act, split=True)
+                  for act in (False, True)})
+    for key, info in infos.items():
+        spill = 16 if key == "i narrow=True act=True" else 0
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] <= spill, (key, info)

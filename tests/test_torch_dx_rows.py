@@ -1,6 +1,7 @@
-"""The bf16 tensor-core input gradients of the phase conv (a) and the up conv
-(c), as their GEMM formulates them, on the CPU; and the tables and scratch
-at the s=5 model shapes.
+"""The bf16 tensor-core input gradients of the phase conv (a), the up conv
+(c), the standard conv (f) and the phase chain's stride-2 conv (m), and the
+merged phase-conv backward (i), as their GEMMs formulate them, on the CPU;
+and the tables and scratch at the s=5 model shapes.
 
 ``_rows_dx`` replays in plain PyTorch what ``csrc/mma_conv_fwd.cuh`` (the
 dx GEMM with a's and c's epilogues), ``csrc/mma.cuh:cot_operand_pass`` and
@@ -24,6 +25,22 @@ sums round at other points), and against the JAX package's
 ``fused_phase_conv_s1``, ``fused_dual_s2_conv`` and ``fused_up_dual_conv``
 VJPs in Pallas interpret mode at one tiny shape (float32, 1e-5). Inputs
 come from numpy seeds.
+
+``_merged_rows_bwd`` replays kernel i's bf16 formulation
+(``csrc/phase_conv_bwd.cu:merged_mma``): ONE written cotangent, a's dx
+GEMM over its rows and b's dtaps GEMM over the same rows
+(``mma::WrittenRows``: the act-applied operand of ``grid_operand_plain``
+gathered through ``halo.phase_conv_table`` times the written rows), Σg_eff
+their column sums; held against ``phase_conv_bwd_plain`` (1 and 2 sets,
+output phases (0, 1, 2, 3) and (2,)) and against ``_phase_conv_bwd``
+through the merged VJPs of ``fused_phase_conv_s1`` and
+``fused_dual_s2_conv``. ``_split_rows_dx`` replays m's bf16 dx
+(``csrc/ds2s.cu``): the written cotangent read from the 4 parity phases by
+``split_row``'s map (written here from its shifts and masks, not by
+``phase_merge``), then a's (2,) dx GEMM; held against ``ds2s_dx_plain``
+and against ``_ds2s_bwd`` through the VJP of ``fused_dual_s2_conv_split``.
+Both at s=1-4, both corner modes, act and fold on and off, float32 and
+bfloat16, with the tolerances above; the scratch of both at the s=5 sites.
 """
 
 from unittest import mock
@@ -121,15 +138,24 @@ def _rows_dx(g_groups, tap_sets, corner_mode, out_phases, cin, dtype, act=None, 
     """The GEMM's formulation: a's (4 dphases, d_mul, d_add, Σg_eff) or, with
     ``up``, c's (level-s dx, Σg_eff), as ``phase_conv_dx`` and
     ``up_dual_conv_dx`` return them."""
-    B, _, h, w, cout = g_groups[0][0].shape
-    M, n_out = 5 * h * w, len(out_phases)
     rows = pk.cot_operand_plain(g_groups, y_groups, gs_list, corner_mode, out_phases)
+    return _dx_of_rows(rows, g_groups[0][0].shape, tap_sets, corner_mode, out_phases, cin, dtype,
+                       act, raw, y_groups is not None, up)
+
+
+def _dx_of_rows(rows, g_shape, tap_sets, corner_mode, out_phases, cin, dtype, act=None, raw=None,
+                emit_gsum=True, up=False):
+    """``_rows_dx`` over a written operand ``rows`` of cotangents of shape
+    ``g_shape`` (B, 5, h, w, C_out): the dx GEMM, its epilogue and the
+    written rows' Σg_eff (None unless ``emit_gsum``; always with ``up``)."""
+    B, _, h, w, cout = g_shape
+    M, n_out = 5 * h * w, len(out_phases)
     acc = _gemm(rows, h, w, corner_mode, out_phases, tap_sets, cin)  # (B, 4, M, C_in)
     cot = rows[:-1].view(B, -1, rows.shape[1])[:, : n_out * M].float()
     gsums = [cot[..., s * cout : (s + 1) * cout].sum(dim=(0, 1)) for s in range(len(tap_sets))]
     if up:  # dU of the 4 upsampled phases, then the upsample and level-s pad adjoint
         return _up_adjoint(acc, h, w, corner_mode).to(dtype).view(B, 5, h, w, cin), gsums
-    gsums = gsums if y_groups is not None else None
+    gsums = gsums if emit_gsum else None
     if act is None:
         return tuple(acc[:, p].to(dtype).view(B, 5, h, w, cin) for p in range(4)), None, None, \
             gsums
@@ -374,6 +400,208 @@ def test_std_rows_dx_matches_pallas(interpret):
     assert spy.called
 
 
+# ---------------------------------------------------------------------------
+# i's bf16 formulation: one written cotangent for a's dx and b's dtaps; m's
+# dx formulation: the written cotangent read from the parity phases
+# ---------------------------------------------------------------------------
+
+
+def _dtaps_of_rows(rows, raw, act, corner_mode, out_phases, n_sets, cin, cout):
+    """b's dtaps GEMM over a written cotangent (``mma::WrittenRows``): per set
+    the float32 (7, C_in, C_out) sum over the rows q = (sample, output phase
+    slot, cell) of the act-applied operand row (``grid_operand_plain``) that
+    ``halo.phase_conv_table`` names for tap t, times the set's columns of
+    written row q."""
+    B, _, h, w, _ = raw[0].shape
+    M, n_out, per = 5 * h * w, len(out_phases), 4 * 5 * h * w + 2
+    U = pk.grid_operand_plain(raw, act, corner_mode).float()
+    code = torch.from_numpy(halo.phase_conv_table(h, w, corner_mode)).long()[list(out_phases)]
+    base = (torch.arange(B) * per).view(B, 1, 1, 1)
+    idx = torch.where(code >= 0, base + code,
+                      torch.where(code == halo.ZERO, torch.tensor(B * per),
+                                  base + per - 2 + (code == halo.SOUTH).long()))
+    gathered = U[idx][..., :cin]  # (B, slots, 7, M, C_in)
+    G = rows[:-1].view(B, -1, rows.shape[1])[:, : n_out * M].float().view(B, n_out, M, -1)
+    return [torch.einsum("bstmk,bsmn->tkn", gathered, G[..., s * cout : (s + 1) * cout])
+            for s in range(n_sets)]
+
+
+def _merged_rows_bwd(raw, g_groups, y_groups, gs_list, tap_sets, corner_mode, out_phases, act,
+                     with_stats, dtype):
+    """i's bf16 formulation: ONE written cotangent (``cot_operand_plain``,
+    folded once), a's dx GEMM and b's dtaps GEMM over its rows, Σg_eff the
+    column sums of its cotangent rows; (4 dphases, per-set dtaps, per-set
+    Σg_eff, d_mul, d_add) as ``phase_conv_bwd`` returns them."""
+    cin, cout = raw[0].shape[-1], g_groups[0][0].shape[-1]
+    rows = pk.cot_operand_plain(g_groups, y_groups if with_stats else None, gs_list, corner_mode,
+                                out_phases)
+    dphases, dmul, dadd, gsums = _dx_of_rows(rows, g_groups[0][0].shape, tap_sets, corner_mode,
+                                             out_phases, cin, dtype, act, raw)
+    dtaps = _dtaps_of_rows(rows, raw, act, corner_mode, out_phases, len(tap_sets), cin, cout)
+    return dphases, dtaps, gsums, dmul, dadd
+
+
+def _split_rows(groups, h, w):
+    """Per set, the (B, 5, h, w, C) stride-2 output grid read from its 4
+    parity phases (B, 5, h/2, w/2, C) by ``split_row``'s map: row m =
+    (chart, i, j) from phase 2·(i & 1) + (j & 1) at (chart, i >> 1, j >> 1)."""
+    m = np.arange(5 * h * w)
+    chart, r = m // (h * w), m % (h * w)
+    i, j = r // w, r % w
+    phase = torch.from_numpy(2 * (i & 1) + (j & 1))
+    cell = torch.from_numpy((chart * (h // 2) + (i >> 1)) * (w // 2) + (j >> 1))
+    out = []
+    for grp in groups:
+        B, C = grp[0].shape[0], grp[0].shape[-1]
+        stacked = torch.stack([p.reshape(B, -1, C) for p in grp], dim=1)  # (B, 4, cells, C)
+        out.append((stacked[:, phase, cell].reshape(B, 5, h, w, C),))
+    return out
+
+
+def _split_rows_dx(g_groups, tap_sets, corner_mode, cin, dtype, act=None, raw=None,
+                   y_groups=None, gs_list=None):
+    """m's dx formulation: the written cotangent of output phase 2 read from
+    the 4 parity phases (``_split_rows``; g and y at the same cell, folded
+    once), then a's (2,) dx GEMM and epilogue; (4 dphases, d_mul, d_add,
+    Σg_eff) as ``ds2s_dx`` returns them."""
+    _, _, hp, wp, _ = g_groups[0][0].shape
+    g = _split_rows(g_groups, 2 * hp, 2 * wp)
+    y = None if y_groups is None else _split_rows(y_groups, 2 * hp, 2 * wp)
+    rows = pk.cot_operand_plain(g, y, gs_list, corner_mode, (2,))
+    return _dx_of_rows(rows, g[0][0].shape, tap_sets, corner_mode, (2,), cin, dtype, act, raw,
+                       y_groups is not None)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("stride", list(OUT_PHASES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 3, 4), (2, 5, 8), (3, 12, 20), (4, 16, 9)])
+def test_merged_rows_bwd_is_the_phase_conv_bwd(s, cin, cout, corner_mode, stride, dtype):
+    """i's formulation is ``phase_conv_bwd_plain``: dphases, each set's
+    dtaps and Σg_eff, d_mul and d_add, for 1 and 2 tap sets, with the act
+    and the fold on and off."""
+    dt, out_phases = DTYPES[dtype], OUT_PHASES[stride]
+    c = _Case(110 + 10 * s + cin, s, cin, cout, dt)
+    n_out = len(out_phases)
+    raw = [c.grid(cin) for _ in range(4)]
+    for n_sets, with_act, fold in ((1, True, True), (2, False, True), (2, True, False),
+                                   (1, False, False)):
+        g, sets = c.groups(n_sets, n_out), c.sets(n_sets)
+        y, gs = (c.groups(n_sets, n_out), c.gs(n_sets)) if fold else (None, None)
+        args = (raw, g, y, gs, sets, corner_mode, out_phases, c.act() if with_act else None,
+                fold, dt)
+        got = _merged_rows_bwd(*args)
+        assert all(t.dtype == dt for t in got[0])
+        assert all(t.dtype == torch.float32 for t in got[1] + got[2])
+        _close_tree(got, pk.phase_conv_bwd_plain(*args), TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 3, 4), (2, 5, 8), (3, 12, 20), (4, 16, 9)])
+def test_split_rows_dx_is_the_ds2s_dx(s, cin, cout, corner_mode, dtype):
+    """m's dx formulation on the level-s input phases (2^s, 2^(s+1)) and the
+    level-(s-1) parity phases of the cotangents is ``ds2s_dx_plain`` (the
+    plain version merges the phases with ``phase_merge``): dphases, d_mul,
+    d_add and Σg_eff, for 1 and 2 tap sets, with the act and the fold on and
+    off."""
+    dt = DTYPES[dtype]
+    c = _Case(150 + 10 * s + cin, s, cin, cout, dt)
+    half = _Case(151 + 10 * s + cin, s - 1, cin, cout, dt)  # the cotangents' parity phases
+    raw = [c.grid(cin) for _ in range(4)]
+    for n_sets, with_act, fold in ((2, True, True), (1, False, True), (2, False, False),
+                                   (1, True, False)):
+        g, sets = half.groups(n_sets, 4), c.sets(n_sets)
+        fk = dict(y_groups=half.groups(n_sets, 4), gs_list=half.gs(n_sets)) if fold else {}
+        args = (g, sets, corner_mode, cin, dt, c.act() if with_act else None,
+                raw if with_act else None)
+        got = _split_rows_dx(*args, **fk)
+        assert all(t.dtype == dt and t.shape == raw[0].shape for t in got[0])
+        _close_tree(got, pk.ds2s_dx_plain(*args, **fk), TOL[dt])
+
+
+@pytest.fixture
+def env(monkeypatch):
+    """Set the JAX package's experimental routing variables (read at trace
+    time)."""
+    def setenv(**values):
+        monkeypatch.setenv("GENICONET_EXPERIMENTAL", "1")
+        for name, value in values.items():
+            monkeypatch.setenv(f"GENICONET_{name}", value)
+    return setenv
+
+
+def test_merged_rows_bwd_matches_pallas(env, interpret):
+    """i's formulation against the VJPs of the JAX package's
+    ``fused_phase_conv_s1`` (one set, all 4 output phases) and
+    ``fused_dual_s2_conv`` (two sets, output phase 2), both with the act and
+    stats, whose backward under ``GENICONET_MERGED_BWD=all`` is
+    ``_phase_conv_bwd`` in interpret mode, at a level-1 grid, B=2, float32,
+    the fold on: dphases, d_mul, d_add, each set's dtaps and bias gradient
+    Σg_eff."""
+    env(MERGED_BWD="all")
+    c = _Case(170, 1, 3, 4, torch.float32)
+    phases = [c.grid(3) for _ in range(4)]
+    (ta, _), (tb, _) = c.sets(2)
+    ba, bb = (c.t(c.r.randn(4)) for _ in range(2))
+    mul, add = c.act()
+    jph, jta, jtb, jba, jbb, jmul, jadd = _j([phases, ta, tb, ba, bb, mul, add])
+
+    def s1(ph, w, b, m, a):
+        return jpk.fused_phase_conv_s1(ph, w, b, "average", act=(m, a), with_stats=True)
+
+    def s2(ph, wa, b0, wb, b1, m, a):
+        return jpk.fused_dual_s2_conv(ph, wa, b0, wb, b1, "zeros", act=(m, a), with_stats=True)
+
+    with mock.patch.object(jpk, "_pc_bwd_kernel", wraps=jpk._pc_bwd_kernel) as spy:
+        (y, _), vjp = jax.vjp(s1, jph, jta, jba, jmul, jadd)
+        g, gs = c.groups(1, 4), c.gs(1)
+        dph, dta, dba, dmul, dadd = vjp((_j(tuple(g[0])), _j(gs[0])))
+        got = _merged_rows_bwd(phases, g, [[torch.from_numpy(np.array(v)) for v in y]], gs,
+                               [(ta, None)], "average", (0, 1, 2, 3), (mul, add), True,
+                               torch.float32)
+        _close_tree(got, (dph, [dta], [dba], dmul, dadd), 1e-5)
+
+        (ya, yb, _, _), vjp = jax.vjp(s2, jph, jta, jba, jtb, jbb, jmul, jadd)
+        g, gs = c.groups(2, 1), c.gs(2)
+        dph, dta, dba, dtb, dbb, dmul, dadd = vjp((*_j([g[0][0], g[1][0], gs[0], gs[1]]),))
+        y = [[torch.from_numpy(np.array(ya))], [torch.from_numpy(np.array(yb))]]
+        got = _merged_rows_bwd(phases, g, y, gs, [(ta, None), (tb, None)], "zeros", (2,),
+                               (mul, add), True, torch.float32)
+        _close_tree(got, (dph, [dta, dtb], [dba, dbb], dmul, dadd), 1e-5)
+    assert spy.call_count >= 2
+
+
+def test_split_rows_dx_matches_pallas(env, interpret):
+    """m's dx formulation against the VJP of the JAX package's
+    ``fused_dual_s2_conv_split`` with the act and stats (its ``_ds2s_bwd``,
+    the fold in its dx kernel under ``GENICONET_KERNEL_GEFF=ds2``) in
+    interpret mode, at a level-2 input grid (level-1 parity phases), B=2,
+    float32: dphases, d_mul, d_add and the bias gradients Σg_eff."""
+    env(KERNEL_GEFF="ds2")
+    c = _Case(175, 2, 3, 4, torch.float32)
+    half = _Case(176, 1, 3, 4, torch.float32)
+    phases = [c.grid(3) for _ in range(4)]
+    (ta, _), (tb, _) = c.sets(2)
+    ba, bb = (c.t(c.r.randn(4)) for _ in range(2))
+    mul, add = c.act()
+    jph, jta, jtb, jba, jbb, jmul, jadd = _j([tuple(phases), ta, tb, ba, bb, mul, add])
+
+    def f(ph, wa, b0, wb, b1, m, a):
+        return jpk.fused_dual_s2_conv_split(ph, wa, b0, wb, b1, "average", act=(m, a),
+                                            with_stats=True)
+
+    with mock.patch.object(jpk, "_ds2s_dx_kernel", wraps=jpk._ds2s_dx_kernel) as spy:
+        outs, vjp = jax.vjp(f, jph, jta, jba, jtb, jbb, jmul, jadd)
+        g, gs = half.groups(2, 4), half.gs(2)
+        dph, _, dba, _, dbb, dmul, dadd = vjp((*_j([tuple(g[0]), tuple(g[1])]), *_j(gs)))
+    y = [[torch.from_numpy(np.array(v)) for v in outs[k]] for k in range(2)]
+    got = _split_rows_dx(g, [(ta, None), (tb, None)], "average", 3, torch.float32, (mul, add),
+                         phases, y, gs)
+    _close_tree(got, (dph, dmul, dadd, [dba, dbb]), 1e-5)
+    assert spy.called
+
+
 # The dx calls of the s=5 models: (cotangent h, w, C_in, C_out, tap sets,
 # output phases, up conv), and per sample the combined rows and the active
 # (tile, tap) pairs of the 128-row tiles over 7 taps
@@ -518,3 +746,88 @@ def test_dx_scratch_at_the_model_shapes(site):
                                             n_comb, True, up, "meta", n_in=n_in)
     assert operand is None and wpack is None and du is None
     assert red.shape == (B * build.n_tiles(n_in * M) * 2 * cin,)
+
+
+# i's sites in the s=5 models on the merged route: (h, w, C_in, C_out, tap
+# sets, output phases), and per site (combined rows a sample, tap-mask bytes
+# a sample or None, rows a dtaps chunk, chunks, NARROW, dtaps blocks, dx
+# blocks) of its one launch at B=36
+MODEL_I = {
+    "up0 conv01": ((4, 8, 256, 256, 1, (0, 1, 2, 3)), (160, 5, 2560, 9, False, 252, 360)),
+    "up1 conv01": ((8, 16, 128, 128, 1, (0, 1, 2, 3)), (320, 20, 2496, 37, False, 259, 720)),
+    "up2 conv01": ((16, 32, 64, 64, 1, (0, 1, 2, 3)), (640, 80, 5600, 66, True, 264, 2880)),
+    "down0 s2": ((16, 32, 64, 128, 2, (2,)), (0, 80, 2816, 33, True, 264, 2880)),
+    "down1 s2": ((8, 16, 128, 256, 2, (2,)), (0, 20, 2560, 9, False, 252, 720)),
+    "down2 s2": ((4, 8, 256, 256, 2, (2,)), (0, 5, 1440, 4, False, 224, 360)),
+    "VAE heads": ((4, 8, 256, 512, 2, (2,)), (0, 5, 2880, 2, False, 224, 360)),
+    "chain down0 conv01": ((8, 16, 128, 128, 1, (0, 1, 2, 3)), (320, 20, 2496, 37, False, 259,
+                                                                 720)),
+    "chain down1 conv01": ((4, 8, 256, 256, 1, (0, 1, 2, 3)), (160, 5, 2560, 9, False, 252, 360)),
+    "chain down2 conv01": ((2, 4, 256, 256, 1, (0, 1, 2, 3)), (80, None, 640, 9, False, 252, 90)),
+}
+
+
+@pytest.mark.parametrize("site", list(MODEL_I))
+def test_merged_scratch_at_the_model_shapes(site):
+    """i's bf16 scratch at B=36 is a's and b's: the written cotangent
+    (``dx_scratch``: the n_out·5hw cotangent rows and the combined rows a
+    sample, a zero row), the transposed taps and the act partials a row tile
+    of the B·4·5hw dx rows; b's act-applied operand of the 4 phases and its
+    split (``grid_dtaps_scratch``: 32-row steps, the NARROW tile at a C_in
+    of 64, past 32 chunks ``sum_rows``' order). A tap mask a 128-row tile
+    wherever 4·5hw is a multiple of 128 (all but the chain's (2, 4)), and
+    the one launch's blocks: b's dtaps tiles times the chunks, then a's dx
+    tiles. The largest (up2 conv01 and down0's stride-2 conv): the written
+    cotangent 50.1 and 47.2 MB, the operand 47.2 MB."""
+    (h, w, cin, cout, n_sets, out_phases), facts = MODEL_I[site]
+    n_comb, n_masks, kc, n_chunks, narrow, dt_blocks, dx_blocks = facts
+    B, M, ntot, n_out = 36, 5 * h * w, n_sets * cout, len(out_phases)
+    _, comb, mask = halo.phase_dx_codes(h, w, "average", out_phases)
+    assert len(comb[0]) - 1 == n_comb and (mask is None) == (n_masks is None)
+    assert mask is None or (len(mask) == n_masks and 4 * M == 128 * n_masks)
+    red, operand, wpack, du = pk.dx_scratch(torch.bfloat16, B, h, w, cin, n_sets, cout, n_out,
+                                            n_comb, True, False, "meta")
+    assert operand.shape == build.cot_operand_shape(B, n_out * M, n_comb, ntot) and du is None
+    assert wpack.shape == build.dx_packed_taps_shape(cin, ntot)
+    assert red.shape == (-(-B * 4 * M // 128) * 2 * cin,)
+    got = pk.grid_dtaps_scratch(torch.bfloat16, B, h, w, cin, ntot, 4, n_out, "meta")
+    assert got[:2] == (kc, n_chunks) and kc % 32 == 0
+    assert (n_chunks - 1) * kc < B * n_out * M <= n_chunks * kc
+    assert got[2].shape == (n_chunks * 7 * cin * ntot,)
+    assert got[3].shape == (pk.grid_operand_rows(B, h, w, 4), build.operand_width(cin))
+    assert build.mma_narrow(cin) == narrow
+    assert build.mma_dtaps_blocks(cin, ntot, narrow) * n_chunks == dt_blocks
+    assert -(-cin // 128) * -(-B * 4 * M // 128) == dx_blocks
+    if site in ("up2 conv01", "down0 s2"):
+        assert operand.numel() * 2 == {"up2 conv01": 50_135_168, "down0 s2": 47_186_432}[site]
+        assert got[3].numel() * 2 == 47_195_264
+
+
+# m's dx sites (the chain's DownBlocks): the input phases' (h, w), C_in,
+# C_out, and (cotangent rows, tap-mask bytes, live tap steps) a sample
+MODEL_M = {"down0": ((16, 32, 64, 128), (2560, 80, 190)),
+           "down1": ((8, 16, 128, 256), (640, 20, 55)),
+           "down2": ((4, 8, 256, 256), (160, 5, 20))}
+
+
+@pytest.mark.parametrize("site", list(MODEL_M))
+def test_split_dx_scratch_at_the_model_shapes(site):
+    """m's bf16 dx at B=36 takes a's tables and scratch at output phase 2 on
+    the input phases' sides (h, w): no combined rows; the written cotangent
+    holds a sample's 5hw rows of the merged (h, w) output grid, read from
+    the (h/2, w/2) parity phases, both sets side by side (47.2 MB at
+    down0); the tap masks keep 190 of 560, 55 of 140 and 20 of 35 tap
+    steps."""
+    (h, w, cin, cout), (rows, n_masks, live) = MODEL_M[site]
+    B, M = 36, 5 * h * w
+    codes, comb, mask = halo.phase_dx_codes(h, w, "average", (2,))
+    assert M == rows and codes.shape == (4, 7, M) and len(comb[0]) == 1
+    assert len(mask) == n_masks and sum(bin(int(m)).count("1") for m in mask) == live
+    assert 0 <= int(codes.max()) < M  # every live code one merged cotangent row
+    red, operand, wpack, _ = pk.dx_scratch(torch.bfloat16, B, h, w, cin, 2, cout, 1, 0, True,
+                                           False, "meta")
+    assert operand.shape == (B * M + 1, 2 * cout)
+    assert wpack.shape == (7 * 2 * cout, -(-cin // 128) * 128)
+    assert red.shape == (B * 4 * M // 128 * 2 * cin,)
+    if site == "down0":
+        assert operand.numel() * 2 == 47_186_432

@@ -221,11 +221,9 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     # j's bf16 backward: its cotangent and upsampled-operand passes, tap pack,
     # the one launch of both GEMMs and its upsample adjoint; the float32 and
     # the old bf16 SIMT merged tiles
-    ({"cat": "kernel", "name": "void (anonymous namespace)::mma_up_bwd<gn::MergedUp>("
-                               "gn::OperandRows, gn::GLoad<__nv_bfloat16, false>, "
-                               "gn::mma::WrittenRows, int, float*, gn::OperandRows, "
-                               "__nv_bfloat16 const*, gn::DuEpi, int)"},
-     "mma_up_bwd<bf16> (j)"),
+    ({"cat": "kernel", "name": "void gn::mma_bwd<gn::MergedUp, false, gn::DuEpi>(gn::MmaBwd, "
+                               "gn::DuEpi)"},
+     "mma_bwd<bf16> (j)"),
     ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::MergedUp>"
                                "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
      "cot_operand_pass<bf16> (j)"),
@@ -265,6 +263,33 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::dtaps_gemm<float, gn::GridLoad<float, false>, "
                                "gn::GLoad<float, true> >"},
      "dtaps_gemm<fp32, GridLoad, split> (m)"),
+    # i's bf16 backward: its cotangent and operand passes, tap pack and the
+    # one launch of both GEMMs; m's bf16 dx: a's pass over the split
+    # cotangent, tap pack and GEMM; i's float32 SIMT merged tiles
+    ({"cat": "kernel", "name": "void gn::mma_bwd<gn::MergedPhase, true, gn::DxEpi<true> >"
+                               "(gn::MmaBwd, gn::DxEpi<true>)"},
+     "mma_bwd<bf16> (i)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::MergedPhase, false>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (i)"),
+    ({"cat": "kernel", "name": "void gn::grid_operand_pass<__nv_bfloat16, gn::MergedPhase>"
+                               "(gn::GridLoad<__nv_bfloat16, false>, __nv_bfloat16*, int)"},
+     "grid_operand_pass<bf16> (i)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::MergedPhase>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (i)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::SplitGrid, true>"
+                               "(gn::GLoad<__nv_bfloat16, true>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::SplitGrid, gn::DxEpi<false> >"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::DxEpi<false>, int)"},
+     "mma_conv_dx<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::SplitGrid>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (m)"),
+    ({"cat": "kernel", "name": "void gn::merged_bwd<float, gn::GridLoad<float, false> >"
+                               "(gn::GLoad<float, false>)"},
+     "merged_bwd<fp32, GridLoad>"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
@@ -340,13 +365,14 @@ _DX_CALLS = {"phase_conv_dx": 6.0, "up_dual_conv_dx": 3.0, "ico_conv_s2s_dx": 3.
     (("up_adjoint_pass (c)",), {}, False),         # c without its adjoint
     ((), {"dx_gemm<bf16>": 15}, False),            # the SIMT dx in bf16
     (("mma_conv_dx<bf16> (f)",), {}, False),       # f's GEMM missing
-    ((), {"dx_gemm<bf16, split> (m)": 15}, True),  # m's SIMT dx has its own row
+    ((), {"dx_gemm<bf16, pair> (n)": 15}, True),   # n's SIMT dx has its own row
+    ((), {"dx_gemm<bf16, split> (m)": 15}, False),  # m's SIMT dx in bf16
 ])
 def test_device_launches_of_the_dx(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step:
     every call of a, c and f shows its cotangent pass and ``mma_conv_dx``
-    (c also its upsample adjoint), and the SIMT ``dx_gemm<bf16>`` runs for
-    none of them."""
+    (c also its upsample adjoint), and neither the SIMT ``dx_gemm<bf16>``
+    nor m's split one runs (n's pair dx keeps its SIMT row)."""
     groups = {k: v for k, v in {**_DX, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
@@ -356,33 +382,46 @@ def test_device_launches_of_the_dx(drop, add, ok):
 
 
 _SPLIT_ROUTE = {"cot_operand_pass<bf16> (j)": 15, "up_operand_pass<bf16> (j)": 15,
-                "mma_up_bwd<bf16> (j)": 15, "up_adjoint_pass (j)": 15,
-                "grid_operand_pass<bf16> (m)": 15, "mma_dtaps<bf16> (m)": 15}
-_SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0}
+                "mma_bwd<bf16> (j)": 15, "up_adjoint_pass (j)": 15,
+                "grid_operand_pass<bf16> (m)": 15, "mma_dtaps<bf16> (m)": 15,
+                "cot_operand_pass<bf16> (i)": 30, "grid_operand_pass<bf16> (i)": 30,
+                "mma_bwd<bf16> (i)": 30, "cot_operand_pass<bf16> (m)": 15,
+                "mma_conv_dx<bf16> (m)": 15}
+_SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bwd": 6.0,
+                      "ds2s_dx": 3.0, "ico_conv_s2s_bwd": 3.0}
 
 
 @pytest.mark.parametrize("drop, add, ok", [
     ((), {}, True),                                     # j and m's dtaps in a bf16 step
-    (("mma_up_bwd<bf16> (j)",), {}, False),             # j without its GEMMs
+    (("mma_bwd<bf16> (j)",), {}, False),             # j without its GEMMs
     (("up_operand_pass<bf16> (j)",), {}, False),        # j without its upsampled operand
     (("cot_operand_pass<bf16> (j)",), {}, False),       # j without its cotangent pass
     (("up_adjoint_pass (j)",), {}, False),              # j without its adjoint
     (("mma_dtaps<bf16> (m)",), {}, False),              # m's dtaps without its GEMM
     (("grid_operand_pass<bf16> (m)",), {}, False),      # m's dtaps without its pass
-    ((), {"mma_up_bwd<bf16> (j)": 30}, False),          # more GEMM launches than calls
+    ((), {"mma_bwd<bf16> (j)": 30}, False),          # more GEMM launches than calls
     ((), {"merged_bwd<bf16, UpLoad>": 15}, False),      # j's SIMT tiles in bf16
     ((), {"dtaps_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT dtaps in bf16
-    ((), {"merged_bwd<bf16, GridLoad>": 30}, True),     # i's and k's merged tiles stay
-    ((), {"dx_gemm<bf16, split> (m)": 15, "conv_gemm<bf16, GridLoad, split> (m)": 15},
-     True),                                             # m's SIMT dx and forward stay
+    ((), {"merged_bwd<bf16, GridLoad>": 15}, True),     # k's merged tiles stay
+    ((), {"conv_gemm<bf16, GridLoad, split> (m)": 15, "dx_gemm<bf16, pair> (n)": 15},
+     True),                                             # m's SIMT forward and n's dx stay
+    (("mma_bwd<bf16> (i)",), {}, False),          # i without its GEMMs
+    (("grid_operand_pass<bf16> (i)",), {}, False),      # i without its operand pass
+    (("cot_operand_pass<bf16> (i)",), {}, False),       # i without its cotangent pass
+    (("mma_conv_dx<bf16> (m)",), {}, False),            # m's dx without its GEMM
+    (("cot_operand_pass<bf16> (m)",), {}, False),       # m's dx without its pass
+    ((), {"merged_bwd<bf16, GridLoad>": 30}, False),    # i's SIMT tiles beside k's in bf16
+    ((), {"dx_gemm<bf16, split> (m)": 15}, False),      # m's SIMT dx in bf16
 ])
 def test_device_launches_of_the_split_route_passes(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step on
-    the merged route and both chains: every call of j shows its two passes,
-    its one launch of both GEMMs and its upsample adjoint, every call of m's
-    dtaps b's operand pass and GEMM (``SPLIT_ROUTE_ROWS``), and no window
-    j's SIMT ``merged_bwd<bf16, UpLoad>`` or m's ``dtaps_gemm<bf16,
-    GridLoad, split>``."""
+    the merged route and both chains: every call of i shows its two passes
+    and its one launch of both GEMMs, every call of j the same and its
+    upsample adjoint, every call of m's dx a's cotangent pass and GEMM and
+    of m's dtaps b's operand pass and GEMM (``SPLIT_ROUTE_ROWS``); no window
+    j's SIMT ``merged_bwd<bf16, UpLoad>``, m's ``dx_gemm<bf16, split>`` or
+    ``dtaps_gemm<bf16, GridLoad, split>``, and ``merged_bwd<bf16,
+    GridLoad>`` at most once a call of k."""
     groups = {k: v for k, v in {**_SPLIT_ROUTE, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _SPLIT_ROUTE_CALLS, 5)
