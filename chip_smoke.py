@@ -40,10 +40,13 @@ printed on its own lines, each fatal on failure:
    split pair they replace at the same shape (its dx call, with the Σg
    pass, and its dtaps call, each timed alone: they run the merged
    kernel's two tile roles on their own) and cuDNN's dx + dweight (in
-   bf16 i's seven outputs and j's five must equal the split pair's bit
-   for bit, and m's dx and dtaps the phase conv's on the merged
-   cotangents; i, j and m's dx print their parts and device time, i and j
-   beside the split pair's kernels, m's dx beside a's call); kernel
+   bf16 i's seven outputs and j's and k's five must equal the split
+   pair's bit for bit, m's forward the phase conv's at output phase 2
+   followed by ``phase_split``, outputs and stats, and m's dx and dtaps the
+   phase conv's on the merged cotangents; i, j, k and m's forward and dx
+   print their parts and device time, i, j and k beside the split pair's
+   kernels, m's forward beside b's forward at phase 2 on the same phases,
+   m's dx beside a's call); kernel
    m (``ds2s_*``) at the chain's DownBlock shapes and l (``stats_geff``)
    at each group it folds on the chain, with the phase conv's kernels at
    the chain's conv01 shapes; l at down0 also prints what the fold costs
@@ -102,14 +105,14 @@ printed on its own lines, each fatal on failure:
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
-   convs' forward and dtaps (b, f, m's dtaps) and of a's, c's, f's and
-   m's dx must show its operand pass and tensor-core GEMM there (c also
-   its upsample adjoint; i and j their two passes and their one launch of
-   both GEMMs, j its adjoint), and no window the SIMT ``dx_gemm<bf16>``,
-   ``conv_gemm<bf16, GridLoad>``, ``dtaps_gemm<bf16, GridLoad>`` (m's
-   split dx and dtaps too) or j's ``merged_bwd<bf16, UpLoad>``, nor
-   ``merged_bwd<bf16, GridLoad>`` more often than k's calls; the Chrome
-   traces are kept in ``build/profile/``.
+   convs' forward and dtaps (b, f, m's forward and dtaps) and of a's,
+   c's, f's and m's dx must show its operand pass and tensor-core GEMM
+   there (c also its upsample adjoint; i, j and k their two passes and
+   their one launch of both GEMMs, j its adjoint), and no window the SIMT
+   ``dx_gemm<bf16>``, ``conv_gemm<bf16, GridLoad>``, ``dtaps_gemm<bf16,
+   GridLoad>`` (m's split forward, dx and dtaps too) or the merged tiles
+   ``merged_bwd<bf16, UpLoad>`` (j) and ``merged_bwd<bf16, GridLoad>``
+   (k); the Chrome traces are kept in ``build/profile/``.
 
 The line before the last is ``{"kernels": [...]}``, with each kernel's
 route, sources, the TPU kernel it replaces, how it was redesigned for the
@@ -209,9 +212,9 @@ KERNELS = {
                      "geniconet_tpu/ops/pallas/phase_kernel.py:2994"),
 }
 # sources beyond the one named in KERNELS: in bf16 the up conv's, n's and
-# the grid convs' forward and dtaps (the grid convs' dtaps: b, f, m's), the
-# phase conv's, the up conv's, the standard conv's and m's dx (a, c, f,
-# m), the merged backwards (i, j; one launch of both GEMMs,
+# the grid convs' forward and dtaps (the grid convs' dtaps: b, f, m's; m's
+# forward), the phase conv's, the up conv's, the standard conv's and m's dx
+# (a, c, f, m), the merged backwards (i, j, k; one launch of both GEMMs,
 # csrc/mma_merged_bwd.cuh) and the merged blocks (o, p) run an operand pass
 # of csrc/mma.cuh and the tensor-core GEMMs of csrc/mma_conv_fwd.cuh and
 # csrc/mma_dtaps.cuh
@@ -222,11 +225,11 @@ SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
            **{k: ("geniconet_tpu_torch/csrc/mma_merged_bwd.cuh",
                   "geniconet_tpu_torch/csrc/mma_dtaps.cuh",
                   "geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
-              for k in ("up_dual_conv_bwd", "phase_conv_bwd")},
+              for k in ("up_dual_conv_bwd", "phase_conv_bwd", "ico_conv_s2s_bwd")},
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
                         "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
-                        "ico_conv_s2s_dx", "ds2s_dx")},
+                        "ico_conv_s2s_dx", "ds2s_fwd", "ds2s_dx")},
            # o and p: float32 block_fwd.cuh's SIMT tiles; bf16 the split
            # route's tensor-core passes in one cooperative launch
            **{k: ("geniconet_tpu_torch/csrc/mma_block_fwd.cuh",
@@ -252,9 +255,9 @@ REDESIGNED = {
     "pair_head_bwd": "one coalesced read a cell (head_bwd_body)",
     "phase_conv_bwd": _TC + "a's cotangent pass and b's operand pass, both GEMMs in one launch",
     "up_dual_conv_bwd": _TC + "c's cotangent pass and d's operand pass, both GEMMs in one launch",
-    "ico_conv_s2s_bwd": None,
+    "ico_conv_s2s_bwd": _TC + "f's cotangent pass and operand pass, both GEMMs in one launch",
     "stats_geff": None,
-    "ds2s_fwd": None,
+    "ds2s_fwd": _TC + "the operand pass and mma_conv with the split store in its epilogue",
     "ds2s_dx": _TC + "a's cotangent pass over the parity phases and a's dx GEMM",
     "ds2s_dtaps": _TC + "b's operand pass and mma_dtaps over the parity phases",
     "up_pair_fwd": _TC + "the joined pair's operand pass and mma_conv",
@@ -463,8 +466,8 @@ class Case:
     f's dx; ``head_parts``: the pair head's forwards and backwards, the
     head's, g, e and h; ``block_parts``: o's and p's cooperative kernel).
     ``exact``: in bf16, a call that checks the kernel's outputs equal the
-    split route's bit for bit (o, p, j; m's dtaps: the phase conv's) and
-    returns what it compared."""
+    split route's bit for bit (o, p, i, j, k; m's forward, dx and dtaps:
+    the phase conv's) and returns what it compared."""
 
     def __init__(self, kernel, plain, flops, inputs, library=None, split=None, compare=None,
                  short=False, split_keys=("dx", "dtaps"), split_labels=("dx + Σg", "dtaps"),
@@ -488,8 +491,9 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None, split=None):
     thread, blocks an SM, shared and local memory as the runtime reports
     them (``build.mma_dtaps_info``, ``grid_dtaps_info``, ``mma_fwd_info``,
     ``grid_fwd_info``, ``mma_dx_info``, ``up_bwd_info``, ``phase_bwd_info``);
-    the call's device time (every kernel it launches) and, for a merged
-    kernel, its split pair's (``split``: the two calls)."""
+    the call's device time (every kernel it launches) and its split
+    route's (``split``: a merged kernel's two calls; m's forward, b's
+    forward at output phase 2)."""
     rows = trace_kernels(call, per_launch=True)
     op_bytes = sum(t.numel() * t.element_size() for t in flat(inputs) if t is not None)
     op_bytes += sum(r * w * 2 for r, w in (operand if isinstance(operand, list) else [operand]))
@@ -598,6 +602,51 @@ def cudnn(kind, gen, dt, n, cin, cout, hp, wp, stride=1):
     return lambda: torch.nn.grad.conv2d_weight(x, wt.shape, gy, stride=stride)
 
 
+def split_fwd_case(B, h, w, cin, cout, with_act, with_stats):
+    """m's forward (``ds2s_fwd``) at batch B on the level-s input phases (h,
+    w), with its yardstick, b's forward at output phase 2 on the same phases
+    (``phase_conv_fwd`` (2,)); in bf16 its outputs (and stats) must equal that
+    call's followed by ``phase_split`` bit for bit, and its parts print
+    beside b's kernels."""
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+    from geniconet_tpu_torch.ops.phase import phase_split
+
+    def make(dt, gen):
+        ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
+        sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
+        a = _act(gen, cin) if with_act else None
+        call = lambda: pk.ds2s_fwd(ph, sets, "average", a, with_stats)  # noqa: E731
+        b_fwd = lambda: pk.phase_conv_fwd(ph, sets, "average", (2,), a, with_stats)  # noqa: E731
+        flops = conv_flops(B, 5 * h * w, cin, 2 * cout)
+        bf16 = dt == torch.bfloat16
+
+        def exact():
+            """m's bf16 outputs (and stats) against b's at output phase 2 on
+            the same phases, split by ``phase_split``."""
+            ref = b_fwd()
+            sets_ref = ref[0] if with_stats else ref
+            split = [tuple(p.contiguous() for p in phase_split(y)) for (y,) in sets_ref]
+            want = flat((split, ref[1]) if with_stats else split)
+            got = flat(call())
+            if len(got) != len(want) or not all(map(torch.equal, got, want)):
+                raise AssertionError("m: bf16 forward differs from phase_conv_fwd (2,) + "
+                                     "phase_split")
+            return ("each set's 4 parity phases" + (" and stats" if with_stats else "")
+                    + " (phase_conv_fwd at phase 2 + phase_split)")
+
+        parts = (lambda: mma_parts(call, flops, [ph, a],
+                                   (pk.grid_operand_rows(B, h, w, 4), build.operand_width(cin)),
+                                   build.ds2s_fwd_info(with_stats), split=(b_fwd,))
+                 ) if bf16 else None
+        return Case(call, lambda: pk.ds2s_fwd_plain(ph, sets, "average", a, with_stats), flops,
+                    [ph, sets, a],
+                    cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2),
+                    compare={"b's forward at phase 2": b_fwd}, parts=parts,
+                    exact=exact if bf16 else None)
+    return make
+
+
 def serving_cases():
     """(kernel, label, make(dtype, gen) -> Case, group) at the serving shapes."""
     from geniconet_tpu_torch.ops.kernels import build
@@ -676,15 +725,7 @@ def serving_cases():
     ]
 
     def split(h, w, cin, cout, with_act):
-        def make(dt, gen):
-            ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
-            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            a = _act(gen, cin) if with_act else None
-            return Case(lambda: pk.ds2s_fwd(ph, sets, "average", a),
-                        lambda: pk.ds2s_fwd_plain(ph, sets, "average", a),
-                        conv_flops(B, 5 * h * w, cin, 2 * cout), [ph, sets, a],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
-        return make
+        return split_fwd_case(B, h, w, cin, cout, with_act, False)
 
     def pair(h, w, cin, cout):
         def make(dt, gen):
@@ -841,15 +882,7 @@ def training_cases():
         return make
 
     def split_fwd(h, w, cin, cout, with_act):
-        def make(dt, gen):
-            ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
-            sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
-            a = _act(gen, cin) if with_act else None
-            return Case(lambda: pk.ds2s_fwd(ph, sets, "average", a, True),
-                        lambda: pk.ds2s_fwd_plain(ph, sets, "average", a, True),
-                        conv_flops(B, 5 * h * w, cin, 2 * cout), [ph, sets, a],
-                        cudnn("fwd", gen, dt, B * 5, cin, 2 * cout, 2 * h + 1, 2 * w + 2, 2))
-        return make
+        return split_fwd_case(B, h, w, cin, cout, with_act, True)
 
     def phase_merged(groups):
         """Per set the ``phase_merge`` of its 4 phase cotangents (m's split
@@ -1078,11 +1111,11 @@ def training_cases():
         """Kernel i ("phase"), j ("up") or k ("std") with the stats fold, the
         split pair it replaces (dx with its Σg pass, then dtaps) and cuDNN's
         dx + dweight on the haloed input. FLOPs: dx (an up conv's composed,
-        ``up_dx_flops``) + dtaps. In bf16 i's seven outputs and j's five must
-        equal the split pair's bit for bit, and i and j print their parts
-        (their two passes, the one launch of both GEMMs, whose FLOPs are the
-        dx GEMM's and the dtaps', j's adjoint, the sums, and the device time
-        against the split pair's kernels)."""
+        ``up_dx_flops``) + dtaps. In bf16 i's seven outputs, j's five and
+        k's five must equal the split pair's bit for bit, and i, j and k
+        print their parts (their two passes, the one launch of both GEMMs,
+        whose FLOPs are the dx GEMM's and the dtaps', j's adjoint, the sums,
+        and the device time against the split pair's kernels)."""
         def make(dt, gen):
             a = _act(gen, cin) if with_act else None
             exact = parts = None
@@ -1123,6 +1156,26 @@ def training_cases():
                          lambda: ck.ico_conv_s2s_dtaps(x, g, "average", a, y, gs))
                 reads = [x, g, y, gs, t, a]
                 rows, ntot, stride, halo = 5 * h * w, cout, 1, (h + 2, w + 2)
+
+                def exact(split=split, args=args):
+                    """k's 5 outputs against f's dx (dx, d_mul/d_add, Σg_eff)
+                    and f's bf16 dtaps."""
+                    got = ck.ico_conv_s2s_bwd(*args)
+                    (dx, dmul, dadd, gsum), dtaps = split[0](), split[1]()
+                    for key, u, v in zip(("dx", "dtaps", "Σg_eff", "d_mul", "d_add"), got,
+                                         (dx, dtaps, gsum, dmul, dadd)):
+                        if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+                            raise AssertionError(f"k: bf16 {key} differs from the split route's")
+                    return ("dx, bf16 dtaps, Σg_eff" + (", d_mul, d_add" if a else "")
+                            + " (f's dx + f's dtaps)")
+
+                if dt == torch.bfloat16:
+                    parts = (lambda args=args, split=split: mma_parts(
+                        lambda: ck.ico_conv_s2s_bwd(*args), 2 * conv_flops(B, rows, cin, ntot),
+                        [x, g, y, gs, a],
+                        [dx_operand(B, h, w, ntot, None),
+                         (pk.grid_operand_rows(B, h, w, 1), build.operand_width(cin))],
+                        build.std_bwd_info(build.mma_narrow(cin), a is not None), split=split))
             else:
                 x = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
                 sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
@@ -1478,7 +1531,7 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
                              f"{p['adjoint_bound_ms']:.4f} ms, bytes), ")
                 device = f"device {p['device_ms']:.4f} ms"
                 if "split_device_ms" in p:
-                    device += (f" against the split pair's kernels {p['split_device_ms']:.4f} ms"
+                    device += (f" against the split route's kernels {p['split_device_ms']:.4f} ms"
                                f" ({p['device_ms'] / p['split_device_ms']:.3f}x)")
                 print(f"[{phase}] {name} {label} {tag} parts (profiler trace, per call): operand "
                       f"pass {p['operand_ms']:.4f} ms (bound {p['operand_bound_ms']:.4f} ms, "
@@ -1652,16 +1705,18 @@ def kernel_group(event: dict) -> str:
     pair = "PairCells" in name
     j = "MergedUp" in name  # the merged up-conv backward's passes and GEMMs
     i = "MergedPhase" in name  # the merged phase-conv backward's
+    k = "MergedStd" in name  # the merged standard-conv backward's
     which = "(n)" if pair else "(j)" if j else "(d)"
     grid = ("(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name
-            else "(m)" if "SplitGrid" in name else "(i)" if i else None)
+            else "(m)" if "SplitGrid" in name else "(i)" if i else "(k)" if k else None)
     # the dx of a, c, f and m: by Tag the phase conv's (a), the standard
     # conv's (f), the phase chain's stride-2 conv's (m) or the up conv's
-    # (c); i's and j's cotangent passes by their own
+    # (c); i's, j's and k's cotangent passes by their own
     dx = ("(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name
-          else "(m)" if "SplitGrid" in name else "(i)" if i else "(j)" if j else "(c)")
-    if "mma_bwd<" in name:  # i, j: the dtaps and the dx tiles in one launch
-        return f"mma_bwd<bf16> {'(j)' if j else '(i)'}"
+          else "(m)" if "SplitGrid" in name else "(i)" if i else "(j)" if j
+          else "(k)" if k else "(c)")
+    if "mma_bwd<" in name:  # i, j, k: the dtaps and the dx tiles in one launch
+        return f"mma_bwd<bf16> {'(j)' if j else '(k)' if k else '(i)'}"
     if "up_operand_pass" in name or "pair_join_pass" in name:
         return f"up_operand_pass<{dtype}> {which}"
     if "grid_operand_pass" in name:
@@ -1674,7 +1729,7 @@ def kernel_group(event: dict) -> str:
         return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv" in name and ("DxEpi" in name or "DuEpi" in name):
         return f"mma_conv_dx<bf16> {dx}"
-    if "mma_conv" in name:  # the forwards' GEMM (mma_conv with FwdEpi)
+    if "mma_conv" in name:  # the forwards' GEMM (mma_conv with FwdEpi; m's SplitFwdEpi)
         return f"mma_conv_fwd<bf16> {grid or ('(n)' if pair else '(up conv)')}"
     if "pack_taps_t" in name:
         return f"pack_taps {dx}"
@@ -1696,7 +1751,7 @@ def kernel_group(event: dict) -> str:
         return f"dtaps_gemm<{dtype}, {loader}{split}"
     if "stats_geff" in name:
         return "stats_geff (l)"
-    if "merged_bwd" in name:  # kernels i and k share the GridLoad instantiation
+    if "merged_bwd" in name:  # float32 i and k share the GridLoad instantiation
         return f"merged_bwd<{dtype}, {loader}>"
     if "two_pass_block" in name:  # the merged blocks: o (UpLoad), p (GridLoad)
         kind = "mma_" if "mma_two_pass_block" in name else ""  # bf16: the tensor cores
@@ -1788,46 +1843,47 @@ def device_profile(workloads, card: str):
 
 
 # the profile rows of the device launches of the bf16 grid convs, by kernel
-# tag: their wrappers (forward, dtaps b or f), each call's operand pass and
-# its tensor-core GEMM (the forward's or the dtaps')
+# tag: their wrappers (forward, dtaps: b, f, and m's forward and dtaps, which
+# share the SplitGrid operand pass), each call's operand pass and its
+# tensor-core GEMM (the forward's or the dtaps')
 GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
-             "(f)": ("ico_conv_s2s_fwd", "ico_conv_s2s_dtaps")}
+             "(f)": ("ico_conv_s2s_fwd", "ico_conv_s2s_dtaps"),
+             "(m)": ("ds2s_fwd", "ds2s_dtaps")}
 # ... and of the bf16 dx of a, c and f: each call's cotangent pass and
 # GEMM (and c's upsample adjoint), by wrapper
 DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx", "(f)": "ico_conv_s2s_dx"}
-# ... and of the bf16 merged backwards (i: its two passes and the one
+# ... and of the bf16 merged backwards (i, k: their two passes and the one
 # launch of both GEMMs; j: the same and its upsample adjoint) and m's bf16
-# dx (a's pass and GEMM over the split cotangent) and dtaps (b's), by
-# wrapper
+# dx (a's pass and GEMM over the split cotangent), by wrapper
 SPLIT_ROUTE_ROWS = {
     "phase_conv_bwd": ("cot_operand_pass<bf16> (i)", "grid_operand_pass<bf16> (i)",
                        "mma_bwd<bf16> (i)"),
     "up_dual_conv_bwd": ("cot_operand_pass<bf16> (j)", "up_operand_pass<bf16> (j)",
                          "mma_bwd<bf16> (j)", "up_adjoint_pass (j)"),
+    "ico_conv_s2s_bwd": ("cot_operand_pass<bf16> (k)", "grid_operand_pass<bf16> (k)",
+                         "mma_bwd<bf16> (k)"),
     "ds2s_dx": ("cot_operand_pass<bf16> (m)", "mma_conv_dx<bf16> (m)"),
-    "ds2s_dtaps": ("grid_operand_pass<bf16> (m)", "mma_dtaps<bf16> (m)"),
 }
 # the SIMT kernels no bf16 window may run: a's, c's, f's dx, b's and f's
-# dtaps and the grid forwards (m's split store, n's pair dx, k's merged
-# tiles, o's and p's tiles have rows of their own), j's merged tiles and
-# m's split dx and dtaps; the merged tiles' GridLoad row (i's in float32,
-# k's) runs at most once a call of k
+# dtaps and the grid forwards (n's pair dx, o's and p's tiles have rows of
+# their own), the merged tiles of i, j and k, and m's split forward, dx and
+# dtaps
 BF16_SIMT = ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>",
-             "merged_bwd<bf16, UpLoad>", "dtaps_gemm<bf16, GridLoad, split> (m)",
+             "merged_bwd<bf16, UpLoad>", "merged_bwd<bf16, GridLoad>",
+             "conv_gemm<bf16, GridLoad, split> (m)", "dtaps_gemm<bf16, GridLoad, split> (m)",
              "dx_gemm<bf16, split> (m)")
 
 
 def check_device_launches(tag, groups, launches, iters):
     """Fail unless, in a profiled bf16 window, the calls of the grid convs'
-    forward and dtaps (``launches``, wrapper calls an iteration) ran their
-    operand pass (one a call of either) and their tensor-core GEMM
+    forward and dtaps (``launches``, wrapper calls an iteration; b, f, m's)
+    ran their operand pass (one a call of either) and their tensor-core GEMM
     (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), each call of a, c
     and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
-    adjoint), and each call of i, j and m's dx and dtaps the rows of
+    adjoint), and each call of i, j, k and m's dx the rows of
     ``SPLIT_ROUTE_ROWS``: each row present where its wrappers ran, and at
-    most once a call (a trace may lose events, never add them); no launch
-    of a ``BF16_SIMT`` kernel, and the SIMT ``merged_bwd<bf16, GridLoad>``
-    at most once a call of k."""
+    most once a call (a trace may lose events, never add them); and no
+    launch of a ``BF16_SIMT`` kernel."""
     def check(row, calls, wrappers):
         n = groups[row][0] / iters if row in groups else 0
         if (calls > 0) != (n > 0) or n > calls:
@@ -1850,11 +1906,6 @@ def check_device_launches(tag, groups, launches, iters):
     for simt in BF16_SIMT:
         if simt in groups:
             raise AssertionError(f"profile {tag}: the SIMT {simt} ran")
-    k_calls = launches.get("ico_conv_s2s_bwd", 0)
-    n = groups.get("merged_bwd<bf16, GridLoad>", [0])[0] / iters
-    if n > k_calls:
-        raise AssertionError(f"profile {tag}: merged_bwd<bf16, GridLoad> {n} a step for "
-                             f"{k_calls} calls of ico_conv_s2s_bwd (i runs the tensor cores)")
 
 
 def serving_workloads(st, tag="", b1=True):

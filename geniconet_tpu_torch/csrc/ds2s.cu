@@ -12,43 +12,47 @@
 // Design. The Pallas kernels split the stride-2 output into phases in VMEM
 // (_split4) and re-interleave the phase cotangents in VMEM (_interleave4)
 // before delegating to the generic phase-conv bodies. On the card nothing is
-// moved to do that: the split is addressing. The forward runs the phase
-// conv's own GEMM (gn::conv_gemm over output phase 2, the stride-2 conv)
-// with the split store (gn::split_row): output row (chart, i, j) of tap set s
-// goes to phase 2 * (i & 1) + (j & 1) at (chart, i >> 1, j >> 1), shifts and
-// masks of the cell index, as the grid sides are powers of two. The stats
-// partials come from the tile before the store and the GEMM's row order is
-// the phase conv's float32 one, so the outputs and stats equal
-// phase_conv_fwd with out_phases (2,) followed by phase_split bit for bit
-// in float32; in bf16 phase_conv_fwd runs the tensor-core GEMM
-// (mma_conv_fwd.cuh) and m keeps this SIMT tile, so the two are within one
-// bf16 ulp of each other. The float32 backward kernels run the phase
-// conv's dx and dtaps tiles (gn::dx_tile over the transposed table of
-// output phase 2, gn::dtaps_tile) with the split cotangent loader GLoad<T,
-// true>, which reads row m of the merged cotangent (and y, under the fold)
-// from its phase by the same map; so dx, dtaps, d_mul/d_add and Σg_eff
-// equal phase_conv_dx / phase_conv_dtaps on phase_merge'd cotangents bit
-// for bit. In bf16 both backward kernels are the phase conv's tensor-core
-// route with the cotangent read from the parity phases by that map. dx is
-// a's: cot_operand_pass (mma.cuh) over the split loader writes row m of
-// the merged cotangent, folded once, from its phase (the written operand
-// holds a's values, read from other addresses; stride 2 has no combined
-// rows), and a's dx GEMM runs over halo.phase_dx_codes of output phase 2
-// with its tap masks and DxEpi, Σg_eff over the written rows. dtaps is b's:
-// grid_operand_pass writes the act-applied operand of the 4 input phases
-// once, and gn::mma_dtaps (mma_dtaps.cuh) runs at output phase 2 with its G
-// rows read from the parity phases (mma::SplitRows; one row is still cout
-// contiguous elements, so the 16-byte copies stay, and the stats fold stays
-// in the kernel), on b's split. So in bf16 too dx, d_mul/d_add, dtaps and
-// Σg_eff equal phase_conv_dx / phase_conv_dtaps on the phase_merge'd
-// cotangents bit for bit.
+// moved to do that: the split is addressing. Output row (chart, i, j) of tap
+// set s goes to phase 2 * (i & 1) + (j & 1) at (chart, i >> 1, j >> 1),
+// shifts and masks of the cell index (gn::split_row), as the grid sides are
+// powers of two; the cotangents are read back by the same map (GLoad<T,
+// true>, mma::SplitRows). So each of m's kernels is the phase conv's at
+// output phase 2 with its rows placed or read by that map, and equals
+// phase_conv_fwd (2,) + phase_split, or phase_conv_dx / phase_conv_dtaps on
+// the phase_merge'd cotangents, bit for bit in both dtypes: outputs, stats,
+// dx, d_mul/d_add, dtaps and Σg_eff.
+// * forward, float32: the phase conv's SIMT GEMM (gn::conv_gemm over output
+//   phase 2) with the split store; the stats partials come from the tile
+//   before the store, in the GEMM's row order.
+// * forward, bf16: the phase conv's tensor-core forward at output phase 2
+//   (mma_conv_fwd.cuh): grid_operand_pass writes the act-applied operand of
+//   the 4 input phases once (tag SplitGrid), pack_taps packs both tap sets
+//   side by side, and gn::mma_conv runs over its rows with SplitFwdEpi, the
+//   forward epilogue whose store places each row by split_row (a 128-row
+//   tile spans chart seams, and at (4,8), M = 160, samples: the map is per
+//   row; a row is still cout contiguous values, so the paired 4-byte stores
+//   stay); [Σy, Σy²] come from the same rounded values in the same row-tile
+//   order, then the fixed-order sum_rows.
+// * dx, float32: the phase conv's SIMT dx tiles (gn::dx_tile over the
+//   transposed table of output phase 2) with the split cotangent loader.
+//   bf16: a's path: cot_operand_pass (mma.cuh) over the split loader writes
+//   row m of the merged cotangent, folded once, from its phase (stride 2
+//   has no combined rows), and a's dx GEMM runs over halo.phase_dx_codes of
+//   output phase 2 with its tap masks and DxEpi, Σg_eff over the written
+//   rows.
+// * dtaps, float32: gn::dtaps_tile with the split loader. bf16: b's path:
+//   grid_operand_pass writes the act-applied operand of the 4 input phases
+//   once, and gn::mma_dtaps (mma_dtaps.cuh) runs at output phase 2 with its
+//   G rows read from the parity phases (mma::SplitRows; one row is still
+//   cout contiguous elements, so the 16-byte copies stay, and the stats fold
+//   stays in the kernel), on b's split.
 //
-// What bounds it on the card: the forward (and the float32 backward) as
-// the phase conv's float32 kernels, the FMA rate of the SIMT GEMM core (2 *
-// 7 * C_in * 2 * C_out FLOPs per level-(s-1) cell each); the split map
-// costs a few shifts per stored or loaded element, next to 7 * C_in FMAs.
-// The bf16 dx and dtaps: a's and b's tensor-core GEMMs (mma_conv_fwd.cuh
-// and mma_dtaps.cuh say what bounds them) and the passes' bytes.
+// What bounds it on the card: in bf16, the phase conv's tensor-core GEMMs
+// (mma_conv_fwd.cuh and mma_dtaps.cuh say what bounds them: 2 * 7 * C_in *
+// 2 * C_out FLOPs per level-(s-1) cell each, 11-21 GFLOP, 0.011-0.021 ms,
+// a site at B=36 at 989 TFLOP/s) and the passes' bytes; the split map
+// costs a few shifts per stored or loaded row. In float32 the FMA rate of
+// the SIMT GEMM core.
 #include <type_traits>
 
 #include "mma_conv_fwd.cuh"
@@ -76,23 +80,40 @@ gn::GridLoad<T> grid_load(const void* const* x, const float* mul, const float* a
   return ld;
 }
 
+// float32: the SIMT GEMM with the split store; bf16: the phase conv's
+// tensor-core forward at output phase 2 (b's operand pass into `operand`,
+// the taps packed into `wpack`, mma_conv) with the split store in its
+// epilogue (SplitFwdEpi), then the stats' fixed-order sum.
 template <typename T>
 cudaError_t fwd(const void* const* x, const float* mul, const float* add, const void* w0,
                 const void* b0, const void* w1, const void* b1, void* const* outs,
-                const int* table, float* stats_ws, float* const* stats, int B, int h, int w,
-                int cin, int cout, int n_sets, cudaStream_t stream) {
+                const int* table, float* stats_ws, float* const* stats, void* operand,
+                void* wpack, int zero_poles, int B, int h, int w, int cin, int cout, int n_sets,
+                cudaStream_t stream) {
   const gn::GridLoad<T> ld = grid_load<T>(x, mul, add, h, w, cin);
-  gn::ConvOut<T> co = {};
-  for (int i = 0; i < n_sets * 4; ++i) co.out[i] = static_cast<T*>(outs[i]);
-  co.w[0] = static_cast<const T*>(w0);
-  co.w[1] = static_cast<const T*>(w1);
-  co.bias[0] = static_cast<const T*>(b0);
-  co.bias[1] = static_cast<const T*>(b1);
-  co.stats = stats_ws;
-  co.split_lh = log2i(h);
-  co.split_lw = log2i(w);
-  return gn::launch_conv_gemm<T, gn::GridLoad<T>, true>(ld, co, table, B, 5 * h * w, cin, cout,
-                                                        n_sets, 2, 1, stats, stream);
+  if constexpr (std::is_same_v<T, float>) {
+    gn::ConvOut<T> co = {};
+    for (int i = 0; i < n_sets * 4; ++i) co.out[i] = static_cast<T*>(outs[i]);
+    co.w[0] = static_cast<const T*>(w0);
+    co.w[1] = static_cast<const T*>(w1);
+    co.bias[0] = static_cast<const T*>(b0);
+    co.bias[1] = static_cast<const T*>(b1);
+    co.stats = stats_ws;
+    co.split_lh = log2i(h);
+    co.split_lw = log2i(w);
+    return gn::launch_conv_gemm<T, gn::GridLoad<T>, true>(ld, co, table, B, 5 * h * w, cin, cout,
+                                                          n_sets, 2, 1, stats, stream);
+  } else {
+    gn::FwdOut o = {};
+    for (int i = 0; i < n_sets * 4; ++i) o.out[i / 4][i % 4] = static_cast<T*>(outs[i]);
+    o.bias[0] = static_cast<const T*>(b0);
+    o.bias[1] = static_cast<const T*>(b1);
+    o.stats = stats_ws;
+    return gn::launch_grid_mma_fwd<gn::SplitGrid, true>(
+        ld, 4, table, o, static_cast<const T*>(w0), static_cast<const T*>(w1),
+        static_cast<T*>(operand), static_cast<T*>(wpack), zero_poles, B, cout, n_sets, 2, 1,
+        stats, stream, {log2i(h), log2i(w)});
+  }
 }
 
 // float32: the SIMT gather-GEMM over the transposed table of output phase 2
@@ -185,25 +206,38 @@ bool bad_shape(int n_sets, int h, int w) {
 // n_sets * 4 output pointers, set-major, each a (B, 5, h/2, w/2, cout) phase
 // of the (B, 5, h, w, cout) level-(s-1) output; table: int32 (4, 7, 5*h*w)
 // from halo.phase_conv_table; stats_ws: null (no stats) or float32 scratch
-// of (B * ceil(5hw/64), 2 * n_sets * cout), and then st0/st1 receive each
-// set's (2, cout) [sum, sumsq]. dtype: 0 float32, 1 bfloat16.
+// of the block partials, (B * ceil(5hw/64), 2 * n_sets * cout) in float32,
+// (ceil(B * 5hw / 128), 2 * n_sets * cout) in bfloat16, and then st0/st1
+// receive each set's (2, cout) [sum, sumsq]. bfloat16 only (else the call is
+// refused): operand, scratch of (B * (4 * 5hw + 2) + 1, cin rounded up to 8)
+// for the act-applied operand (zero_poles: corner_mode "zeros"); wpack, of
+// (7 * cin rounded up to 32, n_sets * cout rounded up to 128) for the packed
+// taps (gn_phase_conv_fwd's). dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_ds2s_fwd(const void* x0, const void* x1, const void* x2, const void* x3,
                            const float* act_mul, const float* act_add, const void* w0,
                            const void* b0, const void* w1, const void* b1, void* const* outs,
-                           const int* table, float* stats_ws, float* st0, float* st1, int B,
-                           int h, int w, int cin, int cout, int n_sets, int dtype,
-                           void* stream) {
+                           const int* table, float* stats_ws, float* st0, float* st1,
+                           void* operand, void* wpack, int B, int h, int w, int cin, int cout,
+                           int n_sets, int zero_poles, int dtype, void* stream) {
   if (bad_shape(n_sets, h, w)) return cudaErrorInvalidValue;
   const void* x[4] = {x0, x1, x2, x3};
   float* stats[2] = {st0, st1};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fwd<float>(x, act_mul, act_add, w0, b0, w1, b1, outs, table, stats_ws, stats, B, h, w,
-                      cin, cout, n_sets, s);
+    return fwd<float>(x, act_mul, act_add, w0, b0, w1, b1, outs, table, stats_ws, stats, nullptr,
+                      nullptr, zero_poles, B, h, w, cin, cout, n_sets, s);
   if (dtype == 1)
     return fwd<__nv_bfloat16>(x, act_mul, act_add, w0, b0, w1, b1, outs, table, stats_ws, stats,
-                              B, h, w, cin, cout, n_sets, s);
+                              operand, wpack, zero_poles, B, h, w, cin, cout, n_sets, s);
   return cudaErrorInvalidValue;
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of m's bf16 forward GEMM (the phase conv's with the split
+// store), with stats or without.
+extern "C" int gn_ds2s_fwd_info(int stats, int* out) {
+  return stats ? gn::mma_conv_fwd_info<gn::SplitGrid, true, true>(out)
+               : gn::mma_conv_fwd_info<gn::SplitGrid, false, true>(out);
 }
 
 // g: host array of n_sets * 4 phase cotangent pointers (set-major), each

@@ -53,16 +53,33 @@
 // 132 SMs), plus the cotangent pass's bytes; float32 by the SIMT core's
 // FMA rate, 7-12 TFLOP/s.
 //
-// The merged kernel is gn::merged_bwd (backward.cuh): dx tiles over
-// halo.std_dx_table with the act adjoint and d_mul/d_add partials, dtaps
-// tiles over the activated input (relu(x*mul + add) cast to x's dtype, as
-// _std_bwd_kernel) with the Σg_eff partials, which _std_bwd always emits.
-// One launch, then the fixed-order sum_rows passes (dtaps rounded to the
-// activation dtype); the two roles each read g (see phase_conv_bwd.cu).
+// The merged backward (gn_ico_conv_bwd, _std_bwd) computes every output of
+// _std_bwd_kernel: dx with the act adjoint and the d_mul/d_add partials,
+// dtaps over the activated input (relu(x*mul + add) cast to x's dtype)
+// rounded to the activation dtype, and Σg_eff, which _std_bwd always emits.
+// In float32 it is gn::merged_bwd (backward.cuh): dx tiles over
+// halo.std_dx_table and dtaps tiles by block index in one SIMT launch, then
+// the fixed-order sum_rows passes; the two roles each read and fold g. In
+// bf16 it is f's split route over ONE folded cotangent, as i is a's and b's
+// (phase_conv_bwd.cu): f's cot_operand_pass writes g_eff once with
+// halo.std_dx_codes' combined rows, f's grid_operand_pass the act-applied
+// grid and its two pole rows once, pack_taps_t the taps transposed (all
+// tagged MergedStd), then one launch of both GEMMs (gn::mma_bwd,
+// mma_merged_bwd.cuh, one input grid): f's dtaps tiles first over the
+// written cotangent (mma::WrittenRows, no fold in the GEMM; the NARROW tile
+// at a C_in of at most 64), f's dx tiles around them with DxEpi and f's tap
+// masks (none at (4,8), where a sample's 160 rows straddle tiles); then the
+// d_mul/d_add sum over the dx row tiles, the dtaps chunks' fixed-order sum
+// on f's split rounded to bf16 (CastOut), and Σg_eff over the written rows.
+// The written cotangent holds the values f's in-kernel fold gives (both
+// round fold_geff once), so dx, dtaps, Σg_eff and d_mul/d_add equal
+// ico_conv_s2s_dx (emit_gsum) + ico_conv_s2s_dtaps bit for bit. What bounds
+// it: the two GEMMs' tensor-core steps (mma_conv_fwd.cuh, mma_dtaps.cuh;
+// f's dtaps without its fold) and the passes' bytes (the cotangent and the
+// operand written once each).
 #include <type_traits>
 
-#include "mma_conv_fwd.cuh"
-#include "mma_dtaps.cuh"
+#include "mma_merged_bwd.cuh"
 
 namespace {
 
@@ -80,6 +97,21 @@ gn::GLoad<T> gload(const void* g, const void* y, const float* gs, int M, int cou
   const void* gp[1] = {g};
   const void* yp[1] = {y};
   return gn::make_gload<T>(gp, y ? yp : nullptr, gs, nullptr, M, cout, 1, 1);
+}
+
+// The one input grid with its act prologue, as the forward reads it.
+template <typename T>
+gn::GridLoad<T> std_load(const void* x, const float* mul, const float* add, int h, int w,
+                         int cin) {
+  gn::GridLoad<T> ld = {};
+  ld.src[0] = static_cast<const T*>(x);
+  ld.mul = mul;
+  ld.add = add;
+  ld.hw = h * w;
+  ld.hw5 = 5 * h * w;
+  ld.cin = cin;
+  ld.south_src = 0;
+  return ld;
 }
 
 // float32: the SIMT gather-GEMM over halo.std_dx_table; bf16: the folded
@@ -136,14 +168,7 @@ cudaError_t dtaps(const void* x, const float* mul, const float* add, const void*
                   int zero_poles, cudaStream_t stream) {
   const int M = 5 * h * w;
   const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
-  gn::GridLoad<T> ld = {};
-  ld.src[0] = static_cast<const T*>(x);
-  ld.mul = mul;
-  ld.add = add;
-  ld.hw = h * w;
-  ld.hw5 = M;
-  ld.cin = cin;
-  ld.south_src = 0;
+  const gn::GridLoad<T> ld = std_load<T>(x, mul, add, h, w, cin);
   const CastOut<T> st = {static_cast<T*>(out)};
   if constexpr (std::is_same_v<T, float>) {
     dim3 grid((7 * cin + gn::BM - 1) / gn::BM, (cout + gn::BN - 1) / gn::BN, n_chunks);
@@ -159,7 +184,7 @@ cudaError_t dtaps(const void* x, const float* mul, const float* add, const void*
   }
 }
 
-template <typename T>
+// float32: gn::merged_bwd, the SIMT tiles of both roles in one launch
 cudaError_t merged(const void* x, const float* mul, const float* add, const void* g,
                    const void* y, const float* gs, const void* taps, void* out,
                    const int* offsets, const int* cells, const float* weights, const int* table,
@@ -167,26 +192,86 @@ cudaError_t merged(const void* x, const float* mul, const float* add, const void
                    float* gsum, int B, int h, int w, int cin, int cout, int kc, int n_chunks,
                    cudaStream_t stream) {
   const int M = 5 * h * w;
-  const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
-  gn::DxOut<T> o = {};
-  o.out[0] = static_cast<T*>(out);
-  o.raw[0] = mul ? static_cast<const T*>(x) : nullptr;
+  const gn::GLoad<float> gl = gload<float>(g, y, gs, M, cout);
+  gn::DxOut<float> o = {};
+  o.out[0] = static_cast<float*>(out);
+  o.raw[0] = mul ? static_cast<const float*>(x) : nullptr;
   o.mul = mul;
   o.add = add;
   o.red = red;
   o.per = M;
-  gn::GridLoad<T> ld = {};
-  ld.src[0] = static_cast<const T*>(x);
-  ld.mul = mul;
-  ld.add = add;
-  ld.hw = h * w;
-  ld.hw5 = M;
-  ld.cin = cin;
-  ld.south_src = 0;
-  const CastOut<T> dt = {static_cast<T*>(dtaps)};
-  return gn::launch_merged_bwd<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul, dadd, B,
-                                  M, ld, table, 0, kc, n_chunks, ws, dt, gpart, gsum, nullptr, cin,
-                                  1, stream);
+  const CastOut<float> dt = {static_cast<float*>(dtaps)};
+  return gn::launch_merged_bwd<float>(gl, taps, nullptr, offsets, cells, weights, o, dmul, dadd,
+                                      B, M, std_load<float>(x, mul, add, h, w, cin), table, 0, kc,
+                                      n_chunks, ws, dt, gpart, gsum, nullptr, cin, 1, stream);
+}
+
+// bf16: the folded cotangent written once (f's pass, with the combined rows
+// of tb), the act-applied grid written once (f's operand pass, into
+// `operand`), the taps packed transposed, both GEMMs in one launch
+// (gn::mma_bwd over one input grid), then the d_mul/d_add sum (with the
+// act), the dtaps chunks' fixed-order sum rounded to bf16 (f's: sum_chunks,
+// or sum_rows past 32 chunks) and Σg_eff over the written rows (CotRowsG,
+// as f's dx).
+cudaError_t merged_mma(const void* x, const float* mul, const float* add,
+                       const gn::GLoad<__nv_bfloat16>& gl, const void* taps, void* out,
+                       const gn::DxTables& tb, const int* table, __nv_bfloat16* operand,
+                       float* red, float* dmul, float* dadd, float* ws, void* dtaps,
+                       float* gsum_ws, float* gsum, int B, int h, int w, int cin, int kc,
+                       int n_chunks, int gsum_rows, int zero_poles, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using Tag = gn::MergedStd;
+  const int M = 5 * h * w, cout = gl.cout;
+  // every table and scratch buffer, or no launch: the mask exactly where a
+  // sample's M rows fill whole 128-row tiles
+  if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr || tb.n_in != 1 ||
+      (tb.comb.n > 0 && (tb.comb.offsets == nullptr || tb.comb.cells == nullptr ||
+                         tb.comb.weights == nullptr)) ||
+      (tb.mask == nullptr) != (M % gn::fwd::BM != 0) || operand == nullptr ||
+      gsum_ws == nullptr || (mul != nullptr && red == nullptr) || kc % gn::mma::BK != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = gn::launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, 1, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_grid_operand<bf16, Tag>(std_load<bf16>(x, mul, add, h, w, cin), operand, B, 1,
+                                           zero_poles, stream);
+  if (err != cudaSuccess) return err;
+  err = gn::launch_pack_taps_t<Tag>(static_cast<const bf16*>(taps), nullptr, tb.wpack, cin, cout,
+                                    1, stream);
+  if (err != cudaSuccess) return err;
+  const bool narrow = gn::mma_narrow(cin);
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 1), gl, tb, B,
+                                        cin, 1, 0, 1, narrow, kc, n_chunks, ws);
+  gn::DxRows rows = {};
+  rows.out[0] = static_cast<bf16*>(out);
+  rows.raw[0] = mul ? static_cast<const bf16*>(x) : nullptr;
+  rows.mul = mul;
+  rows.add = add;
+  rows.red = red;
+  rows.cin = cin;
+  using Act = gn::DxEpi<true>;
+  using NoAct = gn::DxEpi<false>;
+  err = narrow ? (mul ? gn::launch_mma_bwd<Tag, true>(a, Act{rows}, stream)
+                      : gn::launch_mma_bwd<Tag, true>(a, NoAct{rows}, stream))
+               : (mul ? gn::launch_mma_bwd<Tag, false>(a, Act{rows}, stream)
+                      : gn::launch_mma_bwd<Tag, false>(a, NoAct{rows}, stream));
+  if (err != cudaSuccess) return err;
+  if (mul != nullptr) {
+    const gn::SplitOut st = {{dmul, dadd}, 2 * cin, cin};
+    err = gn::launch_sum_rows(red, gn::fwd_row_tiles(a.Qx), 2LL * cin, st, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const CastOut<bf16> st = {static_cast<bf16*>(dtaps)};
+  const long long C = 7LL * cin * cout;
+  if (n_chunks > 32) {
+    err = gn::launch_sum_rows(ws, n_chunks, C, st, stream);
+  } else {
+    gn::sum_chunks<CastOut<bf16>><<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(ws, n_chunks,
+                                                                                   C, st);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  const gn::CotRowsG cg = {tb.operand, M, 1, cout, a.cot.per_b, a.cot.ldk};
+  return gn::launch_gsum<bf16>(cg, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
 }
 
 }  // namespace
@@ -271,27 +356,51 @@ extern "C" int gn_ico_conv_dtaps_info(int narrow, int fold, int* out) {
 
 // The merged backward (_std_bwd, stride 1). x: the raw input (B, 5, h, w,
 // cin); mul/add: the act prologue or null (with it, dx is the raw input's
-// cotangent and dmul/dadd receive (cin) each, through red: float32 scratch
-// of (B * ceil(5hw/64), 2 * cin)); g, y, gs, taps: as in gn_ico_conv_dx;
-// out: dx (B, 5, h, w, cin); offsets/cells/weights: halo.std_dx_table;
-// table: halo.std_conv_table; ws: float32 scratch of (n_chunks, 7 * cin,
-// cout), the B * 5hw rows split in chunks of kc (a multiple of 16); dtaps:
-// (7, cin, cout) in the activation dtype; gpart: float32 scratch of
-// (n_chunks, cout), and gsum receives Σg_eff (cout). dtype: 0 float32, 1
-// bfloat16.
+// cotangent and dmul/dadd receive (cin) each, through red); g, y, gs, taps:
+// as in gn_ico_conv_dx; out: dx (B, 5, h, w, cin); table:
+// halo.std_conv_table; ws: float32 scratch of (n_chunks, 7 * cin, cout),
+// the B * 5hw rows split in chunks of kc; dtaps: (7, cin, cout) in the
+// activation dtype; gsum receives Σg_eff (cout). float32:
+// offsets/cells/weights, halo.std_dx_table; red of (B * ceil(5hw/64), 2 *
+// cin); kc a multiple of 16 (build.merged_scratch); gpart, float32 scratch
+// of (n_chunks, cout); the bf16 arguments null. bfloat16 (else the call is
+// refused): the bf16 arguments of gn_ico_conv_dx (codes .. tap_mask,
+// operand, wpack, red; n_comb) and of gn_ico_conv_dtaps (grid_operand; kc
+// a multiple of 32, build.grid_dtaps_split; zero_poles); gpart, float32
+// scratch of (ceil(B * 5hw / gsum_rows), cout) for Σg_eff's pass. dtype: 0
+// float32, 1 bfloat16.
 extern "C" int gn_ico_conv_bwd(const void* x, const float* mul, const float* add, const void* g,
                                const void* y, const float* gs, const void* taps, void* out,
                                const int* offsets, const int* cells, const float* weights,
+                               const int* codes, const int* comb_offsets, const int* comb_cells,
+                               const float* comb_weights, const unsigned char* tap_mask,
                                const int* table, float* red, float* dmul, float* dadd, float* ws,
-                               void* dtaps, float* gpart, float* gsum, int B, int h, int w,
-                               int cin, int cout, int kc, int n_chunks, int dtype, void* stream) {
+                               void* dtaps, float* gpart, float* gsum, void* operand, void* wpack,
+                               void* grid_operand, int B, int h, int w, int cin, int cout, int kc,
+                               int n_chunks, int n_comb, int gsum_rows, int zero_poles, int dtype,
+                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return merged<float>(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table, red,
-                         dmul, dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc, n_chunks, s);
-  if (dtype == 1)
-    return merged<__nv_bfloat16>(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table,
-                                 red, dmul, dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc,
-                                 n_chunks, s);
-  return cudaErrorInvalidValue;
+    return merged(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table, red, dmul,
+                  dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc, n_chunks, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
+                           static_cast<bf16*>(operand), static_cast<bf16*>(wpack), 1};
+  return merged_mma(x, mul, add, gload<bf16>(g, y, gs, 5 * h * w, cout), taps, out, tb, table,
+                    static_cast<bf16*>(grid_operand), red, dmul, dadd, ws, dtaps, gpart, gsum, B,
+                    h, w, cin, kc, n_chunks, gsum_rows, zero_poles, s);
+}
+
+// out[4]: registers a thread, blocks an SM, dynamic shared memory and local
+// memory (spills) of k's bf16 launch of both GEMMs (gn::mma_bwd), on f's
+// NARROW dtaps tile (a C_in of at most 64) or the wide one, with the act
+// epilogue or without.
+extern "C" int gn_ico_conv_bwd_info(int narrow, int act, int* out) {
+  using Tag = gn::MergedStd;
+  using Act = gn::DxEpi<true>;
+  using NoAct = gn::DxEpi<false>;
+  if (narrow)
+    return act ? gn::mma_bwd_info<Tag, true, Act>(out) : gn::mma_bwd_info<Tag, true, NoAct>(out);
+  return act ? gn::mma_bwd_info<Tag, false, Act>(out) : gn::mma_bwd_info<Tag, false, NoAct>(out);
 }

@@ -6,9 +6,10 @@
 // phase conv, the up conv, the standard conv and the phase chain's
 // stride-2 conv (a, c, f, m), the folded cotangent with its combined rows
 // (cot_operand_pass; m's read from the parity phases). mma_dtaps.cuh (the
-// tap gradients: d, n, b, f and m's; i's and j's over the written
-// cotangent) and mma_conv_fwd.cuh (the forwards: the up conv, n and the
-// grid convs; the dx of a, c, f, m, i and j) build their GEMMs on them.
+// tap gradients: d, n, b, f and m's; i's, j's and k's over the written
+// cotangent) and mma_conv_fwd.cuh (the forwards: the up conv, n, the grid
+// convs and m's; the dx of a, c, f, m, i, j and k) build their GEMMs on
+// them.
 #pragma once
 
 #include "backward.cuh"
@@ -430,7 +431,7 @@ __device__ __forceinline__ void cot8(const GLoad<__nv_bfloat16, SPLIT>& gl, int 
 // past n_sets * cout are zeros. SPLIT (m's dx): the M rows of the
 // stride-2 output grid, read from its 4 parity phases (cot8). Tag names
 // the instantiation (a's PhaseGrid, c's GridCells, f's StdGrid, m's
-// SplitGrid, i's MergedPhase, j's MergedUp) for a profile.
+// SplitGrid, i's MergedPhase, j's MergedUp, k's MergedStd) for a profile.
 template <typename Tag, bool SPLIT>
 __global__ void __launch_bounds__(256)
 cot_operand_pass(GLoad<__nv_bfloat16, SPLIT> gl, CombRows comb, __nv_bfloat16* __restrict__ out,
@@ -496,13 +497,14 @@ struct CotRowsG {
 // Tags of the grid convs' instantiations (operand pass, forward GEMM, dtaps
 // GEMM, dx pass and GEMM): a profile tells the phase conv's launches (a, b)
 // from the standard conv's (f) and the phase chain's stride-2 conv's (m's
-// dx and dtaps) by them; the code is one. MergedPhase and MergedUp tag the
-// merged backwards' passes and GEMMs (i, j).
+// forward, dx and dtaps) by them; the code is one. MergedPhase, MergedUp
+// and MergedStd tag the merged backwards' passes and GEMMs (i, j, k).
 struct PhaseGrid {};
 struct StdGrid {};
 struct SplitGrid {};
 struct MergedPhase {};
 struct MergedUp {};
+struct MergedStd {};
 
 // The operand's row loader of the GEMMs: rows of a built operand named by
 // the conv table of output phase p, tap t and cell m.

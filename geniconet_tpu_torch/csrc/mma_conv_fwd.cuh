@@ -9,13 +9,15 @@
 //
 // Replaces, in bf16: geniconet_tpu/ops/pallas/phase_kernel.py:
 // _up_conv_fwd_impl (pallas_call at :1999, _up_fwd_kernel), _updp (:2380,
-// _up_pair_fwd_kernel) and _phase_conv_fwd (:1272, _pc_fwd_kernel), and
-// conv_kernel.py:_pallas_forward (:253, _kernel); with the dx epilogues
+// _up_pair_fwd_kernel), _phase_conv_fwd (:1272, _pc_fwd_kernel) and _ds2s
+// (:1818, _ds2s_fwd_kernel), and conv_kernel.py:_pallas_forward (:253,
+// _kernel); with the dx epilogues
 // phase_kernel.py:_phase_conv_dx (:1336, _pc_dx_kernel), _upd_bwd's dx
 // call (:2123, _up_dx_kernel), _ds2s_bwd's dx call (:1895,
 // _ds2s_dx_kernel) and conv_kernel.py:_pallas_dx (:727, _dx_kernel), and
 // the dx roles of the merged _phase_conv_bwd (:932) and _upd_bwd (:2068)
-// (phase_conv_bwd.cu, up_conv_bwd.cu). The float32 path keeps
+// (phase_conv_bwd.cu, up_conv_bwd.cu) and conv_kernel.py:_std_bwd (:601,
+// ico_conv_bwd.cu). The float32 path keeps
 // gn::conv_gemm over gn::UpLoad / gn::GridLoad (common.cuh) and
 // gn::dx_gemm (backward.cuh), the SIMT core, bit for bit.
 //
@@ -64,7 +66,10 @@
 //    memory, in a fixed order), then one fixed-order gn::sum_rows over the
 //    row tiles. No atomics: results repeat exactly, and d and n, which run
 //    this GEMM on bit-equal operands with the same split, are bit-equal on
-//    the joined grid.
+//    the joined grid. m's forward (ds2s.cu) is the phase conv's at output
+//    phase 2 with the split store (SplitFwdEpi: each row to its parity
+//    phase by split_row), so it equals phase_conv_fwd + phase_split bit for
+//    bit.
 // 5. dx (a, c, f; m's is a's) is the same GEMM transposed: dx[p][m][k] =
 //    sum_t sum_n G[row_t(p, m)][n] W[t][k][n] over the rows (sample, input
 //    phase, cell) of the n_in input phases (4; f: its one grid, n_in = 1).
@@ -219,14 +224,18 @@ __device__ __forceinline__ void block_column_sums(float (&u)[4][2], float (&v)[4
 // The forward's epilogue: the bias added in float32, rounded to bf16,
 // stored at out[set][slot][(b * 5hw + m) * cout + c], two columns at a time;
 // with STATS, [Σy, Σy²] of the rounded values into the row tile's partials.
+// store() is the body for any placement of a row: place(b, slot, m, at)
+// returns the output slot of row q = (b, slot, m) and sets `at` to its row
+// in that slot's tensor (m's split store: SplitFwdEpi).
 template <bool STATS>
 struct FwdEpi {
   static constexpr bool kMasked = false;  // every tap, every row tile
   FwdOut o;
   int cout, n_sets;
 
-  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
-                                             unsigned char* smem_raw) const {
+  template <typename Place>
+  __device__ __forceinline__ void store(const float (&acc)[4][4][4], const EpiPos& p,
+                                        unsigned char* smem_raw, const Place& place) const {
     using bf16 = __nv_bfloat16;
     const int Ntot = n_sets * cout, M = p.M;
     // column n is channel n - cout of set 1 from n = cout on (at most two
@@ -250,9 +259,11 @@ struct FwdEpi {
         const int q = p.row(mi, h);
         if (q >= p.Q) continue;
         const int b = q / p.per, r = q - b * p.per, slot = r / M, m = r - slot * M;
-        const size_t row = ((size_t)b * M + m) * cout;
-        bf16* row0 = pick4(o.out[0], slot) + row;
-        bf16* row1 = pick4(o.out[1], slot) + row;
+        size_t at;
+        const int out_slot = place(b, slot, m, at);
+        const size_t row = at * cout;
+        bf16* row0 = pick4(o.out[0], out_slot) + row;
+        bf16* row1 = pick4(o.out[1], out_slot) + row;
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
           const int n = p.col(ni);
@@ -280,6 +291,42 @@ struct FwdEpi {
     if constexpr (STATS)
       block_column_sums(csum, csq, smem_raw, p, o.stats + p.row_tile() * 2 * Ntot, Ntot);
   }
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
+                                             unsigned char* smem_raw) const {
+    const int M = p.M;
+    store(acc, p, smem_raw, [M](int b, int slot, int m, size_t& at) {
+      at = (size_t)b * M + m;
+      return slot;
+    });
+  }
+};
+
+// m's forward epilogue: FwdEpi's with the split store (split_row): row m =
+// (chart, i, j) of the stride-2 output grid (5, 2^lh, 2^lw), its one output
+// slot, goes to o.out[set][2 * (i & 1) + (j & 1)] at (chart, i >> 1, j >> 1)
+// of the (5, 2^(lh-1), 2^(lw-1)) phase, row by row (a 128-row tile spans
+// chart seams and, at M = 160, samples). A row is still cout contiguous
+// values, so the paired 4-byte stores stay; the stats come from the same
+// rounded values in the same order, so they are FwdEpi's bit for bit.
+template <bool STATS>
+struct SplitFwdEpi {
+  static constexpr bool kMasked = false;
+  FwdEpi<STATS> f;
+  int lh, lw;
+
+  __device__ __forceinline__ void operator()(const float (&acc)[4][4][4], const EpiPos& p,
+                                             unsigned char* smem_raw) const {
+    const int lh_ = lh, lw_ = lw;
+    f.store(acc, p, smem_raw, [lh_, lw_](int b, int, int m, size_t& at) {
+      return split_row(b, m, lh_, lw_, at);
+    });
+  }
+};
+
+// The split store's output grid (m): h = 2^lh, w = 2^lw.
+struct SplitStore {
+  int lh, lw;
 };
 
 // Where the phase conv's dx GEMM writes (a): the 4 input phases (B, 5, h,
@@ -416,8 +463,8 @@ struct DuEpi {
 // its copies have landed, and the epilogue may still read the ring (a
 // caller that runs another tile passes a __syncthreads first). The
 // standalone GEMM (mma_conv), the merged blocks' cooperative launch
-// (mma_block_fwd.cuh) and the merged backwards' launch of both GEMMs (i, j)
-// run this one function.
+// (mma_block_fwd.cuh) and the merged backwards' launch of both GEMMs (i,
+// j, k) run this one function.
 template <typename Epi>
 __device__ __forceinline__ void mma_conv_tile(const OperandRows& ld,
                                               const __nv_bfloat16* __restrict__ wp,
@@ -578,13 +625,15 @@ cudaError_t launch_mma_conv(const dim3& grid, const OperandRows& ld,
 // The GEMM over a built operand's rows `ld` into n_out output phase slots
 // from out_phase0: the taps packed into `wpack` ((7 * k_pad(cin),
 // n_pad(n_sets * cout))), the GEMM, and with o.stats (row tiles, 2 * n_sets
-// * cout) the fixed-order sum into stats[set] (2, cout).
-template <typename Tag>
+// * cout) the fixed-order sum into stats[set] (2, cout). SPLIT (m): one
+// output slot, stored by the split map of the `split` grid (SplitFwdEpi)
+// into o.out[set][0 .. 3], the parity phases.
+template <typename Tag, bool SPLIT = false>
 cudaError_t launch_mma_fwd_rows(const OperandRows& ld, const FwdOut& o,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                                 __nv_bfloat16* wpack, int B, int cin, int cout, int n_sets,
                                 int out_phase0, int n_out, float* const* stats,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, SplitStore split = {}) {
   const int Ntot = n_sets * cout, Kp = fwd::k_pad(cin), Np = fwd::n_pad(Ntot);
   const long long packed = 7LL * Kp * Np;
   pack_taps<__nv_bfloat16, Tag><<<(unsigned)((packed + 255) / 256), 256, 0, stream>>>(
@@ -593,11 +642,18 @@ cudaError_t launch_mma_fwd_rows(const OperandRows& ld, const FwdOut& o,
   if (err != cudaSuccess) return err;
   const int Q = B * n_out * ld.M, row_tiles = fwd_row_tiles(Q);
   const dim3 grid(Np / fwd::BN, row_tiles);
-  err = o.stats != nullptr
-            ? launch_mma_conv<Tag>(grid, ld, wpack, FwdEpi<true>{o, cout, n_sets}, out_phase0,
-                                   n_out, Q, Np, Kp / fwd::BK, nullptr, stream)
-            : launch_mma_conv<Tag>(grid, ld, wpack, FwdEpi<false>{o, cout, n_sets}, out_phase0,
-                                   n_out, Q, Np, Kp / fwd::BK, nullptr, stream);
+  auto gemm = [&](const auto& epi) {
+    return launch_mma_conv<Tag>(grid, ld, wpack, epi, out_phase0, n_out, Q, Np, Kp / fwd::BK,
+                                nullptr, stream);
+  };
+  if constexpr (SPLIT) {
+    err = o.stats != nullptr
+              ? gemm(SplitFwdEpi<true>{{o, cout, n_sets}, split.lh, split.lw})
+              : gemm(SplitFwdEpi<false>{{o, cout, n_sets}, split.lh, split.lw});
+  } else {
+    err = o.stats != nullptr ? gemm(FwdEpi<true>{o, cout, n_sets})
+                             : gemm(FwdEpi<false>{o, cout, n_sets});
+  }
   if (err != cudaSuccess || o.stats == nullptr) return err;
   const SplitOut st = {{stats[0], stats[1]}, Ntot, cout};
   return launch_sum_rows(o.stats, row_tiles, 2LL * Ntot, st, stream);
@@ -622,23 +678,26 @@ cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const Fw
 
 // A grid conv's bf16 forward (the phase conv: n_src = 4 phases in src.src,
 // table halo.phase_conv_table, output phases out_phase0 .. +n_out-1; the
-// standard conv: n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1):
-// the act-applied operand written once into `operand` ((B * (n_src * 5hw +
-// 2) + 1, operand_width(cin))), then launch_mma_fwd_rows.
-template <typename Tag>
+// standard conv: n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1; m:
+// the phase conv at output phase 2, SPLIT, stored into the parity phases of
+// the `split` grid): the act-applied operand written once into `operand`
+// ((B * (n_src * 5hw + 2) + 1, operand_width(cin))), then
+// launch_mma_fwd_rows.
+template <typename Tag, bool SPLIT = false>
 cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, const int* table,
                                 const FwdOut& o, const __nv_bfloat16* w0,
                                 const __nv_bfloat16* w1, __nv_bfloat16* operand,
                                 __nv_bfloat16* wpack, int zero_poles, int B, int cout,
                                 int n_sets, int out_phase0, int n_out, float* const* stats,
-                                cudaStream_t stream) {
-  if (operand == nullptr || wpack == nullptr) return cudaErrorInvalidValue;
+                                cudaStream_t stream, SplitStore split = {}) {
+  if (operand == nullptr || wpack == nullptr || (SPLIT && n_out != 1))
+    return cudaErrorInvalidValue;
   cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
                                                             stream);
   if (err != cudaSuccess) return err;
-  return launch_mma_fwd_rows<Tag>(operand_rows(operand, table, B, src.hw5, src.cin, n_src), o,
-                                  w0, w1, wpack, B, src.cin, cout, n_sets, out_phase0, n_out,
-                                  stats, stream);
+  return launch_mma_fwd_rows<Tag, SPLIT>(operand_rows(operand, table, B, src.hw5, src.cin, n_src),
+                                         o, w0, w1, wpack, B, src.cin, cout, n_sets, out_phase0,
+                                         n_out, stats, stream, split);
 }
 
 // The dx GEMMs' operand rows (a, c, f): the cotangent operand that
@@ -659,8 +718,8 @@ inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int 
 }
 
 // The tap sets packed transposed into `wpack` ((7 * k_pad(n_sets * cout),
-// n_pad(cin))), the B operand of the dx GEMMs (a, c, f, j). Tag names the
-// instantiation.
+// n_pad(cin))), the B operand of the dx GEMMs (a, c, f, i, j, k). Tag
+// names the instantiation.
 template <typename Tag>
 cudaError_t launch_pack_taps_t(const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                                __nv_bfloat16* wpack, int cin, int cout, int n_sets,
@@ -773,9 +832,10 @@ cudaError_t mma_conv_info(int* out) {
   return err;
 }
 
-template <typename Tag, bool STATS>
+template <typename Tag, bool STATS, bool SPLIT = false>
 cudaError_t mma_conv_fwd_info(int* out) {
-  return mma_conv_info<Tag, FwdEpi<STATS>>(out);
+  if constexpr (SPLIT) return mma_conv_info<Tag, SplitFwdEpi<STATS>>(out);
+  else return mma_conv_info<Tag, FwdEpi<STATS>>(out);
 }
 
 }  // namespace gn

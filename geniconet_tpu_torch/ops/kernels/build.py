@@ -36,7 +36,7 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "block_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
-    "up_bwd_info", "phase_bwd_info",
+    "up_bwd_info", "phase_bwd_info", "std_bwd_info", "ds2s_fwd_info",
     "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts", "MAX_SLOTS",
     "MAX_SM_IDS",
 ]
@@ -146,8 +146,10 @@ _SIGNATURES = {
     "gn_phase_conv_bwd_info": [_INT, _INT, _VP],
     "gn_up_dual_conv_bwd": [_VP] * 31 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_bwd_info": [_VP],
-    "gn_ico_conv_bwd": [_VP] * 19 + [_INT] * 8 + [_VP],
-    "gn_ds2s_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
+    "gn_ico_conv_bwd": [_VP] * 27 + [_INT] * 11 + [_VP],
+    "gn_ico_conv_bwd_info": [_INT, _INT, _VP],
+    "gn_ds2s_fwd": [_VP] * 17 + [_INT] * 8 + [_VP],
+    "gn_ds2s_fwd_info": [_INT, _VP],
     "gn_ds2s_dx": [_VP] * 26 + [_INT] * 9 + [_VP],
     "gn_ds2s_dx_info": [_INT, _VP],
     "gn_ds2s_dtaps": [_VP] * 15 + [_INT] * 11 + [_VP],
@@ -299,6 +301,13 @@ def grid_fwd_info(std: bool, stats: bool) -> dict:
     return _gemm_info("gn_ico_conv_fwd_info" if std else "gn_phase_conv_fwd_info", stats)
 
 
+def ds2s_fwd_info(stats: bool) -> dict:
+    """``grid_fwd_info`` for m's bf16 forward GEMM: the phase conv's at
+    output phase 2 with the split store in its epilogue, with the stats
+    epilogue or without."""
+    return _gemm_info("gn_ds2s_fwd_info", stats)
+
+
 def block_fwd_info(up: bool) -> dict:
     """``mma_dtaps_info`` for the merged blocks' bf16 cooperative kernel: o's
     (``up``) or p's."""
@@ -332,6 +341,13 @@ def phase_bwd_info(narrow: bool, act: bool) -> dict:
     NARROW tile or the wide one, and a's dx tiles, with the act epilogue or
     without)."""
     return _gemm_info("gn_phase_conv_bwd_info", narrow, act)
+
+
+def std_bwd_info(narrow: bool, act: bool) -> dict:
+    """``mma_dtaps_info`` for k's bf16 launch of both GEMMs (``mma_bwd``:
+    f's dtaps tiles over the written cotangent, on the NARROW tile or the
+    wide one, and f's dx tiles, with the act epilogue or without)."""
+    return _gemm_info("gn_ico_conv_bwd_info", narrow, act)
 
 
 def mma_dx_info(up: bool, act: bool = False, std: bool = False, split: bool = False) -> dict:
@@ -387,8 +403,10 @@ def scratch(n: int, device) -> torch.Tensor:
 
 
 def merged_scratch(rows: int, cin: int, ntot: int, device):
-    """(kc, n_chunks, dtaps partials, Σg partials) of a merged backward
-    kernel whose dtaps reduce over ``rows`` rows of g into (7·cin, ntot)."""
+    """(kc, n_chunks, dtaps partials, Σg partials) of a float32 merged
+    backward kernel (i, j, k's SIMT tiles) whose dtaps reduce over ``rows``
+    rows of g into (7·cin, ntot); in bf16 each takes its split route's
+    dtaps split."""
     kc, n_chunks = dtaps_split(rows, n_tiles(7 * cin) * n_tiles(ntot))
     return (kc, n_chunks, scratch(n_chunks * 7 * cin * ntot, device),
             scratch(n_chunks * ntot, device))

@@ -21,7 +21,10 @@ Port of ``geniconet_tpu/ops/pallas/conv_kernel.py``:
   (``csrc/mma_dtaps.cuh``), in float32 the SIMT GEMM;
 * ``ico_conv_s2s_bwd``   -> ``csrc/ico_conv_bwd.cu`` (``_std_bwd``, stride 1:
   the merged one-pass backward, dx with the act adjoint, dtaps, Σg_eff and
-  d_mul/d_add from one launch).
+  d_mul/d_add); in bf16 the two passes of the split pair over one folded
+  cotangent and one launch of both tensor-core GEMMs
+  (``csrc/mma_merged_bwd.cuh``), bit-equal to ``ico_conv_s2s_dx`` +
+  ``ico_conv_s2s_dtaps``; in float32 one launch of the SIMT tiles of both.
 
 ``y`` and ``gs`` (the forward output and the cotangent of its stats) switch
 on the in-kernel fold g_eff = g + gs0 + 2·gs1·y, rounded to the activation
@@ -38,7 +41,7 @@ import torch
 from geniconet_tpu_torch.ops.conv import ico_conv_s2s
 from geniconet_tpu_torch.ops.kernels import build
 from geniconet_tpu_torch.ops.kernels.build import act_apply, check_act, expect, grid_level, on_cuda
-from geniconet_tpu_torch.ops.kernels.halo import device_dx_table, device_table
+from geniconet_tpu_torch.ops.kernels.halo import device_table
 from geniconet_tpu_torch.ops.kernels.phase_kernel import (
     dx_scratch, dx_tables, fwd_scratch, geff_plain, grid_dtaps_scratch, stats_plain,
 )
@@ -235,7 +238,12 @@ def ico_conv_s2s_bwd(x, g, taps, y=None, gs=None, corner_mode: str = "average", 
     raw input's cotangent and adds d_mul, d_add; out_dtype: x's dtype.
     Returns (dx, dtaps rounded to x's dtype (as ``_bwd`` rounds them),
     float32 Σg_eff (C_out,), d_mul, d_add (float32 (C_in,), or None without
-    act))."""
+    act)). In bf16 ``ico_conv_s2s_dx``'s cotangent pass and
+    ``ico_conv_s2s_dtaps``' operand pass (with their tables, scratch and
+    split), one launch of both tensor-core GEMMs, then the sums: the outputs
+    equal ``ico_conv_s2s_dx(..., emit_gsum=True)`` + ``ico_conv_s2s_dtaps``
+    bit for bit. In float32 one launch of the SIMT tiles of both roles, then
+    the sums."""
     if not on_cuda(x, "ico_conv_s2s_bwd"):
         return ico_conv_s2s_bwd_plain(x, g, taps, y, gs, corner_mode, act, with_stats,
                                       out_dtype)
@@ -256,23 +264,31 @@ def ico_conv_s2s_bwd(x, g, taps, y=None, gs=None, corner_mode: str = "average", 
     check_act(act, cin, dev, "ico_conv_s2s_bwd")
     M = 5 * h * w
     dx = torch.empty((B, 5, h, w, cin), dtype=dt, device=dev)
-    offsets, cells, weights = device_dx_table("std", h, w, corner_mode, dev)
+    tables, n_comb = dx_tables("std", dt, h, w, corner_mode, dev)
+    red, operand, wpack, _ = dx_scratch(dt, B, h, w, cin, 1, cout, 1, n_comb, act is not None,
+                                        False, dev, n_in=1)
+    if dt == torch.bfloat16:
+        kc, n_chunks, ws, grid_op = grid_dtaps_scratch(dt, B, h, w, cin, cout, 1, 1, dev)
+        gpart = build.scratch(-(-B * M // build.GSUM_ROWS) * cout, dev)
+    else:
+        grid_op = None
+        kc, n_chunks, ws, gpart = build.merged_scratch(B * M, cin, cout, dev)
     table = device_table("std", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    red = dmul = dadd = None
+    dmul = dadd = None
     if act is not None:
-        red = build.scratch(B * build.n_tiles(M) * 2 * cin, dev)
         dmul, dadd = (torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(2))
-    kc, n_chunks, ws, gpart = build.merged_scratch(B * M, cin, cout, dev)
     dtaps = torch.empty((7, cin, cout), dtype=dt, device=dev)
     gsum = torch.empty(cout, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = build.library().gn_ico_conv_bwd(
             x.data_ptr(), build.ptr(mul), build.ptr(add), g.data_ptr(), build.ptr(y),
-            build.ptr(gs), taps.data_ptr(), dx.data_ptr(), offsets.data_ptr(), cells.data_ptr(),
-            weights.data_ptr(), table.data_ptr(), build.ptr(red), build.ptr(dmul),
-            build.ptr(dadd), ws.data_ptr(), dtaps.data_ptr(), gpart.data_ptr(), gsum.data_ptr(),
-            B, h, w, cin, cout, kc, n_chunks, build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr(gs), taps.data_ptr(), dx.data_ptr(), *map(build.ptr, tables),
+            table.data_ptr(), build.ptr(red), build.ptr(dmul), build.ptr(dadd), ws.data_ptr(),
+            dtaps.data_ptr(), gpart.data_ptr(), gsum.data_ptr(), build.ptr(operand),
+            build.ptr(wpack), build.ptr(grid_op), B, h, w, cin, cout, kc, n_chunks, n_comb,
+            build.GSUM_ROWS, int(corner_mode == "zeros"), build.dtype_code(dt),
+            build.stream_ptr(dev),
         )
     build.check("ico_conv_s2s_bwd", err)
     build.LAUNCHES["ico_conv_s2s_bwd"] += 1

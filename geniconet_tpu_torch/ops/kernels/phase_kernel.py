@@ -740,7 +740,12 @@ def ds2s_fwd(phases, tap_sets, corner_mode: str = "average", act=None, with_stat
     phases, tap_sets, act, with_stats: as ``phase_conv_fwd`` with out_phases
     (2,). Returns, per tap set, a 4-tuple of (B, 5, h/2, w/2, C_out) phases
     (the ``phase_split`` of its (B, 5, h, w, C_out) output); with
-    ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]."""
+    ``with_stats`` also the per-set (2, C_out) [Σy, Σy²]. In bf16
+    ``phase_conv_fwd``'s path at output phase 2 (``fwd_scratch``: the operand
+    pass, the taps packed, the tensor-core GEMM, the stats' sum) with the
+    split store in the GEMM's epilogue; in float32 the SIMT GEMM with the
+    split store. Either way the outputs and stats equal ``phase_conv_fwd``
+    (2,) followed by ``phase_split`` bit for bit."""
     if len(phases) != 4:
         raise ValueError(f"ds2s_fwd: takes 4 phases, got {len(phases)}")
     x0 = phases[0]
@@ -759,13 +764,14 @@ def ds2s_fwd(phases, tap_sets, corner_mode: str = "average", act=None, with_stat
             for _ in range(4 * n_sets)]
     table = device_table("phase", h, w, corner_mode, dev)
     mul, add = act if act is not None else (None, None)
-    stats, ws = _stats_outputs(with_stats, B * build.n_tiles(5 * h * w), n_sets, cout, dev)
+    stats, ws, operand, wpack = fwd_scratch(dt, B, h, w, cin, n_sets, cout, 4, 1, with_stats,
+                                            dev)
     with torch.cuda.device(dev):
         err = build.library().gn_ds2s_fwd(
             *[p.data_ptr() for p in phases], build.ptr(mul), build.ptr(add),
             *_set_ptrs(tap_sets), build.ptr_array(outs), table.data_ptr(), build.ptr(ws),
-            *_pair(stats), B, h, w, cin, cout, n_sets, build.dtype_code(dt),
-            build.stream_ptr(dev),
+            *_pair(stats), build.ptr(operand), build.ptr(wpack), B, h, w, cin, cout, n_sets,
+            int(corner_mode == "zeros"), build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("ds2s_fwd", err)
     build.LAUNCHES["ds2s_fwd"] += 1

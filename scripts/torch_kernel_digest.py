@@ -21,6 +21,9 @@ the s=5 head, and the merged blocks (o, ``up_block_fwd``, at up1; p,
 ``up_dual_conv_bwd``, at up1) and m's dtaps (``ds2s_dtaps``, at down1),
 each with the fold and without, and the merged phase-conv backward (i,
 ``phase_conv_bwd``, at up2's conv01 and down1's stride-2 conv, with the
+act, with the fold and without), and m's forward (``ds2s_fwd``, at down1
+with the act and stats, at down2 without) and the merged standard-conv
+backward (k, ``ico_conv_s2s_bwd``, at down1's and down2's conv01, with the
 act, with the fold and without), and prints one line per call: ``digest <kernel> <dtype> <case>
 <sha256 of the outputs' bytes>``. ``--root`` names the checkout whose
 ``geniconet_tpu_torch`` is imported (default: the one this script is in),
@@ -279,6 +282,33 @@ def main():
                 line("phase_conv_bwd", dt, f"{case} fold={fold}",
                      lambda: pk.phase_conv_bwd(ph, g, y if fold else None, gs if fold else None,
                                                sets, "average", out_phases, a, fold, dt))
+    for dt in (torch.bfloat16, torch.float32):
+        # m's forward (ds2s_fwd) at down1 with the pending act and stats and
+        # at down2 without either, and the merged standard-conv backward (k,
+        # ico_conv_s2s_bwd) at down1's and down2's conv01 with the act, each
+        # with the fold and without, after the lines above (a generator of
+        # their own)
+        gen = torch.Generator().manual_seed(18)
+        a128 = (torch.rand(128, generator=gen).add(0.5).to("cuda"),
+                (0.3 * torch.randn(128, generator=gen)).to("cuda"))
+        for case, (h, w, cin, cout, a, stats) in {
+                "down1+stats": (8, 16, 128, 256, a128, True),
+                "down2_no_act": (4, 8, 256, 256, None, False)}.items():
+            ph = [rnd(gen, B, 5, h, w, cin, dt=dt) for _ in range(4)]
+            sets = [(rnd(gen, 7, cin, cout, dt=dt, scale=cin**-0.5), rnd(gen, cout, dt=dt))
+                    for _ in range(2)]
+            line("ds2s_fwd", dt, case, lambda: pk.ds2s_fwd(ph, sets, "average", a, stats))
+        for case, (h, w) in {"down1_conv01": (8, 16), "down2_conv01": (4, 8)}.items():
+            x, g, y = (rnd(gen, B, 5, h, w, 256, dt=dt) for _ in range(3))
+            t = rnd(gen, 7, 256, 256, dt=dt, scale=256**-0.5)
+            gs = rnd(gen, 2, 256, dt=torch.float32, scale=1e-3)
+            a256 = (torch.rand(256, generator=gen).add(0.5).to("cuda"),
+                    (0.3 * torch.randn(256, generator=gen)).to("cuda"))
+            for fold in (True, False):
+                line("ico_conv_s2s_bwd", dt, f"{case} fold={fold}",
+                     lambda: ck.ico_conv_s2s_bwd(x, g, t, y if fold else None,
+                                                 gs if fold else None, "average", a256, fold,
+                                                 dt))
 
 
 if __name__ == "__main__":

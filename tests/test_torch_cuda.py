@@ -668,6 +668,42 @@ def test_up_dual_conv_bwd_is_the_split_pair(cuda, case, corner_mode):
         _close_all(got, pk.up_dual_conv_bwd_plain(x, g, sets, corner_mode, **fk), dt)
 
 
+# (level s, C_in, C_out) of k's bit-for-bit cases: levels 2 and 4 at a
+# NARROW C_in (level 2 is a (4, 8) grid: 160 rows a sample, no tap mask, row
+# tiles straddling samples), and a down2-conv01-like C_in of 256 at level 2
+STD_BWD_CASES = {"s2": (2, 12, 20), "s4": (4, 12, 20), "down2 conv01": (2, 256, 256)}
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", list(STD_BWD_CASES))
+def test_ico_conv_bwd_is_the_split_pair(cuda, case, corner_mode):
+    """Kernel k in bf16 is f's split route over one folded cotangent: f's
+    cotangent pass, f's operand pass, one launch of f's dtaps and dx GEMMs
+    (the dtaps over the written rows, whose values are f's in-kernel fold:
+    both round ``fold_geff`` once), then f's sums. So dx, the bf16 dtaps,
+    Σg_eff, d_mul and d_add equal ``ico_conv_s2s_dx(emit_gsum=True)`` +
+    ``ico_conv_s2s_dtaps`` bit for bit, with the act and the fold on and
+    off, in one launch of the wrapper."""
+    s, cin, cout = STD_BWD_CASES[case]
+    dt = torch.bfloat16
+    x, act, sets = _inputs(cuda, dt, s, cin, cout, seed=160 + s)
+    taps = sets[0][0]
+    mk, gs = _stats_fold(cuda, dt, x.shape[:-1] + (cout,), 1, seed=s)
+    for a, fold in [(act, True), (None, False), (act, False), (None, True)]:
+        g = mk(1)[0][0]
+        y, g_s = (mk(1)[0][0], gs[0]) if fold else (None, None)
+        build.reset_launches()
+        got = ck.ico_conv_s2s_bwd(x, g, taps, y, g_s, corner_mode, a, fold, dt)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"ico_conv_s2s_bwd": 1}
+        assert got[1].dtype == dt
+        dx, dmul, dadd, gsum = ck.ico_conv_s2s_dx(g, taps, corner_mode, dt, a, x, y, g_s, True)
+        _equal_all(got, (dx, ck.ico_conv_s2s_dtaps(x, g, corner_mode, a, y, g_s), gsum, dmul,
+                         dadd))
+        _close_all(got, ck.ico_conv_s2s_bwd_plain(x, g, taps, y, g_s, corner_mode, a, fold, dt),
+                   dt)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("corner_mode", MODES)
 @pytest.mark.parametrize("s", [1, 4])
@@ -805,28 +841,26 @@ def test_ds2s_is_the_phase_conv_split(cuda, s, corner_mode, dt):
     split is addressing only (the same GEMM, row order and loads), so the
     outputs and stats equal ``phase_conv_fwd`` + ``phase_split``, and dx,
     d_mul/d_add, dtaps and Σg_eff equal ``phase_conv_dx`` /
-    ``phase_conv_dtaps`` on the ``phase_merge``d cotangents, bit for bit;
-    and m is within the tolerance of its plain versions. In bf16 the phase
-    conv's forward and dtaps run the tensor-core GEMMs and m's the SIMT
-    ones: both sum the same exact bf16 products in float32, in two orders,
-    so m's outputs are within one bf16 ulp of max|ref| (``_within_ulp``;
-    the stats, sums of outputs that differ by such roundings, within TOL).
-    m's bf16 dx is a's cotangent pass (its rows read from the phases),
-    tensor-core GEMM, epilogue and Σg_eff pass, and m's bf16 dtaps is b's
-    operand pass and tensor-core GEMM with its cotangent rows read from the
-    phases (the same values, split and sums), so dx, d_mul, d_add, dtaps and
-    Σg_eff equal a's and b's bit for bit in both dtypes."""
+    ``phase_conv_dtaps`` on the ``phase_merge``d cotangents, bit for bit in
+    both dtypes; and m is within the tolerance of its plain versions. In
+    bf16 m's forward is the phase conv's tensor-core forward at output
+    phase 2 (its operand pass, tap pack and GEMM) with the split store in
+    the GEMM's epilogue, each row to its parity phase (at s=2 a 128-row tile
+    spans both samples); its stats are taken of the same rounded values in
+    the same row-tile order. With the act and without, 1 and 2 tap sets,
+    with stats and without. m's bf16 dx is a's cotangent pass (its rows read
+    from the phases), tensor-core GEMM, epilogue and Σg_eff pass, and m's
+    bf16 dtaps is b's operand pass and tensor-core GEMM with its cotangent
+    rows read from the phases (the same values, split and sums)."""
     x, act, sets = _inputs(cuda, dt, s, 12, 20, seed=130 + s)
     phases = _split(x)
-    for a in (act, None):
-        got = pk.ds2s_fwd(phases, sets, corner_mode, a, with_stats=True)
-        ref_sets, ref_stats = pk.phase_conv_fwd(phases, sets, corner_mode, (2,), a, True)
-        if dt == torch.float32:
-            _equal_all(got, ([_split(y) for (y,) in ref_sets], ref_stats))
-        else:  # bf16 phase_conv_fwd runs the tensor-core GEMM
-            _within_ulp(got[0], [_split(y) for (y,) in ref_sets])
-            _close_all(got[1], ref_stats, dt)
-        _close_all(got, pk.ds2s_fwd_plain(phases, sets, corner_mode, a, True), dt)
+    for a, n, with_stats in ((act, 2, True), (None, 2, True), (act, 1, True), (None, 1, False)):
+        got = pk.ds2s_fwd(phases, sets[:n], corner_mode, a, with_stats)
+        ref = pk.phase_conv_fwd(phases, sets[:n], corner_mode, (2,), a, with_stats)
+        ref_sets = ref[0] if with_stats else ref
+        split = [_split(y) for (y,) in ref_sets]
+        _equal_all(got, (split, ref[1]) if with_stats else split)
+        _close_all(got, pk.ds2s_fwd_plain(phases, sets[:n], corner_mode, a, with_stats), dt)
     mk, gs = _stats_fold(cuda, dt, phases[0].shape[:2] + (2 ** (s - 2), 2 ** (s - 1), 20), 2,
                          seed=s)
     shapes = [(7, 12, 20)] * 2
@@ -2225,9 +2259,9 @@ def test_bf16_step_with_the_merged_phase_passes(cuda, model, route):
     inputs, and every call of m's dx equals ``phase_conv_dx`` at output
     phase 2 on the ``phase_merge``d cotangents, bit for bit. A trace of the
     step shows ``mma_bwd<MergedPhase>`` once a call of i and m's tensor-core dx
-    (``mma_conv<SplitGrid, DxEpi>``) once a call of m's dx, the SIMT
-    ``merged_bwd<bf16, GridLoad>`` only for k's calls and no bf16
-    ``dx_gemm`` of m."""
+    (``mma_conv<SplitGrid, DxEpi>``) once a call of m's dx, and neither the
+    SIMT ``merged_bwd<bf16, GridLoad>`` (k runs the tensor cores too) nor a
+    bf16 ``dx_gemm`` of m."""
     from unittest import mock
 
     from geniconet_tpu_torch.ops.kernels import fused
@@ -2269,8 +2303,79 @@ def test_bf16_step_with_the_merged_phase_passes(cuda, model, route):
     want_i, want_m = (n, 0) if route == "merged" else (0, n)
     assert count[("mma_bwd", "MergedPhase")] == want_i, count
     assert count[("mma_conv", "DxEpi", "SplitGrid")] == want_m, count
-    assert count[("merged_bwd", "bfloat16", "GridLoad")] == launches.get("ico_conv_s2s_bwd", 0)
+    assert count[("merged_bwd", "bfloat16", "GridLoad")] == 0, count
     assert count[("dx_gemm", "bfloat16", "true")] == 0, count
+
+
+@pytest.mark.parametrize("route", ["merged", "chain all"])
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_merged_std_and_split_fwd(cuda, model, route):
+    """A bf16 training step on the merged backward route (k at the
+    DownBlocks' conv01) and on both chains (m's forward at the chained
+    DownBlocks). In the step, every call of k equals ``ico_conv_s2s_dx``
+    (with Σg_eff) + ``ico_conv_s2s_dtaps`` on that call's own inputs, and
+    every call of m's forward equals ``phase_conv_fwd`` at output phase 2 +
+    ``phase_split``, bit for bit. A trace of the step shows
+    ``mma_bwd<MergedStd>`` once a call of k and m's tensor-core forward
+    (``mma_conv<SplitGrid, SplitFwdEpi>``) once a call of m's forward, and
+    neither the SIMT ``merged_bwd<bf16, GridLoad>`` nor a bf16
+    ``conv_gemm`` with the split store."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    routing = dict(merged_bwd="all") if route == "merged" else dict(phase_chain="1")
+    calls = []
+
+    def checked_k(x, g, taps, y, gs, corner_mode, act, with_stats, dt):
+        got = ck.ico_conv_s2s_bwd(x, g, taps, y, gs, corner_mode, act, with_stats, dt)
+        y, gs = (y, gs) if with_stats else (None, None)
+        dx, dmul, dadd, gsum = ck.ico_conv_s2s_dx(g, taps, corner_mode, dt, act, x, y, gs, True)
+        dtaps = ck.ico_conv_s2s_dtaps(x, g, corner_mode, act, y, gs)
+        calls.append(("k", got, (dx, dtaps, gsum, dmul, dadd)))
+        return got
+
+    def checked_m(phases, sets, corner_mode, act=None, with_stats=False):
+        got = pk.ds2s_fwd(phases, sets, corner_mode, act, with_stats)
+        ref = pk.phase_conv_fwd(phases, sets, corner_mode, (2,), act, with_stats)
+        split = [_split(y) for (y,) in (ref[0] if with_stats else ref)]
+        calls.append(("m", got, (split, ref[1]) if with_stats else split))
+        return got
+
+    with mock.patch.object(fused, "ico_conv_s2s_bwd", checked_k), \
+            mock.patch.object(fused, "ds2s_fwd", checked_m):
+        _, launches, grads = _bf16_step(cuda, model, **routing)
+    kernel = "ico_conv_s2s_bwd" if route == "merged" else "ds2s_fwd"
+    n = launches.get(kernel, 0)
+    assert n >= 2 and [k for k, _, _ in calls] == ["k" if route == "merged" else "m"] * n
+    for _, got, ref in calls:
+        _equal_all(got, ref)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    names = _dx_kernel_names(lambda: _bf16_step(cuda, model, **routing))
+    count = {k: sum(c for name, c in names.items() if all(p in name for p in k))
+             for k in (("mma_bwd", "MergedStd"), ("mma_conv", "SplitFwdEpi", "SplitGrid"),
+                       ("merged_bwd", "bfloat16", "GridLoad"), ("conv_gemm", "bfloat16"))}
+    want_k, want_m = (n, 0) if route == "merged" else (0, n)
+    assert count[("mma_bwd", "MergedStd")] == want_k, count
+    assert count[("mma_conv", "SplitFwdEpi", "SplitGrid")] == want_m, count
+    assert count[("merged_bwd", "bfloat16", "GridLoad")] == 0, count
+    assert count[("conv_gemm", "bfloat16")] == 0, count
+
+
+def test_merged_std_and_split_fwd_occupancy(cuda):
+    """k's one launch of both GEMMs (f's NARROW dtaps tile or the wide one,
+    the act epilogue or not) and m's forward GEMM (the split store, with
+    stats or not) fit 2 blocks an SM at 128 registers. k's code is i's
+    (``gn::mma_bwd``): no local memory but on the NARROW tile with the act
+    epilogue, 16 bytes, as i's (the s=5 sites of k take the wide tile,
+    C_in 128-256); m's forward takes none, as b's."""
+    infos = {f"k narrow={narrow} act={act}": build.std_bwd_info(narrow, act)
+             for narrow in (False, True) for act in (False, True)}
+    infos.update({f"m fwd stats={stats}": build.ds2s_fwd_info(stats) for stats in (False, True)})
+    for key, info in infos.items():
+        spill = 16 if key == "k narrow=True act=True" else 0
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] <= spill, (key, info)
+        assert info["registers"] <= 128, (key, info)
 
 
 def test_merged_phase_gemms_occupancy(cuda):

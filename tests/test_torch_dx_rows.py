@@ -172,10 +172,17 @@ def _std_rows_dx(g, taps, corner_mode, dtype, act=None, raw=None, y=None, gs=Non
     """The GEMM's formulation of the standard conv's dx (f): the written
     cotangent over ``halo.std_dx_codes`` (one input grid), a's epilogues;
     (dx, d_mul, d_add, Σg_eff) as ``ico_conv_s2s_dx`` returns them."""
-    B, _, h, w, cout = g.shape
-    cin = taps.shape[1]
     fold = dict(y_groups=[[y]], gs_list=[gs]) if y is not None else {}
     rows = pk.cot_operand_plain([[g]], corner_mode=corner_mode, out_phases=None, **fold)
+    return _std_dx_of_rows(rows, g.shape, taps, corner_mode, dtype, act, raw, emit_gsum)
+
+
+def _std_dx_of_rows(rows, g_shape, taps, corner_mode, dtype, act=None, raw=None,
+                    emit_gsum=False):
+    """``_std_rows_dx`` over a written operand ``rows`` of a cotangent of
+    shape ``g_shape`` (B, 5, h, w, C_out)."""
+    B, _, h, w, cout = g_shape
+    cin = taps.shape[1]
     acc = _gemm(rows, h, w, corner_mode, None, [(taps, None)], cin)[:, 0]  # (B, M, C_in)
     gsum = None
     if emit_gsum:
@@ -602,6 +609,85 @@ def test_split_rows_dx_matches_pallas(env, interpret):
     assert spy.called
 
 
+def _std_dtaps_of_rows(rows, x, act, corner_mode, cout, dtype):
+    """f's dtaps GEMM over a written cotangent (``mma::WrittenRows``): the
+    float32 (7, C_in, C_out) sum over the rows (sample, cell) of the
+    act-applied operand row (``grid_operand_plain`` of the one grid) that
+    ``halo.std_conv_table`` names for tap t, times written row q's C_out
+    columns; rounded to ``dtype`` once (f's chunk sum)."""
+    B, _, h, w, cin = x.shape
+    M, per = 5 * h * w, 5 * h * w + 2
+    U = pk.grid_operand_plain([x], act, corner_mode).float()
+    code = torch.from_numpy(halo.std_conv_table(h, w, corner_mode)).long()  # (7, M)
+    base = (torch.arange(B) * per).view(B, 1, 1)
+    idx = torch.where(code >= 0, base + code,
+                      torch.where(code == halo.ZERO, torch.tensor(B * per),
+                                  base + per - 2 + (code == halo.SOUTH).long()))
+    gathered = U[idx][..., :cin]  # (B, 7, M, C_in)
+    G = rows[:-1].view(B, -1, rows.shape[1])[:, :M, :cout].float()
+    return torch.einsum("btmk,bmn->tkn", gathered, G).to(dtype)
+
+
+def _merged_std_rows_bwd(x, g, taps, y, gs, corner_mode, act, with_stats, dtype):
+    """k's bf16 formulation (``csrc/ico_conv_bwd.cu:merged_mma``): ONE
+    written cotangent (``cot_operand_plain`` over ``halo.std_dx_codes``'
+    combined rows, folded once), f's dx GEMM and f's dtaps GEMM over its
+    rows, dtaps cast to the dtype, Σg_eff the column sums of its cotangent
+    rows; (dx, dtaps, Σg_eff, d_mul, d_add) as ``ico_conv_s2s_bwd`` returns
+    them."""
+    fold = dict(y_groups=[[y]], gs_list=[gs]) if with_stats else {}
+    rows = pk.cot_operand_plain([[g]], corner_mode=corner_mode, out_phases=None, **fold)
+    dx, dmul, dadd, gsum = _std_dx_of_rows(rows, g.shape, taps, corner_mode, dtype, act, x, True)
+    dtaps = _std_dtaps_of_rows(rows, x, act, corner_mode, g.shape[-1], dtype)
+    return dx, dtaps, gsum, dmul, dadd
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 3, 4), (2, 5, 8), (3, 12, 20), (4, 16, 9)])
+def test_merged_std_rows_bwd_is_the_std_conv_bwd(s, cin, cout, corner_mode, dtype):
+    """k's formulation is ``ico_conv_s2s_bwd_plain``: dx, dtaps in the
+    activation dtype, Σg_eff, d_mul and d_add, with the act and the fold on
+    and off."""
+    dt = DTYPES[dtype]
+    c = _Case(180 + 10 * s + cin, s, cin, cout, dt)
+    x = c.grid(cin)
+    (taps, _), = c.sets(1)
+    for with_act, fold in ((True, True), (False, True), (True, False), (False, False)):
+        g = c.grid(cout)
+        y, gs = (c.grid(cout), c.gs(1)[0]) if fold else (None, None)
+        args = (x, g, taps, y, gs, corner_mode, c.act() if with_act else None, fold, dt)
+        got = _merged_std_rows_bwd(*args)
+        assert got[0].dtype == got[1].dtype == dt and got[2].dtype == torch.float32
+        _close_tree(got, ck.ico_conv_s2s_bwd_plain(*args), TOL[dt])
+
+
+def test_merged_std_rows_bwd_matches_pallas(env, interpret):
+    """k's formulation against the VJP of the JAX package's
+    ``fused_ico_conv_s2s`` with the act and stats, whose backward under
+    ``GENICONET_MERGED_BWD=std`` is ``_std_bwd`` in interpret mode, at a
+    level-1 grid, B=2, float32, the fold on: dx, dtaps, the bias gradient
+    Σg_eff, d_mul and d_add."""
+    env(MERGED_BWD="std")
+    c = _Case(185, 1, 3, 4, torch.float32)
+    x = c.grid(3)
+    (taps, _), = c.sets(1)
+    bias = c.t(c.r.randn(4))
+    mul, add = c.act()
+
+    def f(x, t, b, m, a):
+        return jck.fused_ico_conv_s2s(x, t, b, 1, "average", act=(m, a), with_stats=True)
+
+    with mock.patch.object(jck, "_std_bwd_kernel", wraps=jck._std_bwd_kernel) as spy:
+        (y, _), vjp = jax.vjp(f, *_j([x, taps, bias, mul, add]))
+        g, gs = c.grid(4), c.gs(1)[0]
+        dx, dtaps, dbias, dmul, dadd = vjp(tuple(_j([g, gs])))
+    assert spy.called
+    got = _merged_std_rows_bwd(x, g, taps, torch.from_numpy(np.array(y)), gs, "average",
+                               (mul, add), True, torch.float32)
+    _close_tree(got, (dx, dtaps, dbias, dmul, dadd), 1e-5)
+
+
 # The dx calls of the s=5 models: (cotangent h, w, C_in, C_out, tap sets,
 # output phases, up conv), and per sample the combined rows and the active
 # (tile, tap) pairs of the 128-row tiles over 7 taps
@@ -831,3 +917,44 @@ def test_split_dx_scratch_at_the_model_shapes(site):
     assert red.shape == (B * 4 * M // 128 * 2 * cin,)
     if site == "down0":
         assert operand.numel() * 2 == 47_186_432
+
+
+# k's sites in the s=5 models on the merged route (the DownBlocks' conv01:
+# AE down0-2, VAE down0-1): (h, w, C), and per site (combined rows a sample,
+# tap-mask bytes a sample or None, rows a dtaps chunk, chunks, dtaps blocks,
+# dx blocks) of its one launch at B=36
+MODEL_K = {"down0 conv01": ((16, 32, 128), (320, 20, 2496, 37, 259, 720)),
+           "down1 conv01": ((8, 16, 256), (160, 5, 2560, 9, 252, 360)),
+           "down2 conv01": ((4, 8, 256), (80, None, 640, 9, 252, 90))}
+
+
+@pytest.mark.parametrize("site", list(MODEL_K))
+def test_merged_std_scratch_at_the_model_shapes(site):
+    """k's bf16 scratch at B=36 is f's: the written cotangent
+    (``dx_scratch`` with one input grid: the 5hw cotangent rows and the
+    combined rows a sample, a zero row), the transposed taps, the act
+    partials a row tile of the B·5hw dx rows; f's act-applied operand of the
+    one grid and f's split (``grid_dtaps_split``: 32-row steps, the wide
+    tile at C_in 128 and 256), not ``build.merged_scratch``' 16-row one (its
+    chunks sum in another order). A tap mask byte a 128-row tile where 5hw
+    is a multiple of 128, none at (4, 8), and the one launch's blocks: f's
+    dtaps tiles times the chunks, then f's dx tiles (90 at (4, 8): under one
+    wave of 132 SMs)."""
+    (h, w, c), (n_comb, n_masks, kc, n_chunks, dt_blocks, dx_blocks) = MODEL_K[site]
+    B, M = 36, 5 * h * w
+    _, comb, mask = halo.std_dx_codes(h, w, "average")
+    assert len(comb[0]) - 1 == n_comb and (mask is None) == (n_masks is None)
+    assert mask is None or len(mask) * 128 == M == 128 * n_masks
+    red, operand, wpack, du = pk.dx_scratch(torch.bfloat16, B, h, w, c, 1, c, 1, n_comb, True,
+                                            False, "meta", n_in=1)
+    assert operand.shape == build.cot_operand_shape(B, M, n_comb, c) and du is None
+    assert wpack.shape == build.dx_packed_taps_shape(c, c)
+    assert red.shape == (-(-B * M // 128) * 2 * c,)
+    got = pk.grid_dtaps_scratch(torch.bfloat16, B, h, w, c, c, 1, 1, "meta")
+    assert got[:2] == (kc, n_chunks) == build.grid_dtaps_split(B * M, c, c) and kc % 32 == 0
+    assert got[:2] != build.merged_scratch(B * M, c, c, "meta")[:2]
+    assert got[2].shape == (n_chunks * 7 * c * c,)
+    assert got[3].shape == (pk.grid_operand_rows(B, h, w, 1), build.operand_width(c))
+    assert not build.mma_narrow(c)
+    assert build.mma_dtaps_blocks(c, c, False) * n_chunks == dt_blocks
+    assert -(-c // 128) * -(-B * M // 128) == dx_blocks

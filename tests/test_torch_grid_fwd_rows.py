@@ -24,6 +24,15 @@ to bf16 at different points), and against the JAX package's
 ``fused_phase_conv_s1``, ``fused_dual_s2_conv`` and ``fused_ico_conv_s2s``
 in Pallas interpret mode at one tiny shape (float32, 1e-5). Inputs come
 from numpy seeds.
+
+``_split_rows_fwd`` replays m's bf16 forward (``csrc/ds2s.cu``): ``_rows_fwd``
+at output phase 2, then the split store (``SplitFwdEpi``), written here
+from ``split_row``'s shifts and masks (not by ``phase_split``): row m =
+(chart, i, j) of the (5, 2^lh, 2^lw) output grid to parity phase 2·(i & 1)
++ (j & 1) at row ((b·5 + chart)·2^(lh-1) + (i >> 1))·2^(lw-1) + (j >> 1).
+It is held against ``ds2s_fwd_plain`` and against the JAX package's
+``fused_dual_s2_conv_split`` forward in interpret mode; ``fwd_scratch`` at
+m's s=5 sites.
 """
 
 from unittest import mock
@@ -260,3 +269,109 @@ def test_grid_fwd_split_at_the_model_shapes(site, B):
     (none,), no_ws, _, _ = pk.fwd_scratch(torch.bfloat16, B, h, w, cin, n_sets, cout, n_src,
                                           n_out, False, "meta")
     assert none is None and no_ws is None
+
+
+# ---------------------------------------------------------------------------
+# m's forward: the phase conv's GEMM at output phase 2 with the split store
+# ---------------------------------------------------------------------------
+
+
+def _split_store(y, lh, lw):
+    """The split store of one set's (B, 5, 2^lh, 2^lw, C) output grid, from
+    ``split_row``'s shifts and masks: its 4 parity phases (B, 5, 2^(lh-1),
+    2^(lw-1), C); every phase row written exactly once."""
+    B, C = y.shape[0], y.shape[-1]
+    m = torch.arange(5 << (lh + lw))
+    chart, r = m >> (lh + lw), m & ((1 << (lh + lw)) - 1)
+    i, j = r >> lw, r & ((1 << lw) - 1)
+    phase = ((i & 1) << 1) | (j & 1)
+    b = torch.arange(B)[:, None]
+    row = ((((b * 5 + chart) << (lh - 1)) + (i >> 1)) << (lw - 1)) + (j >> 1)  # (B, M)
+    n_rows = B * 5 << (lh - 1 + lw - 1)
+    out = torch.zeros(4, n_rows, C, dtype=y.dtype)
+    hits = torch.zeros(4, n_rows, dtype=torch.long)
+    phase = phase.expand(B, -1)
+    out[phase, row] = y.reshape(B, -1, C)
+    hits.index_put_((phase, row), torch.ones_like(row), accumulate=True)
+    assert bool((hits == 1).all())
+    hp, wp = 1 << (lh - 1), 1 << (lw - 1)
+    return tuple(out[p].view(B, 5, hp, wp, C) for p in range(4))
+
+
+def _split_rows_fwd(rows, B, h, w, tap_sets, corner_mode, dtype):
+    """m's formulation: ``_rows_fwd`` over the 4 input phases at output phase
+    2, each set's (B, 5, h, w) output stored by the split map; per set the
+    4 parity phases and the [Σy, Σy²] of the cast outputs."""
+    sets, stats = _rows_fwd(rows, B, h, w, 4, tap_sets, corner_mode, (2,), dtype)
+    lh, lw = h.bit_length() - 1, w.bit_length() - 1
+    return [_split_store(y, lh, lw) for (y,) in sets], stats
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(2, 5, 6), (3, 12, 20), (4, 16, 9)])
+def test_split_rows_fwd_is_the_ds2s_fwd(s, cin, cout, corner_mode, dtype):
+    """m's formulation on the level-(s+1) input phases (2^s, 2^(s+1)) is
+    ``ds2s_fwd_plain`` (the plain version splits with ``phase_split``):
+    each set's 4 parity phases and stats, for 1 and 2 tap sets (the second
+    without a bias), with and without the act prologue."""
+    dt = DTYPES[dtype]
+    c = _Case(200 + 10 * s + cin, s, cin, cout, dt)
+    phases = [c.grid() for _ in range(4)]
+    sets = c.sets(2)
+    sets[1] = (sets[1][0], None)
+    for tap_sets, act in ((sets[:1], c.act()), (sets, None), (sets, c.act())):
+        rows = pk.grid_operand_plain(phases, act, corner_mode)
+        got = _split_rows_fwd(rows, 2, c.h, c.w, tap_sets, corner_mode, dt)
+        ref = pk.ds2s_fwd_plain(phases, tap_sets, corner_mode, act, True)
+        assert all(p.dtype == dt and p.shape == (2, 5, c.h // 2, c.w // 2, cout)
+                   for group in got[0] for p in group)
+        _close_tree(got, ref, TOL[dt])
+
+
+def test_split_rows_fwd_matches_pallas(interpret):
+    """m's formulation against the JAX package's ``fused_dual_s2_conv_split``
+    with the act and stats (``_ds2s``) in interpret mode, at level-2 input
+    phases (4, 8), B=2, float32: both sets' 4 parity phases and stats."""
+    c = _Case(230, 2, 3, 4, torch.float32)
+    phases = [c.grid() for _ in range(4)]
+    (ta, ba), (tb, bb) = c.sets(2)
+    act = c.act()
+    with mock.patch.object(jpk, "_ds2s_fwd_kernel", wraps=jpk._ds2s_fwd_kernel) as spy:
+        ya, yb, sa, sb = jpk.fused_dual_s2_conv_split(
+            tuple(_j(*phases)), *_j(ta, ba, tb, bb), "average", act=tuple(_j(*act)),
+            with_stats=True)
+    assert spy.called
+    rows = pk.grid_operand_plain(phases, act)
+    got = _split_rows_fwd(rows, 2, 4, 8, [(ta, ba), (tb, bb)], "average", torch.float32)
+    _close_tree(got, ([tuple(ya), tuple(yb)], [sa, sb]), 1e-5)
+
+
+# m's forward sites in the s=5 chains: the input phases' (h, w), C_in, C_out
+MODEL_M_FWD = {"down0": (16, 32, 64, 128), "down1": (8, 16, 128, 256),
+               "down2": (4, 8, 256, 256)}
+
+
+@pytest.mark.parametrize("B", [1, 16, 36])
+@pytest.mark.parametrize("site", list(MODEL_M_FWD))
+def test_split_fwd_scratch_at_the_model_shapes(site, B):
+    """m's bf16 forward at each chain site (B=1 and 16 serving, B=36
+    training) takes the phase conv's scratch at output phase 2
+    (``fwd_scratch`` with 4 sources and 1 output slot): the operand of the 4
+    input phases, both tap sets packed side by side, a stats row a 128-row
+    tile of the B·5hw rows. At down2 (M = 160) the tiles straddle samples
+    wherever B > 1, and every tile there spans 4 charts (5hw / 5 = 32 rows
+    a chart): the split map is per row."""
+    h, w, cin, cout = MODEL_M_FWD[site]
+    M, ntot = 5 * h * w, 2 * cout
+    stats, ws, operand, wpack = pk.fwd_scratch(torch.bfloat16, B, h, w, cin, 2, cout, 4, 1, True,
+                                               "meta")
+    cols, row_tiles = build.mma_fwd_grid(B * M, ntot)
+    assert (cols, row_tiles) == (-(-ntot // 128), -(-B * M // 128))
+    assert operand.shape == (pk.grid_operand_rows(B, h, w, 4), build.operand_width(cin))
+    assert wpack.shape == build.packed_taps_shape(cin, ntot)
+    assert ws.shape == (row_tiles * 2 * ntot,) and [t.shape for t in stats] == [(2, cout)] * 2
+    straddle = sum((t * 128) // M != (min((t + 1) * 128, B * M) - 1) // M
+                   for t in range(row_tiles))
+    assert (straddle > 0) == (M % 128 != 0 and B > 1)
+    assert (h * w >= 128) == (site != "down2")

@@ -290,6 +290,37 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
     ({"cat": "kernel", "name": "void gn::merged_bwd<float, gn::GridLoad<float, false> >"
                                "(gn::GLoad<float, false>)"},
      "merged_bwd<fp32, GridLoad>"),
+    # k's bf16 backward: f's cotangent and operand passes, tap pack and the
+    # one launch of both GEMMs; m's bf16 forward: the split store's GEMM,
+    # b's operand pass and tap pack (its pass shares m's dtaps' row)
+    ({"cat": "kernel", "name": "void gn::mma_bwd<gn::MergedStd, false, gn::DxEpi<true> >"
+                               "(gn::MmaBwd, gn::DxEpi<true>)"},
+     "mma_bwd<bf16> (k)"),
+    ({"cat": "kernel", "name": "void gn::mma_bwd<gn::MergedStd, true, gn::DxEpi<false> >"
+                               "(gn::MmaBwd, gn::DxEpi<false>)"},
+     "mma_bwd<bf16> (k)"),
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::MergedStd, false>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (k)"),
+    ({"cat": "kernel", "name": "void gn::grid_operand_pass<__nv_bfloat16, gn::MergedStd>"
+                               "(gn::GridLoad<__nv_bfloat16, false>, __nv_bfloat16*, int)"},
+     "grid_operand_pass<bf16> (k)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::MergedStd>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (k)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::SplitGrid, gn::SplitFwdEpi<true> >"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::SplitFwdEpi<true>, "
+                               "int)"},
+     "mma_conv_fwd<bf16> (m)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps<__nv_bfloat16, gn::SplitGrid>"
+                               "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*)"},
+     "pack_taps (m)"),
+    ({"cat": "kernel", "name": "void gn::merged_bwd<__nv_bfloat16, gn::GridLoad<__nv_bfloat16, "
+                               "false> >(gn::GLoad<__nv_bfloat16, false>)"},
+     "merged_bwd<bf16, GridLoad>"),
+    ({"cat": "kernel", "name": "void gn::conv_gemm<__nv_bfloat16, gn::GridLoad<__nv_bfloat16, "
+                               "false>, true>(gn::GridLoad<__nv_bfloat16, false>)"},
+     "conv_gemm<bf16, GridLoad, split> (m)"),
     ({"cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc"},
      "cuDNN / cuBLAS (plain route)"),
     ({"cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>"}, "PyTorch ops"),
@@ -329,8 +360,8 @@ def _groups(**calls):
       "grid_operand_pass<bf16> (f)": 15, "mma_conv_fwd<bf16> (f)": 15},
      {"phase_conv_fwd": 7.0, "ico_conv_s2s_fwd": 3.0}, True),  # a serving window
     ({"grid_operand_pass<bf16> (b)": 35, "mma_conv_fwd<bf16> (b)": 35,
-      "conv_gemm<bf16, GridLoad, split> (m)": 15, "two_pass_block<bf16, GridLoad> (p)": 15},
-     {"phase_conv_fwd": 7.0}, True),  # m's and p's SIMT tiles have their own rows
+      "two_pass_block<bf16, GridLoad> (p)": 15},
+     {"phase_conv_fwd": 7.0}, True),  # p's SIMT tiles have their own row
     ({"grid_operand_pass<bf16> (b)": 35, "mma_conv_fwd<bf16> (b)": 35,
       "conv_gemm<bf16, GridLoad>": 15}, {"phase_conv_fwd": 7.0}, False),  # the SIMT forward
     ({"grid_operand_pass<bf16> (b)": 35}, {"phase_conv_fwd": 7.0}, False),  # no GEMM
@@ -338,12 +369,23 @@ def _groups(**calls):
     ({"grid_operand_pass<bf16> (b)": 70, "mma_conv_fwd<bf16> (b)": 35,
       "mma_dtaps<bf16> (b)": 35}, {"phase_conv_fwd": 7.0, "phase_conv_dtaps": 7.0,
                                    "ico_conv_s2s_fwd": 3.0}, False),  # f's forward missing
+    # m's forward and dtaps share the SplitGrid operand pass: one a call of either
+    ({"grid_operand_pass<bf16> (m)": 30, "mma_conv_fwd<bf16> (m)": 15,
+      "mma_dtaps<bf16> (m)": 15}, {"ds2s_fwd": 3.0, "ds2s_dtaps": 3.0}, True),
+    ({"grid_operand_pass<bf16> (m)": 15, "mma_conv_fwd<bf16> (m)": 15},
+     {"ds2s_fwd": 3.0}, True),  # a serving window on the chain
+    ({"grid_operand_pass<bf16> (m)": 15}, {"ds2s_fwd": 3.0}, False),  # m's forward, no GEMM
+    ({"grid_operand_pass<bf16> (m)": 30, "mma_conv_fwd<bf16> (m)": 15,
+      "mma_dtaps<bf16> (m)": 15}, {"ds2s_fwd": 3.0}, False),  # more passes than calls
+    ({"grid_operand_pass<bf16> (m)": 15, "mma_conv_fwd<bf16> (m)": 15,
+      "conv_gemm<bf16, GridLoad, split> (m)": 15}, {"ds2s_fwd": 3.0}, False),  # m's SIMT forward
 ])
 def test_device_launches_of_the_grid_dtaps(groups, launches, ok):
     """``check_device_launches`` over 5 profiled iterations: each call of the
-    grid convs' dtaps (b, f) and forward shows its operand pass and its
-    tensor-core GEMM, at most once a call, and no window the SIMT
-    ``dtaps_gemm<bf16, GridLoad>`` or ``conv_gemm<bf16, GridLoad>``."""
+    grid convs' dtaps (b, f, m's) and forward (b, f, m's with the split
+    store) shows its operand pass and its tensor-core GEMM, at most once a
+    call, and no window the SIMT ``dtaps_gemm<bf16, GridLoad>`` or
+    ``conv_gemm<bf16, GridLoad>``, m's split one included."""
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), launches, 5)
     else:
@@ -383,12 +425,14 @@ def test_device_launches_of_the_dx(drop, add, ok):
 
 _SPLIT_ROUTE = {"cot_operand_pass<bf16> (j)": 15, "up_operand_pass<bf16> (j)": 15,
                 "mma_bwd<bf16> (j)": 15, "up_adjoint_pass (j)": 15,
-                "grid_operand_pass<bf16> (m)": 15, "mma_dtaps<bf16> (m)": 15,
+                "grid_operand_pass<bf16> (m)": 30, "mma_dtaps<bf16> (m)": 15,
+                "mma_conv_fwd<bf16> (m)": 15,
                 "cot_operand_pass<bf16> (i)": 30, "grid_operand_pass<bf16> (i)": 30,
                 "mma_bwd<bf16> (i)": 30, "cot_operand_pass<bf16> (m)": 15,
-                "mma_conv_dx<bf16> (m)": 15}
+                "mma_conv_dx<bf16> (m)": 15, "cot_operand_pass<bf16> (k)": 15,
+                "grid_operand_pass<bf16> (k)": 15, "mma_bwd<bf16> (k)": 15}
 _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bwd": 6.0,
-                      "ds2s_dx": 3.0, "ico_conv_s2s_bwd": 3.0}
+                      "ds2s_dx": 3.0, "ico_conv_s2s_bwd": 3.0, "ds2s_fwd": 3.0}
 
 
 @pytest.mark.parametrize("drop, add, ok", [
@@ -402,9 +446,8 @@ _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bw
     ((), {"mma_bwd<bf16> (j)": 30}, False),          # more GEMM launches than calls
     ((), {"merged_bwd<bf16, UpLoad>": 15}, False),      # j's SIMT tiles in bf16
     ((), {"dtaps_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT dtaps in bf16
-    ((), {"merged_bwd<bf16, GridLoad>": 15}, True),     # k's merged tiles stay
-    ((), {"conv_gemm<bf16, GridLoad, split> (m)": 15, "dx_gemm<bf16, pair> (n)": 15},
-     True),                                             # m's SIMT forward and n's dx stay
+    ((), {"pack_taps (k)": 15, "pack_taps (m)": 30}, True),  # k's and m's tap packs
+    ((), {"dx_gemm<bf16, pair> (n)": 15}, True),       # n's SIMT dx stays
     (("mma_bwd<bf16> (i)",), {}, False),          # i without its GEMMs
     (("grid_operand_pass<bf16> (i)",), {}, False),      # i without its operand pass
     (("cot_operand_pass<bf16> (i)",), {}, False),       # i without its cotangent pass
@@ -412,16 +455,24 @@ _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bw
     (("cot_operand_pass<bf16> (m)",), {}, False),       # m's dx without its pass
     ((), {"merged_bwd<bf16, GridLoad>": 30}, False),    # i's SIMT tiles beside k's in bf16
     ((), {"dx_gemm<bf16, split> (m)": 15}, False),      # m's SIMT dx in bf16
+    (("mma_bwd<bf16> (k)",), {}, False),                # k without its GEMMs
+    (("cot_operand_pass<bf16> (k)",), {}, False),       # k without its cotangent pass
+    (("grid_operand_pass<bf16> (k)",), {}, False),      # k without its operand pass
+    ((), {"mma_bwd<bf16> (k)": 30}, False),             # more GEMM launches than calls
+    ((), {"merged_bwd<bf16, GridLoad>": 15}, False),    # k's SIMT tiles in bf16
+    (("mma_conv_fwd<bf16> (m)",), {}, False),           # m's forward without its GEMM
+    ((), {"conv_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT forward in bf16
 ])
 def test_device_launches_of_the_split_route_passes(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step on
-    the merged route and both chains: every call of i shows its two passes
-    and its one launch of both GEMMs, every call of j the same and its
-    upsample adjoint, every call of m's dx a's cotangent pass and GEMM and
-    of m's dtaps b's operand pass and GEMM (``SPLIT_ROUTE_ROWS``); no window
-    j's SIMT ``merged_bwd<bf16, UpLoad>``, m's ``dx_gemm<bf16, split>`` or
-    ``dtaps_gemm<bf16, GridLoad, split>``, and ``merged_bwd<bf16,
-    GridLoad>`` at most once a call of k."""
+    the merged route and both chains: every call of i and k shows its two
+    passes and its one launch of both GEMMs, every call of j the same and
+    its upsample adjoint, every call of m's dx a's cotangent pass and GEMM
+    (``SPLIT_ROUTE_ROWS``), of m's forward and dtaps b's operand pass and
+    their GEMM (``GRID_ROWS``); no window the SIMT merged tiles
+    (``merged_bwd<bf16, UpLoad>``, ``merged_bwd<bf16, GridLoad>``) or m's
+    SIMT ``conv_gemm``, ``dx_gemm`` or ``dtaps_gemm`` with the split
+    map."""
     groups = {k: v for k, v in {**_SPLIT_ROUTE, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _SPLIT_ROUTE_CALLS, 5)
