@@ -64,11 +64,12 @@ printed on its own lines, each fatal on failure:
    at a head of 320 channels. The bf16 forward of the up
    conv and of n (serving and training shapes), their dtaps (d, n's),
    the grid convs' forward and dtaps (b, f; a C_in of at most 64 on the
-   dtaps' NARROW tile) and the phase conv's, up conv's and standard
-   conv's dx (a, c, f) also print their parts from a trace: the operand
-   pass (a's, c's and f's: the folded cotangent with its combined rows)
-   against its byte bound, the tap pack, the tensor-core GEMM's TFLOP/s,
-   the sums, c's upsample adjoint pass against its byte bound, and the
+   dtaps' NARROW tile) and the phase conv's, up conv's, standard conv's
+   and n's dx (a, c, f, n) also print their parts from a trace: the
+   operand pass (a's, c's, f's and n's: the folded cotangent with its
+   combined rows) against its byte bound, the tap pack, the tensor-core
+   GEMM's TFLOP/s, the sums, c's upsample adjoint pass and n's pair adjoint
+   pass against their byte bound, and the
    GEMM's registers and blocks an SM; the pair head's forwards (the
    head's, g) and backwards (e, h) print their main pass's achieved GB/s
    against its byte bound, g's and h's pole pass and the backwards'
@@ -229,7 +230,7 @@ SOURCES = {**{k: ("geniconet_tpu_torch/csrc/mma_dtaps.cuh", _MMA)
            **{k: ("geniconet_tpu_torch/csrc/mma_conv_fwd.cuh", _MMA)
               for k in ("up_dual_conv_fwd", "up_pair_fwd", "phase_conv_fwd",
                         "ico_conv_s2s_fwd", "phase_conv_dx", "up_dual_conv_dx",
-                        "ico_conv_s2s_dx", "ds2s_fwd", "ds2s_dx")},
+                        "ico_conv_s2s_dx", "ds2s_fwd", "ds2s_dx", "up_pair_dx")},
            # o and p: float32 block_fwd.cuh's SIMT tiles; bf16 the split
            # route's tensor-core passes in one cooperative launch
            **{k: ("geniconet_tpu_torch/csrc/mma_block_fwd.cuh",
@@ -261,7 +262,7 @@ REDESIGNED = {
     "ds2s_dx": _TC + "a's cotangent pass over the parity phases and a's dx GEMM",
     "ds2s_dtaps": _TC + "b's operand pass and mma_dtaps over the parity phases",
     "up_pair_fwd": _TC + "the joined pair's operand pass and mma_conv",
-    "up_pair_dx": None,
+    "up_pair_dx": _TC + "c's cotangent pass and mma_conv into dU, the pair tail in the adjoint pass",
     "up_pair_dtaps": _TC + "the joined pair's operand pass and mma_dtaps",
     "up_block_fwd": _TC + "the split route's passes and GEMM in one cooperative launch",
     "dn_block_fwd": _TC + "the split route's passes and GEMM in one cooperative launch",
@@ -481,13 +482,13 @@ class Case:
 
 def mma_parts(call, flops, inputs, operand, info, adjoint=None, split=None):
     """A bf16 tensor-core kernel's parts from a trace (the up conv's, n's
-    and the grid convs' forward and dtaps; a's, c's and m's dx; i and j):
+    and the grid convs' forward and dtaps; a's, c's, m's and n's dx; i and j):
     its operand passes (against their bound: the inputs they read once,
     ``inputs``, and the bf16 operands of ``operand`` = (rows, width), or a
     list of them, they write), the tap pack, the tensor-core GEMM (``flops``
     over its time against the bf16 peak), the sums (the partials' and
-    Σg's), for c and j the upsample adjoint pass against the ``adjoint``
-    bytes it must move; and ``info``, the GEMM instantiation's registers a
+    Σg's), for c and j the upsample adjoint pass, for n the pair adjoint
+    pass, against the ``adjoint`` bytes it must move; and ``info``, the GEMM instantiation's registers a
     thread, blocks an SM, shared and local memory as the runtime reports
     them (``build.mma_dtaps_info``, ``grid_dtaps_info``, ``mma_fwd_info``,
     ``grid_fwd_info``, ``mma_dx_info``, ``up_bwd_info``, ``phase_bwd_info``);
@@ -508,8 +509,8 @@ def mma_parts(call, flops, inputs, operand, info, adjoint=None, split=None):
     if split is not None:
         parts["split_device_ms"] = sum(sum(trace_kernels(f, per_launch=True).values())
                                        for f in split)
-    if adjoint is not None:  # c: dU (float32) read once, dx (bf16) written once
-        parts["adjoint_ms"] = sum(ms for k, ms in rows.items() if "up_adjoint_pass" in k)
+    if adjoint is not None:  # c: dU (float32) read once, dx (bf16) written once; n: and the pair
+        parts["adjoint_ms"] = sum(ms for k, ms in rows.items() if "adjoint_pass" in k)
         parts["adjoint_bound_ms"] = adjoint / PEAK_BYTES * 1e3
     return parts
 
@@ -1008,9 +1009,17 @@ def training_cases():
             reads = [g, b0, y10, aff, list(fk.values())]
             if which == "dx":
                 args = (g, b0, y10, aff, sets, "average")
-                return Case(lambda: pk.up_pair_dx(*args, emit_gsum=True, **fk),
-                            lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk),
-                            up_dx_flops(B, h, w, cin, cout), [*reads, [t for t, _ in sets]], lib)
+                call = lambda: pk.up_pair_dx(*args, emit_gsum=True, **fk)  # noqa: E731
+                # the adjoint pass: dU (float32) read once, the pair read and
+                # its 8 cotangents written once (bf16)
+                pass_bytes = B * 4 * 5 * h * w * cin * 4 + 2 * 2 * B * 5 * h * w * cin * 2
+                parts = (lambda: mma_parts(call, flops, [g, list(fk.values())],
+                                           dx_operand(B, h, w, 2 * cout, _ALL),
+                                           build.mma_dx_info(True, pair=True), pass_bytes)
+                         ) if dt == torch.bfloat16 else None
+                return Case(call, lambda: pk.up_pair_dx_plain(*args, emit_gsum=True, **fk),
+                            up_dx_flops(B, h, w, cin, cout), [*reads, [t for t, _ in sets]], lib,
+                            parts=parts)
             args = (b0, y10, aff, g, "average")
             call = lambda: pk.up_pair_dtaps(*args, **fk)  # noqa: E731
             parts = (lambda: mma_parts(call, flops, [b0, y10, aff], up_operand(B, h, w, cin),
@@ -1709,12 +1718,12 @@ def kernel_group(event: dict) -> str:
     which = "(n)" if pair else "(j)" if j else "(d)"
     grid = ("(f)" if "StdGrid" in name else "(b)" if "PhaseGrid" in name
             else "(m)" if "SplitGrid" in name else "(i)" if i else "(k)" if k else None)
-    # the dx of a, c, f and m: by Tag the phase conv's (a), the standard
-    # conv's (f), the phase chain's stride-2 conv's (m) or the up conv's
-    # (c); i's, j's and k's cotangent passes by their own
+    # the dx of a, c, f, m and n: by Tag the phase conv's (a), the standard
+    # conv's (f), the phase chain's stride-2 conv's (m), the pair's (n) or
+    # the up conv's (c); i's, j's and k's cotangent passes by their own
     dx = ("(a)" if "PhaseGrid" in name else "(f)" if "StdGrid" in name
-          else "(m)" if "SplitGrid" in name else "(i)" if i else "(j)" if j
-          else "(k)" if k else "(c)")
+          else "(m)" if "SplitGrid" in name else "(n)" if pair else "(i)" if i
+          else "(j)" if j else "(k)" if k else "(c)")
     if "mma_bwd<" in name:  # i, j, k: the dtaps and the dx tiles in one launch
         return f"mma_bwd<bf16> {'(j)' if j else '(k)' if k else '(i)'}"
     if "up_operand_pass" in name or "pair_join_pass" in name:
@@ -1725,6 +1734,8 @@ def kernel_group(event: dict) -> str:
         return f"cot_operand_pass<bf16> {dx}"
     if "up_adjoint_pass" in name:
         return f"up_adjoint_pass {'(j)' if j else '(c)'}"
+    if "pair_adjoint_pass" in name:  # n's: c's adjoint with the pair tail
+        return "pair_adjoint_pass (n)"
     if "mma_dtaps" in name:
         return f"mma_dtaps<bf16> {grid or which}"
     if "mma_conv" in name and ("DxEpi" in name or "DuEpi" in name):
@@ -1853,8 +1864,9 @@ GRID_ROWS = {"(b)": ("phase_conv_fwd", "phase_conv_dtaps"),
 # GEMM (and c's upsample adjoint), by wrapper
 DX_ROWS = {"(a)": "phase_conv_dx", "(c)": "up_dual_conv_dx", "(f)": "ico_conv_s2s_dx"}
 # ... and of the bf16 merged backwards (i, k: their two passes and the one
-# launch of both GEMMs; j: the same and its upsample adjoint) and m's bf16
-# dx (a's pass and GEMM over the split cotangent), by wrapper
+# launch of both GEMMs; j: the same and its upsample adjoint), m's bf16
+# dx (a's pass and GEMM over the split cotangent) and n's (c's pass and
+# GEMM, then the adjoint pass with the pair tail), by wrapper
 SPLIT_ROUTE_ROWS = {
     "phase_conv_bwd": ("cot_operand_pass<bf16> (i)", "grid_operand_pass<bf16> (i)",
                        "mma_bwd<bf16> (i)"),
@@ -1863,15 +1875,17 @@ SPLIT_ROUTE_ROWS = {
     "ico_conv_s2s_bwd": ("cot_operand_pass<bf16> (k)", "grid_operand_pass<bf16> (k)",
                          "mma_bwd<bf16> (k)"),
     "ds2s_dx": ("cot_operand_pass<bf16> (m)", "mma_conv_dx<bf16> (m)"),
+    "up_pair_dx": ("cot_operand_pass<bf16> (n)", "mma_conv_dx<bf16> (n)",
+                   "pair_adjoint_pass (n)"),
 }
 # the SIMT kernels no bf16 window may run: a's, c's, f's dx, b's and f's
-# dtaps and the grid forwards (n's pair dx, o's and p's tiles have rows of
-# their own), the merged tiles of i, j and k, and m's split forward, dx and
-# dtaps
+# dtaps and the grid forwards (o's and p's tiles have rows of their own),
+# the merged tiles of i, j and k, m's split forward, dx and dtaps, and n's
+# pair dx
 BF16_SIMT = ("dx_gemm<bf16>", "conv_gemm<bf16, GridLoad>", "dtaps_gemm<bf16, GridLoad>",
              "merged_bwd<bf16, UpLoad>", "merged_bwd<bf16, GridLoad>",
              "conv_gemm<bf16, GridLoad, split> (m)", "dtaps_gemm<bf16, GridLoad, split> (m)",
-             "dx_gemm<bf16, split> (m)")
+             "dx_gemm<bf16, split> (m)", "dx_gemm<bf16, pair> (n)")
 
 
 def check_device_launches(tag, groups, launches, iters):
@@ -1880,7 +1894,7 @@ def check_device_launches(tag, groups, launches, iters):
     ran their operand pass (one a call of either) and their tensor-core GEMM
     (``mma_conv_fwd`` a forward, ``mma_dtaps`` a dtaps), each call of a, c
     and f its cotangent pass and ``mma_conv_dx`` (c also its upsample
-    adjoint), and each call of i, j, k and m's dx the rows of
+    adjoint), and each call of i, j, k, m's dx and n's dx the rows of
     ``SPLIT_ROUTE_ROWS``: each row present where its wrappers ran, and at
     most once a call (a trace may lose events, never add them); and no
     launch of a ``BF16_SIMT`` kernel."""

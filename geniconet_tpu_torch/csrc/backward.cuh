@@ -141,7 +141,8 @@ struct DxOut {
   }
 };
 
-// The decoder chain's dx epilogue (kernel n): the R = 5hw rows are the cells
+// The decoder chain's float32 dx epilogue (kernel n; its bf16 dx applies the
+// same adjoint in up_pair.cu's pair_adjoint_pass): the R = 5hw rows are the cells
 // of the level-s grid that the pair (b0, y10) joins into, each at its phase
 // and row by split_row. The residual tail's adjoint runs on the unrounded
 // float32 dx: dpre = dx * 1{pair_pre(a, b) > 0} against the raw phases,

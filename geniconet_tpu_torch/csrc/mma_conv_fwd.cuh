@@ -453,6 +453,40 @@ struct DuEpi {
   }
 };
 
+// The upsample and level-s pad adjoint that follows DuEpi (c, j, n):
+// halo.up_adjoint_table and the float32 dU it gathers.
+struct UpAdjoint {
+  const int* offsets;
+  const int* cells;
+  const float* weights;
+  float* du;
+};
+
+// Channels k0 .. k0 + 3 (< cin) of level-s cell m of sample b: the float32
+// sum, in the table's order, of each entry's weight times dU at its
+// upsampled cell (dU (B, 4, M, cin)); vec: cin a multiple of 4 (16-byte
+// loads). c's and j's pass (up_conv_bwd.cu) and n's (up_pair.cu) run this
+// one sum, so n's unrounded dx is c's bit for bit.
+__device__ __forceinline__ void up_adjoint_sum(const UpAdjoint& adj, int b, int m, int k0, int M,
+                                               int cin, int vec, float (&v)[4]) {
+  const float* base = adj.du + (size_t)b * 4 * M * cin + k0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = 0.f;
+  for (int x = __ldg(&adj.offsets[m]); x < __ldg(&adj.offsets[m + 1]); ++x) {
+    const float wt = __ldg(&adj.weights[x]);
+    const float* src = base + (size_t)__ldg(&adj.cells[x]) * cin;
+    if (vec) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] += wt * t.x;
+      v[1] += wt * t.y;
+      v[2] += wt * t.z;
+      v[3] += wt * t.w;
+    } else {
+      for (int e = 0; e < 4 && k0 + e < cin; ++e) v[e] += wt * src[e];
+    }
+  }
+}
+
 // One tile of the GEMM over Q = B * n_out * M rows, output phase slot s
 // reading the conv table of output phase out_phase0 + s, with the epilogue
 // Epi (the forward's FwdEpi; a's DxEpi, c's DuEpi): column tile bx, row tile

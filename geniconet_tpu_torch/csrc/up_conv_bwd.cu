@@ -63,49 +63,28 @@
 
 namespace {
 
+using gn::UpAdjoint;
+
 // One thread: 4 channels of one level-s cell, dx = the float32 sum of its
-// upsample-adjoint entries (halo.up_adjoint_table: weight times the cell's
+// upsample-adjoint entries (gn::up_adjoint_sum: weight times the cell's
 // cotangent in dU, the 4 upsampled phases (B, 4, 5hw, cin) float32),
 // rounded to bf16 once. vec: cin is a multiple of 4 (16-byte loads of dU).
 // Tag names the instantiation (c's GridCells, j's MergedUp) for a profile.
 template <typename Tag>
 __global__ void __launch_bounds__(256)
-up_adjoint_pass(const float* __restrict__ du, const int* __restrict__ offsets,
-                const int* __restrict__ cells, const float* __restrict__ weights,
-                __nv_bfloat16* __restrict__ dx, int M, int cin, int vec, long long total) {
+up_adjoint_pass(UpAdjoint adj, __nv_bfloat16* __restrict__ dx, int M, int cin, int vec,
+                long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int chunks = (cin + 3) / 4;
   const long long r = i / chunks;
   const int k0 = (int)(i - r * chunks) * 4;
   const int b = (int)(r / M), m = (int)(r - (long long)b * M);
-  const float* base = du + (size_t)b * 4 * M * cin + k0;
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int x = offsets[m]; x < offsets[m + 1]; ++x) {
-    const float wt = weights[x];
-    const float* src = base + (size_t)cells[x] * cin;
-    if (vec) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(src));
-      v[0] += wt * t.x;
-      v[1] += wt * t.y;
-      v[2] += wt * t.z;
-      v[3] += wt * t.w;
-    } else {
-      for (int e = 0; e < 4 && k0 + e < cin; ++e) v[e] += wt * src[e];
-    }
-  }
+  float v[4];
+  gn::up_adjoint_sum(adj, b, m, k0, M, cin, vec, v);
   __nv_bfloat16* dst = dx + (size_t)r * cin + k0;
   for (int e = 0; e < 4 && k0 + e < cin; ++e) dst[e] = __float2bfloat16_rn(v[e]);
 }
-
-// c's upsample adjoint (see gn_up_dual_conv_dx): halo.up_adjoint_table
-// and the float32 dU it gathers.
-struct UpAdjoint {
-  const int* offsets;
-  const int* cells;
-  const float* weights;
-  float* du;
-};
 
 // dx (B, 5hw, cin) bf16 from dU through the adjoint table, rounded once.
 template <typename Tag>
@@ -113,8 +92,7 @@ cudaError_t launch_up_adjoint(const UpAdjoint& adj, void* dx, int B, int M, int 
                               cudaStream_t stream) {
   const long long total = (long long)B * M * ((cin + 3) / 4);
   up_adjoint_pass<Tag><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      adj.du, adj.offsets, adj.cells, adj.weights, static_cast<__nv_bfloat16*>(dx), M, cin,
-      cin % 4 == 0, total);
+      adj, static_cast<__nv_bfloat16*>(dx), M, cin, cin % 4 == 0, total);
   return cudaGetLastError();
 }
 

@@ -36,7 +36,8 @@ __all__ = [
     "mma_narrow", "mma_taps_per_block", "grid_dtaps_split", "operand_width", "mma_dtaps_info",
     "grid_dtaps_info", "mma_fwd_grid", "packed_taps_shape", "mma_fwd_info",
     "grid_fwd_info", "block_fwd_info", "dx_packed_taps_shape", "cot_operand_shape", "mma_dx_info",
-    "up_bwd_info", "phase_bwd_info", "std_bwd_info", "ds2s_fwd_info",
+    "up_bwd_info", "phase_bwd_info", "std_bwd_info", "ds2s_fwd_info", "PAIR_ADJOINT_ROWS",
+    "pair_adjoint_blocks",
     "HEAD_BWD_BLOCKS", "head_bwd_blocks", "HEAD_MSE_CELLS", "head_mse_parts", "MAX_SLOTS",
     "MAX_SM_IDS",
 ]
@@ -157,7 +158,8 @@ _SIGNATURES = {
     "gn_stats_geff": [_VP] * 4 + [_INT, _I64, _INT, _INT, _VP],
     "gn_up_pair_fwd": [_VP] * 15 + [_INT] * 7 + [_VP],
     "gn_up_pair_fwd_info": [_INT, _VP],
-    "gn_up_pair_dx": [_VP] * 17 + [_INT] * 7 + [_VP],
+    "gn_up_pair_dx": [_VP] * 28 + [_INT] * 8 + [_VP],
+    "gn_up_pair_dx_info": [_VP],
     "gn_up_pair_dtaps": [_VP] * 13 + [_INT] * 9 + [_VP],
     "gn_up_pair_operand": [_VP] * 5 + [_INT] * 6 + [_VP],
     "gn_up_pair_dtaps_info": [_INT, _VP],
@@ -350,16 +352,30 @@ def std_bwd_info(narrow: bool, act: bool) -> dict:
     return _gemm_info("gn_ico_conv_bwd_info", narrow, act)
 
 
-def mma_dx_info(up: bool, act: bool = False, std: bool = False, split: bool = False) -> dict:
+def mma_dx_info(up: bool, act: bool = False, std: bool = False, split: bool = False,
+                pair: bool = False) -> dict:
     """``mma_dtaps_info`` for the tensor-core dx GEMM of the up conv (c,
-    ``up``), the standard conv (f, ``std``), m (``split``: its cotangent
-    written from the parity phases) or the phase conv (a), with the act
-    epilogue or without."""
+    ``up``; n's, ``up`` and ``pair``), the standard conv (f, ``std``), m
+    (``split``: its cotangent written from the parity phases) or the phase
+    conv (a), with the act epilogue or without."""
     if up:
-        return _gemm_info("gn_up_dual_conv_dx_info")
+        return _gemm_info("gn_up_pair_dx_info" if pair else "gn_up_dual_conv_dx_info")
     name = ("gn_ico_conv_dx_info" if std else "gn_ds2s_dx_info" if split
             else "gn_phase_conv_dx_info")
     return _gemm_info(name, act)
+
+
+# n's bf16 dx ends in a pass over the level-s cells (csrc/up_pair.cu:
+# pair_adjoint_pass) whose blocks take PAIR_ADJOINT_ROWS cells each and
+# write one row of [d_mul1 | d_add1 | d_mul2] partials.
+PAIR_ADJOINT_ROWS = 64
+
+
+def pair_adjoint_blocks(B: int, h: int, w: int) -> int:
+    """Partial rows of n's bf16 pair adjoint pass at the level-s (h, w) grid:
+    one a PAIR_ADJOINT_ROWS cells of the B·5hw (``csrc/up_pair.cu:PA_ROWS``
+    says the same)."""
+    return -(-B * 5 * h * w // PAIR_ADJOINT_ROWS)
 
 
 # The pair head's backward (csrc/pair_head.cu): a grid of at most

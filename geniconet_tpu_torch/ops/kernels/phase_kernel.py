@@ -56,7 +56,8 @@ Port of ``geniconet_tpu/ops/pallas/phase_kernel.py``:
   chain, the up conv whose level-s input is the previous UpBlock's residual
   join of a raw phase pair, and whose dx is that pair's 8 phase cotangents
   and 4 affine gradients (the bf16 forward and dtaps as the up conv's, on
-  the pair joined once: ``up_pair_operand``);
+  the pair joined once: ``up_pair_operand``; the bf16 dx as the up conv's,
+  with the join's adjoint in its last pass);
 * ``up_block_fwd`` -> ``csrc/up_block.cu`` (``_up_block_fwd_impl``, kernel
   o) and ``dn_block_fwd`` -> ``csrc/dn_block.cu`` (``_dn_block_fwd_impl``,
   kernel p): a whole UpBlock's or DownBlock's training forward in one
@@ -1322,7 +1323,13 @@ def up_pair_dx(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None,
     conv's level-s dx stays float32 through the join's adjoint, dpre =
     dx·1{a·mul1 + add1 + b·mul2 + add2 > 0}. Returns (4 db0 = dpre·mul1, 4
     dy10 = dpre·mul2 phases in the dtype, d_mul1 = Σdpre·a, d_add1 = Σdpre,
-    d_mul2 = Σdpre·b, d_add2 = d_add1 (float32 (C_in,)), gsums or None)."""
+    d_mul2 = Σdpre·b, d_add2 = d_add1 (float32 (C_in,)), gsums or None).
+    In bf16 it is ``up_dual_conv_dx``'s route (the cotangent pass, the
+    tensor-core GEMM into float32 dU, ``dx_scratch``) whose last pass gathers
+    each level-s cell's dx through ``halo.up_adjoint_table`` and applies the
+    join's adjoint before any rounding, with one partial row a
+    ``build.PAIR_ADJOINT_ROWS`` cells; in float32 the SIMT gather-GEMM over
+    the composed ``halo.up_dx_table`` with the adjoint in its epilogue."""
     if not on_cuda(b0[0], "up_pair_dx"):
         return up_pair_dx_plain(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups,
                                 gs_list, emit_gsum)
@@ -1334,18 +1341,23 @@ def up_pair_dx(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None,
     _check_cotangents(g_groups, y_groups, gs_list, (B, 5, h, w, cout), dt, dev, "up_pair_dx")
     M = 5 * h * w
     grads = [torch.empty_like(b0[0]) for _ in range(8)]
-    offsets, cells, weights = device_dx_table("up", h, w, corner_mode, dev)
-    red = build.scratch(B * build.n_tiles(M) * 3 * cin, dev)
+    tables, n_comb = dx_tables("up", dt, h, w, corner_mode, dev)
+    _, operand, wpack, du = dx_scratch(dt, B, h, w, cin, 2, cout, 4, n_comb, False, True, dev)
+    if dt == torch.bfloat16:
+        adjoint = device_dx_table("up_adjoint", h, w, corner_mode, dev)
+        red = build.scratch(build.pair_adjoint_blocks(B, h, w) * 3 * cin, dev)
+    else:
+        adjoint, red = (None,) * 3, build.scratch(B * build.n_tiles(M) * 3 * cin, dev)
     daff = [torch.empty(cin, dtype=torch.float32, device=dev) for _ in range(3)]
     gsum_ws, gsums = _gsum_outputs(B * 4 * M, 2, cout, dev) if emit_gsum else (None, [None])
     gp, yp, gs0, gs1 = _fold_ptrs(g_groups, y_groups, gs_list)
     with torch.cuda.device(dev):
         err = build.library().gn_up_pair_dx(
             gp, yp, gs0, gs1, *_pair([t for t, _ in tap_sets]), build.ptr_array((*b0, *y10)),
-            build.ptr_array(affines), build.ptr_array(grads), offsets.data_ptr(),
-            cells.data_ptr(), weights.data_ptr(), red.data_ptr(), build.ptr_array(daff),
-            build.ptr(gsum_ws), *_pair(gsums), B, h, w, cin, cout, build.GSUM_ROWS,
-            build.dtype_code(dt), build.stream_ptr(dev),
+            build.ptr_array(affines), build.ptr_array(grads), *map(build.ptr, tables),
+            *map(build.ptr, adjoint), build.ptr(operand), build.ptr(wpack), build.ptr(du),
+            red.data_ptr(), build.ptr_array(daff), build.ptr(gsum_ws), *_pair(gsums), B, h, w,
+            cin, cout, n_comb, build.GSUM_ROWS, build.dtype_code(dt), build.stream_ptr(dev),
         )
     build.check("up_pair_dx", err)
     build.LAUNCHES["up_pair_dx"] += 1

@@ -1045,6 +1045,75 @@ def _flat_all(out):
     return [out] if isinstance(out, torch.Tensor) else [x for o in out for x in _flat_all(o)]
 
 
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s", [1, 3, 4])
+def test_up_pair_dx_is_the_up_conv_dx(cuda, s, corner_mode):
+    """Kernel n's bf16 dx is c's route (cotangent pass, tensor-core GEMM into
+    dU) with the pair tail in its adjoint pass, which sums each level-s
+    cell's dx as c's pass does: the float32 dx it masks is c's unrounded dx
+    bit for bit. With mul1 = 1, mul2 = 0 and add1 + add2 = 64, so that every
+    mask is on, db0 = bf16(dx) is ``phase_split`` of ``up_dual_conv_dx`` on
+    the same cotangents, bit for bit, every dy10 is 0 and Σg_eff is c's;
+    with the fold and without, one launch of the wrapper, two calls
+    bit-equal, every output within TOL of the plain version."""
+    dt = torch.bfloat16
+    b0, y10, _ = _pair(cuda, dt, s, 12, seed=180 + s)
+    one, zero = torch.ones(12, device=cuda), torch.zeros(12, device=cuda)
+    aff = [one, torch.full((12,), 64.0, device=cuda), zero, zero]
+    _, _, sets = _inputs(cuda, dt, s, 12, 20, seed=190 + s)
+    mk, gs = _stats_fold(cuda, dt, (2, 5, 2**s, 2 ** (s + 1), 20), 2, seed=200 + s)
+    for fold in (True, False):
+        g = mk(4)
+        fk = dict(y_groups=mk(4), gs_list=gs) if fold else {}
+        build.reset_launches()
+        got = pk.up_pair_dx(g, b0, y10, aff, sets, corner_mode, emit_gsum=True, **fk)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"up_pair_dx": 1}
+        dx, gsums = pk.up_dual_conv_dx(g, sets, corner_mode, dt, emit_gsum=True, **fk)
+        _equal_all(got[0], phase_split(dx))
+        assert all(t.dtype == dt and not bool(t.float().abs().max()) for t in got[1])
+        _equal_all(got[6], gsums)
+        _equal_all(got, pk.up_pair_dx(g, b0, y10, aff, sets, corner_mode, emit_gsum=True, **fk))
+        _close_all(got, pk.up_pair_dx_plain(g, b0, y10, aff, sets, corner_mode, emit_gsum=True,
+                                            **fk), dt)
+
+
+@pytest.mark.parametrize("route", ["chain all", "dec"])
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_bf16_step_with_the_pair_dx(cuda, model, route):
+    """A bf16 training step on the decoder's chain (``phase_chain`` "1" and
+    "dec": n's dx at up1 and up2). In the step, every call of n's dx is
+    within TOL of its plain version on that call's own inputs; a trace of
+    the step shows n's tensor-core dx GEMM (``mma_conv<PairCells, DuEpi>``)
+    and its pair adjoint pass once a call, and no bf16 ``dx_gemm``."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import fused
+
+    routing = dict(phase_chain="1" if route == "chain all" else "dec")
+    calls = []
+
+    def checked(*args, **kwargs):
+        got = pk.up_pair_dx(*args, **kwargs)
+        calls.append((got, pk.up_pair_dx_plain(*args, **kwargs)))
+        return got
+
+    with mock.patch.object(fused, "up_pair_dx", checked):
+        _, launches, grads = _bf16_step(cuda, model, **routing)
+    n = launches.get("up_pair_dx", 0)
+    assert n == 2 and len(calls) == n
+    for got, ref in calls:
+        _close_all(got, ref, torch.bfloat16)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    names = _dx_kernel_names(lambda: _bf16_step(cuda, model, **routing))
+    count = {k: sum(c for name, c in names.items() if all(p in name for p in k))
+             for k in (("mma_conv", "DuEpi", "PairCells"), ("pair_adjoint_pass",),
+                       ("dx_gemm", "bfloat16"))}
+    assert count[("mma_conv", "DuEpi", "PairCells")] == n, count
+    assert count[("pair_adjoint_pass",)] == n, count
+    assert count[("dx_gemm", "bfloat16")] == 0, count
+
+
 def test_up_pair_wrappers_check_their_inputs(cuda):
     b0, y10, aff = _pair(cuda, torch.float32, 2, 8, seed=3)
     _, _, sets = _inputs(cuda, torch.float32, 2, 8, 8, seed=4)
@@ -2007,9 +2076,10 @@ def test_mma_dx_ragged_widths(cuda, kind, cin, cout, corner_mode):
 
 
 def test_mma_dx_has_no_fallback(cuda):
-    """A bf16 call of a, c or f whose cotangent operand, packed taps, dU or
-    code table (for f also its combined rows or its tap masks) is missing
-    raises (the C entry refuses it) rather than running the SIMT dx_gemm."""
+    """A bf16 call of a, c, f or n whose cotangent operand, packed taps, dU
+    or code table (for f also its combined rows or its tap masks; for n its
+    adjoint table) is missing raises (the C entry refuses it) rather than
+    running the SIMT dx_gemm."""
     from unittest import mock
 
     def without(i, fn):
@@ -2032,6 +2102,28 @@ def test_mma_dx_has_no_fallback(cuda):
         with mock.patch.object(pk, "dx_tables", without(3, pk.dx_tables)):  # the codes
             with pytest.raises(RuntimeError, match=name):
                 call()
+    b0, y10, aff = _pair(cuda, torch.bfloat16, 3, 12, seed=5)
+    _, _, sets = _inputs(cuda, torch.bfloat16, 3, 12, 20, seed=6)
+    mk, gs = _stats_fold(cuda, torch.bfloat16, (2, 5, 8, 16, 20), 2, seed=7)
+    g, y = mk(4), mk(4)
+
+    def pair_dx():
+        return pk.up_pair_dx(g, b0, y10, aff, sets, "average", y, gs, True)
+
+    pair_dx()
+    for i in (1, 2, 3):  # the operand, the packed taps, dU
+        with mock.patch.object(pk, "dx_scratch", without(i, pk.dx_scratch)):
+            with pytest.raises(RuntimeError, match="up_pair_dx"):
+                pair_dx()
+    with mock.patch.object(pk, "dx_tables", without(3, pk.dx_tables)):  # the codes
+        with pytest.raises(RuntimeError, match="up_pair_dx"):
+            pair_dx()
+    table = pk.device_dx_table
+    with mock.patch.object(pk, "device_dx_table",  # the adjoint table
+                           lambda kind, *a: (None,) * 3 if kind == "up_adjoint" else table(
+                               kind, *a)):
+        with pytest.raises(RuntimeError, match="up_pair_dx"):
+            pair_dx()
     call = _dx_calls(cuda, GRID_DX["down0 conv01"], True)[0]
     for i in (1, 2):  # the operand, the packed taps
         with mock.patch.object(ck, "dx_scratch", without(i, ck.dx_scratch)):
@@ -2045,11 +2137,14 @@ def test_mma_dx_has_no_fallback(cuda):
 
 def test_mma_dx_occupancy(cuda):
     """Each instantiation of the dx GEMM (a and f with the act epilogue and
-    without, c) fits 2 blocks an SM with no local memory (no spill)."""
+    without, c, n) fits 2 blocks an SM with no local memory (no spill)."""
     for up, act, std in ((False, True, False), (False, False, False), (True, False, False),
                          (False, True, True), (False, False, True)):
         info = build.mma_dx_info(up, act, std)
         assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, (up, act, std, info)
+    info = build.mma_dx_info(True, pair=True)
+    assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, info
+    assert info == build.mma_dx_info(True)  # c's GEMM, tagged PairCells
 
 
 def _dx_kernel_names(fn):

@@ -41,6 +41,17 @@ through the merged VJPs of ``fused_phase_conv_s1`` and
 and against ``_ds2s_bwd`` through the VJP of ``fused_dual_s2_conv_split``.
 Both at s=1-4, both corner modes, act and fold on and off, float32 and
 bfloat16, with the tolerances above; the scratch of both at the s=5 sites.
+
+``_pair_rows_dx`` replays kernel n's bf16 dx (``csrc/up_pair.cu``): c's
+written cotangent and dU GEMM, the upsample adjoint table's gather, then
+the pair tail's adjoint on the unrounded float32 dx against the raw pair,
+each level-s cell at its parity phase and row by ``split_row``'s map
+(written here from its shifts and masks, not by ``phase_split``): db0,
+dy10 rounded once, d_mul1, d_add1 = d_add2, d_mul2 and Σg_eff. Held
+against ``up_pair_dx_plain`` at s=1-4, both corner modes, fold on and off,
+odd C_in, float32 and bfloat16 (the tolerances above), and against
+``_updp_bwd`` through the VJP of ``fused_up_dual_conv_pair`` in interpret
+mode (float32, 1e-5); its partial rows at the s=5 sites.
 """
 
 from unittest import mock
@@ -527,6 +538,78 @@ def test_split_rows_dx_is_the_ds2s_dx(s, cin, cout, corner_mode, dtype):
         _close_tree(got, pk.ds2s_dx_plain(*args, **fk), TOL[dt])
 
 
+
+def _split_map(h, w):
+    """``split_row``'s map of a (5, h, w) grid, from its shifts and masks:
+    per cell m = (chart, i, j) its parity phase 2·(i & 1) + (j & 1) and its
+    cell (chart, i >> 1, j >> 1) of the (5, h/2, w/2) phase."""
+    m = np.arange(5 * h * w)
+    chart, r = m // (h * w), m % (h * w)
+    i, j = r // w, r % w
+    return 2 * (i & 1) + (j & 1), (chart * (h // 2) + (i >> 1)) * (w // 2) + (j >> 1)
+
+
+def _pair_rows_dx(g_groups, b0, y10, affines, tap_sets, corner_mode, y_groups=None,
+                  gs_list=None):
+    """n's bf16 dx formulation: c's written cotangent of all 4 output phases
+    and dU GEMM (``_gemm``), the upsample adjoint's gather (``_up_adjoint``,
+    float32, not rounded), then the tail against the raw pair at
+    ``_split_map``'s phase and cell: dm = dx·1{((a·mul1 + add1) + b·mul2) +
+    add2 > 0}, db0 = dm·mul1 and dy10 = dm·mul2 rounded once into their
+    phases, d_mul1 = Σdm·a, d_add1 = d_add2 = Σdm, d_mul2 = Σdm·b; as
+    ``up_pair_dx`` returns them (Σg_eff, the written rows' column sums,
+    always)."""
+    B, _, h, w, cout = g_groups[0][0].shape
+    dt, cin = b0[0].dtype, b0[0].shape[-1]
+    rows = pk.cot_operand_plain(g_groups, y_groups, gs_list, corner_mode)
+    acc = _gemm(rows, h, w, corner_mode, (0, 1, 2, 3), tap_sets, cin)  # (B, 4, M, C_in) dU
+    dx = _up_adjoint(acc, h, w, corner_mode)  # (B, M, C_in) float32
+    cot = rows[:-1].view(B, -1, rows.shape[1])[:, : 4 * 5 * h * w].float()
+    gsums = [cot[..., s * cout : (s + 1) * cout].sum(dim=(0, 1)) for s in range(2)]
+    phase, cell = _split_map(h, w)
+    p_t, c_t = torch.from_numpy(phase), torch.from_numpy(cell)
+
+    def at_cells(phases):
+        return torch.stack([t.float().reshape(B, -1, cin) for t in phases], dim=1)[:, p_t, c_t]
+
+    a, b = at_cells(b0), at_cells(y10)
+    mul1, add1, mul2, add2 = affines
+    dm = torch.where(a * mul1 + add1 + b * mul2 + add2 > 0, dx, torch.zeros(()))
+    db0, dy10 = (dm * mul1).to(dt), (dm * mul2).to(dt)
+    shape = b0[0].shape
+
+    def to_phases(t):
+        out = []
+        for p in range(4):
+            sel = np.flatnonzero(phase == p)
+            out.append(t[:, sel[np.argsort(cell[sel])]].reshape(shape))
+        return tuple(out)
+
+    dadd = dm.sum(dim=(0, 1))
+    return (to_phases(db0), to_phases(dy10), (dm * a).sum(dim=(0, 1)), dadd,
+            (dm * b).sum(dim=(0, 1)), dadd, gsums)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("s, cin, cout", [(1, 5, 4), (2, 12, 8), (3, 7, 20), (4, 16, 12)])
+def test_pair_rows_dx_is_the_pair_dx(s, cin, cout, corner_mode, dtype):
+    """n's formulation on a level-s pair (parity phases of (2^s, 2^(s+1)))
+    is ``up_pair_dx_plain``: the 8 phase cotangents, the 4 affine gradients
+    and Σg_eff, with the fold and without."""
+    dt = DTYPES[dtype]
+    c = _Case(190 + 10 * s + cin, s, cin, cout, dt)
+    half = _Case(191 + 10 * s + cin, s - 1, cin, cout, dt)  # the pair's parity phases
+    b0, y10 = [half.grid(cin) for _ in range(4)], [half.grid(cin) for _ in range(4)]
+    aff = [*c.act(), *c.act()]
+    for fold in (True, False):
+        g, sets = c.groups(2, 4), c.sets(2)
+        fk = dict(y_groups=c.groups(2, 4), gs_list=c.gs(2)) if fold else {}
+        got = _pair_rows_dx(g, b0, y10, aff, sets, corner_mode, **fk)
+        assert all(t.dtype == dt and t.shape == b0[0].shape for t in got[0] + got[1])
+        ref = pk.up_pair_dx_plain(g, b0, y10, aff, sets, corner_mode, emit_gsum=True, **fk)
+        _close_tree(got, ref, TOL[dt])
+
 @pytest.fixture
 def env(monkeypatch):
     """Set the JAX package's experimental routing variables (read at trace
@@ -606,6 +689,34 @@ def test_split_rows_dx_matches_pallas(env, interpret):
     got = _split_rows_dx(g, [(ta, None), (tb, None)], "average", 3, torch.float32, (mul, add),
                          phases, y, gs)
     _close_tree(got, (dph, dmul, dadd, [dba, dbb]), 1e-5)
+    assert spy.called
+
+
+def test_pair_rows_dx_matches_pallas(env, interpret):
+    """n's dx formulation against the VJP of the JAX package's
+    ``fused_up_dual_conv_pair`` with stats (its ``_updp_bwd``, the fold in
+    its dx kernel under ``GENICONET_KERNEL_GEFF=upd``) in interpret mode,
+    at a level-2 pair (level-1 parity phases), B=2, float32: the 8 phase
+    cotangents, the 4 affine gradients and the bias gradients Σg_eff."""
+    env(KERNEL_GEFF="upd")
+    c = _Case(185, 2, 3, 4, torch.float32)
+    half = _Case(186, 1, 3, 4, torch.float32)
+    b0, y10 = [half.grid(3) for _ in range(4)], [half.grid(3) for _ in range(4)]
+    aff = [*c.act(), *c.act()]
+    (ta, _), (tb, _) = c.sets(2)
+    ba, bb = (c.t(c.r.randn(4)) for _ in range(2))
+
+    def f(b0, y10, aff, ba, bb):
+        return jpk.fused_up_dual_conv_pair(b0, y10, aff, _j(ta), ba, _j(tb), bb, "average",
+                                           with_stats=True)
+
+    with mock.patch.object(jpk, "_up_pair_dx_kernel", wraps=jpk._up_pair_dx_kernel) as spy:
+        outs, vjp = jax.vjp(f, *_j([tuple(b0), tuple(y10), tuple(aff), ba, bb]))
+        g, gs = c.groups(2, 4), c.gs(2)
+        db0, dy10, daff, dba, dbb = vjp((*_j([tuple(g[0]), tuple(g[1])]), *_j(gs)))
+    y = [[torch.from_numpy(np.array(v)) for v in outs[k]] for k in range(2)]
+    got = _pair_rows_dx(g, b0, y10, aff, [(ta, None), (tb, None)], "average", y, gs)
+    _close_tree(got, (db0, dy10, *daff, [dba, dbb]), 1e-5)
     assert spy.called
 
 
@@ -832,6 +943,28 @@ def test_dx_scratch_at_the_model_shapes(site):
                                             n_comb, True, up, "meta", n_in=n_in)
     assert operand is None and wpack is None and du is None
     assert red.shape == (B * build.n_tiles(n_in * M) * 2 * cin,)
+
+
+@pytest.mark.parametrize("site, blocks", [("up1", 360), ("up2", 1440)])
+def test_pair_dx_scratch_at_the_model_shapes(site, blocks):
+    """n's bf16 dx at the decoder chain's sites (up1: a (8, 16) pair of 256
+    channels, up2: (16, 32) of 128; B=36) takes c's tables and scratch with
+    two tap sets (the written cotangent with 320 and 640 combined rows a
+    sample, the transposed taps, float32 dU: 189 MB at up2) and one row of
+    [d_mul1 | d_add1 | d_mul2] partials a 64 level-s cells of its adjoint
+    pass: 360 and 1440 rows."""
+    h, w, cin, cout, n_sets, out_phases, _ = MODEL_DX[site]
+    B, M = 36, 5 * h * w
+    n_comb = TABLE_FACTS[(h, w, out_phases)][0]
+    _, operand, wpack, du = pk.dx_scratch(torch.bfloat16, B, h, w, cin, n_sets, cout, 4, n_comb,
+                                          False, True, "meta")
+    assert operand.shape == build.cot_operand_shape(B, 4 * M, n_comb, n_sets * cout)
+    assert wpack.shape == build.dx_packed_taps_shape(cin, n_sets * cout)
+    assert du.shape == (B, 4, M, cin) and du.dtype == torch.float32
+    assert build.PAIR_ADJOINT_ROWS == 64
+    assert build.pair_adjoint_blocks(B, h, w) == blocks == -(-B * M // 64)
+    if site == "up2":
+        assert du.numel() * 4 == 188_743_680
 
 
 # i's sites in the s=5 models on the merged route: (h, w, C_in, C_out, tap

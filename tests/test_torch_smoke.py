@@ -205,6 +205,26 @@ def test_busy_time_is_the_union_of_device_events(intervals, want_ms):
                                "gn::DxPairOut<__nv_bfloat16> >"},
      "dx_gemm<bf16, pair> (n)"),
     ({"cat": "kernel", "name": "void gn::dx_gemm<float, gn::GLoad<float, false>, "
+                               "gn::DxPairOut<float> >"},
+     "dx_gemm<fp32, pair> (n)"),
+    # n's bf16 dx: c's cotangent pass, tap pack and GEMM tagged PairCells,
+    # then its adjoint pass with the pair tail
+    ({"cat": "kernel", "name": "void gn::cot_operand_pass<gn::PairCells<__nv_bfloat16>, false>"
+                               "(gn::GLoad<__nv_bfloat16, false>, gn::CombRows)"},
+     "cot_operand_pass<bf16> (n)"),
+    ({"cat": "kernel", "name": "void gn::mma_conv<gn::PairCells<__nv_bfloat16>, gn::DuEpi>"
+                               "(gn::OperandRows, __nv_bfloat16 const*, gn::DuEpi, int)"},
+     "mma_conv_dx<bf16> (n)"),
+    ({"cat": "kernel", "name": "void gn::pack_taps_t<__nv_bfloat16, gn::PairCells<"
+                               "__nv_bfloat16> >(__nv_bfloat16 const*)"},
+     "pack_taps (n)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::pair_adjoint_pass<gn::PairCells<"
+                               "__nv_bfloat16> >(gn::UpAdjoint, (anonymous namespace)::PairTail)"},
+     "pair_adjoint_pass (n)"),
+    ({"cat": "kernel", "name": "void (anonymous namespace)::up_adjoint_pass<gn::GridCells<"
+                               "__nv_bfloat16> >(gn::UpAdjoint, __nv_bfloat16*)"},
+     "up_adjoint_pass (c)"),
+    ({"cat": "kernel", "name": "void gn::dx_gemm<float, gn::GLoad<float, false>, "
                                "gn::DxOut<float> >"},
      "dx_gemm<fp32>"),
     # the merged blocks: o and p, bf16 on the tensor cores, float32 the SIMT tiles
@@ -407,14 +427,14 @@ _DX_CALLS = {"phase_conv_dx": 6.0, "up_dual_conv_dx": 3.0, "ico_conv_s2s_dx": 3.
     (("up_adjoint_pass (c)",), {}, False),         # c without its adjoint
     ((), {"dx_gemm<bf16>": 15}, False),            # the SIMT dx in bf16
     (("mma_conv_dx<bf16> (f)",), {}, False),       # f's GEMM missing
-    ((), {"dx_gemm<bf16, pair> (n)": 15}, True),   # n's SIMT dx has its own row
+    ((), {"dx_gemm<bf16, pair> (n)": 15}, False),  # n's SIMT dx in bf16
     ((), {"dx_gemm<bf16, split> (m)": 15}, False),  # m's SIMT dx in bf16
 ])
 def test_device_launches_of_the_dx(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step:
     every call of a, c and f shows its cotangent pass and ``mma_conv_dx``
     (c also its upsample adjoint), and neither the SIMT ``dx_gemm<bf16>``
-    nor m's split one runs (n's pair dx keeps its SIMT row)."""
+    nor m's split one nor n's pair one runs."""
     groups = {k: v for k, v in {**_DX, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _DX_CALLS, 5)
@@ -430,9 +450,12 @@ _SPLIT_ROUTE = {"cot_operand_pass<bf16> (j)": 15, "up_operand_pass<bf16> (j)": 1
                 "cot_operand_pass<bf16> (i)": 30, "grid_operand_pass<bf16> (i)": 30,
                 "mma_bwd<bf16> (i)": 30, "cot_operand_pass<bf16> (m)": 15,
                 "mma_conv_dx<bf16> (m)": 15, "cot_operand_pass<bf16> (k)": 15,
-                "grid_operand_pass<bf16> (k)": 15, "mma_bwd<bf16> (k)": 15}
+                "grid_operand_pass<bf16> (k)": 15, "mma_bwd<bf16> (k)": 15,
+                "cot_operand_pass<bf16> (n)": 10, "mma_conv_dx<bf16> (n)": 10,
+                "pair_adjoint_pass (n)": 10}
 _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bwd": 6.0,
-                      "ds2s_dx": 3.0, "ico_conv_s2s_bwd": 3.0, "ds2s_fwd": 3.0}
+                      "ds2s_dx": 3.0, "ico_conv_s2s_bwd": 3.0, "ds2s_fwd": 3.0,
+                      "up_pair_dx": 2.0}
 
 
 @pytest.mark.parametrize("drop, add, ok", [
@@ -447,7 +470,7 @@ _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bw
     ((), {"merged_bwd<bf16, UpLoad>": 15}, False),      # j's SIMT tiles in bf16
     ((), {"dtaps_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT dtaps in bf16
     ((), {"pack_taps (k)": 15, "pack_taps (m)": 30}, True),  # k's and m's tap packs
-    ((), {"dx_gemm<bf16, pair> (n)": 15}, True),       # n's SIMT dx stays
+    ((), {"dx_gemm<bf16, pair> (n)": 10}, False),      # n's SIMT dx in bf16
     (("mma_bwd<bf16> (i)",), {}, False),          # i without its GEMMs
     (("grid_operand_pass<bf16> (i)",), {}, False),      # i without its operand pass
     (("cot_operand_pass<bf16> (i)",), {}, False),       # i without its cotangent pass
@@ -462,17 +485,23 @@ _SPLIT_ROUTE_CALLS = {"up_dual_conv_bwd": 3.0, "ds2s_dtaps": 3.0, "phase_conv_bw
     ((), {"merged_bwd<bf16, GridLoad>": 15}, False),    # k's SIMT tiles in bf16
     (("mma_conv_fwd<bf16> (m)",), {}, False),           # m's forward without its GEMM
     ((), {"conv_gemm<bf16, GridLoad, split> (m)": 15}, False),  # m's SIMT forward in bf16
+    (("cot_operand_pass<bf16> (n)",), {}, False),       # n's dx without its cotangent pass
+    (("mma_conv_dx<bf16> (n)",), {}, False),            # n's dx without its GEMM
+    (("pair_adjoint_pass (n)",), {}, False),            # n's dx without its adjoint pass
+    ((), {"pair_adjoint_pass (n)": 20}, False),         # more adjoint passes than calls
+    ((), {"pack_taps (n)": 10}, True),                  # n's tap pack
 ])
 def test_device_launches_of_the_split_route_passes(drop, add, ok):
     """``check_device_launches`` over 5 profiled iterations of a bf16 step on
     the merged route and both chains: every call of i and k shows its two
     passes and its one launch of both GEMMs, every call of j the same and
-    its upsample adjoint, every call of m's dx a's cotangent pass and GEMM
-    (``SPLIT_ROUTE_ROWS``), of m's forward and dtaps b's operand pass and
-    their GEMM (``GRID_ROWS``); no window the SIMT merged tiles
-    (``merged_bwd<bf16, UpLoad>``, ``merged_bwd<bf16, GridLoad>``) or m's
-    SIMT ``conv_gemm``, ``dx_gemm`` or ``dtaps_gemm`` with the split
-    map."""
+    its upsample adjoint, every call of m's dx a's cotangent pass and GEMM,
+    every call of n's dx c's cotangent pass and GEMM and its pair adjoint
+    pass (``SPLIT_ROUTE_ROWS``), of m's forward and dtaps b's operand pass
+    and their GEMM (``GRID_ROWS``); no window the SIMT merged tiles
+    (``merged_bwd<bf16, UpLoad>``, ``merged_bwd<bf16, GridLoad>``), m's
+    SIMT ``conv_gemm``, ``dx_gemm`` or ``dtaps_gemm`` with the split map
+    or n's SIMT pair ``dx_gemm``."""
     groups = {k: v for k, v in {**_SPLIT_ROUTE, **add}.items() if k not in drop}
     if ok:
         chip_smoke.check_device_launches("t", _groups(**groups), _SPLIT_ROUTE_CALLS, 5)
