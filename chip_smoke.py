@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Twenty-two paths at full width (s=5, widths 64/128/256; the VAE's latent
+Twenty-four paths at full width (s=5, widths 64/128/256; the VAE's latent
 512): AE serving, AE training, VAE serving, VAE training, AE and VAE
+``Trainer.fit`` with validation, checkpoints and resume, AE and VAE
 training on the merged backward route (``merged_bwd="all"``); AE and VAE
 training on the merged blocks (``merged_block="all"``: every UpBlock's
 training forward one launch of kernel o, every DownBlock's one of p), the
@@ -102,7 +103,24 @@ printed on its own lines, each fatal on failure:
    (the AE's also ``pallas_blocks="up0,up1,up2"``, encoder and head on
    cuDNN), in turns at B=36 bfloat16, side by side (default, enc, dec,
    both chains, merged blocks, ...);
-8. profile: where the device time goes in the timed serving workloads and
+8. fit: for the AE and the VAE on the default route at B=36 bfloat16,
+   ``Trainer.fit`` for 3 epochs of the 64 training meshes (the last batch
+   ragged) with validation on 16 more, in a temporary log directory: the
+   checkpoints written must be exactly the EB and E files the JAX
+   package's rules give for the printed validation history; ``restore`` of
+   the newest E file into a fresh Trainer must equal the in-memory weights,
+   BatchNorm statistics, Adam state, epoch and best loss bit for bit, and
+   one step of each on the same batch must give bit-equal metrics; the
+   command line (``cli.main``) resumes from that file for one more epoch
+   on the meshes written as .npz files; ``AppState.load(epoch=0)`` of the
+   newest EB file must give the latent cache and a B=1 decode of the same
+   weights loaded from memory bit for bit, and ``/api/load`` and
+   ``/api/epochs`` must list the files written. It prints each epoch's wall
+   time and training meshes/s (the log cadence's host syncs included),
+   ``validate``'s time, the checkpoint's bytes, ``save_checkpoint``'s and
+   ``load_checkpoint``'s ms and ``AppState.load``'s seconds; the launches of
+   each ``fit`` join the paths as "AE train (fit)" and "VAE train (fit)";
+9. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
    trace, with the device's idle share; every bf16 call of the grid
@@ -292,6 +310,9 @@ PATH_KERNELS = {
     "AE serve": _FORWARD,
     "AE train": (*(k for k in _FORWARD if k != "pair_head_fwd"), *_BACKWARD, *_AE_HEAD),
     "AE train (merged)": (*(k for k in _FORWARD if k != "pair_head_fwd"), *_MERGED, *_AE_HEAD),
+    # Trainer.fit (train_epoch, validate) on the default route
+    "AE train (fit)": (*(k for k in _FORWARD if k != "pair_head_fwd"), *_BACKWARD, *_AE_HEAD),
+    "VAE train (fit)": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
     "VAE serve": _FORWARD,
     "VAE train": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
     "VAE train (merged)": (*_FORWARD, *_MERGED, "pair_head_bwd"),
@@ -330,6 +351,7 @@ _NEW = ("stats_geff", *_CHAIN, *_N)
 PATH_FORBIDDEN = {
     "AE serve": _NEW, "VAE serve": _NEW,
     "AE train": (*_MERGED[:3], *_NEW), "VAE train": (*_MERGED[:3], *_NEW),
+    "AE train (fit)": (*_MERGED[:3], *_NEW), "VAE train (fit)": (*_MERGED[:3], *_NEW),
     "AE train (merged)": (*_SPLIT_ONLY, *_NEW), "VAE train (merged)": (*_SPLIT_ONLY, *_NEW),
     "AE serve (chain)": (*_STD, *_N),
     "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff", *_N),
@@ -1607,7 +1629,7 @@ def serve(model: str, dtype_name: str, variables, card: str, phase_chain=None):
     tag = f"serve {model} {dtype_name}{' phase_chain=' + phase_chain if phase_chain else ''}"
     st = AppState(device="cuda")
     t0 = time.perf_counter()
-    info = st.load(cfg, variables, phase_chain=phase_chain)
+    info = st.load(cfg, variables=variables, phase_chain=phase_chain)
     torch.cuda.synchronize()
     print(f"[{tag}] load: {info['n']} meshes, latent {info['latent_shape']}, "
           f"{time.perf_counter() - t0:.2f} s (dataset build included)", flush=True)
@@ -2286,6 +2308,200 @@ PLANTED_BLOCK = (
     ("dn_block_fwd", "down0-2 p, mul00 (the backward's residual)", (6,), lambda a: True),
 )
 # the training routings of each model (``ROUTES`` keys)
+FIT_EPOCHS, FIT_SAVE_FREQ, VAL_MESHES = 3, 2, 16
+
+
+def expected_checkpoints(name: str, history, save_freq: int, start: int = 0,
+                         best: float = math.inf, keep: int = 6) -> set:
+    """The file names the JAX package's ``Trainer.fit`` writes for a
+    validation history from epoch ``start``: an EB file whenever the loss is
+    at or below the best (ties too), then only the newest ``keep`` EB files
+    kept; an E file every ``save_freq`` epochs and one at the end."""
+    eb, e = [], set()
+    for k, cur in enumerate(history):
+        epoch = start + k + 1
+        if cur <= best:
+            best = cur
+            eb = sorted(eb + [epoch])[-keep:]
+        if epoch % save_freq == 0:
+            e.add(epoch)
+    if history:
+        e.add(start + len(history))
+    return {f"{name}_EB{k}.ckpt" for k in eb} | {f"{name}_E{k}.ckpt" for k in e}
+
+
+def _same_weights(a, b, what: str):
+    """Every parameter and BatchNorm statistic of models a and b bit for bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if set(sa) != set(sb) or bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+
+
+def fit_phase(model: str, variables, dataset, val_dataset, card: str) -> dict:
+    """Phase [fit] for one model at B=36 bf16: ``Trainer.fit`` for
+    FIT_EPOCHS epochs (EB/E checkpoints in the JAX format, E every
+    FIT_SAVE_FREQ), then ``restore`` of the newest E file into a fresh
+    Trainer (weights, BatchNorm statistics, Adam state, epoch and best loss
+    bit for bit), one step of each on the same batch (metrics bit for bit),
+    a resume by the command line for one more epoch from the dataset written
+    as .npz files, and the explorer loading the newest EB file from disk,
+    its latent cache and a B=1 decode bit-equal to a load from the same
+    weights in memory. Returns the kernel launches of the ``fit`` run."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from geniconet_tpu_torch import cli
+    from geniconet_tpu_torch.app.server import handle_api
+    from geniconet_tpu_torch.app.state import AppState
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.train import checkpoint as ckpt
+    from geniconet_tpu_torch.train.config import apply_model_presets
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    tag = f"fit {model} bfloat16"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as root:
+        data_root = os.path.join(root, "data")
+        for split, ds in (("train", dataset), ("test", val_dataset)):
+            os.makedirs(os.path.join(data_root, "synth", split))
+            for k, target in enumerate(ds.targets):
+                np.savez(os.path.join(data_root, "synth", split, f"m{k}.npz"), data=target.T)
+        cfg = apply_model_presets(train_config("bfloat16", TRAIN_BATCH, model))
+        cfg.train.train_epoch, cfg.train.save_epoch_freq = FIT_EPOCHS, FIT_SAVE_FREQ
+        cfg.log_dir, cfg.data.data_dir = os.path.join(root, "log"), data_root
+        ckpt_dir = os.path.join(cfg.model_log_dir(), "savedModel")
+        tr = Trainer(cfg, device="cuda")
+        st = tr.init_state(variables)
+        trn = Batches(dataset, TRAIN_BATCH, seed=0, device="cuda")
+        val = Batches(val_dataset, TRAIN_BATCH, shuffle=False, device="cuda")
+        epoch_s, val_s = [], []
+
+        def timed(fn, into):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        tr.train_epoch, tr.validate = timed(tr.train_epoch, epoch_s), timed(tr.validate, val_s)
+        build.reset_launches()
+        st, history = tr.fit(st, trn, val)
+        launches = dict(build.LAUNCHES)
+        del tr.train_epoch, tr.validate
+        files = set(os.listdir(ckpt_dir))
+        want = expected_checkpoints(cfg.model.name, history, FIT_SAVE_FREQ)
+        print(f"[{tag}] {FIT_EPOCHS} epochs of {len(dataset)} meshes at B={TRAIN_BATCH} "
+              f"(the last batch {len(dataset) % TRAIN_BATCH or TRAIN_BATCH}), validation on "
+              f"{len(val_dataset)}: history {history}; epoch wall "
+              f"{[round(t, 4) for t in epoch_s]} s = "
+              f"{[round(len(dataset) / t, 1) for t in epoch_s]} training meshes/s (the log_freq "
+              f"{cfg.train.log_freq} cadence's host syncs included); validate "
+              f"{[round(t, 4) for t in val_s]} s; files {sorted(files)} [{card}]", flush=True)
+        if not all(math.isfinite(v) for v in history):
+            raise AssertionError(f"{tag}: non-finite validation history {history}")
+        if files != want:
+            raise AssertionError(f"{tag}: wrote {sorted(files)}, JAX's rules give {sorted(want)}")
+
+        # restore the newest E file into a fresh Trainer
+        path = ckpt.latest_checkpoint(ckpt_dir, cfg.model.name)
+        t0 = time.perf_counter()
+        blob = ckpt.load_checkpoint(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        fresh = Trainer(cfg, device="cuda")
+        fst, epoch, best = fresh.restore(fresh.init_state(variables), path)
+        _same_weights(fresh.model, tr.model, f"{tag} restore of {os.path.basename(path)}")
+        for (k, p), q in zip(tr.model.named_parameters(), fresh.model.parameters()):
+            a, b = st.optimizer.state[p], fst.optimizer.state[q]
+            if any(not torch.equal(a[n], b[n]) for n in ("exp_avg", "exp_avg_sq", "step")):
+                raise AssertionError(f"{tag} restore: Adam's state of {k} differs")
+        if (epoch, best, fst.step) != (FIT_EPOCHS, min(history), st.step):
+            raise AssertionError(f"{tag} restore: epoch {epoch}, best {best}, step {fst.step}; "
+                                 f"want {FIT_EPOCHS}, {min(history)}, {st.step}")
+        t0 = time.perf_counter()
+        tr._save(st, os.path.join(root, "timed"), cfg.model.name, epoch, history[-1], best=False,
+                 best_loss=best)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(path)
+
+        # one step of each on the same batch: the kernels have no atomics
+        x, y, wt = next(Batches(dataset, TRAIN_BATCH, seed=5, device="cuda").epoch())
+        if fresh.is_vae:
+            fresh.generator.set_state(tr.generator.get_state())
+        ma, mb = (t.train_step(s, x, y, wt, epoch) for t, s in ((tr, st), (fresh, fst)))
+        bad = [k for k in ma if not (torch.equal(ma[k], mb[k]) if torch.is_tensor(ma[k])
+                                     else ma[k] == mb[k])]
+        if bad:
+            raise AssertionError(f"{tag}: the restored trainer's step differs in {bad}: "
+                                 f"{ {k: (float(ma[k]), float(mb[k])) for k in bad} }")
+        print(f"[{tag}] restore of {os.path.basename(path)}: weights, BatchNorm statistics, "
+              f"Adam's state, epoch {epoch} and best {best} bit for bit, and the next step's "
+              f"metrics too (total {float(ma['total'])}); checkpoint {nbytes} bytes, "
+              f"save_checkpoint (with the device-to-host copy) {save_ms:.1f} ms, "
+              f"load_checkpoint {load_ms:.1f} ms (the pure-Python codec) [{card}]", flush=True)
+        del blob
+
+        # resume by the command line for one more epoch
+        argv = ["--model", model, "--process", "train", "--dataDir", data_root,
+                "--logDir", cfg.log_dir, "--batch_size", str(TRAIN_BATCH),
+                "--compute_dtype", "bfloat16", "--subdivision", str(SUBDIVISIONS),
+                "--widths", *map(str, WIDTHS), "--latent_features", str(LATENT),
+                "--train_epoch", str(FIT_EPOCHS + 1),
+                "--load_pretrained_model", "--load_epoch", str(FIT_EPOCHS)]
+        t0 = time.perf_counter()
+        resumed = cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        if len(resumed) != 1 or not math.isfinite(resumed[0]):
+            raise AssertionError(f"{tag}: the resume ran {len(resumed)} epochs ({resumed}), "
+                                 f"want 1 from epoch {FIT_EPOCHS}")
+        files = set(os.listdir(ckpt_dir))
+        want |= expected_checkpoints(cfg.model.name, resumed, 50 if fresh.is_vae else 100,
+                                     start=FIT_EPOCHS, best=min(history))
+        if files != want:
+            raise AssertionError(f"{tag} resume: {sorted(files)}, JAX's rules give {sorted(want)}")
+        print(f"[{tag}] cli.main --load_pretrained_model --load_epoch {FIT_EPOCHS}: one epoch "
+              f"from epoch {FIT_EPOCHS}, validation {resumed}, {cli_s:.2f} s with the .npz "
+              f"dataset's load; files {sorted(files)} [{card}]", flush=True)
+
+        # the explorer from disk against the same weights in memory
+        serve_cfg = model_config(model, "bfloat16")
+        serve_cfg.log_dir, serve_cfg.data.data_dir = cfg.log_dir, data_root
+        disk, memory = AppState(device="cuda"), AppState(device="cuda")
+        t0 = time.perf_counter()
+        info = disk.load(serve_cfg, epoch=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        blob = ckpt.load_checkpoint(ckpt.checkpoint_path(ckpt_dir, cfg.model.name,
+                                                         ckpt.latest_best_epoch(ckpt_dir,
+                                                                                cfg.model.name),
+                                                         best=True))
+        memory.load(serve_cfg, variables={k: blob[k] for k in ("params", "batch_stats")})
+        if not (np.array_equal(disk.latents, memory.latents)
+                and np.array_equal(disk.decode_latent(disk.latents[0]),
+                                   memory.decode_latent(memory.latents[0]))):
+            raise AssertionError(f"{tag}: the explorer's load from disk differs from the load "
+                                 "of the same weights")
+        served = AppState(device="cuda")
+        api = handle_api(served, "/api/load", {"model": model, "logDir": cfg.log_dir,
+                                               "subdivision": SUBDIVISIONS, "widths": WIDTHS,
+                                               "dataDir": data_root, "epoch": 0})
+        listed = {f"{cfg.model.name}_{'EB' if kind == 'best' else 'E'}{e}.ckpt"
+                  for kind, epochs in api["epochs"].items() for e in epochs}
+        if listed != files or handle_api(served, "/api/epochs", {}) != api["epochs"]:
+            raise AssertionError(f"{tag}: /api/load lists {sorted(listed)}, wrote {sorted(files)}")
+        check_mesh(served.reconstruct(0), served.dataset.targets.shape[1], f"{tag} /api/load")
+        print(f"[{tag}] AppState.load(epoch=0) of EB{info['epoch']}: {load_s:.2f} s for "
+              f"{info['n']} meshes; latent cache and a B=1 decode bit-equal to the load of the "
+              f"same weights in memory; /api/load (float32) and /api/epochs list "
+              f"{api['epochs']} [{card}]", flush=True)
+    return launches
+
+
 TRAIN_ROUTES = {"ico2ico": ("", " (merged)", " (chain)", " (chain, merged)",
                             " (chain, fold outside)", " (chain all)", " (chain all, merged)",
                             " (chain all, fold outside)", " (chain dec)", " (merged block)",
@@ -2392,6 +2608,14 @@ def main():
         train_step_check(model, train_vars[model], card,
                          [(route, planted_for(model, route)) for route in TRAIN_ROUTES[model]])
     routing_compare(train_vars, dataset, card)
+    t0 = time.perf_counter()
+    val_dataset = synthetic_dataset(SUBDIVISIONS, VAL_MESHES, seed=1)
+    for model in ("ico2ico", vae):
+        path = f"{'VAE' if model == vae else 'AE'} train (fit)"
+        launches[path] = fit_phase(model, train_vars[model], dataset, val_dataset, card)
+        check_launches(path, launches[path])
+    print(f"[fit] phase ran {time.perf_counter() - t0:.1f} s, the {VAL_MESHES} validation "
+          f"meshes' build included", flush=True)
 
     profiled = []
     for path, (tr, st, (x, y, wt), _) in ((p, r["bfloat16"]) for p, r in runs.items()):

@@ -1,24 +1,28 @@
 """JSON API of the latent-space explorer over an ``AppState``.
 
 Port of ``geniconet_tpu/app/server.py:handle_api`` for the routes the
-ported state serves: ``/api/info``, ``/api/mesh``, ``/api/interpolate``,
-``/api/arithmetic`` (without the PCA nearest neighbour), ``/api/explore``,
-``/api/regenerate`` (a VAE's), ``/api/patch_combine`` and ``/api/decode``. The state is an argument, not
-a module global. Loading from a checkpoint (``/api/load``) and the PCA
-routes (``/api/pca``, ``/api/pca_decode``, ``/api/pairs``) wait for later
-work (ROADMAP, Queue 1).
+ported state serves: ``/api/load`` (a checkpoint under the body's
+``logDir``, with the JAX body keys), ``/api/epochs``, ``/api/info``,
+``/api/mesh``, ``/api/interpolate``, ``/api/arithmetic`` (without the PCA
+nearest neighbour), ``/api/explore``, ``/api/regenerate`` (a VAE's),
+``/api/patch_combine`` and ``/api/decode``. The state is an argument, not a
+module global. The PCA routes (``/api/pca``, ``/api/pca_decode``,
+``/api/pairs``) wait for later work (ROADMAP, Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from geniconet_tpu_torch.app.state import AppState
+from geniconet_tpu_torch.train import checkpoint as ckpt
+from geniconet_tpu_torch.train.config import Config
 
 __all__ = ["handle_api", "mesh_payload"]
 
 _LATER = {
-    "/api/load": "checkpoints (ROADMAP, Queue 1 item 7)",
     "/api/pca": "PCA routes (ROADMAP, Queue 1 item 10)",
     "/api/pca_decode": "PCA routes (ROADMAP, Queue 1 item 10)",
     "/api/pairs": "PCA routes (ROADMAP, Queue 1 item 10)",
@@ -33,12 +37,32 @@ def mesh_payload(vertices: np.ndarray, faces: np.ndarray, colors: np.ndarray) ->
     }
 
 
+def available_epochs(cfg) -> dict:
+    """The epochs of ``cfg``'s model with a checkpoint, ``{"best", "periodic"}``."""
+    return ckpt.available_epochs(os.path.join(cfg.model_log_dir(), "savedModel"), cfg.model.name)
+
+
 def handle_api(st: AppState, path: str, body: dict) -> dict:
     """Answer one API request against the loaded state."""
     if path in _LATER:
         raise NotImplementedError(f"{path} is not ported yet: {_LATER[path]}")
+    if path == "/api/load":
+        cfg = Config()
+        cfg.model.name = body.get("model", "ico2ico")
+        cfg.model.subdivisions = int(body.get("subdivision", 5))
+        if body.get("widths"):
+            cfg.model.widths = tuple(body["widths"])
+        cfg.log_dir = body.get("logDir", "log")
+        cfg.data.data_dir = body.get("dataDir", "")
+        cfg.data.synthetic = int(body.get("synthetic", 0))
+        cfg.data.layout_level = int(body.get("dataPthLvl", 2))
+        info = st.load(cfg, body.get("instance", "val"), epoch=int(body.get("epoch", 0)))
+        info["epochs"] = available_epochs(cfg)
+        return info
     if st.dataset is None:
-        raise RuntimeError("no model loaded: call AppState.load first")
+        raise RuntimeError("no model loaded: POST /api/load first")
+    if path == "/api/epochs":  # reference update_epoch_list, app.py:54-96
+        return available_epochs(st.cfg)
     if path == "/api/info":
         return st.info
     faces = st.faces()

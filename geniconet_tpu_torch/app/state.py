@@ -1,20 +1,22 @@
 """Latent-space explorer backend: the model, the latent cache, decode paths.
 
 Port of ``geniconet_tpu/app/state.py`` for the autoencoder and the VAE:
-``load`` builds the dataset, loads the model from a flax variable tree and
-encodes the dataset into a float32 latent cache in batches of 16 (the VAE's
-cache holds mu, and ``logvars`` its logvar); the decode paths (reconstruct,
+``load`` builds the dataset, loads the model from a checkpoint under
+``<logDir>/<ae|vae>/savedModel`` (or from a flax variable tree) and encodes
+the dataset into a float32 latent cache in batches of 16 (the VAE's cache
+holds mu, and ``logvars`` its logvar); the decode paths (reconstruct,
 interpolate, arithmetic, per-channel exploration, the VAE's regeneration,
 patch combination, batched decode) return float32 ``(V, 3)`` vertices.
 Every decode runs the model on ``device``: the card by default (the CUDA
 kernels), the plain versions with ``device="cpu"``.
 
-Not ported here: reading ``.ckpt`` checkpoints (ROADMAP, Queue 1); PCA and
-nearest neighbours (they need scikit-learn); the TPU-specific int16 decode
-transfer and power-of-two batch bucketing.
+Not ported here: PCA and nearest neighbours (they need scikit-learn); the
+TPU-specific int16 decode transfer and power-of-two batch bucketing.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -26,12 +28,34 @@ from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_dataset
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
+from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.config import Config
 
-__all__ = ["AppState"]
+__all__ = ["AppState", "checkpoint_for"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ENCODE_BATCH = 16
+
+
+def checkpoint_for(cfg: Config, epoch: int = 0) -> str:
+    """The checkpoint the explorer loads for ``epoch``, as the JAX
+    ``AppState.load`` resolves it (reference app.py:54-96): 0 is the newest
+    EB file; a positive epoch its EB file, else its E file. Raises
+    ``FileNotFoundError`` (listing the epochs there are) when there is none."""
+    name = cfg.model.name
+    ckpt_dir = os.path.join(cfg.model_log_dir(), "savedModel")
+    if epoch:
+        for best in (True, False):
+            path = ckpt.checkpoint_path(ckpt_dir, name, int(epoch), best=best)
+            if os.path.exists(path):
+                return path
+        raise FileNotFoundError(f"no checkpoint for epoch {epoch} under {ckpt_dir} "
+                                f"(available: {ckpt.available_epochs(ckpt_dir, name)})")
+    best = ckpt.latest_best_epoch(ckpt_dir, name)
+    if best is None:
+        raise FileNotFoundError(f"no EB checkpoint under {ckpt_dir} "
+                                f"(available: {ckpt.available_epochs(ckpt_dir, name)})")
+    return ckpt.checkpoint_path(ckpt_dir, name, best, best=True)
 
 
 class AppState:
@@ -45,18 +69,22 @@ class AppState:
         self.latents: np.ndarray | None = None  # (N, Hz, Wz, C) float32; the VAE's mu
         self.logvars: np.ndarray | None = None  # the VAE's logvar, else None
 
-    def load(self, cfg: Config, variables=None, data_instance: str = "val", epoch: int = 0,
+    def load(self, cfg: Config, data_instance: str = "val", epoch: int = 0, *, variables=None,
              phase_chain: str | None = None):
-        """Build the dataset, load the model from ``variables`` (a flax
-        ``{"params", "batch_stats"}`` tree of arrays) and encode the latent
-        cache. ``phase_chain`` ("enc", "dec" or "1") runs the encoder's, the
+        """Build the dataset, load the model and encode the latent cache.
+        Returns the info dict that ``/api/info`` serves.
+
+        The weights come from the checkpoint of ``epoch`` (``checkpoint_for``:
+        0 the newest EB file, else that epoch's EB file, then its E file),
+        or, given ``variables`` (a flax ``{"params", "batch_stats"}`` tree of
+        arrays), from that tree, ``epoch`` then only labelling them.
+        ``phase_chain`` ("enc", "dec" or "1") runs the encoder's, the
         decoder's or both halves' phase chain for every encode and decode
-        (``nn/models.py``). Returns the info dict that ``/api/info``
-        serves."""
+        (``nn/models.py``)."""
         if variables is None:
-            raise NotImplementedError(
-                "reading .ckpt checkpoints is not ported yet (ROADMAP, Queue 1 item 7: "
-                "checkpoints); pass the variables tree")
+            blob = ckpt.load_checkpoint(checkpoint_for(cfg, epoch))
+            variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+            epoch = int(blob["epoch"])
         self.cfg, self.instance, s = cfg, data_instance, cfg.model.subdivisions
         if cfg.data.synthetic:
             self.dataset = synthetic_dataset(s, cfg.data.synthetic, seed=cfg.data.synthetic_seed)

@@ -13,6 +13,14 @@ A BatchNorm is the module named ``bn*`` (the blocks' ``bn00``, ``bn_in``)
 or ``*_bn`` (the VAE's ``mu_bn``, ``logvar_bn``). ``init_variables`` builds
 such a tree in numpy from a seed, in the JAX package's init recipe, so
 weights can be made without JAX.
+
+Adam's state maps the same way (``adam_state_to_flax``,
+``adam_state_from_flax``): ``optax.adam(learning_rate=schedule)`` flattens
+(``flax.serialization.to_state_dict``) to ``{"0": {"count", "mu", "nu"},
+"1": {"count"}}`` (``scale_by_adam``'s state, then the schedule's), ``mu`` and
+``nu`` in the params' layout; they are ``torch.optim.Adam``'s ``exp_avg`` and
+``exp_avg_sq``, and both counts its ``step``. The two update rules are the
+same formula (bias-corrected moments, eps outside the square root).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax", "init_variables"]
+__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_path", "init_variables",
+           "adam_state_to_flax", "adam_state_from_flax"]
 
 _BN = "BatchNorm_0"
 
@@ -50,18 +59,64 @@ def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
     return out
 
 
+def flax_path(key: str) -> tuple:
+    """A state_dict key -> (flax collection, path of keys in it)."""
+    *mods, leaf = key.split(".")
+    is_bn = bool(mods) and _is_bn(mods[-1])
+    collection = "batch_stats" if leaf in ("mean", "var") else "params"
+    return collection, (*mods, *([_BN] if is_bn else []), leaf)
+
+
 def state_dict_to_flax(state_dict) -> dict:
     """state_dict -> flax {"params", "batch_stats"} tree of float32 numpy arrays."""
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
-        *mods, leaf = key.split(".")
-        is_bn = bool(mods) and _is_bn(mods[-1])
-        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        collection, (*mods, leaf) = flax_path(key)
         node = tree[collection]
-        for m in mods + ([_BN] if is_bn else []):
+        for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = value.detach().cpu().numpy().astype(np.float32)
     return tree
+
+
+def adam_state_to_flax(optimizer: torch.optim.Adam, named_params, step: int) -> dict:
+    """The optax Adam state tree of ``optimizer`` over ``named_params``
+    (``(state_dict key, parameter)`` pairs) after ``step`` updates; a
+    parameter without state yet has zero moments, as ``optax`` starts."""
+    mu, nu = {}, {}
+    for name, p in named_params:
+        st = optimizer.state.get(p) or {}
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    count = np.asarray(step, np.int32)
+    return {"0": {"count": count, "mu": state_dict_to_flax(mu)["params"],
+                  "nu": state_dict_to_flax(nu)["params"]},
+            "1": {"count": count.copy()}}
+
+
+def adam_state_from_flax(opt_state: dict, optimizer: torch.optim.Adam, named_params) -> int:
+    """Set ``optimizer``'s state for ``named_params`` from an optax Adam
+    state tree; returns its count (the updates made). Raises when the
+    tree's moments do not name exactly the given parameters."""
+    adam, sched = opt_state["0"], opt_state["1"]
+    count = int(np.asarray(adam["count"]))
+    if int(np.asarray(sched["count"])) != count:
+        raise ValueError(f"Adam's count {count} differs from the schedule's "
+                         f"{int(np.asarray(sched['count']))}")
+    mu = flax_to_state_dict({"params": adam["mu"]})
+    nu = flax_to_state_dict({"params": adam["nu"]})
+    named = dict(named_params)
+    if set(mu) != set(named) or set(nu) != set(named):
+        raise ValueError(f"Adam moments for {sorted(set(mu) ^ set(named))[:5]} do not match "
+                         "the model's parameters")
+    for name, p in named.items():
+        if mu[name].shape != p.shape or nu[name].shape != p.shape:
+            raise ValueError(f"Adam moments of {name}: {tuple(mu[name].shape)}, "
+                             f"want {tuple(p.shape)}")
+        optimizer.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                              "exp_avg": mu[name].to(p.device),
+                              "exp_avg_sq": nu[name].to(p.device)}
+    return count
 
 
 def init_variables(subdivisions: int = 5, widths=(64, 128, 256), seed: int = 0,

@@ -123,7 +123,7 @@ def serving(args, card):
     cfg.model.compute_dtype = "bfloat16"
     cfg.data.synthetic = 32
     st = AppState(device="cuda")
-    st.load(cfg, bridge.init_variables(5, (64, 128, 256), seed=0, random_stats=True))
+    st.load(cfg, variables=bridge.init_variables(5, (64, 128, 256), seed=0, random_stats=True))
     lat = []
     for i in range(10 + args.requests):
         t0 = time.perf_counter()

@@ -5,6 +5,8 @@ Every route's vertices are checked against ``model.apply(method="decode")``
 tolerance 1e-4·max|ref|), and the latent cache against flax encode.
 """
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ def served():
     cfg.data.synthetic = N
     variables = bridge.init_variables(S, WIDTHS, seed=3, random_stats=True)
     st = AppState(device="cpu")
-    st.load(cfg, variables)
+    st.load(cfg, variables=variables)
     fm = FlaxIcoAE(subdivisions=S, widths=WIDTHS)
 
     def decode(zs):
@@ -94,16 +96,22 @@ def test_decode_routes_match_flax(served):
     assert len(out["faces"]) == 3 * ico.num_faces(S)
 
 
-def test_colorings_and_unported_routes(served):
+def test_colorings_and_unported_routes(served, tmp_path):
     st, _, _ = served
     v = st.reconstruct(0)
     for mode in ["selfintersection", "distance", "patch", "none"]:
         c = st.colorize(v, mode, st.reference_vertices(0))
         assert c.shape == (v.shape[0], 3) and c.min() >= 0 and c.max() <= 1
-    for path in ["/api/pca", "/api/load"]:
+    for path in ["/api/pca", "/api/pairs"]:
         with pytest.raises(NotImplementedError):
             handle_api(st, path, {})
     with pytest.raises(ValueError):
         handle_api(st, "/api/nope", {})
-    with pytest.raises(NotImplementedError):
-        AppState(device="cpu").load(st.cfg)  # no variables: checkpoints are not ported yet
+    # no variables: the checkpoint under the log directory, and there is none
+    cfg = copy.deepcopy(st.cfg)
+    cfg.log_dir = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="available"):
+        AppState(device="cpu").load(cfg)
+    with pytest.raises(FileNotFoundError, match="available"):
+        handle_api(AppState(device="cpu"), "/api/load", {"logDir": str(tmp_path), "subdivision": S,
+                                                         "synthetic": N})

@@ -5,14 +5,17 @@ the originals, and the entry points' device default.
   ids, the neighbour and incident-face tables and shapes equal
   ``geniconet_tpu/geometry/ico.py``'s, s=0..5.
 * ``geniconet_tpu_torch/train/config.py``: every field the port keeps has
-  the JAX ``Config``'s default.
+  the JAX ``Config``'s default (``device`` is the port's own), and
+  ``parse_args`` turns the JAX command lines into the same values.
 * ``geniconet_tpu_torch/native``: the same self-intersecting face pairs as
   ``geniconet_tpu/native`` on one mesh with a dent pushed through it.
-* ``Trainer``, ``AppState`` and ``Batches`` run on the card unless told
-  otherwise: without one they raise instead of returning a CPU object.
+* ``Trainer``, ``AppState``, ``Batches`` and the command line run on the
+  card unless told otherwise: without one they raise instead of returning
+  a CPU object.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -21,7 +24,9 @@ import torch
 from geniconet_tpu import native as jax_native
 from geniconet_tpu.geometry import ico as jax_ico
 from geniconet_tpu.train.config import Config as JaxConfig
+from geniconet_tpu.train.config import parse_args as jax_parse_args
 from geniconet_tpu_torch import Config, native
+from geniconet_tpu_torch.train.config import parse_args
 from geniconet_tpu_torch.geometry import ico
 
 
@@ -37,8 +42,14 @@ def test_ico_tables_equal_the_jax_module(s):
     np.testing.assert_array_equal(ico.base_icosahedron()[0], jax_ico.base_icosahedron()[0])
 
 
+PORT_ONLY = {"cfg.device"}
+
+
 def _defaults(obj, ref, path="cfg"):
     for f in dataclasses.fields(obj):
+        if f"{path}.{f.name}" in PORT_ONLY:
+            assert not hasattr(ref, f.name), f"{path}.{f.name}"
+            continue
         got, want = getattr(obj, f.name), getattr(ref, f.name)
         if dataclasses.is_dataclass(got):
             _defaults(got, want, f"{path}.{f.name}")
@@ -52,6 +63,25 @@ def test_config_defaults_equal_the_jax_config():
     assert cfg.model.is_vae == ref.model.is_vae is False
     cfg.model.name = "ico2ico_vae"
     assert cfg.model.is_vae
+
+
+@pytest.mark.parametrize("argv", [
+    "--model ico2ico --process train",
+    "--model ico2ico_vae --process train --synthetic 64 --batch_size 36 --train_epoch 3 "
+    "--compute_dtype bfloat16 --load_epoch 2 --seed 4 --widths 8 16 16 --subdivision 3",
+    "--model ico2ico --process encode --logDir L --dataDir D --dataPthLvl 1 --quickLearn 5 "
+    "--data_instance trn --outDir O --test_epoch B3 --corner_mode zeros --lr_max 0.01 "
+    "--step_size_up 10 --f_pos 0.5 --f_kl 2 --log_encoding_epoch 3 --log_encoding_images "
+    "--debug --profile_dir P --debug_nans --load_pretrained_model",
+    "--model ico2ico_vae --process sample --n_samples 3 --latent_features 16 --encDir E "
+    "--test_mode none --write_output_mesh --use_pallas --no_data_parallel --deviceResident on "
+    "--backend_retries 0 --load_pt ref.pt",
+])
+def test_command_line_parses_as_the_jax_one(argv):
+    cfg, ref = parse_args(argv.split()), jax_parse_args(argv.split())
+    _defaults(cfg, ref)
+    assert cfg.device == "cuda"
+    assert parse_args([*argv.split(), "--device", "cpu"]).device == "cpu"
 
 
 def test_self_intersection_matches_the_jax_native():
@@ -73,7 +103,8 @@ def no_card():
         pytest.skip("checks the behaviour without a CUDA device")
 
 
-def test_entry_points_default_to_the_card(no_card):
+def test_entry_points_default_to_the_card(no_card, tmp_path, monkeypatch):
+    from geniconet_tpu_torch import cli
     from geniconet_tpu_torch.app.state import AppState
     from geniconet_tpu_torch.data.datasets import synthetic_dataset
     from geniconet_tpu_torch.data.pipeline import Batches
@@ -91,3 +122,11 @@ def test_entry_points_default_to_the_card(no_card):
     assert Trainer(vae, device="cpu").model.mu_conv.taps.device.type == "cpu"
     assert AppState(device="cpu").device.type == "cpu"
     assert Batches(ds, 2, device="cpu").inputs.device.type == "cpu"
+    # the command line: every process on the card unless --device cpu
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    argv = ["--model", "ico2ico", "--synthetic", "2", "--subdivision", "3", "--widths", "8", "8",
+            "8", "--batch_size", "2", "--train_epoch", "1", "--logDir", str(tmp_path)]
+    for process in ("train", "encode"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main([*argv, "--process", process])
+    assert cli.main([*argv, "--process", "train", "--device", "cpu"])

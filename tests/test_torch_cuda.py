@@ -2487,3 +2487,47 @@ def test_merged_phase_gemms_occupancy(cuda):
     for key, info in infos.items():
         spill = 16 if key == "i narrow=True act=True" else 0
         assert info["blocks_per_sm"] >= 2 and info["local_bytes"] <= spill, (key, info)
+
+
+@pytest.mark.parametrize("model", ["ico2ico", "ico2ico_vae"])
+def test_fit_restore_and_next_step_repeat_bit_for_bit(cuda, model, tmp_path):
+    """``Trainer.fit`` of the s=4 model in bf16 for 2 epochs (B=4, the last
+    batch ragged, checkpoints every epoch), ``restore`` of the newest E file
+    into a fresh Trainer: weights, BatchNorm statistics and Adam's state
+    bit for bit; one step of each on the same batch (the VAE's generators
+    in the same state): metrics bit for bit, as the kernels use no atomics."""
+    from geniconet_tpu_torch import Config
+    from geniconet_tpu_torch.data.datasets import synthetic_dataset
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.train import checkpoint as ckpt
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    s, widths = 4, (8, 16, 16)
+    cfg = Config()
+    cfg.model.name, cfg.model.subdivisions, cfg.model.widths = model, s, widths
+    cfg.model.latent_features, cfg.model.compute_dtype = 8, "bfloat16"
+    cfg.train.batch_size, cfg.train.train_epoch, cfg.train.save_epoch_freq = 4, 2, 1
+    cfg.log_dir = str(tmp_path)
+    variables = bridge.init_variables(s, widths, seed=3, model=model, latent_features=8)
+    trn, val = synthetic_dataset(s, 6, seed=0), synthetic_dataset(s, 5, seed=1)
+    tr = Trainer(cfg)
+    st, history = tr.fit(tr.init_state(variables), Batches(trn, 4, seed=2),
+                         Batches(val, 4, shuffle=False))
+    assert len(history) == 2 and all(torch.isfinite(torch.tensor(history)))
+    ckpt_dir = tmp_path / ("vae" if "vae" in model else "ae") / "savedModel"
+    path = ckpt.latest_checkpoint(str(ckpt_dir), model)
+    assert path.endswith(f"{model}_E2.ckpt")
+    fresh = Trainer(cfg)
+    fst, epoch, best = fresh.restore(fresh.init_state(variables), path)
+    assert (epoch, best, fst.step, st.step) == (2, min(history), 4, 4)
+    sa, sb = tr.model.state_dict(), fresh.model.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    for p, q in zip(tr.model.parameters(), fresh.model.parameters()):
+        a, b = st.optimizer.state[p], fst.optimizer.state[q]
+        assert all(torch.equal(a[n], b[n]) for n in ("exp_avg", "exp_avg_sq", "step"))
+    x, y, wt = next(Batches(trn, 4, seed=9).epoch())
+    if fresh.is_vae:
+        fresh.generator.set_state(tr.generator.get_state())
+    ma, mb = tr.train_step(st, x, y, wt, epoch), fresh.train_step(fst, x, y, wt, epoch)
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]) if torch.is_tensor(ma[k]) else ma[k] == mb[k], k

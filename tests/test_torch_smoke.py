@@ -1,6 +1,7 @@
 """``chip_smoke.py`` and the port off the card: the script refuses to run
 without a CUDA device; neither it nor any module of ``geniconet_tpu_torch``
-imports JAX, flax or the JAX package; the profile arithmetic is right."""
+(the CLI, the checkpoint codec and the logger included) imports JAX, flax,
+msgpack or the JAX package; the profile arithmetic is right."""
 
 import ast
 import subprocess
@@ -21,14 +22,14 @@ PORT_MODULES = sorted(
 
 
 def test_refuses_without_a_card_and_imports_no_jax():
-    """In a fresh interpreter where importing jax, jaxlib, flax or
+    """In a fresh interpreter where importing jax, jaxlib, flax, msgpack or
     geniconet_tpu fails: every module of the port imports, and the script
     runs to its refusal."""
     code = (
         "import importlib, importlib.abc, runpy, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'geniconet_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack', 'geniconet_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -53,13 +54,15 @@ def _import_tops(path: Path) -> set:
 
 def test_imports_only_torch_and_the_port():
     """No import anywhere in the script or in any file of the port, nested
-    ones included, names JAX, flax or the JAX package."""
+    ones included, names JAX, flax, msgpack or the JAX package."""
     assert "geniconet_tpu_torch" in _import_tops(REPO / "chip_smoke.py")
     files = [REPO / "chip_smoke.py", *sorted((REPO / "geniconet_tpu_torch").rglob("*.py"))]
     assert len(files) > 30
+    assert {"cli.py", "checkpoint.py", "logging.py"} <= {p.name for p in files}
     for path in files:
         tops = _import_tops(path)
-        assert not tops & {"jax", "jaxlib", "flax", "geniconet_tpu"}, (path, sorted(tops))
+        assert not tops & {"jax", "jaxlib", "flax", "msgpack", "geniconet_tpu"}, (path,
+                                                                                  sorted(tops))
 
 
 @pytest.mark.parametrize("intervals, want_ms", [

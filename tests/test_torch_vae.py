@@ -495,7 +495,7 @@ def test_app_state_serves_a_vae():
     cfg.data.synthetic = 5
     variables = _vae_variables(3)
     st = AppState(device="cpu")
-    info = st.load(cfg, variables)
+    info = st.load(cfg, variables=variables)
     assert info["is_vae"] and info["latent_shape"] == [5 * 2 ** (S - 3), 2 ** (S - 2), LATENT]
     ref_mu, ref_lv = _flax_vae().apply(variables, jnp.asarray(st.dataset.inputs),
                                        method="encode")
