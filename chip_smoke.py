@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Twenty-four paths at full width (s=5, widths 64/128/256; the VAE's latent
+Twenty-six paths at full width (s=5, widths 64/128/256; the VAE's latent
 512): AE serving, AE training, VAE serving, VAE training, AE and VAE
 ``Trainer.fit`` with validation, checkpoints and resume, AE and VAE
+evaluation of the files written (``--process test``, encode, decode,
+``--load_pt``), AE and VAE
 training on the merged backward route (``merged_bwd="all"``); AE and VAE
 training on the merged blocks (``merged_block="all"``: every UpBlock's
 training forward one launch of kernel o, every DownBlock's one of p), the
@@ -120,6 +122,16 @@ printed on its own lines, each fatal on failure:
    ``validate``'s time, the checkpoint's bytes, ``save_checkpoint``'s and
    ``load_checkpoint``'s ms and ``AppState.load``'s seconds; the launches of
    each ``fit`` join the paths as "AE train (fit)" and "VAE train (fit)";
+   then eval, on those files and the 16 validation meshes: ``cli.main``'s
+   ``--process test`` (``--write_output_mesh``), encode and decode, and for
+   the AE ``--load_pt`` of a seeded reference-shaped ``.pt`` then test; every
+   CSV must hold one finite row a mesh and decode(encode(x)) test's
+   distances; the AE's point-to-mesh distance on the card must agree with
+   the float64 numpy oracle and the native C++, and its float32 kernel
+   route on 2 meshes with the float32 plain route on the CPU; it prints the
+   processes' wall times, the distance's ms a mesh and peak memory; the
+   processes' launches join the paths as "AE serve (eval)" and "VAE serve
+   (eval)";
 9. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
@@ -313,6 +325,10 @@ PATH_KERNELS = {
     # Trainer.fit (train_epoch, validate) on the default route
     "AE train (fit)": (*(k for k in _FORWARD if k != "pair_head_fwd"), *_BACKWARD, *_AE_HEAD),
     "VAE train (fit)": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
+    # the evaluation on [fit]'s files: --process test, encode, decode (the AE
+    # also --load_pt + test), eval mode on the default route
+    "AE serve (eval)": _FORWARD,
+    "VAE serve (eval)": _FORWARD,
     "VAE serve": _FORWARD,
     "VAE train": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
     "VAE train (merged)": (*_FORWARD, *_MERGED, "pair_head_bwd"),
@@ -352,6 +368,7 @@ PATH_FORBIDDEN = {
     "AE serve": _NEW, "VAE serve": _NEW,
     "AE train": (*_MERGED[:3], *_NEW), "VAE train": (*_MERGED[:3], *_NEW),
     "AE train (fit)": (*_MERGED[:3], *_NEW), "VAE train (fit)": (*_MERGED[:3], *_NEW),
+    "AE serve (eval)": _NEW, "VAE serve (eval)": _NEW,
     "AE train (merged)": (*_SPLIT_ONLY, *_NEW), "VAE train (merged)": (*_SPLIT_ONLY, *_NEW),
     "AE serve (chain)": (*_STD, *_N),
     "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff", *_N),
@@ -2338,7 +2355,7 @@ def _same_weights(a, b, what: str):
         raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. {bad[:3]}")
 
 
-def fit_phase(model: str, variables, dataset, val_dataset, card: str) -> dict:
+def fit_phase(model: str, variables, dataset, val_dataset, card: str):
     """Phase [fit] for one model at B=36 bf16: ``Trainer.fit`` for
     FIT_EPOCHS epochs (EB/E checkpoints in the JAX format, E every
     FIT_SAVE_FREQ), then ``restore`` of the newest E file into a fresh
@@ -2347,7 +2364,8 @@ def fit_phase(model: str, variables, dataset, val_dataset, card: str) -> dict:
     a resume by the command line for one more epoch from the dataset written
     as .npz files, and the explorer loading the newest EB file from disk,
     its latent cache and a B=1 decode bit-equal to a load from the same
-    weights in memory. Returns the kernel launches of the ``fit`` run."""
+    weights in memory; then ``eval_phase`` on the files written. Returns the
+    kernel launches of the ``fit`` run and of the evaluation's processes."""
     import os
     import tempfile
 
@@ -2499,6 +2517,254 @@ def fit_phase(model: str, variables, dataset, val_dataset, card: str) -> dict:
               f"{info['n']} meshes; latent cache and a B=1 decode bit-equal to the load of the "
               f"same weights in memory; /api/load (float32) and /api/epochs list "
               f"{api['epochs']} [{card}]", flush=True)
+        eval_launches = eval_phase(model, cfg.log_dir, data_root, val_dataset, card)
+    return launches, eval_launches
+
+
+EVAL_CPU_MESHES = 2  # meshes of the float32 kernel route held against the CPU's plain route
+EVAL_WORKERS = 4  # processes for [eval]'s CPU sides: the CPU route's meshes, the two oracles
+# the CPU sides' distances take every 8th vertex of a mesh (1,281 of 10,242)
+# against all its faces: the host CPU of a one-H100 machine computed all of
+# one s=5 mesh in 32-39 s with PyTorch and in 56 s with the numpy oracle
+EVAL_STRIDE = 8
+
+
+def reference_state_dict(seed: int = 0) -> dict:
+    """A seeded state dict shaped like the reference's AE checkpoint at
+    WIDTHS (reference models.py:101-232 names: masked 3x3 OIHW conv
+    weights, BatchNorm buffers, an icocnn index buffer): ``--load_pt``'s input."""
+    gen = torch.Generator().manual_seed(seed)
+    w0, w1, w2 = WIDTHS
+    sd = {}
+
+    def rnd(*shape, scale=0.05, offset=0.0):
+        return offset + scale * torch.randn(*shape, generator=gen)
+
+    def conv(prefix, cin, cout):
+        w = rnd(cout, cin, 3, 3)
+        w[:, :, 0, 0] = w[:, :, 2, 2] = 0.0  # the hex stencil has no corner taps
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = w, rnd(cout)
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = rnd(c, scale=0.1, offset=1.0), rnd(c)
+        sd[f"{prefix}.running_mean"] = rnd(c, scale=0.1)
+        sd[f"{prefix}.running_var"] = rnd(c, scale=0.1, offset=1.0) ** 2
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(100)
+
+    def block(prefix, cin, cout):
+        for k, c in (("00", cin), ("01", cout), ("10", cin)):
+            conv(f"{prefix}.conv{k}", c, cout)
+            bn(f"{prefix}.icobn{k}", cout)
+
+    conv("encoder.0", 3, w0)
+    bn("encoder.1", w0)
+    for k, (cin, cout) in enumerate(((w0, w1), (w1, w2), (w2, w2))):
+        block(f"encoder.{k + 3}", cin, cout)
+    for k, (cin, cout) in enumerate(((w2, w2), (w2, w1), (w1, w0))):
+        block(f"decoder.{k}", cin, cout)
+    sd["enc2icoConv.0.weight"], sd["enc2icoConv.0.bias"] = rnd(3, w0, 1, 1), rnd(3)
+    sd["encoder.0.pad_index"] = torch.arange(10)
+    return sd
+
+
+def cpu_route(cfg, path: str, grid, ref, faces, stride: int, threads: int):
+    """[eval]'s job in a worker process: the float32 plain route on the CPU
+    for one mesh: the model of ``cfg`` (on the CPU) restored from ``path``,
+    its reconstruction of ``grid`` and the squared distances of every
+    ``stride``-th vertex to the reference mesh. Returns (vertices, distances)."""
+    from geniconet_tpu_torch.eval import test_driver
+    from geniconet_tpu_torch.ops.point_mesh import point_to_mesh_distance
+
+    torch.set_num_threads(threads)
+    with torch.no_grad():
+        model = test_driver.restore_model(cfg, path)[0]
+        v = test_driver.reconstruct(model, torch.from_numpy(grid[None]))[0]
+        d = point_to_mesh_distance(v[::stride], torch.from_numpy(ref), faces,
+                                   chunk=test_driver.distance_chunk(v.device, len(v[::stride])))
+    return v.numpy(), d.numpy()
+
+
+def eval_phase(model: str, log_dir: str, data_root: str, val_dataset, card: str) -> dict:
+    """Phase [eval] for one model on [fit]'s files (s=5, full width, bf16,
+    the validation meshes), through ``cli.main`` as a user runs it: test
+    with ``--write_output_mesh``, encode, decode, and for the AE
+    ``--load_pt`` of a seeded reference-shaped ``.pt`` (``torch.save``) into
+    a log directory of its own, then test on the imported file. Every CSV
+    must hold one finite row for each mesh, and decode(encode(x)) must give
+    test's distances (bit for bit, else point2point within 1e-5). For the
+    AE also: the distance of one reconstruction to its reference mesh on the
+    card (ms a mesh by CUDA events, peak memory) against the float64 numpy
+    oracle (every EVAL_STRIDE-th point) and the native C++ (every point),
+    and the float32 kernel route (model and distance on the card) on
+    EVAL_CPU_MESHES meshes against the float32 plain route on the CPU (the
+    vertices, and the distances of every EVAL_STRIDE-th one). The CPU sides
+    run in EVAL_WORKERS spawned processes beside the card's work, after the
+    timed processes. Returns the kernel launches of the command line's
+    processes."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from geniconet_tpu_torch import cli, native
+    from geniconet_tpu_torch import geometry as ico
+    from geniconet_tpu_torch.data.offio import read_off
+    from geniconet_tpu_torch.eval import test_driver
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.point_mesh import (point_to_mesh_distance,
+                                                    point_to_mesh_distance_numpy)
+    from geniconet_tpu_torch.train.config import parse_args
+
+    t_phase = time.perf_counter()
+    ae = model == "ico2ico"
+    tag = f"eval {model} bfloat16"
+    names = [f"m{k}" for k in range(len(val_dataset))]  # [fit]'s .npz files
+
+    def argv(log=log_dir):
+        return ["--model", model, "--dataDir", data_root, "--logDir", log, "--batch_size",
+                str(TRAIN_BATCH), "--compute_dtype", "bfloat16", "--subdivision",
+                str(SUBDIVISIONS), "--widths", *map(str, WIDTHS), "--latent_features", str(LATENT)]
+
+    walls = {}
+
+    def run(name, *extra, log=log_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main([*argv(log), *extra])
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    cfg = parse_args([*argv(), "--process", "test"])
+    root = os.path.dirname(log_dir)
+    build.reset_launches()
+    tested = run("test", "--process", "test", "--write_output_mesh")[0]
+    run("encode", "--process", "encode")
+    decoded = run("decode", "--process", "decode")[0]
+    csvs = {"test": (os.path.join(cfg.model_log_dir(), f"{model}_point2mesh.csv"), tested),
+            "decode": (os.path.join(cfg.model_log_dir(), f"{model}_decode_point2mesh.csv"),
+                       decoded)}
+    if ae:
+        pt_path, pt_log = os.path.join(root, "ico2ico_EB696.pt"), os.path.join(root, "pt_log")
+        torch.save({"model_state_dict": reference_state_dict(), "optimizer_state_dict": {},
+                    "epoch": 696, "loss": 0.5, "misc": None}, pt_path)
+        imported = run("--load_pt + test", "--load_pt", pt_path, "--process", "test", log=pt_log)[0]
+        csvs["--load_pt + test"] = (os.path.join(pt_log, "ae", "ico2ico_point2mesh.csv"), imported)
+    launches = dict(build.LAUNCHES)
+    for what, (path, pairs) in csvs.items():
+        with open(path) as f:
+            rows = [r.split(",") for r in f.read().strip().splitlines()]
+        got = {name: float(d) for name, d in rows[1:]}
+        if (rows[0] != ["Name", "Distance"] or len(rows) != len(names) + 1
+                or sorted(got) != sorted(names) or not all(map(math.isfinite, got.values()))
+                or got != {name: float(f"{d:f}") for name, d in pairs}):
+            raise AssertionError(f"{tag} {what}: {path} holds {rows[:3]}...; want one finite "
+                                 f"row for each of {len(names)} meshes")
+    if dict(tested) == dict(decoded):
+        roundtrip = "bit for bit"
+    else:
+        p2p = {p: dict(run(f"{p} point2point", "--process", p, "--test_mode", "point2point")[0])
+               for p in ("test", "decode")}
+        worst = max(abs(p2p["test"][k] - p2p["decode"][k]) for k in names)
+        if not worst < 1e-5:
+            raise AssertionError(f"{tag}: decode(encode(x)) differs from test by {worst} "
+                                 "(point2point; want < 1e-5)")
+        roundtrip = f"point2point within {worst:.3e} (< 1e-5), point2mesh not bit-equal"
+    means = {what: round(float(np.mean([d for _, d in pairs])), 8)
+             for what, (_, pairs) in csvs.items()}
+    print(f"[{tag}] cli.main on the {len(names)} validation meshes at B={TRAIN_BATCH} (s="
+          f"{SUBDIVISIONS}, widths {WIDTHS}): wall s {walls} (each with its checkpoint load and "
+          f"the .npz dataset's); mean point2mesh {means}; one finite CSV row a mesh; "
+          f"decode(encode(x)) equals test {roundtrip} [{card}]", flush=True)
+    print(f"[{tag}] kernel launches of the processes (path "
+          f"'{'AE' if ae else 'VAE'} serve (eval)'): {launches}", flush=True)
+    if not ae:
+        print(f"[{tag}] phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return launches
+
+    # the metric on the card: one reconstruction against its reference mesh
+    faces = ico.get_ico_faces(SUBDIVISIONS)
+    f_c = torch.as_tensor(faces, device="cuda")
+    points = read_off(os.path.join(cfg.model_log_dir(), "data", "test", "m0.off"))[0]
+    mesh = val_dataset.targets[0][:, :3]
+    p_c, m_c = torch.from_numpy(points).cuda(), torch.from_numpy(mesh).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card_d = point_to_mesh_distance(p_c, m_c, f_c)
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ms = cuda_ms(lambda: point_to_mesh_distance(p_c, m_c, f_c), reps=5, warmup=1)
+    card_d = card_d.cpu().numpy()
+    extent = float(np.abs(mesh).max()) ** 2
+
+    # the float32 kernel route (model and distance on the card) against the
+    # float32 plain route on the CPU, from the same checkpoint; the CPU sides
+    # run in worker processes beside the card's
+    cfg32 = parse_args([*argv(), "--process", "test", "--compute_dtype", "float32"])
+    path = test_driver.resolve_checkpoint(cfg32)
+    grids = val_dataset.inputs[:EVAL_CPU_MESHES]
+    refs = val_dataset.targets[:EVAL_CPU_MESHES, :, :3]
+    cfg_cpu = copy.deepcopy(cfg32)
+    cfg_cpu.device = "cpu"
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(EVAL_WORKERS, mp_context=spawn) as pool:
+        routes = [pool.submit(cpu_route, cfg_cpu, path, g, r, faces, EVAL_STRIDE, 2)
+                  for g, r in zip(grids, refs)]
+        oracles = {"float64 numpy": pool.submit(point_to_mesh_distance_numpy,
+                                                points[::EVAL_STRIDE], mesh, faces),
+                   "native C++": pool.submit(native.point_to_mesh_distance_native, points,
+                                             mesh, faces)}
+        with torch.no_grad():
+            model32 = test_driver.restore_model(cfg32, path)[0]
+            v_card = test_driver.reconstruct(model32, torch.from_numpy(grids).cuda())
+            d_card = [point_to_mesh_distance(v, torch.from_numpy(r).cuda(), f_c).cpu().numpy()
+                      for v, r in zip(v_card, refs)]
+        v_card = v_card.cpu().numpy()
+        oracles = {k: f.result() for k, f in oracles.items()}
+        routes = [f.result() for f in routes]
+    errs = {}
+    for name, ref in oracles.items():
+        got = card_d[::EVAL_STRIDE] if len(ref) < len(card_d) else card_d
+        err = np.abs(got - ref)
+        if not (err <= 1e-4 * np.abs(ref) + 1e-6 * extent).all():
+            raise AssertionError(f"{tag}: the card's distances differ from the {name} oracle "
+                                 f"by up to {err.max()} (tol rtol 1e-4 + 1e-6 x {extent})")
+        errs[name] = float(err.max())
+    print(f"[{tag}] point_to_mesh_distance on the card, s={SUBDIVISIONS} ({len(points)} "
+          f"points of mesh m0's reconstruction, {len(faces)} faces of its reference, chunk "
+          f"{test_driver.distance_chunk(p_c.device, len(points))}): {ms:.3f} ms a mesh (CUDA "
+          f"events, median of 5), "
+          f"peak {peak_mib:.1f} MiB above its inputs; mean {float(card_d.mean()):.8f}; max abs "
+          f"err {errs} against the float64 numpy oracle at every {EVAL_STRIDE}th point and the "
+          f"native C++ at every point (tol rtol 1e-4 + 1e-6 x extent^2 {extent:.4f}) [{card}]",
+          flush=True)
+
+    v_cpu = np.stack([v for v, _ in routes])
+    dv = float(np.abs(v_card - v_cpu).max())
+    if not dv <= 1e-4 * np.abs(v_cpu).max():
+        raise AssertionError(f"{tag}: the float32 kernel route's vertices differ from the CPU's "
+                             f"by {dv} (tol 1e-4 x {np.abs(v_cpu).max()})")
+    rows = []
+    for k, (dc, (vp, dp)) in enumerate(zip(d_card, routes)):
+        # sqrt of a squared distance is 1-Lipschitz in the point: a vertex
+        # moved by delta moves it by at most delta (2 sqrt(d) + delta)
+        delta = np.linalg.norm(v_card[k] - vp, axis=-1)[::EVAL_STRIDE]
+        tol = delta * (2 * np.sqrt(dp) + delta) + 1e-4 * dp + 1e-6 * extent
+        diff = np.abs(dc[::EVAL_STRIDE] - dp)
+        if not (diff <= tol).all():
+            raise AssertionError(f"{tag}: mesh {k}'s distances on the float32 kernel route "
+                                 f"differ from the CPU's by up to {diff.max()} (tol {tol})")
+        rows.append((round(float(dc[::EVAL_STRIDE].mean()), 8), round(float(dp.mean()), 8),
+                     f"{diff.max():.2e}", round(float(dc.mean()), 8)))
+    print(f"[{tag}] float32 kernel route vs the float32 plain route on the CPU, "
+          f"{EVAL_CPU_MESHES} meshes: vertices max abs err {dv:.3e} (tol 1e-4 x max|ref| "
+          f"{np.abs(v_cpu).max():.4f}); squared distances at every {EVAL_STRIDE}th vertex, per "
+          f"mesh (card's mean, CPU's mean, max |diff|, the card's mean over every vertex) {rows} "
+          f"(tol per point delta (2 sqrt(d) + delta) + 1e-4 d + 1e-6 x extent^2) [{card}]",
+          flush=True)
+    print(f"[{tag}] phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -2611,11 +2877,14 @@ def main():
     t0 = time.perf_counter()
     val_dataset = synthetic_dataset(SUBDIVISIONS, VAL_MESHES, seed=1)
     for model in ("ico2ico", vae):
-        path = f"{'VAE' if model == vae else 'AE'} train (fit)"
-        launches[path] = fit_phase(model, train_vars[model], dataset, val_dataset, card)
+        kind = "VAE" if model == vae else "AE"
+        path, eval_path = f"{kind} train (fit)", f"{kind} serve (eval)"
+        launches[path], launches[eval_path] = fit_phase(model, train_vars[model], dataset,
+                                                        val_dataset, card)
         check_launches(path, launches[path])
+        check_launches(eval_path, launches[eval_path])
     print(f"[fit] phase ran {time.perf_counter() - t0:.1f} s, the {VAL_MESHES} validation "
-          f"meshes' build included", flush=True)
+          f"meshes' build and the [eval] phase included", flush=True)
 
     profiled = []
     for path, (tr, st, (x, y, wt), _) in ((p, r["bfloat16"]) for p, r in runs.items()):

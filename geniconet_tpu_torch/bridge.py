@@ -28,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_path", "init_variables",
-           "adam_state_to_flax", "adam_state_from_flax"]
+__all__ = ["flax_to_state_dict", "state_dict_to_flax", "flax_path", "flatten_tree",
+           "init_variables", "adam_state_to_flax", "adam_state_from_flax"]
 
 _BN = "BatchNorm_0"
 
@@ -38,11 +38,13 @@ def _is_bn(module_name: str) -> bool:
     return module_name.startswith("bn") or module_name.endswith("_bn")
 
 
-def _flatten(tree, prefix=()):
+def flatten_tree(tree, prefix=()):
+    """(path of keys, leaf) of a tree of nested dicts, keys sorted at every
+    level: the order in which ``jax.tree`` flattens a dict."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            yield from _flatten(v, prefix + (k,))
+            yield from flatten_tree(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -51,7 +53,7 @@ def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
     """flax {"params", "batch_stats"} tree (nested dicts of arrays) -> state_dict."""
     out = {}
     for collection in ("params", "batch_stats"):
-        for path, leaf in _flatten(variables.get(collection, {})):
+        for path, leaf in flatten_tree(variables.get(collection, {})):
             key = ".".join(p for p in path if p != _BN)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key!r}")

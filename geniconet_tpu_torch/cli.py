@@ -1,4 +1,4 @@
-"""Experiment CLI of the port: train, resume, encode and sample.
+"""Experiment CLI of the port: train, resume, test, encode, decode and sample.
 
 Port of ``geniconet_tpu/cli.py`` (the reference's run.py), with the JAX
 package's flags (``train/config.py:parse_args``)::
@@ -7,17 +7,19 @@ package's flags (``train/config.py:parse_args``)::
     python -m geniconet_tpu_torch.cli --model ico2ico_vae --process train --synthetic 64 \
         --compute_dtype bfloat16 --batch_size 36 --train_epoch 3
     python -m geniconet_tpu_torch.cli --model ico2ico --process train ... --load_pretrained_model
+    python -m geniconet_tpu_torch.cli --model ico2ico --process test --write_output_mesh ...
     python -m geniconet_tpu_torch.cli --model ico2ico --process encode ...
+    python -m geniconet_tpu_torch.cli --model ico2ico --process decode ...
     python -m geniconet_tpu_torch.cli --model ico2ico_vae --process sample ...
+    python -m geniconet_tpu_torch.cli --model ico2ico --load_pt ico2ico_EB696.pt --process test ...
 
 Every process runs on the card unless ``--device cpu`` is given.
 Checkpoints are the JAX package's ``.ckpt`` files under
 ``<logDir>/<ae|vae>/savedModel``, so either package resumes or serves the
-other's. The training routing comes from the JAX package's own variables,
-read as it reads them (``routing_from_env``). Not ported yet: ``--process
-test`` and ``decode`` (ROADMAP, Queue 1 item 9), ``--load_pt`` (item 11),
-the model summary table and graph drawing (item 8); the TPU's retry after
-transient backend errors is not ported at all.
+other's; ``--load_pt`` first turns a reference ``.pt`` file into such an
+EB file. The training routing comes from the JAX package's own variables,
+read as it reads them (``routing_from_env``). The TPU's retry after
+transient backend errors is not ported.
 """
 
 from __future__ import annotations
@@ -29,20 +31,23 @@ import numpy as np
 import torch
 
 from geniconet_tpu_torch.app.state import AppState
-from geniconet_tpu_torch.bridge import init_variables
+from geniconet_tpu_torch.bridge import adam_state_to_flax, flatten_tree
 from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_dataset
 from geniconet_tpu_torch.data.offio import write_off
 from geniconet_tpu_torch.data.pipeline import Batches
+from geniconet_tpu_torch.eval.test_driver import resolve_checkpoint, run_decode, run_test
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.config import Config, parse_args
 from geniconet_tpu_torch.train.logging import Logger
-from geniconet_tpu_torch.train.summary import count_params
-from geniconet_tpu_torch.train.trainer import Trainer
+from geniconet_tpu_torch.train.pt_import import load_reference_checkpoint
+from geniconet_tpu_torch.train.summary import count_params, model_graph_dot, model_summary
+from geniconet_tpu_torch.train.trainer import Trainer, fresh_variables
 
-__all__ = ["load_datasets", "routing_from_env", "resume_path", "resolve_checkpoint",
-           "experiment_train", "experiment_encode", "experiment_sample", "main"]
+__all__ = ["load_datasets", "routing_from_env", "resume_path", "experiment_train",
+           "experiment_test", "experiment_encode", "experiment_decode", "experiment_sample",
+           "import_pt_checkpoint", "main"]
 
 
 def load_datasets(cfg: Config):
@@ -98,29 +103,6 @@ def resume_path(cfg: Config):
     return None
 
 
-def resolve_checkpoint(cfg: Config) -> str:
-    """``--test_epoch`` -> a checkpoint path (the JAX package's
-    ``resolve_checkpoint`` in its eval package, reference run.py:343-349):
-    0 the newest EB file, ``B<epoch>`` that EB file, an int that E file."""
-    name = cfg.model.name
-    ckpt_dir = os.path.join(cfg.model_log_dir(), "savedModel")
-    ep = str(cfg.test_epoch)
-    if ep in ("0", ""):
-        epoch = ckpt.latest_best_epoch(ckpt_dir, name)
-        if epoch is None:
-            raise FileNotFoundError(f"no EB checkpoints under {ckpt_dir}")
-        return ckpt.checkpoint_path(ckpt_dir, name, epoch, best=True)
-    if ep.startswith("B"):
-        return ckpt.checkpoint_path(ckpt_dir, name, int(ep[1:]), best=True)
-    return ckpt.checkpoint_path(ckpt_dir, name, int(ep), best=False)
-
-
-def _fresh_variables(cfg: Config) -> dict:
-    m = cfg.model
-    return init_variables(m.subdivisions, tuple(m.widths), seed=cfg.train.seed, model=m.name,
-                          latent_features=m.latent_features)
-
-
 def experiment_train(cfg: Config):
     """Train (or resume) and return the validation history (reference
     experiment_train, run.py:412-497)."""
@@ -135,9 +117,18 @@ def experiment_train(cfg: Config):
         routing = routing_from_env()
         trainer = Trainer(cfg, device=cfg.device, logger=logger, **routing)
         print(f"[train] device {trainer.device}, routing {routing}")
-        variables = _fresh_variables(cfg)
+        variables = fresh_variables(cfg)
         state = trainer.init_state(variables, seed=cfg.train.seed)
         print(f"[train] optimizable parameters: {count_params(variables['params'])}")
+        # the parameter table and the graph drawing at train start
+        # (torchsummary's summary_string/draw_graph, reference run.py:427-430)
+        summ = model_summary(variables)
+        with open(os.path.join(log_dir, f"train_{cfg.model.name}_summary.txt"), "w") as f:
+            f.write(summ)
+        logger.text("model_summary", summ)
+        dot = model_graph_dot(variables, type(trainer.model).__name__, trn_ds.inputs[:1].shape)
+        with open(os.path.join(log_dir, f"train_{cfg.model.name}_graph.dot"), "w") as f:
+            f.write(dot)
         start_epoch, best_loss = 0, math.inf
         if cfg.train.load_pretrained_model:
             path = resume_path(cfg)
@@ -181,6 +172,39 @@ def experiment_encode(cfg: Config):
     return infos
 
 
+def _test_dataset(cfg: Config) -> IcoDataset:
+    """The ``--data_instance`` split (reference run.py:546): ``--synthetic
+    N`` meshes of the training (trn) or validation (val) seed, else that
+    split of ``--dataDir``."""
+    s = cfg.model.subdivisions
+    if cfg.data.synthetic:
+        off = 0 if cfg.data_instance == "trn" else 1
+        return synthetic_dataset(s, cfg.data.synthetic, seed=cfg.data.synthetic_seed + off)
+    return IcoDataset.from_directory(cfg.data.data_dir, s, cfg.data.layout_level,
+                                     cfg.data_instance, cfg.data.ext, cfg.train.quick_learn)
+
+
+def experiment_test(cfg: Config):
+    """Per-mesh distances of the reconstructions of the test split
+    (``eval/test_driver.py:run_test``); returns (pairs, stats)."""
+    return run_test(cfg, _test_dataset(cfg), **routing_from_env())
+
+
+def experiment_decode(cfg: Config):
+    """Decode a directory of encodings through the decoder half (reference
+    enc2ico flow, data.py:121-148), with distances to the meshes of the
+    same names where a dataset is given: ``--synthetic N`` the meshes
+    ``--process encode`` encoded (``AppState.load``'s seed), else the
+    ``--data_instance`` split of ``--dataDir``. Returns (pairs, stats)."""
+    ref = None
+    if cfg.data.synthetic:
+        ref = synthetic_dataset(cfg.model.subdivisions, cfg.data.synthetic,
+                                seed=cfg.data.synthetic_seed)
+    elif cfg.data.data_dir:
+        ref = _test_dataset(cfg)
+    return run_decode(cfg, ref, **routing_from_env())
+
+
 def experiment_sample(cfg: Config) -> str:
     """Decode ``--n_samples`` latents drawn from the checkpoint's stored
     (mu, logvar) with the reference's formula, verbatim: ``z = mu + logvar ·
@@ -214,17 +238,59 @@ def experiment_sample(cfg: Config) -> str:
     return out_dir
 
 
+def _misc(raw):
+    """The reference's ``misc`` (run.py:274-277: ``[{'trn_mean', 'trn_logvar'}]``)
+    as the ``.ckpt`` files keep it, or None."""
+    entry = raw[0] if isinstance(raw, (list, tuple)) and raw else raw
+    if isinstance(entry, dict) and "trn_mean" in entry:
+        return {"trn_mean": np.asarray(entry["trn_mean"], np.float32),
+                "trn_logvar": np.asarray(entry["trn_logvar"], np.float32)}
+    return None
+
+
+def import_pt_checkpoint(cfg: Config) -> str:
+    """``--load_pt``: a reference ``.pt`` checkpoint -> an EB ``.ckpt`` under
+    ``<logDir>/<ae|vae>/savedModel`` with fresh Adam moments, which every
+    later process (resume, test, encode, decode, sample, the explorer)
+    finds as the newest EB file (reference run.py:330-340). Every leaf must
+    fit the configured model. Returns the file's path."""
+    imported = load_reference_checkpoint(cfg.load_pt, cfg.model.name)
+    trainer = Trainer(cfg, device=cfg.device)
+    live = fresh_variables(cfg)
+    state = trainer.init_state(live, seed=cfg.train.seed)
+    bad = []
+    for col in ("params", "batch_stats"):
+        want = {"/".join(p): tuple(v.shape) for p, v in flatten_tree(live[col])}
+        got = {"/".join(p): tuple(v.shape) for p, v in flatten_tree(imported[col])}
+        bad += [f"{col}/{k}: model {want.get(k)} vs checkpoint {got.get(k)}"
+                for k in sorted(want.keys() | got.keys()) if want.get(k) != got.get(k)]
+    if bad:
+        raise ValueError(f"imported variables do not fit the configured model (--model "
+                         f"{cfg.model.name}, subdivision {cfg.model.subdivisions}, widths "
+                         f"{cfg.model.widths}): " + "; ".join(bad[:5]))
+    loss = math.inf if imported["loss"] is None else imported["loss"]
+    epoch = imported["epoch"]
+    blob = {"params": imported["params"], "batch_stats": imported["batch_stats"],
+            "opt_state": adam_state_to_flax(state.optimizer, trainer.model.named_parameters(), 0),
+            "step": 0, "epoch": epoch, "loss": loss, "best_loss": loss}
+    misc = _misc(imported["misc"])
+    if misc is not None:
+        blob["misc"] = misc
+    path = ckpt.checkpoint_path(os.path.join(cfg.model_log_dir(), "savedModel"), cfg.model.name,
+                                epoch, best=True)
+    ckpt.save_checkpoint(path, blob)
+    print(f"[load_pt] imported {cfg.load_pt} -> {path} (epoch {epoch})")
+    return path
+
+
 def main(argv=None):
-    """Parse the command line and run its process; returns what it returns."""
+    """Parse the command line, import ``--load_pt`` if given, and run the
+    process; returns what it returns."""
     cfg = parse_args(argv)
     if cfg.load_pt:
-        raise NotImplementedError("--load_pt: importing the reference's .pt checkpoints is not "
-                                  "ported yet (ROADMAP, Queue 1 item 11)")
-    if cfg.process in ("test", "decode"):
-        raise NotImplementedError(f"--process {cfg.process} is not ported yet (ROADMAP, Queue 1 "
-                                  "item 9: eval)")
-    run = {"train": experiment_train, "encode": experiment_encode,
-           "sample": experiment_sample}[cfg.process]
+        import_pt_checkpoint(cfg)
+    run = {"train": experiment_train, "test": experiment_test, "encode": experiment_encode,
+           "decode": experiment_decode, "sample": experiment_sample}[cfg.process]
     return run(cfg)
 
 

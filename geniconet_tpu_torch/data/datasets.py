@@ -1,10 +1,12 @@
-"""Datasets: npz ico-signal loading, directory layouts, synthetic meshes.
+"""Datasets: npz and mat ico-signal loading, directory layouts, synthetic meshes.
 
 Port of ``geniconet_tpu/data/datasets.py`` (which imports JAX through
 ``ops/mesh_math.py``). File contract: each sample is an ``.npz`` with key
 ``"data"`` of shape ``(9, V)`` — rows 0:3 positions, 3:6 normals, 6:9
 Laplacian, poles last (V = 10·4^s + 2). The network input is rows 0:3
 without the poles as a ``(5·2^s, 2^(s+1), 3)`` grid; the target is ``(V, 9)``.
+The reference's own ``.mat`` grids (``"variable"``, ``(H, W, C)`` scaled by
+255) load too, their normals and Laplacian computed from the positions.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ import re
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.mesh_math import laplacian_numpy, vertex_normals_numpy
+from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 
 __all__ = [
-    "natural_sort", "list_files", "load_ico_npz", "IcoDataset", "synthetic_dataset",
-    "synthetic_vertices",
+    "natural_sort", "list_files", "load_ico_npz", "load_ico_mat", "save_ico_npz", "IcoDataset",
+    "synthetic_dataset", "synthetic_vertices",
 ]
 
 _NUM_RE = re.compile(r"(\d+)")
@@ -60,6 +64,40 @@ def load_ico_npz(path: str, subdivisions: int):
     return np.ascontiguousarray(grid), np.ascontiguousarray(data.T)
 
 
+def load_ico_mat(path: str, subdivisions: int):
+    """A reference ``.mat`` ico grid (reference data.py:47-58) -> the
+    ``load_ico_npz`` pair. ``variable`` is (H, W, C) with 0-255-scaled
+    positions in channels 0:3; the target's normals and Laplacian are
+    computed from the loaded positions."""
+    from scipy.io import loadmat
+
+    md = loadmat(path)
+    if "sparse_weights" in md:
+        raise ValueError(f"{path}: sampling-weight .mat files are preprocessing inputs — "
+                         "use geniconet_tpu_torch.data.generate")
+    if "variable" not in md:
+        raise ValueError(f"{path}: unhandleable .mat contents")
+    arr = np.asarray(md["variable"], np.float32)
+    H, W = ico.grid_shape(subdivisions)
+    if arr.shape[:2] != (H, W):
+        raise ValueError(f"{path}: expected ({H}, {W}, C), got {arr.shape}")
+    grid = np.ascontiguousarray(arr[:, :, :3] / 255.0)
+    if np.isnan(grid).any():
+        raise ValueError(f"{path}: NaNs in the data")
+    v = grid_to_vertices(torch.from_numpy(grid[None]), subdivisions)[0].numpy()
+    faces = ico.get_ico_faces(subdivisions)
+    target = np.concatenate([v, vertex_normals_numpy(v, faces), laplacian_numpy(v, faces)],
+                            axis=1).astype(np.float32)
+    return grid, np.ascontiguousarray(target)
+
+
+def save_ico_npz(path: str, pos: np.ndarray, nor: np.ndarray, lap: np.ndarray):
+    """Write the (9, V) ``"data"`` npz that ``load_ico_npz`` reads
+    (reference generate.py:200-203)."""
+    data = np.concatenate([pos, nor, lap], axis=1).astype(np.float32)
+    np.savez(path, data=data.transpose())
+
+
 @dataclass
 class IcoDataset:
     """Packed in-memory dataset: inputs (N, H, W, 3), targets (N, V, 9)
@@ -77,9 +115,6 @@ class IcoDataset:
     @staticmethod
     def from_directory(root: str, subdivisions: int, level: int = 2, instance: str = "trn",
                        ext: str = ".npz", quick_learn: int = 0) -> "IcoDataset":
-        if ext != ".npz":
-            raise NotImplementedError(
-                f"{ext} datasets: only .npz is ported (ROADMAP, Queue 1 item 8)")
         files = list_files(root, ext, level, instance)
         if quick_learn:
             files = files[:quick_learn]
@@ -89,8 +124,9 @@ class IcoDataset:
         inputs = np.empty((len(files), H, W, 3), np.float32)
         targets = np.empty((len(files), ico.num_vertices(subdivisions), 9), np.float32)
         names, classes = [], []
+        loader = load_ico_mat if ext == ".mat" else load_ico_npz
         for k, f in enumerate(files):
-            inputs[k], targets[k] = load_ico_npz(f, subdivisions)
+            inputs[k], targets[k] = loader(f, subdivisions)
             names.append(os.path.splitext(os.path.basename(f))[0])
             classes.append(os.path.basename(os.path.dirname(os.path.dirname(f)))
                            if level == 2 else "")

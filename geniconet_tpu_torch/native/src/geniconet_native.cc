@@ -1,5 +1,9 @@
-// Host-side mesh self-intersection test, with a plain C interface for ctypes.
+// Host-side mesh kernels, with a plain C interface for ctypes.
 //
+//   ptm_distance       — exact point-to-triangle-mesh squared distances in
+//                        double precision: the oracle the port's float32
+//                        point_to_mesh_distance is held against (kaolin
+//                        0.9.1's metric, reference ico_utils.py:26-44)
 //   self_intersections — triangle-triangle self-intersection pairs via a
 //                        uniform spatial hash + Moller '97 interval test
 //                        (the explorer's "selfintersection" coloring;
@@ -20,6 +24,83 @@ extern "C" {
 
 static inline double dot3(const double* a, const double* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// ---------------------------------------------------------------------------
+// point -> mesh distance (exact, double precision)
+// ---------------------------------------------------------------------------
+
+static double point_tri_sq(const double* p, const double* a, const double* b,
+                           const double* c) {
+  // Ericson, Real-Time Collision Detection §5.1.5 (closest point on triangle)
+  double ab[3] = {b[0] - a[0], b[1] - a[1], b[2] - a[2]};
+  double ac[3] = {c[0] - a[0], c[1] - a[1], c[2] - a[2]};
+  double ap[3] = {p[0] - a[0], p[1] - a[1], p[2] - a[2]};
+  double d1 = dot3(ab, ap), d2 = dot3(ac, ap);
+  if (d1 <= 0.0 && d2 <= 0.0) {
+    return dot3(ap, ap);
+  }
+  double bp[3] = {p[0] - b[0], p[1] - b[1], p[2] - b[2]};
+  double d3 = dot3(ab, bp), d4 = dot3(ac, bp);
+  if (d3 >= 0.0 && d4 <= d3) {
+    return dot3(bp, bp);
+  }
+  double vc = d1 * d4 - d3 * d2;
+  if (vc <= 0.0 && d1 >= 0.0 && d3 <= 0.0) {
+    double t = d1 / (d1 - d3);
+    double q[3] = {a[0] + t * ab[0] - p[0], a[1] + t * ab[1] - p[1],
+                   a[2] + t * ab[2] - p[2]};
+    return dot3(q, q);
+  }
+  double cp[3] = {p[0] - c[0], p[1] - c[1], p[2] - c[2]};
+  double d5 = dot3(ab, cp), d6 = dot3(ac, cp);
+  if (d6 >= 0.0 && d5 <= d6) {
+    return dot3(cp, cp);
+  }
+  double vb = d5 * d2 - d1 * d6;
+  if (vb <= 0.0 && d2 >= 0.0 && d6 <= 0.0) {
+    double t = d2 / (d2 - d6);
+    double q[3] = {a[0] + t * ac[0] - p[0], a[1] + t * ac[1] - p[1],
+                   a[2] + t * ac[2] - p[2]};
+    return dot3(q, q);
+  }
+  double va = d3 * d6 - d5 * d4;
+  if (va <= 0.0 && (d4 - d3) >= 0.0 && (d5 - d6) >= 0.0) {
+    double t = (d4 - d3) / ((d4 - d3) + (d5 - d6));
+    double q[3] = {b[0] + t * (c[0] - b[0]) - p[0], b[1] + t * (c[1] - b[1]) - p[1],
+                   b[2] + t * (c[2] - b[2]) - p[2]};
+    return dot3(q, q);
+  }
+  double denom = 1.0 / (va + vb + vc);
+  double v = vb * denom, w = vc * denom;
+  double q[3] = {a[0] + ab[0] * v + ac[0] * w - p[0],
+                 a[1] + ab[1] * v + ac[1] * w - p[1],
+                 a[2] + ab[2] * v + ac[2] * w - p[2]};
+  return dot3(q, q);
+}
+
+void ptm_distance(const float* points, int n_points, const float* verts,
+                  int n_verts, const int* faces, int n_faces, float* out_sq) {
+  (void)n_verts;
+  std::vector<double> tri(n_faces * 9);
+  for (int f = 0; f < n_faces; ++f) {
+    for (int k = 0; k < 3; ++k) {
+      const float* v = verts + 3 * faces[3 * f + k];
+      tri[9 * f + 3 * k + 0] = v[0];
+      tri[9 * f + 3 * k + 1] = v[1];
+      tri[9 * f + 3 * k + 2] = v[2];
+    }
+  }
+  for (int i = 0; i < n_points; ++i) {
+    double p[3] = {points[3 * i], points[3 * i + 1], points[3 * i + 2]};
+    double best = 1e300;
+    for (int f = 0; f < n_faces; ++f) {
+      const double* t = tri.data() + 9 * f;
+      double d = point_tri_sq(p, t, t + 3, t + 6);
+      if (d < best) best = d;
+    }
+    out_sq[i] = static_cast<float>(best);
+  }
 }
 
 // ---------------------------------------------------------------------------

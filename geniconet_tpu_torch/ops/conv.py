@@ -22,6 +22,7 @@ from geniconet_tpu_torch.ops.pad import ico_pad
 __all__ = [
     "HEX_TAP_OFFSETS",
     "taps_to_kernel",
+    "kernel_to_taps",
     "ico_conv_s2s",
     "split_charts",
     "merge_charts",
@@ -48,6 +49,13 @@ def taps_to_kernel(taps: torch.Tensor) -> torch.Tensor:
     full = taps.new_zeros((9, cin, cout))
     full[_TAP_FLAT] = taps
     return full.reshape(3, 3, cin, cout)
+
+
+def kernel_to_taps(kernel):
+    """(3, 3, Cin, Cout) HWIO kernel -> its (7, Cin, Cout) taps, the inverse of
+    ``taps_to_kernel`` (the corners are dropped: callers check them). Takes a
+    tensor or a numpy array and returns the same kind."""
+    return kernel.reshape(9, *kernel.shape[2:])[_TAP_FLAT]
 
 
 def split_charts(x: torch.Tensor, subdivisions: int) -> torch.Tensor:

@@ -118,7 +118,7 @@ class Config:
     n_samples: int = 8      # sample process: meshes drawn from checkpoint misc
     out_dir: str = ""
     enc_dir: str = ""       # decode process: directory of latent .npz files
-    load_pt: str = ""       # a reference .pt checkpoint to import (not ported yet)
+    load_pt: str = ""       # a reference .pt checkpoint to import (train/pt_import.py)
     # optional per-term loss-factor overrides (None -> per-model defaults,
     # reference run.py:689-696)
     f_pos: Optional[float] = None
@@ -204,7 +204,7 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--test_epoch", type=str, default=None)
     p.add_argument("--load_epoch", type=int, default=None)
     p.add_argument("--load_pt", type=str, default="",
-                   help="import a reference PyTorch .pt checkpoint (not ported yet)")
+                   help="import a reference PyTorch .pt checkpoint as the newest EB file")
     p.add_argument("--load_pretrained_model", action="store_true")
     p.add_argument("--subdivision", type=int, default=5)
     p.add_argument("--dataPthLvl", type=int, default=2)

@@ -60,7 +60,8 @@ import torch
 
 from geniconet_tpu_torch import device as devices
 from geniconet_tpu_torch.bridge import (
-    adam_state_from_flax, adam_state_to_flax, flax_path, flax_to_state_dict, state_dict_to_flax,
+    adam_state_from_flax, adam_state_to_flax, flax_path, flax_to_state_dict, init_variables,
+    state_dict_to_flax,
 )
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.losses.p2p import (
@@ -71,7 +72,7 @@ from geniconet_tpu_torch.ops.vertices import grid_to_vertices, pack_target_phase
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.schedule import cyclic_triangular
 
-__all__ = ["TrainState", "Trainer"]
+__all__ = ["TrainState", "Trainer", "fresh_variables"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _EVAL_STREAM = 0x7FFFFFFF  # offset of the eval generator's seed (JAX folds this into its key)
@@ -93,6 +94,14 @@ def _sample_channels(v: np.ndarray, groups: int = 6) -> np.ndarray:
     step = max(1, v.shape[-1] // groups)
     imgs = v[..., list(range(0, v.shape[-1], step))[:groups]]
     return np.moveaxis(imgs, -1, 1).reshape(-1, v.shape[1], v.shape[2], 1)
+
+
+def fresh_variables(cfg) -> dict:
+    """The seeded variable tree a run of ``cfg``'s model starts from
+    (``bridge.init_variables`` with ``cfg.train.seed``)."""
+    m = cfg.model
+    return init_variables(m.subdivisions, tuple(m.widths), seed=cfg.train.seed, model=m.name,
+                          latent_features=m.latent_features)
 
 
 @dataclass

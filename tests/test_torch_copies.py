@@ -8,7 +8,8 @@ the originals, and the entry points' device default.
   the JAX ``Config``'s default (``device`` is the port's own), and
   ``parse_args`` turns the JAX command lines into the same values.
 * ``geniconet_tpu_torch/native``: the same self-intersecting face pairs as
-  ``geniconet_tpu/native`` on one mesh with a dent pushed through it.
+  ``geniconet_tpu/native`` on one mesh with a dent pushed through it, and
+  the same point-to-mesh distances (``ptm_distance``) to the bit.
 * ``Trainer``, ``AppState``, ``Batches`` and the command line run on the
   card unless told otherwise: without one they raise instead of returning
   a CPU object.
@@ -97,6 +98,20 @@ def test_self_intersection_matches_the_jax_native():
     assert len(native.detect_self_intersection(ico.get_vertex_coords(s), faces)) == 0
 
 
+def test_point_to_mesh_distance_matches_the_jax_native():
+    s = 2
+    rng = np.random.RandomState(4)
+    verts = (ico.get_vertex_coords(s) * rng.uniform(0.8, 1.2, (ico.num_vertices(s), 1)))
+    faces = ico.get_ico_faces(s)
+    pts = np.concatenate([rng.randn(200, 3), verts[:20]]).astype(np.float32)
+    got = native.point_to_mesh_distance_native(pts, verts, faces)
+    assert got.shape == (220,) and got.dtype == np.float32 and not got[200:].any()
+    np.testing.assert_array_equal(got, jax_native.point_to_mesh_distance_native(pts, verts,
+                                                                               faces))
+    with pytest.raises(ValueError, match="outside"):
+        native.point_to_mesh_distance_native(pts, verts[:10], faces)
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -130,3 +145,7 @@ def test_entry_points_default_to_the_card(no_card, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="is_available"):
             cli.main([*argv, "--process", process])
     assert cli.main([*argv, "--process", "train", "--device", "cpu"])
+    cli.main([*argv, "--process", "encode", "--device", "cpu"])
+    for process in ("test", "decode"):  # past their checkpoints and encodings
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main([*argv, "--process", process])

@@ -2531,3 +2531,31 @@ def test_fit_restore_and_next_step_repeat_bit_for_bit(cuda, model, tmp_path):
     ma, mb = tr.train_step(st, x, y, wt, epoch), fresh.train_step(fst, x, y, wt, epoch)
     for k in ma:
         assert torch.equal(ma[k], mb[k]) if torch.is_tensor(ma[k]) else ma[k] == mb[k], k
+
+
+def test_point_to_mesh_distance_at_s5_on_the_card(cuda):
+    """The evaluation metric on the card (``ops/point_mesh.py``, plain
+    PyTorch: no kernel of its own) at s=5, from one bumpy sphere's vertices
+    to another: every 16th point against the float64 numpy oracle and the
+    CPU's float32, within rtol 1e-4 plus 1e-6 x the extent squared."""
+    import numpy as np
+
+    from geniconet_tpu_torch.geometry import ico
+    from geniconet_tpu_torch.ops.point_mesh import (point_to_mesh_distance,
+                                                    point_to_mesh_distance_numpy)
+
+    s = 5
+    rng = np.random.RandomState(0)
+    base = ico.get_vertex_coords(s)
+    pts, verts = ((base * rng.uniform(0.9, 1.1, (len(base), 1))).astype(np.float32)
+                  for _ in range(2))
+    faces = ico.get_ico_faces(s)
+    got = point_to_mesh_distance(torch.from_numpy(pts).to(cuda), torch.from_numpy(verts).to(cuda),
+                                 faces)
+    assert got.device.type == "cuda" and got.shape == (len(pts),)
+    sub = got.cpu().numpy()[::16]
+    extent = float(np.abs(verts).max()) ** 2
+    for ref in (point_to_mesh_distance_numpy(pts[::16], verts, faces),
+                point_to_mesh_distance(torch.from_numpy(pts[::16]), torch.from_numpy(verts),
+                                       faces, chunk=128).numpy()):
+        np.testing.assert_allclose(sub, ref, rtol=1e-4, atol=1e-6 * extent)

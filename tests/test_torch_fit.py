@@ -17,8 +17,9 @@
   (``.off`` files that ``read_off`` reads back, written and read as the JAX
   package's ``offio`` does); ``AppState.load(cfg, epoch=0)`` equals the
   load from the same variables; ``/api/load`` and ``/api/epochs`` answer;
-  ``--process test`` and ``--load_pt`` raise. The routing comes from the
-  JAX package's variables as its kernels read them.
+  ``--process test`` and ``decode`` evaluate the trained files
+  (``tests/test_torch_eval.py`` holds them against JAX). The routing comes
+  from the JAX package's variables as its kernels read them.
 """
 
 import copy
@@ -46,6 +47,7 @@ from geniconet_tpu_torch.app.state import AppState
 from geniconet_tpu_torch.data.datasets import synthetic_dataset
 from geniconet_tpu_torch.data.offio import read_off
 from geniconet_tpu_torch.data.pipeline import Batches
+from geniconet_tpu_torch.eval.test_driver import resolve_checkpoint
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.layers import merged_block_enabled, phase_chain_enabled
 from geniconet_tpu_torch.ops.kernels.fused import kernel_geff_enabled, merged_bwd_enabled
@@ -227,7 +229,7 @@ def test_cli_trains_resumes_encodes_and_serves(tmp_path, monkeypatch, capsys):
     assert [i["epoch"] for i in infos] == [newest, newest]
     st = AppState(device="cpu")
     info = st.load(cfg, "val", epoch=0)
-    blob = ckpt.load_checkpoint(cli.resolve_checkpoint(cfg))
+    blob = ckpt.load_checkpoint(resolve_checkpoint(cfg))
     same = AppState(device="cpu")
     same.load(cfg, "val", variables={k: blob[k] for k in ("params", "batch_stats")})
     np.testing.assert_array_equal(st.latents, same.latents)
@@ -248,10 +250,10 @@ def test_cli_trains_resumes_encodes_and_serves(tmp_path, monkeypatch, capsys):
     assert handle_api(served, "/api/epochs", {}) == want
     with pytest.raises(FileNotFoundError, match="available"):
         handle_api(AppState(device="cpu"), "/api/load", {**body, "epoch": 99})
-    for extra in (["--process", "test"], ["--process", "decode"],
-                  ["--process", "train", "--load_pt", "x.pt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([*_argv(tmp_path), *extra])
+    for process in ("test", "decode"):  # point2mesh: tests/test_torch_eval.py
+        pairs, stats = cli.main([*_argv(tmp_path), "--process", process, "--test_mode",
+                                 "point2point"])
+        assert len(pairs) == 6 and np.isfinite(stats).all()
 
 
 def test_cli_samples_a_vae(tmp_path, monkeypatch):
