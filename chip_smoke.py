@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Twenty-six paths at full width (s=5, widths 64/128/256; the VAE's latent
+Twenty-nine paths at full width (s=5, widths 64/128/256; the VAE's latent
 512): AE serving, AE training, VAE serving, VAE training, AE and VAE
 ``Trainer.fit`` with validation, checkpoints and resume, AE and VAE
 evaluation of the files written (``--process test``, encode, decode,
-``--load_pt``), AE and VAE
+``--load_pt``), the AE's and the VAE's explorer server on those files over
+HTTP, the standard conv at stride 2 through its own entry point
+(``fused_ico_conv_s2s(..., stride=2)`` and its gradient), AE and VAE
 training on the merged backward route (``merged_bwd="all"``); AE and VAE
 training on the merged blocks (``merged_block="all"``: every UpBlock's
 training forward one launch of kernel o, every DownBlock's one of p), the
@@ -34,7 +36,14 @@ printed on its own lines, each fatal on failure:
    dx and dtaps, with the stats fold; the head's forward and backward; the
    head+MSE forward and backward) at the shapes of AE and VAE training at B=36
    (the DownBlocks' and the VAE heads' stride-2 convs with and without an
-   act prologue), the same way. Every case also prints its bound (the
+   act prologue), the same way; and the standard conv at stride 2 (group
+   "std s2": its forward at B=16 and, with stats, at B=36 with and without
+   the act, its dx, dtaps and merged backward k with the fold in the
+   kernels and outside, at the DownBlocks' stride-2 shapes; in bf16 its
+   forward must equal the phase conv's at output phase 2 on the input's
+   parity phases and k f's split pair, bit for bit); then the path "std s2
+   train (op)": that op's forward and gradient on the split route, k and
+   the fold outside, float32 against the plain route's autograd. Every case also prints its bound (the
    least time the card could take: bytes over 3.35 TB/s or FLOPs over the
    peak for the dtype, whichever is larger) and, for the convs, the time of
    the one cuDNN call that does the same contraction on an input already
@@ -131,7 +140,13 @@ printed on its own lines, each fatal on failure:
    route on 2 meshes with the float32 plain route on the CPU; it prints the
    processes' wall times, the distance's ms a mesh and peak memory; the
    processes' launches join the paths as "AE serve (eval)" and "VAE serve
-   (eval)";
+   (eval)"; then explorer, on the same files: the port's HTTP server
+   (``app/server.py``) in a thread on 127.0.0.1 with its state on the
+   card, over HTTP /api/load, /api/pca, /api/pca_decode, /api/pairs,
+   /api/arithmetic with its nearest neighbour, /api/viewpoint, /api/export
+   (.off and figure), /api/view_file of the export, GET / and a gzip
+   /api/mesh; every mesh checked, each route's wall printed, the launches
+   joining the paths "AE serve (explorer)" and "VAE serve (explorer)";
 9. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
@@ -152,8 +167,9 @@ the serving and training paths (AE and VAE summed, and per path), its
 bf16 time, its plain version's, its bound and the library
 call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
-``by_shapes`` splits each sum into the AE's shapes, the no-act stride-2
-shapes, the VAE's new shapes, the chains' and the wide head's); the last is ``{"ok": true, "device":
+``by_shapes`` splits each sum into the AE's shapes, the standard conv's
+stride-2 shapes, the no-act stride-2 shapes, the VAE's new shapes, the
+chains' and the wide head's); the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits with an error before
 printing any result.
 """
@@ -329,6 +345,12 @@ PATH_KERNELS = {
     # also --load_pt + test), eval mode on the default route
     "AE serve (eval)": _FORWARD,
     "VAE serve (eval)": _FORWARD,
+    # the explorer's HTTP server on [fit]'s files (load, PCA, decodes, export)
+    "AE serve (explorer)": _FORWARD,
+    "VAE serve (explorer)": _FORWARD,
+    # the standard conv at stride 2 through fused_ico_conv_s2s(..., stride=2)
+    # and its gradient, the split and the merged backward
+    "std s2 train (op)": (*_STD, "stats_geff"),  # l: the route with the fold outside
     "VAE serve": _FORWARD,
     "VAE train": (*_FORWARD, *_BACKWARD, "pair_head_bwd"),
     "VAE train (merged)": (*_FORWARD, *_MERGED, "pair_head_bwd"),
@@ -369,6 +391,9 @@ PATH_FORBIDDEN = {
     "AE train": (*_MERGED[:3], *_NEW), "VAE train": (*_MERGED[:3], *_NEW),
     "AE train (fit)": (*_MERGED[:3], *_NEW), "VAE train (fit)": (*_MERGED[:3], *_NEW),
     "AE serve (eval)": _NEW, "VAE serve (eval)": _NEW,
+    "AE serve (explorer)": _NEW, "VAE serve (explorer)": _NEW,
+    "std s2 train (op)": ("phase_conv_fwd", *_BACKWARD[:4], *_MERGED[:2], "up_dual_conv_fwd",
+                          "pair_head_fwd", *_AE_HEAD, "pair_head_bwd", *_CHAIN, *_N),
     "AE train (merged)": (*_SPLIT_ONLY, *_NEW), "VAE train (merged)": (*_SPLIT_ONLY, *_NEW),
     "AE serve (chain)": (*_STD, *_N),
     "AE train (chain)": (*_STD, *_MERGED[:2], "stats_geff", *_N),
@@ -830,7 +855,7 @@ def training_cases():
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
-    from geniconet_tpu_torch.ops.phase import phase_merge
+    from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
     B, (w0, w1, w2) = TRAIN_BATCH, WIDTHS
 
@@ -1118,6 +1143,96 @@ def training_cases():
                      ) if info is not None else None
             return Case(call, lambda: ck.ico_conv_s2s_dtaps_plain(*args), flops,
                         [x, g, a, y, gs], lib, parts=parts)
+        return make
+
+    def std_s2(which, h, w, cin, cout, batch=B, with_act=True, fold=True):
+        """The standard conv at stride 2 (``fused_ico_conv_s2s(..., stride=2)``'s
+        kernels) over the level-s phase grid (h, w) of a DownBlock, its input
+        the (2h, 2w) grid: the forward (with stats at the training batch,
+        without at the serving one), dx, dtaps or the merged backward k, the
+        fold in the kernels or outside them (no y, gs; k without stats).
+        FLOPs: the function's, 2·7·C_in·C_out a output cell (k: dx +
+        dtaps); cuDNN's stride-2 call on the haloed (2h + 1, 2w + 2) input.
+        In bf16 the forward must equal b's forward at output phase 2 on the
+        input's parity phases (the same function; PERF.md) and k the split
+        pair at stride 2, bit for bit."""
+        def make(dt, gen):
+            x = _rnd(gen, batch, 5, 2 * h, 2 * w, cin, dtype=dt)
+            t, b = _taps(gen, cin, cout, dt)
+            a = _act(gen, cin) if with_act else None
+            flops = conv_flops(batch, 5 * h * w, cin, cout)
+            halo = (batch * 5, cin, cout, 2 * h + 1, 2 * w + 2, 2)
+            bf16 = dt == torch.bfloat16
+            if which == "fwd":
+                stats = batch == B
+                args = (x, t, b, "average", a, stats)
+                call = lambda: ck.ico_conv_s2s_fwd(*args, stride=2)  # noqa: E731
+                ph = [p.contiguous() for p in phase_split(x)]
+                b_fwd = lambda: pk.phase_conv_fwd(ph, [(t, b)], "average", (2,), a,  # noqa: E731
+                                                  stats)
+
+                def exact():
+                    got, ref = flat(call()), flat(b_fwd())
+                    if len(got) != len(ref) or not all(map(torch.equal, got, ref)):
+                        raise AssertionError("f at stride 2: bf16 forward differs from "
+                                             "phase_conv_fwd (2,) on the parity phases")
+                    return "the output" + (" and stats" if stats else "") + \
+                        " (b's forward at phase 2 on the parity phases)"
+
+                parts = (lambda: grid_parts(call, flops, [x, a], batch, 2 * h, 2 * w, cin, 1,
+                                            build.grid_fwd_info(True, stats))) if bf16 else None
+                return Case(call, lambda: ck.ico_conv_s2s_fwd_plain(*args, stride=2), flops,
+                            [x, t, b, a], cudnn("fwd", gen, dt, *halo),
+                            compare={"b's forward at phase 2": b_fwd}, parts=parts,
+                            exact=exact if bf16 else None)
+            g = _rnd(gen, batch, 5, h, w, cout, dtype=dt)
+            y, gs = ((_rnd(gen, batch, 5, h, w, cout, dtype=dt), _rnd(gen, 2, cout, scale=1e-3))
+                     if fold else (None, None))
+            cot = build.cot_operand_shape(batch, 5 * h * w, 0, cout)
+            if which == "dx":
+                args = (g, t, "average", dt, a, x if a else None, y, gs, True)
+                call = lambda: ck.ico_conv_s2s_dx(*args, stride=2)  # noqa: E731
+                parts = (lambda: mma_parts(call, flops, [g, y, gs], cot,
+                                           build.mma_dx_info(False, a is not None, std=True))
+                         ) if bf16 else None
+                return Case(call, lambda: ck.ico_conv_s2s_dx_plain(*args, stride=2), flops,
+                            [g, t, a, x if a else None, y, gs], cudnn("dx", gen, dt, *halo),
+                            parts=parts)
+            if which == "dtaps":
+                args = (x, g, "average", a, y, gs)
+                call = lambda: ck.ico_conv_s2s_dtaps(*args, stride=2)  # noqa: E731
+                parts = (lambda: grid_parts(call, flops, [x, a], batch, 2 * h, 2 * w, cin, 1,
+                                            build.grid_dtaps_info(True, fold,
+                                                                  build.mma_narrow(cin)))
+                         ) if bf16 else None
+                return Case(call, lambda: ck.ico_conv_s2s_dtaps_plain(*args, stride=2), flops,
+                            [x, g, a, y, gs], cudnn("dtaps", gen, dt, *halo), parts=parts)
+            args = (x, g, t, y, gs, "average", a, fold, dt)
+            call = lambda: ck.ico_conv_s2s_bwd(*args, stride=2)  # noqa: E731
+            split = (lambda: ck.ico_conv_s2s_dx(g, t, "average", dt, a, x, y, gs, True,
+                                                stride=2),
+                     lambda: ck.ico_conv_s2s_dtaps(x, g, "average", a, y, gs, stride=2))
+
+            def exact():
+                got = call()
+                (dx, dmul, dadd, gsum), dtaps = split[0](), split[1]()
+                for key, u, v in zip(("dx", "dtaps", "Σg_eff", "d_mul", "d_add"), got,
+                                     (dx, dtaps, gsum, dmul, dadd)):
+                    if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+                        raise AssertionError(f"k at stride 2: bf16 {key} differs from the "
+                                             "split route's")
+                return ("dx, bf16 dtaps, Σg_eff" + (", d_mul, d_add" if a else "")
+                        + " (f's dx + f's dtaps at stride 2)")
+
+            parts = (lambda: mma_parts(
+                call, 2 * flops, [x, g, y, gs, a],
+                [cot, (pk.grid_operand_rows(batch, 2 * h, 2 * w, 1), build.operand_width(cin))],
+                build.std_bwd_info(build.mma_narrow(cin), a is not None), split=split)
+            ) if bf16 else None
+            lib_dx, lib_dw = cudnn("dx", gen, dt, *halo), cudnn("dtaps", gen, dt, *halo)
+            return Case(call, lambda: ck.ico_conv_s2s_bwd_plain(*args, stride=2), 2 * flops,
+                        [x, g, t, y, gs, a], lambda: (lib_dx(), lib_dw()), split, parts=parts,
+                        exact=exact if bf16 else None)
         return make
 
     def head_mse(which, h, w, c):
@@ -1479,7 +1594,22 @@ def training_cases():
     blocks += [("dn_block_fwd", f"{label}, conv01 {shape[3]}{'' if k == 0 else ' (no act)'}",
                 block("down", *shape, shape[3], k == 0)) for k, (label, shape) in enumerate(down)]
     vae += [("up_block_fwd", f"{up0[0]}, conv01 {w2}", block("up", *up0[1], w2))]
+    # the standard conv at stride 2 (fused_ico_conv_s2s's own entry point; the
+    # model routes stride 2 elsewhere) at the DownBlocks' stride-2 shapes:
+    # the forward at the serving batch and with stats at the training batch,
+    # with and without act; dx, dtaps and k with the fold in and out
+    s2 = []
+    for label, (h, w, cin, cout) in down:
+        label = label.replace("s2 (", "std s2 (").replace("2x", "")
+        s2.append(("ico_conv_s2s_fwd", f"{label} act B={BATCH}",
+                   std_s2("fwd", h, w, cin, cout, batch=BATCH)))
+        s2 += [("ico_conv_s2s_fwd", f"{label} {'act+' if act else ''}stats",
+                std_s2("fwd", h, w, cin, cout, with_act=act)) for act in (True, False)]
+        s2 += [(f"ico_conv_s2s_{which}", f"{label} act+{f}",
+                std_s2(which, h, w, cin, cout, fold=f == "fold"))
+               for which in ("dx", "dtaps", "bwd") for f in ("fold", "no fold")]
     return ([(*c, "AE") for c in cases + merged + blocks]
+            + [(*c, "std s2") for c in s2]
             + [(*c, "AE no act") for c in no_act]
             + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain]
             + [(*c, "wide head") for c in wide])
@@ -1612,6 +1742,69 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
         for t in (s, *s["by_shapes"].values()):
             t["bound_by"] = max(t["bound_by"], key=t["bound_by"].get)
     return stats
+
+
+def stride2_op(card: str) -> dict:
+    """Path "std s2 train (op)": the standard conv at stride 2 through its
+    user entry point, ``fused_ico_conv_s2s(..., stride=2)`` with the act and
+    the stats and its gradient (the split backward, the merged one k, and
+    the fold outside the kernels), at the DownBlocks' stride-2 shapes (B=36;
+    inputs (32,64) 64->128, (16,32) 128->256, (8,16) 256->256), in bfloat16
+    and float32. Every output and gradient finite; in float32 each against
+    autograd of the plain route (the act, ``ops/conv.py:ico_conv_s2s`` at
+    stride 2, the stats as sums) on the same card tensors, within TOL.
+    Returns the run's kernel launches."""
+    from geniconet_tpu_torch.ops.conv import ico_conv_s2s
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.ops.kernels.fused import fused_ico_conv_s2s
+
+    (w0, w1, w2), B = WIDTHS, TRAIN_BATCH
+    shapes = [(SUBDIVISIONS, w0, w1), (SUBDIVISIONS - 1, w1, w2), (SUBDIVISIONS - 2, w2, w2)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    routes = {"split": {}, "merged": {"merged_bwd": True}, "fold outside": {"kernel_geff": "0"}}
+    worst = 0.0
+    build.reset_launches()
+    for s, cin, cout in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = _rnd(gen, B, 5, 2**s, 2 ** (s + 1), cin, dtype=dt)
+            (t, b), (mul, add) = _taps(gen, cin, cout, dt), _act(gen, cin)
+            ry = _rnd(gen, B, 5, 2 ** (s - 1), 2**s, cout)
+            rs = _rnd(gen, 2, cout, scale=1e-3)
+            leaves = [v.detach().clone().requires_grad_() for v in (x, t, b, mul, add)]
+
+            def loss_of(y, st):
+                return (y.float() * ry).sum() + (st * rs).sum()
+
+            grads = {}
+            for name, kw in routes.items():
+                ins = [v.detach().clone().requires_grad_() for v in leaves]
+                y, st = fused_ico_conv_s2s(ins[0], ins[1], ins[2], s, "average", 2,
+                                           act=(ins[3], ins[4]), with_stats=True, **kw)
+                got = torch.autograd.grad(loss_of(y, st), ins)
+                if not all(bool(torch.isfinite(v).all()) for v in (y, st, *got)):
+                    raise AssertionError(f"std s2 op {name} s={s} {dt}: non-finite outputs")
+                grads[name] = (y, st, *got)
+            if dt == torch.float32:
+                ins = [v.detach().clone().requires_grad_() for v in leaves]
+                xa = torch.relu(ins[0] * ins[3] + ins[4])
+                y = ico_conv_s2s(xa, ins[1], ins[2], s, 2, "average")
+                st = torch.stack([y.sum(dim=(0, 1, 2, 3)), (y * y).sum(dim=(0, 1, 2, 3))])
+                ref = (y, st, *torch.autograd.grad(loss_of(y, st), ins))
+                for name, got in grads.items():
+                    for key, u, v in zip(("y", "stats", "dx", "dtaps", "dbias", "d_mul",
+                                          "d_add"), got, ref):
+                        err, scale = (u - v).abs().max().item(), v.abs().max().item()
+                        worst = max(worst, err / scale)
+                        if err > TOL[dt] * scale:
+                            raise AssertionError(f"std s2 op {name} s={s}: {key} error {err} "
+                                                 f"over {TOL[dt]} x {scale}")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"[std s2 op] fused_ico_conv_s2s(stride=2) forward + gradient at 3 shapes x 2 dtypes "
+          f"x (split, merged, fold outside); float32 against the plain route's autograd: worst "
+          f"{worst:.3e} of max|ref| (tol {TOL[torch.float32]:.0e}); launches {launches} "
+          f"[{card}]", flush=True)
+    return launches
 
 
 def check_mesh(vertices, n: int, what: str):
@@ -2364,8 +2557,9 @@ def fit_phase(model: str, variables, dataset, val_dataset, card: str):
     a resume by the command line for one more epoch from the dataset written
     as .npz files, and the explorer loading the newest EB file from disk,
     its latent cache and a B=1 decode bit-equal to a load from the same
-    weights in memory; then ``eval_phase`` on the files written. Returns the
-    kernel launches of the ``fit`` run and of the evaluation's processes."""
+    weights in memory; then ``eval_phase`` and ``explorer_phase`` on the
+    files written. Returns the kernel launches of the ``fit`` run, of the
+    evaluation's processes and of the explorer's server."""
     import os
     import tempfile
 
@@ -2518,7 +2712,129 @@ def fit_phase(model: str, variables, dataset, val_dataset, card: str):
               f"same weights in memory; /api/load (float32) and /api/epochs list "
               f"{api['epochs']} [{card}]", flush=True)
         eval_launches = eval_phase(model, cfg.log_dir, data_root, val_dataset, card)
-    return launches, eval_launches
+        explorer_launches = explorer_phase(model, cfg.log_dir, data_root, card)
+    return launches, eval_launches, explorer_launches
+
+
+def _http(url: str, body=None, gzip_ok: bool = False):
+    """(status, headers, body bytes) of a GET (``body`` None) or a JSON POST;
+    a 4xx/5xx answer is returned, not raised."""
+    import gzip
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Accept-Encoding": "gzip"} if gzip_ok else {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, headers, data = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, data = e.code, dict(e.headers), e.read()
+    if headers.get("Content-Encoding") == "gzip":
+        data = gzip.decompress(data)
+    return status, headers, data
+
+
+def explorer_phase(model: str, log_dir: str, data_root: str, card: str) -> dict:
+    """Phase [explorer] on [fit]'s files: the port's explorer server
+    (``app/server.py:make_server``) in a thread on 127.0.0.1, port 0, its
+    ``AppState`` on the card, driven over HTTP: /api/load of the newest EB
+    file (float32, the validation meshes), /api/pca, /api/pca_decode,
+    /api/pairs (closest and farthest), /api/arithmetic with its nearest
+    neighbour, /api/viewpoint save / list / delete, /api/export as .off and
+    as a figure, /api/view_file of the exported .off (its vertices the
+    export's), GET / and a gzip /api/mesh. Each mesh must have the level's
+    vertices, finite; a route that fails fails the run. Prints each route's
+    wall time (the HTTP round trip included) and returns the kernel
+    launches of the run."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from geniconet_tpu_torch.app import server
+    from geniconet_tpu_torch.app.state import AppState
+    from geniconet_tpu_torch.geometry import ico
+    from geniconet_tpu_torch.ops.kernels import build
+
+    tag = f"explorer {model}"
+    V = ico.num_vertices(SUBDIVISIONS)
+    srv = server.make_server(AppState(device="cuda"), "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    walls = {}
+
+    def call(route, body=None, gzip_ok=False, label=""):
+        t0 = time.perf_counter()
+        status, headers, data = _http(url + route, body, gzip_ok)
+        walls[f"{'GET ' if body is None else ''}{route}{label}"] = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"{tag}: {route} answered {status}: {data[:500]!r}")
+        return headers, (data if body is None else json.loads(data))
+
+    build.reset_launches()
+    try:
+        _, info = call("/api/load", {"model": model, "logDir": log_dir, "dataDir": data_root,
+                                     "subdivision": SUBDIVISIONS, "widths": list(WIDTHS),
+                                     "epoch": 0})
+        n = info["n"]
+        _, pca = call("/api/pca", {})
+        points = np.asarray(pca["points"], np.float32)
+        if points.shape != (n, 3) or not np.isfinite(points).all():
+            raise AssertionError(f"{tag}: /api/pca gave points {points.shape}")
+        _, near = call("/api/pca_decode", {"p": points[1].tolist(), "coloring": "patch"})
+        check_mesh(near["vertices"], V, f"{tag} /api/pca_decode")
+        if near["index"] != 1:
+            raise AssertionError(f"{tag}: /api/pca_decode at point 1 decoded {near['index']}")
+        for farthest in (False, True):
+            _, pairs = call("/api/pairs", {"k": 5, "farthest": farthest},
+                            label=" farthest" if farthest else " closest")
+            if len(pairs["pairs"]) != 5 or not all(0 <= p["i"] < p["j"] < n
+                                                   for p in pairs["pairs"]):
+                raise AssertionError(f"{tag}: /api/pairs gave {pairs}")
+        _, arith = call("/api/arithmetic", {"terms": [{"op": "+", "i": 0}, {"op": "-", "i": 1},
+                                                      {"op": "+", "i": 2}]})
+        check_mesh(arith["vertices"], V, f"{tag} /api/arithmetic")
+        if not 0 <= arith["nearest"]["index"] < n:
+            raise AssertionError(f"{tag}: /api/arithmetic nearest {arith['nearest']}")
+        cam = {"eye": [0.0, 0.0, 3.0]}
+        call("/api/viewpoint", {"op": "save", "name": "front", "camera": cam}, label=" save")
+        vps = call("/api/viewpoint", {"op": "list"}, label=" list")[1]["viewpoints"]
+        if vps.get("front") != cam:
+            raise AssertionError(f"{tag}: /api/viewpoint did not keep the saved camera")
+        vps = call("/api/viewpoint", {"op": "delete", "name": "front"}, label=" delete")[1]
+        if "front" in vps["viewpoints"]:
+            raise AssertionError(f"{tag}: /api/viewpoint did not delete the camera")
+        off = call("/api/export", {"i": 3}, label=" off")[1]["path"]
+        fig = call("/api/export", {"i": 3, "fmt": "fig", "coloring": "patch"},
+                   label=" fig")[1]["path"]
+        if not (os.path.basename(off) == f"{info['names'][3]}_recon.off"
+                and os.path.basename(fig) == f"{info['names'][3]}_recon.fig.json"
+                and os.path.exists(off) and os.path.exists(fig)):
+            raise AssertionError(f"{tag}: /api/export wrote {off}, {fig}")
+        _, viewed = call("/api/view_file", {"path": off})
+        check_mesh(viewed["vertices"], V, f"{tag} /api/view_file")
+        with open(fig) as f:
+            exported = json.load(f)
+        if np.abs(np.asarray(viewed["vertices"]) - np.asarray(exported["vertices"])).max() > 1e-5:
+            raise AssertionError(f"{tag}: /api/view_file of the .off differs from the export")
+        page = call("/")[1]
+        if b"<html" not in page.lower():
+            raise AssertionError(f"{tag}: GET / is not the page")
+        headers, mesh = call("/api/mesh", {"i": 0}, gzip_ok=True, label=" (gzip)")
+        if headers.get("Content-Encoding") != "gzip":
+            raise AssertionError(f"{tag}: /api/mesh was not gzipped")
+        check_mesh(mesh["vertices"], V, f"{tag} /api/mesh")
+        torch.cuda.synchronize()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    launches = dict(build.LAUNCHES)
+    print(f"[{tag}] {n} meshes of EB{info['epoch']}; routes' wall (ms, HTTP included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    return launches
 
 
 EVAL_CPU_MESHES = 2  # meshes of the float32 kernel route held against the CPU's plain route
@@ -2818,6 +3134,8 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_shapes")}
         else:
             stats[k] = v
+    launches = {"std s2 train (op)": stride2_op(card)}  # path -> kernel launches in its run
+    check_launches("std s2 train (op)", launches["std s2 train (op)"])
 
     vae = "ico2ico_vae"
     serve_vars = {
@@ -2825,7 +3143,6 @@ def main():
         vae: bridge.init_variables(SUBDIVISIONS, WIDTHS, seed=0, random_stats=True, model=vae,
                                    latent_features=LATENT),
     }
-    launches = {}  # path -> kernel launches in its run
     states = {}
     for model, path in (("ico2ico", "AE serve"), (vae, "VAE serve")):
         build.reset_launches()
@@ -2879,10 +3196,11 @@ def main():
     for model in ("ico2ico", vae):
         kind = "VAE" if model == vae else "AE"
         path, eval_path = f"{kind} train (fit)", f"{kind} serve (eval)"
-        launches[path], launches[eval_path] = fit_phase(model, train_vars[model], dataset,
-                                                        val_dataset, card)
-        check_launches(path, launches[path])
-        check_launches(eval_path, launches[eval_path])
+        explorer_path = f"{kind} serve (explorer)"
+        launches[path], launches[eval_path], launches[explorer_path] = fit_phase(
+            model, train_vars[model], dataset, val_dataset, card)
+        for p in (path, eval_path, explorer_path):
+            check_launches(p, launches[p])
     print(f"[fit] phase ran {time.perf_counter() - t0:.1f} s, the {VAL_MESHES} validation "
           f"meshes' build and the [eval] phase included", flush=True)
 

@@ -10,12 +10,18 @@ patch combination, batched decode) return float32 ``(V, 3)`` vertices.
 Every decode runs the model on ``device``: the card by default (the CUDA
 kernels), the plain versions with ``device="cpu"``.
 
-Not ported here: PCA and nearest neighbours (they need scikit-learn); the
-TPU-specific int16 decode transfer and power-of-two batch bucketing.
+PCA(3) of the latent cache (``fit_pca``: the SVD of the centred float32
+latents, each component's sign as scikit-learn >= 1.5 fixes it, cached on
+disk as ``.npz``), the exact nearest dataset latent by a brute-force
+search over the PCA points, the closest and farthest pairs, and the file
+viewer's ``.off`` / ``.ply`` / ``.npz`` reader (reference app.py:255-279,
+383-409, 998-1050, 1266-1296). The JAX package's int16 decode transfer and
+power-of-two batch buckets (TPU compile reuse) have no counterpart here.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -24,14 +30,15 @@ import torch
 from geniconet_tpu_torch import device as devices
 from geniconet_tpu_torch import native
 from geniconet_tpu_torch.bridge import flax_to_state_dict
-from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_dataset
+from geniconet_tpu_torch.data.datasets import IcoDataset, load_ico_npz, synthetic_dataset
+from geniconet_tpu_torch.data.offio import read_off, read_ply
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.config import Config
 
-__all__ = ["AppState", "checkpoint_for"]
+__all__ = ["AppState", "checkpoint_for", "pca_fit", "pca_transform"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ENCODE_BATCH = 16
@@ -58,16 +65,45 @@ def checkpoint_for(cfg: Config, epoch: int = 0) -> str:
     return ckpt.checkpoint_path(ckpt_dir, name, best, best=True)
 
 
+def pca_fit(flat: np.ndarray, n_components: int = 3) -> dict:
+    """PCA of the rows of ``flat`` (N, D) as scikit-learn's ``PCA`` fits it:
+    the SVD of the centred float32 rows, each component's sign fixed so its
+    largest-magnitude entry is positive (``svd_flip(u_based_decision=
+    False)``, scikit-learn >= 1.5). Returns float32 ``mean`` (D,),
+    ``components`` (k, D) and ``points`` (N, k), the rows' coordinates
+    (``fit_transform``: U·S)."""
+    x = torch.from_numpy(np.ascontiguousarray(flat, np.float32))
+    mean = x.mean(dim=0)
+    u, s, vt = torch.linalg.svd(x - mean, full_matrices=False)
+    k = min(n_components, vt.shape[0])
+    u, s, vt = u[:, :k], s[:k], vt[:k]
+    signs = torch.sign(vt.gather(1, vt.abs().argmax(dim=1, keepdim=True)))
+    return {"mean": mean.numpy(), "components": (vt * signs).numpy(),
+            "points": (u * signs.T * s).numpy().astype(np.float32)}
+
+
+def pca_transform(pca: dict, flat: np.ndarray) -> np.ndarray:
+    """(z - mean) @ components.T of rows ``flat`` (n, D), in float64 (as
+    scikit-learn's ``transform`` runs on float64 input)."""
+    return (np.asarray(flat, np.float64) - pca["mean"]) @ pca["components"].astype(np.float64).T
+
+
 class AppState:
     def __init__(self, device="cuda"):
         self.device = devices.resolve(device)
         self.info = None
         self.instance = "val"
+        self.epoch = None
         self.cfg: Config | None = None
         self.model: IcoAE | IcoVAE | None = None
         self.dataset: IcoDataset | None = None
         self.latents: np.ndarray | None = None  # (N, Hz, Wz, C) float32; the VAE's mu
         self.logvars: np.ndarray | None = None  # the VAE's logvar, else None
+        self.pca: dict | None = None             # pca_fit's mean, components, points
+        self.pca_points: np.ndarray | None = None
+        # directories /api/view_file may read and /api/export write under
+        # (server.py: the loaded log and data directories, --allow_dir)
+        self.allowed_roots: list[str] = []
 
     def load(self, cfg: Config, data_instance: str = "val", epoch: int = 0, *, variables=None,
              phase_chain: str | None = None):
@@ -108,6 +144,7 @@ class AppState:
             self.logvars = np.concatenate([lv for _, lv in encoded])
         else:
             self.latents, self.logvars = np.concatenate(encoded), None
+        self.epoch, self.pca, self.pca_points = epoch, None, None
         self.info = {
             "n": len(self.dataset),
             "names": self.dataset.names,
@@ -195,6 +232,85 @@ class AppState:
         return self.decode_latent(self.latents[i])
 
     # ------------------------------------------------------------------
+    # PCA + nearest neighbour (reference app.py:255-279, 383-409)
+    # ------------------------------------------------------------------
+
+    def fit_pca(self, cache_path: str | None = None):
+        """Fit ``pca_fit`` to the flattened latent cache once, or read the
+        fit from ``cache_path`` (an ``.npz`` of mean, components and points,
+        refit when its point count is not the cache's). The fit is written
+        there where the model's log directory exists (a state loaded from
+        variables in memory may have none)."""
+        if self.pca is not None:
+            return
+        if cache_path and os.path.exists(cache_path):
+            with np.load(cache_path) as f:
+                pca = {k: f[k] for k in ("mean", "components", "points")}
+            if len(pca["points"]) == len(self.latents):
+                self.pca = pca
+        if self.pca is None:
+            self.pca = pca_fit(self.latents.reshape(len(self.latents), -1))
+            if cache_path and os.path.isdir(os.path.dirname(cache_path)):
+                tmp = cache_path + ".tmp.npz"
+                np.savez(tmp, **self.pca)
+                os.replace(tmp, cache_path)
+        self.pca_points = self.pca["points"]
+
+    def _pca_cache_path(self):
+        """The on-disk PCA cache, keyed as the JAX package keys its pickle
+        (checkpoint epoch, data instance, count and a fingerprint of the
+        data directory, synthetic count, quick-learn setting and mesh
+        names), with its own suffix ``.pca.npz``: neither package reads the
+        other's file."""
+        if self.cfg is None:
+            return None
+        h = hashlib.sha1()
+        h.update(self.cfg.data.data_dir.encode())
+        h.update(str(self.cfg.data.synthetic).encode())
+        h.update(str(self.cfg.train.quick_learn).encode())
+        for name in self.dataset.names:
+            h.update(name.encode())
+            h.update(b"\0")
+        return os.path.join(
+            self.cfg.model_log_dir(),
+            f"pca_{self.cfg.model.name}_e{self.epoch}_{self.instance}"
+            f"_n{len(self.dataset)}_{h.hexdigest()[:10]}.pca.npz")
+
+    def pca_scatter(self):
+        self.fit_pca(self._pca_cache_path())
+        return {"points": self.pca_points.tolist(), "classes": self.dataset.classes,
+                "names": self.dataset.names}
+
+    def nearest(self, p3) -> int:
+        """The dataset latent whose PCA point is nearest ``p3`` (3,): an
+        exact brute-force search in float64, the first of equals."""
+        self.fit_pca(self._pca_cache_path())
+        d = ((self.pca_points.astype(np.float64) - np.asarray(p3, np.float64)) ** 2).sum(axis=1)
+        return int(np.argmin(d))
+
+    def latent_nearest(self, z: np.ndarray) -> int:
+        """The dataset latent nearest latent ``z`` in the PCA space."""
+        self.fit_pca(self._pca_cache_path())
+        return self.nearest(pca_transform(self.pca, z.reshape(1, -1))[0])
+
+    def pca_nearest_decode(self, p3: list[float]):
+        """Nearest dataset latent to a 3-D PCA point (taken as float32), decoded."""
+        idx = self.nearest(np.asarray(p3, np.float32))
+        return self.decode_latent(self.latents[idx]), idx
+
+    def closest_pairs(self, k: int = 5, farthest: bool = False):
+        """Top-k closest/farthest PCA pairs (reference app.py:383-409)."""
+        self.fit_pca(self._pca_cache_path())
+        p = self.pca_points
+        d = np.linalg.norm(p[:, None] - p[None, :], axis=-1)
+        iu = np.triu_indices(len(p), 1)
+        order = np.argsort(d[iu])
+        if farthest:
+            order = order[::-1]
+        return [{"i": int(iu[0][t]), "j": int(iu[1][t]), "d": float(d[iu][t])}
+                for t in order[:k]]
+
+    # ------------------------------------------------------------------
     # mesh assembly + colorings
     # ------------------------------------------------------------------
 
@@ -228,3 +344,17 @@ class AppState:
                     0.95, 0.15, 0.1]
             return colors
         return np.tile(np.array([0.62, 0.66, 0.72], np.float32), (V, 1))
+
+    def view_file(self, path: str):
+        """The file viewer (reference app.py:1266-1296): an ``.off`` or
+        ``.ply`` mesh, or an ``.npz`` sample's positions on the loaded
+        level's faces -> (vertices (V, 3), faces (F, 3))."""
+        if path.endswith(".off"):
+            return read_off(path)
+        if path.endswith(".ply"):
+            return read_ply(path)
+        if path.endswith(".npz"):
+            s = self.cfg.model.subdivisions if self.cfg else 5
+            _, target = load_ico_npz(path, s)
+            return target[:, :3], ico.get_ico_faces(s)
+        raise ValueError(f"unsupported file type: {path}")

@@ -8,6 +8,7 @@ the port's module tree mirrors it, so the mapping is by path:
   params/<path>/BatchNorm_0/{scale,bias}     <-> <path>.{scale,bias}
   batch_stats/<path>/BatchNorm_0/{mean,var}  <-> <path>.{mean,var}
   params/decoder/head/{kernel,bias}          <-> decoder.head.{kernel,bias}
+  params/W                                   <-> W  (the debug IcoIdentity)
 
 A BatchNorm is the module named ``bn*`` (the blocks' ``bn00``, ``bn_in``)
 or ``*_bn`` (the VAE's ``mu_bn``, ``logvar_bn``). ``init_variables`` builds

@@ -110,7 +110,7 @@ cudaError_t fwd(const void* const* x, const float* mul, const float* add, const 
     o.bias[1] = static_cast<const T*>(b1);
     o.stats = stats_ws;
     return gn::launch_grid_mma_fwd<gn::SplitGrid, true>(
-        ld, 4, table, o, static_cast<const T*>(w0), static_cast<const T*>(w1),
+        ld, 4, table, 5 * h * w, o, static_cast<const T*>(w0), static_cast<const T*>(w1),
         static_cast<T*>(operand), static_cast<T*>(wpack), zero_poles, B, cout, n_sets, 2, 1,
         stats, stream, {log2i(h), log2i(w)});
   }

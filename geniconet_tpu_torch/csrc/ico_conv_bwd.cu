@@ -1,4 +1,4 @@
-// Standard-layout hex conv, stride 1, backward: dx (input cotangent, with
+// Standard-layout hex conv, stride 1 or 2, backward: dx (input cotangent, with
 // the act adjoint and d_mul/d_add, and optionally the bias gradient Σg) and
 // dtaps (tap cotangents summed over the batch, rounded to the activation
 // dtype), as two kernels (the split route) or as one merged kernel.
@@ -8,7 +8,16 @@
 // VJP of fused_ico_conv_s2s (each DownBlock's conv01), including the
 // BatchNorm stats fold g_eff = g + gs0 + 2*gs1*y; and, as gn_ico_conv_bwd,
 // :_std_bwd (pallas_call at :601, _std_bwd_kernel), the merged one-pass
-// backward of GENICONET_MERGED_BWD's std family (stride 1).
+// backward of GENICONET_MERGED_BWD's std family; at stride 1 and 2.
+//
+// Stride 2 (the Pallas _tap_slice centres P[2r+2, 2q+1], its dx the
+// parity-interleave scatter _conv_transpose_dP) runs the same kernels over
+// the stride-2 tables (halo.std_conv_table, std_dx_table, std_dx_codes with
+// stride 2): g, y and the dtaps rows are the M = 5hw / 4 output cells, dx
+// and the dx GEMM's rows the R = 5hw input cells (DxTables::m_in); the
+// transposed table has no pole and no combined row there (a stride-2 centre
+// never reads a pole, and a cell is read once a tap), and a 128-row tile
+// reads about a third of the taps (its mask byte).
 //
 // Design. The Pallas dx kernel scatters the conv transpose into a padded
 // VMEM buffer and then runs the exact transpose of the ico_pad halo. Blocks
@@ -123,8 +132,8 @@ cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, 
                const float* mul, const float* add, void* out, const int* offsets,
                const int* cells, const float* weights, const gn::DxTables& tb, float* red,
                float* dmul, float* dadd, float* gsum_ws, float* gsum, int B, int h, int w,
-               int cin, int cout, int gsum_rows, cudaStream_t stream) {
-  const int M = 5 * h * w;
+               int cin, int cout, int stride, int gsum_rows, cudaStream_t stream) {
+  const int R = 5 * h * w, M = R / (stride * stride);
   const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
   if constexpr (std::is_same_v<T, float>) {
     gn::DxOut<T> o = {};
@@ -133,9 +142,9 @@ cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, 
     o.mul = mul;
     o.add = add;
     o.red = red;
-    o.per = M;
+    o.per = R;
     cudaError_t err = gn::launch_dx_gemm<T>(gl, taps, nullptr, offsets, cells, weights, o, dmul,
-                                            dadd, B, M, cin, 1, stream);
+                                            dadd, B, R, cin, 1, stream);
     if (err != cudaSuccess || gsum_ws == nullptr) return err;
     return gn::launch_gsum<T>(gl, B, 1, gsum_rows, gsum_ws, gsum, nullptr, stream);
   } else {
@@ -143,7 +152,7 @@ cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, 
     // a sample's M rows fill whole 128-row tiles
     if ((tb.comb.n > 0 && (tb.comb.offsets == nullptr || tb.comb.cells == nullptr ||
                            tb.comb.weights == nullptr)) ||
-        (tb.mask == nullptr) != (M % gn::fwd::BM != 0) ||
+        (tb.mask == nullptr) != (R % gn::fwd::BM != 0) ||
         (mul != nullptr && (raw == nullptr || red == nullptr)))
       return cudaErrorInvalidValue;
     gn::DxRows rows = {};
@@ -164,9 +173,9 @@ cudaError_t dx(const void* g, const void* y, const float* gs, const void* taps, 
 template <typename T>
 cudaError_t dtaps(const void* x, const float* mul, const float* add, const void* g,
                   const void* y, const float* gs, const int* table, float* ws, void* out,
-                  void* operand, int B, int h, int w, int cin, int cout, int kc, int n_chunks,
-                  int zero_poles, cudaStream_t stream) {
-  const int M = 5 * h * w;
+                  void* operand, int B, int h, int w, int cin, int cout, int stride, int kc,
+                  int n_chunks, int zero_poles, cudaStream_t stream) {
+  const int M = 5 * h * w / (stride * stride);
   const gn::GLoad<T> gl = gload<T>(g, y, gs, M, cout);
   const gn::GridLoad<T> ld = std_load<T>(x, mul, add, h, w, cin);
   const CastOut<T> st = {static_cast<T*>(out)};
@@ -189,9 +198,9 @@ cudaError_t merged(const void* x, const float* mul, const float* add, const void
                    const void* y, const float* gs, const void* taps, void* out,
                    const int* offsets, const int* cells, const float* weights, const int* table,
                    float* red, float* dmul, float* dadd, float* ws, void* dtaps, float* gpart,
-                   float* gsum, int B, int h, int w, int cin, int cout, int kc, int n_chunks,
-                   cudaStream_t stream) {
-  const int M = 5 * h * w;
+                   float* gsum, int B, int h, int w, int cin, int cout, int stride, int kc,
+                   int n_chunks, cudaStream_t stream) {
+  const int R = 5 * h * w, M = R / (stride * stride);
   const gn::GLoad<float> gl = gload<float>(g, y, gs, M, cout);
   gn::DxOut<float> o = {};
   o.out[0] = static_cast<float*>(out);
@@ -199,10 +208,10 @@ cudaError_t merged(const void* x, const float* mul, const float* add, const void
   o.mul = mul;
   o.add = add;
   o.red = red;
-  o.per = M;
+  o.per = R;
   const CastOut<float> dt = {static_cast<float*>(dtaps)};
   return gn::launch_merged_bwd<float>(gl, taps, nullptr, offsets, cells, weights, o, dmul, dadd,
-                                      B, M, std_load<float>(x, mul, add, h, w, cin), table, 0, kc,
+                                      B, R, std_load<float>(x, mul, add, h, w, cin), table, 0, kc,
                                       n_chunks, ws, dt, gpart, gsum, nullptr, cin, 1, stream);
 }
 
@@ -221,13 +230,14 @@ cudaError_t merged_mma(const void* x, const float* mul, const float* add,
                        int n_chunks, int gsum_rows, int zero_poles, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   using Tag = gn::MergedStd;
-  const int M = 5 * h * w, cout = gl.cout;
+  const int R = 5 * h * w, M = gl.M, cout = gl.cout;
   // every table and scratch buffer, or no launch: the mask exactly where a
-  // sample's M rows fill whole 128-row tiles
+  // sample's R dx rows fill whole 128-row tiles
   if (tb.codes == nullptr || tb.operand == nullptr || tb.wpack == nullptr || tb.n_in != 1 ||
+      tb.rows(M) != R ||
       (tb.comb.n > 0 && (tb.comb.offsets == nullptr || tb.comb.cells == nullptr ||
                          tb.comb.weights == nullptr)) ||
-      (tb.mask == nullptr) != (M % gn::fwd::BM != 0) || operand == nullptr ||
+      (tb.mask == nullptr) != (R % gn::fwd::BM != 0) || operand == nullptr ||
       gsum_ws == nullptr || (mul != nullptr && red == nullptr) || kc % gn::mma::BK != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = gn::launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, 1, stream);
@@ -239,8 +249,8 @@ cudaError_t merged_mma(const void* x, const float* mul, const float* add,
                                     1, stream);
   if (err != cudaSuccess) return err;
   const bool narrow = gn::mma_narrow(cin);
-  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 1), gl, tb, B,
-                                        cin, 1, 0, 1, narrow, kc, n_chunks, ws);
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 1, R), gl, tb,
+                                        B, cin, 1, 0, 1, narrow, kc, n_chunks, ws);
   gn::DxRows rows = {};
   rows.out[0] = static_cast<bf16*>(out);
   rows.raw[0] = mul ? static_cast<const bf16*>(x) : nullptr;
@@ -276,21 +286,23 @@ cudaError_t merged_mma(const void* x, const float* mul, const float* add,
 
 }  // namespace
 
-// g: (B, 5, h, w, cout) cotangent; y: null (no fold) or the forward output
-// (B, 5, h, w, cout), with gs the (2, cout) float32 stats cotangent; taps:
-// (7, cin, cout); raw: null (no act) or the raw input (B, 5, h, w, cin),
-// with mul/add float32 (cin); out: dx (B, 5, h, w, cin). float32:
-// offsets/cells/weights, halo.std_dx_table; red, with act, float32 scratch
-// of (B * ceil(5hw/64), 2 * cin). bfloat16 (else the call is refused):
-// codes, comb_offsets/comb_cells/comb_weights (n_comb combined rows a
-// sample) and tap_mask (a byte per 128 rows of one sample's 5hw; null
-// exactly where 5hw is not a multiple of 128) from halo.std_dx_codes;
-// operand, scratch of (B * (5hw + n_comb) + 1, cout rounded up to 8);
-// wpack, of (7 * (cout rounded up to 32), cin rounded up to 128); red,
-// with act, float32 scratch of (ceil(B * 5hw / 128), 2 * cin). dmul/dadd
-// receive (cin) each with act; gsum_ws: null, or scratch of (ceil(B * 5hw
-// / gsum_rows), cout), and gsum receives Σg_eff (cout). dtype: 0 float32,
-// 1 bfloat16.
+// The conv's input is (B, 5, h, w, cin), its output (B, 5, h/stride,
+// w/stride, cout) at stride 1 or 2: R = 5hw input cells, M = R / stride^2
+// output cells. g: (B, M, cout) cotangent; y: null (no fold) or the
+// forward output (B, M, cout), with gs the (2, cout) float32 stats
+// cotangent; taps: (7, cin, cout); raw: null (no act) or the raw input
+// (B, R, cin), with mul/add float32 (cin); out: dx (B, R, cin). The tables
+// are halo.std_dx_table / std_dx_codes at that stride. float32:
+// offsets/cells/weights, the CSR; red, with act, float32 scratch of (B *
+// ceil(R/64), 2 * cin). bfloat16 (else the call is refused): codes,
+// comb_offsets/comb_cells/comb_weights (n_comb combined rows a sample) and
+// tap_mask (a byte per 128 rows of one sample's R; null exactly where R is
+// not a multiple of 128); operand, scratch of (B * (M + n_comb) + 1, cout
+// rounded up to 8); wpack, of (7 * (cout rounded up to 32), cin rounded up
+// to 128); red, with act, float32 scratch of (ceil(B * R / 128), 2 * cin).
+// dmul/dadd receive (cin) each with act; gsum_ws: null, or scratch of
+// (ceil(B * M / gsum_rows), cout), and gsum receives Σg_eff (cout). dtype:
+// 0 float32, 1 bfloat16.
 extern "C" int gn_ico_conv_dx(const void* g, const void* y, const float* gs, const void* taps,
                               const void* raw, const float* mul, const float* add, void* out,
                               const int* offsets, const int* cells, const float* weights,
@@ -298,17 +310,19 @@ extern "C" int gn_ico_conv_dx(const void* g, const void* y, const float* gs, con
                               const float* comb_weights, const unsigned char* tap_mask,
                               void* operand, void* wpack, float* red, float* dmul, float* dadd,
                               float* gsum_ws, float* gsum, int B, int h, int w, int cin, int cout,
-                              int n_comb, int gsum_rows, int dtype, void* stream) {
+                              int stride, int n_comb, int gsum_rows, int dtype, void* stream) {
+  if ((stride != 1 && stride != 2) || h % stride != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
                            static_cast<__nv_bfloat16*>(operand),
-                           static_cast<__nv_bfloat16*>(wpack), 1};
+                           static_cast<__nv_bfloat16*>(wpack), 1, 5 * h * w};
   if (dtype == 0)
     return dx<float>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, tb, red, dmul,
-                     dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
+                     dadd, gsum_ws, gsum, B, h, w, cin, cout, stride, gsum_rows, s);
   if (dtype == 1)
     return dx<__nv_bfloat16>(g, y, gs, taps, raw, mul, add, out, offsets, cells, weights, tb,
-                             red, dmul, dadd, gsum_ws, gsum, B, h, w, cin, cout, gsum_rows, s);
+                             red, dmul, dadd, gsum_ws, gsum, B, h, w, cin, cout, stride,
+                             gsum_rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -320,9 +334,10 @@ extern "C" int gn_ico_conv_dx_info(int act, int* out) {
 }
 
 // x: the raw input (B, 5, h, w, cin); mul/add: the act prologue or null;
-// g, y, gs: as in gn_ico_conv_dx; table: halo.std_conv_table; ws: float32
-// scratch of (n_chunks, 7 * cin, cout), the B * 5hw rows split in chunks of
-// kc (float32: a multiple of 16, build.dtaps_split; bfloat16: of 32,
+// g, y, gs, stride: as in gn_ico_conv_dx; table: halo.std_conv_table at
+// that stride; ws: float32 scratch of (n_chunks, 7 * cin, cout), the B * M
+// output rows split in chunks of kc (float32: a multiple of 16,
+// build.dtaps_split; bfloat16: of 32,
 // build.grid_dtaps_split); out: dtaps (7, cin, cout) in the activation
 // dtype; operand: bfloat16 only, scratch of (B * (5hw + 2) + 1, cin rounded
 // up to 8) for the act-applied operand (zero_poles: corner_mode "zeros").
@@ -330,16 +345,17 @@ extern "C" int gn_ico_conv_dx_info(int act, int* out) {
 extern "C" int gn_ico_conv_dtaps(const void* x, const float* mul, const float* add,
                                  const void* g, const void* y, const float* gs, const int* table,
                                  float* ws, void* out, void* operand, int B, int h, int w,
-                                 int cin, int cout, int kc, int n_chunks, int zero_poles,
-                                 int dtype, void* stream) {
-  if (kc % gn::BK != 0) return cudaErrorInvalidValue;
+                                 int cin, int cout, int stride, int kc, int n_chunks,
+                                 int zero_poles, int dtype, void* stream) {
+  if (kc % gn::BK != 0 || (stride != 1 && stride != 2) || h % stride != 0)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dtaps<float>(x, mul, add, g, y, gs, table, ws, out, nullptr, B, h, w, cin, cout, kc,
-                        n_chunks, zero_poles, s);
+    return dtaps<float>(x, mul, add, g, y, gs, table, ws, out, nullptr, B, h, w, cin, cout,
+                        stride, kc, n_chunks, zero_poles, s);
   if (dtype == 1)
     return dtaps<__nv_bfloat16>(x, mul, add, g, y, gs, table, ws, out, operand, B, h, w, cin,
-                                cout, kc, n_chunks, zero_poles, s);
+                                cout, stride, kc, n_chunks, zero_poles, s);
   return cudaErrorInvalidValue;
 }
 
@@ -354,20 +370,20 @@ extern "C" int gn_ico_conv_dtaps_info(int narrow, int fold, int* out) {
   return fold ? gn::mma_dtaps_info<Tag, true>(out) : gn::mma_dtaps_info<Tag, false>(out);
 }
 
-// The merged backward (_std_bwd, stride 1). x: the raw input (B, 5, h, w,
-// cin); mul/add: the act prologue or null (with it, dx is the raw input's
-// cotangent and dmul/dadd receive (cin) each, through red); g, y, gs, taps:
-// as in gn_ico_conv_dx; out: dx (B, 5, h, w, cin); table:
-// halo.std_conv_table; ws: float32 scratch of (n_chunks, 7 * cin, cout),
-// the B * 5hw rows split in chunks of kc; dtaps: (7, cin, cout) in the
-// activation dtype; gsum receives Σg_eff (cout). float32:
-// offsets/cells/weights, halo.std_dx_table; red of (B * ceil(5hw/64), 2 *
+// The merged backward (_std_bwd). x: the raw input (B, 5, h, w, cin);
+// mul/add: the act prologue or null (with it, dx is the raw input's
+// cotangent and dmul/dadd receive (cin) each, through red); g, y, gs, taps,
+// stride: as in gn_ico_conv_dx; out: dx (B, 5, h, w, cin); table:
+// halo.std_conv_table at that stride; ws: float32 scratch of (n_chunks, 7 *
+// cin, cout), the B * M output rows split in chunks of kc; dtaps: (7, cin,
+// cout) in the activation dtype; gsum receives Σg_eff (cout). float32:
+// offsets/cells/weights, halo.std_dx_table; red of (B * ceil(R/64), 2 *
 // cin); kc a multiple of 16 (build.merged_scratch); gpart, float32 scratch
 // of (n_chunks, cout); the bf16 arguments null. bfloat16 (else the call is
 // refused): the bf16 arguments of gn_ico_conv_dx (codes .. tap_mask,
 // operand, wpack, red; n_comb) and of gn_ico_conv_dtaps (grid_operand; kc
 // a multiple of 32, build.grid_dtaps_split; zero_poles); gpart, float32
-// scratch of (ceil(B * 5hw / gsum_rows), cout) for Σg_eff's pass. dtype: 0
+// scratch of (ceil(B * M / gsum_rows), cout) for Σg_eff's pass. dtype: 0
 // float32, 1 bfloat16.
 extern "C" int gn_ico_conv_bwd(const void* x, const float* mul, const float* add, const void* g,
                                const void* y, const float* gs, const void* taps, void* out,
@@ -376,20 +392,22 @@ extern "C" int gn_ico_conv_bwd(const void* x, const float* mul, const float* add
                                const float* comb_weights, const unsigned char* tap_mask,
                                const int* table, float* red, float* dmul, float* dadd, float* ws,
                                void* dtaps, float* gpart, float* gsum, void* operand, void* wpack,
-                               void* grid_operand, int B, int h, int w, int cin, int cout, int kc,
-                               int n_chunks, int n_comb, int gsum_rows, int zero_poles, int dtype,
-                               void* stream) {
+                               void* grid_operand, int B, int h, int w, int cin, int cout,
+                               int stride, int kc, int n_chunks, int n_comb, int gsum_rows,
+                               int zero_poles, int dtype, void* stream) {
+  if ((stride != 1 && stride != 2) || h % stride != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return merged(x, mul, add, g, y, gs, taps, out, offsets, cells, weights, table, red, dmul,
-                  dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, kc, n_chunks, s);
+                  dadd, ws, dtaps, gpart, gsum, B, h, w, cin, cout, stride, kc, n_chunks, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
+  const int R = 5 * h * w;
   const gn::DxTables tb = {codes, {comb_offsets, comb_cells, comb_weights, n_comb}, tap_mask,
-                           static_cast<bf16*>(operand), static_cast<bf16*>(wpack), 1};
-  return merged_mma(x, mul, add, gload<bf16>(g, y, gs, 5 * h * w, cout), taps, out, tb, table,
-                    static_cast<bf16*>(grid_operand), red, dmul, dadd, ws, dtaps, gpart, gsum, B,
-                    h, w, cin, kc, n_chunks, gsum_rows, zero_poles, s);
+                           static_cast<bf16*>(operand), static_cast<bf16*>(wpack), 1, R};
+  return merged_mma(x, mul, add, gload<bf16>(g, y, gs, R / (stride * stride), cout), taps, out,
+                    tb, table, static_cast<bf16*>(grid_operand), red, dmul, dadd, ws, dtaps,
+                    gpart, gsum, B, h, w, cin, kc, n_chunks, gsum_rows, zero_poles, s);
 }
 
 // out[4]: registers a thread, blocks an SM, dynamic shared memory and local

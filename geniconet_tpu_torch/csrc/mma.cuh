@@ -511,7 +511,7 @@ struct MergedStd {};
 struct OperandRows {
   const __nv_bfloat16* rows;
   const int* table;  // (4, 7, M) halo.phase_conv_table, or (7, M) halo.std_conv_table
-  int M, ldk, per_b, zero_row;
+  int M, ldk, per_b, zero_row;  // M: the table's cells a phase (the GEMM's rows a slot)
 
   __device__ __forceinline__ int code(int p, int t, int m) const {
     return __ldg(&table[(p * 7 + t) * M + m]);
@@ -526,16 +526,18 @@ struct OperandRows {
   }
 };
 
-// The operand's row loader over `operand`: per sample n_src * M cells and
-// 2 pole rows, then the zero row.
+// The operand's row loader over `operand`: per sample the n_src * hw5 cells
+// of its sources and 2 pole rows, then the zero row; the table names M
+// output cells a phase. hw5 = M but for the standard conv at stride 2, whose
+// one (5, h, w) input grid has 4 M cells.
 inline OperandRows operand_rows(const __nv_bfloat16* operand, const int* table, int B, int M,
-                                int cin, int n_src) {
+                                int cin, int n_src, int hw5) {
   OperandRows ld;
   ld.rows = operand;
   ld.table = table;
   ld.M = M;
   ld.ldk = operand_width(cin);
-  ld.per_b = operand_per_sample(M, n_src);
+  ld.per_b = operand_per_sample(hw5, n_src);
   ld.zero_row = B * ld.per_b;
   return ld;
 }

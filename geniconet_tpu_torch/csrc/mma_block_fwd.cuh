@@ -63,7 +63,7 @@ inline MmaPass mma_pass(const __nv_bfloat16* operand, const int* table, int B, i
                         const FwdOut& o, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                         __nv_bfloat16* wpack) {
   MmaPass p;
-  p.rows = operand_rows(operand, table, B, M, cin, n_src);
+  p.rows = operand_rows(operand, table, B, M, cin, n_src, M);
   p.epi = {o, cout, n_sets};
   p.w0 = w0;
   p.w1 = w1;

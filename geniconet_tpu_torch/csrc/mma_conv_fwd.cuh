@@ -706,7 +706,8 @@ cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const Fw
   if (operand == nullptr || wpack == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
   if (err != cudaSuccess) return err;
-  return launch_mma_fwd_rows<Cells>(operand_rows(operand, conv_table, B, up.hw5, up.cin, 4), o,
+  return launch_mma_fwd_rows<Cells>(operand_rows(operand, conv_table, B, up.hw5, up.cin, 4, up.hw5),
+                                    o,
                                     w0, w1, wpack, B, up.cin, cout, n_sets, 0, 4, stats, stream);
 }
 
@@ -716,10 +717,11 @@ cudaError_t launch_mma_conv_fwd(const UpLoad<__nv_bfloat16, Cells>& up, const Fw
 // the phase conv at output phase 2, SPLIT, stored into the parity phases of
 // the `split` grid): the act-applied operand written once into `operand`
 // ((B * (n_src * 5hw + 2) + 1, operand_width(cin))), then
-// launch_mma_fwd_rows.
+// launch_mma_fwd_rows over the table's M output cells a phase (5hw, or
+// 5hw / 4 for the standard conv at stride 2).
 template <typename Tag, bool SPLIT = false>
 cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, const int* table,
-                                const FwdOut& o, const __nv_bfloat16* w0,
+                                int M, const FwdOut& o, const __nv_bfloat16* w0,
                                 const __nv_bfloat16* w1, __nv_bfloat16* operand,
                                 __nv_bfloat16* wpack, int zero_poles, int B, int cout,
                                 int n_sets, int out_phase0, int n_out, float* const* stats,
@@ -729,22 +731,23 @@ cudaError_t launch_grid_mma_fwd(const GridLoad<__nv_bfloat16>& src, int n_src, c
   cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
                                                             stream);
   if (err != cudaSuccess) return err;
-  return launch_mma_fwd_rows<Tag, SPLIT>(operand_rows(operand, table, B, src.hw5, src.cin, n_src),
-                                         o, w0, w1, wpack, B, src.cin, cout, n_sets, out_phase0,
-                                         n_out, stats, stream, split);
+  return launch_mma_fwd_rows<Tag, SPLIT>(
+      operand_rows(operand, table, B, M, src.cin, n_src, src.hw5), o, w0, w1, wpack, B, src.cin,
+      cout, n_sets, out_phase0, n_out, stats, stream, split);
 }
 
 // The dx GEMMs' operand rows (a, c, f): the cotangent operand that
 // cot_operand_pass wrote (mma.cuh; per sample n_out * M cotangent rows,
 // then n_comb combined rows; the zero row after the last sample), named by
-// the (n_in, 7, M) code table of halo.phase_dx_codes (4 input phases) or
-// halo.std_dx_codes (the one grid), which holds no pole code.
+// the (n_in, 7, m_in) code table of halo.phase_dx_codes (4 input phases,
+// m_in = M) or halo.std_dx_codes (the one grid: m_in = M at stride 1, 4 M
+// at stride 2), which holds no pole code.
 inline OperandRows cot_rows(const __nv_bfloat16* operand, const int* codes, int B, int M,
-                            int ntot, int n_out, int n_comb) {
+                            int ntot, int n_out, int n_comb, int m_in) {
   OperandRows ld;
   ld.rows = operand;
   ld.table = codes;
-  ld.M = M;
+  ld.M = m_in;
   ld.ldk = operand_width(ntot);
   ld.per_b = n_out * M + n_comb;
   ld.zero_row = B * ld.per_b;
@@ -765,7 +768,7 @@ cudaError_t launch_pack_taps_t(const __nv_bfloat16* w0, const __nv_bfloat16* w1,
   return cudaGetLastError();
 }
 
-// The dx GEMM of a, c and f over the B * n_in * M rows of the n_in input
+// The dx GEMM of a, c and f over the B * n_in * ld.M rows of the n_in input
 // phases (slots from 0: the phase conv's and the up conv's 4, the standard
 // conv's one grid), with the epilogue Epi: the tap sets packed transposed
 // into `wpack` ((7 * k_pad(n_sets * cout), n_pad(cin))), then mma_conv
@@ -792,7 +795,9 @@ cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv
 // The bf16 dx tables and scratch of a and c (halo.phase_dx_codes, n_in =
 // 4 input phases) and of f (halo.std_dx_codes, n_in = 1): the code table,
 // the combined rows, the row tiles' tap masks (null: every tap), the
-// cotangent operand and the transposed taps.
+// cotangent operand and the transposed taps. m_in: the cells of one input
+// phase, the dx GEMM's rows a slot; 0 where they are the cotangent's M
+// (every conv but the standard conv at stride 2, whose input grid has 4 M).
 struct DxTables {
   const int* codes;
   CombRows comb;
@@ -800,6 +805,8 @@ struct DxTables {
   __nv_bfloat16* operand;
   __nv_bfloat16* wpack;
   int n_in;
+  int m_in;
+  int rows(int M) const { return m_in ? m_in : M; }
 };
 
 // The bf16 dx of a, c, f and m: the cotangent operand of gl written once
@@ -816,8 +823,8 @@ cudaError_t launch_cot_dx(const GLoad<__nv_bfloat16, SPLIT>& gl, const DxTables&
     return cudaErrorInvalidValue;
   cudaError_t err = launch_cot_operand<Tag>(gl, tb.comb, tb.operand, B, n_sets, stream);
   if (err != cudaSuccess) return err;
-  const OperandRows ld =
-      cot_rows(tb.operand, tb.codes, B, gl.M, n_sets * gl.cout, gl.n_out, tb.comb.n);
+  const OperandRows ld = cot_rows(tb.operand, tb.codes, B, gl.M, n_sets * gl.cout, gl.n_out,
+                                  tb.comb.n, tb.rows(gl.M));
   err = launch_mma_dx_rows<Tag>(ld, epi, w0, w1, tb.wpack, tb.mask, B, cin, gl.cout, n_sets,
                                 tb.n_in, stream);
   if (err != cudaSuccess || gsum_ws == nullptr) return err;
@@ -844,8 +851,8 @@ cudaError_t launch_grid_cot_dx(const GLoad<__nv_bfloat16, SPLIT>& gl, const DxTa
                                     B, cin, n_sets, gsum_rows, stream);
   if (err != cudaSuccess || rows.mul == nullptr) return err;
   const SplitOut st = {{dmul, dadd}, 2 * cin, cin};
-  return launch_sum_rows(rows.red, fwd_row_tiles((long long)B * tb.n_in * gl.M), 2LL * cin, st,
-                         stream);
+  return launch_sum_rows(rows.red, fwd_row_tiles((long long)B * tb.n_in * tb.rows(gl.M)),
+                         2LL * cin, st, stream);
 }
 
 // Registers a thread, blocks an SM, dynamic shared memory and local memory

@@ -536,7 +536,7 @@ cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
   if (kc % mma::BK != 0 || operand == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = launch_up_operand(up, operand, joined, B, zero_poles, stream);
   if (err != cudaSuccess) return err;
-  const OperandRows ld = operand_rows(operand, conv_table, B, gl.M, cin, 4);
+  const OperandRows ld = operand_rows(operand, conv_table, B, gl.M, cin, 4, gl.M);
   err = launch_mma_dtaps_rows<Cells, false>(ld, gl, mma::DirectRows{{4}}, B, cin, n_sets, 0, 4,
                                             kc, n_chunks, ws, stream);
   if (err != cudaSuccess) return err;
@@ -549,7 +549,8 @@ cudaError_t launch_mma_dtaps(const UpLoad<__nv_bfloat16, Cells>& up,
 
 // bf16 dtaps of a grid conv (b: the phase conv, n_src = 4 phases in ld.src,
 // table halo.phase_conv_table, output phases out_phase0 .. +n_out-1; f: the
-// standard conv, n_src = 1, halo.std_conv_table, out_phase0 0, n_out 1; m:
+// standard conv, n_src = 1, halo.std_conv_table (of stride 1 or 2: gl.M
+// output cells, src.hw5 input cells), out_phase0 0, n_out 1; m:
 // b's at output phase 2, G's rows by SplitRows): the act-applied operand
 // written once into `operand` ((B * (n_src * 5hw + 2) + 1,
 // operand_width(cin)) bf16), the GEMM over its gathered rows (NARROW at
@@ -568,7 +569,7 @@ cudaError_t launch_grid_mma_dtaps(const GridLoad<__nv_bfloat16>& src, int n_src,
   cudaError_t err = launch_grid_operand<__nv_bfloat16, Tag>(src, operand, B, n_src, zero_poles,
                                                             stream);
   if (err != cudaSuccess) return err;
-  const OperandRows ld = operand_rows(operand, table, B, gl.M, cin, n_src);
+  const OperandRows ld = operand_rows(operand, table, B, gl.M, cin, n_src, src.hw5);
   err = mma_narrow(cin) ? launch_mma_dtaps_rows<Tag, true>(ld, gl, gr, B, cin, n_sets, out_phase0,
                                                            n_out, kc, n_chunks, ws, stream)
                         : launch_mma_dtaps_rows<Tag, false>(ld, gl, gr, B, cin, n_sets,

@@ -26,10 +26,10 @@ namespace gn {
 
 // One launch's operands and shapes: the dtaps over Qt rows of n_out output
 // phase slots from out_phase0 (the operand rows x, the written cotangent
-// gr, chunks of kc rows into ws), the dx over Qx = B * n_in * M rows of the
+// gr, chunks of kc rows into ws), the dx over Qx = B * n_in * m_in rows of the
 // n_in input phases (the written cotangent's rows cot named by the code
 // table, the taps packed transposed in wpack, the row tiles' tap masks, a
-// byte per 128 rows of a sample's n_in * M), and the tile counts.
+// byte per 128 rows of a sample's n_in * m_in), and the tile counts.
 struct MmaBwd {
   OperandRows x, cot;
   GLoad<__nv_bfloat16> gl;
@@ -82,7 +82,7 @@ inline MmaBwd mma_bwd_args(const OperandRows& x, const GLoad<__nv_bfloat16>& gl,
   const int M = gl.M, Ntot = n_sets * gl.cout;
   MmaBwd a;
   a.x = x;
-  a.cot = cot_rows(tb.operand, tb.codes, B, M, Ntot, n_out, tb.comb.n);
+  a.cot = cot_rows(tb.operand, tb.codes, B, M, Ntot, n_out, tb.comb.n, tb.rows(M));
   a.gl = gl;
   a.gr = {tb.operand, a.cot.per_b, a.cot.ldk};
   a.cin = cin;
@@ -96,7 +96,7 @@ inline MmaBwd mma_bwd_args(const OperandRows& x, const GLoad<__nv_bfloat16>& gl,
   a.wpack = tb.wpack;
   a.mask = tb.mask;
   a.n_in = tb.n_in;
-  a.Qx = B * tb.n_in * M;
+  a.Qx = B * tb.n_in * a.cot.M;
   a.Np = fwd::n_pad(cin);
   a.ksteps = fwd::k_pad(Ntot) / fwd::BK;
   const dim3 tiles = mma_dtaps_tiles(narrow, cin, Ntot);

@@ -2,7 +2,8 @@
 // (4 parity phases of a level-s grid in; 1 or 2 tap sets; either all 4
 // output phases, stride 1, or output phase 2 alone, stride 2, which is the
 // standard level-(s-1) grid) and the standard-layout hex conv at stride 1
-// (a (B, 5, h, w, C_in) grid in, (B, 5, h, w, C_out) out), each with an
+// or 2 (a (B, 5, h, w, C_in) grid in, (B, 5, h/stride, w/stride, C_out)
+// out), each with an
 // optional relu(x*mul + add) prologue and optional BatchNorm [sum, sumsq]
 // stats of the downcast outputs (block partials, then a fixed-order second
 // pass, so the sums are deterministic).
@@ -11,14 +12,20 @@
 // (kernel body _pc_fwd_kernel), as called by fused_phase_conv_s1 and
 // fused_dual_s2_conv, and geniconet_tpu/ops/pallas/conv_kernel.py:
 // _pallas_forward (kernel body _kernel), as called by fused_ico_conv_s2s
-// (each DownBlock's conv01 through IcoConvS2S), stride 1.
+// (each DownBlock's conv01 through IcoConvS2S), at stride 1 and 2.
 //
 // Design. The Pallas kernels built the padded grids (the phase pad, ico_pad)
 // in VMEM; here the halo is resolved through an int32 table over the
 // unpadded sources (halo.phase_conv_table, halo.std_conv_table: a cell of a
 // source, a pole mean, or zero), with the act prologue and the pole means
 // applied as GridLoad (common.cuh) gives them. The standard conv is the
-// phase conv's GEMM over one source and one table.
+// phase conv's GEMM over one source and one table. At stride 2 its table
+// (halo.std_conv_table, stride 2: the Pallas _tap_slice centres
+// P[2r+2, 2q+1]) names M = 5hw / 4 output cells, each reading the one
+// (5, h, w) grid: the GEMM's rows are the output cells, its operand the
+// input grid's 5hw cells and two poles, so only the row count changes. It
+// is the same function as the phase conv at output phase 2 on the grid's
+// parity phases (the two tables name the same cells; PERF.md).
 // - float32: the SIMT implicit GEMM gn::conv_gemm over GridLoad, each
 //   operand element gathered on load; bound by the float32 FMA rate of the
 //   CUDA cores (2 * 7 * C_in FLOPs per output value against a few bytes in
@@ -49,12 +56,14 @@ gn::GridLoad<T> grid_load(const void* const* x, int n_src, const float* mul, con
   return ld;
 }
 
+// M: the output cells a phase (5hw, or 5hw / 4 for the standard conv at
+// stride 2) over (h, w) sources.
 template <typename T, typename Tag>
 cudaError_t run(const void* const* x, int n_src, const float* mul, const float* add,
                 const void* w0, const void* b0, const void* w1, const void* b1,
                 void* const* outs, const int* table, float* stats_ws, float* const* stats,
                 void* operand, void* wpack, int zero_poles, int B, int h, int w, int cin,
-                int cout, int n_sets, int out_phase0, int n_out, cudaStream_t stream) {
+                int cout, int M, int n_sets, int out_phase0, int n_out, cudaStream_t stream) {
   const gn::GridLoad<T> ld = grid_load<T>(x, n_src, mul, add, h, w, cin);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     gn::FwdOut o = {};
@@ -63,7 +72,7 @@ cudaError_t run(const void* const* x, int n_src, const float* mul, const float* 
     o.bias[0] = static_cast<const T*>(b0);
     o.bias[1] = static_cast<const T*>(b1);
     o.stats = stats_ws;
-    return gn::launch_grid_mma_fwd<Tag>(ld, n_src, table, o, static_cast<const T*>(w0),
+    return gn::launch_grid_mma_fwd<Tag>(ld, n_src, table, M, o, static_cast<const T*>(w0),
                                         static_cast<const T*>(w1), static_cast<T*>(operand),
                                         static_cast<T*>(wpack), zero_poles, B, cout, n_sets,
                                         out_phase0, n_out, stats, stream);
@@ -75,8 +84,8 @@ cudaError_t run(const void* const* x, int n_src, const float* mul, const float* 
     co.bias[0] = static_cast<const T*>(b0);
     co.bias[1] = static_cast<const T*>(b1);
     co.stats = stats_ws;
-    return gn::launch_conv_gemm<T>(ld, co, table, B, 5 * h * w, cin, cout, n_sets, out_phase0,
-                                   n_out, stats, stream);
+    return gn::launch_conv_gemm<T>(ld, co, table, B, M, cin, cout, n_sets, out_phase0, n_out,
+                                   stats, stream);
   }
 }
 
@@ -84,17 +93,17 @@ template <typename Tag>
 int grid_fwd(const void* const* x, int n_src, const float* mul, const float* add, const void* w0,
              const void* b0, const void* w1, const void* b1, void* const* outs, const int* table,
              float* stats_ws, float* const* stats, void* operand, void* wpack, int zero_poles,
-             int B, int h, int w, int cin, int cout, int n_sets, int out_phase0, int n_out,
+             int B, int h, int w, int cin, int cout, int M, int n_sets, int out_phase0, int n_out,
              int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float, Tag>(x, n_src, mul, add, w0, b0, w1, b1, outs, table, stats_ws, stats,
-                           nullptr, nullptr, zero_poles, B, h, w, cin, cout, n_sets, out_phase0,
-                           n_out, s);
+                           nullptr, nullptr, zero_poles, B, h, w, cin, cout, M, n_sets,
+                           out_phase0, n_out, s);
   if (dtype == 1)
     return run<__nv_bfloat16, Tag>(x, n_src, mul, add, w0, b0, w1, b1, outs, table, stats_ws,
-                                   stats, operand, wpack, zero_poles, B, h, w, cin, cout, n_sets,
-                                   out_phase0, n_out, s);
+                                   stats, operand, wpack, zero_poles, B, h, w, cin, cout, M,
+                                   n_sets, out_phase0, n_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -135,29 +144,31 @@ extern "C" int gn_phase_conv_fwd(const void* x0, const void* x1, const void* x2,
   const void* x[4] = {x0, x1, x2, x3};
   float* stats[2] = {st0, st1};
   return grid_fwd<gn::PhaseGrid>(x, 4, act_mul, act_add, w0, b0, w1, b1, outs, table, stats_ws,
-                                 stats, operand, wpack, zero_poles, B, h, w, cin, cout, n_sets,
-                                 out_phase0, n_out, dtype, stream);
+                                 stats, operand, wpack, zero_poles, B, h, w, cin, cout, 5 * h * w,
+                                 n_sets, out_phase0, n_out, dtype, stream);
 }
 
 // x: (B, 5, h, w, cin); act_mul/act_add: float32 (cin) or null; taps:
-// (7, cin, cout); bias: (cout) or null; out: (B, 5, h, w, cout); table:
-// int32 (7, 5*h*w) from halo.std_conv_table; stats_ws: null (no stats) or
-// float32 scratch of the block partials, (B * ceil(5hw/64), 2 * cout) in
-// float32, (ceil(B * 5hw / 128), 2 * cout) in bfloat16, and then st0
-// receives the (2, cout) [sum, sumsq]. bfloat16 only: operand, scratch of
-// (B * (5hw + 2) + 1, cin rounded up to 8), and wpack, as in
+// (7, cin, cout); bias: (cout) or null; stride: 1 or 2, and M = 5hw /
+// stride^2 output cells; out: (B, 5, h/stride, w/stride, cout); table:
+// int32 (7, M) from halo.std_conv_table at that stride; stats_ws: null (no
+// stats) or float32 scratch of the block partials, (B * ceil(M/64), 2 *
+// cout) in float32, (ceil(B * M / 128), 2 * cout) in bfloat16, and then
+// st0 receives the (2, cout) [sum, sumsq]. bfloat16 only: operand, scratch
+// of (B * (5hw + 2) + 1, cin rounded up to 8), and wpack, as in
 // gn_phase_conv_fwd. dtype: 0 float32, 1 bfloat16.
 extern "C" int gn_ico_conv_fwd(const void* x, const float* act_mul, const float* act_add,
                                const void* taps, const void* bias, void* out, const int* table,
                                float* stats_ws, float* st0, void* operand, void* wpack, int B,
-                               int h, int w, int cin, int cout, int zero_poles, int dtype,
-                               void* stream) {
+                               int h, int w, int cin, int cout, int stride, int zero_poles,
+                               int dtype, void* stream) {
+  if ((stride != 1 && stride != 2) || h % stride != 0) return cudaErrorInvalidValue;
   const void* src[4] = {x, x, x, x};
   void* outs[1] = {out};
   float* stats[2] = {st0, nullptr};
   return grid_fwd<gn::StdGrid>(src, 1, act_mul, act_add, taps, bias, nullptr, nullptr, outs,
                                table, stats_ws, stats, operand, wpack, zero_poles, B, h, w, cin,
-                               cout, 1, 0, 1, dtype, stream);
+                               cout, 5 * h * w / (stride * stride), 1, 0, 1, dtype, stream);
 }
 
 // out[4]: registers a thread, blocks an SM, dynamic shared memory and local

@@ -210,7 +210,7 @@ cudaError_t merged_mma(const void* const* x, const float* mul, const float* add,
                                     tb.wpack, cin, cout, n_sets, stream);
   if (err != cudaSuccess) return err;
   const bool narrow = gn::mma_narrow(cin);
-  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 4), gl, tb, B,
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(operand, table, B, M, cin, 4, M), gl, tb, B,
                                         cin, n_sets, out_phase0, n_out, narrow, kc, n_chunks, ws);
   gn::DxRows rows = {};
   for (int p = 0; p < 4; ++p) {

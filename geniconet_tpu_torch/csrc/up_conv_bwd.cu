@@ -203,7 +203,7 @@ cudaError_t merged_mma(const void* x, const gn::GLoad<__nv_bfloat16>& gl, const 
                                     tb.wpack, cin, cout, n_sets, stream);
   if (err != cudaSuccess) return err;
   // d's tiles always wide, as d's split route takes them
-  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(up_operand, conv_table, B, M, cin, 4), gl,
+  const gn::MmaBwd a = gn::mma_bwd_args(gn::operand_rows(up_operand, conv_table, B, M, cin, 4, M), gl,
                                         tb, B, cin, n_sets, 0, 4, false, kc, n_chunks, ws);
   err = gn::launch_mma_bwd<Tag, false>(a, gn::DuEpi{adj.du, cin}, stream);
   if (err != cudaSuccess) return err;

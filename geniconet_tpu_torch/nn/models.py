@@ -2,7 +2,7 @@
 eval and train mode.
 
 Port of ``geniconet_tpu/nn/models.py`` (``_Encoder``, ``_Decoder``,
-``_Head``, ``IcoAE``, ``IcoVAE``, ``reparameterize``):
+``_Head``, ``IcoAE``, ``IcoVAE``, ``IcoIdentity``, ``reparameterize``):
 
   IcoAE encoder: conv_in (3 -> w0) ; bn_in ; Down(w0 -> w1) ;
                  Down(w1 -> w2) ; Down(w2 -> w2)
@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.layers import (
     DownBlock, IcoBatchNorm, IcoConvS2S, UpBlock, merged_bwd_enabled, pallas_block_enabled,
     phase_chain_enabled, residual_join,
@@ -58,7 +59,7 @@ from geniconet_tpu_torch.ops.kernels.fused import (
 )
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
-__all__ = ["IcoAE", "IcoVAE", "reparameterize"]
+__all__ = ["IcoAE", "IcoVAE", "IcoIdentity", "reparameterize"]
 
 
 def _check_phase_chain(phase_chain):
@@ -226,6 +227,23 @@ class IcoAE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.decode(self.encode(x, train), train)
+
+
+class IcoIdentity(nn.Module):
+    """Debug model (the JAX ``IcoIdentity``; reference ``Identity``,
+    models.py:64-73): the output is the input, plus a parameter ``W`` that
+    contributes zero and gets a zero gradient, so a training loop's gradient
+    machinery can run on a known identity. ``W`` has the grid's shape (1,
+    5·2^s, 2^(s+1), 3), N(0, 1) at construction; the JAX module shapes it
+    from its first input, the same grid."""
+
+    def __init__(self, subdivisions: int = 5, device=None):
+        super().__init__()
+        self.subdivisions = subdivisions
+        self.W = nn.Parameter(torch.randn(1, *ico.grid_shape(subdivisions), 3, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return x + (self.W - self.W)  # zero contribution, zero gradient
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, generator=None) -> torch.Tensor:

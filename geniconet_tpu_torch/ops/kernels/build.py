@@ -127,11 +127,11 @@ _SIGNATURES = {
     "gn_pair_head_bwd": [_VP] * 16 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_fwd": [_VP] * 11 + [_INT] * 6 + [_VP],
     "gn_pair_head_mse_bwd": [_VP] * 19 + [_INT] * 6 + [_VP],
-    "gn_ico_conv_fwd": [_VP] * 11 + [_INT] * 7 + [_VP],
+    "gn_ico_conv_fwd": [_VP] * 11 + [_INT] * 8 + [_VP],
     "gn_ico_conv_fwd_info": [_INT, _VP],
-    "gn_ico_conv_dx": [_VP] * 23 + [_INT] * 8 + [_VP],
+    "gn_ico_conv_dx": [_VP] * 23 + [_INT] * 9 + [_VP],
     "gn_ico_conv_dx_info": [_INT, _VP],
-    "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 9 + [_VP],
+    "gn_ico_conv_dtaps": [_VP] * 10 + [_INT] * 10 + [_VP],
     "gn_ico_conv_dtaps_info": [_INT, _INT, _VP],
     "gn_phase_conv_dx": [_VP] * 26 + [_INT] * 10 + [_VP],
     "gn_phase_conv_dx_info": [_INT, _VP],
@@ -147,7 +147,7 @@ _SIGNATURES = {
     "gn_phase_conv_bwd_info": [_INT, _INT, _VP],
     "gn_up_dual_conv_bwd": [_VP] * 31 + [_INT] * 12 + [_VP],
     "gn_up_dual_conv_bwd_info": [_VP],
-    "gn_ico_conv_bwd": [_VP] * 27 + [_INT] * 11 + [_VP],
+    "gn_ico_conv_bwd": [_VP] * 27 + [_INT] * 12 + [_VP],
     "gn_ico_conv_bwd_info": [_INT, _INT, _VP],
     "gn_ds2s_fwd": [_VP] * 17 + [_INT] * 8 + [_VP],
     "gn_ds2s_fwd_info": [_INT, _VP],

@@ -15,7 +15,7 @@ Port of the custom VJPs of ``geniconet_tpu/ops/pallas/phase_kernel.py`` and
   (the decoder's phase chain): ``up_pair_fwd`` + ``up_pair_dx`` /
   ``up_pair_dtaps``;
 * ``fused_ico_conv_s2s``  (``_fic``): the standard-layout conv, stride 1
-  (a DownBlock's conv01): ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
+  (a DownBlock's conv01) or 2: ``ico_conv_s2s_fwd`` + ``ico_conv_s2s_dx`` /
   ``ico_conv_s2s_dtaps``;
 * ``fused_up_block`` (``_upblk``) and ``fused_down_block`` (``_dnblk``): a
   whole UpBlock's or DownBlock's training forward in one launch (kernels
@@ -416,25 +416,27 @@ class _IcoConv(torch.autograd.Function):
     Outputs: y, then its stats when with_stats."""
 
     @staticmethod
-    def forward(ctx, corner_mode, with_stats, merged_bwd, fold, x, taps, bias, mul, add):
+    def forward(ctx, corner_mode, with_stats, merged_bwd, fold, stride, x, taps, bias, mul,
+                add):
         act = None if mul is None else (mul, add)
-        r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats)
+        r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats, stride=stride)
         y = r[0] if with_stats else r
-        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, bias is not None)
+        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, stride, bias is not None)
         ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
         return r
 
     @staticmethod
     def backward(ctx, gy, gst=None):
-        corner_mode, with_stats, merged_bwd, fold, has_bias = ctx.settings
+        corner_mode, with_stats, merged_bwd, fold, stride, has_bias = ctx.settings
         x, taps, mul, add, y = ctx.saved_tensors
         act = None if mul is None else (mul, add)
         dx, dtaps, dbias, dmul, dadd = _std_bwd(corner_mode, with_stats, merged_bwd, fold,
-                                                has_bias, x, taps, act, y, gy, gst)
-        return None, None, None, None, dx, dtaps, dbias, dmul, dadd
+                                                has_bias, x, taps, act, y, gy, gst, stride)
+        return None, None, None, None, None, dx, dtaps, dbias, dmul, dadd
 
 
-def _std_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, act, y, gy, gst):
+def _std_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, act, y, gy, gst,
+             stride=1):
     """The standard conv's backward (JAX's ``conv_kernel._bwd``, the
     ``std`` family): the forward's raw x, taps, act, output y and the
     cotangents of y and its stats -> (dx, dtaps, dbias, d_mul, d_add)."""
@@ -445,19 +447,20 @@ def _std_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, act, 
         (gy,) = stats_geff((gy,), (y,), gst.float().contiguous())
     if merged_bwd:
         dx, dtaps, gsum, dmul, dadd = ico_conv_s2s_bwd(
-            x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype)
+            x, gy, taps, fk.get("y"), fk.get("gs"), corner_mode, act, with_stats, x.dtype,
+            stride=stride)
     else:
         dx, dmul, dadd, gsum = ico_conv_s2s_dx(gy, taps, corner_mode, x.dtype, act, x,
-                                               emit_gsum=has_bias, **fk)
-        dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, **fk)
+                                               emit_gsum=has_bias, stride=stride, **fk)
+        dtaps = ico_conv_s2s_dtaps(x, gy, corner_mode, act, stride=stride, **fk)
     return dx, dtaps, gsum.to(taps.dtype) if has_bias else None, dmul, dadd
 
 
 def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", stride=1, act=None,
                        with_stats=False, merged_bwd: bool = False,
                        kernel_geff: str | None = None):
-    """Standard-layout hex conv (B, 5, h, w, C_in) -> (B, 5, h, w, C_out),
-    stride 1, with its hand-written backward.
+    """Standard-layout hex conv (B, 5, h, w, C_in) -> (B, 5, h/stride,
+    w/stride, C_out), stride 1 or 2, with its hand-written backward.
 
     bias may be None; act: optional float32 (mul, add) (C_in,) BN-apply +
     ReLU prologue; with_stats: also return the (2, C_out) float32 [Σy, Σy²],
@@ -465,15 +468,17 @@ def fused_ico_conv_s2s(x, taps, bias, subdivisions, corner_mode="average", strid
     adjoint and d_mul, d_add), dtaps rounded to x's dtype, and the bias
     gradient Σg_eff; with ``merged_bwd`` all from one merged kernel.
     kernel_geff: where the stats fold runs (family ``std``, which, as in
-    JAX, has no ``fold_ok``). Stride 2 runs in phase form
-    (``fused_dual_s2_conv``). ``subdivisions`` keeps the JAX signature; the
-    kernels take the level from x's shape."""
-    if stride != 1:
-        raise ValueError("fused_ico_conv_s2s: stride 1 only; stride 2 is fused_dual_s2_conv")
+    JAX, has no ``fold_ok``). Stride 2 takes the centres of the Pallas
+    ``_tap_slice`` (the same kernels over the stride-2 tables); the model
+    routes it, as JAX does, to the plain shared-pad conv, and its DownBlocks
+    to the phase form (``fused_dual_s2_conv``). ``subdivisions`` keeps the
+    JAX signature; the kernels take the level from x's shape."""
+    if stride not in (1, 2):
+        raise ValueError(f"fused_ico_conv_s2s: stride must be 1 or 2, got {stride}")
     mul, add = act if act is not None else (None, None)
     fold = kernel_geff_enabled("std", kernel_geff)
-    return _IcoConv.apply(corner_mode, with_stats, merged_bwd, fold, x.contiguous(), taps, bias,
-                          mul, add)
+    return _IcoConv.apply(corner_mode, with_stats, merged_bwd, fold, stride, x.contiguous(), taps,
+                          bias, mul, add)
 
 
 def _affine_vjp(stats, count, gamma, beta, eps, dmul, dadd):

@@ -37,6 +37,11 @@ def _check_mode(corner_mode):
         raise ValueError(f"unknown corner_mode {corner_mode!r}")
 
 
+def _check_stride(stride):
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+
+
 def _ids(n: int, h: int, w: int, first: int = 0) -> torch.Tensor:
     """(1, n, h, w, 1) float64 ids first+1 .. first+n·h·w (0 is left for ZERO)."""
     ids = torch.arange(first + 1, first + n * h * w + 1, dtype=torch.float64)
@@ -71,16 +76,24 @@ def _ico_pad_codes(h: int, w: int, corner_mode: str) -> np.ndarray:
     return P
 
 
-def std_conv_table(h: int, w: int, corner_mode: str) -> np.ndarray:
-    """(7, 5·h·w) int32: for tap t and output cell (chart, i, j) of the
-    stride-1 standard-layout conv, the source cell ``chart·hw + i'·w + j'``
-    of the (5, h, w) input grid, or a code."""
+def std_conv_table(h: int, w: int, corner_mode: str, stride: int = 1) -> np.ndarray:
+    """(7, 5·h'·w') int32: for tap t and output cell (chart, i, j) of the
+    standard-layout conv over a (5, h, w) input grid, the source cell
+    ``chart·hw + i'·w + j'`` of that grid, or a code. Stride 1: h' = h,
+    w' = w, the windows ``P[1+di : 1+di+h, 1+dj : 1+dj+w]`` of the padded
+    grid; stride 2: h' = h/2, w' = w/2, the centres ``P[2r+2, 2q+1]``, rows
+    ``(2+di)::2`` and columns ``(1+dj)::2`` (the Pallas ``_tap_slice``)."""
     _check_mode(corner_mode)
+    _check_stride(stride)
     P = _ico_pad_codes(h, w, corner_mode)
-    table = np.empty((7, 5, h, w), np.int32)
+    ho, wo = h // stride, w // stride
+    table = np.empty((7, 5, ho, wo), np.int32)
     for t, (di, dj) in enumerate(HEX_TAP_OFFSETS):
-        table[t] = P[:, 1 + di : 1 + di + h, 1 + dj : 1 + dj + w]
-    return table.reshape(7, 5 * h * w)
+        if stride == 1:
+            table[t] = P[:, 1 + di : 1 + di + h, 1 + dj : 1 + dj + w]
+        else:
+            table[t] = P[:, 2 + di : 2 + di + h : 2, 1 + dj : 1 + dj + w : 2]
+    return table.reshape(7, 5 * ho * wo)
 
 
 def upsample_table(h: int, w: int, corner_mode: str) -> np.ndarray:
@@ -195,19 +208,21 @@ def up_dx_table(h: int, w: int, corner_mode: str):
     return _to_csr(dst, src, wt, n, 4 * n)
 
 
-def std_dx_table(h: int, w: int, corner_mode: str):
+def std_dx_table(h: int, w: int, corner_mode: str, stride: int = 1):
     """Transposed ``std_conv_table``: CSR over the R = 5·h·w cells of the
-    standard-layout input. Each (tap, output cell) read of a cell, a zero or
-    a pole mean (0.2 on cell (0, 0) / (h-1, w-1) of each chart) becomes
+    standard-layout input, ``cells`` the output cells (5·h'·w' of them, h' =
+    h/stride) that read each. Each (tap, output cell) read of a cell, a zero
+    or a pole mean (0.2 on cell (0, 0) / (h-1, w-1) of each chart) becomes
     entries on the cells it reads."""
     _check_mode(corner_mode)
     n, hw = 5 * h * w, h * w
-    table = std_conv_table(h, w, corner_mode).astype(np.int64)
-    dst = (np.arange(7)[:, None] * n + np.arange(n)[None, :]).ravel()
-    dst, src, wt = _poles_expand(dst, table.ravel(), np.ones(7 * n),
+    table = std_conv_table(h, w, corner_mode, stride).astype(np.int64)
+    n_out = table.shape[1]
+    dst = (np.arange(7)[:, None] * n_out + np.arange(n_out)[None, :]).ravel()
+    dst, src, wt = _poles_expand(dst, table.ravel(), np.ones(7 * n_out),
                                  [c * hw for c in range(5)],
                                  [c * hw + hw - 1 for c in range(5)])
-    return _to_csr(dst, src, wt, n, n)
+    return _to_csr(dst, src, wt, n, n_out)
 
 
 def up_adjoint_table(h: int, w: int, corner_mode: str):
@@ -288,60 +303,69 @@ def phase_dx_codes(h: int, w: int, corner_mode: str, out_phases=(0, 1, 2, 3)):
     return _dx_codes(*phase_dx_table(h, w, corner_mode, out_phases), 4, n, len(out_phases) * n)
 
 
-def std_dx_codes(h: int, w: int, corner_mode: str):
+def std_dx_codes(h: int, w: int, corner_mode: str, stride: int = 1):
     """The bf16 dx GEMM's view of ``std_dx_table``, ``_dx_codes`` over the
-    one input grid: codes (1, 7, M) naming, for tap t and input cell m, a
-    row of the written cotangent operand (per sample its M cotangent rows,
-    then its combined rows: the chart seams and the 10 pole rows), the
-    combined rows, and a mask byte per 128-row tile of one sample's M GEMM
-    rows (None where M is not a multiple of 128: level 2)."""
+    one input grid of M = 5·h·w cells: codes (1, 7, M) naming, for tap t and
+    input cell m, a row of the written cotangent operand (per sample its
+    5·h'·w' cotangent rows, h' = h/stride, then its combined rows: the chart
+    seams and the 10 pole rows), the combined rows, and a mask byte per
+    128-row tile of one sample's M GEMM rows (None where M is not a multiple
+    of 128: an input at level 2)."""
     n = 5 * h * w
-    return _dx_codes(*std_dx_table(h, w, corner_mode), 1, n, n)
+    return _dx_codes(*std_dx_table(h, w, corner_mode, stride), 1, n, n // stride**2)
 
 
 _DEVICE_TABLES: dict = {}
 
 
-def device_table(kind: str, h: int, w: int, corner_mode: str, device) -> torch.Tensor:
+def device_table(kind: str, h: int, w: int, corner_mode: str, device,
+                 stride: int = 1) -> torch.Tensor:
     """The named table as a contiguous int32 tensor on ``device``, built once
-    per (kind, h, w, corner_mode, device) and kept for the process."""
-    key = (kind, h, w, corner_mode, str(torch.device(device)))
+    per (kind, h, w, corner_mode, stride, device) and kept for the process;
+    ``stride`` is the standard conv's (``"std"``), over a (5, h, w) input."""
+    key = (kind, h, w, corner_mode, stride, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        build = {"phase": phase_conv_table, "std": std_conv_table, "up": upsample_table}[kind]
-        t = torch.from_numpy(build(h, w, corner_mode)).to(device).contiguous()
+        if kind == "std":
+            arr = std_conv_table(h, w, corner_mode, stride)
+        else:
+            arr = {"phase": phase_conv_table, "up": upsample_table}[kind](h, w, corner_mode)
+        t = torch.from_numpy(arr).to(device).contiguous()
         _DEVICE_TABLES[key] = t
     return t
 
 
-def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_phases=None):
+def device_dx_table(kind: str, h: int, w: int, corner_mode: str, device, out_phases=None,
+                    stride: int = 1):
     """A transposed table (``"phase"`` with its out_phases, ``"up"``, ``"std"``
-    or ``"up_adjoint"``) as (offsets, cells, weights) tensors on ``device``,
-    built once and kept."""
+    with its stride, or ``"up_adjoint"``) as (offsets, cells, weights)
+    tensors on ``device``, built once and kept."""
     out_phases = None if out_phases is None else tuple(out_phases)
-    key = ("dx", kind, h, w, corner_mode, out_phases, str(torch.device(device)))
+    key = ("dx", kind, h, w, corner_mode, out_phases, stride, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
     if t is None:
         if kind == "phase":
             arrs = phase_dx_table(h, w, corner_mode, out_phases)
+        elif kind == "std":
+            arrs = std_dx_table(h, w, corner_mode, stride)
         else:
-            arrs = {"up": up_dx_table, "std": std_dx_table,
-                    "up_adjoint": up_adjoint_table}[kind](h, w, corner_mode)
+            arrs = {"up": up_dx_table, "up_adjoint": up_adjoint_table}[kind](h, w, corner_mode)
         t = tuple(torch.from_numpy(a).to(device).contiguous() for a in arrs)
         _DEVICE_TABLES[key] = t
     return t
 
 
-def device_dx_codes(h: int, w: int, corner_mode: str, device, out_phases=(0, 1, 2, 3)):
-    """``phase_dx_codes`` for these output phases, or ``std_dx_codes`` for
-    ``out_phases=None`` (the standard conv), on ``device``, built once and
-    kept: (codes, comb offsets, comb cells, comb weights, mask or None,
-    combined rows a sample)."""
+def device_dx_codes(h: int, w: int, corner_mode: str, device, out_phases=(0, 1, 2, 3),
+                    stride: int = 1):
+    """``phase_dx_codes`` for these output phases, or ``std_dx_codes`` at
+    ``stride`` for ``out_phases=None`` (the standard conv), on ``device``,
+    built once and kept: (codes, comb offsets, comb cells, comb weights,
+    mask or None, combined rows a sample)."""
     out_phases = None if out_phases is None else tuple(out_phases)
-    key = ("codes", h, w, corner_mode, out_phases, str(torch.device(device)))
+    key = ("codes", h, w, corner_mode, out_phases, stride, str(torch.device(device)))
     t = _DEVICE_TABLES.get(key)
     if t is None:
-        codes, comb, mask = (std_dx_codes(h, w, corner_mode) if out_phases is None
+        codes, comb, mask = (std_dx_codes(h, w, corner_mode, stride) if out_phases is None
                              else phase_dx_codes(h, w, corner_mode, out_phases))
         t = (*(torch.from_numpy(a).to(device).contiguous() for a in (codes, *comb)),
              None if mask is None else torch.from_numpy(mask).to(device), len(comb[0]) - 1)

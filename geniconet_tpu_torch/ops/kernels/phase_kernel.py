@@ -284,19 +284,19 @@ def fwd_scratch(dt, B, h, w, cin, n_sets, cout, n_src, n_out, with_stats, dev):
     return (*_stats_outputs(with_stats, row_tiles, n_sets, cout, dev), operand, wpack)
 
 
-def dx_tables(kind, dtype, h, w, corner_mode, dev, out_phases=_ALL):
+def dx_tables(kind, dtype, h, w, corner_mode, dev, out_phases=_ALL, stride=1):
     """(the 8 table pointers' tensors of the dx C entries of a, c and f,
     combined rows a sample): float32 the transposed CSR
     (``halo.phase_dx_table``, ``up_dx_table`` for ``"up"``, ``std_dx_table``
-    for ``"std"``) and no bf16 tables; bf16 no CSR and the code table,
-    combined rows and tap masks (``halo.phase_dx_codes``, or
-    ``std_dx_codes`` for ``"std"``)."""
+    for ``"std"`` at ``stride`` over an (h, w) input) and no bf16 tables;
+    bf16 no CSR and the code table, combined rows and tap masks
+    (``halo.phase_dx_codes``, or ``std_dx_codes`` for ``"std"``)."""
     if dtype != torch.bfloat16:
         csr = device_dx_table(kind, h, w, corner_mode, dev,
-                              out_phases if kind == "phase" else None)
+                              out_phases if kind == "phase" else None, stride)
         return (*csr, None, None, None, None, None), 0
     codes, c_off, c_cells, c_w, mask, n_comb = device_dx_codes(
-        h, w, corner_mode, dev, None if kind == "std" else out_phases)
+        h, w, corner_mode, dev, None if kind == "std" else out_phases, stride)
     return (None, None, None, codes, c_off, c_cells, c_w, mask), n_comb
 
 

@@ -102,9 +102,6 @@ def test_colorings_and_unported_routes(served, tmp_path):
     for mode in ["selfintersection", "distance", "patch", "none"]:
         c = st.colorize(v, mode, st.reference_vertices(0))
         assert c.shape == (v.shape[0], 3) and c.min() >= 0 and c.max() <= 1
-    for path in ["/api/pca", "/api/pairs"]:
-        with pytest.raises(NotImplementedError):
-            handle_api(st, path, {})
     with pytest.raises(ValueError):
         handle_api(st, "/api/nope", {})
     # no variables: the checkpoint under the log directory, and there is none

@@ -10,12 +10,15 @@ the originals, and the entry points' device default.
 * ``geniconet_tpu_torch/native``: the same self-intersecting face pairs as
   ``geniconet_tpu/native`` on one mesh with a dent pushed through it, and
   the same point-to-mesh distances (``ptm_distance``) to the bit.
-* ``Trainer``, ``AppState``, ``Batches`` and the command line run on the
-  card unless told otherwise: without one they raise instead of returning
-  a CPU object.
+* ``geniconet_tpu_torch/app/static``: the explorer's page and scripts equal
+  ``geniconet_tpu/app/static``'s byte for byte.
+* ``Trainer``, ``AppState``, ``Batches``, the command line and the
+  explorer's server run on the card unless told otherwise: without one
+  they raise instead of returning a CPU object.
 """
 
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -41,6 +44,18 @@ def test_ico_tables_equal_the_jax_module(s):
         for got, ref in zip(getattr(ico, name)(s), getattr(jax_ico, name)(s), strict=True):
             np.testing.assert_array_equal(got, ref, err_msg=name)
     np.testing.assert_array_equal(ico.base_icosahedron()[0], jax_ico.base_icosahedron()[0])
+
+
+@pytest.mark.parametrize("name", ["index.html", "app.js", "viewer.js"])
+def test_explorer_static_files_equal_the_jax_package(name):
+    from geniconet_tpu.app import server as jax_server
+    from geniconet_tpu_torch.app import server
+
+    jax_static = os.path.join(os.path.dirname(jax_server.__file__), "static")
+    assert sorted(os.listdir(server.STATIC)) == sorted(os.listdir(jax_static))
+    with open(os.path.join(server.STATIC, name), "rb") as f, \
+            open(os.path.join(jax_static, name), "rb") as g:
+        assert f.read() == g.read()
 
 
 PORT_ONLY = {"cfg.device"}
@@ -120,6 +135,7 @@ def no_card():
 
 def test_entry_points_default_to_the_card(no_card, tmp_path, monkeypatch):
     from geniconet_tpu_torch import cli
+    from geniconet_tpu_torch.app import server
     from geniconet_tpu_torch.app.state import AppState
     from geniconet_tpu_torch.data.datasets import synthetic_dataset
     from geniconet_tpu_torch.data.pipeline import Batches
@@ -137,6 +153,12 @@ def test_entry_points_default_to_the_card(no_card, tmp_path, monkeypatch):
     assert Trainer(vae, device="cpu").model.mu_conv.taps.device.type == "cpu"
     assert AppState(device="cpu").device.type == "cpu"
     assert Batches(ds, 2, device="cpu").inputs.device.type == "cpu"
+    # the explorer's server: its state on the card unless --device cpu
+    with pytest.raises(RuntimeError, match="is_available"):
+        server.build(["--no_autoload", "--port", "0"])
+    srv = server.build(["--no_autoload", "--port", "0", "--device", "cpu"])
+    assert srv.state.device.type == "cpu"
+    srv.server_close()
     # the command line: every process on the card unless --device cpu
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     argv = ["--model", "ico2ico", "--synthetic", "2", "--subdivision", "3", "--widths", "8", "8",

@@ -1909,9 +1909,9 @@ def test_bf16_step_with_the_mma_grid_fwd(cuda, model):
     calls = []
 
     def checked(kernel, plain):
-        def fn(*args):  # ``fused`` passes with_stats last
-            got = kernel(*args)
-            calls.append((got, plain(*args), args[-1]))
+        def fn(*args, **kwargs):  # ``fused`` passes with_stats last, the stride by name
+            got = kernel(*args, **kwargs)
+            calls.append((got, plain(*args, **kwargs), args[-1]))
             return got
         return fn
 
@@ -2422,7 +2422,8 @@ def test_bf16_step_with_the_merged_std_and_split_fwd(cuda, model, route):
     routing = dict(merged_bwd="all") if route == "merged" else dict(phase_chain="1")
     calls = []
 
-    def checked_k(x, g, taps, y, gs, corner_mode, act, with_stats, dt):
+    def checked_k(x, g, taps, y, gs, corner_mode, act, with_stats, dt, stride=1):
+        assert stride == 1
         got = ck.ico_conv_s2s_bwd(x, g, taps, y, gs, corner_mode, act, with_stats, dt)
         y, gs = (y, gs) if with_stats else (None, None)
         dx, dmul, dadd, gsum = ck.ico_conv_s2s_dx(g, taps, corner_mode, dt, act, x, y, gs, True)
@@ -2559,3 +2560,102 @@ def test_point_to_mesh_distance_at_s5_on_the_card(cuda):
                 point_to_mesh_distance(torch.from_numpy(pts[::16]), torch.from_numpy(verts),
                                        faces, chunk=128).numpy()):
         np.testing.assert_allclose(sub, ref, rtol=1e-4, atol=1e-6 * extent)
+
+
+# ---------------------------------------------------------------------------
+# the standard conv at stride 2 (forward, dx, dtaps, merged backward)
+# ---------------------------------------------------------------------------
+
+# (level s of the input, C_in, C_out): small grids, a narrow C_in at level 4,
+# and the s=5 DownBlocks' stride-2 convs done as standard convs (inputs (32,
+# 64) 64 -> 128, (16, 32) 128 -> 256, (8, 16) 256 -> 256)
+S2_CASES = {"s1": (1, 12, 20), "s2": (2, 12, 20), "s4": (4, 12, 20), "down0": (5, 64, 128),
+            "down1": (4, 128, 256), "down2": (3, 256, 256)}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", list(S2_CASES))
+def test_std_conv_stride2(cuda, case, corner_mode, dt):
+    """The four kernels at stride 2 against their plain versions: the
+    forward with the act and the stats, dx with the act adjoint and Σg_eff,
+    dtaps in the activation dtype, and the merged backward, the fold on and
+    off."""
+    s, cin, cout = S2_CASES[case]
+    x, act, sets = _inputs(cuda, dt, s, cin, cout, seed=200 + s)
+    taps, bias = sets[0]
+    for a in (act, None):
+        build.reset_launches()
+        got = ck.ico_conv_s2s_fwd(x, taps, bias, corner_mode, a, True, stride=2)
+        assert dict(build.LAUNCHES) == {"ico_conv_s2s_fwd": 1}
+        _close_all(got, ck.ico_conv_s2s_fwd_plain(x, taps, bias, corner_mode, a, True, 2), dt)
+    mk, gs = _stats_fold(cuda, dt, x.shape[:2] + (x.shape[2] // 2, x.shape[3] // 2, cout), 1,
+                         seed=s)
+    for a, fold in [(act, True), (None, False), (act, False), (None, True)]:
+        g, y = mk(1)[0][0], mk(1)[0][0]
+        fk = dict(y=y, gs=gs[0]) if fold else {}
+        args = (g, taps, corner_mode, dt, a, x if a else None)
+        _close_all(ck.ico_conv_s2s_dx(*args, **fk, emit_gsum=True, stride=2),
+                   ck.ico_conv_s2s_dx_plain(*args, **fk, emit_gsum=True, stride=2), dt)
+        got = ck.ico_conv_s2s_dtaps(x, g, corner_mode, a, **fk, stride=2)
+        assert got.dtype == dt
+        _close(got, ck.ico_conv_s2s_dtaps_plain(x, g, corner_mode, a, **fk, stride=2), dt)
+        args = (x, g, taps, fk.get("y"), fk.get("gs"), corner_mode, a, fold, dt)
+        _close_all(ck.ico_conv_s2s_bwd(*args, stride=2),
+                   ck.ico_conv_s2s_bwd_plain(*args, stride=2), dt)
+
+
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", ["s2", "s4", "down2"])
+def test_ico_conv_bwd_is_the_split_pair_at_stride2(cuda, case, corner_mode):
+    """Kernel k at stride 2 in bf16 is f's split route at stride 2 bit for
+    bit (one launch of the wrapper), as at stride 1; level 2 is a (4, 8)
+    input, 160 dx rows a sample, no tap mask."""
+    s, cin, cout = S2_CASES[case]
+    dt = torch.bfloat16
+    x, act, sets = _inputs(cuda, dt, s, cin, cout, seed=210 + s)
+    taps = sets[0][0]
+    mk, gs = _stats_fold(cuda, dt, x.shape[:2] + (x.shape[2] // 2, x.shape[3] // 2, cout), 1,
+                         seed=s)
+    for a, fold in [(act, True), (None, False), (act, False), (None, True)]:
+        g = mk(1)[0][0]
+        y, g_s = (mk(1)[0][0], gs[0]) if fold else (None, None)
+        build.reset_launches()
+        got = ck.ico_conv_s2s_bwd(x, g, taps, y, g_s, corner_mode, a, fold, dt, stride=2)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"ico_conv_s2s_bwd": 1}
+        dx, dmul, dadd, gsum = ck.ico_conv_s2s_dx(g, taps, corner_mode, dt, a, x, y, g_s, True,
+                                                  stride=2)
+        _equal_all(got, (dx, ck.ico_conv_s2s_dtaps(x, g, corner_mode, a, y, g_s, stride=2), gsum,
+                         dmul, dadd))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("corner_mode", MODES)
+@pytest.mark.parametrize("case", ["s2", "down0", "down2"])
+def test_std_conv_stride2_is_the_phase_conv_at_phase_2(cuda, case, corner_mode, dt):
+    """The standard conv at stride 2 is the phase conv at output phase 2 on
+    the grid's parity phases (their tables name the same cells,
+    tests/test_torch_std_s2.py): the two kernel routes give the same
+    output, stats, dx, dtaps and Σg_eff bit for bit (the same GEMM rows in
+    the same order; the std dx's extra tap steps read only zeros), and
+    d_mul, d_add within the tolerance (their row tiles differ)."""
+    s, cin, cout = S2_CASES[case]
+    x, act, sets = _inputs(cuda, dt, s, cin, cout, seed=220 + s)
+    taps, bias = sets[0]
+    phases = tuple(p.contiguous() for p in phase_split(x))
+    y, st = ck.ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, True, stride=2)
+    ((yp,),), (stp,) = pk.phase_conv_fwd(phases, [(taps, bias)], corner_mode, (2,), act, True)
+    _equal_all((y, st), (yp, stp))
+    mk, gs = _stats_fold(cuda, dt, yp.shape, 1, seed=s)
+    g = mk(1)[0][0]
+    dx, dmul, dadd, gsum = ck.ico_conv_s2s_dx(g, taps, corner_mode, dt, act, x, y, gs[0], True,
+                                              stride=2)
+    dph, dmul_p, dadd_p, (gsum_p,) = pk.phase_conv_dx([[g]], [(taps, None)], corner_mode, (2,),
+                                                     cin, dt, act, phases, [[y]], gs)
+    _equal_all((dx, gsum), (phase_merge(dph), gsum_p))
+    _close_all((dmul, dadd), (dmul_p, dadd_p), dt)
+    dtaps = ck.ico_conv_s2s_dtaps(x, g, corner_mode, act, y, gs[0], stride=2)
+    (dtaps_p,) = pk.phase_conv_dtaps(phases, [[g]], [tuple(taps.shape)], corner_mode, (2,), act,
+                                     [[y]], gs)
+    _equal_all((dtaps,), (dtaps_p.to(dt),))

@@ -154,9 +154,14 @@ def test_fused_ico_conv_s2s_grads_match_jax(interpret, corner_mode):
 
 
 def test_fused_ico_conv_s2s_takes_stride_1_only():
+    """Strides 1 and 2 run (stride 2 against JAX: tests/test_torch_std_s2.py);
+    any other stride raises."""
     x = torch.zeros(1, 5, 4, 8, 3)
-    with pytest.raises(ValueError, match="stride 1"):
-        fused.fused_ico_conv_s2s(x, torch.zeros(7, 3, 4), None, 2, stride=2)
+    assert fused.fused_ico_conv_s2s(x, torch.zeros(7, 3, 4), None, 2).shape == (1, 5, 4, 8, 4)
+    assert fused.fused_ico_conv_s2s(x, torch.zeros(7, 3, 4), None, 2,
+                                    stride=2).shape == (1, 5, 2, 4, 4)
+    with pytest.raises(ValueError, match="stride"):
+        fused.fused_ico_conv_s2s(x, torch.zeros(7, 3, 4), None, 2, stride=3)
 
 
 # ---------------------------------------------------------------------------

@@ -136,3 +136,30 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("s", [2, 3])
+def test_ico_identity_is_the_flax_identity(s):
+    """IcoIdentity: the output equals the input, W's gradient is zero, and
+    the flax module's W (shaped from its input grid) bridges into the
+    port's (shaped from ``subdivisions``) and back unchanged."""
+    from geniconet_tpu.nn.models import IcoIdentity as FlaxIcoIdentity
+    from geniconet_tpu_torch.nn.models import IcoIdentity
+
+    H, W = 5 * 2**s, 2 ** (s + 1)
+    x = np.random.RandomState(s).randn(2, H, W, 3).astype(np.float32)
+    fm = FlaxIcoIdentity(subdivisions=s)
+    variables = jax.tree.map(np.asarray, fm.init({"params": jax.random.key(s)}, jnp.asarray(x)))
+    m = IcoIdentity(s)
+    assert tuple(m.W.shape) == variables["params"]["W"].shape == (1, H, W, 3)
+    m.load_state_dict(bridge.flax_to_state_dict(variables))
+    np.testing.assert_array_equal(m.W.detach().numpy(), variables["params"]["W"])
+    back = bridge.state_dict_to_flax(m.state_dict())
+    np.testing.assert_array_equal(back["params"]["W"], variables["params"]["W"])
+    xt = torch.from_numpy(x).requires_grad_()
+    y = m(xt)
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(fm.apply(variables, x)))
+    np.testing.assert_array_equal(y.detach().numpy(), x)
+    (y**2).sum().backward()
+    assert m.W.grad is not None and not m.W.grad.any()
+    np.testing.assert_array_equal(xt.grad.numpy(), 2 * x)

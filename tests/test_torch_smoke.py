@@ -27,7 +27,8 @@ def test_refuses_without_a_card_and_imports_no_jax():
     .pt import and the data tools too), and the script runs to its refusal."""
     assert {"geniconet_tpu_torch.ops.point_mesh", "geniconet_tpu_torch.eval.test_driver",
             "geniconet_tpu_torch.train.pt_import", "geniconet_tpu_torch.train.summary",
-            "geniconet_tpu_torch.data.generate"} <= set(PORT_MODULES)
+            "geniconet_tpu_torch.data.generate", "geniconet_tpu_torch.app.server",
+            "geniconet_tpu_torch.app.state"} <= set(PORT_MODULES)
     code = (
         "import importlib, importlib.abc, runpy, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -62,7 +63,8 @@ def test_imports_only_torch_and_the_port():
     files = [REPO / "chip_smoke.py", *sorted((REPO / "geniconet_tpu_torch").rglob("*.py"))]
     assert len(files) > 30
     assert {"cli.py", "checkpoint.py", "logging.py", "point_mesh.py", "test_driver.py",
-            "pt_import.py", "generate.py", "summary.py"} <= {p.name for p in files}
+            "pt_import.py", "generate.py", "summary.py", "server.py",
+            "state.py"} <= {p.name for p in files}
     for path in files:
         tops = _import_tops(path)
         assert not tops & {"jax", "jaxlib", "flax", "msgpack", "geniconet_tpu"}, (path,
