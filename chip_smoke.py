@@ -20,7 +20,11 @@ fold outside the kernels (``kernel_geff=""``, JAX's built-in fold set:
 kernel l); both halves chained (``phase_chain="1"``: m and the decoder's
 kernel n): AE and VAE serving, AE and VAE training, AE training on the
 merged route and with every fold outside (``kernel_geff="0"``); and AE
-training on the decoder's chain alone (``phase_chain="dec"``). Phases, each
+training on the decoder's chain alone (``phase_chain="dec"``). Then the
+subdivision-6/7 stretch config and data parallelism: AE training at s=6
+and s=7 (bs36, full width), at s=6 also on the decoder's chain, both
+chains, the merged backward, the merged blocks and the VAE; and AE and VAE
+training over two data-parallel ranks that the script starts. Phases, each
 printed on its own lines, each fatal on failure:
 
 1. card: ``nvidia-smi`` name and power limit;
@@ -86,6 +90,16 @@ printed on its own lines, each fatal on failure:
    head's, g) and backwards (e, h) print their main pass's achieved GB/s
    against its byte bound, g's and h's pole pass and the backwards'
    partial rows' sum;
+4b. s6/s7 kernels (``s67_kernels``, ``batch_split_check``): the host-built
+   halo tables of levels 6 and 7 (build time, MiB), then every kernel at
+   its s=6 and s=7 shapes (the serving and training cases at B=2, the s=5
+   shapes scaled; not the stride-2 standard conv nor the 320-channel head)
+   against its plain version within ``TOL`` in float32 and bf16, the bf16
+   merged kernels and m also bit for bit against the split route, timed
+   in bf16; and at s=7, B=56 the grid convs' and the up conv's bf16
+   forward and dx at conv_in, up2 conv01 and up2 (71,680 GEMM row tiles,
+   past ``gridDim.y``'s 65,535): each half of the batch's outputs must
+   equal the B=28 call on that half bit for bit;
 5. serving: ``AppState.load`` of an AE and of a VAE on 32 synthetic meshes
    with seeded random weights (non-trivial BN statistics), then
    ``handle_api`` requests (the VAE's ``/api/regenerate`` too), in bfloat16
@@ -147,6 +161,24 @@ printed on its own lines, each fatal on failure:
    (.off and figure), /api/view_file of the export, GET / and a gzip
    /api/mesh; every mesh checked, each route's wall printed, the launches
    joining the paths "AE serve (explorer)" and "VAE serve (explorer)";
+8b. s6/s7 train (``s67_train``): the AE at s=6 and s=7, bs36 bf16, full
+   width, default route, from seeded weights on 36 meshes (4 distinct; the
+   targets computed on the card): 3 Adam steps with finite losses, the
+   step time, one step's device busy time and the peak memory; at s=6 the
+   first step's loss within 1e-2 of the plain route's (``pallas_blocks=
+   "none"``), then one step each on the decoder's chain, both chains, the
+   merged backward, the merged blocks, and of the VAE; each path must
+   launch its kernels (paths "AE train (s6)", "AE train (s7)", "AE train
+   (s6, chain dec)", ..., "VAE train (s6)");
+8c. dp (``dp_phase``): two ranks spawned by the script (``parallel/
+   dist.py``: one card each over NCCL where there are two, else both on
+   the one card over gloo; the phase prints which), each running two
+   float32 AE steps at s=5 and global bs36 on the kernel route and its
+   eval, which must match one process at bs36 (loss and eval to rtol 2e-6,
+   parameters and BatchNorm statistics to rtol 1e-4 / atol 1e-6) with
+   every rank's state bit-equal, then an s=6 bf16 AE step and a VAE bf16
+   step with finite losses; a rank's failure fails the phase (paths "AE
+   train (dp)", "VAE train (dp)");
 9. profile: where the device time goes in the timed serving workloads and
    in AE and VAE training steps on every training path (bfloat16), read
    from a ``torch.profiler``
@@ -169,9 +201,10 @@ call's, summed over its shapes (a forward kernel's times are its serving
 shapes', and ``training_shapes`` holds those of its training shapes;
 ``by_shapes`` splits each sum into the AE's shapes, the standard conv's
 stride-2 shapes, the no-act stride-2 shapes, the VAE's new shapes, the
-chains' and the wide head's); the last is ``{"ok": true, "device":
-{...}}``. Without a CUDA device the script exits with an error before
-printing any result.
+chains' and the wide head's), and ``s6`` and ``s7``: its largest error,
+cases and bf16 kernel, plain and bound times summed over its s=6 and s=7
+shapes at B=2; the last is ``{"ok": true, "device": {...}}``. Without a
+CUDA device the script exits with an error before printing any result.
 """
 
 from __future__ import annotations
@@ -181,6 +214,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
@@ -712,15 +746,27 @@ def split_fwd_case(B, h, w, cin, cout, with_act, with_stats):
     return make
 
 
-def serving_cases():
-    """(kernel, label, make(dtype, gen) -> Case, group) at the serving shapes."""
+def at_level(s: int):
+    """(z, relabel) of the cases at subdivision s: the s=5 shapes times z =
+    2^(s-5), and a label's "(h,w)" shapes at that level."""
+    z = 2 ** (s - 5)
+
+    def relabel(label: str) -> str:
+        return re.sub(r"\((\d+),(\d+)\)", lambda m: f"({int(m[1]) * z},{int(m[2]) * z})", label)
+    return z, relabel
+
+
+def serving_cases(B: int = BATCH, s: int = 5):
+    """(kernel, label, make(dtype, gen) -> Case, group) at the serving shapes
+    (batch B, subdivision s: the s=5 shapes scaled by ``at_level``)."""
     from geniconet_tpu_torch.ops.kernels import build
     from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
 
-    B, (w0, w1, w2) = BATCH, WIDTHS
+    (w0, w1, w2), (z, relabel) = WIDTHS, at_level(s)
 
     def phase(h, w, cin, cout, n_sets, out_phases, with_act):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
@@ -738,6 +784,7 @@ def serving_cases():
         return make
 
     def up(h, w, cin, cout):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -752,6 +799,7 @@ def serving_cases():
         return make
 
     def std(h, w, c):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, c, dtype=dt)
             t, b = _taps(gen, c, c, dt)
@@ -780,8 +828,8 @@ def serving_cases():
         ("ico_conv_s2s_fwd", "down0 conv01 (16,32) 128", std(16, 32, w1)),
         ("ico_conv_s2s_fwd", "down1 conv01 (8,16) 256", std(8, 16, w2)),
         ("ico_conv_s2s_fwd", "down2 conv01 (4,8) 256", std(4, 8, w2)),
-        ("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16, 32, w0)),
-        ("pair_head_fwd", "head (16,32) 64->3 B=1", head_fwd(1, 16, 32, w0)),
+        ("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16 * z, 32 * z, w0)),
+        ("pair_head_fwd", "head (16,32) 64->3 B=1", head_fwd(1, 16 * z, 32 * z, w0)),
     ]
     # the VAE's own shapes: its heads (no act) and up0 from the 512-channel latent
     vae = [
@@ -790,9 +838,11 @@ def serving_cases():
     ]
 
     def split(h, w, cin, cout, with_act):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         return split_fwd_case(B, h, w, cin, cout, with_act, False)
 
     def pair(h, w, cin, cout):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -820,8 +870,9 @@ def serving_cases():
         ("up_pair_fwd", "up1 pair (8,16) 256->2x128", pair(8, 16, w2, w1)),
         ("up_pair_fwd", "up2 pair (16,32) 128->2x64", pair(16, 32, w1, w0)),
     ]
-    return ([(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
-            + [(*c, "chain") for c in chain])
+    return [(name, relabel(label), make, group) for name, label, make, group in
+            [(*c, "AE") for c in cases] + [(*c, "VAE") for c in vae]
+            + [(*c, "chain") for c in chain]]
 
 
 def head_fwd(B, h, w, c):
@@ -847,9 +898,10 @@ def head_flops(B, h, w, c, F, backward=False):
     return 4 * B * 5 * h * w * (per_cell + (2 * 2 * c * F + 6 * c if backward else 0))
 
 
-def training_cases():
+def training_cases(B: int = TRAIN_BATCH, s: int = 5):
     """(kernel, label, make, group) at the shapes of AE and VAE training
-    (s=5, B=36): the forward kernels with BatchNorm stats, the six conv
+    (s=5, B=36; or batch B at subdivision s, the s=5 shapes scaled by
+    ``at_level``): the forward kernels with BatchNorm stats, the six conv
     backward kernels with the stats fold, the head's backward, and the
     head+MSE forward and backward."""
     from geniconet_tpu_torch.ops.kernels import build
@@ -857,7 +909,7 @@ def training_cases():
     from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
     from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 
-    B, (w0, w1, w2) = TRAIN_BATCH, WIDTHS
+    (w0, w1, w2), (z, relabel) = WIDTHS, at_level(s)
 
     def cotangents(gen, dt, h, w, cout, n_sets, n_out):
         """g and forward outputs y per set, and small stats cotangents gs."""
@@ -867,6 +919,7 @@ def training_cases():
         return group(), group(), [_rnd(gen, 2, cout, scale=1e-3) for _ in range(n_sets)]
 
     def phase_fwd(h, w, cin, cout, n_sets=1, out_phases=(0, 1, 2, 3), with_act=True):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
@@ -885,6 +938,7 @@ def training_cases():
         return make
 
     def up_fwd(h, w, cin, cout):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -900,6 +954,7 @@ def training_cases():
         return make
 
     def std_fwd(h, w, c):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x, (t, b), a = _rnd(gen, B, 5, h, w, c, dtype=dt), _taps(gen, c, c, dt), _act(gen, c)
             call = lambda: ck.ico_conv_s2s_fwd(x, t, b, "average", a, True)  # noqa: E731
@@ -916,6 +971,7 @@ def training_cases():
                   fold=True):
         """A phase-conv dx or dtaps call; without the fold (the fold outside
         the kernels) it gets neither y nor gs, and dtaps emits Σg."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(n_sets)]
@@ -947,6 +1003,7 @@ def training_cases():
         return make
 
     def split_fwd(h, w, cin, cout, with_act):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         return split_fwd_case(B, h, w, cin, cout, with_act, True)
 
     def phase_merged(groups):
@@ -961,6 +1018,7 @@ def training_cases():
         a's and m's dtaps b's on the merged cotangents bit for bit; m's dx
         prints its parts and is timed beside a's call on the merged
         cotangents."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             ph = [_rnd(gen, B, 5, h, w, cin, dtype=dt) for _ in range(4)]
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -1021,6 +1079,8 @@ def training_cases():
         """l over a group of 4 phases (B, 5, h, w, c); with ``fold_cost`` =
         (h, w, cin) of m's input, also m's dx + dtaps with the fold in the
         kernels and without it, whose difference is what l replaces."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
+        fold_cost = fold_cost and (fold_cost[0] * z, fold_cost[1] * z, fold_cost[2])
         def make(dt, gen):
             g = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
             y = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
@@ -1046,6 +1106,7 @@ def training_cases():
         return make
 
     def pair_fwd(h, w, cin, cout):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -1063,6 +1124,7 @@ def training_cases():
     def pair_bwd(which, h, w, cin, cout, fold):
         """n's dx (with Σg) or dtaps on the level-s (h, w) pair, with the fold
         in the kernel or none (the fold outside)."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             b0, y10, aff = _pair_inputs(gen, B, h, w, cin, dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -1094,6 +1156,7 @@ def training_cases():
         return make
 
     def up_bwd(which, h, w, cin, cout):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x = _rnd(gen, B, 5, h, w, cin, dtype=dt)
             sets = [_taps(gen, cin, cout, dt) for _ in range(2)]
@@ -1121,6 +1184,7 @@ def training_cases():
         return make
 
     def std_bwd(which, h, w, c):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x, (t, _), a = _rnd(gen, B, 5, h, w, c, dtype=dt), _taps(gen, c, c, dt), _act(gen, c)
             gg, yy, gss = cotangents(gen, dt, h, w, c, 1, 1)
@@ -1156,6 +1220,7 @@ def training_cases():
         In bf16 the forward must equal b's forward at output phase 2 on the
         input's parity phases (the same function; PERF.md) and k the split
         pair at stride 2, bit for bit."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             x = _rnd(gen, batch, 5, 2 * h, 2 * w, cin, dtype=dt)
             t, b = _taps(gen, cin, cout, dt)
@@ -1236,6 +1301,7 @@ def training_cases():
         return make
 
     def head_mse(which, h, w, c):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
             y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
@@ -1257,6 +1323,7 @@ def training_cases():
         return make
 
     def head_bwd(h, w, c):
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             b0 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
             y10 = [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
@@ -1279,6 +1346,7 @@ def training_cases():
         print their parts (their two passes, the one launch of both GEMMs,
         whose FLOPs are the dx GEMM's and the dtaps', j's adjoint, the sums,
         and the device time against the split pair's kernels)."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             a = _act(gen, cin) if with_act else None
             exact = parts = None
@@ -1401,6 +1469,7 @@ def training_cases():
         Σy²/n − mean², then loses bits to cancellation in float32 (the
         plain version's sums are in another order), which the float32
         tolerance would measure instead of the kernel."""
+        h, w = h * z, w * z  # the s=5 shapes at level s
         def make(dt, gen):
             sets = [_taps(gen, cin, c0, dt), _taps(gen, cin, c0, dt), _taps(gen, c0, c2, dt)]
             sets[:2] = [(t, 0.1 * b) for t, b in sets[:2]]
@@ -1532,7 +1601,7 @@ def training_cases():
              phase_bwd(which, *heads[1], 2, (2,), with_act=False)) for which in ("dx", "dtaps")]
     vae += [(f"up_dual_conv_{which}", f"{up0[0]} fold", up_bwd(which, *up0[1]))
             for which in ("dx", "dtaps")]
-    vae += [("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16, 32, w0)),
+    vae += [("pair_head_fwd", "head (16,32) 64->3", head_fwd(B, 16 * z, 32 * z, w0)),
             ("pair_head_bwd", "head (16,32) 64->3", head_bwd(16, 32, w0))]
     # the merged route's kernels i, j, k at every site they run at, with the
     # fold (every site has stats); the DownBlocks after down0 and the VAE's
@@ -1608,11 +1677,12 @@ def training_cases():
         s2 += [(f"ico_conv_s2s_{which}", f"{label} act+{f}",
                 std_s2(which, h, w, cin, cout, fold=f == "fold"))
                for which in ("dx", "dtaps", "bwd") for f in ("fold", "no fold")]
-    return ([(*c, "AE") for c in cases + merged + blocks]
+    return [(name, relabel(label), make, group) for name, label, make, group in
+            [(*c, "AE") for c in cases + merged + blocks]
             + [(*c, "std s2") for c in s2]
             + [(*c, "AE no act") for c in no_act]
             + [(*c, "VAE") for c in vae] + [(*c, "chain") for c in chain]
-            + [(*c, "wide head") for c in wide])
+            + [(*c, "wide head") for c in wide]]
 
 
 def flat(out):
@@ -1633,21 +1703,25 @@ def bound(case: Case, outputs, dt):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
+def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20, lean: bool = False) -> dict:
     """Phases 3 and 4. Returns per kernel its largest max_abs_err over its
-    cases and, summed over its shapes in bf16: ms and plain_ms (median
-    times), bound_ms (with what bounds the largest share of it),
+    cases, their count and, summed over its shapes in bf16: ms and plain_ms
+    (median times), bound_ms (with what bounds the largest share of it),
     library_ms (None where no cuDNN call does the same work) and, for a
     merged kernel, split_ms (the split pair: split_dx_ms + split_dtaps_ms
     for a merged backward, split_first_ms + split_second_ms for a merged
-    block); ``by_shapes`` holds the same sums per group of shapes."""
+    block); ``by_shapes`` holds the same sums per group of shapes.
+    ``lean`` (the s=6/7 cases): every case against its plain version and
+    the bf16 ones against the split route, the kernel and the plain version
+    timed in bf16 only (one warm-up), no library, split or parts timing."""
     def sums():
         return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
 
     def add(s, key, v):
         s[key] = (s.get(key) or 0.0) + v
 
-    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, **sums(), "by_shapes": {}})
+    stats = collections.defaultdict(lambda: {"max_abs_err": 0.0, "cases": 0, **sums(),
+                                             "by_shapes": {}})
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, label, make, group in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -1662,9 +1736,16 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             rel, err, scale = max((e / s if s else (math.inf if e else 0.0), e, s)
                                   for e, s in errs)
             finite = all(bool(torch.isfinite(g).all()) for g in got)
-            ms, plain_ms = cuda_ms(case.kernel, reps), cuda_ms(case.plain, reps)
+            if lean:
+                case.library, case.split, case.compare, case.parts = None, None, {}, None
+            warm = 1 if lean else 3
+            if lean and dt != torch.bfloat16:
+                ms = plain_ms = math.nan
+            else:
+                ms, plain_ms = cuda_ms(case.kernel, reps, warm), cuda_ms(case.plain, reps, warm)
             event = ""
-            if case.short:  # the events measured the wrapper: the trace gives the kernel
+            # the events measured the wrapper: the trace gives the kernel
+            if case.short and not math.isnan(ms):
                 event, ms = f" (CUDA events around one call: {ms:.4f} ms)", trace_ms(case.kernel)
             lib_ms = cuda_ms(case.library, reps) if case.library is not None else None
             split_ms = [cuda_ms(f, reps) for f in case.split] if case.split else None
@@ -1723,6 +1804,7 @@ def kernel_vs_plain(card: str, cases, phase: str, reps: int = 20) -> dict:
             if p is not None:
                 stats[name].setdefault("parts", {})[f"{label} {tag}"] = p
             stats[name]["max_abs_err"] = max([stats[name]["max_abs_err"]] + [e for e, _ in errs])
+            stats[name]["cases"] += dt == torch.bfloat16  # shapes, each run in both dtypes
             if dt == torch.bfloat16:
                 for s in (stats[name], stats[name]["by_shapes"].setdefault(group, sums())):
                     s["ms"] += ms
@@ -3084,6 +3166,537 @@ def eval_phase(model: str, log_dir: str, data_root: str, val_dataset, card: str)
     return launches
 
 
+# The subdivision-6/7 phases: every kernel at its s=6 and s=7 shapes, the
+# s=7 batch whose row tiles pass gridDim.y's 65,535, and AE training at
+# bs36 (s=6: also the routings and the VAE).
+S67_LEVELS = (6, 7)
+S67_BATCH = 2  # the kernel cases at s=6 and s=7
+SPLIT_LEVEL, SPLIT_BATCH = 7, 56  # 71,680 row tiles of 128 at conv_in and up2 (B=52 passes 65,535)
+S67_MESHES = 4  # distinct synthetic meshes a training batch at s=6/7 repeats
+S67_STEPS = 3
+S67_ROUTES = (" (chain dec)", " (chain all)", " (merged)", " (merged block)")
+# the s=6/7 and data-parallel paths launch what the s=5 path of their routing does
+_SCALED_PATHS = {"AE train (dp)": "AE train", "VAE train (dp)": "VAE train",
+                 **{f"AE train (s{s})": "AE train" for s in S67_LEVELS},
+                 f"VAE train (s{S67_LEVELS[0]})": "VAE train",
+                 **{f"AE train (s{S67_LEVELS[0]}, {r[2:]}": f"AE train{r}" for r in S67_ROUTES}}
+for _path, _base in _SCALED_PATHS.items():
+    PATH_KERNELS[_path] = PATH_KERNELS[_base]
+    PATH_FORBIDDEN[_path] = PATH_FORBIDDEN[_base]
+    if _base in BLOCKS_PER_FORWARD:
+        BLOCKS_PER_FORWARD[_path] = BLOCKS_PER_FORWARD[_base]
+
+
+def nbytes(obj) -> int:
+    """Bytes of the arrays in nested tuples/lists of numpy arrays or tensors."""
+    if isinstance(obj, (tuple, list)):
+        return sum(nbytes(o) for o in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    return getattr(obj, "nbytes", 0)
+
+
+def s67_kernels(card: str) -> dict:
+    """Phase [s6/s7 kernels]: the host-built halo tables of the top level
+    (build time and bytes), then every kernel at its s=6 and s=7 shapes
+    (the serving and training cases at B=2, the s=5 shapes scaled; not the
+    stride-2 standard conv, off the model, nor the 320-channel head) in
+    float32 and bf16 against its plain version within ``TOL`` (the bf16
+    merged kernels also bit for bit against the split route), timed in
+    bf16. Returns {kernel: {"s6": ..., "s7": ...}}: the largest error, the
+    cases, and the bf16 ms, plain_ms and bound_ms summed over them."""
+    from geniconet_tpu_torch.ops.kernels import halo
+
+    out = collections.defaultdict(dict)
+    for s in S67_LEVELS:
+        h, w = 2 ** (s - 1), 2 ** s  # level s's phases: level s-1's chart
+        t0 = time.perf_counter()
+        tables = [halo.phase_conv_table(h, w, "average"), halo.std_conv_table(h, w, "average"),
+                  halo.upsample_table(h, w, "average"), halo.phase_dx_codes(h, w, "average"),
+                  halo.std_dx_codes(h, w, "average"), halo.up_adjoint_table(h, w, "average")]
+        print(f"[s{s} kernels] the halo tables of level {s} (the phase conv's, the standard "
+              f"conv's, the upsample's, the dx codes and the upsample adjoint at ({h},{w})) "
+              f"built on the host in {time.perf_counter() - t0:.2f} s: "
+              f"{nbytes(tables) / 2**20:.1f} MiB [{card}]", flush=True)
+        cases = [c for c in serving_cases(S67_BATCH, s) + training_cases(S67_BATCH, s)
+                 if c[3] not in ("std s2", "wide head")]
+        stats = kernel_vs_plain(card, cases, f"s{s} kernel", reps=3, lean=True)
+        for k, v in stats.items():
+            out[k][f"s{s}"] = {key: v[key] for key in ("max_abs_err", "cases", "ms", "plain_ms",
+                                                       "bound_ms")}
+        torch.cuda.empty_cache()
+    missing = [k for k in KERNELS if set(out[k]) != {f"s{s}" for s in S67_LEVELS}]
+    if missing:
+        raise AssertionError(f"[s6/s7 kernels] kernels with no s=6 or s=7 case: {missing}")
+    return dict(out)
+
+
+def batch_split_check(card: str):
+    """Phase [s6/s7 kernels], s=7 at B=56: the grid convs' and the up conv's
+    bf16 forward and dx at the shapes with the most GEMM rows (conv_in, up2
+    conv01, up2; 71,680 row tiles of 128, past gridDim.y's 65,535). Rows
+    are independent: each half of the batch's outputs must equal the B=28
+    call on that half bit for bit (the stats, the d_mul/d_add and Σg sums
+    over the batch, apart)."""
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    B, half, dt = SPLIT_BATCH, SPLIT_BATCH // 2, torch.bfloat16
+    h, w = 2 ** (SPLIT_LEVEL - 1), 2 ** SPLIT_LEVEL  # the level's phases
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w0, w1 = WIDTHS[:2]
+
+    def phases(c):
+        return [_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)]
+
+    def cot(c, n_sets):
+        return [[_rnd(gen, B, 5, h, w, c, dtype=dt) for _ in range(4)] for _ in range(n_sets)]
+
+    def grid_fwd(cin, act):
+        x, sets, a = phases(cin), [_taps(gen, cin, w0, dt)], _act(gen, cin) if act else None
+        return [x], lambda x: pk.phase_conv_fwd(x, sets, "average", _ALL, a, True)[0]
+
+    def grid_dx():
+        sets, a, x = [_taps(gen, w0, w0, dt)], _act(gen, w0), phases(w0)
+        g, y, gs = cot(w0, 1), cot(w0, 1), [_rnd(gen, 2, w0, scale=1e-3)]
+        return [g, x, y], lambda g, x, y: pk.phase_conv_dx(g, sets, "average", _ALL, w0, dt, a, x,
+                                                           y, gs)[0]
+
+    def up_fwd():
+        x, sets = _rnd(gen, B, 5, h, w, w1, dtype=dt), [_taps(gen, w1, w0, dt) for _ in range(2)]
+        return [x], lambda x: pk.up_dual_conv_fwd(x, sets, "average", True)[0]
+
+    def up_dx():
+        sets = [_taps(gen, w1, w0, dt) for _ in range(2)]
+        g, y, gs = cot(w0, 2), cot(w0, 2), [_rnd(gen, 2, w0, scale=1e-3) for _ in range(2)]
+        return [g, y], lambda g, y: pk.up_dual_conv_dx(g, sets, "average", dt, y, gs, True)[0]
+
+    def part(t, sl):
+        if isinstance(t, (list, tuple)):
+            return [part(u, sl) for u in t]
+        return t[sl].contiguous()
+
+    rows = B * 4 * 5 * h * w
+    at = f"({h},{w})"
+    for label, make in ((f"phase_conv_fwd conv_in {at} 3->64 +stats", lambda: grid_fwd(3, False)),
+                        (f"phase_conv_fwd up2 conv01 {at} 64->64 act+stats",
+                         lambda: grid_fwd(w0, True)),
+                        (f"phase_conv_dx up2 conv01 {at} 64->64 act+fold", grid_dx),
+                        (f"up_dual_conv_fwd up2 {at} 128->2x64 +stats", up_fwd),
+                        (f"up_dual_conv_dx up2 {at} 128->2x64 fold", up_dx)):
+        inputs, fn = make()
+        whole = flat(fn(*inputs))
+        torch.cuda.synchronize()
+        for k, sl in enumerate((slice(0, half), slice(half, B))):
+            got = flat(fn(*part(inputs, sl)))
+            torch.cuda.synchronize()
+            if len(got) != len(whole) or not all(torch.equal(u, v[sl])
+                                                  for u, v in zip(got, whole)):
+                raise AssertionError(f"[s{SPLIT_LEVEL} batch split] {label}: the B={B} call's "
+                                     f"samples "
+                                     f"{sl.start}-{sl.stop - 1} differ from the B={half} call")
+        print(f"[s{SPLIT_LEVEL} batch split] {label} bf16: B={B} ({rows} GEMM rows a set of output "
+              f"phases, {-(-rows // 128)} row tiles of 128), each half's {len(whole)} outputs "
+              f"equal the B={half} call on it bit for bit [{card}]", flush=True)
+        del inputs, fn, whole
+        torch.cuda.empty_cache()
+
+
+def device_synthetic(s: int, n: int, batch: int, seed: int):
+    """A training set of ``batch`` meshes at subdivision s: ``n`` distinct
+    random smooth meshes (``datasets.synthetic_vertices``, the JAX
+    package's recipe) repeated, their normal and Laplacian targets
+    computed on the card in one call each (``ops/mesh_math.py``, the
+    loss's own forms; ``synthetic_dataset``'s per-vertex Laplacian loop
+    takes seconds a mesh on the host at s=6/7)."""
+    import numpy as np
+
+    from geniconet_tpu_torch.data.datasets import IcoDataset, synthetic_vertices
+    from geniconet_tpu_torch.geometry import ico
+    from geniconet_tpu_torch.ops.mesh_math import laplacian, vertex_normals
+
+    rng = np.random.RandomState(seed)
+    v = np.stack([synthetic_vertices(s, rng) for _ in range(n)])[np.arange(batch) % n]
+    vc = torch.from_numpy(v).cuda()
+    targets = torch.cat([vc, vertex_normals(vc, s), laplacian(vc, s)], dim=-1)
+    H, W = ico.grid_shape(s)
+    return IcoDataset(v[:, :-2].reshape(batch, H, W, 3).astype(np.float32),
+                      targets.cpu().numpy(), subdivisions=s)
+
+
+def step_busy_ms(fn) -> float:
+    """The device busy time of one call of fn (the union of its device
+    events in a torch.profiler trace), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = Path(__file__).resolve().parent / "build" / "profile" / "step.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out))
+    events = [e for e in json.loads(out.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise AssertionError("step trace holds no device events")
+    return busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events)
+
+
+def plain_of(kernel: str):
+    """The plain PyTorch version of a kernel wrapper (same arguments, same
+    outputs)."""
+    from geniconet_tpu_torch.ops.kernels import conv_kernel as ck
+    from geniconet_tpu_torch.ops.kernels import phase_kernel as pk
+
+    if kernel == "stats_geff":
+        return pk.geff_plain
+    return getattr(pk, f"{kernel}_plain", None) or getattr(ck, f"{kernel}_plain")
+
+
+@contextlib.contextmanager
+def held_calls(tag: str, dt, card: str):
+    """Every kernel wrapper that ``ops/kernels/fused.py`` calls, held against
+    its plain version inside a step: each call runs the kernel as the path
+    does (its launch counts; its outputs go on), then the plain version on
+    the call's own inputs, and every output must be finite and within
+    ``TOL[dt]`` of its own max|ref|, as in the kernel-vs-plain phase; the
+    plain version must launch nothing. So each kernel is held at the shapes
+    and on the data of the path, the batch-wide sums included (the stats,
+    d_mul/d_add, Σg, the dtaps chunks). Yields {kernel: [calls, worst
+    error / max|ref|, worst max_abs_err, the most memory a plain call took
+    above what was allocated before it (MiB)]} and prints it on exit, with
+    the step's peak memory."""
+    from unittest import mock
+
+    from geniconet_tpu_torch.ops.kernels import build, fused
+
+    held, peak = {}, [0]
+
+    def holding(name, real, plain):
+        def call(*args, **kwargs):
+            got = real(*args, **kwargs)
+            before = dict(build.LAUNCHES)
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            ref = plain(*args, **kwargs)
+            extra = (torch.cuda.max_memory_allocated() - m0) / 2**20
+            if dict(build.LAUNCHES) != before:
+                raise AssertionError(f"[{tag}] {name}'s plain version launched a kernel")
+            g, r = flat(got), flat(ref)
+            if len(g) != len(r):
+                raise AssertionError(f"[{tag}] {name}: {len(g)} outputs, plain {len(r)}")
+            worst = held.setdefault(name, [0, 0.0, 0.0, 0.0])
+            worst[3] = max(worst[3], extra)
+            worst[0] += 1
+            for k, (u, v) in enumerate(zip(g, r)):
+                err = (u.float() - v.float()).abs().max().item()
+                scale = v.float().abs().max().item()
+                rel = err / scale if scale else (math.inf if err else 0.0)
+                if not (bool(torch.isfinite(u).all()) and rel <= TOL[dt]):
+                    raise AssertionError(f"[{tag}] {name} call {worst[0]} output {k} "
+                                         f"{tuple(u.shape)}: error {err} over tolerance "
+                                         f"{TOL[dt]} x {scale}")
+                worst[1], worst[2] = max(worst[1], rel), max(worst[2], err)
+            del ref, r
+            return got
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for k in KERNELS:
+            stack.enter_context(mock.patch.object(fused, k, holding(k, getattr(fused, k),
+                                                                    plain_of(k))))
+        yield held
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+    hog = max(held, key=lambda k: held[k][3])
+    print(f"[{tag}] every kernel call of the step held against its plain version on its own "
+          f"inputs, each output within {TOL[dt]:.0e} of its max|ref| (calls, worst relative "
+          f"error): " + ", ".join(f"{k} {n} {rel:.2e}" for k, (n, rel, *_) in sorted(held.items()))
+          + f"; peak memory {peak[0] / 2**20:.1f} MiB allocated (the plain versions' included; "
+          f"{hog}'s took the most, {held[hog][3]:.1f} MiB above what was allocated before it) "
+          f"[{card}]", flush=True)
+
+
+def s67_config(model: str, s: int, dtype_name: str = "bfloat16"):
+    cfg = train_config(dtype_name, TRAIN_BATCH, model)
+    cfg.model.subdivisions = s
+    return cfg
+
+
+def s67_train(card: str, launches: dict, held_bs: dict) -> dict:
+    """Phase [s6/s7 train]: the AE at s=6 and s=7, full width, bs36 bf16, on
+    the default route: S67_STEPS Adam steps from seeded weights, each loss
+    finite; the step time (host clock, synchronised; the first step apart),
+    the device busy time of one step and the peak memory of the run; then
+    one more step with every kernel call held against its plain version
+    (``held_calls``), which must hold every kernel of the path. At s=6 the
+    first step's loss must equal the plain route's (``pallas_blocks=
+    "none"``: every block on PyTorch ops and cuDNN) within 1e-2 (the bf16
+    step tests' bound), then one step of each routing of ``S67_ROUTES`` and
+    of the VAE, each with its calls held. Each path's launches join
+    ``launches`` (the held steps' plain versions launch nothing); the held
+    calls join ``held_bs`` ({kernel: {"s6"/"s7": {"calls", "max_rel_err",
+    "max_abs_err"}}}). Returns the s=6 dataset for [dp]."""
+    from geniconet_tpu_torch import bridge
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.nn.models import IcoAE
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    def held_step(path, tr, st, batch):
+        """One step of ``path`` with every kernel call held; the path's
+        kernels must all have been held. Returns the loss."""
+        level = f"s{tr.cfg.model.subdivisions}"
+        with held_calls(f"{level} train held] [{path}", torch.bfloat16, card) as held:
+            loss = float(tr.train_step(st, *batch)["total"])
+        missing = [k for k in PATH_KERNELS[path] if k not in held]
+        if missing or not math.isfinite(loss):
+            raise AssertionError(f"[{level} train] {path}: loss {loss}; kernels of the path "
+                                 f"not held: {missing}")
+        for k, (n, rel, err, _) in held.items():
+            v = held_bs.setdefault(k, {}).setdefault(level, {"calls": 0, "max_rel_err": 0.0,
+                                                             "max_abs_err": 0.0})
+            v["calls"] += n
+            v["max_rel_err"], v["max_abs_err"] = max(v["max_rel_err"], rel), max(v["max_abs_err"],
+                                                                                 err)
+        return loss
+
+    data = {}
+    for s in S67_LEVELS:
+        t0 = time.perf_counter()
+        ds = data[s] = device_synthetic(s, S67_MESHES, TRAIN_BATCH, seed=s)
+        print(f"[s{s} train] {TRAIN_BATCH} meshes ({S67_MESHES} distinct) built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        variables = bridge.init_variables(s, WIDTHS, seed=1)
+        x, y, wt = next(iter(Batches(ds, TRAIN_BATCH, shuffle=False, device="cuda").epoch()))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(s67_config("ico2ico", s), device="cuda")
+        st = tr.init_state(variables)
+        build.reset_launches()
+        losses, times = [], []
+        for _ in range(S67_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(tr.train_step(st, x, y, wt)["total"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        path = f"AE train (s{s})"
+        launches[path] = dict(build.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        busy = step_busy_ms(lambda: tr.train_step(st, x, y, wt))
+        print(f"[s{s} train] AE bs{TRAIN_BATCH} bf16, widths {WIDTHS}, default route: losses "
+              f"{[round(v, 6) for v in losses]}; step {statistics.median(times[1:]):.3f} ms "
+              f"(median of {len(times) - 1} after the first, {times[0]:.1f} ms; host clock, "
+              f"synchronised) = {TRAIN_BATCH / statistics.median(times[1:]) * 1e3:.1f} "
+              f"meshes/s; device busy {busy:.3f} ms a step; peak memory {peak:.1f} MiB above "
+              f"the batch (torch.cuda.max_memory_allocated, model, Adam and activations; "
+              f"{base / 2**20:.1f} MiB allocated before) [{card}]", flush=True)
+        print(f"[s{s} train] kernel launches: {launches[path]}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[s{s} train] non-finite loss: {losses}")
+        check_launches(path, launches[path], S67_STEPS)
+        held_step(path, tr, st, (x, y, wt))
+        del tr, st
+        torch.cuda.empty_cache()
+        if s != S67_LEVELS[0]:
+            continue
+        tr = Trainer(s67_config("ico2ico", s), device="cuda")
+        tr.model = IcoAE(s, WIDTHS, dtype=torch.bfloat16, pallas_blocks="none", device="cuda")
+        ref = float(tr.train_step(tr.init_state(variables), x, y, wt)["total"])
+        print(f"[s{s} train] the first step's loss {losses[0]:.6f}, the plain route's "
+              f"{ref:.6f}: {abs(losses[0] - ref) / abs(ref):.2e} of it (bound 1e-2) [{card}]",
+              flush=True)
+        if not abs(losses[0] - ref) <= 1e-2 * abs(ref):
+            raise AssertionError(f"[s{s} train] loss {losses[0]} vs the plain route's {ref}")
+        del tr
+        for route in S67_ROUTES:
+            tr = Trainer(s67_config("ico2ico", s), device="cuda", **routing(route))
+            st = tr.init_state(variables)
+            path = f"AE train (s{s}, {route[2:]}"
+            build.reset_launches()
+            loss = held_step(path, tr, st, (x, y, wt))
+            launches[path] = dict(build.LAUNCHES)
+            print(f"[s{s} train] AE{route}: one step, loss {loss:.6f} [{card}]", flush=True)
+            check_launches(path, launches[path], 1)
+            del tr, st
+        vae = "ico2ico_vae"
+        tr = Trainer(s67_config(vae, s), device="cuda")
+        st = tr.init_state(bridge.init_variables(s, WIDTHS, seed=1, model=vae,
+                                                 latent_features=LATENT))
+        path = f"VAE train (s{s})"
+        build.reset_launches()
+        loss = held_step(path, tr, st, (x, y, wt))
+        launches[path] = dict(build.LAUNCHES)
+        print(f"[s{s} train] VAE bs{TRAIN_BATCH} bf16, latent {LATENT}: one step, loss {loss:.6f} "
+              f"[{card}]", flush=True)
+        check_launches(path, launches[path], 1)
+        del tr, st
+        torch.cuda.empty_cache()
+    return data[S67_LEVELS[0]]
+
+
+# [dp]: two ranks, started by the script
+DP_RANKS = 2
+
+
+def state_bits(dp, tensors) -> torch.Tensor:
+    """(world, n) int32: each rank's float32 tensors flattened into one row
+    as raw bits (``DataParallel.gather``), to show the ranks hold the same
+    values bit for bit."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    return dp.gather(flat.view(torch.int32)[None])
+
+
+def dp_steps(dp, arrays, model: str, dtype_name: str, s: int, steps: int, evaluate: bool):
+    """``steps`` Adam steps of the default route at the global batch of
+    ``arrays`` (inputs, targets), this rank's slice under ``dp``, then the
+    eval step: metrics, eval and count, the variables, the launches and,
+    under ``dp``, every rank's state bits."""
+    from geniconet_tpu_torch import bridge
+    from geniconet_tpu_torch.data.datasets import IcoDataset
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(s67_config(model, s, dtype_name), device="cuda", dp=dp)
+    st = tr.init_state(bridge.init_variables(s, WIDTHS, seed=1, model=model,
+                                             latent_features=LATENT))
+    shard = {} if dp is None else dict(rank=dp.rank, world=dp.world)
+    ds = IcoDataset(*arrays, subdivisions=s)
+    x, y, wt = next(iter(Batches(ds, TRAIN_BATCH, shuffle=False, device=tr.device,
+                                 **shard).epoch()))
+    build.reset_launches()
+    out, times = {"steps": []}, []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["steps"].append({k: float(v) for k, v in tr.train_step(st, x, y, wt).items()})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = times
+    if evaluate:
+        ev, cnt = tr.eval_step(x, y, wt)
+        out.update(eval={k: float(v) for k, v in ev.items()}, count=float(cnt))
+    out["launches"] = dict(build.LAUNCHES)
+    out["variables"] = tr.variables()
+    if dp is not None:
+        out["bits"] = state_bits(dp, tr.model.state_dict().values()).cpu().numpy()
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, work: str):
+    """One rank of [dp] (a spawned process): the process group over the
+    card(s) (``parallel/dist.py``: one card each over NCCL, else one shared
+    card over gloo), then the AE float32 s=5 steps with eval, an s=6 bf16
+    step and a VAE bf16 step; its results into ``work``."""
+    import numpy as np
+
+    from geniconet_tpu_torch.ops.kernels import build
+    from geniconet_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp = dist.init(rank=rank, world=world, local_rank=rank, local_world=world,
+                   init_method=f"tcp://localhost:{port}", timeout_s=600)
+    try:
+        build.library()
+        data = np.load(f"{work}/data.npz")
+        s5, s6 = (data["x5"], data["y5"]), (data["x6"], data["y6"])
+        out = {"dp": str(dp), "backend": dp.backend,
+               "ae": dp_steps(dp, s5, "ico2ico", "float32", SUBDIVISIONS, 2, True),
+               "s6": dp_steps(dp, s6, "ico2ico", "bfloat16", S67_LEVELS[0], 1, False),
+               "vae": dp_steps(dp, s5, "ico2ico_vae", "bfloat16", SUBDIVISIONS, 1, False)}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, f"{work}/rank{rank}.pt")
+
+
+def dp_phase(card: str, s5, s6, launches: dict):
+    """Phase [dp]: ``DP_RANKS`` ranks started here (torch.multiprocessing,
+    spawn), on one card each over NCCL where there are as many, else
+    sharing the card over gloo. Two float32 steps and an eval of the AE on
+    the kernel route at s=5, global bs36, must match one process at bs36
+    (this one): the loss and eval to rtol 2e-6, the parameters and
+    BatchNorm statistics to rtol 1e-4 / atol 1e-6 (the JAX package's bounds
+    for its own DP, tests/test_pallas_dp.py); every rank's parameters and
+    running statistics bit for bit; an s=6 bf16 step at full width and a
+    VAE bf16 step with finite losses. A rank's failure fails the phase (the
+    spawn raises)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    def close(a, b, rtol, atol, what):
+        a, b = np.asarray(a), np.asarray(b)
+        if not np.allclose(a, b, rtol=rtol, atol=atol):
+            err = np.abs(a - b).max()
+            raise AssertionError(f"[dp] {what}: max |DP - one process| {err} over rtol {rtol}, "
+                                 f"atol {atol}")
+
+    def leaves(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, f"{prefix}/{k}") if isinstance(v, dict) else {f"{prefix}/{k}": v})
+        return out
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        np.savez(f"{work}/data.npz", x5=s5[0], y5=s5[1], x6=s6[0], y6=s6[1])
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_RANKS, port, work), nprocs=DP_RANKS, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    one = dp_steps(None, s5, "ico2ico", "float32", SUBDIVISIONS, 2, True)
+    print(f"[dp] {DP_RANKS} ranks, {ranks[0]['dp']} (rank 1: {ranks[1]['dp']}; "
+          f"{torch.cuda.device_count()} card(s)): the ranks ran {wall:.1f} s, start included "
+          f"[{card}]", flush=True)
+    for r, res in enumerate(ranks):
+        got = res["ae"]
+        for k, (g, o) in enumerate(zip(got["steps"], one["steps"], strict=True)):
+            close(g["total"], o["total"], 2e-6, 0.0, f"rank {r} step {k} loss")
+        close(got["eval"]["total"], one["eval"]["total"], 2e-6, 0.0, f"rank {r} eval")
+        if not got["count"] == one["count"] == TRAIN_BATCH:
+            raise AssertionError(f"[dp] rank {r} count {got['count']}, one process "
+                                 f"{one['count']}")
+        ref = leaves(one["variables"])
+        for k, v in leaves(got["variables"]).items():
+            close(v, ref[k], 1e-4, 1e-6, f"rank {r} {k}")
+        bits = res["ae"]["bits"]
+        if not (bits == bits[:1]).all():
+            raise AssertionError(f"[dp] rank {r} sees the ranks' parameters and statistics "
+                                 "differ")
+    print(f"[dp] AE float32 s={SUBDIVISIONS}, global bs{TRAIN_BATCH} "
+          f"({TRAIN_BATCH // DP_RANKS} a rank), kernel route: losses {[s['total'] for s in ranks[0]['ae']['steps']]} vs one "
+          f"process {[s['total'] for s in one['steps']]}, eval {ranks[0]['ae']['eval']['total']}"
+          f" vs {one['eval']['total']} (rtol 2e-6), count {ranks[0]['ae']['count']}; "
+          f"parameters and BatchNorm statistics within rtol 1e-4 / atol 1e-6; the ranks' "
+          f"state bit-equal; step ms rank 0 {[round(t, 3) for t in ranks[0]['ae']['ms']]}, "
+          f"one process {[round(t, 3) for t in one['ms']]} [{card}]", flush=True)
+    for key, what in (("s6", f"AE bf16 s={S67_LEVELS[0]}, full width, global bs{TRAIN_BATCH}"),
+                      ("vae", f"VAE bf16 s={SUBDIVISIONS}, global bs{TRAIN_BATCH}")):
+        losses = [res[key]["steps"][0]["total"] for res in ranks]
+        if not all(math.isfinite(v) for v in losses) or len(set(losses)) != 1:
+            raise AssertionError(f"[dp] {what}: the ranks' losses {losses}")
+        print(f"[dp] {what}: one step, loss {losses[0]:.6f} on every rank, "
+              f"{ranks[0][key]['ms'][0]:.1f} ms on rank 0 (its first step) [{card}]", flush=True)
+    for path, keys in (("AE train (dp)", ("ae", "s6")), ("VAE train (dp)", ("vae",))):
+        launches[path] = dict(sum((collections.Counter(res[k]["launches"]) for res in ranks
+                                   for k in keys), collections.Counter()))
+        print(f"[dp] {path} kernel launches, both ranks: {launches[path]}", flush=True)
+        check_launches(path, launches[path])
+    return ranks[0]["backend"]
+
+
 TRAIN_ROUTES = {"ico2ico": ("", " (merged)", " (chain)", " (chain, merged)",
                             " (chain, fold outside)", " (chain all)", " (chain all, merged)",
                             " (chain all, fold outside)", " (chain dec)", " (merged block)",
@@ -3134,6 +3747,8 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_shapes")}
         else:
             stats[k] = v
+    s67 = s67_kernels(card)
+    batch_split_check(card)
     launches = {"std s2 train (op)": stride2_op(card)}  # path -> kernel launches in its run
     check_launches("std s2 train (op)", launches["std s2 train (op)"])
 
@@ -3203,6 +3818,14 @@ def main():
             check_launches(p, launches[p])
     print(f"[fit] phase ran {time.perf_counter() - t0:.1f} s, the {VAL_MESHES} validation "
           f"meshes' build and the [eval] phase included", flush=True)
+    t0 = time.perf_counter()
+    held_bs = {}  # kernel -> its calls held inside the s=6/7 bs36 steps
+    s6_data = s67_train(card, launches, held_bs)
+    print(f"[s6/s7 train] phase ran {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dp_phase(card, (dataset.inputs[:TRAIN_BATCH], dataset.targets[:TRAIN_BATCH]),
+             (s6_data.inputs, s6_data.targets), launches)
+    print(f"[dp] phase ran {time.perf_counter() - t0:.1f} s", flush=True)
 
     profiled = []
     for path, (tr, st, (x, y, wt), _) in ((p, r["bfloat16"]) for p, r in runs.items()):
@@ -3226,7 +3849,7 @@ def main():
          "launches": count(k, "serve") + count(k, "train"),
          "serving_launches": count(k, "serve"), "training_launches": count(k, "train"),
          "launches_by_path": {path: n.get(k, 0) for path, n in launches.items()},
-         **stats[k]}
+         **stats[k], **s67[k], f"held_bs{TRAIN_BATCH}": held_bs.get(k, {})}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

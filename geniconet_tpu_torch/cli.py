@@ -12,8 +12,16 @@ package's flags (``train/config.py:parse_args``)::
     python -m geniconet_tpu_torch.cli --model ico2ico --process decode ...
     python -m geniconet_tpu_torch.cli --model ico2ico_vae --process sample ...
     python -m geniconet_tpu_torch.cli --model ico2ico --load_pt ico2ico_EB696.pt --process test ...
+    torchrun --nproc_per_node 4 -m geniconet_tpu_torch.cli --model ico2ico --process train \
+        --subdivision 6 --synthetic 64 --compute_dtype bfloat16 --batch_size 36
 
-Every process runs on the card unless ``--device cpu`` is given.
+Every process runs on the card unless ``--device cpu`` is given. Under
+``torchrun`` training is data-parallel over the ranks (``parallel/dist.py``;
+``--batch_size`` is the global batch, which the ranks must divide) unless
+``--no_data_parallel`` is given, which torchrun with more than one rank
+refuses; rank r runs on ``cuda:LOCAL_RANK``, over NCCL when each rank has a
+card and gloo when ranks share one (or ``--device cpu``), and rank 0 alone
+logs and writes checkpoints.
 Checkpoints are the JAX package's ``.ckpt`` files under
 ``<logDir>/<ae|vae>/savedModel``, so either package resumes or serves the
 other's; ``--load_pt`` first turns a reference ``.pt`` file into such an
@@ -38,6 +46,7 @@ from geniconet_tpu_torch.data.pipeline import Batches
 from geniconet_tpu_torch.eval.test_driver import resolve_checkpoint, run_decode, run_test
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
+from geniconet_tpu_torch.parallel import dist as dist_lib
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.config import Config, parse_args
 from geniconet_tpu_torch.train.logging import Logger
@@ -45,7 +54,8 @@ from geniconet_tpu_torch.train.pt_import import load_reference_checkpoint
 from geniconet_tpu_torch.train.summary import count_params, model_graph_dot, model_summary
 from geniconet_tpu_torch.train.trainer import Trainer, fresh_variables
 
-__all__ = ["load_datasets", "routing_from_env", "resume_path", "experiment_train",
+__all__ = ["load_datasets", "routing_from_env", "resume_path", "data_parallel",
+           "experiment_train",
            "experiment_test", "experiment_encode", "experiment_decode", "experiment_sample",
            "import_pt_checkpoint", "main"]
 
@@ -103,32 +113,57 @@ def resume_path(cfg: Config):
     return None
 
 
+def data_parallel(cfg: Config):
+    """This rank's ``DataParallel`` when the process runs under torchrun
+    (``WORLD_SIZE`` set) and ``cfg.train.data_parallel``, else None; the
+    process group starts here. ``--no_data_parallel`` under torchrun with
+    more than one rank raises: each rank would train alone into the same
+    files."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    if not cfg.train.data_parallel:
+        if int(os.environ["WORLD_SIZE"]) > 1:
+            raise SystemExit("--no_data_parallel under torchrun with more than one rank: "
+                             "run one process without torchrun instead")
+        return None
+    dp = dist_lib.init(device_type=torch.device(cfg.device).type)
+    print(f"[train] data parallel: {dp}", flush=True)
+    return dp
+
+
 def experiment_train(cfg: Config):
     """Train (or resume) and return the validation history (reference
-    experiment_train, run.py:412-497)."""
+    experiment_train, run.py:412-497); data-parallel under torchrun
+    (``data_parallel``)."""
     trn_ds, val_ds = load_datasets(cfg)
     if cfg.train.quick_learn:
         trn_ds = val_ds  # smoke-test mode (reference run.py:416-421)
+    dp = data_parallel(cfg)
+    main = dp is None or dp.rank == 0
     log_dir = cfg.model_log_dir()
-    logger = Logger(log_dir)
+    logger = Logger(log_dir) if main else None
     try:
-        cfg.save(os.path.join(log_dir, "config.json"))
-        logger.text("config", cfg.to_json())
+        if main:
+            cfg.save(os.path.join(log_dir, "config.json"))
+            logger.text("config", cfg.to_json())
         routing = routing_from_env()
-        trainer = Trainer(cfg, device=cfg.device, logger=logger, **routing)
-        print(f"[train] device {trainer.device}, routing {routing}")
+        trainer = Trainer(cfg, device=cfg.device, logger=logger, dp=dp, **routing)
+        if main:
+            print(f"[train] device {trainer.device}, routing {routing}")
         variables = fresh_variables(cfg)
         state = trainer.init_state(variables, seed=cfg.train.seed)
-        print(f"[train] optimizable parameters: {count_params(variables['params'])}")
-        # the parameter table and the graph drawing at train start
-        # (torchsummary's summary_string/draw_graph, reference run.py:427-430)
-        summ = model_summary(variables)
-        with open(os.path.join(log_dir, f"train_{cfg.model.name}_summary.txt"), "w") as f:
-            f.write(summ)
-        logger.text("model_summary", summ)
-        dot = model_graph_dot(variables, type(trainer.model).__name__, trn_ds.inputs[:1].shape)
-        with open(os.path.join(log_dir, f"train_{cfg.model.name}_graph.dot"), "w") as f:
-            f.write(dot)
+        if main:
+            print(f"[train] optimizable parameters: {count_params(variables['params'])}")
+            # the parameter table and the graph drawing at train start
+            # (torchsummary's summary_string/draw_graph, reference run.py:427-430)
+            summ = model_summary(variables)
+            with open(os.path.join(log_dir, f"train_{cfg.model.name}_summary.txt"), "w") as f:
+                f.write(summ)
+            logger.text("model_summary", summ)
+            dot = model_graph_dot(variables, type(trainer.model).__name__,
+                                  trn_ds.inputs[:1].shape)
+            with open(os.path.join(log_dir, f"train_{cfg.model.name}_graph.dot"), "w") as f:
+                f.write(dot)
         start_epoch, best_loss = 0, math.inf
         if cfg.train.load_pretrained_model:
             path = resume_path(cfg)
@@ -138,13 +173,18 @@ def experiment_train(cfg: Config):
             else:
                 print("[train] no checkpoint found to resume; starting fresh")
         bs = cfg.train.batch_size
-        trn = Batches(trn_ds, bs, shuffle=True, seed=cfg.train.seed, device=cfg.device)
-        val = Batches(val_ds, bs, shuffle=False, device=cfg.device)
+        shard = {} if dp is None else dict(rank=dp.rank, world=dp.world)
+        trn = Batches(trn_ds, bs, shuffle=True, seed=cfg.train.seed, device=trainer.device,
+                      **shard)
+        val = Batches(val_ds, bs, shuffle=False, device=trainer.device, **shard)
         # the reference's detect_anomaly (run.py:237) under --debug_nans
         with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
             _, history = trainer.fit(state, trn, val, start_epoch, best_loss)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+        if dp is not None:
+            torch.distributed.destroy_process_group()
     return history
 
 

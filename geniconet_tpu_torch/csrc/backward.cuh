@@ -389,13 +389,14 @@ cudaError_t launch_dtaps_gemm(const Loader& ld, const G& gl, const int* table, i
 
 // Bias gradient, first pass: part[chunk][n] = sum of G (folded) over the
 // chunk's `rows` rows q of the flattened (sample, slot, cell) axis.
-// Block (32, 8): 32 columns, 8 row lanes.
+// Block (32, 8): 32 columns, 8 row lanes; grid (chunk x, column tile y),
+// the chunks in x, whose count has no 65,535 limit.
 template <typename G>
 __global__ void __launch_bounds__(256)
 colsum(G gl, int Q, int rows, int Ntot, float* __restrict__ part) {
   __shared__ float red[8][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  const int q_lo = blockIdx.y * rows;
+  const int n = blockIdx.y * 32 + threadIdx.x;
+  const int q_lo = blockIdx.x * rows;
   const int q_hi = min(q_lo + rows, Q);
   const int per_b = gl.n_out * gl.M;
   float acc = 0.f;
@@ -409,7 +410,7 @@ colsum(G gl, int Q, int rows, int Ntot, float* __restrict__ part) {
   if (threadIdx.y == 0 && n < Ntot) {
     float s = 0.f;
     for (int y = 0; y < 8; ++y) s += red[y][threadIdx.x];
-    part[(size_t)blockIdx.y * Ntot + n] = s;
+    part[(size_t)blockIdx.x * Ntot + n] = s;
   }
 }
 
@@ -419,12 +420,12 @@ cudaError_t launch_gsum(const G& gl, int B, int n_sets, int rows, float* ws, flo
                         float* gsum1, cudaStream_t stream) {
   const int Q = B * gl.n_out * gl.M;
   const int Ntot = n_sets * gl.cout;
-  dim3 grid((Ntot + 31) / 32, (Q + rows - 1) / rows);
+  dim3 grid((Q + rows - 1) / rows, (Ntot + 31) / 32);
   colsum<G><<<grid, dim3(32, 8), 0, stream>>>(gl, Q, rows, Ntot, ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   SplitOut st = {{gsum0, gsum1}, Ntot, gl.cout};
-  return launch_sum_rows(ws, (int)grid.y, (long long)Ntot, st, stream);
+  return launch_sum_rows(ws, (int)grid.x, (long long)Ntot, st, stream);
 }
 
 // The merged backward: ONE launch runs every tile of a conv's backward, with

@@ -618,18 +618,21 @@ __device__ __forceinline__ void mma_conv_tile(const OperandRows& ld,
   epi(acc, p, smem_raw);
 }
 
-// The GEMM as one launch: block (column tile, row tile). Tag (GridCells,
-// PairCells, PhaseGrid or StdGrid) names the instantiation, so a profile
-// tells the up conv's launches from n's and the grid convs'; the code is
-// one.
+// The GEMM as one launch: block x = row tile * column tiles + column tile
+// (the column tiles of a row tile adjacent, as a (column, row) grid would
+// run them; one dimension, as row tiles pass gridDim.y's 65,535 at s=7 from
+// B=52). Tag (GridCells, PairCells, PhaseGrid or StdGrid) names the
+// instantiation, so a profile tells the up conv's launches from n's and the
+// grid convs'; the code is one.
 template <typename Tag, typename Epi>
 __global__ void __launch_bounds__(fwd::NT, 2)
 mma_conv(OperandRows ld, const __nv_bfloat16* __restrict__ wp, Epi epi, int out_phase0,
          int n_out, int Q, int Np, int ksteps, const unsigned char* __restrict__ tap_mask,
          int mask_period) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mma_conv_tile(ld, wp, epi, out_phase0, n_out, Q, Np, ksteps, tap_mask, mask_period, blockIdx.x,
-                blockIdx.y, smem_raw);
+  const unsigned cols = (unsigned)(Np / fwd::BN);
+  mma_conv_tile(ld, wp, epi, out_phase0, n_out, Q, Np, ksteps, tap_mask, mask_period,
+                (int)(blockIdx.x % cols), (int)(blockIdx.x / cols), smem_raw);
 }
 
 template <typename Tag, typename Epi>
@@ -641,18 +644,20 @@ cudaError_t mma_conv_attr() {
 // Row tiles of the GEMM over Q rows (the stats partials' rows).
 inline int fwd_row_tiles(long long Q) { return (int)((Q + fwd::BM - 1) / fwd::BM); }
 
-// One launch of the GEMM with its epilogue (its shared memory allowed
-// first); the tap masks' period is one sample's n_out * M rows (the dx
-// GEMMs' input phases: 4 for a and c, 1 for f).
+// One launch of the GEMM over Q rows with its epilogue (its shared memory
+// allowed first): Np / BN column tiles times fwd_row_tiles(Q) row tiles,
+// one block each; the tap masks' period is one sample's n_out * M rows (the
+// dx GEMMs' input phases: 4 for a and c, 1 for f).
 template <typename Tag, typename Epi>
-cudaError_t launch_mma_conv(const dim3& grid, const OperandRows& ld,
-                            const __nv_bfloat16* wpack, const Epi& epi, int out_phase0,
-                            int n_out, int Q, int Np, int ksteps, const unsigned char* tap_mask,
-                            cudaStream_t stream) {
+cudaError_t launch_mma_conv(const OperandRows& ld, const __nv_bfloat16* wpack, const Epi& epi,
+                            int out_phase0, int n_out, int Q, int Np, int ksteps,
+                            const unsigned char* tap_mask, cudaStream_t stream) {
+  const long long blocks = (long long)(Np / fwd::BN) * fwd_row_tiles(Q);
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
   cudaError_t err = mma_conv_attr<Tag, Epi>();
   if (err != cudaSuccess) return err;
-  mma_conv<Tag, Epi><<<grid, fwd::NT, fwd::SMEM, stream>>>(ld, wpack, epi, out_phase0, n_out, Q,
-                                                           Np, ksteps, tap_mask, n_out * ld.M);
+  mma_conv<Tag, Epi><<<(unsigned)blocks, fwd::NT, fwd::SMEM, stream>>>(
+      ld, wpack, epi, out_phase0, n_out, Q, Np, ksteps, tap_mask, n_out * ld.M);
   return cudaGetLastError();
 }
 
@@ -675,10 +680,9 @@ cudaError_t launch_mma_fwd_rows(const OperandRows& ld, const FwdOut& o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int Q = B * n_out * ld.M, row_tiles = fwd_row_tiles(Q);
-  const dim3 grid(Np / fwd::BN, row_tiles);
   auto gemm = [&](const auto& epi) {
-    return launch_mma_conv<Tag>(grid, ld, wpack, epi, out_phase0, n_out, Q, Np, Kp / fwd::BK,
-                                nullptr, stream);
+    return launch_mma_conv<Tag>(ld, wpack, epi, out_phase0, n_out, Q, Np, Kp / fwd::BK, nullptr,
+                                stream);
   };
   if constexpr (SPLIT) {
     err = o.stats != nullptr
@@ -788,8 +792,7 @@ cudaError_t launch_mma_dx_rows(const OperandRows& ld, const Epi& epi, const __nv
   cudaError_t err = launch_pack_taps_t<Tag>(w0, w1, wpack, cin, cout, n_sets, stream);
   if (err != cudaSuccess) return err;
   const int Q = B * n_in * ld.M;
-  return launch_mma_conv<Tag>(dim3(Np / fwd::BN, fwd_row_tiles(Q)), ld, wpack, epi, 0, n_in, Q,
-                              Np, Kp / fwd::BK, tap_mask, stream);
+  return launch_mma_conv<Tag>(ld, wpack, epi, 0, n_in, Q, Np, Kp / fwd::BK, tap_mask, stream);
 }
 
 // The bf16 dx tables and scratch of a and c (halo.phase_dx_codes, n_in =

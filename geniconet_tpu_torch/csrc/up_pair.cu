@@ -201,10 +201,10 @@ __device__ __forceinline__ void store4(bf16* __restrict__ dst, int k0, int cin, 
   for (int e = 0; e < 4 && k0 + e < cin; ++e) dst[e] = __float2bfloat16_rn(v[e]);
 }
 
-// n's last bf16 pass. Block (column tile x, row block y): thread (tx, ty)
-// takes channels k0 = 4 * (x * PA_COLS + tx) .. k0 + 3 of the level-s
-// cells r0 + ty, r0 + ty + PA_LANES, ... (r0 = y * PA_ROWS, flat over the
-// B * M cells). Each cell's dx is c's float32 sum (gn::up_adjoint_sum);
+// n's last bf16 pass. Block (row block x, column tile y; the row blocks in
+// x, whose count has no 65,535 limit): thread (tx, ty) takes channels
+// k0 = 4 * (y * PA_COLS + tx) .. k0 + 3 of the level-s cells r0 + ty,
+// r0 + ty + PA_LANES, ... (r0 = x * PA_ROWS, flat over the B * M cells). Each cell's dx is c's float32 sum (gn::up_adjoint_sum);
 // before any rounding the tail's adjoint runs against the raw pair at the
 // cell's phase and row (split_row): dm = dx where pair_pre > 0, else 0;
 // db0 = bf16(dm * mul1), dy10 = bf16(dm * mul2) (as DxPairOut). The
@@ -217,7 +217,7 @@ __global__ void __launch_bounds__(PA_COLS * PA_LANES)
 pair_adjoint_pass(UpAdjoint adj, PairTail tail, int M, int cin, int vec, long long rows) {
   __shared__ float part[3][PA_LANES][PA_COLS * 4];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int k0 = (blockIdx.x * PA_COLS + tx) * 4;
+  const int k0 = (blockIdx.y * PA_COLS + tx) * 4;
   float aff[4][4], sa[4], sd[4], sb[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -225,7 +225,7 @@ pair_adjoint_pass(UpAdjoint adj, PairTail tail, int M, int cin, int vec, long lo
 #pragma unroll
     for (int j = 0; j < 4; ++j) aff[j][e] = k0 + e < cin ? __ldg(&tail.aff[j][k0 + e]) : 0.f;
   }
-  const long long r0 = (long long)blockIdx.y * PA_ROWS;
+  const long long r0 = (long long)blockIdx.x * PA_ROWS;
   for (int i = ty; k0 < cin && i < PA_ROWS && r0 + i < rows; i += PA_LANES) {
     const long long r = r0 + i;
     const int b = (int)(r / M), m = (int)(r - (long long)b * M);
@@ -259,12 +259,12 @@ pair_adjoint_pass(UpAdjoint adj, PairTail tail, int M, int cin, int vec, long lo
   // one thread a (sum, column) of the tile: the row lanes in order
   for (int j = ty * PA_COLS + tx; j < 3 * PA_COLS * 4; j += PA_COLS * PA_LANES) {
     const int s = j / (PA_COLS * 4), col = j - s * PA_COLS * 4;
-    const int k = blockIdx.x * PA_COLS * 4 + col;
+    const int k = blockIdx.y * PA_COLS * 4 + col;
     if (k >= cin) continue;
     float acc = 0.f;
 #pragma unroll
     for (int l = 0; l < PA_LANES; ++l) acc += part[s][l][col];
-    tail.red[(size_t)blockIdx.y * 3 * cin + (size_t)s * cin + k] = acc;
+    tail.red[(size_t)blockIdx.x * 3 * cin + (size_t)s * cin + k] = acc;
   }
 }
 
@@ -288,7 +288,7 @@ cudaError_t dx_mma(const gn::GLoad<bf16>& gl, const void* w0, const void* w1,
   if (err != cudaSuccess) return err;
   const long long rows = (long long)B * M;
   const int row_blocks = (int)((rows + PA_ROWS - 1) / PA_ROWS);
-  const dim3 grid((cin + 4 * PA_COLS - 1) / (4 * PA_COLS), row_blocks);
+  const dim3 grid(row_blocks, (cin + 4 * PA_COLS - 1) / (4 * PA_COLS));
   auto aligned8 = [](const void* q) { return (reinterpret_cast<size_t>(q) & 7) == 0; };
   int vec = cin % 4 == 0;
   for (int p = 0; p < 4; ++p)

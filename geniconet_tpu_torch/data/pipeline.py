@@ -1,10 +1,18 @@
 """Shuffled training batches from a dataset held on the device.
 
-Port of ``geniconet_tpu/data/pipeline.py:Batches`` for one device: the
-packed dataset is copied to ``device`` once and every batch is an index
-gather there, so only the index array moves per step. The shuffle stream is
-the JAX package's (``np.random.RandomState(seed)``, one shuffle per epoch),
-so both packages see the same batches in the same order.
+Port of ``geniconet_tpu/data/pipeline.py:Batches``: the packed dataset is
+copied to ``device`` once and every batch is an index gather there, so only
+the index array moves per step. The shuffle stream is the JAX package's
+(``np.random.RandomState(seed)``, one shuffle per epoch), so both packages
+see the same batches in the same order.
+
+Data parallelism (``world`` ranks; the JAX ``sharding``): ``batch_size`` is
+the global batch, which ``world`` must divide. Every rank shuffles with the
+same seed and takes its contiguous slice of each global batch (shard i of
+``data_sharding``). A ragged training batch is cut to a multiple of the
+world (zero weights cannot mask the BatchNorm moments), and the training
+loader drops the ragged tail by default; a ragged eval batch is padded to
+a multiple of the world with zero-weight rows that repeat sample 0.
 """
 
 from __future__ import annotations
@@ -16,23 +24,39 @@ import torch
 
 from geniconet_tpu_torch import device as devices
 from geniconet_tpu_torch.data.datasets import IcoDataset
+from geniconet_tpu_torch.parallel.dist import shard_slice
 
-__all__ = ["Batches"]
+__all__ = ["Batches", "pad_to_multiple"]
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
 
 
 class Batches:
     """Iterable over (inputs, targets, weights) batches on ``device``.
 
     inputs (B, H, W, 3) and targets (B, V, 9) float32; weights (B,) float32
-    ones. ``drop_remainder`` False keeps the ragged last batch, as a torch
-    DataLoader and the JAX Batches without sharding do. ``device``: the
-    card by default; ``"cpu"`` for the CPU."""
+    (ones, and zeros on an eval batch's padding). ``drop_remainder`` None is
+    the JAX default: drop the ragged last batch when shuffling a sharded
+    loader, else keep it, as a torch DataLoader does. ``rank``, ``world``:
+    this rank of a data-parallel run over ``world`` ranks (module doc);
+    ``world`` None for one process. ``device``: the card by default;
+    ``"cpu"`` for the CPU."""
 
     def __init__(self, dataset: IcoDataset, batch_size: int, shuffle: bool = True,
-                 drop_remainder: bool = False, seed: int = 0, device="cuda"):
+                 drop_remainder: bool | None = None, seed: int = 0, device="cuda",
+                 rank: int = 0, world: int | None = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.rank, self.world = rank, world
+        if world is not None and batch_size % world:
+            raise ValueError(f"global batch_size {batch_size} must be divisible by the {world} "
+                             f"ranks (the batch of each must be the same); pick e.g. "
+                             f"{pad_to_multiple(batch_size, world)}")
+        if drop_remainder is None:
+            drop_remainder = shuffle and world is not None
         self.drop_remainder = drop_remainder
         self.device = devices.resolve(device)
         self._rng = np.random.RandomState(seed)
@@ -45,15 +69,37 @@ class Batches:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def epoch_indices(self) -> Iterator[tuple]:
-        """Yield (idx, wt) host arrays for one epoch."""
+    def global_indices(self) -> Iterator[tuple]:
+        """Yield the global batches' (idx, wt) host arrays for one epoch
+        (the JAX ``epoch_indices``)."""
         order = np.arange(len(self.ds))
         if self.shuffle:
             self._rng.shuffle(order)
-        bs = self.batch_size
+        bs, world = self.batch_size, self.world
         for i in range(len(self)):
             idx = order[i * bs : (i + 1) * bs]
-            yield idx, np.ones(len(idx), np.float32)
+            if len(idx) < bs and world is not None and self.shuffle:
+                keep = (len(idx) // world) * world
+                if keep == 0:
+                    raise ValueError(f"dataset slice of {len(idx)} samples cannot feed "
+                                     f"{world} ranks; add data or use fewer ranks")
+                idx = idx[:keep]
+            wt = np.ones(len(idx), np.float32)
+            if len(idx) < bs and world is not None and not self.shuffle:
+                pad = pad_to_multiple(len(idx), world) - len(idx)
+                if pad:  # padded rows repeat sample 0; wt=0 masks them in the loss
+                    idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+                    wt = np.concatenate([wt, np.zeros(pad, np.float32)])
+            yield idx, wt
+
+    def epoch_indices(self) -> Iterator[tuple]:
+        """Yield this rank's (idx, wt) host arrays for one epoch: its
+        contiguous slice of each global batch."""
+        for idx, wt in self.global_indices():
+            if self.world is not None:
+                part = shard_slice(len(idx), self.rank, self.world)
+                idx, wt = idx[part], wt[part]
+            yield idx, wt
 
     def epoch(self) -> Iterator[tuple]:
         """Yield (inputs, targets, weights) for one epoch, gathered on the device."""

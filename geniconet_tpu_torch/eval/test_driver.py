@@ -27,7 +27,7 @@ from geniconet_tpu_torch.data.datasets import IcoDataset, natural_sort
 from geniconet_tpu_torch.data.offio import write_off
 from geniconet_tpu_torch.geometry import ico
 from geniconet_tpu_torch.nn.models import IcoVAE
-from geniconet_tpu_torch.ops.point_mesh import point_to_mesh_distance
+from geniconet_tpu_torch.ops.point_mesh import pair_chunk, point_to_mesh_distance
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.config import Config
@@ -39,10 +39,11 @@ __all__ = ["resolve_checkpoint", "restore_model", "reconstruct", "distance_chunk
 
 def distance_chunk(device: torch.device, n_points: int) -> int:
     """Triangles a step of ``point_to_mesh_distance`` for ``n_points`` points
-    (its result does not depend on it): 2,048 on the card; on a CPU about a
-    million (point, triangle) pairs, at least 128, so that a step's (P,
-    chunk) tensors stay in the caches and a small mesh takes few steps."""
-    return 2048 if device.type == "cuda" else max(128, (1 << 20) // n_points)
+    (its result does not depend on it): on the card ``pair_chunk`` (2,048 at
+    s=5, fewer as the points grow); on a CPU about a million (point,
+    triangle) pairs, at least 128, so that a step's (P, chunk) tensors stay
+    in the caches and a small mesh takes few steps."""
+    return pair_chunk(n_points) if device.type == "cuda" else max(128, (1 << 20) // n_points)
 
 
 def resolve_checkpoint(cfg: Config) -> str:

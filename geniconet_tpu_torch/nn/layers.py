@@ -54,7 +54,17 @@ kernel o), which computes bn00's affine from its own batch moments and
 takes bn00's raw scale and bias (``IcoBatchNorm.kernel_affine``). As in
 JAX, the encoder's chain comes first (a chained DownBlock never merges) and
 an UpBlock that takes a pair never merges, so on the decoder's chain only
-up0 does. Its backward is the split blocks' kernels.
+up0 does. Its backward is the split blocks' kernels. Under data
+parallelism no block merges (JAX's ``axis_name is None`` gate): the
+kernel's affine would take this rank's moments, not the global batch's.
+
+Data parallelism (``dp``, a ``parallel/dist.py:DataParallel``; JAX's
+``axis_name``): in train mode every BatchNorm takes the global batch's
+moments, ``all_reduce_mean`` of its stacked [Σy/count, Σy²/count] over the
+ranks before the variance, ``count`` local (``layers.py:219-220``), on the
+kernel route and on the plain route. The all-reduce sits between a
+kernel's stats output and the affine, so autograd hands the kernels' stats
+fold (in-kernel, or l outside) the reduced cotangent.
 
 Every fused conv goes through a wrapper in ``ops/kernels``, which launches
 the CUDA kernel for CUDA tensors and runs the plain PyTorch version for CPU
@@ -77,6 +87,7 @@ from geniconet_tpu_torch.ops.kernels.fused import (
 from geniconet_tpu_torch.ops.kernels.phase_kernel import pair_join
 from geniconet_tpu_torch.ops.phase import phase_merge, phase_split
 from geniconet_tpu_torch.ops.upsample import ico_upsample_s2s
+from geniconet_tpu_torch.parallel.dist import all_reduce_mean
 
 __all__ = ["IcoConvS2S", "IcoBatchNorm", "DownBlock", "UpBlock", "residual_join",
            "pallas_block_enabled", "merged_bwd_enabled", "kernel_geff_enabled",
@@ -159,13 +170,15 @@ class IcoBatchNorm(nn.Module):
     ``affine`` gives the per-channel (mul, add) that the next kernel applies
     as its prologue (``layers.py:_StatsBN`` of the JAX package); in train
     mode from kernel-emitted [Σy, Σy²]. ``forward`` applies flax's
-    ``nn.BatchNorm`` (``use_fast_variance``) to a grid on the plain route."""
+    ``nn.BatchNorm`` (``use_fast_variance``) to a grid on the plain route.
+    ``dp``: the ranks whose moments it averages in train mode (module
+    doc), or None."""
 
     momentum = 0.9
 
-    def __init__(self, features: int, eps: float = 1e-5, device=None):
+    def __init__(self, features: int, eps: float = 1e-5, device=None, dp=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dp = eps, dp
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -179,6 +192,9 @@ class IcoBatchNorm(nn.Module):
     def _moments(self, mean, mean2, train):
         if not train:
             return self.mean, self.var
+        if self.dp is not None:  # the global batch's moments (JAX's pmean)
+            both = all_reduce_mean(torch.stack([mean, mean2]), self.dp)
+            mean, mean2 = both[0], both[1]
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         self._update(mean, var)
         return mean, var
@@ -200,7 +216,12 @@ class IcoBatchNorm(nn.Module):
         a kernel computes this BatchNorm's affine from its own batch
         moments, so it takes the raw (scale, bias). ``kernel_fn(scale,
         bias)`` returns (aux, stats); the running statistics move from the
-        [Σy, Σy²] ``stats`` over ``count`` positions. Returns aux."""
+        [Σy, Σy²] ``stats`` over ``count`` positions. Returns aux. Raises
+        under data parallelism: the kernel's affine would take this rank's
+        moments alone (the blocks take the split pair there)."""
+        if self.dp is not None:
+            raise RuntimeError("IcoBatchNorm.kernel_affine under data parallelism: the "
+                               "kernel's affine takes one rank's moments; run the split pair")
         aux, stats = kernel_fn(self.scale, self.bias)
         stats = stats.detach()
         self._moments(stats[0] / count, stats[1] / count, True)
@@ -225,20 +246,21 @@ class _Block(nn.Module):
     """The six modules of a residual block (reference BasicIcoS2S*Block)."""
 
     def __init__(self, in_features, features, corner_mode, fused, merged_bwd, kernel_geff, fold_ok,
-                 merged_block, name, device):
+                 merged_block, name, device, dp):
         super().__init__()
         kw = dict(corner_mode=corner_mode, device=device)
         self.corner_mode, self.fused, self.merged_bwd = corner_mode, fused, merged_bwd
-        self.merged_block = merged_block_enabled(name, merged_block)
+        # under data parallelism the block runs the split pair (module doc)
+        self.merged_block = merged_block_enabled(name, merged_block) and dp is None
         # where the split backward folds the stats cotangent (fused.kernel_geff_enabled)
         self.fold = dict(kernel_geff=kernel_geff, fold_ok=fold_ok)
         self.name = name
         self.conv00 = IcoConvS2S(in_features, features, **kw)
         self.conv10 = IcoConvS2S(in_features, features, **kw)
         self.conv01 = IcoConvS2S(features, features, **kw)
-        self.bn00 = IcoBatchNorm(features, device=device)
-        self.bn01 = IcoBatchNorm(features, device=device)
-        self.bn10 = IcoBatchNorm(features, device=device)
+        self.bn00 = IcoBatchNorm(features, device=device, dp=dp)
+        self.bn01 = IcoBatchNorm(features, device=device, dp=dp)
+        self.bn10 = IcoBatchNorm(features, device=device, dp=dp)
 
     def _plain_tail(self, x, stride, train):
         """relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x))) on the
@@ -263,14 +285,14 @@ class DownBlock(_Block):
     """Residual down block (reference BasicIcoS2SDownBlock), s -> s-1:
     relu(bn01(conv01(relu(bn00(conv00(x))))) + bn10(conv10(x))).
     ``phase_chain``: the fused route in phase form; ``merged_block``: the
-    training forward as kernel p (module doc)."""
+    training forward as kernel p; ``dp``: data parallelism (module doc)."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  fused: bool = True, merged_bwd: str | None = None, phase_chain: bool = False,
                  kernel_geff: str | None = None, fold_ok: bool = True,
-                 merged_block: str | None = None, name: str = "", device=None):
+                 merged_block: str | None = None, name: str = "", device=None, dp=None):
         super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
-                         fold_ok, merged_block, name, device)
+                         fold_ok, merged_block, name, device, dp)
         self.phase_chain = phase_chain
 
     def forward(self, x, in_act=None, train: bool = False):
@@ -331,14 +353,15 @@ class DownBlock(_Block):
 class UpBlock(_Block):
     """Residual up block (reference BasicIcoS2SUpBlock), s -> s+1. The
     parameter-free upsample is shared by both branches. ``merged_block``:
-    the training forward of a grid input as kernel o (module doc)."""
+    the training forward of a grid input as kernel o; ``dp``: data
+    parallelism (module doc)."""
 
     def __init__(self, in_features: int, features: int, corner_mode: str = "average",
                  return_phases: bool = False, fused: bool = True, merged_bwd: str | None = None,
                  kernel_geff: str | None = None, fold_ok: bool = True,
-                 merged_block: str | None = None, name: str = "", device=None):
+                 merged_block: str | None = None, name: str = "", device=None, dp=None):
         super().__init__(in_features, features, corner_mode, fused, merged_bwd, kernel_geff,
-                         fold_ok, merged_block, name, device)
+                         fold_ok, merged_block, name, device, dp)
         self.return_phases = return_phases
 
     def forward(self, x, train: bool = False):

@@ -37,6 +37,9 @@ before its heads); "dec" chains the decoder: every fused UpBlock returns
 its raw phases and pending affines, and the next one takes them as its
 input (kernel n after a fused block, the join and interleave before a
 plain one; up0 always takes the latent grid); "1" chains both halves.
+``dp`` (a ``parallel/dist.py:DataParallel``, JAX's ``axis_name``) makes
+every BatchNorm take the global batch's moments in train mode and keeps
+every block off the merged-block route.
 
 Public tensors: grid ``(B, 5·2^s, 2^(s+1), 3)``; latent
 ``(B, 5·2^(s-3), 2^(s-2), w2)`` (the VAE's: ``wz`` channels). ``decode``
@@ -69,7 +72,7 @@ def _check_phase_chain(phase_chain):
 
 class _Encoder(nn.Module):
     def __init__(self, widths, corner_mode: str, pallas_blocks=None, merged_bwd=None,
-                 phase_chain=None, kernel_geff=None, merged_block=None, device=None):
+                 phase_chain=None, kernel_geff=None, merged_block=None, device=None, dp=None):
         super().__init__()
         w0 = widths[0]
         self.corner_mode = corner_mode
@@ -77,12 +80,12 @@ class _Encoder(nn.Module):
         self.fold = dict(kernel_geff=kernel_geff, fold_ok=pallas_blocks is None)
         self.fused_in = pallas_block_enabled("conv_in", pallas_blocks)
         self.conv_in = IcoConvS2S(3, w0, corner_mode=corner_mode, device=device)
-        self.bn_in = IcoBatchNorm(w0, device=device)
+        self.bn_in = IcoBatchNorm(w0, device=device, dp=dp)
         for k, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
             self.add_module(f"down{k}", DownBlock(
                 cin, cout, corner_mode, fused=pallas_block_enabled(f"down{k}", pallas_blocks),
                 merged_bwd=merged_bwd, phase_chain=phase_chain_enabled("enc", phase_chain),
-                merged_block=merged_block, name=f"down{k}", device=device, **self.fold))
+                merged_block=merged_block, name=f"down{k}", device=device, dp=dp, **self.fold))
         self.n_down = len(widths) - 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -124,7 +127,7 @@ class _Head(nn.Module):
 class _Decoder(nn.Module):
     def __init__(self, widths, in_features: int, out_features: int, corner_mode: str,
                  pallas_blocks=None, merged_bwd=None, phase_chain=None, kernel_geff=None,
-                 merged_block=None, device=None):
+                 merged_block=None, device=None, dp=None):
         super().__init__()
         cins = (in_features, *widths[:-1])
         # the decoder's phase chain: every fused block hands its raw phases and
@@ -135,7 +138,7 @@ class _Decoder(nn.Module):
                 cin, cout, corner_mode, return_phases=chain or k == len(widths) - 1,
                 fused=pallas_block_enabled(f"up{k}", pallas_blocks), merged_bwd=merged_bwd,
                 kernel_geff=kernel_geff, fold_ok=pallas_blocks is None,
-                merged_block=merged_block, name=f"up{k}", device=device))
+                merged_block=merged_block, name=f"up{k}", device=device, dp=dp))
         self.n_up = len(widths)
         self.fused_head = pallas_block_enabled("head", pallas_blocks)
         self.head = _Head(widths[-1], out_features, device=device)
@@ -188,13 +191,14 @@ class IcoAE(nn.Module):
     ``merged_bwd``: the kernel families whose backward is merged;
     ``kernel_geff``: those whose split backward folds in-kernel;
     ``phase_chain``: None, "0", "enc", "dec" or "1"; ``merged_block``: the
-    blocks whose training forward is one kernel (module doc)."""
+    blocks whose training forward is one kernel; ``dp``: data parallelism
+    (module doc)."""
 
     def __init__(self, subdivisions: int = 5, widths=(64, 128, 256),
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
                  pallas_blocks: str | None = None, merged_bwd: str | None = None,
                  phase_chain: str | None = None, kernel_geff: str | None = None,
-                 merged_block: str | None = None, device=None):
+                 merged_block: str | None = None, device=None, dp=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoAE needs subdivisions >= 3 (three stride-2 stages)")
@@ -204,9 +208,9 @@ class IcoAE(nn.Module):
         self.merged_bwd, self.phase_chain, self.kernel_geff = merged_bwd, phase_chain, kernel_geff
         self.merged_block = merged_block
         self.encoder = _Encoder((w0, w1, w2, w2), corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, merged_block, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device, dp=dp)
         self.decoder = _Decoder((w2, w1, w0), w2, 3, corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, merged_block, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device, dp=dp)
 
     def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid (B, 5·2^s, 2^(s+1), 3) -> latent (B, 5·2^(s-3), 2^(s-2), w2), in ``dtype``."""
@@ -266,7 +270,7 @@ class IcoVAE(nn.Module):
     """Icosahedral VAE (reference ico2ico_vae).
 
     ``dtype``, ``pallas_blocks``, ``merged_bwd``, ``phase_chain``,
-    ``kernel_geff``, ``merged_block`` and ``train`` as ``IcoAE``; the mu / logvar heads are
+    ``kernel_geff``, ``merged_block``, ``dp`` and ``train`` as ``IcoAE``; the mu / logvar heads are
     the block ``"heads"``: on the fused route both stride-2 convs run as one
     dual stride-2 phase conv (no act prologue, BatchNorm sums when training;
     family ``ds2`` of ``merged_bwd`` and ``kernel_geff``; never chained),
@@ -276,7 +280,7 @@ class IcoVAE(nn.Module):
                  corner_mode: str = "average", dtype: torch.dtype = torch.float32,
                  pallas_blocks: str | None = None, merged_bwd: str | None = None,
                  phase_chain: str | None = None, kernel_geff: str | None = None,
-                 merged_block: str | None = None, device=None):
+                 merged_block: str | None = None, device=None, dp=None):
         super().__init__()
         if subdivisions < 3:
             raise ValueError("IcoVAE needs subdivisions >= 3 (three stride-2 stages)")
@@ -288,14 +292,14 @@ class IcoVAE(nn.Module):
         self.corner_mode = corner_mode
         self.fused_heads = pallas_block_enabled("heads", pallas_blocks)
         self.encoder = _Encoder((w0, w1, w2), corner_mode, pallas_blocks, merged_bwd,
-                                phase_chain, kernel_geff, merged_block, device=device)
+                                phase_chain, kernel_geff, merged_block, device=device, dp=dp)
         self.mu_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
-        self.mu_bn = IcoBatchNorm(latent_features, device=device)
+        self.mu_bn = IcoBatchNorm(latent_features, device=device, dp=dp)
         self.logvar_conv = IcoConvS2S(w2, latent_features, corner_mode, device=device)
-        self.logvar_bn = IcoBatchNorm(latent_features, device=device)
+        self.logvar_bn = IcoBatchNorm(latent_features, device=device, dp=dp)
         self.decoder = _Decoder((w2, w1, w0), latent_features, 3, corner_mode, pallas_blocks,
                                 merged_bwd, phase_chain, kernel_geff, merged_block,
-                                device=device)
+                                device=device, dp=dp)
 
     def encode_trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """grid -> the trunk's chart-split features (B, 5, 2^(s-2), 2^(s-1), w2)."""

@@ -966,22 +966,32 @@ def up_dual_conv_fwd(x, tap_sets, corner_mode: str = "average", with_stats: bool
     return (sets, stats) if with_stats else sets
 
 
+# samples' cells a graph of ``_up_adjoint`` holds at most: an s=7 batch of
+# 36 at 128 channels takes 53 GB in one graph
+_ADJOINT_CELLS = 1 << 19
+
+
 def _up_adjoint(g_groups, tap_sets, corner_mode):
     """The level-s dx of the up conv in float32: the conv, phase-pad,
     upsample and pad transposes, by autograd of the plain forward (linear in
-    its input)."""
+    its input), over groups of samples of at most ``_ADJOINT_CELLS`` cells
+    (each sample's dx is its own)."""
     B, _, h, w, _ = g_groups[0][0].shape
     cin = tap_sets[0][0].shape[1]
-    with torch.enable_grad():
-        leaf = torch.zeros((B, 5, h, w, cin), dtype=torch.float32, device=g_groups[0][0].device,
-                           requires_grad=True)
-        phases = _up_phases(leaf, corner_mode)
-        outs, grads = [], []
-        for (taps, _), group in zip(tap_sets, g_groups):
-            outs += phase_conv(phases, taps.float(), None, corner_mode)
-            grads += [g.float() for g in group]
-        (dx,) = torch.autograd.grad(outs, [leaf], grads)
-    return dx
+    per = max(1, _ADJOINT_CELLS // (5 * h * w))
+    parts = []
+    for b in range(0, B, per):
+        with torch.enable_grad():
+            leaf = torch.zeros((min(per, B - b), 5, h, w, cin), dtype=torch.float32,
+                               device=g_groups[0][0].device, requires_grad=True)
+            phases = _up_phases(leaf, corner_mode)
+            outs, grads = [], []
+            for (taps, _), group in zip(tap_sets, g_groups):
+                outs += phase_conv(phases, taps.float(), None, corner_mode)
+                grads += [g[b : b + per].float() for g in group]
+            parts += torch.autograd.grad(outs, [leaf], grads)
+        del outs, grads, phases, leaf
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _gsums(g_groups):

@@ -18,9 +18,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["point_to_triangle_sq", "point_to_mesh_distance", "point_to_mesh_distance_numpy"]
+__all__ = ["point_to_triangle_sq", "point_to_mesh_distance", "point_to_mesh_distance_numpy",
+           "pair_chunk"]
 
 _EPS = 1e-20
+# (point, triangle) pairs of one chunk: a (P, chunk) float32 term is 128 MiB
+_CHUNK_PAIRS = 1 << 25
+
+
+def pair_chunk(n_points: int) -> int:
+    """Triangles a step for ``n_points`` points: 2,048 (s=5: 10,242 points),
+    fewer as P grows so that a step's (P, chunk) tensors stay near
+    ``_CHUNK_PAIRS`` pairs (s=6: 819, s=7: 204), at least 64. The result
+    does not depend on it: the running minimum is exact."""
+    return max(64, min(2048, _CHUNK_PAIRS // max(n_points, 1)))
 
 
 def _dot(u, v):
@@ -80,12 +91,14 @@ def point_to_triangle_sq(p: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
 
 
 def point_to_mesh_distance(points: torch.Tensor, mesh_vertices: torch.Tensor, faces,
-                           chunk: int = 2048, squared: bool = True) -> torch.Tensor:
+                           chunk: int | None = None, squared: bool = True) -> torch.Tensor:
     """(P,) min distance from each point to the triangle mesh (V, 3) with
     ``faces`` (F, 3), on ``points``' device: squared (kaolin 0.9.1's
     convention, the reference's metric) or Euclidean. ``chunk`` triangles
-    a step bound the working set at a few dozen (P, chunk) float32 tensors."""
+    a step (None: ``pair_chunk(P)``) bound the working set at a few dozen
+    (P, chunk) float32 tensors."""
     dev = points.device
+    chunk = pair_chunk(points.shape[0]) if chunk is None else chunk
     faces = torch.as_tensor(faces, dtype=torch.long, device=dev)
     tri = mesh_vertices.to(dev, torch.float32)[faces]                 # (F, 3, 3)
     pad = (-tri.shape[0]) % chunk

@@ -8,12 +8,14 @@ passed wherever the port takes one.
 
 One field is the port's own: ``Config.device`` (``--device``, default
 ``"cuda"``), the device every entry point runs on; ``--device cpu`` runs the
-kernels' plain versions on the CPU. Four JAX flags parse and change nothing,
-because the port always does what they select or has no such machinery:
-``--use_pallas`` (the port always runs its kernels), ``--no_data_parallel``
-(it runs on one device), ``--deviceResident`` (its batches always live on
-the device) and ``--backend_retries`` (the TPU's transient-error retry,
-which is not ported).
+kernels' plain versions on the CPU. ``--no_data_parallel`` sets
+``TrainConfig.data_parallel`` False as in JAX: under ``torchrun`` the
+training CLI is data-parallel over the ranks unless it is given
+(``cli.py``). Three JAX flags parse and change nothing, because the port
+always does what they select or has no such machinery: ``--use_pallas``
+(the port always runs its kernels), ``--deviceResident`` (its batches
+always live on the device) and ``--backend_retries`` (the TPU's
+transient-error retry, which is not ported).
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ class TrainConfig:
     factor_gamma: float = 0.9
     debug_nans: bool = False  # torch.autograd anomaly detection (reference run.py:237)
     log_grad_freq: int = 1000   # per-parameter grad-norm logging period (0 = off)
+    data_parallel: bool = True  # under torchrun: the global batch over the ranks
     # encoding-logging period (0 = off): the AE logs the bottleneck of the
     # first 3 validation samples, the VAE mu/logvar/reparam of the first
     # (reference run.py:167-215, 83-96)
@@ -218,7 +221,7 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for the JAX command line; the port always runs its kernels")
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="accepted for the JAX command line; the port runs on one device")
+                   help="under torchrun, do not train data-parallel over the ranks")
     p.add_argument("--debug_nans", action="store_true")
     p.add_argument("--debug", action="store_true", help="print per-epoch timing")
     p.add_argument("--profile_dir", type=str, default="")
@@ -267,6 +270,7 @@ def parse_args(argv=None) -> Config:
     if a.load_pretrained_model:
         cfg.train.load_pretrained_model = True
     cfg.train.quick_learn = a.quickLearn
+    cfg.train.data_parallel = not a.no_data_parallel
     cfg.train.seed = a.seed
     cfg.train.debug_nans = a.debug_nans
     cfg.train.debug_timing = a.debug

@@ -33,6 +33,22 @@ forward as one kernel each (o, p). The JAX
 package's TPU workarounds for the VAE at batch 24 and more (its split step
 and ``pallas_blocks`` default) are not ported.
 
+Data parallelism (``dp``, a ``parallel/dist.py:DataParallel``): the JAX
+``shard_map`` step (trainer.py:431-465, 1034-1060). Each rank takes its
+slice of the global batch (``data/pipeline.py:Batches``), normalises its
+loss by the global weight sum (an all-reduce of Σwt before the forward),
+and the models' BatchNorms average their moments over the ranks; then one
+all-reduce sums the gradients, the loss and the metrics as one flat bucket
+(a sum, not a mean: each rank's share is already over the global count),
+and the grad norm and Adam follow on every rank, which therefore holds the
+same parameters (``init_state`` broadcasts rank 0's). ``eval_step`` sums
+the metrics and the weight sum the same way. The VAE's generator is folded
+by rank, so each rank draws eps of its own, and ``last_misc`` is gathered
+to the global batch. Rank 0 alone logs, profiles and writes checkpoints;
+every rank restores the same file. The merged blocks (o, p) take the split
+pair under data parallelism, as in JAX (their in-kernel affine would take
+one rank's moments).
+
 The epoch loop is the JAX ``Trainer``'s (trainer.py:1197-1449, reference
 run.py:412-497): ``train_epoch`` syncs the metrics to the host every
 ``log_freq`` global steps, which doubles as the finite-loss guard, and logs
@@ -69,6 +85,7 @@ from geniconet_tpu_torch.losses.p2p import (
 )
 from geniconet_tpu_torch.nn.models import IcoAE, IcoVAE, reparameterize
 from geniconet_tpu_torch.ops.vertices import grid_to_vertices, pack_target_phases
+from geniconet_tpu_torch.parallel.dist import DataParallel
 from geniconet_tpu_torch.train import checkpoint as ckpt
 from geniconet_tpu_torch.train.schedule import cyclic_triangular
 
@@ -118,19 +135,28 @@ class Trainer:
     folds in-kernel) or a ``GENICONET_KERNEL_GEFF`` value
     (``nn/layers.py:kernel_geff_enabled``); ``merged_block``: None, "all"
     or a comma list of block names (``nn/layers.py:merged_block_enabled``);
-    ``logger``: a ``train/logging.py:Logger``, or None to log nothing."""
+    ``logger``: a ``train/logging.py:Logger``, or None to log nothing;
+    ``dp``: this rank of a data-parallel run (module doc), which then runs
+    on ``dp.device`` whatever ``device`` says, or None."""
 
     def __init__(self, cfg, device="cuda", merged_bwd: str | None = None,
                  phase_chain: str | None = None, kernel_geff: str | None = None,
-                 merged_block: str | None = None, logger=None):
+                 merged_block: str | None = None, logger=None, dp: DataParallel | None = None):
         m = cfg.model
-        self.cfg, self.device, self.s = cfg, devices.resolve(device), m.subdivisions
+        self.dp = dp
+        self.main = dp is None or dp.rank == 0  # the rank that logs and saves
+        self.cfg, self.s = cfg, m.subdivisions
+        self.device = devices.resolve(device if dp is None else dp.device)
         self.is_vae = m.is_vae
         self.factors = loss_factors(cfg)
         self.fused_mse = not self.is_vae and self.factors.nor == 0.0 and self.factors.lap == 0.0
         dtype = _DTYPES[m.compute_dtype]
         routing = dict(merged_bwd=merged_bwd, phase_chain=phase_chain, kernel_geff=kernel_geff,
-                       merged_block=merged_block, device=self.device)
+                       merged_block=merged_block, device=self.device, dp=dp)
+        if dp is not None and merged_block not in (None, "", "0") and self.main:
+            print(f"[train] data parallel: merged_block={merged_block!r} runs each block's "
+                  "split pair (the merged kernels' BatchNorm affine would take one rank's "
+                  "moments)")
         if self.is_vae:
             self.model = IcoVAE(m.subdivisions, tuple(m.widths), m.latent_features,
                                 m.corner_mode, dtype, **routing)
@@ -139,7 +165,7 @@ class Trainer:
         o = cfg.optim
         self.lr_fn = partial(cyclic_triangular, base_lr=o.lr_base, max_lr=o.lr_max,
                              step_size_up=o.step_size_up, step_size_down=o.step_size_down)
-        self.logger = logger
+        self.logger = logger if self.main else None
         self.seed = 0  # init_state's
         self.generator = None  # the VAE's eps, from init_state
         self.last_misc = None  # the VAE's last (mu, logvar), reference run.py:274-277
@@ -147,11 +173,15 @@ class Trainer:
 
     def init_state(self, variables, seed: int = 0) -> TrainState:
         """Load a flax-layout variable tree (``bridge``), seed the VAE's
-        sampling generator and start Adam."""
+        sampling generator (folded by rank under data parallelism) and
+        start Adam. Under data parallelism every rank then holds rank 0's
+        variables."""
         sd = flax_to_state_dict(variables)
         self.model.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        if self.dp is not None:
+            self.dp.broadcast_(self.model.state_dict().values())
         self.seed = seed
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+        self.generator = torch.Generator(device=self.device).manual_seed(self._fold(seed + 2))
         o = self.cfg.optim
         return TrainState(torch.optim.Adam(self.model.parameters(), lr=self.lr_fn(0),
                                            betas=(o.b1, o.b2), eps=o.eps))
@@ -160,25 +190,61 @@ class Trainer:
         """The model's parameters and BatchNorm statistics as a flax tree."""
         return state_dict_to_flax(self.model.state_dict())
 
-    def loss(self, x, y, wt, train: bool = True, epoch: int = 0, generator=None):
+    def _fold(self, seed: int) -> int:
+        """A generator seed of this rank (``DataParallel.fold_seed``)."""
+        return seed if self.dp is None else self.dp.fold_seed(seed)
+
+    def _global_wsum(self, wt):
+        """Under data parallelism the global batch's weight sum (JAX's
+        ``psum(Σwt)``), the normaliser of every rank's loss; else None."""
+        if self.dp is None:
+            return None
+        wsum = wt.float().sum()
+        self.dp.sum_([wsum])
+        return wsum
+
+    def loss(self, x, y, wt, train: bool = True, epoch: int = 0, generator=None, wsum=None):
         """(loss, metrics) of one batch: x (B, H, W, 3) grids, y (B, V, 9)
         targets, wt (B,) sample weights; ``epoch`` sets the VAE's KL factor,
-        whose eps come from ``generator`` (default: the trainer's)."""
+        whose eps come from ``generator`` (default: the trainer's);
+        ``wsum``: the normaliser of the weighted means (None: this batch's
+        max(Σwt, 1); the global Σwt under data parallelism)."""
         if self.is_vae:
             gen = self.generator if generator is None else generator
             recon, mu, logvar = self.model(x, train=train, sample=True, generator=gen)
             t = self.cfg.train
             kf = kl_factor_at_epoch(epoch, step_size=t.factor_step_size, gamma=t.factor_gamma)
             if train:
-                self.last_misc = (mu.detach(), logvar.detach())
-            return p2pkld_loss(recon, mu, logvar, y, self.s, self.factors, kf, wt)
+                self.last_misc = self._global_misc(mu, logvar)
+            return p2pkld_loss(recon, mu, logvar, y, self.s, self.factors, kf, wt, wsum)
         if not self.fused_mse:
-            return p2p_loss(self.model(x, train=train), y, self.s, self.factors, wt)
+            return p2p_loss(self.model(x, train=train), y, self.s, self.factors, wt, wsum)
         tpack, tpoles = pack_target_phases(y, self.s)
         sse = self.model.recon_sse(x, tpack, tpoles, train=train)
-        l_pos = _wmean(sse / (ico.num_vertices(self.s) * 3.0), wt)
+        l_pos = _wmean(sse / (ico.num_vertices(self.s) * 3.0), wt, wsum)
         zero = torch.zeros((), device=l_pos.device)
         return self.factors.pos * l_pos, {"mse": l_pos.detach(), "cos": zero, "lap": zero}
+
+    def _global_misc(self, mu, logvar):
+        """The VAE's (mu, logvar) of the global batch (JAX's ``misc_spec``):
+        under data parallelism gathered from every rank in one all-reduce."""
+        mu, logvar = mu.detach(), logvar.detach()
+        if self.dp is None:
+            return mu, logvar
+        both = self.dp.gather(torch.cat([mu, logvar], dim=-1))
+        return both[..., : mu.shape[-1]], both[..., mu.shape[-1]:]
+
+    def _sum_over_ranks(self, loss, metrics, grads=()):
+        """Under data parallelism, the JAX step's psum: the gradients, the
+        loss and the metrics summed over the ranks in one all-reduce, in
+        place of their local values. Returns (loss, metrics)."""
+        if self.dp is None:
+            return loss, metrics
+        keys = list(metrics)
+        vals = [loss.detach().float().clone()] + [metrics[k].detach().float().clone()
+                                                  for k in keys]
+        self.dp.sum_([*grads, *vals])
+        return vals[0], dict(zip(keys, vals[1:]))
 
     def _update(self, state: TrainState, x, y, wt, epoch: int):
         """One update: (metrics, [(state_dict key, grad norm)] of every
@@ -187,8 +253,10 @@ class Trainer:
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.loss(x, y, wt, train=True, epoch=epoch)
+        loss, metrics = self.loss(x, y, wt, train=True, epoch=epoch, wsum=self._global_wsum(wt))
         loss.backward()
+        loss, metrics = self._sum_over_ranks(
+            loss, metrics, [p.grad for p in self.model.parameters() if p.grad is not None])
         norms = [(k, torch.linalg.vector_norm(p.grad)) for k, p in self.model.named_parameters()
                  if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(torch.stack([n for _, n in norms]))
@@ -206,9 +274,13 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, x, y, wt, epoch: int = 0, generator=None):
         """Eval-mode metrics of one batch (``total`` among them, weighted
-        means as 0-d tensors) and the batch's weight sum."""
-        loss, metrics = self.loss(x, y, wt, train=False, epoch=epoch, generator=generator)
-        return {**metrics, "total": loss}, wt.sum()
+        means as 0-d tensors) and the batch's weight sum; under data
+        parallelism the global batch's, summed over the ranks."""
+        wsum = self._global_wsum(wt)
+        loss, metrics = self.loss(x, y, wt, train=False, epoch=epoch, generator=generator,
+                                  wsum=wsum)
+        loss, metrics = self._sum_over_ranks(loss, metrics)
+        return {**metrics, "total": loss}, wt.sum() if wsum is None else wsum
 
     # ------------------------------------------------------------------
     # epoch loops (JAX trainer.py:1197-1349, reference run.py:412-497)
@@ -251,7 +323,8 @@ class Trainer:
         device with one host sync at the end."""
         gen = None
         if self.is_vae:
-            gen = torch.Generator(device=self.device).manual_seed(self.seed + 2 + _EVAL_STREAM)
+            gen = torch.Generator(device=self.device).manual_seed(
+                self._fold(self.seed + 2 + _EVAL_STREAM))
         total, count = None, None
         for x, y, wt in batches.epoch():
             metrics, b = self.eval_step(x, y, wt, epoch, generator=gen)
@@ -288,22 +361,27 @@ class Trainer:
             # reference decays it only after validation (run.py:486-493)
             cur = self.validate(state, val, epoch).get("total", math.inf)
             history.append(cur)
+            # every rank takes these branches alike (cur is the ranks' sum);
+            # rank 0 alone writes
             if cur <= best_loss:  # the reference saves on ties too (run.py:318)
                 best_loss = cur
                 self._save(state, ckpt_dir, name, epoch + 1, cur, best=True, best_loss=best_loss)
-                ckpt.gc_best_checkpoints(ckpt_dir, name)
+                if self.main:
+                    ckpt.gc_best_checkpoints(ckpt_dir, name)
             if (epoch + 1) % cfg.train.save_epoch_freq == 0:
                 self._save(state, ckpt_dir, name, epoch + 1, cur, best=False, best_loss=best_loss)
         if cfg.train.train_epoch > start_epoch:
             self._save(state, ckpt_dir, name, cfg.train.train_epoch,
                        history[-1] if history else math.inf, best=False, best_loss=best_loss)
+        if self.dp is not None:
+            self.dp.barrier()  # the files are written before any rank goes on
         return state, history
 
     def _profiled(self, on: bool, epoch: int):
         """A ``torch.profiler`` trace of the block into ``profile_dir`` when
-        ``on`` and the directory is set, else nothing."""
+        ``on`` and the directory is set (rank 0 only), else nothing."""
         out = self.cfg.train.profile_dir
-        if not (on and out):
+        if not (on and out and self.main):
             return contextlib.nullcontext()
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -324,7 +402,9 @@ class Trainer:
         """Write the JAX package's checkpoint tree: params, batch_stats,
         optax's Adam state, step, epoch, loss, the running best (so a resume
         from a periodic save keeps protecting the best EB file) and the
-        VAE's last (mu, logvar) as ``misc``."""
+        VAE's last (mu, logvar) as ``misc``; on rank 0 only."""
+        if not self.main:
+            return
         blob = {**self.variables(),
                 "opt_state": adam_state_to_flax(state.optimizer, self.model.named_parameters(),
                                                 state.step),

@@ -2659,3 +2659,169 @@ def test_std_conv_stride2_is_the_phase_conv_at_phase_2(cuda, case, corner_mode, 
     (dtaps_p,) = pk.phase_conv_dtaps(phases, [[g]], [tuple(taps.shape)], corner_mode, (2,), act,
                                      [[y]], gs)
     _equal_all((dtaps,), (dtaps_p.to(dt),))
+
+
+# ---------------------------------------------------------------------------
+# subdivisions 6 and 7, and data parallelism over one card
+# ---------------------------------------------------------------------------
+
+def _s7_batch_inputs(cuda, which, B=56):
+    """(inputs, fn) of one bf16 call at s=7's largest GEMMs (conv_in, up2
+    conv01 and up2: B·163,840 rows of output phases) on seeded inputs of
+    batch B; fn(*inputs) gives the per-sample outputs (stats and batch sums
+    apart)."""
+    dt, h, w = torch.bfloat16, 64, 128
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda, dt)
+
+    def taps(cin, cout):
+        return (rnd(7, cin, cout, scale=(7 * cin) ** -0.5), rnd(cout))
+
+    def act(c):
+        return ((torch.rand(c, generator=g) + 0.5).to(cuda),
+                (0.3 * torch.randn(c, generator=g)).to(cuda))
+
+    def grid(c):
+        return [rnd(B, 5, h, w, c) for _ in range(4)]
+
+    def fold(c, n_sets):
+        return ([grid(c) for _ in range(n_sets)], [grid(c) for _ in range(n_sets)],
+                [(torch.randn(2, c, generator=g) * 1e-3).to(cuda) for _ in range(n_sets)])
+
+    if which in ("conv_in fwd", "up2 conv01 fwd"):
+        cin = 3 if which == "conv_in fwd" else 64
+        sets, a = [taps(cin, 64)], act(cin) if cin == 64 else None
+        return [grid(cin)], lambda x: pk.phase_conv_fwd(x, sets, "average", (0, 1, 2, 3), a,
+                                                        True)[0]
+    if which == "up2 conv01 dx":
+        sets, a = [taps(64, 64)], act(64)
+        gg, y, gs = fold(64, 1)
+        return [gg, grid(64), y], lambda gg, x, y: pk.phase_conv_dx(
+            gg, sets, "average", (0, 1, 2, 3), 64, dt, a, x, y, gs)[0]
+    sets = [taps(128, 64), taps(128, 64)]
+    if which == "up2 fwd":
+        return [rnd(B, 5, h, w, 128)], lambda x: pk.up_dual_conv_fwd(x, sets, "average",
+                                                                     True)[0]
+    gg, y, gs = fold(64, 2)
+    return [gg, y], lambda gg, y: (pk.up_dual_conv_dx(gg, sets, "average", dt, y, gs, True)[0],)
+
+
+def _batch_part(t, sl):
+    if isinstance(t, (list, tuple)):
+        return [_batch_part(u, sl) for u in t]
+    return t[sl].contiguous()
+
+
+@pytest.mark.parametrize("which", ["conv_in fwd", "up2 conv01 fwd", "up2 conv01 dx", "up2 fwd",
+                                   "up2 dx"])
+def test_s7_batch_split_past_65535_row_tiles(cuda, which):
+    """At s=7, B=56 the tensor-core GEMMs of conv_in and up2 take 71,680 row
+    tiles of 128, past gridDim.y's 65,535 (the GEMM's blocks run in one
+    grid dimension). Rows are independent: each half of the batch's
+    outputs equals the B=28 call on that half bit for bit."""
+    inputs, fn = _s7_batch_inputs(cuda, which)
+    whole = _flat_all(fn(*inputs))
+    for sl in (slice(0, 28), slice(28, 56)):
+        half = _flat_all(fn(*_batch_part(inputs, sl)))
+        assert len(half) == len(whole)
+        for u, v in zip(half, whole):
+            assert torch.equal(u, v[sl])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("s", [6, 7])
+@pytest.mark.parametrize("kind", ["o at up2", "p at down0"])
+def test_cooperative_blocks_at_s6_and_s7(cuda, kind, s, dt):
+    """Kernels o and p (one cooperative launch) at the s=6 and s=7 model's
+    widest block, B=2: o at up2 (the level-(s-1) grid, 128 -> 64 -> 64), p
+    at down0 (the level-s phases, 64 -> 128 -> 128, with the act): every
+    output equal to the split route's bit for bit, as at s=3-4
+    (``test_up_block_is_the_split_pair``), and within the tolerance of the
+    plain version."""
+    if kind.startswith("o"):
+        x, _, _ = _inputs(cuda, dt, s - 1, 128, 64, seed=230 + s)
+        sets, gamma, beta = _block_params(cuda, dt, 128, 64, 64, seed=231 + s)
+        got = pk.up_block_fwd(x, sets, gamma, beta)
+        b0, y10, y00, s00, s01, s10, mul, add = got
+        ref_sets, ref_stats = pk.up_dual_conv_fwd(x, sets[:2], "average", True)
+        _equal_all((y00, y10, s00, s10), (*ref_sets, *ref_stats))
+        _check_affine(mul, add, s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta)
+        (ref_b0,), (ref_s01,) = pk.phase_conv_fwd(y00, sets[2:], "average", (0, 1, 2, 3),
+                                                  (mul, add), True)
+        _equal_all((b0, s01), (ref_b0, ref_s01))
+        _close_all(got, pk.up_block_fwd_plain(x, sets, gamma, beta), dt)
+        return
+    x, act, _ = _inputs(cuda, dt, s, 64, 128, seed=240 + s)
+    phases = _split(x)
+    sets, gamma, beta = _block_params(cuda, dt, 64, 128, 128, seed=241 + s)
+    got = pk.dn_block_fwd(phases, sets, gamma, beta, act)
+    b0, y10, y00, s00, s01, s10, mul, add = got
+    ((ref00,), (ref10,)), ref_stats = pk.phase_conv_fwd(phases, sets[:2], "average", (2,), act,
+                                                        True)
+    _equal_all((y00, y10, s00, s10), (ref00, ref10, *ref_stats))
+    _check_affine(mul, add, s00, float(y00.shape[:-1].numel()), gamma, beta)
+    _equal_all((b0, s01), ck.ico_conv_s2s_fwd(y00, *sets[2], "average", (mul, add), True))
+    _close_all(got, pk.dn_block_fwd_plain(phases, sets, gamma, beta, act), dt)
+
+
+def _gloo_rank(rank, port, out):
+    """One of two gloo ranks on the one card: two float32 steps of the AE
+    (s=3, widths (8, 12, 16)) on the kernel route at global batch 8."""
+    from geniconet_tpu_torch import Config
+    from geniconet_tpu_torch.data.datasets import synthetic_dataset
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.parallel import dist
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    dp = dist.init(backend="gloo", rank=rank, world=2, local_rank=0, local_world=2,
+                   init_method=f"tcp://localhost:{port}", timeout_s=300)
+    try:
+        cfg = Config()
+        cfg.model.subdivisions, cfg.model.widths, cfg.train.batch_size = 3, (8, 12, 16), 8
+        tr = Trainer(cfg, dp=dp)
+        st = tr.init_state(bridge.init_variables(3, (8, 12, 16), seed=5), seed=3)
+        x, y, wt = next(iter(Batches(synthetic_dataset(3, 8, seed=0), 8, shuffle=False,
+                                     device=tr.device, rank=rank, world=2).epoch()))
+        losses = [float(tr.train_step(st, x, y, wt)["total"]) for _ in range(2)]
+        flat = torch.cat([t.reshape(-1).float() for t in tr.model.state_dict().values()])
+        bits = dp.gather(flat.view(torch.int32)[None]).cpu()  # every rank's state's bits
+        torch.save({"dp": str(dp), "losses": losses, "bits": bits,
+                    "launches": dict(build.LAUNCHES)}, f"{out}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_two_gloo_ranks_share_one_card(cuda, tmp_path):
+    """Two data-parallel ranks on one card over gloo (the kernels' launches
+    on both, gloo all-reducing CUDA tensors): their two losses equal one
+    process's at the global batch to rtol 2e-6, and their parameters and
+    BatchNorm statistics are bit-equal."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from geniconet_tpu_torch import Config
+    from geniconet_tpu_torch.data.datasets import synthetic_dataset
+    from geniconet_tpu_torch.data.pipeline import Batches
+    from geniconet_tpu_torch.train.trainer import Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_gloo_rank, args=(port, str(tmp_path)), nprocs=2, join=True)
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2))
+    cfg = Config()
+    cfg.model.subdivisions, cfg.model.widths, cfg.train.batch_size = 3, (8, 12, 16), 8
+    tr = Trainer(cfg)
+    st = tr.init_state(bridge.init_variables(3, (8, 12, 16), seed=5), seed=3)
+    x, y, wt = next(iter(Batches(synthetic_dataset(3, 8, seed=0), 8, shuffle=False).epoch()))
+    one = [float(tr.train_step(st, x, y, wt)["total"]) for _ in range(2)]
+    assert r0["dp"] == "rank 0 of 2 on cuda:0, backend gloo"
+    for r in (r0, r1):
+        assert r["launches"].get("phase_conv_fwd", 0) > 0
+        for a, b in zip(r["losses"], one, strict=True):
+            assert abs(a - b) <= 2e-6 * abs(b), (a, b)
+    assert torch.equal(r0["bits"], r1["bits"]) and bool((r0["bits"] == r0["bits"][:1]).all())
