@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from geniconet_tpu_torch import device as devices
+from geniconet_tpu_torch import tracing
 from geniconet_tpu_torch.data.datasets import IcoDataset
 from geniconet_tpu_torch.parallel.dist import shard_slice
 
@@ -102,7 +103,11 @@ class Batches:
             yield idx, wt
 
     def epoch(self) -> Iterator[tuple]:
-        """Yield (inputs, targets, weights) for one epoch, gathered on the device."""
+        """Yield (inputs, targets, weights) for one epoch, gathered on the
+        device; each batch's copies and gathers run in the span ``data``
+        of the step that takes it (``tracing.ahead``)."""
         for idx, wt in self.epoch_indices():
-            i = torch.as_tensor(idx, device=self.device)
-            yield self.inputs[i], self.targets[i], torch.as_tensor(wt, device=self.device)
+            with tracing.ahead("data"):
+                i = torch.as_tensor(idx, device=self.device)
+                batch = self.inputs[i], self.targets[i], torch.as_tensor(wt, device=self.device)
+            yield batch

@@ -23,6 +23,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from geniconet_tpu_torch import tracing
 from geniconet_tpu_torch.data.datasets import IcoDataset, natural_sort
 from geniconet_tpu_torch.data.offio import write_off
 from geniconet_tpu_torch.geometry import ico
@@ -74,9 +75,14 @@ def restore_model(cfg: Config, path: str, **routing):
 
 def reconstruct(model, x: torch.Tensor) -> torch.Tensor:
     """(B, V, 3) float32 vertices of an eval-mode model's reconstruction of
-    the grids x (the VAE decodes mu)."""
-    recon = model(x, train=False, sample=False)[0] if isinstance(model, IcoVAE) else model(x)
-    return grid_to_vertices(recon, model.subdivisions)
+    the grids x (the VAE decodes mu); spans ``reconstruct`` > ``forward``,
+    ``vertices``."""
+    with tracing.unit("reconstruct"):
+        with tracing.span("forward"):
+            recon = (model(x, train=False, sample=False)[0] if isinstance(model, IcoVAE)
+                     else model(x))
+        with tracing.span("vertices"):
+            return grid_to_vertices(recon, model.subdivisions)
 
 
 def save_distances(name_dist_pairs, path: str):

@@ -64,6 +64,10 @@ comes from the dtaps kernel's Σg (the phase convs) or the dx kernel's (the
 up and standard convs). ``kernel_geff=None``, the default, folds every
 family inside. The merged route always folds inside, as the JAX merged
 branches run before the fold test.
+
+Each Function's forward and backward run in the spans ``kernel.<Name>``
+and ``kernel.<Name>.bwd`` (``tracing``; the class name without its
+underscore), which time the wrappers on the host.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ import functools
 
 import torch
 
+from geniconet_tpu_torch import tracing
 from geniconet_tpu_torch.ops.kernels.build import grid_level
 from geniconet_tpu_torch.ops.kernels.conv_kernel import (
     ico_conv_s2s_bwd, ico_conv_s2s_dtaps, ico_conv_s2s_dx, ico_conv_s2s_fwd,
@@ -152,31 +157,33 @@ class _PhaseConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
                 *tensors):
-        phases, taps = tensors[:4], tensors[4 : 4 + n_sets]
-        biases = tensors[4 + n_sets : 4 + 2 * n_sets]
-        mul, add = tensors[4 + 2 * n_sets :]
-        act = None if mul is None else (mul, add)
-        r = phase_conv_fwd(phases, list(zip(taps, biases)), corner_mode, out_phases, act,
-                           with_stats)
-        sets, stats = r if with_stats else (r, [])
-        outs = [o for group in sets for o in group]
-        ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
-                        [b is not None for b in biases])
-        ctx.save_for_backward(*phases, *taps, mul, add, *(outs if with_stats else ()))
-        return (*outs, *stats)
+        with tracing.span("kernel.PhaseConv"):
+            phases, taps = tensors[:4], tensors[4 : 4 + n_sets]
+            biases = tensors[4 + n_sets : 4 + 2 * n_sets]
+            mul, add = tensors[4 + 2 * n_sets :]
+            act = None if mul is None else (mul, add)
+            r = phase_conv_fwd(phases, list(zip(taps, biases)), corner_mode, out_phases, act,
+                               with_stats)
+            sets, stats = r if with_stats else (r, [])
+            outs = [o for group in sets for o in group]
+            ctx.settings = (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
+                            [b is not None for b in biases])
+            ctx.save_for_backward(*phases, *taps, mul, add, *(outs if with_stats else ()))
+            return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
-         has_bias) = ctx.settings
-        saved = ctx.saved_tensors
-        mul, add = saved[4 + n_sets : 6 + n_sets]
-        n = n_sets * len(out_phases)
-        dphases, dtaps, dbias, dmul, dadd = _phase_bwd(
-            out_phases, corner_mode, with_stats, needs_dx, merged_bwd, fold, has_bias, saved[:4],
-            saved[4 : 4 + n_sets], None if mul is None else (mul, add), saved[6 + n_sets :],
-            grads[:n], grads[n:])
-        return (None,) * 7 + (*dphases, *dtaps, *dbias, dmul, dadd)
+        with tracing.span("kernel.PhaseConv.bwd"):
+            (corner_mode, out_phases, n_sets, with_stats, needs_dx, merged_bwd, fold,
+             has_bias) = ctx.settings
+            saved = ctx.saved_tensors
+            mul, add = saved[4 + n_sets : 6 + n_sets]
+            n = n_sets * len(out_phases)
+            dphases, dtaps, dbias, dmul, dadd = _phase_bwd(
+                out_phases, corner_mode, with_stats, needs_dx, merged_bwd, fold, has_bias,
+                saved[:4], saved[4 : 4 + n_sets], None if mul is None else (mul, add),
+                saved[6 + n_sets :], grads[:n], grads[n:])
+            return (None,) * 7 + (*dphases, *dtaps, *dbias, dmul, dadd)
 
 
 def _phase_bwd(out_phases, corner_mode, with_stats, needs_dx, merged_bwd, fold, has_bias, phases,
@@ -256,34 +263,37 @@ class _DualS2Split(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, corner_mode, with_stats, fold, *tensors):
-        phases, (ta, tb, ba, bb, mul, add) = tensors[:4], tensors[4:]
-        act = None if mul is None else (mul, add)
-        r = ds2s_fwd(phases, [(ta, ba), (tb, bb)], corner_mode, act, with_stats)
-        sets, stats = r if with_stats else (r, [])
-        outs = [*sets[0], *sets[1]]
-        ctx.settings = (corner_mode, with_stats, fold, ba is not None, bb is not None)
-        ctx.save_for_backward(*phases, ta, tb, mul, add, *(outs if with_stats else ()))
-        return (*outs, *stats)
+        with tracing.span("kernel.DualS2Split"):
+            phases, (ta, tb, ba, bb, mul, add) = tensors[:4], tensors[4:]
+            act = None if mul is None else (mul, add)
+            r = ds2s_fwd(phases, [(ta, ba), (tb, bb)], corner_mode, act, with_stats)
+            sets, stats = r if with_stats else (r, [])
+            outs = [*sets[0], *sets[1]]
+            ctx.settings = (corner_mode, with_stats, fold, ba is not None, bb is not None)
+            ctx.save_for_backward(*phases, ta, tb, mul, add, *(outs if with_stats else ()))
+            return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, with_stats, fold, has_a, has_b = ctx.settings
-        saved = ctx.saved_tensors
-        phases, (ta, tb, mul, add) = saved[:4], saved[4:8]
-        act = None if mul is None else (mul, add)
-        dt, cin = phases[0].dtype, phases[0].shape[-1]
-        g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[8:], grads[8:], 2, 4)
-        sets = [(ta, None), (tb, None)]
-        dphases, dmul, dadd, gsums = ds2s_dx(g_groups, sets, corner_mode, cin, dt, act, phases,
-                                             **fk)
-        # the bias gradients ride the dtaps kernel unless the dx kernel's fold made them
-        want_gsum = gsums is None and (has_a or has_b)
-        r = ds2s_dtaps(phases, g_groups, [ta.shape, tb.shape], corner_mode, act,
-                       emit_gsum=want_gsum, **fk)
-        (dta, dtb), gsums = r if want_gsum else (r, gsums)
-        dba = gsums[0].to(ta.dtype) if has_a else None
-        dbb = gsums[1].to(tb.dtype) if has_b else None
-        return (None,) * 3 + (*dphases, dta.to(ta.dtype), dtb.to(tb.dtype), dba, dbb, dmul, dadd)
+        with tracing.span("kernel.DualS2Split.bwd"):
+            corner_mode, with_stats, fold, has_a, has_b = ctx.settings
+            saved = ctx.saved_tensors
+            phases, (ta, tb, mul, add) = saved[:4], saved[4:8]
+            act = None if mul is None else (mul, add)
+            dt, cin = phases[0].dtype, phases[0].shape[-1]
+            g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[8:], grads[8:], 2, 4)
+            sets = [(ta, None), (tb, None)]
+            dphases, dmul, dadd, gsums = ds2s_dx(g_groups, sets, corner_mode, cin, dt, act, phases,
+                                                 **fk)
+            # the bias gradients ride the dtaps kernel unless the dx kernel's fold made them
+            want_gsum = gsums is None and (has_a or has_b)
+            r = ds2s_dtaps(phases, g_groups, [ta.shape, tb.shape], corner_mode, act,
+                           emit_gsum=want_gsum, **fk)
+            (dta, dtb), gsums = r if want_gsum else (r, gsums)
+            dba = gsums[0].to(ta.dtype) if has_a else None
+            dbb = gsums[1].to(tb.dtype) if has_b else None
+            return (None,) * 3 + (*dphases, dta.to(ta.dtype), dtb.to(tb.dtype), dba, dbb, dmul,
+                                  dadd)
 
 
 def fused_dual_s2_conv_split(phases, taps_a, bias_a, taps_b, bias_b, corner_mode="average",
@@ -309,22 +319,24 @@ class _UpDual(torch.autograd.Function):
     @staticmethod
     def forward(ctx, corner_mode, with_stats, merged_bwd, fold, x, taps_a, bias_a, taps_b,
                 bias_b):
-        r = up_dual_conv_fwd(x, [(taps_a, bias_a), (taps_b, bias_b)], corner_mode, with_stats)
-        sets, stats = r if with_stats else (r, [])
-        outs = [*sets[0], *sets[1]]
-        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, bias_a is not None,
-                        bias_b is not None)
-        ctx.save_for_backward(x, taps_a, taps_b, *(outs if with_stats else ()))
-        return (*outs, *stats)
+        with tracing.span("kernel.UpDual"):
+            r = up_dual_conv_fwd(x, [(taps_a, bias_a), (taps_b, bias_b)], corner_mode, with_stats)
+            sets, stats = r if with_stats else (r, [])
+            outs = [*sets[0], *sets[1]]
+            ctx.settings = (corner_mode, with_stats, merged_bwd, fold, bias_a is not None,
+                            bias_b is not None)
+            ctx.save_for_backward(x, taps_a, taps_b, *(outs if with_stats else ()))
+            return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, with_stats, merged_bwd, fold, has_a, has_b = ctx.settings
-        x, taps_a, taps_b, *ys = ctx.saved_tensors
-        dx, (dta, dtb), (dba, dbb) = _upd_bwd(corner_mode, with_stats, merged_bwd, fold,
-                                              (has_a, has_b), x, (taps_a, taps_b), ys, grads[:8],
-                                              grads[8:])
-        return None, None, None, None, dx, dta, dba, dtb, dbb
+        with tracing.span("kernel.UpDual.bwd"):
+            corner_mode, with_stats, merged_bwd, fold, has_a, has_b = ctx.settings
+            x, taps_a, taps_b, *ys = ctx.saved_tensors
+            dx, (dta, dtb), (dba, dbb) = _upd_bwd(corner_mode, with_stats, merged_bwd, fold,
+                                                  (has_a, has_b), x, (taps_a, taps_b), ys,
+                                                  grads[:8], grads[8:])
+            return None, None, None, None, dx, dta, dba, dtb, dbb
 
 
 def _upd_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, ys, g_out, g_stats):
@@ -366,31 +378,34 @@ class _UpDualPair(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, corner_mode, with_stats, fold, *tensors):
-        pair, affines = tensors[:8], tensors[8:12]
-        taps_a, bias_a, taps_b, bias_b = tensors[12:]
-        r = up_pair_fwd(pair[:4], pair[4:], affines, [(taps_a, bias_a), (taps_b, bias_b)],
-                        corner_mode, with_stats)
-        sets, stats = r if with_stats else (r, [])
-        outs = [*sets[0], *sets[1]]
-        ctx.settings = (corner_mode, with_stats, fold, bias_a is not None, bias_b is not None)
-        ctx.save_for_backward(*pair, *affines, taps_a, taps_b, *(outs if with_stats else ()))
-        return (*outs, *stats)
+        with tracing.span("kernel.UpDualPair"):
+            pair, affines = tensors[:8], tensors[8:12]
+            taps_a, bias_a, taps_b, bias_b = tensors[12:]
+            r = up_pair_fwd(pair[:4], pair[4:], affines, [(taps_a, bias_a), (taps_b, bias_b)],
+                            corner_mode, with_stats)
+            sets, stats = r if with_stats else (r, [])
+            outs = [*sets[0], *sets[1]]
+            ctx.settings = (corner_mode, with_stats, fold, bias_a is not None, bias_b is not None)
+            ctx.save_for_backward(*pair, *affines, taps_a, taps_b, *(outs if with_stats else ()))
+            return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        corner_mode, with_stats, fold, has_a, has_b = ctx.settings
-        saved = ctx.saved_tensors
-        b0, y10, affines, (taps_a, taps_b) = saved[:4], saved[4:8], saved[8:12], saved[12:14]
-        # Σg rides the dx kernel with the fold in or out of the kernels
-        g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[14:], grads[8:], 2, 4)
-        sets = [(taps_a, None), (taps_b, None)]
-        db0, dy10, *daff, gsums = up_pair_dx(g_groups, b0, y10, affines, sets, corner_mode,
-                                             emit_gsum=has_a or has_b, **fk)
-        dta, dtb = up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, **fk)
-        dba = gsums[0].to(taps_a.dtype) if has_a else None
-        dbb = gsums[1].to(taps_b.dtype) if has_b else None
-        return (None,) * 3 + (*db0, *dy10, *daff, dta.to(taps_a.dtype), dba,
-                              dtb.to(taps_b.dtype), dbb)
+        with tracing.span("kernel.UpDualPair.bwd"):
+            corner_mode, with_stats, fold, has_a, has_b = ctx.settings
+            saved = ctx.saved_tensors
+            b0, y10, affines, (taps_a, taps_b) = saved[:4], saved[4:8], saved[8:12], saved[12:14]
+            # Σg rides the dx kernel with the fold in or out of the kernels
+            g_groups, fk = _fold(with_stats, fold, _groups(grads, 2, 4), saved[14:], grads[8:], 2,
+                                 4)
+            sets = [(taps_a, None), (taps_b, None)]
+            db0, dy10, *daff, gsums = up_pair_dx(g_groups, b0, y10, affines, sets, corner_mode,
+                                                 emit_gsum=has_a or has_b, **fk)
+            dta, dtb = up_pair_dtaps(b0, y10, affines, g_groups, corner_mode, **fk)
+            dba = gsums[0].to(taps_a.dtype) if has_a else None
+            dbb = gsums[1].to(taps_b.dtype) if has_b else None
+            return (None,) * 3 + (*db0, *dy10, *daff, dta.to(taps_a.dtype), dba,
+                                  dtb.to(taps_b.dtype), dbb)
 
 
 def fused_up_dual_conv_pair(b0, y10, affines, taps_a, bias_a, taps_b, bias_b,
@@ -418,21 +433,23 @@ class _IcoConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, corner_mode, with_stats, merged_bwd, fold, stride, x, taps, bias, mul,
                 add):
-        act = None if mul is None else (mul, add)
-        r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats, stride=stride)
-        y = r[0] if with_stats else r
-        ctx.settings = (corner_mode, with_stats, merged_bwd, fold, stride, bias is not None)
-        ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
-        return r
+        with tracing.span("kernel.IcoConv"):
+            act = None if mul is None else (mul, add)
+            r = ico_conv_s2s_fwd(x, taps, bias, corner_mode, act, with_stats, stride=stride)
+            y = r[0] if with_stats else r
+            ctx.settings = (corner_mode, with_stats, merged_bwd, fold, stride, bias is not None)
+            ctx.save_for_backward(x, taps, mul, add, y if with_stats else None)
+            return r
 
     @staticmethod
     def backward(ctx, gy, gst=None):
-        corner_mode, with_stats, merged_bwd, fold, stride, has_bias = ctx.settings
-        x, taps, mul, add, y = ctx.saved_tensors
-        act = None if mul is None else (mul, add)
-        dx, dtaps, dbias, dmul, dadd = _std_bwd(corner_mode, with_stats, merged_bwd, fold,
-                                                has_bias, x, taps, act, y, gy, gst, stride)
-        return None, None, None, None, None, dx, dtaps, dbias, dmul, dadd
+        with tracing.span("kernel.IcoConv.bwd"):
+            corner_mode, with_stats, merged_bwd, fold, stride, has_bias = ctx.settings
+            x, taps, mul, add, y = ctx.saved_tensors
+            act = None if mul is None else (mul, add)
+            dx, dtaps, dbias, dmul, dadd = _std_bwd(corner_mode, with_stats, merged_bwd, fold,
+                                                    has_bias, x, taps, act, y, gy, gst, stride)
+            return None, None, None, None, None, dx, dtaps, dbias, dmul, dadd
 
 
 def _std_bwd(corner_mode, with_stats, merged_bwd, fold, has_bias, x, taps, act, y, gy, gst,
@@ -498,29 +515,32 @@ class _UpBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, corner_mode, eps, merged, folds, x, t00, b00, t10, b10, t01, b01, gamma,
                 beta):
-        b0, y10, y00, s00, s01, s10, mul00, add00 = up_block_fwd(
-            x, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, corner_mode, eps)
-        ctx.settings = (corner_mode, eps, merged, folds, [b is not None for b in (b00, b10, b01)])
-        ctx.save_for_backward(x, t00, t10, t01, gamma, beta, *y00, *y10, *b0, s00, mul00, add00)
-        return (*b0, *y10, s00, s01, s10)
+        with tracing.span("kernel.UpBlock"):
+            b0, y10, y00, s00, s01, s10, mul00, add00 = up_block_fwd(
+                x, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, corner_mode, eps)
+            ctx.settings = (corner_mode, eps, merged, folds,
+                            [b is not None for b in (b00, b10, b01)])
+            ctx.save_for_backward(x, t00, t10, t01, gamma, beta, *y00, *y10, *b0, s00, mul00, add00)
+            return (*b0, *y10, s00, s01, s10)
 
     @staticmethod
     def backward(ctx, *g):
-        corner_mode, eps, (m_upd, m_pcs1), (f_upd, f_pcs1), has_bias = ctx.settings
-        x, t00, t10, t01, gamma, beta, *res = ctx.saved_tensors
-        y00, y10, b0, (s00, mul00, add00) = res[:4], res[4:8], res[8:12], res[12:]
-        g_s00, g_s01, g_s10 = g[8:]
-        # conv01's backward, then the affine's (C,)-sized VJP, whose moments
-        # cotangent joins s00's, then the pair's backward (_upblk_bwd)
-        d_y00, (dt01,), (db01,), dmul, dadd = _pcs1_bwd(
-            corner_mode, True, True, m_pcs1, f_pcs1, has_bias[2:], y00, [t01], (mul00, add00),
-            b0, g[:4], [g_s01])
-        d_s00, d_gamma, d_beta = _affine_vjp(s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta,
-                                             eps, dmul, dadd)
-        dx, (dt00, dt10), (db00, db10) = _upd_bwd(corner_mode, True, m_upd, f_upd, has_bias[:2],
-                                                  x, (t00, t10), (*y00, *y10), (*d_y00, *g[4:8]),
-                                                  (d_s00 + g_s00, g_s10))
-        return (None,) * 4 + (dx, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta)
+        with tracing.span("kernel.UpBlock.bwd"):
+            corner_mode, eps, (m_upd, m_pcs1), (f_upd, f_pcs1), has_bias = ctx.settings
+            x, t00, t10, t01, gamma, beta, *res = ctx.saved_tensors
+            y00, y10, b0, (s00, mul00, add00) = res[:4], res[4:8], res[8:12], res[12:]
+            g_s00, g_s01, g_s10 = g[8:]
+            # conv01's backward, then the affine's (C,)-sized VJP, whose moments
+            # cotangent joins s00's, then the pair's backward (_upblk_bwd)
+            d_y00, (dt01,), (db01,), dmul, dadd = _pcs1_bwd(
+                corner_mode, True, True, m_pcs1, f_pcs1, has_bias[2:], y00, [t01], (mul00, add00),
+                b0, g[:4], [g_s01])
+            d_s00, d_gamma, d_beta = _affine_vjp(s00, 4.0 * y00[0].shape[:-1].numel(), gamma, beta,
+                                                 eps, dmul, dadd)
+            dx, (dt00, dt10), (db00, db10) = _upd_bwd(
+                corner_mode, True, m_upd, f_upd, has_bias[:2], x, (t00, t10), (*y00, *y10),
+                (*d_y00, *g[4:8]), (d_s00 + g_s00, g_s10))
+            return (None,) * 4 + (dx, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta)
 
 
 def fused_up_block(x, t00, b00, t10, b10, t01, b01, gamma, beta, corner_mode="average",
@@ -555,33 +575,36 @@ class _DownBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, corner_mode, eps, merged, folds, *tensors):
-        phases, (t00, b00, t10, b10, t01, b01, gamma, beta, mul, add) = tensors[:4], tensors[4:]
-        act = None if mul is None else (mul, add)
-        b0, y10, y00, s00, s01, s10, mul00, add00 = dn_block_fwd(
-            phases, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, act, corner_mode, eps)
-        ctx.settings = (corner_mode, eps, merged, folds, [b is not None for b in (b00, b10, b01)])
-        ctx.save_for_backward(*phases, t00, t10, t01, gamma, beta, mul, add, y00, y10, b0, s00,
-                              mul00, add00)
-        return b0, y10, s00, s01, s10
+        with tracing.span("kernel.DownBlock"):
+            phases, (t00, b00, t10, b10, t01, b01, gamma, beta, mul, add) = tensors[:4], tensors[4:]
+            act = None if mul is None else (mul, add)
+            b0, y10, y00, s00, s01, s10, mul00, add00 = dn_block_fwd(
+                phases, [(t00, b00), (t10, b10), (t01, b01)], gamma, beta, act, corner_mode, eps)
+            ctx.settings = (corner_mode, eps, merged, folds,
+                            [b is not None for b in (b00, b10, b01)])
+            ctx.save_for_backward(*phases, t00, t10, t01, gamma, beta, mul, add, y00, y10, b0, s00,
+                                  mul00, add00)
+            return b0, y10, s00, s01, s10
 
     @staticmethod
     def backward(ctx, g_b0, g_y10, g_s00, g_s01, g_s10):
-        corner_mode, eps, (m_ds2, m_std), (f_ds2, f_std), has_bias = ctx.settings
-        saved = ctx.saved_tensors
-        phases, (t00, t10, t01, gamma, beta, mul, add) = saved[:4], saved[4:11]
-        y00, y10, b0, s00, mul00, add00 = saved[11:]
-        # conv01's backward, the affine's VJP, then the stride-2 pair's
-        # backward (_dnblk_bwd)
-        d_y00, dt01, db01, dmul, dadd = _std_bwd(corner_mode, True, m_std, f_std, has_bias[2],
-                                                 y00, t01, (mul00, add00), b0, g_b0, g_s01)
-        d_s00, d_gamma, d_beta = _affine_vjp(s00, float(y00.shape[:-1].numel()), gamma, beta,
-                                             eps, dmul, dadd)
-        dphases, (dt00, dt10), (db00, db10), dmul_in, dadd_in = _ds2_bwd(
-            corner_mode, True, True, m_ds2, f_ds2, has_bias[:2], phases, (t00, t10),
-            None if mul is None else (mul, add), (y00, y10), (d_y00, g_y10),
-            (d_s00 + g_s00, g_s10))
-        return (None,) * 4 + (*dphases, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta,
-                              dmul_in, dadd_in)
+        with tracing.span("kernel.DownBlock.bwd"):
+            corner_mode, eps, (m_ds2, m_std), (f_ds2, f_std), has_bias = ctx.settings
+            saved = ctx.saved_tensors
+            phases, (t00, t10, t01, gamma, beta, mul, add) = saved[:4], saved[4:11]
+            y00, y10, b0, s00, mul00, add00 = saved[11:]
+            # conv01's backward, the affine's VJP, then the stride-2 pair's
+            # backward (_dnblk_bwd)
+            d_y00, dt01, db01, dmul, dadd = _std_bwd(corner_mode, True, m_std, f_std, has_bias[2],
+                                                     y00, t01, (mul00, add00), b0, g_b0, g_s01)
+            d_s00, d_gamma, d_beta = _affine_vjp(s00, float(y00.shape[:-1].numel()), gamma, beta,
+                                                 eps, dmul, dadd)
+            dphases, (dt00, dt10), (db00, db10), dmul_in, dadd_in = _ds2_bwd(
+                corner_mode, True, True, m_ds2, f_ds2, has_bias[:2], phases, (t00, t10),
+                None if mul is None else (mul, add), (y00, y10), (d_y00, g_y10),
+                (d_s00 + g_s00, g_s10))
+            return (None,) * 4 + (*dphases, dt00, db00, dt10, db10, dt01, db01, d_gamma, d_beta,
+                                  dmul_in, dadd_in)
 
 
 def fused_down_block(xp, t00, b00, t10, b10, t01, b01, gamma, beta, s_in: int, in_act=None,
@@ -616,15 +639,17 @@ class _PairHead(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *tensors):
-        ctx.save_for_backward(*tensors)
-        return pair_head_fwd(tensors[:4], tensors[4:8], tensors[8:12], *tensors[12:])
+        with tracing.span("kernel.PairHead"):
+            ctx.save_for_backward(*tensors)
+            return pair_head_fwd(tensors[:4], tensors[4:8], tensors[8:12], *tensors[12:])
 
     @staticmethod
     def backward(ctx, *g):
-        t = ctx.saved_tensors
-        db0, dy10, dW, dbias, *daff = pair_head_bwd(
-            tuple(gp.contiguous() for gp in g), t[:4], t[4:8], t[8:12], t[12], t[13])
-        return (*db0, *dy10, *daff, dW, dbias)
+        with tracing.span("kernel.PairHead.bwd"):
+            t = ctx.saved_tensors
+            db0, dy10, dW, dbias, *daff = pair_head_bwd(
+                tuple(gp.contiguous() for gp in g), t[:4], t[4:8], t[8:12], t[12], t[13])
+            return (*db0, *dy10, *daff, dW, dbias)
 
 
 def fused_pair_head(b0, y10, affines, Wh, bh):
@@ -647,18 +672,20 @@ class _PairHeadMSE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *tensors):
-        b0, y10, affines, (W, bias, tpack, tpoles) = (tensors[:4], tensors[4:8], tensors[8:12],
-                                                      tensors[12:])
-        ctx.save_for_backward(*tensors)
-        return pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles)
+        with tracing.span("kernel.PairHeadMSE"):
+            b0, y10, affines, (W, bias, tpack, tpoles) = (tensors[:4], tensors[4:8], tensors[8:12],
+                                                          tensors[12:])
+            ctx.save_for_backward(*tensors)
+            return pair_head_mse_fwd(b0, y10, affines, W, bias, tpack, tpoles)
 
     @staticmethod
     def backward(ctx, g):
-        t = ctx.saved_tensors
-        W, bias = t[12], t[13]
-        db0, dy10, dW, dbias, *daff = pair_head_mse_bwd(
-            g.float().contiguous(), t[:4], t[4:8], t[8:12], W, bias, t[14], t[15])
-        return (*db0, *dy10, *daff, dW.to(W.dtype), dbias.to(bias.dtype), None, None)
+        with tracing.span("kernel.PairHeadMSE.bwd"):
+            t = ctx.saved_tensors
+            W, bias = t[12], t[13]
+            db0, dy10, dW, dbias, *daff = pair_head_mse_bwd(
+                g.float().contiguous(), t[:4], t[4:8], t[8:12], W, bias, t[14], t[15])
+            return (*db0, *dy10, *daff, dW.to(W.dtype), dbias.to(bias.dtype), None, None)
 
 
 def fused_pair_head_mse(b0, y10, affines, Wh, bh, tpack, tpoles):

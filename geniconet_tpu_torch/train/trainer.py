@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from geniconet_tpu_torch import device as devices
+from geniconet_tpu_torch import tracing
 from geniconet_tpu_torch.bridge import (
     adam_state_from_flax, adam_state_to_flax, flax_path, flax_to_state_dict, init_variables,
     state_dict_to_flax,
@@ -96,11 +97,13 @@ _EVAL_STREAM = 0x7FFFFFFF  # offset of the eval generator's seed (JAX folds this
 
 
 def _to_host(values: dict) -> dict:
-    """{name: 0-d tensor or number} -> {name: float}, with one device sync."""
+    """{name: 0-d tensor or number} -> {name: float}, with one device sync
+    (the span ``sync``)."""
     keys = [k for k, v in values.items() if torch.is_tensor(v)]
     out = {k: float(v) for k, v in values.items() if not torch.is_tensor(v)}
     if keys:
-        host = torch.stack([values[k].detach().float() for k in keys]).cpu().tolist()
+        with tracing.span("sync"):
+            host = torch.stack([values[k].detach().float() for k in keys]).cpu().tolist()
         out.update(zip(keys, host))
     return {k: out[k] for k in values}
 
@@ -208,22 +211,31 @@ class Trainer:
         targets, wt (B,) sample weights; ``epoch`` sets the VAE's KL factor,
         whose eps come from ``generator`` (default: the trainer's);
         ``wsum``: the normaliser of the weighted means (None: this batch's
-        max(Σwt, 1); the global Σwt under data parallelism)."""
+        max(Σwt, 1); the global Σwt under data parallelism). The model's
+        call runs in the span ``forward``, the rest in ``loss``."""
         if self.is_vae:
             gen = self.generator if generator is None else generator
-            recon, mu, logvar = self.model(x, train=train, sample=True, generator=gen)
-            t = self.cfg.train
-            kf = kl_factor_at_epoch(epoch, step_size=t.factor_step_size, gamma=t.factor_gamma)
-            if train:
-                self.last_misc = self._global_misc(mu, logvar)
-            return p2pkld_loss(recon, mu, logvar, y, self.s, self.factors, kf, wt, wsum)
+            with tracing.span("forward"):
+                recon, mu, logvar = self.model(x, train=train, sample=True, generator=gen)
+            with tracing.span("loss"):
+                t = self.cfg.train
+                kf = kl_factor_at_epoch(epoch, step_size=t.factor_step_size, gamma=t.factor_gamma)
+                if train:
+                    self.last_misc = self._global_misc(mu, logvar)
+                return p2pkld_loss(recon, mu, logvar, y, self.s, self.factors, kf, wt, wsum)
         if not self.fused_mse:
-            return p2p_loss(self.model(x, train=train), y, self.s, self.factors, wt, wsum)
-        tpack, tpoles = pack_target_phases(y, self.s)
-        sse = self.model.recon_sse(x, tpack, tpoles, train=train)
-        l_pos = _wmean(sse / (ico.num_vertices(self.s) * 3.0), wt, wsum)
-        zero = torch.zeros((), device=l_pos.device)
-        return self.factors.pos * l_pos, {"mse": l_pos.detach(), "cos": zero, "lap": zero}
+            with tracing.span("forward"):
+                recon = self.model(x, train=train)
+            with tracing.span("loss"):
+                return p2p_loss(recon, y, self.s, self.factors, wt, wsum)
+        with tracing.span("loss"):
+            tpack, tpoles = pack_target_phases(y, self.s)
+        with tracing.span("forward"):
+            sse = self.model.recon_sse(x, tpack, tpoles, train=train)
+        with tracing.span("loss"):
+            l_pos = _wmean(sse / (ico.num_vertices(self.s) * 3.0), wt, wsum)
+            zero = torch.zeros((), device=l_pos.device)
+            return self.factors.pos * l_pos, {"mse": l_pos.detach(), "cos": zero, "lap": zero}
 
     def _global_misc(self, mu, logvar):
         """The VAE's (mu, logvar) of the global batch (JAX's ``misc_spec``):
@@ -248,19 +260,24 @@ class Trainer:
 
     def _update(self, state: TrainState, x, y, wt, epoch: int):
         """One update: (metrics, [(state_dict key, grad norm)] of every
-        parameter with a gradient)."""
+        parameter with a gradient). Spans: ``backward``; ``update`` with
+        ``grad_norm`` and ``optimizer``."""
         lr = self.lr_fn(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(x, y, wt, train=True, epoch=epoch, wsum=self._global_wsum(wt))
-        loss.backward()
+        with tracing.span("backward"):
+            loss.backward()
         loss, metrics = self._sum_over_ranks(
             loss, metrics, [p.grad for p in self.model.parameters() if p.grad is not None])
-        norms = [(k, torch.linalg.vector_norm(p.grad)) for k, p in self.model.named_parameters()
-                 if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack([n for _, n in norms]))
-        state.optimizer.step()
+        with tracing.span("update"):
+            with tracing.span("grad_norm"):
+                norms = [(k, torch.linalg.vector_norm(p.grad))
+                         for k, p in self.model.named_parameters() if p.grad is not None]
+                grad_norm = torch.linalg.vector_norm(torch.stack([n for _, n in norms]))
+            with tracing.span("optimizer"):
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr
+                state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(total=loss.detach(), lr=lr, finite=torch.isfinite(loss.detach()),
@@ -287,36 +304,48 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train_epoch(self, state: TrainState, batches, epoch: int):
-        """One pass over ``batches`` (a ``data/pipeline.py:Batches``).
-        Returns (state, info): ``iters``, ``seconds``, ``last`` (the last
-        metrics synced to the host, None if the cadence skipped every step)
-        and ``last_device`` (the last step's metrics as tensors)."""
+        """One pass over ``batches`` (a ``data/pipeline.py:Batches``), each
+        step in the span ``step``. Returns (state, info): ``iters``,
+        ``last`` (the last metrics synced to the host, None if the cadence
+        skipped every step) and ``last_device`` (the last step's metrics as
+        tensors). With ``debug_timing`` it prints the epoch's wall time a
+        step, the device drained at both ends."""
+        debug = self.cfg.train.debug_timing
+        if debug:
+            self._sync()
         t0 = time.perf_counter()
         n, last, metrics = 0, None, None
         log_freq = max(1, self.cfg.train.log_freq)
         gf_freq = self.cfg.train.log_grad_freq
         for i, (x, y, wt) in enumerate(batches.epoch()):
-            want_gflow = self.logger is not None and gf_freq and self._host_step % gf_freq == 0
-            metrics, norms = self._update(state, x, y, wt, epoch)
-            self._host_step += 1
-            n += 1
-            if (self._host_step - 1) % log_freq == 0:
-                # cadenced by the global step: the periodic sync doubles as
-                # the NaN guard (reference run.py:237), logger or not
-                last = _to_host(metrics)
-                if not last["finite"]:
-                    raise FloatingPointError(f"non-finite loss at epoch {epoch} iter {i}: {last}")
-                if self.logger is not None:
-                    self.logger.scalars("trn", last, state.step)
-            if want_gflow:
-                # per-parameter grad norms under the JAX names (reference run.py:264-267)
-                gflow = {"/".join(flax_path(k)[1]): v for k, v in norms}
-                self.logger.scalars("grad_flow", _to_host(gflow), state.step)
-        dt = time.perf_counter() - t0
-        if self.cfg.train.debug_timing:
+            with tracing.unit("step"):
+                want_gflow = self.logger is not None and gf_freq and self._host_step % gf_freq == 0
+                metrics, norms = self._update(state, x, y, wt, epoch)
+                self._host_step += 1
+                n += 1
+                if (self._host_step - 1) % log_freq == 0:
+                    # cadenced by the global step: the periodic sync doubles as
+                    # the NaN guard (reference run.py:237), logger or not
+                    last = _to_host(metrics)
+                    if not last["finite"]:
+                        raise FloatingPointError(
+                            f"non-finite loss at epoch {epoch} iter {i}: {last}")
+                    if self.logger is not None:
+                        self.logger.scalars("trn", last, state.step)
+                if want_gflow:
+                    # per-parameter grad norms under the JAX names (reference run.py:264-267)
+                    gflow = {"/".join(flax_path(k)[1]): v for k, v in norms}
+                    self.logger.scalars("grad_flow", _to_host(gflow), state.step)
+        if debug:
+            self._sync()
+            dt = time.perf_counter() - t0
             print(f"[debug] epoch {epoch}: {n} iters in {dt:.2f}s "
                   f"({dt / max(n, 1) * 1000:.1f} ms/iter)")
-        return state, {"iters": n, "seconds": dt, "last": last, "last_device": metrics}
+        return state, {"iters": n, "last": last, "last_device": metrics}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def validate(self, state: TrainState, batches, epoch: int) -> dict:
         """Weighted means of the eval metrics over ``batches``, summed on the
@@ -377,21 +406,35 @@ class Trainer:
             self.dp.barrier()  # the files are written before any rank goes on
         return state, history
 
+    @contextlib.contextmanager
     def _profiled(self, on: bool, epoch: int):
         """A ``torch.profiler`` trace of the block into ``profile_dir`` when
-        ``on`` and the directory is set (rank 0 only), else nothing."""
+        ``on`` and the directory is set (rank 0 only), else nothing. The
+        program's spans (``tracing``) are recorded meanwhile and written into
+        the trace as the process "program spans", placed on the trace's
+        clock by a clock mark at each end."""
         out = self.cfg.train.profile_dir
         if not (on and out and self.main):
-            return contextlib.nullcontext()
+            yield
+            return
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-
-        def export(prof):
-            os.makedirs(out, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(out, f"epoch{epoch}.trace.json"))
-
-        return torch.profiler.profile(activities=acts, on_trace_ready=export)
+        with torch.profiler.profile(activities=acts) as prof:
+            marks = [tracing.clock_mark("geniconet_tpu_torch.clock.start")]
+            tracing.start()
+            try:
+                yield
+            finally:
+                records = tracing.stop()
+                marks.append(tracing.clock_mark("geniconet_tpu_torch.clock.end"))
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"epoch{epoch}.trace.json")
+        prof.export_chrome_trace(path)
+        offsets = tracing.add_to_chrome_trace(path, records, marks)
+        found = " / ".join(f"{o:.1f} ± {e:.1f}" for o, e in offsets) or "no clock mark"
+        print(f"[profile] {path}: {len(records)} program spans; trace minus host clock "
+              f"at the marks {found} µs")
 
     # ------------------------------------------------------------------
     # checkpoints
