@@ -1,10 +1,13 @@
 """Shuffled training batches from a dataset held on the device.
 
 Port of ``geniconet_tpu/data/pipeline.py:Batches``: the packed dataset is
-copied to ``device`` once and every batch is an index gather there, so only
-the index array moves per step. The shuffle stream is the JAX package's
-(``np.random.RandomState(seed)``, one shuffle per epoch), so both packages
-see the same batches in the same order.
+copied to ``device`` once and every batch is an index gather there. An
+epoch's whole schedule (every batch's indices and weights) is built on the
+host when its first batch is requested and moves to a card in one
+asynchronous copy from pinned memory; each batch is then a slice of it, so
+nothing in an epoch waits on the device. The shuffle stream is the JAX
+package's (``np.random.RandomState(seed)``, one shuffle per epoch started),
+so both packages see the same batches in the same order.
 
 Data parallelism (``world`` ranks; the JAX ``sharding``): ``batch_size`` is
 the global batch, which ``world`` must divide. Every rank shuffles with the
@@ -102,12 +105,33 @@ class Batches:
                 idx, wt = idx[part], wt[part]
             yield idx, wt
 
+    def _schedule(self) -> tuple:
+        """This rank's (rows, weights, offsets) for one epoch, on the
+        device: every batch of ``epoch_indices()`` concatenated, batch k at
+        ``offsets[k]:offsets[k + 1]`` (host ints). On a card both arrays
+        go over in one asynchronous copy each from pinned memory (span
+        ``upload``); the caching host allocator keeps a pinned block from
+        reuse until the copy that read it has run."""
+        parts = list(self.epoch_indices())
+        offsets = np.cumsum([0] + [len(idx) for idx, _ in parts]).tolist()
+        rows = torch.from_numpy(np.concatenate([idx for idx, _ in parts]))
+        wts = torch.from_numpy(np.concatenate([wt for _, wt in parts]))
+        if self.device.type != "cpu":
+            with tracing.span("upload"):
+                rows = rows.pin_memory().to(self.device, non_blocking=True)
+                wts = wts.pin_memory().to(self.device, non_blocking=True)
+        return rows, wts, offsets
+
     def epoch(self) -> Iterator[tuple]:
         """Yield (inputs, targets, weights) for one epoch, gathered on the
-        device; each batch's copies and gathers run in the span ``data``
-        of the step that takes it (``tracing.ahead``)."""
-        for idx, wt in self.epoch_indices():
+        device from the epoch's ``_schedule()``, made when the first batch
+        is requested; each batch's slices and gathers (and the first's
+        schedule) run in the span ``data`` of the step that takes it
+        (``tracing.ahead``)."""
+        for k in range(len(self)):
             with tracing.ahead("data"):
-                i = torch.as_tensor(idx, device=self.device)
-                batch = self.inputs[i], self.targets[i], torch.as_tensor(wt, device=self.device)
+                if k == 0:
+                    rows, wts, offsets = self._schedule()
+                i = rows[offsets[k] : offsets[k + 1]]
+                batch = self.inputs[i], self.targets[i], wts[offsets[k] : offsets[k + 1]]
             yield batch

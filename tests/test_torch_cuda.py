@@ -2825,3 +2825,33 @@ def test_two_gloo_ranks_share_one_card(cuda, tmp_path):
         for a, b in zip(r["losses"], one, strict=True):
             assert abs(a - b) <= 2e-6 * abs(b), (a, b)
     assert torch.equal(r0["bits"], r1["bits"]) and bool((r0["bits"] == r0["bits"][:1]).all())
+
+
+def test_batches_make_no_synchronising_call_in_an_epoch(cuda):
+    """Two whole epochs of a shuffled ``Batches`` on the card under
+    ``set_sync_debug_mode("error")``, queued behind a long sleep kernel so
+    that each epoch's schedule is built and copied while earlier work still
+    runs; only then synchronised, every batch kept is bit-equal to the CPU
+    ``Batches``' of the same seed (a pinned buffer rewritten before its
+    copy ran would show here)."""
+    from geniconet_tpu_torch.data.datasets import synthetic_dataset
+    from geniconet_tpu_torch.data.pipeline import Batches
+
+    ds = synthetic_dataset(2, 23, seed=0)
+    card, host = Batches(ds, 4, seed=11), Batches(ds, 4, seed=11, device="cpu")
+    torch.cuda.synchronize()
+    kept = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(200_000_000)
+        for _ in range(2):
+            kept.append(list(card.epoch()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for got in kept:
+        want = list(host.epoch())
+        assert len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
